@@ -27,7 +27,7 @@ from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference, fused_ml
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "vit_tpu_torch"
 TINY = dict(image_size=16, patch_size=4, num_classes=5, dim=32, depth=2, heads=2,
-            dim_head=16, mlp_dim=64)
+            dim_head=16, mlp_dim=64, device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -55,7 +55,7 @@ def test_tpu_only_modes_raise(knob, mode):
 
 def test_unknown_mode_and_scan_layers_raise():
     with pytest.raises(ValueError, match="must be one of"):
-        Transformer(32, 1, 2, 16, 64, fused_mlp="sometimes")
+        Transformer(32, 1, 2, 16, 64, fused_mlp="sometimes", device="cpu")
     with pytest.raises(ValueError, match="scan_layers"):
         ViT(**TINY, scan_layers=True)
     q = torch.zeros(1, 2, 4, 8)
@@ -93,7 +93,9 @@ def test_plain_versions_match_the_modules():
     """The kernels' plain versions compute what the unfused modules compute
     (f32: same math, different association of the GEMM sums)."""
     x, (gamma, beta), mlp_w, attn_w = _block_weights()
-    ln, mlp, attn = LayerNorm(32), MLP(32, 64), Attention(32, 2, 16)
+    cpu = torch.device("cpu")
+    ln, mlp, attn = (LayerNorm(32, device=cpu), MLP(32, 64, device=cpu),
+                     Attention(32, 2, 16, device=cpu))
     with torch.no_grad():
         ln.weight.copy_(gamma)
         ln.bias.copy_(beta)
@@ -152,10 +154,11 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("VIT_TPU_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.library_path().parent == tmp_path
     assert _build.library_path().name.endswith(f"{_build.source_hash()}.so")
-    # Every entry point is declared with pointer-wide arguments for pointers.
+    # Every entry point is declared with pointer-wide arguments for pointers;
+    # the others take only integers (an error code, a row count).
     for name, (argtypes, _) in _build.SIGNATURES.items():
         assert name.startswith("vit_")
-        assert ctypes.c_void_p in argtypes or name == "vit_error_string"
+        assert ctypes.c_void_p in argtypes or argtypes == [ctypes.c_int]
     if not _build.shutil.which("nvcc") and not os.environ.get("CUDA_HOME") \
             and not Path("/usr/local/cuda/bin/nvcc").is_file():
         with pytest.raises(RuntimeError, match="nvcc not found"):

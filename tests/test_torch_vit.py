@@ -41,7 +41,7 @@ def _flax(kw, img, **mode):
 
 
 def _port(kw, variables):
-    model = ViT(**kw).eval()
+    model = ViT(**kw, device="cpu").eval()
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model
 
@@ -82,7 +82,7 @@ def test_converter_round_trips_every_leaf():
     leaves = jax.tree_util.tree_flatten_with_path(variables["params"])[0]
     state = state_dict_from_flax(variables)
     assert len(state) == len(leaves)
-    assert set(state) == set(ViT(**SMALL).state_dict())
+    assert set(state) == set(ViT(**SMALL, device="cpu").state_dict())
     unused = {k: v.numpy() for k, v in state.items()}
     for path, leaf in leaves:
         want = leaf.T if path[-1].key == "kernel" else leaf

@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of ``vit_tpu`` for NVIDIA Hopper (H100).
 
-Mirrors ``vit_tpu``'s layout and names.  The serving forward of ``ViT`` runs
-its transformer blocks through hand-written CUDA kernels on a 16-bit CUDA
-model (``vit_tpu_torch/csrc``); on the CPU the same ops run their plain
-PyTorch versions.  Imports ``torch``, never JAX.
+Mirrors ``vit_tpu``'s layout and names.  ``ViT`` serves and trains on the
+card: with 16-bit activations its transformer blocks run through hand-written
+CUDA kernels, forward and backward (``vit_tpu_torch/csrc``), and
+``vit_tpu_torch.parallel.train.make_train_step`` takes an f32-parameter,
+bf16-compute train step.  On the CPU the same ops run their plain PyTorch
+versions.  Imports ``torch``, never JAX.
 """
 
 from vit_tpu_torch.core.helpers import cast_params

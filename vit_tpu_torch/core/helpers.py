@@ -29,3 +29,16 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     resident instead of converting them on every forward).  Non-float
     tensors are left as they are (``nn.Module.to`` casts only floats)."""
     return module.to(dtype)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a module builds on: the card unless the caller asks for
+    another.  ``None`` is CUDA, and raises without a CUDA device rather than
+    build on the CPU unasked; pass ``device="cpu"`` for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: vit_tpu_torch builds on the card by default; "
+            "pass device='cpu' to build on the CPU")
+    return torch.device("cuda")

@@ -1,20 +1,32 @@
-// Hopper port of the TPU fused attention block (forward):
+// Hopper port of the TPU fused attention block, forward and backward:
 //   y = x + (softmax(q·kᵀ·scale)·v)·Woᵀ + bo,   q|k|v = LN(x)·Wqkvᵀ (no bias)
-// Replaces vit_tpu/ops/fused_attention_block.py::fused_attention_block
-// (_forward / _fwd_kernel).
+// Replaces vit_tpu/ops/fused_attention_block.py::fused_attention_block: the
+// forward (_forward / _fwd_kernel) and the backward (_backward / _bwd_kernel).
 //
 // The TPU kept a micro-batch of images in VMEM for the whole block.  On the
-// H100 the block is four hand-written kernels chained on one stream:
+// H100 the forward is four hand-written kernels chained on one stream:
 //   1. layernorm                                 -> xn (rows, d)
 //   2. linear (no epilogue)                      -> qkv (rows, 3·inner)
 //   3. mha_fwd over the packed qkv               -> oattn (rows, inner)
 //   4. linear (bias + residual epilogue)         -> y (rows, d)
 // xn, qkv and oattn go through device memory in scratch the wrapper
-// allocates; keeping them on chip, as the TPU kept them in VMEM, is the first
-// job of a later performance change.  The rounding points mirror the TPU kernel: xn,
+// allocates (and keeps, in training, as the TPU's save_residuals did);
+// keeping them on chip, as the TPU kept them in VMEM, is the first job of a
+// later performance change.  The rounding points mirror the TPU kernel: xn,
 // qkv and oattn are rounded to the compute dtype, the residual adds in it.
 // gamma/beta arrive in the compute dtype, as the TPU wrapper rounded them
 // (fused_attention_block.py:343).
+//
+// Backward (_bwd_kernel, fused_attention_block.py:169-258), four steps:
+//   1. linear dy·Wo                              -> doattn = T(dy·Wo) (rows, inner)
+//   2. mha_bwd over qkv and doattn (attention.cu) -> dqkv (rows, 3·inner)
+//   3. linear dqkv·Wqkv into f32                 -> dxn (rows, d)
+//   4. LayerNorm backward (layernorm.cu, shared with the MLP): dx = T(dy + T(dx_ln));
+//      Σ dxn·xhat, Σ dxn, Σ dy                   -> dγ, dβ, dbo
+// The weight gradients dWqkv = dqkvᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs
+// outside, as they were outside the Pallas kernel (:498-505).  Bound on the
+// H100: the doattn and dxn GEMMs plus the attention's 10·b·heads·n²·dim_head
+// FLOPs (79 GFLOP at B/16) at the 989 TFLOP/s bf16 peak, 0.08 ms.
 #include "kernels.cuh"
 
 extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
@@ -28,12 +40,40 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
   const int rows = b * n, inner = heads * dim_head;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(xn, wqkv, nullptr, nullptr, qkv, rows, 3 * inner, d, kEpiStore, dtype,
-                      stream);
+  err = launch_linear(xn, wqkv, kWeightNK, nullptr, nullptr, nullptr, qkv, nullptr, nullptr, rows,
+                      3 * inner, d, kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
   err = launch_mha_fwd(qkv, oattn, b, n, heads, dim_head, scale, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_linear(oattn, wo, bo, x, y, rows, d, inner, kEpiBiasResidual, dtype, stream);
+  return launch_linear(oattn, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, d, inner,
+                       kEpiBiasResidual, dtype, stream);
+}
+
+// Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and
+// sums_d = [dγ | dβ | dbo] (3·d,) in f32.  Scratch: doattn (rows, inner) in
+// the compute dtype; rowstat (b, heads, n, 2), dxn (rows, d), stats (rows, 2)
+// and part_d (vit_ln_bwd_partial_rows(rows), 3·d) in f32.
+extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, const void* qkv,
+                                             const void* gamma, const void* wqkv,
+                                             const void* wo, void* dx, void* dqkv,
+                                             float* sums_d, void* doattn, float* rowstat,
+                                             float* dxn, float* stats, float* part_d, int b,
+                                             int n, int d, int heads,
+                                             int dim_head, float scale, float eps, int dtype,
+                                             cudaStream_t stream) {
+  using namespace vit;
+  const int rows = b * n, inner = heads * dim_head;
+  if (rows <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr,
+                                  nullptr, rows, inner, d, kEpiStore, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_mha_bwd(qkv, doattn, dqkv, rowstat, b, n, heads, dim_head, scale, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_linear(dqkv, wqkv, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr,
+                      rows, d, 3 * inner, kEpiStoreF32, dtype, stream);
+  if (err != cudaSuccess) return err;
+  return launch_ln_bwd(x, dxn, gamma, dy, dx, stats, part_d, sums_d, rows, d, eps, dtype,
+                       stream);
 }
 
 extern "C" const char* vit_error_string(int err) {

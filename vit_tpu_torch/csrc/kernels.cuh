@@ -1,5 +1,6 @@
 // Shared device helpers and host launchers for the Hopper ports of the
-// transformer-block kernels (sm_90a, mma.sync m16n8k16, f32 accumulation).
+// transformer-block kernels, forward and backward (sm_90a, mma.sync m16n8k16,
+// f32 accumulation).
 //
 // Every launcher enqueues on the given stream, allocates nothing (the Python
 // wrapper passes outputs and scratch it allocated with torch.empty) and
@@ -17,11 +18,21 @@ namespace vit {
 // dtype codes shared with the Python wrappers (vit_tpu_torch/ops/_build.py).
 enum DType : int { kBF16 = 0, kF16 = 1 };
 
-// Epilogues of the row-major GEMM  out = epi(A · Wᵀ).
+// Layouts of the GEMM's weight B (linear.cu): an nn.Linear weight W (n, k) read
+// as Wᵀ (the forward GEMMs), or W (k, n) used as it lies (the dgrads).
+enum WeightLayout : int { kWeightNK = 0, kWeightKN = 1 };
+
+// Epilogues of the row-major GEMM  out = epi(A · B)  (linear.cu).  kWeightNK
+// takes the first four, kWeightKN kEpiStore, kEpiDGelu and kEpiStoreF32.
 enum Epilogue : int {
-  kEpiStore = 0,         // out = T(acc)                          (QKV)
-  kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1)
+  kEpiStore = 0,         // out = T(acc)                          (QKV; doattn = dy·Wo)
+  kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1, serving)
   kEpiBiasResidual = 2,  // out = T(res + T(acc + b))             (out-proj, fc2)
+  kEpiBiasGeluSave = 3,  // out = T(gelu_erf(acc + b)), aux = T(acc + b)   (fc1, training:
+                         //   keeps the pre-activation h for the backward)
+  kEpiDGelu = 4,         // out = T(acc·gelu'(h)), aux = T(gelu(h)), column sums of
+                         //   acc·gelu'(h) in f32, h read from aux_in   (MLP backward)
+  kEpiStoreF32 = 5,      // out = acc in f32                      (dxn = dqkv·Wqkv, dh·W1)
 };
 
 template <typename T>
@@ -31,6 +42,7 @@ template <>
 struct Num<__nv_bfloat16> {
   static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
   static __device__ __forceinline__ __nv_bfloat16 from_f(float v) { return __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ float round(float v) { return to_f(from_f(v)); }
   static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -49,6 +61,7 @@ template <>
 struct Num<__half> {
   static __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
   static __device__ __forceinline__ __half from_f(float v) { return __float2half_rn(v); }
+  static __device__ __forceinline__ float round(float v) { return to_f(from_f(v)); }
   static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
@@ -85,7 +98,14 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// ---- host launchers (defined in linear.cu / attention.cu) -----------------
+// Its derivative, cdf + x·pdf (vit_tpu/ops/fused_mlp.py:123-126).
+__device__ __forceinline__ float dgelu_erf(float v) {
+  const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+  const float pdf = 0.3989422804014327f * expf(-0.5f * v * v);
+  return cdf + v * pdf;
+}
+
+// ---- host launchers (defined in layernorm.cu, linear.cu, attention.cu) -------
 
 // xn (rows, d) = T((x - mean) * rstd * gamma + beta) per row of x (rows, d):
 // f32 statistics, biased two-pass variance, eps inside the rsqrt; gamma/beta
@@ -93,16 +113,44 @@ __device__ __forceinline__ float gelu_erf(float v) {
 cudaError_t launch_layernorm(const void* x, const void* gamma, const void* beta, void* xn,
                              int rows, int d, float eps, int dtype, cudaStream_t stream);
 
-// out (rows, n) = epi(A · Wᵀ) with A (rows, k) and W (n, k) both k-contiguous;
-// `bias` (n,) and `res` (rows, n) as the epilogue needs them.
-// k % 8 == 0 and n % 8 == 0.
-cudaError_t launch_linear(const void* a, const void* w, const void* bias, const void* res,
-                          void* out, int rows, int n, int k, int epilogue, int dtype,
+// LayerNorm backward of both blocks, given dxn (rows, d) in f32, the gradient
+// at the LayerNorm's output.  Per row, from recomputed statistics:
+//   dx = T(dy + T(rstd·(dxhat - mean(dxhat) - xhat·mean(dxhat·xhat)))),
+//   dxhat = dxn·gamma.
+// Column sums in f32, in a fixed order (per-block partials, then a second
+// pass): sums = [Σ dxn·xhat | Σ dxn | Σ dy], each (d,).  `stats` (rows, 2)
+// and `partial` (ln_bwd_partial_rows(rows), 3·d) are f32 scratch.
+cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, const void* dy,
+                          void* dx, float* stats, float* partial, float* sums, int rows, int d,
+                          float eps, int dtype, cudaStream_t stream);
+int ln_bwd_partial_rows(int rows);  // the wrappers size `partial` by vit_ln_bwd_partial_rows
+
+// out (m,) = Σ_p partial[p, :] over `parts` rows of f32 partial sums, in order.
+cudaError_t launch_colsum(const float* partial, int parts, int m, float* out,
                           cudaStream_t stream);
+
+// out (rows, n) = epi(A · B) with A (rows, k) k-contiguous and B = Wᵀ for an
+// nn.Linear weight W (n, k) (layout kWeightNK), or B = W (k, n) n-contiguous
+// (kWeightKN).  `bias` (n,), `res`, `aux_in` and `aux_out` (rows, n) and the
+// column partial sums `partial` (linear_partial_rows(rows), n; kEpiDGelu) as
+// the epilogue needs them, null otherwise.  k % 8 == 0 and n % 8 == 0.
+cudaError_t launch_linear(const void* a, const void* w, int layout, const void* bias,
+                          const void* res, const void* aux_in, void* out, void* aux_out,
+                          float* partial, int rows, int n, int k, int epilogue, int dtype,
+                          cudaStream_t stream);
+int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear_partial_rows
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
 // q|k|v thirds; writes (b, n, heads·dim_head).  dim_head ∈ {32, 64, 128}.
 cudaError_t launch_mha_fwd(const void* qkv, void* out, int b, int n, int heads,
                            int dim_head, float scale, int dtype, cudaStream_t stream);
+
+// Its backward: from qkv and dout = dL/d(attention output) (b, n, heads·dim_head),
+// writes dqkv (b, n, 3·heads·dim_head) in the packed q|k|v layout.  `rowstat`
+// (b, heads, n, 2) f32 scratch receives each query row's log-sum-exp and
+// Σ_j dp·p.  dim_head ∈ {32, 64, 128}; any n.
+cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float* rowstat,
+                           int b, int n, int heads, int dim_head, float scale, int dtype,
+                           cudaStream_t stream);
 
 }  // namespace vit

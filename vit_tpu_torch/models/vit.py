@@ -1,10 +1,17 @@
 """ViT — canonical Vision Transformer (port of ``vit_tpu/models/vit.py``).
 
 Same constructor kwargs as ``vit_tpu.ViT`` (reference vit.py:106-177), plus
-PyTorch's ``device=`` / ``dtype=``, a ``generator=`` for the initialisation
-and ``channels=`` (Flax infers the patch width from the first input).
-``dtype`` is the parameter dtype, and so the compute dtype: build in f32 and
-:func:`vit_tpu_torch.cast_params` to bf16 for serving.
+PyTorch's ``device=`` / ``dtype=``, ``compute_dtype=``, a ``generator=`` for
+the initialisation and ``channels=`` (Flax infers the patch width from the
+first input).  The model builds on the card unless ``device`` asks for
+another.  ``dtype`` is the parameter dtype; ``compute_dtype`` is
+``vit_tpu``'s ``dtype``, the dtype of the activations, in which the
+embedding, the encoder, the pooling and the head run, with the weights cast
+to it in each forward inside autograd.  Training: f32 parameters and
+``compute_dtype=torch.bfloat16``, so gradients land in f32 (see
+:mod:`vit_tpu_torch.parallel.train`).  ``compute_dtype=None`` computes in the
+parameter dtype at call time: serving builds in f32 and
+:func:`vit_tpu_torch.cast_params` to bf16.
 Images are NHWC ``(b, h, w, c)``, as in ``vit_tpu``.
 
 The encoder protocol (:meth:`to_patch`, :meth:`patch_to_emb`, :meth:`embed`,
@@ -17,8 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vit_tpu_torch.core.helpers import pair
-from vit_tpu_torch.layers.common import LayerNorm, Transformer, glorot_linear_
+from vit_tpu_torch.core.helpers import pair, resolve_device
+from vit_tpu_torch.layers.common import LayerNorm, Transformer, glorot_linear_, linear
 from vit_tpu_torch.ops.patchify import patchify
 
 
@@ -30,8 +37,8 @@ class ViT(nn.Module):
                  dim_head: int = 64, dropout: float = 0.0, emb_dropout: float = 0.0,
                  dtype: torch.dtype | None = None, scan_layers: bool = False,
                  fused_attention: str = "auto", fused_mlp: str = "auto", *,
-                 channels: int = 3, device=None,
-                 generator: torch.Generator | None = None):
+                 compute_dtype: torch.dtype | None = None, channels: int = 3,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         image_height, image_width = pair(image_size)
         patch_height, patch_width = pair(patch_size)
@@ -45,9 +52,10 @@ class ViT(nn.Module):
                 "stacked layers); PyTorch runs eagerly and has no counterpart")
         self.patch_size = (patch_height, patch_width)
         self.pool = pool
+        self.compute_dtype = compute_dtype
         num_patches = (image_height // patch_height) * (image_width // patch_width)
         patch_dim = patch_height * patch_width * channels
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
 
         self.patch_embedding = glorot_linear_(nn.Linear(patch_dim, dim, **kw), generator)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, **kw))
@@ -59,7 +67,7 @@ class ViT(nn.Module):
         self.transformer = Transformer(
             dim, depth, heads, dim_head, mlp_dim, dropout=dropout,
             fused_mlp=fused_mlp, fused_attention=fused_attention,
-            generator=generator, **kw)
+            compute_dtype=compute_dtype, generator=generator, **kw)
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
@@ -69,12 +77,12 @@ class ViT(nn.Module):
         return patchify(img, *self.patch_size)
 
     def patch_to_emb(self, patches: torch.Tensor) -> torch.Tensor:
-        """Patch vectors → tokens via the embedding GEMM."""
-        return self.patch_embedding(patches)
+        """Patch vectors → tokens via the embedding GEMM, in their dtype."""
+        return linear(self.patch_embedding, patches)
 
     def embed(self, img: torch.Tensor) -> torch.Tensor:
-        """patchify → embed → +CLS → +pos → dropout, in the parameter dtype."""
-        img = img.to(self.patch_embedding.weight.dtype)
+        """patchify → embed → +CLS → +pos → dropout, in the compute dtype."""
+        img = img.to(self.compute_dtype or self.patch_embedding.weight.dtype)
         x = self.patch_to_emb(self.to_patch(img))
         b, n, _ = x.shape
         cls_tokens = self.cls_token.to(x.dtype).expand(b, -1, -1)
@@ -85,4 +93,4 @@ class ViT(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = self.transformer(self.embed(img))
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
-        return self.head(self.head_norm(x))
+        return linear(self.head, self.head_norm(x))

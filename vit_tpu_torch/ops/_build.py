@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and bind them with ``ctypes``.
 
 Every ``*.cu`` under ``vit_tpu_torch/csrc`` is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
-into ``build/kernels/`` at the root of the checkout (git-ignored; set
+``sm_90a``, one process per source, all started together, and linked into one
+shared library with a plain C interface, at first use, into
+``build/kernels/`` at the root of the checkout (git-ignored; set
 ``VIT_TPU_TORCH_BUILD_DIR`` to build elsewhere).  The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing library.  Only the sources in the checkout are
@@ -28,10 +29,9 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/kernels.cuh (vit::DType).
@@ -48,13 +48,34 @@ SIGNATURES = {
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
     ),
+    "vit_fused_attention_block_bwd": (
+        # dy, x, qkv, gamma, wqkv, wo, dx, dqkv, sums_d, doattn, rowstat, dxn,
+        # stats, part_d,
+        [_P] * 14
+        # b, n, d, heads, dim_head, scale, eps, dtype, stream
+        + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
+        ctypes.c_int,
+    ),
     "vit_fused_mlp_fwd": (
-        # x, gamma, beta, w1, b1, w2, b2, y, xn, h,
-        [_P] * 10
+        # x, gamma, beta, w1, b1, w2, b2, y, xn, g, h (null when serving),
+        [_P] * 11
         # rows, d, hidden, eps, dtype, stream
         + [_I, _I, _I, _F, _I, _P],
         ctypes.c_int,
     ),
+    "vit_fused_mlp_bwd": (
+        # dy, x, h, gamma, w1, w2, dx, dh, gact, sums_h, sums_d, dxn, stats,
+        # part_h, part_d,
+        [_P] * 15
+        # rows, d, hidden, eps, dtype, stream
+        + [_I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    # Rows of the f32 column partial sums the backward entry points take for
+    # `rows` rows: part_h (the dGELU GEMM's) and part_d (the LayerNorm
+    # backward's).
+    "vit_linear_partial_rows": ([_I], ctypes.c_int),
+    "vit_ln_bwd_partial_rows": ([_I], ctypes.c_int),
     "vit_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -106,19 +127,35 @@ def build() -> tuple[Path, str]:
     if out.is_file():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename, so that a concurrent process
-    # never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    # Objects and the library are built in a private directory and the
+    # library renamed into place, so that a concurrent process never loads a
+    # half-written one.
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, out)
+    return out, "".join(logs)
 
 
 @functools.cache

@@ -7,14 +7,10 @@ import torch
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 
-def forbid_grad(name: str, *tensors) -> None:
-    """The Hopper kernels are forward only until their backward kernels are
-    ported; refuse a call that autograd would have to differentiate."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() / torch.inference_mode(), or build the model with "
-            "fused_attention='never', fused_mlp='never' for the plain path")
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these tensors: the op then runs its
+    training forward, which keeps the residuals its backward needs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_kernel_tensors(name: str, x: torch.Tensor, weights: dict) -> None:
