@@ -12,19 +12,23 @@ returns ``T(x + T(f(x)))``, so an element may differ by one unit of the output
 (the final add's rounding) plus ``2e-2 · max|ref - x|``, a few units of the
 block's own output; the residual x ~ N(0, 1) does not widen the bound.  The
 backward's outputs are held the same way: dx = T(dy + T(dx_ln)) against its
-residual dy, the others (dh, gact, dqkv and the f32 sums) against 0.
+residual dy, the others (dh, gact, dqkv and the f32 sums) against 0.  The
+biased block's dbias, an f32 sum over images and heads, has its own bound
+(``chip_smoke.check_dbias``).
 """
 
 import pytest
 import torch
 
-from chip_smoke import block_error, check_outputs
+from chip_smoke import block_error, check_dbias, check_outputs
 from vit_tpu_torch import ViT, cast_params
+from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.ops import fused_attention_block as fused_attention_block_ops
 from vit_tpu_torch.ops import fused_mlp as fused_mlp_ops
 from vit_tpu_torch.ops.fused_attention_block import (
     fused_attention_block, fused_attention_block_backward,
-    fused_attention_block_backward_reference, fused_attention_block_forward_reference,
+    fused_attention_block_backward_reference, fused_attention_block_bias,
+    fused_attention_block_bias_backward, fused_attention_block_forward_reference,
     fused_attention_block_reference,
 )
 from vit_tpu_torch.ops.fused_mlp import (
@@ -291,4 +295,125 @@ def test_train_step_on_the_card(cuda):
         losses.append(float(step(img, labels)["loss"]))
         assert [a - b for a, b in zip(_launches(), counts)] == [2, 2, 2, 2]
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert losses[2] < losses[0]
+
+
+def _bias(kind, heads, n, device, seed=5):
+    """A ``(1, n, n)`` or ``(heads, n, n)`` f32 logits bias, or LSA's mask."""
+    if kind == "lsa":
+        return vit_for_small_dataset.lsa_bias(n, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(1 if kind == "shared" else heads, n, n, generator=g, device=device) * 0.5
+
+
+@pytest.mark.parametrize("n", [65, 197, 257])
+@pytest.mark.parametrize("kind", ["shared", "per-head"])
+def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
+    """Serving forward, training forward and backward (dbias included) of the
+    biased block against their plain versions."""
+    b, d, heads, dh = 2, 256, 4, 64
+    args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=4)
+    x, gamma, beta, wqkv, wo, bo = args
+    bias = _bias(kind, heads, n, cuda)
+    with torch.inference_mode():
+        before = (fused_attention_block.launches, fused_attention_block_bias.launches)
+        out = fused_attention_block_bias(*args, bias, heads, dh)
+        torch.cuda.synchronize()
+        assert (fused_attention_block.launches,
+                fused_attention_block_bias.launches) == (before[0], before[1] + 1)
+        _close(out, fused_attention_block_reference(*args, heads, dh, bias=bias), x)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias)
+    check_outputs(torch, "biased training forward", fwd,
+                  fused_attention_block_forward_reference(*args, heads, dh, bias=bias), {0: x})
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda).to(torch.bfloat16)
+    before = (fused_attention_block_backward.launches, fused_attention_block_bias_backward.launches)
+    got = fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads, dh)
+    torch.cuda.synchronize()
+    assert (fused_attention_block_backward.launches,
+            fused_attention_block_bias_backward.launches) == (before[0], before[1] + 1)
+    ref = fused_attention_block_backward_reference(dy, x, fwd[2], gamma, wqkv, wo, heads, dh,
+                                                   bias=bias)
+    check_outputs(torch, "biased backward", got[:5], ref[:5], {0: dy})
+    check_dbias(torch, "biased backward", got[5], ref[5])
+
+
+@pytest.mark.parametrize("hb", [1, 4])
+def test_dbias_is_the_same_bits_every_run(cuda, hb):
+    b, n, d, heads, dh = 8, 257, 256, 4, 64
+    args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=7)
+    x, gamma, beta, wqkv, wo, bo = args
+    bias = _bias("shared" if hb == 1 else "per-head", heads, n, cuda)
+    qkv = fused_attention_block_forward_reference(*args, heads, dh, bias=bias)[2]
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(8),
+                     device=cuda).to(torch.bfloat16)
+    runs = [fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh)[5]
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("n", [65, 257])
+def test_lsa_bias_gives_finite_outputs_one_past_a_key_tile(cuda, n):
+    """LSA's -f32.max diagonal at n ≡ 1 (mod 64), where the last key tile's
+    only key is the last query's own masked one: finite, and as the plain
+    version computes it, forward and backward."""
+    b, d, heads, dh = 2, 256, 4, 64
+    args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=9)
+    x, gamma, beta, wqkv, wo, bo = args
+    bias = _bias("lsa", heads, n, cuda)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, 1.0, 1e-3, bias)
+    check_outputs(torch, "LSA training forward", fwd,
+                  fused_attention_block_forward_reference(*args, heads, dh, 1.0, bias=bias),
+                  {0: x})
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(10),
+                     device=cuda).to(torch.bfloat16)
+    got = fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads, dh,
+                                              1.0, need_dbias=False)
+    assert got[5] is None
+    ref = fused_attention_block_backward_reference(dy, x, fwd[2], gamma, wqkv, wo, heads, dh,
+                                                   1.0, bias=bias, need_dbias=False)
+    check_outputs(torch, "LSA backward", got[:5], ref[:5], {0: dy})
+
+
+def test_bias_that_the_kernel_does_not_take_raises_on_the_card(cuda):
+    x, *rest = _attn_args(2, 9, 96, 3, 32, torch.bfloat16, cuda)
+    xg = x.detach().requires_grad_()
+    for bad in (torch.zeros(1, 9, 9, device=cuda, dtype=torch.bfloat16),
+                torch.zeros(2, 9, 9, device=cuda), torch.zeros(1, 9, 10, device=cuda),
+                torch.zeros(1, 9, 9)):
+        with torch.inference_mode(), pytest.raises(ValueError, match="bias"):
+            fused_attention_block_bias(x, *rest, bad, 3, 32)
+        with pytest.raises(ValueError, match="bias"):
+            fused_attention_block_bias(xg, *rest, bad, 3, 32)
+
+
+def _bias_launches():
+    return (fused_attention_block.launches, fused_attention_block_bias.launches,
+            fused_mlp.launches, fused_attention_block_backward.launches,
+            fused_attention_block_bias_backward.launches, fused_mlp_backward.launches)
+
+
+def test_small_dataset_vit_runs_the_biased_kernel_at_every_layer(cuda):
+    """Serving and a train step of the small-dataset ViT: the biased kernels
+    and the MLP kernels depth times each, the unbiased block never; f32
+    gradients, the temperatures' included, and a falling loss."""
+    cfg = dict(image_size=32, patch_size=4, num_classes=10, dim=96, depth=2, heads=3,
+               dim_head=32, mlp_dim=192)  # n = 65
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = vit_for_small_dataset.ViT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    img = torch.randn(8, 32, 32, 3, generator=g, device=cuda)
+    with torch.inference_mode():
+        counts = _bias_launches()
+        out = model.eval()(img)
+    assert [a - b for a, b in zip(_bias_launches(), counts)] == [0, 2, 2, 0, 0, 0]
+    assert out.shape == (8, 10) and torch.isfinite(out).all()
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.05))
+    labels = torch.arange(8, device=cuda) % 10
+    losses = []
+    for _ in range(3):
+        counts = _bias_launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(_bias_launches(), counts)] == [0, 2, 2, 0, 2, 2]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert all(float(layer["attn"].temperature.grad) != 0 for layer in model.layers)
     assert losses[2] < losses[0]

@@ -155,10 +155,10 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
     assert _build.library_path().parent == tmp_path
     assert _build.library_path().name.endswith(f"{_build.source_hash()}.so")
     # Every entry point is declared with pointer-wide arguments for pointers;
-    # the others take only integers (an error code, a row count).
+    # the others take only integers (an error code, a row count, shapes).
     for name, (argtypes, _) in _build.SIGNATURES.items():
         assert name.startswith("vit_")
-        assert ctypes.c_void_p in argtypes or argtypes == [ctypes.c_int]
+        assert ctypes.c_void_p in argtypes or set(argtypes) == {ctypes.c_int}
     if not _build.shutil.which("nvcc") and not os.environ.get("CUDA_HOME") \
             and not Path("/usr/local/cuda/bin/nvcc").is_file():
         with pytest.raises(RuntimeError, match="nvcc not found"):

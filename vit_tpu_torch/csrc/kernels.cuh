@@ -141,16 +141,29 @@ cudaError_t launch_linear(const void* a, const void* w, int layout, const void* 
 int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear_partial_rows
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
-// q|k|v thirds; writes (b, n, heads·dim_head).  dim_head ∈ {32, 64, 128}.
-cudaError_t launch_mha_fwd(const void* qkv, void* out, int b, int n, int heads,
-                           int dim_head, float scale, int dtype, cudaStream_t stream);
+// q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
+// (hb, n, n) f32 logits bias added after the scale, shared by every head when
+// hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64, 128}.
+cudaError_t launch_mha_fwd(const void* qkv, void* out, const float* bias, int hb, int b, int n,
+                           int heads, int dim_head, float scale, int dtype,
+                           cudaStream_t stream);
 
 // Its backward: from qkv and dout = dL/d(attention output) (b, n, heads·dim_head),
 // writes dqkv (b, n, 3·heads·dim_head) in the packed q|k|v layout.  `rowstat`
 // (b, heads, n, 2) f32 scratch receives each query row's log-sum-exp and
-// Σ_j dp·p.  dim_head ∈ {32, 64, 128}; any n.
+// Σ_j dp·p.  `bias` as for the forward.  dim_head ∈ {32, 64, 128}; any n.
 cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float* rowstat,
-                           int b, int n, int heads, int dim_head, float scale, int dtype,
-                           cudaStream_t stream);
+                           const float* bias, int hb, int b, int n, int heads, int dim_head,
+                           float scale, int dtype, cudaStream_t stream);
+
+// The bias gradient dbias (hb, n, n) f32 = Σ over images (and over heads when
+// hb == 1) of p·(dp - dsum), after launch_mha_bwd has filled `rowstat`, in a
+// fixed order: per-part sums into `partial` (mha_dbias_parts(...), hb, n, n)
+// f32 scratch, then the parts added in order.
+cudaError_t launch_mha_dbias(const void* qkv, const void* dout, const float* rowstat,
+                             const float* bias, int hb, float* partial, float* dbias, int b,
+                             int n, int heads, int dim_head, float scale, int dtype,
+                             cudaStream_t stream);
+int mha_dbias_parts(int b, int n, int heads, int hb);  // the wrappers use vit_attention_dbias_parts
 
 }  // namespace vit

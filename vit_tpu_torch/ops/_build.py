@@ -42,16 +42,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (argtypes, restype).
 SIGNATURES = {
     "vit_fused_attention_block_fwd": (
-        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn,
-        [_P] * 10
+        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, bias (or null), hb,
+        [_P] * 10 + [_P, _I]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
     ),
     "vit_fused_attention_block_bwd": (
         # dy, x, qkv, gamma, wqkv, wo, dx, dqkv, sums_d, doattn, rowstat, dxn,
-        # stats, part_d,
-        [_P] * 14
+        # stats, part_d, bias (or null), hb, dbias and dbias_part (or null),
+        [_P] * 14 + [_P, _I, _P, _P]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
@@ -76,6 +76,8 @@ SIGNATURES = {
     # backward's).
     "vit_linear_partial_rows": ([_I], ctypes.c_int),
     "vit_ln_bwd_partial_rows": ([_I], ctypes.c_int),
+    # Parts of the dbias scratch for (b, n, heads, hb).
+    "vit_attention_dbias_parts": ([_I] * 4, ctypes.c_int),
     "vit_error_string": ([_I], ctypes.c_char_p),
 }
 

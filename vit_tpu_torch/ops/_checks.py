@@ -8,9 +8,10 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def needs_grad(*tensors) -> bool:
-    """Whether autograd records a call on these tensors: the op then runs its
-    training forward, which keeps the residuals its backward needs."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    """Whether autograd records a call on these tensors (``None`` for an
+    absent one): the op then runs its training forward, which keeps the
+    residuals its backward needs."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def check_kernel_tensors(name: str, x: torch.Tensor, weights: dict) -> None:
