@@ -65,14 +65,34 @@ Phases, one line each (any failure raises and exits non-zero):
    Each temperature's step-1 gradient is held to one bf16 unit of the
    terms it sums (:func:`check_temperatures`), at the phase's seed and a
    second one.
-11. profile: ``torch.profiler`` over train steps at the three training
-   configs; device time and launches per step by kernel group, idle share.
+11. flash kernels, bf16 inputs from a seeded generator laid out as CvT hands
+   them over (q a view of a channels-last (b, n, h·d) map, k and v views of
+   the two halves of one (b, n, 2·h·d) projection), at CvT-13's shapes
+   (64, 1, 3136 | 784, 64), (64, 1, 9216 | 2304, 64) and (64, 3, 2304 | 576,
+   64), at (4, 16, 8192, 64) through ``scaled_dot_product_attention`` (vit_tpu's
+   flash_attention_v2 tier) and at (64, 2, 4096, 32): out and lse against the
+   plain version, dq/dk/dv against the plain backward fed the kernel's own out
+   and lse, the backward twice bit for bit; times of the kernel, its plain
+   version and PyTorch's ``scaled_dot_product_attention`` (autograd through it
+   for the backward), and the bound.  Then, below the 1024 gate, at CvT's
+   stage-2 and stage-3 shapes: the kernel against the dispatcher's plain path
+   and SDPA, forward and backward.
+12. CvT-13 (``vit_tpu``'s CvT defaults, ``benchmarks/run_benchmarks.py:91``)
+   serving at 224 and 384 px, batch 64, as phase 5 (its plain path is
+   ``use_flash="never"``): the flash kernel launches once per forward at 224
+   (stage 1) and three times at 384 (stages 1 and 2); and training at 224 and
+   384, batch 64, as phase 7, the flash forward and backward launched 1 and 3
+   times per step, BatchNorm's running statistics finite and updated.
+13. profile: ``torch.profiler`` over train steps at the four training
+   configs; device time and launches per step by kernel group, idle share,
+   the host's enqueue time per step and the synchronising calls in a step.
 
-Each main path (serving B/16, B/32 and small-dataset, training B/32, B/16 and
-small-dataset) runs with every kernel's launch counter set to 0 just before it
-and read just after.  The line before the last is the card as ``nvidia-smi``
-names it; before that a JSON line with each kernel's launches (over the main
-paths, and per path), error, times and bound.  The last line is
+Each main path (serving B/16, B/32, small-dataset, CvT-13 @224 and @384,
+training B/32, B/16, small-dataset, CvT-13 @224 and @384) runs with every
+kernel's launch counter set to 0 just before it and read just after.  The
+line before the last is the card as ``nvidia-smi`` names it; before that a
+JSON line with each kernel's launches (over the main paths, and per path),
+error, times and bound.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -94,6 +114,10 @@ ENTRY = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6,
 # vit_for_small_dataset.ViT as benchmarks/run_benchmarks.py:149-151 ran it: n=257.
 SMALL_DATASET = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=6,
                      heads=16, mlp_dim=2048)
+# CvT-13, vit_tpu's CvT defaults, as benchmarks/run_benchmarks.py:91 builds
+# it; served and trained at 224 px (the JAX package's config) and at 384 px
+# (the CvT paper's CvT-13↑384 fine-tuning resolution).
+CVT13 = dict(num_classes=1000)
 # Kernel against its plain version on the same bf16 inputs, for a residual
 # block y = T(x + T(f(x))): both round at the same points and differ by f32
 # summation order, which can flip a rounding of an intermediate by one bf16
@@ -157,6 +181,18 @@ TEMPERATURE_TERMS_TOL = 2.0 ** -8
 # from one of the recomputed softmaxes, which moves dbias by the order of
 # max|ref|.
 DBIAS_REL_TOL = 1e-3
+# Flash kernel against its plain version on the same bf16 inputs: both round
+# P (and in the backward ds and p) to bf16, the kernel against its key tile's
+# running max, the plain version against the row's max, and they sum in
+# another order, so a rounding of a P element may differ by one unit.  Summed
+# over hundreds of keys with random signs, that stays a few bf16 units of the
+# output: each element of out, dq, dk and dv may differ by one unit of its
+# dtype plus KERNEL_REL_TOL·max|ref| (check_outputs with no residual).  A
+# kernel that drops the ragged-key mask, the running rescale or the scale
+# misses that, or LSE_ABS_TOL: lse is f32 on both sides, from the same bf16
+# products, and differs only by f32 summation order (1e-6); a key past n_k
+# left in the sum moves it by 1e-2 and more.
+LSE_ABS_TOL = 1e-3
 TRAIN_STEPS = 4
 # The H100 SXM's dense bf16 tensor-core peak and memory rate (NVIDIA's data
 # sheet, at the full 700 W), for each kernel's bound.
@@ -649,11 +685,164 @@ def spt_phase(torch, batch, size, patch, dim, smi):
         raise AssertionError(f"spt: convolution form {err_c} from f32, eager bf16 {err_e}")
 
 
+PLAIN_KW = dict(fused_attention="never", fused_mlp="never")  # the ViTs' plain path
+
+# (tag, b, heads, n_q, n_k, d): CvT-13's flash shapes at batch 64, the tier
+# above n_k = 4096 (vit_tpu's flash_attention_v2) and ScalableViT's IWSA width.
+FLASH_SHAPES = [
+    ("CvT-13@224 stage 1", 64, 1, 3136, 784, 64),
+    ("CvT-13@384 stage 1", 64, 1, 9216, 2304, 64),
+    ("CvT-13@384 stage 2", 64, 3, 2304, 576, 64),
+    ("n=8192, through the dispatcher", 4, 16, 8192, 8192, 64),
+    ("n=4096, d=32", 64, 2, 4096, 4096, 32),
+]
+# CvT-13's attention shapes below the 1024 gate, where the plain path runs.
+BELOW_GATE_SHAPES = [
+    ("CvT-13@224 stage 2", 64, 3, 784, 196, 64),
+    ("CvT-13@384 stage 3", 64, 6, 576, 144, 64),
+    ("CvT-13@224 stage 3", 64, 6, 196, 49, 64),
+]
+
+
+def flash_inputs(torch, b, h, n_q, n_k, d, seed):
+    """Seeded bf16 q, k, v and cotangent as CvT hands them over: q and the
+    cotangent (b, h, n, d) views of channels-last (b, n, h·d) maps, k and v
+    views of the two halves of one (b, n_k, 2·h·d) projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def fold(t):
+        return t.reshape(b, t.shape[1], h, d).permute(0, 2, 1, 3)
+
+    k, v = (fold(t) for t in rn(b, n_k, 2 * h * d).chunk(2, dim=-1))
+    return fold(rn(b, n_q, h * d)), k, v, fold(rn(b, n_q, h * d))
+
+
+def flash_bounds(b, h, n_q, n_k, d):
+    """Bounds of the two flash kernels: the TPU kernels' FLOPs (4 and 14 per
+    element pair and width); q, k, v (and out, lse, dout) read once, out and
+    lse (dq, dk, dv) written once, bf16 with f32 lse."""
+    pairs = b * h * n_q * n_k * d
+    q_bytes, k_bytes, lse_bytes = 2 * b * h * n_q * d, 2 * b * h * n_k * d, 4 * b * h * n_q
+    return {"flash_attention": bound(4 * pairs, 2 * q_bytes + 2 * k_bytes + lse_bytes),
+            "flash_backward": bound(14 * pairs, 4 * q_bytes + 4 * k_bytes + lse_bytes)}
+
+
+def sdpa_backward(torch, F, q, k, v, do, scale):
+    """Autograd through PyTorch's scaled_dot_product_attention for dq, dk, dv."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    y = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    return lambda: torch.autograd.grad(y, (qg, kg, vg), do, retain_graph=True)
+
+
+def flash_phase(torch, results, smi):
+    """The flash kernels at FLASH_SHAPES: out and lse against the plain
+    version; dq, dk, dv against the plain backward fed the kernel's own out
+    and lse, and twice bit for bit; times of the kernels, their plain
+    versions and PyTorch's SDPA (autograd through it for the backward)."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    for i, (tag, b, h, n_q, n_k, d) in enumerate(FLASH_SHAPES):
+        q, k, v, do = flash_inputs(torch, b, h, n_q, n_k, d, seed=20 + i)
+        scale = d ** -0.5
+        shape = f"[{tag}: b={b} heads={h} n_q={n_q} n_k={n_k} d={d}]"
+        before = fa.flash_attention.launches
+        with torch.inference_mode():
+            via = scaled_dot_product_attention(q, k, v, scale=scale) if n_k > 4096 else None
+            out, lse = fa.flash_attention_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        if fa.flash_attention.launches != before + 1 + (via is not None):
+            raise AssertionError(f"flash forward {shape}: launch counter did not move")
+        if via is not None and not torch.equal(via, out):
+            raise AssertionError(f"flash forward {shape}: the dispatcher's output differs")
+        ref_out, ref_lse = fa.flash_attention_forward_reference(q, k, v, scale)
+        err = check_outputs(torch, f"flash forward {shape}", (out,), (ref_out,), {})
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (lse.dtype == torch.float32 and lse_err <= LSE_ABS_TOL):
+            raise AssertionError(f"flash forward {shape}: lse differs by {lse_err}")
+        del ref_out, ref_lse
+        before = fa.flash_backward.launches
+        grads = fa.flash_backward(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        if fa.flash_backward.launches != before + 1:
+            raise AssertionError(f"flash backward {shape}: launch counter did not move")
+        bwd_err = check_outputs(torch, f"flash backward {shape}", grads,
+                                fa.flash_backward_reference(q, k, v, out, lse, do, scale), {})
+        again = fa.flash_backward(q, k, v, out, lse, do, scale)
+        if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+            raise AssertionError(f"flash backward {shape}: two runs differ")
+        del grads, again
+        bounds = flash_bounds(b, h, n_q, n_k, d)
+        fwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: fa.flash_attention_forward(q, k, v, scale),
+            "plain": lambda: fa.flash_attention_forward_reference(q, k, v, scale),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)},
+            rounds=3, calls=3)
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: fa.flash_backward(q, k, v, out, lse, do, scale),
+            "plain": lambda: fa.flash_backward_reference(q, k, v, out, lse, do, scale),
+            "library": sdpa_backward(torch, F, q, k, v, do, scale)}, rounds=3, calls=3)
+        fb, bb = bounds["flash_attention"], bounds["flash_backward"]
+        log(f"flash {shape}: out within one bf16 unit plus {KERNEL_REL_TOL}*max|ref| of the "
+            f"plain version, max|kernel-plain|={err:.6g}; lse max|diff|={lse_err:.3g} (<= "
+            f"{LSE_ABS_TOL}); dq, dk, dv (fed the kernel's out and lse) max|diff|={bwd_err:.6g}, "
+            f"the same bits in two runs"
+            + ("; the dispatcher launched it, the same bits" if via is not None else "")
+            + f"; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} "
+            f"SDPA={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); backward ms kernel="
+            f"{bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd through SDPA="
+            f"{bwd_ms['library']:.4f} bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+        results.setdefault("flash_attention", {})[tag] = dict(
+            err=err, lse_err=lse_err, **fwd_ms, bound=fb)
+        results.setdefault("flash_backward", {})[tag] = dict(err=bwd_err, **bwd_ms, bound=bb)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+
+def below_gate_phase(torch, results, smi):
+    """Below the 1024 gate, at BELOW_GATE_SHAPES, where ``"auto"`` runs the
+    plain path: the flash kernels against the dispatcher's plain path
+    (``plain_attention``; autograd through it for the backward) and SDPA, for
+    the crossover a later change of the gate would rest on."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops.attention import plain_attention
+
+    for i, (tag, b, h, n_q, n_k, d) in enumerate(BELOW_GATE_SHAPES):
+        q, k, v, do = flash_inputs(torch, b, h, n_q, n_k, d, seed=40 + i)
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_forward(q, k, v, scale)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        y = plain_attention(qg, kg, vg, scale=scale)
+        fwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: fa.flash_attention_forward(q, k, v, scale),
+            "plain": lambda: plain_attention(q, k, v, scale=scale),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)},
+            rounds=5, calls=10)
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: fa.flash_backward(q, k, v, out, lse, do, scale),
+            "plain": lambda: torch.autograd.grad(y, (qg, kg, vg), do, retain_graph=True),
+            "library": sdpa_backward(torch, F, q, k, v, do, scale)}, rounds=5, calls=10)
+        log(f"below the gate [{tag}: b={b} heads={h} n_q={n_q} n_k={n_k} d={d}]: forward ms "
+            f"flash kernel={fwd_ms['kernel']:.4f} plain path={fwd_ms['plain']:.4f} "
+            f"SDPA={fwd_ms['library']:.4f}; backward ms flash kernel={bwd_ms['kernel']:.4f} "
+            f"autograd through the plain path={bwd_ms['plain']:.4f} autograd through SDPA="
+            f"{bwd_ms['library']:.4f} on {smi}")
+        results.setdefault("below_gate", {})[tag] = {"forward": fwd_ms, "backward": bwd_ms}
+
+
 def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, per_forward,
-                  top1_sign_test=False):
-    """Serve ``requests`` batches through the model class ``vit``; each
-    forward must launch each kernel ``per_forward[name]`` times (0 if not
-    named).  The kernel path must agree with the f32 reference's top-1 at
+                  top1_sign_test=False, size=None, plain_kw=PLAIN_KW):
+    """Serve ``requests`` batches of ``size`` px (``cfg["image_size"]`` by
+    default) through the model class ``vit``; the plain path is ``vit`` with
+    ``plain_kw``.  Each forward must launch each kernel ``per_forward[name]``
+    times (0 if not named).  The kernel path must agree with the f32 reference's top-1 at
     least as often as the plain bf16 path does; with ``top1_sign_test``, for
     a model whose plain path keeps more precision than the kernel route
     (the small-dataset ViT's exact f32 LSA softmax), less often only by
@@ -663,10 +852,9 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     model = cast_params(vit(**cfg, device=dev, generator=g), torch.bfloat16).eval()
-    plain = vit(**cfg, fused_attention="never", fused_mlp="never", device=dev,
-                dtype=torch.bfloat16).eval()
+    plain = vit(**cfg, **plain_kw, device=dev, dtype=torch.bfloat16).eval()
     plain.load_state_dict(model.state_dict())
-    size = cfg["image_size"]
+    size = size or cfg["image_size"]
     images = [torch.randn(batch, size, size, 3, generator=g, device=dev)
               for _ in range(requests)]
 
@@ -681,8 +869,7 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
         torch.cuda.synchronize()
         launches = {name: c.launches for name, c in counters.items()}
         refs = [plain(img) for img in images]
-        f32 = vit(**cfg, fused_attention="never", fused_mlp="never", device=dev,
-                  dtype=torch.float32).eval()
+        f32 = vit(**cfg, **plain_kw, device=dev, dtype=torch.float32).eval()
         f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
         truths = [f32(img) for img in images]
         del f32
@@ -764,19 +951,19 @@ def rel_l2(torch, a, ref):
             / torch.linalg.vector_norm(ref.float()).clamp_min(1e-30)).item()
 
 
-def training_models(torch, vit, cfg, batch, seed):
+def training_models(torch, vit, cfg, batch, seed, size=None, plain_kw=PLAIN_KW):
     """The kernel path ``vit(..., compute_dtype=bf16)`` with f32 parameters
-    from a seeded initialisation, the plain bf16 path and the f32 model on
-    the same weights, and one seeded batch of images and labels."""
+    from a seeded initialisation, the plain bf16 path (``plain_kw``) and the
+    f32 model on the same weights, and one seeded batch of images of ``size``
+    px (``cfg["image_size"]`` by default) and labels."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     model = vit(**cfg, compute_dtype=torch.bfloat16, generator=g)
-    plain = vit(**cfg, compute_dtype=torch.bfloat16, fused_attention="never",
-                fused_mlp="never")
-    f32 = vit(**cfg, fused_attention="never", fused_mlp="never")
+    plain = vit(**cfg, compute_dtype=torch.bfloat16, **plain_kw)
+    f32 = vit(**cfg, **plain_kw)
     for twin in (plain, f32):
         twin.load_state_dict(model.state_dict())
-    size = cfg["image_size"]
+    size = size or cfg["image_size"]
     images = torch.randn(batch, size, size, 3, generator=g, device=dev)
     labels = torch.arange(batch, device=dev) % cfg["num_classes"]
     return model, plain, f32, images, labels
@@ -871,21 +1058,26 @@ def gradient_phase(torch, tag, vit, cfg, batch, seed, smi):
         f"on {smi}")
 
 
-def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step):
+def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, size=None,
+                   plain_kw=PLAIN_KW):
     """Train ``vit(..., compute_dtype=bf16)`` (f32 parameters) with SGD on one
     fixed batch; hold its step-1 gradients (:func:`step1_gradients`) and its
-    loss against the plain bf16 path and an f32 model of the same weights;
-    check that each step launches each kernel ``per_step[name]`` times (0 if
-    not named); time a step on both paths."""
+    loss against the plain bf16 path (``plain_kw``) and an f32 model of the
+    same weights; check that each step launches each kernel
+    ``per_step[name]`` times (0 if not named), and that BatchNorm's running
+    statistics, where the model has them, stay finite and move; time a step
+    on both paths."""
     from vit_tpu_torch.parallel.train import make_train_step
 
-    model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed)
+    model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed, size,
+                                                        plain_kw)
     first, summary = step1_gradients(torch, tag, (model, plain, f32), images, labels)
     del f32
     loss_rel = abs(first["kernels"] - first["plain"]) / abs(first["plain"])
 
     # The main path: counters from 0, TRAIN_STEPS steps, read right after.
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    stats = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
     for c in counters.values():
         c.launches = 0
     losses = []
@@ -893,6 +1085,11 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step):
         losses.append(step(images, labels)["loss"].item())
         check_launches(tag, f"step {i}", counters, per_step, i + 1)
     launches = {name: c.launches for name, c in counters.items()}
+    buffers = dict(model.named_buffers())
+    stale = [k for k, before in stats.items() if torch.equal(buffers[k], before)
+             or not bool(torch.isfinite(buffers[k]).all())]
+    if stale:
+        raise AssertionError(f"{tag}: BatchNorm statistics not finite or not updated: {stale}")
     plain_step = make_train_step(plain, torch.optim.SGD(plain.parameters(), lr=1e-3))
     ms = interleaved_medians(torch, {"kernels": lambda: step(images, labels),
                                      "plain": lambda: plain_step(images, labels)},
@@ -901,7 +1098,9 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step):
         f"kernels={first['kernels']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f} "
         f"(kernels/plain within {LOSS_REL_TOL} relative: {loss_rel:.3g}); {summary}losses "
         f"over {TRAIN_STEPS} steps {[round(v, 6) for v in losses]}; launches per step "
-        f"{per_step}; median step ms kernels={ms['kernels']:.3f} "
+        f"{per_step}; "
+        + (f"{len(stats)} BatchNorm running statistics finite and updated; " if stats else "")
+        + f"median step ms kernels={ms['kernels']:.3f} "
         f"plain={ms['plain']:.3f} ({batch / ms['kernels'] * 1e3:.1f} vs "
         f"{batch / ms['plain'] * 1e3:.1f} img/s) on {smi}")
     if not loss_rel <= LOSS_REL_TOL:
@@ -925,27 +1124,41 @@ def kernel_group(name: str) -> str:
         return f"linear_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
-                "layernorm_kernel", "colsum_kernel"):
+                "layernorm_kernel", "colsum_kernel", "flash_fwd_kernel", "flash_bwd_dsum_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         if own in name:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
-        return "cuDNN convolutions (SPT)"
+        return "cuDNN convolutions (SPT; CvT's embeddings and depthwise projections)"
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
-        return "cuBLAS GEMM (dW, patch embedding, head)"
+        return "cuBLAS GEMM (dW, patch embedding, head; CvT's 1x1 convs)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer (foreach)"
-    return "other PyTorch kernels (casts, embedding, loss, reductions)"
+    if re.search(r"layer_norm|LayerNorm", name):
+        return "PyTorch layer_norm (CvT's channel LayerNorms)"
+    if re.search(r"batch_norm|batchnorm", name, re.I):
+        return "PyTorch batch_norm (CvT's projections)"
+    if "elementwise" in name:
+        return "PyTorch elementwise (casts, adds, GELU, pads)"
+    if "reduce" in name.lower():
+        return "PyTorch reductions (statistics, loss, bias gradients)"
+    return "other PyTorch kernels (copies, embedding, loss)"
 
 
-def profile_phase(torch, tag, vit, cfg, batch, seed, smi):
+def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
     """Where a train step's device time goes: ``torch.profiler`` over a few
     steps of the training path.  Prints the wall time per step (host clock
     around synchronised steps, profiler off and on), the device's busy time
     per step (the sum of its kernel times: one stream, so kernels do not
-    overlap), the idle share against either wall time, and the kernels
-    grouped by what they do, with their time and launches per step.  A first
-    one-step profile, thrown away, takes the profiler's start-up out of the
-    timed one."""
+    overlap), the idle share against either wall time, the host's enqueue
+    time per step (until ``step`` returns, before the synchronise: a step
+    whose enqueue time is its wall time is host-bound), the synchronising
+    calls in one step (``torch.cuda.set_sync_debug_mode("warn")``), and the
+    kernels grouped by what they do, with their time and launches per step.
+    A first one-step profile, thrown away, takes the profiler's start-up out
+    of the timed one."""
+    import warnings
+
     from torch.profiler import ProfilerActivity, profile
 
     from vit_tpu_torch.parallel.train import make_train_step
@@ -953,15 +1166,24 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi):
     g = torch.Generator(device="cuda").manual_seed(seed)
     model = vit(**cfg, compute_dtype=torch.bfloat16, generator=g)
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
-    images = torch.randn(batch, cfg["image_size"], cfg["image_size"], 3, generator=g,
-                         device="cuda")
+    size = size or cfg["image_size"]
+    images = torch.randn(batch, size, size, 3, generator=g, device="cuda")
     labels = torch.arange(batch, device="cuda") % cfg["num_classes"]
     for _ in range(3):
         step(images, labels)
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        step(images, labels)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    enqueue = []
     t0 = time.perf_counter()
     for _ in range(PROFILE_STEPS):
+        t1 = time.perf_counter()
         step(images, labels)
+        enqueue.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -988,7 +1210,9 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi):
         f"steps on {smi}; wall ms/step {wall_ms:.3f} (profiler off), {prof_wall_ms:.3f} "
         f"(profiler on); device busy ms/step {busy:.3f}; idle share "
         f"{1 - busy / wall_ms:.3f} against the profiler-off wall time, "
-        f"{1 - busy / prof_wall_ms:.3f} against the profiler-on one")
+        f"{1 - busy / prof_wall_ms:.3f} against the profiler-on one; host enqueue ms/step "
+        f"median {statistics.median(enqueue):.3f} (profiler off); synchronising calls in "
+        f"one step: {len(syncs)}")
     log("| kernels | ms / step | launches / step |")
     log("|---|---|---|")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -1024,8 +1248,9 @@ def main() -> int:
     log(f"build: {build_s:.2f} s, {path.name}, {len(regs)} kernels compiled, "
         f"max {max(regs, default=0)} registers, {spills} with spills")
 
-    from vit_tpu_torch import ViT
+    from vit_tpu_torch import CvT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
+    from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.fused_attention_block import (
         fused_attention_block, fused_attention_block_backward, fused_attention_block_bias,
         fused_attention_block_bias_backward,
@@ -1039,6 +1264,8 @@ def main() -> int:
     backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
     biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
     spt_phase(torch, 64, 256, 16, 1024, smi)
+    flash_phase(torch, results, smi)
+    below_gate_phase(torch, results, smi)
 
     # The main paths, each with the counters from 0 just before it and read
     # just after.
@@ -1046,7 +1273,8 @@ def main() -> int:
                 "fused_attention_block_bwd": fused_attention_block_backward,
                 "fused_mlp_bwd": fused_mlp_backward,
                 "fused_attention_block_bias": fused_attention_block_bias,
-                "fused_attention_block_bias_bwd": fused_attention_block_bias_backward}
+                "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
+                "flash_attention": flash_attention, "flash_backward": flash_backward}
 
     def per_layer(cfg, *names):
         return {name: cfg["depth"] for name in names}
@@ -1077,9 +1305,22 @@ def main() -> int:
                       "fused_attention_block_bias_bwd", "fused_mlp_bwd")),
     }
     gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
+    # CvT-13: flash at stage 1 (224 px; n_q 3136, n_k 784), stages 1 and 2 (384 px).
+    cvt = dict(plain_kw=dict(use_flash="never"))
+    for size, flash in ((224, 1), (384, 3)):
+        torch.cuda.empty_cache()
+        by_path[f"serving CvT-13@{size}"] = serving_phase(
+            torch, f"CvT-13@{size} bf16", CvT, CVT13, 64, 3, 7, smi, counters,
+            {"flash_attention": flash}, size=size, **cvt)
+        torch.cuda.empty_cache()
+        by_path[f"training CvT-13@{size}"] = training_phase(
+            torch, f"CvT-13@{size}", CvT, CVT13, 64, 8, smi, counters,
+            {"flash_attention": flash, "flash_backward": flash}, size=size, **cvt)
+    torch.cuda.empty_cache()
     profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)
     profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
     profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
+    profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
 
     sources = {
         "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147"),
@@ -1092,6 +1333,11 @@ def main() -> int:
                                        "vit_tpu/ops/fused_attention_block.py:515"),
         "fused_attention_block_bias_bwd": ("vit_tpu_torch/csrc/fused_attention_block.cu",
                                            "vit_tpu/ops/fused_attention_block.py:545"),
+        "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
+                            "vit_tpu/ops/flash_attention.py:51, "
+                            "vit_tpu/ops/flash_attention_v2.py:38"),
+        "flash_backward": ("vit_tpu_torch/csrc/flash_attention.cu",
+                           "vit_tpu/ops/flash_backward.py:41, :72"),
     }
     launches = {name: sum(path[name] for path in by_path.values()) for name in counters}
     for name, count in launches.items():
@@ -1101,13 +1347,17 @@ def main() -> int:
     def entry(name, src, tpu):
         """A kernel's line, with times and bounds at the B/16 shapes (the
         biased block's at the small-dataset shapes with LSA's bias, the other
-        biases under ``by_bias``); the forwards' library call is PyTorch's
-        bf16 modules, the backwards' is autograd through them for the
-        kernel's own outputs (with the weight gradients beside the kernel plus
-        its dW GEMMs)."""
+        biases under ``by_bias``; the flash kernels' at CvT-13@224's stage 1,
+        the other shapes under ``by_shape``); the block forwards' library call
+        is PyTorch's bf16 modules, the block backwards' is autograd through
+        them for the kernel's own outputs (with the weight gradients beside
+        the kernel plus its dW GEMMs); the flash kernels' is PyTorch's
+        ``scaled_dot_product_attention`` (autograd through it for the
+        backward)."""
         biased = "bias" in name
+        flash = name.startswith("flash")
         kinds = results[name]
-        r = kinds["lsa" if biased else "B/16"]
+        r = kinds["lsa" if biased else FLASH_SHAPES[0][0] if flash else "B/16"]
         line = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": launches[name],
                 "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
@@ -1117,6 +1367,13 @@ def main() -> int:
                 "bound_by": r["bound"][1], "library_ms": r.get("library", r.get("modules"))}
         if "whole" in r:
             line.update(whole_ms=r["whole"], library_whole_ms=r["library_whole"])
+        if flash:
+            line["shape"] = "b=64 heads=1 n_q=3136 n_k=784 d=64 (CvT-13@224 stage 1)"
+            line["by_shape"] = {tag: {k: v for k, v in k_r.items() if k != "bound"}
+                                | {"bound_ms": k_r["bound"][0]} for tag, k_r in kinds.items()}
+            line["below_gate"] = {tag: times[("forward" if name == "flash_attention"
+                                              else "backward")]
+                                  for tag, times in results["below_gate"].items()}
         if biased:
             line["shape"] = "b=64 n=257 d=1024 heads=16x64, LSA bias (1, n, n), scale 1"
             line["by_bias"] = {kind: {k: v for k, v in k_r.items() if k != "bound"}

@@ -14,15 +14,22 @@ block's own output; the residual x ~ N(0, 1) does not widen the bound.  The
 backward's outputs are held the same way: dx = T(dy + T(dx_ln)) against its
 residual dy, the others (dh, gact, dqkv and the f32 sums) against 0.  The
 biased block's dbias, an f32 sum over images and heads, has its own bound
-(``chip_smoke.check_dbias``).
+(``chip_smoke.check_dbias``).  The flash kernels' outputs are held against
+their plain versions the same way, with no residual (out; dq, dk, dv fed
+the kernel's own out and lse), and lse within ``chip_smoke.LSE_ABS_TOL``.
 """
 
 import pytest
 import torch
 
-from chip_smoke import block_error, check_dbias, check_outputs
-from vit_tpu_torch import ViT, cast_params
+from chip_smoke import LSE_ABS_TOL, block_error, check_dbias, check_outputs, flash_inputs
+from vit_tpu_torch import CvT, ViT, cast_params
 from vit_tpu_torch.models import vit_for_small_dataset
+from vit_tpu_torch.ops import attention as attention_ops
+from vit_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_forward, flash_attention_forward_reference, flash_backward,
+    flash_backward_reference,
+)
 from vit_tpu_torch.ops import fused_attention_block as fused_attention_block_ops
 from vit_tpu_torch.ops import fused_mlp as fused_mlp_ops
 from vit_tpu_torch.ops.fused_attention_block import (
@@ -416,4 +423,106 @@ def test_small_dataset_vit_runs_the_biased_kernel_at_every_layer(cuda):
         assert [a - b for a, b in zip(_bias_launches(), counts)] == [0, 2, 2, 0, 2, 2]
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert all(float(layer["attn"].temperature.grad) != 0 for layer in model.layers)
+    assert losses[2] < losses[0]
+
+
+def _check_flash(q, k, v, do):
+    """Forward, lse and backward of the flash kernels against their plain
+    versions; the backward twice, bit for bit; one launch each."""
+    scale = q.shape[-1] ** -0.5
+    before = (flash_attention.launches, flash_backward.launches)
+    out, lse = flash_attention_forward(q, k, v, scale)
+    grads = flash_backward(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = flash_attention_forward_reference(q, k, v, scale)
+    check_outputs(torch, "flash forward", (out,), (ref_out,), {})
+    assert lse.dtype == torch.float32 and (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+    check_outputs(torch, "flash backward", grads,
+                  flash_backward_reference(q, k, v, out, lse, do, scale), {})
+    again = flash_backward(q, k, v, out, lse, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("b,h,n_q,n_k,d", [
+    (8, 1, 3136, 784, 64),  # CvT-13 stage 1 @224 at batch 8: 784 = 12·64 + 16 keys
+    (2, 3, 70, 130, 32),    # ragged on both sides
+    (2, 3, 70, 130, 64),
+    (2, 3, 130, 70, 96),
+    (2, 3, 70, 130, 128),
+    (1, 2, 1, 1, 64),
+])
+def test_flash_kernels_match_plain(cuda, b, h, n_q, n_k, d):
+    """Strided operands as CvT gives them (views of channels-last maps and of
+    the two halves of the k/v projection)."""
+    _check_flash(*flash_inputs(torch, b, h, n_q, n_k, d, seed=n_q + d))
+
+
+def test_flash_kernels_take_f16_and_contiguous_operands(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 2, n, 64, generator=g, device=cuda).half()
+                   for n in (100, 77, 77, 100))
+    _check_flash(q, k, v, do)
+
+
+def test_dispatcher_launches_flash_at_the_tier_and_raises_on_what_it_refuses(cuda):
+    """``"auto"``: a bf16 call at max(n_q, n_k) >= 1024 launches the kernel
+    (d = 40 padded to 64), below it or in f32 the plain path runs; a width
+    or a stride the kernel does not take raises instead of running plain."""
+    sdpa = attention_ops.scaled_dot_product_attention
+    g = torch.Generator(device=cuda).manual_seed(4)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    cases = [((1, 2, 1024, 64), torch.bfloat16, 1), ((1, 2, 64, 40), torch.bfloat16, 0),
+             ((1, 2, 1500, 40), torch.bfloat16, 1), ((1, 2, 1023, 64), torch.bfloat16, 0),
+             ((1, 2, 2048, 64), torch.float32, 0)]
+    for shape, dtype, launched in cases:
+        q = rn(*shape, dtype=dtype)
+        before = flash_attention.launches
+        with torch.inference_mode():
+            out = sdpa(q, q, q)
+        assert flash_attention.launches - before == launched, (shape, dtype)
+        ref = attention_ops.plain_attention(q.float(), q.float(), q.float(),
+                                            scale=shape[-1] ** -0.5)
+        assert out.shape == q.shape and (out.float() - ref).abs().max().item() < 5e-2
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="head width"):
+            sdpa(*(rn(1, 2, 1024, 160),) * 3)  # 160: on the 32 grid, no instance
+        wide = rn(1, 2, 1024, 128)
+        with pytest.raises(ValueError, match="strides"):
+            sdpa(wide[..., ::2], wide[..., ::2], wide[..., ::2])  # d = 64 at stride 2
+        with pytest.raises(TypeError):
+            sdpa(*(rn(1, 2, 64, 64, dtype=torch.float32),) * 3, use_flash="force")
+
+
+def test_cvt_serves_and_trains_through_the_flash_kernels(cuda):
+    """A narrow CvT at 128 px (stage 1: 1024 queries, 256 keys): serving
+    launches the flash forward once; each train step the forward and the
+    backward once; f32 gradients, running statistics that move, a falling
+    loss."""
+    cfg = dict(num_classes=10, s1_emb_dim=32, s2_emb_dim=48, s3_emb_dim=64, s1_depth=1,
+               s2_depth=1, s3_depth=1, s2_heads=2, s3_heads=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.randn(8, 128, 128, 3, generator=g, device=cuda)
+    served = cast_params(CvT(**cfg, generator=g), torch.bfloat16).eval()
+    before = flash_attention.launches
+    with torch.inference_mode():
+        out = served(img)
+    assert flash_attention.launches - before == 1
+    assert out.shape == (8, 10) and torch.isfinite(out).all()
+    model = CvT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.05))
+    labels = torch.arange(8, device=cuda) % 10
+    stats = {k: b.clone() for k, b in model.named_buffers()}
+    losses = []
+    for _ in range(3):
+        before = (flash_attention.launches, flash_backward.launches)
+        losses.append(float(step(img, labels)["loss"]))
+        assert (flash_attention.launches - before[0], flash_backward.launches - before[1]) \
+            == (1, 1)
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert all(not torch.equal(b, stats[k]) and torch.isfinite(b).all()
+               for k, b in model.named_buffers())
     assert losses[2] < losses[0]

@@ -59,8 +59,10 @@ def test_unknown_mode_and_scan_layers_raise():
     with pytest.raises(ValueError, match="scan_layers"):
         ViT(**TINY, scan_layers=True)
     q = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="flash"):
-        scaled_dot_product_attention(q, q, q, use_flash="force")
+    with pytest.raises(ValueError, match="flash"):
+        scaled_dot_product_attention(q, q, q, bias=torch.zeros(1, 1, 4, 4), use_flash="force")
+    with pytest.raises(ValueError, match="use_flash"):
+        scaled_dot_product_attention(q, q, q, use_flash="sometimes")
 
 
 def _block_weights(d=32, heads=2, dh=16, hidden=64, dtype=torch.float32, seed=0):

@@ -24,11 +24,16 @@ def divisible_by(numer: int, denom: int) -> bool:
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the floating-point parameters and buffers of ``module`` to
-    ``dtype`` once, in place, and return it (serving: keep bf16 weights
-    resident instead of converting them on every forward).  Non-float
-    tensors are left as they are (``nn.Module.to`` casts only floats)."""
-    return module.to(dtype)
+    """Cast the floating-point parameters of ``module`` to ``dtype`` once, in
+    place, and return it (serving: keep bf16 weights resident instead of
+    converting them on every forward).  Buffers keep their dtype: BatchNorm's
+    running statistics stay f32, as ``vit_tpu`` keeps ``batch_stats`` in f32
+    whatever the compute dtype."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+    return module
 
 
 def resolve_device(device=None) -> torch.device:

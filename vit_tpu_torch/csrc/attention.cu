@@ -60,105 +60,20 @@
 // recomputation: 9 products per element pair against the TPU kernel's 5, 11
 // with dbias.  Bound on the H100: at ViT-B/16 the 5 products are 19 GFLOP per
 // layer against 1.6 ms of the step, small next to the block's GEMMs.
-#include "kernels.cuh"
+//
+// The tile helpers (staging, the two mma.sync products, the row store) are in
+// attention_tiles.cuh, shared with flash_attention.cu.
+#include "attention_tiles.cuh"
 
 namespace vit {
 namespace {
 
-constexpr int kBQ = 64, kBKV = 64, kThreads = 128;
+constexpr int kBQ = 64, kBKV = 64, kThreads = kAttnThreads;
 static_assert(kBQ == kBKV, "one staging loop serves the q, k and v tiles");
 
 template <int DH>
 constexpr int smem_bytes() {
   return 3 * kBQ * (DH + 8) * 2;
-}
-
-// Stage `nrows` rows of one head (DH columns) from a row-strided source,
-// starting at token r0; tokens at or past n land as zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(T (*dst)[DH + 8], const T* src, size_t ld, int r0,
-                                           int nrows, int n) {
-  constexpr int kChunksPerRow = DH / 8;
-  for (int c = threadIdx.x; c < nrows * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = v;
-  }
-}
-
-// acc (16 x NT) += A · Bᵀ for the warp's 16 rows of A (from row a0 of As) and
-// the NT rows of Bs, both DH-contiguous in shared memory.
-template <typename T, int DH, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT / 8][4], T (*As)[DH + 8], int a0,
-                                        T (*Bs)[DH + 8], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, &As[a0 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-    for (int nj = 0; nj < NT / 16; ++nj) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, &Bs[nj * 16 + (lane % 8) + (lane / 16) * 8][kk * 16 + ((lane / 8) % 2) * 8]);
-      Num<T>::mma(acc[2 * nj], af, bf[0], bf[1]);
-      Num<T>::mma(acc[2 * nj + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x DH) += T(P) · V with P (16 x NT) given as f32 accumulator tiles
-// (those of n-tiles 2c and 2c+1 are exactly the A fragment of k16 chunk c) and
-// V (NT x DH) in shared memory.
-template <typename T, int DH, int NT>
-__device__ __forceinline__ void mma_pv(float (&acc)[DH / 8][4], const float (&p)[NT / 8][4],
-                                       T (*Vs)[DH + 8], int lane) {
-#pragma unroll
-  for (int c = 0; c < NT / 16; ++c) {
-    uint32_t pf[4];
-    pf[0] = Num<T>::pack2(p[2 * c][0], p[2 * c][1]);
-    pf[1] = Num<T>::pack2(p[2 * c][2], p[2 * c][3]);
-    pf[2] = Num<T>::pack2(p[2 * c + 1][0], p[2 * c + 1][1]);
-    pf[3] = Num<T>::pack2(p[2 * c + 1][2], p[2 * c + 1][3]);
-#pragma unroll
-    for (int dn = 0; dn < DH / 16; ++dn) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, &Vs[c * 16 + (lane % 8) + ((lane / 8) % 2) * 8][dn * 16 + (lane / 16) * 8]);
-      Num<T>::mma(acc[2 * dn], pf, vf[0], vf[1]);
-      Num<T>::mma(acc[2 * dn + 1], pf, vf[2], vf[3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&a)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
-}
-
-// Sum over the four threads of a quad (they hold one row's columns).
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Store the warp's 16 x DH accumulator rows (tokens r0 + g, r0 + g + 8) into a
-// row-strided output, rounded; rows at or past n are skipped.
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(T* dst, size_t ld, int r0, int n,
-                                           const float (&acc)[DH / 8][4], int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + half * 8;
-    if (r >= n) continue;
-    T* row = dst + (size_t)r * ld;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8 + 2 * t) =
-          Num<T>::pack2(acc[j][2 * half], acc[j][2 * half + 1]);
-  }
 }
 
 // The f32 bias row of query row q, `head_offset` into the bias (a row past n
@@ -314,12 +229,6 @@ __global__ void __launch_bounds__(kThreads)
           Num<T>::pack2(o[j][2 * half] / l_run[half], o[j][2 * half + 1] / l_run[half]);
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // Head stride of a (1 | heads, n, n) bias: 0 when one bias is shared.

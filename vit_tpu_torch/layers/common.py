@@ -1,9 +1,11 @@
-"""Shared transformer primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT needs).
+"""Shared transformer and conv-hybrid primitives (port of the slice of
+``vit_tpu/layers/common.py`` that ViT and CvT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
-kernels with zero biases.
+and Conv kernels with zero biases.  The conv hybrids work on NHWC maps:
+``ChannelLayerNorm`` (eps 1e-5, biased variance), ``Conv`` and
+``GroupedConv`` with TF-SAME padding, and a Flax-parity ``BatchNorm``.
 
 Device and dtypes: every module builds on the card unless ``device`` asks for
 another (``device=None`` is CUDA, and raises without a CUDA device).  ``dtype``
@@ -38,6 +40,7 @@ from vit_tpu_torch.ops._checks import KERNEL_DTYPES
 from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.fused_attention_block import fused_attention_block
 from vit_tpu_torch.ops.fused_mlp import fused_mlp
+from vit_tpu_torch.ops.patchify import conv2d_same
 
 FUSED_MODES = ("auto", "never")
 _TPU_ONLY_MODES = {
@@ -109,6 +112,101 @@ class LayerNorm(nn.Module):
         y = (x32 - mu) * torch.rsqrt(var + self.eps) * self.weight.float() \
             + self.bias.float()
         return y.to(x.dtype)
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channel axis of an NHWC map with biased variance
+    and eps 1e-5, statistics in f32, output in the input dtype
+    (``vit_tpu/layers/common.py:55-75``); parameters ``g`` and ``b`` of
+    shape ``(dim,)``.  PyTorch's ``F.layer_norm`` over the f32 input
+    computes exactly that in one kernel."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, device=None, dtype=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.g.shape, self.g.float(), self.b.float(),
+                            self.eps).to(x.dtype)
+
+
+class Conv(nn.Module):
+    """Flax ``Conv`` over an NHWC map with TF-SAME padding: an OIHW
+    ``weight`` (glorot-uniform) and a zero ``bias``, computed in the input
+    dtype.  ``groups=in_channels`` makes it ``GroupedConv``.  A 1x1 stride-1
+    conv is the GEMM ``F.linear`` over the channels (channels-last map)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, use_bias: bool = True, groups: int = 1, *,
+                 device=None, dtype=None, generator=None):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.stride, self.groups = stride, groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups,
+                                               kernel_size, kernel_size, **kw))
+        self.bias = nn.Parameter(torch.zeros(out_channels, **kw)) if use_bias else None
+        with torch.no_grad():
+            nn.init.xavier_uniform_(self.weight, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = cast_to(self.weight, x), cast_to(self.bias, x)
+        if w.shape[2:] == (1, 1) and self.stride == 1 and self.groups == 1:
+            return F.linear(x, w.flatten(1), b)
+        return conv2d_same(x, w, b, self.stride, self.groups)
+
+
+class GroupedConv(Conv):
+    """Depthwise ``Conv`` (one filter per channel), TF-SAME
+    (``vit_tpu/layers/common.py:583-617``; its SPMD custom VJP is a TPU
+    workaround the port does not need)."""
+
+    def __init__(self, channels: int, kernel_size: int, stride: int = 1,
+                 use_bias: bool = True, **kw):
+        super().__init__(channels, channels, kernel_size, stride, use_bias, groups=channels, **kw)
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    axis of an NHWC map.  ``momentum`` is PyTorch's, 1 - Flax's.
+
+    Training mode normalises with the batch statistics, in f32: the mean and
+    the biased variance; the running statistics take ``(1 - momentum)·running
+    + momentum·batch`` with that *biased* variance, as Flax updates
+    ``batch_stats`` (``nn.BatchNorm2d`` uses the unbiased one).  Eval mode
+    normalises with the running statistics.  ``running_mean`` /
+    ``running_var`` are f32 buffers, kept f32 by
+    :func:`vit_tpu_torch.cast_params`; the output is in the input dtype.
+    The normalisation is PyTorch's ``F.batch_norm`` over the f32 ``(rows,
+    channels)`` view, one kernel each way; in training its batch statistics
+    (and their gradient) are its own, and the running ones are updated
+    beside it.  (Flax takes the variance as ``E[x²] - E[x]²``; the two
+    agree to f32 rounding.)
+    """
+
+    def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5, *,
+                 device=None, dtype=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(dim, device=device))
+        self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = x.float().reshape(-1, x.shape[-1])
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(rows, 0, correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        y = F.batch_norm(rows, None if self.training else self.running_mean,
+                         None if self.training else self.running_var, self.weight.float(),
+                         self.bias.float(), self.training, 0.0, self.eps)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 class MLP(nn.Module):

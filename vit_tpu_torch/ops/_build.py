@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit strides
 
 # C signatures of the entry points (argtypes, restype).
 SIGNATURES = {
@@ -69,6 +70,21 @@ SIGNATURES = {
         [_P] * 15
         # rows, d, hidden, eps, dtype, stream
         + [_I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_flash_attention_fwd": (
+        # q, k, v, out, lse, strides (q, k, v, out: batch, head, row),
+        [_P] * 5 + [_LL]
+        # b, heads, n_q, n_k, d, scale, dtype, stream
+        + [_I] * 5 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_flash_attention_bwd": (
+        # q, k, v, out, lse, dout, dq, dk, dv, dsum, strides (q, k, v, out,
+        # dout, dq, dk, dv: batch, head, row),
+        [_P] * 10 + [_LL]
+        # b, heads, n_q, n_k, d, scale, dtype, stream
+        + [_I] * 5 + [_F, _I, _P],
         ctypes.c_int,
     ),
     # Rows of the f32 column partial sums the backward entry points take for

@@ -1,16 +1,37 @@
-"""Scaled-dot-product attention, the path without kernels (port of
+"""Scaled-dot-product attention: the plain path and the flash tiers (port of
 ``vit_tpu/ops/attention.py``).
 
 Tensors are ``(batch, heads, seq, dim_head)``.  Logits are always formed in
 f32.  For f32 models the softmax runs in f32; for bf16 models it keeps
-``vit_tpu``'s storage policy (:func:`softmax_lastdim`).  The flash kernels of
-``vit_tpu`` are not ported yet, so ``use_flash="force"`` raises; ``"auto"``
-and ``"never"`` both take :func:`plain_attention`.
+``vit_tpu``'s storage policy (:func:`softmax_lastdim`).
+
+Flash tiers (``vit_tpu/ops/attention.py:61-158``): with ``use_flash="auto"``
+a call without a bias or mask, whose q and v share one head width, goes to
+the flash kernels (:mod:`vit_tpu_torch.ops.flash_attention`) when
+``max(n_q, n_k) >= FLASH_MIN_SEQ`` and q is a 16-bit CUDA tensor.  Every
+other call runs :func:`plain_attention`.  The gate is ``vit_tpu``'s 16-bit
+tier, which it measured on a TPU v5e; the H100's crossover is in
+``PERF.md``.  The port's own rule: ``vit_tpu`` also sends f32 at n >= 2048
+to flash, but the port's kernels take 16-bit operands only, so f32 runs the
+plain path, on the card too.  There is no fallback: a 16-bit CUDA call at the
+tier that the kernel refuses (a head width, a stride) raises.  Head widths
+that are not a multiple of 32 are zero-padded to a multiple of 64 and the
+output sliced back (exact: the pad adds 0 to every logit).  ``"force"`` runs
+the flash op on any call without a bias or mask and raises ``ValueError`` on
+one; ``"never"`` runs the plain path.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from vit_tpu_torch.ops._checks import KERNEL_DTYPES
+from vit_tpu_torch.ops.flash_attention import flash_attention
+
+# The flash tier's sequence length for 16-bit inputs (vit_tpu's, from a v5e).
+FLASH_MIN_SEQ = 1024
+USE_FLASH_MODES = ("auto", "never", "force")
 
 
 def mask_value(dtype: torch.dtype) -> float:
@@ -66,6 +87,31 @@ def apply_attention(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (attn.to(v.dtype).float() @ v.float()).to(v.dtype)
 
 
+def flash_tensor(t: torch.Tensor) -> bool:
+    """Whether the flash kernels take ``t``'s kind: a 16-bit CUDA tensor."""
+    return t.is_cuda and t.dtype in KERNEL_DTYPES
+
+
+def _use_flash(q, k, v, bias, mask) -> bool:
+    """``vit_tpu``'s ``_use_flash`` with the port's rule for f32: no bias or
+    mask, one head width for q and v, a 16-bit CUDA q, and
+    ``max(n_q, n_k) >= FLASH_MIN_SEQ``."""
+    if bias is not None or mask is not None or q.shape[-1] != v.shape[-1]:
+        return False
+    return flash_tensor(q) and max(q.shape[2], k.shape[2]) >= FLASH_MIN_SEQ
+
+
+def _flash(q, k, v, scale):
+    """The flash op, zero-padding a head width that is not a multiple of 32
+    to a multiple of 64 (``vit_tpu/ops/attention.py:141-145``)."""
+    d = q.shape[-1]
+    d_pad = 0 if d % 32 == 0 else (-d) % 64
+    if d_pad:
+        q, k, v = (F.pad(t, (0, d_pad)) for t in (q, k, v))
+    out = flash_attention(q, k, v, scale)
+    return out[..., :d] if d_pad else out
+
+
 def scaled_dot_product_attention(q, k, v, *, scale: float | None = None,
                                  bias=None, mask=None,
                                  use_flash: str = "auto") -> torch.Tensor:
@@ -73,15 +119,19 @@ def scaled_dot_product_attention(q, k, v, *, scale: float | None = None,
 
     ``bias`` is an additive logits bias broadcastable to ``(b, h, n_q, n_k)``;
     ``mask`` is boolean, False positions get :func:`mask_value`.
-    ``use_flash``: ``"auto"`` | ``"never"`` run the plain path; ``"force"``
-    raises until the flash kernels are ported.
+    ``use_flash``: ``"auto"`` takes the flash tiers of the module docstring,
+    ``"never"`` the plain path, ``"force"`` the flash op (``ValueError`` with
+    a bias or mask).
     """
-    if use_flash == "force":
-        raise NotImplementedError(
-            "use_flash='force': the flash-attention kernels are not ported to "
-            "CUDA yet (vit_tpu/ops/flash_attention*.py)")
-    if use_flash not in ("auto", "never"):
-        raise ValueError(f"use_flash must be 'auto', 'never' or 'force', got {use_flash!r}")
+    if use_flash not in USE_FLASH_MODES:
+        raise ValueError(f"use_flash must be one of {USE_FLASH_MODES}, got {use_flash!r}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if use_flash == "force":
+        if bias is not None or mask is not None:
+            raise ValueError("use_flash='force' cannot carry a bias or mask: the flash "
+                             "kernels take neither")
+        return _flash(q, k, v, scale)
+    if use_flash == "auto" and _use_flash(q, k, v, bias, mask):
+        return _flash(q, k, v, scale)
     return plain_attention(q, k, v, scale=scale, bias=bias, mask=mask)

@@ -1,9 +1,12 @@
 """The classification train step (port of ``vit_tpu/parallel/train.py``).
 
 One device: the model and its optimizer live on one card.  ``vit_tpu``'s
-mesh, sharding rules, buffer donation and ``make_bn_train_step`` come with
-the port of ``parallel/mesh.py`` and ``parallel/sharding.py`` (DDP and
-tensor parallelism).  The production policy is ``vit_tpu``'s: f32 parameters
+mesh, sharding rules and buffer donation come with the port of
+``parallel/mesh.py`` and ``parallel/sharding.py`` (DDP and tensor
+parallelism).  A model with BatchNorm (CvT) needs no step of its own: in
+training mode its forward updates the running statistics in place, which is
+what ``vit_tpu``'s ``make_bn_train_step`` returns as ``new_model_state``.
+As there, such a model takes no gradient accumulation.  The production policy is ``vit_tpu``'s: f32 parameters
 with bf16 compute (``ViT(..., compute_dtype=torch.bfloat16)``), so the
 gradients and the update are f32.  On the card, the ViT's blocks then run
 through the hand-written forward and backward kernels.
@@ -75,7 +78,15 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     puts the model in training mode, computes the mean loss and gradient over
     the batch (over ``accum_steps`` microbatches when above 1), and applies
     one optimizer update.  ``step.state`` is the :class:`TrainState`.
+    ``accum_steps > 1`` on a model with BatchNorm running statistics raises
+    ``ValueError``: they would be updated once per microbatch, and
+    ``vit_tpu``'s BatchNorm step offers no accumulation.
     """
+    if accum_steps > 1 and any(name.endswith("running_mean")
+                               for name, _ in model.named_buffers()):
+        raise ValueError("accum_steps > 1 on a model with BatchNorm statistics: they would "
+                         "be updated once per microbatch (vit_tpu's make_bn_train_step "
+                         "takes no accumulation)")
     loss_fn = loss_fn or cross_entropy_loss
     state = create_train_state(model, optimizer)
     params = [p for group in optimizer.param_groups for p in group["params"]]
