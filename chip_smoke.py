@@ -83,13 +83,36 @@ Phases, one line each (any failure raises and exits non-zero):
    (stage 1) and three times at 384 (stages 1 and 2); and training at 224 and
    384, batch 64, as phase 7, the flash forward and backward launched 1 and 3
    times per step, BatchNorm's running statistics finite and updated.
-13. profile: ``torch.profiler`` over train steps at the four training
+13. cross-attention block (``fused_cross_attention``), at ScalableViT's four
+   SSA shapes, batch 64 (4096 | 1024 | 256 | 64 queries of 64 | 128 | 256 |
+   512 channels, 2 | 4 | 8 | 16 heads, 64 keys, q/k 40 wide and v 32 at
+   stages 1-3, both 32 at stage 4), seeded bf16 inputs: the serving and the
+   training forward (y, q, oattn, lse) against the plain version, the
+   backward (dxn, dq, dk, dv, dbo), fed the training forward's residuals,
+   against the plain backward and twice bit for bit; times of the kernels,
+   the plain versions and F.linear + SDPA + F.linear (autograd through it),
+   with and without the dW GEMMs, and the bounds.
+14. packed flash (``flash_attention_packed``), channel-packed (b, n, heads·d)
+   inputs at ScalableViT's IWSA windows (64, 4096, 2x32) and (64, 1024,
+   4x32) and at dk 40, dv 32: out and lse against the plain version, the
+   backward on the packed strides against the plain backward, twice bit for
+   bit; times against SDPA on the head views, and the bounds.
+15. ScalableViT (``benchmarks/run_benchmarks.py:140-144``: dim 64, heads 2 /
+   4 / 8 / 16, depths 2 / 2 / 8 / 2, SSA keys 40 / 40 / 40 / 32, reductions
+   8 / 4 / 2 / 1, windows 64 / 32 / whole / whole) at 256 px, batch 64:
+   serving as phase 5 and training as phase 7, its plain path
+   ``fused_attention="never", fused_mlp="never"``; each forward launches the
+   cross-attention block 14 times, the packed flash op 4 times (the IWSA
+   windows of 1024 tokens and more) and the fused MLP 28 times, each step
+   their backwards as often.
+16. profile: ``torch.profiler`` over train steps at the five training
    configs; device time and launches per step by kernel group, idle share,
    the host's enqueue time per step and the synchronising calls in a step.
 
 Each main path (serving B/16, B/32, small-dataset, CvT-13 @224 and @384,
-training B/32, B/16, small-dataset, CvT-13 @224 and @384) runs with every
-kernel's launch counter set to 0 just before it and read just after.  The
+ScalableViT; training B/32, B/16, small-dataset, CvT-13 @224 and @384,
+ScalableViT) runs with every kernel's launch counter set to 0 just before it
+and read just after.  The
 line before the last is the card as ``nvidia-smi`` names it; before that a
 JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound.  The last line is
@@ -99,8 +122,10 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -204,12 +229,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def interleaved_medians(torch, fns: dict, rounds: int, calls: int) -> dict:
+WALL = {}  # wall seconds of each phase of main(), printed before the kernels' line
+
+
+@contextlib.contextmanager
+def clock(label: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        WALL[label] = round(time.perf_counter() - t0, 2)
+
+
+def interleaved_medians(torch, fns: dict, rounds: int, calls: int, warmup: int = 3) -> dict:
     """Median device ms per call of each fn: CUDA events around ``calls``
     back-to-back calls, so the host's enqueue overlaps the device; ``rounds``
-    rounds taken in turns, so that clock drift hits every fn alike."""
-    for fn in fns.values():  # warm-up
-        for _ in range(3):
+    rounds taken in turns, so that clock drift hits every fn alike, after
+    ``warmup`` calls of each."""
+    for fn in fns.values():
+        for _ in range(warmup):
             fn()
     samples = {k: [] for k in fns}
     for _ in range(rounds):
@@ -261,16 +299,17 @@ def check_outputs(torch, name, out, ref, residuals):
     return worst
 
 
-def check_dbias(torch, name, out, ref):
-    """Hold a kernel's dbias against its plain version's within
+def check_dbias(torch, name, out, ref, what="dbias"):
+    """Hold a kernel's f32 sum over the batch (``what``: dbias, or the cross-
+    attention block's dbo) against its plain version's within
     DBIAS_REL_TOL·max|ref|; returns max|out - ref|, raises on a miss."""
     if out.shape != ref.shape or out.dtype != ref.dtype or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"{name} dbias: {tuple(out.shape)} {out.dtype}, expected "
+        raise AssertionError(f"{name} {what}: {tuple(out.shape)} {out.dtype}, expected "
                              f"{tuple(ref.shape)} {ref.dtype}, finite")
     err = (out - ref).abs().max().item()
     tol = DBIAS_REL_TOL * ref.abs().max().item()
     if not err <= tol:
-        raise AssertionError(f"{name} dbias differs from its plain version by {err} > {tol}")
+        raise AssertionError(f"{name} {what} differs from its plain version by {err} > {tol}")
     return err
 
 
@@ -720,14 +759,21 @@ def flash_inputs(torch, b, h, n_q, n_k, d, seed):
     return fold(rn(b, n_q, h * d)), k, v, fold(rn(b, n_q, h * d))
 
 
-def flash_bounds(b, h, n_q, n_k, d):
-    """Bounds of the two flash kernels: the TPU kernels' FLOPs (4 and 14 per
-    element pair and width); q, k, v (and out, lse, dout) read once, out and
-    lse (dq, dk, dv) written once, bf16 with f32 lse."""
-    pairs = b * h * n_q * n_k * d
-    q_bytes, k_bytes, lse_bytes = 2 * b * h * n_q * d, 2 * b * h * n_k * d, 4 * b * h * n_q
-    return {"flash_attention": bound(4 * pairs, 2 * q_bytes + 2 * k_bytes + lse_bytes),
-            "flash_backward": bound(14 * pairs, 4 * q_bytes + 4 * k_bytes + lse_bytes)}
+def flash_bounds(b, h, n_q, n_k, dk, dv=None):
+    """Bounds of the two flash kernels: the FLOPs of the function, two
+    n_q x n_k products forward (q·kᵀ at width dk, P·v at dv) and five
+    backward (the q·kᵀ recompute, dq and dk at dk; dO·vᵀ and dv at dv: the
+    second q·kᵀ and dO·vᵀ of the two-pass split are the kernels' own
+    recomputation, not the gradient's work); q, k, v (and out, lse, dout)
+    read once, out and lse (dq, dk, dv) written once, bf16 with f32 lse."""
+    dv = dk if dv is None else dv
+    pairs = b * h * n_q * n_k
+    q, o = 2 * b * h * n_q * dk, 2 * b * h * n_q * dv
+    k, v = 2 * b * h * n_k * dk, 2 * b * h * n_k * dv
+    lse = 4 * b * h * n_q
+    return {"flash_attention": bound(2 * pairs * (dk + dv), q + k + v + o + lse),
+            "flash_backward": bound(2 * pairs * (3 * dk + 2 * dv),
+                                    2 * (q + k + v + o) + lse)}
 
 
 def sdpa_backward(torch, F, q, k, v, do, scale):
@@ -835,6 +881,243 @@ def below_gate_phase(torch, results, smi):
             f"autograd through the plain path={bwd_ms['plain']:.4f} autograd through SDPA="
             f"{bwd_ms['library']:.4f} on {smi}")
         results.setdefault("below_gate", {})[tag] = {"forward": fwd_ms, "backward": bwd_ms}
+
+
+# ScalableViT as benchmarks/run_benchmarks.py:140-144 builds it, at 256 px.
+SCALABLE = dict(num_classes=1000, dim=64, heads=(2, 4, 8, 16), depth=(2, 2, 8, 2),
+                ssa_dim_key=(40, 40, 40, 32), reduction_factor=(8, 4, 2, 1),
+                window_size=(64, 32, None, None))
+SCALABLE_SIZE = 256
+# (tag, b, n, c, heads, n_k, dh_k, dh_v): its SSA blocks at batch 64.
+SSA_SHAPES = [
+    ("ScalableViT stage 1", 64, 4096, 64, 2, 64, 40, 32),
+    ("ScalableViT stage 2", 64, 1024, 128, 4, 64, 40, 32),
+    ("ScalableViT stage 3", 64, 256, 256, 8, 64, 40, 32),
+    ("ScalableViT stage 4", 64, 64, 512, 16, 64, 32, 32),
+]
+# (tag, b, n, heads, dk, dv): the packed flash op at its IWSA windows (stages
+# 1 and 2, batch 64), and with q/k wider than v.
+PACKED_SHAPES = [
+    ("ScalableViT IWSA stage 1", 64, 4096, 2, 32, 32),
+    ("ScalableViT IWSA stage 2", 64, 1024, 4, 32, 32),
+    ("dk 40, dv 32", 64, 1024, 2, 40, 32),
+]
+
+
+def cross_bounds(b, n, c, heads, n_k, dh_k, dh_v):
+    """Bounds of the cross-attention block: the q and output GEMMs and the
+    flash FLOPs (:func:`flash_bounds`), forward; the doattn and dxn GEMMs and
+    the flash backward's, backward.  Bytes: forward x, xn, Wq, k, v, Wo, bo in
+    and y out; backward dy, q, k, v, oattn, lse, Wq, Wo in and dxn, dq, dk,
+    dv, f32 dbo out (bf16 tensors, f32 lse)."""
+    rows, hk, hv = b * n, heads * dh_k, heads * dh_v
+    pairs = b * heads * n * n_k
+    act, w = 2 * rows * c, 2 * c * (hk + hv)
+    kv = 2 * b * n_k * (hk + hv)
+    gemms = 2 * rows * c * (hk + hv)
+    return {
+        "fused_cross_attention": bound(gemms + 2 * pairs * (dh_k + dh_v),
+                                       3 * act + kv + w + 2 * c),
+        "fused_cross_attention_bwd": bound(
+            gemms + 2 * pairs * (3 * dh_k + 2 * dh_v),
+            2 * act + 2 * kv + 2 * rows * (2 * hk + hv) + 4 * b * heads * n + w + 4 * c),
+    }
+
+
+def cross_attention_phase(torch, results, smi):
+    """The fused cross-attention block at SSA_SHAPES, bf16 inputs from a
+    seeded generator: the serving forward and the training forward (y, q,
+    oattn; lse against the plain attention on the kernel's q) against the
+    plain version; the backward, fed the training
+    forward's residuals, against the plain backward on them (dxn, dq, dk, dv
+    within one unit plus 2e-2·max|ref|, dbo within DBIAS_REL_TOL·max|ref|),
+    twice bit for bit.  Times of the kernels, the plain versions and the
+    library composition (F.linear + scaled_dot_product_attention + F.linear
+    in bf16, autograd through it for the backward), and the bounds."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention_packed as fap
+    from vit_tpu_torch.ops import fused_cross_attention as fca
+    from vit_tpu_torch.ops._shared import weight_grad
+
+    for i, (tag, b, n, c, heads, n_k, dh_k, dh_v) in enumerate(SSA_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+
+        def rn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+        hk, hv = heads * dh_k, heads * dh_v
+        args = (rn(b, n, c), rn(b, n, c), rn(hk, c, scale=c ** -0.5), rn(b, n_k, hk),
+                rn(b, n_k, hv), rn(c, hv, scale=hv ** -0.5), rn(c, scale=0.1))
+        x, xn, wq, k, v, wo, bo = args
+        dy = rn(b, n, c, scale=0.1)
+        cfg = (heads, dh_k, dh_v)
+        scale = dh_k ** -0.5
+        shape = f"[{tag}: b={b} n={n} c={c} heads={heads} n_k={n_k} dh_k={dh_k} dh_v={dh_v}]"
+        with torch.inference_mode():
+            before = fca.fused_cross_attention.launches
+            out = fca.fused_cross_attention(*args, *cfg)
+            torch.cuda.synchronize()
+            if fca.fused_cross_attention.launches != before + 1:
+                raise AssertionError(f"cross-attention {shape}: launch counter did not move")
+            err, excess, tol = block_error(torch, out, fca.fused_cross_attention_reference(
+                *args, *cfg), x)
+        if not (bool(torch.isfinite(out).all()) and excess <= tol):
+            raise AssertionError(f"cross-attention {shape}: differs from its plain version by "
+                                 f"{excess} beyond one output unit > {tol}")
+        train = fca._launch_forward(*args, *cfg, scale)
+        ref = fca.fused_cross_attention_forward_reference(*args, *cfg)
+        train_err = check_outputs(torch, f"cross-attention training forward {shape}", train[:3],
+                                  ref[:3], {0: x})
+        _, q, oattn, lse = train
+        # lse against the plain attention on the kernel's own q: a one-unit
+        # flip of a q element between the two q GEMMs moves a logit, and so
+        # lse, by up to a unit of q times |k|·scale (5e-3 here).
+        lse_err = (lse - fap.flash_attention_packed_forward_reference(q, k, v, heads, scale)[1]
+                   ).abs().max().item()
+        if not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"cross-attention training forward {shape}: lse differs by "
+                                 f"{lse_err}")
+        del ref
+
+        def kernel():
+            return fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+
+        def whole():
+            out = kernel()
+            return out, weight_grad(out[1], xn), weight_grad(dy, oattn)
+
+        def plain():
+            return fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo,
+                                                                *cfg)
+
+        before = fca.fused_cross_attention_backward.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fca.fused_cross_attention_backward.launches != before + 1:
+            raise AssertionError(f"cross-attention backward {shape}: launch counter did not move")
+        want = plain()
+        bwd_err = check_outputs(torch, f"cross-attention backward {shape}", got[:4], want[:4], {})
+        dbo_err = check_dbias(torch, f"cross-attention backward {shape}", got[4], want[4], "dbo")
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, kernel())):
+            raise AssertionError(f"cross-attention backward {shape}: two runs differ")
+        del got, want
+
+        def library(xn_, wq_, k_, v_, wo_, bo_):
+            o = F.scaled_dot_product_attention(fap.split_heads(F.linear(xn_, wq_), heads),
+                                               fap.split_heads(k_, heads),
+                                               fap.split_heads(v_, heads), scale=scale)
+            return x + F.linear(fap.merge_heads(o), wo_, bo_)
+
+        leaves = [t.detach().requires_grad_() for t in (xn, wq, k, v, wo, bo)]
+        y_lib = library(*leaves)
+        own = [leaves[0], leaves[2], leaves[3], leaves[5]]  # the kernel's own outputs' inputs
+        with torch.inference_mode():
+            fwd_ms = interleaved_medians(torch, {
+                "kernel": lambda: fca.fused_cross_attention(*args, *cfg),
+                "plain": lambda: fca.fused_cross_attention_reference(*args, *cfg),
+                "library": lambda: library(xn, wq, k, v, wo, bo)}, rounds=5, calls=5)
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": kernel, "plain": plain, "whole": whole,
+            "library": lambda: torch.autograd.grad(y_lib, own, dy, retain_graph=True),
+            "library_whole": lambda: torch.autograd.grad(y_lib, leaves, dy, retain_graph=True)},
+            rounds=5, calls=5)
+        bounds = cross_bounds(b, n, c, heads, n_k, dh_k, dh_v)
+        fb, bb = bounds["fused_cross_attention"], bounds["fused_cross_attention_bwd"]
+        log(f"cross-attention {shape}: serving y within one bf16 unit plus 2e-2*max|ref-x|, "
+            f"max|kernel-plain|={err:.6g}; training forward (y, q, oattn) max {train_err:.6g}, "
+            f"lse {lse_err:.3g}; backward (dxn, dq, dk, dv) fed the forward's residuals max "
+            f"{bwd_err:.6g}, dbo {dbo_err:.3g} (<= {DBIAS_REL_TOL}*max|ref|), the same bits in "
+            f"two runs; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} "
+            f"F.linear+SDPA+F.linear={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); "
+            f"backward ms kernel={bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd "
+            f"through the library composition={bwd_ms['library']:.4f}; with dWq, dWo: "
+            f"kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd={bwd_ms['library_whole']:.4f}; "
+            f"bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+        results.setdefault("fused_cross_attention", {})[tag] = dict(
+            err=max(err, train_err), lse_err=lse_err, **fwd_ms, bound=fb)
+        results.setdefault("fused_cross_attention_bwd", {})[tag] = dict(
+            err=bwd_err, dbo_err=dbo_err, **bwd_ms, bound=bb)
+        del args, x, xn, wq, k, v, wo, bo, dy, train, q, oattn, lse, leaves, own, y_lib
+        torch.cuda.empty_cache()
+
+
+def packed_phase(torch, results, smi):
+    """The channel-packed flash op at PACKED_SHAPES, seeded bf16 (b, n,
+    heads·d) inputs: out and lse against the plain version; dq, dk, dv (the
+    flash backward on the packed strides, as the op's autograd runs it) fed
+    the kernel's own out and lse against the plain backward, twice bit for
+    bit; times of the kernels, their plain versions and SDPA on the head
+    views (autograd through it for the backward), and the bounds."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops import flash_attention_packed as fap
+
+    for i, (tag, b, n, heads, dk, dv) in enumerate(PACKED_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        q, k, v, do = (torch.randn(b, n, heads * d, generator=g, device="cuda")
+                       .to(torch.bfloat16) for d in (dk, dk, dv, dv))
+        scale = dk ** -0.5
+        shape = f"[{tag}: b={b} n={n} heads={heads} dk={dk} dv={dv}, channel-packed]"
+
+        def heads_of(*ts):
+            return [fap.split_heads(t, heads) for t in ts]
+
+        before = fap.flash_attention_packed.launches
+        with torch.inference_mode():
+            out, lse = fap.flash_attention_packed_forward(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        if fap.flash_attention_packed.launches != before + 1:
+            raise AssertionError(f"packed flash {shape}: launch counter did not move")
+        ref_out, ref_lse = fap.flash_attention_packed_forward_reference(q, k, v, heads, scale)
+        err = check_outputs(torch, f"packed flash forward {shape}", (out,), (ref_out,), {})
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (lse.dtype == torch.float32 and lse_err <= LSE_ABS_TOL):
+            raise AssertionError(f"packed flash forward {shape}: lse differs by {lse_err}")
+        del ref_out, ref_lse
+
+        def kernel():
+            return [fap.merge_heads(t) for t in fa.flash_backward(
+                *heads_of(q, k, v, out), lse, fap.split_heads(do, heads), scale)]
+
+        def plain():
+            return fap.flash_attention_packed_backward_reference(q, k, v, out, lse, do, heads,
+                                                                 scale)
+
+        before = fa.flash_backward.launches
+        grads = kernel()
+        torch.cuda.synchronize()
+        if fa.flash_backward.launches != before + 1:
+            raise AssertionError(f"packed flash backward {shape}: launch counter did not move")
+        bwd_err = check_outputs(torch, f"packed flash backward {shape}", grads, plain(), {})
+        if not all(torch.equal(a, b_) for a, b_ in zip(grads, kernel())):
+            raise AssertionError(f"packed flash backward {shape}: two runs differ")
+        del grads
+        fwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: fap.flash_attention_packed_forward(q, k, v, heads, scale),
+            "plain": lambda: fap.flash_attention_packed_forward_reference(q, k, v, heads, scale),
+            "library": lambda: F.scaled_dot_product_attention(*heads_of(q, k, v), scale=scale)},
+            rounds=3, calls=3)
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": kernel, "plain": plain,
+            "library": sdpa_backward(torch, F, *heads_of(q, k, v, do), scale)},
+            rounds=3, calls=3)
+        bounds = flash_bounds(b, heads, n, n, dk, dv)
+        fb, bb = bounds["flash_attention"], bounds["flash_backward"]
+        log(f"packed flash {shape}: out within one bf16 unit plus {KERNEL_REL_TOL}*max|ref| of "
+            f"the plain version, max|kernel-plain|={err:.6g}; lse max|diff|={lse_err:.3g}; dq, "
+            f"dk, dv (fed the kernel's out and lse) max|diff|={bwd_err:.6g}, the same bits in two "
+            f"runs; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} SDPA on "
+            f"the head views={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); backward ms "
+            f"kernel={bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd through SDPA="
+            f"{bwd_ms['library']:.4f} bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+        results.setdefault("flash_attention_packed", {})[tag] = dict(
+            err=err, lse_err=lse_err, **fwd_ms, bound=fb)
+        results.setdefault("flash_backward (packed)", {})[tag] = dict(
+            err=bwd_err, **bwd_ms, bound=bb)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
 
 
 def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, per_forward,
@@ -1010,12 +1293,14 @@ def step1_gradients(torch, tag, models, images, labels):
 
     if any(p.dtype != torch.float32 for p in models[0].parameters()):
         raise AssertionError(f"{tag}: parameters are not f32")
-    grads, first = {}, {}
+    grads, first, peak = {}, {}, {}
     for name, m in zip(("kernels", "plain", "f32"), models):
         m.train().zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
         loss = cross_entropy_loss(m(images), labels)
         loss.backward()
         first[name] = loss.item()
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
         grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
         m.zero_grad(set_to_none=True)
     if any(v.dtype != torch.float32 for v in grads["kernels"].values()):
@@ -1041,7 +1326,9 @@ def step1_gradients(torch, tag, models, images, labels):
     summary = (f"step-1 gradients, relative L2 error against the f32 model over all "
                f"parameters: kernels={all_k:.4g} plain={all_p:.4g}; worst per-tensor ratio "
                f"kernels/plain={worst_ratio:.3f} ({worst_name}; <= "
-               f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); {temperatures}")
+               f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); peak GB allocated in the step-1 forward and "
+               f"backward (the three models' weights included) kernels={peak['kernels']:.2f} "
+               f"plain={peak['plain']:.2f} f32={peak['f32']:.2f}; {temperatures}")
     if misses:
         raise AssertionError(f"{tag}: kernel-path gradients beyond "
                              f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error: {misses}; "
@@ -1059,20 +1346,22 @@ def gradient_phase(torch, tag, vit, cfg, batch, seed, smi):
 
 
 def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, size=None,
-                   plain_kw=PLAIN_KW):
+                   plain_kw=PLAIN_KW, timing=None):
     """Train ``vit(..., compute_dtype=bf16)`` (f32 parameters) with SGD on one
     fixed batch; hold its step-1 gradients (:func:`step1_gradients`) and its
     loss against the plain bf16 path (``plain_kw``) and an f32 model of the
     same weights; check that each step launches each kernel
     ``per_step[name]`` times (0 if not named), and that BatchNorm's running
     statistics, where the model has them, stay finite and move; time a step
-    on both paths."""
+    on both paths (:func:`interleaved_medians` with ``timing``, 3 rounds of
+    3 steps by default)."""
     from vit_tpu_torch.parallel.train import make_train_step
 
     model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed, size,
                                                         plain_kw)
     first, summary = step1_gradients(torch, tag, (model, plain, f32), images, labels)
     del f32
+    torch.cuda.empty_cache()
     loss_rel = abs(first["kernels"] - first["plain"]) / abs(first["plain"])
 
     # The main path: counters from 0, TRAIN_STEPS steps, read right after.
@@ -1093,12 +1382,15 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
     plain_step = make_train_step(plain, torch.optim.SGD(plain.parameters(), lr=1e-3))
     ms = interleaved_medians(torch, {"kernels": lambda: step(images, labels),
                                      "plain": lambda: plain_step(images, labels)},
-                             rounds=3, calls=3)
+                             **(timing or dict(rounds=3, calls=3)))
     log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3); step-1 loss "
         f"kernels={first['kernels']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f} "
         f"(kernels/plain within {LOSS_REL_TOL} relative: {loss_rel:.3g}); {summary}losses "
         f"over {TRAIN_STEPS} steps {[round(v, 6) for v in losses]}; launches per step "
-        f"{per_step}; "
+        f"{per_step}; peak GB since the f32 model's step 1, both paths' timed steps "
+        f"included: allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}, reserved "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f}, of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
         + (f"{len(stats)} BatchNorm running statistics finite and updated; " if stats else "")
         + f"median step ms kernels={ms['kernels']:.3f} "
         f"plain={ms['plain']:.3f} ({batch / ms['kernels'] * 1e3:.1f} vs "
@@ -1122,16 +1414,19 @@ def kernel_group(name: str) -> str:
     m = re.search(r"linear_kernel<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"linear_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
+    m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
+    if m:
+        return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
-                "layernorm_kernel", "colsum_kernel", "flash_fwd_kernel", "flash_bwd_dsum_kernel",
-                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+                "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel"):
         if own in name:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
-        return "cuDNN convolutions (SPT; CvT's embeddings and depthwise projections)"
+        return ("cuDNN convolutions (SPT; CvT's embeddings and depthwise projections; "
+                "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling)")
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
-        return "cuBLAS GEMM (dW, patch embedding, head; CvT's 1x1 convs)"
+        return "cuBLAS GEMM (dW, patch embedding, head; 1x1 convs outside the kernels)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer (foreach)"
     if re.search(r"layer_norm|LayerNorm", name):
@@ -1156,7 +1451,9 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
     calls in one step (``torch.cuda.set_sync_debug_mode("warn")``), and the
     kernels grouped by what they do, with their time and launches per step.
     A first one-step profile, thrown away, takes the profiler's start-up out
-    of the timed one."""
+    of the timed one.  Only the device's activity is recorded: the host's
+    ops would add tens of thousands of events a step to process at a
+    launch-bound config, and its time is the enqueue time above."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -1186,10 +1483,10 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
         enqueue.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CUDA]):
         step(images, labels)
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             step(images, labels)
@@ -1219,7 +1516,54 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
         log(f"| {name} | {ms:.3f} | {count:g} |")
 
 
+def kernel_entry(results, by_path, name, src, tpu, main_shape):
+    """A kernel's line of the JSON summary: its launches over the main paths
+    ``by_path`` (and per path), its largest error over every check, and its
+    times and bound at ``main_shape`` (the block kernels' B/16, the biased
+    block's small-dataset shape with LSA's bias, the flash kernels'
+    CvT-13@224 stage 1, the cross-attention block's ScalableViT stage 1, the
+    packed op's IWSA stage 1), its other timed shapes or biases under
+    ``by_shape`` / ``by_bias``.  The block forwards' library call is
+    PyTorch's bf16 modules, the block backwards' autograd through them for
+    the kernel's own outputs (with the weight gradients beside the kernel
+    plus its dW GEMMs); the flash kernels' is PyTorch's
+    ``scaled_dot_product_attention`` (autograd through it for the backward);
+    the cross-attention block's F.linear + SDPA + F.linear.  The flash
+    backward's times through the packed op are under ``packed``."""
+    kinds = results[name]
+    r = kinds[main_shape]
+    line = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": max(max(k.get("err", 0.0), k.get("train_fwd_err", 0.0))
+                               for k in kinds.values()),
+            "ms": r["kernel"], "plain_ms": r["plain"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r.get("library", r.get("modules")),
+            "shape": main_shape}
+    if "whole" in r:
+        line.update(whole_ms=r["whole"], library_whole_ms=r["library_whole"])
+
+    def table(rows):  # the timed records (a training forward's check has no times)
+        return {tag: {k: v for k, v in k_r.items() if k != "bound"}
+                | {"bound_ms": k_r["bound"][0]} for tag, k_r in rows.items() if "bound" in k_r}
+
+    if len(table(kinds)) > 1:
+        line["by_bias" if "bias" in name else "by_shape"] = table(kinds)
+    if name in ("flash_attention", "flash_backward"):
+        line["below_gate"] = {tag: times["forward" if name == "flash_attention" else "backward"]
+                              for tag, times in results["below_gate"].items()}
+    if name == "flash_backward":
+        line["packed"] = table(results["flash_backward (packed)"])
+    return line
+
+
 def main() -> int:
+    # ScalableViT's plain training path peaks at 72 GB of the card's 80 (its
+    # stage-1 IWSA keeps (64, 2, 4096, 4096) score maps for the backward);
+    # beside the blocks the kernel path's steps leave in PyTorch's cache,
+    # fixed-size segments fragment and a 16 GiB request fails.  Growable
+    # segments avoid that.  Set before CUDA starts.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1248,24 +1592,34 @@ def main() -> int:
     log(f"build: {build_s:.2f} s, {path.name}, {len(regs)} kernels compiled, "
         f"max {max(regs, default=0)} registers, {spills} with spills")
 
-    from vit_tpu_torch import CvT, ViT
+    from vit_tpu_torch import CvT, ScalableViT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
+    from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from vit_tpu_torch.ops.fused_attention_block import (
         fused_attention_block, fused_attention_block_backward, fused_attention_block_bias,
         fused_attention_block_bias_backward,
     )
+    from vit_tpu_torch.ops.fused_cross_attention import (
+        fused_cross_attention, fused_cross_attention_backward,
+    )
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_backward
 
     results = {}
-    kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
-    kernel_phase(torch, "B/32-entry", 8, 65, 1024, 16, 64, 2048, results)
-    backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
-    backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
-    biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
-    spt_phase(torch, 64, 256, 16, 1024, smi)
-    flash_phase(torch, results, smi)
-    below_gate_phase(torch, results, smi)
+    with clock("block kernels, SPT"):
+        kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
+        kernel_phase(torch, "B/32-entry", 8, 65, 1024, 16, 64, 2048, results)
+        backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
+        backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
+        biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
+        spt_phase(torch, 64, 256, 16, 1024, smi)
+    with clock("flash kernels"):
+        flash_phase(torch, results, smi)
+        below_gate_phase(torch, results, smi)
+    with clock("cross-attention block"):
+        cross_attention_phase(torch, results, smi)
+    with clock("packed flash"):
+        packed_phase(torch, results, smi)
 
     # The main paths, each with the counters from 0 just before it and read
     # just after.
@@ -1274,113 +1628,110 @@ def main() -> int:
                 "fused_mlp_bwd": fused_mlp_backward,
                 "fused_attention_block_bias": fused_attention_block_bias,
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
-                "flash_attention": flash_attention, "flash_backward": flash_backward}
+                "flash_attention": flash_attention, "flash_backward": flash_backward,
+                "fused_cross_attention": fused_cross_attention,
+                "fused_cross_attention_bwd": fused_cross_attention_backward,
+                "flash_attention_packed": flash_attention_packed}
 
     def per_layer(cfg, *names):
         return {name: cfg["depth"] for name in names}
 
+    def path(name, phase, *args, **kwargs):
+        torch.cuda.empty_cache()
+        with clock(name):
+            by_path[name] = phase(torch, *args, **kwargs)
+
     small = vit_for_small_dataset.ViT
-    by_path = {
-        "serving B/16": serving_phase(
-            torch, "ViT-B/16@224 bf16", ViT, B16, 64, 3, 0, smi, counters,
-            per_layer(B16, "fused_attention_block", "fused_mlp")),
-        "serving B/32": serving_phase(
-            torch, "ViT-B/32@256 bf16 (entry)", ViT, ENTRY, 8, 3, 1, smi, counters,
-            per_layer(ENTRY, "fused_attention_block", "fused_mlp")),
-        "serving small-dataset": serving_phase(
-            torch, "small-dataset ViT 256/16 bf16", small, SMALL_DATASET, 64, 3, 4, smi,
-            counters, per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp"),
-            top1_sign_test=True),
-        "training B/32": training_phase(
-            torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi, counters,
-            per_layer(ENTRY, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
-                      "fused_mlp_bwd")),
-        "training B/16": training_phase(
-            torch, "ViT-B/16@224", ViT, B16, 64, 3, smi, counters,
-            per_layer(B16, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
-                      "fused_mlp_bwd")),
-        "training small-dataset": training_phase(
-            torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 5, smi, counters,
-            per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
-                      "fused_attention_block_bias_bwd", "fused_mlp_bwd")),
-    }
-    gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
+    by_path = {}
+    path("serving B/16", serving_phase, "ViT-B/16@224 bf16", ViT, B16, 64, 3, 0, smi, counters,
+         per_layer(B16, "fused_attention_block", "fused_mlp"))
+    path("serving B/32", serving_phase, "ViT-B/32@256 bf16 (entry)", ViT, ENTRY, 8, 3, 1, smi,
+         counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp"))
+    path("serving small-dataset", serving_phase, "small-dataset ViT 256/16 bf16", small,
+         SMALL_DATASET, 64, 3, 4, smi, counters,
+         per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp"),
+         top1_sign_test=True)
+    path("training B/32", training_phase, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi,
+         counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp",
+                             "fused_attention_block_bwd", "fused_mlp_bwd"))
+    path("training B/16", training_phase, "ViT-B/16@224", ViT, B16, 64, 3, smi, counters,
+         per_layer(B16, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
+                   "fused_mlp_bwd"))
+    path("training small-dataset", training_phase, "small-dataset ViT 256/16", small,
+         SMALL_DATASET, 64, 5, smi, counters,
+         per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
+                   "fused_attention_block_bias_bwd", "fused_mlp_bwd"))
+    with clock("gradients small-dataset"):
+        gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
     # CvT-13: flash at stage 1 (224 px; n_q 3136, n_k 784), stages 1 and 2 (384 px).
     cvt = dict(plain_kw=dict(use_flash="never"))
     for size, flash in ((224, 1), (384, 3)):
-        torch.cuda.empty_cache()
-        by_path[f"serving CvT-13@{size}"] = serving_phase(
-            torch, f"CvT-13@{size} bf16", CvT, CVT13, 64, 3, 7, smi, counters,
-            {"flash_attention": flash}, size=size, **cvt)
-        torch.cuda.empty_cache()
-        by_path[f"training CvT-13@{size}"] = training_phase(
-            torch, f"CvT-13@{size}", CvT, CVT13, 64, 8, smi, counters,
-            {"flash_attention": flash, "flash_backward": flash}, size=size, **cvt)
+        path(f"serving CvT-13@{size}", serving_phase, f"CvT-13@{size} bf16", CvT, CVT13, 64, 3,
+             7, smi, counters, {"flash_attention": flash}, size=size, **cvt)
+        path(f"training CvT-13@{size}", training_phase, f"CvT-13@{size}", CvT, CVT13, 64, 8, smi,
+             counters, {"flash_attention": flash, "flash_backward": flash}, size=size, **cvt)
+    # ScalableViT: the cross-attention block in every SSA, the packed flash op
+    # in every IWSA whose window holds 1024 tokens or more (stages 1 and 2),
+    # two conv-MLPs per block.  Its plain path takes 1.0-1.7 s a step at
+    # batch 64 (H100 80GB HBM3, 700 W), so its step is timed in 3 rounds of
+    # one step after one of warm-up.
+    blocks = sum(SCALABLE["depth"])
+    windows = [SCALABLE_SIZE // 4 // 2 ** i if w is None else w
+               for i, w in enumerate(SCALABLE["window_size"])]
+    packed = sum(d for d, w in zip(SCALABLE["depth"], windows) if w * w >= 1024)
+    scalable_forward = {"fused_cross_attention": blocks, "flash_attention_packed": packed,
+                        "fused_mlp": 2 * blocks}
+    path("serving ScalableViT", serving_phase, "ScalableViT@256 bf16", ScalableViT, SCALABLE,
+         64, 3, 9, smi, counters, scalable_forward, size=SCALABLE_SIZE)
+    path("training ScalableViT", training_phase, "ScalableViT@256", ScalableViT, SCALABLE, 64,
+         10, smi, counters,
+         {**scalable_forward, "fused_cross_attention_bwd": blocks, "flash_backward": packed,
+          "fused_mlp_bwd": 2 * blocks}, size=SCALABLE_SIZE,
+         timing=dict(rounds=3, calls=1, warmup=1))
     torch.cuda.empty_cache()
-    profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)
-    profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
-    profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
-    profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
+    with clock("profiles"):
+        profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)
+        profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
+        profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
+        profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
+        profile_phase(torch, "ScalableViT@256", ScalableViT, SCALABLE, 64, 0, smi,
+                      size=SCALABLE_SIZE)
+    log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
+    # name: (source, the TPU kernel it replaces, the shape of its times)
     sources = {
-        "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147"),
+        "fused_mlp": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147", "B/16"),
         "fused_attention_block": ("vit_tpu_torch/csrc/fused_attention_block.cu",
-                                  "vit_tpu/ops/fused_attention_block.py:106"),
-        "fused_mlp_bwd": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:177"),
+                                  "vit_tpu/ops/fused_attention_block.py:106", "B/16"),
+        "fused_mlp_bwd": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:177",
+                          "B/16"),
         "fused_attention_block_bwd": ("vit_tpu_torch/csrc/fused_attention_block.cu",
-                                      "vit_tpu/ops/fused_attention_block.py:169"),
+                                      "vit_tpu/ops/fused_attention_block.py:169", "B/16"),
         "fused_attention_block_bias": ("vit_tpu_torch/csrc/fused_attention_block.cu",
-                                       "vit_tpu/ops/fused_attention_block.py:515"),
+                                       "vit_tpu/ops/fused_attention_block.py:515", "lsa"),
         "fused_attention_block_bias_bwd": ("vit_tpu_torch/csrc/fused_attention_block.cu",
-                                           "vit_tpu/ops/fused_attention_block.py:545"),
+                                           "vit_tpu/ops/fused_attention_block.py:545", "lsa"),
         "flash_attention": ("vit_tpu_torch/csrc/flash_attention.cu",
                             "vit_tpu/ops/flash_attention.py:51, "
-                            "vit_tpu/ops/flash_attention_v2.py:38"),
+                            "vit_tpu/ops/flash_attention_v2.py:38", FLASH_SHAPES[0][0]),
         "flash_backward": ("vit_tpu_torch/csrc/flash_attention.cu",
-                           "vit_tpu/ops/flash_backward.py:41, :72"),
+                           "vit_tpu/ops/flash_backward.py:41, :72", FLASH_SHAPES[0][0]),
+        "fused_cross_attention": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
+                                  "vit_tpu/ops/fused_cross_attention.py:71", SSA_SHAPES[0][0]),
+        "fused_cross_attention_bwd": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
+                                      "vit_tpu/ops/fused_cross_attention.py:115",
+                                      SSA_SHAPES[0][0]),
+        "flash_attention_packed": ("vit_tpu_torch/csrc/flash_attention.cu",
+                                   "vit_tpu/ops/flash_attention_packed.py:58",
+                                   PACKED_SHAPES[0][0]),
     }
     launches = {name: sum(path[name] for path in by_path.values()) for name in counters}
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name}: not launched on any main path")
 
-    def entry(name, src, tpu):
-        """A kernel's line, with times and bounds at the B/16 shapes (the
-        biased block's at the small-dataset shapes with LSA's bias, the other
-        biases under ``by_bias``; the flash kernels' at CvT-13@224's stage 1,
-        the other shapes under ``by_shape``); the block forwards' library call
-        is PyTorch's bf16 modules, the block backwards' is autograd through
-        them for the kernel's own outputs (with the weight gradients beside
-        the kernel plus its dW GEMMs); the flash kernels' is PyTorch's
-        ``scaled_dot_product_attention`` (autograd through it for the
-        backward)."""
-        biased = "bias" in name
-        flash = name.startswith("flash")
-        kinds = results[name]
-        r = kinds["lsa" if biased else FLASH_SHAPES[0][0] if flash else "B/16"]
-        line = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                "launches": launches[name],
-                "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-                "max_abs_err": max(max(k.get("err", 0.0), k.get("train_fwd_err", 0.0))
-                                   for k in kinds.values()),
-                "ms": r["kernel"], "plain_ms": r["plain"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r.get("library", r.get("modules"))}
-        if "whole" in r:
-            line.update(whole_ms=r["whole"], library_whole_ms=r["library_whole"])
-        if flash:
-            line["shape"] = "b=64 heads=1 n_q=3136 n_k=784 d=64 (CvT-13@224 stage 1)"
-            line["by_shape"] = {tag: {k: v for k, v in k_r.items() if k != "bound"}
-                                | {"bound_ms": k_r["bound"][0]} for tag, k_r in kinds.items()}
-            line["below_gate"] = {tag: times[("forward" if name == "flash_attention"
-                                              else "backward")]
-                                  for tag, times in results["below_gate"].items()}
-        if biased:
-            line["shape"] = "b=64 n=257 d=1024 heads=16x64, LSA bias (1, n, n), scale 1"
-            line["by_bias"] = {kind: {k: v for k, v in k_r.items() if k != "bound"}
-                               | {"bound_ms": k_r["bound"][0]} for kind, k_r in kinds.items()}
-        return line
-
-    log(json.dumps({"kernels": [entry(name, *where) for name, where in sources.items()]}))
+    log(json.dumps({"kernels": [kernel_entry(results, by_path, name, *where)
+                                for name, where in sources.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,11 @@ kernels run in interpret mode (``pltpu.force_tpu_interpret_mode()``, as
 - The dispatcher: d = 40 zero-padded against ``vit_tpu``'s padded dispatch;
   ``"force"`` with a bias or mask raises; the tier decisions as a table, with
   the CUDA check patched to take CPU tensors.
+- The channel-packed op against ``vit_tpu``'s ``flash_attention_packed(...,
+  interpret=True)``, forward and VJP, at that kernel's test shapes, with
+  dk != dv (32 / 48, where ``vit_tpu`` recomputes the backward through XLA,
+  and ScalableViT's 40 / 32), within 1e-5 of max(1, max|ref|); and
+  ``packed_window_attention``'s routes against ``vit_tpu``'s.
 """
 
 import numpy as np
@@ -27,8 +32,10 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from vit_tpu.ops import attention as jax_attention  # noqa: E402
 from vit_tpu.ops import flash_attention as jax_fa  # noqa: E402
 from vit_tpu.ops.flash_attention_v2 import flash_attention_v2 as jax_flash_v2  # noqa: E402
+from vit_tpu.ops.flash_attention_packed import flash_attention_packed as jax_packed  # noqa: E402
 from vit_tpu.ops.flash_backward import flash_backward as jax_flash_backward  # noqa: E402
 from vit_tpu_torch.ops import attention  # noqa: E402
+from vit_tpu_torch.ops import flash_attention_packed as fap  # noqa: E402
 from vit_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_forward, flash_attention_forward_reference,
     flash_attention_v2, flash_backward, flash_backward_reference,
@@ -197,3 +204,127 @@ def test_cpu_tensors_take_the_plain_path_at_the_tier():
     """Unpatched, a CPU tensor never reaches the flash op, whatever n."""
     q = torch.zeros(()).to(BF16).expand(1, 1, 4096, 32)
     assert not attention._use_flash(q, q, q, None, None)
+
+
+# (b, n, heads, dk, dv) for the channel-packed op.
+PACKED_CASES = [
+    (1, 256, 2, 32, 32),  # tests/unit/test_flash_packed.py's shapes, one image
+    (1, 200, 2, 32, 32),  # a ragged last tile
+    (1, 128, 2, 32, 48),  # dk != dv: vit_tpu's XLA-recompute backward
+    (1, 96, 2, 40, 32),   # ScalableViT's SSA widths
+]
+PACKED_TOL = 1e-5
+
+
+def _packed(b, n, heads, dk, dv, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, n, heads * d)).astype(np.float32)
+                 for d in (dk, dk, dv, dv))
+
+
+def _packed_close(got, want, name):
+    want = np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err = _maxdiff(got, want)
+    assert err <= PACKED_TOL * max(1.0, float(np.max(np.abs(want)))), (name, err)
+
+
+@pytest.mark.parametrize("b,n,heads,dk,dv", PACKED_CASES)
+def test_packed_forward_and_vjp_match_jax_kernel(b, n, heads, dk, dv):
+    q, k, v, g = _packed(b, n, heads, dk, dv)
+    scale = dk ** -0.5
+    out_want, vjp = jax.vjp(lambda *a: jax_packed(*a, heads, scale, True),
+                            *map(jnp.asarray, (q, k, v)))
+    grads_want = vjp(jnp.asarray(g))
+    counts = (fap.flash_attention_packed.launches, flash_backward.launches)
+    out, grads = _port_vjp(fap.flash_attention_packed, q, k, v, g, heads=heads, scale=scale)
+    assert (fap.flash_attention_packed.launches, flash_backward.launches) == counts
+    _packed_close(out, out_want, "out")
+    for name, got, want in zip("qkv", grads, grads_want):
+        _packed_close(got, want, f"d{name}")
+
+
+def test_packed_lse_is_the_head_major_ops():
+    q, k, v, _ = _packed(2, 70, 2, 40, 32, seed=1)
+    t = torch.from_numpy
+    out, lse = fap.flash_attention_packed_forward(t(q), t(k), t(v), 2)
+    want_out, want_lse = flash_attention_forward(
+        *(fap.split_heads(t(a), 2) for a in (q, k, v)), 40 ** -0.5)
+    assert torch.equal(out, fap.merge_heads(want_out)) and torch.equal(lse, want_lse)
+
+
+def _open_packed_gate(monkeypatch, calls):
+    """Let f32 CPU calls at n >= 64 through the flash tier, counting the
+    packed op's and the head-major op's calls; the ops then run their plain
+    versions."""
+    monkeypatch.setattr(attention, "flash_tensor", lambda t: True)
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 64)
+    for name in ("flash_attention_packed", "flash_attention"):
+        monkeypatch.setattr(attention, name, lambda *a, f=getattr(attention, name), name=name:
+                            calls.append((name, a[0].shape)) or f(*a))
+
+
+@pytest.mark.parametrize("route,dk,dv,launched", [
+    ("auto", 32, 32, ("flash_attention_packed", (1, 64, 64))),
+    ("auto", 32, 48, ("flash_attention", (1, 2, 64, 64))),   # no (32, 48) instance: padded
+    ("force", 16, 16, ("flash_attention", (1, 2, 64, 64))),  # 16 padded to 64
+    ("never", 32, 32, None),
+])
+def test_packed_window_attention_routes_match_jax(monkeypatch, route, dk, dv, launched):
+    """Each route against ``vit_tpu``'s packed dispatcher on the same inputs:
+    its interpret mode (the packed kernel) for the flash routes, ``"never"``
+    for the plain one."""
+    q, k, v, g = _packed(1, 64, 2, dk, dv, seed=2)
+    scale = dk ** -0.5
+    mode = "never" if route == "never" else "interpret"
+    out_want, vjp = jax.vjp(
+        lambda *a: jax_attention.packed_window_attention(*a, 2, scale=scale, mode=mode),
+        *map(jnp.asarray, (q, k, v)))
+    grads_want = vjp(jnp.asarray(g))
+    calls = []
+    _open_packed_gate(monkeypatch, calls)
+    out, grads = _port_vjp(attention.packed_window_attention, q, k, v, g, heads=2, scale=scale,
+                           mode=route)
+    assert calls == ([launched] if launched else [])
+    _packed_close(out, out_want, "out")
+    for name, got, want in zip("qkv", grads, grads_want):
+        _packed_close(got, want, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype,n,n_k,dk,dv,mode,route", [
+    (BF16, 4096, 4096, 32, 32, "auto", "packed"),   # ScalableViT stage-1 IWSA
+    (BF16, 1024, 1024, 32, 32, "auto", "packed"),   # stage 2: the 16-bit tier's edge
+    (F16, 256, 1024, 40, 32, "auto", "packed"),     # the larger n counts
+    (BF16, 8192, 8192, 32, 32, "auto", "packed"),   # no n_k <= 4096 cap (vit_tpu: VMEM)
+    (BF16, 1024, 1024, 16, 16, "auto", "padded"),   # widths without an instance
+    (BF16, 1023, 1023, 32, 32, "auto", "plain"),    # below the tier
+    (BF16, 256, 256, 32, 32, "auto", "plain"),      # stage 3
+    (F32, 4096, 4096, 32, 32, "auto", "plain"),     # f32: plain on the port
+    (BF16, 4096, 4096, 32, 32, "never", "plain"),
+    (F32, 64, 64, 32, 32, "force", "packed"),
+])
+def test_packed_tier_decisions(monkeypatch, dtype, n, n_k, dk, dv, mode, route):
+    """The route ``packed_window_attention`` takes, with the CUDA check
+    patched to take a CPU tensor of a 16-bit dtype and the ops replaced by
+    recorders (expanded zero-stride inputs: no memory is touched)."""
+    taken = []
+    monkeypatch.setattr(attention, "flash_tensor", lambda t: t.dtype in (BF16, F16))
+    for name, tag in (("flash_attention_packed", "packed"), ("_flash", "padded"),
+                      ("scaled_dot_product_attention", "plain")):
+        monkeypatch.setattr(attention, name, lambda q, *a, tag=tag, **kw: taken.append(tag) or q)
+    heads = 2
+    q = torch.zeros(()).to(dtype).expand(1, n, heads * dk)
+    k = torch.zeros(()).to(dtype).expand(1, n_k, heads * dk)
+    v = torch.zeros(()).to(dtype).expand(1, n_k, heads * dv)
+    attention.packed_window_attention(q, k, v, heads, mode=mode)
+    assert taken == [route]
+
+
+def test_packed_window_attention_refuses_tpu_modes_and_bad_heads():
+    q = torch.zeros(1, 8, 64)
+    with pytest.raises(ValueError, match="TPU-only"):
+        attention.packed_window_attention(q, q, q, 2, mode="interpret")
+    with pytest.raises(ValueError, match="mode"):
+        attention.packed_window_attention(q, q, q, 2, mode="sometimes")
+    with pytest.raises(ValueError, match="heads"):
+        attention.packed_window_attention(q, q, q, 3)

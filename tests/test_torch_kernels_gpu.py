@@ -16,21 +16,26 @@ residual dy, the others (dh, gact, dqkv and the f32 sums) against 0.  The
 biased block's dbias, an f32 sum over images and heads, has its own bound
 (``chip_smoke.check_dbias``).  The flash kernels' outputs are held against
 their plain versions the same way, with no residual (out; dq, dk, dv fed
-the kernel's own out and lse), and lse within ``chip_smoke.LSE_ABS_TOL``.
+the kernel's own out and lse), and lse within ``chip_smoke.LSE_ABS_TOL``; so
+are the channel-packed op and the cross-attention block (y against its
+residual x; q, oattn, dxn, dq, dk, dv against 0; dbo, an f32 sum over the
+batch, within ``chip_smoke.DBIAS_REL_TOL``).
 """
 
 import pytest
 import torch
 
 from chip_smoke import LSE_ABS_TOL, block_error, check_dbias, check_outputs, flash_inputs
-from vit_tpu_torch import CvT, ViT, cast_params
+from vit_tpu_torch import CvT, ScalableViT, ViT, cast_params
 from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.ops import attention as attention_ops
 from vit_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_forward, flash_attention_forward_reference, flash_backward,
     flash_backward_reference,
 )
+from vit_tpu_torch.ops import flash_attention_packed as fap
 from vit_tpu_torch.ops import fused_attention_block as fused_attention_block_ops
+from vit_tpu_torch.ops import fused_cross_attention as fca
 from vit_tpu_torch.ops import fused_mlp as fused_mlp_ops
 from vit_tpu_torch.ops.fused_attention_block import (
     fused_attention_block, fused_attention_block_backward,
@@ -525,4 +530,149 @@ def test_cvt_serves_and_trains_through_the_flash_kernels(cuda):
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert all(not torch.equal(b, stats[k]) and torch.isfinite(b).all()
                for k, b in model.named_buffers())
+    assert losses[2] < losses[0]
+
+
+def _packed_inputs(cuda, b, n_q, n_k, heads, dk, dv, seed=0):
+    """Seeded bf16 channel-packed q (b, n_q, heads·dk), k, v and a cotangent."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, n, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+                 for n, d in ((n_q, dk), (n_k, dk), (n_k, dv), (n_q, dv)))
+
+
+@pytest.mark.parametrize("b,h,n_q,n_k,dk,dv", [
+    (2, 3, 70, 130, 40, 32),   # q/k zero-filled from 40 to 48 in shared memory
+    (2, 2, 130, 70, 40, 32),
+    (4, 2, 1000, 64, 40, 32),  # ScalableViT's SSA: 64 keys, a ragged query tile
+    (1, 1, 1, 1, 40, 32),
+])
+def test_flash_kernels_with_two_widths_match_plain(cuda, b, h, n_q, n_k, dk, dv):
+    """The (dk, dv) = (40, 32) instances on packed strides."""
+    q, k, v, do = (fap.split_heads(t, h) for t in _packed_inputs(cuda, b, n_q, n_k, h, dk, dv))
+    _check_flash(q, k, v, do)
+
+
+@pytest.mark.parametrize("b,n,heads,dk,dv", [
+    (8, 4096, 2, 32, 32),   # ScalableViT's IWSA stage 1 at batch 8
+    (8, 1024, 4, 32, 32),   # stage 2
+    (2, 1000, 2, 40, 32),
+])
+def test_packed_flash_matches_plain(cuda, b, n, heads, dk, dv):
+    """The packed op under autograd: forward against its plain version, the
+    backward (one flash_backward launch) against the plain backward on the
+    kernel's own out and lse, twice bit for bit."""
+    q, k, v, do = _packed_inputs(cuda, b, n, n, heads, dk, dv, seed=n)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (fap.flash_attention_packed.launches, flash_attention.launches,
+              flash_backward.launches)
+    out = fap.flash_attention_packed(*leaves, heads)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fap.flash_attention_packed.launches, flash_attention.launches,
+            flash_backward.launches) == (before[0] + 1, before[1], before[2] + 1)
+    ref_out, ref_lse = fap.flash_attention_packed_forward_reference(q, k, v, heads)
+    check_outputs(torch, "packed forward", (out.detach(),), (ref_out,), {})
+    _, lse = fap.flash_attention_packed_forward(q, k, v, heads)
+    assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+    check_outputs(torch, "packed backward", grads, fap.flash_attention_packed_backward_reference(
+        q, k, v, out.detach(), lse, do, heads), {})
+    again = torch.autograd.grad(fap.flash_attention_packed(*leaves, heads), leaves, do)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    hk, hv = heads * dh_k, heads * dh_v
+    return (rn(b, n, c), rn(b, n, c), rn(hk, c, scale=c ** -0.5), rn(b, n_k, hk),
+            rn(b, n_k, hv), rn(c, hv, scale=hv ** -0.5), rn(c, scale=0.1)), rn(b, n, c, scale=0.1)
+
+
+@pytest.mark.parametrize("b,n,c,heads,n_k,dh_k,dh_v", [
+    (4, 4096, 64, 2, 64, 40, 32),    # ScalableViT's SSA stages 1-4 at batch 4
+    (4, 1024, 128, 4, 64, 40, 32),
+    (4, 256, 256, 8, 64, 40, 32),
+    (4, 64, 512, 16, 64, 32, 32),
+    (3, 100, 72, 3, 9, 40, 32),      # ragged rows, n_k, c and the q GEMM's n = 120
+    (2, 70, 96, 3, 130, 64, 64),
+])
+def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh_k, dh_v):
+    """Serving forward, training forward (y, q, oattn, lse) and backward
+    (dxn, dq, dk, dv, dbo; fed the training forward's residuals) against
+    their plain versions; the backward twice, bit for bit."""
+    args, dy = _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=n)
+    x, xn, wq, k, v, wo, bo = args
+    cfg = (heads, dh_k, dh_v)
+    with torch.inference_mode():
+        before = fca.fused_cross_attention.launches
+        out = fca.fused_cross_attention(*args, *cfg)
+        torch.cuda.synchronize()
+        assert fca.fused_cross_attention.launches == before + 1
+        _close(out, fca.fused_cross_attention_reference(*args, *cfg), x)
+    fwd = fca._launch_forward(*args, *cfg, dh_k ** -0.5)
+    ref = fca.fused_cross_attention_forward_reference(*args, *cfg)
+    check_outputs(torch, "cross-attention training forward", fwd[:3], ref[:3], {0: x})
+    _, q, oattn, lse = fwd
+    # lse on the kernel's own q (a one-unit flip of q moves the logits).
+    ref_lse = fap.flash_attention_packed_forward_reference(q, k, v, heads, dh_k ** -0.5)[1]
+    assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+    before = fca.fused_cross_attention_backward.launches
+    got = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+    torch.cuda.synchronize()
+    assert fca.fused_cross_attention_backward.launches == before + 1
+    want = fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+    check_outputs(torch, "cross-attention backward", got[:4], want[:4], {})
+    check_dbias(torch, "cross-attention backward", got[4], want[4], "dbo")
+    again = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_cross_attention_and_packed_ops_refuse_what_they_do_not_take(cuda):
+    args, _ = _cross_args(cuda, 2, 16, 48, 2, 4, 16, 24)
+    with torch.inference_mode(), pytest.raises(ValueError, match="dh_k"):
+        fca.fused_cross_attention(*args, 2, 16, 24)  # (16, 24) has no flash instance
+    args, _ = _cross_args(cuda, 2, 16, 60, 2, 4, 40, 32)
+    with pytest.raises(ValueError, match="c % 8"):
+        fca.fused_cross_attention(*(a.requires_grad_() for a in args), 2, 40, 32)
+    q, k, v, _ = _packed_inputs(cuda, 1, 64, 64, 2, 48, 48)
+    with torch.inference_mode(), pytest.raises(ValueError, match="head widths"):
+        fap.flash_attention_packed(q, k, v, 2)  # 48 has no instance
+    q, k, v, _ = _packed_inputs(cuda, 1, 64, 64, 2, 32, 32)
+    with pytest.raises(TypeError):
+        fap.flash_attention_packed(q.float(), k.float(), v.float(), 2)
+
+
+def _scalable_launches():
+    return (fca.fused_cross_attention.launches, fap.flash_attention_packed.launches,
+            fused_mlp.launches, fca.fused_cross_attention_backward.launches,
+            flash_backward.launches, fused_mlp_backward.launches, flash_attention.launches)
+
+
+def test_scalable_vit_serves_and_trains_through_its_kernels(cuda):
+    """A narrow ScalableViT at 128 px (stage 1: a whole-map IWSA window of
+    1024 tokens, SSA keys 40 wide): each forward launches the cross-attention
+    block and the two conv-MLPs once per block and the packed flash op once;
+    each train step their backwards as often; f32 gradients, a falling loss."""
+    cfg = dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2), reduction_factor=(4, 2),
+               window_size=(32, None), ssa_dim_key=(40, 40))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.randn(8, 128, 128, 3, generator=g, device=cuda)
+    served = cast_params(ScalableViT(**cfg, generator=g), torch.bfloat16).eval()
+    before = _scalable_launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(_scalable_launches(), before)] == [2, 1, 4, 0, 0, 0, 0]
+    assert out.shape == (8, 10) and torch.isfinite(out).all()
+    model = ScalableViT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.05))
+    labels = torch.arange(8, device=cuda) % 10
+    losses = []
+    for _ in range(3):
+        before = _scalable_launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(_scalable_launches(), before)] == [2, 1, 4, 2, 1, 4, 0]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert losses[2] < losses[0]

@@ -12,7 +12,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from vit_tpu_torch import ViT, cast_params
+import vit_tpu_torch
+from vit_tpu_torch import ScalableViT, ViT, cast_params
+from vit_tpu_torch.core.helpers import cast_tuple
 from vit_tpu_torch.layers.common import (
     MLP, Attention, LayerNorm, Transformer, fused_mlp_residual,
 )
@@ -21,6 +23,12 @@ from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.fused_attention_block import (
     fused_attention_block, fused_attention_block_reference,
     fused_attention_block_supported,
+)
+from vit_tpu_torch.ops.flash_attention_packed import (
+    flash_attention_packed, flash_attention_packed_forward_reference,
+)
+from vit_tpu_torch.ops.fused_cross_attention import (
+    fused_cross_attention, fused_cross_attention_reference,
 )
 from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference, fused_mlp_supported
 
@@ -165,3 +173,40 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
             and not Path("/usr/local/cuda/bin/nvcc").is_file():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.find_nvcc()
+
+
+def test_package_exports():
+    assert sorted(vit_tpu_torch.__all__) == ["CvT", "ScalableViT", "ViT", "cast_params",
+                                             "state_dict_from_flax", "vit_for_small_dataset"]
+    assert cast_tuple(3, 4) == (3, 3, 3, 3) and cast_tuple((1, 2), 4) == (1, 2)
+
+
+def test_scalable_vit_builds_on_the_card_unless_asked_otherwise():
+    cfg = dict(num_classes=5, dim=16, depth=(1,), heads=2, reduction_factor=2)
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in ScalableViT(**cfg).parameters())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ScalableViT(**cfg)
+    assert all(p.device.type == "cpu" for p in ScalableViT(**cfg, device="cpu").parameters())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalable_vit_ops_take_the_plain_version_on_cpu(dtype):
+    g = torch.Generator().manual_seed(0)
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dtype)
+
+    x, xn = rn(2, 16, 32), rn(2, 16, 32)
+    cross = (x, xn, rn(80, 32, scale=0.2), rn(2, 4, 80), rn(2, 4, 64), rn(32, 64, scale=0.2),
+             rn(32, scale=0.1))
+    q, k, v = rn(2, 16, 64), rn(2, 16, 64), rn(2, 16, 64)
+    counts = (fused_cross_attention.launches, flash_attention_packed.launches)
+    with torch.no_grad():
+        y = fused_cross_attention(*cross, 2, 40, 32)
+        out = flash_attention_packed(q, k, v, 2)
+    assert (fused_cross_attention.launches, flash_attention_packed.launches) == counts
+    assert torch.equal(y, fused_cross_attention_reference(*cross, 2, 40, 32))
+    assert torch.equal(out, flash_attention_packed_forward_reference(q, k, v, 2)[0])
+    assert y.dtype == out.dtype == dtype and out.shape == (2, 16, 64)

@@ -11,6 +11,11 @@ def pair(t):
     return t if isinstance(t, tuple) else (t, t)
 
 
+def cast_tuple(val, length: int = 1) -> tuple:
+    """A scalar repeated ``length`` times; a tuple as it is."""
+    return val if isinstance(val, tuple) else (val,) * length
+
+
 def exists(val) -> bool:
     return val is not None
 

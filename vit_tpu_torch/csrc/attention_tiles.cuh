@@ -12,16 +12,22 @@ namespace vit {
 
 constexpr int kAttnThreads = 128;
 
+// A head width rounded up to the mma k-step of 16 (40 -> 48).
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
+
 // Stage `nrows` rows of one head (DH columns) from a row-strided source,
-// starting at token r0; tokens at or past n land as zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(T (*dst)[DH + 8], const T* src, size_t ld, int r0,
+// starting at token r0, into shared rows of DP >= DH columns; tokens at or
+// past n, and columns DH..DP-1, land as zeros (a head width that no mma
+// k-step divides is padded here, never in device memory).
+template <typename T, int DH, int DP = DH>
+__device__ __forceinline__ void stage_rows(T (*dst)[DP + 8], const T* src, size_t ld, int r0,
                                            int nrows, int n) {
-  constexpr int kChunksPerRow = DH / 8;
+  constexpr int kChunksPerRow = DP / 8;
   for (int c = threadIdx.x; c < nrows * kChunksPerRow; c += kAttnThreads) {
     const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + col);
+    if ((DP == DH || col < DH) && r0 + r < n)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + col);
     *reinterpret_cast<uint4*>(&dst[r][col]) = v;
   }
 }
@@ -82,11 +88,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Store the warp's 16 x DH accumulator rows (tokens r0 + g, r0 + g + 8) into a
-// row-strided output, rounded; rows at or past n are skipped.
-template <typename T, int DH>
+// Store the first DH columns of the warp's 16 x DP accumulator rows (tokens
+// r0 + g, r0 + g + 8) into a row-strided output, rounded; rows at or past n
+// are skipped.
+template <typename T, int DH, int DP = DH>
 __device__ __forceinline__ void store_rows(T* dst, size_t ld, int r0, int n,
-                                           const float (&acc)[DH / 8][4], int lane) {
+                                           const float (&acc)[DP / 8][4], int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {

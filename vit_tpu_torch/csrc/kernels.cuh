@@ -105,7 +105,8 @@ __device__ __forceinline__ float dgelu_erf(float v) {
   return cdf + v * pdf;
 }
 
-// ---- host launchers (defined in layernorm.cu, linear.cu, attention.cu) -------
+// ---- host launchers (defined in layernorm.cu, linear.cu, attention.cu,
+// flash_attention.cu) -----------------------------------------------------------
 
 // xn (rows, d) = T((x - mean) * rstd * gamma + beta) per row of x (rows, d):
 // f32 statistics, biased two-pass variance, eps inside the rsqrt; gamma/beta
@@ -165,5 +166,27 @@ cudaError_t launch_mha_dbias(const void* qkv, const void* dout, const float* row
                              int n, int heads, int dim_head, float scale, int dtype,
                              cudaStream_t stream);
 int mha_dbias_parts(int b, int n, int heads, int hb);  // the wrappers use vit_attention_dbias_parts
+
+// Flash attention over (b, heads, n, d) operands read through host arrays of
+// (batch, head, row) element strides (flash_attention.cu): q and k of width
+// dk, v of width dv, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96),
+// (128, 128)}.  The forward writes out (width dv) and lse (b, heads, n_q) f32
+// through the strides of q, k, v, out (12 values); the backward writes dq, dk,
+// dv from q, k, v, out, lse and dout, with dsum (b, heads, n_q) f32 scratch,
+// through the strides of q, k, v, out, dout, dq, dk, dv (24 values).
+cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                             const long long* strides, int b, int heads, int n_q, int n_k, int dk,
+                             int dv, float scale, int dtype, cudaStream_t stream);
+cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                             float* dsum, const long long* strides, int b, int heads, int n_q,
+                             int n_k, int d_k, int d_v, float scale, int dtype,
+                             cudaStream_t stream);
+
+// out (d,) = Σ over the rows of a (rows, d) matrix in the compute dtype, in
+// f32 and in a fixed order: 64-row partial sums into `partial`
+// (ln_bwd_partial_rows(rows), d) f32 scratch, then colsum (layernorm.cu).
+cudaError_t launch_column_sums(const void* a, float* partial, float* out, int rows, int d,
+                               int dtype, cudaStream_t stream);
 
 }  // namespace vit

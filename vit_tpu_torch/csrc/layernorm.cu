@@ -1,5 +1,6 @@
 // The LayerNorm passes of both block kernels, forward and backward, and the
-// fixed-order column sums of their f32 parameter gradients.
+// fixed-order column sums of their f32 parameter gradients (and of the cross-
+// attention block's dy, its dbo).
 //
 // Forward: the TPU kernels normalise inside the block (fused_mlp.py:152-161,
 // fused_attention_block.py:111-116).  Here it is its own memory-bound pass that
@@ -171,6 +172,19 @@ __global__ void __launch_bounds__(kColThreads)
   prow[2 * d + c] = sy;
 }
 
+// partial[chunk] = Σ a over the chunk's rows, one thread per column.
+template <typename T>
+__global__ void __launch_bounds__(kColThreads)
+    rows_cols_kernel(const T* __restrict__ a, float* __restrict__ partial, int rows, int d) {
+  const int r0 = blockIdx.y * kColChunk;
+  const int nr = min(kColChunk, rows - r0);
+  const int c = blockIdx.x * kColThreads + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int i = 0; i < nr; ++i) s += Num<T>::to_f(a[(size_t)(r0 + i) * d + c]);
+  partial[(size_t)blockIdx.y * d + c] = s;
+}
+
 __global__ void __launch_bounds__(256)
     colsum_kernel(const float* __restrict__ partial, int parts, int m, float* __restrict__ out) {
   const int c = blockIdx.x * 256 + threadIdx.x;
@@ -178,6 +192,17 @@ __global__ void __launch_bounds__(256)
   float s = 0.f;
   for (int p = 0; p < parts; ++p) s += partial[(size_t)p * m + c];
   out[c] = s;
+}
+
+template <typename T>
+cudaError_t column_sums_t(const void* a, float* partial, float* out, int rows, int d,
+                          cudaStream_t stream) {
+  const int chunks = ln_bwd_partial_rows(rows);
+  rows_cols_kernel<T><<<dim3((d + kColThreads - 1) / kColThreads, chunks), kColThreads, 0,
+                        stream>>>(static_cast<const T*>(a), partial, rows, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_colsum(partial, chunks, d, out, stream);
 }
 
 template <typename T>
@@ -231,6 +256,14 @@ cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, co
                                    stream);
   if (dtype == kF16)
     return ln_bwd_t<__half>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_column_sums(const void* a, float* partial, float* out, int rows, int d,
+                               int dtype, cudaStream_t stream) {
+  if (rows <= 0 || d <= 0) return cudaErrorInvalidValue;
+  if (dtype == kBF16) return column_sums_t<__nv_bfloat16>(a, partial, out, rows, d, stream);
+  if (dtype == kF16) return column_sums_t<__half>(a, partial, out, rows, d, stream);
   return cudaErrorInvalidValue;
 }
 

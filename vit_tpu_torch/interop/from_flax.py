@@ -1,6 +1,7 @@
 """Flax ``vit_tpu`` variables → the port's ``state_dict`` (the converse
 direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
-``vit_tpu.models.vit_for_small_dataset.ViT`` and ``vit_tpu.models.cvt.CvT``.
+``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT`` and
+``vit_tpu.models.scalable_vit.ScalableViT``.
 
 The tree holds NumPy arrays (``jax.tree.map(np.asarray, variables)``), so no
 JAX is imported here.  Leaves:
@@ -18,8 +19,11 @@ Per-layer modules ``{attn_norm,attn,mlp_norm,mlp,mlp_fc1,mlp_fc2}_{i}`` map to
 ``layers.{i}.…``: under ``transformer`` for the ViT (``transformer/attn_0`` →
 ``transformer.layers.0.attn``), under each stage's ``s{1,2,3}_transformer``
 for CvT, and at the top for the small-dataset ViT (``attn_0`` →
-``layers.0.attn``).  ``to_out`` maps to ``to_out.0`` (the projection before
-its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
+``layers.0.attn``).  ScalableViT's ``{ssa,ff1,iwsa,ff2}_{i}`` and their
+``*_norm_{i}`` map to ``layers.{i}.…`` under each ``stage_{s}``
+(``stage_0/iwsa_norm_1`` → ``stage_0.layers.1.iwsa_norm``); a stage's ``peg``
+and ``norm`` keep their names.  ``to_out`` maps to ``to_out.0`` (the
+projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
 """
@@ -32,6 +36,9 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp|mlp_fc1|mlp_fc2)_(\d+)$")
+# ScalableViT's per-layer modules, under a stage_{s}.
+_STAGE_LAYER = re.compile(r"^(ssa_norm|ssa|ff1_norm|ff1|iwsa_norm|iwsa|ff2_norm|ff2)_(\d+)$")
+_STAGE = re.compile(r"^stage_\d+$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -49,9 +56,12 @@ def _module_path(path: tuple) -> list:
     out = []
     for i, part in enumerate(path):
         m = _LAYER.match(part)
+        staged = _STAGE_LAYER.match(part) if i and _STAGE.match(path[i - 1]) else None
         if m and (i == 0 or path[i - 1] == "transformer"
                   or path[i - 1].endswith("_transformer")):
             out += ["layers", m.group(2), m.group(1)]
+        elif staged:
+            out += ["layers", staged.group(2), staged.group(1)]
         elif part == "to_out":
             out += ["to_out", "0"]
         else:
@@ -63,8 +73,9 @@ def state_dict_from_flax(variables) -> dict:
     """Convert a Flax variables tree ``{"params": …, "batch_stats": …}`` (or
     the bare params tree) of NumPy arrays into a ``state_dict`` for
     :class:`vit_tpu_torch.ViT`,
-    :class:`vit_tpu_torch.models.vit_for_small_dataset.ViT` or
-    :class:`vit_tpu_torch.CvT` (f32 tensors).
+    :class:`vit_tpu_torch.models.vit_for_small_dataset.ViT`,
+    :class:`vit_tpu_torch.CvT` or :class:`vit_tpu_torch.ScalableViT` (f32
+    tensors).
 
     Raises ``ValueError`` on a scanned tree (``scan_layers=True`` stacks the
     layers under ``transformer/layers``; unstack it with

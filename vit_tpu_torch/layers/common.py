@@ -1,5 +1,5 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT and CvT need).
+``vit_tpu/layers/common.py`` that ViT, CvT and ScalableViT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -312,6 +312,25 @@ def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP,
     if fused_mlp_eligible(x, mlp, mode):
         return apply_fused_mlp_block(norm, mlp, x)
     return x + mlp(norm(x))
+
+
+def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm, mlp: nn.Module,
+                            mode: str = "auto") -> torch.Tensor:
+    """``x + mlp(norm(x))`` over an NHWC map, where ``mlp`` is a conv-MLP
+    (``fc1`` and ``fc2`` 1x1 :class:`Conv` s, a ``dropout_active`` property):
+    with :func:`fused_mlp_eligible`'s gate, through the fused MLP kernel on
+    the ``(b, H·W, c)`` view, with the :class:`ChannelLayerNorm`'s eps
+    (``vit_tpu/layers/common.py:400-452``); else the plain modules.
+    ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
+    sublane reasons and do not carry over: every 16-bit CUDA call goes to the
+    kernel, which raises on widths that are not multiples of 8."""
+    if not fused_mlp_eligible(x, mlp, mode):
+        return x + mlp(norm(x))
+    b, h, w, c = x.shape
+    y = fused_mlp(x.reshape(b, h * w, c).contiguous(), norm.g, norm.b, cast_to(mlp.fc1.weight, x).flatten(1),
+                  cast_to(mlp.fc1.bias, x), cast_to(mlp.fc2.weight, x).flatten(1),
+                  cast_to(mlp.fc2.bias, x), norm.eps)
+    return y.reshape(b, h, w, c)
 
 
 class Transformer(nn.Module):

@@ -75,16 +75,30 @@ SIGNATURES = {
     "vit_flash_attention_fwd": (
         # q, k, v, out, lse, strides (q, k, v, out: batch, head, row),
         [_P] * 5 + [_LL]
-        # b, heads, n_q, n_k, d, scale, dtype, stream
-        + [_I] * 5 + [_F, _I, _P],
+        # b, heads, n_q, n_k, dk, dv, scale, dtype, stream
+        + [_I] * 6 + [_F, _I, _P],
         ctypes.c_int,
     ),
     "vit_flash_attention_bwd": (
         # q, k, v, out, lse, dout, dq, dk, dv, dsum, strides (q, k, v, out,
         # dout, dq, dk, dv: batch, head, row),
         [_P] * 10 + [_LL]
-        # b, heads, n_q, n_k, d, scale, dtype, stream
-        + [_I] * 5 + [_F, _I, _P],
+        # b, heads, n_q, n_k, dk, dv, scale, dtype, stream
+        + [_I] * 6 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_cross_attention_fwd": (
+        # x, xn, wq, k, v, wo, bo, y, q, oattn, lse,
+        [_P] * 11
+        # b, n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream
+        + [_I] * 7 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_cross_attention_bwd": (
+        # dy, q, k, v, oattn, lse, wq, wo, dxn, dq, dk, dv, dbo, doattn, dsum, part,
+        [_P] * 16
+        # b, n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream
+        + [_I] * 7 + [_F, _I, _P],
         ctypes.c_int,
     ),
     # Rows of the f32 column partial sums the backward entry points take for

@@ -15,10 +15,16 @@ tier, which it measured on a TPU v5e; the H100's crossover is in
 to flash, but the port's kernels take 16-bit operands only, so f32 runs the
 plain path, on the card too.  There is no fallback: a 16-bit CUDA call at the
 tier that the kernel refuses (a head width, a stride) raises.  Head widths
-that are not a multiple of 32 are zero-padded to a multiple of 64 and the
-output sliced back (exact: the pad adds 0 to every logit).  ``"force"`` runs
-the flash op on any call without a bias or mask and raises ``ValueError`` on
-one; ``"never"`` runs the plain path.
+without a kernel instance that are not a multiple of 32 are zero-padded, q, k
+and v to one width, a multiple of 64, and the output sliced back (exact: the
+pad adds 0 to every logit and to no output column that is kept).  ``"force"``
+runs the flash op on any call without a bias or mask and raises
+``ValueError`` on one; ``"never"`` runs the plain path.
+
+:func:`packed_window_attention` is the same tiering over channel-packed
+``(b, n, heads·d)`` q/k/v (``vit_tpu/ops/attention.py:161-201``): at the tier
+it runs the packed op (:mod:`vit_tpu_torch.ops.flash_attention_packed`), which
+needs no head split.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from vit_tpu_torch.ops._checks import KERNEL_DTYPES
-from vit_tpu_torch.ops.flash_attention import flash_attention
+from vit_tpu_torch.ops.flash_attention import SUPPORTED_WIDTHS, flash_attention
+from vit_tpu_torch.ops.flash_attention_packed import (
+    flash_attention_packed, merge_heads, split_heads,
+)
 
 # The flash tier's sequence length for 16-bit inputs (vit_tpu's, from a v5e).
 FLASH_MIN_SEQ = 1024
@@ -102,14 +111,17 @@ def _use_flash(q, k, v, bias, mask) -> bool:
 
 
 def _flash(q, k, v, scale):
-    """The flash op, zero-padding a head width that is not a multiple of 32
-    to a multiple of 64 (``vit_tpu/ops/attention.py:141-145``)."""
-    d = q.shape[-1]
-    d_pad = 0 if d % 32 == 0 else (-d) % 64
-    if d_pad:
-        q, k, v = (F.pad(t, (0, d_pad)) for t in (q, k, v))
+    """The flash op.  Head widths ``(dk, dv)`` without a kernel instance go
+    in zero-padded to one width: the larger of the two, rounded up to a
+    multiple of 64 unless it is a multiple of 32 (``vit_tpu/ops/
+    attention.py:141-145``); the output is sliced back to dv."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    if (dk, dv) not in SUPPORTED_WIDTHS:
+        d = max(dk, dv)
+        d += 0 if d % 32 == 0 else (-d) % 64
+        q, k, v = (t if t.shape[-1] == d else F.pad(t, (0, d - t.shape[-1])) for t in (q, k, v))
     out = flash_attention(q, k, v, scale)
-    return out[..., :d] if d_pad else out
+    return out if out.shape[-1] == dv else out[..., :dv]
 
 
 def scaled_dot_product_attention(q, k, v, *, scale: float | None = None,
@@ -135,3 +147,41 @@ def scaled_dot_product_attention(q, k, v, *, scale: float | None = None,
     if use_flash == "auto" and _use_flash(q, k, v, bias, mask):
         return _flash(q, k, v, scale)
     return plain_attention(q, k, v, scale=scale, bias=bias, mask=mask)
+
+
+def packed_window_attention(q, k, v, heads: int, *, scale: float | None = None,
+                            mode: str = "auto") -> torch.Tensor:
+    """Attention over channel-packed q ``(b, n_q, heads·dk)``, k ``(b, n_k,
+    heads·dk)`` and v ``(b, n_k, heads·dv)``; returns ``(b, n_q,
+    heads·dv)``.  ``scale`` defaults to ``dk ** -0.5``.
+
+    ``mode``: ``"auto"`` takes :func:`_use_flash`'s tier, a 16-bit CUDA q at
+    ``max(n_q, n_k) >= FLASH_MIN_SEQ``, where it runs the packed op if it
+    has an instance for ``(dk, dv)``, and else splits the heads and runs
+    :func:`_flash` (padded; counted by ``flash_attention.launches``); below
+    the tier it runs :func:`scaled_dot_product_attention` on the head-major
+    views.  ``"force"`` takes the flash routes at any length and kind (CUDA
+    raises on what the kernels refuse); ``"never"`` the plain path.
+    ``vit_tpu``'s ``n_k <= 4096`` cap on the packed kernel was VMEM's and is
+    dropped; its ``"interpret"`` mode ran the Pallas interpreter and raises.
+    """
+    if mode == "interpret":
+        raise ValueError("mode='interpret' is a TPU-only mode: it ran the Pallas kernels in "
+                         "the TPU interpreter for CPU tests (the port's CPU path is the "
+                         "kernels' plain PyTorch versions)")
+    if mode not in USE_FLASH_MODES:
+        raise ValueError(f"mode must be one of {USE_FLASH_MODES}, got {mode!r}")
+    if q.shape[-1] % heads or v.shape[-1] % heads:
+        raise ValueError(f"packed_window_attention: widths {q.shape[-1]} and {v.shape[-1]} do "
+                         f"not split into {heads} heads")
+    dk, dv = q.shape[-1] // heads, v.shape[-1] // heads
+    if scale is None:
+        scale = dk ** -0.5
+    if mode == "force" or (mode == "auto" and flash_tensor(q)
+                           and max(q.shape[1], k.shape[1]) >= FLASH_MIN_SEQ):
+        if (dk, dv) in SUPPORTED_WIDTHS:
+            return flash_attention_packed(q, k, v, heads, scale)
+        return merge_heads(_flash(*(split_heads(t, heads) for t in (q, k, v)), scale))
+    out = scaled_dot_product_attention(*(split_heads(t, heads) for t in (q, k, v)), scale=scale,
+                                       use_flash="never" if mode == "never" else "auto")
+    return merge_heads(out)

@@ -22,12 +22,15 @@ in f32) and the f32 row sum divided out after it; ``lse`` in f32.  Backward:
 rounded; dq, dk and dv accumulated in f32 and rounded once.  In f32 the plain
 versions are exact attention and its gradient.
 
-Layout: q ``(b, h, n_q, d)``, k and v ``(b, h, n_k, d)``, read through their
-strides (the d axis contiguous, rows 16-byte aligned), so a view of a
-channels-last ``(b, n, h·d)`` map goes in as it lies.  The kernels write out,
-dq, dk and dv token-major: the ``(b, h, n, d)`` tensors they return are views
-of ``(b, n, h, d)`` memory, which a ``(b, n, h·d)`` consumer reads without a
-copy.
+Layout: q ``(b, h, n_q, dk)``, k ``(b, h, n_k, dk)`` and v ``(b, h, n_k,
+dv)``, read through their strides (the last axis contiguous, rows 16-byte
+aligned), so a view of a channels-last ``(b, n, h·d)`` map goes in as it lies.
+The kernels write out, dq, dk and dv token-major: the ``(b, h, n, d)``
+tensors they return are views of ``(b, n, h, d)`` memory, which a ``(b, n,
+h·d)`` consumer reads without a copy.  q/k and v may have different head
+widths where a kernel instance exists (``SUPPORTED_WIDTHS``: ScalableViT's
+SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled to 48 in shared
+memory, never in device memory).
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from torch.autograd.function import once_differentiable
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import KERNEL_DTYPES, launch_stream
 
-SUPPORTED_HEAD_DIMS = (32, 64, 96, 128)
+# (dk, dv) pairs with a kernel instance (csrc/flash_attention.cu).
+SUPPORTED_WIDTHS = ((32, 32), (40, 32), (64, 64), (96, 96), (128, 128))
 # The plain versions take the (batch, head) pairs in groups whose f32
 # (n_q, n_k) score maps hold at most this many elements (1 GiB), so that they
 # run at the shapes the kernels serve.
@@ -63,11 +67,12 @@ def _head_groups(*tensors):
 
 def flash_attention_forward_reference(q, k, v, scale: float | None = None):
     """Plain PyTorch version of the forward kernel: ``(out, lse)``, ``out``
-    in q's dtype ``(b, h, n_q, d)``, ``lse`` f32 ``(b, h, n_q)``, with the
+    in q's dtype ``(b, h, n_q, dv)``, ``lse`` f32 ``(b, h, n_q)``, with the
     kernel's rounding points (P rounded to q's dtype before P·V)."""
     scale = _scale(q, scale)
     dt = q.dtype
-    b, h, n_q, d = q.shape
+    b, h, n_q = q.shape[:3]
+    d = v.shape[-1]
     outs, lses = [], []
     for qc, kc, vc in _head_groups(q, k, v):
         s = (qc.float() @ kc.float().transpose(-1, -2)) * scale
@@ -106,18 +111,18 @@ def _strides_ok(t) -> bool:
 
 
 def check_flash_tensors(name: str, tensors: dict) -> None:
-    """``{label: (tensor, shape)}``, q first: 16-bit CUDA tensors of one
-    device and dtype and of the given shapes, a head width with a kernel
-    instance, and strides the kernels take (:func:`_strides_ok`).  Anything
-    else raises."""
-    q = next(iter(tensors.values()))[0]
+    """``{label: (tensor, shape)}``, q first and v third: 16-bit CUDA tensors
+    of one device and dtype and of the given shapes, head widths ``(dk, dv)``
+    with a kernel instance, and strides the kernels take
+    (:func:`_strides_ok`).  Anything else raises."""
+    (q, _), _, (v, _) = list(tensors.values())[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {q.device}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the kernel takes bfloat16 or float16, got {q.dtype}")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head width {q.shape[-1]} has no kernel instance "
-                         f"({SUPPORTED_HEAD_DIMS})")
+    if (q.shape[-1], v.shape[-1]) not in SUPPORTED_WIDTHS:
+        raise ValueError(f"{name}: head widths (dk, dv) = {(q.shape[-1], v.shape[-1])} have no "
+                         f"kernel instance ({SUPPORTED_WIDTHS})")
     for label, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
@@ -142,34 +147,40 @@ def _token_major(b, h, n, d, like):
     return torch.empty((b, n, h, d), dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
 
 
-def _launch_forward(q, k, v, scale):
-    b, h, n_q, d = q.shape
-    n_k = k.shape[2]
-    check_flash_tensors("flash_attention", {"q": (q, q.shape), "k": (k, (b, h, n_k, d)),
-                                            "v": (v, (b, h, n_k, d))})
-    out = _token_major(b, h, n_q, d, q)
+def _launch_forward(name, q, k, v, scale):
+    """``vit_flash_attention_fwd`` on CUDA tensors: ``(out, lse)`` as
+    :func:`flash_attention_forward_reference` returns them, or raises
+    (:func:`check_flash_tensors`).  The caller counts the launch."""
+    b, h, n_q, dk = q.shape
+    n_k, dv = k.shape[2], v.shape[-1]
+    check_flash_tensors(name, {"q": (q, q.shape), "k": (k, (b, h, n_k, dk)),
+                               "v": (v, (b, h, n_k, dv))})
+    out = _token_major(b, h, n_q, dv, q)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.vit_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _strides(q, k, v, out), b, h, n_q, n_k, d, float(scale),
+            _strides(q, k, v, out), b, h, n_q, n_k, dk, dv, float(scale),
             _build.DTYPE_CODES[q.dtype], launch_stream(q))
     _build.check(err, "vit_flash_attention_fwd")
-    flash_attention.launches += 1
     return out, lse
 
 
-def flash_attention_forward(q, k, v, scale: float | None = None):
+def flash_attention_forward(q, k, v, scale: float | None = None, counter=None):
     """The forward kernel, ``vit_tpu``'s ``_flash_forward``: ``(out, lse)``
     as :func:`flash_attention_forward_reference` returns them.  A CPU tensor
     takes the plain version; a CUDA tensor launches ``vit_flash_attention_fwd``
-    or raises (:func:`check_flash_tensors`).  ``flash_attention.launches``
-    counts kernel launches."""
+    or raises (:func:`check_flash_tensors`).  ``counter.launches`` counts
+    kernel launches: ``flash_attention``'s by default, the packed op's
+    (:mod:`vit_tpu_torch.ops.flash_attention_packed`) for its calls."""
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, scale)
-    return _launch_forward(q, k, v, scale)
+    counter = counter or flash_attention
+    out = _launch_forward(counter.__name__, q, k, v, scale)
+    counter.launches += 1
+    return out
 
 
 def flash_backward(q, k, v, o, lse, do, scale: float):
@@ -181,28 +192,28 @@ def flash_backward(q, k, v, o, lse, do, scale: float):
     launches."""
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, do, scale)
-    b, h, n_q, d = q.shape
-    n_k = k.shape[2]
+    b, h, n_q, dk = q.shape
+    n_k, dv = k.shape[2], v.shape[-1]
     check_flash_tensors("flash_backward", {
-        "q": (q, q.shape), "k": (k, (b, h, n_k, d)), "v": (v, (b, h, n_k, d)),
-        "o": (o, q.shape), "do": (do, q.shape)})
+        "q": (q, q.shape), "k": (k, (b, h, n_k, dk)), "v": (v, (b, h, n_k, dv)),
+        "o": (o, (b, h, n_q, dv)), "do": (do, (b, h, n_q, dv))})
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n_q) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_backward: lse must be a contiguous f32 ({b}, {h}, {n_q}) "
                          f"tensor on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
-    dq, dk, dv = _token_major(b, h, n_q, d, q), _token_major(b, h, n_k, d, q), \
-        _token_major(b, h, n_k, d, q)
+    dq, dk_, dv_ = _token_major(b, h, n_q, dk, q), _token_major(b, h, n_k, dk, q), \
+        _token_major(b, h, n_k, dv, q)
     dsum = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.vit_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
-            _strides(q, k, v, o, do, dq, dk, dv), b, h, n_q, n_k, d, float(scale),
+            do.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dsum.data_ptr(),
+            _strides(q, k, v, o, do, dq, dk_, dv_), b, h, n_q, n_k, dk, dv, float(scale),
             _build.DTYPE_CODES[q.dtype], launch_stream(q))
     _build.check(err, "vit_flash_attention_bwd")
     flash_backward.launches += 1
-    return dq, dk, dv
+    return dq, dk_, dv_
 
 
 flash_backward.launches = 0
@@ -217,11 +228,12 @@ def _kernel_layout(t):
 class FlashAttentionFunction(torch.autograd.Function):
     """The op under autograd (``vit_tpu``'s ``_fwd`` / ``_bwd``): the forward
     keeps ``(q, k, v, out, lse)``, the backward runs :func:`flash_backward`
-    on them."""
+    on them.  ``counter`` is the op whose ``launches`` the forward counts
+    (:func:`flash_attention_forward`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_forward(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, counter=None):
+        out, lse = flash_attention_forward(q, k, v, scale, counter)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -231,18 +243,19 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, _kernel_layout(dout), ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, scale: float | None = None):
-    """``softmax(q·kᵀ·scale)·v`` over ``(b, h, n_q, d)`` / ``(b, h, n_k, d)``
-    tensors, any n_q and n_k, in q's dtype; ``scale`` defaults to
-    ``d ** -0.5``.  Differentiable through :class:`FlashAttentionFunction`.
-    On CUDA it takes bf16 or f16, d ∈ ``SUPPORTED_HEAD_DIMS`` and the strides
-    of :func:`check_flash_tensors`, and raises on anything else; on the CPU it
+    """``softmax(q·kᵀ·scale)·v`` over ``(b, h, n_q, dk)`` q, ``(b, h, n_k,
+    dk)`` k and ``(b, h, n_k, dv)`` v, any n_q and n_k, in q's dtype;
+    ``scale`` defaults to ``dk ** -0.5``.  Differentiable through
+    :class:`FlashAttentionFunction`.  On CUDA it takes bf16 or f16, ``(dk,
+    dv)`` ∈ ``SUPPORTED_WIDTHS`` and the strides of
+    :func:`check_flash_tensors`, and raises on anything else; on the CPU it
     runs the plain versions.  ``flash_attention.launches`` counts forward
     kernel launches."""
-    return FlashAttentionFunction.apply(q, k, v, _scale(q, scale))
+    return FlashAttentionFunction.apply(q, k, v, _scale(q, scale), flash_attention)
 
 
 flash_attention.launches = 0

@@ -1,0 +1,235 @@
+"""Fused cross-attention block: ``x + out_proj(attn(xn·Wqᵀ, k, v))``, forward
+and backward, with k and v precomputed.
+
+Port of ``vit_tpu/ops/fused_cross_attention.py::fused_cross_attention_block``:
+the TPU forward kernel ``_fwd_kernel`` (driven by ``_forward``), the backward
+kernel ``_bwd_kernel`` (``_backward``) and the custom VJP (``_vjp_fwd`` /
+``_vjp_bwd``) as :class:`FusedCrossAttentionFunction`.  ScalableViT's SSA
+(and Twins-SVT's global attention) has this shape: queries from a 1x1
+convolution (a tokenwise GEMM) of the normalised stream ``xn``, keys and
+values from a strided convolution of it, which stays outside.  On a CUDA
+tensor the forward launches ``vit_fused_cross_attention_fwd`` and the
+backward ``vit_fused_cross_attention_bwd`` (``csrc/fused_cross_attention.cu``:
+the q GEMM, the ``(dh_k, dh_v)`` flash kernels over the packed layout, the
+output GEMM with bias and residual; in the backward, the doattn and dxn GEMMs,
+the flash backward and the fixed-order ``dbo`` sums); on a CPU tensor both run
+their plain PyTorch versions, :func:`fused_cross_attention_forward_reference`
+and :func:`fused_cross_attention_backward_reference`.
+
+What bounds it on the H100: at ScalableViT's stage 1 (batch 64, 4096 tokens of
+64 channels, 2 heads, 64 keys) the forward does about 9.7 GFLOP against about
+101 MB of x, xn and y, so the memory bounds it; at stage 3 (256 tokens of 256
+channels, 8 heads) the GEMMs and the bytes are of one size.  The design keeps
+the ``(n, n_k)`` scores in registers, reads q, k and v channel-packed through
+their strides (no head split or merge), and fuses the bias and residual into
+the output GEMM's epilogue; q and oattn go through device memory.
+
+Numerics, mirrored by the plain versions: ``q = T(xn·Wqᵀ)``; logits in f32;
+P rounded to the compute dtype for P·V and the f32 row sum divided out after
+it (``vit_tpu``'s late divide, ``:98-104``); oattn rounded; the residual adds
+in the compute dtype.  Backward: ``doattn = T(dy·Wo)``; the flash backward
+from the saved lse and ``D = rowsum(doattn∘oattn)`` (the TPU recomputed the
+softmax and took Σ dp·p: equal in f32); ``ds = T(p·(dp - D)·scale)``; dq, dk,
+dv rounded once; ``dxn = T(dq·Wq)``; ``dbo`` the f32 sum of dy.  In f32 the
+plain versions are exact attention and its gradient.
+
+Layouts: x, xn ``(b, n, c)``; k ``(b, n_k, heads·dh_k)``; v ``(b, n_k,
+heads·dh_v)``; ``wq`` ``(heads·dh_k, c)`` and ``wo`` ``(c, heads·dh_v)`` in
+``nn.Linear`` layout (``vit_tpu`` takes their transposes); ``bo`` ``(c,)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from vit_tpu_torch.ops import _build
+from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
+from vit_tpu_torch.ops._shared import weight_grad
+from vit_tpu_torch.ops.flash_attention import SUPPORTED_WIDTHS
+from vit_tpu_torch.ops.flash_attention_packed import (
+    flash_attention_packed_backward_reference, flash_attention_packed_forward_reference,
+)
+
+
+def _scale(dh_k, scale):
+    return dh_k ** -0.5 if scale is None else scale
+
+
+def fused_cross_attention_forward_reference(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int,
+                                            dh_v: int, scale: float | None = None):
+    """Plain PyTorch version of the training forward, same rounding points as
+    the kernels: returns ``(y, q, oattn, lse)``, the residuals the backward
+    needs beside xn, k and v."""
+    dt = x.dtype
+    q = F.linear(xn.float(), wq.float()).to(dt)
+    oattn, lse = flash_attention_packed_forward_reference(q, k, v, heads, _scale(dh_k, scale))
+    y = F.linear(oattn.float(), wo.float(), bo.float())
+    return x + y.to(dt), q, oattn, lse
+
+
+def fused_cross_attention_reference(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: int,
+                                    scale: float | None = None):
+    """Plain PyTorch version of the serving forward: ``y`` of
+    :func:`fused_cross_attention_forward_reference`."""
+    return fused_cross_attention_forward_reference(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v,
+                                                   scale)[0]
+
+
+def fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, heads: int,
+                                             dh_k: int, dh_v: int, scale: float | None = None):
+    """Plain PyTorch version of the backward kernels, step by step with their
+    rounding points: ``(dxn, dq, dk, dv, dbo)``, the first four in the
+    compute dtype and the shapes of xn, q, k, v, ``dbo`` ``(c,)`` in f32."""
+    dt = dy.dtype
+    c = dy.shape[-1]
+    dy32 = dy.reshape(-1, c).float()
+    doattn = (dy32 @ wo.float()).to(dt).reshape(oattn.shape)
+    dq, dk, dv = flash_attention_packed_backward_reference(q, k, v, oattn, lse, doattn, heads,
+                                                           _scale(dh_k, scale))
+    dxn = (dq.reshape(-1, q.shape[-1]).float() @ wq.float()).to(dt).reshape(dy.shape)
+    return dxn, dq, dk, dv, dy32.sum(0)
+
+
+def fused_cross_attention_supported(c: int, dh_k: int, dh_v: int) -> bool:
+    """Whether the kernels take these widths: 16-byte rows and head widths
+    with a flash instance."""
+    return c % 8 == 0 and (dh_k, dh_v) in SUPPORTED_WIDTHS
+
+
+def _check(name, x, n_k, heads, dh_k, dh_v, tensors):
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (b, n, c), got {tuple(x.shape)}")
+    b, n, c = x.shape
+    if not fused_cross_attention_supported(c, dh_k, dh_v):
+        raise ValueError(f"{name} kernel needs c % 8 == 0 and (dh_k, dh_v) in "
+                         f"{SUPPORTED_WIDTHS}, got c={c}, dh_k={dh_k}, dh_v={dh_v}")
+    if not (1 <= b <= 65535 and n_k >= 1):
+        raise ValueError(f"{name}: the kernel takes 1 <= b <= 65535 images and n_k >= 1, got "
+                         f"b={b}, n_k={n_k}")
+    check_kernel_tensors(name, x, tensors)
+
+
+def _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale):
+    """The forward kernels on CUDA tensors: ``(y, q, oattn, lse)``.
+    ``fused_cross_attention.launches`` counts the launches."""
+    b, n, c = x.shape
+    n_k = k.shape[1]
+    hk, hv = heads * dh_k, heads * dh_v
+    _check("fused_cross_attention", x, n_k, heads, dh_k, dh_v, {
+        "xn": (xn, x.shape), "wq": (wq, (hk, c)), "k": (k, (b, n_k, hk)),
+        "v": (v, (b, n_k, hv)), "wo": (wo, (c, hv)), "bo": (bo, (c,))})
+    y = torch.empty_like(x)
+    q = torch.empty((b, n, hk), dtype=x.dtype, device=x.device)
+    oattn = torch.empty((b, n, hv), dtype=x.dtype, device=x.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.vit_fused_cross_attention_fwd(
+            x.data_ptr(), xn.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), q.data_ptr(), oattn.data_ptr(),
+            lse.data_ptr(), b, n, n_k, c, heads, dh_k, dh_v, float(scale),
+            _build.DTYPE_CODES[x.dtype], launch_stream(x))
+    _build.check(err, "vit_fused_cross_attention_fwd")
+    fused_cross_attention.launches += 1
+    return y, q, oattn, lse
+
+
+def fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads: int, dh_k: int,
+                                   dh_v: int, scale: float | None = None):
+    """The backward kernels: what :func:`fused_cross_attention_backward_reference`
+    returns.  A CPU tensor takes the plain version; a CUDA tensor launches
+    ``vit_fused_cross_attention_bwd`` (the same bits every run) or raises.
+    ``fused_cross_attention_backward.launches`` counts kernel launches."""
+    scale = _scale(dh_k, scale)
+    if dy.device.type == "cpu":
+        return fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, heads,
+                                                        dh_k, dh_v, scale)
+    b, n, c = dy.shape
+    n_k = k.shape[1]
+    hk, hv = heads * dh_k, heads * dh_v
+    _check("fused_cross_attention backward", dy, n_k, heads, dh_k, dh_v, {
+        "q": (q, (b, n, hk)), "k": (k, (b, n_k, hk)), "v": (v, (b, n_k, hv)),
+        "oattn": (oattn, (b, n, hv)), "wq": (wq, (hk, c)), "wo": (wo, (c, hv))})
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, n) \
+            or not lse.is_contiguous() or lse.device != dy.device:
+        raise ValueError(f"fused_cross_attention backward: lse must be a contiguous f32 "
+                         f"({b}, {heads}, {n}) tensor on {dy.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    rows = b * n
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    dxn, dq, dk, dv = (torch.empty_like(t) for t in (dy, q, k, v))
+    dbo = torch.empty(c, **f32)
+    doattn = torch.empty_like(oattn)
+    dsum = torch.empty((b, heads, n), **f32)
+    lib = _build.load()
+    part = torch.empty((lib.vit_ln_bwd_partial_rows(rows), c), **f32)
+    with torch.cuda.device(dy.device):
+        err = lib.vit_fused_cross_attention_bwd(
+            dy.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), oattn.data_ptr(),
+            lse.data_ptr(), wq.data_ptr(), wo.data_ptr(), dxn.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dbo.data_ptr(), doattn.data_ptr(), dsum.data_ptr(),
+            part.data_ptr(), b, n, n_k, c, heads, dh_k, dh_v, float(scale),
+            _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+    _build.check(err, "vit_fused_cross_attention_bwd")
+    fused_cross_attention_backward.launches += 1
+    return dxn, dq, dk, dv, dbo
+
+
+fused_cross_attention_backward.launches = 0
+
+
+class FusedCrossAttentionFunction(torch.autograd.Function):
+    """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``): the training
+    forward keeps ``xn, q, k, v, oattn, lse``; the backward runs the backward
+    kernels, then the weight gradients ``dWq = dqᵀ·xn`` and ``dWo =
+    dyᵀ·oattn`` as plain GEMMs with f32 accumulation, rounded to the
+    weights' dtype, as JAX left them to XLA.  ``dx`` is ``dy`` (the
+    residual); dk and dv flow back to whatever made k and v."""
+
+    @staticmethod
+    def forward(ctx, x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale):
+        if x.device.type == "cpu":
+            y, q, oattn, lse = fused_cross_attention_forward_reference(
+                x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
+        else:
+            y, q, oattn, lse = _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
+        ctx.save_for_backward(xn, q, k, v, oattn, lse, wq, wo)
+        ctx.config = (heads, dh_k, dh_v, scale)
+        ctx.bo_dtype = bo.dtype
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xn, q, k, v, oattn, lse, wq, wo = ctx.saved_tensors
+        dy = dy.contiguous()
+        dxn, dq, dk, dv, dbo = fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo,
+                                                              *ctx.config)
+        return (dy, dxn, weight_grad(dq, xn), dk, dv, weight_grad(dy, oattn),
+                dbo.to(ctx.bo_dtype), None, None, None, None)
+
+
+def fused_cross_attention(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: int,
+                          scale: float | None = None):
+    """``x + (softmax((xn·Wqᵀ)·kᵀ·scale)·v)·Woᵀ + bo`` per head, with
+    precomputed k and v; ``scale`` defaults to ``dh_k ** -0.5``.
+
+    Layouts as in the module docstring; on CUDA every tensor in x's dtype
+    (bf16 or f16), contiguous.  When autograd records the call, it goes
+    through :class:`FusedCrossAttentionFunction`; otherwise a CPU tensor
+    takes the plain version and a CUDA tensor launches the forward kernels.
+    On CUDA it launches or raises.  ``fused_cross_attention.launches`` counts
+    forward kernel launches.
+    """
+    scale = _scale(dh_k, scale)
+    if needs_grad(x, xn, wq, k, v, wo, bo):
+        return FusedCrossAttentionFunction.apply(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v,
+                                                 scale)
+    if x.device.type == "cpu":
+        return fused_cross_attention_reference(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
+    return _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)[0]
+
+
+fused_cross_attention.launches = 0
