@@ -105,14 +105,28 @@ Phases, one line each (any failure raises and exits non-zero):
    cross-attention block 14 times, the packed flash op 4 times (the IWSA
    windows of 1024 tokens and more) and the fused MLP 28 times, each step
    their backwards as often.
-16. profile: ``torch.profiler`` over train steps at the five training
-   configs; device time and launches per step by kernel group, idle share,
-   the host's enqueue time per step and the synchronising calls in a step.
+16. hybrid kernels (the short-sequence tier's ``ln_gemm``, ``attention_nb``
+   and ``proj_mlp``) at ViT-B/32's layer, batch 128: each training forward
+   against its plain version, chained as the layer chains them; each
+   backward fed its forward's residuals against the plain backward, twice
+   bit for bit; times beside the bf16 library compositions and the bounds.
+17. short attention (explicit use only): its public op under autograd once
+   (its path), then its kernels at SHORT_SHAPES against the plain versions,
+   the backward twice bit for bit, timed beside SDPA and the flash kernels.
+18. ViT-B/32 @256 with ``fused_attention="hybrid"``, serving (3 requests of
+   128) and training (batch 128) as phases 5 and 7: 6 launches each of
+   ``ln_gemm``, ``attention_nb`` and ``proj_mlp`` per forward, of their
+   backwards per step, none of the block kernels; then the two B/32 tiers'
+   step times side by side.
+19. profile: ``torch.profiler`` over train steps at the six training configs
+   (B/32 on both tiers); device time and launches per step by kernel group,
+   idle share, the host's enqueue time per step and the synchronising calls
+   in a step.
 
-Each main path (serving B/16, B/32, small-dataset, CvT-13 @224 and @384,
-ScalableViT; training B/32, B/16, small-dataset, CvT-13 @224 and @384,
-ScalableViT) runs with every kernel's launch counter set to 0 just before it
-and read just after.  The
+Each main path (short attention; serving B/16, B/32, small-dataset, B/32
+hybrid, CvT-13 @224 and @384, ScalableViT; training B/32, B/32 hybrid, B/16,
+small-dataset, CvT-13 @224 and @384, ScalableViT) runs with every kernel's
+launch counter set to 0 just before it and read just after.  The
 line before the last is the card as ``nvidia-smi`` names it; before that a
 JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound.  The last line is
@@ -230,6 +244,7 @@ def log(msg: str) -> None:
 
 
 WALL = {}  # wall seconds of each phase of main(), printed before the kernels' line
+STEP_MS = {}  # median step ms of each training path: {tag: {"kernels": ms, "plain": ms}}
 
 
 @contextlib.contextmanager
@@ -1120,6 +1135,315 @@ def packed_phase(torch, results, smi):
         torch.cuda.empty_cache()
 
 
+# (tag, b, h, n_q, n_k, d): the short-attention op at ViT-B/16's attention
+# (vit_tpu's own v5e measurement of the op, short_attention.py:15-17), CvT-13
+# @224's stage 3 below the flash gate, the MAX_SEQ edge at d 64 and 128, and a
+# ragged cross-attention.
+SHORT_SHAPES = [
+    ("ViT-B/16 attention", 64, 12, 197, 197, 64),
+    ("CvT-13@224 stage 3", 64, 6, 196, 49, 64),
+    ("n=512, d=64", 16, 8, 512, 512, 64),
+    ("n=512, d=128", 16, 8, 512, 512, 128),
+    ("cross-attention, ragged", 2, 2, 65, 130, 32),
+]
+
+
+def short_bounds(b, h, n_q, n_k, d):
+    """Bounds of the short-attention kernels (and of attention_nb, the same
+    kernels over the (n, b, heads·dh) layout): the FLOPs of the function,
+    two n_q x n_k products forward (q·kᵀ, p·v) and five backward (q·kᵀ, dO·vᵀ,
+    dv, dq, dk); bytes: forward q, k, v read and out written (the serving
+    forward, no lse), backward q, k, v, dout read and dq, dk, dv written, the
+    inputs the TPU kernel's backward takes (the port's also reads the stored
+    out and lse, for D and the softmax statistics), bf16."""
+    pairs = b * h * n_q * n_k
+    q, k = 2 * b * h * n_q * d, 2 * b * h * n_k * d
+    return {"short_attention": bound(4 * pairs * d, 2 * q + 2 * k),
+            "short_attention_bwd": bound(10 * pairs * d, 3 * q + 4 * k)}
+
+
+def hybrid_bounds(b, n, d, heads, dim_head, hidden):
+    """Bounds of the hybrid layer's kernels at one shape (t = b·n rows, bf16
+    activations and weights, f32 parameter-gradient sums): the FLOPs of the
+    TPU kernels' own GEMMs and attention products; each input read once and
+    each output written once.  ln_gemm: x, γ, β, Wqkv -> q|k|v (serving, no
+    xn); backward dqkv, x, γ, Wqkv -> dx, f32 dγ, dβ, over the dxn GEMM.
+    attention_nb: :func:`short_bounds`.  proj_mlp: x, o, Wo, bo, γ, β, W1,
+    b1, W2, b2 -> z over three GEMMs; backward dz, y, h, γ, Wo, W1, W2 -> dy,
+    do, dh, gact and f32 dγ, dβ, dbo, db1, db2 over three dgrad GEMMs."""
+    t, inner = b * n, heads * dim_head
+    act, qkv, o, h = 2 * t * d, 2 * t * 3 * inner, 2 * t * inner, 2 * t * hidden
+    w_qkv = 2 * 3 * inner * d
+    w_mlp = 2 * (inner * d + 2 * d * hidden)  # Wo, W1, W2
+    mlp_flops = 2 * t * (inner * d + 2 * d * hidden)
+    short = short_bounds(b, heads, n, n, dim_head)
+    return {
+        "ln_gemm": bound(2 * t * d * 3 * inner, act + w_qkv + 4 * d + qkv),
+        "ln_gemm_bwd": bound(2 * t * 3 * inner * d, qkv + act + 2 * d + w_qkv + act + 8 * d),
+        "attention_nb": short["short_attention"],
+        "attention_nb_bwd": short["short_attention_bwd"],
+        "proj_mlp": bound(mlp_flops, act + o + w_mlp + 2 * (4 * d + hidden) + act),
+        "proj_mlp_bwd": bound(mlp_flops, 2 * act + h + 2 * d + w_mlp + act + o + 2 * h
+                              + 4 * (4 * d + hidden)),
+    }
+
+
+def short_attention_phase(torch, results, smi, counters):
+    """The short-attention op at SHORT_SHAPES, seeded bf16 (b, h, n, d)
+    inputs.  First its path: every counter from 0, the public op under
+    autograd, forward and backward, once, at the first shape; the counters
+    read right after are the phase's launches.  Then at each shape: out and
+    lse against the plain version; dq, dk, dv fed the kernel's own out and
+    lse against the plain backward, twice bit for bit; times of the kernels,
+    their plain versions, PyTorch's SDPA (autograd through it for the
+    backward) and the port's flash kernels on the same inputs, and the
+    bounds."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops import short_attention as sa
+
+    def inputs(b, h, n_q, n_k, d, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(b, h, n, d, generator=g, device="cuda").to(torch.bfloat16)
+                for n in (n_q, n_k, n_k, n_q)]
+
+    q, k, v, do = inputs(*SHORT_SHAPES[0][1:], seed=70)
+    for c in counters.values():
+        c.launches = 0
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sa.short_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    check_launches("short attention", "one forward and backward", counters,
+                   {"short_attention": 1, "short_attention_bwd": 1}, 1)
+    del leaves
+
+    for i, (tag, b, h, n_q, n_k, d) in enumerate(SHORT_SHAPES):
+        q, k, v, do = inputs(b, h, n_q, n_k, d, seed=70 + i)
+        scale = d ** -0.5
+        shape = f"[{tag}: b={b} heads={h} n_q={n_q} n_k={n_k} d={d}]"
+        out, lse = sa.short_attention_forward(q, k, v, scale)
+        ref_out, ref_lse = sa.short_attention_forward_reference(q, k, v, scale)
+        err = check_outputs(torch, f"short attention forward {shape}", (out,), (ref_out,), {})
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"short attention forward {shape}: lse differs by {lse_err}")
+        del ref_out, ref_lse
+        grads = sa.short_attention_backward(q, k, v, out, lse, do, scale)
+        torch.cuda.synchronize()
+        bwd_err = check_outputs(torch, f"short attention backward {shape}", grads,
+                                sa.short_attention_backward_reference(q, k, v, out, lse, do,
+                                                                      scale), {})
+        again = sa.short_attention_backward(q, k, v, out, lse, do, scale)
+        if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+            raise AssertionError(f"short attention backward {shape}: two runs differ")
+        del grads, again
+        f_out, f_lse = fa.flash_attention_forward(q, k, v, scale)
+        fwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: sa.short_attention_forward(q, k, v, scale, need_lse=False),
+            "plain": lambda: sa.short_attention_forward_reference(q, k, v, scale),
+            "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            "flash": lambda: fa.flash_attention_forward(q, k, v, scale)}, rounds=3, calls=3)
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": lambda: sa.short_attention_backward(q, k, v, out, lse, do, scale),
+            "plain": lambda: sa.short_attention_backward_reference(q, k, v, out, lse, do, scale),
+            "library": sdpa_backward(torch, F, q, k, v, do, scale),
+            "flash": lambda: fa.flash_backward(q, k, v, f_out, f_lse, do, scale)},
+            rounds=3, calls=3)
+        bounds = short_bounds(b, h, n_q, n_k, d)
+        fb, bb = bounds["short_attention"], bounds["short_attention_bwd"]
+        log(f"short attention {shape}: out within one bf16 unit plus {KERNEL_REL_TOL}*max|ref| "
+            f"of the plain version, max|kernel-plain|={err:.6g}; lse max|diff|={lse_err:.3g}; dq, "
+            f"dk, dv (fed the kernel's out and lse) max|diff|={bwd_err:.6g}, the same bits in two "
+            f"runs; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} "
+            f"SDPA={fwd_ms['library']:.4f} flash kernel={fwd_ms['flash']:.4f} bound={fb[0]:.4f} "
+            f"({fb[1]}); backward ms kernel={bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} "
+            f"autograd through SDPA={bwd_ms['library']:.4f} flash kernels={bwd_ms['flash']:.4f} "
+            f"bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+        results.setdefault("short_attention", {})[tag] = dict(
+            err=err, lse_err=lse_err, **fwd_ms, bound=fb)
+        results.setdefault("short_attention_bwd", {})[tag] = dict(err=bwd_err, **bwd_ms, bound=bb)
+        del q, k, v, do, out, lse, f_out, f_lse
+        torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
+    """The hybrid layer's kernels at one layer shape, seeded bf16 inputs in
+    the (n, b, ·) row order of the tier: ln_gemm's training forward (q|k|v,
+    xn), attention_nb's (o, lse; on the kernel's q, k, v, column views of
+    its one output) and proj_mlp's (z, y, xn, h; on the kernel's o) against
+    their plain versions; then each backward, fed the residuals its own
+    forward kept (proj_mlp's from a seeded dz, attention_nb's from proj_mlp's
+    do, ln_gemm's from attention_nb's one dq|dk|dv buffer), against its plain
+    backward on them, and twice bit for bit.  Times of the serving forwards
+    and of the backwards, their plain versions and the library: bf16
+    ``F.layer_norm`` + ``F.linear`` (ln_gemm), SDPA on the head views
+    (attention_nb) and the bf16 out-projection + LayerNorm + MLP (proj_mlp),
+    autograd through them for the backwards (for the kernels' own outputs,
+    and with the weight gradients beside the kernel plus its dW GEMMs)."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_hybrid as fh
+    from vit_tpu_torch.ops import short_attention as sa
+    from vit_tpu_torch.ops._shared import weight_grad
+
+    dev, dt, eps = torch.device("cuda"), torch.bfloat16, 1e-3
+    g = torch.Generator(device=dev).manual_seed(80)
+    t, inner = b * n, heads * dim_head
+    scale = dim_head ** -0.5
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    x = rn(t, d)
+    ln1 = (rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1))
+    wqkv = rn(3 * inner, d, scale=d ** -0.5)
+    wo, bo = rn(d, inner, scale=inner ** -0.5), rn(d, scale=0.1)
+    ln2 = (rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1))
+    mlp_w = (rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1),
+             rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1))
+    w1, _, w2, _ = mlp_w
+    dz = rn(t, d, scale=0.1)
+    shape = f"[{tag}: t={t} (n={n}, b={b}) d={d} heads={heads}x{dim_head} h={hidden}]"
+
+    def nb(a):
+        return a.reshape(n, b, a.shape[-1])
+
+    # The training forwards, chained as the layer chains them.
+    qkv, xn1 = fh._launch_ln_gemm(x, *ln1, wqkv, eps)
+    errs = {"ln_gemm": check_outputs(torch, f"ln_gemm {shape}", (qkv, xn1),
+                                     fh.ln_gemm_forward_reference(x, *ln1, wqkv, eps), {})}
+    q, k, v = (nb(a) for a in qkv.chunk(3, -1))
+    o, lse = fh.attention_nb_forward(q, k, v, heads, dim_head)
+    ref_o, ref_lse = fh.attention_nb_forward_reference(q, k, v, heads, dim_head)
+    errs["attention_nb"] = check_outputs(torch, f"attention_nb {shape}", (o,), (ref_o,), {})
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= LSE_ABS_TOL:
+        raise AssertionError(f"attention_nb {shape}: lse differs by {lse_err}")
+    o2 = o.reshape(t, inner)
+    z, y, xn2, h = fh._launch_proj_mlp(x, o2, wo, bo, *ln2, *mlp_w, eps, save_residuals=True)
+    ref = fh.proj_mlp_forward_reference(x, o2, wo, bo, *ln2, *mlp_w, eps)
+    errs["proj_mlp"] = check_outputs(torch, f"proj_mlp {shape}", (z, y, xn2, h), ref,
+                                     {0: ref[1], 1: x})
+    del ref, ref_o, ref_lse
+
+    # The backwards, each fed its forward's residuals, twice.
+    def twice(name, kernel, plain, residuals):
+        got = kernel()
+        torch.cuda.synchronize()
+        errs[name + "_bwd"] = check_outputs(torch, f"{name} backward {shape}", got, plain(),
+                                            residuals)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, kernel())):
+            raise AssertionError(f"{name} backward {shape}: two runs differ")
+        return got
+
+    def proj_bwd():
+        return fh.proj_mlp_backward(dz, y, h, ln2[0], wo, w1, w2, eps)
+
+    dy, do, dh, gact = twice("proj_mlp", proj_bwd, lambda: fh.proj_mlp_backward_reference(
+        dz, y, h, ln2[0], wo, w1, w2, eps), {0: dz})[:4]
+    do_nb = nb(do)
+
+    def attn_bwd():
+        return fh.attention_nb_backward(do_nb, q, k, v, o, lse, heads, dim_head)
+
+    attn_grads = twice("attention_nb", attn_bwd, lambda: fh.attention_nb_backward_reference(
+        do_nb, q, k, v, o, lse, heads, dim_head), {})
+    dqkv = fh._joined([a.reshape(t, inner) for a in attn_grads])
+    if dqkv.data_ptr() != attn_grads[0].data_ptr():
+        raise AssertionError(f"attention_nb backward {shape}: dq, dk, dv are not one buffer")
+
+    def ln_bwd():
+        return fh.ln_gemm_backward(dqkv, x, ln1[0], wqkv, eps)
+
+    twice("ln_gemm", ln_bwd, lambda: fh.ln_gemm_backward_reference(dqkv, x, ln1[0], wqkv, eps),
+          {})
+
+    # The library compositions, bf16, with autograd for the backwards.
+    leaf = {name: a.detach().requires_grad_() for name, a in dict(
+        x=x, g1=ln1[0], b1n=ln1[1], wqkv=wqkv, q=q, k=k, v=v, o=o2, wo=wo, bo=bo, g2=ln2[0],
+        b2n=ln2[1], w1=w1, b1=mlp_w[1], w2=w2, b2=mlp_w[3]).items()}
+
+    def lib_ln_gemm(p):
+        return F.linear(F.layer_norm(p["x"], (d,), p["g1"], p["b1n"], eps), p["wqkv"])
+
+    def lib_attention(p):
+        return sa.nb_merge(F.scaled_dot_product_attention(
+            *(sa.nb_heads(p[c], heads) for c in "qkv"), scale=scale))
+
+    def lib_proj_mlp(p):
+        y_ = p["x"] + F.linear(p["o"], p["wo"], p["bo"])
+        hid = F.gelu(F.linear(F.layer_norm(y_, (d,), p["g2"], p["b2n"], eps), p["w1"], p["b1"]))
+        return y_ + F.linear(hid, p["w2"], p["b2"])
+
+    def autograd(fn, cot, own, weights=()):
+        out = fn(leaf)
+        ins = [leaf[c] for c in own + weights]
+        return lambda: torch.autograd.grad(out, ins, cot, retain_graph=True)
+
+    cases = {
+        "ln_gemm": (lambda: fh.ln_gemm(x, *ln1, wqkv, eps),
+                    lambda: fh.ln_gemm_forward_reference(x, *ln1, wqkv, eps),
+                    lambda: lib_ln_gemm(leaf)),
+        "attention_nb": (lambda: fh.attention_nb(q, k, v, heads, dim_head),
+                         lambda: fh.attention_nb_forward_reference(q, k, v, heads, dim_head),
+                         lambda: lib_attention(leaf)),
+        "proj_mlp": (lambda: fh.proj_mlp(x, o2, wo, bo, *ln2, *mlp_w, eps),
+                     lambda: fh.proj_mlp_forward_reference(x, o2, wo, bo, *ln2, *mlp_w, eps),
+                     lambda: lib_proj_mlp(leaf)),
+    }
+    backward = {
+        "ln_gemm": (ln_bwd, lambda: fh.ln_gemm_backward_reference(dqkv, x, ln1[0], wqkv, eps),
+                    lambda: (ln_bwd(), weight_grad(dqkv, xn1)),
+                    autograd(lib_ln_gemm, dqkv, ("x", "g1", "b1n")),
+                    autograd(lib_ln_gemm, dqkv, ("x", "g1", "b1n"), ("wqkv",))),
+        "attention_nb": (attn_bwd, lambda: fh.attention_nb_backward_reference(
+            do_nb, q, k, v, o, lse, heads, dim_head), None,
+            autograd(lib_attention, do_nb, ("q", "k", "v")), None),
+        "proj_mlp": (proj_bwd, lambda: fh.proj_mlp_backward_reference(
+            dz, y, h, ln2[0], wo, w1, w2, eps),
+            lambda: (proj_bwd(), weight_grad(dy, o2), weight_grad(dh, xn2), weight_grad(dz, gact)),
+            autograd(lib_proj_mlp, dz, ("x", "o", "bo", "g2", "b2n", "b1", "b2")),
+            autograd(lib_proj_mlp, dz, ("x", "o", "bo", "g2", "b2n", "b1", "b2"),
+                     ("wo", "w1", "w2"))),
+    }
+    bounds = hybrid_bounds(b, n, d, heads, dim_head, hidden)
+    for name, (kernel, plain, library) in cases.items():
+        with torch.inference_mode():
+            fwd_ms = interleaved_medians(torch, {"kernel": kernel, "plain": plain,
+                                                 "library": library}, rounds=5, calls=5)
+        bk, bp, bw, bl, blw = backward[name]
+        fns = {"kernel": bk, "plain": bp, "library": bl}
+        if bw is not None:
+            fns.update(whole=bw, library_whole=blw)
+        bwd_ms = interleaved_medians(torch, fns, rounds=5, calls=5)
+        fb, bb = bounds[name], bounds[name + "_bwd"]
+        log(f"hybrid {name} {shape}: training forward within one bf16 unit plus "
+            f"{KERNEL_REL_TOL}*max|its own part| of the plain version, max|kernel-plain|="
+            f"{errs[name]:.6g}" + (f", lse {lse_err:.3g}" if name == "attention_nb" else "")
+            + f"; backward fed the forward's residuals {errs[name + '_bwd']:.6g}, the same bits "
+            f"in two runs; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} "
+            f"library={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); backward ms kernel="
+            f"{bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd through the library="
+            f"{bwd_ms['library']:.4f}"
+            + (f"; with the weight gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
+               f"{bwd_ms['library_whole']:.4f}" if bw is not None else "")
+            + f"; bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+        results.setdefault(name, {})[tag] = dict(err=errs[name], **fwd_ms, bound=fb)
+        results.setdefault(name + "_bwd", {})[tag] = dict(err=errs[name + "_bwd"], **bwd_ms,
+                                                          bound=bb)
+
+
+def hybrid_vit(fused_attention="hybrid", **kw):
+    """``ViT`` with the short-sequence tier opted into (a caller's
+    ``fused_attention`` overrides it: the plain path passes ``"never"``)."""
+    from vit_tpu_torch import ViT
+
+    return ViT(fused_attention=fused_attention, **kw)
+
+
 def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, per_forward,
                   top1_sign_test=False, size=None, plain_kw=PLAIN_KW):
     """Serve ``requests`` batches of ``size`` px (``cfg["image_size"]`` by
@@ -1383,6 +1707,7 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
     ms = interleaved_medians(torch, {"kernels": lambda: step(images, labels),
                                      "plain": lambda: plain_step(images, labels)},
                              **(timing or dict(rounds=3, calls=3)))
+    STEP_MS[tag] = ms
     log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3); step-1 loss "
         f"kernels={first['kernels']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f} "
         f"(kernels/plain within {LOSS_REL_TOL} relative: {loss_rel:.3g}); {summary}losses "
@@ -1417,9 +1742,13 @@ def kernel_group(name: str) -> str:
     m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
+    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)>", name)
+    if m:
+        return f"{m.group(1)} (d {m.group(2)})"
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
-                "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel"):
+                "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
+                "short_dq_sum_kernel"):
         if own in name:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
@@ -1603,7 +1932,12 @@ def main() -> int:
     from vit_tpu_torch.ops.fused_cross_attention import (
         fused_cross_attention, fused_cross_attention_backward,
     )
+    from vit_tpu_torch.ops.fused_hybrid import (
+        attention_nb, attention_nb_backward, ln_gemm, ln_gemm_backward, proj_mlp,
+        proj_mlp_backward,
+    )
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_backward
+    from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
 
     results = {}
     with clock("block kernels, SPT"):
@@ -1620,6 +1954,8 @@ def main() -> int:
         cross_attention_phase(torch, results, smi)
     with clock("packed flash"):
         packed_phase(torch, results, smi)
+    with clock("hybrid kernels"):
+        hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
     # The main paths, each with the counters from 0 just before it and read
     # just after.
@@ -1631,7 +1967,12 @@ def main() -> int:
                 "flash_attention": flash_attention, "flash_backward": flash_backward,
                 "fused_cross_attention": fused_cross_attention,
                 "fused_cross_attention_bwd": fused_cross_attention_backward,
-                "flash_attention_packed": flash_attention_packed}
+                "flash_attention_packed": flash_attention_packed,
+                "short_attention": short_attention,
+                "short_attention_bwd": short_attention_backward,
+                "ln_gemm": ln_gemm, "ln_gemm_bwd": ln_gemm_backward,
+                "attention_nb": attention_nb, "attention_nb_bwd": attention_nb_backward,
+                "proj_mlp": proj_mlp, "proj_mlp_bwd": proj_mlp_backward}
 
     def per_layer(cfg, *names):
         return {name: cfg["depth"] for name in names}
@@ -1643,6 +1984,8 @@ def main() -> int:
 
     small = vit_for_small_dataset.ViT
     by_path = {}
+    # The explicit-use op: its public entry under autograd, then its checks.
+    path("short attention", short_attention_phase, results, smi, counters)
     path("serving B/16", serving_phase, "ViT-B/16@224 bf16", ViT, B16, 64, 3, 0, smi, counters,
          per_layer(B16, "fused_attention_block", "fused_mlp"))
     path("serving B/32", serving_phase, "ViT-B/32@256 bf16 (entry)", ViT, ENTRY, 8, 3, 1, smi,
@@ -1654,6 +1997,17 @@ def main() -> int:
     path("training B/32", training_phase, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi,
          counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp",
                              "fused_attention_block_bwd", "fused_mlp_bwd"))
+    # The short-sequence tier (fused_attention="hybrid") at bench.py's model.
+    hybrid = per_layer(ENTRY, "ln_gemm", "attention_nb", "proj_mlp")
+    path("serving B/32 hybrid", serving_phase, "ViT-B/32@256 hybrid bf16", hybrid_vit, ENTRY,
+         128, 3, 1, smi, counters, hybrid)
+    path("training B/32 hybrid", training_phase, "ViT-B/32@256 hybrid (bench.py)", hybrid_vit,
+         ENTRY, 128, 2, smi, counters,
+         {**hybrid, **per_layer(ENTRY, "ln_gemm_bwd", "attention_nb_bwd", "proj_mlp_bwd")})
+    rows, tier = STEP_MS["ViT-B/32@256 (bench.py)"], STEP_MS["ViT-B/32@256 hybrid (bench.py)"]
+    log(f"B/32 train step, batch 128, median ms: hybrid tier {tier['kernels']:.3f} against "
+        f"rows 1-4 {rows['kernels']:.3f} (plain path {tier['plain']:.3f} and "
+        f"{rows['plain']:.3f} in the two phases) on {smi}")
     path("training B/16", training_phase, "ViT-B/16@224", ViT, B16, 64, 3, smi, counters,
          per_layer(B16, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
                    "fused_mlp_bwd"))
@@ -1691,6 +2045,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with clock("profiles"):
         profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)
+        profile_phase(torch, "ViT-B/32@256 hybrid (bench.py)", hybrid_vit, ENTRY, 128, 0, smi)
         profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
         profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
         profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
@@ -1724,6 +2079,22 @@ def main() -> int:
         "flash_attention_packed": ("vit_tpu_torch/csrc/flash_attention.cu",
                                    "vit_tpu/ops/flash_attention_packed.py:58",
                                    PACKED_SHAPES[0][0]),
+        "short_attention": ("vit_tpu_torch/csrc/short_attention.cu",
+                            "vit_tpu/ops/short_attention.py:82", SHORT_SHAPES[0][0]),
+        "short_attention_bwd": ("vit_tpu_torch/csrc/short_attention.cu",
+                                "vit_tpu/ops/short_attention.py:97", SHORT_SHAPES[0][0]),
+        "ln_gemm": ("vit_tpu_torch/csrc/fused_hybrid.cu", "vit_tpu/ops/fused_hybrid.py:105",
+                    "B/32"),
+        "ln_gemm_bwd": ("vit_tpu_torch/csrc/fused_hybrid.cu", "vit_tpu/ops/fused_hybrid.py:125",
+                        "B/32"),
+        "attention_nb": ("vit_tpu_torch/csrc/short_attention.cu",
+                         "vit_tpu/ops/fused_hybrid.py:317", "B/32"),
+        "attention_nb_bwd": ("vit_tpu_torch/csrc/short_attention.cu",
+                             "vit_tpu/ops/fused_hybrid.py:345", "B/32"),
+        "proj_mlp": ("vit_tpu_torch/csrc/fused_hybrid.cu", "vit_tpu/ops/fused_hybrid.py:504",
+                     "B/32"),
+        "proj_mlp_bwd": ("vit_tpu_torch/csrc/fused_hybrid.cu",
+                         "vit_tpu/ops/fused_hybrid.py:531", "B/32"),
     }
     launches = {name: sum(path[name] for path in by_path.values()) for name in counters}
     for name, count in launches.items():

@@ -19,7 +19,9 @@ their plain versions the same way, with no residual (out; dq, dk, dv fed
 the kernel's own out and lse), and lse within ``chip_smoke.LSE_ABS_TOL``; so
 are the channel-packed op and the cross-attention block (y against its
 residual x; q, oattn, dxn, dq, dk, dv against 0; dbo, an f32 sum over the
-batch, within ``chip_smoke.DBIAS_REL_TOL``).
+batch, within ``chip_smoke.DBIAS_REL_TOL``), the short-attention op and the
+hybrid layer's three (z against its residual y, y against x, dy against dz;
+the rest, f32 sums included, against 0).
 """
 
 import pytest
@@ -37,6 +39,8 @@ from vit_tpu_torch.ops import flash_attention_packed as fap
 from vit_tpu_torch.ops import fused_attention_block as fused_attention_block_ops
 from vit_tpu_torch.ops import fused_cross_attention as fca
 from vit_tpu_torch.ops import fused_mlp as fused_mlp_ops
+from vit_tpu_torch.ops import fused_hybrid as fh
+from vit_tpu_torch.ops import short_attention as sa
 from vit_tpu_torch.ops.fused_attention_block import (
     fused_attention_block, fused_attention_block_backward,
     fused_attention_block_backward_reference, fused_attention_block_bias,
@@ -676,3 +680,161 @@ def test_scalable_vit_serves_and_trains_through_its_kernels(cuda):
         assert [a - b for a, b in zip(_scalable_launches(), before)] == [2, 1, 4, 2, 1, 4, 0]
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert losses[2] < losses[0]
+
+
+def _short_inputs(cuda, b, h, n_q, n_k, d, dtype=torch.bfloat16, seed=0):
+    """Seeded (b, h, n, d) q, k, v and a cotangent."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, h, n, d, generator=g, device=cuda).to(dtype)
+                 for n in (n_q, n_k, n_k, n_q))
+
+
+@pytest.mark.parametrize("b,h,n_q,n_k,d,dtype", [
+    (2, 2, 65, 130, 32, torch.bfloat16),   # ragged cross-attention, two key blocks
+    (2, 2, 512, 512, 128, torch.bfloat16),  # MAX_SEQ at d 128: four key blocks, 32-row steps
+    (4, 3, 197, 197, 64, torch.bfloat16),
+    (3, 2, 17, 33, 64, torch.float16),
+    (2, 2, 1, 7, 64, torch.bfloat16),  # one query row (with one key, dq is rounding noise)
+])
+def test_short_attention_kernels_match_plain(cuda, b, h, n_q, n_k, d, dtype):
+    """The op under autograd: forward (out, lse) against its plain version,
+    the backward against the plain backward fed the kernel's out and lse,
+    twice bit for bit."""
+    q, k, v, do = _short_inputs(cuda, b, h, n_q, n_k, d, dtype, seed=n_q)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (sa.short_attention.launches, sa.short_attention_backward.launches)
+    out = sa.short_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (sa.short_attention.launches, sa.short_attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    fwd, lse = sa.short_attention_forward(q, k, v)
+    assert torch.equal(fwd, out.detach())
+    ref_out, ref_lse = sa.short_attention_forward_reference(q, k, v)
+    check_outputs(torch, "short attention forward", (fwd,), (ref_out,), {})
+    assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+    check_outputs(torch, "short attention backward", grads,
+                  sa.short_attention_backward_reference(q, k, v, fwd, lse, do, d ** -0.5), {})
+    again = torch.autograd.grad(sa.short_attention(*leaves), leaves, do)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def test_short_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v, _ = _short_inputs(cuda, 1, 2, 513, 513, 64)
+    with torch.inference_mode(), pytest.raises(ValueError, match="512"):
+        sa.short_attention(q, k, v)
+    q, k, v, _ = _short_inputs(cuda, 1, 2, 64, 64, 48)
+    with torch.inference_mode(), pytest.raises(ValueError, match="d in"):
+        sa.short_attention(q, k, v)
+    q, k, v, _ = _short_inputs(cuda, 1, 2, 64, 64, 64, torch.float32)
+    with torch.inference_mode(), pytest.raises(TypeError):
+        sa.short_attention(q, k, v)
+
+
+def _hybrid_args(cuda, t, d, inner, hidden, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + torch.randn(*shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    ln = (rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1))
+    return dict(x=rn(t, d), ln1=ln, wqkv=rn(3 * inner, d, scale=d ** -0.5),
+                wo=rn(d, inner, scale=inner ** -0.5), bo=rn(d, scale=0.1),
+                ln2=(rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1)),
+                mlp=(rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1),
+                     rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1)),
+                dz=rn(t, d, scale=0.1))
+
+
+def _twice(got, again):
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh,hidden", [
+    (128, 65, 1024, 16, 64, 2048),  # ViT-B/32 at bench.py's batch
+    (64, 33, 96, 3, 32, 160),       # three heads of 32; ragged rows and widths
+])
+def test_hybrid_layer_kernels_match_plain(cuda, b, n, d, heads, dh, hidden):
+    """ln_gemm, attention_nb and proj_mlp chained as the layer chains them:
+    each training forward against its plain version, each backward fed its
+    forward's residuals against the plain backward, twice bit for bit; the
+    attention's gradient lands in one (t, 3·inner) buffer."""
+    t, inner, eps = b * n, heads * dh, 1e-3
+    a = _hybrid_args(cuda, t, d, inner, hidden, seed=n)
+    x, (g1, b1n), (g2, b2n), (w1, _, w2, _) = a["x"], a["ln1"], a["ln2"], a["mlp"]
+    before = (fh.ln_gemm.launches, fh.attention_nb.launches, fh.proj_mlp.launches)
+    qkv, xn1 = fh._launch_ln_gemm(x, g1, b1n, a["wqkv"], eps)
+    check_outputs(torch, "ln_gemm", (qkv, xn1),
+                  fh.ln_gemm_forward_reference(x, g1, b1n, a["wqkv"], eps), {})
+    q, k, v = (c.reshape(n, b, inner) for c in qkv.chunk(3, -1))
+    o, lse = fh.attention_nb_forward(q, k, v, heads, dh)
+    ref_o, ref_lse = fh.attention_nb_forward_reference(q, k, v, heads, dh)
+    check_outputs(torch, "attention_nb", (o,), (ref_o,), {})
+    assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+    o2 = o.reshape(t, inner)
+    fwd = fh._launch_proj_mlp(x, o2, a["wo"], a["bo"], g2, b2n, *a["mlp"], eps, True)
+    ref = fh.proj_mlp_forward_reference(x, o2, a["wo"], a["bo"], g2, b2n, *a["mlp"], eps)
+    check_outputs(torch, "proj_mlp", fwd, ref, {0: ref[1], 1: x})
+    assert (fh.ln_gemm.launches, fh.attention_nb.launches, fh.proj_mlp.launches) == \
+        tuple(c + 1 for c in before)
+    _, y, _, h = fwd
+
+    def proj_bwd():
+        return fh.proj_mlp_backward(a["dz"], y, h, g2, a["wo"], w1, w2, eps)
+
+    got = proj_bwd()
+    check_outputs(torch, "proj_mlp backward", got, fh.proj_mlp_backward_reference(
+        a["dz"], y, h, g2, a["wo"], w1, w2, eps), {0: a["dz"]})
+    _twice(got, proj_bwd())
+    do = got[1].reshape(n, b, inner)
+    grads = fh.attention_nb_backward(do, q, k, v, o, lse, heads, dh)
+    check_outputs(torch, "attention_nb backward", grads, fh.attention_nb_backward_reference(
+        do, q, k, v, o, lse, heads, dh), {})
+    _twice(grads, fh.attention_nb_backward(do, q, k, v, o, lse, heads, dh))
+    dqkv = fh._joined([g_.reshape(t, inner) for g_ in grads])
+    assert dqkv.data_ptr() == grads[0].data_ptr()
+    got = fh.ln_gemm_backward(dqkv, x, g1, a["wqkv"], eps)
+    check_outputs(torch, "ln_gemm backward", got,
+                  fh.ln_gemm_backward_reference(dqkv, x, g1, a["wqkv"], eps), {})
+    _twice(got, fh.ln_gemm_backward(dqkv, x, g1, a["wqkv"], eps))
+
+
+def _hybrid_launches():
+    return (fh.ln_gemm.launches, fh.attention_nb.launches, fh.proj_mlp.launches,
+            fh.ln_gemm_backward.launches, fh.attention_nb_backward.launches,
+            fh.proj_mlp_backward.launches, fused_attention_block.launches, fused_mlp.launches)
+
+
+def test_vit_hybrid_tier_serves_and_trains_through_its_kernels(cuda):
+    """ViT-B/32's widths at depth 2, batch 64 (n 65): each forward launches
+    ln_gemm, attention_nb and proj_mlp once per layer and none of the block
+    kernels; each train step their backwards as often; f32 gradients, and
+    SGD(1e-3) losses that fall and stay within 1e-2 of the plain path's from
+    the same weights."""
+    cfg = dict(image_size=256, patch_size=32, num_classes=10, dim=1024, depth=2, heads=16,
+               mlp_dim=2048, fused_attention="hybrid")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.randn(64, 256, 256, 3, generator=g, device=cuda)
+    served = cast_params(ViT(**cfg, generator=g), torch.bfloat16).eval()
+    before = _hybrid_launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(_hybrid_launches(), before)] == [2, 2, 2, 0, 0, 0, 0, 0]
+    assert out.shape == (64, 10) and torch.isfinite(out).all()
+    model = ViT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    plain = ViT(**{**cfg, "fused_attention": "never", "fused_mlp": "never"},
+                compute_dtype=torch.bfloat16)
+    plain.load_state_dict(model.state_dict())
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    plain_step = make_train_step(plain, torch.optim.SGD(plain.parameters(), lr=1e-3))
+    labels = torch.arange(64, device=cuda) % 10
+    losses, plain_losses = [], []
+    for _ in range(3):
+        before = _hybrid_launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(_hybrid_launches(), before)] == [2, 2, 2, 2, 2, 2, 0, 0]
+        plain_losses.append(float(plain_step(img, labels)["loss"]))
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert losses[2] < losses[0]
+    assert all(abs(a - b) <= 1e-2 * abs(b) for a, b in zip(losses, plain_losses)), \
+        (losses, plain_losses)

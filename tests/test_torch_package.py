@@ -54,11 +54,26 @@ def test_sources_never_import_jax():
     assert not offenders
 
 
-@pytest.mark.parametrize("knob", ["fused_attention", "fused_mlp"])
-@pytest.mark.parametrize("mode", ["interpret", "hybrid", "bmajor"])
+@pytest.mark.parametrize("knob,mode", [
+    ("fused_attention", "interpret"), ("fused_attention", "bmajor"),
+    ("fused_mlp", "interpret"), ("fused_mlp", "hybrid"), ("fused_mlp", "bmajor"),
+])
 def test_tpu_only_modes_raise(knob, mode):
     with pytest.raises(ValueError, match="TPU-only"):
         ViT(**TINY, **{knob: mode})
+
+
+def test_hybrid_is_the_vit_attention_tier_only():
+    """``fused_attention="hybrid"`` builds a ViT (the short-sequence tier, as
+    ``vit_tpu``'s); as ``fused_mlp``, or on another model's attention, it
+    stays a TPU-only mode."""
+    model = ViT(**TINY, fused_attention="hybrid")
+    assert model.transformer.fused_attention == "hybrid"
+    with pytest.raises(ValueError, match="TPU-only"):
+        ViT(**TINY, fused_mlp="hybrid")
+    with pytest.raises(ValueError, match="TPU-only"):
+        ScalableViT(num_classes=5, dim=16, depth=(1,), heads=2, reduction_factor=2,
+                    fused_attention="hybrid", device="cpu")
 
 
 def test_unknown_mode_and_scan_layers_raise():

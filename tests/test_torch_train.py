@@ -5,8 +5,8 @@ dispatch gate.
 Gradients: ``jax.grad`` of ``vit_tpu.parallel.train.cross_entropy_loss``
 through ``vit_tpu.ViT`` — at n = 145 with both Pallas block kernels in the
 interpreter, so that JAX's gradient goes through their backward kernels; at
-n = 17 with ``"never"`` (there ``"interpret"`` would route to the hybrid
-tier, ``vit_tpu/layers/common.py:275-281``, which the port does not have).
+n = 17 with ``"never"`` (there ``"interpret"`` routes to the hybrid tier,
+``vit_tpu/layers/common.py:275-281``, held in ``test_torch_fused_hybrid.py``).
 The port's f32 CPU ``ViT`` carries the same weights through
 ``state_dict_from_flax``, and JAX's gradient tree goes through the same
 mapping (Dense kernel ↔ ``weight.T``).  Every gradient, loss and parameter

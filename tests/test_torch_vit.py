@@ -3,9 +3,10 @@ port's ``ViT``, same image, f32 logits within 1e-4 (the bar ``vit_tpu`` held
 against the TF reference).
 
 Below 128 tokens the JAX side runs ``fused_attention="never"`` (there its
-``"interpret"`` would route to the hybrid tier, ``layers/common.py:275-281``,
-which the port does not have); at n ≥ 128 it runs both Pallas block kernels in
-the interpreter, the path the port's kernels replace.
+``"interpret"`` routes to the hybrid tier, ``layers/common.py:275-281``, which
+``test_torch_fused_hybrid.py`` holds against the port's ``"hybrid"``); at
+n ≥ 128 it runs both Pallas block kernels in the interpreter, the path the
+port's kernels replace.
 """
 
 import numpy as np

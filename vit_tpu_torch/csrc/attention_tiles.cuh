@@ -1,6 +1,7 @@
 // Tile helpers shared by the attention kernels (attention.cu, the block's
 // multi-head attention over packed qkv; flash_attention.cu, flash attention
-// over strided (b, h, n, d) operands).  A block is four warps; each warp owns
+// over strided (b, h, n, d) operands; short_attention.cu, whole-row attention
+// at n <= 512).  A block is four warps (eight in short_bwd); each warp owns
 // 16 rows of a 64-row tile, and its products run on mma.sync m16n8k16 with
 // f32 accumulation.  Tiles live in shared memory as rows of DH + 8 elements,
 // so that ldmatrix's eight row addresses fall in distinct banks.
@@ -18,12 +19,13 @@ __host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
 // Stage `nrows` rows of one head (DH columns) from a row-strided source,
 // starting at token r0, into shared rows of DP >= DH columns; tokens at or
 // past n, and columns DH..DP-1, land as zeros (a head width that no mma
-// k-step divides is padded here, never in device memory).
-template <typename T, int DH, int DP = DH>
+// k-step divides is padded here, never in device memory).  NT threads of
+// the block take part.
+template <typename T, int DH, int DP = DH, int NT = kAttnThreads>
 __device__ __forceinline__ void stage_rows(T (*dst)[DP + 8], const T* src, size_t ld, int r0,
                                            int nrows, int n) {
   constexpr int kChunksPerRow = DP / 8;
-  for (int c = threadIdx.x; c < nrows * kChunksPerRow; c += kAttnThreads) {
+  for (int c = threadIdx.x; c < nrows * kChunksPerRow; c += NT) {
     const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
     if ((DP == DH || col < DH) && r0 + r < n)

@@ -114,13 +114,15 @@ __device__ __forceinline__ float dgelu_erf(float v) {
 cudaError_t launch_layernorm(const void* x, const void* gamma, const void* beta, void* xn,
                              int rows, int d, float eps, int dtype, cudaStream_t stream);
 
-// LayerNorm backward of both blocks, given dxn (rows, d) in f32, the gradient
+// LayerNorm backward of the blocks, given dxn (rows, d) in f32, the gradient
 // at the LayerNorm's output.  Per row, from recomputed statistics:
 //   dx = T(dy + T(rstd·(dxhat - mean(dxhat) - xhat·mean(dxhat·xhat)))),
 //   dxhat = dxn·gamma.
 // Column sums in f32, in a fixed order (per-block partials, then a second
 // pass): sums = [Σ dxn·xhat | Σ dxn | Σ dy], each (d,).  `stats` (rows, 2)
-// and `partial` (ln_bwd_partial_rows(rows), 3·d) are f32 scratch.
+// and `partial` (ln_bwd_partial_rows(rows), 3·d) are f32 scratch.  A null
+// `dy` (a LayerNorm with no residual around it: ln_gemm) gives
+// dx = T(rstd·(...)) and sums = [Σ dxn·xhat | Σ dxn].
 cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, const void* dy,
                           void* dx, float* stats, float* partial, float* sums, int rows, int d,
                           float eps, int dtype, cudaStream_t stream);

@@ -94,7 +94,8 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const T* __restrict__ x,
 }
 
 // dx = T(dy + T(rstd·(dxhat - m1 - xhat·m2))) with dxhat = dxn·gamma,
-// m1 = mean(dxhat), m2 = mean(dxhat·xhat); writes (mean, rstd) per row.
+// m1 = mean(dxhat), m2 = mean(dxhat·xhat), or T(rstd·(...)) when dy is null
+// (a LayerNorm with no residual around it); writes (mean, rstd) per row.
 template <typename T>
 __global__ void __launch_bounds__(256)
     ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dxn,
@@ -135,17 +136,20 @@ __global__ void __launch_bounds__(256)
   for (int c = lane * 8; c < d; c += 32 * 8) {
     float xh[8], dh[8], f[8];
     dxhat8(c, xh, dh);
-    const Vec8<T> dyv(dy + (size_t)row * d + c);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      f[i] = dyv.f[i] + Num<T>::round(rstd * (dh[i] - m1 - xh[i] * m2));
+    for (int i = 0; i < 8; ++i) f[i] = rstd * (dh[i] - m1 - xh[i] * m2);
+    if (dy) {  // the residual adds in the compute dtype
+      const Vec8<T> dyv(dy + (size_t)row * d + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = dyv.f[i] + Num<T>::round(f[i]);
+    }
     store8(dx + (size_t)row * d + c, f);
   }
   if (lane == 0) stats[row] = make_float2(mean, rstd);
 }
 
 // partial[chunk] = [Σ dxn·xhat | Σ dxn | Σ dy] over the chunk's rows, one
-// thread per column.
+// thread per column; without dy the chunk's row is [Σ dxn·xhat | Σ dxn].
 template <typename T>
 __global__ void __launch_bounds__(kColThreads)
     ln_bwd_cols_kernel(const T* __restrict__ x, const float* __restrict__ dxn,
@@ -164,12 +168,12 @@ __global__ void __launch_bounds__(kColThreads)
     const float g = dxn[off];
     sg += g * ((Num<T>::to_f(x[off]) - st[i].x) * st[i].y);
     sb += g;
-    sy += Num<T>::to_f(dy[off]);
+    if (dy) sy += Num<T>::to_f(dy[off]);
   }
-  float* prow = partial + (size_t)blockIdx.y * 3 * d;
+  float* prow = partial + (size_t)blockIdx.y * (dy ? 3 : 2) * d;
   prow[c] = sg;
   prow[d + c] = sb;
-  prow[2 * d + c] = sy;
+  if (dy) prow[2 * d + c] = sy;
 }
 
 // partial[chunk] = Σ a over the chunk's rows, one thread per column.
@@ -231,7 +235,7 @@ cudaError_t ln_bwd_t(const void* x, const float* dxn, const void* gamma, const v
   ln_bwd_cols_kernel<T><<<grid, kColThreads, 0, stream>>>(xt, dxn, dyt, st, partial, rows, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_colsum(partial, chunks, 3 * d, sums, stream);
+  return launch_colsum(partial, chunks, (dy ? 3 : 2) * d, sums, stream);
 }
 
 }  // namespace

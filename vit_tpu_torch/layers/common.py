@@ -24,9 +24,19 @@ the plain modules there: widths the kernels do not take raise ``ValueError``.
 CPU tensors and f32 activations run the plain modules, as do active dropout
 and an attention without an output projection (``heads == 1`` and
 ``dim_head == dim``), which is not the block the kernel computes, as in
-``vit_tpu``.  ``"never"`` always runs the plain modules.  The TPU package's
-``"interpret"``, ``"hybrid"`` and ``"bmajor"`` modes were TPU dispatch tiers
-and are refused.
+``vit_tpu``.  ``"never"`` always runs the plain modules.
+
+``Transformer(fused_attention="hybrid")`` opts into ``vit_tpu``'s
+short-sequence tier (``vit_tpu/layers/common.py:304-314``, ``:507-548``):
+where ``vit_tpu``'s gate holds — the activation one the kernels take, an
+output projection, no active dropout, n < 128, b ≥ 64, b·n ≥ 2048, a head
+geometry ``_attn_pack`` takes, and the fused MLP not opted out — the whole
+stack runs on ``(n, b, d)`` activations, each layer ``ln_gemm →
+attention_nb → proj_mlp`` (:func:`apply_fused_hybrid_layer`), with one
+transpose before the stack and one after it.  Elsewhere ``"hybrid"`` does
+what ``"auto"`` does.  It stays opt-in, as in ``vit_tpu``.  The TPU package's
+``"interpret"`` and ``"bmajor"`` modes were TPU dispatch tiers and are
+refused, as is ``"hybrid"`` anywhere but the ViT's ``fused_attention``.
 """
 
 from __future__ import annotations
@@ -39,29 +49,32 @@ from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.ops._checks import KERNEL_DTYPES
 from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.fused_attention_block import fused_attention_block
+from vit_tpu_torch.ops.fused_hybrid import _attn_pack, attention_nb, ln_gemm, proj_mlp
 from vit_tpu_torch.ops.fused_mlp import fused_mlp
 from vit_tpu_torch.ops.patchify import conv2d_same
 
 FUSED_MODES = ("auto", "never")
+HYBRID_MODES = FUSED_MODES + ("hybrid",)  # the ViT Transformer's fused_attention
 _TPU_ONLY_MODES = {
     "interpret": "ran the Pallas kernels in the TPU interpreter for CPU tests "
                  "(the port's CPU path is the kernels' plain PyTorch versions)",
-    "hybrid": "opted into the TPU's batch-in-sublane (n, b, d) short-sequence "
-              "tier (vit_tpu/ops/fused_hybrid.py)",
+    "hybrid": "opts into the batch-in-sublane (n, b, d) short-sequence tier "
+              "(vit_tpu/ops/fused_hybrid.py), which the port takes only as the ViT "
+              "Transformer's fused_attention",
     "bmajor": "forced the TPU's token-major block kernels outside their "
               "measured 128 <= n <= 1024 window",
 }
 
 
-def check_fused_mode(name: str, mode: str) -> str:
-    """Validate a ``fused_attention`` / ``fused_mlp`` mode."""
+def check_fused_mode(name: str, mode: str, modes: tuple = FUSED_MODES) -> str:
+    """Validate a ``fused_attention`` / ``fused_mlp`` mode against ``modes``."""
+    if mode in modes:
+        return mode
     if mode in _TPU_ONLY_MODES:
         raise ValueError(
-            f"{name}={mode!r} is a TPU-only mode: it {_TPU_ONLY_MODES[mode]}. "
-            f"The CUDA port takes {FUSED_MODES}.")
-    if mode not in FUSED_MODES:
-        raise ValueError(f"{name} must be one of {FUSED_MODES}, got {mode!r}")
-    return mode
+            f"{name}={mode!r} is a TPU-only mode here: it {_TPU_ONLY_MODES[mode]}. "
+            f"This {name} takes {modes}.")
+    raise ValueError(f"{name} must be one of {modes}, got {mode!r}")
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -293,9 +306,27 @@ def apply_fused_attention_block(norm: LayerNorm, attn: Attention,
 
 def fused_attention_eligible(x: torch.Tensor, attn: Attention, mode: str) -> bool:
     """``_fused_attention_tier``'s gate: an output projection and no active
-    dropout, on an activation the kernels take."""
-    return (mode == "auto" and attn.project_out and not attn.dropout_active
+    dropout, on an activation the kernels take (``"hybrid"`` outside its
+    tier is ``"auto"``)."""
+    return (mode in ("auto", "hybrid") and attn.project_out and not attn.dropout_active
             and kernel_activation(x))
+
+
+def apply_fused_hybrid_layer(a_norm: LayerNorm, attn: Attention, m_norm: LayerNorm, mlp: MLP,
+                             x: torch.Tensor) -> torch.Tensor:
+    """One transformer layer on ``(n, b, d)`` activations
+    (``vit_tpu/layers/common.py:190-255``): ``q, k, v = ln_gemm(x)`` →
+    ``attention_nb`` → ``proj_mlp(x, o)``, from the parameters of the
+    layer's two LayerNorms, its ``Attention`` and its ``MLP`` in the compute
+    dtype (``x``'s); the LayerNorms' γ/β go as they are, and the ops round
+    them."""
+    q, k, v = ln_gemm(x, a_norm.weight, a_norm.bias, cast_to(attn.to_qkv.weight, x), a_norm.eps,
+                      nsplit=3)
+    o = attention_nb(q, k, v, attn.heads, attn.dim_head)
+    out = attn.to_out[0]
+    return proj_mlp(x, o, cast_to(out.weight, x), cast_to(out.bias, x), m_norm.weight,
+                    m_norm.bias, cast_to(mlp.fc1.weight, x), cast_to(mlp.fc1.bias, x),
+                    cast_to(mlp.fc2.weight, x), cast_to(mlp.fc2.bias, x), m_norm.eps)
 
 
 def fused_mlp_eligible(x: torch.Tensor, mlp: MLP, mode: str) -> bool:
@@ -351,7 +382,7 @@ class Transformer(nn.Module):
                  compute_dtype: torch.dtype | None = None, generator=None):
         super().__init__()
         self.fused_mlp = check_fused_mode("fused_mlp", fused_mlp)
-        self.fused_attention = check_fused_mode("fused_attention", fused_attention)
+        self.fused_attention = check_fused_mode("fused_attention", fused_attention, HYBRID_MODES)
         self.compute_dtype = compute_dtype
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.layers = nn.ModuleList(
@@ -363,10 +394,29 @@ class Transformer(nn.Module):
             })
             for _ in range(depth))
 
+    def hybrid_tier(self, x: torch.Tensor) -> bool:
+        """``vit_tpu``'s gate of the short-sequence tier for ``(b, n, d)``
+        activations (``_fused_attention_tier``'s ``"nmajor"``, with the MLP
+        gate it needs, ``vit_tpu/layers/common.py:312-319``, ``:514-519``)."""
+        if self.fused_attention != "hybrid" or not self.layers:
+            return False
+        b, n = x.shape[0], x.shape[1]
+        attn, mlp = self.layers[0]["attn"], self.layers[0]["mlp"]
+        return (fused_attention_eligible(x, attn, "hybrid")
+                and fused_mlp_eligible(x, mlp, self.fused_mlp)
+                and n < 128 and b >= 64 and b * n >= 2048
+                and _attn_pack(attn.heads, attn.dim_head) is not None)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         param = next(self.parameters(), None)
         dtype = self.compute_dtype or (param.dtype if param is not None else x.dtype)
         x = x.to(dtype)
+        if self.hybrid_tier(x):
+            x = x.transpose(0, 1).contiguous()  # (n, b, d), once for the stack
+            for layer in self.layers:
+                x = apply_fused_hybrid_layer(layer["attn_norm"], layer["attn"],
+                                             layer["mlp_norm"], layer["mlp"], x)
+            return x.transpose(0, 1).contiguous()
         for layer in self.layers:
             if fused_attention_eligible(x, layer["attn"], self.fused_attention):
                 x = apply_fused_attention_block(layer["attn_norm"], layer["attn"], x)

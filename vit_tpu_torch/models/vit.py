@@ -14,6 +14,10 @@ parameter dtype at call time: serving builds in f32 and
 :func:`vit_tpu_torch.cast_params` to bf16.
 Images are NHWC ``(b, h, w, c)``, as in ``vit_tpu``.
 
+``fused_attention="hybrid"`` passes ``vit_tpu``'s short-sequence tier to the
+encoder (:class:`vit_tpu_torch.layers.common.Transformer`); the parameter
+tree is the same on every route.
+
 The encoder protocol (:meth:`to_patch`, :meth:`patch_to_emb`, :meth:`embed`,
 ``.transformer``, ``.cls_token``, ``.pos_embedding``) is kept for the
 self-supervised objectives.

@@ -101,6 +101,46 @@ SIGNATURES = {
         + [_I] * 7 + [_F, _I, _P],
         ctypes.c_int,
     ),
+    "vit_short_attention_fwd": (
+        # q, k, v, out, lse (or null), strides (q, k, v, out: batch, head, row),
+        [_P] * 5 + [_LL]
+        # b, heads, n_q, n_k, d, scale, dtype, stream
+        + [_I] * 5 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_short_attention_bwd": (
+        # q, k, v, out, lse, dout, dq, dk, dv, dq_part (or null), strides (q,
+        # k, v, out, dout, dq, dk, dv: batch, head, row),
+        [_P] * 10 + [_LL]
+        # b, heads, n_q, n_k, d, scale, dtype, stream
+        + [_I] * 5 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_ln_gemm_fwd": (
+        # x, gamma, beta, w, out, xn, rows, d, n_out, eps, dtype, stream
+        [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_ln_gemm_bwd": (
+        # dout, x, gamma, w, dx, sums, dxn, stats, part, rows, d, n_out, eps,
+        # dtype, stream
+        [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_proj_mlp_fwd": (
+        # x, o, wo, bo, gamma, beta, w1, b1, w2, b2, z, y, xn, g, h (null when
+        # serving), rows, d, inner, hidden, eps, dtype, stream
+        [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_proj_mlp_bwd": (
+        # dz, y, h, gamma, wo, w1, w2, dy, do, dh, gact, sums_h, sums_d, dbo,
+        # dxn, stats, part_h, part_d, rows, d, inner, hidden, eps, dtype, stream
+        [_P] * 18 + [_I] * 4 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    # Key blocks of the short-attention backward at n_k keys (its dq_part).
+    "vit_short_attention_parts": ([_I], ctypes.c_int),
     # Rows of the f32 column partial sums the backward entry points take for
     # `rows` rows: part_h (the dGELU GEMM's) and part_d (the LayerNorm
     # backward's).

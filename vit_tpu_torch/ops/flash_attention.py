@@ -110,19 +110,19 @@ def _strides_ok(t) -> bool:
         s % 8 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
 
 
-def check_flash_tensors(name: str, tensors: dict) -> None:
+def check_flash_tensors(name: str, tensors: dict, widths=SUPPORTED_WIDTHS) -> None:
     """``{label: (tensor, shape)}``, q first and v third: 16-bit CUDA tensors
     of one device and dtype and of the given shapes, head widths ``(dk, dv)``
-    with a kernel instance, and strides the kernels take
+    with a kernel instance (in ``widths``), and strides the kernels take
     (:func:`_strides_ok`).  Anything else raises."""
     (q, _), _, (v, _) = list(tensors.values())[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {q.device}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the kernel takes bfloat16 or float16, got {q.dtype}")
-    if (q.shape[-1], v.shape[-1]) not in SUPPORTED_WIDTHS:
+    if (q.shape[-1], v.shape[-1]) not in widths:
         raise ValueError(f"{name}: head widths (dk, dv) = {(q.shape[-1], v.shape[-1])} have no "
-                         f"kernel instance ({SUPPORTED_WIDTHS})")
+                         f"kernel instance ({widths})")
     for label, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
@@ -136,7 +136,7 @@ def check_flash_tensors(name: str, tensors: dict) -> None:
                              f"and 16-byte aligned data")
 
 
-def _strides(*tensors):
+def kernel_strides(*tensors):
     """The (batch, head, row) strides of each tensor, flat, for the kernels."""
     flat = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(flat))(*flat)
@@ -161,7 +161,7 @@ def _launch_forward(name, q, k, v, scale):
     with torch.cuda.device(q.device):
         err = lib.vit_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _strides(q, k, v, out), b, h, n_q, n_k, dk, dv, float(scale),
+            kernel_strides(q, k, v, out), b, h, n_q, n_k, dk, dv, float(scale),
             _build.DTYPE_CODES[q.dtype], launch_stream(q))
     _build.check(err, "vit_flash_attention_fwd")
     return out, lse
@@ -209,7 +209,7 @@ def flash_backward(q, k, v, o, lse, do, scale: float):
         err = lib.vit_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dsum.data_ptr(),
-            _strides(q, k, v, o, do, dq, dk_, dv_), b, h, n_q, n_k, dk, dv, float(scale),
+            kernel_strides(q, k, v, o, do, dq, dk_, dv_), b, h, n_q, n_k, dk, dv, float(scale),
             _build.DTYPE_CODES[q.dtype], launch_stream(q))
     _build.check(err, "vit_flash_attention_bwd")
     flash_backward.launches += 1
@@ -219,7 +219,7 @@ def flash_backward(q, k, v, o, lse, do, scale: float):
 flash_backward.launches = 0
 
 
-def _kernel_layout(t):
+def kernel_layout(t):
     """``t`` as it lies if the kernels take its strides, else a contiguous
     copy (an incoming gradient may be expanded or transposed)."""
     return t if _strides_ok(t) else t.contiguous()
@@ -242,7 +242,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, _kernel_layout(dout), ctx.scale)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, kernel_layout(dout), ctx.scale)
         return dq, dk, dv, None, None
 
 
