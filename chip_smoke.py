@@ -9,7 +9,9 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions; TF32 off
    for the plain versions and the f32 references.
 2. build: compiles ``vit_tpu_torch/csrc`` with nvcc, one process per source
-   (timed).
+   (timed); then ptxas's registers, static shared memory and spills of each
+   instance of the kernels built on wgmma and TMA (the flash backward's dq
+   and dk/dv kernels, the short-attention forward).
 3. kernels: each forward kernel against its plain PyTorch version at the
    ViT-B/16 @224 shapes (b=64, n=197, d=768, 12 heads of 64, h=3072) and the
    entry shapes (b=8, n=65, d=1024, 16 heads of 64, h=2048), bf16 inputs from
@@ -118,8 +120,9 @@ Phases, one line each (any failure raises and exits non-zero):
    ``ln_gemm``, ``attention_nb`` and ``proj_mlp`` per forward, of their
    backwards per step, none of the block kernels; then the two B/32 tiers'
    step times side by side.
-19. profile: ``torch.profiler`` over train steps at the six training configs
-   (B/32 on both tiers); device time and launches per step by kernel group,
+19. profile: ``torch.profiler`` over train steps at seven training configs
+   (B/32 on both tiers, CvT-13 at 224 and 384); device time and launches per
+   step by kernel group,
    idle share, the host's enqueue time per step and the synchronising calls
    in a step.
 
@@ -129,7 +132,9 @@ small-dataset, CvT-13 @224 and @384, ScalableViT) runs with every kernel's
 launch counter set to 0 just before it and read just after.  The
 line before the last is the card as ``nvidia-smi`` names it; before that a
 JSON line with each kernel's launches (over the main paths, and per path),
-error, times and bound.  The last line is
+error, times and bound (the kernels rebuilt on wgmma and TMA also name their
+``design``), after a line that cites the earlier designs' times from PERF.md,
+constants that this run did not measure.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -1148,6 +1153,26 @@ SHORT_SHAPES = [
 ]
 
 
+# The kernels rebuilt on wgmma with a TMA ring (csrc/hopper.cuh), and the
+# times of the designs they replaced (mma.sync with synchronous staging), ms
+# on an H100 80GB HBM3 at 700 W: constants cited from PERF.md's kernel table
+# and its findings on the rebuild, printed on a line of their own beside the
+# kernels' line, never in it (every number there is this run's).
+DESIGNS = {"flash_backward": "wgmma+tma", "short_attention": "wgmma+tma",
+           "attention_nb": "wgmma+tma"}
+EARLIER_DESIGN_MS = {
+    "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
+                       "CvT-13@384 stage 2": 1.8241, "n=8192, through the dispatcher": 24.0999,
+                       "n=4096, d=32": 9.6678},
+    "flash_backward (packed)": {"ScalableViT IWSA stage 1": 9.7670,
+                                "ScalableViT IWSA stage 2": 1.5143, "dk 40, dv 32": 0.9418},
+    "short_attention": {"ViT-B/16 attention": 0.3046, "CvT-13@224 stage 3": 0.0819,
+                        "n=512, d=64": 0.2990, "n=512, d=128": 0.4042,
+                        "cross-attention, ragged": 0.0673},
+    "attention_nb": {"B/32": 0.1732},
+}
+
+
 def short_bounds(b, h, n_q, n_k, d):
     """Bounds of the short-attention kernels (and of attention_nb, the same
     kernels over the (n, b, heads·dh) layout): the FLOPs of the function,
@@ -1742,9 +1767,10 @@ def kernel_group(name: str) -> str:
     m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
-    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)>", name)
+    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?>", name)
     if m:
-        return f"{m.group(1)} (d {m.group(2)})"
+        return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles)" if m.group(3)
+                                                  else ")")
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -1883,7 +1909,34 @@ def kernel_entry(results, by_path, name, src, tpu, main_shape):
                               for tag, times in results["below_gate"].items()}
     if name == "flash_backward":
         line["packed"] = table(results["flash_backward (packed)"])
+    if name in DESIGNS:
+        line["design"] = DESIGNS[name]
     return line
+
+
+def ptxas_report(build_log: str) -> dict:
+    """ptxas's registers, static shared memory and spill bytes of each
+    instance of the wgmma+tma kernels, from the build's ``-Xptxas -v`` log:
+    ``{"flash_bwd_dkv_kernel<bf16,64,64>": "212 registers, 0 bytes smem,
+    0/0 bytes spilled (stores/loads)", ...}``."""
+    report, name = {}, None
+    pattern = re.compile(r"(flash_bwd_dq_kernel|flash_bwd_dkv_kernel|short_fwd_kernel)"
+                         r"I(6__half|13__nv_bfloat16)((?:Li\d+E)+)")
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = pattern.search(line)
+            name = m and (f"{m[1]}<{'f16' if m[2] == '6__half' else 'bf16'},"
+                          + ",".join(re.findall(r"Li(\d+)E", m[3])) + ">")
+            spill = None
+        elif name and "spill stores" in line:
+            spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name] = (f"{regs} registers, {smem[1] if smem else 0} bytes smem, "
+                            f"{'/'.join(spill or ['?', '?'])} bytes spilled (stores/loads)")
+            name = None
+    return report
 
 
 def main() -> int:
@@ -1920,6 +1973,8 @@ def main() -> int:
                  for line in build_log.splitlines() if "spill stores" in line)
     log(f"build: {build_s:.2f} s, {path.name}, {len(regs)} kernels compiled, "
         f"max {max(regs, default=0)} registers, {spills} with spills")
+    log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
+        f"{json.dumps(ptxas_report(build_log))}")
 
     from vit_tpu_torch import CvT, ScalableViT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
@@ -2049,6 +2104,7 @@ def main() -> int:
         profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
         profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
         profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
+        profile_phase(torch, "CvT-13@384", CvT, CVT13, 64, 0, smi, size=384)
         profile_phase(torch, "ScalableViT@256", ScalableViT, SCALABLE, 64, 0, smi,
                       size=SCALABLE_SIZE)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
@@ -2101,6 +2157,8 @@ def main() -> int:
         if count == 0:
             raise AssertionError(f"{name}: not launched on any main path")
 
+    log("earlier designs' kernel ms, constants cited from PERF.md (not measured in this run): "
+        + json.dumps(EARLIER_DESIGN_MS))
     log(json.dumps({"kernels": [kernel_entry(results, by_path, name, *where)
                                 for name, where in sources.items()]}))
     log(smi)

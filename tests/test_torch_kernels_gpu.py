@@ -459,7 +459,13 @@ def _check_flash(q, k, v, do):
     (2, 3, 70, 130, 64),
     (2, 3, 130, 70, 96),
     (2, 3, 70, 130, 128),
-    (1, 2, 1, 1, 64),
+    (1, 2, 1, 1, 64),  # one key (with more query rows, dq is rounding noise on both sides)
+    # key blocks of 128 (two warpgroups of 64) and query steps of 64 or 32: one
+    # key short of a block, a whole block, one past it; one query row, one past a step
+    (2, 2, 65, 127, 64),
+    (2, 2, 1, 128, 32),
+    (2, 2, 65, 129, 128),
+    (2, 2, 1, 129, 96),
 ])
 def test_flash_kernels_match_plain(cuda, b, h, n_q, n_k, d):
     """Strided operands as CvT gives them (views of channels-last maps and of
@@ -467,9 +473,10 @@ def test_flash_kernels_match_plain(cuda, b, h, n_q, n_k, d):
     _check_flash(*flash_inputs(torch, b, h, n_q, n_k, d, seed=n_q + d))
 
 
-def test_flash_kernels_take_f16_and_contiguous_operands(cuda):
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_flash_kernels_take_f16_and_contiguous_operands(cuda, d):
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v, do = (torch.randn(2, 2, n, 64, generator=g, device=cuda).half()
+    q, k, v, do = (torch.randn(2, 2, n, d, generator=g, device=cuda).half()
                    for n in (100, 77, 77, 100))
     _check_flash(q, k, v, do)
 
@@ -545,13 +552,18 @@ def _packed_inputs(cuda, b, n_q, n_k, heads, dk, dv, seed=0):
 
 
 @pytest.mark.parametrize("b,h,n_q,n_k,dk,dv", [
-    (2, 3, 70, 130, 40, 32),   # q/k zero-filled from 40 to 48 in shared memory
+    (2, 3, 70, 130, 40, 32),   # q/k zero-filled from 40 to 64 in shared memory
     (2, 2, 130, 70, 40, 32),
     (4, 2, 1000, 64, 40, 32),  # ScalableViT's SSA: 64 keys, a ragged query tile
     (1, 1, 1, 1, 40, 32),
+    (2, 2, 65, 129, 40, 32),
+    (2, 3, 1, 127, 40, 32),
 ])
 def test_flash_kernels_with_two_widths_match_plain(cuda, b, h, n_q, n_k, dk, dv):
-    """The (dk, dv) = (40, 32) instances on packed strides."""
+    """The (dk, dv) = (40, 32) instances on packed strides.  The 8 columns
+    after a head's 40 are the next head's (or the next token's), non-zero: a
+    kernel that read them into the zero padding of its 64-wide tiles would
+    add them to every logit."""
     q, k, v, do = (fap.split_heads(t, h) for t in _packed_inputs(cuda, b, n_q, n_k, h, dk, dv))
     _check_flash(q, k, v, do)
 
@@ -695,6 +707,15 @@ def _short_inputs(cuda, b, h, n_q, n_k, d, dtype=torch.bfloat16, seed=0):
     (4, 3, 197, 197, 64, torch.bfloat16),
     (3, 2, 17, 33, 64, torch.float16),
     (2, 2, 1, 7, 64, torch.bfloat16),  # one query row (with one key, dq is rounding noise)
+    (2, 2, 197, 197, 128, torch.float16),
+    (2, 2, 65, 65, 32, torch.float16),
+    (2, 2, 161, 161, 64, torch.float16),  # one 208-key tile
+] + [
+    # the forward's key tiles (csrc/short_attention.cu's fwd_tiles): 80 at 65-73, 128 at
+    # 100, 208 at 197 at d <= 64 (2 x 128 at d 128), 2, 3 and 4 x 128 at 256, 257 and 512,
+    # on one and two query warpgroups
+    (2, 2, n, n, d, torch.bfloat16) for n in (65, 72, 73, 100, 197, 256, 257, 512)
+    for d in (32, 64, 128)
 ])
 def test_short_attention_kernels_match_plain(cuda, b, h, n_q, n_k, d, dtype):
     """The op under autograd: forward (out, lse) against its plain version,

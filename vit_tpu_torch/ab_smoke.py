@@ -1,0 +1,164 @@
+"""Parent against change on one card: the attention kernels and the
+end-to-end steps of two checkouts, timed in turns.
+
+    python3 vit_tpu_torch/ab_smoke.py PARENT_DIR   # from the root of a checkout, one GPU
+
+PARENT_DIR is an unpacked ``git archive`` of the commit to compare with, in a
+directory that ``.gitignore`` lists (for example ``build/parent``).  Four
+processes run in turn: PARENT_DIR, this checkout, this checkout, PARENT_DIR.
+Each imports its own checkout's ``chip_smoke.py`` and ``vit_tpu_torch``,
+builds its own kernels, and runs
+
+- ``chip_smoke``'s attention phases (the flash kernels, the cross-attention
+  block, the packed op, ``short_attention``, the hybrid layer's ops at B/32),
+  with every check they make in the smoke;
+- train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px
+  and ScalableViT at 256 px, batch 64, and of ViT-B/32 at 256 px, batch 128,
+  on rows 1-4 and on the hybrid tier; the hybrid tier's served forward at
+  batch 128: the wall ms per step (host clock around back-to-back steps) and
+  the device's busy ms per step (``torch.profiler``'s kernel time).
+
+Prints one line per process, ``AB <label> <card> {json}``, and a last line
+with each time's mean per checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+WARMUP, ROUNDS, STEPS = 3, 3, 5  # a timed round is STEPS back-to-back steps
+
+
+def timed(torch, fn) -> dict:
+    """Median wall ms per call over ROUNDS rounds of STEPS back-to-back calls,
+    and the device's busy ms per call over STEPS profiled calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / STEPS)
+    with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up, thrown away
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / STEPS
+    return {"wall": statistics.median(walls), "busy": busy}
+
+
+def step_times(torch, cs) -> dict:
+    """The end-to-end times (:func:`timed`) of one checkout's model classes,
+    at ``chip_smoke``'s configurations."""
+    from vit_tpu_torch import CvT, ScalableViT, ViT, cast_params
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    dev = torch.device("cuda")
+    trains = {
+        "train CvT-13@224": (CvT, cs.CVT13, 64, 224),
+        "train CvT-13@384": (CvT, cs.CVT13, 64, 384),
+        "train ScalableViT@256": (ScalableViT, cs.SCALABLE, 64, cs.SCALABLE_SIZE),
+        "train ViT-B/32@256 rows 1-4": (ViT, cs.ENTRY, 128, 256),
+        "train ViT-B/32@256 hybrid": (cs.hybrid_vit, cs.ENTRY, 128, 256),
+    }
+    out = {}
+    for tag, (vit, cfg, batch, size) in trains.items():
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = vit(**cfg, compute_dtype=torch.bfloat16, generator=g)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+        images = torch.randn(batch, size, size, 3, generator=g, device=dev)
+        labels = torch.arange(batch, device=dev) % cfg["num_classes"]
+        out[tag] = timed(torch, lambda: step(images, labels))
+        del model, step
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = cast_params(cs.hybrid_vit(**cs.ENTRY, device=dev, generator=g), torch.bfloat16)
+    model.eval()
+    images = torch.randn(128, 256, 256, 3, generator=g, device=dev)
+    with torch.inference_mode():
+        out["serve ViT-B/32@256 hybrid"] = timed(torch, lambda: model(images))
+    return out
+
+
+def child() -> dict:
+    """One checkout's run, in the checkout's own directory (the working
+    directory): ``{"card": ..., "kernels": {kernel: {shape: {kernel, plain,
+    library[, flash]} ms}}, "steps": {tag: {wall, busy} ms}}``."""
+    sys.path[0] = os.getcwd()  # that checkout's chip_smoke and vit_tpu_torch
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    import chip_smoke as cs
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load()
+    results = {}
+    cs.flash_phase(torch, results, smi)
+    cs.cross_attention_phase(torch, results, smi)
+    cs.packed_phase(torch, results, smi)
+    cs.short_attention_phase(torch, results, smi, {
+        "short_attention": short_attention, "short_attention_bwd": short_attention_backward})
+    cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
+    keep = ("kernel", "plain", "library", "flash")
+    torch.cuda.empty_cache()
+    return {"card": smi, "steps": step_times(torch, cs), "kernels": {
+        name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}
+        for name, rows in results.items()}}
+
+
+def main(parent: str) -> int:
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = []
+    for label, tree in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child"],
+                              cwd=os.path.abspath(tree), capture_output=True, text=True,
+                              timeout=900)
+        found = [line for line in proc.stdout.splitlines() if line.startswith("AB-JSON ")]
+        if proc.returncode != 0 or not found:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"ab_smoke: the {label} run failed (exit {proc.returncode})")
+        result = json.loads(found[0][len("AB-JSON "):])
+        print("AB", label, result["card"], json.dumps(
+            {"kernels": result["kernels"], "steps": result["steps"]}), flush=True)
+        runs.append((label, result))
+    means = {}
+    for label, result in runs:
+        for name, rows in result["kernels"].items():
+            for tag, r in rows.items():
+                means.setdefault(f"{name} at {tag}, kernel", {}).setdefault(label, []).append(
+                    r["kernel"])
+        for tag, r in result["steps"].items():
+            for what in ("wall", "busy"):
+                means.setdefault(f"{tag}, {what}", {}).setdefault(label, []).append(r[what])
+    print("AB means (ms, parent and change): " + json.dumps(
+        {key: {label: statistics.fmean(v) for label, v in by.items()}
+         for key, by in means.items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--child"]:
+        print("AB-JSON " + json.dumps(child()), flush=True)
+    else:
+        sys.exit(main(sys.argv[1]))

@@ -2,7 +2,8 @@
 // row's log-sum-exp, and the two-pass backward that recomputes the softmax
 // from it.  q (b, h, n_q, dk), k (b, h, n_k, dk) and v (b, h, n_k, dv), any
 // n_q and n_k, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96), (128, 128)},
-// bf16 or f16 operands, f32 accumulation on mma.sync m16n8k16.
+// bf16 or f16 operands, f32 accumulation: the forward on mma.sync m16n8k16,
+// the backward on wgmma with its operands brought by TMA (hopper.cuh).
 //
 // Replaces the TPU kernels
 //   vit_tpu/ops/flash_attention.py:51     _flash_kernel (flash_attention, K/V
@@ -21,9 +22,11 @@
 // (b, n, heads·d) map starts h·d elements into each row.
 //
 // q/k and v have their own head widths (ScalableViT's SSA: 40 and 32).  A q/k
-// width that no mma k-step divides is zero-filled to the next multiple of 16
-// in shared memory (40 -> 48: the extra columns add 0 to every logit), never
-// padded in device memory; dq and dk are stored at the true width.
+// width that no k-step divides is zero-filled in shared memory, never padded
+// in device memory: to the next multiple of 16 in the forward (40 -> 48), to
+// a swizzled tile's 64 columns in the backward, by the tensor map's extent
+// (the extra columns add 0 to every logit); dq and dk are stored at the true
+// width.
 //
 // Bound on the H100 (989 TFLOP/s bf16): the TPU kernels' own FLOPs, 4·b·h·
 // n_q·n_k·d forward and 14·b·h·n_q·n_k·d backward (the cost estimates of
@@ -60,17 +63,28 @@
 // bits repeat):
 //   0. flash_bwd_dsum: D = rowsum(dO∘O) in f32 over the stored output (as
 //      flash_backward.py:135), one warp per query row.
-//   1. flash_bwd_dq, one CTA per 64-query tile: over the key tiles, s and
-//      dp = dO·vᵀ, p = exp(s - lse), ds = T(p·(dp - D)·scale), dq += ds·k.
-//   2. flash_bwd_dkv, one CTA per 64-key tile: over the query tiles, sᵀ and
-//      dpᵀ, dv += T(p)ᵀ·dO and dk += dsᵀ·q.
-// Seven n_q x n_k x d products in all, as the TPU kernels count them.  With
-// lse saved, the backward needs no statistics pass (the block kernels'
-// mha_bwd_dq takes one).  Keys past n_k get p = 0 in step 1; query rows past
-// n_q get p = 0 in step 2; rows past n_q or n_k are not stored.  At widths
-// >= 96 the inner loops take 32-row tiles, so that the accumulators stay in
-// registers.
+//   1. flash_bwd_dq, one CTA per 128-query block (two warpgroups of 64): Q and
+//      dO once by TMA, (k, v) tiles of 64 keys through a 3-stage ring on
+//      mbarriers; per tile s = q·kᵀ and dp = dO·vᵀ (wgmma, shared operands),
+//      p = exp(s - lse) and ds = T(p·(dp - D)·scale) in registers, dq +=
+//      ds·k with ds as wgmma's register A operand.
+//   2. flash_bwd_dkv, one CTA per 128-key block: K and V once, (q, dO) steps
+//      of 32 query rows through the ring; per step sᵀ = k·qᵀ and dpᵀ = v·dOᵀ,
+//      then dv += T(pᵀ)·dO and dk += T(dsᵀ)·q from registers, the
+//      exponentials taken while dpᵀ is still on the tensor cores.  lse and D
+//      are read per thread from device memory.  Up to 64 + 64 wide its
+//      registers fit 128 a thread and two CTAs share an SM: four warpgroups,
+//      whose exponentials and products interleave (64-row steps with one CTA
+//      an SM were slower at CvT-13's shapes, PERF.md).
+// Seven n_q x n_k x d products in all, as the TPU kernels count them.  Thread
+// 0 issues every TMA load and refills a ring stage once all the CTA's threads
+// have released it; there is no producer warp and no register rebalancing.
+// Keys past n_k get p = 0 in step 1, query rows past n_q in step 2; TMA fills
+// rows past n_q or n_k, and the columns of a 40-wide q/k past 40, with zeros
+// (hopper.cuh); rows past n_q or n_k are not stored.  A block of at most 64
+// rows runs one warpgroup.
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace vit {
 namespace {
@@ -89,21 +103,10 @@ __device__ __forceinline__ P* head_base(P* p, Strides s, int b, int h) {
   return p + (long long)b * s.b + (long long)h * s.h;
 }
 
-// Rows of the inner loops' tiles in the backward, for the wider of q/k (padded)
-// and v.
-template <int DK, int DV>
-constexpr int kBwdTile = (pad16(DK) > DV ? pad16(DK) : DV) >= 96 ? 32 : 64;
-
 // q, k (pad16(DK) + 8 elements a row) and v (DV + 8) tiles of 64 rows.
 template <int DK, int DV>
 constexpr int fwd_smem_bytes() {
   return kTile * (2 * (pad16(DK) + 8) + DV + 8) * 2;
-}
-
-// A 64-row q|k and dO|v tile, an inner tile of each, the inner rows' (lse, D).
-template <int DK, int DV>
-constexpr int bwd_smem_bytes() {
-  return (kTile + kBwdTile<DK, DV>) * (pad16(DK) + DV + 16) * 2 + kBwdTile<DK, DV> * 8;
 }
 
 template <typename T, int DK, int DV>
@@ -230,121 +233,308 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) dsum[row] = acc;
 }
 
-// One CTA per (64-query tile, head, image): dq over every key tile.
-template <typename T, int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
-                        const T* __restrict__ v, Strides vs, const T* __restrict__ dout,
-                        Strides dos, const float* __restrict__ lse,
-                        const float* __restrict__ dsum, T* __restrict__ dq, Strides dqs,
-                        int heads, int n_q, int n_k, float scale) {
-  constexpr int KP = pad16(DK), kRowK = KP + 8, kRowV = DV + 8, KT = kBwdTile<DK, DV>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T(*Qs)[kRowK] = reinterpret_cast<T(*)[kRowK]>(smem_raw);
-  T(*Ds)[kRowV] = reinterpret_cast<T(*)[kRowV]>(Qs + kTile);
-  T(*Ks)[kRowK] = reinterpret_cast<T(*)[kRowK]>(Ds + kTile);
-  T(*Vs)[kRowV] = reinterpret_cast<T(*)[kRowV]>(Ks + KT);
+// ---- backward on wgmma, fed by TMA ------------------------------------------------------------
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane % 4;
-  const int a0 = warp * 16;
-  const T* kp = head_base(k, ks, b, h);
-  const T* vp = head_base(v, vs, b, h);
-  stage_rows<T, DK, KP>(Qs, head_base(q, qs, b, h), qs.r, q0, kTile, n_q);
-  stage_rows<T, DV>(Ds, head_base(dout, dos, b, h), dos.r, q0, kTile, n_q);
-  float row_lse[2], row_d[2];  // rows g and g + 8 of the warp's 16 (0 past n_q: not stored)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + a0 + lane / 4 + r * 8;
-    const size_t at = ((size_t)b * heads + h) * n_q + qi;
-    row_lse[r] = qi < n_q ? lse[at] : 0.f;
-    row_d[r] = qi < n_q ? dsum[at] : 0.f;
-  }
+constexpr float kLog2e = 1.4426950408889634f;
 
-  float acc[KP / 8][4];
-  zero(acc);
-  for (int kv0 = 0; kv0 < n_k; kv0 += KT) {
-    __syncthreads();  // the previous tile's reads are done (and Qs/Ds are staged)
-    stage_rows<T, DK, KP>(Ks, kp, ks.r, kv0, KT, n_k);
-    stage_rows<T, DV>(Vs, vp, vs.r, kv0, KT, n_k);
-    __syncthreads();
-    float s[KT / 8][4], dp[KT / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<T, KP, KT>(s, Qs, a0, Ks, lane);   // s = q·kᵀ
-    mma_abt<T, DV, KT>(dp, Ds, a0, Vs, lane);  // dp = dO·vᵀ
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * t + (e & 1), r = e / 2;
-        const float p = key < n_k ? expf(s[j][e] * scale - row_lse[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - row_d[r]) * scale;  // ds
-      }
-    mma_pv<T, KP, KT>(acc, s, Ks, lane);  // dq += T(ds)·k
+// The (DK, DV) backward's shapes: q/k and v widths padded to swizzled tiles
+// (40 -> 64), 32 query rows per step of the dk/dv kernel, 64 keys per step of
+// the dq kernel, the depth of both kernels' TMA rings, and the dk/dv kernel's
+// CTAs per SM: two where q/k and v are 64 + 64 wide or narrower (its
+// registers then fit 128 a thread), one where dk and dv alone take 128.
+template <int DK, int DV>
+struct Bwd {
+  static constexpr int PK = hopper::swizzled_width(DK), PV = hopper::swizzled_width(DV);
+  static constexpr int BQ = 32;
+  static constexpr int BK = 64;
+  static constexpr int kStages = 3;
+  static constexpr int kDkvBlocks = PK + PV <= 128 ? 2 : 1;
+  // A block of up to 128 rows (two warpgroups of 64), the ring of the other side's steps, the
+  // barriers (one, and full/empty per stage), alignment.
+  static constexpr int kBarBytes = (1 + 2 * kStages) * 8 + 1024;
+  static constexpr int dkv_smem() {
+    return 128 * (PK + PV) * 2 + kStages * BQ * (PK + PV) * 2 + kBarBytes;
   }
-  store_rows<T, DK, KP>(head_base(dq, dqs, b, h), dqs.r, q0 + a0, n_q, acc, lane);
+  static constexpr int dq_smem() {
+    return 128 * (PK + PV) * 2 + kStages * BK * (PK + PV) * 2 + kBarBytes;
+  }
+};
+
+// The dk/dv kernel's step i into stage i % S: q and dO rows.
+template <typename B>
+__device__ __forceinline__ void dkv_load_step(int i, unsigned char* qs, unsigned char* os,
+                                              uint64_t* full, const CUtensorMap* q_map,
+                                              const CUtensorMap* do_map, int h, int b) {
+  using QTile = hopper::Tile<B::BQ, B::PK>;
+  using OTile = hopper::Tile<B::BQ, B::PV>;
+  const int s = i % B::kStages;
+  hopper::mbar_expect_tx(&full[s], QTile::kBytes + OTile::kBytes);
+  QTile::load(qs + s * QTile::kBytes, 0, q_map, &full[s], i * B::BQ, h, b);
+  OTile::load(os + s * OTile::kBytes, 0, do_map, &full[s], i * B::BQ, h, b);
 }
 
-// One CTA per (64-key tile, head, image): dk and dv over every query tile.
-// Each warp owns 16 keys, so the products run transposed: sᵀ = k·qᵀ.
+// One CTA per (block of 64·W keys, head, image), W = blockDim / 128 warpgroups
+// of 64 keys each: dk and dv over every query step.  K and V of the block come
+// once; (q, dO) steps stream through the ring, thread 0 refilling a stage once
+// every thread has released it, and each thread reads the lse and D of its
+// columns while the step's first products run.  Per step and warpgroup: sᵀ = k·qᵀ
+// and dpᵀ = v·dOᵀ (shared operands), p and dsᵀ in registers, dv += T(pᵀ)·dO
+// and dk += T(dsᵀ)·q (register A operands, q and dO MN-major).
 template <typename T, int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k,
-                         Strides ks, const T* __restrict__ v, Strides vs,
-                         const T* __restrict__ dout, Strides dos, const float* __restrict__ lse,
-                         const float* __restrict__ dsum, T* __restrict__ dk, Strides dks,
-                         T* __restrict__ dv, Strides dvs, int heads, int n_q, int n_k,
-                         float scale) {
-  constexpr int KP = pad16(DK), kRowK = KP + 8, kRowV = DV + 8, QT = kBwdTile<DK, DV>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T(*Ks)[kRowK] = reinterpret_cast<T(*)[kRowK]>(smem_raw);
-  T(*Vs)[kRowV] = reinterpret_cast<T(*)[kRowV]>(Ks + kTile);
-  T(*Qs)[kRowK] = reinterpret_cast<T(*)[kRowK]>(Vs + kTile);
-  T(*Ds)[kRowV] = reinterpret_cast<T(*)[kRowV]>(Qs + QT);
-  float2* st = reinterpret_cast<float2*>(Ds + QT);  // (lse, D) of the tile's query rows
+__global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs,
+                         int heads, int n_q, int n_k, float scale) {
+  using B = Bwd<DK, DV>;
+  using KTile = hopper::Tile<128, B::PK>;
+  using VTile = hopper::Tile<128, B::PV>;
+  using QTile = hopper::Tile<B::BQ, B::PK>;
+  using OTile = hopper::Tile<B::BQ, B::PV>;
+  constexpr int S = B::kStages, BQ = B::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = hopper::align1024(smem_raw);
+  unsigned char* vs = ks + KTile::kBytes;
+  unsigned char* qs = vs + VTile::kBytes;
+  unsigned char* os = qs + S * QTile::kBytes;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(os + S * OTile::kBytes);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + S;
 
-  const int j0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane % 4;
-  const int a0 = warp * 16;
-  const T* qp = head_base(q, qs, b, h);
-  const T* dp_src = head_base(dout, dos, b, h);
-  const size_t row0 = ((size_t)b * heads + h) * n_q;
-  stage_rows<T, DK, KP>(Ks, head_base(k, ks, b, h), ks.r, j0, kTile, n_k);
-  stage_rows<T, DV>(Vs, head_base(v, vs, b, h), vs.r, j0, kTile, n_k);
+  const int wgs = blockDim.x / 128, j0 = blockIdx.x * 64 * wgs, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
+  const int steps = (n_q + BQ - 1) / BQ;
+  const long long run0 = ((long long)b * heads + h) * n_q;  // the (image, head)'s lse and D
+  if (tid == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], blockDim.x);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kv_bar, wgs * 64 * (B::PK + B::PV) * 2);
+    for (int w = 0; w < wgs; ++w) {
+      KTile::load(ks, 64 * w, &k_map, kv_bar, j0 + 64 * w, h, b);
+      VTile::load(vs, 64 * w, &v_map, kv_bar, j0 + 64 * w, h, b);
+    }
+    for (int i = 0; i < S && i < steps; ++i)
+      dkv_load_step<B>(i, qs, os, full, &q_map, &do_map, h, b);
+  }
 
-  float dk_acc[KP / 8][4], dv_acc[DV / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  for (int i0 = 0; i0 < n_q; i0 += QT) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<T, DK, KP>(Qs, qp, qs.r, i0, QT, n_q);
-    stage_rows<T, DV>(Ds, dp_src, dos.r, i0, QT, n_q);
-    for (int i = threadIdx.x; i < QT; i += kThreads)
-      st[i] = i0 + i < n_q ? make_float2(lse[row0 + i0 + i], dsum[row0 + i0 + i])
-                           : make_float2(0.f, 0.f);
-    __syncthreads();
-
-    float s[QT / 8][4], dp[QT / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<T, KP, QT>(s, Ks, a0, Qs, lane);   // sᵀ[key][query]
-    mma_abt<T, DV, QT>(dp, Vs, a0, Ds, lane);  // dpᵀ[key][query] = v·dOᵀ
+  float dk_acc[B::PK / 2], dv_acc[B::PV / 2];
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j)
+  for (int i = 0; i < B::PK / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < B::PV / 2; ++i) dv_acc[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+  hopper::mbar_wait(kv_bar, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % S;
+    const uint32_t phase = (i / S) & 1;
+    const unsigned char* q_t = qs + s * QTile::kBytes;
+    const unsigned char* o_t = os + s * OTile::kBytes;
+    // lse (in log2 units) and D of the thread's columns, 0 past n_q.
+    float2 lse2[BQ / 8], dd[BQ / 8];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int qi = i * BQ + 8 * j + 2 * t;
+      lse2[j] = make_float2(qi < n_q ? lse[run0 + qi] * kLog2e : 0.f,
+                            qi + 1 < n_q ? lse[run0 + qi + 1] * kLog2e : 0.f);
+      dd[j] = make_float2(qi < n_q ? dsum[run0 + qi] : 0.f,
+                          qi + 1 < n_q ? dsum[run0 + qi + 1] : 0.f);
+    }
+    hopper::mbar_wait(&full[s], phase);
+
+    float st[BQ / 2], dpt[BQ / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < B::PK / 16; ++kk)  // sᵀ = k·qᵀ
+      hopper::Wgmma<BQ, T>::ss(st, KTile::kmajor(ks, 64 * wg, 16 * kk),
+                               QTile::kmajor(q_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < B::PV / 16; ++kk)  // dpᵀ = v·dOᵀ
+      hopper::Wgmma<BQ, T>::ss(dpt, VTile::kmajor(vs, 64 * wg, 16 * kk),
+                               OTile::kmajor(o_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(st);
+    // p = exp(s·scale - lse) for the step's queries (the columns), 0 past n_q,
+    // while dpᵀ is still on the tensor cores.
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);
-        const float2 rs = st[qi];
-        const float p = i0 + qi < n_q ? expf(s[j][e] * scale - rs.x) : 0.f;  // rows past n_q add 0
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - rs.y) * scale;  // dsᵀ
+        const int qi = i * BQ + 8 * j + 2 * t + (e & 1);
+        st[4 * j + e] =
+            qi < n_q ? exp2f(st[4 * j + e] * sl2 - ((e & 1) ? lse2[j].y : lse2[j].x)) : 0.f;
       }
-    mma_pv<T, DV, QT>(dv_acc, s, Ds, lane);   // dv += T(pᵀ)·dO
-    mma_pv<T, KP, QT>(dk_acc, dp, Qs, lane);  // dk += T(dsᵀ)·q
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(pa[c], st, c);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpt);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c)  // dv += T(pᵀ)·dO
+      hopper::Wgmma<B::PV, T>::rs(dv_acc, pa[c], OTile::mnmajor(o_t, 16 * c));
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // dsᵀ = p·(dpᵀ - D)·scale
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd[j].y : dd[j].x)) * scale;
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(da[c], dpt, c);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BQ / 16; ++c)  // dk += T(dsᵀ)·q
+      hopper::Wgmma<B::PK, T>::rs(dk_acc, da[c], QTile::mnmajor(q_t, 16 * c));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv_acc);
+    hopper::fence_regs(dk_acc);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    hopper::mbar_arrive(&empty[s]);
+    if (tid == 0 && i + S < steps) {
+      hopper::mbar_wait(&empty[s], phase);
+      dkv_load_step<B>(i + S, qs, os, full, &q_map, &do_map, h, b);
+    }
   }
-  store_rows<T, DK, KP>(head_base(dk, dks, b, h), dks.r, j0 + a0, n_k, dk_acc, lane);
-  store_rows<T, DV>(head_base(dv, dvs, b, h), dvs.r, j0 + a0, n_k, dv_acc, lane);
+  hopper::store_fragment<T, DK>(head_base(dk, dks, b, h), dks.r, j0 + 64 * wg, n_k, dk_acc, lt);
+  hopper::store_fragment<T, DV>(head_base(dv, dvs, b, h), dvs.r, j0 + 64 * wg, n_k, dv_acc, lt);
+}
+
+// One CTA per (block of 64·W queries, head, image), W = blockDim / 128
+// warpgroups of 64 queries each: dq over every key step.  Q and dO of the
+// block come once; (k, v) steps stream through the ring.  Per step and
+// warpgroup: s = q·kᵀ and dp = dO·vᵀ, p = exp(s·scale - lse) (0 past n_k) and
+// ds = p·(dp - D)·scale in registers, dq += T(ds)·k (k MN-major).
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                        const float* __restrict__ dsum, T* __restrict__ dq, Strides dqs,
+                        int heads, int n_q, int n_k, float scale) {
+  using B = Bwd<DK, DV>;
+  using QTile = hopper::Tile<128, B::PK>;
+  using OTile = hopper::Tile<128, B::PV>;
+  using KTile = hopper::Tile<B::BK, B::PK>;
+  using VTile = hopper::Tile<B::BK, B::PV>;
+  constexpr int S = B::kStages, BK = B::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* os = qs + QTile::kBytes;
+  unsigned char* ks = os + OTile::kBytes;
+  unsigned char* vs = ks + S * KTile::kBytes;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(vs + S * VTile::kBytes);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + S;
+
+  const int wgs = blockDim.x / 128, i0 = blockIdx.x * 64 * wgs, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
+  const int steps = (n_k + BK - 1) / BK;
+  auto load_step = [&](int i) {
+    const int s = i % S;
+    hopper::mbar_expect_tx(&full[s], KTile::kBytes + VTile::kBytes);
+    KTile::load(ks + s * KTile::kBytes, 0, &k_map, &full[s], i * BK, h, b);
+    VTile::load(vs + s * VTile::kBytes, 0, &v_map, &full[s], i * BK, h, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], blockDim.x);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_bar, wgs * 64 * (B::PK + B::PV) * 2);
+    for (int w = 0; w < wgs; ++w) {
+      QTile::load(qs, 64 * w, &q_map, q_bar, i0 + 64 * w, h, b);
+      OTile::load(os, 64 * w, &do_map, q_bar, i0 + 64 * w, h, b);
+    }
+    for (int i = 0; i < S && i < steps; ++i) load_step(i);
+  }
+
+  // lse (in log2 units) and D of the thread's rows g and g + 8 (0 past n_q: not stored).
+  float lse2[2], dd[2];
+  const int row = i0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+  const long long run0 = ((long long)b * heads + h) * n_q;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < n_q;
+    lse2[r] = in ? lse[run0 + row + 8 * r] * kLog2e : 0.f;
+    dd[r] = in ? dsum[run0 + row + 8 * r] : 0.f;
+  }
+  float dq_acc[B::PK / 2];
+#pragma unroll
+  for (int i = 0; i < B::PK / 2; ++i) dq_acc[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % S;
+    const uint32_t phase = (i / S) & 1;
+    const unsigned char* k_t = ks + s * KTile::kBytes;
+    const unsigned char* v_t = vs + s * VTile::kBytes;
+    hopper::mbar_wait(&full[s], phase);
+
+    float sc[BK / 2], dp[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < B::PK / 16; ++kk)  // s = q·kᵀ
+      hopper::Wgmma<BK, T>::ss(sc, QTile::kmajor(qs, 64 * wg, 16 * kk),
+                               KTile::kmajor(k_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < B::PV / 16; ++kk)  // dp = dO·vᵀ
+      hopper::Wgmma<BK, T>::ss(dp, OTile::kmajor(os, 64 * wg, 16 * kk),
+                               VTile::kmajor(v_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = i * BK + 8 * j + 2 * t + (e & 1);
+        sc[4 * j + e] = key < n_k ? exp2f(sc[4 * j + e] * sl2 - lse2[e / 2]) : 0.f;
+      }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)  // ds = p·(dp - D)·scale
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dd[e / 2]) * scale;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(da[c], dp, c);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)  // dq += T(ds)·k
+      hopper::Wgmma<B::PK, T>::rs(dq_acc, da[c], KTile::mnmajor(k_t, 16 * c));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq_acc);
+    hopper::fence_regs(da);
+    hopper::mbar_arrive(&empty[s]);
+    if (tid == 0 && i + S < steps) {
+      hopper::mbar_wait(&empty[s], phase);
+      load_step(i + S);
+    }
+  }
+  hopper::store_fragment<T, DK>(head_base(dq, dqs, b, h), dqs.r, i0 + 64 * wg, n_q, dq_acc, lt);
 }
 
 // Strides of operand i from the wrapper's flat (b, h, row) triples.
@@ -372,33 +562,50 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
                   const float* lse, const void* dout, void* dq, void* dk, void* dv, float* dsum,
                   const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
-  constexpr int bytes = bwd_smem_bytes<DK, DV>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, DK, DV>, bytes);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkv_kernel<T, DK, DV>, bytes);
+  using B = Bwd<DK, DV>;
+  constexpr int dt = hopper::dtype_of<T>();
+  constexpr int kc = hopper::Tile<64, B::PK>::kChunk, vc = hopper::Tile<64, B::PV>::kChunk;
+  thread_local int dq_ready = -1, dkv_ready = -1;
+  cudaError_t err = prepare_kernel(dq_ready, flash_bwd_dq_kernel<T, DK, DV>, B::dq_smem());
+  if (err == cudaSuccess)
+    err = prepare_kernel(dkv_ready, flash_bwd_dkv_kernel<T, DK, DV>, B::dkv_smem());
   if (err != cudaSuccess) return err;
-  const Strides qs = strides_at(st, 0), ks = strides_at(st, 1), vs = strides_at(st, 2),
-                os = strides_at(st, 3), dos = strides_at(st, 4), dqs = strides_at(st, 5),
-                dks = strides_at(st, 6), dvs = strides_at(st, 7);
-  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
-          *vp = static_cast<const T*>(v), *dop = static_cast<const T*>(dout);
-  if (n_q > 0) {  // without queries, dq is empty and dk, dv are zeros
+  const Strides os = strides_at(st, 3), dos = strides_at(st, 4);
+  // K and V in 64-row boxes: the dq kernel's steps, the dk/dv kernel's warpgroups.
+  CUtensorMap k_map, v_map, q_map{}, do_map{};
+  err = head_map(&k_map, k, dt, DK, n_k, heads, b, st + 3, kc, 64);
+  if (err == cudaSuccess) err = head_map(&v_map, v, dt, DV, n_k, heads, b, st + 6, vc, 64);
+  if (err != cudaSuccess) return err;
+  if (n_q > 0) {  // without queries, dq is empty and dk, dv are zeros (the maps stay unread)
     const long long rows = (long long)b * heads * n_q;
     const int rows_per_cta = kThreads / 32;
     flash_bwd_dsum_kernel<T><<<(unsigned)((rows + rows_per_cta - 1) / rows_per_cta), kThreads,
-                               0, stream>>>(static_cast<const T*>(out), os, dop, dos, dsum,
-                                            heads, n_q, DV, rows);
+                               0, stream>>>(static_cast<const T*>(out), os,
+                                            static_cast<const T*>(dout), dos, dsum, heads, n_q,
+                                            DV, rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, DK, DV><<<dim3((n_q + kTile - 1) / kTile, heads, b), kThreads, bytes,
-                                     stream>>>(qp, qs, kp, ks, vp, vs, dop, dos, lse, dsum,
-                                               static_cast<T*>(dq), dqs, heads, n_q, n_k, scale);
+    err = head_map(&q_map, q, dt, DK, n_q, heads, b, st, kc, 64);
+    if (err == cudaSuccess) err = head_map(&do_map, dout, dt, DV, n_q, heads, b, st + 12, vc, 64);
+    if (err != cudaSuccess) return err;
+    const int wgs = n_q > 64 ? 2 : 1;
+    flash_bwd_dq_kernel<T, DK, DV><<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b),
+                                         128 * wgs, B::dq_smem(), stream>>>(
+        q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dq), strides_at(st, 5), heads,
+        n_q, n_k, scale);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // The dk/dv kernel's query steps: BQ-row boxes of q and dO.
+    err = head_map(&q_map, q, dt, DK, n_q, heads, b, st, kc, B::BQ);
+    if (err == cudaSuccess)
+      err = head_map(&do_map, dout, dt, DV, n_q, heads, b, st + 12, vc, B::BQ);
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dkv_kernel<T, DK, DV><<<dim3((n_k + kTile - 1) / kTile, heads, b), kThreads, bytes,
-                                    stream>>>(qp, qs, kp, ks, vp, vs, dop, dos, lse, dsum,
-                                              static_cast<T*>(dk), dks, static_cast<T*>(dv), dvs,
-                                              heads, n_q, n_k, scale);
+  const int wgs = n_k > 64 ? 2 : 1;
+  flash_bwd_dkv_kernel<T, DK, DV><<<dim3((n_k + 64 * wgs - 1) / (64 * wgs), heads, b),
+                                              128 * wgs, B::dkv_smem(), stream>>>(
+      q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dk), strides_at(st, 6),
+      static_cast<T*>(dv), strides_at(st, 7), heads, n_q, n_k, scale);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // Short-sequence attention on Hopper: an exact-softmax forward over whole rows
 // of at most 512 keys, and a one-pass backward that takes dq, dk and dv from
 // one recompute of the scores.  q (b, h, n_q, d), k and v (b, h, n_k, d),
-// n_q, n_k <= 512, d ∈ {32, 64, 128}, bf16 or f16 operands, f32 accumulation
-// on mma.sync m16n8k16.
+// n_q, n_k <= 512, d ∈ {32, 64, 128}, bf16 or f16 operands, f32
+// accumulation: the forward on wgmma with its operands brought by TMA
+// (hopper.cuh), the backward on mma.sync m16n8k16.
 //
 // Replaces the TPU kernels
 //   vit_tpu/ops/short_attention.py:82   _fwd_kernel (short_attention, whole
@@ -26,16 +27,23 @@
 // bounds it by ten times, so the design reads every operand once and keeps
 // the n_q x n_k scores out of device memory.
 //
-// Forward (short_fwd): one CTA of four warps per (64-query tile, head,
-// image), each warp 16 query rows with its q fragments in registers.  Pass 1
-// streams 64-key K tiles, computes s = (q·kᵀ)·scale in f32 (keys past n_k
-// -inf) and parks each thread's score fragments in its own slots of shared
-// memory (64 rows x 512 keys of f32 is 128 KB) while it tracks the row max;
-// pass 2 sums exp(s - m) over the whole row in f32; pass 3 streams the V
-// tiles and accumulates T(exp(s - m) / l)·v.  That is the TPU kernels'
-// exact softmax from the row's own maximum, with p rounded to the operand
-// dtype before p·v (fused_hybrid.py:337), and no online rescale.  The
-// training forward also writes lse = m + log l in f32.
+// Forward (short_fwd): one CTA per (block of up to 128 queries, head, image),
+// a warpgroup per 64 query rows.  Q comes once by TMA; a 2-stage ring on
+// mbarriers carries key tiles of BK ∈ {64, 80, 128} keys, and at d <= 64 also
+// 208, the tile chosen by n_k (fwd_tiles: n = 65 takes one tile of 80, not
+// 128; ViT-B/16's 197 one of 208).  Pass 1 takes each K tile, s =
+// (q·kᵀ)·scale on wgmma (keys past n_k -inf), and keeps the row max and the rescaled row sum in
+// registers; pass 2 takes K and V again, recomputes s, forms p = exp(s - m) /
+// l in registers, rounds it to the operand dtype and feeds it to o += p·v as
+// wgmma's register A operand.  Keys that fit one tile (n_k <= 128, or 208 at d
+// <= 64; the hybrid tier's 65, ViT-B/16's 197) come once, K and V together,
+// and pass 2 reuses pass 1's exponentials: two products, one exp per score.
+// Longer rows take three products and read K twice (from L2 at these sizes):
+// nothing is parked in shared memory, and bytes, not products, bound these
+// shapes.  That is the TPU kernels' exact
+// softmax from the row's own maximum, with p rounded before p·v
+// (fused_hybrid.py:337), and no online rescale of o.  The training forward
+// also writes lse = m + log l in f32.
 //
 // Backward (short_bwd): one CTA of eight warps per (128-key block, head,
 // image), each warp owning 16 keys, dk and dv accumulated in registers over
@@ -50,13 +58,13 @@
 // (the hybrid tier's n < 128) one CTA holds the slice and stores dq itself.
 // No atomics: the bits repeat.
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace vit {
 namespace {
 
 constexpr int kMaxSeq = 512;
-constexpr int kFwdRows = 64;  // query rows of a forward CTA
-constexpr int kKeyTile = 64;  // keys of a staged forward tile
+constexpr int kFwdStages = 2;  // depth of the forward's TMA ring
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kKeyBlock = 16 * kBwdWarps;  // keys of a backward CTA
@@ -75,13 +83,11 @@ __device__ __forceinline__ P* head_base(P* p, Strides s, int b, int h) {
 template <int D>
 constexpr int kBwdRows = D >= 128 ? 32 : 64;
 
-__host__ __device__ int key_tiles(int n_k) { return (n_k + kKeyTile - 1) / kKeyTile; }
-
-// Q and a K/V tile of 64 rows, then the score slots: a float4 per (key tile,
-// 8-key group, warp, lane).
-template <int D>
-int fwd_smem_bytes(int n_k) {
-  return 2 * kFwdRows * (D + 8) * 2 + key_tiles(n_k) * 8 * 4 * 32 * 16;
+// Q of up to 128 query rows, the ring's K and V tiles of BK keys, the
+// barriers (one, and full/empty per stage), alignment.
+template <int D, int BK>
+constexpr int fwd_smem_bytes() {
+  return (128 + 2 * kFwdStages * BK) * D * 2 + (1 + 2 * kFwdStages) * 8 + 1024;
 }
 
 // K and V of the key block, a q and a dO tile, T(ds) query-major, (lse, D).
@@ -112,107 +118,164 @@ __device__ __forceinline__ void mma_ab(float (&acc)[NC / 8][4], T (*As)[LDA], in
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kAttnThreads)
-    short_fwd_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
-                     const T* __restrict__ v, Strides vs, T* __restrict__ out, Strides os,
+// One CTA per (block of 64·W queries, head, image), W = blockDim / 128
+// warpgroups of 64 queries each.  The ring carries 2·tiles items of BK keys:
+// pass 1 takes K tile i, pass 2 K and V tile i again; keys that fit one tile
+// come once, K and V, as one item that both passes read.  Pass 1: s = q·kᵀ on
+// shared operands, keys past n_k -inf, the row max and the rescaled row sum
+// (no o to rescale).  Pass 2: s again (with one tile, pass 1's exponentials,
+// kept in registers), p = exp(s - m) / l, o += T(p)·v with p the register A
+// operand and v MN-major.  Thread 0 refills a
+// stage once every thread has released it.
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(256, 1)
+    short_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, T* __restrict__ out, Strides os,
                      float* __restrict__ lse, int heads, int n_q, int n_k, float scale) {
-  constexpr int kRow = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T(*Qs)[kRow] = reinterpret_cast<T(*)[kRow]>(smem_raw);
-  T(*KVs)[kRow] = Qs + kFwdRows;  // a K tile in pass 1, a V tile in pass 3
-  float4* slots = reinterpret_cast<float4*>(KVs + kKeyTile);
+  using QTile = hopper::Tile<128, D>;
+  using KTile = hopper::Tile<BK, D>;
+  constexpr int S = kFwdStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* ks = qs + QTile::kBytes;
+  unsigned char* vs = ks + S * KTile::kBytes;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(vs + S * KTile::kBytes);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + S;
 
-  const int q0 = blockIdx.x * kFwdRows, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane % 4;
-  const int tiles = key_tiles(n_k);
-  // This thread's scores of key tile `tile`, keys 8j..8j+7 of it: rows g and
-  // g + 8, columns 2t and 2t + 1 of the mma fragment.
-  auto slot = [&](int tile, int j) -> float4& {
-    return slots[((tile * 8 + j) * 4 + warp) * 32 + lane];
+  const int wgs = blockDim.x / 128, q0 = blockIdx.x * 64 * wgs, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
+  // One tile of keys (n_k <= BK) is one item, K and V, that both passes read.
+  const int tiles = (n_k + BK - 1) / BK, items = tiles == 1 ? 1 : 2 * tiles;
+  auto load_item = [&](int i) {
+    const int s = i % S, r = (i % tiles) * BK;
+    const bool with_v = i >= tiles || items == 1;
+    hopper::mbar_expect_tx(&full[s], KTile::kBytes * (with_v ? 2 : 1));
+    KTile::load(ks + s * KTile::kBytes, 0, &k_map, &full[s], r, h, b);
+    if (with_v) KTile::load(vs + s * KTile::kBytes, 0, &v_map, &full[s], r, h, b);
   };
-
-  stage_rows<T, D>(Qs, head_base(q, qs, b, h), qs.r, q0, kFwdRows, n_q);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], &Qs[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-
-  // Pass 1: the scores, and the row max (rows g and g + 8 of the warp's 16).
-  const T* kp = head_base(k, ks, b, h);
-  float mx[2] = {-INFINITY, -INFINITY};
-  for (int tile = 0; tile < tiles; ++tile) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_rows<T, D>(KVs, kp, ks.r, tile * kKeyTile, kKeyTile, n_k);
-    __syncthreads();
-    float s[kKeyTile / 8][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < kKeyTile / 16; ++nj) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &KVs[nj * 16 + (lane % 8) + (lane / 16) * 8][kk * 16 + ((lane / 8) % 2) * 8]);
-        Num<T>::mma(s[2 * nj], qf[kk], kf[0], kf[1]);
-        Num<T>::mma(s[2 * nj + 1], qf[kk], kf[2], kf[3]);
-      }
+  auto release = [&](int i) {
+    hopper::mbar_arrive(&empty[i % S]);
+    if (tid == 0 && i + S < items) {
+      hopper::mbar_wait(&empty[i % S], (i / S) & 1);
+      load_item(i + S);
     }
+  };
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], blockDim.x);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_bar, wgs * 64 * D * 2);
+    for (int w = 0; w < wgs; ++w) QTile::load(qs, 64 * w, &q_map, q_bar, q0 + 64 * w, h, b);
+    for (int i = 0; i < S && i < items; ++i) load_item(i);
+  }
+
+  // s = (q·kᵀ)·scale of ring item i into sc (keys past n_k: -inf).
+  float sc[BK / 2];
+  auto scores = [&](int i) {
+    const unsigned char* k_t = ks + (i % S) * KTile::kBytes;
+    hopper::mbar_wait(&full[i % S], (i / S) & 1);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<BK, T>::ss(sc, QTile::kmajor(qs, 64 * wg, 16 * kk),
+                               KTile::kmajor(k_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = tile * kKeyTile + j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < n_k ? s[j][e] * scale : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        const int key = (i % tiles) * BK + 8 * j + 2 * t + (e & 1);
+        sc[4 * j + e] = key < n_k ? sc[4 * j + e] * scale : -INFINITY;
       }
-      slot(tile, j) = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // finite: every row has a key (n_k >= 1)
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
+  };
 
-  // Pass 2: the f32 row sums over every key.
-  float l[2] = {0.f, 0.f};
-  for (int tile = 0; tile < tiles; ++tile)
+  // Pass 1: rows g and g + 8 of the warp's 16: max m and this thread's share of
+  // l = Σ exp(s - m), rescaled as m grows (every tile holds a key: m is finite).
+  // expf, as the plain version takes it: p is rounded to the operand dtype, and
+  // a cheaper exponential (ex2.approx of a product with log2 e) moved that
+  // rounding enough to flip top-1s of the hybrid B/32 model's random logits.
+  // With one tile, m is final before the sum: sc keeps exp(s - m) for pass 2,
+  // and l is the plain version's sum in another order.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(q_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    scores(i);
+    if (items > 1) release(i);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j) {
-      const float4 sv = slot(tile, j);
-      l[0] += expf(sv.x - mx[0]) + expf(sv.y - mx[0]);
-      l[1] += expf(sv.z - mx[1]) + expf(sv.w - mx[1]);
-    }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-
-  // Pass 3: o += T(p)·v with p = exp(s - m) / l.
-  const T* vp = head_base(v, vs, b, h);
-  float o[D / 8][4];
-  zero(o);
-  for (int tile = 0; tile < tiles; ++tile) {
-    __syncthreads();
-    stage_rows<T, D>(KVs, vp, vs.r, tile * kKeyTile, kKeyTile, n_k);
-    __syncthreads();
-    float p[kKeyTile / 8][4];
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < kKeyTile / 8; ++j) {
-      const float4 sv = slot(tile, j);
-      p[j][0] = expf(sv.x - mx[0]) / l[0];
-      p[j][1] = expf(sv.y - mx[0]) / l[0];
-      p[j][2] = expf(sv.z - mx[1]) / l[1];
-      p[j][3] = expf(sv.w - mx[1]) / l[1];
-    }
-    mma_pv<T, D, kKeyTile>(o, p, KVs, lane);
-  }
-  store_rows<T, D>(head_base(out, os, b, h), os.r, q0 + warp * 16, n_q, o, lane);
-  if (lse && t == 0) {
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qi = q0 + warp * 16 + lane / 4 + r * 8;
-      if (qi < n_q) lse[((size_t)b * heads + h) * n_q + qi] = mx[r] + logf(l[r]);
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2)), m[r]);
+      l[r] *= expf(m[r] - mx[r]);
+      m[r] = mx[r];
     }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+        l[e / 2] += sc[4 * j + e];
+      }
+  }
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv_l[r] = 1.f / l[r];
+  }
+
+  // Pass 2: o += T(p)·v with p = exp(s - m) / l (times 1 / l: within one f32 unit).
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = tiles; i < 2 * tiles; ++i) {
+    const int it = items == 1 ? 0 : i;
+    if (items > 1) {
+      scores(it);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[4 * j + e] *= inv_l[e / 2];
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
+    const unsigned char* v_t = vs + (it % S) * KTile::kBytes;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+      hopper::Wgmma<D, T>::rs(o, pa[c], KTile::mnmajor(v_t, 16 * c));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    release(it);
+  }
+  hopper::store_fragment<T, D>(head_base(out, os, b, h), os.r, q0 + 64 * wg, n_q, o, lt);
+  if (lse && t == 0) {
+    const int row = q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < n_q)
+        lse[((size_t)b * heads + h) * n_q + row + 8 * r] = m[r] + logf(l[r]);
   }
 }
 
@@ -344,18 +407,23 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse,
                   const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
-  const int bytes = fwd_smem_bytes<D>(n_k);
-  cudaError_t err = allow_smem(short_fwd_kernel<T, D>, bytes);
+  constexpr int bytes = fwd_smem_bytes<D, BK>(), dt = hopper::dtype_of<T>();
+  constexpr int c = hopper::Tile<64, D>::kChunk;
+  thread_local int ready = -1;
+  cudaError_t err = prepare_kernel(ready, short_fwd_kernel<T, D, BK>, bytes);
+  CUtensorMap q_map, k_map, v_map;
+  if (err == cudaSuccess) err = head_map(&q_map, q, dt, D, n_q, heads, b, st, c, 64);
+  if (err == cudaSuccess) err = head_map(&k_map, k, dt, D, n_k, heads, b, st + 3, c, BK);
+  if (err == cudaSuccess) err = head_map(&v_map, v, dt, D, n_k, heads, b, st + 6, c, BK);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_q + kFwdRows - 1) / kFwdRows, heads, b);
-  short_fwd_kernel<T, D><<<grid, kAttnThreads, bytes, stream>>>(
-      static_cast<const T*>(q), strides_at(st, 0), static_cast<const T*>(k), strides_at(st, 1),
-      static_cast<const T*>(v), strides_at(st, 2), static_cast<T*>(out), strides_at(st, 3), lse,
-      heads, n_q, n_k, scale);
+  const int wgs = n_q > 64 ? 2 : 1;
+  dim3 grid((n_q + 64 * wgs - 1) / (64 * wgs), heads, b);
+  short_fwd_kernel<T, D, BK><<<grid, 128 * wgs, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, heads, n_q, n_k, scale);
   return cudaGetLastError();
 }
 
@@ -392,12 +460,30 @@ bool shape_ok(int b, int heads, int n_q, int n_k, int d) {
 
 #define VIT_SHORT_WIDTHS(X) X(32) X(64) X(128)
 
+// Keys per step of the forward, by n_k and d.  A row that one tile holds takes
+// one step, whose exponentials stay in registers for p·v: 64 or 80 keys (the
+// hybrid tier's n = 65 computes on 15 padding keys, not 63), 128, or 208 at
+// d <= 64 (ViT-B/16's 197; at d = 128, o leaves no room for s).  Longer rows
+// take 128-key steps.
+template <typename T, int D>
+cudaError_t fwd_tiles(const void* q, const void* k, const void* v, void* out, float* lse,
+                      const long long* st, int b, int heads, int n_q, int n_k, float scale,
+                      cudaStream_t stream) {
+  if (n_k <= 64) return fwd_t<T, D, 64>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+  if (n_k <= 80) return fwd_t<T, D, 80>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+  if constexpr (D <= 64) {
+    if (n_k > 128 && n_k <= 208)
+      return fwd_t<T, D, 208>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+  }
+  return fwd_t<T, D, 128>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+}
+
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
                          const long long* st, int b, int heads, int n_q, int n_k, int d,
                          float scale, cudaStream_t stream) {
-#define VIT_SHORT_FWD(D) \
-  if (d == D) return fwd_t<T, D>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+#define VIT_SHORT_FWD(D)                                                                   \
+  if (d == D) return fwd_tiles<T, D>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
   VIT_SHORT_WIDTHS(VIT_SHORT_FWD)
 #undef VIT_SHORT_FWD
   return cudaErrorInvalidValue;
@@ -432,10 +518,11 @@ extern "C" int vit_short_attention_fwd(const void* q, const void* k, const void*
   if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
   if (b == 0 || n_q == 0) return cudaSuccess;
   if (dtype == kBF16)
-    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale,
-                                       stream);
+    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d,
+                                       scale, stream);
   if (dtype == kF16)
-    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale, stream);
+    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale,
+                                stream);
   return cudaErrorInvalidValue;
 }
 

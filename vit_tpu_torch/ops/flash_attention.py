@@ -23,14 +23,16 @@ rounded; dq, dk and dv accumulated in f32 and rounded once.  In f32 the plain
 versions are exact attention and its gradient.
 
 Layout: q ``(b, h, n_q, dk)``, k ``(b, h, n_k, dk)`` and v ``(b, h, n_k,
-dv)``, read through their strides (the last axis contiguous, rows 16-byte
-aligned), so a view of a channels-last ``(b, n, h·d)`` map goes in as it lies.
+dv)``, read through their strides (the last axis contiguous, the others
+multiples of 16 bytes, the data 16-byte aligned: what the backward's TMA
+tensor maps take, :func:`_tma_problem`), so a view of a channels-last
+``(b, n, h·d)`` map goes in as it lies.
 The kernels write out, dq, dk and dv token-major: the ``(b, h, n, d)``
 tensors they return are views of ``(b, n, h, d)`` memory, which a ``(b, n,
 h·d)`` consumer reads without a copy.  q/k and v may have different head
 widths where a kernel instance exists (``SUPPORTED_WIDTHS``: ScalableViT's
-SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled to 48 in shared
-memory, never in device memory).
+SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled in shared memory,
+to 48 in the forward and 64 in the backward, never in device memory).
 """
 
 from __future__ import annotations
@@ -102,19 +104,47 @@ def flash_backward_reference(q, k, v, o, lse, do, scale: float):
     return tuple(torch.cat(g).reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
 
+# A TMA tensor map's limits (cuTensorMapEncodeTiled): byte strides that are
+# multiples of 16 below 2**40, extents of at most 2**32, 16-byte aligned data.
+_TMA_STRIDE_LIMIT = 2 ** 40
+_TMA_EXTENT_LIMIT = 2 ** 32
+
+
+def _tma_problem(t):
+    """Why no TMA tensor map takes the 16-bit ``(b, h, n, d)`` operand ``t``
+    (``csrc/hopper.cuh``'s ``head_map`` over its :func:`kernel_strides`), or
+    None."""
+    if t.stride(-1) != 1:
+        return "its last axis is not contiguous"
+    if t.data_ptr() % 16:
+        return "its data is not 16-byte aligned"
+    for s, n in zip(t.stride()[:-1], t.shape[:-1]):
+        nbytes = s * t.element_size()
+        if n > 1 and (nbytes % 16 or not 0 < nbytes < _TMA_STRIDE_LIMIT):
+            return f"a stride of {nbytes} bytes is not a positive multiple of 16 below 2**40"
+    if any(n > _TMA_EXTENT_LIMIT for n in t.shape):
+        return "an extent is above 2**32"
+    return None
+
+
 def _strides_ok(t) -> bool:
-    """Whether the kernels take ``t``'s layout: a contiguous last axis, the
-    other strides multiples of 8 elements (a size-1 axis's is never used),
-    16-byte aligned data."""
-    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
-        s % 8 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+    """Whether the kernels take ``t``'s layout (:func:`_tma_problem`)."""
+    return _tma_problem(t) is None
+
+
+def kernel_strides(*tensors):
+    """The (batch, head, row) element strides of each tensor, flat, for the
+    kernels.  A size-1 axis's stride, which addresses nothing, goes as 8
+    elements, a stride every tensor map takes."""
+    flat = [s if n > 1 else 8 for t in tensors for s, n in zip(t.stride()[:3], t.shape[:3])]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def check_flash_tensors(name: str, tensors: dict, widths=SUPPORTED_WIDTHS) -> None:
     """``{label: (tensor, shape)}``, q first and v third: 16-bit CUDA tensors
     of one device and dtype and of the given shapes, head widths ``(dk, dv)``
     with a kernel instance (in ``widths``), and strides the kernels take
-    (:func:`_strides_ok`).  Anything else raises."""
+    (:func:`_tma_problem`).  Anything else raises."""
     (q, _), _, (v, _) = list(tensors.values())[:3]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {q.device}")
@@ -130,16 +160,10 @@ def check_flash_tensors(name: str, tensors: dict, widths=SUPPORTED_WIDTHS) -> No
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{name}: {label} is {t.dtype} on {t.device}, "
                             f"expected {q.dtype} on {q.device}")
-        if not _strides_ok(t):
-            raise ValueError(f"{name}: {label} has strides {t.stride()}; the kernel takes "
-                             f"a contiguous last axis, the other strides multiples of 8 "
-                             f"and 16-byte aligned data")
-
-
-def kernel_strides(*tensors):
-    """The (batch, head, row) strides of each tensor, flat, for the kernels."""
-    flat = [s for t in tensors for s in t.stride()[:3]]
-    return (ctypes.c_longlong * len(flat))(*flat)
+        problem = _tma_problem(t)
+        if problem:
+            raise ValueError(f"{name}: {label} has strides {t.stride()}, which the kernel "
+                             f"does not take: {problem}")
 
 
 def _token_major(b, h, n, d, like):

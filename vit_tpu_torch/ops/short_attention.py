@@ -29,8 +29,9 @@ kernel computes in one pass instead of two.  In f32 both directions are exact
 attention and its gradient, ``vit_tpu``'s function.
 
 Layout: ``(b, h, n, d)`` operands read through their strides (the last axis
-contiguous, the others multiples of 8 elements), so strided views go in as
-they lie.  ``layout="bh"`` returns contiguous ``(b, h, n, d)`` outputs;
+contiguous, the others multiples of 8 elements: the forward reads them through
+TMA tensor maps), so strided views go in as they lie.  ``layout="bh"``
+returns contiguous ``(b, h, n, d)`` outputs;
 ``layout="nb"`` returns ``(b, h, n, d)`` views of ``(n, b, h, d)`` memory,
 and the backward's dq, dk and dv views of one ``(n, b, 3, h, d)`` buffer: the
 hybrid layer's ``(n, b, 3·heads·dh)`` q|k|v gradient, with no concatenation.
