@@ -10,8 +10,9 @@ Phases, one line each (any failure raises and exits non-zero):
    for the plain versions and the f32 references.
 2. build: compiles ``vit_tpu_torch/csrc`` with nvcc, one process per source
    (timed); then ptxas's registers, static shared memory and spills of each
-   instance of the kernels built on wgmma and TMA (the flash backward's dq
-   and dk/dv kernels, the short-attention forward).
+   instance of the kernels built on wgmma and TMA (the flash forward, the
+   flash backward's dq and dk/dv kernels, the short-attention forward, the
+   GEMM of ln_gemm's forward).
 3. kernels: each forward kernel against its plain PyTorch version at the
    ViT-B/16 @224 shapes (b=64, n=197, d=768, 12 heads of 64, h=3072) and the
    entry shapes (b=8, n=65, d=1024, 16 heads of 64, h=2048), bf16 inputs from
@@ -1154,13 +1155,21 @@ SHORT_SHAPES = [
 
 
 # The kernels rebuilt on wgmma with a TMA ring (csrc/hopper.cuh), and the
-# times of the designs they replaced (mma.sync with synchronous staging), ms
-# on an H100 80GB HBM3 at 700 W: constants cited from PERF.md's kernel table
-# and its findings on the rebuild, printed on a line of their own beside the
-# kernels' line, never in it (every number there is this run's).
-DESIGNS = {"flash_backward": "wgmma+tma", "short_attention": "wgmma+tma",
-           "attention_nb": "wgmma+tma"}
+# times of the designs they replaced (mma.sync with synchronous staging; for
+# ln_gemm's GEMM, with a cp.async ring), ms on an H100 80GB HBM3 at 700 W: constants
+# cited from PERF.md's kernel table and its findings on the rebuilds, printed
+# on a line of their own beside the kernels' line, never in it (every number
+# there is this run's).  The flash forward's rebuild also runs the packed op's
+# forward and the attention inside the cross-attention block's forward.
+DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
+           "fused_cross_attention": "wgmma+tma", "flash_attention_packed": "wgmma+tma",
+           "short_attention": "wgmma+tma", "ln_gemm": "wgmma+tma", "attention_nb": "wgmma+tma"}
 EARLIER_DESIGN_MS = {
+    "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
+                        "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
+    "flash_attention_packed": {"ScalableViT IWSA stage 1": 2.4982},
+    "fused_cross_attention": {"ScalableViT stage 1": 0.3121},
+    "ln_gemm": {"B/32": 0.2494},
     "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
                        "CvT-13@384 stage 2": 1.8241, "n=8192, through the dispatcher": 24.0999,
                        "n=4096, d=32": 9.6678},
@@ -1771,6 +1780,8 @@ def kernel_group(name: str) -> str:
     if m:
         return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles)" if m.group(3)
                                                   else ")")
+    if "gemm_wgmma_kernel" in name:  # before the library's GEMMs: its name holds "gemm"
+        return "gemm_wgmma_kernel (ln_gemm's QKV)"
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -1920,13 +1931,14 @@ def ptxas_report(build_log: str) -> dict:
     ``{"flash_bwd_dkv_kernel<bf16,64,64>": "212 registers, 0 bytes smem,
     0/0 bytes spilled (stores/loads)", ...}``."""
     report, name = {}, None
-    pattern = re.compile(r"(flash_bwd_dq_kernel|flash_bwd_dkv_kernel|short_fwd_kernel)"
-                         r"I(6__half|13__nv_bfloat16)((?:Li\d+E)+)")
+    pattern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
+                         r"short_fwd_kernel|gemm_wgmma_kernel)"
+                         r"I(6__half|13__nv_bfloat16)((?:Li\d+E)*)")
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = pattern.search(line)
-            name = m and (f"{m[1]}<{'f16' if m[2] == '6__half' else 'bf16'},"
-                          + ",".join(re.findall(r"Li(\d+)E", m[3])) + ">")
+            name = m and ",".join([f"{m[1]}<{'f16' if m[2] == '6__half' else 'bf16'}",
+                                   *re.findall(r"Li(\d+)E", m[3])]) + ">"
             spill = None
         elif name and "spill stores" in line:
             spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)

@@ -544,6 +544,60 @@ def test_cvt_serves_and_trains_through_the_flash_kernels(cuda):
     assert losses[2] < losses[0]
 
 
+def _forward_inputs(cuda, b, h, n_q, n_k, dk, dv, dtype, seed):
+    """Seeded q, k, v in ``dtype`` as their callers hand them over: with one
+    width, CvT's channels-last q and the two halves of one k/v projection
+    (``flash_inputs``' views); with two, ScalableViT's channel-packed q, k
+    and v (``fap.split_heads`` of ``(b, n, h·d)`` maps)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    def fold(t, d):
+        return t.reshape(b, t.shape[1], h, d).permute(0, 2, 1, 3)
+
+    if dk == dv:
+        k, v = (fold(t, dk) for t in rn(b, n_k, 2 * h * dk).chunk(2, dim=-1))
+        return fold(rn(b, n_q, h * dk), dk), k, v
+    return tuple(fap.split_heads(rn(b, n, h * d), h) for n, d in ((n_q, dk), (n_k, dk), (n_k, dv)))
+
+
+def _check_flash_forward(q, k, v):
+    """The forward kernel against its plain version, out and lse; one launch."""
+    scale = q.shape[-1] ** -0.5
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_out, ref_lse = flash_attention_forward_reference(q, k, v, scale)
+    check_outputs(torch, "flash forward", (out,), (ref_out,), {})
+    assert lse.dtype == torch.float32 and (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dk,dv", [(32, 32), (40, 32), (64, 64), (96, 96), (128, 128)])
+def test_flash_forward_matches_plain_at_each_width(cuda, dk, dv, dtype):
+    """Every (dk, dv) instance in both dtypes, 200 query rows (one 128-row
+    block and a ragged one) against 333 keys (a ragged last key tile), on
+    the strided views their callers pass; 96 pads v to 128 in the map."""
+    _check_flash_forward(*_forward_inputs(cuda, 2, 3, 200, 333, dk, dv, dtype, seed=dk + dv))
+
+
+@pytest.mark.parametrize("b,h,n_q,n_k", [
+    (1, 2, 1, 1),      # one query row, one key
+    (2, 2, 33, 1),     # one key: p = 1 at every row
+    (2, 2, 50, 64),    # fewer than 64 queries: one warpgroup
+    (2, 2, 129, 65),   # one row past a 128-row block, one key past a 64-key tile
+    (2, 2, 64, 129),   # one key past a 128-key tile
+    (1, 2, 300, 4097),  # n_k past 4096 (vit_tpu's flash_attention_v2 tier)
+    (1, 1, 64, 8192),
+])
+def test_flash_forward_matches_plain_at_ragged_sizes(cuda, b, h, n_q, n_k):
+    _check_flash_forward(*_forward_inputs(cuda, b, h, n_q, n_k, 64, 64, torch.bfloat16,
+                                          seed=n_q + n_k))
+
+
 def _packed_inputs(cuda, b, n_q, n_k, heads, dk, dv, seed=0):
     """Seeded bf16 channel-packed q (b, n_q, heads·dk), k, v and a cotangent."""
     g = torch.Generator(device=cuda).manual_seed(seed)
@@ -818,6 +872,32 @@ def test_hybrid_layer_kernels_match_plain(cuda, b, n, d, heads, dh, hidden):
     check_outputs(torch, "ln_gemm backward", got,
                   fh.ln_gemm_backward_reference(dqkv, x, g1, a["wqkv"], eps), {})
     _twice(got, fh.ln_gemm_backward(dqkv, x, g1, a["wqkv"], eps))
+
+
+@pytest.mark.parametrize("rows,d,n_out,dtype", [
+    (8320 + 13, 72, 200, torch.bfloat16),  # no extent a multiple of its tile
+    (8320 + 13, 72, 200, torch.float16),
+    (129, 1024, 3072, torch.float16),
+    (8320, 1024, 3072, torch.bfloat16),    # ViT-B/32's QKV at batch 128
+])
+def test_ln_gemm_forward_matches_plain(cuda, rows, d, n_out, dtype):
+    """ln_gemm's forward (LayerNorm pass, then the wgmma GEMM) against its
+    plain version, out and xn, where rows, d and n_out are not multiples of
+    the GEMM's 128 x 128 x 64 tiles; the same bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + torch.randn(*shape, generator=g, device=cuda) * scale).to(dtype)
+
+    x, gamma, beta = rn(rows, d), rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1)
+    w = rn(n_out, d, scale=d ** -0.5)
+    before = fh.ln_gemm.launches
+    got = fh._launch_ln_gemm(x, gamma, beta, w, 1e-3)
+    torch.cuda.synchronize()
+    assert fh.ln_gemm.launches == before + 1
+    check_outputs(torch, "ln_gemm", got, fh.ln_gemm_forward_reference(x, gamma, beta, w, 1e-3),
+                  {})
+    _twice(got, fh._launch_ln_gemm(x, gamma, beta, w, 1e-3))
 
 
 def _hybrid_launches():

@@ -1,19 +1,23 @@
-"""Host-side logic of the Hopper attention kernels, on CPU tensors.
+"""Host-side logic of the Hopper kernels fed by TMA, on CPU tensors.
 
-The flash backward and the short-attention forward read their operands
-through TMA tensor maps, which ``vit_tpu_torch/csrc/hopper.cuh``'s
+The flash forward and backward and the short-attention forward read their
+operands through TMA tensor maps, which ``vit_tpu_torch/csrc/hopper.cuh``'s
 ``head_map`` builds from the (batch, head, row) element strides that
 ``kernel_strides`` passes.  These tests pin those strides for each caller's
 view, check that every caller's view is one a tensor map takes, and that the
 views no map takes are refused (``_tma_problem``, which
-``check_flash_tensors`` raises on before any launch).
+``check_flash_tensors`` raises on before any launch).  ``ln_gemm``'s forward
+GEMM reads xn and W through 2-d maps (``matrix_map``: rows ``d`` elements
+apart), which take what its wrapper lets through: contiguous, 16-byte
+aligned, widths that are multiples of 8.
 """
 
 import pytest
 import torch
 
 from vit_tpu_torch.ops import flash_attention_packed as fap
-from vit_tpu_torch.ops.flash_attention import _tma_problem, kernel_strides
+from vit_tpu_torch.ops import fused_hybrid as fh
+from vit_tpu_torch.ops.flash_attention import _tma_problem, _token_major, kernel_strides
 
 BF16 = torch.bfloat16
 
@@ -59,3 +63,56 @@ def test_kernel_strides_give_size_one_axes_a_stride_a_map_takes():
 ])
 def test_views_no_tensor_map_takes_are_refused(name, view, match):
     assert match in _tma_problem(view), name
+
+
+@pytest.mark.parametrize("name,q,k,v,strides", [
+    # CvT: channels-last q, k and v the halves of one (b, n_k, 2·h·d) projection
+    ("CvT", _head_view(2, 7, 3, 64), _head_view(2, 5, 3, 64, width=384),
+     _head_view(2, 5, 3, 64, width=384),
+     [7 * 192, 64, 192, 5 * 384, 64, 384, 5 * 384, 64, 384]),
+    # ScalableViT's SSA inside the cross-attention block and the packed op:
+    # q/k 40 wide, v 32, each channel-packed (b, n, heads·d)
+    ("packed 40/32", fap.split_heads(torch.zeros(2, 9, 2 * 40, dtype=BF16), 2),
+     fap.split_heads(torch.zeros(2, 4, 2 * 40, dtype=BF16), 2),
+     fap.split_heads(torch.zeros(2, 4, 2 * 32, dtype=BF16), 2),
+     [9 * 80, 40, 80, 4 * 80, 40, 80, 4 * 64, 32, 64]),
+    # one key: its row axis has size 1 and goes as 8
+    ("one key", torch.zeros(2, 2, 3, 64, dtype=BF16), torch.zeros(2, 2, 1, 64, dtype=BF16),
+     torch.zeros(2, 2, 1, 64, dtype=BF16), [384, 192, 64, 128, 64, 8, 128, 64, 8]),
+])
+def test_forward_passes_each_callers_strides_and_writes_token_major(name, q, k, v, strides):
+    """The forward's q, k and v maps take every caller's view; its out (written
+    through strides, not a map) is the token-major view the wrapper makes."""
+    b, h, n_q, _ = q.shape
+    out = _token_major(b, h, n_q, v.shape[-1], q)
+    for t in (q, k, v):
+        assert _tma_problem(t) is None, name
+    dv = v.shape[-1]
+    assert list(kernel_strides(q, k, v, out)) == strides + [n_q * h * dv, dv, h * dv], name
+
+
+@pytest.mark.parametrize("rows,d,n_out", [(8320, 1024, 3072), (8333, 72, 200), (1, 8, 8)])
+def test_gemm_operands_are_matrices_a_map_takes(rows, d, n_out):
+    """xn (rows, d) and W (n_out, d) as ln_gemm's wrapper holds them: rows d
+    elements apart, the row stride matrix_map is given."""
+    for t in (torch.zeros(rows, d, dtype=BF16), torch.zeros(n_out, d, dtype=BF16)):
+        assert _tma_problem(t) is None
+        assert t.stride() == (d, 1)
+
+
+@pytest.mark.parametrize("name,w,match", [
+    ("rows of 136 bytes", torch.zeros(200, 68, dtype=BF16), "multiple of 16"),
+    ("a transposed weight", torch.zeros(72, 200, dtype=BF16).t(), "not contiguous"),
+    ("data 8 bytes off", torch.zeros(200 * 72 + 4, dtype=BF16)[4:].view(200, 72),
+     "16-byte aligned"),
+])
+def test_gemm_operands_no_map_takes_are_refused(name, w, match):
+    assert match in _tma_problem(w), name
+
+
+def test_ln_gemm_refuses_widths_no_map_takes_before_any_launch():
+    x, g = torch.zeros(5, 68, dtype=BF16), torch.ones(68, dtype=BF16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fh._launch_ln_gemm(x, g, g, torch.zeros(200, 68, dtype=BF16), 1e-3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fh._launch_ln_gemm(x[:, :64], g[:64], g[:64], torch.zeros(204, 64, dtype=BF16), 1e-3)

@@ -14,9 +14,14 @@ builds its own kernels, and runs
   with every check they make in the smoke;
 - train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px
   and ScalableViT at 256 px, batch 64, and of ViT-B/32 at 256 px, batch 128,
-  on rows 1-4 and on the hybrid tier; the hybrid tier's served forward at
-  batch 128: the wall ms per step (host clock around back-to-back steps) and
-  the device's busy ms per step (``torch.profiler``'s kernel time).
+  on rows 1-4 and on the hybrid tier; the served forwards of CvT-13 at 384 px
+  (batch 64) and of the hybrid tier (batch 128): the wall ms per step (host
+  clock around back-to-back steps) and the device's busy ms per step
+  (``torch.profiler``'s kernel time);
+- the flash forward's C launcher (``vit_flash_attention_fwd``, called through
+  ``ctypes`` with its arguments built once) at CvT-13@224's stage 1 and
+  ScalableViT's SSA stage 1: host microseconds per call, back-to-back calls
+  with no synchronisation inside a round.
 
 Prints one line per process, ``AB <label> <card> {json}``, and a last line
 with each time's mean per checkout.
@@ -32,6 +37,7 @@ import sys
 import time
 
 WARMUP, ROUNDS, STEPS = 3, 3, 5  # a timed round is STEPS back-to-back steps
+HOST_ROUNDS, HOST_CALLS = 7, 20  # a round of the launcher's host time: HOST_CALLS calls
 
 
 def timed(torch, fn) -> dict:
@@ -85,19 +91,65 @@ def step_times(torch, cs) -> dict:
         out[tag] = timed(torch, lambda: step(images, labels))
         del model, step
         torch.cuda.empty_cache()
-    g = torch.Generator(device=dev).manual_seed(0)
-    model = cast_params(cs.hybrid_vit(**cs.ENTRY, device=dev, generator=g), torch.bfloat16)
-    model.eval()
-    images = torch.randn(128, 256, 256, 3, generator=g, device=dev)
-    with torch.inference_mode():
-        out["serve ViT-B/32@256 hybrid"] = timed(torch, lambda: model(images))
+    serves = {"serve CvT-13@384": (CvT, cs.CVT13, 64, 384),
+              "serve ViT-B/32@256 hybrid": (cs.hybrid_vit, cs.ENTRY, 128, 256)}
+    for tag, (vit, cfg, batch, size) in serves.items():
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = cast_params(vit(**cfg, device=dev, generator=g), torch.bfloat16).eval()
+        images = torch.randn(batch, size, size, 3, generator=g, device=dev)
+        with torch.inference_mode():
+            out[tag] = timed(torch, lambda: model(images))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def launcher_host_us(torch, cs) -> dict:
+    """Host microseconds per call of the flash forward's C launcher: the
+    median over HOST_ROUNDS rounds of HOST_CALLS back-to-back calls (the card
+    synchronised between rounds, not inside them), at CvT-13@224's stage 1
+    (channels-last views) and ScalableViT's SSA stage 1 (channel-packed q/k
+    40 wide, v 32, 64 keys)."""
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops.flash_attention_packed import split_heads
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tag, (b, h, n_q, n_k, dk, dv) in {"CvT-13@224 stage 1": (64, 1, 3136, 784, 64, 64),
+                                          "SSA stage 1": (64, 2, 4096, 64, 40, 32)}.items():
+        if dk == dv:
+            q, k, v, _ = cs.flash_inputs(torch, b, h, n_q, n_k, dk, seed=0)
+        else:
+            q, k, v = (split_heads(torch.randn(b, n, h * d, generator=g, device="cuda")
+                                   .to(torch.bfloat16), h)
+                       for n, d in ((n_q, dk), (n_k, dk), (n_k, dv)))
+        o = fa._token_major(b, h, n_q, dv, q)
+        lse = torch.empty((b, h, n_q), dtype=torch.float32, device="cuda")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                fa.kernel_strides(q, k, v, o), b, h, n_q, n_k, dk, dv, dk ** -0.5,
+                _build.DTYPE_CODES[torch.bfloat16], stream)
+        for _ in range(WARMUP):
+            _build.check(lib.vit_flash_attention_fwd(*args), "vit_flash_attention_fwd")
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(HOST_ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                lib.vit_flash_attention_fwd(*args)
+            rounds.append((time.perf_counter() - t0) * 1e6 / HOST_CALLS)
+            torch.cuda.synchronize()
+        out[tag] = statistics.median(rounds)
     return out
 
 
 def child() -> dict:
     """One checkout's run, in the checkout's own directory (the working
     directory): ``{"card": ..., "kernels": {kernel: {shape: {kernel, plain,
-    library[, flash]} ms}}, "steps": {tag: {wall, busy} ms}}``."""
+    library[, flash]} ms}}, "steps": {tag: {wall, busy} ms}, "host_us": {tag:
+    us}}``."""
     sys.path[0] = os.getcwd()  # that checkout's chip_smoke and vit_tpu_torch
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -121,7 +173,8 @@ def child() -> dict:
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
     keep = ("kernel", "plain", "library", "flash")
     torch.cuda.empty_cache()
-    return {"card": smi, "steps": step_times(torch, cs), "kernels": {
+    return {"card": smi, "host_us": launcher_host_us(torch, cs),
+            "steps": step_times(torch, cs), "kernels": {
         name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}
         for name, rows in results.items()}}
 
@@ -140,7 +193,8 @@ def main(parent: str) -> int:
             raise SystemExit(f"ab_smoke: the {label} run failed (exit {proc.returncode})")
         result = json.loads(found[0][len("AB-JSON "):])
         print("AB", label, result["card"], json.dumps(
-            {"kernels": result["kernels"], "steps": result["steps"]}), flush=True)
+            {"kernels": result["kernels"], "steps": result["steps"],
+             "host_us": result["host_us"]}), flush=True)
         runs.append((label, result))
     means = {}
     for label, result in runs:
@@ -151,6 +205,9 @@ def main(parent: str) -> int:
         for tag, r in result["steps"].items():
             for what in ("wall", "busy"):
                 means.setdefault(f"{tag}, {what}", {}).setdefault(label, []).append(r[what])
+        for tag, us in result["host_us"].items():
+            means.setdefault(f"flash launcher at {tag}, host us", {}).setdefault(
+                label, []).append(us)
     print("AB means (ms, parent and change): " + json.dumps(
         {key: {label: statistics.fmean(v) for label, v in by.items()}
          for key, by in means.items()}))

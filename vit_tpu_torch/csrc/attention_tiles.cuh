@@ -1,7 +1,6 @@
 // Tile helpers shared by the mma.sync attention kernels (attention.cu, the
-// block's multi-head attention over packed qkv; flash_attention.cu's forward
-// over strided (b, h, n, d) operands; short_attention.cu's backward, whole-row
-// attention at n <= 512).  A block is four warps (eight in short_bwd); each warp owns
+// block's multi-head attention over packed qkv; short_attention.cu's backward,
+// whole-row attention at n <= 512).  A block is four warps (eight in short_bwd); each warp owns
 // 16 rows of a 64-row tile, and its products run on mma.sync m16n8k16 with
 // f32 accumulation.  Tiles live in shared memory as rows of DH + 8 elements,
 // so that ldmatrix's eight row addresses fall in distinct banks.

@@ -2,8 +2,8 @@
 // row's log-sum-exp, and the two-pass backward that recomputes the softmax
 // from it.  q (b, h, n_q, dk), k (b, h, n_k, dk) and v (b, h, n_k, dv), any
 // n_q and n_k, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96), (128, 128)},
-// bf16 or f16 operands, f32 accumulation: the forward on mma.sync m16n8k16,
-// the backward on wgmma with its operands brought by TMA (hopper.cuh).
+// bf16 or f16 operands, f32 accumulation: every kernel on wgmma with its
+// operands brought by TMA (hopper.cuh).
 //
 // Replaces the TPU kernels
 //   vit_tpu/ops/flash_attention.py:51     _flash_kernel (flash_attention, K/V
@@ -21,12 +21,12 @@
 // slices of one VMEM block; here the packed layout is a stride: head h of a
 // (b, n, heads·d) map starts h·d elements into each row.
 //
-// q/k and v have their own head widths (ScalableViT's SSA: 40 and 32).  A q/k
-// width that no k-step divides is zero-filled in shared memory, never padded
-// in device memory: to the next multiple of 16 in the forward (40 -> 48), to
-// a swizzled tile's 64 columns in the backward, by the tensor map's extent
-// (the extra columns add 0 to every logit); dq and dk are stored at the true
-// width.
+// q/k and v have their own head widths (ScalableViT's SSA: 40 and 32).  A
+// width that is no swizzled tile's is zero-filled in shared memory, never
+// padded in device memory: to the tile's 64 (or 128) columns, by the tensor
+// map's extent (the extra columns add 0 to every logit and every output
+// column past the width is dropped); the forward's q·kᵀ steps stop at the
+// width padded to 16 (40 -> 48); dq and dk are stored at the true width.
 //
 // Bound on the H100 (989 TFLOP/s bf16): the TPU kernels' own FLOPs, 4·b·h·
 // n_q·n_k·d forward and 14·b·h·n_q·n_k·d backward (the cost estimates of
@@ -49,15 +49,21 @@
 // and dv token-major, (b, n, h·d), which CvT's output projection reads as it
 // lies.
 //
-// Forward (flash_fwd): one CTA of four warps per (64-query tile, head, image);
-// each warp owns 16 query rows, its q fragments in registers.  64-key tiles of
-// K and V are staged through shared memory; scores s = (q·kᵀ)·scale in f32,
-// keys past n_k get -inf before the row max (every tile holds a valid key,
-// so the max is finite), a running max and sum rescale the accumulator, and P
-// is rounded to the compute dtype for P·V (the TPU kernel kept P in f32,
-// flash_attention.py:76-80; the plain version rounds where this kernel does).
-// The divide by the f32 row sum comes last, and lse = m + log l.  Query rows
-// past n_q are computed on zeros and not stored.
+// Forward (flash_fwd), one CTA per 128-query block (two warpgroups of 64; one
+// for a block of at most 64 rows, or where one 64-key tile holds every key):
+// Q once by TMA, (k, v) tiles of 64 keys through a ring of up to 4 stages on
+// mbarriers; per tile s = q·kᵀ (wgmma, shared operands) scaled in f32, keys
+// past n_k -inf before the row max (every tile holds a valid key, so the max
+// is finite), a running max and sum rescale the accumulator, and p, rounded
+// to the compute dtype (the TPU kernel kept P in f32, flash_attention.py:
+// 76-80; the plain version rounds where this kernel does), is wgmma's
+// register A operand of o += p·v, v MN-major.  Tile i's q·kᵀ and tile i - 1's
+// p·v are in flight together, and tile i's softmax runs under p·v.  The
+// divide by the f32 row sum comes last, and lse = m + log l.  Query rows past
+// n_q arrive as zeros and are not stored.  Up to 64 + 64 wide its registers
+// fit 128 a thread and two CTAs share an SM, so one CTA's softmax also
+// overlaps the other's products (128-key tiles at one CTA an SM, and the same
+// kernel without the in-flight pair, were slower at CvT-13's shapes).
 //
 // Backward, FA2's split, each output tile with one owner (no atomics, so the
 // bits repeat):
@@ -89,7 +95,6 @@
 namespace vit {
 namespace {
 
-constexpr int kTile = 64;  // query rows of a forward or dq CTA, keys of a dkv CTA
 constexpr int kThreads = kAttnThreads;
 
 // Element strides of a (b, h, n, d) operand whose d axis is contiguous.
@@ -103,71 +108,122 @@ __device__ __forceinline__ P* head_base(P* p, Strides s, int b, int h) {
   return p + (long long)b * s.b + (long long)h * s.h;
 }
 
-// q, k (pad16(DK) + 8 elements a row) and v (DV + 8) tiles of 64 rows.
+// ---- forward on wgmma, fed by TMA -------------------------------------------------------------
+
+// The (DK, DV) forward's shapes: q/k and v widths padded to swizzled tiles
+// (40 -> 64, 96 -> 128), q·kᵀ in k16 steps over the q/k width padded to 16
+// only (40 -> 48: the map's zeros past 40 add nothing, and the steps past 48
+// are skipped), 64 keys per ring stage, the ring's depth, and the CTAs per
+// SM: two where q/k and v of 64 + 64 or narrower keep a thread's registers
+// under 128, else one.
 template <int DK, int DV>
-constexpr int fwd_smem_bytes() {
-  return kTile * (2 * (pad16(DK) + 8) + DV + 8) * 2;
-}
+struct Fwd {
+  static constexpr int PK = hopper::swizzled_width(DK), PV = hopper::swizzled_width(DV);
+  static constexpr int BK = 64;
+  static constexpr int kSteps = pad16(DK) / 16;
+  static constexpr int kStages = 4;
+  static constexpr int kBlocks = PK + PV <= 128 ? 2 : 1;
+  // Q of up to 128 rows, a ring of `ring` stages of K and V tiles, the barriers (one, and
+  // full/empty per stage), alignment.
+  static constexpr int smem(int ring = kStages) {
+    return 128 * PK * 2 + ring * BK * (PK + PV) * 2 + (1 + 2 * kStages) * 8 + 1024;
+  }
+};
 
+// One CTA per (block of 64·W queries, head, image), W = blockDim / 128
+// warpgroups of 64 queries each.  Q of the block comes once; (k, v) tiles of
+// 64 keys stream through the ring, thread 0 refilling the stage of tile i - 2
+// at the top of step i, once every thread has released it.  Per warpgroup:
+// s = q·kᵀ on shared operands; s·scale with keys past n_k -inf (on the last
+// tile only), the running row max m and sum l (this thread's share) with o
+// rescaled as m grows, p = exp(s - m) rounded to T as wgmma's register A
+// operand of o += T(p)·v, v MN-major.  Step i issues tile i's q·kᵀ and tile
+// i - 1's p·v together and takes tile i's softmax while p·v is still on the
+// tensor cores.  expf, as the plain version takes it (PERF.md: a cheaper
+// exponential moved p's rounding enough to flip served top-1s).
 template <typename T, int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
-                     const T* __restrict__ v, Strides vs, T* __restrict__ out, Strides os,
+__global__ void __launch_bounds__(256, Fwd<DK, DV>::kBlocks)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, T* __restrict__ out, Strides os,
                      float* __restrict__ lse, int heads, int n_q, int n_k, float scale) {
-  constexpr int KP = pad16(DK), kRowK = KP + 8, kRowV = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T(*Qs)[kRowK] = reinterpret_cast<T(*)[kRowK]>(smem_raw);
-  T(*Ks)[kRowK] = Qs + kTile;
-  T(*Vs)[kRowV] = reinterpret_cast<T(*)[kRowV]>(Ks + kTile);
+  using F = Fwd<DK, DV>;
+  constexpr int BK = F::BK;
+  using QTile = hopper::Tile<128, F::PK>;
+  using KTile = hopper::Tile<BK, F::PK>;
+  using VTile = hopper::Tile<BK, F::PV>;
+  constexpr int S = F::kStages;
+  // Fewer tiles than stages take a ring of one stage a tile, which never wraps.
+  const int tiles = (n_k + BK - 1) / BK, ring = tiles < S ? tiles : S;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* ks = qs + QTile::kBytes;
+  unsigned char* vs = ks + ring * KTile::kBytes;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(vs + ring * VTile::kBytes);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + S;
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane % 4;
-  const T* kp = head_base(k, ks, b, h);
-  const T* vp = head_base(v, vs, b, h);
-
-  stage_rows<T, DK, KP>(Qs, head_base(q, qs, b, h), qs.r, q0, kTile, n_q);
-  __syncthreads();
-  uint32_t qf[KP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < KP / 16; ++kk)
-    ldmatrix_x4(qf[kk], &Qs[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-
-  float o[DV / 8][4];
-  zero(o);
-  // Rows g and g + 8 of the warp's 16: running max and this thread's share of
-  // the running sum (the quad's four shares are added at the end).
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kv0 = 0; kv0 < n_k; kv0 += kTile) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    stage_rows<T, DK, KP>(Ks, kp, ks.r, kv0, kTile, n_k);
-    stage_rows<T, DV>(Vs, vp, vs.r, kv0, kTile, n_k);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-    zero(s);
-#pragma unroll
-    for (int kk = 0; kk < KP / 16; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < kTile / 16; ++nj) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &Ks[nj * 16 + (lane % 8) + (lane / 16) * 8][kk * 16 + ((lane / 8) % 2) * 8]);
-        Num<T>::mma(s[2 * nj], qf[kk], kf[0], kf[1]);
-        Num<T>::mma(s[2 * nj + 1], qf[kk], kf[2], kf[3]);
-      }
+  const int wgs = blockDim.x / 128, q0 = blockIdx.x * 64 * wgs, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
+  auto load_tile = [&](int i) {
+    const int s = i % S;
+    hopper::mbar_expect_tx(&full[s], KTile::kBytes + VTile::kBytes);
+    KTile::load(ks + s * KTile::kBytes, 0, &k_map, &full[s], i * BK, h, b);
+    VTile::load(vs + s * VTile::kBytes, 0, &v_map, &full[s], i * BK, h, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], blockDim.x);
     }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_bar, wgs * 64 * F::PK * 2);
+    for (int w = 0; w < wgs; ++w) QTile::load(qs, 64 * w, &q_map, q_bar, q0 + 64 * w, h, b);
+    for (int i = 0; i < S && i < tiles; ++i) load_tile(i);
+  }
 
+  float o[F::PV / 2];
+#pragma unroll
+  for (int i = 0; i < F::PV / 2; ++i) o[i] = 0.f;
+  // Rows g and g + 8 of the warp's 16: running max, this thread's share of the
+  // running sum (the quad's four shares are added at the end), o's rescale.
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+  auto issue_scores = [&](int i) {  // s = q·kᵀ of tile i
+    const unsigned char* k_t = ks + (i % S) * KTile::kBytes;
+#pragma unroll
+    for (int kk = 0; kk < F::kSteps; ++kk)
+      hopper::Wgmma<BK, T>::ss(sc, QTile::kmajor(qs, 64 * wg, 16 * kk),
+                               KTile::kmajor(k_t, 0, 16 * kk), kk);
+    hopper::wgmma_commit();
+  };
+  auto issue_pv = [&](int i) {  // o += T(p)·v of tile i
+    const unsigned char* v_t = vs + (i % S) * VTile::kBytes;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+      hopper::Wgmma<F::PV, T>::rs(o, pa[c], VTile::mnmajor(v_t, 16 * c));
+    hopper::wgmma_commit();
+  };
+  auto softmax = [&](int i) {  // sc <- p of tile i; m, l and alpha
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) sc[j] *= scale;
+    if ((i + 1) * BK > n_k) {  // the last tile: keys past n_k
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i * BK + 8 * j + 2 * t + (e & 1) >= n_k) sc[4 * j + e] = -INFINITY;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < n_k ? s[j][e] * scale : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float alpha[2];
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -178,38 +234,71 @@ __global__ void __launch_bounds__(kThreads)
       l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m_run[e / 2]);
-        s[j][e] = p;
-        l_run[e / 2] += p;
+        sc[4 * j + e] = expf(sc[4 * j + e] - m_run[e / 2]);
+        l_run[e / 2] += sc[4 * j + e];
       }
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    mma_pv<T, DV, kTile>(o, s, Vs, lane);  // o += T(p)·v
-  }
+  };
 
+  // Tile 0's scores and p; then each step i: q·kᵀ of tile i and p·v of tile i - 1.
+  hopper::mbar_wait(q_bar, 0);
+  hopper::mbar_wait(&full[0], 0);
+  hopper::wgmma_fence();
+  issue_scores(0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  softmax(0);
+#pragma unroll
+  for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
+  for (int i = 1; i < tiles; ++i) {
+    if (tid == 0 && i >= 2 && i - 2 + S < tiles) {
+      hopper::mbar_wait(&empty[(i - 2) % S], ((i - 2) / S) & 1);
+      load_tile(i - 2 + S);
+    }
+    hopper::mbar_wait(&full[i % S], (i / S) & 1);
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    hopper::wgmma_fence();
+    issue_scores(i);
+    issue_pv(i - 1);
+    hopper::wgmma_wait<1>();  // tile i's scores are done
+    hopper::fence_regs(sc);
+    softmax(i);
+    hopper::wgmma_wait<0>();  // tile i - 1's p·v is done: o takes the rescale, its stage is free
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    hopper::mbar_arrive(&empty[(i - 1) % S]);
+#pragma unroll
+    for (int j = 0; j < F::PV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
+  }
+  hopper::fence_regs(o);
+  hopper::fence_regs(pa);
+  hopper::wgmma_fence();
+  issue_pv(tiles - 1);  // the last tile's p·v
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  hopper::fence_regs(pa);
+
+  // The late divide by the f32 row sum, one rounding in the store; lse = m + log l.
+  const int row = q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
   float l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = quad_sum(l_run[r]);
-    const int qi = q0 + warp * 16 + lane / 4 + r * 8;
-    if (t == 0 && qi < n_q) lse[((size_t)b * heads + h) * n_q + qi] = m_run[r] + logf(l[r]);
+    if (t == 0 && row + 8 * r < n_q)
+      lse[((size_t)b * heads + h) * n_q + row + 8 * r] = m_run[r] + logf(l[r]);
   }
 #pragma unroll
-  for (int j = 0; j < DV / 8; ++j) {  // the late divide, then one rounding in store_rows
-    o[j][0] /= l[0];
-    o[j][1] /= l[0];
-    o[j][2] /= l[1];
-    o[j][3] /= l[1];
-  }
-  store_rows<T, DV>(head_base(out, os, b, h), os.r, q0 + warp * 16, n_q, o, lane);
+  for (int j = 0; j < F::PV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] /= l[e / 2];
+  hopper::store_fragment<T, DV>(head_base(out, os, b, h), os.r, q0 + 64 * wg, n_q, o, lt);
 }
 
 // D = rowsum(dO∘O) in f32, one warp per row of the flattened (b, h, n_q).
@@ -546,14 +635,23 @@ template <typename T, int DK, int DV>
 cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse,
                   const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
-  constexpr int bytes = fwd_smem_bytes<DK, DV>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, DK, DV>, bytes);
+  using F = Fwd<DK, DV>;
+  constexpr int dt = hopper::dtype_of<T>();
+  constexpr int kc = hopper::Tile<64, F::PK>::kChunk, vc = hopper::Tile<64, F::PV>::kChunk;
+  thread_local int ready = -1;
+  cudaError_t err = prepare_kernel(ready, flash_fwd_kernel<T, DK, DV>, F::smem());
+  CUtensorMap q_map, k_map, v_map;
+  if (err == cudaSuccess) err = head_map(&q_map, q, dt, DK, n_q, heads, b, st, kc, 64);
+  if (err == cudaSuccess) err = head_map(&k_map, k, dt, DK, n_k, heads, b, st + 3, kc, F::BK);
+  if (err == cudaSuccess) err = head_map(&v_map, v, dt, DV, n_k, heads, b, st + 6, vc, F::BK);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_q + kTile - 1) / kTile, heads, b);
-  flash_fwd_kernel<T, DK, DV><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), strides_at(st, 0), static_cast<const T*>(k), strides_at(st, 1),
-      static_cast<const T*>(v), strides_at(st, 2), static_cast<T*>(out), strides_at(st, 3), lse,
-      heads, n_q, n_k, scale);
+  // One key tile (SSA's 64 keys): CTAs of one warpgroup and a one-stage ring, so that more
+  // of them share an SM; K/V then comes once per 64 queries, from L2.
+  const int tiles = (n_k + F::BK - 1) / F::BK;
+  const int wgs = n_q > 64 && tiles > 1 ? 2 : 1;
+  flash_fwd_kernel<T, DK, DV><<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b), 128 * wgs,
+                                F::smem(tiles < F::kStages ? tiles : F::kStages), stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, heads, n_q, n_k, scale);
   return cudaGetLastError();
 }
 

@@ -9,11 +9,11 @@
 //
 // Both are chains of the port's device passes on one stream, as fused_mlp.cu
 // composes them:
-//   ln_gemm forward:  layernorm -> xn; linear (store) -> q|k|v (rows, 3·inner),
-//     which the attention reads through column strides (no split copy).  xn
-//     goes through device memory: an LN prologue inside the GEMM, so that it
-//     never does when serving, is later work (layernorm.cu says why the block
-//     kernels took the separate pass).
+//   ln_gemm forward:  layernorm -> xn; the wgmma GEMM (gemm_wgmma.cu) -> q|k|v
+//     (rows, 3·inner), which the attention reads through column strides (no
+//     split copy).  xn goes through device memory: an LN prologue inside the
+//     GEMM, so that it never does when serving, is later work (layernorm.cu
+//     says why the block kernels took the separate pass).
 //   ln_gemm backward: linear dqkv·W into f32 -> dxn; the LayerNorm backward
 //     with no residual -> dx = T(rstd·(dxhat - m1 - xhat·m2)), Σ dγ, Σ dβ.
 //   proj_mlp forward: linear (bias + residual) -> y = T(x + T(o·Woᵀ + bo));
@@ -49,8 +49,7 @@ extern "C" int vit_ln_gemm_fwd(const void* x, const void* gamma, const void* bet
   using namespace vit;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_linear(xn, w, kWeightNK, nullptr, nullptr, nullptr, out, nullptr, nullptr, rows,
-                       n_out, d, kEpiStore, dtype, stream);
+  return launch_gemm_wgmma(xn, w, out, rows, n_out, d, dtype, stream);
 }
 
 // dout (rows, n_out) contiguous; outputs dx (rows, d) in the compute dtype and

@@ -1,10 +1,12 @@
-// Hopper building blocks of the attention kernels that run on the tensor-core
-// warpgroup MMA (flash_attention.cu's backward, short_attention.cu's forward):
+// Hopper building blocks of the kernels that run on the tensor-core warpgroup
+// MMA (flash_attention.cu's forward and backward, short_attention.cu's
+// forward, gemm_wgmma.cu's GEMM):
 //   - mbarriers: init, arrive, arrive-expect-tx, wait on a phase parity;
 //   - TMA: a tensor map per (b, h, n, d) operand read through its (batch, head,
 //     row) strides, built on the host per call and passed as a __grid_constant__
 //     kernel parameter; loads of 4-d boxes (one head's rows) completing on
-//     an mbarrier; rows and columns past an extent arrive as zeros;
+//     an mbarrier; rows and columns past an extent arrive as zeros; a 2-d
+//     (rows, cols) matrix is the map of one image and one head (matrix_map);
 //   - wgmma.mma_async (m64nNk16, bf16 or f16, f32 accumulators) with A and B
 //     from shared memory (both K-major) or A from registers and B from shared
 //     memory MN-major (the transpose bit), and the shared-memory matrix
@@ -347,6 +349,49 @@ struct Wgmma;
     } \
   };
 
+#define VIT_WGMMA_256(TY, PTX) \
+  template <> struct Wgmma<256, TY> { \
+    static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, \
+                                              int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n256k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+                   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+                   "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+                   "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+                   "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+                   "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+                   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+                   "%124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+                     "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+                     "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+                     "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+                     "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+                     "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+                     "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+                     "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+                     "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+                     "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+                     "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+                     "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+                     "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+                     "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+                     "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), \
+                     "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), \
+                     "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), \
+                     "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+                     "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), \
+                     "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
+                     "+f"(d[126]), "+f"(d[127]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
+    } \
+  };
+
 VIT_WGMMA_32(__nv_bfloat16, "bf16")
 VIT_WGMMA_64(__nv_bfloat16, "bf16")
 VIT_WGMMA_80(__nv_bfloat16, "bf16")
@@ -357,6 +402,8 @@ VIT_WGMMA_64(__half, "f16")
 VIT_WGMMA_80(__half, "f16")
 VIT_WGMMA_128(__half, "f16")
 VIT_WGMMA_208(__half, "f16")
+VIT_WGMMA_256(__nv_bfloat16, "bf16")
+VIT_WGMMA_256(__half, "f16")
 
 // The A fragment of k16-chunk c from an f32 accumulator over that dimension
 // (n8-blocks 2c and 2c + 1), rounded to T.
@@ -369,10 +416,11 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const float (&d)[R]
 }
 
 // Store the first D columns of a warpgroup's 64 x W f32 fragment to rows r0..
-// of a row-strided output, rounded; rows at or past n are skipped.
+// of a row-strided output, rounded; rows at or past n, and n8-blocks at or
+// past `cols` (a multiple of 8), are skipped.
 template <typename T, int D, int R>
 __device__ __forceinline__ void store_fragment(T* dst, long long ld, int r0, int n,
-                                               const float (&acc)[R], int lt) {
+                                               const float (&acc)[R], int lt, int cols = D) {
   const int row = r0 + (lt / 32) * 16 + (lt % 32) / 4, col = 2 * (lt % 4);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -380,8 +428,9 @@ __device__ __forceinline__ void store_fragment(T* dst, long long ld, int r0, int
     T* p = dst + (long long)(row + 8 * half) * ld + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + 8 * j) =
-          Num<T>::pack2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      if (8 * j < cols)
+        *reinterpret_cast<uint32_t*>(p + 8 * j) =
+            Num<T>::pack2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
   }
 }
 
@@ -440,6 +489,16 @@ inline cudaError_t head_map(CUtensorMap* map, const void* data, int dtype, int d
       cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a (rows, cols) matrix in the compute dtype whose rows lie `ld`
+// elements apart, the columns contiguous: a head map of one image and one head
+// (a size-1 axis's stride addresses nothing and goes as 8 elements).  Its
+// boxes are read with tma_load_head(dst, map, bar, column, row, 0, 0).
+inline cudaError_t matrix_map(CUtensorMap* map, const void* data, int dtype, int cols, int rows,
+                              long long ld, int box_cols, int box_rows) {
+  const long long strides[3] = {8, 8, ld};
+  return head_map(map, data, dtype, cols, rows, 1, 1, strides, box_cols, box_rows);
 }
 
 }  // namespace vit

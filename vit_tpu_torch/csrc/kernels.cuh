@@ -143,6 +143,12 @@ cudaError_t launch_linear(const void* a, const void* w, int layout, const void* 
                           cudaStream_t stream);
 int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear_partial_rows
 
+// out (rows, n) = T(A · Wᵀ) with A (rows, k) and W (n, k), both k-contiguous
+// and 16-byte aligned, on wgmma fed by TMA (gemm_wgmma.cu).  k % 8 == 0 and
+// n % 8 == 0.
+cudaError_t launch_gemm_wgmma(const void* a, const void* w, void* out, int rows, int n, int k,
+                              int dtype, cudaStream_t stream);
+
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
 // q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
 // (hb, n, n) f32 logits bias added after the scale, shared by every head when

@@ -24,15 +24,15 @@ versions are exact attention and its gradient.
 
 Layout: q ``(b, h, n_q, dk)``, k ``(b, h, n_k, dk)`` and v ``(b, h, n_k,
 dv)``, read through their strides (the last axis contiguous, the others
-multiples of 16 bytes, the data 16-byte aligned: what the backward's TMA
+multiples of 16 bytes, the data 16-byte aligned: what the kernels' TMA
 tensor maps take, :func:`_tma_problem`), so a view of a channels-last
 ``(b, n, h·d)`` map goes in as it lies.
 The kernels write out, dq, dk and dv token-major: the ``(b, h, n, d)``
 tensors they return are views of ``(b, n, h, d)`` memory, which a ``(b, n,
 h·d)`` consumer reads without a copy.  q/k and v may have different head
 widths where a kernel instance exists (``SUPPORTED_WIDTHS``: ScalableViT's
-SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled in shared memory,
-to 48 in the forward and 64 in the backward, never in device memory).
+SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled to 64 in shared
+memory by the tensor maps, never in device memory).
 """
 
 from __future__ import annotations
