@@ -1154,22 +1154,28 @@ SHORT_SHAPES = [
 ]
 
 
-# The kernels rebuilt on wgmma with a TMA ring (csrc/hopper.cuh), and the
-# times of the designs they replaced (mma.sync with synchronous staging; for
-# ln_gemm's GEMM, with a cp.async ring), ms on an H100 80GB HBM3 at 700 W: constants
-# cited from PERF.md's kernel table and its findings on the rebuilds, printed
-# on a line of their own beside the kernels' line, never in it (every number
-# there is this run's).  The flash forward's rebuild also runs the packed op's
-# forward and the attention inside the cross-attention block's forward.
+# The kernels rebuilt for Hopper (csrc/hopper.cuh: TMA rings on mbarriers,
+# wgmma), and the times of the designs they replaced (mma.sync with
+# synchronous staging; for proj_mlp, linear.cu's cp.async GEMM; for ln_gemm,
+# the earlier one-tile-a-CTA wgmma GEMM), ms on an H100 80GB HBM3 at 700 W:
+# constants cited from PERF.md's kernel table and its findings on the
+# rebuilds, printed on a line of their own beside the kernels' line, never in
+# it (every number there is this run's).  The flash forward's rebuild also
+# runs the packed op's forward and the attention inside the cross-attention
+# block's forward; the short backward's runs attention_nb's.
 DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_cross_attention": "wgmma+tma", "flash_attention_packed": "wgmma+tma",
-           "short_attention": "wgmma+tma", "ln_gemm": "wgmma+tma", "attention_nb": "wgmma+tma"}
+           "short_attention": "wgmma+tma", "ln_gemm": "wgmma+tma, warp-specialised, persistent",
+           "attention_nb": "wgmma+tma", "proj_mlp": "wgmma+tma, warp-specialised, persistent",
+           "short_attention_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
+           "attention_nb_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
     "flash_attention_packed": {"ScalableViT IWSA stage 1": 2.4982},
     "fused_cross_attention": {"ScalableViT stage 1": 0.3121},
-    "ln_gemm": {"B/32": 0.2494},
+    "ln_gemm": {"B/32": 0.1517},
+    "proj_mlp": {"B/32": 0.4404},
     "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
                        "CvT-13@384 stage 2": 1.8241, "n=8192, through the dispatcher": 24.0999,
                        "n=4096, d=32": 9.6678},
@@ -1179,6 +1185,10 @@ EARLIER_DESIGN_MS = {
                         "n=512, d=64": 0.2990, "n=512, d=128": 0.4042,
                         "cross-attention, ragged": 0.0673},
     "attention_nb": {"B/32": 0.1732},
+    "short_attention_bwd": {"ViT-B/16 attention": 0.6722, "CvT-13@224 stage 3": 0.1721,
+                            "n=512, d=64": 0.4995, "n=512, d=128": 0.7270,
+                            "cross-attention, ragged": 0.1301},
+    "attention_nb_bwd": {"B/32": 0.4285},
 }
 
 
@@ -1776,12 +1786,13 @@ def kernel_group(name: str) -> str:
     m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
-    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?>", name)
+    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?(?:, \d+)?>", name)
     if m:
         return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles)" if m.group(3)
                                                   else ")")
-    if "gemm_wgmma_kernel" in name:  # before the library's GEMMs: its name holds "gemm"
-        return "gemm_wgmma_kernel (ln_gemm's QKV)"
+    m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)>", name)
+    if m:  # before the library's GEMMs: its name holds "gemm"
+        return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -1932,7 +1943,7 @@ def ptxas_report(build_log: str) -> dict:
     0/0 bytes spilled (stores/loads)", ...}``."""
     report, name = {}, None
     pattern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
-                         r"short_fwd_kernel|gemm_wgmma_kernel)"
+                         r"short_fwd_kernel|short_bwd_kernel|short_bwd_wg_kernel|gemm_wgmma_kernel)"
                          r"I(6__half|13__nv_bfloat16)((?:Li\d+E)*)")
     for line in build_log.splitlines():
         if "Compiling entry function" in line:

@@ -8,7 +8,8 @@ n_q x n_k products forward for attention, five backward: q·kᵀ, dO·vᵀ, dv, 
 and dk; the dgrad GEMMs of a block's backward), each input read once and
 each output written once (bf16 tensors, f32 lse and parameter sums).  The
 script imports only the standard library at module level, so the CPU can
-import it.
+import it.  The profile phase's names for the hybrid tier's kernels are
+pinned too.
 """
 
 import pytest
@@ -104,3 +105,19 @@ def test_hybrid_bounds(raw):
                                    2 * act + h + 2 * 16 + w_mlp + act + o + 2 * h
                                    + 4 * (4 * 16 + 32))
     assert got["proj_mlp"][1] == 3_712 and got["proj_mlp_bwd"][1] == 6_176
+
+
+@pytest.mark.parametrize("kernel,group", [
+    ("void vit::(anonymous namespace)::short_bwd_kernel<__nv_bfloat16, 64, 80, 80>(CUtensorMap)",
+     "short_bwd_kernel (d 64, 80-key tiles)"),
+    ("void vit::(anonymous namespace)::short_bwd_wg_kernel<__nv_bfloat16, 64>(CUtensorMap)",
+     "short_bwd_wg_kernel (d 64)"),
+    ("void vit::(anonymous namespace)::short_fwd_kernel<__nv_bfloat16, 64, 80>(CUtensorMap)",
+     "short_fwd_kernel (d 64, 80-key tiles)"),
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 3>(CUtensorMap)",
+     "gemm_wgmma_kernel bias+GELU, keeps h (fc1)"),
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 0>(CUtensorMap)",
+     "gemm_wgmma_kernel store (QKV, doattn)"),
+])
+def test_profile_groups_the_hybrid_kernels(kernel, group):
+    assert chip_smoke.kernel_group(kernel) == group

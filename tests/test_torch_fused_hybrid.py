@@ -305,3 +305,35 @@ def test_ln_gemm_joins_the_attention_gradient_without_a_copy(monkeypatch):
     (buf, douts), = joined
     assert buf.data_ptr() == douts[0].data_ptr() and buf.shape == (64 * 40, 3 * 128)
     assert all(torch.equal(buf[:, 128 * i:128 * (i + 1)], d) for i, d in enumerate(douts))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_proj_mlp_forward_is_the_gemm_chain(dtype):
+    """The CUDA forward chains ``gemm_wgmma.cu``'s epilogues (bias + residual,
+    LayerNorm, bias + GELU keeping h, bias + residual); the plain GEMM
+    (:func:`~vit_tpu_torch.ops.fused_hybrid.gemm_reference`, what
+    ``gemm_wgmma`` runs on a CPU tensor) chained the same way gives
+    ``proj_mlp``'s plain forward bit for bit, in bf16 (every rounding point)
+    and f32, and its store epilogue ``ln_gemm``'s GEMM."""
+    rng = np.random.default_rng(9)
+    t, d, inner, hidden, eps = 133, 96, 64, 160, 1e-3
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(_rn(rng, *shape, scale=scale, shift=shift)).to(dtype)
+
+    x, o = rn(t, d), rn(t, inner)
+    wo, bo = rn(d, inner, scale=inner ** -0.5), rn(d, scale=0.1)
+    gamma, beta = rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1)
+    w1, b1 = rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1)
+    w2, b2 = rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1)
+    z, y, xn, h = fh.proj_mlp_forward_reference(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps)
+    y2, _ = fh.gemm_wgmma(o, wo, "bias_residual", bo, x)
+    _, xn2 = fh.ln_gemm_forward_reference(y2, gamma, beta, w1, eps)
+    g2, h2 = fh.gemm_wgmma(xn2, w1, "bias_gelu_save", b1)
+    served, none = fh.gemm_wgmma(xn2, w1, "bias_gelu", b1)
+    z2, _ = fh.gemm_wgmma(g2, w2, "bias_residual", b2, y2)
+    for got, want in ((y2, y), (xn2, xn), (h2, h), (z2, z), (served, g2)):
+        assert torch.equal(got, want)
+    assert none is None
+    qkv, xn1 = fh.ln_gemm_forward_reference(x, gamma, beta, w1, eps)
+    assert torch.equal(fh.gemm_wgmma(xn1, w1, "store")[0], qkv)

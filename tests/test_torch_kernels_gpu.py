@@ -770,6 +770,15 @@ def _short_inputs(cuda, b, h, n_q, n_k, d, dtype=torch.bfloat16, seed=0):
     # on one and two query warpgroups
     (2, 2, n, n, d, torch.bfloat16) for n in (65, 72, 73, 100, 197, 256, 257, 512)
     for d in (32, 64, 128)
+] + [
+    # the backward's key blocks (csrc/short_attention.cu's bwd_key_block): 64 up to 64 keys,
+    # 80 up to 80 (one 80-row query step), 128 up to 128 on mma.sync, 256 up to 256 at
+    # d <= 64 on wgmma (and 256, 257 above), 128-key blocks with dq partials past them
+    (2, 2, n, n, d, torch.bfloat16) for n in (64, 80, 81, 128, 129, 208, 209)
+    for d in (32, 64, 128)
+] + [
+    (2, 2, 300, 80, 64, torch.bfloat16),  # four 80-row steps through the 2-stage ring
+    (3, 2, 257, 208, 64, torch.float16),  # five 64-row steps on the wgmma backward
 ])
 def test_short_attention_kernels_match_plain(cuda, b, h, n_q, n_k, d, dtype):
     """The op under autograd: forward (out, lse) against its plain version,
@@ -898,6 +907,63 @@ def test_ln_gemm_forward_matches_plain(cuda, rows, d, n_out, dtype):
     check_outputs(torch, "ln_gemm", got, fh.ln_gemm_forward_reference(x, gamma, beta, w, 1e-3),
                   {})
     _twice(got, fh._launch_ln_gemm(x, gamma, beta, w, 1e-3))
+
+
+# (rows, n, k) of proj_mlp's out-projection, fc1 and fc2 at ViT-B/32's layer
+# (batch 128, n 65) and at the ragged layer (2112 rows, d 96, hidden 160: n
+# below 256 and k no multiple of 64, so the maps fill zeros and the stores are
+# predicated).
+GEMM_SHAPES = [(8320, 1024, 1024), (8320, 2048, 1024), (8320, 1024, 2048),
+               (2112, 96, 96), (2112, 160, 96), (2112, 96, 160)]
+
+
+@pytest.mark.parametrize("epilogue", list(fh.GEMM_EPILOGUES))
+@pytest.mark.parametrize("rows,n,k", GEMM_SHAPES)
+def test_gemm_wgmma_epilogue_matches_plain(cuda, rows, n, k, epilogue):
+    """Each epilogue of the forward GEMM against its plain version (out, and
+    h where it keeps h; bias + residual held against its residual), the same
+    bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(rows + n + k)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    a, w, bias, res = rn(rows, k), rn(n, k, scale=k ** -0.5), rn(n, scale=0.1), rn(rows, n)
+    before = fh.gemm_wgmma.launches
+    got = fh.gemm_wgmma(a, w, epilogue, bias, res)
+    torch.cuda.synchronize()
+    assert fh.gemm_wgmma.launches == before + 1
+    ref = fh.gemm_reference(a, w, epilogue, bias, res)
+    kept = [i for i, r in enumerate(ref) if r is not None]
+    assert [i for i, o in enumerate(got) if o is not None] == kept
+    check_outputs(torch, f"gemm {epilogue}", [got[i] for i in kept], [ref[i] for i in kept],
+                  {0: res} if epilogue == "bias_residual" else {})
+    again = fh.gemm_wgmma(a, w, epilogue, bias, res)
+    _twice([got[i] for i in kept], [again[i] for i in kept])
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 33, 3, 32), (8, 80, 4, 64),
+                                          (8, 81, 4, 64)])
+def test_attention_nb_backward_matches_plain(cuda, b, n, heads, dh):
+    """attention_nb's backward over (n, b, heads·dh) column views of one q|k|v
+    projection (ViT-B/32's layer at bench.py's batch, the ragged layer, and
+    either side of the 80-key block) against its plain backward fed the
+    kernel's own out and lse, twice bit for bit, into one (n, b, 3·inner)
+    buffer."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    inner = heads * dh
+    qkv = torch.randn(n, b, 3 * inner, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, -1)
+    do = torch.randn(n, b, inner, generator=g, device=cuda).to(torch.bfloat16)
+    o, lse = fh.attention_nb_forward(q, k, v, heads, dh)
+    before = fh.attention_nb_backward.launches
+    grads = fh.attention_nb_backward(do, q, k, v, o, lse, heads, dh)
+    torch.cuda.synchronize()
+    assert fh.attention_nb_backward.launches == before + 1
+    check_outputs(torch, "attention_nb backward", grads,
+                  fh.attention_nb_backward_reference(do, q, k, v, o, lse, heads, dh), {})
+    _twice(grads, fh.attention_nb_backward(do, q, k, v, o, lse, heads, dh))
+    assert fh._joined([t.reshape(n * b, inner) for t in grads]).data_ptr() == grads[0].data_ptr()
 
 
 def _hybrid_launches():

@@ -1,15 +1,16 @@
 """Host-side logic of the Hopper kernels fed by TMA, on CPU tensors.
 
-The flash forward and backward and the short-attention forward read their
-operands through TMA tensor maps, which ``vit_tpu_torch/csrc/hopper.cuh``'s
+The flash forward and backward and the short-attention forward and backward
+read their operands through TMA tensor maps, which ``vit_tpu_torch/csrc/hopper.cuh``'s
 ``head_map`` builds from the (batch, head, row) element strides that
 ``kernel_strides`` passes.  These tests pin those strides for each caller's
 view, check that every caller's view is one a tensor map takes, and that the
 views no map takes are refused (``_tma_problem``, which
-``check_flash_tensors`` raises on before any launch).  ``ln_gemm``'s forward
-GEMM reads xn and W through 2-d maps (``matrix_map``: rows ``d`` elements
-apart), which take what its wrapper lets through: contiguous, 16-byte
-aligned, widths that are multiples of 8.
+``check_flash_tensors`` raises on before any launch).  The hybrid layer's
+forward GEMM (``gemm_wgmma.cu``: ``ln_gemm``'s QKV, ``proj_mlp``'s
+out-projection, fc1 and fc2) reads its operands through 2-d maps
+(``matrix_map``: rows their width apart), which take what the wrappers let
+through: contiguous, 16-byte aligned, widths that are multiples of 8.
 """
 
 import pytest
@@ -116,3 +117,38 @@ def test_ln_gemm_refuses_widths_no_map_takes_before_any_launch():
         fh._launch_ln_gemm(x, g, g, torch.zeros(200, 68, dtype=BF16), 1e-3)
     with pytest.raises(ValueError, match="multiples of 8"):
         fh._launch_ln_gemm(x[:, :64], g[:64], g[:64], torch.zeros(204, 64, dtype=BF16), 1e-3)
+
+
+@pytest.mark.parametrize("t,d,inner,hidden", [(8320, 1024, 1024, 2048), (2112, 96, 96, 160),
+                                              (1, 8, 8, 8)])
+def test_proj_mlp_gemm_operands_are_matrices_a_map_takes(t, d, inner, hidden):
+    """proj_mlp's three forward GEMMs read o·Woᵀ, xn·W1ᵀ and g·W2ᵀ through 2-d
+    maps: o, Wo, xn, W1, g and W2 as _launch_proj_mlp holds them (the caller's
+    rows and the nn.Linear weights, and its own xn and g buffers), each a
+    matrix whose rows lie its width apart."""
+    x = torch.zeros(t, d, dtype=BF16)
+    _, _, xn, g, h = fh._proj_mlp_buffers(x, hidden, save_residuals=True)
+    operands = {"o": (torch.zeros(t, inner, dtype=BF16), inner),
+                "wo": (torch.zeros(d, inner, dtype=BF16), inner), "xn": (xn, d),
+                "w1": (torch.zeros(hidden, d, dtype=BF16), d), "g": (g, hidden),
+                "w2": (torch.zeros(d, hidden, dtype=BF16), hidden)}
+    for name, (m, width) in operands.items():
+        assert _tma_problem(m) is None, name
+        assert m.stride() == (width, 1), name
+    assert h.shape == g.shape and h.is_contiguous()
+
+
+@pytest.mark.parametrize("d,inner,hidden", [(68, 64, 128), (64, 68, 128), (64, 64, 204)])
+def test_proj_mlp_refuses_widths_no_map_takes_before_any_launch(d, inner, hidden):
+    x, o = torch.zeros(5, d, dtype=BF16), torch.zeros(5, inner, dtype=BF16)
+    vd, vh = torch.zeros(d, dtype=BF16), torch.zeros(hidden, dtype=BF16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fh._launch_proj_mlp(x, o, torch.zeros(d, inner, dtype=BF16), vd, vd, vd,
+                            torch.zeros(hidden, d, dtype=BF16), vh,
+                            torch.zeros(d, hidden, dtype=BF16), vd, 1e-3, True)
+
+
+def test_gemm_refuses_widths_no_map_takes_before_any_launch():
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fh.gemm_wgmma(torch.zeros(5, 68, dtype=BF16, device="meta"),
+                      torch.zeros(64, 68, dtype=BF16), "store")

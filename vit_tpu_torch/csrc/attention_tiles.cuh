@@ -1,9 +1,10 @@
-// Tile helpers shared by the mma.sync attention kernels (attention.cu, the
-// block's multi-head attention over packed qkv; short_attention.cu's backward,
-// whole-row attention at n <= 512).  A block is four warps (eight in short_bwd); each warp owns
-// 16 rows of a 64-row tile, and its products run on mma.sync m16n8k16 with
-// f32 accumulation.  Tiles live in shared memory as rows of DH + 8 elements,
-// so that ldmatrix's eight row addresses fall in distinct banks.
+// Tile helpers of the mma.sync attention kernels (attention.cu, the block's
+// multi-head attention over packed qkv; short_attention.cu's backward, which
+// takes the fragment helpers below and reads TMA's swizzled tiles itself).  A
+// block is four warps; each warp owns 16 rows of a 64-row tile, and its
+// products run on mma.sync m16n8k16 with f32 accumulation.  Tiles live in
+// shared memory as rows of DH + 8 elements, so that ldmatrix's eight row
+// addresses fall in distinct banks.
 #pragma once
 
 #include "kernels.cuh"

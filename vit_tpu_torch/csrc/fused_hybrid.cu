@@ -16,10 +16,11 @@
 //     says why the block kernels took the separate pass).
 //   ln_gemm backward: linear dqkv·W into f32 -> dxn; the LayerNorm backward
 //     with no residual -> dx = T(rstd·(dxhat - m1 - xhat·m2)), Σ dγ, Σ dβ.
-//   proj_mlp forward: linear (bias + residual) -> y = T(x + T(o·Woᵀ + bo));
-//     then the fused MLP's forward over y (layernorm -> xn, fc1 with bias and
-//     exact-erf GELU, keeping h in training, fc2 with bias and the residual
-//     y) -> z.
+//   proj_mlp forward: the wgmma GEMM with bias + residual -> y = T(x +
+//     T(o·Woᵀ + bo)); layernorm -> xn; the wgmma GEMM with bias and exact-erf
+//     GELU, keeping h in training -> g; the wgmma GEMM with bias and the
+//     residual y -> z.  The fused MLP's chain over y, on gemm_wgmma.cu's
+//     epilogues, which round where linear.cu's do.
 //   proj_mlp backward: the fused MLP's backward over (dz, y, h) -> dy, dh,
 //     gact, Σ db1 and [dγ | dβ | Σ dz = db2]; linear dy·Wo -> do; the column
 //     sums of dy -> dbo.
@@ -49,7 +50,8 @@ extern "C" int vit_ln_gemm_fwd(const void* x, const void* gamma, const void* bet
   using namespace vit;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm_wgmma(xn, w, out, rows, n_out, d, dtype, stream);
+  return launch_gemm_wgmma(xn, w, nullptr, nullptr, out, nullptr, rows, n_out, d, kEpiStore, dtype,
+                           stream);
 }
 
 // dout (rows, n_out) contiguous; outputs dx (rows, d) in the compute dtype and
@@ -77,16 +79,16 @@ extern "C" int vit_proj_mlp_fwd(const void* x, const void* o, const void* wo, co
                                 void* xn, void* g, void* h, int rows, int d, int inner,
                                 int hidden, float eps, int dtype, cudaStream_t stream) {
   using namespace vit;
-  cudaError_t err = launch_linear(o, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, d,
-                                  inner, kEpiBiasResidual, dtype, stream);
+  cudaError_t err = launch_gemm_wgmma(o, wo, bo, x, y, nullptr, rows, d, inner,
+                                      kEpiBiasResidual, dtype, stream);
   if (err != cudaSuccess) return err;
   err = launch_layernorm(y, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(xn, w1, kWeightNK, b1, nullptr, nullptr, g, h, nullptr, rows, hidden, d,
-                      h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
+  err = launch_gemm_wgmma(xn, w1, b1, nullptr, g, h, rows, hidden, d,
+                          h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_linear(g, w2, kWeightNK, b2, y, nullptr, z, nullptr, nullptr, rows, d, hidden,
-                       kEpiBiasResidual, dtype, stream);
+  return launch_gemm_wgmma(g, w2, b2, y, z, nullptr, rows, d, hidden, kEpiBiasResidual, dtype,
+                           stream);
 }
 
 // Outputs dy (rows, d), do_ (rows, inner), dh and gact (rows, hidden) in the

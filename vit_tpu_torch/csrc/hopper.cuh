@@ -1,7 +1,10 @@
 // Hopper building blocks of the kernels that run on the tensor-core warpgroup
 // MMA (flash_attention.cu's forward and backward, short_attention.cu's
-// forward, gemm_wgmma.cu's GEMM):
+// forward, gemm_wgmma.cu's GEMM) or are fed by TMA (short_attention.cu's
+// backward):
 //   - mbarriers: init, arrive, arrive-expect-tx, wait on a phase parity;
+//   - named barriers of one warpgroup, and setmaxnreg, which moves registers
+//     between the warpgroups of a warp-specialised kernel;
 //   - TMA: a tensor map per (b, h, n, d) operand read through its (batch, head,
 //     row) strides, built on the host per call and passed as a __grid_constant__
 //     kernel parameter; loads of 4-d boxes (one head's rows) completing on
@@ -62,6 +65,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Waits for the `threads` threads (a multiple of 32) that use barrier `id`
+// (1..15; 0 is __syncthreads's).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// This warpgroup's registers per thread, lowered (a producer that only
+// issues TMA) or raised (the consumers that hold the accumulators).  Every
+// warp of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA loads -------------------------------------------------------------------------------
@@ -150,6 +171,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// Makes the calling thread's shared-memory stores visible to the async proxy
+// (a wgmma that reads them after a barrier).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // Orders the compiler's accesses to registers that an asynchronous wgmma
 // writes after the wait that completes it (and before the next one).
 template <int R>
@@ -170,6 +196,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[C][4]) {
 // D (64 x N, f32, the accumulator fragment: n8-block j holds d[4j..4j+3], rows
 // g and g + 8 of the warp's 16, columns 2t and 2t + 1) += A (64 x 16) · B (16 x N).
 //   ss: A and B from shared memory, both K-major; acc = 0 overwrites D.
+//   ss_t (N 32 and 64): A K-major, B MN-major (the transpose bit), both from
+//       shared memory.
 //   rs: A from registers (the mma.sync m16n8k16 A fragment of the warp's 16
 //       rows), B from shared memory MN-major (the transpose bit).
 template <int N, typename T>
@@ -183,6 +211,17 @@ struct Wgmma;
                    "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" \
                    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
                    "%16, %17, p, 1, 1, 0, 0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
+    } \
+    static __device__ __forceinline__ void ss_t(float (&d)[16], uint64_t a, uint64_t b, \
+                                              int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+                   "%16, %17, p, 1, 1, 0, 1;\n}\n" \
                    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
                      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
                      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
@@ -210,6 +249,21 @@ struct Wgmma;
                    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
                    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
                    "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+                     "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+                     "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+                     "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
+    } \
+    static __device__ __forceinline__ void ss_t(float (&d)[32], uint64_t a, uint64_t b, \
+                                              int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                   "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n" \
                    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
                      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
                      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \

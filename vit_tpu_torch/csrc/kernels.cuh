@@ -22,8 +22,9 @@ enum DType : int { kBF16 = 0, kF16 = 1 };
 // as Wᵀ (the forward GEMMs), or W (k, n) used as it lies (the dgrads).
 enum WeightLayout : int { kWeightNK = 0, kWeightKN = 1 };
 
-// Epilogues of the row-major GEMM  out = epi(A · B)  (linear.cu).  kWeightNK
-// takes the first four, kWeightKN kEpiStore, kEpiDGelu and kEpiStoreF32.
+// Epilogues of the row-major GEMMs  out = epi(A · B)  (linear.cu, and the first
+// four in gemm_wgmma.cu).  linear.cu's kWeightNK takes the first four,
+// kWeightKN kEpiStore, kEpiDGelu and kEpiStoreF32.
 enum Epilogue : int {
   kEpiStore = 0,         // out = T(acc)                          (QKV; doattn = dy·Wo)
   kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1, serving)
@@ -143,10 +144,14 @@ cudaError_t launch_linear(const void* a, const void* w, int layout, const void* 
                           cudaStream_t stream);
 int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear_partial_rows
 
-// out (rows, n) = T(A · Wᵀ) with A (rows, k) and W (n, k), both k-contiguous
-// and 16-byte aligned, on wgmma fed by TMA (gemm_wgmma.cu).  k % 8 == 0 and
-// n % 8 == 0.
-cudaError_t launch_gemm_wgmma(const void* a, const void* w, void* out, int rows, int n, int k,
+// out (rows, n) = epi(A · Wᵀ) with A (rows, k) and W (n, k), both k-contiguous,
+// on wgmma fed by TMA (gemm_wgmma.cu), for the epilogues kEpiStore,
+// kEpiBiasGelu, kEpiBiasResidual and kEpiBiasGeluSave (with linear.cu's
+// rounding points); `bias` (n,), `res` and `aux` (rows, n) as the epilogue
+// needs them, null otherwise.  k % 8 == 0, n % 8 == 0, every matrix 16-byte
+// aligned.
+cudaError_t launch_gemm_wgmma(const void* a, const void* w, const void* bias, const void* res,
+                              void* out, void* aux, int rows, int n, int k, int epilogue,
                               int dtype, cudaStream_t stream);
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with

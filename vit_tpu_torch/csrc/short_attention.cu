@@ -2,8 +2,8 @@
 // of at most 512 keys, and a one-pass backward that takes dq, dk and dv from
 // one recompute of the scores.  q (b, h, n_q, d), k and v (b, h, n_k, d),
 // n_q, n_k <= 512, d ∈ {32, 64, 128}, bf16 or f16 operands, f32
-// accumulation: the forward on wgmma with its operands brought by TMA
-// (hopper.cuh), the backward on mma.sync m16n8k16.
+// accumulation, the operands brought by TMA (hopper.cuh): the forward on
+// wgmma, the backward on mma.sync m16n8k16.
 //
 // Replaces the TPU kernels
 //   vit_tpu/ops/short_attention.py:82   _fwd_kernel (short_attention, whole
@@ -45,18 +45,28 @@
 // (fused_hybrid.py:337), and no online rescale of o.  The training forward
 // also writes lse = m + log l in f32.
 //
-// Backward (short_bwd): one CTA of eight warps per (128-key block, head,
-// image), each warp owning 16 keys, dk and dv accumulated in registers over
-// the query tiles (64 rows, 32 at d = 128).  Per query tile: D = rowsum(dO∘O)
-// over the stored output (the flash backward's D, flash_backward.py:135),
-// sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale - lse), ds = p·(dp - D)·scale;
-// dv += T(pᵀ)·dO, dk += T(dsᵀ)·q; T(ds) goes to shared memory query-major,
-// and the eight warps take dq's tile as T(ds)·k over the block's keys.  Five
-// n_q x n_k products, the TPU kernel's count (the flash backward's two-pass
-// split takes seven).  Where n_k > 128 each key block writes its dq share as
-// f32 partials, which short_dq_sum adds in key-block order; at n_k <= 128
-// (the hybrid tier's n < 128) one CTA holds the slice and stores dq itself.
-// No atomics: the bits repeat.
+// Backward (short_bwd): one CTA per (key block, head, image), dk and dv of the
+// block's keys accumulated in registers over query steps.  The key block is
+// sized to n_k (bwd_key_block): the whole row where one CTA holds it, so dq
+// is summed inside the CTA and stored once: 64 or 80 keys (the hybrid tier's
+// n = 65: five warps, one 80-row query step, two CTAs an SM), 128, or at d <=
+// 64 up to 256 (ViT-B/16's 197).  Longer rows take 128-key blocks, each
+// writing its dq share as f32 partials, which short_dq_sum adds in key-block
+// order.  K and V come once by TMA, the steps' Q, dO and O tiles through a
+// 2-stage mbarrier ring (one stage when one step covers the rows); D =
+// rowsum(dO∘O) (the flash backward's D, flash_backward.py:135) is taken from
+// the staged O and dO.  Per step: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale
+// - lse), ds = p·(dp - D)·scale; dv += T(pᵀ)·dO, dk += T(dsᵀ)·q, a few
+// queries at a time (none past the last group that holds a query), so that
+// only dk and dv stay in registers across the step; T(ds) goes to shared
+// memory query-major and dq = T(ds)·k is taken over the block's keys.  Five
+// n_q x n_k products, the TPU kernel's count.  Up to 128 keys a warp takes 16
+// keys on mma.sync from the swizzled TMA tiles (ldmatrix on swizzled
+// addresses): a 64-row wgmma slab would pad n = 65 to 128 key rows.  From 129
+// to 256 keys (d <= 64) four warpgroups take 64 keys each on wgmma
+// (short_bwd_wg_kernel), which reads each B operand once a warpgroup where
+// thirteen mma.sync warps read it thirteen times.  No atomics: the bits
+// repeat.
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
 
@@ -65,9 +75,8 @@ namespace {
 
 constexpr int kMaxSeq = 512;
 constexpr int kFwdStages = 2;  // depth of the forward's TMA ring
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kKeyBlock = 16 * kBwdWarps;  // keys of a backward CTA
+// Key rows and query rows of the wgmma backward's tiles (short_bwd_wg_kernel).
+constexpr int kWgKeys = 256, kWgRows = 64;
 
 struct Strides {
   long long b, h, r;
@@ -78,44 +87,11 @@ __device__ __forceinline__ P* head_base(P* p, Strides s, int b, int h) {
   return p + (long long)b * s.b + (long long)h * s.h;
 }
 
-// Query rows of a backward step: at d = 128 the register accumulators of dk
-// and dv take half the file, so the step takes 32 rows.
-template <int D>
-constexpr int kBwdRows = D >= 128 ? 32 : 64;
-
 // Q of up to 128 query rows, the ring's K and V tiles of BK keys, the
 // barriers (one, and full/empty per stage), alignment.
 template <int D, int BK>
 constexpr int fwd_smem_bytes() {
   return (128 + 2 * kFwdStages * BK) * D * 2 + (1 + 2 * kFwdStages) * 8 + 1024;
-}
-
-// K and V of the key block, a q and a dO tile, T(ds) query-major, (lse, D).
-template <int D>
-constexpr int bwd_smem_bytes() {
-  return (2 * kKeyBlock + 2 * kBwdRows<D>) * (D + 8) * 2 +
-         kBwdRows<D> * (kKeyBlock + 8) * 2 + kBwdRows<D> * 8;
-}
-
-// acc (16 x NC) += A · B for the warp's 16 rows of A (from row a0 of As, K
-// columns) and the K x NC block of B from column c0 of Bs, both row-major in
-// shared memory (B's fragments through ldmatrix.trans, as mma_pv's V).
-template <typename T, int K, int LDA, int NC, int LDB>
-__device__ __forceinline__ void mma_ab(float (&acc)[NC / 8][4], T (*As)[LDA], int a0,
-                                       T (*Bs)[LDB], int c0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, &As[a0 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-    for (int dn = 0; dn < NC / 16; ++dn) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, &Bs[kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8]
-                               [c0 + dn * 16 + (lane / 16) * 8]);
-      Num<T>::mma(acc[2 * dn], af, bf[0], bf[1]);
-      Num<T>::mma(acc[2 * dn + 1], af, bf[2], bf[3]);
-    }
-  }
 }
 
 // One CTA per (block of 64·W queries, head, image), W = blockDim / 128
@@ -279,108 +255,471 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// One CTA per (128-key block, head, image): dk and dv of its keys over every
-// query tile, and dq's share of its keys (stored, or f32 partials).
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    short_bwd_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
-                     const T* __restrict__ v, Strides vs, const T* __restrict__ o, Strides os,
-                     const float* __restrict__ lse, const T* __restrict__ dout, Strides dos,
+// ---- backward ----------------------------------------------------------------------------
+
+// Keys of a backward CTA at n_k keys and width d: the whole row where one CTA
+// holds it (64, 80 or 128 keys on mma.sync, 256 on wgmma at d <= 64), else
+// 128-key blocks whose dq shares are summed by short_dq_sum.
+int bwd_key_block(int n_k, int d) {
+  if (n_k <= 64) return 64;
+  if (n_k <= 80) return 80;
+  if (d <= 64 && n_k > 128 && n_k <= kWgKeys) return kWgKeys;
+  return 128;
+}
+
+// Query rows of a backward step: one step of 80 at the 80-key block (the
+// hybrid tier's n = 65), 64 otherwise.  The step is taken 16 queries at a
+// time, so registers do not grow with it.
+template <int BK>
+constexpr int bwd_rows() {
+  return BK == 80 ? 80 : 64;
+}
+
+// Column groups of dq's QT x D tile over W warps, RG = QT / 16 row groups:
+// the most that divide D / 16 with RG x CG <= W.
+template <int RG, int W, int D>
+__host__ __device__ constexpr int dq_col_groups() {
+  int cg = 1;
+  for (int c = 1; c <= D / 16; ++c)
+    if ((D / 16) % c == 0 && RG * c <= W) cg = c;
+  return cg;
+}
+
+// Threads that share a row of D = rowsum(dO∘O): the largest power of two at
+// most the block's threads per query row (at least 1) and the row's 16-byte
+// pieces (D / 8).
+template <int PER_ROW, int PIECES>
+__host__ __device__ constexpr int d_threads() {
+  int t = 1;
+  while (2 * t <= PER_ROW && 2 * t <= PIECES) t *= 2;
+  return t;
+}
+
+// K and V of the key block, `stages` ring stages of (Q, dO, O) query tiles,
+// T(ds) query-major, (lse, D) of a step's rows, the barriers, alignment.
+template <int D, int BK, int QT>
+constexpr int bwd_smem_bytes(int stages) {
+  return 2 * hopper::Tile<BK, D>::kBytes + stages * 3 * hopper::Tile<QT, D>::kBytes +
+         QT * (BK + 8) * 2 + QT * 8 + (1 + stages) * 8 + 1024;
+}
+
+// The shared address of element (r, c), c % 8 == 0, of an R x D tile as TMA
+// writes it (hopper::Tile: 16-byte units XOR-swizzled within each 128- or
+// 64-byte row span, as the map's swizzle does it).
+template <int R, int D>
+__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
+  using L = hopper::Tile<R, D>;
+  const uint32_t off =
+      (c / L::kChunk) * (R * L::kRowBytes) + r * L::kRowBytes + (c % L::kChunk) * 2;
+  return base + (off ^ (((off >> 7) & (L::kRowBytes == 128 ? 7 : 3)) << 4));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// acc (16 x 16) += A · Bᵀ over D: A the warp's 16 rows from row a0 of an RA x
+// D tile, B rows r0..r0+15 of an NT x D tile, both swizzled, D-contiguous.
+template <typename T, int D, int RA, int NT>
+__device__ __forceinline__ void mma_abt16(float (&acc)[2][4], uint32_t a, int a0, uint32_t b,
+                                          int r0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4], bf[4];
+    ldsm_x4(af, tile_addr<RA, D>(a, a0 + lane % 16, kk * 16 + (lane / 16) * 8));
+    ldsm_x4(bf, tile_addr<NT, D>(b, r0 + lane % 8 + (lane / 16) * 8,
+                                 kk * 16 + ((lane / 8) % 2) * 8));
+    Num<T>::mma(acc[0], af, bf[0], bf[1]);
+    Num<T>::mma(acc[1], af, bf[2], bf[3]);
+  }
+}
+
+// acc (16 x D) += T(P) · B: P (16 x 16) as two f32 accumulator tiles (one
+// k16 A fragment), B rows r0..r0+15 of an NT x D swizzled tile read through
+// ldmatrix.trans.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void mma_pv16(float (&acc)[D / 8][4], const float (&p)[2][4],
+                                         uint32_t b, int r0, int lane) {
+  uint32_t pf[4];
+  pf[0] = Num<T>::pack2(p[0][0], p[0][1]);
+  pf[1] = Num<T>::pack2(p[0][2], p[0][3]);
+  pf[2] = Num<T>::pack2(p[1][0], p[1][1]);
+  pf[3] = Num<T>::pack2(p[1][2], p[1][3]);
+#pragma unroll
+  for (int dn = 0; dn < D / 16; ++dn) {
+    uint32_t vf[4];
+    ldsm_x4_trans(vf, tile_addr<NT, D>(b, r0 + lane % 8 + ((lane / 8) % 2) * 8,
+                                       dn * 16 + (lane / 16) * 8));
+    Num<T>::mma(acc[2 * dn], pf, vf[0], vf[1]);
+    Num<T>::mma(acc[2 * dn + 1], pf, vf[2], vf[3]);
+  }
+}
+
+// acc (16 x DC) += T(ds) · K: the warp's 16 query rows from row r0 of Ps
+// (query-major, BK keys, padded rows) and columns c0.. of the BK x D K tile.
+template <typename T, int D, int BK, int DC>
+__device__ __forceinline__ void mma_dq(float (&acc)[DC / 8][4], T (*Ps)[BK + 8], int r0,
+                                       uint32_t k, int c0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, &Ps[r0 + lane % 16][kk * 16 + (lane / 16) * 8]);
+#pragma unroll
+    for (int dn = 0; dn < DC / 16; ++dn) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, tile_addr<BK, D>(k, kk * 16 + lane % 8 + ((lane / 8) % 2) * 8,
+                                         c0 + dn * 16 + (lane / 16) * 8));
+      Num<T>::mma(acc[2 * dn], af, bf[0], bf[1]);
+      Num<T>::mma(acc[2 * dn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// One CTA per (key block of BK keys, head, image), BK / 16 warps of 16 keys:
+// dk and dv of its keys over every query step of QT rows, and dq's share of
+// its keys (stored, or f32 partials when the row takes several blocks).
+// Thread 0 brings K and V once and the steps' (Q, dO, O) tiles through a ring
+// of `stages` stages by TMA; it refills a stage as soon as every thread has
+// passed the step's last read of it, so the next step's tiles arrive while
+// this step's dq is computed.  Per step: D = rowsum(dO∘O) from the staged
+// tiles; sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale - lse), ds = p·(dp - D)·
+// scale (keys past n_k and queries past n_q: 0); dv += T(pᵀ)·dO, dk +=
+// T(dsᵀ)·q; T(ds) to shared memory query-major; dq = T(ds)·k over the block's
+// keys, split over the warps.
+template <typename T, int D, int BK, int QT>
+__global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ? 2 : 1)
+    short_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap o_map,
+                     const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                      T* __restrict__ dq, Strides dqs, float* __restrict__ dq_part,
                      T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs, int batch,
-                     int heads, int n_q, int n_k, float scale) {
-  constexpr int kRow = D + 8, QT = kBwdRows<D>, kRowS = kKeyBlock + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T(*Ks)[kRow] = reinterpret_cast<T(*)[kRow]>(smem_raw);
-  T(*Vs)[kRow] = Ks + kKeyBlock;
-  T(*Qs)[kRow] = Vs + kKeyBlock;
-  T(*Ds)[kRow] = Qs + QT;  // dO
-  T(*Ps)[kRowS] = reinterpret_cast<T(*)[kRowS]>(Ds + QT);  // T(ds)[query][key]
-  float2* st = reinterpret_cast<float2*>(Ps + QT);         // (lse, D) of the tile's rows
+                     int heads, int n_q, int n_k, float scale, int stages) {
+  constexpr int W = BK / 16, RG = QT / 16, CG = dq_col_groups<RG, W, D>(), DC = D / CG;
+  constexpr int TPR = d_threads<32 * W / QT, D / 8>();  // threads of a row of D
+  using KTile = hopper::Tile<BK, D>;
+  using QTile = hopper::Tile<QT, D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = hopper::align1024(smem_raw);
+  unsigned char* vs = ks + KTile::kBytes;
+  unsigned char* ring = vs + KTile::kBytes;  // per stage: Q, dO, O
+  T(*Ps)[BK + 8] = reinterpret_cast<T(*)[BK + 8]>(ring + stages * 3 * QTile::kBytes);
+  float2* st = reinterpret_cast<float2*>(Ps + QT);  // (lse, D) of the step's rows
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(st + QT);
+  uint64_t* full = kv_bar + 1;
 
-  const int j0 = blockIdx.x * kKeyBlock, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane % 4, g = lane / 4;
+  const int j0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, t = lane % 4, g = lane / 4;
   const int a0 = warp * 16;  // the warp's keys, from j0
-  const T* qp = head_base(q, qs, b, h);
-  const T* op = head_base(o, os, b, h);
-  const T* dop = head_base(dout, dos, b, h);
+  const int steps = (n_q + QT - 1) / QT;
+  auto load_step = [&](int i) {
+    unsigned char* tiles = ring + (i % stages) * 3 * QTile::kBytes;
+    uint64_t* bar = &full[i % stages];
+    hopper::mbar_expect_tx(bar, 3 * QTile::kBytes);
+    QTile::load(tiles, 0, &q_map, bar, i * QT, h, b);
+    QTile::load(tiles + QTile::kBytes, 0, &do_map, bar, i * QT, h, b);
+    QTile::load(tiles + 2 * QTile::kBytes, 0, &o_map, bar, i * QT, h, b);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kv_bar, 2 * KTile::kBytes);
+    KTile::load(ks, 0, &k_map, kv_bar, j0, h, b);
+    KTile::load(vs, 0, &v_map, kv_bar, j0, h, b);
+    for (int i = 0; i < stages && i < steps; ++i) load_step(i);
+  }
+
+  const uint32_t k_at = smem_addr(ks), v_at = smem_addr(vs);
+  const int r0 = (warp % RG) * 16, c0 = (warp / RG) * DC;  // the warp's share of dq's tile
   const size_t row0 = ((size_t)b * heads + h) * n_q;
-  stage_rows<T, D, D, kBwdThreads>(Ks, head_base(k, ks, b, h), ks.r, j0, kKeyBlock, n_k);
-  stage_rows<T, D, D, kBwdThreads>(Vs, head_base(v, vs, b, h), vs.r, j0, kKeyBlock, n_k);
-
-  // dq's tile is split over the warps: RG groups of 16 rows, DC columns each.
-  constexpr int RG = QT / 16, DC = D / (kBwdWarps / RG);
-  const int r0 = (warp % RG) * 16, c0 = (warp / RG) * DC;
-
+  static_assert(32 * W / TPR >= QT, "one pass of the D rows covers a step");
+  const int dr = tid / TPR;  // the thread's row of D
+  float lse_next = dr < QT && dr < n_q ? lse[row0 + dr] : 0.f;
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
-  for (int i0 = 0; i0 < n_q; i0 += QT) {
-    __syncthreads();  // the previous step's reads of Qs, Ds, Ps and st are done
-    stage_rows<T, D, D, kBwdThreads>(Qs, qp, qs.r, i0, QT, n_q);
-    stage_rows<T, D, D, kBwdThreads>(Ds, dop, dos.r, i0, QT, n_q);
-    for (int r = warp; r < QT; r += kBwdWarps) {  // D = rowsum(dO∘O), one warp a row
-      const int qi = i0 + r;
+  hopper::mbar_wait(kv_bar, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int i0 = i * QT;
+    const unsigned char* tiles = ring + (i % stages) * 3 * QTile::kBytes;
+    const uint32_t q_at = smem_addr(tiles), do_at = q_at + QTile::kBytes;
+    const float lse_r = lse_next;  // this step's, loaded a step ahead
+    if (dr < QT && i + 1 < steps && i0 + QT + dr < n_q) lse_next = lse[row0 + i0 + QT + dr];
+    hopper::mbar_wait(&full[i % stages], (i / stages) & 1);
+    // D = rowsum(dO∘O): TPR neighbouring threads a row (one pass covers the
+    // step's rows), 16-byte pieces of O and dO each, then a sum over the TPR
+    // lanes.
+    if (const int r = dr; r < QT) {
       float acc = 0.f;
-      if (qi < n_q) {
-        const T* orow = op + (long long)qi * os.r;
-        const T* drow = dop + (long long)qi * dos.r;
-        for (int c = 2 * lane; c < D; c += 64)
-          acc += Num<T>::to_f(orow[c]) * Num<T>::to_f(drow[c]) +
-                 Num<T>::to_f(orow[c + 1]) * Num<T>::to_f(drow[c + 1]);
+#pragma unroll
+      for (int c = 8 * (tid % TPR); c < D; c += 8 * TPR) {
+        const uint32_t off = tile_addr<QT, D>(0, r, c);
+        const uint4 ov = *reinterpret_cast<const uint4*>(tiles + 2 * QTile::kBytes + off);
+        const uint4 dv8 = *reinterpret_cast<const uint4*>(tiles + QTile::kBytes + off);
+        const T* od = reinterpret_cast<const T*>(&ov);
+        const T* dd = reinterpret_cast<const T*>(&dv8);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2)
+          acc += Num<T>::to_f(od[e]) * Num<T>::to_f(dd[e]) +
+                 Num<T>::to_f(od[e + 1]) * Num<T>::to_f(dd[e + 1]);
       }
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) st[r] = qi < n_q ? make_float2(lse[row0 + qi], acc) : make_float2(0.f, 0.f);
+      for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
     }
-    __syncthreads();
+    __syncthreads();  // st is complete; the previous step's reads of Ps are done
 
-    float s[QT / 8][4], dp[QT / 8][4];
-    zero(s);
-    zero(dp);
-    mma_abt<T, D, QT>(s, Ks, a0, Qs, lane);   // sᵀ[key][query]
-    mma_abt<T, D, QT>(dp, Vs, a0, Ds, lane);  // dpᵀ = v·dOᵀ
+    const int rows = min(QT, (n_q - i0 + 15) / 16 * 16);  // the step's query rows, whole 16s
+#pragma unroll 1
+    for (int c0q = 0; c0q < rows; c0q += 16) {  // 16 queries at a time
+      float s[2][4], dp[2][4];
+      zero(s);
+      zero(dp);
+      mma_abt16<T, D, BK, QT>(s, k_at, a0, q_at, c0q, lane);    // sᵀ[key][query]
+      mma_abt16<T, D, BK, QT>(dp, v_at, a0, do_at, c0q, lane);  // dpᵀ = v·dOᵀ
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);
-        const int key = j0 + a0 + g + (e / 2) * 8;
-        const float2 rs = st[qi];
-        const float p =
-            i0 + qi < n_q && key < n_k ? expf(s[j][e] * scale - rs.x) : 0.f;  // masked: adds 0
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - rs.y) * scale;  // dsᵀ
-        Ps[qi][a0 + g + (e / 2) * 8] = Num<T>::from_f(dp[j][e]);
-      }
-    mma_pv<T, D, QT>(dv_acc, s, Ds, lane);   // dv += T(pᵀ)·dO
-    mma_pv<T, D, QT>(dk_acc, dp, Qs, lane);  // dk += T(dsᵀ)·q
-    __syncthreads();                         // Ps is complete
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c0q + j * 8 + 2 * t + (e & 1);
+          const int key = j0 + a0 + g + (e / 2) * 8;
+          const float2 rs = st[qi];
+          const float p =
+              i0 + qi < n_q && key < n_k ? expf(s[j][e] * scale - rs.x) : 0.f;  // masked: 0
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - rs.y) * scale;  // dsᵀ
+          Ps[qi][a0 + g + (e / 2) * 8] = Num<T>::from_f(dp[j][e]);
+        }
+      mma_pv16<T, D, QT>(dv_acc, s, do_at, c0q, lane);  // dv += T(pᵀ)·dO
+      mma_pv16<T, D, QT>(dk_acc, dp, q_at, c0q, lane);  // dk += T(dsᵀ)·q
+    }
+    __syncthreads();  // Ps is complete; the stage's last reads are done
+    if (tid == 0 && i + stages < steps) load_step(i + stages);
 
-    float acc[DC / 8][4];
-    zero(acc);
-    mma_ab<T, kKeyBlock, kRowS, DC, kRow>(acc, Ps, r0, Ks, c0, lane);  // dq = T(ds)·k
+    if (warp < RG * CG && r0 < rows) {
+      float acc[DC / 8][4];
+      zero(acc);
+      mma_dq<T, D, BK, DC>(acc, Ps, r0, k_at, c0, lane);  // dq = T(ds)·k
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qi = i0 + r0 + g + half * 8;
-      if (qi >= n_q) continue;
+      for (int half = 0; half < 2; ++half) {
+        const int qi = i0 + r0 + g + half * 8;
+        if (qi >= n_q) continue;
 #pragma unroll
-      for (int j = 0; j < DC / 8; ++j) {
-        const int col = c0 + j * 8 + 2 * t;
-        const float lo = acc[j][2 * half], hi = acc[j][2 * half + 1];
-        if (dq_part) {
-          const size_t at =
-              (((size_t)blockIdx.x * batch + b) * heads + h) * n_q * D + (size_t)qi * D + col;
-          *reinterpret_cast<float2*>(dq_part + at) = make_float2(lo, hi);
-        } else {
-          *reinterpret_cast<uint32_t*>(head_base(dq, dqs, b, h) + (long long)qi * dqs.r + col) =
-              Num<T>::pack2(lo, hi);
+        for (int j = 0; j < DC / 8; ++j) {
+          const int col = c0 + j * 8 + 2 * t;
+          const float lo = acc[j][2 * half], hi = acc[j][2 * half + 1];
+          if (dq_part) {
+            const size_t at =
+                (((size_t)blockIdx.x * batch + b) * heads + h) * n_q * D + (size_t)qi * D + col;
+            *reinterpret_cast<float2*>(dq_part + at) = make_float2(lo, hi);
+          } else {
+            *reinterpret_cast<uint32_t*>(head_base(dq, dqs, b, h) + (long long)qi * dqs.r +
+                                         col) = Num<T>::pack2(lo, hi);
+          }
         }
       }
     }
   }
   store_rows<T, D>(head_base(dk, dks, b, h), dks.r, j0 + a0, n_k, dk_acc, lane);
   store_rows<T, D>(head_base(dv, dvs, b, h), dvs.r, j0 + a0, n_k, dv_acc, lane);
+}
+
+// The backward where one CTA holds 129 to 256 keys at d <= 64 (ViT-B/16's
+// 197), on wgmma: four warpgroups of 64 key rows (the key tile is 256 rows,
+// zeros past n_k), each holding its keys' dk and dv (m64 x d f32) across the
+// steps.  Per 64-query step, 32 queries at a time: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ
+// on m64n32k16 from the swizzled tiles, p and ds in registers, dv += T(pᵀ)·dO
+// and dk += T(dsᵀ)·q with p and ds as the register A operand and dO, q
+// MN-major; T(ds) goes to a 64 x 256 query-major tile laid out as wgmma's A
+// operand (four 64-key chunks, 128-byte swizzle), and one warpgroup in turn
+// takes dq = T(ds)·k (m64 x d over the 256 keys, k MN-major) and stores it.
+// Persistent: a CTA per SM walks the (head, image) pairs; K and V come by TMA
+// into one of two buffers, the next pair's while this one is computed, and
+// the (Q, dO, O) steps of all its pairs through one 2-stage ring, so no pair
+// waits for its first tiles.  The same function and rounding points as
+// short_bwd_kernel; each B operand is read once a warpgroup from shared
+// memory, where thirteen mma.sync warps would each read it.
+template <typename T, int D>
+__global__ void __launch_bounds__(512, 1)
+    short_bwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap o_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const float* __restrict__ lse, T* __restrict__ dq, Strides dqs,
+                        T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs,
+                        int heads, int pairs, int n_q, int n_k, float scale) {
+  constexpr int BK = kWgKeys, QT = kWgRows, NQ = 32, S = 2;
+  constexpr int TPR = d_threads<512 / QT, D / 8>();
+  using KTile = hopper::Tile<BK, D>;
+  using QTile = hopper::Tile<QT, D>;
+  using PTile = hopper::Tile<QT, 64>;  // a 64-key chunk of T(ds)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kv = hopper::align1024(smem_raw);  // two (K, V) buffers
+  unsigned char* ring = kv + 4 * KTile::kBytes;     // per stage: Q, dO, O
+  unsigned char* ps = ring + S * 3 * QTile::kBytes;
+  float2* st = reinterpret_cast<float2*>(ps + (BK / 64) * PTile::kBytes);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(st + QT);  // two
+  uint64_t* full = kv_bar + 2;
+
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const int spp = (n_q + QT - 1) / QT;  // steps a pair
+  const int mine = (pairs - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * spp;  // this CTA's steps over its pairs
+  auto pair_of = [&](int k) { return (int)blockIdx.x + k * (int)gridDim.x; };
+  auto load_kv = [&](int k) {
+    const int pi = pair_of(k);
+    unsigned char* buf = kv + (k % 2) * 2 * KTile::kBytes;
+    hopper::mbar_expect_tx(&kv_bar[k % 2], 2 * KTile::kBytes);
+    KTile::load(buf, 0, &k_map, &kv_bar[k % 2], 0, pi % heads, pi / heads);
+    KTile::load(buf + KTile::kBytes, 0, &v_map, &kv_bar[k % 2], 0, pi % heads, pi / heads);
+  };
+  auto load_step = [&](int gs) {
+    const int pi = pair_of(gs / spp), r = (gs % spp) * QT;
+    unsigned char* tiles = ring + (gs % S) * 3 * QTile::kBytes;
+    uint64_t* bar = &full[gs % S];
+    hopper::mbar_expect_tx(bar, 3 * QTile::kBytes);
+    QTile::load(tiles, 0, &q_map, bar, r, pi % heads, pi / heads);
+    QTile::load(tiles + QTile::kBytes, 0, &do_map, bar, r, pi % heads, pi / heads);
+    QTile::load(tiles + 2 * QTile::kBytes, 0, &o_map, bar, r, pi % heads, pi / heads);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&kv_bar[i], 1);
+      hopper::mbar_init(&full[i], 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && mine > 0) {
+    load_kv(0);
+    for (int gs = 0; gs < S && gs < total; ++gs) load_step(gs);
+  }
+
+  const int fr = (lt / 32) * 16 + (lt % 32) / 4, t = lt % 4;  // fragment row, column pair
+  static_assert(512 / TPR >= QT, "one pass of the D rows covers a step");
+  const int dr = tid / TPR;  // the thread's row of D
+  for (int k = 0; k < mine; ++k) {
+    const int pi = pair_of(k), h = pi % heads, b = pi / heads;
+    const unsigned char* ks = kv + (k % 2) * 2 * KTile::kBytes;
+    const unsigned char* vs = ks + KTile::kBytes;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hopper::mbar_wait(&kv_bar[k % 2], (k / 2) & 1);
+    for (int i = 0; i < spp; ++i) {
+      const int gs = k * spp + i, i0 = i * QT;
+      const unsigned char* tiles = ring + (gs % S) * 3 * QTile::kBytes;
+      const unsigned char* do_t = tiles + QTile::kBytes;
+      const float lse_r = dr < QT && i0 + dr < n_q ? lse[(size_t)pi * n_q + i0 + dr] : 0.f;
+      hopper::mbar_wait(&full[gs % S], (gs / S) & 1);
+      if (const int r = dr; r < QT) {  // D = rowsum(dO∘O), TPR threads a row
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 8 * (tid % TPR); c < D; c += 8 * TPR) {
+          const uint32_t off = tile_addr<QT, D>(0, r, c);
+          const uint4 ov = *reinterpret_cast<const uint4*>(tiles + 2 * QTile::kBytes + off);
+          const uint4 dv8 = *reinterpret_cast<const uint4*>(do_t + off);
+          const T* od = reinterpret_cast<const T*>(&ov);
+          const T* dd = reinterpret_cast<const T*>(&dv8);
+#pragma unroll
+          for (int e = 0; e < 8; e += 2)
+            acc += Num<T>::to_f(od[e]) * Num<T>::to_f(dd[e]) +
+                   Num<T>::to_f(od[e + 1]) * Num<T>::to_f(dd[e + 1]);
+        }
+#pragma unroll
+        for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
+      }
+      // st is complete; the previous step's reads of T(ds) (and at a pair's
+      // first step, every read of the previous pair's K and V) are done.
+      __syncthreads();
+      if (tid == 0 && i == 0 && k + 1 < mine) load_kv(k + 1);
+
+      const int rows = min(QT, (n_q - i0 + NQ - 1) / NQ * NQ);
+      for (int c0q = 0; c0q < rows; c0q += NQ) {
+        float s[NQ / 2], dp[NQ / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<NQ, T>::ss(s, KTile::kmajor(ks, 64 * wg, 16 * kk),
+                                   QTile::kmajor(tiles, c0q, 16 * kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<NQ, T>::ss(dp, KTile::kmajor(vs, 64 * wg, 16 * kk),
+                                   QTile::kmajor(do_t, c0q, 16 * kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = c0q + 8 * j + 2 * t + (e & 1), key = 64 * wg + fr + 8 * (e / 2);
+            const float2 rs = st[qi];
+            const float p =
+                i0 + qi < n_q && key < n_k ? expf(s[4 * j + e] * scale - rs.x) : 0.f;
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * (dp[4 * j + e] - rs.y) * scale;  // dsᵀ
+            const uint32_t off = qi * 128 + (key % 64) * 2;
+            *reinterpret_cast<T*>(ps + (key / 64) * PTile::kBytes +
+                                  (off ^ (((off >> 7) & 7) << 4))) =
+                Num<T>::from_f(dp[4 * j + e]);
+          }
+        uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+#pragma unroll
+        for (int c = 0; c < NQ / 16; ++c) {
+          hopper::a_fragment<T>(pa[c], s, c);
+          hopper::a_fragment<T>(da[c], dp, c);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NQ / 16; ++c) {
+          hopper::Wgmma<D, T>::rs(dv_acc, pa[c], QTile::mnmajor(do_t, c0q + 16 * c));
+          hopper::Wgmma<D, T>::rs(dk_acc, da[c], QTile::mnmajor(tiles, c0q + 16 * c));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+      }
+      hopper::fence_proxy_async();  // T(ds), stored by the threads, is read by wgmma
+      __syncthreads();              // T(ds) is complete; the stage's last reads are done
+      if (tid == 0 && gs + S < total) load_step(gs + S);
+
+      if (wg == gs % 4) {  // dq = T(ds)·k, one warpgroup in turn
+        float acc[D / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::Wgmma<D, T>::ss_t(acc, PTile::kmajor(ps + (kk / 4) * PTile::kBytes, 0,
+                                                       16 * (kk % 4)),
+                                    KTile::mnmajor(ks, 16 * kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::store_fragment<T, D>(head_base(dq, dqs, b, h), dqs.r, i0, n_q, acc, lt);
+      }
+    }
+    hopper::store_fragment<T, D>(head_base(dk, dks, b, h), dks.r, 64 * wg, n_k, dk_acc, lt);
+    hopper::store_fragment<T, D>(head_base(dv, dvs, b, h), dvs.r, 64 * wg, n_k, dv_acc, lt);
+  }
 }
 
 // dq = T(Σ_p dq_part[p]) over the key blocks in order, two columns a thread.
@@ -427,30 +766,95 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float*
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
                   float* dq_part, const long long* st, int b, int heads, int n_q, int n_k,
                   float scale, cudaStream_t stream) {
-  constexpr int bytes = bwd_smem_bytes<D>();
-  cudaError_t err = allow_smem(short_bwd_kernel<T, D>, bytes);
-  if (err != cudaSuccess) return err;
-  const int parts = (n_k + kKeyBlock - 1) / kKeyBlock;
+  constexpr int QT = bwd_rows<BK>(), dt = hopper::dtype_of<T>();
+  constexpr int c = hopper::Tile<BK, D>::kChunk;
+  const int steps = (n_q + QT - 1) / QT, stages = steps > 1 ? 2 : 1;
+  const int parts = (n_k + BK - 1) / BK;
   if (parts > 1 && !dq_part) return cudaErrorInvalidValue;
   float* part = parts > 1 ? dq_part : nullptr;
+  thread_local int ready = -1;
+  cudaError_t err = prepare_kernel(ready, short_bwd_kernel<T, D, BK, QT>,
+                                   bwd_smem_bytes<D, BK, QT>(2));
+  // A map needs a row; with no query rows none is read.
+  const int nq = n_q > 0 ? n_q : 1;
+  CUtensorMap q_map, k_map, v_map, o_map, do_map;
+  if (err == cudaSuccess) err = head_map(&q_map, q, dt, D, nq, heads, b, st, c, QT);
+  if (err == cudaSuccess) err = head_map(&k_map, k, dt, D, n_k, heads, b, st + 3, c, BK);
+  if (err == cudaSuccess) err = head_map(&v_map, v, dt, D, n_k, heads, b, st + 6, c, BK);
+  if (err == cudaSuccess) err = head_map(&o_map, out, dt, D, nq, heads, b, st + 9, c, QT);
+  if (err == cudaSuccess) err = head_map(&do_map, dout, dt, D, nq, heads, b, st + 12, c, QT);
+  if (err != cudaSuccess) return err;
   const Strides dqs = strides_at(st, 5);
-  short_bwd_kernel<T, D><<<dim3(parts, heads, b), kBwdThreads, bytes, stream>>>(
-      static_cast<const T*>(q), strides_at(st, 0), static_cast<const T*>(k), strides_at(st, 1),
-      static_cast<const T*>(v), strides_at(st, 2), static_cast<const T*>(out), strides_at(st, 3),
-      lse, static_cast<const T*>(dout), strides_at(st, 4), static_cast<T*>(dq), dqs, part,
+  short_bwd_kernel<T, D, BK, QT><<<dim3(parts, heads, b), 2 * BK,
+                                   bwd_smem_bytes<D, BK, QT>(stages), stream>>>(
+      q_map, k_map, v_map, o_map, do_map, lse, static_cast<T*>(dq), dqs, part,
       static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), b, heads,
-      n_q, n_k, scale);
+      n_q, n_k, scale, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || !part || n_q == 0) return err;
   const long long pairs = (long long)b * heads * n_q * D / 2;
   short_dq_sum_kernel<T><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
       part, parts, static_cast<T*>(dq), dqs, heads, n_q, D, pairs);
   return cudaGetLastError();
+}
+
+// short_bwd_wg_kernel: one persistent CTA per SM, at most one per (head, image).
+template <typename T, int D>
+cudaError_t bwd_wg_t(const void* q, const void* k, const void* v, const void* out,
+                     const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                     const long long* st, int b, int heads, int n_q, int n_k, float scale,
+                     cudaStream_t stream) {
+  constexpr int BK = kWgKeys, QT = kWgRows, dt = hopper::dtype_of<T>();
+  constexpr int c = hopper::Tile<BK, D>::kChunk;
+  constexpr int bytes = 4 * hopper::Tile<BK, D>::kBytes + 2 * 3 * hopper::Tile<QT, D>::kBytes +
+                        (BK / 64) * hopper::Tile<QT, 64>::kBytes + QT * 8 + 4 * 8 + 1024;
+  static_assert(bytes <= 232448, "more shared memory than a CTA may have");
+  thread_local int ready = -1;
+  cudaError_t err = prepare_kernel(ready, short_bwd_wg_kernel<T, D>, bytes);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int nq = n_q > 0 ? n_q : 1;  // a map needs a row; with no query rows none is read
+  CUtensorMap q_map, k_map, v_map, o_map, do_map;
+  if (err == cudaSuccess) err = head_map(&q_map, q, dt, D, nq, heads, b, st, c, QT);
+  if (err == cudaSuccess) err = head_map(&k_map, k, dt, D, n_k, heads, b, st + 3, c, BK);
+  if (err == cudaSuccess) err = head_map(&v_map, v, dt, D, n_k, heads, b, st + 6, c, BK);
+  if (err == cudaSuccess) err = head_map(&o_map, out, dt, D, nq, heads, b, st + 9, c, QT);
+  if (err == cudaSuccess) err = head_map(&do_map, dout, dt, D, nq, heads, b, st + 12, c, QT);
+  if (err != cudaSuccess) return err;
+  const int pairs = b * heads;
+  short_bwd_wg_kernel<T, D><<<pairs < sms ? pairs : sms, 512, bytes, stream>>>(
+      q_map, k_map, v_map, o_map, do_map, lse, static_cast<T*>(dq), strides_at(st, 5),
+      static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), heads,
+      pairs, n_q, n_k, scale);
+  return cudaGetLastError();
+}
+
+// The backward at the key block bwd_key_block picks.
+template <typename T, int D>
+cudaError_t bwd_tiles(const void* q, const void* k, const void* v, const void* out,
+                      const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                      float* dq_part, const long long* st, int b, int heads, int n_q, int n_k,
+                      float scale, cudaStream_t stream) {
+#define VIT_SHORT_BWD_TILE(BK)                                                              \
+  return bwd_t<T, D, BK>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, st, b, heads, n_q, n_k, \
+                         scale, stream)
+  switch (bwd_key_block(n_k, D)) {
+    case 64: VIT_SHORT_BWD_TILE(64);
+    case 80: VIT_SHORT_BWD_TILE(80);
+    case kWgKeys:
+      if constexpr (D <= 64)
+        return bwd_wg_t<T, D>(q, k, v, out, lse, dout, dq, dk, dv, st, b, heads, n_q, n_k, scale,
+                              stream);
+      break;
+  }
+  VIT_SHORT_BWD_TILE(128);
+#undef VIT_SHORT_BWD_TILE
 }
 
 bool shape_ok(int b, int heads, int n_q, int n_k, int d) {
@@ -496,8 +900,8 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void
                          int d, float scale, cudaStream_t stream) {
 #define VIT_SHORT_BWD(D)                                                                   \
   if (d == D)                                                                              \
-    return bwd_t<T, D>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, st, b, heads, n_q, n_k, \
-                       scale, stream);
+    return bwd_tiles<T, D>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, st, b, heads, n_q, \
+                           n_k, scale, stream);
   VIT_SHORT_WIDTHS(VIT_SHORT_BWD)
 #undef VIT_SHORT_BWD
   return cudaErrorInvalidValue;
@@ -529,7 +933,7 @@ extern "C" int vit_short_attention_fwd(const void* q, const void* k, const void*
 // Backward: dq, dk, dv in the compute dtype from q, k, v, the forward's out
 // and lse, and dout = dL/d(out).  `strides` holds the (batch, head, row)
 // strides of q, k, v, out, dout, dq, dk and dv (24 values).  `dq_part`
-// (vit_short_attention_parts(n_k), b, h, n_q, d) f32 is scratch for the key
+// (vit_short_attention_parts(n_k, d), b, h, n_q, d) f32 is scratch for the key
 // blocks' dq shares, null when there is one block.
 extern "C" int vit_short_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const float* lse, const void* dout,
@@ -549,7 +953,9 @@ extern "C" int vit_short_attention_bwd(const void* q, const void* k, const void*
   return cudaErrorInvalidValue;
 }
 
-// Key blocks of the backward at n_k keys: dq_part's leading extent when > 1.
-extern "C" int vit_short_attention_parts(int n_k) {
-  return (n_k + vit::kKeyBlock - 1) / vit::kKeyBlock;
+// Key blocks of the backward at n_k keys and width d: dq_part's leading
+// extent when > 1.
+extern "C" int vit_short_attention_parts(int n_k, int d) {
+  const int bk = vit::bwd_key_block(n_k, d);
+  return (n_k + bk - 1) / bk;
 }

@@ -127,6 +127,11 @@ SIGNATURES = {
         [_P] * 9 + [_I] * 3 + [_F, _I, _P],
         ctypes.c_int,
     ),
+    "vit_gemm_wgmma": (
+        # a, w, bias, res, out, aux (each or null), rows, n, k, epilogue, dtype, stream
+        [_P] * 6 + [_I] * 5 + [_P],
+        ctypes.c_int,
+    ),
     "vit_proj_mlp_fwd": (
         # x, o, wo, bo, gamma, beta, w1, b1, w2, b2, z, y, xn, g, h (null when
         # serving), rows, d, inner, hidden, eps, dtype, stream
@@ -139,8 +144,9 @@ SIGNATURES = {
         [_P] * 18 + [_I] * 4 + [_F, _I, _P],
         ctypes.c_int,
     ),
-    # Key blocks of the short-attention backward at n_k keys (its dq_part).
-    "vit_short_attention_parts": ([_I], ctypes.c_int),
+    # Key blocks of the short-attention backward at n_k keys and width d (its
+    # dq_part).
+    "vit_short_attention_parts": ([_I, _I], ctypes.c_int),
     # Rows of the f32 column partial sums the backward entry points take for
     # `rows` rows: part_h (the dGELU GEMM's) and part_d (the LayerNorm
     # backward's).

@@ -136,7 +136,10 @@ def kernel_strides(*tensors):
     """The (batch, head, row) element strides of each tensor, flat, for the
     kernels.  A size-1 axis's stride, which addresses nothing, goes as 8
     elements, a stride every tensor map takes."""
-    flat = [s if n > 1 else 8 for t in tensors for s, n in zip(t.stride()[:3], t.shape[:3])]
+    flat = []
+    for t in tensors:  # a plain loop: the launchers call this on every launch
+        st, sh = t.stride(), t.shape
+        flat += (st[0] if sh[0] > 1 else 8, st[1] if sh[1] > 1 else 8, st[2] if sh[2] > 1 else 8)
     return (ctypes.c_longlong * len(flat))(*flat)
 
 

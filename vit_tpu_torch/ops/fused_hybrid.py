@@ -71,6 +71,60 @@ def _f32(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+# ---- the forward GEMM: out = epi(a·Wᵀ) --------------------------------------------------------
+
+# csrc/kernels.cuh's Epilogue codes that csrc/gemm_wgmma.cu takes.
+GEMM_EPILOGUES = {"store": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_save": 3}
+
+
+def gemm_reference(a, w, epilogue: str, bias=None, res=None):
+    """Plain PyTorch version of the layer's forward GEMM (``gemm_wgmma.cu``,
+    under ``ln_gemm``'s and ``proj_mlp``'s forwards): ``(out, h)`` for ``a``
+    ``(rows, k)`` and the ``nn.Linear`` weight ``w`` ``(n, k)``, with the
+    kernel's rounding points: ``T(acc)``; ``T(gelu(acc + b))``; ``T(res +
+    T(acc + b))``; and for ``"bias_gelu_save"`` also ``h = T(acc + b)``, the
+    GELU taken of the unrounded sum.  ``h`` is None for the others."""
+    acc = a.float() @ w.float().t()
+    if epilogue == "store":
+        return acc.to(a.dtype), None
+    s = acc + bias.float()
+    if epilogue == "bias_residual":
+        return res + s.to(a.dtype), None
+    return F.gelu(s).to(a.dtype), s.to(a.dtype) if epilogue == "bias_gelu_save" else None
+
+
+def gemm_wgmma(a, w, epilogue: str, bias=None, res=None):
+    """The forward GEMM alone: what :func:`gemm_reference` returns.  A CPU
+    tensor takes the plain version; a CUDA tensor launches ``vit_gemm_wgmma``
+    or raises.  ``gemm_wgmma.launches`` counts the launches."""
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"gemm_wgmma: epilogue {epilogue!r} is none of {tuple(GEMM_EPILOGUES)}")
+    if a.device.type == "cpu":
+        return gemm_reference(a, w, epilogue, bias, res)
+    rows, k = a.shape
+    n = w.shape[0]
+    _check_widths("gemm_wgmma", k, n)
+    operands = {"w": (w, (n, k))}
+    if epilogue != "store":
+        operands["bias"] = (bias, (n,))
+    if epilogue == "bias_residual":
+        operands["res"] = (res, (rows, n))
+    check_kernel_tensors("gemm_wgmma", a, operands)
+    out = torch.empty((rows, n), dtype=a.dtype, device=a.device)
+    h = torch.empty_like(out) if epilogue == "bias_gelu_save" else None
+    with torch.cuda.device(a.device):
+        err = _build.load().vit_gemm_wgmma(
+            a.data_ptr(), w.data_ptr(), *(t.data_ptr() if t is not None else None
+                                          for t in (bias, res, out, h)),
+            rows, n, k, GEMM_EPILOGUES[epilogue], _build.DTYPE_CODES[a.dtype], launch_stream(a))
+    _build.check(err, "vit_gemm_wgmma")
+    gemm_wgmma.launches += 1
+    return out, h
+
+
+gemm_wgmma.launches = 0
+
+
 # ---- ln_gemm: out = (LN(x)·γ + β)·Wᵀ ------------------------------------------------------
 
 
@@ -312,6 +366,16 @@ def proj_mlp_backward_reference(dz, y, h, gamma, wo, w1, w2, eps: float = 1e-3):
     return dy, do, dh, gact, dgamma, dbeta, dy.float().sum(0), db1, db2
 
 
+def _proj_mlp_buffers(x, hidden: int, save_residuals: bool):
+    """The outputs and scratch of ``vit_proj_mlp_fwd`` over x's ``(t, d)``
+    rows: ``(z, y, xn, g, h)``, each contiguous (the forward GEMMs read xn and
+    g through 2-d tensor maps whose rows lie their width apart), ``h`` None
+    unless ``save_residuals``."""
+    z, y, xn = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    g = torch.empty((x.shape[0], hidden), dtype=x.dtype, device=x.device)
+    return z, y, xn, g, torch.empty_like(g) if save_residuals else None
+
+
 def _launch_proj_mlp(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps: float,
                      save_residuals: bool):
     """``vit_proj_mlp_fwd`` on CUDA tensors: ``(z, y, xn, h)``, with ``xn``
@@ -323,9 +387,7 @@ def _launch_proj_mlp(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps: float,
         "o": (o, (t, inner)), "wo": (wo, (d, inner)), "bo": (bo, (d,)),
         "gamma": (gamma, (d,)), "beta": (beta, (d,)), "w1": (w1, (hidden, d)),
         "b1": (b1, (hidden,)), "w2": (w2, (d, hidden)), "b2": (b2, (d,))})
-    z, y, xn = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    g = torch.empty((t, hidden), dtype=x.dtype, device=x.device)
-    h = torch.empty_like(g) if save_residuals else None
+    z, y, xn, g, h = _proj_mlp_buffers(x, hidden, save_residuals)
     with torch.cuda.device(x.device):
         err = _build.load().vit_proj_mlp_fwd(
             x.data_ptr(), o.data_ptr(), wo.data_ptr(), bo.data_ptr(), gamma.data_ptr(),

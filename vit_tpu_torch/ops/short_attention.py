@@ -29,8 +29,8 @@ kernel computes in one pass instead of two.  In f32 both directions are exact
 attention and its gradient, ``vit_tpu``'s function.
 
 Layout: ``(b, h, n, d)`` operands read through their strides (the last axis
-contiguous, the others multiples of 8 elements: the forward reads them through
-TMA tensor maps), so strided views go in as they lie.  ``layout="bh"``
+contiguous, the others multiples of 8 elements: both kernels read them
+through TMA tensor maps), so strided views go in as they lie.  ``layout="bh"``
 returns contiguous ``(b, h, n, d)`` outputs;
 ``layout="nb"`` returns ``(b, h, n, d)`` views of ``(n, b, h, d)`` memory,
 and the backward's dq, dk and dv views of one ``(n, b, 3, h, d)`` buffer: the
@@ -171,7 +171,7 @@ def short_attention_backward(q, k, v, o, lse, do, scale: float, *, layout: str =
     else:
         (dq,), (dk, dv) = _empty(q, b, h, n_q, d, layout, 1), _empty(q, b, h, n_k, d, layout, 2)
     lib = _build.load()
-    parts = lib.vit_short_attention_parts(n_k)
+    parts = lib.vit_short_attention_parts(n_k, d)
     dq_part = torch.empty((parts, b, h, n_q, d), dtype=torch.float32, device=q.device) \
         if parts > 1 else None
     with torch.cuda.device(q.device):
