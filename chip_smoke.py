@@ -444,9 +444,12 @@ def kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
 def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
     """At a training shape, from seeded bf16 inputs and cotangent: each
     training forward (the kernels that keep the residuals, as under grad)
-    against its plain version, output by output; then each backward kernel,
-    fed the residuals the forward kernels kept, against its plain backward on
-    the same residuals.  Times of the backward kernel, its plain version, the
+    against its plain version, output by output, the block's lse (kept for
+    the short route of its backward) within LSE_ABS_TOL; then each backward
+    kernel, fed the residuals the forward kernels kept, against its plain
+    backward on the same residuals, and twice bit for bit (the block's
+    attention on the route ``attention_backward_route`` gives it, as in
+    training).  Times of the backward kernel, its plain version, the
     kernel with the two weight-gradient GEMMs (the op's whole backward), and
     PyTorch autograd through the plain bf16 modules, once for the kernel's
     own outputs (dx and the γ, β and bias gradients) and once with the weight
@@ -472,13 +475,17 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
     wqkv, wo, _ = attn_w
     scale = dim_head ** -0.5
 
-    # The training forwards and the residuals they keep.
+    # The training forwards and the residuals they keep (the block's lse for
+    # the short route of its backward, where that route applies).
+    route = fab.attention_backward_route(n, biased=False)
+    attn_fwd = fab._launch_forward(x, gamma, beta, *attn_w, heads, dim_head, scale, eps,
+                                   need_lse=route == "short")
     fwd = {
         "fused_mlp": (fm._launch_forward(x, gamma, beta, *mlp_w, eps, save_residuals=True),
                       fm.fused_mlp_forward_reference(x, gamma, beta, *mlp_w, eps),
                       "y, xn, h"),
         "fused_attention_block": (
-            fab._launch_forward(x, gamma, beta, *attn_w, heads, dim_head, scale, eps),
+            attn_fwd[:4],
             fab.fused_attention_block_forward_reference(x, gamma, beta, *attn_w, heads,
                                                         dim_head, scale, eps),
             "y, xn, qkv, oattn"),
@@ -491,7 +498,12 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             f"part| of the plain version; max|kernel-plain|={err:.6g}")
         results.setdefault(name, {}).setdefault(tag, {})["train_fwd_err"] = err
     _, xn_m, h = fwd["fused_mlp"][0]
-    _, xn_a, qkv, oattn = fwd["fused_attention_block"][0]
+    _, xn_a, qkv, oattn, lse = attn_fwd
+    if lse is not None:  # f32 on both sides, from the same bf16 qkv: summation order only
+        lse_err = (lse - fab.attention_lse_reference(qkv, heads, dim_head, scale)).abs().max()
+        if not lse_err.item() <= LSE_ABS_TOL:
+            raise AssertionError(f"fused_attention_block training forward lse differs from its "
+                                 f"plain version by {lse_err.item()} > {LSE_ABS_TOL}")
 
     norm = LayerNorm(d, device=dev, dtype=dt)
     mlp = MLP(d, hidden, device=dev, dtype=dt)
@@ -519,7 +531,7 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
 
     def attn_kernel():
         return fab.fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads,
-                                                  dim_head, scale, eps)
+                                                  dim_head, scale, eps, oattn, lse)
 
     def attn_whole():
         out = attn_kernel()
@@ -542,14 +554,18 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
         if wrapper.launches != before + 1:
             raise AssertionError(f"{name}: launch counter did not move")
         err = check_outputs(torch, name, out, plain(), {0: dy})
+        if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
+            raise AssertionError(f"{name}: two runs differ")
         ms = interleaved_medians(torch, {
             "kernel": kernel, "plain": plain, "whole": whole,
             "library": autograd_through(module, weights=False),
             "library_whole": autograd_through(module, weights=True)}, rounds=5, calls=5)
         limit, by = block_bounds(b, n, d, heads, dim_head, hidden)[name]
+        via = f", attention on the {route} route" if name == "fused_attention_block_bwd" else ""
         log(f"backward {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} h={hidden}]: "
-            f"fed the forward kernel's residuals; max|kernel-plain| over the outputs={err:.6g}, "
-            f"each within one unit plus 2e-2*max|its own part|; ms kernel={ms['kernel']:.4f} "
+            f"fed the forward kernel's residuals{via}; max|kernel-plain| over the outputs="
+            f"{err:.6g}, each within one unit plus 2e-2*max|its own part|, the same bits in two "
+            f"runs; ms kernel={ms['kernel']:.4f} "
             f"plain={ms['plain']:.4f} autograd through the bf16 modules for the same outputs="
             f"{ms['library']:.4f}; with the weight gradients: kernel+dW GEMMs="
             f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by})")
@@ -625,12 +641,16 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
                 "plain": lambda: fab.fused_attention_block_reference(*args, heads, dim_head,
                                                                      scale, eps, bias),
                 "library": lambda: modules(mask)}, rounds=5, calls=10)
-        train = fab._launch_forward(*args, heads, dim_head, scale, eps, bias)
+        train = fab._launch_forward(*args, heads, dim_head, scale, eps, bias)[:4]
         train_err = check_outputs(
             torch, f"biased training forward {kind}", train,
             fab.fused_attention_block_forward_reference(*args, heads, dim_head, scale, eps,
                                                         bias), {0: x})
         _, xn, qkv, oattn = train
+        # The unbiased block on the same inputs, timed beside: its own
+        # training forward's residuals, for the route its backward takes.
+        unbiased = fab._launch_forward(*args, heads, dim_head, scale, eps, need_lse=fab.
+                                       attention_backward_route(n, biased=False) == "short")
         bounds = block_bounds(b, n, d, heads, dim_head, hidden, bias.shape[0], want_dbias)
         fwd_bound = bounds["fused_attention_block"]
         bwd_bound = bounds["fused_attention_block_bwd"]
@@ -681,7 +701,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel,
             "unbiased": lambda: fab.fused_attention_block_backward(
-                dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps),
+                dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, *unbiased[3:]),
             "plain": plain, "whole": whole, "library": autograd_through(weights=False),
             "library_whole": autograd_through(weights=True)}, rounds=5, calls=5)
         log(f"biased backward {shape}: fed the forward kernel's residuals; max|kernel-plain| "
@@ -1156,8 +1176,10 @@ SHORT_SHAPES = [
 
 # The kernels rebuilt for Hopper (csrc/hopper.cuh: TMA rings on mbarriers,
 # wgmma), and the times of the designs they replaced (mma.sync with
-# synchronous staging; for proj_mlp, linear.cu's cp.async GEMM; for ln_gemm,
-# the earlier one-tile-a-CTA wgmma GEMM), ms on an H100 80GB HBM3 at 700 W:
+# synchronous staging; for proj_mlp and the block backwards' dgrads,
+# linear.cu's cp.async GEMM, and for the unbiased block backward's attention
+# mha_bwd's FA2 split; for ln_gemm, the earlier one-tile-a-CTA wgmma GEMM), ms
+# on an H100 80GB HBM3 at 700 W:
 # constants cited from PERF.md's kernel table and its findings on the
 # rebuilds, printed on a line of their own beside the kernels' line, never in
 # it (every number there is this run's).  The flash forward's rebuild also
@@ -1168,7 +1190,13 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "short_attention": "wgmma+tma", "ln_gemm": "wgmma+tma, warp-specialised, persistent",
            "attention_nb": "wgmma+tma", "proj_mlp": "wgmma+tma, warp-specialised, persistent",
            "short_attention_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
-           "attention_nb_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys"}
+           "attention_nb_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
+           "fused_mlp_bwd": "dgrads on gemm_wgmma (wgmma+tma, warp-specialised, persistent, B "
+                            "MN-major, dGELU and f32 epilogues) from n 256, linear.cu below",
+           "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major; attention on "
+                                        "short_bwd up to 512 tokens, mha_bwd past them",
+           "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major; attention "
+                                             "on mha_bwd (bias, dbias)"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
@@ -1189,6 +1217,9 @@ EARLIER_DESIGN_MS = {
                             "n=512, d=64": 0.4995, "n=512, d=128": 0.7270,
                             "cross-attention, ragged": 0.1301},
     "attention_nb_bwd": {"B/32": 0.4285},
+    "fused_mlp_bwd": {"B/16": 0.7990, "B/32": 0.4599},
+    "fused_attention_block_bwd": {"B/16": 0.8373, "B/32": 0.6831},
+    "fused_attention_block_bias_bwd": {"lsa": 1.7378, "shared": 2.6618, "per-head": 2.4000},
 }
 
 
@@ -1790,9 +1821,13 @@ def kernel_group(name: str) -> str:
     if m:
         return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles)" if m.group(3)
                                                   else ")")
-    m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)>", name)
+    m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
+    m = re.search(r"mha_fwd_kernel<[^,]+, \d+, (true|false), (true|false)>", name)
+    if m:  # <T, dim_head, BIAS, LSE>
+        return "mha_fwd_kernel" + (" (bias)" if m[1] == "true" else "") + (
+            " (keeps lse)" if m[2] == "true" else "")
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -1931,6 +1966,9 @@ def kernel_entry(results, by_path, name, src, tpu, main_shape):
                               for tag, times in results["below_gate"].items()}
     if name == "flash_backward":
         line["packed"] = table(results["flash_backward (packed)"])
+    if name == "fused_attention_block_bwd":  # the routes of both block backwards
+        line["launches_by_route"] = {route: sum(counts[route] for counts in by_path.values())
+                                     for route in ("short route", "mha route")}
     if name in DESIGNS:
         line["design"] = DESIGNS[name]
     return line
@@ -2004,8 +2042,8 @@ def main() -> int:
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from vit_tpu_torch.ops.fused_attention_block import (
-        fused_attention_block, fused_attention_block_backward, fused_attention_block_bias,
-        fused_attention_block_bias_backward,
+        BACKWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
+        fused_attention_block_bias, fused_attention_block_bias_backward,
     )
     from vit_tpu_torch.ops.fused_cross_attention import (
         fused_cross_attention, fused_cross_attention_backward,
@@ -2042,6 +2080,9 @@ def main() -> int:
                 "fused_mlp_bwd": fused_mlp_backward,
                 "fused_attention_block_bias": fused_attention_block_bias,
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
+                # the block backwards' attention middles by route (fused_attention_block.py
+                # attention_backward_route): short_bwd unbiased up to 512 tokens, else mha_bwd
+                "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
                 "flash_attention": flash_attention, "flash_backward": flash_backward,
                 "fused_cross_attention": fused_cross_attention,
                 "fused_cross_attention_bwd": fused_cross_attention_backward,
@@ -2074,7 +2115,7 @@ def main() -> int:
          top1_sign_test=True)
     path("training B/32", training_phase, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi,
          counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp",
-                             "fused_attention_block_bwd", "fused_mlp_bwd"))
+                             "fused_attention_block_bwd", "fused_mlp_bwd", "short route"))
     # The short-sequence tier (fused_attention="hybrid") at bench.py's model.
     hybrid = per_layer(ENTRY, "ln_gemm", "attention_nb", "proj_mlp")
     path("serving B/32 hybrid", serving_phase, "ViT-B/32@256 hybrid bf16", hybrid_vit, ENTRY,
@@ -2088,11 +2129,11 @@ def main() -> int:
         f"{rows['plain']:.3f} in the two phases) on {smi}")
     path("training B/16", training_phase, "ViT-B/16@224", ViT, B16, 64, 3, smi, counters,
          per_layer(B16, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
-                   "fused_mlp_bwd"))
+                   "fused_mlp_bwd", "short route"))
     path("training small-dataset", training_phase, "small-dataset ViT 256/16", small,
          SMALL_DATASET, 64, 5, smi, counters,
          per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
-                   "fused_attention_block_bias_bwd", "fused_mlp_bwd"))
+                   "fused_attention_block_bias_bwd", "fused_mlp_bwd", "mha route"))
     with clock("gradients small-dataset"):
         gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
     # CvT-13: flash at stage 1 (224 px; n_q 3136, n_k 784), stages 1 and 2 (384 px).

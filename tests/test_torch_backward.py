@@ -21,8 +21,9 @@ import jax.numpy as jnp  # noqa: E402
 from vit_tpu.ops import fused_attention_block as jax_attn  # noqa: E402
 from vit_tpu.ops import fused_mlp as jax_mlp  # noqa: E402
 from vit_tpu_torch.ops.fused_attention_block import (  # noqa: E402
-    fused_attention_block, fused_attention_block_backward,
+    attention_lse_reference, fused_attention_block, fused_attention_block_backward,
     fused_attention_block_backward_reference, fused_attention_block_forward_reference,
+    fused_attention_block_short_backward_reference,
 )
 from vit_tpu_torch.ops.fused_mlp import (  # noqa: E402
     fused_mlp, fused_mlp_backward, fused_mlp_backward_reference, fused_mlp_forward_reference,
@@ -151,6 +152,36 @@ def test_fused_attention_block_backward_outputs_match_jax_kernel(b, n, d, heads,
     for name, g, w in zip(["dx", "dqkv", "dgamma", "dbeta", "dbo"], got, want):
         assert g.shape == w.shape, name
         assert _rel(g.numpy(), w) <= TOL, f"{name}: {_rel(g.numpy(), w)}"
+
+
+# The short route's math against the TPU kernel's: D = rowsum(dO∘O) over the
+# stored output where the kernel sums dsum = Σ dp·p, the softmax from the
+# forward's lse where the kernel takes its own row max and sum; equal in exact
+# arithmetic, apart by f32 rounding.
+SHORT_ROUTE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", ATTN_SHAPES + [(2, 65, 128, 2, 64)])
+def test_short_route_backward_matches_jax_kernel(b, n, d, heads, dh):
+    """The plain f32 version of the short route (lse from the training
+    forward, D = rowsum(dO∘O) over its output) against ``_backward`` given the
+    same saved projection: every output within 1e-4 of max|JAX output|."""
+    args, dy = _attn_args(b, n, d, heads, dh, seed=2)
+    x, gamma, beta, wqkv, wo, bo = map(jnp.asarray, args)
+    scale = dh ** -0.5
+    _, _, qkv, oattn = jax_attn._forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale, 1e-3,
+                                         True, save_residuals=True)
+    want = jax_attn._backward(jnp.asarray(dy), x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                              1e-3, True)[:5]
+    t = torch.from_numpy
+    qkv, oattn = t(np.array(qkv)), t(np.array(oattn))
+    lse = attention_lse_reference(qkv, heads, dh, scale)
+    got = fused_attention_block_short_backward_reference(
+        t(dy), t(args[0]), qkv, oattn, lse, t(args[1]), t(args[3].T.copy()),
+        t(args[4].T.copy()), heads, dh, scale)
+    for name, g, w in zip(["dx", "dqkv", "dgamma", "dbeta", "dbo"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g.numpy(), w) <= SHORT_ROUTE_TOL, f"{name}: {_rel(g.numpy(), w)}"
 
 
 def _autograd_of(forward, dy, inputs):

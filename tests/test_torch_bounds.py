@@ -118,6 +118,18 @@ def test_hybrid_bounds(raw):
      "gemm_wgmma_kernel bias+GELU, keeps h (fc1)"),
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 0>(CUtensorMap)",
      "gemm_wgmma_kernel store (QKV, doattn)"),
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 4, 1>(CUtensorMap)",
+     "gemm_wgmma_kernel dGELU (dy·W2)"),
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 5, 1>(CUtensorMap)",
+     "gemm_wgmma_kernel f32 out (dxn)"),
+    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, false, true>(const "
+     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, float *, int, int, float)",
+     "mha_fwd_kernel (keeps lse)"),
+    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, true, false>(const "
+     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, float *, int, int, float)",
+     "mha_fwd_kernel (bias)"),
+    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, true>(const "
+     "__nv_bfloat16 *)", "mha_bwd_dq_kernel (bias)"),
 ])
 def test_profile_groups_the_hybrid_kernels(kernel, group):
     assert chip_smoke.kernel_group(kernel) == group

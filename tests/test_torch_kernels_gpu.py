@@ -87,6 +87,10 @@ def _attn_args(b, n, d, heads, dh, dtype, device, seed=0):
             rn(d, inner, scale=inner ** -0.5).to(dtype), rn(d, scale=0.1).to(dtype))
 
 
+def _twice(got, again):
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
 def _close(out, ref, x):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert torch.isfinite(out).all()
@@ -135,13 +139,19 @@ def test_fused_attention_block_kernel_matches_plain(cuda, b, n, d, heads, dh, dt
 
 
 @pytest.mark.parametrize("shape,hidden,dtype", [
-    ((2, 17, 64), 128, torch.bfloat16),
+    ((2, 17, 64), 128, torch.bfloat16),   # both dgrads below n 256: linear.cu
     ((3, 67, 96), 160, torch.float16),
     ((2, 33, 104), 200, torch.bfloat16),  # partial k and n tiles of the dgrad GEMMs
+    ((2, 33, 104), 264, torch.bfloat16),  # dy·W2 on gemm_wgmma at a ragged n, dh·W1 not
     ((520, 1024), 2048, torch.bfloat16),
-    ((64, 197, 768), 3072, torch.bfloat16),
+    ((2, 600, 256), 1024, torch.bfloat16),
+    ((128, 65, 1024), 2048, torch.bfloat16),  # bench.py's B/32 step
+    ((64, 197, 768), 3072, torch.bfloat16),   # B/16
+    ((4, 1024, 64), 256, torch.bfloat16),     # ScalableViT's stage 1: dh·W1 at n 64
 ])
 def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
+    """Every output against the plain backward, and the same bits twice (db1
+    and the LayerNorm's sums in a fixed order)."""
     args = _mlp_args(shape, hidden, dtype, cuda, seed=1)
     x, gamma, beta, w1, b1, w2, b2 = args
     h = fused_mlp_forward_reference(*args)[2]
@@ -153,6 +163,7 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     assert fused_mlp_backward.launches == before + 1
     ref = fused_mlp_backward_reference(dy, x, h, gamma, w1, w2)
     check_outputs(torch, "fused_mlp_bwd", out, ref, {0: dy})
+    _twice(out, fused_mlp_backward(dy, x, h, gamma, w1, w2))
 
 
 @pytest.mark.parametrize("b,n,d,heads,dh,dtype", [
@@ -162,23 +173,50 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     (2, 70, 256, 2, 128, torch.bfloat16),
     (1, 1, 64, 2, 32, torch.bfloat16),
     (2, 33, 40, 1, 32, torch.bfloat16),     # d=40: partial tiles in the dgrad GEMMs
-    (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key and query tiles
-    (2, 257, 1024, 16, 64, torch.bfloat16), # ViT-L/14 @224's n
+    (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key and query tiles: the mha route
+    (2, 600, 256, 4, 64, torch.bfloat16),   # past 512 tokens: the mha route
+    (2, 257, 1024, 16, 64, torch.bfloat16), # ViT-L/14 @224's n: three short key blocks
+    (2, 300, 512, 8, 64, torch.bfloat16),   # a ragged n between them
     (8, 65, 1024, 16, 64, torch.bfloat16),
-    (64, 197, 768, 12, 64, torch.bfloat16),
+    (128, 65, 1024, 16, 64, torch.bfloat16),  # bench.py's B/32 step
+    (64, 197, 768, 12, 64, torch.bfloat16),   # B/16
 ])
 def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, heads, dh, dtype):
+    """Fed the plain training forward's residuals (oattn and lse for the
+    short route): every output against the plain backward (the TPU kernel's
+    dsum = Σ dp·p), on the short route also against its own plain version (D
+    = rowsum(dO∘O)), and the same bits twice; the route by shape."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=1)
     x, gamma, beta, wqkv, wo, bo = args
-    qkv = fused_attention_block_forward_reference(*args, heads, dh)[2]
+    _, _, qkv, oattn = fused_attention_block_forward_reference(*args, heads, dh)
+    lse = fused_attention_block_ops.attention_lse_reference(qkv, heads, dh)
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(2),
                      device=cuda).to(dtype)
-    before = fused_attention_block_backward.launches
-    out = fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh)
+    route = fused_attention_block_ops.attention_backward_route(n, biased=False)
+    assert route == ("short" if n <= 512 else "mha")
+    routes = fused_attention_block_ops.BACKWARD_ROUTES
+    before = (fused_attention_block_backward.launches, routes[route].launches)
+    out = fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, oattn=oattn,
+                                         lse=lse)
     torch.cuda.synchronize()
-    assert fused_attention_block_backward.launches == before + 1
+    assert (fused_attention_block_backward.launches, routes[route].launches) == \
+        (before[0] + 1, before[1] + 1)
     ref = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh)
     check_outputs(torch, "fused_attention_block_bwd", out, ref, {0: dy})
+    if route == "short":
+        check_outputs(torch, "fused_attention_block_bwd, short route", out,
+                      fused_attention_block_ops.fused_attention_block_short_backward_reference(
+                          dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh), {0: dy})
+    _twice(out, fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh,
+                                               oattn=oattn, lse=lse))
+
+
+def test_short_route_needs_the_training_forwards_residuals(cuda):
+    args = _attn_args(2, 65, 96, 3, 32, torch.bfloat16, cuda)
+    x, gamma, beta, wqkv, wo, bo = args
+    qkv = fused_attention_block_forward_reference(*args, 3, 32)[2]
+    with pytest.raises(ValueError, match="short route"):
+        fused_attention_block_backward(x, x, qkv, gamma, wqkv, wo, 3, 32)
 
 
 @pytest.mark.parametrize("shape,hidden,dtype", [
@@ -205,11 +243,16 @@ def test_fused_mlp_training_forward_keeps_the_plain_residuals(cuda, shape, hidde
 def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, b, n, d, heads,
                                                                           dh, dtype):
     """The training forward returns y, xn, qkv and oattn as the plain version
-    computes them."""
+    computes them, and lse (kept for the short route) within LSE_ABS_TOL."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=3)
-    out = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3)
-    check_outputs(torch, "fused_attention_block training forward", out,
+    out = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3,
+                                                    need_lse=True)
+    check_outputs(torch, "fused_attention_block training forward", out[:4],
                   fused_attention_block_forward_reference(*args, heads, dh), {0: args[0]})
+    lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh)
+    assert out[4].dtype == torch.float32 and (out[4] - lse).abs().max() <= LSE_ABS_TOL
+    assert fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5,
+                                                     1e-3)[4] is None
 
 
 def test_grad_mode_runs_the_forward_and_backward_kernels(cuda):
@@ -223,11 +266,14 @@ def test_grad_mode_runs_the_forward_and_backward_kernels(cuda):
     assert (fused_mlp.launches - counts[0], fused_mlp_backward.launches - counts[1]) == (1, 1)
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
     args = [t.requires_grad_() for t in _attn_args(2, 33, 96, 3, 32, torch.bfloat16, cuda)]
-    counts = (fused_attention_block.launches, fused_attention_block_backward.launches)
+    short = fused_attention_block_ops.BACKWARD_ROUTES["short"]
+    counts = (fused_attention_block.launches, fused_attention_block_backward.launches,
+              short.launches)
     y = fused_attention_block(*args, 3, 32)
     y.float().square().sum().backward()
     assert (fused_attention_block.launches - counts[0],
-            fused_attention_block_backward.launches - counts[1]) == (1, 1)
+            fused_attention_block_backward.launches - counts[1],
+            short.launches - counts[2]) == (1, 1, 1)
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
 
 
@@ -338,7 +384,7 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
         assert (fused_attention_block.launches,
                 fused_attention_block_bias.launches) == (before[0], before[1] + 1)
         _close(out, fused_attention_block_reference(*args, heads, dh, bias=bias), x)
-    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias)[:4]
     check_outputs(torch, "biased training forward", fwd,
                   fused_attention_block_forward_reference(*args, heads, dh, bias=bias), {0: x})
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(6),
@@ -352,6 +398,8 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
                                                    bias=bias)
     check_outputs(torch, "biased backward", got[:5], ref[:5], {0: dy})
     check_dbias(torch, "biased backward", got[5], ref[5])
+    _twice(got, fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads,
+                                                    dh))
 
 
 @pytest.mark.parametrize("hb", [1, 4])
@@ -377,7 +425,7 @@ def test_lsa_bias_gives_finite_outputs_one_past_a_key_tile(cuda, n):
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=9)
     x, gamma, beta, wqkv, wo, bo = args
     bias = _bias("lsa", heads, n, cuda)
-    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, 1.0, 1e-3, bias)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, 1.0, 1e-3, bias)[:4]
     check_outputs(torch, "LSA training forward", fwd,
                   fused_attention_block_forward_reference(*args, heads, dh, 1.0, bias=bias),
                   {0: x})
@@ -830,10 +878,6 @@ def _hybrid_args(cuda, t, d, inner, hidden, seed=0):
                 dz=rn(t, d, scale=0.1))
 
 
-def _twice(got, again):
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
-
-
 @pytest.mark.parametrize("b,n,d,heads,dh,hidden", [
     (128, 65, 1024, 16, 64, 2048),  # ViT-B/32 at bench.py's batch
     (64, 33, 96, 3, 32, 160),       # three heads of 32; ragged rows and widths
@@ -915,30 +959,41 @@ def test_ln_gemm_forward_matches_plain(cuda, rows, d, n_out, dtype):
 # predicated).
 GEMM_SHAPES = [(8320, 1024, 1024), (8320, 2048, 1024), (8320, 1024, 2048),
                (2112, 96, 96), (2112, 160, 96), (2112, 96, 160)]
+# (rows, n, k) of the blocks' dgrads over W (k, n) as it lies: dy·Wo, dy·W2,
+# dh·W1 and dqkv·Wqkv at bench.py's B/32 step (8320 rows), dy·W2 and dh·W1 at
+# B/16 (12,608 rows: n 3072 and 768), ragged rows at n 1024, ScalableViT's
+# stage-1 dh·W1 (n 64), and n 264 (a partial 64-column box).
+DGRAD_SHAPES = [(8320, 1024, 1024), (8320, 2048, 1024), (8320, 1024, 2048), (8320, 1024, 3072),
+                (12608, 3072, 768), (12608, 768, 3072), (2111, 1024, 96), (4096, 64, 256),
+                (1000, 264, 136)]
+GEMM_CASES = [("nk", e, shape) for e in fh.GEMM_EPILOGUES for shape in GEMM_SHAPES] + \
+    [("kn", e, shape) for e in fh.DGRAD_EPILOGUES for shape in DGRAD_SHAPES]
 
 
-@pytest.mark.parametrize("epilogue", list(fh.GEMM_EPILOGUES))
-@pytest.mark.parametrize("rows,n,k", GEMM_SHAPES)
-def test_gemm_wgmma_epilogue_matches_plain(cuda, rows, n, k, epilogue):
-    """Each epilogue of the forward GEMM against its plain version (out, and
-    h where it keeps h; bias + residual held against its residual), the same
-    bits on two runs."""
+@pytest.mark.parametrize("layout,epilogue,shape", GEMM_CASES)
+def test_gemm_wgmma_epilogue_matches_plain(cuda, layout, epilogue, shape):
+    """Each epilogue of the GEMM, over an (n, k) weight (the forward's) and
+    over a (k, n) one read as it lies (B MN-major: the dgrads'), against its
+    plain version (out, and h where it keeps h; dh, gact and db1 for dGELU;
+    bias + residual held against its residual), the same bits on two runs."""
+    rows, n, k = shape
     g = torch.Generator(device=cuda).manual_seed(rows + n + k)
 
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
 
-    a, w, bias, res = rn(rows, k), rn(n, k, scale=k ** -0.5), rn(n, scale=0.1), rn(rows, n)
+    a, bias, res, h = rn(rows, k), rn(n, scale=0.1), rn(rows, n), rn(rows, n)
+    w = rn(n, k, scale=k ** -0.5) if layout == "nk" else rn(k, n, scale=k ** -0.5)
     before = fh.gemm_wgmma.launches
-    got = fh.gemm_wgmma(a, w, epilogue, bias, res)
+    got = fh.gemm_wgmma(a, w, epilogue, bias, res, h, layout)
     torch.cuda.synchronize()
     assert fh.gemm_wgmma.launches == before + 1
-    ref = fh.gemm_reference(a, w, epilogue, bias, res)
+    ref = fh.gemm_reference(a, w, epilogue, bias, res, h, layout)
     kept = [i for i, r in enumerate(ref) if r is not None]
     assert [i for i, o in enumerate(got) if o is not None] == kept
-    check_outputs(torch, f"gemm {epilogue}", [got[i] for i in kept], [ref[i] for i in kept],
-                  {0: res} if epilogue == "bias_residual" else {})
-    again = fh.gemm_wgmma(a, w, epilogue, bias, res)
+    check_outputs(torch, f"gemm {layout} {epilogue}", [got[i] for i in kept],
+                  [ref[i] for i in kept], {0: res} if epilogue == "bias_residual" else {})
+    again = fh.gemm_wgmma(a, w, epilogue, bias, res, h, layout)
     _twice([got[i] for i in kept], [again[i] for i in kept])
 
 

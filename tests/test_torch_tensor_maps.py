@@ -10,14 +10,20 @@ views no map takes are refused (``_tma_problem``, which
 forward GEMM (``gemm_wgmma.cu``: ``ln_gemm``'s QKV, ``proj_mlp``'s
 out-projection, fc1 and fc2) reads its operands through 2-d maps
 (``matrix_map``: rows their width apart), which take what the wrappers let
-through: contiguous, 16-byte aligned, widths that are multiples of 8.
+through: contiguous, 16-byte aligned, widths that are multiples of 8.  So do
+the block backwards' dgrads on the same GEMM, whose weights are read as they
+lie, ``(k, n)`` with n contiguous (B MN-major); and the short route of the
+attention block's backward (``short_bwd`` over the packed qkv, chosen by
+``attention_backward_route``) passes the strides of its column views.
 """
 
 import pytest
 import torch
 
 from vit_tpu_torch.ops import flash_attention_packed as fap
+from vit_tpu_torch.ops import fused_attention_block as fab
 from vit_tpu_torch.ops import fused_hybrid as fh
+from vit_tpu_torch.ops import fused_mlp as fm
 from vit_tpu_torch.ops.flash_attention import _tma_problem, _token_major, kernel_strides
 
 BF16 = torch.bfloat16
@@ -152,3 +158,84 @@ def test_gemm_refuses_widths_no_map_takes_before_any_launch():
     with pytest.raises(ValueError, match="multiples of 8"):
         fh.gemm_wgmma(torch.zeros(5, 68, dtype=BF16, device="meta"),
                       torch.zeros(64, 68, dtype=BF16), "store")
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32),
+                                          (1, 300, 2, 128)])
+def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
+    """The attention block's backward on the short route: q, k and v are the
+    column thirds of the packed (b, n, 3·inner) qkv (batch stride n·3·inner,
+    head stride dh, row stride 3·inner), O and dO the (b, n, inner) oattn and
+    doattn, dq, dk and dv the thirds of dqkv, written through qkv's strides;
+    the C entry point finds k and v (dk, dv) 2·inner bytes apart."""
+    inner = heads * dh
+    qkv, dqkv = (torch.zeros(b, n, 3 * inner, dtype=BF16) for _ in range(2))
+    oattn, doattn = (torch.zeros(b, n, inner, dtype=BF16) for _ in range(2))
+    views = fab.short_route_views(qkv, oattn, doattn, dqkv, heads, dh)
+    packed = [n * 3 * inner if b > 1 else 8, dh, 3 * inner]
+    assert list(kernel_strides(*views)) == packed * 3 + [n * inner if b > 1 else 8, dh, inner] * 2 \
+        + packed * 3
+    for v in views:
+        assert _tma_problem(v) is None and tuple(v.shape) == (b, heads, n, dh)
+    for base, thirds in ((qkv, views[:3]), (dqkv, views[5:])):
+        assert [t.data_ptr() - base.data_ptr() for t in thirds] == [0, 2 * inner, 4 * inner]
+    assert views[3].data_ptr() == oattn.data_ptr() and views[4].data_ptr() == doattn.data_ptr()
+
+
+@pytest.mark.parametrize("n,biased,route", [(65, False, "short"), (197, False, "short"),
+                                            (512, False, "short"), (513, False, "mha"),
+                                            (600, False, "mha"), (65, True, "mha"),
+                                            (257, True, "mha")])
+def test_backward_route_is_chosen_by_shape(n, biased, route):
+    """ViT-B/32's 65 and ViT-B/16's 197 tokens take short_bwd; a bias (the
+    small-dataset ViT's LSA at 257), or more than 512 tokens, keeps mha_bwd."""
+    assert fab.attention_backward_route(n, biased) == route
+
+
+@pytest.mark.parametrize("rows,d,inner,hidden", [(8320, 1024, 1024, 2048), (12608, 768, 768, 3072),
+                                                 (262144, 64, 64, 256), (33, 104, 96, 264)])
+def test_dgrad_weights_are_maps_of_the_weight_as_it_lies(rows, d, inner, hidden):
+    """The dgrads dy·Wo, dqkv·Wqkv, dy·W2 and dh·W1 read each nn.Linear
+    weight (out, in) as the (k, n) matrix B with n contiguous: a 2-d map of
+    k rows n elements apart, 64 x 64 boxes (the 128-byte swizzle's width) at
+    columns n0, n0 + 64, ..., the A operand (dy, dqkv, dh) as the forward
+    GEMM's, rows k apart."""
+    weights = {"wo": (torch.zeros(d, inner, dtype=BF16), d, inner),
+               "wqkv": (torch.zeros(3 * inner, d, dtype=BF16), 3 * inner, d),
+               "w2": (torch.zeros(d, hidden, dtype=BF16), d, hidden),
+               "w1": (torch.zeros(hidden, d, dtype=BF16), hidden, d)}
+    for name, (w, k, n) in weights.items():
+        assert _tma_problem(w) is None, name
+        assert tuple(w.shape) == (k, n) and w.stride() == (n, 1), name
+    for a, k in ((torch.zeros(rows, d, dtype=BF16), d), (torch.zeros(rows, hidden, dtype=BF16),
+                                                           hidden)):
+        assert _tma_problem(a) is None and a.stride() == (k, 1)
+
+
+def _meta(*shape):
+    return torch.zeros(*shape, dtype=BF16, device="meta")
+
+
+@pytest.mark.parametrize("k,n", [(64, 68), (68, 64), (200, 1028)])
+def test_dgrads_refuse_widths_no_map_takes_before_any_launch(k, n):
+    """A (k, n) weight whose rows are not a multiple of 16 bytes, or an A
+    operand whose rows are not, has no map: the GEMM, the fused MLP's and the
+    attention block's backwards raise before any launch."""
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fh.gemm_wgmma(_meta(5, k), torch.zeros(k, n, dtype=BF16), "f32", layout="kn")
+    d, hidden = k, n
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fm.fused_mlp_backward(_meta(5, d), _meta(5, d), _meta(5, hidden), _meta(d),
+                              _meta(hidden, d), _meta(d, hidden))
+    if d % 8:
+        with pytest.raises(ValueError, match="d % 8 == 0"):
+            fab.fused_attention_block_backward(_meta(2, 3, d), _meta(2, 3, d),
+                                               _meta(2, 3, 3 * 64), _meta(d), _meta(3 * 64, d),
+                                               _meta(d, 64), 1, 64)
+
+
+def test_gemm_takes_each_epilogue_only_over_its_layout():
+    a = torch.zeros(5, 64, dtype=BF16, device="meta")
+    for epilogue, layout in (("dgelu", "nk"), ("bias_gelu", "kn"), ("store", "mn")):
+        with pytest.raises(ValueError, match="no epilogue"):
+            fh.gemm_wgmma(a, torch.zeros(64, 64, dtype=BF16), epilogue, layout=layout)

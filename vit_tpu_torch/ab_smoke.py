@@ -9,15 +9,18 @@ processes run in turn: PARENT_DIR, this checkout, this checkout, PARENT_DIR.
 Each imports its own checkout's ``chip_smoke.py`` and ``vit_tpu_torch``,
 builds its own kernels, and runs
 
-- ``chip_smoke``'s attention phases (the flash kernels, the cross-attention
-  block, the packed op, ``short_attention``, the hybrid layer's ops at B/32),
-  with every check they make in the smoke;
-- train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px
-  and ScalableViT at 256 px, batch 64, and of ViT-B/32 at 256 px, batch 128,
-  on rows 1-4 and on the hybrid tier; the served forwards of CvT-13 at 384 px
-  (batch 64) and of the hybrid tier (batch 128): the wall ms per step (host
-  clock around back-to-back steps) and the device's busy ms per step
-  (``torch.profiler``'s kernel time);
+- ``chip_smoke``'s block backward phases (the fused MLP's and the attention
+  block's backwards at ViT-B/16 and bench.py's B/32 shapes, the biased block's
+  at the small-dataset ViT's) and its attention phases (the flash kernels, the
+  cross-attention block, the packed op, ``short_attention``, the hybrid
+  layer's ops at B/32), with every check they make in the smoke;
+- train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px,
+  ScalableViT at 256 px and the small-dataset ViT 256/16, batch 64, and of
+  ViT-B/32 at 256 px, batch 128, on rows 1-4 and on the hybrid tier; the served
+  forwards of CvT-13 at 384 px (batch 64) and of ViT-B/32 on rows 1-4 and on
+  the hybrid tier (batch 128): the wall ms per step (host clock around
+  back-to-back steps) and the device's busy ms per step (``torch.profiler``'s
+  kernel time);
 - the flash forward's C launcher (``vit_flash_attention_fwd``, called through
   ``ctypes`` with its arguments built once) at CvT-13@224's stage 1 and
   ScalableViT's SSA stage 1: host microseconds per call, back-to-back calls
@@ -71,6 +74,7 @@ def step_times(torch, cs) -> dict:
     """The end-to-end times (:func:`timed`) of one checkout's model classes,
     at ``chip_smoke``'s configurations."""
     from vit_tpu_torch import CvT, ScalableViT, ViT, cast_params
+    from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.parallel.train import make_train_step
 
     dev = torch.device("cuda")
@@ -78,6 +82,7 @@ def step_times(torch, cs) -> dict:
         "train CvT-13@224": (CvT, cs.CVT13, 64, 224),
         "train CvT-13@384": (CvT, cs.CVT13, 64, 384),
         "train ScalableViT@256": (ScalableViT, cs.SCALABLE, 64, cs.SCALABLE_SIZE),
+        "train small-dataset ViT 256/16": (vit_for_small_dataset.ViT, cs.SMALL_DATASET, 64, 256),
         "train ViT-B/32@256 rows 1-4": (ViT, cs.ENTRY, 128, 256),
         "train ViT-B/32@256 hybrid": (cs.hybrid_vit, cs.ENTRY, 128, 256),
     }
@@ -92,6 +97,7 @@ def step_times(torch, cs) -> dict:
         del model, step
         torch.cuda.empty_cache()
     serves = {"serve CvT-13@384": (CvT, cs.CVT13, 64, 384),
+              "serve ViT-B/32@256 rows 1-4": (ViT, cs.ENTRY, 128, 256),
               "serve ViT-B/32@256 hybrid": (cs.hybrid_vit, cs.ENTRY, 128, 256)}
     for tag, (vit, cfg, batch, size) in serves.items():
         g = torch.Generator(device=dev).manual_seed(0)
@@ -165,13 +171,16 @@ def child() -> dict:
     _build.build()
     _build.load()
     results = {}
+    cs.backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
+    cs.backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
+    cs.biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
     cs.flash_phase(torch, results, smi)
     cs.cross_attention_phase(torch, results, smi)
     cs.packed_phase(torch, results, smi)
     cs.short_attention_phase(torch, results, smi, {
         "short_attention": short_attention, "short_attention_bwd": short_attention_backward})
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
-    keep = ("kernel", "plain", "library", "flash")
+    keep = ("kernel", "plain", "library", "flash", "whole", "library_whole", "unbiased")
     torch.cuda.empty_cache()
     return {"card": smi, "host_us": launcher_host_us(torch, cs),
             "steps": step_times(torch, cs), "kernels": {
@@ -200,8 +209,9 @@ def main(parent: str) -> int:
     for label, result in runs:
         for name, rows in result["kernels"].items():
             for tag, r in rows.items():
-                means.setdefault(f"{name} at {tag}, kernel", {}).setdefault(label, []).append(
-                    r["kernel"])
+                if "kernel" in r:  # a training forward's check has no times
+                    means.setdefault(f"{name} at {tag}, kernel", {}).setdefault(
+                        label, []).append(r["kernel"])
         for tag, r in result["steps"].items():
             for what in ("wall", "busy"):
                 means.setdefault(f"{tag}, {what}", {}).setdefault(label, []).append(r[what])

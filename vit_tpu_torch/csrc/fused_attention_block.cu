@@ -24,13 +24,29 @@
 //
 // Backward (_bwd_kernel, fused_attention_block.py:169-258), four steps, a
 // fifth for dbias:
-//   1. linear dy·Wo                              -> doattn = T(dy·Wo) (rows, inner)
-//   2. mha_bwd over qkv and doattn (attention.cu) -> dqkv (rows, 3·inner)
+//   1. the dgrad dy·Wo                           -> doattn = T(dy·Wo) (rows, inner)
+//   2. the attention backward over qkv and doattn -> dqkv (rows, 3·inner), by
+//      one of two routes, chosen by shape in the open by the caller
+//      (ops/fused_attention_block.py attention_backward_route):
+//      - short (no bias, n <= 512: ViT-B/32's 65, ViT-B/16's 197):
+//        short_attention.cu's short_bwd over (b, heads, n, dh) views of the
+//        packed qkv (batch stride n·3·inner, head stride dh, row stride
+//        3·inner; q, k and v the column thirds), of oattn and doattn as O and
+//        dO, and of dqkv, written through the same strides as qkv, from the
+//        training forward's lse (mha_fwd writes it).  One recompute of p per
+//        key block, five products, dq summed inside the CTA.  Its D =
+//        rowsum(dO∘O) comes from the stored bf16 O, where the TPU kernel
+//        sums dsum = Σ p·dp in f32 (:196-238): the same quantity in exact
+//        arithmetic, apart by O's rounding;
+//      - mha (a bias, or n > 512): mha_bwd (attention.cu), the FA2 split,
+//        with dsum = Σ dp·p in f32 as the TPU kernel.
 //   2b. only when dbias is asked for: mha_dbias   -> dbias (hb, n, n) f32, in a fixed order
-//   3. linear dqkv·Wqkv into f32                 -> dxn (rows, d)
+//   3. the dgrad dqkv·Wqkv into f32              -> dxn (rows, d)
 //   4. LayerNorm backward (layernorm.cu, shared with the MLP): dx = T(dy + T(dx_ln));
 //      Σ dxn·xhat, Σ dxn, Σ dy                   -> dγ, dβ, dbo
-// The weight gradients dWqkv = dqkvᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs
+// The two dgrads read the weights as they lie (kWeightKN) on gemm_wgmma.cu's
+// wgmma GEMM with B MN-major (below n = 256, linear.cu's; launch_dgrad).  The
+// weight gradients dWqkv = dqkvᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs
 // outside, as they were outside the Pallas kernel (:498-505).  Bound on the
 // H100: the doattn and dxn GEMMs plus the attention's 10·b·heads·n²·dim_head
 // FLOPs (79 GFLOP at B/16) at the 989 TFLOP/s bf16 peak, 0.08 ms.  At the
@@ -39,11 +55,12 @@
 // attention) and the backward at 0.183 ms (138.0 + 43.3).
 #include "kernels.cuh"
 
-// `bias` (hb, n, n) f32, or null with hb = 0.
+// `bias` (hb, n, n) f32, or null with hb = 0.  `lse` (b, heads, n) f32, or
+// null: the unbiased training forward on the short backward route keeps it.
 extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
                                              const void* beta, const void* wqkv,
                                              const void* wo, const void* bo, void* y,
-                                             void* xn, void* qkv, void* oattn,
+                                             void* xn, void* qkv, void* oattn, float* lse,
                                              const float* bias, int hb, int b,
                                              int n, int d, int heads, int dim_head,
                                              float scale, float eps, int dtype,
@@ -55,7 +72,7 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
   err = launch_linear(xn, wqkv, kWeightNK, nullptr, nullptr, nullptr, qkv, nullptr, nullptr, rows,
                       3 * inner, d, kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_mha_fwd(qkv, oattn, bias, hb, b, n, heads, dim_head, scale, dtype, stream);
+  err = launch_mha_fwd(qkv, oattn, lse, bias, hb, b, n, heads, dim_head, scale, dtype, stream);
   if (err != cudaSuccess) return err;
   return launch_linear(oattn, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, d, inner,
                        kEpiBiasResidual, dtype, stream);
@@ -63,36 +80,57 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
 
 // Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and
 // sums_d = [dγ | dβ | dbo] (3·d,) in f32.  Scratch: doattn (rows, inner) in
-// the compute dtype; rowstat (b, heads, n, 2), dxn (rows, d), stats (rows, 2)
-// and part_d (vit_ln_bwd_partial_rows(rows), 3·d) in f32.  `bias` (hb, n, n)
-// f32, or null with hb = 0; `dbias` (hb, n, n) f32 and its scratch
-// `dbias_part` (vit_attention_dbias_parts(b, n, heads, hb), hb, n, n) f32, or
-// both null when dbias is not wanted.
+// the compute dtype; dxn (rows, d), stats (rows, 2) and part_d
+// (vit_ln_bwd_partial_rows(rows), 3·d) in f32.  The attention's route:
+// - short, when `short_strides` (host memory, 24 values) is not null: the
+//   (batch, head, row) strides of q, k, v, O = oattn, dO = doattn, dq, dk, dv
+//   as short_bwd reads them (q/k/v and dq/dk/dv the column thirds of qkv and
+//   dqkv); `lse` (b, heads, n) f32 from the training forward; `dq_part`
+//   (vit_short_attention_parts(n, dim_head), b, heads, n, dim_head) f32
+//   scratch when that is above 1, else null.  No bias.
+// - mha otherwise: `rowstat` (b, heads, n, 2) f32 scratch; `bias` (hb, n, n)
+//   f32, or null with hb = 0; `dbias` (hb, n, n) f32 and its scratch
+//   `dbias_part` (vit_attention_dbias_parts(b, n, heads, hb), hb, n, n) f32, or
+//   both null when dbias is not wanted.
 extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, const void* qkv,
+                                             const void* oattn, const float* lse,
                                              const void* gamma, const void* wqkv,
                                              const void* wo, void* dx, void* dqkv,
-                                             float* sums_d, void* doattn, float* rowstat,
-                                             float* dxn, float* stats, float* part_d,
-                                             const float* bias, int hb, float* dbias,
-                                             float* dbias_part, int b, int n, int d, int heads,
-                                             int dim_head, float scale, float eps, int dtype,
-                                             cudaStream_t stream) {
+                                             float* sums_d, void* doattn,
+                                             const long long* short_strides, float* dq_part,
+                                             float* rowstat, float* dxn, float* stats,
+                                             float* part_d, const float* bias, int hb,
+                                             float* dbias, float* dbias_part, int b, int n,
+                                             int d, int heads, int dim_head, float scale,
+                                             float eps, int dtype, cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, inner = heads * dim_head;
-  if (rows <= 0 || (dbias && !bias)) return cudaErrorInvalidValue;
-  cudaError_t err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr,
-                                  nullptr, rows, inner, d, kEpiStore, dtype, stream);
+  const bool short_route = short_strides != nullptr;
+  if (rows <= 0 || (dbias && !bias) || (short_route && (bias || !lse || !oattn)) ||
+      (!short_route && !rowstat))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, inner, d,
+                                 kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_mha_bwd(qkv, doattn, dqkv, rowstat, bias, hb, b, n, heads, dim_head, scale, dtype,
-                       stream);
+  if (short_route) {
+    const char* base = static_cast<const char*>(qkv);
+    char* dbase = static_cast<char*>(dqkv);
+    const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+    err = launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
+                           dbase + third, dbase + 2 * third, dq_part, short_strides, b, heads, n,
+                           n, dim_head, scale, dtype, stream);
+  } else {
+    err = launch_mha_bwd(qkv, doattn, dqkv, rowstat, bias, hb, b, n, heads, dim_head, scale,
+                         dtype, stream);
+  }
   if (err != cudaSuccess) return err;
   if (dbias) {
     err = launch_mha_dbias(qkv, doattn, rowstat, bias, hb, dbias_part, dbias, b, n, heads,
                            dim_head, scale, dtype, stream);
     if (err != cudaSuccess) return err;
   }
-  err = launch_linear(dqkv, wqkv, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr,
-                      rows, d, 3 * inner, kEpiStoreF32, dtype, stream);
+  err = launch_dgrad(dqkv, wqkv, nullptr, dxn, nullptr, nullptr, rows, d, 3 * inner,
+                     kEpiStoreF32, dtype, stream);
   if (err != cudaSuccess) return err;
   return launch_ln_bwd(x, dxn, gamma, dy, dx, stats, part_d, sums_d, rows, d, eps, dtype,
                        stream);

@@ -50,8 +50,8 @@ extern "C" int vit_ln_gemm_fwd(const void* x, const void* gamma, const void* bet
   using namespace vit;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm_wgmma(xn, w, nullptr, nullptr, out, nullptr, rows, n_out, d, kEpiStore, dtype,
-                           stream);
+  return launch_gemm_wgmma(xn, w, kWeightNK, nullptr, nullptr, nullptr, out, nullptr, nullptr,
+                           rows, n_out, d, kEpiStore, dtype, stream);
 }
 
 // dout (rows, n_out) contiguous; outputs dx (rows, d) in the compute dtype and
@@ -79,16 +79,16 @@ extern "C" int vit_proj_mlp_fwd(const void* x, const void* o, const void* wo, co
                                 void* xn, void* g, void* h, int rows, int d, int inner,
                                 int hidden, float eps, int dtype, cudaStream_t stream) {
   using namespace vit;
-  cudaError_t err = launch_gemm_wgmma(o, wo, bo, x, y, nullptr, rows, d, inner,
-                                      kEpiBiasResidual, dtype, stream);
+  cudaError_t err = launch_gemm_wgmma(o, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr,
+                                      rows, d, inner, kEpiBiasResidual, dtype, stream);
   if (err != cudaSuccess) return err;
   err = launch_layernorm(y, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_gemm_wgmma(xn, w1, b1, nullptr, g, h, rows, hidden, d,
-                          h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
+  err = launch_gemm_wgmma(xn, w1, kWeightNK, b1, nullptr, nullptr, g, h, nullptr, rows, hidden,
+                          d, h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm_wgmma(g, w2, b2, y, z, nullptr, rows, d, hidden, kEpiBiasResidual, dtype,
-                           stream);
+  return launch_gemm_wgmma(g, w2, kWeightNK, b2, y, nullptr, z, nullptr, nullptr, rows, d,
+                           hidden, kEpiBiasResidual, dtype, stream);
 }
 
 // Outputs dy (rows, d), do_ (rows, inner), dh and gact (rows, hidden) in the

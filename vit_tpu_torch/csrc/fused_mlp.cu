@@ -19,14 +19,16 @@
 // dtype, as the TPU wrapper rounded them (fused_mlp.py:309).
 //
 // Backward (_bwd_kernel, fused_mlp.py:177-227), three steps:
-//   1. linear dy·W2 with the dgelu epilogue: dh32 = (dy·W2)·gelu'(h) from the
-//      stored h; dh = T(dh32); gact = T(gelu(h)) for the dW2 GEMM; per-block
-//      column sums of the f32 dh32, then colsum                       -> db1
-//   2. linear dh·W1 into f32 (the TPU never rounds dxn)              -> dxn
+//   1. the dgrad dy·W2 with the dgelu epilogue: dh32 = (dy·W2)·gelu'(h) from
+//      the stored h; dh = T(dh32); gact = T(gelu(h)) for the dW2 GEMM; per
+//      64-row column sums of the f32 dh32, then colsum                -> db1
+//   2. the dgrad dh·W1 into f32 (the TPU never rounds dxn)           -> dxn
 //   3. LayerNorm backward: dx = T(dy + T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy
 //                                                                      -> dγ, dβ, db2
-// The weights are read as they lie (nn.Linear layout, kWeightKN) through
-// ldmatrix.trans; the weight gradients dW1 = dhᵀ·xn and dW2 = dyᵀ·gact stay
+// The dgrads read the weights as they lie (nn.Linear layout, kWeightKN) on
+// gemm_wgmma.cu's warp-specialised wgmma GEMM with B MN-major, or below n =
+// 256 (ScalableViT's narrow stages) on linear.cu's mma.sync one
+// (launch_dgrad); the weight gradients dW1 = dhᵀ·xn and dW2 = dyᵀ·gact stay
 // plain GEMMs outside, as they were outside the Pallas kernel
 // (fused_mlp.py:529-534).
 // Bound on the H100: the two dgrad GEMMs (4·rows·d·hidden FLOPs; 119 GFLOP at
@@ -59,13 +61,13 @@ extern "C" int vit_fused_mlp_bwd(const void* dy, const void* x, const void* h,
                                  int hidden, float eps, int dtype, cudaStream_t stream) {
   using namespace vit;
   if (rows <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = launch_linear(dy, w2, kWeightKN, nullptr, nullptr, h, dh, gact, part_h, rows,
-                                  hidden, d, kEpiDGelu, dtype, stream);
+  cudaError_t err = launch_dgrad(dy, w2, h, dh, gact, part_h, rows, hidden, d, kEpiDGelu, dtype,
+                                 stream);
   if (err != cudaSuccess) return err;
   err = launch_colsum(part_h, linear_partial_rows(rows), hidden, sums_h, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(dh, w1, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows,
-                      d, hidden, kEpiStoreF32, dtype, stream);
+  err = launch_dgrad(dh, w1, nullptr, dxn, nullptr, nullptr, rows, d, hidden, kEpiStoreF32, dtype,
+                     stream);
   if (err != cudaSuccess) return err;
   return launch_ln_bwd(x, dxn, gamma, dy, dx, stats, part_d, sums_d, rows, d, eps, dtype,
                        stream);

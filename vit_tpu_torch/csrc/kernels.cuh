@@ -106,6 +106,15 @@ __device__ __forceinline__ float dgelu_erf(float v) {
   return cdf + v * pdf;
 }
 
+// Both from one erf: returns gelu'(v) as dgelu_erf does and writes
+// gelu_erf(v) (v·cdf) to g.
+__device__ __forceinline__ float gelu_erf_and_grad(float v, float& g) {
+  const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+  const float pdf = 0.3989422804014327f * expf(-0.5f * v * v);
+  g = v * cdf;
+  return cdf + v * pdf;
+}
+
 // ---- host launchers (defined in layernorm.cu, linear.cu, attention.cu,
 // flash_attention.cu) -----------------------------------------------------------
 
@@ -144,22 +153,45 @@ cudaError_t launch_linear(const void* a, const void* w, int layout, const void* 
                           cudaStream_t stream);
 int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear_partial_rows
 
-// out (rows, n) = epi(A · Wᵀ) with A (rows, k) and W (n, k), both k-contiguous,
-// on wgmma fed by TMA (gemm_wgmma.cu), for the epilogues kEpiStore,
-// kEpiBiasGelu, kEpiBiasResidual and kEpiBiasGeluSave (with linear.cu's
-// rounding points); `bias` (n,), `res` and `aux` (rows, n) as the epilogue
-// needs them, null otherwise.  k % 8 == 0, n % 8 == 0, every matrix 16-byte
-// aligned.
-cudaError_t launch_gemm_wgmma(const void* a, const void* w, const void* bias, const void* res,
-                              void* out, void* aux, int rows, int n, int k, int epilogue,
-                              int dtype, cudaStream_t stream);
+// out (rows, n) = epi(A · B) on wgmma fed by TMA (gemm_wgmma.cu), A (rows, k)
+// k-contiguous and B as launch_linear takes it: kWeightNK with the epilogues
+// kEpiStore, kEpiBiasGelu, kEpiBiasResidual and kEpiBiasGeluSave, kWeightKN
+// with kEpiStore, kEpiStoreF32 and kEpiDGelu (linear.cu's rounding points and
+// partial-sum layout).  `bias` (n,), `res`, `aux_in` and `aux` (rows, n) and
+// `partial` (linear_partial_rows(rows), n) as the epilogue needs them, null
+// otherwise.  k % 8 == 0, n % 8 == 0, every matrix 16-byte aligned.
+cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const void* bias,
+                              const void* res, const void* aux_in, void* out, void* aux,
+                              float* partial, int rows, int n, int k, int epilogue, int dtype,
+                              cudaStream_t stream);
+
+// The blocks' dgrad GEMMs, out (rows, n) = epi(A · W) with W (k, n) used as it
+// lies (kWeightKN; kEpiStore, kEpiStoreF32 or kEpiDGelu, arguments as
+// launch_linear's): on gemm_wgmma from n = 256, on linear.cu below it
+// (gemm_wgmma.cu says why).
+cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void* out, void* aux,
+                         float* partial, int rows, int n, int k, int epilogue, int dtype,
+                         cudaStream_t stream);
+
+// The short-attention backward (short_attention.cu) over (b, heads, n, d)
+// operands read through (batch, head, row) element strides: dq, dk, dv from
+// q, k, v, the forward's out and f32 lse (b, heads, n_q), and dout; `strides`
+// (host memory) holds those of q, k, v, out, dout, dq, dk, dv (24 values);
+// `dq_part` (short_attention_parts(n_k, d), b, heads, n_q, d) f32 scratch when
+// that is above 1, else null.  n_q, n_k <= 512, d ∈ {32, 64, 128}.
+cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                             float* dq_part, const long long* strides, int b, int heads, int n_q,
+                             int n_k, int d, float scale, int dtype, cudaStream_t stream);
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
-// q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
-// (hb, n, n) f32 logits bias added after the scale, shared by every head when
-// hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64, 128}.
-cudaError_t launch_mha_fwd(const void* qkv, void* out, const float* bias, int hb, int b, int n,
-                           int heads, int dim_head, float scale, int dtype,
+// q|k|v thirds; writes (b, n, heads·dim_head) and, when `lse` is not null, each
+// query row's log-sum-exp of the scaled logits, (b, heads, n) f32.  `bias`, when
+// not null, is a (hb, n, n) f32 logits bias added after the scale, shared by
+// every head when hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64,
+// 128}.
+cudaError_t launch_mha_fwd(const void* qkv, void* out, float* lse, const float* bias, int hb,
+                           int b, int n, int heads, int dim_head, float scale, int dtype,
                            cudaStream_t stream);
 
 // Its backward: from qkv and dout = dL/d(attention output) (b, n, heads·dim_head),

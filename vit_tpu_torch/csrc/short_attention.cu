@@ -12,12 +12,19 @@
 //   vit_tpu/ops/fused_hybrid.py:317     _attn_nb_fwd_kernel (attention_nb,
 //                                       q/k/v in the (n, b, heads·dh) layout)
 //   vit_tpu/ops/fused_hybrid.py:345     _attn_nb_bwd_kernel
-// The two TPU pairs compute one function in two layouts; here the layout is a
+// and the attention part of
+//   vit_tpu/ops/fused_attention_block.py:169  _bwd_kernel, on
+//                                       fused_attention_block.cu's short route
+//                                       (the unbiased block at n <= 512, over
+//                                       its packed (b, n, 3·inner) q|k|v)
+// The TPU pairs compute one function in several layouts; here the layout is a
 // stride.  Every operand is read and written through (batch, head, row)
-// element strides, d contiguous: (b, h, n, d) tensors as they lie, and the
+// element strides, d contiguous: (b, h, n, d) tensors as they lie, the
 // (n, b, heads·dh) rows of the hybrid layer with batch stride heads·dh (or
 // 3·heads·dh for the q|k|v column views of one projection), head stride dh
-// and row stride b times that.  No layout copy either way, which is what the
+// and row stride b times that, and the block's (b, n, 3·heads·dh) q|k|v
+// thirds with batch stride n·3·heads·dh, head stride dh, row stride
+// 3·heads·dh.  No layout copy either way, which is what the
 // TPU tier paid for around its attention middle (fused_hybrid.py:31-40).
 //
 // Bound on the H100: at ViT-B/32's layer (b 128, 16 heads of 64, n 65, bf16)
@@ -908,6 +915,22 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void
 }
 
 }  // namespace
+
+cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
+                             const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                             float* dq_part, const long long* strides, int b, int heads, int n_q,
+                             int n_k, int d, float scale, int dtype, cudaStream_t stream) {
+  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
+  if (b == 0) return cudaSuccess;
+  if (dtype == kBF16)
+    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b,
+                                       heads, n_q, n_k, d, scale, stream);
+  if (dtype == kF16)
+    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b, heads,
+                                n_q, n_k, d, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace vit
 
 // Forward: out (width d) in the compute dtype through its strides and, when
@@ -941,16 +964,8 @@ extern "C" int vit_short_attention_bwd(const void* q, const void* k, const void*
                                        const long long* strides, int b, int heads, int n_q,
                                        int n_k, int d, float scale, int dtype,
                                        cudaStream_t stream) {
-  using namespace vit;
-  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
-  if (b == 0) return cudaSuccess;
-  if (dtype == kBF16)
-    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b,
-                                       heads, n_q, n_k, d, scale, stream);
-  if (dtype == kF16)
-    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b, heads,
-                                n_q, n_k, d, scale, stream);
-  return cudaErrorInvalidValue;
+  return vit::launch_short_bwd(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b, heads,
+                               n_q, n_k, d, scale, dtype, stream);
 }
 
 // Key blocks of the backward at n_k keys and width d: dq_part's leading

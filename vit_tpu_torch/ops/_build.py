@@ -43,16 +43,19 @@ _LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit strides
 # C signatures of the entry points (argtypes, restype).
 SIGNATURES = {
     "vit_fused_attention_block_fwd": (
-        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, bias (or null), hb,
-        [_P] * 10 + [_P, _I]
+        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, lse (or null), bias
+        # (or null), hb,
+        [_P] * 11 + [_P, _I]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
     ),
     "vit_fused_attention_block_bwd": (
-        # dy, x, qkv, gamma, wqkv, wo, dx, dqkv, sums_d, doattn, rowstat, dxn,
+        # dy, x, qkv, oattn and lse (or null), gamma, wqkv, wo, dx, dqkv,
+        # sums_d, doattn, short_strides (q, k, v, out, dout, dq, dk, dv: batch,
+        # head, row; null on the mha route), dq_part and rowstat (or null), dxn,
         # stats, part_d, bias (or null), hb, dbias and dbias_part (or null),
-        [_P] * 14 + [_P, _I, _P, _P]
+        [_P] * 12 + [_LL] + [_P] * 5 + [_P, _I, _P, _P]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
@@ -128,8 +131,9 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "vit_gemm_wgmma": (
-        # a, w, bias, res, out, aux (each or null), rows, n, k, epilogue, dtype, stream
-        [_P] * 6 + [_I] * 5 + [_P],
+        # a, w, layout, bias, res, aux_in, out, aux, partial, sums (each or
+        # null), rows, n, k, epilogue, dtype, stream
+        [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_P],
         ctypes.c_int,
     ),
     "vit_proj_mlp_fwd": (

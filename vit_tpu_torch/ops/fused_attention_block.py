@@ -16,6 +16,14 @@ plain PyTorch versions, :func:`fused_attention_block_forward_reference` and
 (:func:`fused_attention_block_bias`) counts its launches apart from the
 unbiased one.
 
+The backward's attention middle takes one of two routes, by shape
+(:func:`attention_backward_route`, each counted in ``BACKWARD_ROUTES``):
+without a bias and at n ≤ 512, ``short_bwd`` of ``csrc/short_attention.cu``
+over strided views of the packed qkv, from the lse that the training forward
+keeps for it (:func:`short_route_views`; its plain version
+:func:`fused_attention_block_short_backward_reference`); with a bias, or
+longer rows, ``mha_bwd`` of ``csrc/attention.cu``.
+
 What bounds it on the H100: at ViT-B/16, batch 64 (12,608 rows, d=768,
 12 heads of 64) the QKV and output GEMMs are about 59 GFLOP per block and the
 attention products about 15 GFLOP (the backward: 60 and 19), all far above
@@ -35,7 +43,10 @@ out-projection; the residual adds in the compute dtype.  Backward: ``doattn``
 rounded; p recomputed in f32; ``dsum = Σ dp·p`` from the f32 p and dp (not
 from the rounded output); ``T(p)`` for dv and ``ds = T(p·(dp - dsum)·scale)``
 for dq and dk, each rounded; the qkv dgrad ``dxn`` kept in f32; dγ, dβ and dbo
-summed in f32.  The TPU padded odd token counts on the host and masked with
+summed in f32.  The short route takes ``p = exp(s·scale - lse)`` from the
+forward's f32 lse and ``D = rowsum(dO∘O)`` from the stored, rounded attention
+output in place of dsum: the same quantity in exact arithmetic, apart by O's
+rounding in bf16.  The TPU padded odd token counts on the host and masked with
 -1e30; the CUDA kernels mask ragged keys themselves with -inf.  The bias,
 ``(hb, n, n)`` f32 with hb 1 (shared by the heads) or ``heads``, is added in
 f32 to the scaled f32 logits before the row max, in the forward and in the
@@ -46,6 +57,8 @@ the scale, computed only when asked for.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -53,8 +66,23 @@ from torch.autograd.function import once_differentiable
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
 from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
+from vit_tpu_torch.ops.flash_attention import kernel_strides
+from vit_tpu_torch.ops.short_attention import MAX_SEQ, short_attention_backward_reference
 
 SUPPORTED_DIM_HEAD = (32, 64, 128)
+
+# Launches of the backward's attention middle by route (attention_backward_route).
+BACKWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
+
+
+def attention_backward_route(n: int, biased: bool) -> str:
+    """The backward's attention middle at n tokens: ``"short"``
+    (``short_bwd``, one recompute of p per key block, from the training
+    forward's lse) for an unbiased block of at most 512 tokens (ViT-B/32's 65,
+    ViT-B/16's 197); ``"mha"`` (``mha_bwd``, the bias and its gradient, any
+    n) otherwise.  By shape only: the training forward keeps lse exactly when
+    this says ``"short"``."""
+    return "short" if not biased and n <= MAX_SEQ else "mha"
 
 
 def fused_attention_block_forward_reference(x, gamma, beta, wqkv, wo, bo, heads: int,
@@ -114,6 +142,16 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
+def attention_lse_reference(qkv, heads: int, dim_head: int, scale: float | None = None):
+    """Plain PyTorch version of the lse the unbiased training forward keeps
+    for the short route: f32 ``(b, heads, n)``, the log-sum-exp of each query
+    row's scaled f32 logits."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    q, k, _ = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
+    return torch.logsumexp(_logits(q, k, scale, None), dim=-1)
+
+
 def fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads: int,
                                              dim_head: int, scale: float | None = None,
                                              eps: float = 1e-3, bias=None,
@@ -147,11 +185,7 @@ def fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads:
     ds = (ds0 * scale).to(dt).float()
     dq, dk = ds @ k, ds.transpose(-1, -2) @ q
     dqkv = torch.cat([_merge_heads(t.to(dt)) for t in (dq, dk, dv)], dim=-1)
-    dxn32 = dqkv.reshape(-1, dqkv.shape[-1]).float() @ wqkv.float()
-    dx_ln, dgamma, dbeta = ln_backward_reference(x.reshape(-1, d).float(), dxn32,
-                                                 gamma.float(), eps)
-    dx = dy.reshape(-1, d) + dx_ln.to(dt)
-    out = dx.reshape(x.shape), dqkv, dgamma, dbeta, dy32.sum(0)
+    out = _through_the_projection(dy, x, dqkv, gamma, wqkv, eps)
     if bias is None:
         return out
     dbias = None
@@ -160,6 +194,54 @@ def fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads:
         if bias.shape[0] == 1:
             dbias = dbias.sum(0, keepdim=True)
     return out + (dbias,)
+
+
+def _through_the_projection(dy, x, dqkv, gamma, wqkv, eps):
+    """The backward after the attention: ``(dx, dqkv, dgamma, dbeta, dbo)``
+    from dqkv, through the qkv dgrad into f32 and the LayerNorm backward."""
+    d = x.shape[-1]
+    dxn32 = dqkv.reshape(-1, dqkv.shape[-1]).float() @ wqkv.float()
+    dx_ln, dgamma, dbeta = ln_backward_reference(x.reshape(-1, d).float(), dxn32,
+                                                 gamma.float(), eps)
+    dx = dy.reshape(-1, d) + dx_ln.to(dy.dtype)
+    return dx.reshape(x.shape), dqkv, dgamma, dbeta, dy.reshape(-1, d).float().sum(0)
+
+
+def short_route_views(qkv, oattn, doattn, dqkv, heads: int, dim_head: int):
+    """The ``(b, heads, n, dim_head)`` views the short route's ``short_bwd``
+    reads and writes, as they lie: q, k and v (the column thirds of the
+    packed ``(b, n, 3·inner)`` qkv: batch stride n·3·inner, head stride
+    dim_head, row stride 3·inner), O and dO (oattn and doattn, ``(b, n,
+    inner)``), and dq, dk and dv (the thirds of dqkv, qkv's strides)."""
+    def heads_of(t):
+        return t.unflatten(-1, (heads, dim_head)).transpose(1, 2)
+
+    return (*(heads_of(t) for t in qkv.chunk(3, dim=-1)), heads_of(oattn), heads_of(doattn),
+            *(heads_of(t) for t in dqkv.chunk(3, dim=-1)))
+
+
+def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma, wqkv, wo,
+                                                   heads: int, dim_head: int,
+                                                   scale: float | None = None,
+                                                   eps: float = 1e-3):
+    """Plain PyTorch version of the backward on the short route
+    (:func:`attention_backward_route`): ``(dx, dqkv, dgamma, dbeta, dbo)`` as
+    :func:`fused_attention_block_backward_reference` returns them, with the
+    attention's backward as ``short_bwd`` takes it: ``p = exp(s·scale -
+    lse)`` from the training forward's ``lse`` (``(b, heads, n)`` f32) and
+    ``D = rowsum(dO∘O)`` from the stored attention output ``oattn``, where
+    the TPU kernel sums ``dsum = Σ dp·p``; each product's output rounded as
+    the kernel rounds it.  In f32 the two are one function."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    d = x.shape[-1]
+    doattn = (dy.reshape(-1, d).float() @ wo.float()).to(dy.dtype).reshape(oattn.shape)
+    dqkv = torch.empty_like(qkv)
+    q, k, v, o, do, dq, dk, dv = short_route_views(qkv, oattn, doattn, dqkv, heads, dim_head)
+    for dst, src in zip((dq, dk, dv), short_attention_backward_reference(q, k, v, o, lse, do,
+                                                                         scale)):
+        dst.copy_(src)
+    return _through_the_projection(dy, x, dqkv, gamma, wqkv, eps)
 
 
 def fused_attention_block_supported(d: int, heads: int, dim_head: int) -> bool:
@@ -199,12 +281,15 @@ def _bias_args(bias):
     return (0, 0) if bias is None else (bias.data_ptr(), bias.shape[0])
 
 
-def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, bias=None):
-    """The forward kernels on CUDA tensors: ``(y, xn, qkv, oattn)``, every
-    tensor in ``x``'s dtype (bf16 or f16).  The training forward keeps the
-    last three, as the TPU's ``save_residuals=True``; serving drops them.
-    ``fused_attention_block.launches`` counts the launches without a bias,
-    ``fused_attention_block_bias.launches`` those with one."""
+def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, bias=None,
+                    need_lse=False):
+    """The forward kernels on CUDA tensors: ``(y, xn, qkv, oattn, lse)``,
+    every tensor but lse in ``x``'s dtype (bf16 or f16).  The training
+    forward keeps xn, qkv and oattn, as the TPU's ``save_residuals=True``,
+    and on the short backward route also lse (``need_lse``: f32 ``(b, heads,
+    n)``, else None); serving drops them.  ``fused_attention_block.launches``
+    counts the launches without a bias, ``fused_attention_block_bias.launches``
+    those with one."""
     b, n, d = x.shape
     inner = heads * dim_head
     _check_block("fused_attention_block", x, heads, dim_head, {
@@ -217,33 +302,38 @@ def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, b
     xn = torch.empty_like(x)
     qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)
     oattn = torch.empty((b, n, inner), dtype=x.dtype, device=x.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device) if need_lse else None
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.vit_fused_attention_block_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), xn.data_ptr(),
-            qkv.data_ptr(), oattn.data_ptr(), *_bias_args(bias), b, n, d, heads, dim_head,
-            float(scale), eps, _build.DTYPE_CODES[x.dtype], launch_stream(x))
+            qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr() if need_lse else None,
+            *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
+            _build.DTYPE_CODES[x.dtype], launch_stream(x))
     _build.check(err, "vit_fused_attention_block_fwd")
     (fused_attention_block if bias is None else fused_attention_block_bias).launches += 1
-    return y, xn, qkv, oattn
+    return y, xn, qkv, oattn, lse
 
 
 def fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads: int,
                                    dim_head: int, scale: float | None = None,
-                                   eps: float = 1e-3):
+                                   eps: float = 1e-3, oattn=None, lse=None):
     """The backward kernel: what
     :func:`fused_attention_block_backward_reference` returns.  A CPU tensor
     takes the plain version; a CUDA tensor launches
-    ``vit_fused_attention_block_bwd`` or raises.  Any n: the attention part
-    tiles both axes (``csrc/attention.cu``).
-    ``fused_attention_block_backward.launches`` counts kernel launches."""
+    ``vit_fused_attention_block_bwd`` or raises.  Any n: at n ≤ 512 the
+    attention goes the short route, which needs the training forward's
+    ``oattn`` and ``lse`` (``_launch_forward(..., need_lse=True)``); past it
+    ``mha_bwd`` tiles both axes.  ``fused_attention_block_backward.launches``
+    counts kernel launches."""
     if scale is None:
         scale = dim_head ** -0.5
     if dy.device.type == "cpu":
         return fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
                                                         dim_head, scale, eps)
-    out = _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps)
+    out = _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps,
+                           oattn=oattn, lse=lse)
     fused_attention_block_backward.launches += 1
     return out[:5]
 
@@ -258,9 +348,9 @@ def fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads
     dbo, dbias)`` as :func:`fused_attention_block_backward_reference` returns
     them, ``dbias`` computed (in a fixed order, the same bits every run) only
     when ``need_dbias``, else ``None``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``vit_fused_attention_block_bwd`` or
-    raises.  ``fused_attention_block_bias_backward.launches`` counts kernel
-    launches."""
+    version; a CUDA tensor launches ``vit_fused_attention_block_bwd`` (on the
+    mha route) or raises.  ``fused_attention_block_bias_backward.launches``
+    counts kernel launches."""
     if scale is None:
         scale = dim_head ** -0.5
     check_bias(bias, dy, heads)
@@ -277,26 +367,51 @@ fused_attention_block_bias_backward.launches = 0
 
 
 def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, bias=None,
-                     need_dbias=False):
+                     need_dbias=False, oattn=None, lse=None):
     """``vit_fused_attention_block_bwd`` on CUDA tensors: ``(dx, dqkv,
-    dgamma, dbeta, dbo, dbias)``, ``dbias`` ``None`` unless asked for."""
+    dgamma, dbeta, dbo, dbias)``, ``dbias`` ``None`` unless asked for; the
+    attention by :func:`attention_backward_route`, counted in
+    ``BACKWARD_ROUTES``."""
     b, n, d = dy.shape
     inner = heads * dim_head
-    _check_block("fused_attention_block backward", dy, heads, dim_head, {
+    route = attention_backward_route(n, bias is not None)
+    short = route == "short"
+    tensors = {
         "x": (x, dy.shape), "qkv": (qkv, (b, n, 3 * inner)), "gamma": (gamma, (d,)),
         "wqkv": (wqkv, (3 * inner, d)), "wo": (wo, (d, inner)),
-    })
+    }
+    if short and oattn is not None:
+        tensors["oattn"] = (oattn, (b, n, inner))
+    _check_block("fused_attention_block backward", dy, heads, dim_head, tensors)
+    if short and (oattn is None or lse is None):
+        raise ValueError(f"fused_attention_block backward: at n={n} the attention takes the "
+                         f"short route, which needs the training forward's oattn and lse")
+    if short and (lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, n)
+                  or not lse.is_contiguous() or lse.device != dy.device):
+        raise ValueError(f"fused_attention_block backward: lse must be a contiguous f32 "
+                         f"({b}, {heads}, {n}) tensor on {dy.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     rows = b * n
     f32 = dict(dtype=torch.float32, device=dy.device)
     dx, dqkv = torch.empty_like(dy), torch.empty_like(qkv)
     sums_d = torch.empty(3 * d, **f32)
-    doattn = torch.empty((rows, inner), dtype=dy.dtype, device=dy.device)
-    rowstat = torch.empty((b, heads, n, 2), **f32)
+    doattn = torch.empty((b, n, inner), dtype=dy.dtype, device=dy.device)
     dxn = torch.empty((rows, d), **f32)
     stats = torch.empty((rows, 2), **f32)
     lib = _build.load()
     part_d = torch.empty((lib.vit_ln_bwd_partial_rows(rows), 3 * d), **f32)
-    dbias = dbias_part = None
+    strides = dq_part = rowstat = dbias = dbias_part = None
+    if short:
+        strides = kernel_strides(*short_route_views(qkv, oattn, doattn, dqkv, heads, dim_head))
+        parts = lib.vit_short_attention_parts(n, dim_head)
+        if parts > 1:
+            dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
+    else:
+        rowstat = torch.empty((b, heads, n, 2), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dy.device):
         if need_dbias:  # the part count follows the device's SM count
             hb = bias.shape[0]
@@ -304,14 +419,14 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
             dbias_part = torch.empty((lib.vit_attention_dbias_parts(b, n, heads, hb), hb, n, n),
                                      **f32)
         err = lib.vit_fused_attention_block_bwd(
-            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), gamma.data_ptr(), wqkv.data_ptr(),
-            wo.data_ptr(), dx.data_ptr(), dqkv.data_ptr(), sums_d.data_ptr(),
-            doattn.data_ptr(), rowstat.data_ptr(), dxn.data_ptr(), stats.data_ptr(),
-            part_d.data_ptr(), *_bias_args(bias),
-            0 if dbias is None else dbias.data_ptr(),
-            0 if dbias_part is None else dbias_part.data_ptr(), b, n, d, heads, dim_head,
+            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), ptr(oattn), ptr(lse),
+            gamma.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
+            dx.data_ptr(), dqkv.data_ptr(), sums_d.data_ptr(), doattn.data_ptr(), strides,
+            ptr(dq_part), ptr(rowstat), dxn.data_ptr(), stats.data_ptr(), part_d.data_ptr(),
+            *_bias_args(bias), ptr(dbias), ptr(dbias_part), b, n, d, heads, dim_head,
             float(scale), eps, _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_attention_block_bwd")
+    BACKWARD_ROUTES[route].launches += 1
     dgamma, dbeta, dbo = sums_d.view(3, d).unbind(0)
     return dx, dqkv, dgamma, dbeta, dbo, dbias
 
@@ -319,7 +434,8 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
 class FusedAttentionBlockFunction(torch.autograd.Function):
     """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``, and with a
     ``bias``, ``_vjp_fwd_bias`` / ``_vjp_bwd_bias``): the training forward
-    keeps ``x``, ``xn``, ``qkv``, ``oattn`` and the bias; the backward runs
+    keeps ``x``, ``xn``, ``qkv``, ``oattn`` and the bias, and on the card's
+    short route (:func:`attention_backward_route`) lse; the backward runs
     the backward kernel, then the weight gradients ``dWqkv = dqkvᵀ·xn`` and
     ``dWo = dyᵀ·oattn`` as plain GEMMs with f32 accumulation, rounded to the
     weights' dtype, as JAX left them to XLA.  ``gamma``/``beta`` may be f32
@@ -331,13 +447,15 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps):
         gc, bc = gamma.to(x.dtype), beta.to(x.dtype)
+        lse = None
         if x.device.type == "cpu":
             y, xn, qkv, oattn = fused_attention_block_forward_reference(
                 x, gc, bc, wqkv, wo, bo, heads, dim_head, scale, eps, bias)
         else:
-            y, xn, qkv, oattn = _launch_forward(x, gc, bc, wqkv, wo, bo, heads, dim_head,
-                                                scale, eps, bias)
-        ctx.save_for_backward(x, xn, qkv, oattn, gc, wqkv, wo, bias)
+            short = attention_backward_route(x.shape[1], bias is not None) == "short"
+            y, xn, qkv, oattn, lse = _launch_forward(x, gc, bc, wqkv, wo, bo, heads, dim_head,
+                                                     scale, eps, bias, need_lse=short)
+        ctx.save_for_backward(x, xn, qkv, oattn, lse, gc, wqkv, wo, bias)
         ctx.config = (heads, dim_head, scale, eps)
         ctx.param_dtypes = (gamma.dtype, beta.dtype, bo.dtype)
         return y
@@ -345,12 +463,12 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, xn, qkv, oattn, gc, wqkv, wo, bias = ctx.saved_tensors
+        x, xn, qkv, oattn, lse, gc, wqkv, wo, bias = ctx.saved_tensors
         dy = dy.contiguous()
         dbias = None
         if bias is None:
             dx, dqkv, dgamma, dbeta, dbo = fused_attention_block_backward(
-                dy, x, qkv, gc, wqkv, wo, *ctx.config)
+                dy, x, qkv, gc, wqkv, wo, *ctx.config, oattn=oattn, lse=lse)
         else:
             dx, dqkv, dgamma, dbeta, dbo, dbias = fused_attention_block_bias_backward(
                 dy, x, qkv, gc, wqkv, wo, bias, *ctx.config,

@@ -44,7 +44,9 @@ from torch.autograd.function import once_differentiable
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
 from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
-from vit_tpu_torch.ops.fused_mlp import fused_mlp_backward_reference, fused_mlp_forward_reference
+from vit_tpu_torch.ops.fused_mlp import (
+    _dgelu, fused_mlp_backward_reference, fused_mlp_forward_reference,
+)
 from vit_tpu_torch.ops.short_attention import (
     ShortAttentionFunction, nb_heads, nb_merge, short_attention_backward_nb,
     short_attention_backward_reference, short_attention_forward,
@@ -71,55 +73,86 @@ def _f32(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-# ---- the forward GEMM: out = epi(a·Wᵀ) --------------------------------------------------------
+# ---- the GEMM: out = epi(a·Wᵀ) (the forward's), out = epi(a·W) (the dgrads') -------------
 
-# csrc/kernels.cuh's Epilogue codes that csrc/gemm_wgmma.cu takes.
+# csrc/kernels.cuh's Epilogue codes that csrc/gemm_wgmma.cu takes over an
+# nn.Linear weight (n, k) (the forward GEMMs, ``layout="nk"``) and over one
+# used as it lies, (k, n) (the blocks' dgrads, ``layout="kn"``).
 GEMM_EPILOGUES = {"store": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_save": 3}
+DGRAD_EPILOGUES = {"store": 0, "dgelu": 4, "f32": 5}
+_LAYOUTS = {"nk": (0, GEMM_EPILOGUES), "kn": (1, DGRAD_EPILOGUES)}
 
 
-def gemm_reference(a, w, epilogue: str, bias=None, res=None):
-    """Plain PyTorch version of the layer's forward GEMM (``gemm_wgmma.cu``,
-    under ``ln_gemm``'s and ``proj_mlp``'s forwards): ``(out, h)`` for ``a``
-    ``(rows, k)`` and the ``nn.Linear`` weight ``w`` ``(n, k)``, with the
-    kernel's rounding points: ``T(acc)``; ``T(gelu(acc + b))``; ``T(res +
-    T(acc + b))``; and for ``"bias_gelu_save"`` also ``h = T(acc + b)``, the
-    GELU taken of the unrounded sum.  ``h`` is None for the others."""
-    acc = a.float() @ w.float().t()
+def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk"):
+    """Plain PyTorch version of ``gemm_wgmma.cu`` for ``a`` ``(rows, k)``
+    and an ``nn.Linear`` weight ``w``, with the kernel's rounding points.
+
+    ``layout="nk"`` (the hybrid layer's forward GEMMs), ``w`` ``(n, k)``,
+    ``acc = a·wᵀ``: ``(out, h)``, out ``T(acc)``; ``T(gelu(acc + b))``;
+    ``T(res + T(acc + b))``; and for ``"bias_gelu_save"`` also ``h = T(acc +
+    b)``, the GELU taken of the unrounded sum (``h`` None for the others).
+
+    ``layout="kn"`` (the blocks' dgrads), ``w`` ``(k, n)`` as it lies, ``acc
+    = a·w``: ``"store"`` gives ``(T(acc), None)``, ``"f32"`` ``(acc, None)``,
+    ``"dgelu"`` ``(dh, gact, db1)`` from the saved pre-activation ``h``: ``dh
+    = T(acc·gelu'(h))``, ``gact = T(gelu(h))`` and ``db1`` the f32 column sums
+    of the unrounded ``acc·gelu'(h)``, as the fused MLP's backward computes
+    them."""
+    dt = a.dtype
+    acc = a.float() @ (w.float().t() if layout == "nk" else w.float())
     if epilogue == "store":
-        return acc.to(a.dtype), None
+        return acc.to(dt), None
+    if epilogue == "f32":
+        return acc, None
+    if epilogue == "dgelu":
+        h32 = h.float()
+        dh32 = acc * _dgelu(h32)
+        return dh32.to(dt), F.gelu(h32).to(dt), dh32.sum(0)
     s = acc + bias.float()
     if epilogue == "bias_residual":
-        return res + s.to(a.dtype), None
-    return F.gelu(s).to(a.dtype), s.to(a.dtype) if epilogue == "bias_gelu_save" else None
+        return res + s.to(dt), None
+    return F.gelu(s).to(dt), s.to(dt) if epilogue == "bias_gelu_save" else None
 
 
-def gemm_wgmma(a, w, epilogue: str, bias=None, res=None):
-    """The forward GEMM alone: what :func:`gemm_reference` returns.  A CPU
-    tensor takes the plain version; a CUDA tensor launches ``vit_gemm_wgmma``
-    or raises.  ``gemm_wgmma.launches`` counts the launches."""
-    if epilogue not in GEMM_EPILOGUES:
-        raise ValueError(f"gemm_wgmma: epilogue {epilogue!r} is none of {tuple(GEMM_EPILOGUES)}")
+def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk"):
+    """The GEMM alone: what :func:`gemm_reference` returns.  A CPU tensor
+    takes the plain version; a CUDA tensor launches ``vit_gemm_wgmma`` (at any
+    n: the blocks' dispatch to it by width is in C) or raises.
+    ``gemm_wgmma.launches`` counts the launches."""
+    if layout not in _LAYOUTS or epilogue not in _LAYOUTS[layout][1]:
+        raise ValueError(f"gemm_wgmma: no epilogue {epilogue!r} over layout {layout!r} (nk: "
+                         f"{tuple(GEMM_EPILOGUES)}, kn: {tuple(DGRAD_EPILOGUES)})")
     if a.device.type == "cpu":
-        return gemm_reference(a, w, epilogue, bias, res)
+        return gemm_reference(a, w, epilogue, bias, res, h, layout)
     rows, k = a.shape
-    n = w.shape[0]
+    n = w.shape[0] if layout == "nk" else w.shape[1]
     _check_widths("gemm_wgmma", k, n)
-    operands = {"w": (w, (n, k))}
-    if epilogue != "store":
+    operands = {"w": (w, (n, k) if layout == "nk" else (k, n))}
+    if epilogue in ("bias_gelu", "bias_residual", "bias_gelu_save"):
         operands["bias"] = (bias, (n,))
     if epilogue == "bias_residual":
         operands["res"] = (res, (rows, n))
+    if epilogue == "dgelu":
+        operands["h"] = (h, (rows, n))
     check_kernel_tensors("gemm_wgmma", a, operands)
-    out = torch.empty((rows, n), dtype=a.dtype, device=a.device)
-    h = torch.empty_like(out) if epilogue == "bias_gelu_save" else None
+    out = torch.empty((rows, n), dtype=torch.float32 if epilogue == "f32" else a.dtype,
+                      device=a.device)
+    aux = torch.empty((rows, n), dtype=a.dtype, device=a.device) \
+        if epilogue in ("bias_gelu_save", "dgelu") else None
+    lib = _build.load()
+    partial = sums = None
+    if epilogue == "dgelu":
+        partial, sums = _f32((lib.vit_linear_partial_rows(rows), n), a), _f32(n, a)
+    code, epilogues = _LAYOUTS[layout]
     with torch.cuda.device(a.device):
-        err = _build.load().vit_gemm_wgmma(
-            a.data_ptr(), w.data_ptr(), *(t.data_ptr() if t is not None else None
-                                          for t in (bias, res, out, h)),
-            rows, n, k, GEMM_EPILOGUES[epilogue], _build.DTYPE_CODES[a.dtype], launch_stream(a))
+        err = lib.vit_gemm_wgmma(
+            a.data_ptr(), w.data_ptr(), code,
+            *(t.data_ptr() if t is not None else None
+              for t in (bias, res, h, out, aux, partial, sums)),
+            rows, n, k, epilogues[epilogue], _build.DTYPE_CODES[a.dtype], launch_stream(a))
     _build.check(err, "vit_gemm_wgmma")
     gemm_wgmma.launches += 1
-    return out, h
+    return (out, aux, sums) if epilogue == "dgelu" else (out, aux)
 
 
 gemm_wgmma.launches = 0
