@@ -11,18 +11,26 @@ Phases, one line each (any failure raises and exits non-zero):
 2. build: compiles ``vit_tpu_torch/csrc`` with nvcc, one process per source
    (timed); then ptxas's registers, static shared memory and spills of each
    instance of the kernels built on wgmma and TMA (the flash forward, the
-   flash backward's dq and dk/dv kernels, the short-attention forward, the
-   GEMM of ln_gemm's forward).
-3. kernels: each forward kernel against its plain PyTorch version at the
-   ViT-B/16 @224 shapes (b=64, n=197, d=768, 12 heads of 64, h=3072) and the
-   entry shapes (b=8, n=65, d=1024, 16 heads of 64, h=2048), bf16 inputs from
-   a seeded generator; times of the kernel, its plain version and the plain
-   modules (bf16 through PyTorch's own GEMMs) with CUDA events around runs of
-   back-to-back calls.
+   flash backward's dq and dk/dv kernels, the short-attention forward and
+   backward kernels, the wgmma GEMM of the blocks' and the hybrid layer's
+   GEMMs).
+3. forward GEMMs: the blocks' forward GEMMs (fc1 keeping h, fc2, QKV, the
+   out-projection) at ViT-B/32's, ViT-B/16's and ScalableViT's four stage
+   widths, on gemm_wgmma.cu's kernel and on linear.cu's, each against the
+   plain GEMM, timed in turns: the measurement behind launch_forward_gemm's
+   threshold.  Then kernels: each forward kernel against its plain PyTorch
+   version (the attention block on the short route also against that
+   route's own plain version) and twice bit for bit, at the ViT-B/16 @224
+   shapes (b=64, n=197, d=768, 12 heads of 64, h=3072), bench.py's B/32
+   (b=128, n=65, d=1024, 16 heads of 64, h=2048) and the entry shapes (b=8),
+   bf16 inputs from a seeded generator; times of the kernel, its plain
+   version and the plain modules (bf16 through PyTorch's own GEMMs) with CUDA
+   events around runs of back-to-back calls.
 4. training kernels, at the B/16 training shapes (b=64) and the B/32 ones
    (b=128, n=65), from seeded bf16 inputs and cotangent: each training
-   forward (the kernels that keep xn, h and xn, qkv, oattn) against its plain
-   version, output by output; then each backward kernel, fed those kept
+   forward (the kernels that keep xn, h and xn, qkv, oattn, lse) against its
+   plain version, output by output, twice bit for bit; then each backward
+   kernel, fed those kept
    residuals, against its plain backward on them, output by output; times of
    the backward kernel, its plain version and PyTorch autograd through the
    plain bf16 modules for the same outputs, and of the kernel plus its dW
@@ -130,7 +138,9 @@ Phases, one line each (any failure raises and exits non-zero):
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT; training B/32, B/32 hybrid, B/16,
 small-dataset, CvT-13 @224 and @384, ScalableViT) runs with every kernel's
-launch counter set to 0 just before it and read just after.  The
+launch counter set to 0 just before it and read just after; the attention
+block's routes are counted each way (short_fwd / short_bwd on the unbiased
+ViTs, mha_fwd / mha_bwd on the small-dataset ViT's biased block).  The
 line before the last is the card as ``nvidia-smi`` names it; before that a
 JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound (the kernels rebuilt on wgmma and TMA also name their
@@ -372,7 +382,13 @@ def block_bounds(b, n, d, heads, dim_head, hidden, hb=0, dbias=False):
 
 
 def kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
+    """The serving forwards of the fused MLP and the attention block at one
+    shape, seeded bf16 inputs: each against its plain version (the block on
+    the short route also against that route's own plain version), twice bit
+    for bit, the block's route counted; times of the kernel, its plain
+    version and the bf16 modules."""
     from vit_tpu_torch.layers.common import MLP, Attention, LayerNorm
+    from vit_tpu_torch.ops import fused_attention_block as fab
     from vit_tpu_torch.ops.fused_attention_block import (
         fused_attention_block, fused_attention_block_reference,
     )
@@ -404,36 +420,54 @@ def kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             p.copy_(w)
     norm.eval(), mlp.eval(), attn.eval()
 
+    route = fab.attention_route(n, biased=False)
     cases = {
         "fused_mlp": (fused_mlp,
                       lambda: fused_mlp(x, gamma, beta, *mlp_w),
                       lambda: fused_mlp_reference(x, gamma, beta, *mlp_w),
-                      lambda: x + mlp(norm(x))),
+                      lambda: x + mlp(norm(x)), None),
         "fused_attention_block": (
             fused_attention_block,
             lambda: fused_attention_block(x, gamma, beta, *attn_w, heads, dim_head),
             lambda: fused_attention_block_reference(x, gamma, beta, *attn_w, heads,
                                                     dim_head),
-            lambda: x + attn(norm(x))),
+            lambda: x + attn(norm(x)),
+            (lambda: fab.fused_attention_block_short_forward_reference(
+                x, gamma, beta, *attn_w, heads, dim_head)[0]) if route == "short" else None),
     }
     with torch.inference_mode():
-        for name, (wrapper, kernel, plain, modules) in cases.items():
-            before = wrapper.launches
+        for name, (wrapper, kernel, plain, modules, own_plain) in cases.items():
+            before, routes = wrapper.launches, fab.FORWARD_ROUTES[route].launches
             out = kernel()
             torch.cuda.synchronize()
             if wrapper.launches != before + 1:
                 raise AssertionError(f"{name}: launch counter did not move")
+            if name == "fused_attention_block" and \
+                    fab.FORWARD_ROUTES[route].launches != routes + 1:
+                raise AssertionError(f"{name}: the {route} route's counter did not move")
             ref = plain()
             if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+            if not torch.equal(out, kernel()):
+                raise AssertionError(f"{name}: two runs differ")
             err, excess, tol = block_error(torch, out, ref, x)
+            own = ""
+            if own_plain:
+                own_err, own_excess, own_tol = block_error(torch, out, own_plain(), x)
+                if not own_excess <= own_tol:
+                    raise AssertionError(f"{name}: kernel differs from the {route} route's "
+                                         f"plain version by {own_excess} > {own_tol}")
+                own = (f"; against the {route} route's plain version (p normalised before "
+                       f"P·V) {own_err:.6g}, beyond one unit {own_excess:.6g}")
             ms = interleaved_medians(torch, {"kernel": kernel, "plain": plain,
                                              "modules": modules}, rounds=5, calls=10)
+            via = f", attention on the {route} route" if wrapper is fused_attention_block else ""
             log(f"kernel {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} "
-                f"h={hidden}]: max|kernel-plain|={err:.6g}, beyond one bf16 unit of "
+                f"h={hidden}{via}]: max|kernel-plain|={err:.6g}, beyond one bf16 unit of "
                 f"the output {excess:.6g} tol={tol:.6g} (2e-2*max|ref-x|: a few bf16 "
-                f"units of the block's own output); ms kernel={ms['kernel']:.4f} "
-                f"plain={ms['plain']:.4f} modules={ms['modules']:.4f}")
+                f"units of the block's own output){own}; the same bits in two runs; ms "
+                f"kernel={ms['kernel']:.4f} plain={ms['plain']:.4f} "
+                f"modules={ms['modules']:.4f}")
             if not excess <= tol:
                 raise AssertionError(f"{name}: kernel differs from its plain version "
                                      f"by {excess} beyond one output unit > {tol}")
@@ -441,15 +475,98 @@ def kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
                 err=err, **ms, bound=block_bounds(b, n, d, heads, dim_head, hidden)[name])
 
 
+# The blocks' forward GEMMs (fc1 keeping h, fc2, QKV, out-projection; csrc/
+# gemm_wgmma.cu launch_forward_gemm) at the main paths' shapes: (tag, rows, n,
+# k, epilogue).  ViT-B/32 @256 at batch 128 (bench.py's step) and 8 (the
+# entry's serving), ViT-B/16 @224 at batch 64, and ScalableViT @256's
+# conv-MLPs at batch 64 (dim 64 · 2^s, hidden 4x, (64 / 2^s)² tokens an
+# image at stage s + 1): the shapes on both sides of the threshold.
+FORWARD_GEMM_SHAPES = [
+    ("B/32 QKV", 8320, 3072, 1024, "store"),
+    ("B/32 out-proj", 8320, 1024, 1024, "bias_residual"),
+    ("B/32 fc1", 8320, 2048, 1024, "bias_gelu_save"),
+    ("B/32 fc2", 8320, 1024, 2048, "bias_residual"),
+    ("B/32 serving fc1, batch 8", 520, 2048, 1024, "bias_gelu"),
+    ("B/16 QKV", 12608, 2304, 768, "store"),
+    ("B/16 out-proj", 12608, 768, 768, "bias_residual"),
+    ("B/16 fc1", 12608, 3072, 768, "bias_gelu_save"),
+    ("B/16 fc2", 12608, 768, 3072, "bias_residual"),
+    ("ScalableViT stage 1 fc1", 262144, 256, 64, "bias_gelu_save"),
+    ("ScalableViT stage 1 fc2", 262144, 64, 256, "bias_residual"),
+    ("ScalableViT stage 2 fc1", 65536, 512, 128, "bias_gelu_save"),
+    ("ScalableViT stage 2 fc2", 65536, 128, 512, "bias_residual"),
+    ("ScalableViT stage 3 fc1", 16384, 1024, 256, "bias_gelu_save"),
+    ("ScalableViT stage 3 fc2", 16384, 256, 1024, "bias_residual"),
+    ("ScalableViT stage 4 fc1", 4096, 2048, 512, "bias_gelu_save"),
+    ("ScalableViT stage 4 fc2", 4096, 512, 2048, "bias_residual"),
+]
+FORWARD_GEMM_MIN_N = 256  # csrc/gemm_wgmma.cu kForwardMinN: launch_forward_gemm's rule
+
+
+def gemm_bound(rows, n, k, epilogue):
+    """Bound of one forward GEMM (bf16): 2·rows·n·k FLOPs; A and W read, the
+    bias and the residual read as the epilogue takes them, out (and h for
+    ``bias_gelu_save``) written."""
+    outs = 2 if epilogue == "bias_gelu_save" else 1
+    nbytes = 2 * (rows * k + n * k + outs * rows * n)
+    if epilogue != "store":
+        nbytes += 2 * n
+    if epilogue == "bias_residual":
+        nbytes += 2 * rows * n
+    return bound(2 * rows * n * k, nbytes)
+
+
+def forward_gemm_phase(torch, smi):
+    """The blocks' forward GEMMs at FORWARD_GEMM_SHAPES on both kernels that
+    launch_forward_gemm chooses between: gemm_wgmma.cu's wgmma GEMM and
+    linear.cu's mma.sync one (``fused_hybrid.gemm_wgmma(kernel=...)``),
+    seeded bf16 inputs.  Each output against the plain GEMM (one unit plus
+    2e-2 of its own part, the residual's part apart); times of both kernels
+    in turns, the bound, and which one the rule (n >= FORWARD_GEMM_MIN_N on
+    gemm_wgmma) takes.  Returns ``{tag: {wgmma, mma_sync, bound}}`` ms."""
+    from vit_tpu_torch.ops import fused_hybrid as fh
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for tag, rows, n, k, epilogue in FORWARD_GEMM_SHAPES:
+        a = torch.randn(rows, k, generator=g, device=dev).to(dt)
+        w = (torch.randn(n, k, generator=g, device=dev) * k ** -0.5).to(dt)
+        bias = (torch.randn(n, generator=g, device=dev) * 0.1).to(dt)
+        res = torch.randn(rows, n, generator=g, device=dev).to(dt) \
+            if epilogue == "bias_residual" else None
+        ref = fh.gemm_reference(a, w, epilogue, bias, res)
+        ref = tuple(t for t in ref if t is not None)
+        fns = {}
+        for kernel in fh.GEMM_KERNELS:
+            def fn(kernel=kernel):
+                return fh.gemm_wgmma(a, w, epilogue, bias, res, kernel=kernel)
+
+            got = tuple(t for t in fn() if t is not None)
+            check_outputs(torch, f"forward GEMM {tag} on {kernel}", got, ref,
+                          {0: res} if res is not None else {})
+            fns[kernel] = fn
+        ms = interleaved_medians(torch, fns, rounds=5, calls=10)
+        limit, by = gemm_bound(rows, n, k, epilogue)
+        takes = "wgmma" if n >= FORWARD_GEMM_MIN_N else "mma_sync"
+        log(f"forward GEMM {tag} [rows={rows} n={n} k={k} {epilogue}]: ms gemm_wgmma="
+            f"{ms['wgmma']:.4f} linear.cu mma.sync={ms['mma_sync']:.4f} bound={limit:.4f} "
+            f"({by}); launch_forward_gemm takes {takes}; both within one unit plus 2e-2 of "
+            f"the plain GEMM, on {smi}")
+        out[tag] = dict(ms, bound=limit, takes=takes)
+        del a, w, res, ref, fns
+    return out
+
+
 def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
     """At a training shape, from seeded bf16 inputs and cotangent: each
     training forward (the kernels that keep the residuals, as under grad)
-    against its plain version, output by output, the block's lse (kept for
-    the short route of its backward) within LSE_ABS_TOL; then each backward
-    kernel, fed the residuals the forward kernels kept, against its plain
-    backward on the same residuals, and twice bit for bit (the block's
-    attention on the route ``attention_backward_route`` gives it, as in
-    training).  Times of the backward kernel, its plain version, the
+    against its plain version, output by output, twice bit for bit, the
+    block's lse (kept for the short route of its backward) within
+    LSE_ABS_TOL; then each backward kernel, fed the residuals the forward
+    kernels kept, against its plain backward on the same residuals, and twice
+    bit for bit (the block's attention on the route ``attention_route`` gives
+    it, as in training).  Times of the backward kernel, its plain version, the
     kernel with the two weight-gradient GEMMs (the op's whole backward), and
     PyTorch autograd through the plain bf16 modules, once for the kernel's
     own outputs (dx and the γ, β and bias gradients) and once with the weight
@@ -477,27 +594,37 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
 
     # The training forwards and the residuals they keep (the block's lse for
     # the short route of its backward, where that route applies).
-    route = fab.attention_backward_route(n, biased=False)
-    attn_fwd = fab._launch_forward(x, gamma, beta, *attn_w, heads, dim_head, scale, eps,
-                                   need_lse=route == "short")
+    route = fab.attention_route(n, biased=False)
+
+    def mlp_forward():
+        return fm._launch_forward(x, gamma, beta, *mlp_w, eps, save_residuals=True)
+
+    def attn_forward():
+        return fab._launch_forward(x, gamma, beta, *attn_w, heads, dim_head, scale, eps,
+                                   training=True)
+
+    attn_fwd = attn_forward()
     fwd = {
-        "fused_mlp": (fm._launch_forward(x, gamma, beta, *mlp_w, eps, save_residuals=True),
+        "fused_mlp": (mlp_forward, mlp_forward(),
                       fm.fused_mlp_forward_reference(x, gamma, beta, *mlp_w, eps),
                       "y, xn, h"),
         "fused_attention_block": (
-            attn_fwd[:4],
+            lambda: attn_forward()[:4], attn_fwd[:4],
             fab.fused_attention_block_forward_reference(x, gamma, beta, *attn_w, heads,
                                                         dim_head, scale, eps),
-            "y, xn, qkv, oattn"),
+            f"y, xn, qkv, oattn; attention on the {route} route"),
     }
     torch.cuda.synchronize()
-    for name, (out, ref, outputs) in fwd.items():
+    for name, (again, out, ref, outputs) in fwd.items():
         err = check_outputs(torch, f"{name} training forward", out, ref, {0: x})
+        if not all(torch.equal(a, b_) for a, b_ in zip(out, again())):
+            raise AssertionError(f"{name} training forward: two runs differ")
         log(f"training forward {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} "
             f"h={hidden}]: ({outputs}) each within one bf16 unit plus 2e-2*max|its own "
-            f"part| of the plain version; max|kernel-plain|={err:.6g}")
+            f"part| of the plain version, the same bits in two runs; "
+            f"max|kernel-plain|={err:.6g}")
         results.setdefault(name, {}).setdefault(tag, {})["train_fwd_err"] = err
-    _, xn_m, h = fwd["fused_mlp"][0]
+    _, xn_m, h = fwd["fused_mlp"][1]
     _, xn_a, qkv, oattn, lse = attn_fwd
     if lse is not None:  # f32 on both sides, from the same bf16 qkv: summation order only
         lse_err = (lse - fab.attention_lse_reference(qkv, heads, dim_head, scale)).abs().max()
@@ -649,8 +776,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
         _, xn, qkv, oattn = train
         # The unbiased block on the same inputs, timed beside: its own
         # training forward's residuals, for the route its backward takes.
-        unbiased = fab._launch_forward(*args, heads, dim_head, scale, eps, need_lse=fab.
-                                       attention_backward_route(n, biased=False) == "short")
+        unbiased = fab._launch_forward(*args, heads, dim_head, scale, eps, training=True)
         bounds = block_bounds(b, n, d, heads, dim_head, hidden, bias.shape[0], want_dbias)
         fwd_bound = bounds["fused_attention_block"]
         bwd_bound = bounds["fused_attention_block_bwd"]
@@ -1176,10 +1302,10 @@ SHORT_SHAPES = [
 
 # The kernels rebuilt for Hopper (csrc/hopper.cuh: TMA rings on mbarriers,
 # wgmma), and the times of the designs they replaced (mma.sync with
-# synchronous staging; for proj_mlp and the block backwards' dgrads,
-# linear.cu's cp.async GEMM, and for the unbiased block backward's attention
-# mha_bwd's FA2 split; for ln_gemm, the earlier one-tile-a-CTA wgmma GEMM), ms
-# on an H100 80GB HBM3 at 700 W:
+# synchronous staging; for proj_mlp, the block forwards' GEMMs and the block
+# backwards' dgrads, linear.cu's cp.async GEMM, and for the unbiased block's
+# attention mha_fwd's online softmax and mha_bwd's FA2 split; for ln_gemm, the
+# earlier one-tile-a-CTA wgmma GEMM), ms on an H100 80GB HBM3 at 700 W:
 # constants cited from PERF.md's kernel table and its findings on the
 # rebuilds, printed on a line of their own beside the kernels' line, never in
 # it (every number there is this run's).  The flash forward's rebuild also
@@ -1196,7 +1322,14 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major; attention on "
                                         "short_bwd up to 512 tokens, mha_bwd past them",
            "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major; attention "
-                                             "on mha_bwd (bias, dbias)"}
+                                             "on mha_bwd (bias, dbias)",
+           "fused_mlp": "fc1 and fc2 on gemm_wgmma (wgmma+tma, warp-specialised, persistent, "
+                        "fused epilogues) from n 256, linear.cu below",
+           "fused_attention_block": "QKV and out-projection on gemm_wgmma from n 256; attention "
+                                    "on short_fwd (wgmma+tma, keeps lse in training) up to 512 "
+                                    "tokens, mha_fwd past them",
+           "fused_attention_block_bias": "QKV and out-projection on gemm_wgmma from n 256; "
+                                         "attention on mha_fwd (bias)"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
@@ -1220,6 +1353,9 @@ EARLIER_DESIGN_MS = {
     "fused_mlp_bwd": {"B/16": 0.7990, "B/32": 0.4599},
     "fused_attention_block_bwd": {"B/16": 0.8373, "B/32": 0.6831},
     "fused_attention_block_bias_bwd": {"lsa": 1.7378, "shared": 2.6618, "per-head": 2.4000},
+    "fused_mlp": {"B/16": 0.5743, "B/32": 0.3257},
+    "fused_attention_block": {"B/16": 0.4872, "B/32": 0.4362},
+    "fused_attention_block_bias": {"lsa": 0.9619},
 }
 
 
@@ -1824,10 +1960,9 @@ def kernel_group(name: str) -> str:
     m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
-    m = re.search(r"mha_fwd_kernel<[^,]+, \d+, (true|false), (true|false)>", name)
-    if m:  # <T, dim_head, BIAS, LSE>
-        return "mha_fwd_kernel" + (" (bias)" if m[1] == "true" else "") + (
-            " (keeps lse)" if m[2] == "true" else "")
+    m = re.search(r"mha_fwd_kernel<[^,]+, \d+, (true|false)>", name)
+    if m:  # <T, dim_head, BIAS>
+        return "mha_fwd_kernel" + (" (bias)" if m[1] == "true" else "")
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -1966,9 +2101,12 @@ def kernel_entry(results, by_path, name, src, tpu, main_shape):
                               for tag, times in results["below_gate"].items()}
     if name == "flash_backward":
         line["packed"] = table(results["flash_backward (packed)"])
-    if name == "fused_attention_block_bwd":  # the routes of both block backwards
-        line["launches_by_route"] = {route: sum(counts[route] for counts in by_path.values())
-                                     for route in ("short route", "mha route")}
+    if name in ("fused_attention_block", "fused_attention_block_bwd"):
+        # the routes of both blocks (biased and not), forward and backward
+        suffix = ", forward" if name == "fused_attention_block" else ""
+        line["launches_by_route"] = {
+            route: sum(counts[route + suffix] for counts in by_path.values())
+            for route in ("short route", "mha route")}
     if name in DESIGNS:
         line["design"] = DESIGNS[name]
     return line
@@ -2042,7 +2180,7 @@ def main() -> int:
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from vit_tpu_torch.ops.fused_attention_block import (
-        BACKWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
+        BACKWARD_ROUTES, FORWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
         fused_attention_block_bias, fused_attention_block_bias_backward,
     )
     from vit_tpu_torch.ops.fused_cross_attention import (
@@ -2056,8 +2194,13 @@ def main() -> int:
     from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
 
     results = {}
+    with clock("forward GEMMs"):
+        gemms = forward_gemm_phase(torch, smi)
+    log(f"forward GEMMs, ms by kernel at each shape (launch_forward_gemm: gemm_wgmma from n = "
+        f"{FORWARD_GEMM_MIN_N}, linear.cu below) on {smi}: {json.dumps(gemms)}")
     with clock("block kernels, SPT"):
         kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
+        kernel_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
         kernel_phase(torch, "B/32-entry", 8, 65, 1024, 16, 64, 2048, results)
         backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
         backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
@@ -2080,9 +2223,12 @@ def main() -> int:
                 "fused_mlp_bwd": fused_mlp_backward,
                 "fused_attention_block_bias": fused_attention_block_bias,
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
-                # the block backwards' attention middles by route (fused_attention_block.py
-                # attention_backward_route): short_bwd unbiased up to 512 tokens, else mha_bwd
+                # the blocks' attention middles by route (fused_attention_block.py
+                # attention_route), each direction: short_fwd / short_bwd unbiased up to 512
+                # tokens, else mha_fwd / mha_bwd
                 "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
+                "short route, forward": FORWARD_ROUTES["short"],
+                "mha route, forward": FORWARD_ROUTES["mha"],
                 "flash_attention": flash_attention, "flash_backward": flash_backward,
                 "fused_cross_attention": fused_cross_attention,
                 "fused_cross_attention_bwd": fused_cross_attention_backward,
@@ -2106,16 +2252,18 @@ def main() -> int:
     # The explicit-use op: its public entry under autograd, then its checks.
     path("short attention", short_attention_phase, results, smi, counters)
     path("serving B/16", serving_phase, "ViT-B/16@224 bf16", ViT, B16, 64, 3, 0, smi, counters,
-         per_layer(B16, "fused_attention_block", "fused_mlp"))
+         per_layer(B16, "fused_attention_block", "fused_mlp", "short route, forward"))
     path("serving B/32", serving_phase, "ViT-B/32@256 bf16 (entry)", ViT, ENTRY, 8, 3, 1, smi,
-         counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp"))
+         counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp", "short route, forward"))
     path("serving small-dataset", serving_phase, "small-dataset ViT 256/16 bf16", small,
          SMALL_DATASET, 64, 3, 4, smi, counters,
-         per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp"),
+         per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
+                   "mha route, forward"),
          top1_sign_test=True)
     path("training B/32", training_phase, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi,
          counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp",
-                             "fused_attention_block_bwd", "fused_mlp_bwd", "short route"))
+                             "fused_attention_block_bwd", "fused_mlp_bwd", "short route",
+                             "short route, forward"))
     # The short-sequence tier (fused_attention="hybrid") at bench.py's model.
     hybrid = per_layer(ENTRY, "ln_gemm", "attention_nb", "proj_mlp")
     path("serving B/32 hybrid", serving_phase, "ViT-B/32@256 hybrid bf16", hybrid_vit, ENTRY,
@@ -2129,11 +2277,12 @@ def main() -> int:
         f"{rows['plain']:.3f} in the two phases) on {smi}")
     path("training B/16", training_phase, "ViT-B/16@224", ViT, B16, 64, 3, smi, counters,
          per_layer(B16, "fused_attention_block", "fused_mlp", "fused_attention_block_bwd",
-                   "fused_mlp_bwd", "short route"))
+                   "fused_mlp_bwd", "short route", "short route, forward"))
     path("training small-dataset", training_phase, "small-dataset ViT 256/16", small,
          SMALL_DATASET, 64, 5, smi, counters,
          per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
-                   "fused_attention_block_bias_bwd", "fused_mlp_bwd", "mha route"))
+                   "fused_attention_block_bias_bwd", "fused_mlp_bwd", "mha route",
+                   "mha route, forward"))
     with clock("gradients small-dataset"):
         gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
     # CvT-13: flash at stage 1 (224 px; n_q 3136, n_k 784), stages 1 and 2 (384 px).

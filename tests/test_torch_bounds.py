@@ -9,7 +9,8 @@ and dk; the dgrad GEMMs of a block's backward), each input read once and
 each output written once (bf16 tensors, f32 lse and parameter sums).  The
 script imports only the standard library at module level, so the CPU can
 import it.  The profile phase's names for the hybrid tier's kernels are
-pinned too.
+pinned too, and so is the bound of one forward GEMM (the measurement behind
+``launch_forward_gemm``'s threshold).
 """
 
 import pytest
@@ -107,6 +108,17 @@ def test_hybrid_bounds(raw):
     assert got["proj_mlp"][1] == 3_712 and got["proj_mlp_bwd"][1] == 6_176
 
 
+def test_gemm_bound(raw):
+    rows, n, k = 6, 16, 8
+    a, w, out, b = 2 * rows * k, 2 * n * k, 2 * rows * n, 2 * n
+    flops = 2 * rows * n * k
+    assert chip_smoke.gemm_bound(rows, n, k, "store") == (flops, a + w + out)
+    assert chip_smoke.gemm_bound(rows, n, k, "bias_gelu") == (flops, a + w + b + out)
+    # h kept beside g; the residual read.
+    assert chip_smoke.gemm_bound(rows, n, k, "bias_gelu_save") == (flops, a + w + b + 2 * out)
+    assert chip_smoke.gemm_bound(rows, n, k, "bias_residual") == (flops, a + w + b + 2 * out)
+
+
 @pytest.mark.parametrize("kernel,group", [
     ("void vit::(anonymous namespace)::short_bwd_kernel<__nv_bfloat16, 64, 80, 80>(CUtensorMap)",
      "short_bwd_kernel (d 64, 80-key tiles)"),
@@ -122,11 +134,11 @@ def test_hybrid_bounds(raw):
      "gemm_wgmma_kernel dGELU (dy·W2)"),
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 5, 1>(CUtensorMap)",
      "gemm_wgmma_kernel f32 out (dxn)"),
-    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, false, true>(const "
-     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, float *, int, int, float)",
-     "mha_fwd_kernel (keeps lse)"),
-    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, true, false>(const "
-     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, float *, int, int, float)",
+    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, false>(const "
+     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, int, int, float)",
+     "mha_fwd_kernel"),
+    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, true>(const "
+     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, int, int, float)",
      "mha_fwd_kernel (bias)"),
     ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, true>(const "
      "__nv_bfloat16 *)", "mha_bwd_dq_kernel (bias)"),

@@ -5,7 +5,11 @@ the CPU) against ``vit_tpu.ops.fused_attention_block`` in the Pallas
 interpreter, as ``tests/unit/test_fused_attention_block.py`` runs it.  The
 plain attention of ``vit_tpu_torch/ops/attention.py`` against
 ``vit_tpu.ops.attention``.  Same inputs from ``numpy.random.default_rng``;
-f32 tolerance 1e-5, the bar of the JAX kernel's own tests.
+f32 tolerance 1e-5, the bar of the JAX kernel's own tests.  The block's plain
+forward on the short route (``short_attention``'s softmax, which divides
+before P·V where the TPU kernel divides after) against the TPU kernel's
+training forward (``_forward`` with ``save_residuals``) within 1e-4 of each
+output's max.
 """
 
 import numpy as np
@@ -16,11 +20,15 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from vit_tpu.ops import attention as jax_attention  # noqa: E402
+from vit_tpu.ops import fused_attention_block as jax_attn  # noqa: E402
 from vit_tpu.ops.fused_attention_block import (  # noqa: E402
     fused_attention_block as jax_block,
 )
 from vit_tpu_torch.ops import attention  # noqa: E402
-from vit_tpu_torch.ops.fused_attention_block import fused_attention_block  # noqa: E402
+from vit_tpu_torch.ops.fused_attention_block import (  # noqa: E402
+    attention_lse_reference, attention_route, fused_attention_block,
+    fused_attention_block_short_forward_reference,
+)
 
 TOL = 1e-5
 
@@ -53,6 +61,46 @@ def test_fused_attention_block_matches_jax_kernel(b, n, d, heads, dh):
                                 t(wo.T.copy()), t(bo), heads, dh).numpy()
     assert fused_attention_block.launches == before  # CPU: plain version
     assert np.max(np.abs(got - want)) <= TOL
+
+
+# The short route against the TPU kernel: p = e / l normalised before P·V
+# where the kernel divides after it, lse as m + log l where the reference
+# takes logsumexp; equal in exact arithmetic, apart by f32 rounding.
+SHORT_ROUTE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", [
+    (4, 65, 128, 2, 64),   # ViT-B/32's n
+    (2, 197, 96, 3, 32),   # ViT-B/16's n
+])
+def test_short_route_forward_matches_jax_kernel(b, n, d, heads, dh):
+    """The plain f32 version of the forward on the short route against
+    ``_forward`` with ``save_residuals``: y, xn, qkv and oattn each within
+    1e-4 of max|JAX output|, and its lse within 1e-5 of
+    ``attention_lse_reference`` over the same qkv."""
+    assert attention_route(n, biased=False) == "short"
+    rng = np.random.default_rng(3)
+    inner = heads * dh
+    x = _rng_f32(rng, b, n, d)
+    gamma = _rng_f32(rng, d, scale=0.1, shift=1.0)
+    beta = _rng_f32(rng, d, scale=0.1)
+    wqkv = _rng_f32(rng, d, 3 * inner, scale=0.05)
+    wo = _rng_f32(rng, inner, d, scale=0.05)
+    bo = _rng_f32(rng, d, scale=0.05)
+    scale = dh ** -0.5
+    want = jax_attn._forward(*map(jnp.asarray, (x, gamma, beta, wqkv, wo, bo)), heads, dh,
+                             scale, 1e-3, True, save_residuals=True)
+    t = torch.from_numpy
+    got = fused_attention_block_short_forward_reference(
+        t(x), t(gamma), t(beta), t(wqkv.T.copy()), t(wo.T.copy()), t(bo), heads, dh, scale)
+    for name, g, w in zip(["y", "xn", "qkv", "oattn"], got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        err = np.max(np.abs(g.numpy() - w)) / np.max(np.abs(w))
+        assert err <= SHORT_ROUTE_TOL, f"{name}: {err}"
+    lse = got[4]
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, heads, n)
+    assert torch.max(torch.abs(lse - attention_lse_reference(got[2], heads, dh, scale))) <= TOL
 
 
 def _qkv(rng, b=2, h=3, n=19, d=16):

@@ -88,7 +88,7 @@ def _attn_args(b, n, d, heads, dh, dtype, device, seed=0):
 
 
 def _twice(got, again):
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert all(a is b_ is None or torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 def _close(out, ref, x):
@@ -98,16 +98,42 @@ def _close(out, ref, x):
     assert excess <= tol, (excess, tol)
 
 
-@pytest.mark.parametrize("shape,hidden,dtype", [
-    ((2, 17, 64), 128, torch.bfloat16),
+# The fused MLP's forward at the shapes of its two GEMM kernels: fc1 and fc2
+# on gemm_wgmma from n = 256, on linear.cu below it (launch_forward_gemm).
+MLP_FORWARD_SHAPES = [
+    ((2, 17, 64), 128, torch.bfloat16),   # both GEMMs below n 256: linear.cu
     ((3, 67, 96), 160, torch.bfloat16),
     ((3, 67, 96), 160, torch.float16),
     ((2, 33, 104), 200, torch.bfloat16),  # partial k tiles (104, 200) and n tiles
-    ((520, 1024), 2048, torch.bfloat16),
+    ((2, 33, 104), 264, torch.bfloat16),  # fc1 on gemm_wgmma at a ragged n and k, fc2 not
+    ((520, 1024), 2048, torch.bfloat16),  # the entry's serving batch, 2-d rows
     ((8, 65, 1024), 2048, torch.bfloat16),
-    ((64, 197, 768), 3072, torch.bfloat16),
-])
+    ((128, 65, 1024), 2048, torch.bfloat16),  # bench.py's B/32 step
+    ((64, 197, 768), 3072, torch.bfloat16),   # B/16
+    ((2, 600, 256), 1024, torch.bfloat16),
+    ((4, 1024, 64), 256, torch.bfloat16),   # ScalableViT's stage 1: fc1 at k 64, fc2 at n 64
+    ((4, 256, 128), 512, torch.bfloat16),   # stage 2: fc2 at n 128
+]
+# The attention block's forward on both attention routes (attention_route).
+ATTN_FORWARD_SHAPES = [
+    (3, 67, 96, 3, 32, torch.bfloat16),
+    (3, 67, 96, 3, 32, torch.float16),
+    (2, 145, 256, 4, 64, torch.bfloat16),
+    (2, 70, 256, 2, 128, torch.bfloat16),
+    (1, 1, 64, 2, 32, torch.bfloat16),
+    (2, 33, 40, 1, 32, torch.bfloat16),     # d=40: a partial k tile in the QKV GEMM
+    (4, 33, 256, 4, 64, torch.bfloat16),    # a ragged n on gemm_wgmma and short_fwd
+    (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key tiles of online softmax: the mha route
+    (2, 600, 256, 4, 64, torch.bfloat16),   # past 512 tokens: the mha route
+    (8, 65, 1024, 16, 64, torch.bfloat16),  # the entry's serving batch, 520 rows
+    (128, 65, 1024, 16, 64, torch.bfloat16),  # bench.py's B/32 step
+    (64, 197, 768, 12, 64, torch.bfloat16),   # B/16
+]
+
+
+@pytest.mark.parametrize("shape,hidden,dtype", MLP_FORWARD_SHAPES)
 def test_fused_mlp_kernel_matches_plain(cuda, shape, hidden, dtype):
+    """The serving forward against the plain version, the same bits twice."""
     args = _mlp_args(shape, hidden, dtype, cuda)
     with torch.inference_mode():
         before = fused_mlp.launches
@@ -115,27 +141,32 @@ def test_fused_mlp_kernel_matches_plain(cuda, shape, hidden, dtype):
         torch.cuda.synchronize()
         assert fused_mlp.launches == before + 1
         _close(out, fused_mlp_reference(*args), args[0])
+        assert torch.equal(out, fused_mlp(*args))
 
 
-@pytest.mark.parametrize("b,n,d,heads,dh,dtype", [
-    (3, 67, 96, 3, 32, torch.bfloat16),
-    (3, 67, 96, 3, 32, torch.float16),
-    (2, 145, 256, 4, 64, torch.bfloat16),
-    (2, 70, 256, 2, 128, torch.bfloat16),
-    (1, 1, 64, 2, 32, torch.bfloat16),
-    (2, 33, 40, 1, 32, torch.bfloat16),     # d=40: a partial k tile in the QKV GEMM
-    (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key tiles of online softmax
-    (8, 65, 1024, 16, 64, torch.bfloat16),
-    (64, 197, 768, 12, 64, torch.bfloat16),
-])
+def _forward_routes():
+    return {r: c.launches for r, c in fused_attention_block_ops.FORWARD_ROUTES.items()}
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh,dtype", ATTN_FORWARD_SHAPES)
 def test_fused_attention_block_kernel_matches_plain(cuda, b, n, d, heads, dh, dtype):
+    """The serving forward against the plain version (the TPU kernel's late
+    divide) and, on the short route, against its own plain version (p
+    normalised before P·V); the same bits twice; the route by shape."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda)
+    route = fused_attention_block_ops.attention_route(n, biased=False)
     with torch.inference_mode():
-        before = fused_attention_block.launches
+        before, routes = fused_attention_block.launches, _forward_routes()
         out = fused_attention_block(*args, heads, dh)
         torch.cuda.synchronize()
         assert fused_attention_block.launches == before + 1
+        routes[route] += 1
+        assert _forward_routes() == routes
         _close(out, fused_attention_block_reference(*args, heads, dh), args[0])
+        if route == "short":
+            _close(out, fused_attention_block_ops.fused_attention_block_short_forward_reference(
+                *args, heads, dh)[0], args[0])
+        assert torch.equal(out, fused_attention_block(*args, heads, dh))
 
 
 @pytest.mark.parametrize("shape,hidden,dtype", [
@@ -192,7 +223,7 @@ def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, head
     lse = fused_attention_block_ops.attention_lse_reference(qkv, heads, dh)
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(2),
                      device=cuda).to(dtype)
-    route = fused_attention_block_ops.attention_backward_route(n, biased=False)
+    route = fused_attention_block_ops.attention_route(n, biased=False)
     assert route == ("short" if n <= 512 else "mha")
     routes = fused_attention_block_ops.BACKWARD_ROUTES
     before = (fused_attention_block_backward.launches, routes[route].launches)
@@ -219,40 +250,55 @@ def test_short_route_needs_the_training_forwards_residuals(cuda):
         fused_attention_block_backward(x, x, qkv, gamma, wqkv, wo, 3, 32)
 
 
-@pytest.mark.parametrize("shape,hidden,dtype", [
-    ((2, 17, 64), 128, torch.bfloat16),
-    ((3, 67, 96), 160, torch.float16),
-    ((2, 33, 104), 200, torch.bfloat16),
-    ((128, 65, 1024), 2048, torch.bfloat16),
-])
+@pytest.mark.parametrize("shape,hidden,dtype", MLP_FORWARD_SHAPES)
 def test_fused_mlp_training_forward_keeps_the_plain_residuals(cuda, shape, hidden, dtype):
     """The training forward (what grad mode launches) returns y, xn and the
-    pre-activation h as the plain version computes them."""
+    pre-activation h as the plain version computes them, the same bits
+    twice."""
     args = _mlp_args(shape, hidden, dtype, cuda, seed=3)
     out = fused_mlp_ops._launch_forward(*args, 1e-3, save_residuals=True)
     check_outputs(torch, "fused_mlp training forward", out,
                   fused_mlp_forward_reference(*args), {0: args[0]})
+    _twice(out, fused_mlp_ops._launch_forward(*args, 1e-3, save_residuals=True))
 
 
-@pytest.mark.parametrize("b,n,d,heads,dh,dtype", [
-    (3, 67, 96, 3, 32, torch.bfloat16),
-    (3, 67, 96, 3, 32, torch.float16),
-    (2, 70, 256, 2, 128, torch.bfloat16),
-    (128, 65, 1024, 16, 64, torch.bfloat16),
+@pytest.mark.parametrize("b,n,d,heads,dh,dtype,biased", [
+    (*shape, False) for shape in ATTN_FORWARD_SHAPES] + [
+    (2, 257, 1024, 16, 64, torch.bfloat16, True),  # the small-dataset ViT's LSA
 ])
 def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, b, n, d, heads,
-                                                                          dh, dtype):
+                                                                          dh, dtype, biased):
     """The training forward returns y, xn, qkv and oattn as the plain version
-    computes them, and lse (kept for the short route) within LSE_ABS_TOL."""
+    computes them and, on the short route, also as that route's own plain
+    version does, with lse (kept for short_bwd) within LSE_ABS_TOL of the
+    plain lse of its own qkv; on the mha route (a bias, or n > 512) no lse.
+    The same bits twice; the route by shape; serving keeps no lse."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=3)
-    out = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3,
-                                                    need_lse=True)
+    bias = vit_for_small_dataset.lsa_bias(n, cuda) if biased else None
+    scale = 1.0 if biased else dh ** -0.5
+    route = fused_attention_block_ops.attention_route(n, biased)
+    routes = _forward_routes()
+    out = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3, bias,
+                                                    training=True)
+    routes[route] += 1
+    assert _forward_routes() == routes
     check_outputs(torch, "fused_attention_block training forward", out[:4],
-                  fused_attention_block_forward_reference(*args, heads, dh), {0: args[0]})
-    lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh)
-    assert out[4].dtype == torch.float32 and (out[4] - lse).abs().max() <= LSE_ABS_TOL
-    assert fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5,
-                                                     1e-3)[4] is None
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, 1e-3, bias),
+                  {0: args[0]})
+    if route == "short":
+        short = fused_attention_block_ops.fused_attention_block_short_forward_reference(
+            *args, heads, dh, scale)
+        check_outputs(torch, "fused_attention_block training forward, short route", out[:4],
+                      short[:4], {0: args[0]})
+        lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh, scale)
+        assert out[4].dtype == torch.float32 and tuple(out[4].shape) == (b, heads, n)
+        assert (out[4] - lse).abs().max() <= LSE_ABS_TOL
+    else:
+        assert out[4] is None
+    _twice(out, fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3, bias,
+                                                          training=True))
+    assert fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3,
+                                                     bias)[4] is None
 
 
 def test_grad_mode_runs_the_forward_and_backward_kernels(cuda):
@@ -266,14 +312,15 @@ def test_grad_mode_runs_the_forward_and_backward_kernels(cuda):
     assert (fused_mlp.launches - counts[0], fused_mlp_backward.launches - counts[1]) == (1, 1)
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
     args = [t.requires_grad_() for t in _attn_args(2, 33, 96, 3, 32, torch.bfloat16, cuda)]
-    short = fused_attention_block_ops.BACKWARD_ROUTES["short"]
+    short = (fused_attention_block_ops.FORWARD_ROUTES["short"],
+             fused_attention_block_ops.BACKWARD_ROUTES["short"])
     counts = (fused_attention_block.launches, fused_attention_block_backward.launches,
-              short.launches)
+              short[0].launches, short[1].launches)
     y = fused_attention_block(*args, 3, 32)
     y.float().square().sum().backward()
     assert (fused_attention_block.launches - counts[0],
             fused_attention_block_backward.launches - counts[1],
-            short.launches - counts[2]) == (1, 1, 1)
+            short[0].launches - counts[2], short[1].launches - counts[3]) == (1, 1, 1, 1)
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in args)
 
 

@@ -12,10 +12,16 @@ out-projection, fc1 and fc2) reads its operands through 2-d maps
 (``matrix_map``: rows their width apart), which take what the wrappers let
 through: contiguous, 16-byte aligned, widths that are multiples of 8.  So do
 the block backwards' dgrads on the same GEMM, whose weights are read as they
-lie, ``(k, n)`` with n contiguous (B MN-major); and the short route of the
-attention block's backward (``short_bwd`` over the packed qkv, chosen by
-``attention_backward_route``) passes the strides of its column views.
+lie, ``(k, n)`` with n contiguous (B MN-major); and so do the fused MLP's
+and the attention block's forward GEMMs (fc1, fc2, QKV and the
+out-projection, on the same kernel from n = 256) over the buffers their
+wrappers allocate.  The short route of the attention block (``short_fwd`` and
+``short_bwd`` over the packed qkv, chosen by ``attention_route`` for both
+directions) passes the strides of its column views; the forward keeps the lse
+the backward reads exactly on that route.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -182,14 +188,171 @@ def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
     assert views[3].data_ptr() == oattn.data_ptr() and views[4].data_ptr() == doattn.data_ptr()
 
 
-@pytest.mark.parametrize("n,biased,route", [(65, False, "short"), (197, False, "short"),
-                                            (512, False, "short"), (513, False, "mha"),
-                                            (600, False, "mha"), (65, True, "mha"),
-                                            (257, True, "mha")])
+ROUTES_BY_SHAPE = [(65, False, "short"), (197, False, "short"), (512, False, "short"),
+                   (513, False, "mha"), (600, False, "mha"), (65, True, "mha"),
+                   (257, True, "mha")]
+
+
+@pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
 def test_backward_route_is_chosen_by_shape(n, biased, route):
-    """ViT-B/32's 65 and ViT-B/16's 197 tokens take short_bwd; a bias (the
-    small-dataset ViT's LSA at 257), or more than 512 tokens, keeps mha_bwd."""
-    assert fab.attention_backward_route(n, biased) == route
+    """ViT-B/32's 65 and ViT-B/16's 197 tokens take short_fwd and short_bwd;
+    a bias (the small-dataset ViT's LSA at 257), or more than 512 tokens,
+    keeps mha_fwd and mha_bwd.  One function chooses for both directions."""
+    assert fab.attention_route(n, biased) == route
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records the arguments the block's
+    entry points are given and launches nothing."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def vit_fused_attention_block_fwd(self, *args):
+        self.calls.setdefault("fwd", []).append(args)
+        return 0
+
+    def vit_fused_attention_block_bwd(self, *args):
+        self.calls.setdefault("bwd", []).append(args)
+        return 0
+
+    def vit_ln_bwd_partial_rows(self, rows):
+        return 1
+
+    def vit_short_attention_parts(self, n_k, d):
+        return 1
+
+
+@pytest.fixture
+def recording_lib(monkeypatch):
+    """The block's wrappers on CPU tensors, each call recorded by a
+    :class:`_RecordingLib`: what they pass to the C entry points, with the
+    device checks and the stream left out."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(fab._build, "load", lambda: lib)
+    monkeypatch.setattr(fab, "check_kernel_tensors", lambda *args: None)
+    monkeypatch.setattr(fab, "launch_stream", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    return lib
+
+
+@pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
+def test_forward_and_backward_take_one_route(recording_lib, n, biased, route):
+    """The forward and the backward pass one route to C: on the short route
+    the forward passes short_fwd's strides over the packed qkv and oattn and,
+    in training only, an f32 (b, heads, n) lse, and the backward passes
+    short_bwd's strides and that lse; on the mha route neither passes
+    strides, and no lse is kept.  Each direction counts its route."""
+    b, d, heads, dh = 2, 64, 2, 32
+    inner = heads * dh
+    x, dy = torch.zeros(b, n, d, dtype=BF16), torch.zeros(b, n, d, dtype=BF16)
+    g, bo = torch.ones(d, dtype=BF16), torch.zeros(d, dtype=BF16)
+    wqkv, wo = torch.zeros(3 * inner, d, dtype=BF16), torch.zeros(d, inner, dtype=BF16)
+    bias = torch.zeros(1, n, n) if biased else None
+    counts = [r[route].launches for r in (fab.FORWARD_ROUTES, fab.BACKWARD_ROUTES)]
+    served = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5, 1e-3, bias)
+    _, _, qkv, oattn, lse = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5,
+                                                1e-3, bias, training=True)
+    assert served[4] is None
+    short = route == "short"
+    packed = [n * 3 * inner, dh, 3 * inner]
+    for (*_, lse_ptr, strides, bias_ptr, hb), keeps in zip(
+            (args[:14] for args in recording_lib.calls["fwd"]), (False, True)):
+        assert (strides is not None) == short and bool(bias_ptr) == biased
+        if short:
+            assert list(strides) == packed * 3 + [n * inner, dh, inner]
+        assert (lse_ptr is not None) == (short and keeps)
+    assert (lse is not None) == short
+    if short:
+        assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, heads, n)
+        assert lse.is_contiguous()
+        fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3,
+                             oattn=oattn, lse=lse)
+    else:
+        fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias)
+    (bwd,) = recording_lib.calls["bwd"]
+    lse_ptr, strides = bwd[4], bwd[12]
+    assert (strides is not None) == short
+    if short:
+        assert lse_ptr == lse.data_ptr() and list(strides)[:12] == packed * 3 + [
+            n * inner, dh, inner]
+    assert [r[route].launches for r in (fab.FORWARD_ROUTES, fab.BACKWARD_ROUTES)] == \
+        [counts[0] + 2, counts[1] + 1]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32),
+                                          (1, 300, 2, 128)])
+def test_short_forward_passes_the_packed_projections_strides(b, n, heads, dh):
+    """The attention block's forward on the short route: short_fwd reads q,
+    k and v as the column thirds of the (b, n, 3·inner) qkv its wrapper
+    allocates and writes O through the strides of its (b, n, inner) oattn,
+    the backward's first four views; the C entry point finds k and v 2·inner
+    bytes after q."""
+    x = torch.zeros(b, n, 8, dtype=BF16, device="meta")
+    _, _, qkv, oattn = fab._forward_buffers(x, heads, dh)
+    qkv, oattn = torch.zeros_like(qkv, device="cpu"), torch.zeros_like(oattn, device="cpu")
+    inner = heads * dh
+    views = fab.short_forward_views(qkv, oattn, heads, dh)
+    packed = [n * 3 * inner if b > 1 else 8, dh, 3 * inner]
+    assert list(fab.short_route_strides("block", views)) == \
+        packed * 3 + [n * inner if b > 1 else 8, dh, inner]
+    assert [t.data_ptr() - qkv.data_ptr() for t in views[:3]] == [0, 2 * inner, 4 * inner]
+    assert views[3].data_ptr() == oattn.data_ptr()
+    assert all(tuple(v.shape) == (b, heads, n, dh) for v in views)
+    backward = fab.short_route_views(qkv, oattn, oattn, qkv, heads, dh)
+    assert all(v.stride() == w.stride() for v, w in zip(views, backward[:4]))
+    # What the wrappers pass, computed once per shape.
+    assert list(fab._short_strides(b, n, heads, dh, backward=False)) == \
+        list(fab.short_route_strides("block", views))
+    assert list(fab._short_strides(b, n, heads, dh, backward=True)) == \
+        list(fab.short_route_strides("block", backward))
+
+
+@pytest.mark.parametrize("name,offset,width", [("qkv 8 bytes off", 4, None),
+                                               ("rows of 392 bytes", 0, 196)])
+def test_short_route_refuses_views_no_map_takes_before_any_launch(name, offset, width):
+    """A packed projection whose data or rows are off the 16-byte grid has
+    no tensor map: the short route's strides raise instead."""
+    heads, dh, n = 2, 32, 5
+    width = width or 3 * heads * dh
+    buf = torch.zeros(2 * n * width + offset, dtype=BF16)[offset:].view(2, n, width)
+    qkv = buf[..., :3 * heads * dh]
+    views = fab.short_forward_views(qkv, torch.zeros(2, n, heads * dh, dtype=BF16), heads, dh)
+    with pytest.raises(ValueError, match="no tensor map takes"):
+        fab.short_route_strides("fused_attention_block", views)
+    with pytest.raises(ValueError, match="no tensor map takes"):  # heads 8 bytes apart
+        fab._short_strides(2, n, heads, 4, backward=False)
+
+
+@pytest.mark.parametrize("rows,d,heads,dh,hidden", [
+    (8320, 1024, 16, 64, 2048),     # ViT-B/32 @256, batch 128
+    (12608, 768, 12, 64, 3072),     # ViT-B/16 @224, batch 64
+    (262144, 64, None, None, 256),  # ScalableViT @256's conv-MLPs, batch 64: stage 1
+    (65536, 128, None, None, 512),  # stage 2
+    (16384, 256, None, None, 1024),  # stage 3
+    (4096, 512, None, None, 2048),  # stage 4
+])
+def test_block_forward_gemm_operands_are_matrices_a_map_takes(rows, d, heads, dh, hidden):
+    """fc1 (xn·W1ᵀ), fc2 (g·W2ᵀ), QKV (xn·Wqkvᵀ) and the out-projection
+    (oattn·Woᵀ) read their A operand and the nn.Linear weight through 2-d
+    maps: the buffers _forward_buffers allocates and the weights as they
+    lie, each a matrix whose rows lie its width apart, and h (fc1's kept
+    pre-activation, an output) laid out as g."""
+    x = torch.zeros(rows, d, dtype=BF16, device="meta")
+    y, xn, g, h = fm._forward_buffers(x, hidden, save_residuals=True)
+    operands = {"xn": (xn, d), "w1": (_meta(hidden, d), d), "g": (g, hidden),
+                "w2": (_meta(d, hidden), hidden), "y": (y, d)}
+    if heads:
+        inner = heads * dh
+        b, n = {8320: (128, 65), 12608: (64, 197)}[rows]
+        _, xn3, qkv, oattn = fab._forward_buffers(x.view(b, n, d), heads, dh)
+        operands |= {"xn (block)": (xn3.view(rows, d), d), "qkv": (qkv.view(rows, -1), 3 * inner),
+                     "wqkv": (_meta(3 * inner, d), d), "oattn": (oattn.view(rows, -1), inner),
+                     "wo": (_meta(d, inner), inner)}
+    for name, (m, width) in operands.items():
+        assert _tma_problem(m) is None, name
+        assert m.stride() == (width, 1), name
+    assert h.shape == g.shape and h.is_contiguous()
 
 
 @pytest.mark.parametrize("rows,d,inner,hidden", [(8320, 1024, 1024, 2048), (12608, 768, 768, 3072),

@@ -1,5 +1,5 @@
-"""Parent against change on one card: the attention kernels and the
-end-to-end steps of two checkouts, timed in turns.
+"""Parent against change on one card: the block kernels and the end-to-end
+steps of two checkouts, timed in turns.
 
     python3 vit_tpu_torch/ab_smoke.py PARENT_DIR   # from the root of a checkout, one GPU
 
@@ -9,22 +9,21 @@ processes run in turn: PARENT_DIR, this checkout, this checkout, PARENT_DIR.
 Each imports its own checkout's ``chip_smoke.py`` and ``vit_tpu_torch``,
 builds its own kernels, and runs
 
-- ``chip_smoke``'s block backward phases (the fused MLP's and the attention
-  block's backwards at ViT-B/16 and bench.py's B/32 shapes, the biased block's
-  at the small-dataset ViT's) and its attention phases (the flash kernels, the
-  cross-attention block, the packed op, ``short_attention``, the hybrid
-  layer's ops at B/32), with every check they make in the smoke;
+- ``chip_smoke``'s block phases, with every check they make in the smoke: the
+  fused MLP's and the attention block's serving forwards at ViT-B/16 (batch
+  64) and bench.py's B/32 (batch 128), their training forwards and backwards
+  at the same shapes, the biased block's forwards and backwards at the
+  small-dataset ViT's (LSA's mask, a shared and a per-head bias), and the
+  hybrid layer's ops at B/32 (the control: the same GEMM kernel, none of the
+  block kernels);
 - train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px,
-  ScalableViT at 256 px and the small-dataset ViT 256/16, batch 64, and of
-  ViT-B/32 at 256 px, batch 128, on rows 1-4 and on the hybrid tier; the served
-  forwards of CvT-13 at 384 px (batch 64) and of ViT-B/32 on rows 1-4 and on
-  the hybrid tier (batch 128): the wall ms per step (host clock around
-  back-to-back steps) and the device's busy ms per step (``torch.profiler``'s
-  kernel time);
-- the flash forward's C launcher (``vit_flash_attention_fwd``, called through
-  ``ctypes`` with its arguments built once) at CvT-13@224's stage 1 and
-  ScalableViT's SSA stage 1: host microseconds per call, back-to-back calls
-  with no synchronisation inside a round.
+  ScalableViT at 256 px, the small-dataset ViT 256/16 and ViT-B/16 at 224 px,
+  batch 64, and of ViT-B/32 at 256 px, batch 128, on rows 1-4 and on the
+  hybrid tier; the served forwards of CvT-13 at 384 px (batch 64) and of
+  ViT-B/32 on rows 1-4 and on the hybrid tier (batch 128): the wall ms per
+  step (host clock around back-to-back steps), the host's enqueue ms per
+  step (until the step returns) and the device's busy ms per step
+  (``torch.profiler``'s kernel time).
 
 Prints one line per process, ``AB <label> <card> {json}``, and a last line
 with each time's mean per checkout.
@@ -40,22 +39,25 @@ import sys
 import time
 
 WARMUP, ROUNDS, STEPS = 3, 3, 5  # a timed round is STEPS back-to-back steps
-HOST_ROUNDS, HOST_CALLS = 7, 20  # a round of the launcher's host time: HOST_CALLS calls
 
 
 def timed(torch, fn) -> dict:
     """Median wall ms per call over ROUNDS rounds of STEPS back-to-back calls,
-    and the device's busy ms per call over STEPS profiled calls."""
+    the median host ms until a call of them returns (its enqueue: a call
+    whose enqueue is its wall is host-bound), and the device's busy ms per
+    call over STEPS profiled calls."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    walls = []
+    walls, enqueues = [], []
     for _ in range(ROUNDS):
         t0 = time.perf_counter()
         for _ in range(STEPS):
+            t1 = time.perf_counter()
             fn()
+            enqueues.append((time.perf_counter() - t1) * 1e3)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / STEPS)
     with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up, thrown away
@@ -67,7 +69,8 @@ def timed(torch, fn) -> dict:
         torch.cuda.synchronize()
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / STEPS
-    return {"wall": statistics.median(walls), "busy": busy}
+    return {"wall": statistics.median(walls), "enqueue": statistics.median(enqueues),
+            "busy": busy}
 
 
 def step_times(torch, cs) -> dict:
@@ -83,6 +86,7 @@ def step_times(torch, cs) -> dict:
         "train CvT-13@384": (CvT, cs.CVT13, 64, 384),
         "train ScalableViT@256": (ScalableViT, cs.SCALABLE, 64, cs.SCALABLE_SIZE),
         "train small-dataset ViT 256/16": (vit_for_small_dataset.ViT, cs.SMALL_DATASET, 64, 256),
+        "train ViT-B/16@224": (ViT, cs.B16, 64, 224),
         "train ViT-B/32@256 rows 1-4": (ViT, cs.ENTRY, 128, 256),
         "train ViT-B/32@256 hybrid": (cs.hybrid_vit, cs.ENTRY, 128, 256),
     }
@@ -110,59 +114,16 @@ def step_times(torch, cs) -> dict:
     return out
 
 
-def launcher_host_us(torch, cs) -> dict:
-    """Host microseconds per call of the flash forward's C launcher: the
-    median over HOST_ROUNDS rounds of HOST_CALLS back-to-back calls (the card
-    synchronised between rounds, not inside them), at CvT-13@224's stage 1
-    (channels-last views) and ScalableViT's SSA stage 1 (channel-packed q/k
-    40 wide, v 32, 64 keys)."""
-    from vit_tpu_torch.ops import _build
-    from vit_tpu_torch.ops import flash_attention as fa
-    from vit_tpu_torch.ops.flash_attention_packed import split_heads
-
-    lib = _build.load()
-    stream = torch.cuda.current_stream().cuda_stream
-    g = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
-    for tag, (b, h, n_q, n_k, dk, dv) in {"CvT-13@224 stage 1": (64, 1, 3136, 784, 64, 64),
-                                          "SSA stage 1": (64, 2, 4096, 64, 40, 32)}.items():
-        if dk == dv:
-            q, k, v, _ = cs.flash_inputs(torch, b, h, n_q, n_k, dk, seed=0)
-        else:
-            q, k, v = (split_heads(torch.randn(b, n, h * d, generator=g, device="cuda")
-                                   .to(torch.bfloat16), h)
-                       for n, d in ((n_q, dk), (n_k, dk), (n_k, dv)))
-        o = fa._token_major(b, h, n_q, dv, q)
-        lse = torch.empty((b, h, n_q), dtype=torch.float32, device="cuda")
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                fa.kernel_strides(q, k, v, o), b, h, n_q, n_k, dk, dv, dk ** -0.5,
-                _build.DTYPE_CODES[torch.bfloat16], stream)
-        for _ in range(WARMUP):
-            _build.check(lib.vit_flash_attention_fwd(*args), "vit_flash_attention_fwd")
-        torch.cuda.synchronize()
-        rounds = []
-        for _ in range(HOST_ROUNDS):
-            t0 = time.perf_counter()
-            for _ in range(HOST_CALLS):
-                lib.vit_flash_attention_fwd(*args)
-            rounds.append((time.perf_counter() - t0) * 1e6 / HOST_CALLS)
-            torch.cuda.synchronize()
-        out[tag] = statistics.median(rounds)
-    return out
-
-
 def child() -> dict:
     """One checkout's run, in the checkout's own directory (the working
     directory): ``{"card": ..., "kernels": {kernel: {shape: {kernel, plain,
-    library[, flash]} ms}}, "steps": {tag: {wall, busy} ms}, "host_us": {tag:
-    us}}``."""
+    library or modules, ...} ms}}, "steps": {tag: {wall, busy} ms}}``."""
     sys.path[0] = os.getcwd()  # that checkout's chip_smoke and vit_tpu_torch
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     import chip_smoke as cs
     from vit_tpu_torch.ops import _build
-    from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -171,19 +132,15 @@ def child() -> dict:
     _build.build()
     _build.load()
     results = {}
+    cs.kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
+    cs.kernel_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
     cs.backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
     cs.backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
     cs.biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
-    cs.flash_phase(torch, results, smi)
-    cs.cross_attention_phase(torch, results, smi)
-    cs.packed_phase(torch, results, smi)
-    cs.short_attention_phase(torch, results, smi, {
-        "short_attention": short_attention, "short_attention_bwd": short_attention_backward})
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
-    keep = ("kernel", "plain", "library", "flash", "whole", "library_whole", "unbiased")
+    keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased")
     torch.cuda.empty_cache()
-    return {"card": smi, "host_us": launcher_host_us(torch, cs),
-            "steps": step_times(torch, cs), "kernels": {
+    return {"card": smi, "steps": step_times(torch, cs), "kernels": {
         name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}
         for name, rows in results.items()}}
 
@@ -202,8 +159,7 @@ def main(parent: str) -> int:
             raise SystemExit(f"ab_smoke: the {label} run failed (exit {proc.returncode})")
         result = json.loads(found[0][len("AB-JSON "):])
         print("AB", label, result["card"], json.dumps(
-            {"kernels": result["kernels"], "steps": result["steps"],
-             "host_us": result["host_us"]}), flush=True)
+            {"kernels": result["kernels"], "steps": result["steps"]}), flush=True)
         runs.append((label, result))
     means = {}
     for label, result in runs:
@@ -213,11 +169,8 @@ def main(parent: str) -> int:
                     means.setdefault(f"{name} at {tag}, kernel", {}).setdefault(
                         label, []).append(r["kernel"])
         for tag, r in result["steps"].items():
-            for what in ("wall", "busy"):
+            for what in ("wall", "enqueue", "busy"):
                 means.setdefault(f"{tag}, {what}", {}).setdefault(label, []).append(r[what])
-        for tag, us in result["host_us"].items():
-            means.setdefault(f"flash launcher at {tag}, host us", {}).setdefault(
-                label, []).append(us)
     print("AB means (ms, parent and change): " + json.dumps(
         {key: {label: statistics.fmean(v) for label, v in by.items()}
          for key, by in means.items()}))

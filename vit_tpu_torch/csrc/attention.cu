@@ -16,9 +16,9 @@
 // before the row max (no row is ever fully masked), P is rounded to the
 // compute dtype for the P·V product and the divide by the f32 row sum comes
 // after it (the TPU kernel's late divide).  n has no limit.  Ragged query rows
-// are computed on zeros and not stored.  The unbiased training forward also
-// writes each row's lse = m + log l (scaled logits, f32), which the block's
-// backward hands to short_bwd (fused_attention_block.cu).
+// are computed on zeros and not stored.  The block takes it where
+// short_attention.cu's short_fwd does not: with a bias, or past 512 tokens
+// (fused_attention_block.cu).
 //
 // The bias, (1 | heads, n, n) f32, is read from device memory (L2) at the
 // point where the ragged-key mask is applied, one element per logit, and never
@@ -86,14 +86,11 @@ __device__ __forceinline__ const float* bias_row(const float* bias, size_t head_
 }
 
 // `bias` is (1 | heads, n, n) f32 with `bias_hstride` = 0 or n·n between heads;
-// read only when BIAS.  `lse` (b, heads, n) f32 is written only when LSE (the
-// unbiased training forward on the short backward route): the other instances
-// are the code they were.
-template <typename T, int DH, bool BIAS, bool LSE>
+// read only when BIAS.
+template <typename T, int DH, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
     mha_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                   size_t bias_hstride, T* __restrict__ out, float* __restrict__ lse, int n,
-                   int heads, float scale) {
+                   size_t bias_hstride, T* __restrict__ out, int n, int heads, float scale) {
   constexpr int kRow = DH + 8;  // padded smem row: ldmatrix without bank conflicts
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T(*Qs)[kRow] = reinterpret_cast<T(*)[kRow]>(smem_raw);
@@ -226,8 +223,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int half = 0; half < 2; ++half) {
     const int q = q0 + warp * 16 + g + half * 8;
     if (q >= n) continue;
-    if (LSE && t == 0)  // the training forward's row statistics, for short_bwd
-      lse[((size_t)b * heads + h) * n + q] = m_run[half] + logf(l_run[half]);
     T* orow = out + ((size_t)b * n + q) * inner + h * DH;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j) {
@@ -241,41 +236,35 @@ __global__ void __launch_bounds__(kThreads)
 // Head stride of a (1 | heads, n, n) bias: 0 when one bias is shared.
 size_t bias_stride(int hb, int n) { return hb > 1 ? (size_t)n * n : 0; }
 
-template <typename T, int DH, bool BIAS, bool LSE>
-cudaError_t mha_t(const void* qkv, void* out, float* lse, const float* bias, int hb, int b,
-                  int n, int heads, float scale, cudaStream_t stream) {
+template <typename T, int DH, bool BIAS>
+cudaError_t mha_t(const void* qkv, void* out, const float* bias, int hb, int b, int n,
+                  int heads, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DH>();
-  cudaError_t err = allow_smem(mha_fwd_kernel<T, DH, BIAS, LSE>, bytes);
+  cudaError_t err = allow_smem(mha_fwd_kernel<T, DH, BIAS>, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kBQ - 1) / kBQ, heads, b);
-  mha_fwd_kernel<T, DH, BIAS, LSE><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(qkv), bias, bias_stride(hb, n), static_cast<T*>(out), lse, n,
-      heads, scale);
+  mha_fwd_kernel<T, DH, BIAS><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(qkv), bias, bias_stride(hb, n), static_cast<T*>(out), n, heads,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
-cudaError_t mha_bias_dispatch(const void* qkv, void* out, float* lse, const float* bias, int hb,
-                              int b, int n, int heads, float scale, cudaStream_t stream) {
-  if (bias) return mha_t<T, DH, true, false>(qkv, out, nullptr, bias, hb, b, n, heads, scale,
-                                             stream);
-  if (lse) return mha_t<T, DH, false, true>(qkv, out, lse, nullptr, 0, b, n, heads, scale, stream);
-  return mha_t<T, DH, false, false>(qkv, out, nullptr, nullptr, 0, b, n, heads, scale, stream);
+cudaError_t mha_bias_dispatch(const void* qkv, void* out, const float* bias, int hb, int b,
+                              int n, int heads, float scale, cudaStream_t stream) {
+  if (bias) return mha_t<T, DH, true>(qkv, out, bias, hb, b, n, heads, scale, stream);
+  return mha_t<T, DH, false>(qkv, out, nullptr, 0, b, n, heads, scale, stream);
 }
 
 template <typename T>
-cudaError_t mha_dispatch(const void* qkv, void* out, float* lse, const float* bias, int hb,
-                         int b, int n, int heads, int dim_head, float scale,
-                         cudaStream_t stream) {
-#define VIT_MHA_FWD(DH) \
-  return mha_bias_dispatch<T, DH>(qkv, out, lse, bias, hb, b, n, heads, scale, stream)
+cudaError_t mha_dispatch(const void* qkv, void* out, const float* bias, int hb, int b, int n,
+                         int heads, int dim_head, float scale, cudaStream_t stream) {
   switch (dim_head) {
-    case 32: VIT_MHA_FWD(32);
-    case 64: VIT_MHA_FWD(64);
-    case 128: VIT_MHA_FWD(128);
+    case 32: return mha_bias_dispatch<T, 32>(qkv, out, bias, hb, b, n, heads, scale, stream);
+    case 64: return mha_bias_dispatch<T, 64>(qkv, out, bias, hb, b, n, heads, scale, stream);
+    case 128: return mha_bias_dispatch<T, 128>(qkv, out, bias, hb, b, n, heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
-#undef VIT_MHA_FWD
 }
 
 
@@ -678,17 +667,15 @@ bool bias_ok(const float* bias, int hb, int heads) {
 
 }  // namespace
 
-cudaError_t launch_mha_fwd(const void* qkv, void* out, float* lse, const float* bias, int hb,
-                           int b, int n, int heads, int dim_head, float scale, int dtype,
+cudaError_t launch_mha_fwd(const void* qkv, void* out, const float* bias, int hb, int b, int n,
+                           int heads, int dim_head, float scale, int dtype,
                            cudaStream_t stream) {
-  if (b < 0 || n < 0 || heads <= 0 || !bias_ok(bias, hb, heads) || (bias && lse))
-    return cudaErrorInvalidValue;
+  if (b < 0 || n < 0 || heads <= 0 || !bias_ok(bias, hb, heads)) return cudaErrorInvalidValue;
   if (b == 0 || n == 0) return cudaSuccess;
   if (dtype == kBF16)
-    return mha_dispatch<__nv_bfloat16>(qkv, out, lse, bias, hb, b, n, heads, dim_head, scale,
-                                       stream);
+    return mha_dispatch<__nv_bfloat16>(qkv, out, bias, hb, b, n, heads, dim_head, scale, stream);
   if (dtype == kF16)
-    return mha_dispatch<__half>(qkv, out, lse, bias, hb, b, n, heads, dim_head, scale, stream);
+    return mha_dispatch<__half>(qkv, out, bias, hb, b, n, heads, dim_head, scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -9,31 +9,47 @@
 // The TPU kept a micro-batch of images in VMEM for the whole block.  On the
 // H100 the forward is four hand-written kernels chained on one stream:
 //   1. layernorm                                 -> xn (rows, d)
-//   2. linear (no epilogue)                      -> qkv (rows, 3·inner)
-//   3. mha_fwd over the packed qkv, + bias       -> oattn (rows, inner)
-//   4. linear (bias + residual epilogue)         -> y (rows, d)
-// xn, qkv and oattn go through device memory in scratch the wrapper
-// allocates (and keeps, in training, as the TPU's save_residuals did);
-// keeping them on chip, as the TPU kept them in VMEM, is the first job of a
-// later performance change.  The rounding points mirror the TPU kernel: xn,
-// qkv and oattn are rounded to the compute dtype, the residual adds in it.
-// gamma/beta arrive in the compute dtype, as the TPU wrapper rounded them
-// (fused_attention_block.py:343).  The logits bias (hb, n, n), hb ∈ {1,
-// heads}, stays f32 throughout (attention.cu says why); without one, the
-// attention kernels are the unbiased instances.
+//   2. QKV GEMM, store epilogue                  -> qkv (rows, 3·inner)
+//   3. the attention middle over the packed qkv  -> oattn (rows, inner), by one
+//      of two routes, chosen by shape in the open by the caller
+//      (ops/fused_attention_block.py attention_route), the same route as the
+//      backward's:
+//      - short (no bias, n <= 512: ViT-B/32's 65, ViT-B/16's 197):
+//        short_attention.cu's short_fwd (wgmma, TMA ring) over (b, heads, n,
+//        dh) views of the packed qkv (batch stride n·3·inner, head stride dh,
+//        row stride 3·inner; q, k and v the column thirds), writing oattn
+//        through its own strides, no layout copy; in training also lse (b,
+//        heads, n) f32, which the backward's short_bwd reads.  Whole rows in
+//        one or two key tiles, the exact softmax from the row's own max, p =
+//        exp(s - m) / l rounded before p·v;
+//      - mha (a bias, or n > 512): mha_fwd (attention.cu), mma.sync with an
+//        online softmax, + bias, the rounded unnormalised p and the divide
+//        after p·v, as the TPU kernel (:146-154).
+//      In f32 the two are one function; in bf16 they round p at other points.
+//   4. out-projection GEMM, bias + residual epilogue -> y (rows, d)
+// The two GEMMs go through launch_forward_gemm (gemm_wgmma.cu's wgmma GEMM
+// from n = 256, linear.cu's below).  xn, qkv and oattn go through device
+// memory in scratch the wrapper allocates (and keeps, in training, as the
+// TPU's save_residuals did).  The rounding points mirror the TPU kernel
+// (:158-161): xn, qkv and oattn are rounded to the compute dtype, the residual
+// adds as T(x + T(acc + bo)).  gamma/beta arrive in the compute dtype, as the
+// TPU wrapper rounded them (fused_attention_block.py:343).  The logits bias
+// (hb, n, n), hb ∈ {1, heads}, stays f32 throughout (attention.cu says why).
+// Bound on the H100: the two GEMMs (8·rows·d·inner FLOPs) and the attention's
+// 4·b·heads·n²·dim_head at the 989 TFLOP/s bf16 peak: 59.5 + 7.6 GFLOP at
+// B/16, 0.068 ms; 69.8 + 2.2 at bench.py's B/32 step, 0.073 ms.
 //
 // Backward (_bwd_kernel, fused_attention_block.py:169-258), four steps, a
 // fifth for dbias:
 //   1. the dgrad dy·Wo                           -> doattn = T(dy·Wo) (rows, inner)
 //   2. the attention backward over qkv and doattn -> dqkv (rows, 3·inner), by
-//      one of two routes, chosen by shape in the open by the caller
-//      (ops/fused_attention_block.py attention_backward_route):
+//      the forward's route (attention_route):
 //      - short (no bias, n <= 512: ViT-B/32's 65, ViT-B/16's 197):
 //        short_attention.cu's short_bwd over (b, heads, n, dh) views of the
 //        packed qkv (batch stride n·3·inner, head stride dh, row stride
 //        3·inner; q, k and v the column thirds), of oattn and doattn as O and
 //        dO, and of dqkv, written through the same strides as qkv, from the
-//        training forward's lse (mha_fwd writes it).  One recompute of p per
+//        training forward's lse (short_fwd writes it).  One recompute of p per
 //        key block, five products, dq summed inside the CTA.  Its D =
 //        rowsum(dO∘O) comes from the stored bf16 O, where the TPU kernel
 //        sums dsum = Σ p·dp in f32 (:196-238): the same quantity in exact
@@ -55,27 +71,42 @@
 // attention) and the backward at 0.183 ms (138.0 + 43.3).
 #include "kernels.cuh"
 
-// `bias` (hb, n, n) f32, or null with hb = 0.  `lse` (b, heads, n) f32, or
-// null: the unbiased training forward on the short backward route keeps it.
+// Outputs y (rows, d); xn (rows, d), qkv (rows, 3·inner) and oattn (rows,
+// inner) in the compute dtype.  The attention's route:
+// - short, when `short_strides` (host memory, 12 values) is not null: the
+//   (batch, head, row) strides of q, k, v (the column thirds of qkv) and O =
+//   oattn as short_fwd reads and writes them; `lse` (b, heads, n) f32 in
+//   training, else null.  No bias.
+// - mha otherwise: `bias` (hb, n, n) f32, or null with hb = 0; no lse.
 extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
                                              const void* beta, const void* wqkv,
                                              const void* wo, const void* bo, void* y,
                                              void* xn, void* qkv, void* oattn, float* lse,
+                                             const long long* short_strides,
                                              const float* bias, int hb, int b,
                                              int n, int d, int heads, int dim_head,
                                              float scale, float eps, int dtype,
                                              cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, inner = heads * dim_head;
+  const bool short_route = short_strides != nullptr;
+  if ((short_route && bias) || (!short_route && lse)) return cudaErrorInvalidValue;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(xn, wqkv, kWeightNK, nullptr, nullptr, nullptr, qkv, nullptr, nullptr, rows,
-                      3 * inner, d, kEpiStore, dtype, stream);
+  err = launch_forward_gemm(xn, wqkv, nullptr, nullptr, qkv, nullptr, rows, 3 * inner, d,
+                            kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_mha_fwd(qkv, oattn, lse, bias, hb, b, n, heads, dim_head, scale, dtype, stream);
+  if (short_route) {
+    const char* base = static_cast<const char*>(qkv);
+    const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+    err = launch_short_fwd(base, base + third, base + 2 * third, oattn, lse, short_strides, b,
+                           heads, n, n, dim_head, scale, dtype, stream);
+  } else {
+    err = launch_mha_fwd(qkv, oattn, bias, hb, b, n, heads, dim_head, scale, dtype, stream);
+  }
   if (err != cudaSuccess) return err;
-  return launch_linear(oattn, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, d, inner,
-                       kEpiBiasResidual, dtype, stream);
+  return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, rows, d, inner, kEpiBiasResidual,
+                             dtype, stream);
 }
 
 // Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and

@@ -25,12 +25,17 @@
 //                     linear.cu lays them out (linear_partial_rows), so that
 //                     launch_colsum adds them in a fixed order   (dy·W2)
 // It runs every forward GEMM of the hybrid layer (fused_hybrid.cu: ln_gemm's
-// QKV, proj_mlp's out-projection, fc1 and fc2) and the dgrads of the fused MLP
-// and attention block backwards (fused_mlp.cu, fused_attention_block.cu)
-// through launch_dgrad, which sends n < 256 to linear.cu: ScalableViT's
-// stage-1 conv-MLP has dh·W1 at n = 64 over 262,144 rows, where a 256-wide
-// tile would compute four times the products.  linear.cu's mma.sync kernel
-// keeps the block kernels' forward GEMMs, the cross-attention block's and
+// QKV, proj_mlp's out-projection, fc1 and fc2), and, through
+// launch_forward_gemm, the fused MLP's fc1 and fc2 and the attention block's
+// QKV and out-projection (fused_mlp.cu, fused_attention_block.cu); through
+// launch_dgrad, the dgrads of those two blocks' backwards.  Both send n < 256
+// to linear.cu: ScalableViT's conv-MLPs have fc2 at n = 64 and 128 and dh·W1
+// at n = 64 and 128 over 262,144 and 65,536 rows, where a 256-wide tile
+// computes four or two times the products (the forward's threshold is a card
+// measurement at ScalableViT's four stage widths and the ViT widths,
+// chip_smoke.py's forward GEMM phase: from n = 256 this kernel wins, k = 64
+// included; at n = 128 the two tie, at n = 64 linear.cu wins).  linear.cu's
+// mma.sync kernel keeps those narrow GEMMs, the cross-attention block's and
 // the hybrid layer's backward GEMMs.
 //
 // Bound on the H100: at ViT-B/32's hybrid layer (8320 rows, d 1024, inner
@@ -85,6 +90,7 @@ constexpr int kHalf = 128;                 // output columns of a bf16 epilogue 
 constexpr int kQuarter = 64;               // output columns of an f32 or dGELU pass
 constexpr int kStageTile = 64 * kHalf * 2;  // a consumer warpgroup's staging tile (bytes)
 constexpr int kDgradMinN = 256;            // launch_dgrad's narrowest n on this kernel
+constexpr int kForwardMinN = 256;          // launch_forward_gemm's
 
 using ATile = hopper::Tile<kBM, kBK>;
 using WTile = hopper::Tile<kBN, kBK>;   // kWeightNK: 256 rows (n) of 64 k
@@ -486,6 +492,16 @@ cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const vo
   return cudaErrorInvalidValue;
 }
 
+cudaError_t launch_forward_gemm(const void* a, const void* w, const void* bias, const void* res,
+                                void* out, void* aux, int rows, int n, int k, int epilogue,
+                                int dtype, cudaStream_t stream) {
+  if (n < kForwardMinN)
+    return launch_linear(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
+                         epilogue, dtype, stream);
+  return launch_gemm_wgmma(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
+                           epilogue, dtype, stream);
+}
+
 cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void* out, void* aux,
                          float* partial, int rows, int n, int k, int epilogue, int dtype,
                          cudaStream_t stream) {
@@ -498,20 +514,27 @@ cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void*
 
 }  // namespace vit
 
-// The GEMM alone, for its card tests: out (rows, n) and, for kEpiBiasGeluSave
-// and kEpiDGelu, aux (rows, n) from a (rows, k), w ((n, k) for kWeightNK,
-// (k, n) for kWeightKN), bias (n,), res and aux_in (rows, n) as the epilogue
-// needs them (null otherwise); kEpiDGelu also writes `partial`
+// One block GEMM alone, for the card tests and the measurement that sets
+// launch_forward_gemm's threshold: on this kernel (`kernel` 0) or on
+// linear.cu's mma.sync one (1), which take the same layouts, epilogues and
+// operands.  out (rows, n) and, for kEpiBiasGeluSave and kEpiDGelu, aux
+// (rows, n) from a (rows, k), w ((n, k) for kWeightNK, (k, n) for
+// kWeightKN), bias (n,), res and aux_in (rows, n) as the epilogue needs them
+// (null otherwise); kEpiDGelu also writes `partial`
 // (vit_linear_partial_rows(rows), n) and their column sums `sums` (n,), in
 // f32.
-extern "C" int vit_gemm_wgmma(const void* a, const void* w, int layout, const void* bias,
-                              const void* res, const void* aux_in, void* out, void* aux,
-                              float* partial, float* sums, int rows, int n, int k, int epilogue,
-                              int dtype, cudaStream_t stream) {
+extern "C" int vit_gemm(const void* a, const void* w, int layout, const void* bias,
+                        const void* res, const void* aux_in, void* out, void* aux, float* partial,
+                        float* sums, int rows, int n, int k, int epilogue, int kernel, int dtype,
+                        cudaStream_t stream) {
   using namespace vit;
-  if (epilogue == kEpiDGelu && !sums) return cudaErrorInvalidValue;
-  cudaError_t err = launch_gemm_wgmma(a, w, layout, bias, res, aux_in, out, aux, partial, rows,
-                                      n, k, epilogue, dtype, stream);
+  if ((epilogue == kEpiDGelu && !sums) || (kernel != 0 && kernel != 1))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      kernel == 0 ? launch_gemm_wgmma(a, w, layout, bias, res, aux_in, out, aux, partial, rows,
+                                      n, k, epilogue, dtype, stream)
+                  : launch_linear(a, w, layout, bias, res, aux_in, out, aux, partial, rows, n, k,
+                                  epilogue, dtype, stream);
   if (err != cudaSuccess || epilogue != kEpiDGelu || rows == 0) return err;
   return launch_colsum(partial, linear_partial_rows(rows), n, sums, stream);
 }

@@ -22,9 +22,9 @@ enum DType : int { kBF16 = 0, kF16 = 1 };
 // as Wᵀ (the forward GEMMs), or W (k, n) used as it lies (the dgrads).
 enum WeightLayout : int { kWeightNK = 0, kWeightKN = 1 };
 
-// Epilogues of the row-major GEMMs  out = epi(A · B)  (linear.cu, and the first
-// four in gemm_wgmma.cu).  linear.cu's kWeightNK takes the first four,
-// kWeightKN kEpiStore, kEpiDGelu and kEpiStoreF32.
+// Epilogues of the row-major GEMMs  out = epi(A · B)  (linear.cu and
+// gemm_wgmma.cu alike).  kWeightNK takes the first four, kWeightKN kEpiStore,
+// kEpiDGelu and kEpiStoreF32.
 enum Epilogue : int {
   kEpiStore = 0,         // out = T(acc)                          (QKV; doattn = dy·Wo)
   kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1, serving)
@@ -115,8 +115,8 @@ __device__ __forceinline__ float gelu_erf_and_grad(float v, float& g) {
   return cdf + v * pdf;
 }
 
-// ---- host launchers (defined in layernorm.cu, linear.cu, attention.cu,
-// flash_attention.cu) -----------------------------------------------------------
+// ---- host launchers (defined in layernorm.cu, linear.cu, gemm_wgmma.cu,
+// attention.cu, short_attention.cu, flash_attention.cu) -------------------------
 
 // xn (rows, d) = T((x - mean) * rstd * gamma + beta) per row of x (rows, d):
 // f32 statistics, biased two-pass variance, eps inside the rsqrt; gamma/beta
@@ -165,6 +165,14 @@ cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const vo
                               float* partial, int rows, int n, int k, int epilogue, int dtype,
                               cudaStream_t stream);
 
+// The blocks' forward GEMMs, out (rows, n) = epi(A · Wᵀ) for an nn.Linear
+// weight W (n, k) (kWeightNK; kEpiStore, kEpiBiasGelu, kEpiBiasResidual or
+// kEpiBiasGeluSave, `aux` = h for the last, arguments as launch_linear's):
+// on gemm_wgmma from n = 256, on linear.cu below it (gemm_wgmma.cu says why).
+cudaError_t launch_forward_gemm(const void* a, const void* w, const void* bias, const void* res,
+                                void* out, void* aux, int rows, int n, int k, int epilogue,
+                                int dtype, cudaStream_t stream);
+
 // The blocks' dgrad GEMMs, out (rows, n) = epi(A · W) with W (k, n) used as it
 // lies (kWeightKN; kEpiStore, kEpiStoreF32 or kEpiDGelu, arguments as
 // launch_linear's): on gemm_wgmma from n = 256, on linear.cu below it
@@ -172,6 +180,15 @@ cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const vo
 cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void* out, void* aux,
                          float* partial, int rows, int n, int k, int epilogue, int dtype,
                          cudaStream_t stream);
+
+// The short-attention forward (short_attention.cu) over (b, heads, n, d)
+// operands read through (batch, head, row) element strides: out (width d)
+// through its strides and, when `lse` is not null, lse (b, heads, n_q) f32
+// contiguous, from q, k and v; `strides` (host memory) holds those of q, k, v
+// and out (12 values).  n_q, n_k <= 512, d ∈ {32, 64, 128}.
+cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                             const long long* strides, int b, int heads, int n_q, int n_k, int d,
+                             float scale, int dtype, cudaStream_t stream);
 
 // The short-attention backward (short_attention.cu) over (b, heads, n, d)
 // operands read through (batch, head, row) element strides: dq, dk, dv from
@@ -185,14 +202,11 @@ cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const 
                              int n_k, int d, float scale, int dtype, cudaStream_t stream);
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
-// q|k|v thirds; writes (b, n, heads·dim_head) and, when `lse` is not null, each
-// query row's log-sum-exp of the scaled logits, (b, heads, n) f32.  `bias`, when
-// not null, is a (hb, n, n) f32 logits bias added after the scale, shared by
-// every head when hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64,
-// 128}.
-cudaError_t launch_mha_fwd(const void* qkv, void* out, float* lse, const float* bias, int hb,
-                           int b, int n, int heads, int dim_head, float scale, int dtype,
-                           cudaStream_t stream);
+// q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
+// (hb, n, n) f32 logits bias added after the scale, shared by every head when
+// hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64, 128}; any n.
+cudaError_t launch_mha_fwd(const void* qkv, void* out, const float* bias, int hb, int b, int n,
+                           int heads, int dim_head, float scale, int dtype, cudaStream_t stream);
 
 // Its backward: from qkv and dout = dL/d(attention output) (b, n, heads·dim_head),
 // writes dqkv (b, n, 3·heads·dim_head) in the packed q|k|v layout.  `rowstat`

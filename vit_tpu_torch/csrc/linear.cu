@@ -4,15 +4,16 @@
 // weight used untransposed, W (k, n) with n contiguous (kWeightKN, whose B
 // fragments come from ldmatrix.trans, so no weight is transposed per step as
 // the TPU wrappers did at fused_mlp.py:388 and fused_attention_block.py:388).
-// These are the GEMMs inside the two TPU block kernels:
-//   forward (kWeightNK): QKV and out-projection
-//     (vit_tpu/ops/fused_attention_block.py _fwd_kernel), fc1 and fc2
-//     (vit_tpu/ops/fused_mlp.py _fwd_kernel), with the training fc1 epilogue
-//     that also keeps the pre-activation h;
-//   backward (kWeightKN): dy·W2 with the dgelu epilogue (fused_mlp.py
-//     _bwd_kernel:200-207), dh·W1 into f32 (:210-211), dy·Wo
-//     (fused_attention_block.py _bwd_kernel:189-191), dqkv·Wqkv into f32
-//     (:242-243).
+// It was the GEMM inside the two TPU block kernels (vit_tpu/ops/fused_mlp.py
+// and fused_attention_block.py _fwd_kernel and _bwd_kernel).  Those GEMMs now
+// run on gemm_wgmma.cu's wgmma GEMM from n = 256 (launch_forward_gemm for the
+// forwards' QKV, out-projection, fc1 and fc2; launch_dgrad for the backwards'
+// dgrads), and this kernel keeps
+//   the narrower ones (kWeightNK and kWeightKN below n = 256: ScalableViT's
+//     stage-1 and stage-2 conv-MLPs, fc2 and dh·W1 at n 64 and 128, and small
+//     test widths), with the same epilogues and rounding points;
+//   the cross-attention block's GEMMs (fused_cross_attention.cu) and the
+//     hybrid layer's backward GEMMs (fused_hybrid.cu).
 //
 // Bound on the H100: at ViT-B/16, batch 64, every GEMM of the blocks runs over
 // 12,608 rows against weights of 768 x 768 to 768 x 3072 — hundreds of FLOPs

@@ -13,10 +13,12 @@
 //                                       q/k/v in the (n, b, heads·dh) layout)
 //   vit_tpu/ops/fused_hybrid.py:345     _attn_nb_bwd_kernel
 // and the attention part of
+//   vit_tpu/ops/fused_attention_block.py:106  _fwd_kernel and
 //   vit_tpu/ops/fused_attention_block.py:169  _bwd_kernel, on
 //                                       fused_attention_block.cu's short route
 //                                       (the unbiased block at n <= 512, over
-//                                       its packed (b, n, 3·inner) q|k|v)
+//                                       its packed (b, n, 3·inner) q|k|v; the
+//                                       forward keeps lse for the backward)
 // The TPU pairs compute one function in several layouts; here the layout is a
 // stride.  Every operand is read and written through (batch, head, row)
 // element strides, d contiguous: (b, h, n, d) tensors as they lie, the
@@ -916,6 +918,20 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void
 
 }  // namespace
 
+cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                             const long long* strides, int b, int heads, int n_q, int n_k, int d,
+                             float scale, int dtype, cudaStream_t stream) {
+  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
+  if (b == 0 || n_q == 0) return cudaSuccess;
+  if (dtype == kBF16)
+    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d,
+                                       scale, stream);
+  if (dtype == kF16)
+    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale,
+                                stream);
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dq_part, const long long* strides, int b, int heads, int n_q,
@@ -941,16 +957,8 @@ extern "C" int vit_short_attention_fwd(const void* q, const void* k, const void*
                                        float* lse, const long long* strides, int b, int heads,
                                        int n_q, int n_k, int d, float scale, int dtype,
                                        cudaStream_t stream) {
-  using namespace vit;
-  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
-  if (b == 0 || n_q == 0) return cudaSuccess;
-  if (dtype == kBF16)
-    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d,
-                                       scale, stream);
-  if (dtype == kF16)
-    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale,
-                                stream);
-  return cudaErrorInvalidValue;
+  return vit::launch_short_fwd(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale, dtype,
+                               stream);
 }
 
 // Backward: dq, dk, dv in the compute dtype from q, k, v, the forward's out

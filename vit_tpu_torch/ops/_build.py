@@ -43,9 +43,10 @@ _LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit strides
 # C signatures of the entry points (argtypes, restype).
 SIGNATURES = {
     "vit_fused_attention_block_fwd": (
-        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, lse (or null), bias
-        # (or null), hb,
-        [_P] * 11 + [_P, _I]
+        # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, lse (or null),
+        # short_strides (q, k, v, out: batch, head, row; null on the mha
+        # route), bias (or null), hb,
+        [_P] * 11 + [_LL] + [_P, _I]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
@@ -130,10 +131,10 @@ SIGNATURES = {
         [_P] * 9 + [_I] * 3 + [_F, _I, _P],
         ctypes.c_int,
     ),
-    "vit_gemm_wgmma": (
+    "vit_gemm": (
         # a, w, layout, bias, res, aux_in, out, aux, partial, sums (each or
-        # null), rows, n, k, epilogue, dtype, stream
-        [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_P],
+        # null), rows, n, k, epilogue, kernel, dtype, stream
+        [_P, _P, _I] + [_P] * 7 + [_I] * 6 + [_P],
         ctypes.c_int,
     ),
     "vit_proj_mlp_fwd": (

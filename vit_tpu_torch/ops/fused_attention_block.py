@@ -16,30 +16,36 @@ plain PyTorch versions, :func:`fused_attention_block_forward_reference` and
 (:func:`fused_attention_block_bias`) counts its launches apart from the
 unbiased one.
 
-The backward's attention middle takes one of two routes, by shape
-(:func:`attention_backward_route`, each counted in ``BACKWARD_ROUTES``):
-without a bias and at n ≤ 512, ``short_bwd`` of ``csrc/short_attention.cu``
-over strided views of the packed qkv, from the lse that the training forward
-keeps for it (:func:`short_route_views`; its plain version
+The attention middle takes one of two routes, by shape, the same in both
+directions (:func:`attention_route`, counted in ``FORWARD_ROUTES`` and
+``BACKWARD_ROUTES``): without a bias and at n ≤ 512, ``short_fwd`` and
+``short_bwd`` of ``csrc/short_attention.cu`` over strided views of the packed
+qkv (:func:`short_forward_views`, :func:`short_route_views`), the training
+forward keeping the lse the backward reads (their plain versions
+:func:`fused_attention_block_short_forward_reference` and
 :func:`fused_attention_block_short_backward_reference`); with a bias, or
-longer rows, ``mha_bwd`` of ``csrc/attention.cu``.
+longer rows, ``mha_fwd`` and ``mha_bwd`` of ``csrc/attention.cu``.
 
 What bounds it on the H100: at ViT-B/16, batch 64 (12,608 rows, d=768,
-12 heads of 64) the QKV and output GEMMs are about 59 GFLOP per block and the
-attention products about 15 GFLOP (the backward: 60 and 19), all far above
+12 heads of 64) the QKV and output GEMMs are about 59.5 GFLOP per block and
+the attention products 7.6 GFLOP (the backward: 59.5 and 19), all far above
 the card's FLOP-per-byte ridge, so the tensor cores bound it.  The design
-reads q/k/v strided out of the packed projection (no head-split transpose),
-keeps the n×n probabilities in registers (online softmax forward; recomputed
-from per-row log-sum-exp in the backward), fuses bias and residual into the
+runs the GEMMs on ``gemm_wgmma.cu``'s warp-specialised wgmma GEMM (from n =
+256), reads q/k/v strided out of the packed projection (no head-split
+transpose), keeps the n×n probabilities in registers (whole rows in the short
+forward, an online softmax in ``mha_fwd``; recomputed from per-row
+log-sum-exp in the backward), fuses bias and residual into the
 out-projection epilogue, and runs the LayerNorm and its backward as small
 memory-bound passes.
 
 Numerics, mirrored by the plain versions: f32 LayerNorm statistics (biased
 two-pass variance), xn rounded to the compute dtype; qkv rounded before the
-attention; logits in f32, ``scale`` applied to the f32 logits; the
-probabilities rounded to the compute dtype for P·V and divided by the f32 row
-sum afterwards (late divide); the attention output rounded before the
-out-projection; the residual adds in the compute dtype.  Backward: ``doattn``
+attention; logits in f32, ``scale`` applied to the f32 logits; on the mha
+route the probabilities rounded to the compute dtype for P·V and divided by
+the f32 row sum afterwards (the TPU kernel's late divide), on the short route
+``p = e / l`` rounded before P·V (``short_attention``'s); the attention
+output rounded before the out-projection; the residual adds in the compute
+dtype.  In f32 the two routes compute one function.  Backward: ``doattn``
 rounded; p recomputed in f32; ``dsum = Σ dp·p`` from the f32 p and dp (not
 from the rounded output); ``T(p)`` for dv and ``ds = T(p·(dp - dsum)·scale)``
 for dq and dk, each rounded; the qkv dgrad ``dxn`` kept in f32; dγ, dβ and dbo
@@ -57,6 +63,7 @@ the scale, computed only when asked for.
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -66,22 +73,26 @@ from torch.autograd.function import once_differentiable
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
 from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
-from vit_tpu_torch.ops.flash_attention import kernel_strides
-from vit_tpu_torch.ops.short_attention import MAX_SEQ, short_attention_backward_reference
+from vit_tpu_torch.ops.flash_attention import _tma_problem, kernel_strides
+from vit_tpu_torch.ops.short_attention import (
+    MAX_SEQ, short_attention_backward_reference, short_attention_forward_reference,
+)
 
 SUPPORTED_DIM_HEAD = (32, 64, 128)
 
-# Launches of the backward's attention middle by route (attention_backward_route).
+# Launches of the attention middle by route (attention_route), each direction.
+FORWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
 BACKWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
 
 
-def attention_backward_route(n: int, biased: bool) -> str:
-    """The backward's attention middle at n tokens: ``"short"``
-    (``short_bwd``, one recompute of p per key block, from the training
-    forward's lse) for an unbiased block of at most 512 tokens (ViT-B/32's 65,
-    ViT-B/16's 197); ``"mha"`` (``mha_bwd``, the bias and its gradient, any
-    n) otherwise.  By shape only: the training forward keeps lse exactly when
-    this says ``"short"``."""
+def attention_route(n: int, biased: bool) -> str:
+    """The attention middle at n tokens, forward and backward alike:
+    ``"short"`` (``short_fwd``, whole rows, keeping lse in training;
+    ``short_bwd``, one recompute of p per key block from that lse) for an
+    unbiased block of at most 512 tokens (ViT-B/32's 65, ViT-B/16's 197);
+    ``"mha"`` (``mha_fwd`` and ``mha_bwd``: the bias and its gradient, any n)
+    otherwise.  By shape only, so the lse and O that ``short_bwd`` reads
+    always come from ``short_fwd``."""
     return "short" if not biased and n <= MAX_SEQ else "mha"
 
 
@@ -100,18 +111,47 @@ def fused_attention_block_forward_reference(x, gamma, beta, wqkv, wo, bo, heads:
     if scale is None:
         scale = dim_head ** -0.5
     dt = x.dtype
-    b, n, _ = x.shape
-    x32 = x.float()
-    mu, rstd = ln_stats(x32, eps)
-    xn = ((x32 - mu) * rstd * gamma.float() + beta.float()).to(dt)
-    qkv = F.linear(xn.float(), wqkv.float()).to(dt)
+    xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
     q, k, v = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
     s = _logits(q, k, scale, bias)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     o = (e.to(dt).float() @ v) / e.sum(-1, keepdim=True)
     oattn = _merge_heads(o.to(dt))
-    y = F.linear(oattn.float(), wo.float(), bo.float())
-    return x + y.to(dt), xn, qkv, oattn
+    return _out_projection(x, oattn, wo, bo), xn, qkv, oattn
+
+
+def fused_attention_block_short_forward_reference(x, gamma, beta, wqkv, wo, bo, heads: int,
+                                                  dim_head: int, scale: float | None = None,
+                                                  eps: float = 1e-3):
+    """Plain PyTorch version of the training forward on the short route
+    (:func:`attention_route`): ``(y, xn, qkv, oattn, lse)``, the first four
+    as :func:`fused_attention_block_forward_reference` returns them, with the
+    attention as ``short_fwd`` takes it over the packed qkv
+    (``short_attention``'s plain version: ``p = e / l`` rounded before P·V)
+    and its f32 ``(b, heads, n)`` lse.  In f32 the two are one function."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
+    oattn = torch.empty(x.shape[:-1] + (heads * dim_head,), dtype=x.dtype, device=x.device)
+    q, k, v, o = short_forward_views(qkv, oattn, heads, dim_head)
+    out, lse = short_attention_forward_reference(q, k, v, scale)
+    o.copy_(out)
+    return _out_projection(x, oattn, wo, bo), xn, qkv, oattn, lse
+
+
+def _ln_qkv(x, gamma, beta, wqkv, eps):
+    """The LayerNorm and the QKV GEMM: ``(xn, qkv)``, each rounded to x's
+    dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    mu, rstd = ln_stats(x32, eps)
+    xn = ((x32 - mu) * rstd * gamma.float() + beta.float()).to(dt)
+    return xn, F.linear(xn.float(), wqkv.float()).to(dt)
+
+
+def _out_projection(x, oattn, wo, bo):
+    """``T(x + T(oattn·Woᵀ + bo))``."""
+    return x + F.linear(oattn.float(), wo.float(), bo.float()).to(x.dtype)
 
 
 def fused_attention_block_reference(x, gamma, beta, wqkv, wo, bo, heads: int,
@@ -207,17 +247,57 @@ def _through_the_projection(dy, x, dqkv, gamma, wqkv, eps):
     return dx.reshape(x.shape), dqkv, dgamma, dbeta, dy.reshape(-1, d).float().sum(0)
 
 
-def short_route_views(qkv, oattn, doattn, dqkv, heads: int, dim_head: int):
-    """The ``(b, heads, n, dim_head)`` views the short route's ``short_bwd``
+def _heads_of(t, heads, dim_head):
+    """``(b, n, heads·dim_head)`` → a ``(b, heads, n, dim_head)`` view."""
+    return t.unflatten(-1, (heads, dim_head)).transpose(1, 2)
+
+
+def short_forward_views(qkv, oattn, heads: int, dim_head: int):
+    """The ``(b, heads, n, dim_head)`` views the short route's ``short_fwd``
     reads and writes, as they lie: q, k and v (the column thirds of the
     packed ``(b, n, 3·inner)`` qkv: batch stride n·3·inner, head stride
-    dim_head, row stride 3·inner), O and dO (oattn and doattn, ``(b, n,
-    inner)``), and dq, dk and dv (the thirds of dqkv, qkv's strides)."""
-    def heads_of(t):
-        return t.unflatten(-1, (heads, dim_head)).transpose(1, 2)
+    dim_head, row stride 3·inner) and O (oattn, ``(b, n, inner)``)."""
+    return (*(_heads_of(t, heads, dim_head) for t in qkv.chunk(3, dim=-1)),
+            _heads_of(oattn, heads, dim_head))
 
-    return (*(heads_of(t) for t in qkv.chunk(3, dim=-1)), heads_of(oattn), heads_of(doattn),
-            *(heads_of(t) for t in dqkv.chunk(3, dim=-1)))
+
+def short_route_views(qkv, oattn, doattn, dqkv, heads: int, dim_head: int):
+    """The views the short route's ``short_bwd`` reads and writes, as they
+    lie: those of :func:`short_forward_views`, then dO (doattn, as O) and dq,
+    dk and dv (the thirds of dqkv, qkv's strides)."""
+    return (*short_forward_views(qkv, oattn, heads, dim_head),
+            _heads_of(doattn, heads, dim_head),
+            *(_heads_of(t, heads, dim_head) for t in dqkv.chunk(3, dim=-1)))
+
+
+def short_route_strides(name, views):
+    """The (batch, head, row) element strides of the short route's views
+    for the C entry points; raises ``ValueError`` on a view no TMA tensor map
+    takes (:func:`_tma_problem`), before any launch."""
+    for i, v in enumerate(views):
+        problem = _tma_problem(v)
+        if problem:
+            raise ValueError(f"{name}: short-route view {i} has strides {v.stride()}, which "
+                             f"no tensor map takes: {problem}")
+    return kernel_strides(*views)
+
+
+@functools.lru_cache(maxsize=64)
+def _short_strides(b: int, n: int, heads: int, dim_head: int, backward: bool):
+    """:func:`short_route_strides` of the views of contiguous 16-bit qkv
+    ``(b, n, 3·inner)`` and oattn ``(b, n, inner)`` (:func:`short_forward_views`;
+    with ``backward``, :func:`short_route_views` with doattn and dqkv laid
+    out as oattn and qkv), once per shape: the wrappers pass contiguous,
+    16-byte aligned tensors (``check_kernel_tensors``), whose strides follow
+    from the shape, and building and checking eight views each call cost
+    the host about 70 µs a block.  The C entry points read the array during
+    the call only."""
+    inner = heads * dim_head
+    qkv = torch.empty((b, n, 3 * inner), dtype=torch.bfloat16, device="meta")
+    oattn = torch.empty((b, n, inner), dtype=torch.bfloat16, device="meta")
+    views = short_route_views(qkv, oattn, oattn, qkv, heads, dim_head) if backward \
+        else short_forward_views(qkv, oattn, heads, dim_head)
+    return short_route_strides("fused_attention_block", views)
 
 
 def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma, wqkv, wo,
@@ -225,7 +305,7 @@ def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma
                                                    scale: float | None = None,
                                                    eps: float = 1e-3):
     """Plain PyTorch version of the backward on the short route
-    (:func:`attention_backward_route`): ``(dx, dqkv, dgamma, dbeta, dbo)`` as
+    (:func:`attention_route`): ``(dx, dqkv, dgamma, dbeta, dbo)`` as
     :func:`fused_attention_block_backward_reference` returns them, with the
     attention's backward as ``short_bwd`` takes it: ``p = exp(s·scale -
     lse)`` from the training forward's ``lse`` (``(b, heads, n)`` f32) and
@@ -281,15 +361,30 @@ def _bias_args(bias):
     return (0, 0) if bias is None else (bias.data_ptr(), bias.shape[0])
 
 
+def _forward_buffers(x, heads: int, dim_head: int):
+    """The forward's outputs and scratch for ``x`` ``(b, n, d)``: ``(y, xn,
+    qkv, oattn)``.  xn and oattn are the GEMMs' A operands, read through 2-d
+    TMA maps from n = 256, and qkv and oattn the short route's q|k|v and O
+    (:func:`short_forward_views`): rows of d, 3·inner and inner elements,
+    contiguous."""
+    b, n, _ = x.shape
+    inner = heads * dim_head
+    qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)
+    oattn = torch.empty((b, n, inner), dtype=x.dtype, device=x.device)
+    return torch.empty_like(x), torch.empty_like(x), qkv, oattn
+
+
 def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, bias=None,
-                    need_lse=False):
+                    training=False):
     """The forward kernels on CUDA tensors: ``(y, xn, qkv, oattn, lse)``,
-    every tensor but lse in ``x``'s dtype (bf16 or f16).  The training
+    every tensor but lse in ``x``'s dtype (bf16 or f16).  The attention by
+    :func:`attention_route`, counted in ``FORWARD_ROUTES``.  The training
     forward keeps xn, qkv and oattn, as the TPU's ``save_residuals=True``,
-    and on the short backward route also lse (``need_lse``: f32 ``(b, heads,
-    n)``, else None); serving drops them.  ``fused_attention_block.launches``
-    counts the launches without a bias, ``fused_attention_block_bias.launches``
-    those with one."""
+    and on the short route also lse (f32 ``(b, heads, n)``, which the
+    backward's ``short_bwd`` reads; None on the mha route and when serving);
+    serving drops them.  ``fused_attention_block.launches`` counts the
+    launches without a bias, ``fused_attention_block_bias.launches`` those
+    with one."""
     b, n, d = x.shape
     inner = heads * dim_head
     _check_block("fused_attention_block", x, heads, dim_head, {
@@ -298,21 +393,24 @@ def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, b
     })
     if bias is not None:
         check_bias(bias, x, heads)
-    y = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)
-    oattn = torch.empty((b, n, inner), dtype=x.dtype, device=x.device)
-    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device) if need_lse else None
+    route = attention_route(n, bias is not None)
+    y, xn, qkv, oattn = _forward_buffers(x, heads, dim_head)
+    strides = lse = None
+    if route == "short":
+        strides = _short_strides(b, n, heads, dim_head, backward=False)
+        if training:
+            lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.vit_fused_attention_block_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), xn.data_ptr(),
-            qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr() if need_lse else None,
-            *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
+            qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr() if lse is not None else None,
+            strides, *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
             _build.DTYPE_CODES[x.dtype], launch_stream(x))
     _build.check(err, "vit_fused_attention_block_fwd")
     (fused_attention_block if bias is None else fused_attention_block_bias).launches += 1
+    FORWARD_ROUTES[route].launches += 1
     return y, xn, qkv, oattn, lse
 
 
@@ -324,7 +422,7 @@ def fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads: int,
     takes the plain version; a CUDA tensor launches
     ``vit_fused_attention_block_bwd`` or raises.  Any n: at n ≤ 512 the
     attention goes the short route, which needs the training forward's
-    ``oattn`` and ``lse`` (``_launch_forward(..., need_lse=True)``); past it
+    ``oattn`` and ``lse`` (``_launch_forward(..., training=True)``); past it
     ``mha_bwd`` tiles both axes.  ``fused_attention_block_backward.launches``
     counts kernel launches."""
     if scale is None:
@@ -370,11 +468,10 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
                      need_dbias=False, oattn=None, lse=None):
     """``vit_fused_attention_block_bwd`` on CUDA tensors: ``(dx, dqkv,
     dgamma, dbeta, dbo, dbias)``, ``dbias`` ``None`` unless asked for; the
-    attention by :func:`attention_backward_route`, counted in
-    ``BACKWARD_ROUTES``."""
+    attention by :func:`attention_route`, counted in ``BACKWARD_ROUTES``."""
     b, n, d = dy.shape
     inner = heads * dim_head
-    route = attention_backward_route(n, bias is not None)
+    route = attention_route(n, bias is not None)
     short = route == "short"
     tensors = {
         "x": (x, dy.shape), "qkv": (qkv, (b, n, 3 * inner)), "gamma": (gamma, (d,)),
@@ -402,7 +499,7 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     part_d = torch.empty((lib.vit_ln_bwd_partial_rows(rows), 3 * d), **f32)
     strides = dq_part = rowstat = dbias = dbias_part = None
     if short:
-        strides = kernel_strides(*short_route_views(qkv, oattn, doattn, dqkv, heads, dim_head))
+        strides = _short_strides(b, n, heads, dim_head, backward=True)
         parts = lib.vit_short_attention_parts(n, dim_head)
         if parts > 1:
             dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
@@ -435,7 +532,7 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
     """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``, and with a
     ``bias``, ``_vjp_fwd_bias`` / ``_vjp_bwd_bias``): the training forward
     keeps ``x``, ``xn``, ``qkv``, ``oattn`` and the bias, and on the card's
-    short route (:func:`attention_backward_route`) lse; the backward runs
+    short route (:func:`attention_route`) lse; the backward runs
     the backward kernel, then the weight gradients ``dWqkv = dqkvᵀ·xn`` and
     ``dWo = dyᵀ·oattn`` as plain GEMMs with f32 accumulation, rounded to the
     weights' dtype, as JAX left them to XLA.  ``gamma``/``beta`` may be f32
@@ -452,9 +549,8 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
             y, xn, qkv, oattn = fused_attention_block_forward_reference(
                 x, gc, bc, wqkv, wo, bo, heads, dim_head, scale, eps, bias)
         else:
-            short = attention_backward_route(x.shape[1], bias is not None) == "short"
             y, xn, qkv, oattn, lse = _launch_forward(x, gc, bc, wqkv, wo, bo, heads, dim_head,
-                                                     scale, eps, bias, need_lse=short)
+                                                     scale, eps, bias, training=True)
         ctx.save_for_backward(x, xn, qkv, oattn, lse, gc, wqkv, wo, bias)
         ctx.config = (heads, dim_head, scale, eps)
         ctx.param_dtypes = (gamma.dtype, beta.dtype, bo.dtype)

@@ -114,14 +114,23 @@ def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str
     return F.gelu(s).to(dt), s.to(dt) if epilogue == "bias_gelu_save" else None
 
 
-def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk"):
+# The kernels ``vit_gemm`` runs one GEMM on: ``gemm_wgmma.cu``'s, or
+# ``linear.cu``'s mma.sync one, which the blocks take below n = 256.
+GEMM_KERNELS = {"wgmma": 0, "mma_sync": 1}
+
+
+def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk",
+               kernel: str = "wgmma"):
     """The GEMM alone: what :func:`gemm_reference` returns.  A CPU tensor
-    takes the plain version; a CUDA tensor launches ``vit_gemm_wgmma`` (at any
-    n: the blocks' dispatch to it by width is in C) or raises.
-    ``gemm_wgmma.launches`` counts the launches."""
+    takes the plain version; a CUDA tensor launches ``vit_gemm`` on
+    ``gemm_wgmma.cu``'s kernel, or with ``kernel="mma_sync"`` on
+    ``linear.cu``'s (at any n: the blocks' choice between them by width is in
+    C), or raises.  ``gemm_wgmma.launches`` counts the launches."""
     if layout not in _LAYOUTS or epilogue not in _LAYOUTS[layout][1]:
         raise ValueError(f"gemm_wgmma: no epilogue {epilogue!r} over layout {layout!r} (nk: "
                          f"{tuple(GEMM_EPILOGUES)}, kn: {tuple(DGRAD_EPILOGUES)})")
+    if kernel not in GEMM_KERNELS:
+        raise ValueError(f"gemm_wgmma: no kernel {kernel!r} ({tuple(GEMM_KERNELS)})")
     if a.device.type == "cpu":
         return gemm_reference(a, w, epilogue, bias, res, h, layout)
     rows, k = a.shape
@@ -145,12 +154,13 @@ def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "
         partial, sums = _f32((lib.vit_linear_partial_rows(rows), n), a), _f32(n, a)
     code, epilogues = _LAYOUTS[layout]
     with torch.cuda.device(a.device):
-        err = lib.vit_gemm_wgmma(
+        err = lib.vit_gemm(
             a.data_ptr(), w.data_ptr(), code,
             *(t.data_ptr() if t is not None else None
               for t in (bias, res, h, out, aux, partial, sums)),
-            rows, n, k, epilogues[epilogue], _build.DTYPE_CODES[a.dtype], launch_stream(a))
-    _build.check(err, "vit_gemm_wgmma")
+            rows, n, k, epilogues[epilogue], GEMM_KERNELS[kernel],
+            _build.DTYPE_CODES[a.dtype], launch_stream(a))
+    _build.check(err, "vit_gemm")
     gemm_wgmma.launches += 1
     return (out, aux, sums) if epilogue == "dgelu" else (out, aux)
 

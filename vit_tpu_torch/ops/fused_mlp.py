@@ -15,10 +15,12 @@ What bounds it on the H100: at ViT-B/16, batch 64, the block is two GEMMs
 over 12,608 rows of d=768 with h=3072 (about 119 GFLOP against tens of MB of
 activations and weights), forward and backward alike, so it is compute-bound
 on the tensor cores.  The kernels therefore spend their design on the GEMMs
-(mma.sync with f32 accumulation), fuse the bias, GELU, dGELU, residual and the
-db1 column sums into the epilogues, and run the LayerNorm and its backward as
-small memory-bound passes; the extra traffic is xn, h and the f32 dxn in
-device memory (see the source notes in the .cu files).
+(``gemm_wgmma.cu``'s warp-specialised wgmma GEMM fed by TMA from n = 256,
+``linear.cu``'s mma.sync one below it, f32 accumulation both), fuse the
+bias, GELU, dGELU, residual and the db1 column sums into the epilogues, and
+run the LayerNorm and its backward as small memory-bound passes; the extra
+traffic is xn, g, h and the f32 dxn in device memory (see the source notes in
+the .cu files).
 
 Numerics, mirrored by the plain versions: LayerNorm statistics in f32 with
 the biased two-pass variance and eps inside the rsqrt; xn rounded to the
@@ -114,6 +116,18 @@ def _check_widths(d: int, hidden: int) -> None:
             f"d={d}, hidden={hidden}")
 
 
+def _forward_buffers(x, hidden: int, save_residuals: bool):
+    """The forward's outputs and scratch for ``x``'s rows: ``(y, xn, g,
+    h)``, ``h`` None unless ``save_residuals``.  xn and g are the GEMMs' A
+    operands, read through 2-d TMA maps from n = 256: rows of d and hidden
+    elements, contiguous."""
+    rows = x.numel() // x.shape[-1]
+    g = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    h = torch.empty(x.shape[:-1] + (hidden,), dtype=x.dtype, device=x.device) \
+        if save_residuals else None
+    return torch.empty_like(x), torch.empty_like(x), g, h
+
+
 def _launch_forward(x, gamma, beta, w1, b1, w2, b2, eps: float, save_residuals: bool):
     """The forward kernel on CUDA tensors: ``(y, xn, h)``, with ``xn`` and
     ``h`` None unless ``save_residuals`` (the training forward keeps them, as
@@ -128,11 +142,7 @@ def _launch_forward(x, gamma, beta, w1, b1, w2, b2, eps: float, save_residuals: 
         "w2": (w2, (d, hidden)), "b2": (b2, (d,)),
     })
     rows = x.numel() // d
-    y = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    g = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
-    h = torch.empty(x.shape[:-1] + (hidden,), dtype=x.dtype, device=x.device) \
-        if save_residuals else None
+    y, xn, g, h = _forward_buffers(x, hidden, save_residuals)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.vit_fused_mlp_fwd(
