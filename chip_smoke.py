@@ -57,12 +57,15 @@ Phases, one line each (any failure raises and exits non-zero):
 8. biased kernels, at the small-dataset ViT's block (b=64, n=257, d=1024, 16
    heads of 64), bf16 inputs from a seeded generator, with (i) LSA's
    diagonal -f32.max bias and scale 1.0, (ii) a random (1, n, n) bias, (iii)
-   a random (16, n, n) bias: the serving and the training forward and the
-   backward against their plain versions, output by output, dbias for (ii)
-   and (iii) under its own bound (:func:`check_dbias`) and twice, bit for
-   bit; times of the kernel, the unbiased kernel on the same inputs, the
-   plain version and the bf16 modules with ``scaled_dot_product_attention``
-   (``attn_mask=bias``; autograd through them for the backward).
+   a random (16, n, n) bias, on the short route: the serving and the
+   training forward and the backward against their plain versions (the TPU
+   kernel's rounding points and the route's own), output by output, dbias for
+   (ii) and (iii) against the route's own under its bound
+   (:func:`check_dbias`; its distance from the TPU kernel's rounding points
+   printed beside, not held) and twice, bit for bit; times of the kernel, the
+   unbiased kernel on the same inputs, the plain version and the bf16
+   modules with ``scaled_dot_product_attention`` (``attn_mask=bias``;
+   autograd through them for the backward).
 9. SPT: the small-dataset tokenizer's convolution form against its eager
    form, both bf16, and the f32 eager form, at 256 px, patch 16, dim 1024,
    batch 64; times of both.
@@ -97,7 +100,9 @@ Phases, one line each (any failure raises and exits non-zero):
 13. cross-attention block (``fused_cross_attention``), at ScalableViT's four
    SSA shapes, batch 64 (4096 | 1024 | 256 | 64 queries of 64 | 128 | 256 |
    512 channels, 2 | 4 | 8 | 16 heads, 64 keys, q/k 40 wide and v 32 at
-   stages 1-3, both 32 at stage 4), seeded bf16 inputs: the serving and the
+   stages 1-3, both 32 at stage 4: one ``cross_fwd`` launch, from 256
+   channels with the y GEMM) and at ScalableViT@384's stage 1 (144 keys, batch
+   16: the three-launch forward), seeded bf16 inputs: the serving and the
    training forward (y, q, oattn, lse) against the plain version, the
    backward (dxn, dq, dk, dv, dbo), fed the training forward's residuals,
    against the plain backward and twice bit for bit; times of the kernels,
@@ -129,7 +134,16 @@ Phases, one line each (any failure raises and exits non-zero):
    ``ln_gemm``, ``attention_nb`` and ``proj_mlp`` per forward, of their
    backwards per step, none of the block kernels; then the two B/32 tiers'
    step times side by side.
-19. profile: ``torch.profiler`` over train steps at seven training configs
+19. the blocks past 512 tokens, on the mha route (mha_fwd, mha_bwd,
+   mha_dbias): first its path, every counter from 0, the unbiased block at
+   ViT-B/16@384's shape and the biased one at the small-dataset ViT's at 384
+   px (577 tokens, batch 16, a learned per-head bias, so dbias too) under
+   autograd, forward and backward once; then phases 3, 4 and 8 at those
+   shapes (LSA's mask, a shared and a per-head bias), each route counter
+   checked; then the biased block at 197 tokens (LSA's mask, batch 64) timed
+   on both routes, forward and backward: the evidence for the 512-token
+   threshold with a bias.
+20. profile: ``torch.profiler`` over train steps at seven training configs
    (B/32 on both tiers, CvT-13 at 224 and 384); device time and launches per
    step by kernel group,
    idle share, the host's enqueue time per step and the synchronising calls
@@ -137,11 +151,12 @@ Phases, one line each (any failure raises and exits non-zero):
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT; training B/32, B/32 hybrid, B/16,
-small-dataset, CvT-13 @224 and @384, ScalableViT) runs with every kernel's
-launch counter set to 0 just before it and read just after; the attention
-block's routes are counted each way (short_fwd / short_bwd on the unbiased
-ViTs, mha_fwd / mha_bwd on the small-dataset ViT's biased block).  The
-line before the last is the card as ``nvidia-smi`` names it; before that a
+small-dataset, CvT-13 @224 and @384, ScalableViT; the blocks past 512
+tokens) runs with every kernel's launch counter set to 0 just before it and
+read just after, and each counter must move on one of them; the attention
+block's routes are counted each way (short_fwd / short_bwd on the ViTs'
+blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
+tokens).  The line before the last is the card as ``nvidia-smi`` names it; before that a
 JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound (the kernels rebuilt on wgmma and TMA also name their
 ``design``), after a line that cites the earlier designs' times from PERF.md,
@@ -420,7 +435,7 @@ def kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             p.copy_(w)
     norm.eval(), mlp.eval(), attn.eval()
 
-    route = fab.attention_route(n, biased=False)
+    route = fab.attention_route(n)
     cases = {
         "fused_mlp": (fused_mlp,
                       lambda: fused_mlp(x, gamma, beta, *mlp_w),
@@ -594,7 +609,7 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
 
     # The training forwards and the residuals they keep (the block's lse for
     # the short route of its backward, where that route applies).
-    route = fab.attention_route(n, biased=False)
+    route = fab.attention_route(n)
 
     def mlp_forward():
         return fm._launch_forward(x, gamma, beta, *mlp_w, eps, save_residuals=True)
@@ -675,11 +690,14 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             attn_whole, attn),
     }
     for name, (wrapper, kernel, plain, whole, module) in cases.items():
-        before = wrapper.launches
+        before, routes = wrapper.launches, fab.BACKWARD_ROUTES[route].launches
         out = kernel()
         torch.cuda.synchronize()
         if wrapper.launches != before + 1:
             raise AssertionError(f"{name}: launch counter did not move")
+        if name == "fused_attention_block_bwd" and \
+                fab.BACKWARD_ROUTES[route].launches != routes + 1:
+            raise AssertionError(f"{name}: the {route} route's counter did not move")
         err = check_outputs(torch, name, out, plain(), {0: dy})
         if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
             raise AssertionError(f"{name}: two runs differ")
@@ -699,12 +717,22 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
         results.setdefault(name, {})[tag] = dict(err=err, **ms, bound=(limit, by))
 
 
-def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
+def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
     """The biased block at the small-dataset ViT's shapes, for LSA's mask
-    (scale 1.0, no dbias), a shared and a per-head random bias: serving and
-    training forwards, backward (dbias twice, bit for bit) against the plain
-    versions; times beside the unbiased kernel on the same inputs and the
-    bf16 modules with ``scaled_dot_product_attention``."""
+    (scale 1.0, no dbias), a shared and a per-head random bias, on the route
+    ``attention_route`` gives it (short_fwd / short_bwd with the bias up to
+    512 tokens, counted): serving and training forwards (lse within
+    LSE_ABS_TOL), backward fed the training forward's residuals (dbias within
+    DBIAS_REL_TOL), each against the TPU kernel's rounding points and against
+    the route's own plain version, twice bit for bit; times beside the
+    unbiased kernel on the same inputs and the bf16 modules with
+    ``scaled_dot_product_attention``.  dbias is held to the route's own
+    plain version; on the short route its distance from the TPU kernel's
+    rounding points is printed beside, with that between the two plain
+    versions, and not held: D = rowsum(dO∘O) for dsum, which O's rounding to
+    bf16 moves, takes a per-head dbias past DBIAS_REL_TOL at some inputs
+    (ROADMAP.md's traps).  Results go under the bias's kind, with ``, tag``
+    after it when given (another shape)."""
     import torch.nn.functional as F
 
     from vit_tpu_torch.layers.common import Attention, LayerNorm
@@ -731,6 +759,8 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
                            attn.to_out[0].bias), (gamma, beta, wqkv, wo, bo)):
             prm.copy_(w)
     xg = x.detach().requires_grad_()
+    route = fab.attention_route(n)
+    short = route == "short"
     kinds = {"lsa": (lsa_bias(n, dev), 1.0),
              "shared": (torch.randn(1, n, n, generator=g, device=dev) * 0.5, dim_head ** -0.5),
              "per-head": (torch.randn(heads, n, n, generator=g, device=dev) * 0.5,
@@ -750,10 +780,14 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
         mask = bias.to(dt)
         with torch.inference_mode():
             before = fab.fused_attention_block_bias.launches
+            routes = fab.FORWARD_ROUTES[route].launches
             out = fab.fused_attention_block_bias(*args, bias, heads, dim_head, scale, eps)
             torch.cuda.synchronize()
             if fab.fused_attention_block_bias.launches != before + 1:
                 raise AssertionError(f"biased forward {kind}: launch counter did not move")
+            if fab.FORWARD_ROUTES[route].launches != routes + 1:
+                raise AssertionError(f"biased forward {kind}: the {route} route's counter did "
+                                     f"not move")
             ref = fab.fused_attention_block_reference(*args, heads, dim_head, scale, eps, bias)
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"biased forward {kind}: non-finite output")
@@ -761,6 +795,17 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
             if not excess <= tol:
                 raise AssertionError(f"biased forward {kind}: differs from its plain version "
                                      f"by {excess} beyond one output unit > {tol}")
+            if not torch.equal(out, fab.fused_attention_block_bias(*args, bias, heads, dim_head,
+                                                                   scale, eps)):
+                raise AssertionError(f"biased forward {kind}: two runs differ")
+            own_err = 0.0
+            if short:  # the short route's own plain version (its rounding points)
+                own_err, own_excess, own_tol = block_error(
+                    torch, out, fab.fused_attention_block_short_forward_reference(
+                        *args, heads, dim_head, scale, eps, bias)[0], x)
+                if not own_excess <= own_tol:
+                    raise AssertionError(f"biased forward {kind}: differs from the short "
+                                         f"route's plain version by {own_excess} > {own_tol}")
             fwd_ms = interleaved_medians(torch, {
                 "kernel": lambda: fab.fused_attention_block_bias(*args, bias, heads, dim_head,
                                                                  scale, eps),
@@ -768,21 +813,40 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
                 "plain": lambda: fab.fused_attention_block_reference(*args, heads, dim_head,
                                                                      scale, eps, bias),
                 "library": lambda: modules(mask)}, rounds=5, calls=10)
-        train = fab._launch_forward(*args, heads, dim_head, scale, eps, bias)[:4]
+        train = fab._launch_forward(*args, heads, dim_head, scale, eps, bias, training=True)
         train_err = check_outputs(
-            torch, f"biased training forward {kind}", train,
+            torch, f"biased training forward {kind}", train[:4],
             fab.fused_attention_block_forward_reference(*args, heads, dim_head, scale, eps,
                                                         bias), {0: x})
-        _, xn, qkv, oattn = train
+        if short:
+            train_err = max(train_err, check_outputs(
+                torch, f"biased training forward {kind}, short route", train[:4],
+                fab.fused_attention_block_short_forward_reference(*args, heads, dim_head, scale,
+                                                                  eps, bias)[:4], {0: x}))
+        again = fab._launch_forward(*args, heads, dim_head, scale, eps, bias, training=True)
+        if not all(torch.equal(a, b_) for a, b_ in zip(train, again) if a is not None):
+            raise AssertionError(f"biased training forward {kind}: two runs differ")
+        del again
+        _, xn, qkv, oattn, lse = train
+        lse_err = None
+        if short:  # f32 on both sides, from the same bf16 qkv: summation order only
+            lse_err = (lse - fab.attention_lse_reference(qkv, heads, dim_head, scale, bias)
+                       ).abs().max().item()
+            if not lse_err <= LSE_ABS_TOL:
+                raise AssertionError(f"biased training forward {kind}: lse differs from its "
+                                     f"plain version by {lse_err} > {LSE_ABS_TOL}")
         # The unbiased block on the same inputs, timed beside: its own
         # training forward's residuals, for the route its backward takes.
         unbiased = fab._launch_forward(*args, heads, dim_head, scale, eps, training=True)
         bounds = block_bounds(b, n, d, heads, dim_head, hidden, bias.shape[0], want_dbias)
         fwd_bound = bounds["fused_attention_block"]
         bwd_bound = bounds["fused_attention_block_bwd"]
-        log(f"biased forward {shape}: serving max|kernel-plain|={err:.6g}, beyond one bf16 "
-            f"unit {excess:.6g} tol={tol:.6g}; training forward (y, xn, qkv, oattn) max "
-            f"{train_err:.6g}; ms kernel={fwd_ms['kernel']:.4f} unbiased kernel on the same "
+        log(f"biased forward {shape}, attention on the {route} route: serving "
+            f"max|kernel-plain|={err:.6g}, beyond one bf16 unit {excess:.6g} tol={tol:.6g}"
+            + (f", against the route's own plain version {own_err:.6g}" if short else "")
+            + f"; training forward (y, xn, qkv, oattn) max {train_err:.6g}, lse {lse_err}; the "
+            f"same bits in two runs; ms "
+            f"kernel={fwd_ms['kernel']:.4f} unbiased kernel on the same "
             f"inputs={fwd_ms['unbiased']:.4f} plain={fwd_ms['plain']:.4f} bf16 modules with "
             f"SDPA(attn_mask=bias)={fwd_ms['library']:.4f}; bound={fwd_bound[0]:.4f} "
             f"({fwd_bound[1]})")
@@ -790,7 +854,8 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
         def kernel():
             return fab.fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias,
                                                            heads, dim_head, scale, eps,
-                                                           need_dbias=want_dbias)
+                                                           need_dbias=want_dbias, oattn=oattn,
+                                                           lse=lse)
 
         def whole():
             out = kernel()
@@ -809,42 +874,185 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results):
             return lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)
 
         before = fab.fused_attention_block_bias_backward.launches
+        routes = fab.BACKWARD_ROUTES[route].launches
         got = kernel()
         torch.cuda.synchronize()
         if fab.fused_attention_block_bias_backward.launches != before + 1:
             raise AssertionError(f"biased backward {kind}: launch counter did not move")
-        want = plain()
-        bwd_err = check_outputs(torch, f"biased backward {kind}", got[:5], want[:5], {0: dy})
-        dbias_err = dbias_max = None
+        if fab.BACKWARD_ROUTES[route].launches != routes + 1:
+            raise AssertionError(f"biased backward {kind}: the {route} route's counter did not "
+                                 f"move")
+        tpu = want = plain()  # the TPU kernel's rounding points
+        bwd_err = check_outputs(torch, f"biased backward {kind}", got[:5], tpu[:5], {0: dy})
+        if short:  # the short route's own plain version: D = rowsum(dO∘O), dbias from it
+            want = fab.fused_attention_block_short_backward_reference(
+                dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
+                want_dbias)
+            bwd_err = max(bwd_err, check_outputs(torch, f"biased backward {kind}, short route",
+                                                 got[:5], want[:5], {0: dy}))
+        again = kernel()
+        if not all(torch.equal(a, b_) for a, b_ in zip(got[:5], again[:5])):
+            raise AssertionError(f"biased backward {kind}: two runs differ")
+        dbias_err = dbias_max = dbias_tpu = plain_gap = None
         if want_dbias:
             dbias_err = check_dbias(torch, f"biased backward {kind}", got[5], want[5])
             dbias_max = want[5].abs().max().item()
-            if not torch.equal(got[5], kernel()[5]):
+            tpu_max = tpu[5].abs().max().item()
+            dbias_tpu = (got[5] - tpu[5]).abs().max().item() / tpu_max
+            plain_gap = (want[5] - tpu[5]).abs().max().item() / tpu_max
+            if not torch.equal(got[5], again[5]):
                 raise AssertionError(f"biased backward {kind}: dbias differs between two runs")
         elif got[5] is not None:
             raise AssertionError(f"biased backward {kind}: dbias computed unasked")
-        del want
+        del want, tpu, again
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel,
             "unbiased": lambda: fab.fused_attention_block_backward(
                 dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, *unbiased[3:]),
             "plain": plain, "whole": whole, "library": autograd_through(weights=False),
             "library_whole": autograd_through(weights=True)}, rounds=5, calls=5)
-        log(f"biased backward {shape}: fed the forward kernel's residuals; max|kernel-plain| "
-            f"over (dx, dqkv, dγ, dβ, dbo)={bwd_err:.6g}, each within one unit plus "
-            f"2e-2*max|its own part|; dbias "
+        log(f"biased backward {shape}: fed the forward kernel's residuals, attention on the "
+            f"{route} route; max|kernel-plain| over (dx, dqkv, dγ, dβ, dbo)={bwd_err:.6g}, each "
+            f"within one unit plus 2e-2*max|its own part| of the TPU kernel's rounding points "
+            f"and of the route's own plain version, the same bits in two runs; dbias "
             + (f"max|kernel-plain|={dbias_err:.6g} of max|ref|={dbias_max:.6g} (<= "
-               f"{DBIAS_REL_TOL}*max|ref|), the same bits in two runs" if want_dbias
-               else "not asked for, not computed")
+               f"{DBIAS_REL_TOL}*max|ref|, the route's own plain version), against the TPU "
+               f"kernel's rounding points {dbias_tpu:.6g}*max|ref|"
+               + (f" (not held: the two plain versions differ by {plain_gap:.6g}*max|ref|, "
+                  f"D = rowsum(dO∘O) for dsum)" if short else "")
+               + ", the same bits in two runs"
+               if want_dbias else "not asked for, not computed")
             + f"; ms kernel={bwd_ms['kernel']:.4f} unbiased kernel on the same inputs="
             f"{bwd_ms['unbiased']:.4f} plain={bwd_ms['plain']:.4f} autograd through the bf16 "
             f"modules with SDPA for the same outputs={bwd_ms['library']:.4f}; with the weight "
             f"gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
             f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]})")
-        results.setdefault("fused_attention_block_bias", {})[kind] = dict(
-            err=max(err, train_err), **fwd_ms, bound=fwd_bound)
-        results.setdefault("fused_attention_block_bias_bwd", {})[kind] = dict(
-            err=bwd_err, dbias_err=dbias_err, **bwd_ms, bound=bwd_bound)
+        key = kind if tag is None else f"{kind}, {tag}"
+        results.setdefault("fused_attention_block_bias", {})[key] = dict(
+            err=max(err, own_err, train_err), lse_err=lse_err, **fwd_ms, bound=fwd_bound)
+        results.setdefault("fused_attention_block_bias_bwd", {})[key] = dict(
+            err=bwd_err, dbias_err=dbias_err, dbias_vs_tpu_rel=dbias_tpu,
+            dbias_plain_gap_rel=plain_gap, **bwd_ms, bound=bwd_bound)
+
+
+# The blocks past 512 tokens, on the mha route: ViT-B/16 at 384 px (24² + 1 =
+# 577 tokens, the ViT paper's fine-tuning resolution) and the small-dataset ViT
+# at 384 px (577 tokens at its width, 16 heads of 64), batch 16: (tag, b, n,
+# d, heads, dim_head, hidden).
+MHA_SHAPES = [("B/16@384", 16, 577, 768, 12, 64, 3072),
+              ("small-dataset@384", 16, 577, 1024, 16, 64, 2048)]
+# The biased block below the threshold, where the short route's one key tile
+# is widest (208 keys): ViT-B/16's 197 tokens at the small-dataset ViT's width
+# with LSA's mask, batch 64: (b, n, d, heads, dim_head).
+THRESHOLD_SHAPE = (64, 197, 1024, 16, 64)
+
+
+def mha_route_phase(torch, results, smi, counters):
+    """The attention blocks past 512 tokens, on the mha route (mha_fwd,
+    mha_bwd, mha_dbias).  First its path: every counter from 0, the unbiased
+    block at MHA_SHAPES[0] and the biased one at MHA_SHAPES[1] with a learned
+    per-head bias (so dbias too) under autograd, forward and backward, once
+    each; the counters read right after are the phase's launches, and every
+    gradient must be finite.  Then the kernels at those shapes as phases 3,
+    4 and 8 hold them (each against its plain version, twice bit for bit,
+    each route counter checked).  Last, the biased block at THRESHOLD_SHAPE
+    on both routes (the route function replaced for the call): y and the
+    backward against the plain versions, and the times of each."""
+    from unittest import mock
+
+    from vit_tpu_torch.models.vit_for_small_dataset import lsa_bias
+    from vit_tpu_torch.ops import fused_attention_block as fab
+
+    dev, dt, eps = torch.device("cuda"), torch.bfloat16, 1e-3
+    g = torch.Generator(device=dev).manual_seed(90)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def block_args(b, n, d, heads, dim_head):
+        inner = heads * dim_head
+        return [rn(b, n, d), 1.0 + rn(d, scale=0.1), rn(d, scale=0.1),
+                rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5),
+                rn(d, scale=0.1)]
+
+    (_, b, n, d, heads, dim_head, _), (_, b2, n2, d2, heads2, dim_head2, _) = MHA_SHAPES
+    unbiased = [t.requires_grad_() for t in block_args(b, n, d, heads, dim_head)]
+    biased = [t.requires_grad_() for t in block_args(b2, n2, d2, heads2, dim_head2)]
+    bias = (torch.randn(heads2, n2, n2, generator=g, device=dev) * 0.5).requires_grad_()
+    dys = rn(b, n, d, scale=0.1), rn(b2, n2, d2, scale=0.1)
+    for c in counters.values():
+        c.launches = 0
+    fab.fused_attention_block(*unbiased, heads, dim_head).backward(dys[0])
+    fab.fused_attention_block_bias(*biased, bias, heads2, dim_head2).backward(dys[1])
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    check_launches("mha route", "one forward and backward of each block", counters, {
+        "fused_attention_block": 1, "fused_attention_block_bwd": 1,
+        "fused_attention_block_bias": 1, "fused_attention_block_bias_bwd": 1,
+        "mha route, forward": 2, "mha route": 2}, 1)
+    grads = [t.grad for t in (*unbiased, *biased, bias)]
+    if not all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads):
+        raise AssertionError("mha route: a gradient is missing or not finite")
+    log(f"mha route: the unbiased block at {MHA_SHAPES[0][0]} (b={b} n={n} d={d} "
+        f"heads={heads}x{dim_head}) and the biased one at {MHA_SHAPES[1][0]} (b={b2} n={n2} "
+        f"d={d2} heads={heads2}x{dim_head2}, a learned ({heads2}, {n2}, {n2}) bias) under "
+        f"autograd: launches {json.dumps({k: v for k, v in launches.items() if v})}, every "
+        f"gradient finite, dbias included")
+    del unbiased, biased, bias, dys, grads
+
+    tag, b, n, d, heads, dim_head, hidden = MHA_SHAPES[0]
+    kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results)
+    backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results)
+    tag, b, n, d, heads, dim_head, hidden = MHA_SHAPES[1]
+    biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=tag)
+    torch.cuda.empty_cache()
+
+    b, n, d, heads, dim_head = THRESHOLD_SHAPE
+    args = block_args(b, n, d, heads, dim_head)
+    x, gamma, _, wqkv, wo, _ = args
+    bias, scale, dy = lsa_bias(n, dev), 1.0, rn(b, n, d, scale=0.1)
+
+    def on(route, fn):  # fn with the blocks' attention on ``route``
+        def run():
+            with mock.patch.object(fab, "attention_route", lambda n: route):
+                return fn()
+        return run
+
+    y_ref = fab.fused_attention_block_reference(*args, heads, dim_head, scale, eps, bias)
+    fns = {}
+    for route in ("short", "mha"):
+        before = fab.FORWARD_ROUTES[route].launches
+        out = on(route, lambda: fab.fused_attention_block_bias(*args, bias, heads, dim_head,
+                                                               scale, eps))()
+        _, _, qkv, oattn, lse = on(route, lambda: fab._launch_forward(
+            *args, heads, dim_head, scale, eps, bias, training=True))()
+        if fab.FORWARD_ROUTES[route].launches != before + 2:
+            raise AssertionError(f"biased block at n={n}: the {route} route was not taken")
+        _, excess, tol = block_error(torch, out, y_ref, x)
+        if not excess <= tol:
+            raise AssertionError(f"biased block at n={n}, {route} route: differs from its plain "
+                                 f"version by {excess} beyond one output unit > {tol}")
+
+        def backward(qkv=qkv, oattn=oattn, lse=lse):
+            return fab.fused_attention_block_bias_backward(
+                dy, x, qkv, gamma, wqkv, wo, bias, heads, dim_head, scale, eps,
+                need_dbias=False, oattn=oattn, lse=lse)
+
+        check_outputs(torch, f"biased backward at n={n}, {route} route", on(route, backward)()[:5],
+                      fab.fused_attention_block_backward_reference(
+                          dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
+                          need_dbias=False)[:5], {0: dy})
+        fns[f"{route} forward"] = on(route, lambda: fab.fused_attention_block_bias(
+            *args, bias, heads, dim_head, scale, eps))
+        fns[f"{route} backward"] = on(route, backward)
+    ms = interleaved_medians(torch, fns, rounds=5, calls=5)
+    log(f"biased block on both routes [LSA's mask, scale 1, b={b} n={n} d={d} "
+        f"heads={heads}x{dim_head}]: y and the backward (dx, dqkv, dγ, dβ, dbo) on each within "
+        f"one unit plus 2e-2*max|its own part| of the plain versions; ms forward "
+        f"short={ms['short forward']:.4f} mha={ms['mha forward']:.4f}, backward "
+        f"short={ms['short backward']:.4f} mha={ms['mha backward']:.4f} on {smi}")
+    results["route threshold"] = {f"n={n}": ms}
+    return launches
 
 
 def spt_phase(torch, batch, size, patch, dim, smi):
@@ -1062,6 +1270,10 @@ SSA_SHAPES = [
     ("ScalableViT stage 3", 64, 256, 256, 8, 64, 40, 32),
     ("ScalableViT stage 4", 64, 64, 512, 16, 64, 32, 32),
 ]
+# The cross-attention phase's shapes: the SSA_SHAPES, then ScalableViT at 384
+# px, stage 1 (96² queries, 12² = 144 keys: past cross_fwd's 128, so the
+# three-launch forward), batch 16.
+CROSS_SHAPES = SSA_SHAPES + [("ScalableViT@384 stage 1", 16, 9216, 64, 2, 144, 40, 32)]
 # (tag, b, n, heads, dk, dv): the packed flash op at its IWSA windows (stages
 # 1 and 2, batch 64), and with q/k wider than v.
 PACKED_SHAPES = [
@@ -1092,22 +1304,27 @@ def cross_bounds(b, n, c, heads, n_k, dh_k, dh_v):
 
 
 def cross_attention_phase(torch, results, smi):
-    """The fused cross-attention block at SSA_SHAPES, bf16 inputs from a
-    seeded generator: the serving forward and the training forward (y, q,
-    oattn; lse against the plain attention on the kernel's q) against the
-    plain version; the backward, fed the training
-    forward's residuals, against the plain backward on them (dxn, dq, dk, dv
-    within one unit plus 2e-2·max|ref|, dbo within DBIAS_REL_TOL·max|ref|),
-    twice bit for bit.  Times of the kernels, the plain versions and the
-    library composition (F.linear + scaled_dot_product_attention + F.linear
-    in bf16, autograd through it for the backward), and the bounds."""
+    """The fused cross-attention block at CROSS_SHAPES, bf16 inputs from a
+    seeded generator: the serving forward on the route the library gives
+    the shape (one cross_fwd launch keeping no residual below 256 channels,
+    cross_fwd and the y GEMM keeping oattn from 256, the three launches
+    keeping q, oattn and lse past 128 keys) and the training
+    forward (y, q, oattn; lse against the plain attention on the kernel's q)
+    against the plain version, each twice bit for bit; the backward, fed the
+    training forward's residuals, against the plain backward on them (dxn,
+    dq, dk, dv within one unit plus 2e-2·max|ref|, dbo within
+    DBIAS_REL_TOL·max|ref|), twice bit for bit.  Times of the kernels, the
+    plain versions and the library composition (F.linear +
+    scaled_dot_product_attention + F.linear in bf16, autograd through it for
+    the backward), and the bounds."""
     import torch.nn.functional as F
 
+    from vit_tpu_torch.ops import _build
     from vit_tpu_torch.ops import flash_attention_packed as fap
     from vit_tpu_torch.ops import fused_cross_attention as fca
     from vit_tpu_torch.ops._shared import weight_grad
 
-    for i, (tag, b, n, c, heads, n_k, dh_k, dh_v) in enumerate(SSA_SHAPES):
+    for i, (tag, b, n, c, heads, n_k, dh_k, dh_v) in enumerate(CROSS_SHAPES):
         g = torch.Generator(device="cuda").manual_seed(50 + i)
 
         def rn(*shape, scale=1.0):
@@ -1121,6 +1338,11 @@ def cross_attention_phase(torch, results, smi):
         cfg = (heads, dh_k, dh_v)
         scale = dh_k ** -0.5
         shape = f"[{tag}: b={b} n={n} c={c} heads={heads} n_k={n_k} dh_k={dh_k} dh_v={dh_v}]"
+        # The forward's route (csrc/fused_cross_attention.cu cross_mode): 1,
+        # the one cross_fwd kernel (stages 1-2); 2, cross_fwd then the y GEMM
+        # (c >= 256: stages 3-4); 0, the three launches (n_k > 128: 384 px).
+        route = _build.load().vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
+        expected = 0 if n_k > 128 else 1 if c < 256 else 2
         with torch.inference_mode():
             before = fca.fused_cross_attention.launches
             out = fca.fused_cross_attention(*args, *cfg)
@@ -1129,13 +1351,22 @@ def cross_attention_phase(torch, results, smi):
                 raise AssertionError(f"cross-attention {shape}: launch counter did not move")
             err, excess, tol = block_error(torch, out, fca.fused_cross_attention_reference(
                 *args, *cfg), x)
+            if not torch.equal(out, fca.fused_cross_attention(*args, *cfg)):
+                raise AssertionError(f"cross-attention {shape}: two serving runs differ")
+            kept = [t is not None for t in fca._launch_forward(*args, *cfg, scale)[1:]]
         if not (bool(torch.isfinite(out).all()) and excess <= tol):
             raise AssertionError(f"cross-attention {shape}: differs from its plain version by "
                                  f"{excess} beyond one output unit > {tol}")
-        train = fca._launch_forward(*args, *cfg, scale)
+        if route != expected or kept != [route == 0, route != 1, route == 0]:
+            raise AssertionError(f"cross-attention {shape}: route {route}, serving kept "
+                                 f"(q, oattn, lse) {kept}")
+        train = fca._launch_forward(*args, *cfg, scale, training=True)
         ref = fca.fused_cross_attention_forward_reference(*args, *cfg)
         train_err = check_outputs(torch, f"cross-attention training forward {shape}", train[:3],
                                   ref[:3], {0: x})
+        if not all(torch.equal(a, b_) for a, b_ in
+                   zip(train, fca._launch_forward(*args, *cfg, scale, training=True))):
+            raise AssertionError(f"cross-attention training forward {shape}: two runs differ")
         _, q, oattn, lse = train
         # lse against the plain attention on the kernel's own q: a one-unit
         # flip of a q element between the two q GEMMs moves a logit, and so
@@ -1191,7 +1422,12 @@ def cross_attention_phase(torch, results, smi):
             rounds=5, calls=5)
         bounds = cross_bounds(b, n, c, heads, n_k, dh_k, dh_v)
         fb, bb = bounds["fused_cross_attention"], bounds["fused_cross_attention_bwd"]
-        log(f"cross-attention {shape}: serving y within one bf16 unit plus 2e-2*max|ref-x|, "
+        log(f"cross-attention {shape}: forward "
+            + ("one cross_fwd launch, serving keeps no residual" if route == 1 else
+               "cross_fwd, then gemm_wgmma for y from oattn, serving keeps oattn only"
+               if route == 2 else "three launches (linear.cu q GEMM, the (dh_k, dh_v) flash "
+               "forward, linear.cu output GEMM), serving keeps q, oattn and lse")
+            + f"; serving y within one bf16 unit plus 2e-2*max|ref-x|, "
             f"max|kernel-plain|={err:.6g}; training forward (y, q, oattn) max {train_err:.6g}, "
             f"lse {lse_err:.3g}; backward (dxn, dq, dk, dv) fed the forward's residuals max "
             f"{bwd_err:.6g}, dbo {dbo_err:.3g} (<= {DBIAS_REL_TOL}*max|ref|), the same bits in "
@@ -1202,7 +1438,7 @@ def cross_attention_phase(torch, results, smi):
             f"kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd={bwd_ms['library_whole']:.4f}; "
             f"bound={bb[0]:.4f} ({bb[1]}) on {smi}")
         results.setdefault("fused_cross_attention", {})[tag] = dict(
-            err=max(err, train_err), lse_err=lse_err, **fwd_ms, bound=fb)
+            err=max(err, train_err), lse_err=lse_err, route=route, **fwd_ms, bound=fb)
         results.setdefault("fused_cross_attention_bwd", {})[tag] = dict(
             err=bwd_err, dbo_err=dbo_err, **bwd_ms, bound=bb)
         del args, x, xn, wq, k, v, wo, bo, dy, train, q, oattn, lse, leaves, own, y_lib
@@ -1309,10 +1545,14 @@ SHORT_SHAPES = [
 # constants cited from PERF.md's kernel table and its findings on the
 # rebuilds, printed on a line of their own beside the kernels' line, never in
 # it (every number there is this run's).  The flash forward's rebuild also
-# runs the packed op's forward and the attention inside the cross-attention
-# block's forward; the short backward's runs attention_nb's.
+# runs the packed op's forward; the short backward's runs attention_nb's.  The
+# biased block's and the cross-attention block's forward's are the parent
+# design's (mha_fwd / mha_bwd; q GEMM + flash forward + output GEMM).
 DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
-           "fused_cross_attention": "wgmma+tma", "flash_attention_packed": "wgmma+tma",
+           "fused_cross_attention": "one cross_fwd kernel (wgmma+tma): per head q = xn·Wq_h, "
+                                    "softmax and P·V in registers, then y = oattn·Wo over the "
+                                    "heads with bias and residual; no residual when serving",
+           "flash_attention_packed": "wgmma+tma",
            "short_attention": "wgmma+tma", "ln_gemm": "wgmma+tma, warp-specialised, persistent",
            "attention_nb": "wgmma+tma", "proj_mlp": "wgmma+tma, warp-specialised, persistent",
            "short_attention_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
@@ -1322,19 +1562,23 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major; attention on "
                                         "short_bwd up to 512 tokens, mha_bwd past them",
            "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major; attention "
-                                             "on mha_bwd (bias, dbias)",
+                                             "on short_bwd with the bias (two 144-key blocks "
+                                             "at n 257) up to 512 tokens, dbias from its (lse, "
+                                             "D) in a fixed order; mha_bwd past them",
            "fused_mlp": "fc1 and fc2 on gemm_wgmma (wgmma+tma, warp-specialised, persistent, "
                         "fused epilogues) from n 256, linear.cu below",
            "fused_attention_block": "QKV and out-projection on gemm_wgmma from n 256; attention "
                                     "on short_fwd (wgmma+tma, keeps lse in training) up to 512 "
                                     "tokens, mha_fwd past them",
            "fused_attention_block_bias": "QKV and out-projection on gemm_wgmma from n 256; "
-                                         "attention on mha_fwd (bias)"}
+                                         "attention on short_fwd with the bias (two 144-key "
+                                         "tiles at n 257, keeps lse in training) up to 512 "
+                                         "tokens, mha_fwd past them"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
     "flash_attention_packed": {"ScalableViT IWSA stage 1": 2.4982},
-    "fused_cross_attention": {"ScalableViT stage 1": 0.3121},
+    "fused_cross_attention": {"ScalableViT stage 1": 0.2648},
     "ln_gemm": {"B/32": 0.1517},
     "proj_mlp": {"B/32": 0.4404},
     "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
@@ -1352,10 +1596,10 @@ EARLIER_DESIGN_MS = {
     "attention_nb_bwd": {"B/32": 0.4285},
     "fused_mlp_bwd": {"B/16": 0.7990, "B/32": 0.4599},
     "fused_attention_block_bwd": {"B/16": 0.8373, "B/32": 0.6831},
-    "fused_attention_block_bias_bwd": {"lsa": 1.7378, "shared": 2.6618, "per-head": 2.4000},
+    "fused_attention_block_bias_bwd": {"lsa": 1.4647, "shared": 2.3904, "per-head": 2.1245},
     "fused_mlp": {"B/16": 0.5743, "B/32": 0.3257},
     "fused_attention_block": {"B/16": 0.4872, "B/32": 0.4362},
-    "fused_attention_block_bias": {"lsa": 0.9619},
+    "fused_attention_block_bias": {"lsa": 0.6170, "shared": 0.6236, "per-head": 0.6210},
 }
 
 
@@ -1953,10 +2197,14 @@ def kernel_group(name: str) -> str:
     m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
-    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?(?:, \d+)?>", name)
+    m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?(?:, \d+)?(, true)?(?:, false)?>",
+                  name)
     if m:
-        return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles)" if m.group(3)
-                                                  else ")")
+        return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles" if m.group(3)
+                                                  else "") + (", bias)" if m.group(4) else ")")
+    m = re.search(r"cross_fwd_kernel<[^,]+, (\d+), (\d+), \d+>", name)
+    if m:
+        return f"cross_fwd_kernel (dk {m.group(1)}, dv {m.group(2)})"
     m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
@@ -2101,6 +2349,12 @@ def kernel_entry(results, by_path, name, src, tpu, main_shape):
                               for tag, times in results["below_gate"].items()}
     if name == "flash_backward":
         line["packed"] = table(results["flash_backward (packed)"])
+    if name in ("fused_attention_block_bias", "fused_attention_block_bias_bwd"):
+        # the biased block below the threshold on both routes (mha_route_phase)
+        way = "forward" if name == "fused_attention_block_bias" else "backward"
+        line["route_threshold_ms"] = {
+            tag: {route: ms[f"{route} {way}"] for route in ("short", "mha")}
+            for tag, ms in results["route threshold"].items()}
     if name in ("fused_attention_block", "fused_attention_block_bwd"):
         # the routes of both blocks (biased and not), forward and backward
         suffix = ", forward" if name == "fused_attention_block" else ""
@@ -2119,13 +2373,15 @@ def ptxas_report(build_log: str) -> dict:
     0/0 bytes spilled (stores/loads)", ...}``."""
     report, name = {}, None
     pattern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
-                         r"short_fwd_kernel|short_bwd_kernel|short_bwd_wg_kernel|gemm_wgmma_kernel)"
-                         r"I(6__half|13__nv_bfloat16)((?:Li\d+E)*)")
+                         r"short_fwd_kernel|short_bwd_kernel|short_bwd_wg_kernel|gemm_wgmma_kernel|"
+                         r"cross_fwd_kernel)I(6__half|13__nv_bfloat16)((?:L[ib]\d+E)*)")
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = pattern.search(line)
             name = m and ",".join([f"{m[1]}<{'f16' if m[2] == '6__half' else 'bf16'}",
-                                   *re.findall(r"Li(\d+)E", m[3])]) + ">"
+                                   *(v if kind == "i" else "bias" for kind, v in
+                                     re.findall(r"L([ib])(\d+)E", m[3])
+                                     if kind == "i" or v == "1")]) + ">"
             spill = None
         elif name and "spill stores" in line:
             spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -2167,7 +2423,7 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     regs = [int(line.split("Used ")[1].split()[0])
-            for line in build_log.splitlines() if "registers" in line]
+            for line in build_log.splitlines() if "Used " in line and "registers" in line]
     spills = sum("0 bytes spill stores" not in line
                  for line in build_log.splitlines() if "spill stores" in line)
     log(f"build: {build_s:.2f} s, {path.name}, {len(regs)} kernels compiled, "
@@ -2224,8 +2480,9 @@ def main() -> int:
                 "fused_attention_block_bias": fused_attention_block_bias,
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
                 # the blocks' attention middles by route (fused_attention_block.py
-                # attention_route), each direction: short_fwd / short_bwd unbiased up to 512
-                # tokens, else mha_fwd / mha_bwd
+                # attention_route), each direction: short_fwd / short_bwd up to 512 tokens,
+                # with or without a bias, else mha_fwd / mha_bwd (no main path has more:
+                # every path holds them at 0)
                 "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
                 "short route, forward": FORWARD_ROUTES["short"],
                 "mha route, forward": FORWARD_ROUTES["mha"],
@@ -2258,7 +2515,7 @@ def main() -> int:
     path("serving small-dataset", serving_phase, "small-dataset ViT 256/16 bf16", small,
          SMALL_DATASET, 64, 3, 4, smi, counters,
          per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
-                   "mha route, forward"),
+                   "short route, forward"),
          top1_sign_test=True)
     path("training B/32", training_phase, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 2, smi,
          counters, per_layer(ENTRY, "fused_attention_block", "fused_mlp",
@@ -2281,8 +2538,8 @@ def main() -> int:
     path("training small-dataset", training_phase, "small-dataset ViT 256/16", small,
          SMALL_DATASET, 64, 5, smi, counters,
          per_layer(SMALL_DATASET, "fused_attention_block_bias", "fused_mlp",
-                   "fused_attention_block_bias_bwd", "fused_mlp_bwd", "mha route",
-                   "mha route, forward"))
+                   "fused_attention_block_bias_bwd", "fused_mlp_bwd", "short route",
+                   "short route, forward"))
     with clock("gradients small-dataset"):
         gradient_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 6, smi)
     # CvT-13: flash at stage 1 (224 px; n_q 3136, n_k 784), stages 1 and 2 (384 px).
@@ -2310,6 +2567,8 @@ def main() -> int:
          {**scalable_forward, "fused_cross_attention_bwd": blocks, "flash_backward": packed,
           "fused_mlp_bwd": 2 * blocks}, size=SCALABLE_SIZE,
          timing=dict(rounds=3, calls=1, warmup=1))
+    # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
+    path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
     with clock("profiles"):
         profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)

@@ -78,7 +78,7 @@ def test_short_route_forward_matches_jax_kernel(b, n, d, heads, dh):
     ``_forward`` with ``save_residuals``: y, xn, qkv and oattn each within
     1e-4 of max|JAX output|, and its lse within 1e-5 of
     ``attention_lse_reference`` over the same qkv."""
-    assert attention_route(n, biased=False) == "short"
+    assert attention_route(n) == "short"
     rng = np.random.default_rng(3)
     inner = heads * dh
     x = _rng_f32(rng, b, n, d)

@@ -8,7 +8,14 @@ that file's shapes (3 images of 64 tokens against 9 keys, c 48, 2 heads, dh_k
 16 / dh_v 24; 5 images of 24 tokens against 4 keys) and at ScalableViT's SSA
 widths (dh_k 40 / dh_v 32), within 1e-5 of max(1, max|ref|): in f32 both
 sides are exact attention and its gradient, and differ by summation order.
+The plain version of the one-kernel forward (``cross_fwd``: q, oattn and lse
+from its own rounding points) against ``_forward``'s y, q and oattn at
+ScalableViT's widths, n_k 64, within 1e-4; and the wrapper's arguments to C,
+with the library replaced by a recorder: serving allocates and passes no q
+or lse, and no oattn where the one ``cross_fwd`` kernel takes the shape.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -18,6 +25,7 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from vit_tpu.ops import fused_cross_attention as jax_fca  # noqa: E402
 from vit_tpu.ops.fused_cross_attention import fused_cross_attention_block  # noqa: E402
 from vit_tpu_torch.ops import fused_cross_attention as fca  # noqa: E402
 
@@ -90,6 +98,75 @@ def test_serving_forward_keeps_no_graph_and_matches_training_forward():
     assert torch.equal(y, y_train)
     assert q.shape == (2, 64, 80) and oattn.shape == (2, 64, 64) and lse.shape == (2, 2, 64)
     assert lse.dtype == torch.float32
+
+
+# cross_fwd's widths on ScalableViT's SSA at n_k 64: (b, n, n_k, c, heads,
+# dh_k, dh_v), stages 1-3's (40, 32) and stage 4's (32, 32), scaled down.
+FUSED_CASES = [(2, 96, 64, 64, 2, 40, 32), (2, 64, 64, 128, 4, 32, 32)]
+FUSED_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,n,n_k,c,heads,dh_k,dh_v", FUSED_CASES)
+def test_fused_forward_plain_version_matches_jax_forward(b, n, n_k, c, heads, dh_k, dh_v):
+    """The plain version of the one-kernel forward (y, and the residuals q,
+    oattn it writes in training) against ``_forward``'s in interpret mode,
+    and its lse against the log-sum-exp of JAX's q·kᵀ·scale: each within
+    1e-4 of max(1, max|ref|) in f32."""
+    args, _ = _inputs(b, n, n_k, c, heads, dh_k, dh_v, seed=5)
+    scale = dh_k ** -0.5
+    want = jax_fca._forward(*map(jnp.asarray, args), heads, dh_k, dh_v, scale, interpret=True,
+                            save_residuals=True)
+    got = fca.fused_cross_attention_forward_reference(*_to_port(args), heads, dh_k, dh_v, scale)
+    for name, g, w in zip(("y", "q", "oattn"), got[:3], want):
+        err = float(np.max(np.abs(g.numpy() - np.asarray(w))))
+        assert g.shape == np.asarray(w).shape and \
+            err <= FUSED_TOL * max(1.0, float(np.max(np.abs(np.asarray(w))))), (name, err)
+    q = torch.from_numpy(np.array(want[1])).unflatten(-1, (heads, dh_k)).transpose(1, 2)
+    k = torch.from_numpy(args[3]).unflatten(-1, (heads, dh_k)).transpose(1, 2)
+    lse = torch.logsumexp(q @ k.transpose(-1, -2) * scale, dim=-1)
+    assert float((got[3] - lse).abs().max()) <= FUSED_TOL * max(1.0, float(lse.abs().max()))
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records the forward entry point's
+    arguments, launches nothing, and gives the shape's route."""
+
+    def __init__(self, fused):
+        self.fused, self.calls = fused, []
+
+    def vit_fused_cross_attention_fused(self, *shape):
+        return self.fused
+
+    def vit_fused_cross_attention_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("fused", [1, 2, 0])
+def test_serving_writes_no_residuals(monkeypatch, fused):
+    """Serving passes null q and lse (it allocates neither) on the
+    ``cross_fwd`` routes, and null oattn too where the one kernel takes the
+    whole block (route 1; route 2's GEMM reads oattn); training passes all
+    three, as does serving a shape that takes the three launches, which go
+    through device memory."""
+    lib = _RecordingLib(fused)
+    monkeypatch.setattr(fca._build, "load", lambda: lib)
+    monkeypatch.setattr(fca, "check_kernel_tensors", lambda *args: None)
+    monkeypatch.setattr(fca, "launch_stream", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    b, n, n_k, c, heads, dh_k, dh_v = 2, 64, 64, 64, 2, 40, 32
+    x, xn, wq, k, v, wo, bo = (t.to(torch.bfloat16) for t in _to_port(
+        _inputs(b, n, n_k, c, heads, dh_k, dh_v)[0]))
+    served = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, 0.1)
+    trained = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, 0.1,
+                                  training=True)
+    assert [t is None for t in served[1:]] == [fused != 0, fused == 1, fused != 0]
+    assert tuple(trained[1].shape) == (b, n, heads * dh_k)
+    assert tuple(trained[2].shape) == (b, n, heads * dh_v)
+    assert trained[3].dtype == torch.float32 and tuple(trained[3].shape) == (b, heads, n)
+    (*_, q_s, o_s, lse_s), (*_, q_t, o_t, lse_t) = (args[:11] for args in lib.calls)
+    assert [t is None for t in (q_s, o_s, lse_s)] == [fused != 0, fused == 1, fused != 0]
+    assert (q_t, o_t, lse_t) == tuple(t.data_ptr() for t in trained[1:])
 
 
 def test_plain_backward_is_the_gradient_of_the_plain_forward():

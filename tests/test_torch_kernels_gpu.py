@@ -154,7 +154,7 @@ def test_fused_attention_block_kernel_matches_plain(cuda, b, n, d, heads, dh, dt
     divide) and, on the short route, against its own plain version (p
     normalised before P·V); the same bits twice; the route by shape."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda)
-    route = fused_attention_block_ops.attention_route(n, biased=False)
+    route = fused_attention_block_ops.attention_route(n)
     with torch.inference_mode():
         before, routes = fused_attention_block.launches, _forward_routes()
         out = fused_attention_block(*args, heads, dh)
@@ -223,7 +223,7 @@ def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, head
     lse = fused_attention_block_ops.attention_lse_reference(qkv, heads, dh)
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(2),
                      device=cuda).to(dtype)
-    route = fused_attention_block_ops.attention_route(n, biased=False)
+    route = fused_attention_block_ops.attention_route(n)
     assert route == ("short" if n <= 512 else "mha")
     routes = fused_attention_block_ops.BACKWARD_ROUTES
     before = (fused_attention_block_backward.launches, routes[route].launches)
@@ -269,14 +269,15 @@ def test_fused_mlp_training_forward_keeps_the_plain_residuals(cuda, shape, hidde
 def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, b, n, d, heads,
                                                                           dh, dtype, biased):
     """The training forward returns y, xn, qkv and oattn as the plain version
-    computes them and, on the short route, also as that route's own plain
-    version does, with lse (kept for short_bwd) within LSE_ABS_TOL of the
-    plain lse of its own qkv; on the mha route (a bias, or n > 512) no lse.
-    The same bits twice; the route by shape; serving keeps no lse."""
+    computes them and, on the short route (n <= 512, with or without a
+    bias), also as that route's own plain version does, with lse (kept for
+    short_bwd) within LSE_ABS_TOL of the plain lse of its own qkv; on the mha
+    route (n > 512) no lse.  The same bits twice; the route by shape; serving
+    keeps no lse."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=3)
     bias = vit_for_small_dataset.lsa_bias(n, cuda) if biased else None
     scale = 1.0 if biased else dh ** -0.5
-    route = fused_attention_block_ops.attention_route(n, biased)
+    route = fused_attention_block_ops.attention_route(n)
     routes = _forward_routes()
     out = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3, bias,
                                                     training=True)
@@ -287,10 +288,10 @@ def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, 
                   {0: args[0]})
     if route == "short":
         short = fused_attention_block_ops.fused_attention_block_short_forward_reference(
-            *args, heads, dh, scale)
+            *args, heads, dh, scale, 1e-3, bias)
         check_outputs(torch, "fused_attention_block training forward, short route", out[:4],
                       short[:4], {0: args[0]})
-        lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh, scale)
+        lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh, scale, bias)
         assert out[4].dtype == torch.float32 and tuple(out[4].shape) == (b, heads, n)
         assert (out[4] - lse).abs().max() <= LSE_ABS_TOL
     else:
@@ -415,11 +416,17 @@ def _bias(kind, heads, n, device, seed=5):
     return torch.randn(1 if kind == "shared" else heads, n, n, generator=g, device=device) * 0.5
 
 
-@pytest.mark.parametrize("n", [65, 197, 257])
+@pytest.mark.parametrize("n", [65, 197, 257, 600])
 @pytest.mark.parametrize("kind", ["shared", "per-head"])
 def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
-    """Serving forward, training forward and backward (dbias included) of the
-    biased block against their plain versions."""
+    """Serving forward, training forward and backward (dbias included; fed the
+    training forward's residuals, oattn and lse for the short route) of the
+    biased block against their plain versions: the TPU kernel's rounding
+    points, and on the short route (n <= 512) that route's own (D =
+    rowsum(dO∘O), dbias from it); dbias against the route's own, which past
+    512 tokens (mha_bwd, mha_dbias) is the TPU kernel's.  The short route's
+    dbias is not held to the TPU kernel's rounding points: D for dsum moves a
+    per-head dbias by more than DBIAS_REL_TOL (ROADMAP.md's traps)."""
     b, d, heads, dh = 2, 256, 4, 64
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=4)
     x, gamma, beta, wqkv, wo, bo = args
@@ -431,22 +438,30 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
         assert (fused_attention_block.launches,
                 fused_attention_block_bias.launches) == (before[0], before[1] + 1)
         _close(out, fused_attention_block_reference(*args, heads, dh, bias=bias), x)
-    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias)[:4]
-    check_outputs(torch, "biased training forward", fwd,
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias,
+                                                    training=True)
+    check_outputs(torch, "biased training forward", fwd[:4],
                   fused_attention_block_forward_reference(*args, heads, dh, bias=bias), {0: x})
+    _, _, qkv, oattn, lse = fwd
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(6),
                      device=cuda).to(torch.bfloat16)
     before = (fused_attention_block_backward.launches, fused_attention_block_bias_backward.launches)
-    got = fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads, dh)
+    got = fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                              oattn=oattn, lse=lse)
     torch.cuda.synchronize()
     assert (fused_attention_block_backward.launches,
             fused_attention_block_bias_backward.launches) == (before[0], before[1] + 1)
-    ref = fused_attention_block_backward_reference(dy, x, fwd[2], gamma, wqkv, wo, heads, dh,
+    ref = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh,
                                                    bias=bias)
     check_outputs(torch, "biased backward", got[:5], ref[:5], {0: dy})
-    check_dbias(torch, "biased backward", got[5], ref[5])
-    _twice(got, fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads,
-                                                    dh))
+    own = ref  # the mha route (n > 512) rounds as the TPU kernel, dbias included
+    if fused_attention_block_ops.attention_route(n) == "short":
+        own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
+            dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
+        check_outputs(torch, "biased backward, short route", got[:5], own[:5], {0: dy})
+    check_dbias(torch, "biased backward", got[5], own[5])
+    _twice(got, fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads,
+                                                    dh, oattn=oattn, lse=lse))
 
 
 @pytest.mark.parametrize("hb", [1, 4])
@@ -455,11 +470,13 @@ def test_dbias_is_the_same_bits_every_run(cuda, hb):
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=7)
     x, gamma, beta, wqkv, wo, bo = args
     bias = _bias("shared" if hb == 1 else "per-head", heads, n, cuda)
-    qkv = fused_attention_block_forward_reference(*args, heads, dh, bias=bias)[2]
+    ops = fused_attention_block_ops
+    _, _, qkv, oattn, lse = ops.fused_attention_block_short_forward_reference(
+        *args, heads, dh, bias=bias)
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(8),
                      device=cuda).to(torch.bfloat16)
-    runs = [fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh)[5]
-            for _ in range(2)]
+    runs = [fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                oattn=oattn, lse=lse)[5] for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
 
 
@@ -472,18 +489,81 @@ def test_lsa_bias_gives_finite_outputs_one_past_a_key_tile(cuda, n):
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=9)
     x, gamma, beta, wqkv, wo, bo = args
     bias = _bias("lsa", heads, n, cuda)
-    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, 1.0, 1e-3, bias)[:4]
-    check_outputs(torch, "LSA training forward", fwd,
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, 1.0, 1e-3, bias,
+                                                    training=True)
+    check_outputs(torch, "LSA training forward", fwd[:4],
                   fused_attention_block_forward_reference(*args, heads, dh, 1.0, bias=bias),
                   {0: x})
+    _, _, qkv, oattn, lse = fwd
+    assert torch.isfinite(lse).all()
     dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(10),
                      device=cuda).to(torch.bfloat16)
-    got = fused_attention_block_bias_backward(dy, x, fwd[2], gamma, wqkv, wo, bias, heads, dh,
-                                              1.0, need_dbias=False)
+    got = fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                              1.0, need_dbias=False, oattn=oattn, lse=lse)
     assert got[5] is None
-    ref = fused_attention_block_backward_reference(dy, x, fwd[2], gamma, wqkv, wo, heads, dh,
+    ref = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh,
                                                    1.0, bias=bias, need_dbias=False)
     check_outputs(torch, "LSA backward", got[:5], ref[:5], {0: dy})
+
+
+@pytest.mark.parametrize("kind", ["lsa", "shared", "per-head"])
+def test_biased_block_at_the_small_dataset_shape(cuda, kind):
+    """The small-dataset ViT's block (64 images of 257 tokens, d 1024, 16
+    heads of 64: two 144-key tiles forward, two 144-key blocks backward) with
+    LSA's mask (scale 1), a shared and a per-head bias: serving and training
+    forwards against both plain versions (the TPU kernel's rounding points,
+    the short route's own), lse within LSE_ABS_TOL, the backward fed the
+    training forward's residuals against both, dbias against the route's own
+    within DBIAS_REL_TOL; each twice, bit for bit; only the short route
+    counted."""
+    b, n, d, heads, dh = 64, 257, 1024, 16, 64
+    args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=12)
+    x, gamma, beta, wqkv, wo, bo = args
+    bias = _bias(kind, heads, n, cuda, seed=13)
+    scale = 1.0 if kind == "lsa" else dh ** -0.5
+    ops = fused_attention_block_ops
+    assert ops.attention_route(n) == "short"
+    routes = [dict((k, r.launches) for k, r in rt.items())
+              for rt in (ops.FORWARD_ROUTES, ops.BACKWARD_ROUTES)]
+    with torch.inference_mode():
+        out = fused_attention_block_bias(*args, bias, heads, dh, scale)
+        _close(out, fused_attention_block_reference(*args, heads, dh, scale, bias=bias), x)
+        _close(out, ops.fused_attention_block_short_forward_reference(
+            *args, heads, dh, scale, bias=bias)[0], x)
+        assert torch.equal(out, fused_attention_block_bias(*args, bias, heads, dh, scale))
+    fwd = ops._launch_forward(*args, heads, dh, scale, 1e-3, bias, training=True)
+    check_outputs(torch, "biased training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, bias=bias),
+                  {0: x})
+    check_outputs(torch, "biased training forward, short route", fwd[:4],
+                  ops.fused_attention_block_short_forward_reference(
+                      *args, heads, dh, scale, bias=bias)[:4], {0: x})
+    _twice(fwd, ops._launch_forward(*args, heads, dh, scale, 1e-3, bias, training=True))
+    _, _, qkv, oattn, lse = fwd
+    assert (lse - ops.attention_lse_reference(qkv, heads, dh, scale, bias)).abs().max() <= \
+        LSE_ABS_TOL
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(14),
+                     device=cuda).to(torch.bfloat16)
+    need = kind != "lsa"
+    got = fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                              scale, need_dbias=need, oattn=oattn, lse=lse)
+    check_outputs(torch, "biased backward", got[:5], fused_attention_block_backward_reference(
+        dy, x, qkv, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=False)[:5],
+        {0: dy})
+    own = ops.fused_attention_block_short_backward_reference(
+        dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=need)
+    check_outputs(torch, "biased backward, short route", got[:5], own[:5], {0: dy})
+    if need:
+        check_dbias(torch, "biased backward", got[5], own[5])
+    else:
+        assert got[5] is None
+    _twice(got, fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                    scale, need_dbias=need, oattn=oattn,
+                                                    lse=lse))
+    assert [dict((k, r.launches) for k, r in rt.items())
+            for rt in (ops.FORWARD_ROUTES, ops.BACKWARD_ROUTES)] == [
+        {"short": routes[0]["short"] + 4, "mha": routes[0]["mha"]},
+        {"short": routes[1]["short"] + 2, "mha": routes[1]["mha"]}]
 
 
 def test_bias_that_the_kernel_does_not_take_raises_on_the_card(cuda):
@@ -762,22 +842,34 @@ def _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=0):
     (4, 256, 256, 8, 64, 40, 32),
     (4, 64, 512, 16, 64, 32, 32),
     (3, 100, 72, 3, 9, 40, 32),      # ragged rows, n_k, c and the q GEMM's n = 120
-    (2, 70, 96, 3, 130, 64, 64),
+    (2, 70, 96, 3, 130, 64, 64),     # n_k past 128: the three-launch forward
+    (2, 130, 64, 2, 100, 64, 64),    # a 128-key tile, (64, 64) heads
+    (2, 64, 512, 16, 64, 40, 32),    # (40, 32) at c 512: cross_fwd, then the y GEMM
 ])
 def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh_k, dh_v):
-    """Serving forward, training forward (y, q, oattn, lse) and backward
-    (dxn, dq, dk, dv, dbo; fed the training forward's residuals) against
-    their plain versions; the backward twice, bit for bit."""
+    """Serving forward (one cross_fwd launch keeping no residual below c 256,
+    cross_fwd and the y GEMM from it, keeping oattn only, the three launches
+    past n_k 128), training forward (y, q, oattn, lse) and backward (dxn, dq,
+    dk, dv, dbo; fed the training forward's residuals) against their plain
+    versions; each twice, bit for bit."""
     args, dy = _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=n)
     x, xn, wq, k, v, wo, bo = args
     cfg = (heads, dh_k, dh_v)
+    from vit_tpu_torch.ops import _build
+    route = _build.load().vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
+    assert route == (0 if n_k > 128 else 1 if c < 256 else 2)
     with torch.inference_mode():
         before = fca.fused_cross_attention.launches
         out = fca.fused_cross_attention(*args, *cfg)
         torch.cuda.synchronize()
         assert fca.fused_cross_attention.launches == before + 1
         _close(out, fca.fused_cross_attention_reference(*args, *cfg), x)
-    fwd = fca._launch_forward(*args, *cfg, dh_k ** -0.5)
+        assert torch.equal(out, fca.fused_cross_attention(*args, *cfg))
+        served = fca._launch_forward(*args, *cfg, dh_k ** -0.5)
+        assert [t is None for t in served[1:]] == [route != 0, route == 1, route != 0]
+    fwd = fca._launch_forward(*args, *cfg, dh_k ** -0.5, training=True)
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(fwd, fca._launch_forward(*args, *cfg, dh_k ** -0.5, training=True)))
     ref = fca.fused_cross_attention_forward_reference(*args, *cfg)
     check_outputs(torch, "cross-attention training forward", fwd[:3], ref[:3], {0: x})
     _, q, oattn, lse = fwd
@@ -861,14 +953,16 @@ def _short_inputs(cuda, b, h, n_q, n_k, d, dtype=torch.bfloat16, seed=0):
     (2, 2, 161, 161, 64, torch.float16),  # one 208-key tile
 ] + [
     # the forward's key tiles (csrc/short_attention.cu's fwd_tiles): 80 at 65-73, 128 at
-    # 100, 208 at 197 at d <= 64 (2 x 128 at d 128), 2, 3 and 4 x 128 at 256, 257 and 512,
-    # on one and two query warpgroups
-    (2, 2, n, n, d, torch.bfloat16) for n in (65, 72, 73, 100, 197, 256, 257, 512)
+    # 100, 208 at 197 at d <= 64 (2 x 128 at d 128), 2 x 128 at 256, 2 x 144 at 257-288,
+    # 3 and 4 x 128 at 289 and 512, on one and two query warpgroups; the backward's two
+    # 144-key blocks at 257-288
+    (2, 2, n, n, d, torch.bfloat16) for n in (65, 72, 73, 100, 197, 256, 257, 280, 288, 289,
+                                              512)
     for d in (32, 64, 128)
 ] + [
     # the backward's key blocks (csrc/short_attention.cu's bwd_key_block): 64 up to 64 keys,
     # 80 up to 80 (one 80-row query step), 128 up to 128 on mma.sync, 256 up to 256 at
-    # d <= 64 on wgmma (and 256, 257 above), 128-key blocks with dq partials past them
+    # d <= 64 on wgmma (and 256 above), 144- and 128-key blocks with dq partials past them
     (2, 2, n, n, d, torch.bfloat16) for n in (64, 80, 81, 128, 129, 208, 209)
     for d in (32, 64, 128)
 ] + [

@@ -36,9 +36,11 @@ from vit_tpu_torch.layers import common  # noqa: E402
 from vit_tpu_torch.layers.common import LayerNorm  # noqa: E402
 from vit_tpu_torch.models import vit_for_small_dataset as sd  # noqa: E402
 from vit_tpu_torch.ops.fused_attention_block import (  # noqa: E402
-    fused_attention_block, fused_attention_block_backward_reference,
-    fused_attention_block_bias, fused_attention_block_bias_backward,
-    fused_attention_block_forward_reference,
+    attention_lse_reference, attention_route, fused_attention_block,
+    fused_attention_block_backward_reference, fused_attention_block_bias,
+    fused_attention_block_bias_backward, fused_attention_block_forward_reference,
+    fused_attention_block_short_backward_reference,
+    fused_attention_block_short_forward_reference,
 )
 from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step  # noqa: E402
 
@@ -119,6 +121,45 @@ def test_biased_backward_outputs_match_jax_kernel(hb):
         t(dy), t(args[0]), t(np.array(qkv)), t(args[1]), t(args[3].T.copy()),
         t(args[4].T.copy()), t(bias), HEADS, DH, need_dbias=False)
     assert no_dbias[5] is None and torch.equal(no_dbias[0], got[0])
+
+
+# The biased block's short route (short_fwd / short_bwd with the bias, the
+# route of every biased block of at most 512 tokens) against the TPU kernel:
+# p = e / l normalised before P·V, p recomputed from the forward's lse, D =
+# rowsum(dO∘O) for dsum, dbias from (lse, D); in f32 one function with the TPU
+# kernel's, apart by f32 rounding.  n = 257 is the small-dataset ViT's (two
+# 144-key tiles on the card), 197 ViT-B/16's, 65 one past a 64-key tile.
+SHORT_BIAS_CASES = [(n, hb) for n in (65, 197, 257) for hb in (1, HEADS)]
+
+
+@pytest.mark.parametrize("n,hb", SHORT_BIAS_CASES)
+def test_short_route_biased_plain_versions_match_jax_kernel(n, hb):
+    """The short route's plain biased forward (y, xn, qkv, oattn, and its lse
+    against the log-sum-exp of the biased f32 logits) and backward (dx, dqkv,
+    dγ, dβ, dbo, dbias), fed JAX's saved projection and output, against
+    ``_forward`` and ``_backward(..., bias=)``: each within 1e-4 of its
+    max|JAX output|."""
+    assert attention_route(n) == "short"
+    args, bias, dy = _block_args(n, hb, seed=3)
+    x, gamma, beta, wqkv, wo, bo = map(jnp.asarray, args)
+    scale, jbias, t = DH ** -0.5, jnp.asarray(bias), torch.from_numpy
+    fwd = jax_attn._forward(x, gamma, beta, wqkv, wo, bo, HEADS, DH, scale, 1e-3, True,
+                            save_residuals=True, bias=jbias)
+    want = jax_attn._backward(jnp.asarray(dy), x, fwd[2], gamma, wqkv, wo, HEADS, DH, scale,
+                              1e-3, True, bias=jbias)
+    got = fused_attention_block_short_forward_reference(*_torch_layout(args), HEADS, DH, scale,
+                                                        1e-3, t(bias))
+    for name, g, w in zip(["y", "xn", "qkv", "oattn"], got, fwd):
+        assert _rel(g.numpy(), w) <= TOL, f"{name}: {_rel(g.numpy(), w)}"
+    qkv, oattn = t(np.array(fwd[2])), t(np.array(fwd[3]))
+    lse = attention_lse_reference(qkv, HEADS, DH, scale, t(bias))
+    assert _rel(got[4].numpy(), lse.numpy()) <= TOL
+    got = fused_attention_block_short_backward_reference(
+        t(dy), t(args[0]), qkv, oattn, lse, t(args[1]), t(args[3].T.copy()),
+        t(args[4].T.copy()), HEADS, DH, scale, 1e-3, t(bias))
+    for name, g, w in zip(["dx", "dqkv", "dgamma", "dbeta", "dbo", "dbias"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g.numpy(), w) <= TOL, f"{name}: {_rel(g.numpy(), w)}"
 
 
 def test_lsa_bias_at_n_one_past_a_key_tile_matches_jax():

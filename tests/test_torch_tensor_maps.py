@@ -189,16 +189,19 @@ def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
 
 
 ROUTES_BY_SHAPE = [(65, False, "short"), (197, False, "short"), (512, False, "short"),
-                   (513, False, "mha"), (600, False, "mha"), (65, True, "mha"),
-                   (257, True, "mha")]
+                   (513, False, "mha"), (600, False, "mha"), (65, True, "short"),
+                   (257, True, "short"), (512, True, "short"), (513, True, "mha")]
 
 
 @pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
 def test_backward_route_is_chosen_by_shape(n, biased, route):
-    """ViT-B/32's 65 and ViT-B/16's 197 tokens take short_fwd and short_bwd;
-    a bias (the small-dataset ViT's LSA at 257), or more than 512 tokens,
-    keeps mha_fwd and mha_bwd.  One function chooses for both directions."""
-    assert fab.attention_route(n, biased) == route
+    """ViT-B/32's 65, ViT-B/16's 197 and the small-dataset ViT's 257 tokens
+    (LSA's bias) take short_fwd and short_bwd, with or without a bias; more
+    than 512 tokens keep mha_fwd and mha_bwd.  One function chooses for both
+    directions, by the token count alone: it takes no bias, so a biased case
+    (``biased``, driven through both directions by
+    test_forward_and_backward_take_one_route) routes as its token count."""
+    assert fab.attention_route(n) == route
 
 
 class _RecordingLib:
@@ -242,7 +245,8 @@ def test_forward_and_backward_take_one_route(recording_lib, n, biased, route):
     the forward passes short_fwd's strides over the packed qkv and oattn and,
     in training only, an f32 (b, heads, n) lse, and the backward passes
     short_bwd's strides and that lse; on the mha route neither passes
-    strides, and no lse is kept.  Each direction counts its route."""
+    strides, and no lse is kept.  A bias goes with either route, in both
+    directions.  Each direction counts its route."""
     b, d, heads, dh = 2, 64, 2, 32
     inner = heads * dh
     x, dy = torch.zeros(b, n, d, dtype=BF16), torch.zeros(b, n, d, dtype=BF16)
@@ -266,18 +270,46 @@ def test_forward_and_backward_take_one_route(recording_lib, n, biased, route):
     if short:
         assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, heads, n)
         assert lse.is_contiguous()
-        fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3,
-                             oattn=oattn, lse=lse)
-    else:
-        fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias)
+    fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias,
+                         oattn=oattn, lse=lse)
     (bwd,) = recording_lib.calls["bwd"]
-    lse_ptr, strides = bwd[4], bwd[12]
-    assert (strides is not None) == short
+    lse_ptr, strides, bias_ptr = bwd[4], bwd[12], bwd[18]
+    assert (strides is not None) == short and bool(bias_ptr) == biased
     if short:
         assert lse_ptr == lse.data_ptr() and list(strides)[:12] == packed * 3 + [
             n * inner, dh, inner]
     assert [r[route].launches for r in (fab.FORWARD_ROUTES, fab.BACKWARD_ROUTES)] == \
         [counts[0] + 2, counts[1] + 1]
+
+
+@pytest.mark.parametrize("n,need_dbias", [(257, True), (257, False), (65, True), (600, True)])
+def test_biased_backward_passes_row_statistics_only_for_dbias(recording_lib, n, need_dbias):
+    """The biased backward passes the bias and its head count on either
+    route; an f32 (b, heads, n, 2) rowstat, where the short route's short_bwd
+    writes (lse, D) for the dbias pass, only when dbias is asked for there
+    (mha_bwd always takes it as scratch), with dbias (hb, n, n) f32 and its
+    parts."""
+    b, d, heads, dh = 2, 64, 2, 32
+    inner = heads * dh
+    x = torch.zeros(b, n, d, dtype=BF16)
+    g, bo = torch.ones(d, dtype=BF16), torch.zeros(d, dtype=BF16)
+    wqkv, wo = torch.zeros(3 * inner, d, dtype=BF16), torch.zeros(d, inner, dtype=BF16)
+    bias = torch.zeros(heads, n, n)
+    recording_lib.vit_attention_dbias_parts = lambda *args: 3
+    _, _, qkv, oattn, lse = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5,
+                                                1e-3, bias, training=True)
+    out = fab._launch_backward(x, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias,
+                               need_dbias, oattn=oattn, lse=lse)
+    (bwd,) = recording_lib.calls["bwd"]
+    short = fab.attention_route(n) == "short"
+    strides, rowstat, bias_ptr, hb, dbias_ptr = bwd[12], bwd[14], bwd[18], bwd[19], bwd[20]
+    assert (strides is not None) == short and (bias_ptr, hb) == (bias.data_ptr(), heads)
+    assert (rowstat is not None) == (need_dbias or not short)
+    assert (dbias_ptr is not None) == need_dbias
+    if need_dbias:
+        assert tuple(out[5].shape) == (heads, n, n) and out[5].dtype == torch.float32
+    else:
+        assert out[5] is None
 
 
 @pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32),

@@ -13,9 +13,10 @@ builds its own kernels, and runs
   fused MLP's and the attention block's serving forwards at ViT-B/16 (batch
   64) and bench.py's B/32 (batch 128), their training forwards and backwards
   at the same shapes, the biased block's forwards and backwards at the
-  small-dataset ViT's (LSA's mask, a shared and a per-head bias), and the
-  hybrid layer's ops at B/32 (the control: the same GEMM kernel, none of the
-  block kernels);
+  small-dataset ViT's (LSA's mask, a shared and a per-head bias), the
+  cross-attention block's forward and backward at ScalableViT's four SSA
+  shapes, and the hybrid layer's ops at B/32 (the control: the same GEMM
+  kernel, none of the block kernels);
 - train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px,
   ScalableViT at 256 px, the small-dataset ViT 256/16 and ViT-B/16 at 224 px,
   batch 64, and of ViT-B/32 at 256 px, batch 128, on rows 1-4 and on the
@@ -137,6 +138,7 @@ def child() -> dict:
     cs.backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
     cs.backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
     cs.biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
+    cs.cross_attention_phase(torch, results, smi)
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
     keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased")
     torch.cuda.empty_cache()

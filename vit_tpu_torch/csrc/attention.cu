@@ -17,8 +17,8 @@
 // compute dtype for the P·V product and the divide by the f32 row sum comes
 // after it (the TPU kernel's late divide).  n has no limit.  Ragged query rows
 // are computed on zeros and not stored.  The block takes it where
-// short_attention.cu's short_fwd does not: with a bias, or past 512 tokens
-// (fused_attention_block.cu).
+// short_attention.cu's short_fwd does not: past 512 tokens, with or without
+// a bias (fused_attention_block.cu).
 //
 // The bias, (1 | heads, n, n) f32, is read from device memory (L2) at the
 // point where the ragged-key mask is applied, one element per logit, and never

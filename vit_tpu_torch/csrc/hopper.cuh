@@ -200,6 +200,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[C][4]) {
 //       from shared memory.
 //   rs: A from registers (the mma.sync m16n8k16 A fragment of the warp's 16
 //       rows), B from shared memory MN-major (the transpose bit).
+//   rs_k (N 64 and 128): A from registers, B from shared memory K-major.
 template <int N, typename T>
 struct Wgmma;
 
@@ -287,6 +288,21 @@ struct Wgmma;
                      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
     } \
+    static __device__ __forceinline__ void rs_k(float (&d)[32], const uint32_t (&a)[4], \
+                                              uint64_t b) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                   "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+                     "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+                     "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+                     "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
+    } \
   };
 
 #define VIT_WGMMA_80(TY, PTX) \
@@ -361,6 +377,59 @@ struct Wgmma;
                      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
                      "+f"(d[62]), "+f"(d[63]) \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
+    } \
+    static __device__ __forceinline__ void rs_k(float (&d)[64], const uint32_t (&a)[4], \
+                                              uint64_t b) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+                   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+                   "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, " \
+                   "0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+                     "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+                     "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+                     "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+                     "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+                     "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+                     "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+                     "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+                     "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+                     "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+                     "+f"(d[62]), "+f"(d[63]) \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
+    } \
+  };
+
+#define VIT_WGMMA_144(TY, PTX) \
+  template <> struct Wgmma<144, TY> { \
+    static __device__ __forceinline__ void ss(float (&d)[72], uint64_t a, uint64_t b, \
+                                              int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n144k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+                   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+                   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+                   "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+                   "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+                   "%70, %71}, %72, %73, p, 1, 1, 0, 0;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+                     "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+                     "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+                     "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+                     "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+                     "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+                     "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+                     "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+                     "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+                     "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
     } \
   };
 
@@ -489,11 +558,13 @@ VIT_WGMMA_32(__nv_bfloat16, "bf16")
 VIT_WGMMA_64(__nv_bfloat16, "bf16")
 VIT_WGMMA_80(__nv_bfloat16, "bf16")
 VIT_WGMMA_128(__nv_bfloat16, "bf16")
+VIT_WGMMA_144(__nv_bfloat16, "bf16")
 VIT_WGMMA_208(__nv_bfloat16, "bf16")
 VIT_WGMMA_32(__half, "f16")
 VIT_WGMMA_64(__half, "f16")
 VIT_WGMMA_80(__half, "f16")
 VIT_WGMMA_128(__half, "f16")
+VIT_WGMMA_144(__half, "f16")
 VIT_WGMMA_208(__half, "f16")
 VIT_WGMMA_256(__nv_bfloat16, "bf16")
 VIT_WGMMA_256(__half, "f16")

@@ -185,21 +185,28 @@ cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void*
 // operands read through (batch, head, row) element strides: out (width d)
 // through its strides and, when `lse` is not null, lse (b, heads, n_q) f32
 // contiguous, from q, k and v; `strides` (host memory) holds those of q, k, v
-// and out (12 values).  n_q, n_k <= 512, d ∈ {32, 64, 128}.
+// and out (12 values).  n_q, n_k <= 512, d ∈ {32, 64, 128}.  `bias`, when not
+// null, is an f32 (hb, n_q, n_k) logits bias, hb 1 (shared by the heads) or
+// heads, added to the scaled logits.
 cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                              const long long* strides, int b, int heads, int n_q, int n_k, int d,
-                             float scale, int dtype, cudaStream_t stream);
+                             float scale, int dtype, cudaStream_t stream,
+                             const float* bias = nullptr, int hb = 0);
 
 // The short-attention backward (short_attention.cu) over (b, heads, n, d)
 // operands read through (batch, head, row) element strides: dq, dk, dv from
 // q, k, v, the forward's out and f32 lse (b, heads, n_q), and dout; `strides`
 // (host memory) holds those of q, k, v, out, dout, dq, dk, dv (24 values);
 // `dq_part` (short_attention_parts(n_k, d), b, heads, n_q, d) f32 scratch when
-// that is above 1, else null.  n_q, n_k <= 512, d ∈ {32, 64, 128}.
+// that is above 1, else null.  n_q, n_k <= 512, d ∈ {32, 64, 128}.  `bias` as
+// the forward's; with it, a non-null `rowstat` (b, heads, n_q, 2) f32
+// receives each query row's (lse, D = rowsum(dO∘O)), the row statistics
+// launch_mha_dbias reads.
 cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dq_part, const long long* strides, int b, int heads, int n_q,
-                             int n_k, int d, float scale, int dtype, cudaStream_t stream);
+                             int n_k, int d, float scale, int dtype, cudaStream_t stream,
+                             const float* bias = nullptr, int hb = 0, float* rowstat = nullptr);
 
 // Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
 // q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
@@ -217,9 +224,10 @@ cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float*
                            float scale, int dtype, cudaStream_t stream);
 
 // The bias gradient dbias (hb, n, n) f32 = Σ over images (and over heads when
-// hb == 1) of p·(dp - dsum), after launch_mha_bwd has filled `rowstat`, in a
-// fixed order: per-part sums into `partial` (mha_dbias_parts(...), hb, n, n)
-// f32 scratch, then the parts added in order.
+// hb == 1) of p·(dp - dsum), after launch_mha_bwd (dsum = Σ dp·p) or
+// launch_short_bwd (D = rowsum(dO∘O)) has filled `rowstat`, in a fixed order:
+// per-part sums into `partial` (mha_dbias_parts(...), hb, n, n) f32 scratch,
+// then the parts added in order.
 cudaError_t launch_mha_dbias(const void* qkv, const void* dout, const float* rowstat,
                              const float* bias, int hb, float* partial, float* dbias, int b,
                              int n, int heads, int dim_head, float scale, int dtype,

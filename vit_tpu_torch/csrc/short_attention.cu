@@ -86,9 +86,21 @@ constexpr int kMaxSeq = 512;
 constexpr int kFwdStages = 2;  // depth of the forward's TMA ring
 // Key rows and query rows of the wgmma backward's tiles (short_bwd_wg_kernel).
 constexpr int kWgKeys = 256, kWgRows = 64;
+// The key tile (forward) and key block (backward) of rows of 257 to 288 keys:
+// two balanced halves, a multiple of 16 (the k16 chunks of p·v).
+constexpr int kSplitKeys = 144;
 
 struct Strides {
   long long b, h, r;
+};
+
+// An f32 logits bias (hb, n_q, n_k), hb 1 (shared by the heads: hstride 0) or
+// heads (hstride n_q·n_k), added to the scaled logits before the row max and
+// in the backward's recomputed p; read from device memory (L2) at the point
+// of the fragment element it joins.  `p` is null when the instance has none.
+struct Bias {
+  const float* p;
+  long long hstride;
 };
 
 template <typename P>
@@ -112,12 +124,21 @@ constexpr int fwd_smem_bytes() {
 // kept in registers), p = exp(s - m) / l, o += T(p)·v with p the register A
 // operand and v MN-major.  Thread 0 refills a
 // stage once every thread has released it.
-template <typename T, int D, int BK>
+// With a bias (BIAS) the kernel takes one pass over `tiles` items of K and V,
+// so the f32 bias, the bytes that a second pass would read again (4.7 MB a
+// head-image block's worth at the small-dataset ViT's 257 keys), is read once:
+// per tile s (+ bias) and its row max, the running max m and sum l with o
+// rescaled as m grows, o += T(exp(s - m))·v, and o / l after the last tile.
+// That is the TPU kernel's rounding (the unnormalised probabilities rounded
+// for P·V, the row sum divided after, fused_attention_block.py:146-154), with
+// the flash forward's running max where a row's max lies past its first tile.
+template <typename T, int D, int BK, bool BIAS>
 __global__ void __launch_bounds__(256, 1)
     short_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, T* __restrict__ out, Strides os,
-                     float* __restrict__ lse, int heads, int n_q, int n_k, float scale) {
+                     float* __restrict__ lse, Bias bias, int heads, int n_q, int n_k,
+                     float scale) {
   using QTile = hopper::Tile<128, D>;
   using KTile = hopper::Tile<BK, D>;
   constexpr int S = kFwdStages;
@@ -131,11 +152,12 @@ __global__ void __launch_bounds__(256, 1)
 
   const int wgs = blockDim.x / 128, q0 = blockIdx.x * 64 * wgs, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
-  // One tile of keys (n_k <= BK) is one item, K and V, that both passes read.
-  const int tiles = (n_k + BK - 1) / BK, items = tiles == 1 ? 1 : 2 * tiles;
+  // One tile of keys (n_k <= BK) is one item, K and V, that both passes read;
+  // with a bias every item is a tile's K and V, read by the one pass.
+  const int tiles = (n_k + BK - 1) / BK, items = tiles == 1 ? 1 : BIAS ? tiles : 2 * tiles;
   auto load_item = [&](int i) {
     const int s = i % S, r = (i % tiles) * BK;
-    const bool with_v = i >= tiles || items == 1;
+    const bool with_v = BIAS || i >= tiles || items == 1;
     hopper::mbar_expect_tx(&full[s], KTile::kBytes * (with_v ? 2 : 1));
     KTile::load(ks + s * KTile::kBytes, 0, &k_map, &full[s], r, h, b);
     if (with_v) KTile::load(vs + s * KTile::kBytes, 0, &v_map, &full[s], r, h, b);
@@ -162,7 +184,17 @@ __global__ void __launch_bounds__(256, 1)
     for (int i = 0; i < S && i < items; ++i) load_item(i);
   }
 
-  // s = (q·kᵀ)·scale of ring item i into sc (keys past n_k: -inf).
+  // The bias rows of the thread's two query rows (a row past n_q reads row
+  // n_q - 1's: its results are never stored).
+  const float* brow[2];
+  if constexpr (BIAS) {
+    const int row = q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bias.p + h * bias.hstride + (size_t)min(row + 8 * r, n_q - 1) * n_k;
+  }
+
+  // s = (q·kᵀ)·scale (+ bias) of ring item i into sc (keys past n_k: -inf).
   float sc[BK / 2];
   auto scores = [&](int i) {
     const unsigned char* k_t = ks + (i % S) * KTile::kBytes;
@@ -181,86 +213,148 @@ __global__ void __launch_bounds__(256, 1)
       for (int e = 0; e < 4; ++e) {
         const int key = (i % tiles) * BK + 8 * j + 2 * t + (e & 1);
         sc[4 * j + e] = key < n_k ? sc[4 * j + e] * scale : -INFINITY;
+        if constexpr (BIAS)
+          if (key < n_k) sc[4 * j + e] += __ldg(brow[e / 2] + key);
       }
   };
 
-  // Pass 1: rows g and g + 8 of the warp's 16: max m and this thread's share of
-  // l = Σ exp(s - m), rescaled as m grows (every tile holds a key: m is finite).
-  // expf, as the plain version takes it: p is rounded to the operand dtype, and
-  // a cheaper exponential (ex2.approx of a product with log2 e) moved that
-  // rounding enough to flip top-1s of the hybrid B/32 model's random logits.
-  // With one tile, m is final before the sum: sc keeps exp(s - m) for pass 2,
-  // and l is the plain version's sum in another order.
+  // The output and lse of the thread's rows, once o is final.
+  auto finish = [&](const float (&o)[D / 2], const float (&m)[2], const float (&l)[2]) {
+    hopper::store_fragment<T, D>(head_base(out, os, b, h), os.r, q0 + 64 * wg, n_q, o, lt);
+    if (lse && t == 0) {
+      const int row = q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row + 8 * r < n_q)
+          lse[((size_t)b * heads + h) * n_q + row + 8 * r] = m[r] + logf(l[r]);
+    }
+  };
+
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   hopper::mbar_wait(q_bar, 0);
-  for (int i = 0; i < tiles; ++i) {
-    scores(i);
-    if (items > 1) release(i);
-    float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (BIAS) {
+    // One pass: rows g and g + 8 of the warp's 16; m and this thread's share
+    // of l as pass 1 keeps them, o rescaled with l.
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2)), m[r]);
-      l[r] *= expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
-        l[e / 2] += sc[4 * j + e];
-      }
-  }
-  float inv_l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    inv_l[r] = 1.f / l[r];
-  }
-
-  // Pass 2: o += T(p)·v with p = exp(s - m) / l (times 1 / l: within one f32 unit).
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  for (int i = tiles; i < 2 * tiles; ++i) {
-    const int it = items == 1 ? 0 : i;
-    if (items > 1) {
-      scores(it);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < tiles; ++i) {
+      scores(i);
+      float mx[2] = {-INFINITY, -INFINITY}, alpha[2];
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2)), m[r]);
+        alpha[r] = expf(m[r] - mx[r]);  // 0 at the first tile (m = -inf, mx finite)
+        l[r] *= alpha[r];
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+          l[e / 2] += sc[4 * j + e];
+        }
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
+      const unsigned char* v_t = vs + (i % S) * KTile::kBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c)
+        hopper::Wgmma<D, T>::rs(o, pa[c], KTile::mnmajor(v_t, 16 * c));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      release(i);
     }
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[4 * j + e] *= inv_l[e / 2];
-    uint32_t pa[BK / 16][4];
+    for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
-    const unsigned char* v_t = vs + (it % S) * KTile::kBytes;
-    hopper::wgmma_fence();
+      for (int e = 0; e < 4; ++e) o[4 * j + e] = o[4 * j + e] / l[e / 2];
+    finish(o, m, l);
+  } else {
+    // Pass 1: rows g and g + 8 of the warp's 16: max m and this thread's share of
+    // l = Σ exp(s - m), rescaled as m grows (every tile holds a key: m is finite).
+    // expf, as the plain version takes it: p is rounded to the operand dtype, and
+    // a cheaper exponential (ex2.approx of a product with log2 e) moved that
+    // rounding enough to flip top-1s of the hybrid B/32 model's random logits.
+    // With one tile, m is final before the sum: sc keeps exp(s - m) for pass 2,
+    // and l is the plain version's sum in another order.
+    for (int i = 0; i < tiles; ++i) {
+      scores(i);
+      if (items > 1) release(i);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < BK / 16; ++c)
-      hopper::Wgmma<D, T>::rs(o, pa[c], KTile::mnmajor(v_t, 16 * c));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
-    hopper::fence_regs(pa);
-    release(it);
-  }
-  hopper::store_fragment<T, D>(head_base(out, os, b, h), os.r, q0 + 64 * wg, n_q, o, lt);
-  if (lse && t == 0) {
-    const int row = q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row + 8 * r < n_q)
-        lse[((size_t)b * heads + h) * n_q + row + 8 * r] = m[r] + logf(l[r]);
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2)), m[r]);
+        l[r] *= expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+          l[e / 2] += sc[4 * j + e];
+        }
+    }
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv_l[r] = 1.f / l[r];
+    }
+
+    // Pass 2: o += T(p)·v with p = exp(s - m) / l (times 1 / l: within one f32 unit).
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = tiles; i < 2 * tiles; ++i) {
+      const int it = items == 1 ? 0 : i;
+      if (items > 1) {
+        scores(it);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * j + e] = expf(sc[4 * j + e] - m[e / 2]);
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * j + e] *= inv_l[e / 2];
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c) hopper::a_fragment<T>(pa[c], sc, c);
+      const unsigned char* v_t = vs + (it % S) * KTile::kBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BK / 16; ++c)
+        hopper::Wgmma<D, T>::rs(o, pa[c], KTile::mnmajor(v_t, 16 * c));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      release(it);
+    }
+    finish(o, m, l);
   }
 }
 
@@ -268,11 +362,14 @@ __global__ void __launch_bounds__(256, 1)
 
 // Keys of a backward CTA at n_k keys and width d: the whole row where one CTA
 // holds it (64, 80 or 128 keys on mma.sync, 256 on wgmma at d <= 64), else
-// 128-key blocks whose dq shares are summed by short_dq_sum.
+// blocks whose dq shares are summed by short_dq_sum: two of 144 keys from 257
+// to 288 (the small-dataset ViT's 257: 128-key blocks would leave the third
+// CTA's whole query loop to one key), 128 past them.
 int bwd_key_block(int n_k, int d) {
   if (n_k <= 64) return 64;
   if (n_k <= 80) return 80;
   if (d <= 64 && n_k > 128 && n_k <= kWgKeys) return kWgKeys;
+  if (n_k > 256 && n_k <= 2 * kSplitKeys) return kSplitKeys;
   return 128;
 }
 
@@ -402,7 +499,7 @@ __device__ __forceinline__ void mma_dq(float (&acc)[DC / 8][4], T (*Ps)[BK + 8],
 // scale (keys past n_k and queries past n_q: 0); dv += T(pᵀ)·dO, dk +=
 // T(dsᵀ)·q; T(ds) to shared memory query-major; dq = T(ds)·k over the block's
 // keys, split over the warps.
-template <typename T, int D, int BK, int QT>
+template <typename T, int D, int BK, int QT, bool BIAS>
 __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ? 2 : 1)
     short_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -410,8 +507,9 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
                      const __grid_constant__ CUtensorMap o_map,
                      const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                      T* __restrict__ dq, Strides dqs, float* __restrict__ dq_part,
-                     T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs, int batch,
-                     int heads, int n_q, int n_k, float scale, int stages) {
+                     T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs, Bias bias,
+                     float2* __restrict__ rowstat, int batch, int heads, int n_q, int n_k,
+                     float scale, int stages) {
   constexpr int W = BK / 16, RG = QT / 16, CG = dq_col_groups<RG, W, D>(), DC = D / CG;
   constexpr int TPR = d_threads<32 * W / QT, D / 8>();  // threads of a row of D
   using KTile = hopper::Tile<BK, D>;
@@ -453,6 +551,7 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
   const uint32_t k_at = smem_addr(ks), v_at = smem_addr(vs);
   const int r0 = (warp % RG) * 16, c0 = (warp / RG) * DC;  // the warp's share of dq's tile
   const size_t row0 = ((size_t)b * heads + h) * n_q;
+  const float* bias_h = BIAS ? bias.p + h * bias.hstride : nullptr;
   static_assert(32 * W / TPR >= QT, "one pass of the D rows covers a step");
   const int dr = tid / TPR;  // the thread's row of D
   float lse_next = dr < QT && dr < n_q ? lse[row0 + dr] : 0.f;
@@ -488,6 +587,9 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
 #pragma unroll
       for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
       if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
+      if constexpr (BIAS)  // (lse, D) for dbias, written by the first key block
+        if (rowstat && blockIdx.x == 0 && tid % TPR == 0 && i0 + r < n_q)
+          rowstat[row0 + i0 + r] = make_float2(lse_r, acc);
     }
     __syncthreads();  // st is complete; the previous step's reads of Ps are done
 
@@ -506,8 +608,13 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
           const int qi = c0q + j * 8 + 2 * t + (e & 1);
           const int key = j0 + a0 + g + (e / 2) * 8;
           const float2 rs = st[qi];
-          const float p =
-              i0 + qi < n_q && key < n_k ? expf(s[j][e] * scale - rs.x) : 0.f;  // masked: 0
+          float p;
+          if constexpr (BIAS)
+            p = i0 + qi < n_q && key < n_k
+                    ? expf(s[j][e] * scale + __ldg(bias_h + (size_t)(i0 + qi) * n_k + key) - rs.x)
+                    : 0.f;
+          else
+            p = i0 + qi < n_q && key < n_k ? expf(s[j][e] * scale - rs.x) : 0.f;  // masked: 0
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - rs.y) * scale;  // dsᵀ
           Ps[qi][a0 + g + (e / 2) * 8] = Num<T>::from_f(dp[j][e]);
@@ -561,7 +668,7 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
 // waits for its first tiles.  The same function and rounding points as
 // short_bwd_kernel; each B operand is read once a warpgroup from shared
 // memory, where thirteen mma.sync warps would each read it.
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(512, 1)
     short_bwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -570,7 +677,8 @@ __global__ void __launch_bounds__(512, 1)
                         const __grid_constant__ CUtensorMap do_map,
                         const float* __restrict__ lse, T* __restrict__ dq, Strides dqs,
                         T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs,
-                        int heads, int pairs, int n_q, int n_k, float scale) {
+                        Bias bias, float2* __restrict__ rowstat, int heads, int pairs, int n_q,
+                        int n_k, float scale) {
   constexpr int BK = kWgKeys, QT = kWgRows, NQ = 32, S = 2;
   constexpr int TPR = d_threads<512 / QT, D / 8>();
   using KTile = hopper::Tile<BK, D>;
@@ -623,6 +731,7 @@ __global__ void __launch_bounds__(512, 1)
   const int dr = tid / TPR;  // the thread's row of D
   for (int k = 0; k < mine; ++k) {
     const int pi = pair_of(k), h = pi % heads, b = pi / heads;
+    const float* bias_h = BIAS ? bias.p + h * bias.hstride : nullptr;
     const unsigned char* ks = kv + (k % 2) * 2 * KTile::kBytes;
     const unsigned char* vs = ks + KTile::kBytes;
     float dk_acc[D / 2], dv_acc[D / 2];
@@ -652,6 +761,9 @@ __global__ void __launch_bounds__(512, 1)
 #pragma unroll
         for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
+        if constexpr (BIAS)  // (lse, D) for dbias
+          if (rowstat && tid % TPR == 0 && i0 + r < n_q)
+            rowstat[(size_t)pi * n_q + i0 + r] = make_float2(lse_r, acc);
       }
       // st is complete; the previous step's reads of T(ds) (and at a pair's
       // first step, every read of the previous pair's K and V) are done.
@@ -680,8 +792,14 @@ __global__ void __launch_bounds__(512, 1)
           for (int e = 0; e < 4; ++e) {
             const int qi = c0q + 8 * j + 2 * t + (e & 1), key = 64 * wg + fr + 8 * (e / 2);
             const float2 rs = st[qi];
-            const float p =
-                i0 + qi < n_q && key < n_k ? expf(s[4 * j + e] * scale - rs.x) : 0.f;
+            float p;
+            if constexpr (BIAS)
+              p = i0 + qi < n_q && key < n_k
+                      ? expf(s[4 * j + e] * scale +
+                             __ldg(bias_h + (size_t)(i0 + qi) * n_k + key) - rs.x)
+                      : 0.f;
+            else
+              p = i0 + qi < n_q && key < n_k ? expf(s[4 * j + e] * scale - rs.x) : 0.f;
             s[4 * j + e] = p;
             dp[4 * j + e] = p * (dp[4 * j + e] - rs.y) * scale;  // dsᵀ
             const uint32_t off = qi * 128 + (key % 64) * 2;
@@ -755,14 +873,18 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int D, int BK>
-cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse,
+Bias bias_of(const float* bias, int hb, int n_q, int n_k) {
+  return Bias{bias, hb == 1 ? 0 : (long long)n_q * n_k};
+}
+
+template <typename T, int D, int BK, bool BIAS>
+cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse, Bias bias,
                   const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
   constexpr int bytes = fwd_smem_bytes<D, BK>(), dt = hopper::dtype_of<T>();
   constexpr int c = hopper::Tile<64, D>::kChunk;
   thread_local int ready = -1;
-  cudaError_t err = prepare_kernel(ready, short_fwd_kernel<T, D, BK>, bytes);
+  cudaError_t err = prepare_kernel(ready, short_fwd_kernel<T, D, BK, BIAS>, bytes);
   CUtensorMap q_map, k_map, v_map;
   if (err == cudaSuccess) err = head_map(&q_map, q, dt, D, n_q, heads, b, st, c, 64);
   if (err == cudaSuccess) err = head_map(&k_map, k, dt, D, n_k, heads, b, st + 3, c, BK);
@@ -770,16 +892,17 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float*
   if (err != cudaSuccess) return err;
   const int wgs = n_q > 64 ? 2 : 1;
   dim3 grid((n_q + 64 * wgs - 1) / (64 * wgs), heads, b);
-  short_fwd_kernel<T, D, BK><<<grid, 128 * wgs, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, heads, n_q, n_k, scale);
+  short_fwd_kernel<T, D, BK, BIAS><<<grid, 128 * wgs, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, bias, heads, n_q, n_k,
+      scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool BIAS>
 cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                  float* dq_part, const long long* st, int b, int heads, int n_q, int n_k,
-                  float scale, cudaStream_t stream) {
+                  float* dq_part, Bias bias, float2* rowstat, const long long* st, int b,
+                  int heads, int n_q, int n_k, float scale, cudaStream_t stream) {
   constexpr int QT = bwd_rows<BK>(), dt = hopper::dtype_of<T>();
   constexpr int c = hopper::Tile<BK, D>::kChunk;
   const int steps = (n_q + QT - 1) / QT, stages = steps > 1 ? 2 : 1;
@@ -787,7 +910,7 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
   if (parts > 1 && !dq_part) return cudaErrorInvalidValue;
   float* part = parts > 1 ? dq_part : nullptr;
   thread_local int ready = -1;
-  cudaError_t err = prepare_kernel(ready, short_bwd_kernel<T, D, BK, QT>,
+  cudaError_t err = prepare_kernel(ready, short_bwd_kernel<T, D, BK, QT, BIAS>,
                                    bwd_smem_bytes<D, BK, QT>(2));
   // A map needs a row; with no query rows none is read.
   const int nq = n_q > 0 ? n_q : 1;
@@ -799,11 +922,11 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
   if (err == cudaSuccess) err = head_map(&do_map, dout, dt, D, nq, heads, b, st + 12, c, QT);
   if (err != cudaSuccess) return err;
   const Strides dqs = strides_at(st, 5);
-  short_bwd_kernel<T, D, BK, QT><<<dim3(parts, heads, b), 2 * BK,
-                                   bwd_smem_bytes<D, BK, QT>(stages), stream>>>(
+  short_bwd_kernel<T, D, BK, QT, BIAS><<<dim3(parts, heads, b), 2 * BK,
+                                         bwd_smem_bytes<D, BK, QT>(stages), stream>>>(
       q_map, k_map, v_map, o_map, do_map, lse, static_cast<T*>(dq), dqs, part,
-      static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), b, heads,
-      n_q, n_k, scale, stages);
+      static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), bias,
+      rowstat, b, heads, n_q, n_k, scale, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || !part || n_q == 0) return err;
   const long long pairs = (long long)b * heads * n_q * D / 2;
@@ -813,18 +936,18 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
 }
 
 // short_bwd_wg_kernel: one persistent CTA per SM, at most one per (head, image).
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 cudaError_t bwd_wg_t(const void* q, const void* k, const void* v, const void* out,
-                     const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                     const long long* st, int b, int heads, int n_q, int n_k, float scale,
-                     cudaStream_t stream) {
+                     const float* lse, const void* dout, void* dq, void* dk, void* dv, Bias bias,
+                     float2* rowstat, const long long* st, int b, int heads, int n_q, int n_k,
+                     float scale, cudaStream_t stream) {
   constexpr int BK = kWgKeys, QT = kWgRows, dt = hopper::dtype_of<T>();
   constexpr int c = hopper::Tile<BK, D>::kChunk;
   constexpr int bytes = 4 * hopper::Tile<BK, D>::kBytes + 2 * 3 * hopper::Tile<QT, D>::kBytes +
                         (BK / 64) * hopper::Tile<QT, 64>::kBytes + QT * 8 + 4 * 8 + 1024;
   static_assert(bytes <= 232448, "more shared memory than a CTA may have");
   thread_local int ready = -1;
-  cudaError_t err = prepare_kernel(ready, short_bwd_wg_kernel<T, D>, bytes);
+  cudaError_t err = prepare_kernel(ready, short_bwd_wg_kernel<T, D, BIAS>, bytes);
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -837,29 +960,30 @@ cudaError_t bwd_wg_t(const void* q, const void* k, const void* v, const void* ou
   if (err == cudaSuccess) err = head_map(&do_map, dout, dt, D, nq, heads, b, st + 12, c, QT);
   if (err != cudaSuccess) return err;
   const int pairs = b * heads;
-  short_bwd_wg_kernel<T, D><<<pairs < sms ? pairs : sms, 512, bytes, stream>>>(
+  short_bwd_wg_kernel<T, D, BIAS><<<pairs < sms ? pairs : sms, 512, bytes, stream>>>(
       q_map, k_map, v_map, o_map, do_map, lse, static_cast<T*>(dq), strides_at(st, 5),
-      static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), heads,
-      pairs, n_q, n_k, scale);
+      static_cast<T*>(dk), strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), bias,
+      rowstat, heads, pairs, n_q, n_k, scale);
   return cudaGetLastError();
 }
 
 // The backward at the key block bwd_key_block picks.
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 cudaError_t bwd_tiles(const void* q, const void* k, const void* v, const void* out,
                       const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                      float* dq_part, const long long* st, int b, int heads, int n_q, int n_k,
-                      float scale, cudaStream_t stream) {
-#define VIT_SHORT_BWD_TILE(BK)                                                              \
-  return bwd_t<T, D, BK>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, st, b, heads, n_q, n_k, \
-                         scale, stream)
+                      float* dq_part, Bias bias, float2* rowstat, const long long* st, int b,
+                      int heads, int n_q, int n_k, float scale, cudaStream_t stream) {
+#define VIT_SHORT_BWD_TILE(BK)                                                                \
+  return bwd_t<T, D, BK, BIAS>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, bias, rowstat, st, \
+                               b, heads, n_q, n_k, scale, stream)
   switch (bwd_key_block(n_k, D)) {
     case 64: VIT_SHORT_BWD_TILE(64);
     case 80: VIT_SHORT_BWD_TILE(80);
+    case kSplitKeys: VIT_SHORT_BWD_TILE(kSplitKeys);
     case kWgKeys:
       if constexpr (D <= 64)
-        return bwd_wg_t<T, D>(q, k, v, out, lse, dout, dq, dk, dv, st, b, heads, n_q, n_k, scale,
-                              stream);
+        return bwd_wg_t<T, D, BIAS>(q, k, v, out, lse, dout, dq, dk, dv, bias, rowstat, st, b,
+                                    heads, n_q, n_k, scale, stream);
       break;
   }
   VIT_SHORT_BWD_TILE(128);
@@ -877,26 +1001,35 @@ bool shape_ok(int b, int heads, int n_q, int n_k, int d) {
 // one step, whose exponentials stay in registers for p·v: 64 or 80 keys (the
 // hybrid tier's n = 65 computes on 15 padding keys, not 63), 128, or 208 at
 // d <= 64 (ViT-B/16's 197; at d = 128, o leaves no room for s).  Longer rows
-// take 128-key steps.
-template <typename T, int D>
+// take two passes over key tiles: two of 144 keys from 257 to 288 (the
+// small-dataset ViT's 257, where 128-key tiles would take a third tile for one
+// key), 128-key tiles otherwise.
+template <typename T, int D, bool BIAS>
 cudaError_t fwd_tiles(const void* q, const void* k, const void* v, void* out, float* lse,
-                      const long long* st, int b, int heads, int n_q, int n_k, float scale,
-                      cudaStream_t stream) {
-  if (n_k <= 64) return fwd_t<T, D, 64>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
-  if (n_k <= 80) return fwd_t<T, D, 80>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+                      Bias bias, const long long* st, int b, int heads, int n_q, int n_k,
+                      float scale, cudaStream_t stream) {
+#define VIT_SHORT_FWD_TILE(BK) \
+  return fwd_t<T, D, BK, BIAS>(q, k, v, out, lse, bias, st, b, heads, n_q, n_k, scale, stream)
+  if (n_k <= 64) VIT_SHORT_FWD_TILE(64);
+  if (n_k <= 80) VIT_SHORT_FWD_TILE(80);
   if constexpr (D <= 64) {
-    if (n_k > 128 && n_k <= 208)
-      return fwd_t<T, D, 208>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+    if (n_k > 128 && n_k <= 208) VIT_SHORT_FWD_TILE(208);
   }
-  return fwd_t<T, D, 128>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+  if (n_k > 256 && n_k <= 2 * kSplitKeys) VIT_SHORT_FWD_TILE(kSplitKeys);
+  VIT_SHORT_FWD_TILE(128);
+#undef VIT_SHORT_FWD_TILE
 }
 
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
-                         const long long* st, int b, int heads, int n_q, int n_k, int d,
-                         float scale, cudaStream_t stream) {
-#define VIT_SHORT_FWD(D)                                                                   \
-  if (d == D) return fwd_tiles<T, D>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
+                         Bias bias, const long long* st, int b, int heads, int n_q, int n_k,
+                         int d, float scale, cudaStream_t stream) {
+#define VIT_SHORT_FWD(D)                                                                       \
+  if (d == D)                                                                                  \
+    return bias.p ? fwd_tiles<T, D, true>(q, k, v, out, lse, bias, st, b, heads, n_q, n_k,     \
+                                          scale, stream)                                       \
+                  : fwd_tiles<T, D, false>(q, k, v, out, lse, bias, st, b, heads, n_q, n_k,    \
+                                           scale, stream);
   VIT_SHORT_WIDTHS(VIT_SHORT_FWD)
 #undef VIT_SHORT_FWD
   return cudaErrorInvalidValue;
@@ -905,12 +1038,14 @@ cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void* out,
                          const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                         float* dq_part, const long long* st, int b, int heads, int n_q, int n_k,
-                         int d, float scale, cudaStream_t stream) {
-#define VIT_SHORT_BWD(D)                                                                   \
-  if (d == D)                                                                              \
-    return bwd_tiles<T, D>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, st, b, heads, n_q, \
-                           n_k, scale, stream);
+                         float* dq_part, Bias bias, float2* rowstat, const long long* st, int b,
+                         int heads, int n_q, int n_k, int d, float scale, cudaStream_t stream) {
+#define VIT_SHORT_BWD(D)                                                                       \
+  if (d == D)                                                                                  \
+    return bias.p ? bwd_tiles<T, D, true>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, bias,  \
+                                          rowstat, st, b, heads, n_q, n_k, scale, stream)      \
+                  : bwd_tiles<T, D, false>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, bias, \
+                                           nullptr, st, b, heads, n_q, n_k, scale, stream);
   VIT_SHORT_WIDTHS(VIT_SHORT_BWD)
 #undef VIT_SHORT_BWD
   return cudaErrorInvalidValue;
@@ -920,14 +1055,17 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void
 
 cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                              const long long* strides, int b, int heads, int n_q, int n_k, int d,
-                             float scale, int dtype, cudaStream_t stream) {
-  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
+                             float scale, int dtype, cudaStream_t stream, const float* bias,
+                             int hb) {
+  if (!shape_ok(b, heads, n_q, n_k, d) || (bias && hb != 1 && hb != heads))
+    return cudaErrorInvalidValue;
   if (b == 0 || n_q == 0) return cudaSuccess;
+  const Bias bs = bias_of(bias, hb, n_q, n_k);
   if (dtype == kBF16)
-    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d,
+    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, bs, strides, b, heads, n_q, n_k, d,
                                        scale, stream);
   if (dtype == kF16)
-    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, d, scale,
+    return fwd_dispatch<__half>(q, k, v, out, lse, bs, strides, b, heads, n_q, n_k, d, scale,
                                 stream);
   return cudaErrorInvalidValue;
 }
@@ -935,15 +1073,19 @@ cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* 
 cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dq_part, const long long* strides, int b, int heads, int n_q,
-                             int n_k, int d, float scale, int dtype, cudaStream_t stream) {
-  if (!shape_ok(b, heads, n_q, n_k, d)) return cudaErrorInvalidValue;
+                             int n_k, int d, float scale, int dtype, cudaStream_t stream,
+                             const float* bias, int hb, float* rowstat) {
+  if (!shape_ok(b, heads, n_q, n_k, d) || (bias && hb != 1 && hb != heads) || (rowstat && !bias))
+    return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
+  const Bias bs = bias_of(bias, hb, n_q, n_k);
+  float2* rs = reinterpret_cast<float2*>(rowstat);
   if (dtype == kBF16)
-    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b,
-                                       heads, n_q, n_k, d, scale, stream);
+    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, bs, rs,
+                                       strides, b, heads, n_q, n_k, d, scale, stream);
   if (dtype == kF16)
-    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, strides, b, heads,
-                                n_q, n_k, d, scale, stream);
+    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dq_part, bs, rs, strides, b,
+                                heads, n_q, n_k, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 

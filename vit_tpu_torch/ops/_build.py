@@ -92,7 +92,8 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "vit_fused_cross_attention_fwd": (
-        # x, xn, wq, k, v, wo, bo, y, q, oattn, lse,
+        # x, xn, wq, k, v, wo, bo, y, q, oattn and lse (q and lse null when
+        # serving, oattn too on route 1 of vit_fused_cross_attention_fused),
         [_P] * 11
         # b, n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream
         + [_I] * 7 + [_F, _I, _P],
@@ -149,6 +150,9 @@ SIGNATURES = {
         [_P] * 18 + [_I] * 4 + [_F, _I, _P],
         ctypes.c_int,
     ),
+    # The cross-attention forward's route at (b, n, n_k, c, heads, dh_k, dh_v):
+    # 1 the one cross_fwd kernel, 2 cross_fwd and a GEMM for y, 0 three launches.
+    "vit_fused_cross_attention_fused": ([_I] * 7, ctypes.c_int),
     # Key blocks of the short-attention backward at n_k keys and width d (its
     # dq_part).
     "vit_short_attention_parts": ([_I, _I], ctypes.c_int),

@@ -16,15 +16,17 @@ plain PyTorch versions, :func:`fused_attention_block_forward_reference` and
 (:func:`fused_attention_block_bias`) counts its launches apart from the
 unbiased one.
 
-The attention middle takes one of two routes, by shape, the same in both
-directions (:func:`attention_route`, counted in ``FORWARD_ROUTES`` and
-``BACKWARD_ROUTES``): without a bias and at n ≤ 512, ``short_fwd`` and
+The attention middle takes one of two routes, by shape alone, the same in
+both directions (:func:`attention_route`, counted in ``FORWARD_ROUTES`` and
+``BACKWARD_ROUTES``): at n ≤ 512, with or without a bias, ``short_fwd`` and
 ``short_bwd`` of ``csrc/short_attention.cu`` over strided views of the packed
-qkv (:func:`short_forward_views`, :func:`short_route_views`), the training
-forward keeping the lse the backward reads (their plain versions
+qkv (:func:`short_forward_views`, :func:`short_route_views`), the bias read
+into their score fragments, the training forward keeping the lse the
+backward reads, and dbias from the row statistics (lse, D) ``short_bwd``
+writes (their plain versions
 :func:`fused_attention_block_short_forward_reference` and
-:func:`fused_attention_block_short_backward_reference`); with a bias, or
-longer rows, ``mha_fwd`` and ``mha_bwd`` of ``csrc/attention.cu``.
+:func:`fused_attention_block_short_backward_reference`); past 512 tokens,
+``mha_fwd`` and ``mha_bwd`` of ``csrc/attention.cu``.
 
 What bounds it on the H100: at ViT-B/16, batch 64 (12,608 rows, d=768,
 12 heads of 64) the QKV and output GEMMs are about 59.5 GFLOP per block and
@@ -43,13 +45,14 @@ two-pass variance), xn rounded to the compute dtype; qkv rounded before the
 attention; logits in f32, ``scale`` applied to the f32 logits; on the mha
 route the probabilities rounded to the compute dtype for P·V and divided by
 the f32 row sum afterwards (the TPU kernel's late divide), on the short route
-``p = e / l`` rounded before P·V (``short_attention``'s); the attention
+``p = e / l`` rounded before P·V (``short_attention``'s) without a bias and
+the late divide with one; the attention
 output rounded before the out-projection; the residual adds in the compute
 dtype.  In f32 the two routes compute one function.  Backward: ``doattn``
 rounded; p recomputed in f32; ``dsum = Σ dp·p`` from the f32 p and dp (not
 from the rounded output); ``T(p)`` for dv and ``ds = T(p·(dp - dsum)·scale)``
 for dq and dk, each rounded; the qkv dgrad ``dxn`` kept in f32; dγ, dβ and dbo
-summed in f32.  The short route takes ``p = exp(s·scale - lse)`` from the
+summed in f32.  The short route takes ``p = exp(s·scale + bias - lse)`` from the
 forward's f32 lse and ``D = rowsum(dO∘O)`` from the stored, rounded attention
 output in place of dsum: the same quantity in exact arithmetic, apart by O's
 rounding in bf16.  The TPU padded odd token counts on the host and masked with
@@ -58,7 +61,8 @@ rounding in bf16.  The TPU padded odd token counts on the host and masked with
 f32 to the scaled f32 logits before the row max, in the forward and in the
 backward's recomputed softmax; its gradient ``dbias`` is the f32 sum over the
 batch (and over the heads when hb = 1) of ``p·(dp - dsum)``, taken before
-the scale, computed only when asked for.
+the scale (on the short route with ``D`` for dsum), computed only when asked
+for.
 """
 
 from __future__ import annotations
@@ -85,15 +89,18 @@ FORWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(l
 BACKWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
 
 
-def attention_route(n: int, biased: bool) -> str:
-    """The attention middle at n tokens, forward and backward alike:
-    ``"short"`` (``short_fwd``, whole rows, keeping lse in training;
-    ``short_bwd``, one recompute of p per key block from that lse) for an
-    unbiased block of at most 512 tokens (ViT-B/32's 65, ViT-B/16's 197);
-    ``"mha"`` (``mha_fwd`` and ``mha_bwd``: the bias and its gradient, any n)
-    otherwise.  By shape only, so the lse and O that ``short_bwd`` reads
-    always come from ``short_fwd``."""
-    return "short" if not biased and n <= MAX_SEQ else "mha"
+def attention_route(n: int) -> str:
+    """The attention middle at n tokens, forward and backward alike, with or
+    without a logits bias: ``"short"``
+    (``short_fwd``, whole rows, keeping lse in training; ``short_bwd``, one
+    recompute of p per key block from that lse; the bias added in both, dbias
+    from ``short_bwd``'s row statistics) for a block of at most 512 tokens
+    (ViT-B/32's 65, ViT-B/16's 197, the small-dataset ViT's 257); ``"mha"``
+    (``mha_fwd`` and ``mha_bwd``, any n) past them.  By shape only, so the
+    lse and O that ``short_bwd`` reads always come from ``short_fwd``.  With
+    a bias the threshold was timed at n 257 only (the small-dataset ViT's
+    block), not in between."""
+    return "short" if n <= MAX_SEQ else "mha"
 
 
 def fused_attention_block_forward_reference(x, gamma, beta, wqkv, wo, bo, heads: int,
@@ -122,19 +129,21 @@ def fused_attention_block_forward_reference(x, gamma, beta, wqkv, wo, bo, heads:
 
 def fused_attention_block_short_forward_reference(x, gamma, beta, wqkv, wo, bo, heads: int,
                                                   dim_head: int, scale: float | None = None,
-                                                  eps: float = 1e-3):
+                                                  eps: float = 1e-3, bias=None):
     """Plain PyTorch version of the training forward on the short route
     (:func:`attention_route`): ``(y, xn, qkv, oattn, lse)``, the first four
     as :func:`fused_attention_block_forward_reference` returns them, with the
     attention as ``short_fwd`` takes it over the packed qkv
-    (``short_attention``'s plain version: ``p = e / l`` rounded before P·V)
-    and its f32 ``(b, heads, n)`` lse.  In f32 the two are one function."""
+    (``short_attention``'s plain version: ``p = e / l`` rounded before P·V;
+    with a ``bias``, added to the scaled logits, the rounded unnormalised p
+    and the divide after, as the mha route) and its f32 ``(b, heads, n)``
+    lse.  In f32 the two are one function."""
     if scale is None:
         scale = dim_head ** -0.5
     xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
     oattn = torch.empty(x.shape[:-1] + (heads * dim_head,), dtype=x.dtype, device=x.device)
     q, k, v, o = short_forward_views(qkv, oattn, heads, dim_head)
-    out, lse = short_attention_forward_reference(q, k, v, scale)
+    out, lse = short_attention_forward_reference(q, k, v, scale, bias)
     o.copy_(out)
     return _out_projection(x, oattn, wo, bo), xn, qkv, oattn, lse
 
@@ -182,14 +191,15 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, n, heads * dim_head)
 
 
-def attention_lse_reference(qkv, heads: int, dim_head: int, scale: float | None = None):
-    """Plain PyTorch version of the lse the unbiased training forward keeps
-    for the short route: f32 ``(b, heads, n)``, the log-sum-exp of each query
-    row's scaled f32 logits."""
+def attention_lse_reference(qkv, heads: int, dim_head: int, scale: float | None = None,
+                            bias=None):
+    """Plain PyTorch version of the lse the training forward keeps for the
+    short route: f32 ``(b, heads, n)``, the log-sum-exp of each query row's
+    scaled f32 logits plus the ``bias``, if any."""
     if scale is None:
         scale = dim_head ** -0.5
     q, k, _ = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
-    return torch.logsumexp(_logits(q, k, scale, None), dim=-1)
+    return torch.logsumexp(_logits(q, k, scale, bias), dim=-1)
 
 
 def fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads: int,
@@ -303,25 +313,32 @@ def _short_strides(b: int, n: int, heads: int, dim_head: int, backward: bool):
 def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma, wqkv, wo,
                                                    heads: int, dim_head: int,
                                                    scale: float | None = None,
-                                                   eps: float = 1e-3):
+                                                   eps: float = 1e-3, bias=None,
+                                                   need_dbias: bool = True):
     """Plain PyTorch version of the backward on the short route
     (:func:`attention_route`): ``(dx, dqkv, dgamma, dbeta, dbo)`` as
     :func:`fused_attention_block_backward_reference` returns them, with the
-    attention's backward as ``short_bwd`` takes it: ``p = exp(s·scale -
-    lse)`` from the training forward's ``lse`` (``(b, heads, n)`` f32) and
+    attention's backward as ``short_bwd`` takes it: ``p = exp(s·scale + bias
+    - lse)`` from the training forward's ``lse`` (``(b, heads, n)`` f32) and
     ``D = rowsum(dO∘O)`` from the stored attention output ``oattn``, where
     the TPU kernel sums ``dsum = Σ dp·p``; each product's output rounded as
-    the kernel rounds it.  In f32 the two are one function."""
+    the kernel rounds it.  With a ``bias``, ``dbias`` follows in f32 (``None``
+    unless ``need_dbias``), ``p·(dp - D)`` summed as the kernel's dbias pass
+    sums it.  In f32 the two are one function."""
     if scale is None:
         scale = dim_head ** -0.5
     d = x.shape[-1]
     doattn = (dy.reshape(-1, d).float() @ wo.float()).to(dy.dtype).reshape(oattn.shape)
     dqkv = torch.empty_like(qkv)
     q, k, v, o, do, dq, dk, dv = short_route_views(qkv, oattn, doattn, dqkv, heads, dim_head)
-    for dst, src in zip((dq, dk, dv), short_attention_backward_reference(q, k, v, o, lse, do,
-                                                                         scale)):
+    grads = short_attention_backward_reference(q, k, v, o, lse, do, scale, bias,
+                                               need_dbias=bias is not None and need_dbias)
+    for dst, src in zip((dq, dk, dv), grads):
         dst.copy_(src)
-    return _through_the_projection(dy, x, dqkv, gamma, wqkv, eps)
+    out = _through_the_projection(dy, x, dqkv, gamma, wqkv, eps)
+    if bias is None:
+        return out
+    return out + (grads[3] if need_dbias else None,)
 
 
 def fused_attention_block_supported(d: int, heads: int, dim_head: int) -> bool:
@@ -393,7 +410,7 @@ def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, b
     })
     if bias is not None:
         check_bias(bias, x, heads)
-    route = attention_route(n, bias is not None)
+    route = attention_route(n)
     y, xn, qkv, oattn = _forward_buffers(x, heads, dim_head)
     strides = lse = None
     if route == "short":
@@ -441,14 +458,16 @@ fused_attention_block_backward.launches = 0
 
 def fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads: int,
                                         dim_head: int, scale: float | None = None,
-                                        eps: float = 1e-3, need_dbias: bool = True):
+                                        eps: float = 1e-3, need_dbias: bool = True,
+                                        oattn=None, lse=None):
     """The backward kernel with a logits bias: ``(dx, dqkv, dgamma, dbeta,
     dbo, dbias)`` as :func:`fused_attention_block_backward_reference` returns
     them, ``dbias`` computed (in a fixed order, the same bits every run) only
     when ``need_dbias``, else ``None``.  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``vit_fused_attention_block_bwd`` (on the
-    mha route) or raises.  ``fused_attention_block_bias_backward.launches``
-    counts kernel launches."""
+    version; a CUDA tensor launches ``vit_fused_attention_block_bwd`` or
+    raises: at n ≤ 512 on the short route, which needs the training
+    forward's ``oattn`` and ``lse``, as :func:`fused_attention_block_backward`.
+    ``fused_attention_block_bias_backward.launches`` counts kernel launches."""
     if scale is None:
         scale = dim_head ** -0.5
     check_bias(bias, dy, heads)
@@ -456,7 +475,7 @@ def fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads
         return fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
                                                         dim_head, scale, eps, bias, need_dbias)
     out = _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
-                           need_dbias)
+                           need_dbias, oattn=oattn, lse=lse)
     fused_attention_block_bias_backward.launches += 1
     return out
 
@@ -471,7 +490,7 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     attention by :func:`attention_route`, counted in ``BACKWARD_ROUTES``."""
     b, n, d = dy.shape
     inner = heads * dim_head
-    route = attention_route(n, bias is not None)
+    route = attention_route(n)
     short = route == "short"
     tensors = {
         "x": (x, dy.shape), "qkv": (qkv, (b, n, 3 * inner)), "gamma": (gamma, (d,)),
@@ -503,7 +522,7 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
         parts = lib.vit_short_attention_parts(n, dim_head)
         if parts > 1:
             dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
-    else:
+    if not short or need_dbias:  # mha_bwd's scratch; the (lse, dsum) dbias reads
         rowstat = torch.empty((b, heads, n, 2), **f32)
 
     def ptr(t):
@@ -568,7 +587,7 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
         else:
             dx, dqkv, dgamma, dbeta, dbo, dbias = fused_attention_block_bias_backward(
                 dy, x, qkv, gc, wqkv, wo, bias, *ctx.config,
-                need_dbias=ctx.needs_input_grad[6])
+                need_dbias=ctx.needs_input_grad[6], oattn=oattn, lse=lse)
         gamma_dt, beta_dt, bo_dt = ctx.param_dtypes
         return (dx, dgamma.to(gamma_dt), dbeta.to(beta_dt), weight_grad(dqkv, xn),
                 weight_grad(dy, oattn), dbo.to(bo_dt), dbias, None, None, None, None)

@@ -10,19 +10,25 @@ convolution (a tokenwise GEMM) of the normalised stream ``xn``, keys and
 values from a strided convolution of it, which stays outside.  On a CUDA
 tensor the forward launches ``vit_fused_cross_attention_fwd`` and the
 backward ``vit_fused_cross_attention_bwd`` (``csrc/fused_cross_attention.cu``:
-the q GEMM, the ``(dh_k, dh_v)`` flash kernels over the packed layout, the
-output GEMM with bias and residual; in the backward, the doattn and dxn GEMMs,
-the flash backward and the fixed-order ``dbo`` sums); on a CPU tensor both run
-their plain PyTorch versions, :func:`fused_cross_attention_forward_reference`
-and :func:`fused_cross_attention_backward_reference`.
+the forward one ``cross_fwd`` kernel, per head the q GEMM, the softmax and
+P·V in registers, then the output GEMM over every head with bias and
+residual, at every shape it takes (``dh_k, dh_v`` of ``(32, 32)``, ``(40,
+32)`` or ``(64, 64)``, n_k ≤ 128: every ScalableViT SSA), from c = 256
+``cross_fwd`` writing oattn and ``gemm_wgmma`` taking the output GEMM, the q
+GEMM, the ``(dh_k, dh_v)`` flash kernels and the output GEMM at other shapes;
+in the backward, the doattn and dxn GEMMs, the flash backward and the
+fixed-order ``dbo`` sums); on a CPU tensor both run their plain PyTorch versions,
+:func:`fused_cross_attention_forward_reference` and
+:func:`fused_cross_attention_backward_reference`.
 
 What bounds it on the H100: at ScalableViT's stage 1 (batch 64, 4096 tokens of
 64 channels, 2 heads, 64 keys) the forward does about 9.7 GFLOP against about
 101 MB of x, xn and y, so the memory bounds it; at stage 3 (256 tokens of 256
 channels, 8 heads) the GEMMs and the bytes are of one size.  The design keeps
-the ``(n, n_k)`` scores in registers, reads q, k and v channel-packed through
-their strides (no head split or merge), and fuses the bias and residual into
-the output GEMM's epilogue; q and oattn go through device memory.
+the ``(n, n_k)`` scores, q and oattn on chip, reads k and v channel-packed
+through their strides (no head split or merge), and fuses the bias and
+residual into the output GEMM's epilogue; the training forward writes q,
+oattn and lse for the backward, serving none of them.
 
 Numerics, mirrored by the plain versions: ``q = T(xn·Wqᵀ)``; logits in f32;
 P rounded to the compute dtype for P·V and the f32 row sum divided out after
@@ -111,26 +117,39 @@ def _check(name, x, n_k, heads, dh_k, dh_v, tensors):
     check_kernel_tensors(name, x, tensors)
 
 
-def _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale):
-    """The forward kernels on CUDA tensors: ``(y, q, oattn, lse)``.
-    ``fused_cross_attention.launches`` counts the launches."""
+def _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale, training=False):
+    """The forward kernels on CUDA tensors: ``(y, q, oattn, lse)``.  The
+    training forward keeps q, oattn and lse for the backward.  Serving takes
+    what the shape's route (``vit_fused_cross_attention_fused``) needs and
+    returns None for the rest: nothing on the one ``cross_fwd`` kernel (1),
+    oattn where a GEMM takes y from it (2, c ≥ 256), all three on the
+    three-launch forward (0).  ``fused_cross_attention.launches`` counts the
+    launches."""
     b, n, c = x.shape
     n_k = k.shape[1]
     hk, hv = heads * dh_k, heads * dh_v
     _check("fused_cross_attention", x, n_k, heads, dh_k, dh_v, {
         "xn": (xn, x.shape), "wq": (wq, (hk, c)), "k": (k, (b, n_k, hk)),
         "v": (v, (b, n_k, hv)), "wo": (wo, (c, hv)), "bo": (bo, (c,))})
-    y = torch.empty_like(x)
-    q = torch.empty((b, n, hk), dtype=x.dtype, device=x.device)
-    oattn = torch.empty((b, n, hv), dtype=x.dtype, device=x.device)
-    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device)
     lib = _build.load()
+    y = torch.empty_like(x)
+    q = oattn = lse = None
+    route = lib.vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
+    if training or route == 0:
+        q = torch.empty((b, n, hk), dtype=x.dtype, device=x.device)
+        lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device)
+    if training or route != 1:
+        oattn = torch.empty((b, n, hv), dtype=x.dtype, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         err = lib.vit_fused_cross_attention_fwd(
             x.data_ptr(), xn.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(),
-            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), q.data_ptr(), oattn.data_ptr(),
-            lse.data_ptr(), b, n, n_k, c, heads, dh_k, dh_v, float(scale),
-            _build.DTYPE_CODES[x.dtype], launch_stream(x))
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), ptr(q), ptr(oattn), ptr(lse), b, n,
+            n_k, c, heads, dh_k, dh_v, float(scale), _build.DTYPE_CODES[x.dtype],
+            launch_stream(x))
     _build.check(err, "vit_fused_cross_attention_fwd")
     fused_cross_attention.launches += 1
     return y, q, oattn, lse
@@ -194,7 +213,8 @@ class FusedCrossAttentionFunction(torch.autograd.Function):
             y, q, oattn, lse = fused_cross_attention_forward_reference(
                 x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
         else:
-            y, q, oattn, lse = _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
+            y, q, oattn, lse = _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale,
+                                               training=True)
         ctx.save_for_backward(xn, q, k, v, oattn, lse, wq, wo)
         ctx.config = (heads, dh_k, dh_v, scale)
         ctx.bo_dtype = bo.dtype
@@ -219,9 +239,9 @@ def fused_cross_attention(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: 
     Layouts as in the module docstring; on CUDA every tensor in x's dtype
     (bf16 or f16), contiguous.  When autograd records the call, it goes
     through :class:`FusedCrossAttentionFunction`; otherwise a CPU tensor
-    takes the plain version and a CUDA tensor launches the forward kernels.
-    On CUDA it launches or raises.  ``fused_cross_attention.launches`` counts
-    forward kernel launches.
+    takes the plain version and a CUDA tensor launches the serving forward,
+    which returns y alone.  On CUDA it launches or raises.
+    ``fused_cross_attention.launches`` counts forward kernel launches.
     """
     scale = _scale(dh_k, scale)
     if needs_grad(x, xn, wq, k, v, wo, bo):

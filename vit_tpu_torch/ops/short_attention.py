@@ -62,23 +62,61 @@ def short_attention_supported(n_q: int, n_k: int, d: int) -> bool:
     return 0 <= n_q <= MAX_SEQ and 1 <= n_k <= MAX_SEQ and d in SUPPORTED_WIDTHS
 
 
-def short_attention_forward_reference(q, k, v, scale: float | None = None):
+def short_attention_forward_reference(q, k, v, scale: float | None = None, bias=None):
     """Plain PyTorch version of the forward kernel: ``(out, lse)``, ``out``
-    in q's dtype ``(b, h, n_q, d)``, ``lse`` f32 ``(b, h, n_q)``, with the
-    kernel's rounding points (p normalised, then rounded to q's dtype)."""
+    in q's dtype ``(b, h, n_q, d)``, ``lse`` f32 ``(b, h, n_q)``, at the
+    rounding points of the kernel instance the arguments select.
+
+    ``bias``: None or an f32 ``(1 | h, n_q, n_k)`` logits bias (the attention
+    block's), added to the scaled f32 logits before the row max.  Like the
+    kernel's ``BIAS`` flag, it also selects where P is rounded:
+
+    - without a bias, p normalised (``e / l``), then rounded to q's dtype
+      for P·V;
+    - with one, the unnormalised ``e`` rounded for P·V and the f32 row sum
+      divided after: the TPU block kernel's late divide.  The biased kernel's
+      one pass rescales by a running max, which moves a rounding by a unit
+      where a row's max lies past its first key tile.
+    """
     scale = _scale(q, scale)
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
     m = s.amax(-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(-1, keepdim=True)
-    out = ((e / l).to(q.dtype).float() @ v.float()).to(q.dtype)
+    if bias is None:
+        out = ((e / l).to(q.dtype).float() @ v.float()).to(q.dtype)
+    else:
+        out = ((e.to(q.dtype).float() @ v.float()) / l).to(q.dtype)
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-# Plain PyTorch version of the backward kernel: (dq, dk, dv) in q's dtype from
-# the forward's o and lse and the output gradient do, (q, k, v, o, lse, do,
-# scale); the flash backward's function and rounding points.
-short_attention_backward_reference = flash_backward_reference
+def short_attention_backward_reference(q, k, v, o, lse, do, scale: float, bias=None,
+                                       need_dbias: bool = False):
+    """Plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` in q's
+    dtype from the forward's ``o`` and ``lse`` and the output gradient
+    ``do``; without a bias the flash backward's function and rounding points
+    (:func:`flash_backward_reference`).  With an f32 ``(1 | h, n_q, n_k)``
+    ``bias`` (the attention block's), ``p = exp(s·scale + bias - lse)``, and
+    with ``need_dbias`` a fourth result, ``dbias`` f32 of the bias's shape:
+    ``p·(dp - D)`` (before the scale, ``D = rowsum(dO∘O)``) summed over the
+    images, and over the heads for a shared bias, as the row statistics the
+    kernel writes (lse, D) give it to the dbias kernel."""
+    if bias is None:
+        return flash_backward_reference(q, k, v, o, lse, do, scale)
+    dt = q.dtype
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dsum = (dof * o.float()).sum(-1, keepdim=True)  # D = rowsum(dO∘O)
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale + bias.float() - lse[..., None])
+    ds0 = p * (dof @ vf.transpose(-1, -2) - dsum)  # d(loss)/d(logits), before the scale
+    ds = (ds0 * scale).to(dt).float()
+    grads = ((ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt),
+             (p.to(dt).float().transpose(-1, -2) @ dof).to(dt))
+    if not need_dbias:
+        return grads
+    dbias = ds0.sum(0)
+    return grads + (dbias.sum(0, keepdim=True) if bias.shape[0] == 1 else dbias,)
 
 
 def _empty(like, b, h, n, d, layout, count):
