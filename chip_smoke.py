@@ -104,10 +104,16 @@ Phases, one line each (any failure raises and exits non-zero):
    channels with the y GEMM) and at ScalableViT@384's stage 1 (144 keys, batch
    16: the three-launch forward), seeded bf16 inputs: the serving and the
    training forward (y, q, oattn, lse) against the plain version, the
-   backward (dxn, dq, dk, dv, dbo), fed the training forward's residuals,
-   against the plain backward and twice bit for bit; times of the kernels,
-   the plain versions and F.linear + SDPA + F.linear (autograd through it),
-   with and without the dW GEMMs, and the bounds.
+   backward (dxn, dq, dk, dv, dbo), fed the training forward's residuals, on
+   the route its shape takes (one ``cross_bwd`` kernel and its reduction up
+   to 128 channels, ``cross_bwd`` between two ``gemm_wgmma`` dgrads from 129,
+   the four steps past 128 keys), against the plain backward and twice bit
+   for bit, and at the ``cross_bwd`` shapes the other designs (the four
+   steps; the split at stages 1-2) against theirs; times of the kernels, the
+   other designs, the plain versions and F.linear + SDPA + F.linear
+   (autograd through it), with and without the dW GEMMs, and the bounds; at
+   the four SSA shapes the backward's device time launch by launch on its
+   route and on the four steps.
 14. packed flash (``flash_attention_packed``), channel-packed (b, n, heads·d)
    inputs at ScalableViT's IWSA windows (64, 4096, 2x32) and (64, 1024,
    4x32) and at dk 40, dv 32: out and lse against the plain version, the
@@ -120,7 +126,8 @@ Phases, one line each (any failure raises and exits non-zero):
    ``fused_attention="never", fused_mlp="never"``; each forward launches the
    cross-attention block 14 times, the packed flash op 4 times (the IWSA
    windows of 1024 tokens and more) and the fused MLP 28 times, each step
-   their backwards as often.
+   their backwards as often (the cross-attention backward 4 times as one
+   ``cross_bwd`` kernel, at stages 1-2, and 10 times split, at 3-4).
 16. hybrid kernels (the short-sequence tier's ``ln_gemm``, ``attention_nb``
    and ``proj_mlp``) at ViT-B/32's layer, batch 128: each training forward
    against its plain version, chained as the layer chains them; each
@@ -308,6 +315,27 @@ def interleaved_medians(torch, fns: dict, rounds: int, calls: int, warmup: int =
             end.synchronize()
             samples[k].append(start.elapsed_time(end) / calls)
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def launch_breakdown(torch, fn, calls: int = 5) -> dict:
+    """The device kernels one call of ``fn`` launches, by ``kernel_group``:
+    ``{group: (device ms a call, launches a call)}``, from torch.profiler
+    over ``calls`` calls after one of warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = rows.get(kernel_group(evt.key), (0.0, 0.0))
+            rows[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
+                                           count + evt.count / calls)
+    return rows
 
 
 def block_error(torch, out, ref, x):
@@ -1343,6 +1371,12 @@ def cross_attention_phase(torch, results, smi):
         # (c >= 256: stages 3-4); 0, the three launches (n_k > 128: 384 px).
         route = _build.load().vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
         expected = 0 if n_k > 128 else 1 if c < 256 else 2
+        # The backward's (cross_bwd_plan): 1, one cross_bwd kernel and its
+        # reduction (c <= 128: stages 1-2); 2, cross_bwd between gemm_wgmma's
+        # two dgrads (stages 3-4); 0, the four steps (n_k > 128: 384 px).
+        bwd_route = fca.backward_route(b, n, n_k, c, heads, dh_k, dh_v)
+        if bwd_route != (0 if n_k > 128 else 1 if c <= 128 else 2):
+            raise AssertionError(f"cross-attention backward {shape}: route {bwd_route}")
         with torch.inference_mode():
             before = fca.fused_cross_attention.launches
             out = fca.fused_cross_attention(*args, *cfg)
@@ -1378,21 +1412,24 @@ def cross_attention_phase(torch, results, smi):
                                  f"{lse_err}")
         del ref
 
-        def kernel():
-            return fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+        def kernel(route=None):
+            return fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg,
+                                                      route=route)
 
         def whole():
             out = kernel()
             return out, weight_grad(out[1], xn), weight_grad(dy, oattn)
 
-        def plain():
-            return fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo,
-                                                                *cfg)
+        def plain(route=bwd_route):  # the four steps take D from the stored output
+            return fca.fused_cross_attention_backward_reference(
+                dy, q, k, v, oattn, lse, wq, wo, *cfg, stored_output_d=route == 0)
 
         before = fca.fused_cross_attention_backward.launches
+        on_route = fca.BACKWARD_ROUTES[bwd_route].launches
         got = kernel()
         torch.cuda.synchronize()
-        if fca.fused_cross_attention_backward.launches != before + 1:
+        if fca.fused_cross_attention_backward.launches != before + 1 or \
+                fca.BACKWARD_ROUTES[bwd_route].launches != on_route + 1:
             raise AssertionError(f"cross-attention backward {shape}: launch counter did not move")
         want = plain()
         bwd_err = check_outputs(torch, f"cross-attention backward {shape}", got[:4], want[:4], {})
@@ -1400,6 +1437,26 @@ def cross_attention_phase(torch, results, smi):
         if not all(torch.equal(a, b_) for a, b_ in zip(got, kernel())):
             raise AssertionError(f"cross-attention backward {shape}: two runs differ")
         del got, want
+        # The other designs at this shape, each held against its plain version:
+        # the four steps (the earlier design, route 0) wherever cross_bwd runs,
+        # and cross_bwd split from its dgrads (route 2) where it takes them.
+        designs = {name: r for name, r in (("four steps", 0), ("split", 2))
+                   if bwd_route != 0 and r != bwd_route}
+        for name, r in designs.items():
+            got, want = kernel(r), plain(r)
+            check_outputs(torch, f"cross-attention backward {shape}, {name}", got[:4], want[:4],
+                          {})
+            check_dbias(torch, f"cross-attention backward {shape}, {name}", got[4], want[4],
+                        "dbo")
+            del got, want
+        if bwd_route != 0:  # where the device time goes, launch by launch, on both designs
+            for name, r in ((f"route {bwd_route}", None), ("four steps", 0)):
+                rows = launch_breakdown(torch, lambda: kernel(r))
+                log(f"cross-attention backward {shape}, {name}: "
+                    f"{sum(cnt for _, cnt in rows.values()):g} launches, device ms "
+                    f"{sum(ms for ms, _ in rows.values()):.4f}: "
+                    + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows.items())
+                    + f" on {smi}")
 
         def library(xn_, wq_, k_, v_, wo_, bo_):
             o = F.scaled_dot_product_attention(fap.split_heads(F.linear(xn_, wq_), heads),
@@ -1417,6 +1474,7 @@ def cross_attention_phase(torch, results, smi):
                 "library": lambda: library(xn, wq, k, v, wo, bo)}, rounds=5, calls=5)
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel, "plain": plain, "whole": whole,
+            **{name: (lambda r=r: kernel(r)) for name, r in designs.items()},
             "library": lambda: torch.autograd.grad(y_lib, own, dy, retain_graph=True),
             "library_whole": lambda: torch.autograd.grad(y_lib, leaves, dy, retain_graph=True)},
             rounds=5, calls=5)
@@ -1429,18 +1487,25 @@ def cross_attention_phase(torch, results, smi):
                "forward, linear.cu output GEMM), serving keeps q, oattn and lse")
             + f"; serving y within one bf16 unit plus 2e-2*max|ref-x|, "
             f"max|kernel-plain|={err:.6g}; training forward (y, q, oattn) max {train_err:.6g}, "
-            f"lse {lse_err:.3g}; backward (dxn, dq, dk, dv) fed the forward's residuals max "
+            f"lse {lse_err:.3g}; backward "
+            + ("one cross_bwd kernel and its reduction" if bwd_route == 1 else
+               "gemm_wgmma dy·Wo, cross_bwd over head groups, gemm_wgmma dq·Wq, column sums, "
+               "the reduction" if bwd_route == 2 else "four steps (linear.cu dy·Wo, the "
+               "(dh_k, dh_v) flash backward, linear.cu dq·Wq, column sums)")
+            + f" (dxn, dq, dk, dv) fed the forward's residuals max "
             f"{bwd_err:.6g}, dbo {dbo_err:.3g} (<= {DBIAS_REL_TOL}*max|ref|), the same bits in "
             f"two runs; forward ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} "
             f"F.linear+SDPA+F.linear={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); "
-            f"backward ms kernel={bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd "
+            f"backward ms kernel={bwd_ms['kernel']:.4f} "
+            + "".join(f"{name}={bwd_ms[name]:.4f} " for name in designs)
+            + f"plain={bwd_ms['plain']:.4f} autograd "
             f"through the library composition={bwd_ms['library']:.4f}; with dWq, dWo: "
             f"kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd={bwd_ms['library_whole']:.4f}; "
             f"bound={bb[0]:.4f} ({bb[1]}) on {smi}")
         results.setdefault("fused_cross_attention", {})[tag] = dict(
             err=max(err, train_err), lse_err=lse_err, route=route, **fwd_ms, bound=fb)
         results.setdefault("fused_cross_attention_bwd", {})[tag] = dict(
-            err=bwd_err, dbo_err=dbo_err, **bwd_ms, bound=bb)
+            err=bwd_err, dbo_err=dbo_err, route=bwd_route, **bwd_ms, bound=bb)
         del args, x, xn, wq, k, v, wo, bo, dy, train, q, oattn, lse, leaves, own, y_lib
         torch.cuda.empty_cache()
 
@@ -1547,7 +1612,10 @@ SHORT_SHAPES = [
 # it (every number there is this run's).  The flash forward's rebuild also
 # runs the packed op's forward; the short backward's runs attention_nb's.  The
 # biased block's and the cross-attention block's forward's are the parent
-# design's (mha_fwd / mha_bwd; q GEMM + flash forward + output GEMM).
+# design's (mha_fwd / mha_bwd; q GEMM + flash forward + output GEMM); the
+# cross-attention block's backward's the four steps (linear.cu's dy·Wo, the
+# flash backward, linear.cu's dq·Wq, column sums), proj_mlp's backward's its
+# three dgrads on linear.cu.
 DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_cross_attention": "one cross_fwd kernel (wgmma+tma): per head q = xn·Wq_h, "
                                     "softmax and P·V in registers, then y = oattn·Wo over the "
@@ -1573,14 +1641,25 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_attention_block_bias": "QKV and out-projection on gemm_wgmma from n 256; "
                                          "attention on short_fwd with the bias (two 144-key "
                                          "tiles at n 257, keeps lse in training) up to 512 "
-                                         "tokens, mha_fwd past them"}
+                                         "tokens, mha_fwd past them",
+           "fused_cross_attention_bwd": "one cross_bwd kernel (wgmma+tma) up to c 128: per "
+                                        "head doattn = dy·Wo_h, p from lse, dsum = Σ p·dp, ds "
+                                        "and dq on chip, dk/dv over a span of query blocks in "
+                                        "registers, then dxn = dq·Wq; f32 partials summed in "
+                                        "a fixed order; from c 129 cross_bwd over head groups "
+                                        "between gemm_wgmma's dgrads; four steps past 128 keys",
+           "proj_mlp_bwd": "three dgrads on gemm_wgmma (wgmma+tma, warp-specialised, "
+                           "persistent, B MN-major: dGELU, f32 and store epilogues)"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
     "flash_attention_packed": {"ScalableViT IWSA stage 1": 2.4982},
     "fused_cross_attention": {"ScalableViT stage 1": 0.2648},
+    "fused_cross_attention_bwd": {"ScalableViT stage 1": 0.6243, "ScalableViT stage 2": 0.2868,
+                                  "ScalableViT stage 3": 0.1601, "ScalableViT stage 4": 0.1118},
     "ln_gemm": {"B/32": 0.1517},
     "proj_mlp": {"B/32": 0.4404},
+    "proj_mlp_bwd": {"B/32": 0.5589},
     "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
                        "CvT-13@384 stage 2": 1.8241, "n=8192, through the dispatcher": 24.0999,
                        "n=4096, d=32": 9.6678},
@@ -1800,6 +1879,13 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
     dy, do, dh, gact = twice("proj_mlp", proj_bwd, lambda: fh.proj_mlp_backward_reference(
         dz, y, h, ln2[0], wo, w1, w2, eps), {0: dz})[:4]
     do_nb = nb(do)
+    # Its three dgrads run on gemm_wgmma (launch_dgrad, n >= 256 here): none on linear.cu.
+    rows = launch_breakdown(torch, proj_bwd)
+    log(f"hybrid proj_mlp backward {shape}: device ms launch by launch "
+        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows.items()) + f" on {smi}")
+    if any(g.startswith("linear_kernel") for g in rows) or \
+            sum(cnt for g, (_, cnt) in rows.items() if g.startswith("gemm_wgmma")) != 3:
+        raise AssertionError(f"proj_mlp backward {shape}: its dgrads are not gemm_wgmma's three")
 
     def attn_bwd():
         return fh.attention_nb_backward(do_nb, q, k, v, o, lse, heads, dim_head)
@@ -2202,9 +2288,11 @@ def kernel_group(name: str) -> str:
     if m:
         return f"{m.group(1)} (d {m.group(2)}" + (f", {m.group(3)}-key tiles" if m.group(3)
                                                   else "") + (", bias)" if m.group(4) else ")")
-    m = re.search(r"cross_fwd_kernel<[^,]+, (\d+), (\d+), \d+>", name)
+    m = re.search(r"(cross_fwd_kernel|cross_bwd_kernel)<[^,]+, (\d+), (\d+), \d+>", name)
     if m:
-        return f"cross_fwd_kernel (dk {m.group(1)}, dv {m.group(2)})"
+        return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
+    if "cross_bwd_reduce_kernel" in name:  # before PyTorch's reductions
+        return "cross_bwd_reduce_kernel"
     m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
@@ -2374,7 +2462,8 @@ def ptxas_report(build_log: str) -> dict:
     report, name = {}, None
     pattern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|"
                          r"short_fwd_kernel|short_bwd_kernel|short_bwd_wg_kernel|gemm_wgmma_kernel|"
-                         r"cross_fwd_kernel)I(6__half|13__nv_bfloat16)((?:L[ib]\d+E)*)")
+                         r"cross_fwd_kernel|cross_bwd_kernel)I(6__half|13__nv_bfloat16)"
+                         r"((?:L[ib]\d+E)*)")
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             m = pattern.search(line)
@@ -2440,7 +2529,8 @@ def main() -> int:
         fused_attention_block_bias, fused_attention_block_bias_backward,
     )
     from vit_tpu_torch.ops.fused_cross_attention import (
-        fused_cross_attention, fused_cross_attention_backward,
+        BACKWARD_ROUTES as CROSS_BACKWARD_ROUTES, fused_cross_attention,
+        fused_cross_attention_backward,
     )
     from vit_tpu_torch.ops.fused_hybrid import (
         attention_nb, attention_nb_backward, ln_gemm, ln_gemm_backward, proj_mlp,
@@ -2489,6 +2579,12 @@ def main() -> int:
                 "flash_attention": flash_attention, "flash_backward": flash_backward,
                 "fused_cross_attention": fused_cross_attention,
                 "fused_cross_attention_bwd": fused_cross_attention_backward,
+                # its backward by route (fused_cross_attention.py backward_route): one
+                # cross_bwd kernel up to 128 channels, cross_bwd between gemm_wgmma's
+                # dgrads from 129 (the four steps past 128 keys run on no main path:
+                # the cross-attention phase holds them at 384 px)
+                "cross backward, one kernel": CROSS_BACKWARD_ROUTES[1],
+                "cross backward, split": CROSS_BACKWARD_ROUTES[2],
                 "flash_attention_packed": flash_attention_packed,
                 "short_attention": short_attention,
                 "short_attention_bwd": short_attention_backward,
@@ -2562,10 +2658,12 @@ def main() -> int:
                         "fused_mlp": 2 * blocks}
     path("serving ScalableViT", serving_phase, "ScalableViT@256 bf16", ScalableViT, SCALABLE,
          64, 3, 9, smi, counters, scalable_forward, size=SCALABLE_SIZE)
+    one_kernel = sum(d for i, d in enumerate(SCALABLE["depth"]) if SCALABLE["dim"] << i <= 128)
     path("training ScalableViT", training_phase, "ScalableViT@256", ScalableViT, SCALABLE, 64,
          10, smi, counters,
          {**scalable_forward, "fused_cross_attention_bwd": blocks, "flash_backward": packed,
-          "fused_mlp_bwd": 2 * blocks}, size=SCALABLE_SIZE,
+          "fused_mlp_bwd": 2 * blocks, "cross backward, one kernel": one_kernel,
+          "cross backward, split": blocks - one_kernel}, size=SCALABLE_SIZE,
          timing=dict(rounds=3, calls=1, warmup=1))
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)

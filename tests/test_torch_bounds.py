@@ -142,6 +142,19 @@ def test_gemm_bound(raw):
      "mha_fwd_kernel (bias)"),
     ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, true>(const "
      "__nv_bfloat16 *)", "mha_bwd_dq_kernel (bias)"),
+    # proj_mlp's backward: its three dgrads on gemm_wgmma, W as it lies
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 0, 1>(CUtensorMap)",
+     "gemm_wgmma_kernel store (QKV, doattn)"),
+    # the cross-attention block's: one kernel and its fixed-order reduction
+    ("void vit::(anonymous namespace)::cross_bwd_kernel<__nv_bfloat16, 40, 32, 64>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, const float "
+     "*, __nv_bfloat16 *, __nv_bfloat16 *, float *, int, int, int, int, int, float)",
+     "cross_bwd_kernel (dk 40, dv 32)"),
+    ("void vit::(anonymous namespace)::cross_bwd_reduce_kernel<__nv_bfloat16>(const float *, "
+     "__nv_bfloat16 *, __nv_bfloat16 *, float *, int, long long, long long, int, int)",
+     "cross_bwd_reduce_kernel"),
+    ("void vit::(anonymous namespace)::cross_fwd_kernel<__nv_bfloat16, 32, 32, 64>(CUtensorMap)",
+     "cross_fwd_kernel (dk 32, dv 32)"),
 ])
 def test_profile_groups_the_hybrid_kernels(kernel, group):
     assert chip_smoke.kernel_group(kernel) == group

@@ -10,8 +10,11 @@ widths (dh_k 40 / dh_v 32), within 1e-5 of max(1, max|ref|): in f32 both
 sides are exact attention and its gradient, and differ by summation order.
 The plain version of the one-kernel forward (``cross_fwd``: q, oattn and lse
 from its own rounding points) against ``_forward``'s y, q and oattn at
-ScalableViT's widths, n_k 64, within 1e-4; and the wrapper's arguments to C,
-with the library replaced by a recorder: serving allocates and passes no q
+ScalableViT's widths, n_k 64, within 1e-4; the plain backward, fed the plain
+forward's residuals, with either dsum (``cross_bwd``'s Σ p·dp or the four
+steps' D from the stored output), against the VJP within TOL at each head
+width, ragged n, n_k 49 and 64, c 64 and 256; and the wrapper's arguments to
+C, with the library replaced by a recorder: serving allocates and passes no q
 or lse, and no oattn where the one ``cross_fwd`` kernel takes the shape.
 """
 
@@ -169,10 +172,49 @@ def test_serving_writes_no_residuals(monkeypatch, fused):
     assert (q_t, o_t, lse_t) == tuple(t.data_ptr() for t in trained[1:])
 
 
+# The plain backward at each (dh_k, dh_v) instance, ragged n, n_k 49 and 64,
+# and c 64 and 256: either side of cross_bwd's split at 128 channels.
+BACKWARD_CASES = [
+    (2, 100, 49, 64, 2, 40, 32),   # stage 1's widths, 7 x 7 keys
+    (1, 64, 64, 256, 8, 40, 32),   # stage 3's
+    (2, 70, 64, 64, 2, 32, 32),
+    (1, 65, 49, 256, 4, 64, 64),
+]
+
+
+@pytest.mark.parametrize("stored_output_d", [False, True])
+@pytest.mark.parametrize("b,n,n_k,c,heads,dh_k,dh_v", BACKWARD_CASES)
+def test_plain_backward_matches_jax_vjp(b, n, n_k, c, heads, dh_k, dh_v, stored_output_d):
+    """The plain backward fed the plain forward's residuals, with the dsum
+    cross_bwd takes (Σ p·dp, the TPU kernel's) or the four steps' D from the
+    stored output, against the VJP of ``vit_tpu``'s
+    ``fused_cross_attention_block`` (its Pallas kernels in interpret mode):
+    dxn, dk, dv, dbo and dWq = xnᵀ·dq within TOL of max(1, max|ref|) in
+    f32."""
+    args, g = _inputs(b, n, n_k, c, heads, dh_k, dh_v, seed=7)
+    scale = dh_k ** -0.5
+
+    def jax_op(*a):
+        return fused_cross_attention_block(*a, heads, dh_k, dh_v, scale, True)
+
+    _, vjp = jax.vjp(jax_op, *map(jnp.asarray, args))
+    _, want_dxn, want_dwq, want_dk, want_dv, _, want_dbo = vjp(jnp.asarray(g))
+    x, xn, wq, k, v, wo, bo = _to_port(args)
+    _, q, oattn, lse = fca.fused_cross_attention_forward_reference(x, xn, wq, k, v, wo, bo,
+                                                                   heads, dh_k, dh_v, scale)
+    dxn, dq, dk, dv, dbo = fca.fused_cross_attention_backward_reference(
+        torch.from_numpy(g), q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale,
+        stored_output_d=stored_output_d)
+    dwq = xn.reshape(-1, c).t() @ dq.reshape(-1, heads * dh_k)  # vit_tpu's (c, hk) layout
+    for name, got, want in zip(("dxn", "dwq", "dk", "dv", "dbo"), (dxn, dwq, dk, dv, dbo),
+                               (want_dxn, want_dwq, want_dk, want_dv, want_dbo)):
+        _close(got, want, name)
+
+
 def test_plain_backward_is_the_gradient_of_the_plain_forward():
     """In f32, where no rounding point rounds: autograd through the plain
-    forward against the plain backward (which takes D from the stored
-    output, as the kernel does), to f32 precision."""
+    forward against the plain backward (which takes the softmax's dsum = Σ
+    p·dp, as cross_bwd does), to f32 precision."""
     args, g = _inputs(2, 40, 7, 32, 2, 40, 32, seed=3)
     inputs = [t.requires_grad_() for t in _to_port(args)]
     x, xn, wq, k, v, wo, bo = inputs

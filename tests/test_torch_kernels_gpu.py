@@ -841,23 +841,31 @@ def _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=0):
     (4, 1024, 128, 4, 64, 40, 32),
     (4, 256, 256, 8, 64, 40, 32),
     (4, 64, 512, 16, 64, 32, 32),
+    (1, 4096, 64, 2, 64, 40, 32),    # one image: one CTA a span
+    (2, 1000, 128, 4, 64, 40, 32),   # stage 2's widths at a ragged n
+    (2, 196, 64, 2, 49, 40, 32),     # 7 x 7 keys
     (3, 100, 72, 3, 9, 40, 32),      # ragged rows, n_k, c and the q GEMM's n = 120
     (2, 70, 96, 3, 130, 64, 64),     # n_k past 128: the three-launch forward
     (2, 130, 64, 2, 100, 64, 64),    # a 128-key tile, (64, 64) heads
     (2, 64, 512, 16, 64, 40, 32),    # (40, 32) at c 512: cross_fwd, then the y GEMM
+    (2, 200, 256, 8, 49, 40, 32),    # stage 3's widths, ragged n and 49 keys
 ])
 def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh_k, dh_v):
     """Serving forward (one cross_fwd launch keeping no residual below c 256,
     cross_fwd and the y GEMM from it, keeping oattn only, the three launches
     past n_k 128), training forward (y, q, oattn, lse) and backward (dxn, dq,
-    dk, dv, dbo; fed the training forward's residuals) against their plain
-    versions; each twice, bit for bit."""
+    dk, dv, dbo; fed the training forward's residuals: one cross_bwd kernel
+    up to c 128, cross_bwd between two GEMMs from 129, the four steps past
+    n_k 128, each route asserted and counted) against their plain versions;
+    each twice, bit for bit."""
     args, dy = _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=n)
     x, xn, wq, k, v, wo, bo = args
     cfg = (heads, dh_k, dh_v)
     from vit_tpu_torch.ops import _build
     route = _build.load().vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
     assert route == (0 if n_k > 128 else 1 if c < 256 else 2)
+    bwd_route = fca.backward_route(b, n, n_k, c, heads, dh_k, dh_v)
+    assert bwd_route == (0 if n_k > 128 else 1 if c <= 128 else 2)
     with torch.inference_mode():
         before = fca.fused_cross_attention.launches
         out = fca.fused_cross_attention(*args, *cfg)
@@ -877,14 +885,47 @@ def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh
     ref_lse = fap.flash_attention_packed_forward_reference(q, k, v, heads, dh_k ** -0.5)[1]
     assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
     before = fca.fused_cross_attention_backward.launches
+    on_route = fca.BACKWARD_ROUTES[bwd_route].launches
     got = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
     torch.cuda.synchronize()
     assert fca.fused_cross_attention_backward.launches == before + 1
-    want = fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, *cfg)
+    assert fca.BACKWARD_ROUTES[bwd_route].launches == on_route + 1
+    want = fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, *cfg,
+                                                        stored_output_d=bwd_route == 0)
     check_outputs(torch, "cross-attention backward", got[:4], want[:4], {})
     check_dbias(torch, "cross-attention backward", got[4], want[4], "dbo")
     again = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("route", [0, 2])
+@pytest.mark.parametrize("b,n,c,heads,n_k,dh_k,dh_v", [
+    (4, 4096, 64, 2, 64, 40, 32),    # ScalableViT's SSA stages 1 and 2, whose own route is 1
+    (2, 1000, 128, 4, 64, 40, 32),
+    (2, 64, 512, 16, 64, 32, 32),    # stage 4, whose own route is 2
+])
+def test_cross_attention_backward_routes_asked_for_match_plain(cuda, b, n, c, heads, n_k, dh_k,
+                                                               dh_v, route):
+    """The backward on a route the card's comparison asks for: the four
+    steps (D from the stored output) and the split cross_bwd, at shapes
+    whose own route is another, against the plain version with that route's
+    dsum; twice bit for bit.  A route the shape cannot take raises."""
+    args, dy = _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=n + route)
+    x, xn, wq, k, v, wo, bo = args
+    cfg = (heads, dh_k, dh_v)
+    _, q, oattn, lse = fca._launch_forward(*args, *cfg, dh_k ** -0.5, training=True)
+    assert fca.backward_route(b, n, n_k, c, heads, dh_k, dh_v, route) == route
+    got = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg, route=route)
+    want = fca.fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, *cfg,
+                                                        stored_output_d=route == 0)
+    check_outputs(torch, f"cross-attention backward, route {route}", got[:4], want[:4], {})
+    check_dbias(torch, f"cross-attention backward, route {route}", got[4], want[4], "dbo")
+    again = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg, route=route)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    if c > 128:
+        assert fca.backward_route(b, n, n_k, c, heads, dh_k, dh_v, 1) == -1
+        with pytest.raises(ValueError, match="route 1"):
+            fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, *cfg, route=1)
 
 
 def test_cross_attention_and_packed_ops_refuse_what_they_do_not_take(cuda):
@@ -1021,6 +1062,7 @@ def _hybrid_args(cuda, t, d, inner, hidden, seed=0):
 
 @pytest.mark.parametrize("b,n,d,heads,dh,hidden", [
     (128, 65, 1024, 16, 64, 2048),  # ViT-B/32 at bench.py's batch
+    (3, 67, 1024, 16, 64, 2048),    # B/32's widths at 201 rows: proj_mlp's dgrads on gemm_wgmma
     (64, 33, 96, 3, 32, 160),       # three heads of 32; ragged rows and widths
 ])
 def test_hybrid_layer_kernels_match_plain(cuda, b, n, d, heads, dh, hidden):

@@ -18,7 +18,10 @@ out-projection, on the same kernel from n = 256) over the buffers their
 wrappers allocate.  The short route of the attention block (``short_fwd`` and
 ``short_bwd`` over the packed qkv, chosen by ``attention_route`` for both
 directions) passes the strides of its column views; the forward keeps the lse
-the backward reads exactly on that route.
+the backward reads exactly on that route.  The cross-attention block's
+backward (``cross_bwd``) passes its operands as they lie, each a view its maps
+take, and refuses widths and routes it cannot take before any launch;
+proj_mlp's backward passes its three dgrad weights as they lie.
 """
 
 import contextlib
@@ -387,14 +390,35 @@ def test_block_forward_gemm_operands_are_matrices_a_map_takes(rows, d, heads, dh
     assert h.shape == g.shape and h.is_contiguous()
 
 
+class _HybridRecorder:
+    """Stands in for the kernel library: records proj_mlp's backward entry
+    point's arguments and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def vit_proj_mlp_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def vit_linear_partial_rows(self, rows):
+        return 2 * ((rows + 127) // 128)
+
+    def vit_ln_bwd_partial_rows(self, rows):
+        return 1
+
+
 @pytest.mark.parametrize("rows,d,inner,hidden", [(8320, 1024, 1024, 2048), (12608, 768, 768, 3072),
                                                  (262144, 64, 64, 256), (33, 104, 96, 264)])
-def test_dgrad_weights_are_maps_of_the_weight_as_it_lies(rows, d, inner, hidden):
+def test_dgrad_weights_are_maps_of_the_weight_as_it_lies(monkeypatch, rows, d, inner, hidden):
     """The dgrads dy·Wo, dqkv·Wqkv, dy·W2 and dh·W1 read each nn.Linear
     weight (out, in) as the (k, n) matrix B with n contiguous: a 2-d map of
     k rows n elements apart, 64 x 64 boxes (the 128-byte swizzle's width) at
     columns n0, n0 + 64, ..., the A operand (dy, dqkv, dh) as the forward
-    GEMM's, rows k apart."""
+    GEMM's, rows k apart.  proj_mlp's backward, whose three dgrads (dz·W2,
+    dh·W1, dy·Wo) run the same GEMM, passes Wo, W1 and W2 to C as they lie
+    (no transposed copy), with the library replaced by a recorder (at 64
+    rows or fewer: the widths make the maps)."""
     weights = {"wo": (torch.zeros(d, inner, dtype=BF16), d, inner),
                "wqkv": (torch.zeros(3 * inner, d, dtype=BF16), 3 * inner, d),
                "w2": (torch.zeros(d, hidden, dtype=BF16), d, hidden),
@@ -405,6 +429,22 @@ def test_dgrad_weights_are_maps_of_the_weight_as_it_lies(rows, d, inner, hidden)
     for a, k in ((torch.zeros(rows, d, dtype=BF16), d), (torch.zeros(rows, hidden, dtype=BF16),
                                                            hidden)):
         assert _tma_problem(a) is None and a.stride() == (k, 1)
+    lib = _HybridRecorder()
+    monkeypatch.setattr(fh._build, "load", lambda: lib)
+    monkeypatch.setattr(fh, "check_kernel_tensors", lambda *args: None)
+    monkeypatch.setattr(fh, "launch_stream", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    t = min(rows, 64)
+    dz, y, h = (torch.zeros(t, w, dtype=BF16) for w in (d, d, hidden))
+    wo, w1, w2 = (weights[name][0] for name in ("wo", "w1", "w2"))
+    dy, do, dh, gact, *_ = fh._launch_proj_mlp_backward(dz, y, h, torch.ones(d, dtype=BF16), wo,
+                                                        w1, w2, 1e-3)
+    (args,) = lib.calls
+    assert args[:7] == tuple(x.data_ptr() for x in (dz, y, h)) + (args[3], wo.data_ptr(),
+                                                                 w1.data_ptr(), w2.data_ptr())
+    for out, width in ((dy, d), (do, inner), (dh, hidden), (gact, hidden)):
+        assert _tma_problem(out) is None and out.stride() == (width, 1)
+    assert args[-7:-3] == (t, d, inner, hidden)
 
 
 def _meta(*shape):
@@ -434,3 +474,104 @@ def test_gemm_takes_each_epilogue_only_over_its_layout():
     for epilogue, layout in (("dgelu", "nk"), ("bias_gelu", "kn"), ("store", "mn")):
         with pytest.raises(ValueError, match="no epilogue"):
             fh.gemm_wgmma(a, torch.zeros(64, 64, dtype=BF16), epilogue, layout=layout)
+
+
+class _CrossRecorder:
+    """Stands in for the kernel library: the cross-attention backward's
+    route (``route`` for the shape's own, -1 for any other asked for), a
+    scratch size, and its entry point's arguments, launching nothing."""
+
+    def __init__(self, route):
+        self.route, self.calls = route, []
+
+    def vit_fused_cross_attention_bwd_route(self, *shape):
+        return self.route if shape[-1] in (-1, self.route) else -1
+
+    def vit_fused_cross_attention_bwd_scratch(self, *shape):
+        return 4096
+
+    def vit_fused_cross_attention_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def cross_lib(monkeypatch):
+    from vit_tpu_torch.ops import fused_cross_attention as fca
+
+    def make(route):
+        lib = _CrossRecorder(route)
+        monkeypatch.setattr(fca._build, "load", lambda: lib)
+        monkeypatch.setattr(fca, "_BACKWARD_PLANS", {})
+        monkeypatch.setattr(fca, "check_kernel_tensors", lambda *args: None)
+        monkeypatch.setattr(fca, "launch_stream", lambda x: 0)
+        monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+        return fca, lib
+    return make
+
+
+def _cross_operands(b, n, n_k, c, heads, dh_k, dh_v):
+    hk, hv = heads * dh_k, heads * dh_v
+    dy, q, oattn = (torch.zeros(b, n, w, dtype=BF16) for w in (c, hk, hv))
+    k, v = torch.zeros(b, n_k, hk, dtype=BF16), torch.zeros(b, n_k, hv, dtype=BF16)
+    lse = torch.zeros(b, heads, n)
+    wq, wo = torch.zeros(hk, c, dtype=BF16), torch.zeros(c, hv, dtype=BF16)
+    return dy, q, k, v, oattn, lse, wq, wo
+
+
+@pytest.mark.parametrize("b,n,n_k,c,heads,dh_k,dh_v,route", [
+    (2, 4096, 64, 64, 2, 40, 32, 1),   # ScalableViT's SSA stages 1-4: cross_bwd
+    (2, 1024, 64, 128, 4, 40, 32, 1),
+    (2, 256, 64, 256, 8, 40, 32, 2),
+    (2, 64, 64, 512, 16, 32, 32, 2),
+    (2, 100, 49, 72, 3, 64, 64, 1),    # ragged n and c, 7 x 7 keys, (64, 64) heads
+])
+def test_cross_backward_operands_are_views_a_map_takes(cross_lib, b, n, n_k, c, heads, dh_k,
+                                                       dh_v, route):
+    """The cross-attention backward passes dy, q, k, v, oattn, lse, Wq and Wo
+    to C as they lie (no copy), and each is a view that cross_bwd's tensor
+    maps take with the strides C builds them from: dy an image's (n, c) rows
+    (its head axis size 1), q, k, v and oattn channel-packed, a head h·d
+    elements into each row (the C side's packed_strides), Wo's heads its
+    dh_v-column slices of c rows, Wq one (hk, c) matrix; lse contiguous f32,
+    read per row; the route asked for is the shape's own (-1)."""
+    fca, lib = cross_lib(route)
+    ops = _cross_operands(b, n, n_k, c, heads, dh_k, dh_v)
+    dy, q, k, v, oattn, lse, wq, wo = ops
+    hk, hv = heads * dh_k, heads * dh_v
+    fca._launch_backward(*ops, heads, dh_k, dh_v, dh_k ** -0.5)
+    (args,) = lib.calls
+    assert args[:8] == tuple(t.data_ptr() for t in ops)
+    assert args[14:21] == (b, n, n_k, c, heads, dh_k, dh_v) and args[22] == -1
+    views = {
+        "dy": (dy.unsqueeze(1), [n * c, 8, c]),
+        "q": (fap.split_heads(q, heads), [n * hk, dh_k, hk]),
+        "oattn": (fap.split_heads(oattn, heads), [n * hv, dh_v, hv]),
+        "k": (fap.split_heads(k, heads), [n_k * hk, dh_k, hk]),
+        "v": (fap.split_heads(v, heads), [n_k * hv, dh_v, hv]),
+        "wo": (wo.unflatten(-1, (heads, dh_v)).transpose(0, 1).unsqueeze(0), [8, dh_v, hv]),
+        "wq": (wq[None, None], [8, 8, c]),
+    }
+    for name, (view, strides) in views.items():
+        assert _tma_problem(view) is None, name
+        assert list(kernel_strides(view)) == strides, name
+    assert lse.dtype == torch.float32 and lse.is_contiguous()
+    assert fca.BACKWARD_ROUTES[route].launches > 0
+
+
+@pytest.mark.parametrize("c,dh_k,dh_v,route,match", [
+    (60, 40, 32, None, "c % 8"),      # rows of 120 bytes
+    (64, 16, 24, None, "dh_k"),       # no instance for (16, 24)
+    (64, 40, 40, None, "dh_k"),
+    (256, 40, 32, 1, "route 1"),      # the one kernel stops at 128 channels
+])
+def test_cross_backward_refuses_what_no_map_takes_before_any_launch(cross_lib, c, dh_k, dh_v,
+                                                                    route, match):
+    """Widths no tensor map or instance takes, and a route the shape cannot
+    take, raise before the library is called."""
+    fca, lib = cross_lib(2)
+    ops = _cross_operands(2, 64, 64, c, 2, dh_k, dh_v)
+    before = fca.fused_cross_attention_backward.launches
+    with pytest.raises(ValueError, match=match):
+        fca._launch_backward(*ops, 2, dh_k, dh_v, 0.1, route)
+    assert lib.calls == [] and fca.fused_cross_attention_backward.launches == before

@@ -140,7 +140,8 @@ def child() -> dict:
     cs.biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
     cs.cross_attention_phase(torch, results, smi)
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
-    keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased")
+    keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased",
+            "four steps", "split")
     torch.cuda.empty_cache()
     return {"card": smi, "steps": step_times(torch, cs), "kernels": {
         name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}

@@ -51,19 +51,54 @@
 // k, v channel-packed through their strides, linear.cu's output GEMM with the
 // bias + residual epilogue, q and oattn through device memory.
 //
-// Backward, four steps:
-//   1. linear dy·Wo (kWeightKN)                     -> doattn = T(dy·Wo)
-//   2. the (dh_k, dh_v) flash backward: D = rowsum(doattn∘oattn), dq, then dk
-//      and dv from lse (no statistics pass; the TPU recomputed the softmax and
-//      Σ dp·p)                                      -> dq, dk, dv
-//   3. linear dq·Wq (kWeightKN)                     -> dxn = T(dq·Wq)
-//   4. fixed-order column sums of dy in f32         -> dbo
-// The weight gradients dWq = dqᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs
-// outside, as the TPU left them to XLA (:330-338).  dk and dv flow back into
-// the strided convolutions, dy straight into the residual.  The dk/dv pass
-// gets only b·heads CTAs at n_k = 64 (128 at stage 1), each looping over
-// every query tile: under one wave on 132 SMs (split-q with a fixed-order
-// reduction is later work).
+// Backward (cross_bwd, route 1 up to 128 channels): one CTA of one
+// warpgroup per (image, span of 64-row query blocks), the spans sized in C
+// (cross_bwd_plan) so the CTAs fill the card: at ScalableViT stage 1, batch
+// 64, 4 spans of 1024 rows, 256 CTAs at two an SM, where the four-step
+// backward's dk/dv pass had b·heads = 128 CTAs each walking 4096 queries
+// (under one wave on 132 SMs).  Heads are the outer loop, so a head's f32
+// dk_h and dv_h stay in registers across the span; per head, the head's k_h,
+// v_h and Wo_h columns (dh_v of them, c rows) arrive once by TMA, then per
+// block, through a ring of up to 4 stages on mbarriers, the dy block and q_h:
+//   doattn_h = T(dy·Wo_h) on wgmma (Wo_h MN-major), into shared memory only;
+//   s = q_h·k_hᵀ, p = exp(s·scale - lse) from the forward's lse (the keys fit
+//     one tile, n_k <= 128), dp = doattn_h·v_hᵀ with doattn_h as register A,
+//     and the TPU kernel's own dsum = Σ p·dp (:150: the whole row of p and dp
+//     is in registers), not D = rowsum(dO∘O) from a stored output, which
+//     this route never reads;
+//   ds = T(p·(dp - dsum)·scale); dq_h = T(ds·k_h) with ds as register A,
+//     stored (the dWq GEMM outside reads dq);
+//   T(p) and T(ds) go to shared tiles, and dk_h += T(ds)ᵀ·q_h, dv_h +=
+//     T(p)ᵀ·doattn_h run on wgmma with both operands MN-major (ss_tt).
+// After the heads, per block, dxn = T(dq·Wq) over K = heads·dh_k (the TPU's
+// :178-180), the span's dq blocks read back by TMA through a ring in the
+// memory the head loop used, beside Wq; the dy blocks' f32 column sums (dbo)
+// are taken during the first head.  Each CTA writes its f32 dk, dv and dbo
+// partials to one scratch buffer (dk and dv rounded directly where one span
+// takes the image); cross_bwd_reduce sums them over the spans in a fixed
+// order and rounds dk and dv once: no atomics, the same bits every run.  The
+// rounding points are the TPU kernel's (:138-180).
+// From 129 channels (ScalableViT stages 3-4, c 256 and 512) one kernel would
+// hold c / 2 f32 of dxn a thread and a Wq of up to 160 KB beside the ring:
+// there cross_bwd runs over head groups with doattn read by TMA and no dxn
+// (route 2), between launch_dgrad's dy·Wo (n = heads·dh_v) and dq·Wq (n = c),
+// gemm_wgmma from n 256, and fixed-order column sums of dy for dbo.  Past n_k
+// 128 (ScalableViT at 384 px, no main path) the four steps of the earlier
+// design stay (route 0): linear.cu's dy·Wo, the (dh_k, dh_v) flash backward
+// (D from the stored oattn), linear.cu's dq·Wq, column sums.  The weight
+// gradients dWq = dqᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs outside, as
+// the TPU left them to XLA (:330-338).
+// Bound on the H100 at stage 1, batch 64: about 188 MB of dy, q, oattn and
+// lse in and dxn and dq out (chip_smoke.py's cross_bounds, which counts
+// oattn though this route does not read it), 0.056 ms at 3.35 TB/s, against
+// about 17 GFLOP (0.017 ms): the bytes bound it.  The kernel moves about 230
+// MB (dy a second time for the second head, dq back for dxn), its loop waits
+// on wgmma and on TMA in turn with one warpgroup a CTA, and dxn's pass reads
+// in a window of its own after the heads (PERF.md has the card's times).
+// ptxas (sm_90a, bf16; f16 the same; chip_smoke.py's ptxas line): (40, 32)
+// and 64 keys 211 registers, no spill; (32, 32) 185; (64, 64) 241; the
+// 128-key instances (no ScalableViT shape at 256 px) 255 with 152-1044
+// bytes spilled.
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
 
@@ -451,6 +486,625 @@ cudaError_t cross_fwd_dispatch(const void* x, const void* xn, const void* wq, co
   return cudaErrorInvalidValue;
 }
 
+// ---- backward: cross_bwd ------------------------------------------------------------------
+
+constexpr int kBwdMaxStages = 4;       // the deepest ring of items (one head over one 64-row block)
+constexpr int kBwdFusedMaxC = 128;     // widest c whose dxn (c / 2 f32 a thread) cross_bwd keeps
+constexpr int kBwdMaxHk = 256;         // dxn's K = heads·dh_k (its dq blocks, 64 x 256 at most)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmemPerSM = 233472;     // an SM's shared memory (228 KB)
+constexpr int kBwdMaxCtasPerSM = 2;    // 128 threads at up to 255 registers: two CTAs an SM
+
+// The tiles of a (DK, DV, NK) instance over 64-row blocks: q_h and doattn_h
+// (64 rows), T(p) and T(ds) (64 rows of NK keys), k_h and v_h (NK keys), and,
+// where cross_bwd takes the dgrads (cw > 0), the dy block (64 x cw) and Wo_h
+// (cw rows of the head's dh_v columns).  The ring holds what TMA brings per
+// item (the dy block and q_h; q_h and doattn_h in the split); doattn_h, when
+// the threads write it, and T(p), T(ds) live once, outside the ring: they are
+// written and read within an item.
+template <int DK, int DV, int NK>
+struct CrossBwd {
+  static constexpr int PK = hopper::swizzled_width(DK), PV = hopper::swizzled_width(DV);
+  static constexpr int kSteps = pad16(DK) / 16;
+  using QTile = hopper::Tile<64, PK>;
+  using DTile = hopper::Tile<64, PV>;
+  using PTile = hopper::Tile<64, NK>;
+  using KTile = hopper::Tile<NK, PK>;
+  using VTile = hopper::Tile<NK, PV>;
+  __host__ __device__ static constexpr int head_bytes(int cw) {
+    return KTile::kBytes + VTile::kBytes + cw * PV * 2;
+  }
+  __host__ __device__ static constexpr int item_bytes(int cw) {
+    return cw ? 64 * cw * 2 + QTile::kBytes : QTile::kBytes + DTile::kBytes;
+  }
+  __host__ __device__ static constexpr int single_bytes(int cw) {
+    return (cw ? DTile::kBytes : 0) + 2 * PTile::kBytes;
+  }
+  // After the head loop Wq (round64(hk) rows of cw) and a ring of dq blocks
+  // (64 rows of round64(hk)) take the place of everything: at least one.
+  __host__ __device__ static constexpr int region(int cw, int hk, int stages) {
+    return head_bytes(cw) + single_bytes(cw) + stages * item_bytes(cw) >
+                   (cw ? round64(hk) * (cw + 64) * 2 : 0)
+               ? head_bytes(cw) + single_bytes(cw) + stages * item_bytes(cw)
+               : round64(hk) * (cw + 64) * 2;
+  }
+  __host__ __device__ static constexpr int smem(int cw, int hk, int stages) {
+    return region(cw, hk, stages) + (2 + 2 * kBwdMaxStages) * 8 + 1024;
+  }
+};
+
+// One CTA (128 threads, one warpgroup) per (span of 64-row query blocks,
+// image, group of gridDim.z's heads): the top of the file says what it
+// computes.  With a null dxn it reads doattn by TMA and leaves dxn and dbo to
+// the caller (the split from c > 128).  With one span (gridDim.x 1) it writes
+// dk and dv rounded, else f32 partials.  Thread 0 issues every TMA load; a
+// ring stage is refilled after the __syncthreads that ends its item, `stages`
+// - 1 items ahead.  After the heads, dxn's ring brings back the span's dq
+// blocks by TMA (the threads' stores made visible to it first).
+template <typename T, int DK, int DV, int NK>
+__global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
+    cross_bwd_kernel(const __grid_constant__ CUtensorMap dy_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap wo_map,
+                     const __grid_constant__ CUtensorMap wq_map,
+                     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+                     T* __restrict__ dq, T* __restrict__ dxn, T* __restrict__ dk_out,
+                     T* __restrict__ dv_out, float* __restrict__ part, int n, int n_k, int c,
+                     int heads, int bps, int stages, float scale) {
+  using C = CrossBwd<DK, DV, NK>;
+  using QTile = typename C::QTile;
+  using DTile = typename C::DTile;
+  using PTile = typename C::PTile;
+  using KTile = typename C::KTile;
+  using VTile = typename C::VTile;
+  constexpr int PK = C::PK, PV = C::PV;
+  const bool fused = dxn != nullptr, one_span = gridDim.x == 1;
+  const int cw = fused ? round64(c) : 0, hk = heads * DK, hv = heads * DV;
+  const int nb = (n + 63) / 64, j0 = blockIdx.x * bps, nbs = min(nb, j0 + bps) - j0;
+  const int b = blockIdx.y, images = gridDim.y, span = blockIdx.x;
+  const int hh = heads / gridDim.z, h0 = blockIdx.z * hh, items = hh * nbs;
+  const int item = C::item_bytes(cw), kr = round64(hk);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* k_t = hopper::align1024(smem_raw);  // the head's tiles
+  unsigned char* v_t = k_t + KTile::kBytes;
+  unsigned char* wo_t = v_t + VTile::kBytes;
+  unsigned char* rest = k_t + C::head_bytes(cw);  // the single tiles, the ring; Wq after
+  unsigned char* p_t = rest;
+  unsigned char* s_t = p_t + PTile::kBytes;
+  unsigned char* ring = s_t + PTile::kBytes + (fused ? DTile::kBytes : 0);
+  const int region = C::region(cw, hk, stages);
+  uint64_t* head_full = reinterpret_cast<uint64_t*>(k_t + region);
+  uint64_t* wq_full = head_full + 1;
+  uint64_t* full = wq_full + 1;
+  uint64_t* dq_full = full + kBwdMaxStages;
+
+  const int tid = threadIdx.x, t = tid % 4;
+  const int fr = (tid / 32) * 16 + (tid % 32) / 4;  // the thread's first fragment row
+  auto load_head = [&](int hi) {
+    hopper::mbar_expect_tx(head_full, C::head_bytes(cw));
+    KTile::load(k_t, 0, &k_map, head_full, 0, h0 + hi, b);
+    VTile::load(v_t, 0, &v_map, head_full, 0, h0 + hi, b);
+    if (fused) hopper::tma_load_head(wo_t, &wo_map, head_full, 0, 0, h0 + hi, 0);
+  };
+  auto load_item = [&](int i) {  // head h0 + i / nbs over block j0 + i % nbs
+    const int s = i % stages, j = j0 + i % nbs, h = h0 + i / nbs;
+    unsigned char* st = ring + s * item;
+    hopper::mbar_expect_tx(&full[s], item);
+    for (int cb = 0; cb < cw / 64; ++cb)
+      hopper::tma_load_head(st + cb * 64 * 128, &dy_map, &full[s], 64 * cb, 64 * j, 0, b);
+    QTile::load(st + 64 * cw * 2, 0, &q_map, &full[s], 64 * j, h, b);
+    if (!fused) DTile::load(st + QTile::kBytes, 0, &do_map, &full[s], 64 * j, h, b);
+  };
+  // The lse of the thread's two rows at item i (0 past n), in base-2 units.
+  auto load_lse = [&](int i, float (&l)[2]) {
+    const int row = 64 * (j0 + i % nbs) + fr, h = h0 + i / nbs;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l[r] = i < items && row + 8 * r < n
+                 ? lse[((size_t)b * heads + h) * n + row + 8 * r] * kLog2e
+                 : 0.f;
+  };
+  if (tid == 0) {
+    hopper::mbar_init(head_full, 1);
+    hopper::mbar_init(wq_full, 1);
+    for (int s = 0; s < kBwdMaxStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&dq_full[s], 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_head(0);
+    for (int i = 0; i < stages && i < items; ++i) load_item(i);
+  }
+
+  // dbo (fused): the thread's column pair over its share of each block's rows.
+  const int pairs = cw / 2, groups = pairs ? 128 / pairs : 1, pair = tid % (pairs ? pairs : 1),
+            grp = tid / (pairs ? pairs : 1);
+  float bo0 = 0.f, bo1 = 0.f;
+  float dk[NK / 64][PK / 2], dv[NK / 64][PV / 2];
+  const float scale_log2e = scale * kLog2e;
+  float lnext[2];
+  load_lse(0, lnext);
+  for (int hi = 0, i = 0; hi < hh; ++hi) {
+    const int h = h0 + hi;
+    hopper::mbar_wait(head_full, hi & 1);
+#pragma unroll
+    for (int mt = 0; mt < NK / 64; ++mt) {
+#pragma unroll
+      for (int e = 0; e < PK / 2; ++e) dk[mt][e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < PV / 2; ++e) dv[mt][e] = 0.f;
+    }
+    for (int jj = 0; jj < nbs; ++jj, ++i) {
+      const int s = i % stages, j = j0 + jj, row = 64 * j + fr;
+      unsigned char* dy_t = ring + s * item;
+      unsigned char* q_t = dy_t + 64 * cw * 2;
+      unsigned char* d_t = fused ? s_t + PTile::kBytes : q_t + QTile::kBytes;
+      const float lrow[2] = {lnext[0], lnext[1]};
+      load_lse(i + 1, lnext);  // the next item's, under this one's work
+      hopper::mbar_wait(&full[s], (i / stages) & 1);
+
+      // s = q_h·k_hᵀ; with it doattn_h = T(dy·Wo_h) (fused) or dp (doattn by TMA).
+      float sc[NK / 2], dp[NK / 2], oa[PV / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::kSteps; ++kk)
+        hopper::Wgmma<NK, T>::ss(sc, QTile::kmajor(q_t, 0, 16 * kk), KTile::kmajor(k_t, 0, 16 * kk),
+                                 kk);
+      if (fused) {
+        for (int kk = 0; kk < cw / 16; ++kk)
+          hopper::Wgmma<PV, T>::ss_t(oa, chunked_kmajor(dy_t, 64, 0, 16 * kk),
+                                     DTile::mnmajor(wo_t, 16 * kk), kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          hopper::Wgmma<NK, T>::ss(dp, DTile::kmajor(d_t, 0, 16 * kk),
+                                   VTile::kmajor(v_t, 0, 16 * kk), kk);
+      }
+      hopper::wgmma_commit();
+      if (fused && hi == 0)  // dbo: the dy block's rows past n arrive as zeros
+        for (int r = grp * (64 / groups); r < (grp + 1) * (64 / groups); ++r) {
+          const int col = 2 * pair, off = (col / 64) * 64 * 128 + r * 128 + (col % 64) * 2;
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(dy_t + (off ^ ((r & 7) << 4)));
+          const T* v2 = reinterpret_cast<const T*>(&w);
+          bo0 += Num<T>::to_f(v2[0]);
+          bo1 += Num<T>::to_f(v2[1]);
+        }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::fence_regs(oa);
+      uint32_t of[DV / 16][4];
+      if (fused) {  // dp = T(doattn_h)·v_hᵀ from registers; T(doattn_h) to its tile for dv
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk) hopper::a_fragment<T>(of[kk], oa, kk);
+#pragma unroll
+        for (int e = 0; e < NK / 2; ++e) dp[e] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          hopper::Wgmma<NK, T>::rs_k(dp, of[kk], VTile::kmajor(v_t, 0, 16 * kk));
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int jn = 0; jn < DV / 8; ++jn)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<uint32_t*>(d_t + DTile::at(fr + 8 * half, 8 * jn + 2 * t)) =
+                Num<T>::pack2(oa[4 * jn + 2 * half], oa[4 * jn + 2 * half + 1]);
+      }
+      // p = exp(s·scale - lse) from the forward's lse (base 2); 0 past n_k and n.
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * jn + 2 * t + (e & 1);
+          sc[4 * jn + e] = key < n_k && row + 8 * (e / 2) < n
+                               ? exp2f(sc[4 * jn + e] * scale_log2e - lrow[e / 2])
+                               : 0.f;
+        }
+      if (fused) {
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        hopper::fence_regs(of);
+      }
+      // dsum = Σ p·dp (the TPU kernel's, :150), ds = p·(dp - dsum)·scale.
+      float dsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e / 2] += sc[4 * jn + e] * dp[4 * jn + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) dsum[r] = quad_sum(dsum[r]);
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * jn + e] = sc[4 * jn + e] * (dp[4 * jn + e] - dsum[e / 2]) * scale;
+      // T(p) and T(ds) into their tiles; dq_h = T(ds)·k_h from registers.
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int at = PTile::at(fr + 8 * half, 8 * jn + 2 * t);
+          *reinterpret_cast<uint32_t*>(p_t + at) =
+              Num<T>::pack2(sc[4 * jn + 2 * half], sc[4 * jn + 2 * half + 1]);
+          *reinterpret_cast<uint32_t*>(s_t + at) =
+              Num<T>::pack2(dp[4 * jn + 2 * half], dp[4 * jn + 2 * half + 1]);
+        }
+      uint32_t dsf[NK / 16][4];
+#pragma unroll
+      for (int cc = 0; cc < NK / 16; ++cc) hopper::a_fragment<T>(dsf[cc], dp, cc);
+      float dqa[PK / 2];
+#pragma unroll
+      for (int e = 0; e < PK / 2; ++e) dqa[e] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int cc = 0; cc < NK / 16; ++cc)
+        hopper::Wgmma<PK, T>::rs(dqa, dsf[cc], KTile::mnmajor(k_t, 16 * cc));
+      hopper::wgmma_commit();
+      // dk_h += T(ds)ᵀ·q_h and dv_h += T(p)ᵀ·doattn_h over the block's rows.
+      hopper::fence_proxy_async();
+      __syncthreads();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < NK / 64; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hopper::Wgmma<PK, T>::ss_tt(dk[mt], PTile::mnmajor(s_t + mt * 64 * 128, 16 * kk),
+                                      QTile::mnmajor(q_t, 16 * kk), 1);
+          hopper::Wgmma<PV, T>::ss_tt(dv[mt], PTile::mnmajor(p_t + mt * 64 * 128, 16 * kk),
+                                      DTile::mnmajor(d_t, 16 * kk), 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dqa);
+      hopper::fence_regs(dsf);
+#pragma unroll
+      for (int mt = 0; mt < NK / 64; ++mt) {
+        hopper::fence_regs(dk[mt]);
+        hopper::fence_regs(dv[mt]);
+      }
+      hopper::store_fragment<T, PK>(dq + (size_t)b * n * hk + h * DK, hk, 64 * j, n, dqa, tid, DK);
+      __syncthreads();  // every thread is done with stage s and the single tiles
+      if (tid == 0 && i + stages < items) load_item(i + stages);
+    }
+    // dk_h and dv_h, keys as the fragment rows: rounded with one span, else
+    // this span's f32 partials.
+    const size_t kv_at = ((size_t)span * images + b) * n_k;
+    float* pk = part + kv_at * hk;
+    float* pv = part + (size_t)gridDim.x * images * n_k * hk + kv_at * hv;
+#pragma unroll
+    for (int mt = 0; mt < NK / 64; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = 64 * mt + fr + 8 * half;
+        if (key >= n_k) continue;
+#pragma unroll
+        for (int jn = 0; jn < PK / 8; ++jn) {
+          if (8 * jn >= DK) continue;
+          const size_t at = (size_t)key * hk + h * DK + 8 * jn + 2 * t;
+          const float a0 = dk[mt][4 * jn + 2 * half], a1 = dk[mt][4 * jn + 2 * half + 1];
+          if (one_span)
+            *reinterpret_cast<uint32_t*>(dk_out + (size_t)b * n_k * hk + at) =
+                Num<T>::pack2(a0, a1);
+          else
+            *reinterpret_cast<float2*>(pk + at) = make_float2(a0, a1);
+        }
+#pragma unroll
+        for (int jn = 0; jn < DV / 8; ++jn) {
+          const size_t at = (size_t)key * hv + h * DV + 8 * jn + 2 * t;
+          const float a0 = dv[mt][4 * jn + 2 * half], a1 = dv[mt][4 * jn + 2 * half + 1];
+          if (one_span)
+            *reinterpret_cast<uint32_t*>(dv_out + (size_t)b * n_k * hv + at) =
+                Num<T>::pack2(a0, a1);
+          else
+            *reinterpret_cast<float2*>(pv + at) = make_float2(a0, a1);
+        }
+      }
+    __syncthreads();  // the head's tiles are free
+    if (tid == 0 && hi + 1 < hh) load_head(hi + 1);
+  }
+  if (!fused) return;
+
+  // dbo: the groups' sums in order, this span's and image's partial (c,).
+  float* red = reinterpret_cast<float*>(rest);
+  red[grp * cw + 2 * pair] = bo0;
+  red[grp * cw + 2 * pair + 1] = bo1;
+  __syncthreads();
+  float* pb = part + (one_span ? 0 : (size_t)gridDim.x * images * n_k * (hk + hv)) +
+              ((size_t)span * images + b) * c;
+  for (int col = tid; col < c; col += 128) {
+    float acc = 0.f;
+    for (int g = 0; g < groups; ++g) acc += red[g * cw + col];
+    pb[col] = acc;
+  }
+  hopper::fence_proxy_async();  // TMA writes Wq where the threads wrote and read
+  __syncthreads();
+
+  // dxn = T(dq·Wq) per block, K = heads·dh_k: Wq (kr x cw) and a ring of
+  // the span's dq blocks (64 x kr) by TMA in everything's place.
+  const int dq_bytes = 64 * kr * 2, wq_bytes = kr * cw * 2;
+  const int stages2 = (region - wq_bytes) / dq_bytes < kBwdMaxStages
+                          ? (region - wq_bytes) / dq_bytes
+                          : kBwdMaxStages;
+  unsigned char* dq_ring = k_t + wq_bytes;
+  auto load_dq = [&](int jj) {
+    unsigned char* st = dq_ring + (jj % stages2) * dq_bytes;
+    hopper::mbar_expect_tx(&dq_full[jj % stages2], dq_bytes);
+    for (int kb = 0; kb < kr / 64; ++kb)
+      hopper::tma_load_head(st + kb * 64 * 128, &dq_map, &dq_full[jj % stages2], 64 * kb,
+                            64 * (j0 + jj), 0, b);
+  };
+  hopper::fence_proxy_async_global();  // this thread's dq stores, read back by TMA
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(wq_full, wq_bytes);
+    for (int nc = 0; nc < cw / 64; ++nc)
+      for (int kc = 0; kc < kr / 64; ++kc)
+        hopper::tma_load_head(k_t + nc * kr * 128 + kc * 64 * 128, &wq_map, wq_full, 64 * nc,
+                              64 * kc, 0, 0);
+    for (int jj = 0; jj < stages2 && jj < nbs; ++jj) load_dq(jj);
+  }
+  hopper::mbar_wait(wq_full, 0);
+  const int steps = pad16(hk) / 16;
+  for (int jj = 0; jj < nbs; ++jj) {
+    const unsigned char* dqt = dq_ring + (jj % stages2) * dq_bytes;
+    hopper::mbar_wait(&dq_full[jj % stages2], (jj / stages2) & 1);
+    float dx[kBwdFusedMaxC / 64][32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int nc = 0; nc < kBwdFusedMaxC / 64; ++nc)
+      if (nc < cw / 64)
+        for (int kk = 0; kk < steps; ++kk)
+          hopper::Wgmma<64, T>::ss_t(dx[nc], chunked_kmajor(dqt, 64, 0, 16 * kk),
+                                     hopper::Tile<64, 64>::mnmajor(k_t + nc * kr * 128, 16 * kk),
+                                     kk);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int nc = 0; nc < kBwdFusedMaxC / 64; ++nc) {
+      hopper::fence_regs(dx[nc]);
+      if (nc < cw / 64)
+        hopper::store_fragment<T, 64>(dxn + (size_t)b * n * c + 64 * nc, c, 64 * (j0 + jj), n,
+                                      dx[nc], tid, min(64, c - 64 * nc));
+    }
+    __syncthreads();  // every thread is done with the stage
+    if (tid == 0 && jj + stages2 < nbs) load_dq(jj + stages2);
+  }
+}
+
+// dk, dv = T(Σ over the spans of the f32 partials) in span order, four
+// elements a thread, one per thread of the first kv_blocks blocks; and
+// (fused) dbo = Σ over the spans and images of theirs, a block a column:
+// strided sums, then a fixed tree.  The same bits every run.  nk4, nv4: dk's
+// and dv's elements / 4.
+constexpr int kReduceThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    cross_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                            T* __restrict__ dv, float* __restrict__ dbo, int spans, long long nk4,
+                            long long nv4, int parts_bo, int c) {
+  const float4* pk = reinterpret_cast<const float4*>(part);
+  const float4* pv = pk + spans * nk4;
+  const float* pb = reinterpret_cast<const float*>(pv + spans * nv4);
+  const long long kv_blocks = (nk4 + nv4 + kReduceThreads - 1) / kReduceThreads;
+  if (blockIdx.x < kv_blocks) {
+    const long long i = blockIdx.x * (long long)kReduceThreads + threadIdx.x;
+    if (i >= nk4 + nv4) return;
+    const bool is_k = i < nk4;
+    const long long e = is_k ? i : i - nk4, n4 = is_k ? nk4 : nv4;
+    const float4* src = is_k ? pk : pv;
+    float4 acc = src[e];
+    for (int s = 1; s < spans; ++s) {
+      const float4 v = src[s * n4 + e];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    *reinterpret_cast<uint2*>((is_k ? dk : dv) + 4 * e) =
+        make_uint2(Num<T>::pack2(acc.x, acc.y), Num<T>::pack2(acc.z, acc.w));
+    return;
+  }
+  __shared__ float sums[kReduceThreads];
+  const int col = (int)(blockIdx.x - kv_blocks);
+  float acc = 0.f;
+  for (int p = threadIdx.x; p < parts_bo; p += kReduceThreads) acc += pb[(size_t)p * c + col];
+  sums[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = kReduceThreads / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) sums[threadIdx.x] += sums[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dbo[col] = sums[0];
+}
+
+// How a backward runs: route 1, cross_bwd with both dgrads and dbo inside
+// (c <= 128), then the reduction; route 2, the split: gemm_wgmma's dgrad for
+// doattn, cross_bwd over head groups, the dgrad for dxn, dbo's column sums,
+// the reduction where the spans are more than one; route 0, the four steps
+// (n_k > 128, wider heads).  `spans` x `groups` CTAs per image, a ring of
+// `stages`.
+struct BwdPlan {
+  int route, spans, bps, groups, stages, smem;
+};
+
+int sm_count() {
+  static int counts[64] = {0};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 132;
+  if (!counts[device] &&
+      cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    counts[device] = 132;
+  return counts[device];
+}
+
+// The shared memory of a cross_bwd instance with a ring of `stages`.
+int cross_bwd_smem_of(bool fused, int n_k, int c, int hk, int dh_k, int dh_v, int stages) {
+  const int cw = fused ? round64(c) : 0;
+#define VIT_CROSS_BWD_SMEM(DK, DV)                                                             \
+  if (dh_k == DK && dh_v == DV)                                                                \
+    return n_k <= 64 ? CrossBwd<DK, DV, 64>::smem(cw, hk, stages)                              \
+                     : CrossBwd<DK, DV, 128>::smem(cw, hk, stages);
+  VIT_CROSS_WIDTHS(VIT_CROSS_BWD_SMEM)
+#undef VIT_CROSS_BWD_SMEM
+  return kMaxSmem + 1;
+}
+
+// The route by shape (`force` -1), or the route asked for where the shape
+// takes it (0 always; 2 wherever cross_bwd does; 1 where it is the shape's
+// own), -1 otherwise; the ring: the deepest (up to 4) at which two CTAs
+// share an SM, else 2; the grid: spans of ceil(nb / spans) blocks and head
+// groups, chosen so the CTAs fill the card in the fewest rounds of the least
+// work a CTA (fewer CTAs, then fewer spans, on a tie).
+BwdPlan cross_bwd_plan(int b, int n, int n_k, int c, int heads, int dh_k, int dh_v, int force) {
+  BwdPlan plan{0, 1, 1, 1, 2, 0};
+  const int hk = heads * dh_k;
+  const bool one = cross_mode(b, n, n_k, c, heads, dh_k, dh_v) != 0;
+  const int own = !one ? 0
+                  : c <= kBwdFusedMaxC && hk <= kBwdMaxHk &&
+                          cross_bwd_smem_of(true, n_k, c, hk, dh_k, dh_v, 2) <= kMaxSmem
+                      ? 1
+                      : 2;
+  plan.route = force < 0 ? own : force == 0 || force == own || (force == 2 && one) ? force : -1;
+  if (plan.route <= 0) return plan;
+  const bool fused = plan.route == 1;
+  for (int stages = kBwdMaxStages; stages >= 2; --stages) {
+    plan.stages = stages;
+    plan.smem = cross_bwd_smem_of(fused, n_k, c, hk, dh_k, dh_v, stages);
+    if (kBwdMaxCtasPerSM * (plan.smem + 1024) <= kSmemPerSM) break;
+  }
+  const int per_sm = kSmemPerSM / (plan.smem + 1024) < kBwdMaxCtasPerSM
+                         ? kSmemPerSM / (plan.smem + 1024)
+                         : kBwdMaxCtasPerSM;
+  const long long slots = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  const int nb = (n + 63) / 64;
+  long long best_cost = -1, best_ctas = 0;
+  for (int hh = heads; hh >= 1; --hh) {
+    if (heads % hh || (fused && hh != heads) || heads / hh > 65535) continue;
+    for (int spans = 1; spans <= nb; ++spans) {
+      const int bps = (nb + spans - 1) / spans;
+      if ((nb + bps - 1) / bps != spans) continue;
+      const long long ctas = (long long)b * spans * (heads / hh);
+      const long long cost = (ctas + slots - 1) / slots * bps * hh;
+      if (best_cost < 0 || cost < best_cost ||
+          (cost == best_cost && (ctas < best_ctas || (ctas == best_ctas && spans < plan.spans)))) {
+        best_cost = cost;
+        best_ctas = ctas;
+        plan.spans = spans;
+        plan.bps = bps;
+        plan.groups = heads / hh;
+      }
+    }
+  }
+  return plan;
+}
+
+size_t align256(size_t v) { return (v + 255) / 256 * 256; }
+
+// The scratch a route carves from one buffer, in bytes, in this order:
+// route 0: doattn (rows, hv), dsum (b, heads, n) f32, the column sums' f32
+// part; route 2: doattn, the column sums' part, the partials; route 1: the
+// partials.  The partials, f32: dk and dv per span (more than one span only)
+// and, route 1, dbo per span and image.
+struct BwdScratch {
+  size_t dsum, colsum, partials, total;
+};
+
+BwdScratch cross_bwd_scratch(const BwdPlan& plan, int b, int n, int n_k, int c, int heads,
+                             int dh_k, int dh_v) {
+  const size_t rows = (size_t)b * n, hk = (size_t)heads * dh_k, hv = (size_t)heads * dh_v;
+  BwdScratch s{0, 0, 0, 0};
+  const size_t doattn = plan.route != 1 ? align256(rows * hv * 2) : 0;
+  const size_t dsum = plan.route == 0 ? align256((size_t)b * heads * n * 4) : 0;
+  const size_t colsum = plan.route != 1 ? align256((size_t)ln_bwd_partial_rows((int)rows) * c * 4)
+                                        : 0;
+  s.dsum = doattn;
+  s.colsum = s.dsum + dsum;
+  s.partials = s.colsum + colsum;
+  const size_t kv = plan.route > 0 && plan.spans > 1 ? (size_t)n_k * (hk + hv) : 0;
+  const size_t bo = plan.route == 1 ? (size_t)c : 0;
+  s.total = s.partials + (size_t)plan.spans * b * (kv + bo) * 4;
+  return s;
+}
+
+template <typename T, int DK, int DV, int NK>
+cudaError_t cross_bwd_t(const BwdPlan& plan, const void* dy, const void* q, const void* doattn,
+                        const void* k, const void* v, const float* lse, const void* wq,
+                        const void* wo, void* dxn, void* dq, void* dk, void* dv, float* dbo,
+                        float* part, int b, int n, int n_k, int c, int heads, float scale,
+                        cudaStream_t stream) {
+  constexpr int dt = hopper::dtype_of<T>();
+  using C = CrossBwd<DK, DV, NK>;
+  const bool fused = plan.route == 1;
+  const int hk = heads * DK, hv = heads * DV, cw = fused ? round64(c) : 0;
+  thread_local int ready = -1;
+  cudaError_t err = prepare_kernel(ready, cross_bwd_kernel<T, DK, DV, NK>, kMaxSmem);
+  const long long act_st[3] = {(long long)n * c, 8, c};  // dy: (b, n, c) per image
+  long long st[12], wo_st[3] = {8, DV, hv};
+  packed_strides(st, n, heads, DK);        // q
+  packed_strides(st + 3, n_k, heads, DK);  // k
+  packed_strides(st + 6, n_k, heads, DV);  // v
+  packed_strides(st + 9, n, heads, DV);    // doattn
+  const long long dq_st[3] = {(long long)n * hk, 8, hk};  // dq: (b, n, hk) per image
+  CUtensorMap dy_map, q_map, do_map, k_map, v_map, wo_map, wq_map, dq_map;
+  if (err == cudaSuccess) err = head_map(&q_map, q, dt, DK, n, heads, b, st, C::QTile::kChunk, 64);
+  if (err == cudaSuccess)
+    err = head_map(&k_map, k, dt, DK, n_k, heads, b, st + 3, C::KTile::kChunk, NK);
+  if (err == cudaSuccess)
+    err = head_map(&v_map, v, dt, DV, n_k, heads, b, st + 6, C::VTile::kChunk, NK);
+  if (err == cudaSuccess && fused) err = head_map(&dy_map, dy, dt, c, n, 1, b, act_st, 64, 64);
+  if (err == cudaSuccess && fused) err = head_map(&wo_map, wo, dt, DV, c, heads, 1, wo_st, C::PV, cw);
+  if (err == cudaSuccess && fused) err = matrix_map(&wq_map, wq, dt, c, hk, c, 64, 64);
+  if (err == cudaSuccess && fused) err = head_map(&dq_map, dq, dt, hk, n, 1, b, dq_st, 64, 64);
+  if (err == cudaSuccess && !fused)
+    err = head_map(&do_map, doattn, dt, DV, n, heads, b, st + 9, C::DTile::kChunk, 64);
+  if (err != cudaSuccess) return err;
+  if (!fused) dy_map = wo_map = wq_map = dq_map = q_map;  // unread
+  else do_map = q_map;
+  dim3 grid(plan.spans, b, plan.groups);
+  cross_bwd_kernel<T, DK, DV, NK><<<grid, 128, plan.smem, stream>>>(
+      dy_map, q_map, do_map, k_map, v_map, wo_map, wq_map, dq_map, lse, static_cast<T*>(dq),
+      fused ? static_cast<T*>(dxn) : nullptr, static_cast<T*>(dk), static_cast<T*>(dv), part, n,
+      n_k, c, heads, plan.bps, plan.stages, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long nk4 = plan.spans > 1 ? (long long)b * n_k * hk / 4 : 0;
+  const long long nv4 = plan.spans > 1 ? (long long)b * n_k * hv / 4 : 0;
+  const long long blocks = (nk4 + nv4 + kReduceThreads - 1) / kReduceThreads + (fused ? c : 0);
+  if (blocks == 0) return cudaSuccess;
+  cross_bwd_reduce_kernel<T><<<(unsigned)blocks, kReduceThreads, 0, stream>>>(
+      part, static_cast<T*>(dk), static_cast<T*>(dv), fused ? dbo : nullptr, plan.spans, nk4,
+      nv4, plan.spans * b, c);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t cross_bwd_dispatch(const BwdPlan& plan, const void* dy, const void* q,
+                               const void* doattn, const void* k, const void* v, const float* lse,
+                               const void* wq, const void* wo, void* dxn, void* dq, void* dk,
+                               void* dv, float* dbo, float* part, int b, int n, int n_k, int c,
+                               int heads, int dh_k, int dh_v, float scale, cudaStream_t stream) {
+#define VIT_CROSS_BWD(DK, DV)                                                                  \
+  if (dh_k == DK && dh_v == DV)                                                                \
+    return n_k <= 64 ? cross_bwd_t<T, DK, DV, 64>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, \
+                                                  dq, dk, dv, dbo, part, b, n, n_k, c, heads,  \
+                                                  scale, stream)                               \
+                     : cross_bwd_t<T, DK, DV, 128>(plan, dy, q, doattn, k, v, lse, wq, wo,     \
+                                                   dxn, dq, dk, dv, dbo, part, b, n, n_k, c,   \
+                                                   heads, scale, stream);
+  VIT_CROSS_WIDTHS(VIT_CROSS_BWD)
+#undef VIT_CROSS_BWD
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace vit
 
@@ -504,37 +1158,84 @@ extern "C" int vit_fused_cross_attention_fwd(const void* x, const void* xn, cons
                        kEpiBiasResidual, dtype, stream);
 }
 
+// The backward's route at this shape (cross_bwd_plan): 1, cross_bwd with the
+// dgrads inside, and its reduction; 2, the split (gemm_wgmma dgrads around
+// cross_bwd); 0, the four steps.  `force` -1 asks for the shape's own route,
+// 0, 1 or 2 for that one (the card's comparison of designs); -1 comes back
+// where the shape cannot take the route asked for.
+extern "C" int vit_fused_cross_attention_bwd_route(int b, int n, int n_k, int c, int heads,
+                                                   int dh_k, int dh_v, int force) {
+  return vit::cross_bwd_plan(b, n, n_k, c, heads, dh_k, dh_v, force).route;
+}
+
+// The bytes of the one scratch buffer the backward takes on that route.
+extern "C" long long vit_fused_cross_attention_bwd_scratch(int b, int n, int n_k, int c,
+                                                           int heads, int dh_k, int dh_v,
+                                                           int force) {
+  using namespace vit;
+  const BwdPlan plan = cross_bwd_plan(b, n, n_k, c, heads, dh_k, dh_v, force);
+  return plan.route < 0 ? -1
+                        : (long long)cross_bwd_scratch(plan, b, n, n_k, c, heads, dh_k, dh_v).total;
+}
+
 // Outputs dxn (rows, c), dq (rows, hk), dk (b, n_k, hk), dv (b, n_k, hv) in
 // the compute dtype and dbo (c,) f32, from dy (rows, c) and the forward's q,
-// k, v, oattn and lse.  Scratch: doattn (rows, hv) in the compute dtype,
-// dsum (b, heads, n) and part (vit_ln_bwd_partial_rows(rows), c) f32.
+// k, v, oattn and lse (oattn read by the four steps only).  `scratch`: the
+// bytes vit_fused_cross_attention_bwd_scratch gives for the same `force`.
 extern "C" int vit_fused_cross_attention_bwd(const void* dy, const void* q, const void* k,
                                              const void* v, const void* oattn, const float* lse,
                                              const void* wq, const void* wo, void* dxn, void* dq,
-                                             void* dk, void* dv, float* dbo, void* doattn,
-                                             float* dsum, float* part, int b, int n, int n_k,
-                                             int c, int heads, int dh_k, int dh_v, float scale,
-                                             int dtype, cudaStream_t stream) {
+                                             void* dk, void* dv, float* dbo, void* scratch, int b,
+                                             int n, int n_k, int c, int heads, int dh_k, int dh_v,
+                                             float scale, int force, int dtype,
+                                             cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, hk = heads * dh_k, hv = heads * dh_v;
-  if (rows <= 0) return cudaErrorInvalidValue;
-  long long st[24];
-  packed_strides(st, n, heads, dh_k);        // q
-  packed_strides(st + 3, n_k, heads, dh_k);  // k
-  packed_strides(st + 6, n_k, heads, dh_v);  // v
-  packed_strides(st + 9, n, heads, dh_v);    // oattn
-  packed_strides(st + 12, n, heads, dh_v);   // doattn
-  packed_strides(st + 15, n, heads, dh_k);   // dq
-  packed_strides(st + 18, n_k, heads, dh_k);  // dk
-  packed_strides(st + 21, n_k, heads, dh_v);  // dv
-  cudaError_t err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr,
-                                  nullptr, rows, hv, c, kEpiStore, dtype, stream);
+  if (rows <= 0 || (dtype != kBF16 && dtype != kF16)) return cudaErrorInvalidValue;
+  const BwdPlan plan = cross_bwd_plan(b, n, n_k, c, heads, dh_k, dh_v, force);
+  if (plan.route < 0) return cudaErrorInvalidValue;
+  const BwdScratch sc = cross_bwd_scratch(plan, b, n, n_k, c, heads, dh_k, dh_v);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  void* doattn = base;  // at 0
+  float* dsum = reinterpret_cast<float*>(base + sc.dsum);
+  float* colsum = reinterpret_cast<float*>(base + sc.colsum);
+  float* part = reinterpret_cast<float*>(base + sc.partials);
+  cudaError_t err = cudaSuccess;
+  if (plan.route == 0) {
+    long long st[24];
+    packed_strides(st, n, heads, dh_k);         // q
+    packed_strides(st + 3, n_k, heads, dh_k);   // k
+    packed_strides(st + 6, n_k, heads, dh_v);   // v
+    packed_strides(st + 9, n, heads, dh_v);     // oattn
+    packed_strides(st + 12, n, heads, dh_v);    // doattn
+    packed_strides(st + 15, n, heads, dh_k);    // dq
+    packed_strides(st + 18, n_k, heads, dh_k);  // dk
+    packed_strides(st + 21, n_k, heads, dh_v);  // dv
+    err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr, nullptr,
+                        rows, hv, c, kEpiStore, dtype, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_flash_bwd(q, k, v, oattn, lse, doattn, dq, dk, dv, dsum, st, b, heads, n, n_k,
+                           dh_k, dh_v, scale, dtype, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_linear(dq, wq, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows,
+                        c, hk, kEpiStore, dtype, stream);
+    if (err != cudaSuccess) return err;
+    return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
+  }
+  if (plan.route == 2) {
+    err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, hv, c, kEpiStore, dtype,
+                       stream);
+    if (err != cudaSuccess) return err;
+  }
+  err = dtype == kBF16
+            ? cross_bwd_dispatch<__nv_bfloat16>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, dq,
+                                                dk, dv, dbo, part, b, n, n_k, c, heads, dh_k,
+                                                dh_v, scale, stream)
+            : cross_bwd_dispatch<__half>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, dq, dk, dv,
+                                         dbo, part, b, n, n_k, c, heads, dh_k, dh_v, scale,
+                                         stream);
+  if (err != cudaSuccess || plan.route == 1) return err;
+  err = launch_dgrad(dq, wq, nullptr, dxn, nullptr, nullptr, rows, c, hk, kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_flash_bwd(q, k, v, oattn, lse, doattn, dq, dk, dv, dsum, st, b, heads, n, n_k, dh_k,
-                         dh_v, scale, dtype, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_linear(dq, wq, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows, c,
-                      hk, kEpiStore, dtype, stream);
-  if (err != cudaSuccess) return err;
-  return launch_column_sums(dy, part, dbo, rows, c, dtype, stream);
+  return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
 }

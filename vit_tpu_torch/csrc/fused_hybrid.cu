@@ -21,9 +21,17 @@
 //     GELU, keeping h in training -> g; the wgmma GEMM with bias and the
 //     residual y -> z.  The fused MLP's chain over y, on gemm_wgmma.cu's
 //     epilogues, which round where linear.cu's do.
-//   proj_mlp backward: the fused MLP's backward over (dz, y, h) -> dy, dh,
-//     gact, Σ db1 and [dγ | dβ | Σ dz = db2]; linear dy·Wo -> do; the column
-//     sums of dy -> dbo.
+//   proj_mlp backward (the TPU's _proj_mlp_bwd_kernel, :531): its three
+//     dgrads on launch_dgrad, gemm_wgmma with W as it lies (B MN-major) from
+//     n 256, as the fused MLP's and the attention block's backwards take
+//     theirs: dz·W2 with the dGELU epilogue (dh, gact, db1's column
+//     partials; n = hidden), dh·W1 into f32 (n = d), the LayerNorm backward
+//     -> dy, [dγ | dβ | Σ dz = db2], dy·Wo with the store epilogue -> do (n =
+//     inner); the column sums of dy -> dbo.  At ViT-B/32's layer every n is
+//     1024 or more, so all three run on gemm_wgmma (ptxas: 168 registers
+//     for its kernel's every instance; the dGELU instance spills 36/72
+//     bytes, the f32 and store instances none); linear.cu's mma.sync GEMM
+//     is left to narrower layers.
 // Rounding points: the TPU kernel sums o·Wo + bo + x in one f32 expression
 // and takes the LayerNorm's statistics from that unrounded y
 // (fused_hybrid.py:508-513).  Here the out-projection's epilogue rounds twice,
@@ -39,7 +47,8 @@
 // :737-746).  Bound on the H100 at ViT-B/32's layer (8320 rows, d 1024, inner
 // 1024, hidden 2048, bf16): ln_gemm 52.3 GFLOP each way (0.053 ms at 989
 // TFLOP/s), proj_mlp 87.2 GFLOP each way (0.088 ms): the tensor cores bound
-// both, as they bound the GEMMs of the block kernels (linear.cu).
+// both, so every GEMM here but ln_gemm's backward one (linear.cu's, for now)
+// runs on gemm_wgmma.
 #include "kernels.cuh"
 
 // `xn` (rows, d) is scratch when serving and the saved residual in training;
@@ -105,18 +114,18 @@ extern "C" int vit_proj_mlp_bwd(const void* dz, const void* y, const void* h,
                                 cudaStream_t stream) {
   using namespace vit;
   if (rows <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = launch_linear(dz, w2, kWeightKN, nullptr, nullptr, h, dh, gact, part_h, rows,
-                                  hidden, d, kEpiDGelu, dtype, stream);
+  cudaError_t err = launch_dgrad(dz, w2, h, dh, gact, part_h, rows, hidden, d, kEpiDGelu, dtype,
+                                 stream);
   if (err != cudaSuccess) return err;
   err = launch_colsum(part_h, linear_partial_rows(rows), hidden, sums_h, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(dh, w1, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows,
-                      d, hidden, kEpiStoreF32, dtype, stream);
+  err = launch_dgrad(dh, w1, nullptr, dxn, nullptr, nullptr, rows, d, hidden, kEpiStoreF32, dtype,
+                     stream);
   if (err != cudaSuccess) return err;
   err = launch_ln_bwd(y, dxn, gamma, dz, dy, stats, part_d, sums_d, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, do_, nullptr, nullptr, rows,
-                      inner, d, kEpiStore, dtype, stream);
+  err = launch_dgrad(dy, wo, nullptr, do_, nullptr, nullptr, rows, inner, d, kEpiStore, dtype,
+                     stream);
   if (err != cudaSuccess) return err;
   // part_d's first d columns are free again: its column sums above are done.
   return launch_column_sums(dy, part_d, dbo, rows, d, dtype, stream);

@@ -28,15 +28,17 @@
 // QKV, proj_mlp's out-projection, fc1 and fc2), and, through
 // launch_forward_gemm, the fused MLP's fc1 and fc2 and the attention block's
 // QKV and out-projection (fused_mlp.cu, fused_attention_block.cu); through
-// launch_dgrad, the dgrads of those two blocks' backwards.  Both send n < 256
+// launch_dgrad, the dgrads of those two blocks' backwards, of proj_mlp's
+// backward, and the cross-attention backward's dy·Wo and dq·Wq from 129
+// channels (fused_cross_attention.cu's split).  Both send n < 256
 // to linear.cu: ScalableViT's conv-MLPs have fc2 at n = 64 and 128 and dh·W1
 // at n = 64 and 128 over 262,144 and 65,536 rows, where a 256-wide tile
 // computes four or two times the products (the forward's threshold is a card
 // measurement at ScalableViT's four stage widths and the ViT widths,
 // chip_smoke.py's forward GEMM phase: from n = 256 this kernel wins, k = 64
 // included; at n = 128 the two tie, at n = 64 linear.cu wins).  linear.cu's
-// mma.sync kernel keeps those narrow GEMMs, the cross-attention block's and
-// the hybrid layer's backward GEMMs.
+// mma.sync kernel keeps those narrow GEMMs, the cross-attention block's
+// four-step backward's (past 128 keys) and ln_gemm's backward GEMM.
 //
 // Bound on the H100: at ViT-B/32's hybrid layer (8320 rows, d 1024, inner
 // 1024, hidden 2048, bf16) proj_mlp's three GEMMs are 87.2 GFLOP (0.088 ms at

@@ -148,6 +148,12 @@ struct Tile {
     const char* p = static_cast<const char*>(tile) + k0 * kRowBytes;
     return smem_desc(p, R * kRowBytes, 8 * kRowBytes, kRowBytes);
   }
+  // The byte offset of element (r, c) as TMA lays it out (chunk, row, swizzled
+  // 16-byte unit): where a thread stores a value that wgmma then reads.
+  static __device__ __forceinline__ int at(int r, int c) {
+    const int off = (c / kChunk) * R * kRowBytes + r * kRowBytes + (c % kChunk) * 2;
+    return off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4);
+  }
   // TMA: `rows` rows from row r of (head h, image b) into tile rows t0.., one box a chunk.
   // The map's box is (kChunk, rows); the bytes arrive on `bar`.
   static __device__ __forceinline__ void load(void* tile, int t0, const CUtensorMap* map,
@@ -176,6 +182,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// Makes the calling thread's stores to device memory visible to the async
+// proxy (a TMA load of them after a barrier).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 // Orders the compiler's accesses to registers that an asynchronous wgmma
 // writes after the wait that completes it (and before the next one).
 template <int R>
@@ -198,6 +209,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[C][4]) {
 //   ss: A and B from shared memory, both K-major; acc = 0 overwrites D.
 //   ss_t (N 32, 64 and 256): A K-major, B MN-major (the transpose bit), both
 //       from shared memory.
+//   ss_tt (N 32 and 64): A and B both MN-major (both transpose bits), from
+//       shared memory: Aᵀ·B of two tiles that share their rows (K).
 //   rs: A from registers (the mma.sync m16n8k16 A fragment of the warp's 16
 //       rows), B from shared memory MN-major (the transpose bit).
 //   rs_k (N 64 and 128): A from registers, B from shared memory K-major.
@@ -223,6 +236,17 @@ struct Wgmma;
                    "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" \
                    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
                    "%16, %17, p, 1, 1, 0, 1;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
+    } \
+    static __device__ __forceinline__ void ss_tt(float (&d)[16], uint64_t a, uint64_t b, \
+                                               int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+                   "%16, %17, p, 1, 1, 1, 1;\n}\n" \
                    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
                      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
                      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
@@ -265,6 +289,21 @@ struct Wgmma;
                    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
                    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
                    "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+                     "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+                     "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+                     "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+                   : "l"(a), "l"(b), "r"(acc)); \
+    } \
+    static __device__ __forceinline__ void ss_tt(float (&d)[32], uint64_t a, uint64_t b, \
+                                               int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+                   "%30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n" \
                    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
                      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
                      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \

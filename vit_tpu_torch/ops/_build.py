@@ -100,10 +100,10 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "vit_fused_cross_attention_bwd": (
-        # dy, q, k, v, oattn, lse, wq, wo, dxn, dq, dk, dv, dbo, doattn, dsum, part,
-        [_P] * 16
-        # b, n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream
-        + [_I] * 7 + [_F, _I, _P],
+        # dy, q, k, v, oattn, lse, wq, wo, dxn, dq, dk, dv, dbo, scratch,
+        [_P] * 14
+        # b, n, n_k, c, heads, dh_k, dh_v, scale, route asked for, dtype, stream
+        + [_I] * 7 + [_F, _I, _I, _P],
         ctypes.c_int,
     ),
     "vit_short_attention_fwd": (
@@ -153,6 +153,12 @@ SIGNATURES = {
     # The cross-attention forward's route at (b, n, n_k, c, heads, dh_k, dh_v):
     # 1 the one cross_fwd kernel, 2 cross_fwd and a GEMM for y, 0 three launches.
     "vit_fused_cross_attention_fused": ([_I] * 7, ctypes.c_int),
+    # The cross-attention backward's route at (b, n, n_k, c, heads, dh_k, dh_v)
+    # given the route asked for (-1: the shape's own): 1 one cross_bwd kernel
+    # and its reduction, 2 cross_bwd between two GEMMs, 0 four steps, -1 not
+    # at this shape; and the bytes of its one scratch buffer.
+    "vit_fused_cross_attention_bwd_route": ([_I] * 8, ctypes.c_int),
+    "vit_fused_cross_attention_bwd_scratch": ([_I] * 8, ctypes.c_longlong),
     # Key blocks of the short-attention backward at n_k keys and width d (its
     # dq_part).
     "vit_short_attention_parts": ([_I, _I], ctypes.c_int),

@@ -86,18 +86,22 @@ def flash_attention_forward_reference(q, k, v, scale: float | None = None):
     return torch.cat(outs).reshape(b, h, n_q, d), torch.cat(lses).reshape(b, h, n_q)
 
 
-def flash_backward_reference(q, k, v, o, lse, do, scale: float):
+def flash_backward_reference(q, k, v, o, lse, do, scale: float, exact_dsum: bool = False):
     """Plain PyTorch version of the backward kernels
     (``vit_tpu/ops/flash_backward.py:122-199``), step by step with their
     rounding points: ``(dq, dk, dv)`` in q's dtype, from the forward's ``o``
-    and ``lse`` and the output gradient ``do``."""
+    and ``lse`` and the output gradient ``do``.  ``exact_dsum`` takes the
+    softmax's dsum = Σ p·dp over the recomputed p (the cross-attention
+    block's one-kernel backward) instead of D = rowsum(dO∘O) from the stored
+    output (the flash kernels); in f32 the two agree."""
     dt = q.dtype
     grads = ([], [], [])
     for qc, kc, vc, oc, lc, dc in _head_groups(q, k, v, o, lse[..., None], do):
         qf, kf, vf, dof = qc.float(), kc.float(), vc.float(), dc.float()
-        dsum = (dof * oc.float()).sum(-1, keepdim=True)  # D = rowsum(dO∘O)
         p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lc)
-        ds = (p * (dof @ vf.transpose(-1, -2) - dsum) * scale).to(dt).float()
+        dp = dof @ vf.transpose(-1, -2)
+        dsum = (p * dp if exact_dsum else dof * oc.float()).sum(-1, keepdim=True)
+        ds = (p * (dp - dsum) * scale).to(dt).float()
         grads[0].append((ds @ kf).to(dt))
         grads[1].append((ds.transpose(-1, -2) @ qf).to(dt))
         grads[2].append((p.to(dt).float().transpose(-1, -2) @ dof).to(dt))

@@ -61,11 +61,14 @@ def flash_attention_packed_forward_reference(q, k, v, heads: int, scale: float |
 
 
 def flash_attention_packed_backward_reference(q, k, v, out, lse, dout, heads: int,
-                                              scale: float | None = None):
+                                              scale: float | None = None,
+                                              exact_dsum: bool = False):
     """Plain PyTorch version of the backward kernels over packed tensors:
-    ``(dq, dk, dv)`` shaped as q, k, v."""
+    ``(dq, dk, dv)`` shaped as q, k, v (``exact_dsum`` as
+    :func:`~vit_tpu_torch.ops.flash_attention.flash_backward_reference`)."""
     grads = flash_backward_reference(*(split_heads(t, heads) for t in (q, k, v, out)), lse,
-                                     split_heads(dout, heads), _scale(q, heads, scale))
+                                     split_heads(dout, heads), _scale(q, heads, scale),
+                                     exact_dsum)
     return tuple(merge_heads(g) for g in grads)
 
 

@@ -16,9 +16,12 @@ residual, at every shape it takes (``dh_k, dh_v`` of ``(32, 32)``, ``(40,
 32)`` or ``(64, 64)``, n_k ≤ 128: every ScalableViT SSA), from c = 256
 ``cross_fwd`` writing oattn and ``gemm_wgmma`` taking the output GEMM, the q
 GEMM, the ``(dh_k, dh_v)`` flash kernels and the output GEMM at other shapes;
-in the backward, the doattn and dxn GEMMs, the flash backward and the
-fixed-order ``dbo`` sums); on a CPU tensor both run their plain PyTorch versions,
-:func:`fused_cross_attention_forward_reference` and
+the backward at the same shapes one ``cross_bwd`` kernel and its fixed-order
+reduction up to 128 channels, from 129 ``cross_bwd`` between the doattn and
+dxn GEMMs on ``gemm_wgmma``, past 128 keys the doattn and dxn GEMMs, the
+flash backward and the fixed-order ``dbo`` sums; the C library gives the
+route, :func:`backward_route`); on a CPU tensor both run their plain PyTorch
+versions, :func:`fused_cross_attention_forward_reference` and
 :func:`fused_cross_attention_backward_reference`.
 
 What bounds it on the H100: at ScalableViT's stage 1 (batch 64, 4096 tokens of
@@ -28,16 +31,21 @@ channels, 8 heads) the GEMMs and the bytes are of one size.  The design keeps
 the ``(n, n_k)`` scores, q and oattn on chip, reads k and v channel-packed
 through their strides (no head split or merge), and fuses the bias and
 residual into the output GEMM's epilogue; the training forward writes q,
-oattn and lse for the backward, serving none of them.
+oattn and lse for the backward, serving none of them.  The backward at stage
+1 moves about 188 MB against 17 GFLOP, so bytes bound it too: ``cross_bwd``
+keeps doattn, p and ds on chip, reads no oattn, and splits each image's
+queries into spans that fill the card, their f32 dk and dv partials summed
+in a fixed order.
 
 Numerics, mirrored by the plain versions: ``q = T(xn·Wqᵀ)``; logits in f32;
 P rounded to the compute dtype for P·V and the f32 row sum divided out after
 it (``vit_tpu``'s late divide, ``:98-104``); oattn rounded; the residual adds
-in the compute dtype.  Backward: ``doattn = T(dy·Wo)``; the flash backward
-from the saved lse and ``D = rowsum(doattn∘oattn)`` (the TPU recomputed the
-softmax and took Σ dp·p: equal in f32); ``ds = T(p·(dp - D)·scale)``; dq, dk,
-dv rounded once; ``dxn = T(dq·Wq)``; ``dbo`` the f32 sum of dy.  In f32 the
-plain versions are exact attention and its gradient.
+in the compute dtype.  Backward: ``doattn = T(dy·Wo)``; p from the saved
+lse, ``dp = doattn·vᵀ`` and the TPU kernel's ``dsum = Σ p·dp`` (``:150``;
+the four-step route past 128 keys takes ``D = rowsum(doattn∘oattn)`` from
+the stored output instead: equal in f32); ``ds = T(p·(dp - dsum)·scale)``;
+dq, dk, dv rounded once; ``dxn = T(dq·Wq)``; ``dbo`` the f32 sum of dy.  In
+f32 the plain versions are exact attention and its gradient.
 
 Layouts: x, xn ``(b, n, c)``; k ``(b, n_k, heads·dh_k)``; v ``(b, n_k,
 heads·dh_v)``; ``wq`` ``(heads·dh_k, c)`` and ``wo`` ``(c, heads·dh_v)`` in
@@ -45,6 +53,8 @@ heads·dh_v)``; ``wq`` ``(heads·dh_k, c)`` and ``wo`` ``(c, heads·dh_v)`` in
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -84,16 +94,21 @@ def fused_cross_attention_reference(x, xn, wq, k, v, wo, bo, heads: int, dh_k: i
 
 
 def fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, heads: int,
-                                             dh_k: int, dh_v: int, scale: float | None = None):
+                                             dh_k: int, dh_v: int, scale: float | None = None,
+                                             stored_output_d: bool = False):
     """Plain PyTorch version of the backward kernels, step by step with their
     rounding points: ``(dxn, dq, dk, dv, dbo)``, the first four in the
-    compute dtype and the shapes of xn, q, k, v, ``dbo`` ``(c,)`` in f32."""
+    compute dtype and the shapes of xn, q, k, v, ``dbo`` ``(c,)`` in f32.
+    The softmax's dsum = Σ p·dp, as ``cross_bwd`` and the TPU kernel take it;
+    ``stored_output_d`` takes D = rowsum(doattn∘oattn) instead, as the
+    four-step backward (route 0 of :func:`backward_route`) does."""
     dt = dy.dtype
     c = dy.shape[-1]
     dy32 = dy.reshape(-1, c).float()
     doattn = (dy32 @ wo.float()).to(dt).reshape(oattn.shape)
     dq, dk, dv = flash_attention_packed_backward_reference(q, k, v, oattn, lse, doattn, heads,
-                                                           _scale(dh_k, scale))
+                                                           _scale(dh_k, scale),
+                                                           exact_dsum=not stored_output_d)
     dxn = (dq.reshape(-1, q.shape[-1]).float() @ wq.float()).to(dt).reshape(dy.shape)
     return dxn, dq, dk, dv, dy32.sum(0)
 
@@ -155,16 +170,48 @@ def _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale, training=
     return y, q, oattn, lse
 
 
+# The backward's launches by route (backward_route): 1 one cross_bwd kernel, 2
+# cross_bwd between two GEMMs, 0 the four steps.
+BACKWARD_ROUTES = {route: SimpleNamespace(launches=0) for route in (0, 1, 2)}
+# (shape, route asked for, device) -> (route, scratch bytes), from the library.
+_BACKWARD_PLANS = {}
+
+
+def backward_route(b: int, n: int, n_k: int, c: int, heads: int, dh_k: int, dh_v: int,
+                   route: int | None = None) -> int:
+    """The backward's route at a shape, as the C library decides it
+    (``cross_bwd_plan``): 1, one ``cross_bwd`` kernel with the doattn and dxn
+    GEMMs inside, and its reduction (up to 128 channels); 2, ``cross_bwd``
+    between those two GEMMs on ``gemm_wgmma`` (from 129); 0, the four steps
+    (past 128 keys, or head widths ``cross_bwd`` has no instance for).  With
+    ``route`` given: that route where the shape can take it (0 always, 2
+    wherever 1 or 2 is the shape's), else -1."""
+    return _build.load().vit_fused_cross_attention_bwd_route(
+        b, n, n_k, c, heads, dh_k, dh_v, -1 if route is None else route)
+
+
 def fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads: int, dh_k: int,
-                                   dh_v: int, scale: float | None = None):
+                                   dh_v: int, scale: float | None = None,
+                                   route: int | None = None):
     """The backward kernels: what :func:`fused_cross_attention_backward_reference`
-    returns.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``vit_fused_cross_attention_bwd`` (the same bits every run) or raises.
-    ``fused_cross_attention_backward.launches`` counts kernel launches."""
+    returns (with ``stored_output_d`` on route 0).  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``vit_fused_cross_attention_bwd``
+    (the same bits every run) on the shape's route, or on ``route`` where
+    the card's comparison of designs asks for one (:func:`backward_route`),
+    or raises.  ``fused_cross_attention_backward.launches`` counts kernel
+    launches and ``BACKWARD_ROUTES[r]`` those on route r."""
     scale = _scale(dh_k, scale)
     if dy.device.type == "cpu":
         return fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, heads,
                                                         dh_k, dh_v, scale)
+    return _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route)
+
+
+def _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route=None):
+    """``vit_fused_cross_attention_bwd`` on CUDA tensors, each passed as it
+    lies (the kernels read q, k, v, oattn and dy channel-packed through
+    their strides, Wq and Wo in nn.Linear layout), with the one scratch
+    buffer the library sizes for the route."""
     b, n, c = dy.shape
     n_k = k.shape[1]
     hk, hv = heads * dh_k, heads * dh_v
@@ -176,23 +223,29 @@ def fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads: int, 
         raise ValueError(f"fused_cross_attention backward: lse must be a contiguous f32 "
                          f"({b}, {heads}, {n}) tensor on {dy.device}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    rows = b * n
-    f32 = dict(dtype=torch.float32, device=dy.device)
     dxn, dq, dk, dv = (torch.empty_like(t) for t in (dy, q, k, v))
-    dbo = torch.empty(c, **f32)
-    doattn = torch.empty_like(oattn)
-    dsum = torch.empty((b, heads, n), **f32)
+    dbo = torch.empty(c, dtype=torch.float32, device=dy.device)
     lib = _build.load()
-    part = torch.empty((lib.vit_ln_bwd_partial_rows(rows), c), **f32)
+    shape = (b, n, n_k, c, heads, dh_k, dh_v, -1 if route is None else route)
     with torch.cuda.device(dy.device):
+        plan = _BACKWARD_PLANS.get((shape, dy.device))
+        if plan is None:  # the route, and the scratch bytes the device's SM count sets
+            plan = (lib.vit_fused_cross_attention_bwd_route(*shape),
+                    lib.vit_fused_cross_attention_bwd_scratch(*shape))
+            _BACKWARD_PLANS[(shape, dy.device)] = plan
+        taken, nbytes = plan
+        if taken < 0:
+            raise ValueError(f"fused_cross_attention backward: route {route} does not take "
+                             f"{shape[:-1]}")
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dy.device)
         err = lib.vit_fused_cross_attention_bwd(
             dy.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), oattn.data_ptr(),
             lse.data_ptr(), wq.data_ptr(), wo.data_ptr(), dxn.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), dbo.data_ptr(), doattn.data_ptr(), dsum.data_ptr(),
-            part.data_ptr(), b, n, n_k, c, heads, dh_k, dh_v, float(scale),
-            _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+            dk.data_ptr(), dv.data_ptr(), dbo.data_ptr(), scratch.data_ptr(), *shape[:-1],
+            float(scale), shape[-1], _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_cross_attention_bwd")
     fused_cross_attention_backward.launches += 1
+    BACKWARD_ROUTES[taken].launches += 1
     return dxn, dq, dk, dv, dbo
 
 

@@ -450,6 +450,13 @@ def proj_mlp_backward(dz, y, h, gamma, wo, w1, w2, eps: float = 1e-3):
     the launches."""
     if dz.device.type == "cpu":
         return proj_mlp_backward_reference(dz, y, h, gamma, wo, w1, w2, eps)
+    return _launch_proj_mlp_backward(dz, y, h, gamma, wo, w1, w2, eps)
+
+
+def _launch_proj_mlp_backward(dz, y, h, gamma, wo, w1, w2, eps):
+    """``vit_proj_mlp_bwd`` on CUDA tensors: its three dgrads (dz·W2 with the
+    dGELU epilogue and db1's partials, dh·W1 into f32, dy·Wo) read each
+    weight as it lies, ``(k, n)`` with n contiguous."""
     t, d = dz.shape
     inner, hidden = wo.shape[1], w1.shape[0]
     _check_widths("proj_mlp backward", d, inner, hidden)
