@@ -320,22 +320,55 @@ def interleaved_medians(torch, fns: dict, rounds: int, calls: int, warmup: int =
 def launch_breakdown(torch, fn, calls: int = 5) -> dict:
     """The device kernels one call of ``fn`` launches, by ``kernel_group``:
     ``{group: (device ms a call, launches a call)}``, from torch.profiler
-    over ``calls`` calls after one of warm-up."""
+    over ``calls`` calls after one of warm-up.  A profile can miss its first
+    kernels, so it opens with four of ``torch.cuda._sleep``'s spin kernels,
+    left out of the count."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     rows = {}
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in evt.key:
             ms, count = rows.get(kernel_group(evt.key), (0.0, 0.0))
             rows[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
                                            count + evt.count / calls)
     return rows
+
+
+def check_ln_epilogue(torch, name, fn, banned=()):
+    """The device kernels of one call of a backward whose LayerNorm backward
+    is the dgrad's epilogue (``gemm_wgmma.cu``'s kEpiLnBwd, at the widths of
+    ``ln_bwd_fused``), by :func:`launch_breakdown`: raises unless it launches
+    that instance once and neither of ``layernorm.cu``'s backward passes, nor
+    a kernel whose group starts with one of ``banned``.  Returns the
+    breakdown and the call's device ms."""
+    rows = launch_breakdown(torch, fn)
+    launches = rows.get(LN_EPILOGUE, (0.0, 0.0))[1]
+    bad = [g for g in rows if g in LN_PASSES or g.startswith(tuple(banned))]
+    if round(launches) != 1 or bad:
+        raise AssertionError(f"{name}: {launches:g} launches of {LN_EPILOGUE} a call (1 "
+                             f"expected) and {bad}: {rows}")
+    return rows, sum(ms for ms, _ in rows.values())
+
+
+def ln_library(torch, dxn32, x, gamma, eps):
+    """One ``torch.ops.aten.native_layer_norm_backward`` over the f32 dxn
+    ``(rows, d)`` with x and gamma in f32: PyTorch's call for the LayerNorm
+    backward the epilogue computes (dx_ln, dγ, dβ), the statistics made once
+    outside it."""
+    d = x.shape[-1]
+    x32, g32 = x.reshape(-1, d).float(), gamma.float()
+    b32 = torch.zeros_like(g32)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x32, [d], g32, b32, eps)
+    return lambda: torch.ops.aten.native_layer_norm_backward(dxn32, x32, [d], mean, rstd, g32,
+                                                             b32, [True, True, True])
 
 
 def block_error(torch, out, ref, x):
@@ -615,7 +648,8 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
     own outputs (dx and the γ, β and bias gradients) and once with the weight
     gradients too."""
     from vit_tpu_torch.layers.common import MLP, Attention, LayerNorm
-    from vit_tpu_torch.ops import fused_attention_block as fab, fused_mlp as fm
+    from vit_tpu_torch.ops import _build, fused_attention_block as fab, fused_mlp as fm
+    from vit_tpu_torch.ops import fused_hybrid as fh
     from vit_tpu_torch.ops._shared import weight_grad
 
     dev, dt, eps = torch.device("cuda"), torch.bfloat16, 1e-3
@@ -710,14 +744,14 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
     cases = {
         "fused_mlp_bwd": (fm.fused_mlp_backward, mlp_kernel,
                           lambda: fm.fused_mlp_backward_reference(dy, x, h, gamma, w1, w2, eps),
-                          mlp_whole, mlp),
+                          mlp_whole, mlp, w1),
         "fused_attention_block_bwd": (
             fab.fused_attention_block_backward, attn_kernel,
             lambda: fab.fused_attention_block_backward_reference(
                 dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps),
-            attn_whole, attn),
+            attn_whole, attn, wqkv),
     }
-    for name, (wrapper, kernel, plain, whole, module) in cases.items():
+    for name, (wrapper, kernel, plain, whole, module, w_ln) in cases.items():
         before, routes = wrapper.launches, fab.BACKWARD_ROUTES[route].launches
         out = kernel()
         torch.cuda.synchronize()
@@ -729,10 +763,18 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
         err = check_outputs(torch, name, out, plain(), {0: dy})
         if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
             raise AssertionError(f"{name}: two runs differ")
+        # Its LayerNorm backward is the dgrad's epilogue: no f32 dxn, no
+        # layernorm.cu passes; PyTorch's LayerNorm backward timed on the
+        # f32 dxn it keeps on chip (dh·W1 or dqkv·Wqkv, from its own output).
+        rows, device = check_ln_epilogue(torch, name, kernel)
+        grad_in = out[1].reshape(-1, out[1].shape[-1])
+        dxn32 = fh.gemm_wgmma(grad_in, w_ln, "f32", layout="kn")[0]
         ms = interleaved_medians(torch, {
             "kernel": kernel, "plain": plain, "whole": whole,
             "library": autograd_through(module, weights=False),
-            "library_whole": autograd_through(module, weights=True)}, rounds=5, calls=5)
+            "library_whole": autograd_through(module, weights=True),
+            "library_ln": ln_library(torch, dxn32, x, gamma, eps)}, rounds=5, calls=5)
+        del dxn32
         limit, by = block_bounds(b, n, d, heads, dim_head, hidden)[name]
         via = f", attention on the {route} route" if name == "fused_attention_block_bwd" else ""
         log(f"backward {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} h={hidden}]: "
@@ -741,8 +783,13 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             f"runs; ms kernel={ms['kernel']:.4f} "
             f"plain={ms['plain']:.4f} autograd through the bf16 modules for the same outputs="
             f"{ms['library']:.4f}; with the weight gradients: kernel+dW GEMMs="
-            f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by})")
-        results.setdefault(name, {})[tag] = dict(err=err, **ms, bound=(limit, by))
+            f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by}); "
+            f"device ms a call {device:.4f}, of it the LayerNorm-backward dgrad "
+            f"{rows[LN_EPILOGUE][0]:.4f} on {_build.load().vit_ln_bwd_clusters(d)} clusters of "
+            f"{d // 256} CTAs (no {' or '.join(LN_PASSES)}); "
+            f"native_layer_norm_backward on the same f32 dxn={ms['library_ln']:.4f}")
+        results.setdefault(name, {})[tag] = dict(err=err, **ms, device=device,
+                                                 bound=(limit, by))
 
 
 def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
@@ -933,6 +980,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
         elif got[5] is not None:
             raise AssertionError(f"biased backward {kind}: dbias computed unasked")
         del want, tpu, again
+        ln_rows, device = check_ln_epilogue(torch, f"biased backward {kind}", kernel)
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel,
             "unbiased": lambda: fab.fused_attention_block_backward(
@@ -954,13 +1002,15 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
             f"{bwd_ms['unbiased']:.4f} plain={bwd_ms['plain']:.4f} autograd through the bf16 "
             f"modules with SDPA for the same outputs={bwd_ms['library']:.4f}; with the weight "
             f"gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
-            f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]})")
+            f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]}); "
+            f"device ms a call {device:.4f}, of it the LayerNorm-backward dgrad "
+            f"{ln_rows[LN_EPILOGUE][0]:.4f} (no {' or '.join(LN_PASSES)})")
         key = kind if tag is None else f"{kind}, {tag}"
         results.setdefault("fused_attention_block_bias", {})[key] = dict(
             err=max(err, own_err, train_err), lse_err=lse_err, **fwd_ms, bound=fwd_bound)
         results.setdefault("fused_attention_block_bias_bwd", {})[key] = dict(
             err=bwd_err, dbias_err=dbias_err, dbias_vs_tpu_rel=dbias_tpu,
-            dbias_plain_gap_rel=plain_gap, **bwd_ms, bound=bwd_bound)
+            dbias_plain_gap_rel=plain_gap, **bwd_ms, device=device, bound=bwd_bound)
 
 
 # The blocks past 512 tokens, on the mha route: ViT-B/16 at 384 px (24² + 1 =
@@ -1614,8 +1664,10 @@ SHORT_SHAPES = [
 # biased block's and the cross-attention block's forward's are the parent
 # design's (mha_fwd / mha_bwd; q GEMM + flash forward + output GEMM); the
 # cross-attention block's backward's the four steps (linear.cu's dy·Wo, the
-# flash backward, linear.cu's dq·Wq, column sums), proj_mlp's backward's its
-# three dgrads on linear.cu.
+# flash backward, linear.cu's dq·Wq, column sums).  Rows 2, 4, 5 (backward),
+# 12 and 14's backwards: the design before the LayerNorm-backward epilogue
+# (PERF.md's table), the dgrad into the LayerNorm backward writing an f32 dxn
+# that layernorm.cu's passes read back, row 12's dgrad on linear.cu.
 DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_cross_attention": "one cross_fwd kernel (wgmma+tma): per head q = xn·Wq_h, "
                                     "softmax and P·V in registers, then y = oattn·Wo over the "
@@ -1626,13 +1678,23 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "short_attention_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
            "attention_nb_bwd": "tma ring, key block sized to n; mma.sync, wgmma at 129-256 keys",
            "fused_mlp_bwd": "dgrads on gemm_wgmma (wgmma+tma, warp-specialised, persistent, B "
-                            "MN-major, dGELU and f32 epilogues) from n 256, linear.cu below",
-           "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major; attention on "
-                                        "short_bwd up to 512 tokens, mha_bwd past them",
-           "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major; attention "
-                                             "on short_bwd with the bias (two 144-key blocks "
-                                             "at n 257) up to 512 tokens, dbias from its (lse, "
-                                             "D) in a fixed order; mha_bwd past them",
+                            "MN-major) from n 256, linear.cu below: dy·W2 with the dGELU "
+                            "epilogue, dh·W1 with the LayerNorm backward as its epilogue on a "
+                            "thread-block cluster (dxn on chip, row partials through DSMEM) "
+                            "at d % 256 == 0 in 256..2048",
+           "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major, dqkv·Wqkv with "
+                                        "the LayerNorm backward as its epilogue on a cluster "
+                                        "(dxn on chip); attention on short_bwd up to 512 "
+                                        "tokens, mha_bwd past them",
+           "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major, dqkv·Wqkv "
+                                             "with the LayerNorm backward as its epilogue on a "
+                                             "cluster; attention on short_bwd with the bias "
+                                             "(two 144-key blocks at n 257) up to 512 tokens, "
+                                             "dbias from its (lse, D) in a fixed order; mha_bwd "
+                                             "past them",
+           "ln_gemm_bwd": "dqkv·W on gemm_wgmma (B MN-major) with the LayerNorm backward, no "
+                          "residual, as its epilogue on a thread-block cluster: dxn on chip, "
+                          "row partials through DSMEM, fixed-order column sums",
            "fused_mlp": "fc1 and fc2 on gemm_wgmma (wgmma+tma, warp-specialised, persistent, "
                         "fused epilogues) from n 256, linear.cu below",
            "fused_attention_block": "QKV and out-projection on gemm_wgmma from n 256; attention "
@@ -1649,7 +1711,8 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
                                         "a fixed order; from c 129 cross_bwd over head groups "
                                         "between gemm_wgmma's dgrads; four steps past 128 keys",
            "proj_mlp_bwd": "three dgrads on gemm_wgmma (wgmma+tma, warp-specialised, "
-                           "persistent, B MN-major: dGELU, f32 and store epilogues)"}
+                           "persistent, B MN-major): dGELU, the LayerNorm backward on a "
+                           "cluster (dxn on chip), store"}
 EARLIER_DESIGN_MS = {
     "flash_attention": {"CvT-13@224 stage 1": 0.3540, "CvT-13@384 stage 1": 2.2336,
                         "CvT-13@384 stage 2": 0.5668, "n=8192, through the dispatcher": 6.7406},
@@ -1659,7 +1722,8 @@ EARLIER_DESIGN_MS = {
                                   "ScalableViT stage 3": 0.1601, "ScalableViT stage 4": 0.1118},
     "ln_gemm": {"B/32": 0.1517},
     "proj_mlp": {"B/32": 0.4404},
-    "proj_mlp_bwd": {"B/32": 0.5589},
+    "proj_mlp_bwd": {"B/32": 0.3592},
+    "ln_gemm_bwd": {"B/32": 0.2490},
     "flash_backward": {"CvT-13@224 stage 1": 1.3212, "CvT-13@384 stage 1": 8.2769,
                        "CvT-13@384 stage 2": 1.8241, "n=8192, through the dispatcher": 24.0999,
                        "n=4096, d=32": 9.6678},
@@ -1673,9 +1737,9 @@ EARLIER_DESIGN_MS = {
                             "n=512, d=64": 0.4995, "n=512, d=128": 0.7270,
                             "cross-attention, ragged": 0.1301},
     "attention_nb_bwd": {"B/32": 0.4285},
-    "fused_mlp_bwd": {"B/16": 0.7990, "B/32": 0.4599},
-    "fused_attention_block_bwd": {"B/16": 0.8373, "B/32": 0.6831},
-    "fused_attention_block_bias_bwd": {"lsa": 1.4647, "shared": 2.3904, "per-head": 2.1245},
+    "fused_mlp_bwd": {"B/16": 0.5082, "B/32": 0.3059},
+    "fused_attention_block_bwd": {"B/16": 0.4540, "B/32": 0.3488},
+    "fused_attention_block_bias_bwd": {"lsa": 1.0548, "shared": 1.9904, "per-head": 1.7430},
     "fused_mlp": {"B/16": 0.5743, "B/32": 0.3257},
     "fused_attention_block": {"B/16": 0.4872, "B/32": 0.4362},
     "fused_attention_block_bias": {"lsa": 0.6170, "shared": 0.6236, "per-head": 0.6210},
@@ -1879,12 +1943,16 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
     dy, do, dh, gact = twice("proj_mlp", proj_bwd, lambda: fh.proj_mlp_backward_reference(
         dz, y, h, ln2[0], wo, w1, w2, eps), {0: dz})[:4]
     do_nb = nb(do)
-    # Its three dgrads run on gemm_wgmma (launch_dgrad, n >= 256 here): none on linear.cu.
-    rows = launch_breakdown(torch, proj_bwd)
+    # Its three dgrads run on gemm_wgmma (launch_dgrad, n >= 256 here): none on
+    # linear.cu; dh·W1's epilogue is the LayerNorm backward.
+    rows, device = {}, {}
+    rows["proj_mlp"], device["proj_mlp"] = check_ln_epilogue(
+        torch, f"proj_mlp backward {shape}", proj_bwd, banned=("linear_kernel",))
     log(f"hybrid proj_mlp backward {shape}: device ms launch by launch "
-        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows.items()) + f" on {smi}")
-    if any(g.startswith("linear_kernel") for g in rows) or \
-            sum(cnt for g, (_, cnt) in rows.items() if g.startswith("gemm_wgmma")) != 3:
+        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows["proj_mlp"].items())
+        + f" on {smi}")
+    if sum(round(cnt) for g, (_, cnt) in rows["proj_mlp"].items()
+           if g.startswith("gemm_wgmma")) != 3:
         raise AssertionError(f"proj_mlp backward {shape}: its dgrads are not gemm_wgmma's three")
 
     def attn_bwd():
@@ -1901,6 +1969,17 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
 
     twice("ln_gemm", ln_bwd, lambda: fh.ln_gemm_backward_reference(dqkv, x, ln1[0], wqkv, eps),
           {})
+    # Its GEMM is the LayerNorm-backward dgrad: no linear_kernel.
+    rows["ln_gemm"], device["ln_gemm"] = check_ln_epilogue(
+        torch, f"ln_gemm backward {shape}", ln_bwd, banned=("linear_kernel",))
+    log(f"hybrid ln_gemm backward {shape}: device ms launch by launch "
+        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows["ln_gemm"].items())
+        + f" on {smi}")
+    # PyTorch's LayerNorm backward on the f32 dxn each keeps on chip.
+    ln_lib = {"ln_gemm": ln_library(torch, fh.gemm_wgmma(dqkv, wqkv, "f32", layout="kn")[0], x,
+                                    ln1[0], eps),
+              "proj_mlp": ln_library(torch, fh.gemm_wgmma(dh, w1, "f32", layout="kn")[0], y,
+                                     ln2[0], eps)}
 
     # The library compositions, bf16, with autograd for the backwards.
     leaf = {name: a.detach().requires_grad_() for name, a in dict(
@@ -1959,6 +2038,8 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
         fns = {"kernel": bk, "plain": bp, "library": bl}
         if bw is not None:
             fns.update(whole=bw, library_whole=blw)
+        if name in ln_lib:
+            fns.update(library_ln=ln_lib[name])
         bwd_ms = interleaved_medians(torch, fns, rounds=5, calls=5)
         fb, bb = bounds[name], bounds[name + "_bwd"]
         log(f"hybrid {name} {shape}: training forward within one bf16 unit plus "
@@ -1971,10 +2052,14 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
             f"{bwd_ms['library']:.4f}"
             + (f"; with the weight gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
                f"{bwd_ms['library_whole']:.4f}" if bw is not None else "")
+            + (f"; device ms a call {device[name]:.4f}, of it the LayerNorm-backward dgrad "
+               f"{rows[name][LN_EPILOGUE][0]:.4f}; native_layer_norm_backward on the same "
+               f"f32 dxn={bwd_ms['library_ln']:.4f}" if name in ln_lib else "")
             + f"; bound={bb[0]:.4f} ({bb[1]}) on {smi}")
         results.setdefault(name, {})[tag] = dict(err=errs[name], **fwd_ms, bound=fb)
-        results.setdefault(name + "_bwd", {})[tag] = dict(err=errs[name + "_bwd"], **bwd_ms,
-                                                          bound=bb)
+        results.setdefault(name + "_bwd", {})[tag] = dict(
+            err=errs[name + "_bwd"], **bwd_ms, bound=bb,
+            **({"device": device[name]} if name in device else {}))
 
 
 def hybrid_vit(fused_attention="hybrid", **kw):
@@ -2270,7 +2355,12 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
 
 # csrc/kernels.cuh Epilogue, for the names of the linear_kernel instances.
 EPILOGUES = {0: "store (QKV, doattn)", 1: "bias+GELU", 2: "bias+residual (out-proj, fc2)",
-             3: "bias+GELU, keeps h (fc1)", 4: "dGELU (dy·W2)", 5: "f32 out (dxn)"}
+             3: "bias+GELU, keeps h (fc1)", 4: "dGELU (dy·W2)", 5: "f32 out (dxn)",
+             6: "LN backward (dxn on chip)"}
+# The dgrad whose epilogue is the LayerNorm backward, and the LayerNorm
+# backward's passes over a stored f32 dxn that it replaces.
+LN_EPILOGUE = "gemm_wgmma_kernel " + EPILOGUES[6]
+LN_PASSES = ("ln_bwd_rows_kernel", "ln_bwd_cols_kernel")
 PROFILE_STEPS = 5  # profiled steps, after 3 of warm-up
 
 
@@ -2323,7 +2413,8 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels (copies, embedding, loss)"
 
 
-def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
+def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None, ln_epilogues=None,
+                  ln_passes=False):
     """Where a train step's device time goes: ``torch.profiler`` over a few
     steps of the training path.  Prints the wall time per step (host clock
     around synchronised steps, profiler off and on), the device's busy time
@@ -2336,7 +2427,10 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
     A first one-step profile, thrown away, takes the profiler's start-up out
     of the timed one.  Only the device's activity is recorded: the host's
     ops would add tens of thousands of events a step to process at a
-    launch-bound config, and its time is the enqueue time above."""
+    launch-bound config, and its time is the enqueue time above.  With
+    ``ln_epilogues``, raises unless a step launches the LayerNorm-backward
+    dgrad that many times and, unless ``ln_passes``, none of layernorm.cu's
+    backward passes."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -2397,6 +2491,13 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
     log("|---|---|---|")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"| {name} | {ms:.3f} | {count:g} |")
+    if ln_epilogues is not None:
+        launches = groups.get(LN_EPILOGUE, (0.0, 0.0))[1]
+        passes = [g for g in LN_PASSES if g in groups]
+        if round(launches) != ln_epilogues or (passes and not ln_passes):
+            raise AssertionError(f"profile {tag}: {launches:g} launches of {LN_EPILOGUE} a step "
+                                 f"({ln_epilogues} expected)"
+                                 + (f", and {passes}" if passes and not ln_passes else ""))
 
 
 def kernel_entry(results, by_path, name, src, tpu, main_shape):
@@ -2425,6 +2526,10 @@ def kernel_entry(results, by_path, name, src, tpu, main_shape):
             "shape": main_shape}
     if "whole" in r:
         line.update(whole_ms=r["whole"], library_whole_ms=r["library_whole"])
+    if "device" in r:  # the backwards whose LayerNorm backward is the dgrad's epilogue
+        line.update(device_ms=r["device"])
+    if "library_ln" in r:
+        line.update(library_ln_ms=r["library_ln"])
 
     def table(rows):  # the timed records (a training forward's check has no times)
         return {tag: {k: v for k, v in k_r.items() if k != "bound"}
@@ -2669,14 +2774,27 @@ def main() -> int:
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
     with clock("profiles"):
-        profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi)
-        profile_phase(torch, "ViT-B/32@256 hybrid (bench.py)", hybrid_vit, ENTRY, 128, 0, smi)
-        profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi)
-        profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi)
-        profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224)
-        profile_phase(torch, "CvT-13@384", CvT, CVT13, 64, 0, smi, size=384)
+        # The LayerNorm-backward dgrad: rows 2 and 4 (or 5) of every ViT
+        # layer, rows 12 and 14 on the hybrid tier, with no layernorm.cu
+        # backward pass; ScalableViT's conv-MLPs at stages 3-4 (256 and 512
+        # channels: d % 256 == 0), its narrower stages and its cross-attention
+        # blocks on the passes; none at CvT's widths.
+        two = 2 * ENTRY["depth"]
+        profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi,
+                      ln_epilogues=two)
+        profile_phase(torch, "ViT-B/32@256 hybrid (bench.py)", hybrid_vit, ENTRY, 128, 0, smi,
+                      ln_epilogues=two)
+        profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi, ln_epilogues=2 * B16["depth"])
+        profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi,
+                      ln_epilogues=2 * SMALL_DATASET["depth"])
+        profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224, ln_epilogues=0,
+                      ln_passes=True)
+        profile_phase(torch, "CvT-13@384", CvT, CVT13, 64, 0, smi, size=384, ln_epilogues=0,
+                      ln_passes=True)
+        wide = sum(2 * depth for i, depth in enumerate(SCALABLE["depth"])
+                   if (SCALABLE["dim"] << i) % 256 == 0)
         profile_phase(torch, "ScalableViT@256", ScalableViT, SCALABLE, 64, 0, smi,
-                      size=SCALABLE_SIZE)
+                      size=SCALABLE_SIZE, ln_epilogues=wide, ln_passes=True)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)

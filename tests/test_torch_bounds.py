@@ -134,6 +134,10 @@ def test_gemm_bound(raw):
      "gemm_wgmma_kernel dGELU (dy·W2)"),
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 5, 1>(CUtensorMap)",
      "gemm_wgmma_kernel f32 out (dxn)"),
+    # the dgrad whose epilogue is the LayerNorm backward (rows 2, 4, 12, 14)
+    ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 6, 1>(CUtensorMap, "
+     "CUtensorMap, vit::(anonymous namespace)::Operands<__nv_bfloat16>, int, int, int)",
+     "gemm_wgmma_kernel LN backward (dxn on chip)"),
     ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, false>(const "
      "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, int, int, float)",
      "mha_fwd_kernel"),

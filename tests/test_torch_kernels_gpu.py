@@ -1150,7 +1150,7 @@ DGRAD_SHAPES = [(8320, 1024, 1024), (8320, 2048, 1024), (8320, 1024, 2048), (832
                 (12608, 3072, 768), (12608, 768, 3072), (2111, 1024, 96), (4096, 64, 256),
                 (1000, 264, 136)]
 GEMM_CASES = [("nk", e, shape) for e in fh.GEMM_EPILOGUES for shape in GEMM_SHAPES] + \
-    [("kn", e, shape) for e in fh.DGRAD_EPILOGUES for shape in DGRAD_SHAPES]
+    [("kn", e, shape) for e in fh.DGRAD_EPILOGUES if e != "ln_bwd" for shape in DGRAD_SHAPES]
 
 
 @pytest.mark.parametrize("layout,epilogue,shape", GEMM_CASES)
@@ -1178,6 +1178,53 @@ def test_gemm_wgmma_epilogue_matches_plain(cuda, layout, epilogue, shape):
                   [ref[i] for i in kept], {0: res} if epilogue == "bias_residual" else {})
     again = fh.gemm_wgmma(a, w, epilogue, bias, res, h, layout)
     _twice([got[i] for i in kept], [again[i] for i in kept])
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows", [8320, 12608, 1000])
+@pytest.mark.parametrize("d", [256, 512, 768, 1024])
+def test_ln_bwd_epilogue_matches_plain(cuda, d, rows, residual):
+    """The dgrad whose epilogue is the LayerNorm backward (kEpiLnBwd, a
+    cluster of d / 256 CTAs), with the residual dy (rows 2, 4 and 14) and
+    without (row 12), at B/32's and B/16's rows and a ragged count: dx held
+    against its residual, dγ, dβ and Σ dy within DBIAS_REL_TOL·max|ref|, the
+    same bits on two runs."""
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + torch.randn(*shape, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    k = 2 * d
+    a, w = rn(rows, k, scale=0.1), rn(k, d, scale=k ** -0.5)
+    x, gamma = rn(rows, d, shift=0.5), rn(d, scale=0.1, shift=1.0)
+    dy = rn(rows, d, scale=0.1) if residual else None
+    before = fh.gemm_wgmma.launches
+    got = fh.gemm_wgmma(a, w, "ln_bwd", layout="kn", x=x, gamma=gamma, dy=dy)
+    torch.cuda.synchronize()
+    assert fh.gemm_wgmma.launches == before + 1
+    ref = fh.gemm_reference(a, w, "ln_bwd", layout="kn", x=x, gamma=gamma, dy=dy)
+    assert (got[3] is None) == (ref[3] is None) == (not residual)
+    check_outputs(torch, f"ln_bwd d={d}", got[:1], ref[:1], {0: dy} if residual else {})
+    for name, o, r in zip(("dgamma", "dbeta", "dsum"), got[1:], ref[1:]):
+        if r is not None:
+            check_dbias(torch, f"ln_bwd d={d}", o, r, name)
+    again = fh.gemm_wgmma(a, w, "ln_bwd", layout="kn", x=x, gamma=gamma, dy=dy)
+    _twice([o for o in got if o is not None], [o for o in again if o is not None])
+
+
+def test_ln_bwd_fused_is_the_c_predicate(cuda):
+    """C chooses the LayerNorm-backward dgrad by the widths the Python
+    wrappers allocate by, and runs each of its cluster sizes."""
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.ops._shared import ln_bwd_fused
+
+    lib = _build.load()
+    assert all(bool(lib.vit_ln_bwd_fused(d)) == ln_bwd_fused(d) for d in range(8, 4097, 8))
+    assert all(lib.vit_ln_bwd_clusters(d) > 0 for d in range(256, 2049, 256))
+    with pytest.raises(ValueError, match="ln_bwd"):
+        z = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
+        fh.gemm_wgmma(z, torch.zeros(64, 192, dtype=torch.bfloat16, device=cuda), "ln_bwd",
+                      layout="kn", x=z, gamma=z[0])
 
 
 @pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 33, 3, 32), (8, 80, 4, 64),

@@ -17,6 +17,9 @@ builds its own kernels, and runs
   cross-attention block's forward and backward at ScalableViT's four SSA
   shapes, and the hybrid layer's ops at B/32 (the control: the same GEMM
   kernel, none of the block kernels);
+- the device ms a call (``torch.profiler``'s kernel time) of the fused MLP's
+  and the attention block's backwards at ViT-B/16 and B/32 and of
+  ``ln_gemm``'s and ``proj_mlp``'s at B/32, on seeded bf16 inputs;
 - train steps (SGD, f32 parameters, bf16 compute) of CvT-13 at 224 and 384 px,
   ScalableViT at 256 px, the small-dataset ViT 256/16 and ViT-B/16 at 224 px,
   batch 64, and of ViT-B/32 at 256 px, batch 128, on rows 1-4 and on the
@@ -115,6 +118,66 @@ def step_times(torch, cs) -> dict:
     return out
 
 
+def backward_device(torch) -> dict:
+    """Device ms a call of rows 2 and 4's backwards (the fused MLP's, the
+    attention block's) at ViT-B/16 and bench.py's B/32 layer, and of rows 12
+    and 14's (``ln_gemm``'s, ``proj_mlp``'s) at B/32: the sum of the kernels
+    one call launches (``torch.profiler``, over five calls), on seeded bf16
+    inputs and the training forwards' residuals."""
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops import fused_hybrid as fh
+    from vit_tpu_torch.ops import fused_mlp as fm
+
+    dev, eps = torch.device("cuda"), 1e-3
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def device_ms(fn, calls=5):  # the profile opens with spin kernels it may drop
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.key) / 1e3 / calls
+
+    out = {}
+    for tag, (b, n, d, heads, dh, hidden) in {"B/16": (64, 197, 768, 12, 64, 3072),
+                                              "B/32": (128, 65, 1024, 16, 64, 2048)}.items():
+        inner = heads * dh
+        x, dy = rn(b, n, d), rn(b, n, d, scale=0.1)
+        gamma, beta = rn(d, scale=0.1, shift=1.0), rn(d, scale=0.1)
+        w1, b1, w2, b2 = (rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1),
+                          rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1))
+        wqkv, wo, bo = rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5), \
+            rn(d, scale=0.1)
+        _, _, h = fm._launch_forward(x, gamma, beta, w1, b1, w2, b2, eps, save_residuals=True)
+        out.setdefault("fused_mlp_bwd", {})[tag] = device_ms(
+            lambda: fm.fused_mlp_backward(dy, x, h, gamma, w1, w2, eps))
+        _, _, qkv, oattn, lse = fab._launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dh,
+                                                    dh ** -0.5, eps, training=True)
+        out.setdefault("fused_attention_block_bwd", {})[tag] = device_ms(
+            lambda: fab.fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh,
+                                                       dh ** -0.5, eps, oattn, lse))
+        if tag == "B/32":
+            t = b * n
+            x2, dz, h2 = x.reshape(t, d), dy.reshape(t, d), h.reshape(t, hidden)
+            dqkv = rn(t, 3 * inner, scale=0.1)
+            out["ln_gemm_bwd"] = {tag: device_ms(
+                lambda: fh.ln_gemm_backward(dqkv, x2, gamma, wqkv, eps))}
+            out["proj_mlp_bwd"] = {tag: device_ms(
+                lambda: fh.proj_mlp_backward(dz, x2, h2, gamma, wo, w1, w2, eps))}
+    return out
+
+
 def child() -> dict:
     """One checkout's run, in the checkout's own directory (the working
     directory): ``{"card": ..., "kernels": {kernel: {shape: {kernel, plain,
@@ -141,9 +204,12 @@ def child() -> dict:
     cs.cross_attention_phase(torch, results, smi)
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
     keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased",
+            "library_ln", "device",
             "four steps", "split")
     torch.cuda.empty_cache()
-    return {"card": smi, "steps": step_times(torch, cs), "kernels": {
+    device = backward_device(torch)
+    torch.cuda.empty_cache()
+    return {"card": smi, "steps": step_times(torch, cs), "device": device, "kernels": {
         name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}
         for name, rows in results.items()}}
 
@@ -162,7 +228,8 @@ def main(parent: str) -> int:
             raise SystemExit(f"ab_smoke: the {label} run failed (exit {proc.returncode})")
         result = json.loads(found[0][len("AB-JSON "):])
         print("AB", label, result["card"], json.dumps(
-            {"kernels": result["kernels"], "steps": result["steps"]}), flush=True)
+            {"kernels": result["kernels"], "steps": result["steps"],
+             "device": result["device"]}), flush=True)
         runs.append((label, result))
     means = {}
     for label, result in runs:
@@ -171,6 +238,9 @@ def main(parent: str) -> int:
                 if "kernel" in r:  # a training forward's check has no times
                     means.setdefault(f"{name} at {tag}, kernel", {}).setdefault(
                         label, []).append(r["kernel"])
+        for name, rows in result["device"].items():
+            for tag, ms in rows.items():
+                means.setdefault(f"{name} at {tag}, device", {}).setdefault(label, []).append(ms)
         for tag, r in result["steps"].items():
             for what in ("wall", "enqueue", "busy"):
                 means.setdefault(f"{tag}, {what}", {}).setdefault(label, []).append(r[what])

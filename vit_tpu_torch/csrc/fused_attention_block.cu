@@ -65,9 +65,11 @@
 //   2b. only when dbias is asked for: mha_dbias   -> dbias (hb, n, n) f32, in a
 //      fixed order, from the row statistics (lse, dsum) the route's backward
 //      wrote: mha_bwd's, or on the short route short_bwd's (lse, D)
-//   3. the dgrad dqkv·Wqkv into f32              -> dxn (rows, d)
-//   4. LayerNorm backward (layernorm.cu, shared with the MLP): dx = T(dy + T(dx_ln));
-//      Σ dxn·xhat, Σ dxn, Σ dy                   -> dγ, dβ, dbo
+//   3. the dgrad dqkv·Wqkv with the LayerNorm backward as its epilogue, the
+//      f32 dxn kept on chip (gemm_wgmma.cu's kEpiLnBwd; launch_dgrad_ln,
+//      shared with the MLP): dx = T(dy + T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy
+//                                                -> dγ, dβ, dbo
+//      (outside ln_bwd_fused's widths: dxn in f32, then layernorm.cu)
 // The two dgrads read the weights as they lie (kWeightKN) on gemm_wgmma.cu's
 // wgmma GEMM with B MN-major (below n = 256, linear.cu's; launch_dgrad).  The
 // weight gradients dWqkv = dqkvᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs
@@ -120,8 +122,9 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
 
 // Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and
 // sums_d = [dγ | dβ | dbo] (3·d,) in f32.  Scratch: doattn (rows, inner) in
-// the compute dtype; dxn (rows, d), stats (rows, 2) and part_d
-// (vit_ln_bwd_partial_rows(rows), 3·d) in f32.  `bias` (hb, n, n) f32, or
+// the compute dtype; part_d (vit_ln_bwd_partial_rows(rows), 3·d) in f32;
+// dxn (rows, d) and stats (rows, 2) in f32 where vit_ln_bwd_fused(d) is 0,
+// else null.  `bias` (hb, n, n) f32, or
 // null with hb = 0; `dbias` (hb, n, n) f32 and its scratch `dbias_part`
 // (vit_attention_dbias_parts(b, n, heads, hb), hb, n, n) f32, or both null
 // when dbias is not wanted.  The attention's route:
@@ -170,11 +173,8 @@ extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, cons
                            dim_head, scale, dtype, stream);
     if (err != cudaSuccess) return err;
   }
-  err = launch_dgrad(dqkv, wqkv, nullptr, dxn, nullptr, nullptr, rows, d, 3 * inner,
-                     kEpiStoreF32, dtype, stream);
-  if (err != cudaSuccess) return err;
-  return launch_ln_bwd(x, dxn, gamma, dy, dx, stats, part_d, sums_d, rows, d, eps, dtype,
-                       stream);
+  return launch_dgrad_ln(dqkv, wqkv, x, gamma, dy, dx, dxn, stats, part_d, sums_d, rows, d,
+                         3 * inner, eps, dtype, stream);
 }
 
 extern "C" int vit_attention_dbias_parts(int b, int n, int heads, int hb) {

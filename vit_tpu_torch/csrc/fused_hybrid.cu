@@ -14,8 +14,11 @@
 //     split copy).  xn goes through device memory: an LN prologue inside the
 //     GEMM, so that it never does when serving, is later work (layernorm.cu
 //     says why the block kernels took the separate pass).
-//   ln_gemm backward: linear dqkv·W into f32 -> dxn; the LayerNorm backward
-//     with no residual -> dx = T(rstd·(dxhat - m1 - xhat·m2)), Σ dγ, Σ dβ.
+//   ln_gemm backward: the dgrad dqkv·W with the LayerNorm backward, no
+//     residual, as its epilogue (gemm_wgmma.cu's kEpiLnBwd, launch_dgrad_ln)
+//     -> dx = T(rstd·(dxhat - m1 - xhat·m2)), Σ dγ, Σ dβ; the f32 dxn stays
+//     on chip (at widths outside ln_bwd_fused, launch_dgrad into f32 and
+//     layernorm.cu's passes).
 //   proj_mlp forward: the wgmma GEMM with bias + residual -> y = T(x +
 //     T(o·Woᵀ + bo)); layernorm -> xn; the wgmma GEMM with bias and exact-erf
 //     GELU, keeping h in training -> g; the wgmma GEMM with bias and the
@@ -25,13 +28,11 @@
 //     dgrads on launch_dgrad, gemm_wgmma with W as it lies (B MN-major) from
 //     n 256, as the fused MLP's and the attention block's backwards take
 //     theirs: dz·W2 with the dGELU epilogue (dh, gact, db1's column
-//     partials; n = hidden), dh·W1 into f32 (n = d), the LayerNorm backward
-//     -> dy, [dγ | dβ | Σ dz = db2], dy·Wo with the store epilogue -> do (n =
-//     inner); the column sums of dy -> dbo.  At ViT-B/32's layer every n is
-//     1024 or more, so all three run on gemm_wgmma (ptxas: 168 registers
-//     for its kernel's every instance; the dGELU instance spills 36/72
-//     bytes, the f32 and store instances none); linear.cu's mma.sync GEMM
-//     is left to narrower layers.
+//     partials; n = hidden), dh·W1 with the LayerNorm backward as its
+//     epilogue (launch_dgrad_ln, n = d) -> dy, [dγ | dβ | Σ dz = db2], dy·Wo
+//     with the store epilogue -> do (n = inner); the column sums of dy ->
+//     dbo.  At ViT-B/32's layer every n is 1024 or more, so all three run on
+//     gemm_wgmma; linear.cu's mma.sync GEMM is left to narrower layers.
 // Rounding points: the TPU kernel sums o·Wo + bo + x in one f32 expression
 // and takes the LayerNorm's statistics from that unrounded y
 // (fused_hybrid.py:508-513).  Here the out-projection's epilogue rounds twice,
@@ -47,8 +48,7 @@
 // :737-746).  Bound on the H100 at ViT-B/32's layer (8320 rows, d 1024, inner
 // 1024, hidden 2048, bf16): ln_gemm 52.3 GFLOP each way (0.053 ms at 989
 // TFLOP/s), proj_mlp 87.2 GFLOP each way (0.088 ms): the tensor cores bound
-// both, so every GEMM here but ln_gemm's backward one (linear.cu's, for now)
-// runs on gemm_wgmma.
+// both, so every GEMM here runs on gemm_wgmma.
 #include "kernels.cuh"
 
 // `xn` (rows, d) is scratch when serving and the saved residual in training;
@@ -64,19 +64,17 @@ extern "C" int vit_ln_gemm_fwd(const void* x, const void* gamma, const void* bet
 }
 
 // dout (rows, n_out) contiguous; outputs dx (rows, d) in the compute dtype and
-// sums = [dγ | dβ] (2·d,) f32.  Scratch: dxn (rows, d) and stats (rows, 2)
-// f32, part (vit_ln_bwd_partial_rows(rows), 3·d) f32.
+// sums = [dγ | dβ] (2·d,) f32.  Scratch: part (vit_ln_bwd_partial_rows(rows),
+// 3·d) f32; dxn (rows, d) and stats (rows, 2) f32 where vit_ln_bwd_fused(d) is
+// 0, else null.
 extern "C" int vit_ln_gemm_bwd(const void* dout, const void* x, const void* gamma,
                                const void* w, void* dx, float* sums, float* dxn, float* stats,
                                float* part, int rows, int d, int n_out, float eps, int dtype,
                                cudaStream_t stream) {
   using namespace vit;
   if (rows <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = launch_linear(dout, w, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr,
-                                  nullptr, rows, d, n_out, kEpiStoreF32, dtype, stream);
-  if (err != cudaSuccess) return err;
-  return launch_ln_bwd(x, dxn, gamma, nullptr, dx, stats, part, sums, rows, d, eps, dtype,
-                       stream);
+  return launch_dgrad_ln(dout, w, x, gamma, nullptr, dx, dxn, stats, part, sums, rows, d, n_out,
+                         eps, dtype, stream);
 }
 
 // Outputs z, y (rows, d); xn (rows, d) and g (rows, hidden) are scratch when
@@ -102,9 +100,9 @@ extern "C" int vit_proj_mlp_fwd(const void* x, const void* o, const void* wo, co
 
 // Outputs dy (rows, d), do_ (rows, inner), dh and gact (rows, hidden) in the
 // compute dtype; f32 sums_h = db1 (hidden,), sums_d = [dγ | dβ | db2] (3·d,)
-// and dbo (d,).  Scratch: dxn (rows, d) and stats (rows, 2) f32, part_h
-// (vit_linear_partial_rows(rows), hidden) and part_d
-// (vit_ln_bwd_partial_rows(rows), 3·d) f32.
+// and dbo (d,).  Scratch: part_h (vit_linear_partial_rows(rows), hidden) and
+// part_d (vit_ln_bwd_partial_rows(rows), 3·d) f32; dxn (rows, d) and stats
+// (rows, 2) f32 where vit_ln_bwd_fused(d) is 0, else null.
 extern "C" int vit_proj_mlp_bwd(const void* dz, const void* y, const void* h,
                                 const void* gamma, const void* wo, const void* w1,
                                 const void* w2, void* dy, void* do_, void* dh, void* gact,
@@ -119,10 +117,8 @@ extern "C" int vit_proj_mlp_bwd(const void* dz, const void* y, const void* h,
   if (err != cudaSuccess) return err;
   err = launch_colsum(part_h, linear_partial_rows(rows), hidden, sums_h, stream);
   if (err != cudaSuccess) return err;
-  err = launch_dgrad(dh, w1, nullptr, dxn, nullptr, nullptr, rows, d, hidden, kEpiStoreF32, dtype,
-                     stream);
-  if (err != cudaSuccess) return err;
-  err = launch_ln_bwd(y, dxn, gamma, dz, dy, stats, part_d, sums_d, rows, d, eps, dtype, stream);
+  err = launch_dgrad_ln(dh, w1, y, gamma, dz, dy, dxn, stats, part_d, sums_d, rows, d, hidden, eps,
+                        dtype, stream);
   if (err != cudaSuccess) return err;
   err = launch_dgrad(dy, wo, nullptr, do_, nullptr, nullptr, rows, inner, d, kEpiStore, dtype,
                      stream);

@@ -30,9 +30,13 @@
 //   1. the dgrad dy·W2 with the dgelu epilogue: dh32 = (dy·W2)·gelu'(h) from
 //      the stored h; dh = T(dh32); gact = T(gelu(h)) for the dW2 GEMM; per
 //      64-row column sums of the f32 dh32, then colsum                -> db1
-//   2. the dgrad dh·W1 into f32 (the TPU never rounds dxn)           -> dxn
-//   3. LayerNorm backward: dx = T(dy + T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy
-//                                                                      -> dγ, dβ, db2
+//   2. the dgrad dh·W1 with the LayerNorm backward as its epilogue: the f32
+//      dxn stays on chip, as the TPU kept it in VMEM (gemm_wgmma.cu's
+//      kEpiLnBwd on a thread-block cluster; launch_dgrad_ln): dx = T(dy +
+//      T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy                     -> dγ, dβ, db2
+//      At widths outside ln_bwd_fused (d not a multiple of 256 in
+//      256..2048), dxn goes to device memory in f32 and layernorm.cu's
+//      passes read it back.
 // The dgrads read the weights as they lie (nn.Linear layout, kWeightKN) on
 // gemm_wgmma.cu's warp-specialised wgmma GEMM with B MN-major, or below n =
 // 256 (ScalableViT's narrow stages) on linear.cu's mma.sync one
@@ -59,9 +63,9 @@ extern "C" int vit_fused_mlp_fwd(const void* x, const void* gamma, const void* b
 
 // Outputs dx (rows, d), dh and gact (rows, hidden) in the compute dtype;
 // sums_h = db1 (hidden,) and sums_d = [dγ | dβ | db2] (3·d,) in f32.  Scratch:
-// dxn (rows, d) and stats (rows, 2) f32, part_h
-// (vit_linear_partial_rows(rows), hidden) and part_d
-// (vit_ln_bwd_partial_rows(rows), 3·d) f32.
+// part_h (vit_linear_partial_rows(rows), hidden) and part_d
+// (vit_ln_bwd_partial_rows(rows), 3·d) f32; dxn (rows, d) and stats (rows, 2)
+// f32 where vit_ln_bwd_fused(d) is 0, else null.
 extern "C" int vit_fused_mlp_bwd(const void* dy, const void* x, const void* h,
                                  const void* gamma, const void* w1, const void* w2, void* dx,
                                  void* dh, void* gact, float* sums_h, float* sums_d, float* dxn,
@@ -74,9 +78,6 @@ extern "C" int vit_fused_mlp_bwd(const void* dy, const void* x, const void* h,
   if (err != cudaSuccess) return err;
   err = launch_colsum(part_h, linear_partial_rows(rows), hidden, sums_h, stream);
   if (err != cudaSuccess) return err;
-  err = launch_dgrad(dh, w1, nullptr, dxn, nullptr, nullptr, rows, d, hidden, kEpiStoreF32, dtype,
-                     stream);
-  if (err != cudaSuccess) return err;
-  return launch_ln_bwd(x, dxn, gamma, dy, dx, stats, part_d, sums_d, rows, d, eps, dtype,
-                       stream);
+  return launch_dgrad_ln(dh, w1, x, gamma, dy, dx, dxn, stats, part_d, sums_d, rows, d, hidden,
+                         eps, dtype, stream);
 }

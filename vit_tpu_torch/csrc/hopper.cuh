@@ -5,6 +5,9 @@
 //   - mbarriers: init, arrive, arrive-expect-tx, wait on a phase parity;
 //   - named barriers of one warpgroup, and setmaxnreg, which moves registers
 //     between the warpgroups of a warp-specialised kernel;
+//   - thread-block clusters: the CTA's rank, the cluster barrier, peers'
+//     shared memory (mapa, ld.shared::cluster), arrivals on peers' mbarriers,
+//     and the host's cluster launch and occupancy query;
 //   - TMA: a tensor map per (b, h, n, d) operand read through its (batch, head,
 //     row) strides, built on the host per call and passed as a __grid_constant__
 //     kernel parameter; loads of 4-d boxes (one head's rows) completing on
@@ -83,6 +86,73 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- thread-block clusters -------------------------------------------------------------------
+//
+// The CTAs of a cluster (launched with cudaLaunchAttributeClusterDimension)
+// run at once on neighbouring SMs and may read each other's shared memory
+// (DSMEM) and arrive on each other's mbarriers.  A CTA must not exit while a
+// peer may still touch its shared memory: the caller's protocol says when
+// that is over.
+
+// This CTA's rank in its cluster, 0..size-1.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The hardware cluster barrier, split: every non-exited thread of every CTA
+// of the cluster arrives (release: its earlier writes, mbarrier inits among
+// them, become visible cluster-wide), then waits (acquire).  Whole warps.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of p (an address in this CTA's shared memory)
+// in the CTA of rank `rank`: the same offset in the peer's shared memory.
+__device__ __forceinline__ uint32_t map_peer(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// Four floats from a peer's shared memory (an address from map_peer).
+__device__ __forceinline__ float4 ld_peer_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// One arrival on the mbarrier at bar's offset in the CTA of rank `rank`
+// (this CTA's own included), releasing at cluster scope what this thread has
+// written or read before it, and what the CTA's threads have before a
+// barrier this thread passed.
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_peer(bar, rank))
+               : "memory");
+}
+
+// mbar_wait for a barrier that peers arrive on: acquires at cluster scope
+// what they released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---- TMA loads -------------------------------------------------------------------------------
@@ -655,6 +725,46 @@ cudaError_t prepare_kernel(int& ready_on, Kernel kernel, int smem_bytes) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err == cudaSuccess) ready_on = device;
   return err;
+}
+
+// How many clusters of `csize` CTAs of `kernel` (threads and dynamic shared
+// memory as given; prepare_kernel first) the current device runs at once.
+template <typename Kernel>
+cudaError_t max_active_clusters(int* clusters, Kernel kernel, int csize, int threads,
+                                int smem_bytes) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(csize);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// Launches `kernel` as `clusters` clusters of `csize` CTAs along x
+// (cudaLaunchKernelEx: the runtime alone, no -lcuda).
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int clusters, int csize, int threads, int smem_bytes,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(clusters * csize);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query (no -lcuda).

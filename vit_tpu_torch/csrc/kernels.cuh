@@ -23,8 +23,8 @@ enum DType : int { kBF16 = 0, kF16 = 1 };
 enum WeightLayout : int { kWeightNK = 0, kWeightKN = 1 };
 
 // Epilogues of the row-major GEMMs  out = epi(A · B)  (linear.cu and
-// gemm_wgmma.cu alike).  kWeightNK takes the first four, kWeightKN kEpiStore,
-// kEpiDGelu and kEpiStoreF32.
+// gemm_wgmma.cu alike, kEpiLnBwd gemm_wgmma.cu's alone).  kWeightNK takes the
+// first four, kWeightKN kEpiStore, kEpiDGelu, kEpiStoreF32 and kEpiLnBwd.
 enum Epilogue : int {
   kEpiStore = 0,         // out = T(acc)                          (QKV; doattn = dy·Wo)
   kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1, serving)
@@ -33,7 +33,11 @@ enum Epilogue : int {
                          //   keeps the pre-activation h for the backward)
   kEpiDGelu = 4,         // out = T(acc·gelu'(h)), aux = T(gelu(h)), column sums of
                          //   acc·gelu'(h) in f32, h read from aux_in   (MLP backward)
-  kEpiStoreF32 = 5,      // out = acc in f32                      (dxn = dqkv·Wqkv, dh·W1)
+  kEpiStoreF32 = 5,      // out = acc in f32                      (dxn where the LayerNorm
+                         //   backward is a pass of its own: launch_ln_bwd)
+  kEpiLnBwd = 6,         // acc = dxn kept on chip; out = dx, the LayerNorm backward of
+                         //   launch_ln_bwd, and its column sums   (dqkv·Wqkv, dh·W1:
+                         //   launch_dgrad_ln_bwd)
 };
 
 template <typename T>
@@ -115,6 +119,17 @@ __device__ __forceinline__ float gelu_erf_and_grad(float v, float& g) {
   return cdf + v * pdf;
 }
 
+// 16-byte global->shared copy that bypasses L1; src_size 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- host launchers (defined in layernorm.cu, linear.cu, gemm_wgmma.cu,
 // attention.cu, short_attention.cu, flash_attention.cu) -------------------------
 
@@ -125,7 +140,8 @@ cudaError_t launch_layernorm(const void* x, const void* gamma, const void* beta,
                              int rows, int d, float eps, int dtype, cudaStream_t stream);
 
 // LayerNorm backward of the blocks, given dxn (rows, d) in f32, the gradient
-// at the LayerNorm's output.  Per row, from recomputed statistics:
+// at the LayerNorm's output (at widths outside ln_bwd_fused: launch_dgrad_ln).
+// Per row, from recomputed statistics:
 //   dx = T(dy + T(rstd·(dxhat - mean(dxhat) - xhat·mean(dxhat·xhat)))),
 //   dxhat = dxn·gamma.
 // Column sums in f32, in a fixed order (per-block partials, then a second
@@ -180,6 +196,30 @@ cudaError_t launch_forward_gemm(const void* a, const void* w, const void* bias, 
 cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void* out, void* aux,
                          float* partial, int rows, int n, int k, int epilogue, int dtype,
                          cudaStream_t stream);
+
+// The dgrad whose epilogue is the LayerNorm backward (gemm_wgmma.cu,
+// kEpiLnBwd): dxn = A · W (A (rows, k), W (k, d) as it lies) stays on chip,
+// and from it, x (rows, d) and gamma (d,), what launch_ln_bwd computes from a
+// stored dxn: dx (rows, d), and sums = [Σ dxn·xhat | Σ dxn | Σ dy] (3·d,) in
+// f32 in a fixed order, or [Σ dxn·xhat | Σ dxn] (2·d,) with a null dy.
+// `partial` (ln_bwd_partial_rows(rows), 3·d) is f32 scratch; no dxn and no
+// statistics reach device memory.  Only where ln_bwd_fused(d) holds.
+cudaError_t launch_dgrad_ln_bwd(const void* a, const void* w, const void* x, const void* gamma,
+                                const void* dy, void* dx, float* partial, float* sums, int rows,
+                                int d, int k, float eps, int dtype, cudaStream_t stream);
+// The blocks' dgrad into a LayerNorm's backward, A (rows, k) · W (k, d) ->
+// dx and sums as launch_dgrad_ln_bwd gives them: by it where ln_bwd_fused(d)
+// holds (dxn and stats may be null), else launch_dgrad's f32 dxn (rows, d)
+// and launch_ln_bwd with `stats` (rows, 2) f32 scratch.
+cudaError_t launch_dgrad_ln(const void* a, const void* w, const void* x, const void* gamma,
+                            const void* dy, void* dx, float* dxn, float* stats, float* partial,
+                            float* sums, int rows, int d, int k, float eps, int dtype,
+                            cudaStream_t stream);
+// Whether launch_dgrad_ln_bwd takes width d: 256 <= d <= 2048, d % 256 == 0
+// (a cluster of d / 256 CTAs, at most 8, the portable size).  The blocks'
+// backwards choose by it; other widths keep launch_dgrad's f32 dxn and
+// launch_ln_bwd.  Mirrored by vit_tpu_torch/ops/_shared.py ln_bwd_fused.
+bool ln_bwd_fused(int d);
 
 // The short-attention forward (short_attention.cu) over (b, heads, n, d)
 // operands read through (batch, head, row) element strides: out (width d)

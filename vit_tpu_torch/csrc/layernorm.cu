@@ -10,7 +10,9 @@
 // the extra round trip of xn costs about 13 µs per block at B/16.
 //
 // Backward (fused_mlp.py _bwd_kernel:213-227, fused_attention_block.py
-// _bwd_kernel:245-258), shared by the two blocks: one warp per row recomputes
+// _bwd_kernel:245-258), shared by the blocks, at the widths where it is not
+// the dgrad's epilogue (gemm_wgmma.cu's kEpiLnBwd takes d % 256 == 0 in
+// 256..2048, ln_bwd_fused; launch_dgrad_ln chooses): one warp per row recomputes
 // the statistics from x and writes dx; a column pass sums dγ = Σ dxn·xhat,
 // dβ = Σ dxn and the output bias's Σ dy over 64-row chunks, and a last pass
 // adds the chunks in order.  The TPU accumulated these across its sequential

@@ -51,17 +51,6 @@ struct Args {
   int rows, n, k;
 };
 
-// 16-byte global->shared copy that bypasses L1; src_size 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename T>
 __device__ __forceinline__ void load2(const T* p, float& lo, float& hi) {
   const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);

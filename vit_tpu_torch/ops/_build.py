@@ -138,6 +138,17 @@ SIGNATURES = {
         [_P, _P, _I] + [_P] * 7 + [_I] * 6 + [_P],
         ctypes.c_int,
     ),
+    "vit_gemm_ln_bwd": (
+        # a, w, x, gamma, dy (or null), dx, partial, sums, rows, d, k, eps,
+        # dtype, stream
+        [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    # 1 where the blocks' backwards take the LayerNorm-backward dgrad at width
+    # d, 0 where they keep the f32 dxn and the LayerNorm backward's passes.
+    "vit_ln_bwd_fused": ([_I], ctypes.c_int),
+    # The clusters of d / 256 CTAs the LayerNorm-backward dgrad runs at once.
+    "vit_ln_bwd_clusters": ([_I], ctypes.c_int),
     "vit_proj_mlp_fwd": (
         # x, o, wo, bo, gamma, beta, w1, b1, w2, b2, z, y, xn, g, h (null when
         # serving), rows, d, inner, hidden, eps, dtype, stream

@@ -1,10 +1,39 @@
 """Plain math shared by the two block ops (``fused_mlp``,
-``fused_attention_block``): the LayerNorm statistics, the LayerNorm backward
-of the TPU backward kernels, and the weight-gradient GEMM."""
+``fused_attention_block``) and the hybrid layer: the LayerNorm statistics, the
+LayerNorm backward of the TPU backward kernels, the weight-gradient GEMM, and
+the widths at which the LayerNorm backward is the dgrad's epilogue."""
 
 from __future__ import annotations
 
 import torch
+
+# csrc/gemm_wgmma.cu's kEpiLnBwd: the LayerNorm backward as the epilogue of
+# the dgrad into it, on a cluster of d / LN_BWD_TILE CTAs (kLnBwdMinD,
+# kLnBwdMaxD: at most 8 CTAs, the portable cluster size).
+LN_BWD_TILE, LN_BWD_MIN_D, LN_BWD_MAX_D = 256, 256, 2048
+
+
+def ln_bwd_fused(d: int) -> bool:
+    """Whether the blocks' backwards take the LayerNorm-backward dgrad at
+    width ``d`` (``csrc/gemm_wgmma.cu``'s ``ln_bwd_fused``, which C chooses
+    by): no f32 dxn and no row statistics reach device memory.  Elsewhere the
+    dgrad writes dxn in f32 and ``layernorm.cu``'s passes read it back."""
+    return d % LN_BWD_TILE == 0 and LN_BWD_MIN_D <= d <= LN_BWD_MAX_D
+
+
+def ln_bwd_scratch(rows: int, d: int, device):
+    """``(dxn, stats)``: the f32 ``(rows, d)`` dgrad output and ``(rows, 2)``
+    row statistics a LayerNorm backward of its own passes needs, or ``(None,
+    None)`` where :func:`ln_bwd_fused` holds."""
+    if ln_bwd_fused(d):
+        return None, None
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.empty((rows, d), **f32), torch.empty((rows, 2), **f32)
+
+
+def data_ptr(t):
+    """``t.data_ptr()``, or None (a null pointer to C) for an absent tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def ln_stats(x32: torch.Tensor, eps: float):

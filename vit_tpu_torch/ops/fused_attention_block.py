@@ -76,7 +76,9 @@ from torch.autograd.function import once_differentiable
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
-from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
+from vit_tpu_torch.ops._shared import (
+    data_ptr, ln_backward_reference, ln_bwd_scratch, ln_stats, weight_grad,
+)
 from vit_tpu_torch.ops.flash_attention import _tma_problem, kernel_strides
 from vit_tpu_torch.ops.short_attention import (
     MAX_SEQ, short_attention_backward_reference, short_attention_forward_reference,
@@ -512,8 +514,7 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     dx, dqkv = torch.empty_like(dy), torch.empty_like(qkv)
     sums_d = torch.empty(3 * d, **f32)
     doattn = torch.empty((b, n, inner), dtype=dy.dtype, device=dy.device)
-    dxn = torch.empty((rows, d), **f32)
-    stats = torch.empty((rows, 2), **f32)
+    dxn, stats = ln_bwd_scratch(rows, d, dy.device)
     lib = _build.load()
     part_d = torch.empty((lib.vit_ln_bwd_partial_rows(rows), 3 * d), **f32)
     strides = dq_part = rowstat = dbias = dbias_part = None
@@ -525,9 +526,6 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     if not short or need_dbias:  # mha_bwd's scratch; the (lse, dsum) dbias reads
         rowstat = torch.empty((b, heads, n, 2), **f32)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dy.device):
         if need_dbias:  # the part count follows the device's SM count
             hb = bias.shape[0]
@@ -535,12 +533,12 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
             dbias_part = torch.empty((lib.vit_attention_dbias_parts(b, n, heads, hb), hb, n, n),
                                      **f32)
         err = lib.vit_fused_attention_block_bwd(
-            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), ptr(oattn), ptr(lse),
+            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), data_ptr(oattn), data_ptr(lse),
             gamma.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
             dx.data_ptr(), dqkv.data_ptr(), sums_d.data_ptr(), doattn.data_ptr(), strides,
-            ptr(dq_part), ptr(rowstat), dxn.data_ptr(), stats.data_ptr(), part_d.data_ptr(),
-            *_bias_args(bias), ptr(dbias), ptr(dbias_part), b, n, d, heads, dim_head,
-            float(scale), eps, _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+            data_ptr(dq_part), data_ptr(rowstat), data_ptr(dxn), data_ptr(stats),
+            part_d.data_ptr(), *_bias_args(bias), data_ptr(dbias), data_ptr(dbias_part), b, n, d,
+            heads, dim_head, float(scale), eps, _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_attention_block_bwd")
     BACKWARD_ROUTES[route].launches += 1
     dgamma, dbeta, dbo = sums_d.view(3, d).unbind(0)

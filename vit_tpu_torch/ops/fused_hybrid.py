@@ -43,7 +43,10 @@ from torch.autograd.function import once_differentiable
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
-from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
+from vit_tpu_torch.ops._shared import (
+    LN_BWD_TILE, data_ptr, ln_backward_reference, ln_bwd_fused, ln_bwd_scratch, ln_stats,
+    weight_grad,
+)
 from vit_tpu_torch.ops.fused_mlp import (
     _dgelu, fused_mlp_backward_reference, fused_mlp_forward_reference,
 )
@@ -79,11 +82,77 @@ def _f32(shape, like):
 # nn.Linear weight (n, k) (the forward GEMMs, ``layout="nk"``) and over one
 # used as it lies, (k, n) (the blocks' dgrads, ``layout="kn"``).
 GEMM_EPILOGUES = {"store": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_save": 3}
-DGRAD_EPILOGUES = {"store": 0, "dgelu": 4, "f32": 5}
+DGRAD_EPILOGUES = {"store": 0, "dgelu": 4, "f32": 5, "ln_bwd": 6}
 _LAYOUTS = {"nk": (0, GEMM_EPILOGUES), "kn": (1, DGRAD_EPILOGUES)}
+# Rows of one column-sum partial of the LayerNorm backward (layernorm.cu's
+# kColChunk; a consumer warpgroup's rows in gemm_wgmma.cu's kEpiLnBwd).
+_LN_PARTIAL_ROWS = 64
 
 
-def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk"):
+def _chunked_colsum(v):
+    """Column sums of ``v`` ``(rows, m)`` as the kernels take them: sums of
+    64-row chunks, the chunks added in order."""
+    out = torch.zeros(v.shape[1], dtype=v.dtype, device=v.device)
+    for chunk in v.split(_LN_PARTIAL_ROWS):
+        out = out + chunk.sum(0)
+    return out
+
+
+def _tile_order(v):
+    """Σ over the last axis (a row's 256-column tiles, at most 8) in the
+    kernel's fixed order: ``((v0 + v4) + (v1 + v5)) + ((v2 + v6) + (v3 +
+    v7))``, absent tiles as zeros (lane t of a quad reads tiles t and t + 4,
+    the quad adds its lanes by two shuffles)."""
+    lanes = [v[..., t] + (v[..., t + 4] if t + 4 < v.shape[-1] else 0.0) if t < v.shape[-1]
+             else torch.zeros_like(v[..., 0]) for t in range(4)]
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def ln_bwd_epilogue_reference(dxn, x, gamma, dy=None, eps: float = 1e-3):
+    """``kEpiLnBwd``'s function of the f32 ``dxn`` ``(rows, d)`` in the
+    kernel's order of sums: ``(dx, dgamma, dbeta, dsum)``, dx in x's dtype,
+    the sums in f32 (``dsum`` = Σ dy, None with no dy).
+
+    Per row and 256-column tile t (a CTA of the cluster), with K the tile's
+    first x of the row and c = x - K: s1 = Σ c, s2 = Σ c², D1_t = Σ dxhat,
+    DK = Σ dxhat·c (dxhat = dxn·γ); S_t = 256·K + s1, mean_t = S_t / 256,
+    M2_t = max(s2 - s1²/256, 0) = Σ (x - mean_t)², D2_t = DK - (s1/256)·D1_t
+    = Σ dxhat·(x - mean_t); the tiles added in the kernel's fixed order
+    (:func:`_tile_order`) into the row's mean = Σ S_t / d, rstd = rsqrt((Σ
+    M2_t + 256·(mean_t - mean)²) / d + eps) (the biased variance, the tiles'
+    pieces joined exactly), m1 = Σ D1_t / d and m2 = rstd·Σ (D2_t + (mean_t
+    - mean)·D1_t) / d; then ``dx = T(dy +
+    T(rstd·(dxhat - m1 - xhat·m2)))`` (no dy: the inner term), and the
+    column sums Σ dxn·xhat, Σ dxn, Σ dy over 64-row chunks added in order.
+    In exact arithmetic it is :func:`~vit_tpu_torch.ops._shared.
+    ln_backward_reference`."""
+    rows, d = dxn.shape
+    x32, dxhat = x.float(), dxn * gamma.float()
+    tiles = d // LN_BWD_TILE
+    xt, ht = x32.view(rows, tiles, LN_BWD_TILE), dxhat.view(rows, tiles, LN_BWD_TILE)
+    k0 = xt[..., 0]
+    c = xt - k0[..., None]
+    s1, d1_t = c.sum(-1), ht.sum(-1)
+    sh = s1 * (1.0 / LN_BWD_TILE)
+    parts = torch.stack([LN_BWD_TILE * k0 + s1,
+                         (c.square().sum(-1) - s1 * sh).clamp_min(0.0), d1_t,
+                         (ht * c).sum(-1) - sh * d1_t])  # (4, rows, tiles)
+    inv_d = 1.0 / d
+    mean, m1 = _tile_order(parts[0]) * inv_d, _tile_order(parts[2]) * inv_d
+    dm = parts[0] * (1.0 / LN_BWD_TILE) - mean[:, None]
+    q = _tile_order(parts[1] + LN_BWD_TILE * dm * dm)
+    dd = _tile_order(parts[3] + dm * parts[2])
+    rstd = torch.rsqrt(q * inv_d + eps)[:, None]
+    m1, m2 = m1[:, None], rstd * (dd * inv_d)[:, None]
+    xhat = (x32 - mean[:, None]) * rstd
+    dx_ln = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    dx = dx_ln if dy is None else dy + dx_ln
+    return (dx, _chunked_colsum(dxn * xhat), _chunked_colsum(dxn),
+            None if dy is None else _chunked_colsum(dy.float()))
+
+
+def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk",
+                   x=None, gamma=None, dy=None, eps: float = 1e-3):
     """Plain PyTorch version of ``gemm_wgmma.cu`` for ``a`` ``(rows, k)``
     and an ``nn.Linear`` weight ``w``, with the kernel's rounding points.
 
@@ -97,9 +166,14 @@ def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str
     ``"dgelu"`` ``(dh, gact, db1)`` from the saved pre-activation ``h``: ``dh
     = T(acc·gelu'(h))``, ``gact = T(gelu(h))`` and ``db1`` the f32 column sums
     of the unrounded ``acc·gelu'(h)``, as the fused MLP's backward computes
-    them."""
+    them; ``"ln_bwd"`` ``(dx, dgamma, dbeta, dsum)``, the LayerNorm backward
+    of ``acc`` = dxn over ``x`` with ``gamma`` and the residual ``dy`` (or
+    none), as :func:`ln_bwd_epilogue_reference` takes it (the widths of
+    :func:`~vit_tpu_torch.ops._shared.ln_bwd_fused`)."""
     dt = a.dtype
     acc = a.float() @ (w.float().t() if layout == "nk" else w.float())
+    if epilogue == "ln_bwd":
+        return ln_bwd_epilogue_reference(acc, x, gamma, dy, eps)
     if epilogue == "store":
         return acc.to(dt), None
     if epilogue == "f32":
@@ -120,19 +194,24 @@ GEMM_KERNELS = {"wgmma": 0, "mma_sync": 1}
 
 
 def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "nk",
-               kernel: str = "wgmma"):
+               kernel: str = "wgmma", x=None, gamma=None, dy=None, eps: float = 1e-3):
     """The GEMM alone: what :func:`gemm_reference` returns.  A CPU tensor
     takes the plain version; a CUDA tensor launches ``vit_gemm`` on
     ``gemm_wgmma.cu``'s kernel, or with ``kernel="mma_sync"`` on
     ``linear.cu``'s (at any n: the blocks' choice between them by width is in
-    C), or raises.  ``gemm_wgmma.launches`` counts the launches."""
+    C), or raises; ``"ln_bwd"`` (``gemm_wgmma.cu``'s alone, at the widths of
+    :func:`~vit_tpu_torch.ops._shared.ln_bwd_fused`) launches
+    ``vit_gemm_ln_bwd``.  ``gemm_wgmma.launches`` counts the launches."""
     if layout not in _LAYOUTS or epilogue not in _LAYOUTS[layout][1]:
         raise ValueError(f"gemm_wgmma: no epilogue {epilogue!r} over layout {layout!r} (nk: "
                          f"{tuple(GEMM_EPILOGUES)}, kn: {tuple(DGRAD_EPILOGUES)})")
-    if kernel not in GEMM_KERNELS:
-        raise ValueError(f"gemm_wgmma: no kernel {kernel!r} ({tuple(GEMM_KERNELS)})")
+    if kernel not in GEMM_KERNELS or (epilogue == "ln_bwd" and kernel != "wgmma"):
+        raise ValueError(f"gemm_wgmma: no kernel {kernel!r} for {epilogue!r} "
+                         f"({tuple(GEMM_KERNELS)}; ln_bwd: wgmma)")
     if a.device.type == "cpu":
-        return gemm_reference(a, w, epilogue, bias, res, h, layout)
+        return gemm_reference(a, w, epilogue, bias, res, h, layout, x, gamma, dy, eps)
+    if epilogue == "ln_bwd":
+        return _launch_gemm_ln_bwd(a, w, x, gamma, dy, eps)
     rows, k = a.shape
     n = w.shape[0] if layout == "nk" else w.shape[1]
     _check_widths("gemm_wgmma", k, n)
@@ -166,6 +245,34 @@ def gemm_wgmma(a, w, epilogue: str, bias=None, res=None, h=None, layout: str = "
 
 
 gemm_wgmma.launches = 0
+
+
+def _launch_gemm_ln_bwd(a, w, x, gamma, dy, eps):
+    """``vit_gemm_ln_bwd`` on CUDA tensors: ``(dx, dgamma, dbeta, dsum)`` of
+    the LayerNorm-backward dgrad.  Counts ``gemm_wgmma.launches``."""
+    rows, k = a.shape
+    d = w.shape[1]
+    if not ln_bwd_fused(d):
+        raise ValueError(f"gemm_wgmma: the ln_bwd epilogue takes d % 256 == 0, 256 <= d <= 2048, "
+                         f"got d={d}")
+    _check_widths("gemm_wgmma", k, d)
+    operands = {"w": (w, (k, d)), "x": (x, (rows, d)), "gamma": (gamma, (d,))}
+    if dy is not None:
+        operands["dy"] = (dy, (rows, d))
+    check_kernel_tensors("gemm_wgmma", a, operands)
+    dx = torch.empty_like(x)
+    lib = _build.load()
+    width = (2 if dy is None else 3) * d
+    partial, sums = _f32((lib.vit_ln_bwd_partial_rows(rows), 3 * d), a), _f32(width, a)
+    with torch.cuda.device(a.device):
+        err = lib.vit_gemm_ln_bwd(
+            a.data_ptr(), w.data_ptr(), x.data_ptr(), gamma.data_ptr(), data_ptr(dy),
+            dx.data_ptr(), partial.data_ptr(), sums.data_ptr(), rows, d, k, eps,
+            _build.DTYPE_CODES[a.dtype], launch_stream(a))
+    _build.check(err, "vit_gemm_ln_bwd")
+    gemm_wgmma.launches += 1
+    parts = sums.view(-1, d).unbind(0)
+    return dx, parts[0], parts[1], parts[2] if dy is not None else None
 
 
 # ---- ln_gemm: out = (LN(x)·γ + β)·Wᵀ ------------------------------------------------------
@@ -214,6 +321,19 @@ def ln_gemm_backward(dout, x, gamma, w, eps: float = 1e-3):
     launches."""
     if dout.device.type == "cpu":
         return ln_gemm_backward_reference(dout, x, gamma, w, eps)
+    out = _launch_ln_gemm_backward(dout, x, gamma, w, eps)
+    ln_gemm_backward.launches += 1
+    return out
+
+
+ln_gemm_backward.launches = 0
+
+
+def _launch_ln_gemm_backward(dout, x, gamma, w, eps: float):
+    """``vit_ln_gemm_bwd`` on CUDA tensors: ``(dx, dgamma, dbeta)``, the
+    dgrad dout·W with the LayerNorm backward as its epilogue (an f32 dxn and
+    row statistics only outside :func:`~vit_tpu_torch.ops._shared.
+    ln_bwd_fused`'s widths)."""
     t, d = x.shape
     n_out = w.shape[0]
     _check_widths("ln_gemm backward", d, n_out)
@@ -222,20 +342,16 @@ def ln_gemm_backward(dout, x, gamma, w, eps: float = 1e-3):
     dx = torch.empty_like(x)
     sums = _f32(2 * d, x)
     lib = _build.load()
-    dxn, stats = _f32((t, d), x), _f32((t, 2), x)
+    dxn, stats = ln_bwd_scratch(t, d, x.device)
     part = _f32((lib.vit_ln_bwd_partial_rows(t), 3 * d), x)
     with torch.cuda.device(x.device):
         err = lib.vit_ln_gemm_bwd(
             dout.data_ptr(), x.data_ptr(), gamma.data_ptr(), w.data_ptr(), dx.data_ptr(),
-            sums.data_ptr(), dxn.data_ptr(), stats.data_ptr(), part.data_ptr(), t, d, n_out, eps,
+            sums.data_ptr(), data_ptr(dxn), data_ptr(stats), part.data_ptr(), t, d, n_out, eps,
             _build.DTYPE_CODES[x.dtype], launch_stream(x))
     _build.check(err, "vit_ln_gemm_bwd")
-    ln_gemm_backward.launches += 1
     dgamma, dbeta = sums.view(2, d).unbind(0)
     return dx, dgamma, dbeta
-
-
-ln_gemm_backward.launches = 0
 
 
 def _joined(douts):
@@ -468,7 +584,7 @@ def _launch_proj_mlp_backward(dz, y, h, gamma, wo, w1, w2, eps):
     dh, gact = torch.empty_like(h), torch.empty_like(h)
     sums_h, sums_d, dbo = _f32(hidden, dz), _f32(3 * d, dz), _f32(d, dz)
     lib = _build.load()
-    dxn, stats = _f32((t, d), dz), _f32((t, 2), dz)
+    dxn, stats = ln_bwd_scratch(t, d, dz.device)
     part_h = _f32((lib.vit_linear_partial_rows(t), hidden), dz)
     part_d = _f32((lib.vit_ln_bwd_partial_rows(t), 3 * d), dz)
     with torch.cuda.device(dz.device):
@@ -476,7 +592,7 @@ def _launch_proj_mlp_backward(dz, y, h, gamma, wo, w1, w2, eps):
             dz.data_ptr(), y.data_ptr(), h.data_ptr(), gamma.data_ptr(), wo.data_ptr(),
             w1.data_ptr(), w2.data_ptr(), dy.data_ptr(), do.data_ptr(), dh.data_ptr(),
             gact.data_ptr(), sums_h.data_ptr(), sums_d.data_ptr(), dbo.data_ptr(),
-            dxn.data_ptr(), stats.data_ptr(), part_h.data_ptr(), part_d.data_ptr(), t, d, inner,
+            data_ptr(dxn), data_ptr(stats), part_h.data_ptr(), part_d.data_ptr(), t, d, inner,
             hidden, eps, _build.DTYPE_CODES[dz.dtype], launch_stream(dz))
     _build.check(err, "vit_proj_mlp_bwd")
     proj_mlp_backward.launches += 1

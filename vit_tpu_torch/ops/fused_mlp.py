@@ -17,10 +17,12 @@ activations and weights), forward and backward alike, so it is compute-bound
 on the tensor cores.  The kernels therefore spend their design on the GEMMs
 (``gemm_wgmma.cu``'s warp-specialised wgmma GEMM fed by TMA from n = 256,
 ``linear.cu``'s mma.sync one below it, f32 accumulation both), fuse the
-bias, GELU, dGELU, residual and the db1 column sums into the epilogues, and
-run the LayerNorm and its backward as small memory-bound passes; the extra
-traffic is xn, g, h and the f32 dxn in device memory (see the source notes in
-the .cu files).
+bias, GELU, dGELU, residual and the db1 column sums into the epilogues, run
+the LayerNorm as a small memory-bound pass, and its backward as the epilogue
+of the dh·W1 dgrad on a thread-block cluster where d % 256 == 0 in
+256..2048 (:func:`~vit_tpu_torch.ops._shared.ln_bwd_fused`; elsewhere as
+passes over an f32 dxn in device memory); the extra traffic is xn, g and h
+(see the source notes in the .cu files).
 
 Numerics, mirrored by the plain versions: LayerNorm statistics in f32 with
 the biased two-pass variance and eps inside the rsqrt; xn rounded to the
@@ -41,7 +43,9 @@ from torch.autograd.function import once_differentiable
 
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs_grad
-from vit_tpu_torch.ops._shared import ln_backward_reference, ln_stats, weight_grad
+from vit_tpu_torch.ops._shared import (
+    data_ptr, ln_backward_reference, ln_bwd_scratch, ln_stats, weight_grad,
+)
 
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -162,6 +166,18 @@ def fused_mlp_backward(dy, x, h, gamma, w1, w2, eps: float = 1e-3):
     kernel launches."""
     if dy.device.type == "cpu":
         return fused_mlp_backward_reference(dy, x, h, gamma, w1, w2, eps)
+    out = _launch_backward(dy, x, h, gamma, w1, w2, eps)
+    fused_mlp_backward.launches += 1
+    return out
+
+
+fused_mlp_backward.launches = 0
+
+
+def _launch_backward(dy, x, h, gamma, w1, w2, eps: float):
+    """``vit_fused_mlp_bwd`` on CUDA tensors: ``(dx, dh, gact, dgamma, dbeta,
+    db1, db2)``; the f32 dxn and row statistics only where the LayerNorm
+    backward is not the dh·W1 dgrad's epilogue (:func:`ln_bwd_scratch`)."""
     d, hidden = x.shape[-1], w1.shape[0]
     _check_widths(d, hidden)
     check_kernel_tensors("fused_mlp backward", dy, {
@@ -174,8 +190,7 @@ def fused_mlp_backward(dy, x, h, gamma, w1, w2, eps: float = 1e-3):
     dx, dh, gact = torch.empty_like(dy), torch.empty_like(h), torch.empty_like(h)
     sums_h = torch.empty(hidden, **f32)
     sums_d = torch.empty(3 * d, **f32)
-    dxn = torch.empty((rows, d), **f32)
-    stats = torch.empty((rows, 2), **f32)
+    dxn, stats = ln_bwd_scratch(rows, d, dev)
     lib = _build.load()
     part_h = torch.empty((lib.vit_linear_partial_rows(rows), hidden), **f32)
     part_d = torch.empty((lib.vit_ln_bwd_partial_rows(rows), 3 * d), **f32)
@@ -183,16 +198,12 @@ def fused_mlp_backward(dy, x, h, gamma, w1, w2, eps: float = 1e-3):
         err = lib.vit_fused_mlp_bwd(
             dy.data_ptr(), x.data_ptr(), h.data_ptr(), gamma.data_ptr(), w1.data_ptr(),
             w2.data_ptr(), dx.data_ptr(), dh.data_ptr(), gact.data_ptr(),
-            sums_h.data_ptr(), sums_d.data_ptr(), dxn.data_ptr(), stats.data_ptr(),
+            sums_h.data_ptr(), sums_d.data_ptr(), data_ptr(dxn), data_ptr(stats),
             part_h.data_ptr(), part_d.data_ptr(), rows, d, hidden, eps,
             _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_mlp_bwd")
-    fused_mlp_backward.launches += 1
     dgamma, dbeta, db2 = sums_d.view(3, d).unbind(0)
     return dx, dh, gact, dgamma, dbeta, sums_h, db2
-
-
-fused_mlp_backward.launches = 0
 
 
 class FusedMLPFunction(torch.autograd.Function):
