@@ -22,12 +22,14 @@ Phases, one line each (any failure raises and exits non-zero):
    version (the attention block on the short route also against that
    route's own plain version) and twice bit for bit, at the ViT-B/16 @224
    shapes (b=64, n=197, d=768, 12 heads of 64, h=3072), bench.py's B/32
-   (b=128, n=65, d=1024, 16 heads of 64, h=2048) and the entry shapes (b=8),
-   bf16 inputs from a seeded generator; times of the kernel, its plain
+   (b=128, n=65, d=1024, 16 heads of 64, h=2048), the entry shapes (b=8)
+   and the objectives' (b=64, 8 heads of 64, h=2048: MAE's encoder at n=16,
+   d=1024, its decoder at n=64, d=512), bf16 inputs from a seeded generator; times of the kernel, its plain
    version and the plain modules (bf16 through PyTorch's own GEMMs) with CUDA
    events around runs of back-to-back calls.
-4. training kernels, at the B/16 training shapes (b=64) and the B/32 ones
-   (b=128, n=65), from seeded bf16 inputs and cotangent: each training
+4. training kernels, at the B/16 training shapes (b=64), the B/32 ones
+   (b=128, n=65) and the objectives' two, from seeded bf16 inputs and
+   cotangent: each training
    forward (the kernels that keep xn, h and xn, qkv, oattn, lse) against its
    plain version, output by output, twice bit for bit; then each backward
    kernel, fed those kept
@@ -150,16 +152,29 @@ Phases, one line each (any failure raises and exits non-zero):
    checked; then the biased block at 197 tokens (LSA's mask, batch 64) timed
    on both routes, forward and backward: the evidence for the 512-token
    threshold with a bias.
-20. profile: ``torch.profiler`` over train steps at seven training configs
-   (B/32 on both tiers, CvT-13 at 224 and 384); device time and launches per
-   step by kernel group,
+20. the training objectives (``benchmarks/run_benchmarks.py:105-128``, the
+   encoder a ViT at 256 px, patch 32, dim 1024, depth 6, 8 heads of 64, mlp
+   2048; batch 64): MAE (decoder 512 wide, depth 6, ratio 0.75), SimMIM
+   (ratio 0.5), MPP (patch 32, its defaults, pixels in [0, 1)) and DeiT
+   distillation (a ViT teacher and a DistillableViT student of that shape,
+   soft, T = 1, alpha 0.5), each trained as phase 7 trains a classifier but
+   through ``make_loss_train_step`` with AdamW(1e-5), on one fixed batch and
+   one fixed mask draw (a generator of one seed at every step): rows 1-4 at
+   every block of the encoder (and of MAE's decoder) each way per step, the
+   teacher's forward on the serving kernels (rows 1 and 3 only).
+21. profile: ``torch.profiler`` over train steps at twelve training configs
+   (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224 and 384,
+   ScalableViT, the four objectives); device time and launches per
+   step by kernel group (the LayerNorm-backward dgrad's launches counted by
+   the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
    in a step.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT; training B/32, B/32 hybrid, B/16,
-small-dataset, CvT-13 @224 and @384, ScalableViT; the blocks past 512
-tokens) runs with every kernel's launch counter set to 0 just before it and
+small-dataset, CvT-13 @224 and @384, ScalableViT, MAE, SimMIM, MPP,
+distillation; the blocks past 512 tokens) runs with every kernel's launch
+counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
@@ -195,6 +210,24 @@ SMALL_DATASET = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, 
 # it; served and trained at 224 px (the JAX package's config) and at 384 px
 # (the CvT paper's CvT-13↑384 fine-tuning resolution).
 CVT13 = dict(num_classes=1000)
+# The training objectives' encoder (BASELINE.md workload 5,
+# benchmarks/run_benchmarks.py:105-128): a ViT at 256 px, patch 32, dim 1024,
+# depth 6, 8 heads of 64 (inner 512 in a 1024-wide model), mlp 2048; the
+# objectives trained at its batch 64 (run_benchmarks.py:337).
+OBJ_ENCODER = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=8,
+                   mlp_dim=2048)
+OBJECTIVE_BATCH = 64
+# The objectives train with AdamW (the optimizer of the MAE, SimMIM and DeiT
+# recipes).  SGD at 1e-3 moves SimMIM's weights, whose loss keeps the
+# reference's extra 1/num_masked, by parts in 1e8 a step: below a bf16 unit,
+# so the bf16 weights and the loss would not move at all.  AdamW moves each
+# weight by about lr a step, whatever its gradient's scale: at 1e-4 MPP's
+# loss on one batch went 9.47, 3.58, 8.02, 11.45 (its logits come from the
+# encoder's last residual stream, 1024 wide, with no LayerNorm before
+# to_bits); at 1e-5 a step still moves a weight by a twelfth of a bf16 unit
+# at |w| 0.03, which the f32 master weights carry to the bf16 ones as a
+# fraction of weights that step by one unit.
+OBJECTIVE_LR = 1e-5
 # Kernel against its plain version on the same bf16 inputs, for a residual
 # block y = T(x + T(f(x))): both round at the same points and differ by f32
 # summation order, which can flip a rounding of an intermediate by one bf16
@@ -317,45 +350,106 @@ def interleaved_medians(torch, fns: dict, rounds: int, calls: int, warmup: int =
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
-def launch_breakdown(torch, fn, calls: int = 5) -> dict:
+def launch_breakdown(torch, fn, calls: int = 5) -> dict | None:
     """The device kernels one call of ``fn`` launches, by ``kernel_group``:
     ``{group: (device ms a call, launches a call)}``, from torch.profiler
-    over ``calls`` calls after one of warm-up.  A profile can miss its first
-    kernels, so it opens with four of ``torch.cuda._sleep``'s spin kernels,
-    left out of the count."""
-    from torch.profiler import ProfilerActivity, profile
+    over ``calls`` calls after one of warm-up, for the times only (the checks
+    count launches with :func:`counted_launches` and the wrappers' counters).
+    A session can drop the records of the kernels launched as its tracing
+    starts (on an H100: none recorded, 1 of 5 launches of a kernel, the first
+    kernel of the window), so each session opens with a warm-up step whose
+    records it throws away (the profiler's schedule), and its recorded window
+    with four of ``torch.cuda._sleep``'s spin kernels and 20 ms on the host,
+    all left out, before the ``calls`` calls.  ``fn`` launches the same
+    kernels at every call, so a session in which a kernel's launches are not
+    a multiple of ``calls``, or with no device activity at all, still dropped
+    records: it is taken again, up to five times, and after five such
+    sessions the times are not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            torch.cuda._sleep(1000)
-        for _ in range(calls):
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in evt.key]
+        if events and all(evt.count % calls == 0 for evt in events):
+            break
+    else:
+        return None
     rows = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in evt.key:
-            ms, count = rows.get(kernel_group(evt.key), (0.0, 0.0))
-            rows[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
-                                           count + evt.count / calls)
+    for evt in events:
+        ms, count = rows.get(kernel_group(evt.key), (0.0, 0.0))
+        rows[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
+                                       count + evt.count / calls)
     return rows
 
 
-def check_ln_epilogue(torch, name, fn, banned=()):
-    """The device kernels of one call of a backward whose LayerNorm backward
-    is the dgrad's epilogue (``gemm_wgmma.cu``'s kEpiLnBwd, at the widths of
-    ``ln_bwd_fused``), by :func:`launch_breakdown`: raises unless it launches
-    that instance once and neither of ``layernorm.cu``'s backward passes, nor
-    a kernel whose group starts with one of ``banned``.  Returns the
-    breakdown and the call's device ms."""
+def breakdown_text(rows: dict | None) -> str:
+    """A :func:`launch_breakdown` launch by launch, for the log."""
+    if rows is None:
+        return "not measured (the profiler dropped device records in five sessions)"
+    return "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows.items())
+
+
+def ln_device_text(device, rows) -> str:
+    """A backward's device ms a call and its LayerNorm-backward dgrad's, from
+    :func:`check_ln_epilogue`, for the log."""
+    if rows is None:
+        return f"device ms {breakdown_text(rows)}"
+    return (f"device ms a call {device:.4f}, of it the LayerNorm-backward dgrad "
+            f"{rows.get(LN_EPILOGUE, (0.0, 0))[0]:.4f}")
+
+
+# csrc/kernels.cuh Counted: the launches the library counts on the host where
+# it makes them (vit_take_launch_count).
+COUNTED = {"gemm_wgmma": 0, "ln_epilogue": 1, "ln_passes": 2, "linear": 3}
+
+
+def counted_launches(torch, fn) -> dict:
+    """The launches one call of ``fn`` makes of each kind in COUNTED, as the
+    library counts them where it launches them: gemm_wgmma.cu's kernel (every
+    epilogue), its LayerNorm-backward instance, layernorm.cu's backward
+    passes (one a call of them) and linear.cu's GEMM."""
+    from vit_tpu_torch.ops import _build
+
+    lib = _build.load()
+    torch.cuda.synchronize()
+    for which in COUNTED.values():
+        lib.vit_take_launch_count(which)
+    fn()
+    torch.cuda.synchronize()
+    return {name: lib.vit_take_launch_count(which) for name, which in COUNTED.items()}
+
+
+def check_ln_epilogue(torch, name, fn, linear=True):
+    """A backward whose LayerNorm backward is the dgrad's epilogue
+    (``gemm_wgmma.cu``'s kEpiLnBwd, at the widths of ``ln_bwd_fused``): raises
+    unless one call of ``fn`` launches that instance once and
+    ``layernorm.cu``'s backward passes never, nor, unless ``linear``,
+    ``linear.cu``'s GEMM (:func:`counted_launches`).  Returns the call's
+    counts, its :func:`launch_breakdown` and its device ms (None where not
+    measured)."""
+    counts = counted_launches(torch, fn)
+    if counts["ln_epilogue"] != 1 or counts["ln_passes"] or (not linear and counts["linear"]):
+        raise AssertionError(f"{name}: launches a call {counts}: one of the LayerNorm-backward "
+                             f"dgrad, none of the LayerNorm backward's passes"
+                             + ("" if linear else " and none of linear.cu") + " expected")
     rows = launch_breakdown(torch, fn)
-    launches = rows.get(LN_EPILOGUE, (0.0, 0.0))[1]
-    bad = [g for g in rows if g in LN_PASSES or g.startswith(tuple(banned))]
-    if round(launches) != 1 or bad:
-        raise AssertionError(f"{name}: {launches:g} launches of {LN_EPILOGUE} a call (1 "
-                             f"expected) and {bad}: {rows}")
-    return rows, sum(ms for ms, _ in rows.values())
+    return counts, rows, None if rows is None else sum(ms for ms, _ in rows.values())
 
 
 def ln_library(torch, dxn32, x, gamma, eps):
@@ -766,7 +860,7 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
         # Its LayerNorm backward is the dgrad's epilogue: no f32 dxn, no
         # layernorm.cu passes; PyTorch's LayerNorm backward timed on the
         # f32 dxn it keeps on chip (dh·W1 or dqkv·Wqkv, from its own output).
-        rows, device = check_ln_epilogue(torch, name, kernel)
+        _, rows, device = check_ln_epilogue(torch, name, kernel)
         grad_in = out[1].reshape(-1, out[1].shape[-1])
         dxn32 = fh.gemm_wgmma(grad_in, w_ln, "f32", layout="kn")[0]
         ms = interleaved_medians(torch, {
@@ -784,9 +878,8 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results):
             f"plain={ms['plain']:.4f} autograd through the bf16 modules for the same outputs="
             f"{ms['library']:.4f}; with the weight gradients: kernel+dW GEMMs="
             f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by}); "
-            f"device ms a call {device:.4f}, of it the LayerNorm-backward dgrad "
-            f"{rows[LN_EPILOGUE][0]:.4f} on {_build.load().vit_ln_bwd_clusters(d)} clusters of "
-            f"{d // 256} CTAs (no {' or '.join(LN_PASSES)}); "
+            + ln_device_text(device, rows) + f" on {_build.load().vit_ln_bwd_clusters(d)} clusters of {d // 256} CTAs, "
+            f"counted once a call (no {' or '.join(LN_PASSES)}); "
             f"native_layer_norm_backward on the same f32 dxn={ms['library_ln']:.4f}")
         results.setdefault(name, {})[tag] = dict(err=err, **ms, device=device,
                                                  bound=(limit, by))
@@ -980,7 +1073,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
         elif got[5] is not None:
             raise AssertionError(f"biased backward {kind}: dbias computed unasked")
         del want, tpu, again
-        ln_rows, device = check_ln_epilogue(torch, f"biased backward {kind}", kernel)
+        _, ln_rows, device = check_ln_epilogue(torch, f"biased backward {kind}", kernel)
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel,
             "unbiased": lambda: fab.fused_attention_block_backward(
@@ -1003,8 +1096,8 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
             f"modules with SDPA for the same outputs={bwd_ms['library']:.4f}; with the weight "
             f"gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
             f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]}); "
-            f"device ms a call {device:.4f}, of it the LayerNorm-backward dgrad "
-            f"{ln_rows[LN_EPILOGUE][0]:.4f} (no {' or '.join(LN_PASSES)})")
+            + ln_device_text(device, ln_rows) + f", counted once a call (no "
+            f"{' or '.join(LN_PASSES)})")
         key = kind if tag is None else f"{kind}, {tag}"
         results.setdefault("fused_attention_block_bias", {})[key] = dict(
             err=max(err, own_err, train_err), lse_err=lse_err, **fwd_ms, bound=fwd_bound)
@@ -1503,10 +1596,9 @@ def cross_attention_phase(torch, results, smi):
             for name, r in ((f"route {bwd_route}", None), ("four steps", 0)):
                 rows = launch_breakdown(torch, lambda: kernel(r))
                 log(f"cross-attention backward {shape}, {name}: "
-                    f"{sum(cnt for _, cnt in rows.values()):g} launches, device ms "
-                    f"{sum(ms for ms, _ in rows.values()):.4f}: "
-                    + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows.items())
-                    + f" on {smi}")
+                    + (f"{sum(cnt for _, cnt in rows.values()):g} launches, device ms "
+                       f"{sum(ms for ms, _ in rows.values()):.4f}: " if rows else "")
+                    + f"{breakdown_text(rows)} on {smi}")
 
         def library(xn_, wq_, k_, v_, wo_, bo_):
             o = F.scaled_dot_product_attention(fap.split_heads(F.linear(xn_, wq_), heads),
@@ -1946,14 +2038,13 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
     # Its three dgrads run on gemm_wgmma (launch_dgrad, n >= 256 here): none on
     # linear.cu; dh·W1's epilogue is the LayerNorm backward.
     rows, device = {}, {}
-    rows["proj_mlp"], device["proj_mlp"] = check_ln_epilogue(
-        torch, f"proj_mlp backward {shape}", proj_bwd, banned=("linear_kernel",))
+    counts, rows["proj_mlp"], device["proj_mlp"] = check_ln_epilogue(
+        torch, f"proj_mlp backward {shape}", proj_bwd, linear=False)
     log(f"hybrid proj_mlp backward {shape}: device ms launch by launch "
-        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows["proj_mlp"].items())
-        + f" on {smi}")
-    if sum(round(cnt) for g, (_, cnt) in rows["proj_mlp"].items()
-           if g.startswith("gemm_wgmma")) != 3:
-        raise AssertionError(f"proj_mlp backward {shape}: its dgrads are not gemm_wgmma's three")
+        f"{breakdown_text(rows['proj_mlp'])} on {smi}")
+    if counts["gemm_wgmma"] != 3:
+        raise AssertionError(f"proj_mlp backward {shape}: its dgrads are not gemm_wgmma's three: "
+                             f"{counts}")
 
     def attn_bwd():
         return fh.attention_nb_backward(do_nb, q, k, v, o, lse, heads, dim_head)
@@ -1970,11 +2061,10 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
     twice("ln_gemm", ln_bwd, lambda: fh.ln_gemm_backward_reference(dqkv, x, ln1[0], wqkv, eps),
           {})
     # Its GEMM is the LayerNorm-backward dgrad: no linear_kernel.
-    rows["ln_gemm"], device["ln_gemm"] = check_ln_epilogue(
-        torch, f"ln_gemm backward {shape}", ln_bwd, banned=("linear_kernel",))
+    _, rows["ln_gemm"], device["ln_gemm"] = check_ln_epilogue(
+        torch, f"ln_gemm backward {shape}", ln_bwd, linear=False)
     log(f"hybrid ln_gemm backward {shape}: device ms launch by launch "
-        + "; ".join(f"{g} x{cnt:g} {ms:.4f}" for g, (ms, cnt) in rows["ln_gemm"].items())
-        + f" on {smi}")
+        f"{breakdown_text(rows['ln_gemm'])} on {smi}")
     # PyTorch's LayerNorm backward on the f32 dxn each keeps on chip.
     ln_lib = {"ln_gemm": ln_library(torch, fh.gemm_wgmma(dqkv, wqkv, "f32", layout="kn")[0], x,
                                     ln1[0], eps),
@@ -2052,9 +2142,8 @@ def hybrid_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, smi):
             f"{bwd_ms['library']:.4f}"
             + (f"; with the weight gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
                f"{bwd_ms['library_whole']:.4f}" if bw is not None else "")
-            + (f"; device ms a call {device[name]:.4f}, of it the LayerNorm-backward dgrad "
-               f"{rows[name][LN_EPILOGUE][0]:.4f}; native_layer_norm_backward on the same "
-               f"f32 dxn={bwd_ms['library_ln']:.4f}" if name in ln_lib else "")
+            + (f"; {ln_device_text(device[name], rows[name])}; native_layer_norm_backward "
+               f"on the same f32 dxn={bwd_ms['library_ln']:.4f}" if name in ln_lib else "")
             + f"; bound={bb[0]:.4f} ({bb[1]}) on {smi}")
         results.setdefault(name, {})[tag] = dict(err=errs[name], **fwd_ms, bound=fb)
         results.setdefault(name + "_bwd", {})[tag] = dict(
@@ -2232,13 +2321,16 @@ def check_temperatures(torch, tag, grads, weights):
             + "; ".join(rows) + "; ") if rows else ""
 
 
-def step1_gradients(torch, tag, models, images, labels):
+def step1_gradients(torch, tag, models, images, labels, loss_of=None):
     """Step-1 gradients of the kernel path, the plain bf16 path and the f32
-    model (``models``, in that order, on the same weights): each parameter's
-    on the kernel path within MAX_GRAD_ERR_VS_PLAIN_BF16 times the plain
-    path's relative L2 error against f32, the 0-d ones as one stacked
-    vector and each by :func:`check_temperatures`.  Returns the first
-    losses and a summary for the log; raises on a miss."""
+    model (``models``, in that order, on the same weights), of the
+    cross-entropy of ``m(images)`` against ``labels`` or, for a module whose
+    forward is the loss, of ``loss_of(m)``: each parameter's on the kernel
+    path within MAX_GRAD_ERR_VS_PLAIN_BF16 times the plain path's relative
+    L2 error against f32, the 0-d ones as one stacked vector and each by
+    :func:`check_temperatures`.  Parameters the loss does not reach (an
+    objective's encoder head, a teacher) get a gradient on none of the three.
+    Returns the first losses and a summary for the log; raises on a miss."""
     from vit_tpu_torch.parallel.train import cross_entropy_loss
 
     if any(p.dtype != torch.float32 for p in models[0].parameters()):
@@ -2247,14 +2339,18 @@ def step1_gradients(torch, tag, models, images, labels):
     for name, m in zip(("kernels", "plain", "f32"), models):
         m.train().zero_grad(set_to_none=True)
         torch.cuda.reset_peak_memory_stats()
-        loss = cross_entropy_loss(m(images), labels)
+        loss = loss_of(m) if loss_of else cross_entropy_loss(m(images), labels)
         loss.backward()
         first[name] = loss.item()
         peak[name] = torch.cuda.max_memory_allocated() / 1e9
-        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        grads[name] = {k: p.grad.detach().clone() for k, p in m.named_parameters()
+                       if p.grad is not None}
         m.zero_grad(set_to_none=True)
     if any(v.dtype != torch.float32 for v in grads["kernels"].values()):
         raise AssertionError(f"{tag}: gradients are not f32")
+    if not set(grads["kernels"]) == set(grads["plain"]) == set(grads["f32"]):
+        raise AssertionError(f"{tag}: the paths' gradients reach other parameters")
+    no_grad = sum(1 for _ in models[0].parameters()) - len(grads["kernels"])
     temperatures = check_temperatures(torch, tag, grads, dict(models[2].named_parameters()))
     scalars = sorted(k for k, v in grads["f32"].items() if v.dim() == 0)
     for name in grads:
@@ -2274,7 +2370,10 @@ def step1_gradients(torch, tag, models, images, labels):
     cat = {n: torch.cat([v.flatten() for v in grads[n].values()]) for n in grads}
     all_k, all_p = (rel_l2(torch, cat[n], cat["f32"]) for n in ("kernels", "plain"))
     summary = (f"step-1 gradients, relative L2 error against the f32 model over all "
-               f"parameters: kernels={all_k:.4g} plain={all_p:.4g}; worst per-tensor ratio "
+               f"parameters: kernels={all_k:.4g} plain={all_p:.4g}"
+               + (f" ({no_grad} parameter tensors the loss does not reach: no gradient on "
+                  f"any path)" if no_grad else "")
+               + f"; worst per-tensor ratio "
                f"kernels/plain={worst_ratio:.3f} ({worst_name}; <= "
                f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); peak GB allocated in the step-1 forward and "
                f"backward (the three models' weights included) kernels={peak['kernels']:.2f} "
@@ -2312,16 +2411,32 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
     first, summary = step1_gradients(torch, tag, (model, plain, f32), images, labels)
     del f32
     torch.cuda.empty_cache()
-    loss_rel = abs(first["kernels"] - first["plain"]) / abs(first["plain"])
 
+    def run_of(m):
+        step = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3))
+        return lambda: step(images, labels)
+
+    return train_path(torch, tag, batch, model, plain, first, summary, run_of, "SGD(1e-3)", smi,
+                      counters, per_step, timing)
+
+
+def train_path(torch, tag, batch, model, plain, first, summary, run_of, optimizer, smi, counters,
+               per_step, timing=None):
+    """The main path of a training phase: ``run_of(m)`` is one train step
+    of ``m`` (a call without arguments); TRAIN_STEPS steps of ``model`` with
+    the counters from 0 (each step launching each kernel ``per_step[name]``
+    times), finite and falling losses, BatchNorm's running statistics moved,
+    the first losses of the kernel and the plain path (``first``) within
+    LOSS_REL_TOL, and the step timed on both paths."""
+    loss_rel = abs(first["kernels"] - first["plain"]) / abs(first["plain"])
     # The main path: counters from 0, TRAIN_STEPS steps, read right after.
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    run = run_of(model)
     stats = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
     for c in counters.values():
         c.launches = 0
     losses = []
     for i in range(TRAIN_STEPS):
-        losses.append(step(images, labels)["loss"].item())
+        losses.append(run()["loss"].item())
         check_launches(tag, f"step {i}", counters, per_step, i + 1)
     launches = {name: c.launches for name, c in counters.items()}
     buffers = dict(model.named_buffers())
@@ -2329,12 +2444,10 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
              or not bool(torch.isfinite(buffers[k]).all())]
     if stale:
         raise AssertionError(f"{tag}: BatchNorm statistics not finite or not updated: {stale}")
-    plain_step = make_train_step(plain, torch.optim.SGD(plain.parameters(), lr=1e-3))
-    ms = interleaved_medians(torch, {"kernels": lambda: step(images, labels),
-                                     "plain": lambda: plain_step(images, labels)},
+    ms = interleaved_medians(torch, {"kernels": run, "plain": run_of(plain)},
                              **(timing or dict(rounds=3, calls=3)))
     STEP_MS[tag] = ms
-    log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3); step-1 loss "
+    log(f"training {tag}: batch {batch}, f32 params, bf16 compute, {optimizer}; step-1 loss "
         f"kernels={first['kernels']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f} "
         f"(kernels/plain within {LOSS_REL_TOL} relative: {loss_rel:.3g}); {summary}losses "
         f"over {TRAIN_STEPS} steps {[round(v, 6) for v in losses]}; launches per step "
@@ -2351,6 +2464,106 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses} are not finite and falling")
     return launches
+
+
+def plain_modules(model):
+    """``model`` with each of its ``Transformer`` s on the plain modules
+    (``fused_attention`` and ``fused_mlp`` ``"never"``): the plain path of a
+    model whose constructor takes no such switch."""
+    from vit_tpu_torch.layers.common import Transformer
+
+    for m in model.modules():
+        if isinstance(m, Transformer):
+            m.fused_attention = m.fused_mlp = "never"
+    return model
+
+
+class Objective:
+    """A training objective's path: ``build(plain=False, **kw)`` makes the
+    loss module (``kw``: ``compute_dtype``, ``generator``, ``dtype``) on the
+    card, ``batch(g)`` what its forward takes first, from the seeded
+    generator ``g``; ``draws``: whether the forward draws masks (its
+    ``generator=``)."""
+
+    def __init__(self, build, batch, draws=True):
+        self.build, self.batch, self.draws = build, batch, draws
+
+    def run(self, torch, model, batch, seed):
+        """One ``make_loss_train_step`` step of ``model`` (AdamW at
+        OBJECTIVE_LR) on ``batch``, a call without arguments; its masks drawn
+        from a generator seeded ``seed`` at every step: one mask draw."""
+        from vit_tpu_torch.parallel.train import make_loss_train_step
+
+        step = make_loss_train_step(model, torch.optim.AdamW(model.parameters(), lr=OBJECTIVE_LR))
+        if not self.draws:
+            return lambda: step(batch)
+        masks = torch.Generator(device="cuda")
+        return lambda: step(batch, generator=masks.manual_seed(seed))
+
+
+def objectives(torch):
+    """The four objectives at run_benchmarks.py:105-128's configs: MAE
+    (decoder 512 wide, depth 6, ratio 0.75), SimMIM (ratio 0.5), MPP (patch
+    32, its defaults; pixels in [0, 1) as its buckets need), DeiT
+    distillation (a ViT teacher, a DistillableViT student of the same shape,
+    soft, T = 1, alpha 0.5, labels arange(64) % 1000)."""
+    from vit_tpu_torch import MAE, MPP, DistillableViT, DistillWrapper, SimMIM, ViT
+
+    def images(g, uniform=False):
+        size = OBJ_ENCODER["image_size"]
+        shape = (OBJECTIVE_BATCH, size, size, 3)
+        return (torch.rand if uniform else torch.randn)(*shape, generator=g, device="cuda")
+
+    def build(make):
+        def built(plain=False, **kw):
+            model = make(**kw)
+            return plain_modules(model) if plain else model
+        return built
+
+    def distill(**kw):
+        return DistillWrapper(ViT(**OBJ_ENCODER, **kw), DistillableViT(**OBJ_ENCODER, **kw),
+                              temperature=1.0, alpha=0.5, **kw)
+
+    labels = torch.arange(OBJECTIVE_BATCH, device="cuda") % OBJ_ENCODER["num_classes"]
+    return {
+        "MAE": Objective(build(lambda **kw: MAE(ViT(**OBJ_ENCODER, **kw), decoder_dim=512,
+                                                masking_ratio=0.75, decoder_depth=6, **kw)),
+                         images),
+        "SimMIM": Objective(build(lambda **kw: SimMIM(ViT(**OBJ_ENCODER, **kw),
+                                                      masking_ratio=0.5, **kw)), images),
+        "MPP": Objective(build(lambda **kw: MPP(ViT(**OBJ_ENCODER, **kw),
+                                               patch_size=OBJ_ENCODER["patch_size"], **kw)),
+                         lambda g: images(g, uniform=True)),
+        "DeiT distillation": Objective(build(distill), lambda g: (images(g), labels),
+                                       draws=False),
+    }
+
+
+def objective_phase(torch, tag, objective, seed, smi, counters, per_step, timing=None):
+    """Train a training objective (``make_loss_train_step``, AdamW, f32
+    parameters, bf16 compute) on one fixed batch and one fixed mask draw, as
+    :func:`training_phase` trains a classifier: step-1 loss and gradients of
+    the kernel path against the plain bf16 path and the f32 model of the same
+    weights (TF32 off), TRAIN_STEPS steps with the launch counts of
+    ``per_step``, finite falling losses, the step timed on both paths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model = objective.build(compute_dtype=torch.bfloat16, generator=g)
+    plain = objective.build(compute_dtype=torch.bfloat16, plain=True)
+    f32 = objective.build(plain=True)
+    for twin in (plain, f32):
+        twin.load_state_dict(model.state_dict())
+    batch = objective.batch(g)
+    masks = torch.Generator(device="cuda")
+
+    def loss_of(m):
+        return m(batch, generator=masks.manual_seed(seed)) if objective.draws else m(batch)
+
+    first, summary = step1_gradients(torch, tag, (model, plain, f32), None, None, loss_of)
+    del f32
+    torch.cuda.empty_cache()
+    return train_path(torch, tag, OBJECTIVE_BATCH, model, plain, first, summary,
+                      lambda m: objective.run(torch, m, batch, seed), f"AdamW({OBJECTIVE_LR:g})",
+                      smi, counters, per_step, timing)
 
 
 # csrc/kernels.cuh Epilogue, for the names of the linear_kernel instances.
@@ -2413,60 +2626,85 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels (copies, embedding, loss)"
 
 
-def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None, ln_epilogues=None,
-                  ln_passes=False):
+def classifier_step(torch, vit, cfg, batch, size=None):
+    """A :func:`profile_phase` builder: ``vit``'s classification train step
+    (SGD at 1e-3) on a seeded batch, labels ``arange(batch) % classes``."""
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    def build(g):
+        model = vit(**cfg, compute_dtype=torch.bfloat16, generator=g)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+        side = size or cfg["image_size"]
+        images = torch.randn(batch, side, side, 3, generator=g, device="cuda")
+        labels = torch.arange(batch, device="cuda") % cfg["num_classes"]
+        return (lambda: step(images, labels)), "SGD(1e-3)"
+    return build
+
+
+def objective_step(torch, objective, seed=0):
+    """A :func:`profile_phase` builder: an :class:`Objective`'s train step
+    (AdamW at OBJECTIVE_LR) on its seeded batch and one mask draw."""
+    def build(g):
+        model = objective.build(compute_dtype=torch.bfloat16, generator=g)
+        return objective.run(torch, model, objective.batch(g), seed), f"AdamW({OBJECTIVE_LR:g})"
+    return build
+
+
+def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_passes=False):
     """Where a train step's device time goes: ``torch.profiler`` over a few
-    steps of the training path.  Prints the wall time per step (host clock
-    around synchronised steps, profiler off and on), the device's busy time
-    per step (the sum of its kernel times: one stream, so kernels do not
-    overlap), the idle share against either wall time, the host's enqueue
-    time per step (until ``step`` returns, before the synchronise: a step
-    whose enqueue time is its wall time is host-bound), the synchronising
-    calls in one step (``torch.cuda.set_sync_debug_mode("warn")``), and the
-    kernels grouped by what they do, with their time and launches per step.
-    A first one-step profile, thrown away, takes the profiler's start-up out
-    of the timed one.  Only the device's activity is recorded: the host's
-    ops would add tens of thousands of events a step to process at a
-    launch-bound config, and its time is the enqueue time above.  With
-    ``ln_epilogues``, raises unless a step launches the LayerNorm-backward
-    dgrad that many times and, unless ``ln_passes``, none of layernorm.cu's
-    backward passes."""
+    steps of the training path, ``run, optimizer = build(g)`` (a train step
+    without arguments and its optimizer's name, from the generator ``g``
+    seeded ``seed``: :func:`classifier_step`, :func:`objective_step`).
+    Prints the wall time per step (host clock around synchronised steps,
+    profiler off and on), the device's busy time per step (the sum of its
+    kernel times: one stream, so kernels do not overlap), the idle share
+    against either wall time, the host's enqueue time per step (until the
+    step returns, before the synchronise: a step whose enqueue time is its
+    wall time is host-bound), the synchronising calls in one step
+    (``torch.cuda.set_sync_debug_mode("warn")``), and the kernels grouped by
+    what they do, with their time and launches per step.  A first one-step
+    profile, thrown away, takes the profiler's start-up out of the timed one.
+    Only the device's activity is recorded: the host's ops would add tens of
+    thousands of events a step to process at a launch-bound config, and its
+    time is the enqueue time above.  With ``ln_epilogues``, raises unless a
+    step launches the LayerNorm-backward dgrad that many times and, unless
+    ``ln_passes``, none of layernorm.cu's backward passes, as the library
+    counts them (:func:`counted_launches`)."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
 
-    from vit_tpu_torch.parallel.train import make_train_step
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    model = vit(**cfg, compute_dtype=torch.bfloat16, generator=g)
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
-    size = size or cfg["image_size"]
-    images = torch.randn(batch, size, size, 3, generator=g, device="cuda")
-    labels = torch.arange(batch, device="cuda") % cfg["num_classes"]
+    run, optimizer = build(torch.Generator(device="cuda").manual_seed(seed))
     for _ in range(3):
-        step(images, labels)
+        run()
     torch.cuda.synchronize()
+    if ln_epilogues is not None:
+        counts = counted_launches(torch, run)
+        if counts["ln_epilogue"] != ln_epilogues or (counts["ln_passes"] and not ln_passes):
+            raise AssertionError(f"profile {tag}: launches a step {counts} ({ln_epilogues} of "
+                                 f"the LayerNorm-backward dgrad expected"
+                                 + ("" if ln_passes else ", none of its passes") + ")")
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
-        step(images, labels)
+        run()
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     enqueue = []
     t0 = time.perf_counter()
     for _ in range(PROFILE_STEPS):
         t1 = time.perf_counter()
-        step(images, labels)
+        run()
         enqueue.append((time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CUDA]):
-        step(images, labels)
+        run()
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            step(images, labels)
+            run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     groups = {}
@@ -2480,7 +2718,7 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None, ln_epilogue
     if busy <= 0:
         log(f"profile {tag}: the profiler saw no device time; not measured")
         return
-    log(f"profile {tag}: batch {batch}, f32 params, bf16 compute, SGD, {PROFILE_STEPS} "
+    log(f"profile {tag}: batch {batch}, f32 params, bf16 compute, {optimizer}, {PROFILE_STEPS} "
         f"steps on {smi}; wall ms/step {wall_ms:.3f} (profiler off), {prof_wall_ms:.3f} "
         f"(profiler on); device busy ms/step {busy:.3f}; idle share "
         f"{1 - busy / wall_ms:.3f} against the profiler-off wall time, "
@@ -2491,13 +2729,6 @@ def profile_phase(torch, tag, vit, cfg, batch, seed, smi, size=None, ln_epilogue
     log("|---|---|---|")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"| {name} | {ms:.3f} | {count:g} |")
-    if ln_epilogues is not None:
-        launches = groups.get(LN_EPILOGUE, (0.0, 0.0))[1]
-        passes = [g for g in LN_PASSES if g in groups]
-        if round(launches) != ln_epilogues or (passes and not ln_passes):
-            raise AssertionError(f"profile {tag}: {launches:g} launches of {LN_EPILOGUE} a step "
-                                 f"({ln_epilogues} expected)"
-                                 + (f", and {passes}" if passes and not ln_passes else ""))
 
 
 def kernel_entry(results, by_path, name, src, tpu, main_shape):
@@ -2653,8 +2884,14 @@ def main() -> int:
         kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
         kernel_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
         kernel_phase(torch, "B/32-entry", 8, 65, 1024, 16, 64, 2048, results)
+        # The objectives' blocks: 8 heads of 64 in 1024 (MAE's encoder, 16
+        # visible tokens) and in 512 (its decoder, 64 tokens).
+        for tag, n, d in (("MAE encoder", 16, 1024), ("MAE decoder", 64, 512)):
+            kernel_phase(torch, tag, OBJECTIVE_BATCH, n, d, 8, 64, 2048, results)
         backward_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
         backward_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
+        for tag, n, d in (("MAE encoder", 16, 1024), ("MAE decoder", 64, 512)):
+            backward_phase(torch, tag, OBJECTIVE_BATCH, n, d, 8, 64, 2048, results)
         biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
         spt_phase(torch, 64, 256, 16, 1024, smi)
     with clock("flash kernels"):
@@ -2770,6 +3007,26 @@ def main() -> int:
           "fused_mlp_bwd": 2 * blocks, "cross backward, one kernel": one_kernel,
           "cross backward, split": blocks - one_kernel}, size=SCALABLE_SIZE,
          timing=dict(rounds=3, calls=1, warmup=1))
+    # The training objectives (BASELINE.md workload 5) on the objectives'
+    # encoder: rows 1-4 at 16, 64, 65 and 66 tokens with 8 heads of 64 in 1024
+    # (MAE's decoder: in 512); the distillation teacher's forward under
+    # no_grad on the serving kernels, so rows 2 and 4 run for the student only.
+    forward = ("fused_attention_block", "fused_mlp", "short route, forward")
+    backward = ("fused_attention_block_bwd", "fused_mlp_bwd", "short route")
+
+    def each(count, *names):
+        return {name: count for name in names}
+
+    layers = OBJ_ENCODER["depth"]
+    objective = objectives(torch)
+    path("training MAE", objective_phase, "MAE (decoder 512, depth 6)", objective["MAE"], 11,
+         smi, counters, each(2 * layers, *forward, *backward))
+    for seed, name in enumerate(("SimMIM", "MPP"), 12):
+        path(f"training {name}", objective_phase, name, objective[name], seed, smi, counters,
+             each(layers, *forward, *backward))
+    path("training distillation", objective_phase, "DeiT distillation (soft, T 1, alpha 0.5)",
+         objective["DeiT distillation"], 14, smi, counters,
+         {**each(2 * layers, *forward), **each(layers, *backward)})
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -2780,21 +3037,30 @@ def main() -> int:
         # channels: d % 256 == 0), its narrower stages and its cross-attention
         # blocks on the passes; none at CvT's widths.
         two = 2 * ENTRY["depth"]
-        profile_phase(torch, "ViT-B/32@256 (bench.py)", ViT, ENTRY, 128, 0, smi,
+        profile_phase(torch, "ViT-B/32@256 (bench.py)", classifier_step(torch, ViT, ENTRY, 128),
+                      128, 0, smi, ln_epilogues=two)
+        profile_phase(torch, "ViT-B/32@256 hybrid (bench.py)",
+                      classifier_step(torch, hybrid_vit, ENTRY, 128), 128, 0, smi,
                       ln_epilogues=two)
-        profile_phase(torch, "ViT-B/32@256 hybrid (bench.py)", hybrid_vit, ENTRY, 128, 0, smi,
-                      ln_epilogues=two)
-        profile_phase(torch, "ViT-B/16@224", ViT, B16, 64, 0, smi, ln_epilogues=2 * B16["depth"])
-        profile_phase(torch, "small-dataset ViT 256/16", small, SMALL_DATASET, 64, 0, smi,
+        profile_phase(torch, "ViT-B/16@224", classifier_step(torch, ViT, B16, 64), 64, 0, smi,
+                      ln_epilogues=2 * B16["depth"])
+        profile_phase(torch, "small-dataset ViT 256/16",
+                      classifier_step(torch, small, SMALL_DATASET, 64), 64, 0, smi,
                       ln_epilogues=2 * SMALL_DATASET["depth"])
-        profile_phase(torch, "CvT-13@224", CvT, CVT13, 64, 0, smi, size=224, ln_epilogues=0,
-                      ln_passes=True)
-        profile_phase(torch, "CvT-13@384", CvT, CVT13, 64, 0, smi, size=384, ln_epilogues=0,
-                      ln_passes=True)
+        for size in (224, 384):
+            profile_phase(torch, f"CvT-13@{size}", classifier_step(torch, CvT, CVT13, 64, size),
+                          64, 0, smi, ln_epilogues=0, ln_passes=True)
         wide = sum(2 * depth for i, depth in enumerate(SCALABLE["depth"])
                    if (SCALABLE["dim"] << i) % 256 == 0)
-        profile_phase(torch, "ScalableViT@256", ScalableViT, SCALABLE, 64, 0, smi,
-                      size=SCALABLE_SIZE, ln_epilogues=wide, ln_passes=True)
+        profile_phase(torch, "ScalableViT@256",
+                      classifier_step(torch, ScalableViT, SCALABLE, 64, SCALABLE_SIZE), 64, 0,
+                      smi, ln_epilogues=wide, ln_passes=True)
+        # Every block of the objectives is 1024 or 512 wide: each backward on
+        # the LayerNorm-backward dgrad.
+        for name, student_layers in (("MAE", 4 * layers), ("SimMIM", 2 * layers),
+                                     ("MPP", 2 * layers), ("DeiT distillation", 2 * layers)):
+            profile_phase(torch, name, objective_step(torch, objective[name]), OBJECTIVE_BATCH,
+                          0, smi, ln_epilogues=student_layers)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)

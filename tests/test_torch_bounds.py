@@ -77,6 +77,22 @@ def test_block_bounds(raw):
                                                 + 4 * 3 * 16)
 
 
+def test_block_bounds_with_an_inner_width_other_than_the_model(raw):
+    """The objectives' blocks have 8 heads of 64 in 1024: the attention
+    block's GEMMs and weights scale with the inner width, not the model's.
+    b 2, n 10, d 16, 2 heads of 16 (inner 32), hidden 32."""
+    qkv_gemm, proj_gemm = 2 * 20 * 16 * 96, 2 * 20 * 32 * 16
+    attn = 2 * 2 * 2 * 10 * 10 * 16
+    act, qkv = 2 * 20 * 16, 2 * 20 * 96
+    w_attn = 2 * (96 * 16 + 16 * 32)
+    got = chip_smoke.block_bounds(2, 10, 16, 2, 16, 32)
+    assert got["fused_attention_block"] == (qkv_gemm + proj_gemm + 2 * attn,
+                                            act + w_attn + 2 * 3 * 16 + act)
+    assert got["fused_attention_block_bwd"] == (proj_gemm + qkv_gemm + 5 * attn,
+                                                2 * act + qkv + w_attn + 2 * 16 + act + qkv
+                                                + 4 * 3 * 16)
+
+
 def test_short_bounds(raw):
     # b 2, 3 heads, 10 queries, 20 keys, d 32: 1200 pairs.
     product = 2 * 1200 * 32

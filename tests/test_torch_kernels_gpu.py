@@ -113,6 +113,8 @@ MLP_FORWARD_SHAPES = [
     ((2, 600, 256), 1024, torch.bfloat16),
     ((4, 1024, 64), 256, torch.bfloat16),   # ScalableViT's stage 1: fc1 at k 64, fc2 at n 64
     ((4, 256, 128), 512, torch.bfloat16),   # stage 2: fc2 at n 128
+    ((64, 16, 1024), 2048, torch.bfloat16),  # the objectives' encoder: MAE's 16 visible tokens
+    ((64, 64, 512), 2048, torch.bfloat16),   # MAE's decoder
 ]
 # The attention block's forward on both attention routes (attention_route).
 ATTN_FORWARD_SHAPES = [
@@ -128,6 +130,11 @@ ATTN_FORWARD_SHAPES = [
     (8, 65, 1024, 16, 64, torch.bfloat16),  # the entry's serving batch, 520 rows
     (128, 65, 1024, 16, 64, torch.bfloat16),  # bench.py's B/32 step
     (64, 197, 768, 12, 64, torch.bfloat16),   # B/16
+    # the objectives' blocks, 8 heads of 64 in a wider model (QKV N 1536 over
+    # K 1024; the out-projection's K 512): MAE's encoder at 16 visible tokens,
+    # its decoder at 64 tokens 512 wide
+    (64, 16, 1024, 8, 64, torch.bfloat16),
+    (64, 64, 512, 8, 64, torch.bfloat16),
 ]
 
 
@@ -179,6 +186,8 @@ def test_fused_attention_block_kernel_matches_plain(cuda, b, n, d, heads, dh, dt
     ((128, 65, 1024), 2048, torch.bfloat16),  # bench.py's B/32 step
     ((64, 197, 768), 3072, torch.bfloat16),   # B/16
     ((4, 1024, 64), 256, torch.bfloat16),     # ScalableViT's stage 1: dh·W1 at n 64
+    ((64, 16, 1024), 2048, torch.bfloat16),   # the objectives' encoder (MAE: 16 tokens)
+    ((64, 64, 512), 2048, torch.bfloat16),    # MAE's decoder: the LN epilogue on 2-CTA clusters
 ])
 def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     """Every output against the plain backward, and the same bits twice (db1
@@ -211,6 +220,11 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     (8, 65, 1024, 16, 64, torch.bfloat16),
     (128, 65, 1024, 16, 64, torch.bfloat16),  # bench.py's B/32 step
     (64, 197, 768, 12, 64, torch.bfloat16),   # B/16
+    # inner 512 in 1024 (dqkv·Wqkv's K 1536 into the LN epilogue on a
+    # four-CTA cluster; doattn 512 wide), one short key block at n 16; MAE's
+    # decoder at 512
+    (64, 16, 1024, 8, 64, torch.bfloat16),
+    (64, 64, 512, 8, 64, torch.bfloat16),
 ])
 def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, heads, dh, dtype):
     """Fed the plain training forward's residuals (oattn and lse for the
@@ -376,6 +390,37 @@ def test_auto_raises_instead_of_running_plain(cuda):
     counts = _launches()
     model(img).float().sum().backward()  # grad mode on, eval
     assert [a - b for a, b in zip(_launches(), counts)] == [2, 2, 2, 2]
+
+
+def test_objectives_train_on_the_block_kernels(cuda):
+    """MAE and distillation steps (``make_loss_train_step``, f32 parameters,
+    bf16 compute): every block of the encoder and the decoder on rows 1-4,
+    the teacher's forward on the serving kernels only, finite falling losses
+    on one batch and one mask draw."""
+    from vit_tpu_torch import MAE, DistillableViT, DistillWrapper
+    from vit_tpu_torch.parallel.train import make_loss_train_step
+
+    cfg = dict(image_size=32, patch_size=8, num_classes=10, dim=128, depth=2, heads=2,
+               dim_head=64, mlp_dim=256)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = dict(compute_dtype=torch.bfloat16, generator=g)
+    img = torch.randn(8, 32, 32, 3, generator=g, device=cuda)
+    mae = MAE(ViT(**cfg, **bf16), decoder_dim=64, decoder_depth=2, decoder_heads=2,
+              decoder_dim_head=32, **bf16)
+    wrapper = DistillWrapper(ViT(**cfg, **bf16), DistillableViT(**cfg, **bf16), **bf16)
+    masks = torch.Generator(device=cuda)
+    for model, batch, draws, per_step in (
+            (mae, img, True, [4, 4, 4, 4]),
+            (wrapper, (img, torch.arange(8, device=cuda) % 10), False, [4, 4, 2, 2])):
+        step = make_loss_train_step(model, torch.optim.AdamW(model.parameters(), lr=1e-3))
+        losses = []
+        for _ in range(3):
+            counts = _launches()
+            kw = dict(generator=masks.manual_seed(1)) if draws else {}
+            losses.append(float(step(batch, **kw)["loss"]))
+            assert [a - b for a, b in zip(_launches(), counts)] == per_step
+        assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+    assert all(p.grad is None for p in wrapper.teacher.parameters())
 
 
 def test_training_gate_follows_dropout(cuda):
@@ -1225,6 +1270,44 @@ def test_ln_bwd_fused_is_the_c_predicate(cuda):
         z = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
         fh.gemm_wgmma(z, torch.zeros(64, 192, dtype=torch.bfloat16, device=cuda), "ln_bwd",
                       layout="kn", x=z, gamma=z[0])
+
+
+def test_library_counts_its_launches_where_it_makes_them(cuda):
+    """``vit_take_launch_count`` (csrc/kernels.cuh Counted: gemm_wgmma.cu's
+    kernel, its LayerNorm-backward instance, layernorm.cu's backward passes,
+    linear.cu's GEMM) moves by one for each launch of its kind and no other,
+    and a take sets it back to 0."""
+    from vit_tpu_torch.ops import _build
+
+    lib = _build.load()
+    kinds = range(4)
+
+    def take():
+        torch.cuda.synchronize()
+        return [lib.vit_take_launch_count(i) for i in kinds]
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a, x, w = (torch.randn(rows, 512, generator=g, device=cuda).to(torch.bfloat16)
+               for rows in (256, 256, 512))  # w (k, n) as the dgrads read it
+    take()
+    fh.gemm_wgmma(a, w, "store", layout="kn")
+    assert take() == [1, 0, 0, 0]
+    fh.gemm_wgmma(a, w, "store", layout="kn", kernel="mma_sync")
+    assert take() == [0, 0, 0, 1]
+    fh.gemm_wgmma(a, w, "ln_bwd", layout="kn", x=x, gamma=x[0], dy=x)
+    fh.gemm_wgmma(a, w, "ln_bwd", layout="kn", x=x, gamma=x[0], dy=x)
+    assert take() == [2, 2, 0, 0]
+    # The fused MLP's backward at d 64, outside ln_bwd_fused: dh·W1 keeps the
+    # f32 dxn and the LayerNorm backward's passes run once.
+    rows, d, hidden = 256, 64, 256
+    dy, xm, hm = (torch.randn(rows, c, generator=g, device=cuda).to(torch.bfloat16)
+                  for c in (d, d, hidden))
+    w1, w2 = (torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16) * 0.05
+              for shape in ((hidden, d), (d, hidden)))
+    fused_mlp_ops.fused_mlp_backward(dy, xm, hm, xm[0], w1, w2)
+    counts = take()
+    assert counts[1] == 0 and counts[2] == 1
+    assert take() == [0, 0, 0, 0] and lib.vit_take_launch_count(4) == -1
 
 
 @pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 33, 3, 32), (8, 80, 4, 64),

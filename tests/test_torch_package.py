@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch import nn
 
 import vit_tpu_torch
 from vit_tpu_torch import ScalableViT, ViT, cast_params
@@ -18,6 +19,7 @@ from vit_tpu_torch.core.helpers import cast_tuple
 from vit_tpu_torch.layers.common import (
     MLP, Attention, LayerNorm, Transformer, fused_mlp_residual,
 )
+from vit_tpu_torch.models import efficient
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.fused_attention_block import (
@@ -191,8 +193,11 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
 
 
 def test_package_exports():
-    assert sorted(vit_tpu_torch.__all__) == ["CvT", "ScalableViT", "ViT", "cast_params",
-                                             "state_dict_from_flax", "vit_for_small_dataset"]
+    assert sorted(vit_tpu_torch.__all__) == [
+        "CvT", "DistillWrapper", "DistillableEfficientViT", "DistillableViT", "MAE", "MPP",
+        "ScalableViT", "SimMIM", "ViT",
+        "cast_params", "state_dict_from_flax", "vit_for_small_dataset"]
+    assert all(hasattr(vit_tpu_torch, name) for name in vit_tpu_torch.__all__)
     assert cast_tuple(3, 4) == (3, 3, 3, 3) and cast_tuple((1, 2), 4) == (1, 2)
 
 
@@ -204,6 +209,33 @@ def test_scalable_vit_builds_on_the_card_unless_asked_otherwise():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ScalableViT(**cfg)
     assert all(p.device.type == "cpu" for p in ScalableViT(**cfg, device="cpu").parameters())
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: efficient.ViT(image_size=TINY["image_size"], patch_size=TINY["patch_size"],
+                               num_classes=5, dim=TINY["dim"],
+                               transformer=nn.Identity(), **kw),
+    lambda **kw: vit_tpu_torch.MAE(ViT(**TINY), decoder_dim=16, **kw),
+    lambda **kw: vit_tpu_torch.SimMIM(ViT(**TINY), **kw),
+    lambda **kw: vit_tpu_torch.MPP(ViT(**TINY), patch_size=4, **kw),
+    lambda **kw: vit_tpu_torch.DistillWrapper(
+        ViT(**TINY), vit_tpu_torch.DistillableViT(**TINY), **kw),
+], ids=["EfficientViT", "MAE", "SimMIM", "MPP", "DistillWrapper"])
+def test_objectives_build_on_the_card_unless_asked_otherwise(build):
+    """Their own parameters (the objectives' heads, tokens and decoders, the
+    Efficient ViT's embeddings and head; the encoders here are built on the
+    CPU)
+    follow ``resolve_device``, as every module of the port does."""
+    def own(module):
+        return [p for name, p in module.named_parameters()
+                if not name.startswith(("encoder.", "transformer.", "teacher.", "student."))]
+
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in own(build()))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert all(p.device.type == "cpu" for p in build(device="cpu").parameters())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

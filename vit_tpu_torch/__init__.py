@@ -11,8 +11,12 @@ kernel.  ``CvT`` (CvT-13 by default) does both with its stage-1 attention
 forward and backward.  ``ScalableViT`` does both with its SSA through the
 fused cross-attention kernels and its IWSA (at 1024-token windows and above)
 through the channel-packed flash kernel, forward and backward, and its
-conv-MLPs through the fused MLP kernels.  On the CPU the same ops run their
-plain PyTorch versions.  Imports ``torch``, never JAX.
+conv-MLPs through the fused MLP kernels.  The Efficient ViT
+(``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
+``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
+``DistillWrapper`` over the ``Distillable*`` students) train with
+``vit_tpu_torch.parallel.train.make_loss_train_step``.  On the CPU the same
+ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 """
 
 from vit_tpu_torch.core.helpers import cast_params
@@ -21,6 +25,14 @@ from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.cvt import CvT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.vit import ViT
+from vit_tpu_torch.objectives.distill import (
+    DistillableEfficientViT, DistillableViT, DistillWrapper,
+)
+from vit_tpu_torch.objectives.mae import MAE
+from vit_tpu_torch.objectives.mpp import MPP
+from vit_tpu_torch.objectives.simmim import SimMIM
 
 __all__ = ["CvT", "ScalableViT", "ViT", "cast_params", "state_dict_from_flax",
-           "vit_for_small_dataset"]
+           "vit_for_small_dataset",
+           "MAE", "SimMIM", "MPP", "DistillWrapper",
+           "DistillableViT", "DistillableEfficientViT"]

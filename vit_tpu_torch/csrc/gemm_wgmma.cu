@@ -120,6 +120,8 @@
 // start, so that they die in the epilogue and free its registers.
 #include "hopper.cuh"
 
+#include <atomic>
+
 namespace vit {
 namespace {
 
@@ -839,8 +841,13 @@ cudaError_t run(const void* a, const void* w, const Operands<T>& op, int rows, i
     if (err != cudaSuccess) return err;
     const int clusters = fit < row_blocks ? fit : (int)row_blocks;
     if (clusters <= 0) return cudaErrorInvalidConfiguration;
-    return launch_cluster(kernel, clusters, csize, kThreads, smem, stream, a_map, w_map, op, rows,
-                          n, k);
+    err = launch_cluster(kernel, clusters, csize, kThreads, smem, stream, a_map, w_map, op, rows,
+                         n, k);
+    if (err == cudaSuccess) {
+      count_launch(kCountGemmWgmma);
+      count_launch(kCountLnEpilogue);
+    }
+    return err;
   } else {
     int device = 0, sms = 0;
     err = cudaGetDevice(&device);
@@ -850,7 +857,9 @@ cudaError_t run(const void* a, const void* w, const Operands<T>& op, int rows, i
     const long long tiles = (long long)((n + kBN - 1) / kBN) * row_blocks;
     kernel<<<(unsigned)(tiles < sms ? tiles : sms), kThreads, smem, stream>>>(a_map, w_map, op,
                                                                              rows, n, k);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess) count_launch(kCountGemmWgmma);
+    return err;
   }
 }
 
@@ -889,7 +898,11 @@ cudaError_t dgrad_ln_bwd_t(const void* a, const void* w, const void* x, const vo
   return run<T, kEpiLnBwd, kWeightKN>(a, w, op, rows, d, k, stream);
 }
 
+std::atomic<long long> launch_counts[kCounted];
+
 }  // namespace
+
+void count_launch(int which) { launch_counts[which].fetch_add(1, std::memory_order_relaxed); }
 
 bool ln_bwd_fused(int d) { return d % kBN == 0 && d >= kLnBwdMinD && d <= kLnBwdMaxD; }
 
@@ -993,6 +1006,13 @@ extern "C" int vit_ln_bwd_clusters(int d) {
   if (!vit::ln_bwd_fused(d) || vit::ln_clusters<__nv_bfloat16>(d / vit::kBN, &clusters))
     return -1;
   return clusters;
+}
+
+// The launches of one Counted kind (kernels.cuh) since the last take of it,
+// its count set back to 0; -1 for no such kind.
+extern "C" long long vit_take_launch_count(int which) {
+  if (which < 0 || which >= vit::kCounted) return -1;
+  return vit::launch_counts[which].exchange(0, std::memory_order_relaxed);
 }
 
 // Whether the blocks' backwards take launch_dgrad_ln_bwd at width d (1) or

@@ -40,6 +40,20 @@ enum Epilogue : int {
                          //   launch_dgrad_ln_bwd)
 };
 
+// Launches the library counts on the host where it makes them, for the
+// checks that a backward launches a kernel, or none, that many times
+// (vit_take_launch_count; torch.profiler can drop a session's first records):
+// gemm_wgmma.cu's kernel at every epilogue, its LayerNorm-backward instance
+// alone, launch_ln_bwd's passes (one count a call) and linear.cu's GEMM.
+enum Counted : int {
+  kCountGemmWgmma = 0,
+  kCountLnEpilogue = 1,
+  kCountLnPasses = 2,
+  kCountLinear = 3,
+  kCounted = 4
+};
+void count_launch(int which);
+
 template <typename T>
 struct Num;
 

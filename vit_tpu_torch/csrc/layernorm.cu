@@ -257,12 +257,14 @@ cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, co
                           void* dx, float* stats, float* partial, float* sums, int rows, int d,
                           float eps, int dtype, cudaStream_t stream) {
   if (d % 8 != 0 || rows <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kBF16)
-    return ln_bwd_t<__nv_bfloat16>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps,
-                                   stream);
-  if (dtype == kF16)
-    return ln_bwd_t<__half>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps, stream);
-  return cudaErrorInvalidValue;
+    err = ln_bwd_t<__nv_bfloat16>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps,
+                                  stream);
+  else if (dtype == kF16)
+    err = ln_bwd_t<__half>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps, stream);
+  if (err == cudaSuccess) count_launch(kCountLnPasses);
+  return err;
 }
 
 cudaError_t launch_column_sums(const void* a, float* partial, float* out, int rows, int d,

@@ -277,13 +277,15 @@ cudaError_t launch_linear(const void* a, const void* w, int layout, const void* 
                           cudaStream_t stream) {
   if (k % 8 != 0 || n % 8 != 0 || rows < 0) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kBF16)
-    return typed<__nv_bfloat16>(a, w, layout, bias, res, aux_in, out, aux_out, partial, rows, n,
-                                k, epilogue, stream);
-  if (dtype == kF16)
-    return typed<__half>(a, w, layout, bias, res, aux_in, out, aux_out, partial, rows, n, k,
-                         epilogue, stream);
-  return cudaErrorInvalidValue;
+    err = typed<__nv_bfloat16>(a, w, layout, bias, res, aux_in, out, aux_out, partial, rows, n,
+                               k, epilogue, stream);
+  else if (dtype == kF16)
+    err = typed<__half>(a, w, layout, bias, res, aux_in, out, aux_out, partial, rows, n, k,
+                        epilogue, stream);
+  if (err == cudaSuccess) count_launch(kCountLinear);
+  return err;
 }
 
 }  // namespace vit

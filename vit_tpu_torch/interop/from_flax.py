@@ -1,7 +1,9 @@
 """Flax ``vit_tpu`` variables → the port's ``state_dict`` (the converse
 direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
-``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT`` and
-``vit_tpu.models.scalable_vit.ScalableViT``.
+``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT``,
+``vit_tpu.models.scalable_vit.ScalableViT``,
+``vit_tpu.models.efficient.ViT``, the objectives (``MAE``, ``SimMIM``,
+``MPP``, ``DistillWrapper``) and the ``Distillable*`` students.
 
 The tree holds NumPy arrays (``jax.tree.map(np.asarray, variables)``), so no
 JAX is imported here.  Leaves:
@@ -12,20 +14,30 @@ JAX is imported here.  Leaves:
   ``ChannelLayerNorm``'s ``g`` / ``b`` keep their names as ``(dim,)``
   vectors; BatchNorm's ``batch_stats`` ``mean`` / ``var`` become
   ``running_mean`` / ``running_var``;
-- ``cls_token``, ``pos_embedding`` and LSA's scalar ``temperature`` keep
-  their shapes.
+- ``cls_token``, ``pos_embedding``, LSA's scalar ``temperature``, the
+  objectives' ``mask_token`` and ``distillation_token`` keep their shapes;
+  an ``nn.Embed``'s ``embedding`` (MAE's ``decoder_pos_emb``) becomes the
+  ``nn.Embedding``'s ``weight``.
 
 Per-layer modules ``{attn_norm,attn,mlp_norm,mlp,mlp_fc1,mlp_fc2}_{i}`` map to
 ``layers.{i}.…``: under ``transformer`` for the ViT (``transformer/attn_0`` →
 ``transformer.layers.0.attn``), under each stage's ``s{1,2,3}_transformer``
-for CvT, and at the top for the small-dataset ViT (``attn_0`` →
-``layers.0.attn``).  ScalableViT's ``{ssa,ff1,iwsa,ff2}_{i}`` and their
+for CvT, under MAE's ``decoder``, and at the top for the small-dataset ViT
+(``attn_0`` → ``layers.0.attn``).  The objectives' trees nest their models' under ``encoder`` (MAE, SimMIM),
+``transformer`` (MPP), ``teacher`` and ``student`` (``DistillWrapper``):
+``encoder/transformer/attn_0`` → ``encoder.transformer.layers.0.attn``.
+ScalableViT's ``{ssa,ff1,iwsa,ff2}_{i}`` and their
 ``*_norm_{i}`` map to ``layers.{i}.…`` under each ``stage_{s}``
 (``stage_0/iwsa_norm_1`` → ``stage_0.layers.1.iwsa_norm``); a stage's ``peg``
 and ``norm`` keep their names.  ``to_out`` maps to ``to_out.0`` (the
 projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
+
+Flax creates the parameters of the submodules a model calls only, so an
+objective's encoder tree (MAE's, SimMIM's, MPP's) has no ``head`` or
+``head_norm``: its state_dict lacks those four keys, and loads into the
+port's module with ``strict=False``, exactly those four missing.
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ _LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp|mlp_fc1|mlp_fc2)_(\d+)$")
 # ScalableViT's per-layer modules, under a stage_{s}.
 _STAGE_LAYER = re.compile(r"^(ssa_norm|ssa|ff1_norm|ff1|iwsa_norm|iwsa|ff2_norm|ff2)_(\d+)$")
 _STAGE = re.compile(r"^stage_\d+$")
+# Modules that hold per-layer modules: the encoders and MAE's decoder (the
+# small-dataset ViT's sit at the top).
+_STACK = re.compile(r"^(transformer|decoder|\w+_transformer)$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -57,8 +72,7 @@ def _module_path(path: tuple) -> list:
     for i, part in enumerate(path):
         m = _LAYER.match(part)
         staged = _STAGE_LAYER.match(part) if i and _STAGE.match(path[i - 1]) else None
-        if m and (i == 0 or path[i - 1] == "transformer"
-                  or path[i - 1].endswith("_transformer")):
+        if m and (i == 0 or _STACK.match(path[i - 1])):
             out += ["layers", m.group(2), m.group(1)]
         elif staged:
             out += ["layers", staged.group(2), staged.group(1)]
@@ -71,11 +85,9 @@ def _module_path(path: tuple) -> list:
 
 def state_dict_from_flax(variables) -> dict:
     """Convert a Flax variables tree ``{"params": …, "batch_stats": …}`` (or
-    the bare params tree) of NumPy arrays into a ``state_dict`` for
-    :class:`vit_tpu_torch.ViT`,
-    :class:`vit_tpu_torch.models.vit_for_small_dataset.ViT`,
-    :class:`vit_tpu_torch.CvT` or :class:`vit_tpu_torch.ScalableViT` (f32
-    tensors).
+    the bare params tree) of NumPy arrays into a ``state_dict`` (f32
+    tensors) for the port's counterpart of the module that made it: the
+    models and objectives of the module docstring.
 
     Raises ``ValueError`` on a scanned tree (``scan_layers=True`` stacks the
     layers under ``transformer/layers``; unstack it with
@@ -101,11 +113,12 @@ def state_dict_from_flax(variables) -> dict:
                 raise ValueError(f"{'/'.join(path)}: expected a Dense or Conv kernel, got "
                                  f"shape {arr.shape}")
             name, arr = "weight", arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
-        elif name == "scale":
+        elif name in ("scale", "embedding"):
             name = "weight"
         elif name in ("g", "b"):
             arr = arr.reshape(-1)
-        elif name not in ("bias", "cls_token", "pos_embedding", "temperature"):
+        elif name not in ("bias", "cls_token", "pos_embedding", "temperature", "mask_token",
+                          "distillation_token"):
             raise ValueError(f"unknown leaf {'/'.join(path)}")
         key = ".".join(_module_path(tuple(mods)) + [name])
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))

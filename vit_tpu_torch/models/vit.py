@@ -84,15 +84,19 @@ class ViT(nn.Module):
         """Patch vectors → tokens via the embedding GEMM, in their dtype."""
         return linear(self.patch_embedding, patches)
 
-    def embed(self, img: torch.Tensor) -> torch.Tensor:
-        """patchify → embed → +CLS → +pos → dropout, in the compute dtype."""
-        img = img.to(self.compute_dtype or self.patch_embedding.weight.dtype)
-        x = self.patch_to_emb(self.to_patch(img))
+    def tokens(self, patches: torch.Tensor) -> torch.Tensor:
+        """Patch vectors → embed → +CLS → +pos, in the compute dtype (no
+        dropout: MPP embeds masked patches, and the distillable student
+        appends its token before the dropout)."""
+        x = self.patch_to_emb(patches.to(self.compute_dtype or self.patch_embedding.weight.dtype))
         b, n, _ = x.shape
         cls_tokens = self.cls_token.to(x.dtype).expand(b, -1, -1)
         x = torch.cat([cls_tokens, x], dim=1)
-        x = x + self.pos_embedding[:, : n + 1].to(x.dtype)
-        return self.emb_dropout(x)
+        return x + self.pos_embedding[:, : n + 1].to(x.dtype)
+
+    def embed(self, img: torch.Tensor) -> torch.Tensor:
+        """patchify → :meth:`tokens` → dropout."""
+        return self.emb_dropout(self.tokens(self.to_patch(img)))
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = self.transformer(self.embed(img))

@@ -149,6 +149,9 @@ SIGNATURES = {
     "vit_ln_bwd_fused": ([_I], ctypes.c_int),
     # The clusters of d / 256 CTAs the LayerNorm-backward dgrad runs at once.
     "vit_ln_bwd_clusters": ([_I], ctypes.c_int),
+    # The launches of one kind counted where the library makes them, since
+    # the last take of that kind (csrc/kernels.cuh Counted), set back to 0.
+    "vit_take_launch_count": ([_I], ctypes.c_longlong),
     "vit_proj_mlp_fwd": (
         # x, o, wo, bo, gamma, beta, w1, b1, w2, b2, z, y, xn, g, h (null when
         # serving), rows, d, inner, hidden, eps, dtype, stream

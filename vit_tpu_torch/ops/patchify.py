@@ -1,5 +1,5 @@
 """Patch extraction and TF-SAME convolution on NHWC maps (port of
-``vit_tpu/ops/patchify.py:21-76``).
+``vit_tpu/ops/patchify.py:21-119``).
 
 Images are NHWC, as in ``vit_tpu``, and a patch flattens in ``(p1 p2 c)``
 order, so a converted Flax Dense kernel is a plain transpose of the
@@ -51,6 +51,30 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     out = -(-size // stride)
     pad = max(0, (out - 1) * stride + kernel - size)
     return pad // 2, pad - pad // 2
+
+
+def extract_patches(img: torch.Tensor, kernel: int, stride: int,
+                    padding="SAME") -> torch.Tensor:
+    """``tf.image.extract_patches`` on an NHWC map
+    (``vit_tpu/ops/patchify.py:79-119``): ``(b, out_h, out_w, kernel·kernel·c)``
+    with TF's channel order, ``(kh, kw, c)``.  ``padding`` is ``"SAME"`` (the
+    extra pad after, :func:`same_pads`), ``"VALID"``, or explicit
+    ``((top, bottom), (left, right))`` pads.  Two strided unfolds and one
+    copy into the ``(kh, kw, c)`` order."""
+    if padding == "SAME":
+        (top, bottom), (left, right) = (same_pads(img.shape[1 + i], kernel, stride)
+                                        for i in range(2))
+    elif isinstance(padding, (tuple, list)):
+        (top, bottom), (left, right) = padding
+    elif padding == "VALID":
+        top = bottom = left = right = 0
+    else:
+        raise ValueError(f"unknown padding {padding!r}")
+    if top or bottom or left or right:
+        img = F.pad(img, (0, 0, left, right, top, bottom))
+    b, c = img.shape[0], img.shape[-1]
+    x = img.unfold(1, kernel, stride).unfold(2, kernel, stride)  # (b, oh, ow, c, kh, kw)
+    return x.permute(0, 1, 2, 4, 5, 3).reshape(b, x.shape[1], x.shape[2], kernel * kernel * c)
 
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

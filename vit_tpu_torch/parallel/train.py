@@ -14,6 +14,14 @@ through the hand-written forward and backward kernels.
     model = ViT(..., compute_dtype=torch.bfloat16)           # on the card
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
     metrics = step(images, labels)                           # {"loss", "step"}
+
+:func:`make_loss_train_step` is the step of a module whose forward is the
+loss (the objectives of :mod:`vit_tpu_torch.objectives`):
+
+    mae = MAE(ViT(..., compute_dtype=torch.bfloat16), decoder_dim=512,
+              compute_dtype=torch.bfloat16)
+    step = make_loss_train_step(mae, torch.optim.AdamW(mae.parameters(), lr=1e-4))
+    metrics = step(images, generator=torch.Generator("cuda").manual_seed(0))
 """
 
 from __future__ import annotations
@@ -70,6 +78,49 @@ def _accum_value_and_grad(loss_of: Callable, params, batch: tuple,
     return total / accum_steps
 
 
+def _check_accumulation(model: nn.Module, accum_steps: int) -> None:
+    if accum_steps > 1 and any(name.endswith("running_mean")
+                               for name, _ in model.named_buffers()):
+        raise ValueError("accum_steps > 1 on a model with BatchNorm statistics: they would "
+                         "be updated once per microbatch (vit_tpu's make_bn_train_step "
+                         "takes no accumulation)")
+
+
+def _optimizer_params(optimizer: torch.optim.Optimizer) -> list:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def _make_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_of: Callable,
+               accum_steps: int) -> Callable:
+    """``step(parts, **kw) -> {"loss", "step"}`` for a tuple of batch
+    tensors ``parts``: training mode, the mean loss ``loss_of(parts, **kw)``
+    and its gradient (over ``accum_steps`` microbatches of every tensor when
+    above 1), one optimizer update.  ``step.state`` is the
+    :class:`TrainState`."""
+    _check_accumulation(model, accum_steps)
+    state = create_train_state(model, optimizer)
+    params = _optimizer_params(optimizer)
+
+    def step(parts: tuple, **kw) -> dict:
+        def loss_of_parts(micro):
+            return loss_of(micro, **kw)
+
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        if accum_steps > 1:
+            loss = _accum_value_and_grad(loss_of_parts, params, parts, accum_steps)
+        else:
+            loss = loss_of_parts(parts)
+            loss.backward()
+            loss = loss.detach()
+        optimizer.step()
+        state.step += 1
+        return {"loss": loss, "step": state.step}
+
+    step.state = state
+    return step
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable | None = None, accum_steps: int = 1):
     """Build a classification train step for ``model`` and ``optimizer``.
@@ -82,31 +133,44 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``ValueError``: they would be updated once per microbatch, and
     ``vit_tpu``'s BatchNorm step offers no accumulation.
     """
-    if accum_steps > 1 and any(name.endswith("running_mean")
-                               for name, _ in model.named_buffers()):
-        raise ValueError("accum_steps > 1 on a model with BatchNorm statistics: they would "
-                         "be updated once per microbatch (vit_tpu's make_bn_train_step "
-                         "takes no accumulation)")
     loss_fn = loss_fn or cross_entropy_loss
-    state = create_train_state(model, optimizer)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def loss_of(batch):
         images, labels = batch
         return loss_fn(model(images), labels)
 
-    def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        if accum_steps > 1:
-            loss = _accum_value_and_grad(loss_of, params, (images, labels), accum_steps)
-        else:
-            loss = loss_of((images, labels))
-            loss.backward()
-            loss = loss.detach()
-        optimizer.step()
-        state.step += 1
-        return {"loss": loss, "step": state.step}
+    inner = _make_step(model, optimizer, loss_of, accum_steps)
 
-    step.state = state
+    def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
+        return inner((images, labels))
+
+    step.state = inner.state
+    return step
+
+
+def make_loss_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                         accum_steps: int = 1):
+    """The train step of a module whose forward is the loss (MAE, SimMIM,
+    MPP, ``DistillWrapper``; ``vit_tpu/parallel/train.py:143-177``).
+
+    Returns ``step(batch, generator=None) -> {"loss": tensor, "step": int}``:
+    ``batch`` is what the module's forward takes first (a tensor of images, or
+    ``DistillWrapper``'s ``(images, labels)`` tuple); ``generator``, where
+    given, goes to the forward as its ``generator=`` (the masking draws, the
+    JAX step's ``rng``).  As :func:`make_train_step`: training mode, the mean
+    loss and gradient over the batch (over ``accum_steps`` microbatches of
+    every tensor in ``batch`` when above 1, drawing from ``generator`` in
+    turn), one optimizer update; ``step.state`` is the :class:`TrainState`.
+    The loss stays on the device."""
+    def loss_of(micro, tupled, **kw):
+        return model(micro if tupled else micro[0], **kw)
+
+    inner = _make_step(model, optimizer, loss_of, accum_steps)
+
+    def step(batch, generator: torch.Generator | None = None) -> dict:
+        tupled = isinstance(batch, tuple)
+        kw = {} if generator is None else {"generator": generator}
+        return inner(batch if tupled else (batch,), tupled=tupled, **kw)
+
+    step.state = inner.state
     return step

@@ -1,0 +1,17 @@
+"""Tokenizers / embedders — the single import point (port of
+``vit_tpu/tokenizers/__init__.py``):
+
+- linear patchify: :func:`patchify` / :func:`unpatchify` (+ the ViT's
+  ``patch_embedding`` GEMM);
+- unfold tokenizer: :func:`extract_patches` (``tf.image.extract_patches``
+  semantics; T2T-ViT's, whose model comes later);
+- shifted-patch tokenization: :class:`SPT` (the small-dataset ViT's).
+
+``vit_tpu``'s ``CrossEmbedLayer`` (CrossFormer), ``PatchEmbedding``
+(Twins-SVT) and ``ConvNxNBN`` (MobileViT) come with the port of their models.
+"""
+
+from vit_tpu_torch.models.vit_for_small_dataset import SPT
+from vit_tpu_torch.ops.patchify import extract_patches, patchify, unpatchify
+
+__all__ = ["patchify", "unpatchify", "extract_patches", "SPT"]
