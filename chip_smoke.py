@@ -92,7 +92,13 @@ Phases, one line each (any failure raises and exits non-zero):
    version and PyTorch's ``scaled_dot_product_attention`` (autograd through it
    for the backward), and the bound.  Then, below the 1024 gate, at CvT's
    stage-2 and stage-3 shapes: the kernel against the dispatcher's plain path
-   and SDPA, forward and backward.
+   and SDPA, forward and backward.  Then T2T-ViT's token transformers'
+   kernels (:func:`t2t_kernel_phase`): the flash kernels' (192, 192) instance
+   at (64, 1, 3136, 3136) from 147-wide q, k, v zero-padded as the
+   dispatcher pads them, and the fused MLP at d = hidden = 147 over 200,704
+   rows and at 1323 over 50,176 (zero-padded weight copies), each against its
+   plain version, twice bit for bit, timed beside SDPA or the bf16 modules,
+   bounds at the true widths.
 12. CvT-13 (``vit_tpu``'s CvT defaults, ``benchmarks/run_benchmarks.py:91``)
    serving at 224 and 384 px, batch 64, as phase 5 (its plain path is
    ``use_flash="never"``): the flash kernel launches once per forward at 224
@@ -161,19 +167,29 @@ Phases, one line each (any failure raises and exits non-zero):
    through ``make_loss_train_step`` with AdamW(1e-5), on one fixed batch and
    one fixed mask draw (a generator of one seed at every step): rows 1-4 at
    every block of the encoder (and of MAE's decoder) each way per step, the
-   teacher's forward on the serving kernels (rows 1 and 3 only).
-21. profile: ``torch.profiler`` over train steps at twelve training configs
+   teacher's forward on the serving kernels (rows 1 and 3 only).  Then
+   T2T-ViT@224 (``benchmarks/run_benchmarks.py:55-56``: dim 512, depth 5,
+   8 heads of 64, mlp 512), batch 64: serving as phase 5, training as phase
+   7 (SGD(1e-3)), and DeiT distillation over a T2T-ViT teacher and a
+   DistillableT2TViT student as the objectives train; a forward launches the
+   flash forward once (the first token transformer: 3136 tokens, one head of
+   147 padded to 192; the second's 784 tokens take the plain path), the
+   fused MLP 7 times (147, 1323 and the encoder's 512) and the block 5 times,
+   a step each backward as often; the plain path is every Transformer on
+   ``"never"``, the token attention included.
+21. profile: ``torch.profiler`` over train steps at thirteen training configs
    (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224 and 384,
-   ScalableViT, the four objectives); device time and launches per
+   ScalableViT, the four objectives, T2T-ViT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
    in a step.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
-hybrid, CvT-13 @224 and @384, ScalableViT; training B/32, B/32 hybrid, B/16,
-small-dataset, CvT-13 @224 and @384, ScalableViT, MAE, SimMIM, MPP,
-distillation; the blocks past 512 tokens) runs with every kernel's launch
+hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT; training B/32, B/32
+hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT, MAE, SimMIM,
+MPP, distillation, T2T-ViT, T2T distillation; the blocks past 512 tokens)
+runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
@@ -521,6 +537,24 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def mlp_bounds(rows, d, hidden):
+    """Bounds of the fused MLP's forward and backward over ``rows`` rows at
+    the module's widths d and hidden (bf16 activations and weights, f32
+    parameter-gradient sums): its two GEMMs' FLOPs; each input read once
+    and each output written once.  At widths off 8 the kernels compute at
+    the padded widths, but the function's work is the same."""
+    act = rows * d * 2  # one (rows, d) bf16 tensor
+    return {
+        # x, γ, β, W1, b1, W2, b2 -> y
+        "fused_mlp": bound(4 * rows * d * hidden,
+                           2 * act + 4 * d * hidden + 2 * (3 * d + hidden)),
+        # dy, x, h, γ, W1, W2 -> dx, dh, gact and f32 dγ, dβ, db1, db2
+        "fused_mlp_bwd": bound(4 * rows * d * hidden,
+                               3 * act + 3 * rows * hidden * 2 + 4 * d * hidden
+                               + 2 * d + 4 * (3 * d + hidden)),
+    }
+
+
 def block_bounds(b, n, d, heads, dim_head, hidden, hb=0, dbias=False):
     """Bounds of the four kernels at one block shape (bf16 activations and
     weights, f32 parameter-gradient sums): FLOPs of the TPU kernels' own
@@ -533,13 +567,7 @@ def block_bounds(b, n, d, heads, dim_head, hidden, hb=0, dbias=False):
     act = rows * d * 2  # one (rows, d) bf16 tensor
     bias = 4 * hb * n * n
     return {
-        # x, γ, β, W1, b1, W2, b2 -> y
-        "fused_mlp": bound(4 * rows * d * hidden,
-                           2 * act + 4 * d * hidden + 2 * (3 * d + hidden)),
-        # dy, x, h, γ, W1, W2 -> dx, dh, gact and f32 dγ, dβ, db1, db2
-        "fused_mlp_bwd": bound(4 * rows * d * hidden,
-                               3 * act + 3 * rows * hidden * 2 + 4 * d * hidden
-                               + 2 * d + 4 * (3 * d + hidden)),
+        **mlp_bounds(rows, d, hidden),
         # x, γ, β, Wqkv, Wo, bo -> y
         "fused_attention_block": bound(8 * rows * d * inner + 2 * attn,
                                        2 * act + 8 * d * inner + 6 * d + bias),
@@ -1427,6 +1455,195 @@ def below_gate_phase(torch, results, smi):
             f"autograd through the plain path={bwd_ms['plain']:.4f} autograd through SDPA="
             f"{bwd_ms['library']:.4f} on {smi}")
         results.setdefault("below_gate", {})[tag] = {"forward": fwd_ms, "backward": bwd_ms}
+
+
+# T2T-ViT @224 as benchmarks/run_benchmarks.py:55-56 builds it: dim 512, depth
+# 5, 8 heads of 64, mlp 512, the default t2t_layers ((7, 4), (3, 2), (3, 2)).
+T2T = dict(image_size=224, num_classes=1000, dim=512, depth=5, heads=8, mlp_dim=512)
+T2T_BATCH = 64
+# Its token transformers at batch 64: (tag, tokens an image, width), one head
+# as wide as the model and an MLP as wide (3·7·7 = 147 over 56², 147·3·3 = 1323
+# over 28²); the first one's attention on the flash tier (3136 >= 1024, 147
+# padded to 192), the second one's below it.
+T2T_TOKEN_SHAPES = [("T2T-ViT@224 token transformer 0", 3136, 147),
+                    ("T2T-ViT@224 token transformer 1", 784, 1323)]
+T2T_FLASH_WIDTH = 192  # ops/attention.py _flash: 147 zero-padded to a multiple of 64
+
+
+def t2t_kernel_phase(torch, results, smi):
+    """T2T-ViT's token transformers' kernels at batch 64, seeded bf16
+    inputs.  The flash forward and backward at (64, 1, 3136, 3136) from
+    147-wide q, k, v (views of one to_qkv output) zero-padded to 192 as
+    ``ops/attention.py``'s ``_flash`` pads them, and once through the
+    dispatcher: out and lse against the plain version, dq, dk, dv against
+    the plain backward fed the kernel's out and lse, each twice bit for bit,
+    timed beside SDPA on the same inputs (autograd through it for the
+    backward), bounds at the true width 147.  The fused MLP at d = hidden =
+    147 over 200,704 rows and 1323 over 50,176: the serving and the training
+    forward (xn and h at the padded widths, their pad columns 0) and the
+    backward fed the training forward's residuals and the padded parameter
+    copies, as the op's backward runs, against the plain versions, twice bit
+    for bit, its LayerNorm backward on layernorm.cu's passes; timed beside
+    the bf16 modules (autograd through them for the backward's own outputs)."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.layers.common import MLP, LayerNorm
+    from vit_tpu_torch.ops import flash_attention as fa, fused_mlp as fm
+    from vit_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    dev, dt, eps, b = torch.device("cuda"), torch.bfloat16, 1e-3, T2T_BATCH
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    tag, n, d = T2T_TOKEN_SHAPES[0]
+    q, k, v = (t.reshape(b, n, 1, d).transpose(1, 2) for t in rn(b, n, 3 * d).chunk(3, dim=-1))
+    qp, kp, vp, dop = (F.pad(t, (0, T2T_FLASH_WIDTH - d)) for t in (q, k, v, rn(b, 1, n, d)))
+    scale = d ** -0.5
+    shape = f"[{tag}: b={b} heads=1 n={n} d={d} padded to {T2T_FLASH_WIDTH}]"
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        via = scaled_dot_product_attention(q, k, v, scale=scale)
+        out, lse = fa.flash_attention_forward(qp, kp, vp, scale)
+        again = fa.flash_attention_forward(qp, kp, vp, scale)
+    torch.cuda.synchronize()
+    if fa.flash_attention.launches != before + 3:
+        raise AssertionError(f"flash forward {shape}: launch counter did not move")
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"flash forward {shape}: two runs differ")
+    if not torch.equal(via, out[..., :d]) or bool(out[..., d:].any()):
+        raise AssertionError(f"flash forward {shape}: the dispatcher's output differs, or a "
+                             f"pad column is not 0")
+    ref_out, ref_lse = fa.flash_attention_forward_reference(qp, kp, vp, scale)
+    err = check_outputs(torch, f"flash forward {shape}", (out,), (ref_out,), {})
+    lse_err = (lse - ref_lse).abs().max().item()
+    if not lse_err <= LSE_ABS_TOL:
+        raise AssertionError(f"flash forward {shape}: lse differs by {lse_err}")
+    del ref_out, ref_lse, again
+    before = fa.flash_backward.launches
+    grads = fa.flash_backward(qp, kp, vp, out, lse, dop, scale)
+    torch.cuda.synchronize()
+    if fa.flash_backward.launches != before + 1:
+        raise AssertionError(f"flash backward {shape}: launch counter did not move")
+    bwd_err = check_outputs(torch, f"flash backward {shape}", grads,
+                            fa.flash_backward_reference(qp, kp, vp, out, lse, dop, scale), {})
+    if not all(torch.equal(a, b_) for a, b_ in
+               zip(grads, fa.flash_backward(qp, kp, vp, out, lse, dop, scale))):
+        raise AssertionError(f"flash backward {shape}: two runs differ")
+    del grads
+    bounds = flash_bounds(b, 1, n, n, d)  # the function's work, at the true width
+    fwd_ms = interleaved_medians(torch, {
+        "kernel": lambda: fa.flash_attention_forward(qp, kp, vp, scale),
+        "plain": lambda: fa.flash_attention_forward_reference(qp, kp, vp, scale),
+        "library": lambda: F.scaled_dot_product_attention(qp, kp, vp, scale=scale)},
+        rounds=3, calls=3)
+    bwd_ms = interleaved_medians(torch, {
+        "kernel": lambda: fa.flash_backward(qp, kp, vp, out, lse, dop, scale),
+        "plain": lambda: fa.flash_backward_reference(qp, kp, vp, out, lse, dop, scale),
+        "library": sdpa_backward(torch, F, qp, kp, vp, dop, scale)}, rounds=3, calls=3)
+    fb, bb = bounds["flash_attention"], bounds["flash_backward"]
+    log(f"flash {shape}: out within one bf16 unit plus {KERNEL_REL_TOL}*max|ref| of the plain "
+        f"version, max|kernel-plain|={err:.6g}; lse max|diff|={lse_err:.3g} (<= {LSE_ABS_TOL}); "
+        f"the dispatcher's 147-wide output the same bits, pad columns 0; dq, dk, dv (fed the "
+        f"kernel's out and lse) max|diff|={bwd_err:.6g}; each the same bits in two runs; forward "
+        f"ms kernel={fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} SDPA (the same padded "
+        f"inputs)={fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}, at width {d}); backward "
+        f"ms kernel={bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd through SDPA="
+        f"{bwd_ms['library']:.4f} bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+    results.setdefault("flash_attention", {})[tag] = dict(err=err, lse_err=lse_err, **fwd_ms,
+                                                          bound=fb)
+    results.setdefault("flash_backward", {})[tag] = dict(err=bwd_err, **bwd_ms, bound=bb)
+    del q, k, v, qp, kp, vp, dop, out, lse
+    torch.cuda.empty_cache()
+
+    for tag, n, d in T2T_TOKEN_SHAPES:
+        rows, shape = b * n, f"[{tag}: rows={b * n} d=hidden={d}]"
+        x, dy = rn(b, n, d), rn(b, n, d, scale=0.1)
+        gamma, beta = (1.0 + rn(d, scale=0.1).float()).to(dt), rn(d, scale=0.1)
+        w = (rn(d, d, scale=d ** -0.5), rn(d, scale=0.1), rn(d, d, scale=d ** -0.5),
+             rn(d, scale=0.1))
+        ops = fm.kernel_operands(gamma, beta, *w)  # the op's padded copies, kept for its backward
+        norm, mlp = LayerNorm(d, device=dev, dtype=dt), MLP(d, d, device=dev, dtype=dt)
+        with torch.no_grad():
+            for prm, t in zip((norm.weight, norm.bias, mlp.fc1.weight, mlp.fc1.bias,
+                               mlp.fc2.weight, mlp.fc2.bias), (gamma, beta, *w)):
+                prm.copy_(t)
+
+        def serve():
+            return fm.fused_mlp(x, gamma, beta, *w)
+
+        def plain():
+            return fm.fused_mlp_reference(x, gamma, beta, *w, eps)
+
+        with torch.inference_mode():
+            before = fm.fused_mlp.launches
+            y = serve()
+            torch.cuda.synchronize()
+            if fm.fused_mlp.launches != before + 1:
+                raise AssertionError(f"fused_mlp {shape}: launch counter did not move")
+            if not torch.equal(y, serve()):
+                raise AssertionError(f"fused_mlp {shape}: two runs differ")
+            err = check_outputs(torch, f"fused_mlp {shape}", (y,), (plain(),), {0: x})
+            train = fm._launch_forward(x, *ops, eps, save_residuals=True)
+            ref = fm.fused_mlp_forward_reference(x, gamma, beta, *w, eps)
+            train_err = check_outputs(torch, f"fused_mlp training forward {shape}",
+                                      (train[0], train[1][..., :d], train[2][..., :d]), ref,
+                                      {0: x})
+            if bool(train[1][..., d:].any()) or bool(train[2][..., d:].any()) or not all(
+                    torch.equal(a, c) for a, c in
+                    zip(train, fm._launch_forward(x, *ops, eps, save_residuals=True))):
+                raise AssertionError(f"fused_mlp training forward {shape}: a pad column of xn "
+                                     f"or h is not 0, or two runs differ")
+            fwd_ms = interleaved_medians(torch, {"kernel": serve, "plain": plain,
+                                                 "library": lambda: x + mlp(norm(x))},
+                                         rounds=5, calls=5)
+        h = train[2]
+
+        def kernel_bwd():
+            return fm.fused_mlp_backward(dy, x, h, ops[0], ops[2], ops[4], eps)
+
+        def plain_bwd():
+            return fm.fused_mlp_backward_reference(dy, x, ref[2], gamma, w[0], w[2], eps)
+
+        before = fm.fused_mlp_backward.launches
+        got = kernel_bwd()
+        torch.cuda.synchronize()
+        if fm.fused_mlp_backward.launches != before + 1:
+            raise AssertionError(f"fused_mlp_bwd {shape}: launch counter did not move")
+        crop = (got[0], got[1][..., :d], got[2][..., :d], *got[3:5], got[5][:d], got[6])
+        bwd_err = check_outputs(torch, f"fused_mlp_bwd {shape}", crop, plain_bwd(), {0: dy})
+        if not all(torch.equal(a, c) for a, c in zip(got, kernel_bwd())):
+            raise AssertionError(f"fused_mlp_bwd {shape}: two runs differ")
+        counts = counted_launches(torch, kernel_bwd)
+        if counts["ln_epilogue"] or counts["ln_passes"] != 1:
+            raise AssertionError(f"fused_mlp_bwd {shape}: launches a call {counts}: the "
+                                 f"LayerNorm backward's passes once, its dgrad epilogue never, "
+                                 f"expected (d % 256 != 0)")
+        xg = x.detach().requires_grad_()
+        out = xg + mlp(norm(xg))
+        inputs = [xg, norm.weight, norm.bias, mlp.fc1.bias, mlp.fc2.bias]
+        bwd_ms = interleaved_medians(torch, {
+            "kernel": kernel_bwd, "plain": plain_bwd,
+            "library": lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True)},
+            rounds=5, calls=5)
+        bounds = mlp_bounds(rows, d, d)
+        fb, bb = bounds["fused_mlp"], bounds["fused_mlp_bwd"]
+        log(f"fused MLP {shape} (kernel widths {ops[2].shape[1]} and {ops[2].shape[0]}): serving "
+            f"y max|kernel-plain|={err:.6g}, training forward y, xn, h {train_err:.6g} (pad "
+            f"columns 0), backward fed its residuals and the padded copies {bwd_err:.6g}, each "
+            f"within one unit plus 2e-2*max|its own part| and the same bits in two runs; "
+            f"LayerNorm backward on its passes ({counts}); forward ms kernel="
+            f"{fwd_ms['kernel']:.4f} plain={fwd_ms['plain']:.4f} bf16 modules="
+            f"{fwd_ms['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); backward ms kernel="
+            f"{bwd_ms['kernel']:.4f} plain={bwd_ms['plain']:.4f} autograd through the bf16 "
+            f"modules (dx, dγ, dβ, db1, db2)={bwd_ms['library']:.4f} bound={bb[0]:.4f} ({bb[1]}) "
+            f"on {smi}")
+        results.setdefault("fused_mlp", {})[tag] = dict(err=err, train_fwd_err=train_err,
+                                                        **fwd_ms, bound=fb)
+        results.setdefault("fused_mlp_bwd", {})[tag] = dict(err=bwd_err, **bwd_ms, bound=bb)
+        del x, dy, train, ref, h, got, crop, out, xg, inputs
+        torch.cuda.empty_cache()
 
 
 # ScalableViT as benchmarks/run_benchmarks.py:140-144 builds it, at 256 px.
@@ -2466,10 +2683,22 @@ def train_path(torch, tag, batch, model, plain, first, summary, run_of, optimize
     return launches
 
 
+def t2t_vit(plain=False, distillable=False, **kw):
+    """``T2TViT`` (``DistillableT2TViT`` with ``distillable``); with
+    ``plain``, its plain path (:func:`plain_modules`: the token transformers'
+    attention included): its constructor, ``vit_tpu``'s, takes no such
+    switch."""
+    from vit_tpu_torch import DistillableT2TViT, T2TViT
+
+    model = (DistillableT2TViT if distillable else T2TViT)(**kw)
+    return plain_modules(model) if plain else model
+
+
 def plain_modules(model):
     """``model`` with each of its ``Transformer`` s on the plain modules
-    (``fused_attention`` and ``fused_mlp`` ``"never"``): the plain path of a
-    model whose constructor takes no such switch."""
+    (``fused_attention`` and ``fused_mlp`` ``"never"``, which also keeps an
+    attention without an output projection off the flash tier): the plain
+    path of a model whose constructor takes no such switch."""
     from vit_tpu_torch.layers.common import Transformer
 
     for m in model.modules():
@@ -2506,11 +2735,12 @@ def objectives(torch):
     (decoder 512 wide, depth 6, ratio 0.75), SimMIM (ratio 0.5), MPP (patch
     32, its defaults; pixels in [0, 1) as its buckets need), DeiT
     distillation (a ViT teacher, a DistillableViT student of the same shape,
-    soft, T = 1, alpha 0.5, labels arange(64) % 1000)."""
+    soft, T = 1, alpha 0.5, labels arange(64) % 1000); and T2T distillation,
+    the same over a T2T-ViT@224 teacher and a DistillableT2TViT student of
+    T2T's config."""
     from vit_tpu_torch import MAE, MPP, DistillableViT, DistillWrapper, SimMIM, ViT
 
-    def images(g, uniform=False):
-        size = OBJ_ENCODER["image_size"]
+    def images(g, uniform=False, size=OBJ_ENCODER["image_size"]):
         shape = (OBJECTIVE_BATCH, size, size, 3)
         return (torch.rand if uniform else torch.randn)(*shape, generator=g, device="cuda")
 
@@ -2522,6 +2752,10 @@ def objectives(torch):
 
     def distill(**kw):
         return DistillWrapper(ViT(**OBJ_ENCODER, **kw), DistillableViT(**OBJ_ENCODER, **kw),
+                              temperature=1.0, alpha=0.5, **kw)
+
+    def distill_t2t(**kw):
+        return DistillWrapper(t2t_vit(**T2T, **kw), t2t_vit(**T2T, distillable=True, **kw),
                               temperature=1.0, alpha=0.5, **kw)
 
     labels = torch.arange(OBJECTIVE_BATCH, device="cuda") % OBJ_ENCODER["num_classes"]
@@ -2536,6 +2770,9 @@ def objectives(torch):
                          lambda g: images(g, uniform=True)),
         "DeiT distillation": Objective(build(distill), lambda g: (images(g), labels),
                                        draws=False),
+        "T2T distillation": Objective(
+            build(distill_t2t), lambda g: (images(g, size=T2T["image_size"]), labels),
+            draws=False),
     }
 
 
@@ -2583,7 +2820,7 @@ def kernel_group(name: str) -> str:
     m = re.search(r"linear_kernel<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"linear_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
-    m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)>", name)
+    m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)(?:, \d+)?>", name)
     if m:
         return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
     m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?(?:, \d+)?(, true)?(?:, false)?>",
@@ -2605,7 +2842,8 @@ def kernel_group(name: str) -> str:
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
-                "short_dq_sum_kernel"):
+                "short_dq_sum_kernel", "layernorm_ragged_kernel", "ln_bwd_rows_ragged_kernel",
+                "copy_rows_kernel"):
         if own in name:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
@@ -2650,7 +2888,8 @@ def objective_step(torch, objective, seed=0):
     return build
 
 
-def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_passes=False):
+def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_passes=False,
+                  top=0):
     """Where a train step's device time goes: ``torch.profiler`` over a few
     steps of the training path, ``run, optimizer = build(g)`` (a train step
     without arguments and its optimizer's name, from the generator ``g``
@@ -2667,9 +2906,11 @@ def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_pas
     Only the device's activity is recorded: the host's ops would add tens of
     thousands of events a step to process at a launch-bound config, and its
     time is the enqueue time above.  With ``ln_epilogues``, raises unless a
-    step launches the LayerNorm-backward dgrad that many times and, unless
-    ``ln_passes``, none of layernorm.cu's backward passes, as the library
-    counts them (:func:`counted_launches`)."""
+    step launches the LayerNorm-backward dgrad that many times and
+    layernorm.cu's backward passes ``ln_passes`` times (False: none; True:
+    any number), as the library counts them (:func:`counted_launches`).
+    With ``top``, also the ``top`` kernels of the most device time a step,
+    by name, ungrouped."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -2680,10 +2921,12 @@ def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_pas
     torch.cuda.synchronize()
     if ln_epilogues is not None:
         counts = counted_launches(torch, run)
-        if counts["ln_epilogue"] != ln_epilogues or (counts["ln_passes"] and not ln_passes):
+        if counts["ln_epilogue"] != ln_epilogues or (
+                ln_passes is not True and counts["ln_passes"] != int(ln_passes)):
             raise AssertionError(f"profile {tag}: launches a step {counts} ({ln_epilogues} of "
                                  f"the LayerNorm-backward dgrad expected"
-                                 + ("" if ln_passes else ", none of its passes") + ")")
+                                 + ("" if ln_passes is True else
+                                    f", {int(ln_passes)} of its passes") + ")")
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
@@ -2707,10 +2950,12 @@ def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_pas
             run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    groups = {}
+    groups, kernels = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        kernels.append((evt.self_device_time_total / 1e3 / PROFILE_STEPS, evt.count /
+                        PROFILE_STEPS, evt.key))
         ms, count = groups.get(kernel_group(evt.key), (0.0, 0.0))
         groups[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / PROFILE_STEPS,
                                          count + evt.count / PROFILE_STEPS)
@@ -2729,6 +2974,12 @@ def profile_phase(torch, tag, build, batch, seed, smi, ln_epilogues=None, ln_pas
     log("|---|---|---|")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"| {name} | {ms:.3f} | {count:g} |")
+    if top:
+        log(f"profile {tag}: the {top} kernels of the most device time a step")
+        log("| kernel | group | ms / step | launches / step |")
+        log("|---|---|---|---|")
+        for ms, count, name in sorted(kernels, reverse=True)[:top]:
+            log(f"| {name[:160]} | {kernel_group(name)} | {ms:.3f} | {count:g} |")
 
 
 def kernel_entry(results, by_path, name, src, tpu, main_shape):
@@ -2897,6 +3148,8 @@ def main() -> int:
     with clock("flash kernels"):
         flash_phase(torch, results, smi)
         below_gate_phase(torch, results, smi)
+    with clock("T2T token transformer kernels"):
+        t2t_kernel_phase(torch, results, smi)
     with clock("cross-attention block"):
         cross_attention_phase(torch, results, smi)
     with clock("packed flash"):
@@ -3027,6 +3280,23 @@ def main() -> int:
     path("training distillation", objective_phase, "DeiT distillation (soft, T 1, alpha 0.5)",
          objective["DeiT distillation"], 14, smi, counters,
          {**each(2 * layers, *forward), **each(layers, *backward)})
+    # T2T-ViT@224: its first token transformer's attention on the (192, 192)
+    # flash kernels (3136 tokens; the second one's 784 on the plain path, by
+    # the 1024 gate), both token MLPs on the fused MLP at 147 and 1323, the
+    # encoder's five blocks on rows 1-4 at 197 tokens (198 for the
+    # distillable student).
+    t2t = dict(plain_kw=dict(plain=True))
+    t2t_forward = {"flash_attention": 1, "fused_mlp": 2 + T2T["depth"],
+                   **each(T2T["depth"], "fused_attention_block", "short route, forward")}
+    t2t_backward = {"flash_backward": 1, "fused_mlp_bwd": 2 + T2T["depth"],
+                    **each(T2T["depth"], "fused_attention_block_bwd", "short route")}
+    path("serving T2T", serving_phase, "T2T-ViT@224 bf16", t2t_vit, T2T, T2T_BATCH, 3, 15, smi,
+         counters, t2t_forward, **t2t)
+    path("training T2T", training_phase, "T2T-ViT@224", t2t_vit, T2T, T2T_BATCH, 16, smi,
+         counters, {**t2t_forward, **t2t_backward}, **t2t)
+    path("training T2T distillation", objective_phase,
+         "T2T distillation (soft, T 1, alpha 0.5)", objective["T2T distillation"], 17, smi,
+         counters, {**{name: 2 * count for name, count in t2t_forward.items()}, **t2t_backward})
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -3061,6 +3331,10 @@ def main() -> int:
                                      ("MPP", 2 * layers), ("DeiT distillation", 2 * layers)):
             profile_phase(torch, name, objective_step(torch, objective[name]), OBJECTIVE_BATCH,
                           0, smi, ln_epilogues=student_layers)
+        # T2T-ViT: its encoder's blocks (d 512) on the LayerNorm-backward
+        # dgrad, its two token MLPs (147 and 1323) on the passes.
+        profile_phase(torch, "T2T-ViT@224", classifier_step(torch, t2t_vit, T2T, T2T_BATCH),
+                      T2T_BATCH, 0, smi, ln_epilogues=2 * T2T["depth"], ln_passes=2, top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)

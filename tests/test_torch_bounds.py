@@ -178,3 +178,33 @@ def test_gemm_bound(raw):
 ])
 def test_profile_groups_the_hybrid_kernels(kernel, group):
     assert chip_smoke.kernel_group(kernel) == group
+
+
+def test_mlp_bounds_at_t2t_widths(raw):
+    """The fused MLP over rows at the module's widths, whatever the kernels
+    pad to: 147 over T2T's 64 x 3136 rows and 1323 over its 64 x 784, each
+    two GEMMs of 2·rows·d·hidden; x, γ, β, W1, b1, W2, b2 in and y out
+    (dy, x, h, γ, W1, W2 in and dx, dh, gact, f32 sums out backward)."""
+    for rows, d in ((64 * 3136, 147), (64 * 784, 1323)):
+        act, w = 2 * rows * d, 2 * 2 * d * d
+        got = chip_smoke.mlp_bounds(rows, d, d)
+        assert got["fused_mlp"] == (4 * rows * d * d, act + w + 2 * 4 * d + act)
+        assert got["fused_mlp_bwd"] == (4 * rows * d * d, 3 * act + 3 * act + w + 2 * d
+                                        + 4 * 4 * d)
+    assert chip_smoke.mlp_bounds(64 * 3136, 147, 147)["fused_mlp"][0] == 17_348_050_944
+    assert chip_smoke.mlp_bounds(64 * 784, 1323, 1323)["fused_mlp"][0] == 351_298_031_616
+    block = chip_smoke.block_bounds(2, 10, 16, 2, 8, 32)
+    assert {k: block[k] for k in ("fused_mlp", "fused_mlp_bwd")} == \
+        chip_smoke.mlp_bounds(20, 16, 32)
+
+
+def test_flash_bounds_at_t2t_true_width():
+    """T2T's first token transformer, (64, 1, 3136, 3136) at its true head
+    width 147 (the kernels compute at 192; the function's work is the same):
+    370 GFLOP forward, 0.374 ms at 989 TFLOP/s; 925 GFLOP backward, 0.936
+    ms; the tensor cores bound both."""
+    got = chip_smoke.flash_bounds(64, 1, 3136, 3136, 147)
+    pairs = 64 * 3136 * 3136
+    assert got["flash_attention"][0] == pytest.approx(2 * pairs * 294 / 989e12 * 1e3)
+    assert got["flash_attention"] == (pytest.approx(0.3742, abs=1e-4), "operations")
+    assert got["flash_backward"] == (pytest.approx(0.9355, abs=1e-4), "operations")

@@ -328,3 +328,66 @@ def test_packed_window_attention_refuses_tpu_modes_and_bad_heads():
         attention.packed_window_attention(q, q, q, 2, mode="sometimes")
     with pytest.raises(ValueError, match="heads"):
         attention.packed_window_attention(q, q, q, 3)
+
+
+@pytest.mark.parametrize("n_q,n_k", [(128, 128), (200, 256)])
+def test_dispatch_pads_t2t_head_width_to_192(n_q, n_k):
+    """T2T-ViT's first token transformer: one head of 147 (3·7·7), which both
+    packages zero-pad to 192 for the flash kernels (``vit_tpu/ops/
+    attention.py:141-145``), forward and gradients against ``vit_tpu``'s
+    forced flash in interpret mode; the op is called at (192, 192), the
+    kernel instance the card runs."""
+    q, k, v, g = _qkvg(1, 1, n_q, n_k, 147, seed=11)
+    q, g = q[:, :, :n_q], g[:, :, :n_q]
+    scale = 147 ** -0.5
+
+    def jax_op(*a):
+        return jax_attention.scaled_dot_product_attention(*a, scale=scale, use_flash="force")
+
+    with pltpu.force_tpu_interpret_mode():
+        out_want, vjp = jax.vjp(jax_op, *map(jnp.asarray, (q, k, v)))
+        grads_want = vjp(jnp.asarray(g))
+    calls = []
+
+    def counted(*a, f=attention.flash_attention):
+        calls.append((a[0].shape[-1], a[2].shape[-1]))
+        return f(*a)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(attention, "flash_attention", counted)
+        out, grads = _port_vjp(attention.scaled_dot_product_attention, q, k, v, g,
+                               scale=scale, use_flash="force")
+    assert calls == [(192, 192)] and (192, 192) in attention.SUPPORTED_WIDTHS
+    assert out.shape == (1, 1, n_q, 147)
+    assert _maxdiff(out, out_want) <= TOL_OUT
+    for name, got, want in zip("qkv", grads, grads_want):
+        assert got.shape == want.shape and _maxdiff(got, want) <= TOL_GRAD, name
+
+
+def test_width_lists_agree_with_the_kernel_source():
+    """The Python list of (dk, dv) instances is the one the CUDA source
+    instantiates (``VIT_FLASH_WIDTHS``), (192, 192) among them."""
+    import re
+    from pathlib import Path
+
+    import vit_tpu_torch.ops.flash_attention as fa
+
+    src = (Path(fa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    macro = re.search(r"#define VIT_FLASH_WIDTHS\(X\)(.*)", src)[1]
+    widths = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro))
+    assert widths == fa.SUPPORTED_WIDTHS and (192, 192) in widths
+
+
+@pytest.mark.parametrize("d,padded", [(147, 192), (1323, 1344), (160, 160), (200, 256)])
+def test_flash_tier_pads_a_width_to_the_op(monkeypatch, d, padded):
+    """At the tier a 16-bit call reaches the op at its padded width: 147 at
+    (192, 192), the instance; 160, 1323 or 200, no instance, which the op
+    then refuses on the card (``check_flash_tensors``)."""
+    widths = []
+    monkeypatch.setattr(attention, "flash_tensor", lambda t: True)
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, s: widths.append(q.shape[-1]) or v)
+    q = torch.zeros(1, 1, 1024, d, dtype=BF16)
+    out = attention.scaled_dot_product_attention(q, q, q)
+    assert widths == [padded] and out.shape == (1, 1, 1024, d)
+    assert ((padded, padded) in attention.SUPPORTED_WIDTHS) == (d == 147)

@@ -348,10 +348,15 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     args = _mlp_args((2, 9, 64), 128, torch.float32, cuda)
     with torch.inference_mode(), pytest.raises(TypeError):
         fused_mlp(*args)  # f32 has no kernel
-    args = _mlp_args((2, 9, 60), 128, torch.bfloat16, cuda)
+    # d = 60 rows are not 16 bytes: the kernels take them through zero-padded
+    # copies (test_fused_mlp_kernels_at_widths_off_8); rows that are not
+    # contiguous they refuse, under grad as in inference.
+    args = _mlp_args((2, 9, 120), 128, torch.bfloat16, cuda)
+    args = (args[0][..., :60],) + tuple(t[:60] if t.dim() == 1 else t for t in args[1:3]) + \
+        (args[3][:, :60], args[4], args[5][:60], args[6][:60])
     args[3].requires_grad_(True)
-    with pytest.raises(ValueError):
-        fused_mlp(*args)  # d = 60: rows of 16 bytes only for multiples of 8
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp(*args)
 
 
 def _tiny_vit(cuda, **kw):
@@ -1373,3 +1378,120 @@ def test_vit_hybrid_tier_serves_and_trains_through_its_kernels(cuda):
     assert losses[2] < losses[0]
     assert all(abs(a - b) <= 1e-2 * abs(b) for a, b in zip(losses, plain_losses)), \
         (losses, plain_losses)
+
+
+# T2T-ViT's widths, off 8: its token transformers' MLPs (d = hidden = 147 and
+# 1323), a hidden width alone off 8, a model width alone off 8.
+MLP_OFF_8_SHAPES = [
+    ((2, 33, 147), 147, torch.bfloat16),
+    ((3, 17, 147), 147, torch.float16),
+    ((2, 9, 1323), 1323, torch.bfloat16),  # fc1 and the dgrads on gemm_wgmma at n 1328
+    ((2, 17, 64), 100, torch.bfloat16),
+    ((2, 9, 60), 128, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape,hidden,dtype", MLP_OFF_8_SHAPES)
+def test_fused_mlp_kernels_at_widths_off_8(cuda, shape, hidden, dtype):
+    """Serving and training forwards and the backward at widths off 8 against
+    the plain versions (xn and h at the padded widths, their pad columns 0),
+    the same bits twice; under autograd, the parameters' gradients at their
+    own shapes."""
+    args = _mlp_args(shape, hidden, dtype, cuda, seed=3)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    d = shape[-1]
+    with torch.inference_mode():
+        out = fused_mlp(*args)
+        _close(out, fused_mlp_reference(*args), x)
+        assert torch.equal(out, fused_mlp(*args))
+    y, xn, h = fused_mlp_ops._launch_forward(*args, 1e-3, save_residuals=True)
+    ref = fused_mlp_forward_reference(*args)
+    check_outputs(torch, "fused_mlp training forward", (y, xn[..., :d], h[..., :hidden]), ref,
+                  {0: x})
+    assert not xn[..., d:].any() and not h[..., hidden:].any()
+    dy = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(dtype)
+    before = fused_mlp_backward.launches
+    got = fused_mlp_backward(dy, x, h, gamma, w1, w2)
+    assert fused_mlp_backward.launches == before + 1
+    check_outputs(torch, "fused_mlp_bwd", got,
+                  fused_mlp_backward_reference(dy, x, ref[2], gamma, w1, w2), {0: dy})
+    _twice(got, fused_mlp_backward(dy, x, h, gamma, w1, w2))
+    params = [t.detach().float().requires_grad_() for t in args[1:]]
+    xg = x.detach().requires_grad_()
+    fused_mlp(xg, *(p.to(dtype) for p in params)).float().square().sum().backward()
+    assert xg.grad.shape == x.shape and all(p.grad.shape == p.shape for p in params)
+    assert all(torch.isfinite(p.grad).all() for p in params)
+
+
+@pytest.mark.parametrize("b,h,n_q,n_k,dtype", [
+    (2, 1, 1000, 1100, torch.bfloat16),  # ragged key tiles and query blocks
+    (1, 2, 64, 200, torch.float16),      # one query block of one warpgroup
+    (1, 1, 129, 65, torch.bfloat16),     # one key past a block, one row past a block
+])
+def test_flash_kernels_at_192(cuda, b, h, n_q, n_k, dtype):
+    """The (192, 192) instance, from 147-wide q, k, v zero-padded as the
+    dispatcher pads them: forward, lse and the backward (dk and dv in two
+    launches) against the plain versions; the pad columns of every output 0."""
+    g = torch.Generator(device=cuda).manual_seed(n_q)
+    q, k, v, do = (torch.nn.functional.pad(
+        torch.randn(b, h, n, 147, generator=g, device=cuda).to(dtype), (0, 45))
+        for n in (n_q, n_k, n_k, n_q))
+    _check_flash(q, k, v, do)
+    out, lse = flash_attention_forward(q, k, v)
+    assert not out[..., 147:].any()
+    assert not any(t[..., 147:].any() for t in flash_backward(q, k, v, out, lse, do, 147 ** -0.5))
+
+
+def test_flash_refuses_a_width_without_an_instance(cuda):
+    """A 16-bit CUDA call at a head width with no instance raises, at the op
+    and through the dispatcher (1323 is padded to 1344: no instance)."""
+    q = torch.zeros(1, 1, 1024, 160, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 1, 1024, 1323, dtype=torch.bfloat16, device=cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="no kernel instance"):
+        attention_ops.scaled_dot_product_attention(q, q, q)
+
+
+def test_t2t_serves_and_trains_through_its_kernels(cuda):
+    """A narrow T2T-ViT at 128 px (its first token transformer over 32² =
+    1024 tokens, 147 wide: the flash tier; its second over 256, 1323 wide:
+    the plain attention): serving launches the flash forward once, the fused
+    MLP at both token widths and every encoder layer, the fused block at every
+    encoder layer; a train step each backward as often; the distillable
+    student through DistillWrapper."""
+    from vit_tpu_torch import DistillableT2TViT, DistillWrapper, T2TViT
+    from vit_tpu_torch.parallel.train import make_loss_train_step
+
+    cfg = dict(image_size=128, num_classes=10, dim=64, depth=2, heads=2, mlp_dim=128,
+               dim_head=32)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    img = torch.randn(2, 128, 128, 3, generator=g, device=cuda)
+    counters = (flash_attention, fused_mlp, fused_attention_block, flash_backward,
+                fused_mlp_backward, fused_attention_block_backward)
+
+    def launches():
+        return [c.launches for c in counters]
+
+    model = cast_params(T2TViT(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        logits = model(img)
+    assert [a - b for a, b in zip(launches(), before)] == [1, 4, 2, 0, 0, 0]
+    assert logits.shape == (2, 10) and torch.isfinite(logits).all()
+    model = T2TViT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    before = launches()
+    losses = [step(img, labels)["loss"].item() for _ in range(3)]
+    assert [a - b for a, b in zip(launches(), before)] == [3, 12, 6, 3, 12, 6]
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+    wrapper = DistillWrapper(T2TViT(**cfg, compute_dtype=torch.bfloat16, generator=g),
+                             DistillableT2TViT(**cfg, compute_dtype=torch.bfloat16, generator=g),
+                             compute_dtype=torch.bfloat16, generator=g)
+    step = make_loss_train_step(wrapper, torch.optim.AdamW(wrapper.parameters(), lr=1e-3))
+    before = launches()
+    loss = step((img, labels))["loss"].item()
+    assert [a - b for a, b in zip(launches(), before)] == [2, 8, 4, 1, 4, 2]
+    assert loss == loss and all(p.grad is None for p in wrapper.teacher.parameters())

@@ -154,7 +154,9 @@ def test_auto_dispatch_takes_the_plain_path_on_cpu():
 
 
 def test_kernel_width_limits():
-    assert fused_mlp_supported(768, 3072) and not fused_mlp_supported(27, 64)
+    # widths off 8 (T2T-ViT's 147 and 1323, 27) run at zero-padded widths
+    assert fused_mlp_supported(768, 3072) and fused_mlp_supported(27, 64)
+    assert fused_mlp_supported(147, 147) and not fused_mlp_supported(0, 64)
     assert fused_attention_block_supported(768, 12, 64)
     assert fused_attention_block_supported(96, 3, 32)
     assert not fused_attention_block_supported(96, 2, 48)
@@ -194,8 +196,8 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
 
 def test_package_exports():
     assert sorted(vit_tpu_torch.__all__) == [
-        "CvT", "DistillWrapper", "DistillableEfficientViT", "DistillableViT", "MAE", "MPP",
-        "ScalableViT", "SimMIM", "ViT",
+        "CvT", "DistillWrapper", "DistillableEfficientViT", "DistillableT2TViT",
+        "DistillableViT", "MAE", "MPP", "ScalableViT", "SimMIM", "T2TViT", "ViT",
         "cast_params", "state_dict_from_flax", "vit_for_small_dataset"]
     assert all(hasattr(vit_tpu_torch, name) for name in vit_tpu_torch.__all__)
     assert cast_tuple(3, 4) == (3, 3, 3, 3) and cast_tuple((1, 2), 4) == (1, 2)

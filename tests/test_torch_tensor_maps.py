@@ -458,10 +458,14 @@ def test_dgrads_refuse_widths_no_map_takes_before_any_launch(k, n):
     attention block's backwards raise before any launch."""
     with pytest.raises(ValueError, match="multiples of 8"):
         fh.gemm_wgmma(_meta(5, k), torch.zeros(k, n, dtype=BF16), "f32", layout="kn")
+    # The fused MLP's backward takes such widths through zero-padded copies:
+    # the weights it passes C are maps, rows a multiple of 8 elements apart.
     d, hidden = k, n
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fm.fused_mlp_backward(_meta(5, d), _meta(5, d), _meta(5, hidden), _meta(d),
-                              _meta(hidden, d), _meta(d, hidden))
+    gamma, _, w1, _, w2, _ = fm.kernel_operands(_meta(d), None, _meta(hidden, d), None,
+                                                _meta(d, hidden), None)
+    for w, shape in ((w1, (fm.padded_width(hidden), fm.padded_width(d))),
+                     (w2, (fm.padded_width(d), fm.padded_width(hidden)))):
+        assert tuple(w.shape) == shape and _tma_problem(w) is None and w.stride()[0] % 8 == 0
     if d % 8:
         with pytest.raises(ValueError, match="d % 8 == 0"):
             fab.fused_attention_block_backward(_meta(2, 3, d), _meta(2, 3, d),

@@ -11,10 +11,15 @@ kernel.  ``CvT`` (CvT-13 by default) does both with its stage-1 attention
 forward and backward.  ``ScalableViT`` does both with its SSA through the
 fused cross-attention kernels and its IWSA (at 1024-token windows and above)
 through the channel-packed flash kernel, forward and backward, and its
-conv-MLPs through the fused MLP kernels.  The Efficient ViT
+conv-MLPs through the fused MLP kernels.  ``T2TViT`` does both with its
+token transformers on the same kernels as ``vit_tpu``'s: the first one's
+attention (one head of 147 over 3136 tokens, padded to 192) through the flash
+kernels, both token MLPs (147 and 1323 wide) through the fused MLP kernels,
+its encoder through the block kernels.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
-``DistillWrapper`` over the ``Distillable*`` students) train with
+``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
+among them) train with
 ``vit_tpu_torch.parallel.train.make_loss_train_step``.  On the CPU the same
 ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 """
@@ -24,15 +29,16 @@ from vit_tpu_torch.interop.from_flax import state_dict_from_flax
 from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.cvt import CvT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
+from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.vit import ViT
 from vit_tpu_torch.objectives.distill import (
-    DistillableEfficientViT, DistillableViT, DistillWrapper,
+    DistillableEfficientViT, DistillableT2TViT, DistillableViT, DistillWrapper,
 )
 from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CvT", "ScalableViT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CvT", "ScalableViT", "T2TViT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
-           "DistillableViT", "DistillableEfficientViT"]
+           "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

@@ -1,8 +1,8 @@
 // Flash attention on Hopper: an online-softmax forward that saves each query
 // row's log-sum-exp, and the two-pass backward that recomputes the softmax
 // from it.  q (b, h, n_q, dk), k (b, h, n_k, dk) and v (b, h, n_k, dv), any
-// n_q and n_k, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96), (128, 128)},
-// bf16 or f16 operands, f32 accumulation: every kernel on wgmma with its
+// n_q and n_k, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96), (128, 128),
+// (192, 192)}, bf16 or f16 operands, f32 accumulation: every kernel on wgmma with its
 // operands brought by TMA (hopper.cuh).
 //
 // Replaces the TPU kernels
@@ -89,6 +89,30 @@
 // rows past n_q or n_k, and the columns of a 40-wide q/k past 40, with zeros
 // (hopper.cuh); rows past n_q or n_k are not stored.  A block of at most 64
 // rows runs one warpgroup.
+//
+// The (192, 192) instance: T2T-ViT's first token transformer, one head of 147
+// (3·7·7) over 3136 tokens at 224 px, which vit_tpu sends to its flash kernel
+// zero-padded to 192 (vit_tpu/ops/attention.py:141-145; the wrapper pads as it
+// does, and the pad adds 0 to every logit and to no column kept).  A 192-wide
+// tile is three 64-column chunks (hopper.cuh Tile), and P·V, dq, dk and dv run
+// on m64n192k16 with A from registers.  At this width today's structs would
+// not fit the card, so three things change, by width alone (PK + PV > 256):
+//   - forward shared memory: Q (128 x 192, 48 KB) and a 4-stage ring of 64-key
+//     K and V tiles (4 x 48 KB) is 241 KB, above the 227 KB a CTA may take;
+//     the ring has 3 stages (193 KB).  Registers: o 96 and s 32 f32 a thread,
+//     one CTA an SM (kBlocks 1).
+//   - dq kernel shared memory: Q and dO (96 KB) and a 3-stage ring of K and V
+//     (144 KB) is 240 KB; the ring has 2 stages (193 KB).  dq 96, s and dp 32
+//     each a thread.
+//   - dk/dv kernel registers: a warpgroup of 64 keys holding dk and dv takes
+//     2 x 64·192 / 128 = 192 f32 accumulators a thread before sᵀ, dpᵀ and the
+//     addresses, and would spill.  So dk and dv are two launches of the same
+//     kernel (PARTS): the first recomputes p = exp(sᵀ·scale - lse) and keeps
+//     dv += T(pᵀ)·dO, the second recomputes p and dpᵀ = v·dOᵀ and keeps dk +=
+//     T(dsᵀ)·q, 96 accumulators a thread each (one n_q x n_k x 192 product
+//     more than the split's seven: eight in all).  Their shared memory is 168 KB.
+// ptxas for sm_90a (CUDA 12.8; the smoke's ptxas line): the forward 224
+// registers, the dq kernel 190, the dv pass 153, the dk pass 178, no spills.
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
 
@@ -121,7 +145,7 @@ struct Fwd {
   static constexpr int PK = hopper::swizzled_width(DK), PV = hopper::swizzled_width(DV);
   static constexpr int BK = 64;
   static constexpr int kSteps = pad16(DK) / 16;
-  static constexpr int kStages = 4;
+  static constexpr int kStages = PK + PV <= 256 ? 4 : 3;  // 3 at 192 + 192: 227 KB a CTA
   static constexpr int kBlocks = PK + PV <= 128 ? 2 : 1;
   // Q of up to 128 rows, a ring of `ring` stages of K and V tiles, the barriers (one, and
   // full/empty per stage), alignment.
@@ -328,16 +352,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // The (DK, DV) backward's shapes: q/k and v widths padded to swizzled tiles
 // (40 -> 64), 32 query rows per step of the dk/dv kernel, 64 keys per step of
-// the dq kernel, the depth of both kernels' TMA rings, and the dk/dv kernel's
-// CTAs per SM: two where q/k and v are 64 + 64 wide or narrower (its
-// registers then fit 128 a thread), one where dk and dv alone take 128.
+// the dq kernel, the depth of the dk/dv kernel's TMA ring and of the dq
+// kernel's (2 at 192 + 192, for shared memory), the dk/dv kernel's CTAs per
+// SM: two where q/k and v are 64 + 64 wide or narrower (its registers then
+// fit 128 a thread), one where dk and dv alone take 128; and whether dk and
+// dv are two launches (above 128 + 128: their accumulators would not fit a
+// thread's registers together).
 template <int DK, int DV>
 struct Bwd {
   static constexpr int PK = hopper::swizzled_width(DK), PV = hopper::swizzled_width(DV);
   static constexpr int BQ = 32;
   static constexpr int BK = 64;
   static constexpr int kStages = 3;
+  static constexpr int kDqStages = PK + PV <= 256 ? 3 : 2;
   static constexpr int kDkvBlocks = PK + PV <= 128 ? 2 : 1;
+  static constexpr bool kSplitDkv = PK + PV > 256;
   // A block of up to 128 rows (two warpgroups of 64), the ring of the other side's steps, the
   // barriers (one, and full/empty per stage), alignment.
   static constexpr int kBarBytes = (1 + 2 * kStages) * 8 + 1024;
@@ -345,7 +374,7 @@ struct Bwd {
     return 128 * (PK + PV) * 2 + kStages * BQ * (PK + PV) * 2 + kBarBytes;
   }
   static constexpr int dq_smem() {
-    return 128 * (PK + PV) * 2 + kStages * BK * (PK + PV) * 2 + kBarBytes;
+    return 128 * (PK + PV) * 2 + kDqStages * BK * (PK + PV) * 2 + kBarBytes;
   }
 };
 
@@ -363,13 +392,14 @@ __device__ __forceinline__ void dkv_load_step(int i, unsigned char* qs, unsigned
 }
 
 // One CTA per (block of 64·W keys, head, image), W = blockDim / 128 warpgroups
-// of 64 keys each: dk and dv over every query step.  K and V of the block come
-// once; (q, dO) steps stream through the ring, thread 0 refilling a stage once
-// every thread has released it, and each thread reads the lse and D of its
-// columns while the step's first products run.  Per step and warpgroup: sᵀ = k·qᵀ
-// and dpᵀ = v·dOᵀ (shared operands), p and dsᵀ in registers, dv += T(pᵀ)·dO
-// and dk += T(dsᵀ)·q (register A operands, q and dO MN-major).
-template <typename T, int DK, int DV>
+// of 64 keys each: dk and dv over every query step (PARTS 3), or dv alone (1)
+// or dk alone (2).  K and V of the block come once (K alone for dv); (q, dO)
+// steps stream through the ring, thread 0 refilling a stage once every thread
+// has released it, and each thread reads the lse and D of its columns while
+// the step's first products run.  Per step and warpgroup: sᵀ = k·qᵀ and dpᵀ =
+// v·dOᵀ (shared operands; dpᵀ for dk only), p and dsᵀ in registers, dv +=
+// T(pᵀ)·dO and dk += T(dsᵀ)·q (register A operands, q and dO MN-major).
+template <typename T, int DK, int DV, int PARTS>
 __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
@@ -384,6 +414,7 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
   using QTile = hopper::Tile<B::BQ, B::PK>;
   using OTile = hopper::Tile<B::BQ, B::PV>;
   constexpr int S = B::kStages, BQ = B::BQ;
+  constexpr bool kDv = PARTS & 1, kDk = PARTS & 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = hopper::align1024(smem_raw);
   unsigned char* vs = ks + KTile::kBytes;
@@ -407,20 +438,24 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_expect_tx(kv_bar, wgs * 64 * (B::PK + B::PV) * 2);
+    hopper::mbar_expect_tx(kv_bar, wgs * 64 * (B::PK + (kDk ? B::PV : 0)) * 2);
     for (int w = 0; w < wgs; ++w) {
       KTile::load(ks, 64 * w, &k_map, kv_bar, j0 + 64 * w, h, b);
-      VTile::load(vs, 64 * w, &v_map, kv_bar, j0 + 64 * w, h, b);
+      if (kDk) VTile::load(vs, 64 * w, &v_map, kv_bar, j0 + 64 * w, h, b);
     }
     for (int i = 0; i < S && i < steps; ++i)
       dkv_load_step<B>(i, qs, os, full, &q_map, &do_map, h, b);
   }
 
-  float dk_acc[B::PK / 2], dv_acc[B::PV / 2];
+  float dk_acc[kDk ? B::PK / 2 : 1], dv_acc[kDv ? B::PV / 2 : 1];
+  if constexpr (kDk) {
 #pragma unroll
-  for (int i = 0; i < B::PK / 2; ++i) dk_acc[i] = 0.f;
+    for (int i = 0; i < B::PK / 2; ++i) dk_acc[i] = 0.f;
+  }
+  if constexpr (kDv) {
 #pragma unroll
-  for (int i = 0; i < B::PV / 2; ++i) dv_acc[i] = 0.f;
+    for (int i = 0; i < B::PV / 2; ++i) dv_acc[i] = 0.f;
+  }
   const float sl2 = scale * kLog2e;
   hopper::mbar_wait(kv_bar, 0);
   for (int i = 0; i < steps; ++i) {
@@ -435,8 +470,9 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
       const int qi = i * BQ + 8 * j + 2 * t;
       lse2[j] = make_float2(qi < n_q ? lse[run0 + qi] * kLog2e : 0.f,
                             qi + 1 < n_q ? lse[run0 + qi + 1] * kLog2e : 0.f);
-      dd[j] = make_float2(qi < n_q ? dsum[run0 + qi] : 0.f,
-                          qi + 1 < n_q ? dsum[run0 + qi + 1] : 0.f);
+      if (kDk)
+        dd[j] = make_float2(qi < n_q ? dsum[run0 + qi] : 0.f,
+                            qi + 1 < n_q ? dsum[run0 + qi + 1] : 0.f);
     }
     hopper::mbar_wait(&full[s], phase);
 
@@ -447,12 +483,16 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
       hopper::Wgmma<BQ, T>::ss(st, KTile::kmajor(ks, 64 * wg, 16 * kk),
                                QTile::kmajor(q_t, 0, 16 * kk), kk);
     hopper::wgmma_commit();
+    if constexpr (kDk) {
 #pragma unroll
-    for (int kk = 0; kk < B::PV / 16; ++kk)  // dpᵀ = v·dOᵀ
-      hopper::Wgmma<BQ, T>::ss(dpt, VTile::kmajor(vs, 64 * wg, 16 * kk),
-                               OTile::kmajor(o_t, 0, 16 * kk), kk);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();
+      for (int kk = 0; kk < B::PV / 16; ++kk)  // dpᵀ = v·dOᵀ
+        hopper::Wgmma<BQ, T>::ss(dpt, VTile::kmajor(vs, 64 * wg, 16 * kk),
+                                 OTile::kmajor(o_t, 0, 16 * kk), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+    } else {
+      hopper::wgmma_wait<0>();
+    }
     hopper::fence_regs(st);
     // p = exp(s·scale - lse) for the step's queries (the columns), 0 past n_q,
     // while dpᵀ is still on the tensor cores.
@@ -465,40 +505,51 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
             qi < n_q ? exp2f(st[4 * j + e] * sl2 - ((e & 1) ? lse2[j].y : lse2[j].x)) : 0.f;
       }
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    if constexpr (kDv) {
 #pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(pa[c], st, c);
+      for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(pa[c], st, c);
+    }
+    if constexpr (kDk) {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dpt);
+    }
+    if constexpr (kDv) {
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c)  // dv += T(pᵀ)·dO
+        hopper::Wgmma<B::PV, T>::rs(dv_acc, pa[c], OTile::mnmajor(o_t, 16 * c));
+      hopper::wgmma_commit();
+    }
+    if constexpr (kDk) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // dsᵀ = p·(dpᵀ - D)·scale
+          dpt[4 * j + e] =
+              st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd[j].y : dd[j].x)) * scale;
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(da[c], dpt, c);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c)  // dk += T(dsᵀ)·q
+        hopper::Wgmma<B::PK, T>::rs(dk_acc, da[c], QTile::mnmajor(q_t, 16 * c));
+      hopper::wgmma_commit();
+    }
     hopper::wgmma_wait<0>();
-    hopper::fence_regs(dpt);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < BQ / 16; ++c)  // dv += T(pᵀ)·dO
-      hopper::Wgmma<B::PV, T>::rs(dv_acc, pa[c], OTile::mnmajor(o_t, 16 * c));
-    hopper::wgmma_commit();
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)  // dsᵀ = p·(dpᵀ - D)·scale
-        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd[j].y : dd[j].x)) * scale;
-#pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) hopper::a_fragment<T>(da[c], dpt, c);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < BQ / 16; ++c)  // dk += T(dsᵀ)·q
-      hopper::Wgmma<B::PK, T>::rs(dk_acc, da[c], QTile::mnmajor(q_t, 16 * c));
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(dv_acc);
-    hopper::fence_regs(dk_acc);
-    hopper::fence_regs(pa);
-    hopper::fence_regs(da);
+    if constexpr (kDv) hopper::fence_regs(dv_acc);
+    if constexpr (kDk) hopper::fence_regs(dk_acc);
+    if constexpr (kDv) hopper::fence_regs(pa);
+    if constexpr (kDk) hopper::fence_regs(da);
     hopper::mbar_arrive(&empty[s]);
     if (tid == 0 && i + S < steps) {
       hopper::mbar_wait(&empty[s], phase);
       dkv_load_step<B>(i + S, qs, os, full, &q_map, &do_map, h, b);
     }
   }
-  hopper::store_fragment<T, DK>(head_base(dk, dks, b, h), dks.r, j0 + 64 * wg, n_k, dk_acc, lt);
-  hopper::store_fragment<T, DV>(head_base(dv, dvs, b, h), dvs.r, j0 + 64 * wg, n_k, dv_acc, lt);
+  if constexpr (kDk)
+    hopper::store_fragment<T, DK>(head_base(dk, dks, b, h), dks.r, j0 + 64 * wg, n_k, dk_acc, lt);
+  if constexpr (kDv)
+    hopper::store_fragment<T, DV>(head_base(dv, dvs, b, h), dvs.r, j0 + 64 * wg, n_k, dv_acc, lt);
 }
 
 // One CTA per (block of 64·W queries, head, image), W = blockDim / 128
@@ -519,7 +570,7 @@ __global__ void __launch_bounds__(256, 1)
   using OTile = hopper::Tile<128, B::PV>;
   using KTile = hopper::Tile<B::BK, B::PK>;
   using VTile = hopper::Tile<B::BK, B::PV>;
-  constexpr int S = B::kStages, BK = B::BK;
+  constexpr int S = B::kDqStages, BK = B::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = hopper::align1024(smem_raw);
   unsigned char* os = qs + QTile::kBytes;
@@ -655,6 +706,25 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float*
   return cudaGetLastError();
 }
 
+// One launch of the dk/dv kernel (PARTS as the kernel takes it) over every key block.
+template <typename T, int DK, int DV, int PARTS>
+cudaError_t dkv_t(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+                  const CUtensorMap& do_map, const float* lse, const float* dsum, void* dk,
+                  void* dv, const long long* st, int b, int heads, int n_q, int n_k, float scale,
+                  cudaStream_t stream) {
+  using B = Bwd<DK, DV>;
+  thread_local int ready = -1;
+  const cudaError_t err =
+      prepare_kernel(ready, flash_bwd_dkv_kernel<T, DK, DV, PARTS>, B::dkv_smem());
+  if (err != cudaSuccess) return err;
+  const int wgs = n_k > 64 ? 2 : 1;
+  flash_bwd_dkv_kernel<T, DK, DV, PARTS><<<dim3((n_k + 64 * wgs - 1) / (64 * wgs), heads, b),
+                                           128 * wgs, B::dkv_smem(), stream>>>(
+      q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dk), strides_at(st, 6),
+      static_cast<T*>(dv), strides_at(st, 7), heads, n_q, n_k, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DK, int DV>
 cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
                   const float* lse, const void* dout, void* dq, void* dk, void* dv, float* dsum,
@@ -663,10 +733,8 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
   using B = Bwd<DK, DV>;
   constexpr int dt = hopper::dtype_of<T>();
   constexpr int kc = hopper::Tile<64, B::PK>::kChunk, vc = hopper::Tile<64, B::PV>::kChunk;
-  thread_local int dq_ready = -1, dkv_ready = -1;
+  thread_local int dq_ready = -1;
   cudaError_t err = prepare_kernel(dq_ready, flash_bwd_dq_kernel<T, DK, DV>, B::dq_smem());
-  if (err == cudaSuccess)
-    err = prepare_kernel(dkv_ready, flash_bwd_dkv_kernel<T, DK, DV>, B::dkv_smem());
   if (err != cudaSuccess) return err;
   const Strides os = strides_at(st, 3), dos = strides_at(st, 4);
   // K and V in 64-row boxes: the dq kernel's steps, the dk/dv kernel's warpgroups.
@@ -699,17 +767,21 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
       err = head_map(&do_map, dout, dt, DV, n_q, heads, b, st + 12, vc, B::BQ);
     if (err != cudaSuccess) return err;
   }
-  const int wgs = n_k > 64 ? 2 : 1;
-  flash_bwd_dkv_kernel<T, DK, DV><<<dim3((n_k + 64 * wgs - 1) / (64 * wgs), heads, b),
-                                              128 * wgs, B::dkv_smem(), stream>>>(
-      q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dk), strides_at(st, 6),
-      static_cast<T*>(dv), strides_at(st, 7), heads, n_q, n_k, scale);
-  return cudaGetLastError();
+  if constexpr (B::kSplitDkv) {  // dv, then dk: each pass recomputes p
+    err = dkv_t<T, DK, DV, 1>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
+                              n_k, scale, stream);
+    if (err != cudaSuccess) return err;
+    return dkv_t<T, DK, DV, 2>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
+                               n_k, scale, stream);
+  } else {
+    return dkv_t<T, DK, DV, 3>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
+                               n_k, scale, stream);
+  }
 }
 
-// The (dk, dv) instances: one head width for q, k and v, and ScalableViT's
-// SSA (q/k 40, v 32).
-#define VIT_FLASH_WIDTHS(X) X(32, 32) X(40, 32) X(64, 64) X(96, 96) X(128, 128)
+// The (dk, dv) instances: one head width for q, k and v, ScalableViT's SSA
+// (q/k 40, v 32), and T2T-ViT's first token transformer (147 padded to 192).
+#define VIT_FLASH_WIDTHS(X) X(32, 32) X(40, 32) X(64, 64) X(96, 96) X(128, 128) X(192, 192)
 
 // Shapes the kernels take: a grid of (tiles, heads, b) and head widths with an
 // instance.

@@ -81,3 +81,73 @@ extern "C" int vit_fused_mlp_bwd(const void* dy, const void* x, const void* h,
   return launch_dgrad_ln(dh, w1, x, gamma, dy, dx, dxn, stats, part_d, sums_d, rows, d, hidden,
                          eps, dtype, stream);
 }
+
+// The ragged route: the same block at a width d that is not a multiple of 8
+// (T2T-ViT's token transformers, d = hidden = 147 at 3136 tokens and 1323 at
+// 784), which no 16-byte row of the GEMMs' TMA maps and mma.sync tiles takes.
+// The scratch rows lie at the padded strides dp and hp (each width rounded up
+// to 8: 152, 1328) and the weights come as zero-padded copies at those widths
+// (gamma_p, beta_p, b2_p (dp,), w1_p (hp, dp), b1_p (hp,), w2_p (dp, hp); the
+// wrapper pads them once a call, and the backward reuses them); x, y, dy and
+// dx keep the module's stride d.  Every pad column of xn, h, g and the f32 dxn
+// is then exactly 0 (zero weights, zero bias, gelu(0) = 0), so the GEMMs at the
+// padded widths compute the block's function; the LayerNorm's statistics and
+// its backward's means are taken over the true width d
+// (launch_layernorm_ragged, launch_ln_bwd_ragged).  fc2's residual reads xp,
+// the copy of x at stride dp that the LayerNorm pass writes beside xn, y comes
+// through yp (rows, dp), copied to stride d, and the backward pads dy into dyp
+// for the dy·W2 dgrad's A operand: three copies of a (rows, d) tensor a call
+// that the aligned route does not make.  Both GEMMs and both dgrads run as the
+// aligned route runs them (launch_forward_gemm, launch_dgrad: 152 on
+// linear.cu, 1328 on gemm_wgmma); kEpiLnBwd needs d % 256 == 0, so the
+// LayerNorm backward is layernorm.cu's passes over an f32 dxn, as at CvT's
+// widths.  (A hidden width alone off 8 needs none of this: vit_fused_mlp_fwd
+// and _bwd take zero-padded weights at hp as they are.)
+// Forward: xn (rows, dp), g and, training, h (rows, hp); xp and yp (rows, dp)
+// scratch.
+extern "C" int vit_fused_mlp_fwd_ragged(const void* x, const void* gamma_p, const void* beta_p,
+                                        const void* w1_p, const void* b1_p, const void* w2_p,
+                                        const void* b2_p, void* y, void* xn, void* xp, void* g,
+                                        void* h, void* yp, int rows, int d, int dp, int hp,
+                                        float eps, int dtype, cudaStream_t stream) {
+  using namespace vit;
+  if (rows <= 0 || d % 8 == 0 || dp != (d + 7) / 8 * 8 || hp % 8 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      launch_layernorm_ragged(x, gamma_p, beta_p, xn, xp, rows, d, dp, eps, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_forward_gemm(xn, w1_p, b1_p, nullptr, g, h, rows, hp, dp,
+                            h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_forward_gemm(g, w2_p, b2_p, xp, yp, nullptr, rows, dp, hp, kEpiBiasResidual, dtype,
+                            stream);
+  if (err != cudaSuccess) return err;
+  return launch_copy_rows(yp, dp, y, d, rows, d, stream);
+}
+
+// Backward of the ragged route, from the forward's h (rows, hp) and the padded
+// weights: dx (rows, d); dh and gact (rows, hp); sums_h (hp,) = db1 and sums_d
+// (3·d,) = [dγ | dβ | db2] in f32 over the true width.  Scratch: part_h and
+// part_d as vit_fused_mlp_bwd's, dxn (rows, dp) and stats (rows, 2) f32, dyp
+// (rows, dp).
+extern "C" int vit_fused_mlp_bwd_ragged(const void* dy, const void* x, const void* h,
+                                        const void* gamma_p, const void* w1_p, const void* w2_p,
+                                        void* dx, void* dh, void* gact, float* sums_h,
+                                        float* sums_d, float* dxn, float* stats, float* part_h,
+                                        float* part_d, void* dyp, int rows, int d, int dp,
+                                        int hp, float eps, int dtype, cudaStream_t stream) {
+  using namespace vit;
+  if (rows <= 0 || d % 8 == 0 || dp != (d + 7) / 8 * 8 || hp % 8 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_copy_rows(dy, d, dyp, dp, rows, d, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_dgrad(dyp, w2_p, h, dh, gact, part_h, rows, hp, dp, kEpiDGelu, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_colsum(part_h, linear_partial_rows(rows), hp, sums_h, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_dgrad(dh, w1_p, nullptr, dxn, nullptr, nullptr, rows, dp, hp, kEpiStoreF32, dtype,
+                     stream);
+  if (err != cudaSuccess) return err;
+  return launch_ln_bwd_ragged(x, dxn, gamma_p, dy, dx, stats, part_d, sums_d, rows, d, dp, eps,
+                              dtype, stream);
+}

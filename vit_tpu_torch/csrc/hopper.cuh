@@ -19,7 +19,7 @@
 //     descriptors, fences and commit/wait groups around it.
 //
 // Shared tiles are laid out as TMA writes them with the 64- or 128-byte
-// swizzle: a tile of R rows and W (32, 64 or 128) padded columns is W / C
+// swizzle: a tile of R rows and W (32, 64, 128 or 192) padded columns is W / C
 // column chunks of C = min(W, 64) elements, each R rows of C·2 bytes (the
 // swizzle span), 1024-byte aligned.  A head width between those is padded by
 // the tensor map: its box is the chunk, its extent the true width, and the
@@ -193,15 +193,16 @@ __host__ __device__ constexpr int dtype_of<__half>() {
   return kF16;
 }
 
-// The padded shared width of a head width: 32, 64 or 128 columns.
+// The padded shared width of a head width: 32, 64, 128 or 192 columns.
 __host__ __device__ constexpr int swizzled_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 192;
 }
 
 // A tile of R rows and W padded columns as TMA writes it (see the top of the file).
 template <int R, int W>
 struct Tile {
-  static_assert(W == 32 || W == 64 || W == 128, "a swizzled tile is 32, 64 or 128 wide");
+  static_assert(W == 32 || W == 64 || W == 128 || W == 192,
+                "a swizzled tile is 32, 64, 128 or 192 wide");
   static_assert(R % 8 == 0, "rows come in groups of 8");
   static constexpr int kChunk = W < 64 ? W : 64;  // columns of a chunk (the TMA box)
   static constexpr int kRowBytes = 2 * kChunk;    // the swizzle span
@@ -282,7 +283,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[C][4]) {
 //   ss_tt (N 32 and 64): A and B both MN-major (both transpose bits), from
 //       shared memory: Aᵀ·B of two tiles that share their rows (K).
 //   rs: A from registers (the mma.sync m16n8k16 A fragment of the warp's 16
-//       rows), B from shared memory MN-major (the transpose bit).
+//       rows), B from shared memory MN-major (the transpose bit); at N 192 the
+//       only form (the flash kernels' P·V, dq, dk and dv at a head width of
+//       192: B three 64-column chunks, R·128 bytes apart).
 //   rs_k (N 64 and 128): A from registers, B from shared memory K-major.
 template <int N, typename T>
 struct Wgmma;
@@ -663,6 +666,40 @@ struct Wgmma;
     } \
   };
 
+#define VIT_WGMMA_192(TY, PTX) \
+  template <> struct Wgmma<192, TY> { \
+    static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4], \
+                                              uint64_t b) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n192k16.f32." PTX "." PTX " {" \
+                   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+                   "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+                   "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+                   "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+                   "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+                   "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+                   "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, " \
+                   "%100, p, 1, 1, 1;\n}\n" \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+                     "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+                     "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+                     "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+                     "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+                     "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+                     "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+                     "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+                     "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+                     "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+                     "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+                     "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+                     "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
+                     "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+                     "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+                     "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]) \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)); \
+    } \
+  };
+
 VIT_WGMMA_32(__nv_bfloat16, "bf16")
 VIT_WGMMA_64(__nv_bfloat16, "bf16")
 VIT_WGMMA_80(__nv_bfloat16, "bf16")
@@ -675,6 +712,8 @@ VIT_WGMMA_80(__half, "f16")
 VIT_WGMMA_128(__half, "f16")
 VIT_WGMMA_144(__half, "f16")
 VIT_WGMMA_208(__half, "f16")
+VIT_WGMMA_192(__nv_bfloat16, "bf16")
+VIT_WGMMA_192(__half, "f16")
 VIT_WGMMA_256(__nv_bfloat16, "bf16")
 VIT_WGMMA_256(__half, "f16")
 

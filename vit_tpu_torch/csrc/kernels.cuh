@@ -168,6 +168,24 @@ cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, co
                           float eps, int dtype, cudaStream_t stream);
 int ln_bwd_partial_rows(int rows);  // the wrappers size `partial` by vit_ln_bwd_partial_rows
 
+// The ragged route of the fused MLP (layernorm.cu), at a width d that is not
+// a multiple of 8: x (rows, d) rows d apart -> xn (rows, ld) and the copy xp
+// (rows, ld) of x, their columns past d zero (ld % 8 == 0, ld >= d);
+// statistics over the true width d.
+cudaError_t launch_layernorm_ragged(const void* x, const void* gamma, const void* beta,
+                                    void* xn, void* xp, int rows, int d, int ld, float eps,
+                                    int dtype, cudaStream_t stream);
+// launch_ln_bwd at a ragged width, with the residual dy: x, dy and dx (rows,
+// d) rows d apart, dxn (rows, ld) f32, the means over the true width d.
+cudaError_t launch_ln_bwd_ragged(const void* x, const float* dxn, const void* gamma,
+                                 const void* dy, void* dx, float* stats, float* partial,
+                                 float* sums, int rows, int d, int ld, float eps, int dtype,
+                                 cudaStream_t stream);
+// dst (rows, ldd) = the first `cols` columns of the 16-bit src (rows, lds),
+// zeros past them.
+cudaError_t launch_copy_rows(const void* src, int lds, void* dst, int ldd, int rows, int cols,
+                             cudaStream_t stream);
+
 // out (m,) = Σ_p partial[p, :] over `parts` rows of f32 partial sums, in order.
 cudaError_t launch_colsum(const float* partial, int parts, int m, float* out,
                           cudaStream_t stream);
@@ -291,7 +309,7 @@ int mha_dbias_parts(int b, int n, int heads, int hb);  // the wrappers use vit_a
 // Flash attention over (b, heads, n, d) operands read through host arrays of
 // (batch, head, row) element strides (flash_attention.cu): q and k of width
 // dk, v of width dv, (dk, dv) ∈ {(32, 32), (40, 32), (64, 64), (96, 96),
-// (128, 128)}.  The forward writes out (width dv) and lse (b, heads, n_q) f32
+// (128, 128), (192, 192)}.  The forward writes out (width dv) and lse (b, heads, n_q) f32
 // through the strides of q, k, v, out (12 values); the backward writes dq, dk,
 // dv from q, k, v, out, lse and dout, with dsum (b, heads, n_q) f32 scratch,
 // through the strides of q, k, v, out, dout, dq, dk, dv (24 values).

@@ -19,6 +19,15 @@
 // grid; blocks on the H100 run in no order, and float atomics would make the
 // bits differ from run to run.  Memory-bound: at B/16 the passes move about
 // 0.2 GB (x, dy, the f32 dxn and dx), some 60 µs at 3.35 TB/s.
+//
+// Ragged widths (fused_mlp.cu's route at a d that is not a multiple of 8:
+// T2T-ViT's token transformers, 147 and 1323): x, dy and dx lie at the
+// module's row stride d, which no 16-byte load takes (a 147-wide bf16 row is
+// 294 bytes), and xn, the copy xp of x and the f32 dxn at the GEMMs' stride ld
+// (d rounded up to 8), their columns past d zero.  One warp per row reads two
+// bytes a lane; the statistics and both means are over the true width d, as
+// vit_tpu's _fwd_kernel normalises over its block's d (fused_mlp.py:147-173):
+// zeros in the pad would add mean² a column to the two-pass variance.
 #include "kernels.cuh"
 
 namespace vit {
@@ -151,12 +160,13 @@ __global__ void __launch_bounds__(256)
 }
 
 // partial[chunk] = [Σ dxn·xhat | Σ dxn | Σ dy] over the chunk's rows, one
-// thread per column; without dy the chunk's row is [Σ dxn·xhat | Σ dxn].
+// thread per column; without dy the chunk's row is [Σ dxn·xhat | Σ dxn].  x
+// and dy rows lie ldx apart, dxn's ldn (both d but at ragged widths).
 template <typename T>
 __global__ void __launch_bounds__(kColThreads)
     ln_bwd_cols_kernel(const T* __restrict__ x, const float* __restrict__ dxn,
                        const T* __restrict__ dy, const float2* __restrict__ stats,
-                       float* __restrict__ partial, int rows, int d) {
+                       float* __restrict__ partial, int rows, int d, int ldx, int ldn) {
   __shared__ float2 st[kColChunk];
   const int r0 = blockIdx.y * kColChunk;
   const int nr = min(kColChunk, rows - r0);
@@ -166,8 +176,8 @@ __global__ void __launch_bounds__(kColThreads)
   if (c >= d) return;
   float sg = 0.f, sb = 0.f, sy = 0.f;
   for (int i = 0; i < nr; ++i) {
-    const size_t off = (size_t)(r0 + i) * d + c;
-    const float g = dxn[off];
+    const size_t off = (size_t)(r0 + i) * ldx + c;
+    const float g = dxn[(size_t)(r0 + i) * ldn + c];
     sg += g * ((Num<T>::to_f(x[off]) - st[i].x) * st[i].y);
     sb += g;
     if (dy) sy += Num<T>::to_f(dy[off]);
@@ -176,6 +186,92 @@ __global__ void __launch_bounds__(kColThreads)
   prow[c] = sg;
   prow[d + c] = sb;
   if (dy) prow[2 * d + c] = sy;
+}
+
+// f32 mean and rstd of a row of any width d, read two bytes a lane (the
+// ragged route); every lane gets them.
+template <typename T>
+__device__ __forceinline__ void ragged_row_stats(const T* xr, int d, float eps, int lane,
+                                                 float& mean, float& rstd) {
+  float sum = 0.f;
+  for (int c = lane; c < d; c += 32) sum += Num<T>::to_f(xr[c]);
+  mean = warp_sum(sum) / d;
+  float sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = Num<T>::to_f(xr[c]) - mean;
+    sq += v * v;
+  }
+  rstd = rsqrtf(warp_sum(sq) / d + eps);
+}
+
+// xn (rows, ld) = T((x - mean)·rstd·gamma + beta) over x's first d columns
+// (rows d apart) and 0 past them; xp (rows, ld) x with the same zero pad (the
+// residual that fc2's epilogue reads at stride ld).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    layernorm_ragged_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                            const T* __restrict__ beta, T* __restrict__ xn, T* __restrict__ xp,
+                            int rows, int d, int ld, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsPerBlock + warp;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * d;
+  float mean, rstd;
+  ragged_row_stats(xr, d, eps, lane, mean, rstd);
+  T* outr = xn + (size_t)row * ld;
+  T* copyr = xp + (size_t)row * ld;
+  for (int c = lane; c < ld; c += 32) {
+    const bool in = c < d;
+    const T v = in ? xr[c] : Num<T>::from_f(0.f);
+    outr[c] = Num<T>::from_f(in ? (Num<T>::to_f(v) - mean) * rstd * Num<T>::to_f(gamma[c]) +
+                                      Num<T>::to_f(beta[c])
+                                : 0.f);
+    copyr[c] = v;
+  }
+}
+
+// ln_bwd_rows_kernel at a ragged width, with the residual dy: x, dy and dx
+// rows d apart, dxn's ld.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    ln_bwd_rows_ragged_kernel(const T* __restrict__ x, const float* __restrict__ dxn,
+                              const T* __restrict__ gamma, const T* __restrict__ dy,
+                              T* __restrict__ dx, float2* __restrict__ stats, int rows, int d,
+                              int ld, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsPerBlock + warp;
+  if (row >= rows) return;
+  const T* xr = x + (size_t)row * d;
+  const float* gr = dxn + (size_t)row * ld;
+  float mean, rstd;
+  ragged_row_stats(xr, d, eps, lane, mean, rstd);
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float dh = gr[c] * Num<T>::to_f(gamma[c]);
+    s1 += dh;
+    s2 += dh * (Num<T>::to_f(xr[c]) - mean) * rstd;
+  }
+  const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
+  for (int c = lane; c < d; c += 32) {
+    const float xh = (Num<T>::to_f(xr[c]) - mean) * rstd;
+    const float f = rstd * (gr[c] * Num<T>::to_f(gamma[c]) - m1 - xh * m2);
+    dx[(size_t)row * d + c] =
+        Num<T>::from_f(Num<T>::to_f(dy[(size_t)row * d + c]) + Num<T>::round(f));
+  }
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
+}
+
+// dst (rows, ldd) = the first `cols` columns of src (rows, lds), and zeros
+// past them, one thread an element of dst: 16-bit values moved as bits (the
+// ragged route's pad of dy and unpad of y).
+__global__ void __launch_bounds__(256)
+    copy_rows_kernel(const uint16_t* __restrict__ src, int lds, uint16_t* __restrict__ dst,
+                     int ldd, int cols, long long total) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / ldd;
+  const int c = (int)(i - r * ldd);
+  dst[i] = c < cols ? src[r * lds + c] : 0;
 }
 
 // partial[chunk] = Σ a over the chunk's rows, one thread per column.
@@ -234,10 +330,41 @@ cudaError_t ln_bwd_t(const void* x, const float* dxn, const void* gamma, const v
   if (err != cudaSuccess) return err;
   const int chunks = ln_bwd_partial_rows(rows);
   dim3 grid((d + kColThreads - 1) / kColThreads, chunks);
-  ln_bwd_cols_kernel<T><<<grid, kColThreads, 0, stream>>>(xt, dxn, dyt, st, partial, rows, d);
+  ln_bwd_cols_kernel<T><<<grid, kColThreads, 0, stream>>>(xt, dxn, dyt, st, partial, rows, d, d,
+                                                          d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_colsum(partial, chunks, (dy ? 3 : 2) * d, sums, stream);
+}
+
+template <typename T>
+cudaError_t layernorm_ragged_t(const void* x, const void* gamma, const void* beta, void* xn,
+                               void* xp, int rows, int d, int ld, float eps,
+                               cudaStream_t stream) {
+  layernorm_ragged_kernel<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(xn), static_cast<T*>(xp), rows, d, ld, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t ln_bwd_ragged_t(const void* x, const float* dxn, const void* gamma, const void* dy,
+                            void* dx, float* stats, float* partial, float* sums, int rows, int d,
+                            int ld, float eps, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  float2* st = reinterpret_cast<float2*>(stats);
+  ln_bwd_rows_ragged_kernel<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, 256, 0, stream>>>(
+      xt, dxn, static_cast<const T*>(gamma), dyt, static_cast<T*>(dx), st, rows, d, ld, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chunks = ln_bwd_partial_rows(rows);
+  dim3 grid((d + kColThreads - 1) / kColThreads, chunks);
+  ln_bwd_cols_kernel<T><<<grid, kColThreads, 0, stream>>>(xt, dxn, dyt, st, partial, rows, d, d,
+                                                          ld);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_colsum(partial, chunks, 3 * d, sums, stream);
 }
 
 }  // namespace
@@ -265,6 +392,44 @@ cudaError_t launch_ln_bwd(const void* x, const float* dxn, const void* gamma, co
     err = ln_bwd_t<__half>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps, stream);
   if (err == cudaSuccess) count_launch(kCountLnPasses);
   return err;
+}
+
+cudaError_t launch_layernorm_ragged(const void* x, const void* gamma, const void* beta,
+                                    void* xn, void* xp, int rows, int d, int ld, float eps,
+                                    int dtype, cudaStream_t stream) {
+  if (d <= 0 || ld < d || ld % 8 != 0 || rows < 0 || !xp) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  if (dtype == kBF16)
+    return layernorm_ragged_t<__nv_bfloat16>(x, gamma, beta, xn, xp, rows, d, ld, eps, stream);
+  if (dtype == kF16)
+    return layernorm_ragged_t<__half>(x, gamma, beta, xn, xp, rows, d, ld, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_ln_bwd_ragged(const void* x, const float* dxn, const void* gamma,
+                                 const void* dy, void* dx, float* stats, float* partial,
+                                 float* sums, int rows, int d, int ld, float eps, int dtype,
+                                 cudaStream_t stream) {
+  if (d <= 0 || ld < d || rows <= 0 || !dy) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    err = ln_bwd_ragged_t<__nv_bfloat16>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d,
+                                         ld, eps, stream);
+  else if (dtype == kF16)
+    err = ln_bwd_ragged_t<__half>(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, ld, eps,
+                                  stream);
+  if (err == cudaSuccess) count_launch(kCountLnPasses);
+  return err;
+}
+
+cudaError_t launch_copy_rows(const void* src, int lds, void* dst, int ldd, int rows, int cols,
+                             cudaStream_t stream) {
+  if (rows < 0 || cols < 0 || cols > lds || cols > ldd) return cudaErrorInvalidValue;
+  const long long total = (long long)rows * ldd;
+  if (total == 0) return cudaSuccess;
+  copy_rows_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const uint16_t*>(src), lds, static_cast<uint16_t*>(dst), ldd, cols, total);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_column_sums(const void* a, float* partial, float* out, int rows, int d,

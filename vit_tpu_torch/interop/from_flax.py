@@ -2,8 +2,9 @@
 direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT``,
 ``vit_tpu.models.scalable_vit.ScalableViT``,
-``vit_tpu.models.efficient.ViT``, the objectives (``MAE``, ``SimMIM``,
-``MPP``, ``DistillWrapper``) and the ``Distillable*`` students.
+``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``, the
+objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
+``Distillable*`` students (``DistillableT2TViT`` included).
 
 The tree holds NumPy arrays (``jax.tree.map(np.asarray, variables)``), so no
 JAX is imported here.  Leaves:
@@ -22,8 +23,10 @@ JAX is imported here.  Leaves:
 Per-layer modules ``{attn_norm,attn,mlp_norm,mlp,mlp_fc1,mlp_fc2}_{i}`` map to
 ``layers.{i}.…``: under ``transformer`` for the ViT (``transformer/attn_0`` →
 ``transformer.layers.0.attn``), under each stage's ``s{1,2,3}_transformer``
-for CvT, under MAE's ``decoder``, and at the top for the small-dataset ViT
-(``attn_0`` → ``layers.0.attn``).  The objectives' trees nest their models' under ``encoder`` (MAE, SimMIM),
+for CvT, under each ``t2t_transformer_{i}`` for T2T-ViT's token transformers
+(``t2t_transformer_0/attn_0`` → ``t2t_transformer_0.layers.0.attn``; their
+attention has no ``to_out``), under MAE's ``decoder``, and at the top for the
+small-dataset ViT (``attn_0`` → ``layers.0.attn``).  The objectives' trees nest their models' under ``encoder`` (MAE, SimMIM),
 ``transformer`` (MPP), ``teacher`` and ``student`` (``DistillWrapper``):
 ``encoder/transformer/attn_0`` → ``encoder.transformer.layers.0.attn``.
 ScalableViT's ``{ssa,ff1,iwsa,ff2}_{i}`` and their
@@ -51,9 +54,9 @@ _LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp|mlp_fc1|mlp_fc2)_(\d+)$")
 # ScalableViT's per-layer modules, under a stage_{s}.
 _STAGE_LAYER = re.compile(r"^(ssa_norm|ssa|ff1_norm|ff1|iwsa_norm|iwsa|ff2_norm|ff2)_(\d+)$")
 _STAGE = re.compile(r"^stage_\d+$")
-# Modules that hold per-layer modules: the encoders and MAE's decoder (the
-# small-dataset ViT's sit at the top).
-_STACK = re.compile(r"^(transformer|decoder|\w+_transformer)$")
+# Modules that hold per-layer modules: the encoders, T2T-ViT's token
+# transformers and MAE's decoder (the small-dataset ViT's sit at the top).
+_STACK = re.compile(r"^(transformer|decoder|\w+_transformer|t2t_transformer_\d+)$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 

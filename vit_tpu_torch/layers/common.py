@@ -24,7 +24,10 @@ the plain modules there: widths the kernels do not take raise ``ValueError``.
 CPU tensors and f32 activations run the plain modules, as do active dropout
 and an attention without an output projection (``heads == 1`` and
 ``dim_head == dim``), which is not the block the kernel computes, as in
-``vit_tpu``.  ``"never"`` always runs the plain modules.
+``vit_tpu``: that attention takes ``scaled_dot_product_attention``'s tiers
+(the flash kernels at 1024 tokens and more: T2T-ViT's first token
+transformer).  ``"never"`` always runs the plain modules, the attention's
+plain path included.
 
 ``Transformer(fused_attention="hybrid")`` opts into ``vit_tpu``'s
 short-sequence tier (``vit_tpu/layers/common.py:304-314``, ``:507-548``):
@@ -266,11 +269,13 @@ class Attention(nn.Module):
     def dropout_active(self) -> bool:
         return self.project_out and self.training and self.to_out[1].p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_flash: str = "auto") -> torch.Tensor:
+        """``use_flash`` as :func:`scaled_dot_product_attention` takes it."""
         b, n, _ = x.shape
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
-        out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5)
+        out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
+                                           use_flash=use_flash)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         if not self.project_out:
             return out
@@ -354,7 +359,7 @@ def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm, mlp: nn.Mod
     (``vit_tpu/layers/common.py:400-452``); else the plain modules.
     ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
     sublane reasons and do not carry over: every 16-bit CUDA call goes to the
-    kernel, which raises on widths that are not multiples of 8."""
+    kernel."""
     if not fused_mlp_eligible(x, mlp, mode):
         return x + mlp(norm(x))
     b, h, w, c = x.shape
@@ -421,6 +426,7 @@ class Transformer(nn.Module):
             if fused_attention_eligible(x, layer["attn"], self.fused_attention):
                 x = apply_fused_attention_block(layer["attn_norm"], layer["attn"], x)
             else:
-                x = x + layer["attn"](layer["attn_norm"](x))
+                x = x + layer["attn"](layer["attn_norm"](x), use_flash="never"
+                                      if self.fused_attention == "never" else "auto")
             x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp)
         return x

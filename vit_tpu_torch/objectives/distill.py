@@ -1,6 +1,6 @@
 """DeiT-style knowledge distillation (port of ``vit_tpu/objectives/distill.py``).
 
-``Distillable{ViT,EfficientViT}`` append a learnable distillation
+``Distillable{ViT,T2TViT,EfficientViT}`` append a learnable distillation
 token after the pos-embedded sequence (dropout after the concat, as the
 reference's mixin, distill.py:26-30), and return ``(logits,
 distill_tokens)`` when one is passed.
@@ -25,6 +25,7 @@ from torch import nn
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import LayerNorm, glorot_linear_, linear
 from vit_tpu_torch.models.efficient import ViT as EfficientViT
+from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.vit import ViT
 
 
@@ -53,6 +54,18 @@ class DistillableViT(ViT):
         return _out(linear(self.head, self.head_norm(x)), distill_tokens)
 
 
+class DistillableT2TViT(T2TViT):
+    """Reference distill.py:61-72 (``vit_tpu/objectives/distill.py:76-147``):
+    the distillation token after the pos-embedded sequence, before the
+    dropout, as :class:`DistillableViT`."""
+
+    def forward(self, img: torch.Tensor, distill_token: torch.Tensor | None = None):
+        x = _with_distill_token(self.tokens(img), distill_token)
+        x, distill_tokens = _split(self.transformer(self.emb_dropout(x)),
+                                   distill_token is not None)
+        return _out(self.pool_head(x), distill_tokens)
+
+
 class DistillableEfficientViT(EfficientViT):
     """Reference distill.py:74-85."""
 
@@ -77,7 +90,7 @@ class DistillWrapper(nn.Module):
                  compute_dtype: torch.dtype | None = None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if not isinstance(student, (DistillableViT, DistillableEfficientViT)):
+        if not isinstance(student, (DistillableViT, DistillableT2TViT, DistillableEfficientViT)):
             raise TypeError("student must be a vision transformer")
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.teacher, self.student = teacher, student

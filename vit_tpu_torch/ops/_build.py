@@ -76,6 +76,22 @@ SIGNATURES = {
         + [_I, _I, _I, _F, _I, _P],
         ctypes.c_int,
     ),
+    "vit_fused_mlp_fwd_ragged": (
+        # x, gamma_p, beta_p, w1_p, b1_p, w2_p, b2_p, y, xn, xp, g, h (null when
+        # serving), yp,
+        [_P] * 13
+        # rows, d, dp, hp, eps, dtype, stream
+        + [_I, _I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_mlp_bwd_ragged": (
+        # dy, x, h, gamma_p, w1_p, w2_p, dx, dh, gact, sums_h, sums_d, dxn, stats,
+        # part_h, part_d, dyp,
+        [_P] * 16
+        # rows, d, dp, hp, eps, dtype, stream
+        + [_I, _I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
     "vit_flash_attention_fwd": (
         # q, k, v, out, lse, strides (q, k, v, out: batch, head, row),
         [_P] * 5 + [_LL]

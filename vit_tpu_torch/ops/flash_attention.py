@@ -32,7 +32,10 @@ tensors they return are views of ``(b, n, h, d)`` memory, which a ``(b, n,
 h·d)`` consumer reads without a copy.  q/k and v may have different head
 widths where a kernel instance exists (``SUPPORTED_WIDTHS``: ScalableViT's
 SSA has q/k 40 and v 32 wide; a width of 40 is zero-filled to 64 in shared
-memory by the tensor maps, never in device memory).
+memory by the tensor maps, never in device memory).  At (192, 192) the
+backward's dk and dv are two launches of the dk/dv kernel, each recomputing
+the softmax (their accumulators together would not fit a thread's
+registers).
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ from torch.autograd.function import once_differentiable
 from vit_tpu_torch.ops import _build
 from vit_tpu_torch.ops._checks import KERNEL_DTYPES, launch_stream
 
-# (dk, dv) pairs with a kernel instance (csrc/flash_attention.cu).
-SUPPORTED_WIDTHS = ((32, 32), (40, 32), (64, 64), (96, 96), (128, 128))
+# (dk, dv) pairs with a kernel instance (csrc/flash_attention.cu); (192, 192)
+# takes T2T-ViT's first token transformer, one head of 147 padded to 192 by
+# ops/attention.py::_flash as vit_tpu pads it.
+SUPPORTED_WIDTHS = ((32, 32), (40, 32), (64, 64), (96, 96), (128, 128), (192, 192))
 # The plain versions take the (batch, head) pairs in groups whose f32
 # (n_q, n_k) score maps hold at most this many elements (1 GiB), so that they
 # run at the shapes the kernels serve.

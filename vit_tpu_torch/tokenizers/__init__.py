@@ -4,7 +4,7 @@
 - linear patchify: :func:`patchify` / :func:`unpatchify` (+ the ViT's
   ``patch_embedding`` GEMM);
 - unfold tokenizer: :func:`extract_patches` (``tf.image.extract_patches``
-  semantics; T2T-ViT's, whose model comes later);
+  semantics; T2T-ViT's, :class:`vit_tpu_torch.models.t2t.T2TViT`);
 - shifted-patch tokenization: :class:`SPT` (the small-dataset ViT's).
 
 ``vit_tpu``'s ``CrossEmbedLayer`` (CrossFormer), ``PatchEmbedding``
