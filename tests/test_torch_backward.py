@@ -7,7 +7,9 @@ runs ``jax.vjp`` of ``vit_tpu.ops.fused_mlp`` / ``fused_attention_block`` in
 the Pallas interpreter with exact-erf GELU, which runs their ``_bwd_kernel``,
 as ``tests/unit/test_fused_mlp.py`` and ``test_fused_attention_block.py`` do.
 Same f32 inputs and cotangent from ``numpy.random.default_rng``; each
-gradient within 1e-5 of max|JAX gradient|, the JAX kernels' own bar.
+gradient within 1e-5 of max|JAX gradient|, the JAX kernels' own bar.  The
+block at Twins-SVT's window (49 tokens, 8 heads of 64 in a 64-wide model)
+takes the ChannelLayerNorm's eps 1e-5.
 """
 
 import numpy as np
@@ -75,7 +77,11 @@ ATTN_SHAPES = [
     (3, 67, 96, 3, 32),   # odd n
     (2, 145, 64, 2, 32),  # n >= 128, the window the JAX auto dispatch uses
     (2, 17, 64, 4, 24),   # dim_head != d / heads
+    (3, 49, 64, 8, 64),   # Twins-SVT's 7 x 7 window at stage 1: inner 512 above d
 ]
+# The LayerNorm's eps by shape: 1e-3 (the token LayerNorm), 1e-5 where the
+# block stands for a ChannelLayerNorm (Twins-SVT's local attention).
+EPS = {(3, 49, 64, 8, 64): 1e-5}
 
 
 @pytest.mark.parametrize("shape,hidden", MLP_SHAPES)
@@ -118,12 +124,13 @@ def test_fused_mlp_backward_outputs_match_jax_kernel(shape, hidden):
 @pytest.mark.parametrize("b,n,d,heads,dh", ATTN_SHAPES)
 def test_fused_attention_block_vjp_matches_jax_kernel(b, n, d, heads, dh):
     args, dy = _attn_args(b, n, d, heads, dh)
-    _, vjp = jax.vjp(lambda *a: jax_attn.fused_attention_block(*a, heads, dh, None, 1e-3, True),
+    eps = EPS.get((b, n, d, heads, dh), 1e-3)
+    _, vjp = jax.vjp(lambda *a: jax_attn.fused_attention_block(*a, heads, dh, None, eps, True),
                      *map(jnp.asarray, args))
     want = vjp(jnp.asarray(dy))
     inputs = [t.requires_grad_() for t in _linear_layout(args, kernels=(3, 4))]
     counts = (fused_attention_block.launches, fused_attention_block_backward.launches)
-    y = fused_attention_block(*inputs, heads, dh)
+    y = fused_attention_block(*inputs, heads, dh, eps=eps)
     got = torch.autograd.grad(y, inputs, torch.from_numpy(dy))
     assert (fused_attention_block.launches,
             fused_attention_block_backward.launches) == counts  # CPU: plain versions
@@ -169,16 +176,17 @@ def test_short_route_backward_matches_jax_kernel(b, n, d, heads, dh):
     args, dy = _attn_args(b, n, d, heads, dh, seed=2)
     x, gamma, beta, wqkv, wo, bo = map(jnp.asarray, args)
     scale = dh ** -0.5
-    _, _, qkv, oattn = jax_attn._forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale, 1e-3,
+    eps = EPS.get((b, n, d, heads, dh), 1e-3)
+    _, _, qkv, oattn = jax_attn._forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale, eps,
                                          True, save_residuals=True)
     want = jax_attn._backward(jnp.asarray(dy), x, qkv, gamma, wqkv, wo, heads, dh, scale,
-                              1e-3, True)[:5]
+                              eps, True)[:5]
     t = torch.from_numpy
     qkv, oattn = t(np.array(qkv)), t(np.array(oattn))
     lse = attention_lse_reference(qkv, heads, dh, scale)
     got = fused_attention_block_short_backward_reference(
         t(dy), t(args[0]), qkv, oattn, lse, t(args[1]), t(args[3].T.copy()),
-        t(args[4].T.copy()), heads, dh, scale)
+        t(args[4].T.copy()), heads, dh, scale, eps)
     for name, g, w in zip(["dx", "dqkv", "dgamma", "dbeta", "dbo"], got, want):
         assert g.shape == w.shape, name
         assert _rel(g.numpy(), w) <= SHORT_ROUTE_TOL, f"{name}: {_rel(g.numpy(), w)}"

@@ -56,8 +56,12 @@ def test_extract_patches_refuses_unknown_padding():
 
 
 def test_tokenizers_facade():
+    from vit_tpu_torch.models import twins_svt
+
     assert tokenizers.extract_patches is extract_patches
-    assert set(tokenizers.__all__) == {"patchify", "unpatchify", "extract_patches", "SPT"}
+    assert tokenizers.PatchEmbedding is twins_svt.PatchEmbedding
+    assert set(tokenizers.__all__) == {"patchify", "unpatchify", "extract_patches", "SPT",
+                                       "PatchEmbedding"}
 
 
 @pytest.mark.parametrize("pool", ["cls", "mean"])

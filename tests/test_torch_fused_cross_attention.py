@@ -5,8 +5,10 @@ runs them).
 
 The forward and the VJP of every input (dx, dxn, dWq, dk, dv, dWo, dbo) at
 that file's shapes (3 images of 64 tokens against 9 keys, c 48, 2 heads, dh_k
-16 / dh_v 24; 5 images of 24 tokens against 4 keys) and at ScalableViT's SSA
-widths (dh_k 40 / dh_v 32), within 1e-5 of max(1, max|ref|): in f32 both
+16 / dh_v 24; 5 images of 24 tokens against 4 keys), at ScalableViT's SSA
+widths (dh_k 40 / dh_v 32) and at Twins-SVT's global attention (8 heads of
+64, c 64 and 128, 49 tokens over 16, 4 and 1 keys), within 1e-5 of max(1,
+max|ref|): in f32 both
 sides are exact attention and its gradient, and differ by summation order.
 The plain version of the one-kernel forward (``cross_fwd``: q, oattn and lse
 from its own rounding points) against ``_forward``'s y, q and oattn at
@@ -38,6 +40,11 @@ CASES = [
     (3, 64, 9, 48, 2, 16, 24),   # tests/unit/test_fused_cross_attention.py::_args
     (5, 24, 4, 48, 2, 16, 24),   # its batch-padding case
     (2, 64, 16, 64, 2, 40, 32),  # ScalableViT's SSA widths, stage 1 scaled down
+    # Twins-SVT's global attention (8 heads of 64) at a ragged 49 tokens over
+    # the key counts of its stages 2-4: 16, 4 and 1
+    (2, 49, 16, 64, 8, 64, 64),
+    (2, 49, 4, 128, 8, 64, 64),
+    (2, 49, 1, 128, 8, 64, 64),
 ]
 
 
@@ -209,6 +216,22 @@ def test_plain_backward_matches_jax_vjp(b, n, n_k, c, heads, dh_k, dh_v, stored_
     for name, got, want in zip(("dxn", "dwq", "dk", "dv", "dbo"), (dxn, dwq, dk, dv, dbo),
                                (want_dxn, want_dwq, want_dk, want_dv, want_dbo)):
         _close(got, want, name)
+
+
+def test_one_key_gives_exactly_zero_query_gradients():
+    """Over one key (Twins-SVT's stage 4: a 7 x 7 map reduced to 1 x 1) the
+    softmax is exactly 1 whatever the logit, so ds = p·(dp - Σ p·dp) is 0
+    and dq, dk and dxn are exactly 0, as the TPU kernel, which recomputes
+    the row's softmax, gives them; dv is doattn summed over the queries."""
+    args, g = _inputs(2, 49, 1, 64, 8, 64, 64, seed=11)
+    x, xn, wq, k, v, wo, bo = _to_port(args)
+    _, q, oattn, lse = fca.fused_cross_attention_forward_reference(x, xn, wq, k, v, wo, bo,
+                                                                   8, 64, 64)
+    dy = torch.from_numpy(g)
+    dxn, dq, dk, dv, _ = fca.fused_cross_attention_backward_reference(
+        dy, q, k, v, oattn, lse, wq, wo, 8, 64, 64)
+    assert not dxn.any() and not dq.any() and not dk.any()
+    _close(dv, (dy @ wo).sum(1, keepdim=True), "dv")
 
 
 def test_plain_backward_is_the_gradient_of_the_plain_forward():

@@ -899,6 +899,12 @@ def _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=0):
     (2, 130, 64, 2, 100, 64, 64),    # a 128-key tile, (64, 64) heads
     (2, 64, 512, 16, 64, 40, 32),    # (40, 32) at c 512: cross_fwd, then the y GEMM
     (2, 200, 256, 8, 49, 40, 32),    # stage 3's widths, ragged n and 49 keys
+    # Twins-SVT's global attention at its four stages (8 heads of 64: the
+    # backward split past heads·dh_k 256 at every c), 64, 16, 4 and 1 keys
+    (2, 3136, 64, 8, 64, 64, 64),
+    (2, 784, 128, 8, 16, 64, 64),
+    (2, 196, 256, 8, 4, 64, 64),
+    (2, 49, 512, 8, 1, 64, 64),
 ])
 def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh_k, dh_v):
     """Serving forward (one cross_fwd launch keeping no residual below c 256,
@@ -906,8 +912,9 @@ def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh
     past n_k 128), training forward (y, q, oattn, lse) and backward (dxn, dq,
     dk, dv, dbo; fed the training forward's residuals: one cross_bwd kernel
     up to c 128, cross_bwd between two GEMMs from 129, the four steps past
-    n_k 128, each route asserted and counted) against their plain versions;
-    each twice, bit for bit."""
+    n_k 128, each route asserted and counted; cross_bwd keeps dxn only up
+    to heads·dh_k 256) against their plain versions; each twice, bit for
+    bit."""
     args, dy = _cross_args(cuda, b, n, c, heads, n_k, dh_k, dh_v, seed=n)
     x, xn, wq, k, v, wo, bo = args
     cfg = (heads, dh_k, dh_v)
@@ -915,7 +922,7 @@ def test_fused_cross_attention_kernels_match_plain(cuda, b, n, c, heads, n_k, dh
     route = _build.load().vit_fused_cross_attention_fused(b, n, n_k, c, heads, dh_k, dh_v)
     assert route == (0 if n_k > 128 else 1 if c < 256 else 2)
     bwd_route = fca.backward_route(b, n, n_k, c, heads, dh_k, dh_v)
-    assert bwd_route == (0 if n_k > 128 else 1 if c <= 128 else 2)
+    assert bwd_route == (0 if n_k > 128 else 1 if c <= 128 and heads * dh_k <= 256 else 2)
     with torch.inference_mode():
         before = fca.fused_cross_attention.launches
         out = fca.fused_cross_attention(*args, *cfg)
@@ -1495,3 +1502,112 @@ def test_t2t_serves_and_trains_through_its_kernels(cuda):
     loss = step((img, labels))["loss"].item()
     assert [a - b for a, b in zip(launches(), before)] == [2, 8, 4, 1, 4, 2]
     assert loss == loss and all(p.grad is None for p in wrapper.teacher.parameters())
+
+
+# Twins-SVT's local attention at its three stages, batch 8: (groups, n, c)
+# with the 7 x 7 windows folded into the batch, 8 heads of 64 (inner 512
+# above c), the ChannelLayerNorm's eps.
+TWINS_EPS = 1e-5
+
+
+@pytest.mark.parametrize("groups,c", [(512, 64), (128, 128), (32, 256)])
+def test_twins_window_block_kernels_match_plain(cuda, groups, c):
+    """The block over folded 7 x 7 windows (49 tokens: one ragged 64-key
+    tile on the short route) at eps 1e-5: the serving and the training
+    forward and the backward fed the training forward's residuals against
+    their plain versions, twice bit for bit; its LayerNorm backward on
+    layernorm.cu's passes at c 64 and 128 and as the dgrad's epilogue at
+    256."""
+    from chip_smoke import counted_launches
+
+    b, n, heads, dh = groups, 49, 8, 64
+    args = _attn_args(b, n, c, heads, dh, torch.bfloat16, cuda, seed=c)
+    x = args[0]
+    scale = dh ** -0.5
+    with torch.inference_mode():
+        out = fused_attention_block(*args, heads, dh, eps=TWINS_EPS)
+        _close(out, fused_attention_block_reference(*args, heads, dh, eps=TWINS_EPS), x)
+        assert torch.equal(out, fused_attention_block(*args, heads, dh, eps=TWINS_EPS))
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, TWINS_EPS,
+                                                    training=True)
+    check_outputs(torch, "twins window training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, TWINS_EPS),
+                  {0: x})
+    _, xn, qkv, oattn, lse = fwd
+    dy = torch.randn(b, n, c, generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda).to(torch.bfloat16)
+    x, gamma, _, wqkv, wo, _ = args
+
+    def kernel():
+        return fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                                              TWINS_EPS, oattn=oattn, lse=lse)
+
+    got = kernel()
+    check_outputs(torch, "twins window backward", got,
+                  fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
+                                                           dh, scale, TWINS_EPS), {0: dy})
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == ((1, 0) if c == 256 else (0, 1))
+
+
+def test_twins_local_fold_past_the_grid_is_cut_into_launches(cuda, monkeypatch):
+    """A fold past MAX_WINDOW_GROUPS (here lowered to 3) goes in launches of
+    at most that many groups, each on the kernel, joined to what one launch
+    gives; the op itself refuses a batch past the short route's grid."""
+    from vit_tpu_torch.layers.common import ChannelLayerNorm
+    from vit_tpu_torch.models import twins_svt
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    norm = ChannelLayerNorm(64, device=cuda)
+    attn = twins_svt.LocalAttention(64, generator=g, device=cuda)
+    x = torch.randn(2, 14, 14, 64, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        whole = twins_svt.local_attention_residual(x, norm, attn)
+        monkeypatch.setattr(twins_svt, "MAX_WINDOW_GROUPS", 3)
+        before = fused_attention_block.launches
+        cut = twins_svt.local_attention_residual(x, norm, attn)
+        assert fused_attention_block.launches == before + 3
+    assert torch.equal(cut, whole)
+    args = _attn_args(fused_attention_block_ops.SHORT_MAX_BATCH + 1, 1, 64, 1, 64,
+                      torch.bfloat16, cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="at most 65535 images"):
+        fused_attention_block(*args, 1, 64)
+
+
+def test_twins_svt_serves_and_trains_through_its_kernels(cuda):
+    """Twins-SVT at its widths (64/128/256/512, 8 heads of 64), depth 1 a
+    stage, 224 px, batch 2: a forward launches the block over the folded
+    windows at each local attention (6), the cross-attention block at each
+    global one (8: stage 4's one key included) and the fused MLP at each
+    conv-MLP (14); a train step their backwards as often, the
+    cross-attention backward split at all of them; f32 gradients, a falling
+    loss."""
+    from vit_tpu_torch import TwinsSVT
+
+    cfg = dict(num_classes=10, s3_depth=1, s4_depth=1)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    img = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    counters = (fused_attention_block, fca.fused_cross_attention, fused_mlp,
+                fused_attention_block_backward, fca.fused_cross_attention_backward,
+                fused_mlp_backward, fca.BACKWARD_ROUTES[2])
+
+    def launches():
+        return [c.launches for c in counters]
+
+    served = cast_params(TwinsSVT(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(launches(), before)] == [6, 8, 14, 0, 0, 0, 0]
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+    model = TwinsSVT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    losses = []
+    for _ in range(3):
+        before = launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(launches(), before)] == [6, 8, 14, 6, 8, 14, 8]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert losses[2] < losses[0]

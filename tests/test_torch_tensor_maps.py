@@ -169,8 +169,14 @@ def test_gemm_refuses_widths_no_map_takes_before_any_launch():
                       torch.zeros(64, 68, dtype=BF16), "store")
 
 
-@pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32),
-                                          (1, 300, 2, 128)])
+# The short route's shapes: ViT-B/32's, ViT-B/16's, ragged ones, and
+# Twins-SVT's 7 x 7 windows folded into the batch (49 tokens, 8 heads of 64:
+# a (rows, 1536) qkv over a 64-wide model).
+SHORT_SHAPES = [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32), (1, 300, 2, 128),
+                (8, 49, 8, 64)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", SHORT_SHAPES)
 def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
     """The attention block's backward on the short route: q, k and v are the
     column thirds of the packed (b, n, 3·inner) qkv (batch stride n·3·inner,
@@ -315,8 +321,7 @@ def test_biased_backward_passes_row_statistics_only_for_dbias(recording_lib, n, 
         assert out[5] is None
 
 
-@pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 197, 12, 64), (3, 67, 3, 32),
-                                          (1, 300, 2, 128)])
+@pytest.mark.parametrize("b,n,heads,dh", SHORT_SHAPES)
 def test_short_forward_passes_the_packed_projections_strides(b, n, heads, dh):
     """The attention block's forward on the short route: short_fwd reads q,
     k and v as the column thirds of the (b, n, 3·inner) qkv its wrapper
@@ -529,6 +534,8 @@ def _cross_operands(b, n, n_k, c, heads, dh_k, dh_v):
     (2, 256, 64, 256, 8, 40, 32, 2),
     (2, 64, 64, 512, 16, 32, 32, 2),
     (2, 100, 49, 72, 3, 64, 64, 1),    # ragged n and c, 7 x 7 keys, (64, 64) heads
+    (2, 3136, 64, 64, 8, 64, 64, 2),   # Twins-SVT's global attention at stages 1 and 3:
+    (2, 196, 4, 256, 8, 64, 64, 2),    # split past heads·dh_k 256, from c 64
 ])
 def test_cross_backward_operands_are_views_a_map_takes(cross_lib, b, n, n_k, c, heads, dh_k,
                                                        dh_v, route):

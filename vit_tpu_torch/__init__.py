@@ -15,7 +15,11 @@ conv-MLPs through the fused MLP kernels.  ``T2TViT`` does both with its
 token transformers on the same kernels as ``vit_tpu``'s: the first one's
 attention (one head of 147 over 3136 tokens, padded to 192) through the flash
 kernels, both token MLPs (147 and 1323 wide) through the fused MLP kernels,
-its encoder through the block kernels.  The Efficient ViT
+its encoder through the block kernels.  ``TwinsSVT`` does both with its
+local attention over 7 x 7 windows folded into the batch through the block
+kernels (49 tokens, eps 1e-5), its reduced global attention through the
+fused cross-attention kernels (8 heads of 64 over 64, 16, 4 and 1 keys),
+and its conv-MLPs through the fused MLP kernels.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -30,6 +34,7 @@ from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.cvt import CvT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
+from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
 from vit_tpu_torch.objectives.distill import (
     DistillableEfficientViT, DistillableT2TViT, DistillableViT, DistillWrapper,
@@ -38,7 +43,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CvT", "ScalableViT", "T2TViT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CvT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

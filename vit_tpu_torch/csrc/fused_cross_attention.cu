@@ -61,8 +61,9 @@
 // v_h and Wo_h columns (dh_v of them, c rows) arrive once by TMA, then per
 // block, through a ring of up to 4 stages on mbarriers, the dy block and q_h:
 //   doattn_h = T(dy·Wo_h) on wgmma (Wo_h MN-major), into shared memory only;
-//   s = q_h·k_hᵀ, p = exp(s·scale - lse) from the forward's lse (the keys fit
-//     one tile, n_k <= 128), dp = doattn_h·v_hᵀ with doattn_h as register A,
+//   s = q_h·k_hᵀ, p = softmax(s·scale) over the row from its own max and sum,
+//     as the TPU kernel recomputes it (the keys fit one tile, n_k <= 128; one
+//     key gives p = 1 exactly), dp = doattn_h·v_hᵀ with doattn_h as register A,
 //     and the TPU kernel's own dsum = Σ p·dp (:150: the whole row of p and dp
 //     is in registers), not D = rowsum(dO∘O) from a stored output, which
 //     this route never reads;
@@ -79,20 +80,23 @@
 // order and rounds dk and dv once: no atomics, the same bits every run.  The
 // rounding points are the TPU kernel's (:138-180).
 // From 129 channels (ScalableViT stages 3-4, c 256 and 512) one kernel would
-// hold c / 2 f32 of dxn a thread and a Wq of up to 160 KB beside the ring:
+// hold c / 2 f32 of dxn a thread and a Wq of up to 160 KB beside the ring,
+// and past heads·dh_k 256 (Twins-SVT's global attention, 8 heads of 64 at
+// every c from 64) dxn's dq blocks and Wq would not fit beside each other:
 // there cross_bwd runs over head groups with doattn read by TMA and no dxn
 // (route 2), between launch_dgrad's dy·Wo (n = heads·dh_v) and dq·Wq (n = c),
-// gemm_wgmma from n 256, and fixed-order column sums of dy for dbo.  Past n_k
-// 128 (ScalableViT at 384 px, no main path) the four steps of the earlier
-// design stay (route 0): linear.cu's dy·Wo, the (dh_k, dh_v) flash backward
-// (D from the stored oattn), linear.cu's dq·Wq, column sums.  The weight
-// gradients dWq = dqᵀ·xn and dWo = dyᵀ·oattn stay plain GEMMs outside, as
-// the TPU left them to XLA (:330-338).
+// gemm_wgmma from n 256 (linear.cu below), and fixed-order column sums of dy
+// for dbo.  Past n_k 128 (ScalableViT at 384 px, no main path) the four steps
+// of the earlier design stay (route 0): linear.cu's dy·Wo, the (dh_k, dh_v)
+// flash backward (p from the forward's lse, D from the stored oattn),
+// linear.cu's dq·Wq, column sums.  The weight gradients dWq = dqᵀ·xn and
+// dWo = dyᵀ·oattn stay plain GEMMs outside, as the TPU left them to XLA
+// (:330-338).
 // Bound on the H100 at stage 1, batch 64: about 188 MB of dy, q, oattn and
 // lse in and dxn and dq out (chip_smoke.py's cross_bounds, which counts
-// oattn though this route does not read it), 0.056 ms at 3.35 TB/s, against
-// about 17 GFLOP (0.017 ms): the bytes bound it.  The kernel moves about 230
-// MB (dy a second time for the second head, dq back for dxn), its loop waits
+// oattn and lse though this route reads neither), 0.056 ms at 3.35 TB/s,
+// against about 17 GFLOP (0.017 ms): the bytes bound it.  The kernel moves
+// about 230 MB (dy a second time for the second head, dq back for dxn), its loop waits
 // on wgmma and on TMA in turn with one warpgroup a CTA, and dxn's pass reads
 // in a window of its own after the heads (PERF.md has the card's times).
 // ptxas (sm_90a, bf16; f16 the same; chip_smoke.py's ptxas line): (40, 32)
@@ -550,9 +554,8 @@ __global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
                      const __grid_constant__ CUtensorMap v_map,
                      const __grid_constant__ CUtensorMap wo_map,
                      const __grid_constant__ CUtensorMap wq_map,
-                     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
-                     T* __restrict__ dq, T* __restrict__ dxn, T* __restrict__ dk_out,
-                     T* __restrict__ dv_out, float* __restrict__ part, int n, int n_k, int c,
+                     const __grid_constant__ CUtensorMap dq_map, T* __restrict__ dq,
+                     T* __restrict__ dxn, T* __restrict__ dk_out, T* __restrict__ dv_out, float* __restrict__ part, int n, int n_k, int c,
                      int heads, int bps, int stages, float scale) {
   using C = CrossBwd<DK, DV, NK>;
   using QTile = typename C::QTile;
@@ -598,15 +601,6 @@ __global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
     QTile::load(st + 64 * cw * 2, 0, &q_map, &full[s], 64 * j, h, b);
     if (!fused) DTile::load(st + QTile::kBytes, 0, &do_map, &full[s], 64 * j, h, b);
   };
-  // The lse of the thread's two rows at item i (0 past n), in base-2 units.
-  auto load_lse = [&](int i, float (&l)[2]) {
-    const int row = 64 * (j0 + i % nbs) + fr, h = h0 + i / nbs;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      l[r] = i < items && row + 8 * r < n
-                 ? lse[((size_t)b * heads + h) * n + row + 8 * r] * kLog2e
-                 : 0.f;
-  };
   if (tid == 0) {
     hopper::mbar_init(head_full, 1);
     hopper::mbar_init(wq_full, 1);
@@ -628,8 +622,6 @@ __global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
   float bo0 = 0.f, bo1 = 0.f;
   float dk[NK / 64][PK / 2], dv[NK / 64][PV / 2];
   const float scale_log2e = scale * kLog2e;
-  float lnext[2];
-  load_lse(0, lnext);
   for (int hi = 0, i = 0; hi < hh; ++hi) {
     const int h = h0 + hi;
     hopper::mbar_wait(head_full, hi & 1);
@@ -645,8 +637,6 @@ __global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
       unsigned char* dy_t = ring + s * item;
       unsigned char* q_t = dy_t + 64 * cw * 2;
       unsigned char* d_t = fused ? s_t + PTile::kBytes : q_t + QTile::kBytes;
-      const float lrow[2] = {lnext[0], lnext[1]};
-      load_lse(i + 1, lnext);  // the next item's, under this one's work
       hopper::mbar_wait(&full[s], (i / stages) & 1);
 
       // s = q_h·k_hᵀ; with it doattn_h = T(dy·Wo_h) (fused) or dp (doattn by TMA).
@@ -697,16 +687,41 @@ __global__ void __launch_bounds__(128, kBwdMaxCtasPerSM)
             *reinterpret_cast<uint32_t*>(d_t + DTile::at(fr + 8 * half, 8 * jn + 2 * t)) =
                 Num<T>::pack2(oa[4 * jn + 2 * half], oa[4 * jn + 2 * half + 1]);
       }
-      // p = exp(s·scale - lse) from the forward's lse (base 2); 0 past n_k and n.
+      // p = softmax(s·scale) over the row, from its own max and sum (the TPU
+      // kernel's _softmax, :47-50: the one key tile holds every key), base 2;
+      // 0 past n_k and n.  A row of one key gives p = 1 exactly, and so ds =
+      // p·(dp - Σ p·dp) = 0, as the TPU's; a p taken from the forward's lse
+      // would be 1 only to the rounding of s·scale, leaving dq, dk and dxn
+      // of that rounding's size where they are 0.
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * jn + 2 * t + (e & 1) < n_k) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * jn + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the row max over the quad (every row holds a key)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] *= scale_log2e;
+      }
 #pragma unroll
       for (int jn = 0; jn < NK / 8; ++jn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = 8 * jn + 2 * t + (e & 1);
-          sc[4 * jn + e] = key < n_k && row + 8 * (e / 2) < n
-                               ? exp2f(sc[4 * jn + e] * scale_log2e - lrow[e / 2])
-                               : 0.f;
+          sc[4 * jn + e] = key < n_k ? exp2f(sc[4 * jn + e] * scale_log2e - mx[e / 2]) : 0.f;
+          sum[e / 2] += sc[4 * jn + e];
         }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // 1 / l, or 0 for a row past n
+        sum[r] = quad_sum(sum[r]);
+        sum[r] = row + 8 * r < n ? 1.f / sum[r] : 0.f;
+      }
+#pragma unroll
+      for (int jn = 0; jn < NK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * jn + e] *= sum[e / 2];
       if (fused) {
         hopper::wgmma_wait<0>();
         hopper::fence_regs(dp);
@@ -1037,10 +1052,9 @@ BwdScratch cross_bwd_scratch(const BwdPlan& plan, int b, int n, int n_k, int c, 
 
 template <typename T, int DK, int DV, int NK>
 cudaError_t cross_bwd_t(const BwdPlan& plan, const void* dy, const void* q, const void* doattn,
-                        const void* k, const void* v, const float* lse, const void* wq,
-                        const void* wo, void* dxn, void* dq, void* dk, void* dv, float* dbo,
-                        float* part, int b, int n, int n_k, int c, int heads, float scale,
-                        cudaStream_t stream) {
+                        const void* k, const void* v, const void* wq, const void* wo,
+                        void* dxn, void* dq, void* dk, void* dv, float* dbo, float* part, int b,
+                        int n, int n_k, int c, int heads, float scale, cudaStream_t stream) {
   constexpr int dt = hopper::dtype_of<T>();
   using C = CrossBwd<DK, DV, NK>;
   const bool fused = plan.route == 1;
@@ -1071,7 +1085,7 @@ cudaError_t cross_bwd_t(const BwdPlan& plan, const void* dy, const void* q, cons
   else do_map = q_map;
   dim3 grid(plan.spans, b, plan.groups);
   cross_bwd_kernel<T, DK, DV, NK><<<grid, 128, plan.smem, stream>>>(
-      dy_map, q_map, do_map, k_map, v_map, wo_map, wq_map, dq_map, lse, static_cast<T*>(dq),
+      dy_map, q_map, do_map, k_map, v_map, wo_map, wq_map, dq_map, static_cast<T*>(dq),
       fused ? static_cast<T*>(dxn) : nullptr, static_cast<T*>(dk), static_cast<T*>(dv), part, n,
       n_k, c, heads, plan.bps, plan.stages, scale);
   err = cudaGetLastError();
@@ -1088,18 +1102,18 @@ cudaError_t cross_bwd_t(const BwdPlan& plan, const void* dy, const void* q, cons
 
 template <typename T>
 cudaError_t cross_bwd_dispatch(const BwdPlan& plan, const void* dy, const void* q,
-                               const void* doattn, const void* k, const void* v, const float* lse,
+                               const void* doattn, const void* k, const void* v,
                                const void* wq, const void* wo, void* dxn, void* dq, void* dk,
                                void* dv, float* dbo, float* part, int b, int n, int n_k, int c,
                                int heads, int dh_k, int dh_v, float scale, cudaStream_t stream) {
 #define VIT_CROSS_BWD(DK, DV)                                                                  \
   if (dh_k == DK && dh_v == DV)                                                                \
-    return n_k <= 64 ? cross_bwd_t<T, DK, DV, 64>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, \
-                                                  dq, dk, dv, dbo, part, b, n, n_k, c, heads,  \
+    return n_k <= 64 ? cross_bwd_t<T, DK, DV, 64>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq,  \
+                                                  dk, dv, dbo, part, b, n, n_k, c, heads,      \
                                                   scale, stream)                               \
-                     : cross_bwd_t<T, DK, DV, 128>(plan, dy, q, doattn, k, v, lse, wq, wo,     \
-                                                   dxn, dq, dk, dv, dbo, part, b, n, n_k, c,   \
-                                                   heads, scale, stream);
+                     : cross_bwd_t<T, DK, DV, 128>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, \
+                                                   dk, dv, dbo, part, b, n, n_k, c, heads,     \
+                                                   scale, stream);
   VIT_CROSS_WIDTHS(VIT_CROSS_BWD)
 #undef VIT_CROSS_BWD
   return cudaErrorInvalidValue;
@@ -1180,8 +1194,9 @@ extern "C" long long vit_fused_cross_attention_bwd_scratch(int b, int n, int n_k
 
 // Outputs dxn (rows, c), dq (rows, hk), dk (b, n_k, hk), dv (b, n_k, hv) in
 // the compute dtype and dbo (c,) f32, from dy (rows, c) and the forward's q,
-// k, v, oattn and lse (oattn read by the four steps only).  `scratch`: the
-// bytes vit_fused_cross_attention_bwd_scratch gives for the same `force`.
+// k, v, oattn and lse (oattn and lse read by the four steps only).
+// `scratch`: the bytes vit_fused_cross_attention_bwd_scratch gives for the
+// same `force`.
 extern "C" int vit_fused_cross_attention_bwd(const void* dy, const void* q, const void* k,
                                              const void* v, const void* oattn, const float* lse,
                                              const void* wq, const void* wo, void* dxn, void* dq,
@@ -1228,12 +1243,11 @@ extern "C" int vit_fused_cross_attention_bwd(const void* dy, const void* q, cons
     if (err != cudaSuccess) return err;
   }
   err = dtype == kBF16
-            ? cross_bwd_dispatch<__nv_bfloat16>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, dq,
-                                                dk, dv, dbo, part, b, n, n_k, c, heads, dh_k,
-                                                dh_v, scale, stream)
-            : cross_bwd_dispatch<__half>(plan, dy, q, doattn, k, v, lse, wq, wo, dxn, dq, dk, dv,
-                                         dbo, part, b, n, n_k, c, heads, dh_k, dh_v, scale,
-                                         stream);
+            ? cross_bwd_dispatch<__nv_bfloat16>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk,
+                                                dv, dbo, part, b, n, n_k, c, heads, dh_k, dh_v,
+                                                scale, stream)
+            : cross_bwd_dispatch<__half>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk, dv, dbo,
+                                         part, b, n, n_k, c, heads, dh_k, dh_v, scale, stream);
   if (err != cudaSuccess || plan.route == 1) return err;
   err = launch_dgrad(dq, wq, nullptr, dxn, nullptr, nullptr, rows, c, hk, kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;

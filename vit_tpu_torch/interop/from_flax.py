@@ -2,7 +2,8 @@
 direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT``,
 ``vit_tpu.models.scalable_vit.ScalableViT``,
-``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``, the
+``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``,
+``vit_tpu.models.twins_svt.TwinsSVT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -32,7 +33,12 @@ small-dataset ViT (``attn_0`` → ``layers.0.attn``).  The objectives' trees nes
 ScalableViT's ``{ssa,ff1,iwsa,ff2}_{i}`` and their
 ``*_norm_{i}`` map to ``layers.{i}.…`` under each ``stage_{s}``
 (``stage_0/iwsa_norm_1`` → ``stage_0.layers.1.iwsa_norm``); a stage's ``peg``
-and ``norm`` keep their names.  ``to_out`` maps to ``to_out.0`` (the
+and ``norm`` keep their names.  Twins-SVT's
+``{local_norm,local_attn,ff1_norm,ff1,global_norm,global_attn,ff2_norm,ff2}_{i}``
+map to ``layers.{i}.…`` under each ``s{s}_pre_transformer`` and
+``s{s}_transformer`` (``s3_transformer/global_attn_4/to_kv`` →
+``s3_transformer.layers.4.global_attn.to_kv``); ``s{s}_embed/proj``,
+``s{s}_peg/proj`` and ``head`` keep their names.  ``to_out`` maps to ``to_out.0`` (the
 projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
@@ -50,12 +56,17 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp|mlp_fc1|mlp_fc2)_(\d+)$")
+# Per-layer modules under a stack (or at the top): the ViTs' and MAE's
+# decoder's, and Twins-SVT's (under each s{i}_pre_transformer and
+# s{i}_transformer).
+_LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp|mlp_fc1|mlp_fc2|local_norm|local_attn|ff1_norm"
+                    r"|ff1|global_norm|global_attn|ff2_norm|ff2)_(\d+)$")
 # ScalableViT's per-layer modules, under a stage_{s}.
 _STAGE_LAYER = re.compile(r"^(ssa_norm|ssa|ff1_norm|ff1|iwsa_norm|iwsa|ff2_norm|ff2)_(\d+)$")
 _STAGE = re.compile(r"^stage_\d+$")
 # Modules that hold per-layer modules: the encoders, T2T-ViT's token
-# transformers and MAE's decoder (the small-dataset ViT's sit at the top).
+# transformers, Twins-SVT's stacks and MAE's decoder (the small-dataset
+# ViT's sit at the top).
 _STACK = re.compile(r"^(transformer|decoder|\w+_transformer|t2t_transformer_\d+)$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}

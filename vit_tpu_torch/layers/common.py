@@ -1,5 +1,5 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT, CvT and ScalableViT need).
+``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT and Twins-SVT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -338,6 +338,20 @@ def fused_mlp_eligible(x: torch.Tensor, mlp: MLP, mode: str) -> bool:
     """``_fused_mlp_eligible``'s gate: no active dropout, on an activation the
     kernels take."""
     return mode == "auto" and not mlp.dropout_active and kernel_activation(x)
+
+
+def windowed_attention_eligible(x: torch.Tensor, attn: nn.Module, mode: str = "auto") -> bool:
+    """The gate of the windowed fused-attention path
+    (``vit_tpu/layers/common.py:369-397``), for a model that folds windows
+    of ``x`` into the batch and runs the fused attention block over them
+    (Twins-SVT's local attention): no active dropout (``attn`` has a
+    ``dropout_active`` property), on an activation the kernels take.
+    ``vit_tpu``'s ``d >= 64``, ``n <= 512`` and ``groups·n >= 2048`` gates
+    were a v5e's lane, VMEM and grid reasons and do not carry over: the
+    port's block takes any n (past 512 tokens on its mha route,
+    :func:`~vit_tpu_torch.ops.fused_attention_block.attention_route`), and
+    widths it does not take raise."""
+    return mode == "auto" and not attn.dropout_active and kernel_activation(x)
 
 
 def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP,

@@ -1,1 +1,5 @@
 """Models of the PyTorch port (mirrors vit_tpu.models)."""
+
+from vit_tpu_torch.models.twins_svt import TwinsSVT
+
+__all__ = ["TwinsSVT"]

@@ -95,15 +95,18 @@ def flash_backward_reference(q, k, v, o, lse, do, scale: float, exact_dsum: bool
     """Plain PyTorch version of the backward kernels
     (``vit_tpu/ops/flash_backward.py:122-199``), step by step with their
     rounding points: ``(dq, dk, dv)`` in q's dtype, from the forward's ``o``
-    and ``lse`` and the output gradient ``do``.  ``exact_dsum`` takes the
-    softmax's dsum = Σ p·dp over the recomputed p (the cross-attention
-    block's one-kernel backward) instead of D = rowsum(dO∘O) from the stored
-    output (the flash kernels); in f32 the two agree."""
+    and ``lse`` and the output gradient ``do``.  ``exact_dsum`` is the
+    cross-attention block's ``cross_bwd``, as the TPU's ``_bwd_kernel``
+    computes it: p recomputed as the softmax of its whole row (one key: p =
+    1 exactly) and the softmax's dsum = Σ p·dp, where the flash kernels take
+    p from the forward's lse and D = rowsum(dO∘O) from the stored output; in
+    f32 the two agree."""
     dt = q.dtype
     grads = ([], [], [])
     for qc, kc, vc, oc, lc, dc in _head_groups(q, k, v, o, lse[..., None], do):
         qf, kf, vf, dof = qc.float(), kc.float(), vc.float(), dc.float()
-        p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lc)
+        s = (qf @ kf.transpose(-1, -2)) * scale
+        p = torch.softmax(s, dim=-1) if exact_dsum else torch.exp(s - lc)
         dp = dof @ vf.transpose(-1, -2)
         dsum = (p * dp if exact_dsum else dof * oc.float()).sum(-1, keepdim=True)
         ds = (p * (dp - dsum) * scale).to(dt).float()

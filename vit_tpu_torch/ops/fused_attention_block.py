@@ -85,6 +85,9 @@ from vit_tpu_torch.ops.short_attention import (
 )
 
 SUPPORTED_DIM_HEAD = (32, 64, 128)
+# Images a launch of the short route takes: short_attention.cu puts them on
+# the grid's z axis (shape_ok).
+SHORT_MAX_BATCH = 65535
 
 # Launches of the attention middle by route (attention_route), each direction.
 FORWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
@@ -352,7 +355,10 @@ def fused_attention_block_supported(d: int, heads: int, dim_head: int) -> bool:
 def _check_block(name, x, heads, dim_head, tensors):
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (b, n, d), got {tuple(x.shape)}")
-    d = x.shape[-1]
+    b, n, d = x.shape
+    if attention_route(n) == "short" and b > SHORT_MAX_BATCH:
+        raise ValueError(f"{name}: the short route takes at most {SHORT_MAX_BATCH} images a "
+                         f"launch, got {b}")
     if not fused_attention_block_supported(d, heads, dim_head):
         raise ValueError(
             f"{name} kernel needs d % 8 == 0 and dim_head in "

@@ -17,8 +17,8 @@ residual, at every shape it takes (``dh_k, dh_v`` of ``(32, 32)``, ``(40,
 ``cross_fwd`` writing oattn and ``gemm_wgmma`` taking the output GEMM, the q
 GEMM, the ``(dh_k, dh_v)`` flash kernels and the output GEMM at other shapes;
 the backward at the same shapes one ``cross_bwd`` kernel and its fixed-order
-reduction up to 128 channels, from 129 ``cross_bwd`` between the doattn and
-dxn GEMMs on ``gemm_wgmma``, past 128 keys the doattn and dxn GEMMs, the
+reduction up to 128 channels and heads·dh_k 256, elsewhere ``cross_bwd``
+between the doattn and dxn GEMMs, past 128 keys the doattn and dxn GEMMs, the
 flash backward and the fixed-order ``dbo`` sums; the C library gives the
 route, :func:`backward_route`); on a CPU tensor both run their plain PyTorch
 versions, :func:`fused_cross_attention_forward_reference` and
@@ -33,17 +33,19 @@ through their strides (no head split or merge), and fuses the bias and
 residual into the output GEMM's epilogue; the training forward writes q,
 oattn and lse for the backward, serving none of them.  The backward at stage
 1 moves about 188 MB against 17 GFLOP, so bytes bound it too: ``cross_bwd``
-keeps doattn, p and ds on chip, reads no oattn, and splits each image's
+keeps doattn, p and ds on chip, reads no oattn or lse, and splits each image's
 queries into spans that fill the card, their f32 dk and dv partials summed
 in a fixed order.
 
 Numerics, mirrored by the plain versions: ``q = T(xn·Wqᵀ)``; logits in f32;
 P rounded to the compute dtype for P·V and the f32 row sum divided out after
 it (``vit_tpu``'s late divide, ``:98-104``); oattn rounded; the residual adds
-in the compute dtype.  Backward: ``doattn = T(dy·Wo)``; p from the saved
-lse, ``dp = doattn·vᵀ`` and the TPU kernel's ``dsum = Σ p·dp`` (``:150``;
-the four-step route past 128 keys takes ``D = rowsum(doattn∘oattn)`` from
-the stored output instead: equal in f32); ``ds = T(p·(dp - dsum)·scale)``;
+in the compute dtype.  Backward: ``doattn = T(dy·Wo)``; p recomputed as
+the softmax of its row, as the TPU kernel recomputes it (so a single key
+gives p = 1 exactly and ds = 0), ``dp = doattn·vᵀ`` and the TPU kernel's
+``dsum = Σ p·dp`` (``:150``; the four-step route past 128 keys takes p from
+the saved lse and ``D = rowsum(doattn∘oattn)`` from the stored output
+instead: equal in f32); ``ds = T(p·(dp - dsum)·scale)``;
 dq, dk, dv rounded once; ``dxn = T(dq·Wq)``; ``dbo`` the f32 sum of dy.  In
 f32 the plain versions are exact attention and its gradient.
 
@@ -99,9 +101,10 @@ def fused_cross_attention_backward_reference(dy, q, k, v, oattn, lse, wq, wo, he
     """Plain PyTorch version of the backward kernels, step by step with their
     rounding points: ``(dxn, dq, dk, dv, dbo)``, the first four in the
     compute dtype and the shapes of xn, q, k, v, ``dbo`` ``(c,)`` in f32.
-    The softmax's dsum = Σ p·dp, as ``cross_bwd`` and the TPU kernel take it;
-    ``stored_output_d`` takes D = rowsum(doattn∘oattn) instead, as the
-    four-step backward (route 0 of :func:`backward_route`) does."""
+    p is the softmax of its row and dsum = Σ p·dp, as ``cross_bwd`` and the
+    TPU kernel take them; ``stored_output_d`` takes p from ``lse`` and D =
+    rowsum(doattn∘oattn) instead, as the four-step backward (route 0 of
+    :func:`backward_route`) does."""
     dt = dy.dtype
     c = dy.shape[-1]
     dy32 = dy.reshape(-1, c).float()
@@ -181,9 +184,12 @@ def backward_route(b: int, n: int, n_k: int, c: int, heads: int, dh_k: int, dh_v
                    route: int | None = None) -> int:
     """The backward's route at a shape, as the C library decides it
     (``cross_bwd_plan``): 1, one ``cross_bwd`` kernel with the doattn and dxn
-    GEMMs inside, and its reduction (up to 128 channels); 2, ``cross_bwd``
-    between those two GEMMs on ``gemm_wgmma`` (from 129); 0, the four steps
-    (past 128 keys, or head widths ``cross_bwd`` has no instance for).  With
+    GEMMs inside, and its reduction (up to 128 channels and heads·dh_k 256:
+    ScalableViT's stages 1-2); 2, ``cross_bwd`` between those two GEMMs
+    (``launch_dgrad``: ``gemm_wgmma`` from 256 columns, ``linear.cu``
+    below) from 129 channels or past heads·dh_k 256 (ScalableViT's stages
+    3-4, Twins-SVT's four global attentions at 8 heads of 64); 0, the four
+    steps (past 128 keys, or head widths ``cross_bwd`` has no instance for).  With
     ``route`` given: that route where the shape can take it (0 always, 2
     wherever 1 or 2 is the shape's), else -1."""
     return _build.load().vit_fused_cross_attention_bwd_route(

@@ -5,13 +5,16 @@
   ``patch_embedding`` GEMM);
 - unfold tokenizer: :func:`extract_patches` (``tf.image.extract_patches``
   semantics; T2T-ViT's, :class:`vit_tpu_torch.models.t2t.T2TViT`);
-- shifted-patch tokenization: :class:`SPT` (the small-dataset ViT's).
+- shifted-patch tokenization: :class:`SPT` (the small-dataset ViT's);
+- space-to-depth patch merging: :class:`PatchEmbedding` (Twins-SVT's,
+  ``(c p1 p2)`` channel order, then a 1x1 convolution).
 
-``vit_tpu``'s ``CrossEmbedLayer`` (CrossFormer), ``PatchEmbedding``
-(Twins-SVT) and ``ConvNxNBN`` (MobileViT) come with the port of their models.
+``vit_tpu``'s ``CrossEmbedLayer`` (CrossFormer) and ``ConvNxNBN``
+(MobileViT) come with the port of their models.
 """
 
+from vit_tpu_torch.models.twins_svt import PatchEmbedding
 from vit_tpu_torch.models.vit_for_small_dataset import SPT
 from vit_tpu_torch.ops.patchify import extract_patches, patchify, unpatchify
 
-__all__ = ["patchify", "unpatchify", "extract_patches", "SPT"]
+__all__ = ["patchify", "unpatchify", "extract_patches", "SPT", "PatchEmbedding"]
