@@ -62,9 +62,8 @@ Phases, one line each (any failure raises and exits non-zero):
    a random (16, n, n) bias, on the short route: the serving and the
    training forward and the backward against their plain versions (the TPU
    kernel's rounding points and the route's own), output by output, dbias for
-   (ii) and (iii) against the route's own under its bound
-   (:func:`check_dbias`; its distance from the TPU kernel's rounding points
-   printed beside, not held) and twice, bit for bit; times of the kernel, the
+   (ii) and (iii) against both under its bound (:func:`check_dbias`) and
+   twice, bit for bit; times of the kernel, the
    unbiased kernel on the same inputs, the plain version and the bf16
    modules with ``scaled_dot_product_attention`` (``attn_mask=bias``;
    autograd through them for the backward).
@@ -191,9 +190,23 @@ Phases, one line each (any failure raises and exits non-zero):
    fused MLP 25 times, the block 10 times and the cross-attention block 15,
    a step each backward as often (the cross-attention backward split, past
    heads·dh_k 256, at all 15).
-22. profile: ``torch.profiler`` over train steps at fourteen training configs
+22. CrossFormer (``benchmarks/run_benchmarks.py:66``, ``CrossFormer(
+   num_classes=1000)``: dims 64/128/256/512, depths 2/2/8/2, global windows
+   8/4/2/1, local 7, heads of 32) at 224 px, batch 64.  First its kernels
+   (:func:`crossformer_kernel_phase`): the biased block at its six window
+   shapes (short 7 x 7 at each stage, long 8 x 8 and 4 x 4 at stages 1-2;
+   a shared f32 bias asking for dbias, eps 1e-5) as phase 8 holds it; the
+   position bias and the folds launch by launch; the stem's two merged forms
+   and the separate convolutions on cuDNN.  Then serving as phase 5 and
+   training as phase 7 (plain path ``"never"``, top-1 by the sign test): a
+   forward launches the biased block 18 times (stages 3-4's long windows of
+   4 and 1 tokens run plain, vit_tpu's n < 8 gate) and the fused MLP 28, a
+   step their backwards as often, dbias at each; the DPB tensors' step-1
+   gradients held stacked across the attentions (:func:`stacked_groups`),
+   and the same check on a control path with only the MLPs on the kernels.
+23. profile: ``torch.profiler`` over train steps at fifteen training configs
    (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224 and 384,
-   ScalableViT, the four objectives, T2T-ViT, Twins-SVT); device time and launches per
+   ScalableViT, the four objectives, T2T-ViT, Twins-SVT, CrossFormer); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -202,16 +215,16 @@ Phases, one line each (any failure raises and exits non-zero):
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
-MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT; the
-blocks past 512 tokens)
+MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
+CrossFormer; the blocks past 512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
 tokens).  The line before the last is the card as ``nvidia-smi`` names it; before that
-Twins-SVT's kernel times at its shapes beside the card's name and power
-limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
+CrossFormer's and Twins-SVT's kernel times at their shapes beside the card's
+name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound (the kernels rebuilt on wgmma and TMA also name their
 ``design``), after a line that cites the earlier designs' times from PERF.md,
 constants that this run did not measure.  The last line is
@@ -309,7 +322,20 @@ MAX_GRAD_ERR_VS_PLAIN_BF16 = 2.0
 LOSS_REL_TOL = 1e-2
 # Each tensor is held on its own, except the 0-d ones (LSA's one temperature
 # per layer): they are held as one (depth,) vector, the stack of them across
-# layers, and each on its own by check_temperatures.
+# layers, and each on its own by check_temperatures; and CrossFormer's dynamic
+# position bias (``.dpb.``), each of its 14 tensors held as the stack of that
+# tensor across the 28 attentions (stacked_groups).  The DPB's gradient comes
+# from dbias, a sum over every (window, head) pair of the layer that nearly
+# cancels, so each one's error against f32 is bf16 noise of a few per cent
+# on any bf16 path, and one path's against another's is a coin flip: at
+# batch 64 the per-tensor check failed on 21 of the 392 DPB tensors with the
+# kernels, their median error the plain path's (0.0384 and 0.0384), and it
+# fails the same way on a path that shares no attention kernel with it
+# (crossformer_mlp_kernels: the control line); the out.bias gradients,
+# exactly 0 by the softmax's shift invariance (f32: about 1e-9), are bf16
+# rounding on every path (H100 80GB HBM3, 700 W; PERF.md §6).  Stacked,
+# each path's error is held to the same 2x of the plain path's; the
+# per-tensor ratios are printed.
 # A temperature's gradient is Σ dWq⊙Wq over the q-third of to_qkv (rows
 # [:inner]), a sum of 1M products that nearly cancels in some layers, so its
 # relative error can be of any size on a bf16 route: 0.75 on the kernel route
@@ -487,6 +513,31 @@ def check_ln_epilogue(torch, name, fn, linear=True):
                              + ("" if linear else " and none of linear.cu") + " expected")
     rows = launch_breakdown(torch, fn)
     return counts, rows, None if rows is None else sum(ms for ms, _ in rows.values())
+
+
+def check_ln_backward(torch, name, fn, d):
+    """A block backward's LayerNorm backward at width ``d``: the dgrad's
+    epilogue where ``ln_bwd_fused(d)`` holds (no f32 dxn, no layernorm.cu
+    passes: :func:`check_ln_epilogue`), else the f32 dxn and one run of
+    layernorm.cu's passes a call; raises unless one call of ``fn`` launches
+    the one that applies.  Returns its :func:`launch_breakdown`, its device
+    ms (None where not measured) and a text for the log."""
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.ops._shared import ln_bwd_fused
+
+    if ln_bwd_fused(d):
+        _, rows, device = check_ln_epilogue(torch, name, fn)
+        return rows, device, (ln_device_text(device, rows) + f" on "
+                              f"{_build.load().vit_ln_bwd_clusters(d)} clusters of {d // 256} "
+                              f"CTAs, counted once a call (no {' or '.join(LN_PASSES)})")
+    counts = counted_launches(torch, fn)
+    if counts["ln_epilogue"] or counts["ln_passes"] != 1:
+        raise AssertionError(f"{name}: launches a call {counts}: the LayerNorm backward's "
+                             f"passes once, its dgrad epilogue never, expected at d {d}")
+    rows = launch_breakdown(torch, fn)
+    return rows, None if rows is None else sum(ms for ms, _ in rows.values()), (
+        f"device ms a call {breakdown_text(rows)}; the LayerNorm backward on layernorm.cu's "
+        f"passes, counted once a call (d {d}: no LN-backward dgrad)")
 
 
 def ln_library(torch, dxn32, x, gamma, eps):
@@ -921,20 +972,9 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
         err = check_outputs(torch, name, out, plain(), {0: dy})
         if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
             raise AssertionError(f"{name}: two runs differ")
-        # Its LayerNorm backward is the dgrad's epilogue where ln_bwd_fused(d)
-        # holds: no f32 dxn, no layernorm.cu passes; elsewhere the f32 dxn and
-        # one run of the passes.  PyTorch's LayerNorm backward timed on the
-        # f32 dxn (dh·W1 or dqkv·Wqkv, from its own output).
-        if fused:
-            _, rows, device = check_ln_epilogue(torch, name, kernel)
-        else:
-            counts = counted_launches(torch, kernel)
-            if counts["ln_epilogue"] or counts["ln_passes"] != 1:
-                raise AssertionError(f"{name}: launches a call {counts}: the LayerNorm "
-                                     f"backward's passes once, its dgrad epilogue never, "
-                                     f"expected at d {d}")
-            rows = launch_breakdown(torch, kernel)
-            device = None if rows is None else sum(ms for ms, _ in rows.values())
+        # PyTorch's LayerNorm backward timed on the f32 dxn (dh·W1 or
+        # dqkv·Wqkv, from its own output).
+        rows, device, ln = check_ln_backward(torch, name, kernel, d)
         grad_in = out[1].reshape(-1, out[1].shape[-1])
         dxn32 = fh.gemm_wgmma(grad_in, w_ln, "f32", layout="kn",
                               kernel="wgmma" if fused else "mma_sync")[0]
@@ -946,11 +986,6 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
         del dxn32
         limit, by = block_bounds(b, n, d, heads, dim_head, hidden)[name]
         via = f", attention on the {route} route" if name == "fused_attention_block_bwd" else ""
-        ln = (ln_device_text(device, rows) + f" on {_build.load().vit_ln_bwd_clusters(d)} "
-              f"clusters of {d // 256} CTAs, counted once a call (no "
-              f"{' or '.join(LN_PASSES)}); " if fused else
-              f"device ms a call {breakdown_text(rows)}; the LayerNorm backward on "
-              f"layernorm.cu's passes, counted once a call (d {d}: no LN-backward dgrad); ")
         log(f"backward {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} h={hidden} "
             f"eps={eps:g}]: fed the forward kernel's residuals{via}; max|kernel-plain| over the "
             f"outputs={err:.6g}, each within one unit plus 2e-2*max|its own part|, the same bits "
@@ -958,26 +993,28 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
             f"plain={ms['plain']:.4f} autograd through the bf16 modules for the same outputs="
             f"{ms['library']:.4f}; with the weight gradients: kernel+dW GEMMs="
             f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by}); "
-            + ln + f"native_layer_norm_backward on the same f32 dxn={ms['library_ln']:.4f}")
+            + ln + f"; native_layer_norm_backward on the same f32 dxn={ms['library_ln']:.4f}")
         results.setdefault(name, {})[tag] = dict(err=err, **ms, device=device,
                                                  bound=(limit, by))
 
 
-def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
+def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None, eps=1e-3,
+                 kinds=("lsa", "shared", "per-head")):
     """The biased block at the small-dataset ViT's shapes, for LSA's mask
-    (scale 1.0, no dbias), a shared and a per-head random bias, on the route
+    (scale 1.0, no dbias), a shared and a per-head random bias (``kinds``:
+    those to run; ``eps`` the LayerNorm's), on the route
     ``attention_route`` gives it (short_fwd / short_bwd with the bias up to
     512 tokens, counted): serving and training forwards (lse within
     LSE_ABS_TOL), backward fed the training forward's residuals (dbias within
     DBIAS_REL_TOL), each against the TPU kernel's rounding points and against
     the route's own plain version, twice bit for bit; times beside the
     unbiased kernel on the same inputs and the bf16 modules with
-    ``scaled_dot_product_attention``.  dbias is held to the route's own
-    plain version; on the short route its distance from the TPU kernel's
-    rounding points is printed beside, with that between the two plain
-    versions, and not held: D = rowsum(dO∘O) for dsum, which O's rounding to
-    bf16 moves, takes a per-head dbias past DBIAS_REL_TOL at some inputs
-    (ROADMAP.md's traps).  Results go under the bias's kind, with ``, tag``
+    ``scaled_dot_product_attention``.  dbias is held to both plain versions:
+    the short route's dbias call takes each row's dsum = Σ p·dp (the row
+    statistics it computes first), as the TPU kernel; D = rowsum(dO∘O) from
+    the bf16 O took a dbias past DBIAS_REL_TOL of the TPU kernel's at some
+    inputs (PERF.md §6).  The backward's LayerNorm backward is checked by
+    :func:`check_ln_backward`.  Results go under the bias's kind, with ``, tag``
     after it when given (another shape)."""
     import torch.nn.functional as F
 
@@ -986,7 +1023,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
     from vit_tpu_torch.ops import fused_attention_block as fab
     from vit_tpu_torch.ops._shared import weight_grad
 
-    dev, dt, eps = torch.device("cuda"), torch.bfloat16, 1e-3
+    dev, dt = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11)
     inner = heads * dim_head
 
@@ -998,7 +1035,7 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
     wqkv, wo, bo = rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5), \
         rn(d, scale=0.1)
     args = (x, gamma, beta, wqkv, wo, bo)
-    norm = LayerNorm(d, device=dev, dtype=dt)
+    norm = LayerNorm(d, eps, device=dev, dtype=dt)
     attn = Attention(d, heads, dim_head, device=dev, dtype=dt)
     with torch.no_grad():
         for prm, w in zip((norm.weight, norm.bias, attn.to_qkv.weight, attn.to_out[0].weight,
@@ -1007,14 +1044,16 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
     xg = x.detach().requires_grad_()
     route = fab.attention_route(n)
     short = route == "short"
-    kinds = {"lsa": (lsa_bias(n, dev), 1.0),
-             "shared": (torch.randn(1, n, n, generator=g, device=dev) * 0.5, dim_head ** -0.5),
-             "per-head": (torch.randn(heads, n, n, generator=g, device=dev) * 0.5,
-                          dim_head ** -0.5)}
-    for kind, (bias, scale) in kinds.items():
+    biases = {"lsa": (lsa_bias(n, dev), 1.0),
+              "shared": (torch.randn(1, n, n, generator=g, device=dev) * 0.5, dim_head ** -0.5),
+              "per-head": (torch.randn(heads, n, n, generator=g, device=dev) * 0.5,
+                           dim_head ** -0.5)}
+    for kind in kinds:
+        bias, scale = biases[kind]
         want_dbias = kind != "lsa"
-        shape = f"[{kind} bias {tuple(bias.shape)}, scale {scale:.4g}, b={b} n={n} d={d} " \
-                f"heads={heads}x{dim_head}]"
+        shape = f"[{kind} bias {tuple(bias.shape)}, scale {scale:.4g}, " \
+                + (f"{tag}, " if tag else "") + \
+                f"b={b} n={n} d={d} heads={heads}x{dim_head} eps={eps:g}]"
 
         def modules(mask):
             """The block in bf16 modules, attention by PyTorch's SDPA."""
@@ -1130,7 +1169,8 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
                                  f"move")
         tpu = want = plain()  # the TPU kernel's rounding points
         bwd_err = check_outputs(torch, f"biased backward {kind}", got[:5], tpu[:5], {0: dy})
-        if short:  # the short route's own plain version: D = rowsum(dO∘O), dbias from it
+        if short:  # the short route's own plain version: D = rowsum(dO∘O), or with dbias
+            # the row statistics' dsum
             want = fab.fused_attention_block_short_backward_reference(
                 dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
                 want_dbias)
@@ -1144,14 +1184,15 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
             dbias_err = check_dbias(torch, f"biased backward {kind}", got[5], want[5])
             dbias_max = want[5].abs().max().item()
             tpu_max = tpu[5].abs().max().item()
-            dbias_tpu = (got[5] - tpu[5]).abs().max().item() / tpu_max
+            dbias_tpu = check_dbias(torch, f"biased backward {kind}, TPU rounding points",
+                                    got[5], tpu[5]) / tpu_max
             plain_gap = (want[5] - tpu[5]).abs().max().item() / tpu_max
             if not torch.equal(got[5], again[5]):
                 raise AssertionError(f"biased backward {kind}: dbias differs between two runs")
         elif got[5] is not None:
             raise AssertionError(f"biased backward {kind}: dbias computed unasked")
         del want, tpu, again
-        _, ln_rows, device = check_ln_epilogue(torch, f"biased backward {kind}", kernel)
+        ln_rows, device, ln = check_ln_backward(torch, f"biased backward {kind}", kernel, d)
         bwd_ms = interleaved_medians(torch, {
             "kernel": kernel,
             "unbiased": lambda: fab.fused_attention_block_backward(
@@ -1164,18 +1205,15 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None):
             f"and of the route's own plain version, the same bits in two runs; dbias "
             + (f"max|kernel-plain|={dbias_err:.6g} of max|ref|={dbias_max:.6g} (<= "
                f"{DBIAS_REL_TOL}*max|ref|, the route's own plain version), against the TPU "
-               f"kernel's rounding points {dbias_tpu:.6g}*max|ref|"
-               + (f" (not held: the two plain versions differ by {plain_gap:.6g}*max|ref|, "
-                  f"D = rowsum(dO∘O) for dsum)" if short else "")
-               + ", the same bits in two runs"
+               f"kernel's rounding points {dbias_tpu:.6g}*max|ref| (<= {DBIAS_REL_TOL}; the "
+               f"two plain versions differ by {plain_gap:.6g}*max|ref|), the same bits in two "
+               f"runs"
                if want_dbias else "not asked for, not computed")
             + f"; ms kernel={bwd_ms['kernel']:.4f} unbiased kernel on the same inputs="
             f"{bwd_ms['unbiased']:.4f} plain={bwd_ms['plain']:.4f} autograd through the bf16 "
             f"modules with SDPA for the same outputs={bwd_ms['library']:.4f}; with the weight "
             f"gradients: kernel+dW GEMMs={bwd_ms['whole']:.4f} autograd="
-            f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]}); "
-            + ln_device_text(device, ln_rows) + f", counted once a call (no "
-            f"{' or '.join(LN_PASSES)})")
+            f"{bwd_ms['library_whole']:.4f}; bound={bwd_bound[0]:.4f} ({bwd_bound[1]}); " + ln)
         key = kind if tag is None else f"{kind}, {tag}"
         results.setdefault("fused_attention_block_bias", {})[key] = dict(
             err=max(err, own_err, train_err), lse_err=lse_err, **fwd_ms, bound=fwd_bound)
@@ -2019,6 +2057,149 @@ def twins_conv_phase(torch, smi):
         + json.dumps(times))
 
 
+# CrossFormer as benchmarks/run_benchmarks.py:66 builds it, CrossFormer(
+# num_classes=1000), vit_tpu's defaults: dims 64/128/256/512, depths 2/2/8/2,
+# global windows 8/4/2/1, local windows 7, cross-embed kernels (4, 8, 16, 32)
+# at stride 4 and (2, 4) at stride 2, heads of 32, MLP mult 4; at 224 px and
+# the benchmark's batch 64 (run_benchmarks.py:337).
+CROSSFORMER = dict(num_classes=1000)
+CROSSFORMER_SIZE = 224
+CROSSFORMER_BATCH = 64
+CROSSFORMER_DEPTH = (2, 2, 8, 2)
+CROSSFORMER_GLOBAL = (8, 4, 2, 1)
+CROSSFORMER_EPS = 1e-5  # its ChannelLayerNorms'
+# (tag, groups, n, c): its attentions on the biased block at batch 64, the
+# windows folded into the batch, c / 32 heads of 32, a (1, n, n) position
+# bias the heads share: short 7 x 7 windows at every stage, long dilated
+# windows of 8 x 8 and 4 x 4 tokens at stages 1-2 (stages 3-4's 2 x 2 and
+# 1 x 1 take the plain modules by vit_tpu's n < 8 gate).  Its MLPs take the
+# fused MLP at TWINS_LOCAL_SHAPES' rows and widths.
+CROSSFORMER_WINDOWS = [
+    ("CrossFormer short stage 1", 4096, 49, 64),
+    ("CrossFormer short stage 2", 1024, 49, 128),
+    ("CrossFormer short stage 3", 256, 49, 256),
+    ("CrossFormer short stage 4", 64, 49, 512),
+    ("CrossFormer long stage 1", 3136, 64, 64),
+    ("CrossFormer long stage 2", 3136, 16, 128),
+]
+
+
+def crossformer_kernel_phase(torch, results, smi):
+    """Row 5 at CrossFormer's windows (CROSSFORMER_WINDOWS), batch 64, seeded
+    bf16 inputs and a shared random f32 bias that asks for dbias, eps 1e-5:
+    the serving and the training forward and the backward as
+    :func:`biased_phase` holds them (each result twice bit for bit, dbias
+    within DBIAS_REL_TOL of the short route's own, its distance from the TPU
+    kernel's rounding points printed), timed beside the unbiased kernel, the
+    plain version and the bf16 modules with SDPA; then the position bias and
+    the folds around it (:func:`crossformer_pieces_phase`) and the stem
+    (:func:`crossformer_stem_phase`)."""
+    for tag, groups, n, c in CROSSFORMER_WINDOWS:
+        biased_phase(torch, groups, n, c, c // 32, 32, 4 * c, results, tag=tag,
+                     eps=CROSSFORMER_EPS, kinds=("shared",))
+        torch.cuda.empty_cache()
+    crossformer_pieces_phase(torch, smi)
+    crossformer_stem_phase(torch, smi)
+
+
+def crossformer_pieces_phase(torch, smi):
+    """What each CrossFormer attention runs around the block, at stage 1
+    (c 64, batch 64), both kinds: the dynamic position bias (the DPB MLP
+    over the (2w+1)² coordinates in bf16, gathered to the f32 (1, n, n)
+    bias) forward, and its backward from a dbias, launch by launch; and the
+    fold of the 56 x 56 map into windows and its inverse (strided permutes
+    made contiguous), timed against their bound, the map's bytes read and
+    written once each way.  Every attention call computes the DPB once, 28
+    a forward."""
+    from vit_tpu_torch.models.crossformer import CrossFormerAttention, _fold, _unfold
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, side, c = CROSSFORMER_BATCH, CROSSFORMER_SIZE // 4, 64
+    x = torch.randn(b, side, side, c, generator=g, device=dev).to(dt)
+    limit, by = bound(0, 2 * x.numel() * x.element_size())
+    for kind, w in (("short", 7), ("long", CROSSFORMER_GLOBAL[0])):
+        attn = CrossFormerAttention(c, kind, w, device=dev, generator=g)
+        params = list(attn.dpb.parameters())
+
+        def dpb_forward():
+            return attn.position_bias(dt).float()[None].contiguous()
+
+        bias = dpb_forward()
+        dbias = torch.randn_like(bias)
+
+        def dpb_backward():
+            return torch.autograd.grad(bias, params, dbias, retain_graph=True)
+
+        folded = _fold(x, kind, w)
+        if not torch.equal(_unfold(folded, kind, b, side, side, w), x):
+            raise AssertionError(f"CrossFormer {kind} fold: its inverse does not give the map")
+        with torch.no_grad():
+            fwd_rows = launch_breakdown(torch, dpb_forward)
+        bwd_rows = launch_breakdown(torch, dpb_backward)
+        ms = interleaved_medians(torch, {
+            "fold": lambda: _fold(x, kind, w),
+            "unfold": lambda: _unfold(folded, kind, b, side, side, w)}, rounds=5, calls=10)
+        log(f"CrossFormer {kind} attention's pieces at stage 1 [w={w}, n={w * w}, "
+            f"{folded.shape[0]} groups, c={c}]: the position bias forward "
+            f"{breakdown_text(fwd_rows)}; its backward from dbias {breakdown_text(bwd_rows)} "
+            f"(device ms and launches a call, 28 calls a forward and a backward a step); fold "
+            f"{ms['fold']:.4f} ms, unfold {ms['unfold']:.4f} ms, bound {limit:.4f} ({by}, the "
+            f"map read and written once); on {smi}")
+        del bias, dbias, folded
+    del x
+    torch.cuda.empty_cache()
+
+
+def crossformer_stem_phase(torch, smi):
+    """CrossFormer's cross-embedding layers at stage 1 (224² x 3 -> 56² x 64,
+    kernels 4/8/16/32 at stride 4) and stage 2 (56² x 64 -> 28² x 128, 2/4 at
+    stride 2), batch 64, bf16 NHWC on cuDNN, library calls outside every
+    kernel here as in vit_tpu: the form the layer takes, (b) space-to-depth,
+    against (a) the merged strided convolution on the same weights, within
+    one bf16 unit plus 2e-2 of max|ref|; device ms of the forward and of the
+    backward (autograd: the kernels' and biases' gradients, the map's at
+    stage 2) of (b), (a) and (c), the separate convolutions concatenated."""
+    from vit_tpu_torch.models.crossformer import CrossEmbedLayer, stem_strided
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(24)
+    times = {}
+    for tag, side, cin, cout, kernels, stride in (
+            ("stage 1", CROSSFORMER_SIZE, 3, 64, (4, 8, 16, 32), 4),
+            ("stage 2", CROSSFORMER_SIZE // 4, 64, 128, (2, 4), 2)):
+        layer = CrossEmbedLayer(cin, cout, kernels, stride, device=dev, generator=g)
+        x = torch.randn(CROSSFORMER_BATCH, side, side, cin, generator=g, device=dev).to(dt)
+        x.requires_grad_(tag != "stage 1")
+        if layer.form(side, side) != "space_to_depth":
+            raise AssertionError(f"CrossFormer stem {tag}: form {layer.form(side, side)}")
+        forms = {"b": lambda: layer(x),
+                 "a": lambda: stem_strided(x, *layer.merged(x), stride),
+                 "c": lambda: torch.cat([conv(x) for conv in layer.convs()], dim=-1)}
+        with torch.no_grad():
+            out, ref = forms["b"](), forms["a"]()
+        err = check_outputs(torch, f"CrossFormer stem {tag} space-to-depth", (out,), (ref,), {})
+        params = [*layer.parameters()] + ([x] if x.requires_grad else [])
+        backward = {}
+        for name, fn in forms.items():
+            y = fn()
+            dy = torch.randn_like(y)
+            backward[name] = (lambda y=y, dy=dy:
+                              torch.autograd.grad(y, params, dy, retain_graph=True))
+        with torch.no_grad():
+            fwd = interleaved_medians(torch, {k: f for k, f in forms.items()}, rounds=3, calls=3)
+        bwd = interleaved_medians(torch, backward, rounds=3, calls=3)
+        times[tag] = {f"({k}) {what}": round(ms[k], 4) for k in forms
+                      for what, ms in (("forward", fwd), ("backward", bwd))}
+        log(f"CrossFormer stem {tag} [{side}² x {cin} -> {side // stride}² x {cout}, kernels "
+            f"{kernels}, stride {stride}, batch {CROSSFORMER_BATCH}]: takes space-to-depth (b); "
+            f"(b) against the merged strided convolution (a) max|b-a|={err:.6g}, within one bf16 "
+            f"unit plus 2e-2*max|ref|; ms {json.dumps(times[tag])}; on {smi}")
+        del layer, x, out, ref, backward
+    torch.cuda.empty_cache()
+    return times
+
+
 def packed_phase(torch, results, smi):
     """The channel-packed flash op at PACKED_SHAPES, seeded bf16 (b, n,
     heads·d) inputs: out and lse against the plain version; dq, dk, dv (the
@@ -2697,7 +2878,8 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
     forward is the loss, of ``loss_of(m)``: each parameter's on the kernel
     path within MAX_GRAD_ERR_VS_PLAIN_BF16 times the plain path's relative
     L2 error against f32, the 0-d ones as one stacked vector and each by
-    :func:`check_temperatures`.  Parameters the loss does not reach (an
+    :func:`check_temperatures`, CrossFormer's DPB tensors each as a stack
+    across its attentions (:func:`stacked_groups`; each on its own printed).  Parameters the loss does not reach (an
     objective's encoder head, a teacher) get a gradient on none of the three.
     Returns the first losses and a summary for the log; raises on a miss."""
     from vit_tpu_torch.parallel.train import cross_entropy_loss
@@ -2721,12 +2903,26 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
         raise AssertionError(f"{tag}: the paths' gradients reach other parameters")
     no_grad = sum(1 for _ in models[0].parameters()) - len(grads["kernels"])
     temperatures = check_temperatures(torch, tag, grads, dict(models[2].named_parameters()))
-    scalars = sorted(k for k, v in grads["f32"].items() if v.dim() == 0)
+    stacks = stacked_groups(grads["f32"])
+    dpb = sorted(k for keys in stacks.values() for k in keys if ".dpb." in k)
+    dpb_text = ""
+    if dpb:  # each DPB tensor on its own, printed, not held
+        ratios = {k: rel_l2(torch, grads["kernels"][k], grads["f32"][k])
+                  / max(rel_l2(torch, grads["plain"][k], grads["f32"][k]), 1e-30) for k in dpb}
+        worst = max(ratios, key=ratios.get)
+        medians = {n: statistics.median(rel_l2(torch, grads[n][k], grads["f32"][k]) for k in dpb
+                                        if not k.endswith("out.bias"))
+                   for n in ("kernels", "plain")}
+        dpb_text = (f"the DPB's {len(dpb)} tensors each on its own (printed, not held): "
+                    f"{sum(r > MAX_GRAD_ERR_VS_PLAIN_BF16 for r in ratios.values())} past "
+                    f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error, worst "
+                    f"{ratios[worst]:.3g} ({worst}), median error but out.bias kernels="
+                    f"{medians['kernels']:.4g} plain={medians['plain']:.4g}; ")
     for name in grads:
-        held = {k: v for k, v in grads[name].items() if k not in scalars}
-        if scalars:
-            held["0-d parameters of every layer, stacked"] = torch.stack(
-                [grads[name][k] for k in scalars])
+        held = {k: v for k, v in grads[name].items()
+                if not any(k in keys for keys in stacks.values())}
+        for label, keys in stacks.items():
+            held[label] = torch.cat([grads[name][k].flatten() for k in keys])
         grads[name] = held
     worst_ratio, worst_name, misses = 0.0, "", []
     for k, ref in grads["f32"].items():
@@ -2746,7 +2942,7 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
                f"kernels/plain={worst_ratio:.3f} ({worst_name}; <= "
                f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); peak GB allocated in the step-1 forward and "
                f"backward (the three models' weights included) kernels={peak['kernels']:.2f} "
-               f"plain={peak['plain']:.2f} f32={peak['f32']:.2f}; {temperatures}")
+               f"plain={peak['plain']:.2f} f32={peak['f32']:.2f}; {temperatures}{dpb_text}")
     if misses:
         raise AssertionError(f"{tag}: kernel-path gradients beyond "
                              f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error: {misses}; "
@@ -2754,9 +2950,25 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
     return first, summary
 
 
-def gradient_phase(torch, tag, vit, cfg, batch, seed, smi):
-    """:func:`step1_gradients` at another seed than the training phase's."""
-    model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed)
+def stacked_groups(grads: dict) -> dict:
+    """The parameters whose step-1 gradients are held as one vector, the
+    stack of them across layers (MAX_GRAD_ERR_VS_PLAIN_BF16's comment says
+    why): ``{label: sorted names}``, the 0-d ones together and each tensor of
+    CrossFormer's dynamic position bias across its attentions."""
+    groups = {}
+    for k, v in grads.items():
+        if v.dim() == 0:
+            groups.setdefault("0-d parameters of every layer, stacked", []).append(k)
+        elif ".dpb." in k:
+            role = k.split(".dpb.")[1]
+            groups.setdefault(f"dpb.{role} of every attention, stacked", []).append(k)
+    return {label: sorted(keys) for label, keys in groups.items()}
+
+
+def gradient_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
+    """:func:`step1_gradients` at another seed than the training phase's, or
+    of another kernel path (``vit``) at its seed, on ``size`` px images."""
+    model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed, size)
     first, summary = step1_gradients(torch, tag, (model, plain, f32), images, labels)
     log(f"gradients {tag}: batch {batch}, seed {seed}; step-1 loss kernels="
         f"{first['kernels']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f}; {summary}"
@@ -2833,6 +3045,16 @@ def train_path(torch, tag, batch, model, plain, first, summary, run_of, optimize
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses} are not finite and falling")
     return launches
+
+
+def crossformer_mlp_kernels(**kw):
+    """``CrossFormer`` with its MLPs on the kernels and its attentions on the
+    plain modules (``fused_attention="never"``, the plain path's): the control
+    of its step-1 gradient check, a bf16 path that shares no attention kernel
+    with the kernel path."""
+    from vit_tpu_torch import CrossFormer
+
+    return CrossFormer(**{"fused_attention": "never", **kw})
 
 
 def t2t_vit(plain=False, distillable=False, **kw):
@@ -3000,7 +3222,8 @@ def kernel_group(name: str) -> str:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
         return ("cuDNN convolutions (SPT; CvT's embeddings and depthwise projections; "
-                "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling)")
+                "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling; "
+                "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems)")
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
         return "cuBLAS GEMM (dW, patch embedding, head; 1x1 convs outside the kernels)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
@@ -3259,7 +3482,7 @@ def main() -> int:
     log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
         f"{json.dumps(ptxas_report(build_log))}")
 
-    from vit_tpu_torch import CvT, ScalableViT, TwinsSVT, ViT
+    from vit_tpu_torch import CrossFormer, CvT, ScalableViT, TwinsSVT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
@@ -3308,6 +3531,8 @@ def main() -> int:
         packed_phase(torch, results, smi)
     with clock("Twins-SVT kernels"):
         twins_kernel_phase(torch, results, smi)
+    with clock("CrossFormer kernels"):
+        crossformer_kernel_phase(torch, results, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -3465,6 +3690,26 @@ def main() -> int:
          {**twins_forward, "fused_mlp_bwd": local + every, "fused_cross_attention_bwd": every,
           "cross backward, split": every,
           **each(local, "fused_attention_block_bwd", "short route")}, size=TWINS_SIZE)
+    # CrossFormer@224: the biased block over the folded windows at every short
+    # attention and at the long ones of at least 8 tokens (stages 1-2), its
+    # dbias at each in a step; the fused MLP at every MLP.
+    cf_layers = sum(CROSSFORMER_DEPTH)
+    biased = cf_layers + sum(d for d, w in zip(CROSSFORMER_DEPTH, CROSSFORMER_GLOBAL)
+                             if w * w >= 8)
+    crossformer_forward = {"fused_mlp": 2 * cf_layers,
+                           **each(biased, "fused_attention_block_bias", "short route, forward")}
+    path("serving CrossFormer", serving_phase, "CrossFormer@224 bf16", CrossFormer, CROSSFORMER,
+         CROSSFORMER_BATCH, 3, 20, smi, counters, crossformer_forward, top1_sign_test=True,
+         size=CROSSFORMER_SIZE)
+    path("training CrossFormer", training_phase, "CrossFormer@224", CrossFormer, CROSSFORMER,
+         CROSSFORMER_BATCH, 21, smi, counters,
+         {**crossformer_forward, "fused_mlp_bwd": 2 * cf_layers,
+          **each(biased, "fused_attention_block_bias_bwd", "short route")},
+         size=CROSSFORMER_SIZE)
+    with clock("gradients CrossFormer, attentions plain"):
+        gradient_phase(torch, "CrossFormer@224, control: the MLPs on the kernels, the "
+                       "attentions plain", crossformer_mlp_kernels, CROSSFORMER,
+                       CROSSFORMER_BATCH, 21, smi, size=CROSSFORMER_SIZE)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -3511,6 +3756,15 @@ def main() -> int:
                       classifier_step(torch, TwinsSVT, TWINS, TWINS_BATCH, TWINS_SIZE),
                       TWINS_BATCH, 0, smi, ln_epilogues=3 * TWINS_BLOCKS[2] + TWINS_BLOCKS[3],
                       ln_passes=3 * (TWINS_BLOCKS[0] + TWINS_BLOCKS[1]), top=12)
+        # CrossFormer: the LayerNorm-backward dgrad in each block and MLP
+        # backward at 256 and 512 (stages 3-4: the short block and both MLPs
+        # of a layer; the long attentions there run plain), the passes at 64
+        # and 128 (stages 1-2: both blocks and both MLPs of a layer).
+        narrow, wide = CROSSFORMER_DEPTH[:2], CROSSFORMER_DEPTH[2:]
+        profile_phase(torch, "CrossFormer@224",
+                      classifier_step(torch, CrossFormer, CROSSFORMER, CROSSFORMER_BATCH,
+                                      CROSSFORMER_SIZE), CROSSFORMER_BATCH, 0, smi,
+                      ln_epilogues=3 * sum(wide), ln_passes=4 * sum(narrow), top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -3574,6 +3828,14 @@ def main() -> int:
                           "fused_cross_attention_bwd")}
     log(f"Twins-SVT's kernels at its shapes (also under by_shape above), ms, on {smi}: "
         + json.dumps(twins))
+    crossformer = {name: {tag.removeprefix("shared, "): {k: v for k, v in r.items() if k in (
+                       "kernel", "unbiased", "plain", "library", "device", "dbias_err",
+                       "dbias_vs_tpu_rel", "dbias_plain_gap_rel")}
+                   | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                   for tag, r in results[name].items() if "CrossFormer" in tag}
+                   for name in ("fused_attention_block_bias", "fused_attention_block_bias_bwd")}
+    log(f"CrossFormer's row 5 at its windows (also under by_bias above), ms, on {smi}: "
+        + json.dumps(crossformer))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,12 +56,13 @@ def test_extract_patches_refuses_unknown_padding():
 
 
 def test_tokenizers_facade():
-    from vit_tpu_torch.models import twins_svt
+    from vit_tpu_torch.models import crossformer, twins_svt
 
     assert tokenizers.extract_patches is extract_patches
     assert tokenizers.PatchEmbedding is twins_svt.PatchEmbedding
+    assert tokenizers.CrossEmbedLayer is crossformer.CrossEmbedLayer
     assert set(tokenizers.__all__) == {"patchify", "unpatchify", "extract_patches", "SPT",
-                                       "PatchEmbedding"}
+                                       "PatchEmbedding", "CrossEmbedLayer"}
 
 
 @pytest.mark.parametrize("pool", ["cls", "mean"])

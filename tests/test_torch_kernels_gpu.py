@@ -472,11 +472,9 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
     """Serving forward, training forward and backward (dbias included; fed the
     training forward's residuals, oattn and lse for the short route) of the
     biased block against their plain versions: the TPU kernel's rounding
-    points, and on the short route (n <= 512) that route's own (D =
-    rowsum(dO∘O), dbias from it); dbias against the route's own, which past
-    512 tokens (mha_bwd, mha_dbias) is the TPU kernel's.  The short route's
-    dbias is not held to the TPU kernel's rounding points: D for dsum moves a
-    per-head dbias by more than DBIAS_REL_TOL (ROADMAP.md's traps)."""
+    points, and on the short route (n <= 512) that route's own (with dbias,
+    dsum = Σ p·dp from the row statistics it takes first); dbias against
+    both, within DBIAS_REL_TOL."""
     b, d, heads, dh = 2, 256, 4, 64
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=4)
     x, gamma, beta, wqkv, wo, bo = args
@@ -510,6 +508,7 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
             dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
         check_outputs(torch, "biased backward, short route", got[:5], own[:5], {0: dy})
     check_dbias(torch, "biased backward", got[5], own[5])
+    check_dbias(torch, "biased backward, TPU rounding points", got[5], ref[5])
     _twice(got, fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads,
                                                     dh, oattn=oattn, lse=lse))
 
@@ -1610,4 +1609,100 @@ def test_twins_svt_serves_and_trains_through_its_kernels(cuda):
         losses.append(float(step(img, labels)["loss"]))
         assert [a - b for a, b in zip(launches(), before)] == [6, 8, 14, 6, 8, 14, 8]
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert losses[2] < losses[0]
+
+
+# CrossFormer's windows at its four stages, batch 4: (groups, n, c), heads of
+# 32 (c / 32 of them), a (1, n, n) position bias the heads share, eps 1e-5.
+# Short 7 x 7 windows (49 tokens) at c 64, 128, 256 and 512; long dilated
+# windows of 8 x 8 and 4 x 4 tokens at c 64 and 128.
+CROSSFORMER_WINDOWS = [(256, 49, 64), (64, 49, 128), (16, 49, 256), (4, 49, 512),
+                       (196, 64, 64), (196, 16, 128)]
+
+
+@pytest.mark.parametrize("groups,n,c", CROSSFORMER_WINDOWS)
+def test_crossformer_window_block_kernels_match_plain(cuda, groups, n, c):
+    """The biased block at dh 32 over folded windows (one 64-key tile, ragged
+    at 16 and 49 tokens) with a shared bias that asks for dbias: the serving
+    and the training forward and the backward fed the training forward's
+    residuals against their plain versions (the TPU kernel's rounding points,
+    and the short route's own: with dbias, dsum = Σ p·dp from the row
+    statistics it takes first), dbias within DBIAS_REL_TOL of both; the
+    backward twice bit for bit,
+    its LayerNorm backward as the dgrad's epilogue at c 256 and 512 and on
+    layernorm.cu's passes at 64 and 128."""
+    from chip_smoke import counted_launches
+
+    heads, dh, eps = c // 32, 32, 1e-5
+    args = _attn_args(groups, n, c, heads, dh, torch.bfloat16, cuda, seed=n + c)
+    x, gamma, _, wqkv, wo, _ = args
+    bias = _bias("shared", heads, n, cuda)
+    scale = dh ** -0.5
+    with torch.inference_mode():
+        out = fused_attention_block_bias(*args, bias, heads, dh, scale, eps)
+        _close(out, fused_attention_block_reference(*args, heads, dh, scale, eps, bias), x)
+        assert torch.equal(out, fused_attention_block_bias(*args, bias, heads, dh, scale, eps))
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, eps, bias,
+                                                    training=True)
+    check_outputs(torch, "crossformer window training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, eps, bias),
+                  {0: x})
+    _, _, qkv, oattn, lse = fwd
+    lse_ref = fused_attention_block_ops.attention_lse_reference(qkv, heads, dh, scale, bias)
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
+    dy = torch.randn(groups, n, c, generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                   scale, eps, oattn=oattn, lse=lse)
+
+    got = kernel()
+    tpu = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                                                   eps, bias)
+    check_outputs(torch, "crossformer window backward", got[:5], tpu[:5], {0: dy})
+    own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
+        dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, eps, bias)
+    check_outputs(torch, "crossformer window backward, short route", got[:5], own[:5], {0: dy})
+    check_dbias(torch, "crossformer window backward", got[5], own[5])
+    check_dbias(torch, "crossformer window backward, TPU rounding points", got[5], tpu[5])
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == ((1, 0) if c >= 256 else (0, 1))
+
+
+def test_crossformer_serves_and_trains_through_its_kernels(cuda):
+    """CrossFormer at its widths (64/128/256/512, heads of 32), depth 1 a
+    stage, 224 px, batch 2: a forward launches the biased block at each
+    short attention (4) and at the long ones of 8 x 8 and 4 x 4 windows (2;
+    stages 3-4's 2 x 2 and 1 x 1 take the plain modules), the fused MLP at
+    each MLP (8); a train step their backwards as often, dbias at each; f32
+    gradients, the position-bias MLPs' among them, and a falling loss."""
+    from vit_tpu_torch import CrossFormer
+
+    cfg = dict(num_classes=10, depth=(1, 1, 1, 1))
+    g = torch.Generator(device=cuda).manual_seed(12)
+    img = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    counters = (fused_attention_block_bias, fused_mlp, fused_attention_block_bias_backward,
+                fused_mlp_backward, fused_attention_block, fused_attention_block_backward)
+
+    def launches():
+        return [c.launches for c in counters]
+
+    served = cast_params(CrossFormer(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(launches(), before)] == [6, 8, 0, 0, 0, 0]
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+    model = CrossFormer(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    losses = []
+    for _ in range(3):
+        before = launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(launches(), before)] == [6, 8, 6, 8, 0, 0]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert model.short_attn_0_0.dpb.fc0.weight.grad.abs().max() > 0
     assert losses[2] < losses[0]

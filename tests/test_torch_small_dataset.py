@@ -128,8 +128,11 @@ def test_biased_backward_outputs_match_jax_kernel(hb):
 # p = e / l normalised before P·V, p recomputed from the forward's lse, D =
 # rowsum(dO∘O) for dsum, dbias from (lse, D); in f32 one function with the TPU
 # kernel's, apart by f32 rounding.  n = 257 is the small-dataset ViT's (two
-# 144-key tiles on the card), 197 ViT-B/16's, 65 one past a 64-key tile.
-SHORT_BIAS_CASES = [(n, hb) for n in (65, 197, 257) for hb in (1, HEADS)]
+# 144-key tiles on the card), 197 ViT-B/16's, 65 one past a 64-key tile; 16,
+# 49 and 64, with a bias the heads share, CrossFormer's windows at dh 32 (its
+# long 4 x 4 and 8 x 8, its short 7 x 7: one 64-key tile, ragged at 16 and 49).
+SHORT_BIAS_CASES = [(n, hb) for n in (65, 197, 257) for hb in (1, HEADS)] + \
+    [(n, 1) for n in (16, 49, 64)]
 
 
 @pytest.mark.parametrize("n,hb", SHORT_BIAS_CASES)

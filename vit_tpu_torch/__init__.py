@@ -19,7 +19,12 @@ its encoder through the block kernels.  ``TwinsSVT`` does both with its
 local attention over 7 x 7 windows folded into the batch through the block
 kernels (49 tokens, eps 1e-5), its reduced global attention through the
 fused cross-attention kernels (8 heads of 64 over 64, 16, 4 and 1 keys),
-and its conv-MLPs through the fused MLP kernels.  The Efficient ViT
+and its conv-MLPs through the fused MLP kernels.  ``CrossFormer`` does both
+with its short (7 x 7) and long (dilated) window attentions through the
+biased block kernels (dim_head 32, its dynamic position bias as the shared
+logits bias and its gradient as the kernel's dbias; windows of fewer than 8
+tokens on the plain modules, as in ``vit_tpu``) and its MLPs, which keep
+their LayerNorm inside, through the fused MLP kernels.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -31,6 +36,7 @@ ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 from vit_tpu_torch.core.helpers import cast_params
 from vit_tpu_torch.interop.from_flax import state_dict_from_flax
 from vit_tpu_torch.models import vit_for_small_dataset
+from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
@@ -43,7 +49,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CvT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CrossFormer", "CvT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

@@ -47,6 +47,8 @@
 //      dsᵀ and accumulate dv = T(p)ᵀ·do and dk = dsᵀ·q.  It reads the bias
 //      transposed, so each (query tile × key tile) bias block is staged
 //      through shared memory with row-wise loads.
+//   The first pass alone (launch_mha_row_stats) gives the short route's
+//   dbias call its (lse, dsum) rows.
 //   3. only when dbias is asked for: mha_bwd_dbias, one CTA per (key tile,
 //      query tile, bias head, part of the (image, head) pairs that share the
 //      bias head), recomputes s and dp and sums ds0 = p·(dp - dsum) (before
@@ -290,8 +292,9 @@ constexpr int dkv_smem_bytes() {
   return bwd_smem_bytes<DH>() + (BIAS ? kBwdTile<DH> * kBiasRow * 4 : 0);
 }
 
-// One CTA per (64-query tile, head, image): row statistics, then dq.
-template <typename T, int DH, bool BIAS>
+// One CTA per (64-query tile, head, image): row statistics, then dq (the
+// statistics alone without DQ: launch_mha_row_stats).
+template <typename T, int DH, bool BIAS, bool DQ = true>
 __global__ void __launch_bounds__(kThreads)
     mha_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
                       const float* __restrict__ bias, size_t bias_hstride,
@@ -382,6 +385,7 @@ __global__ void __launch_bounds__(kThreads)
     const int q = q0 + a0 + lane / 4 + r * 8;
     if (t == 0 && q < n) rowstat[((size_t)b * heads + h) * n + q] = make_float2(lse[r], dsum[r]);
   }
+  if constexpr (!DQ) return;
 
   // Pass 2: dq = Σ_j T(p·(dp - dsum)·scale)·k.
   float dq[DH / 8][4];
@@ -624,6 +628,36 @@ cudaError_t mha_bwd_dispatch(const void* qkv, const void* dout, void* dqkv, floa
   }
 }
 
+template <typename T, int DH, bool BIAS>
+cudaError_t mha_row_stats_t(const void* qkv, const void* dout, float* rowstat, const float* bias,
+                            int hb, int b, int n, int heads, float scale, cudaStream_t stream) {
+  constexpr int bytes = bwd_smem_bytes<DH>();
+  cudaError_t err = allow_smem(mha_bwd_dq_kernel<T, DH, BIAS, false>, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kBQ - 1) / kBQ, heads, b);
+  mha_bwd_dq_kernel<T, DH, BIAS, false><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), bias, bias_stride(hb, n), nullptr,
+      reinterpret_cast<float2*>(rowstat), n, heads, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t mha_row_stats_dispatch(const void* qkv, const void* dout, float* rowstat,
+                                   const float* bias, int hb, int b, int n, int heads,
+                                   int dim_head, float scale, cudaStream_t stream) {
+#define VIT_ROW_STATS(DH)                                                                      \
+  if (dim_head == DH)                                                                          \
+    return bias ? mha_row_stats_t<T, DH, true>(qkv, dout, rowstat, bias, hb, b, n, heads,      \
+                                               scale, stream)                                  \
+                : mha_row_stats_t<T, DH, false>(qkv, dout, rowstat, nullptr, 0, b, n, heads,   \
+                                                scale, stream);
+  VIT_ROW_STATS(32)
+  VIT_ROW_STATS(64)
+  VIT_ROW_STATS(128)
+#undef VIT_ROW_STATS
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, int DH>
 cudaError_t mha_dbias_t(const void* qkv, const void* dout, const float* rowstat,
                         const float* bias, int hb, float* partial, int parts, float* dbias,
@@ -690,6 +724,20 @@ cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float*
   if (dtype == kF16)
     return mha_bwd_dispatch<__half>(qkv, dout, dqkv, rowstat, bias, hb, b, n, heads, dim_head,
                                     scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_mha_row_stats(const void* qkv, const void* dout, float* rowstat,
+                                 const float* bias, int hb, int b, int n, int heads,
+                                 int dim_head, float scale, int dtype, cudaStream_t stream) {
+  if (b < 0 || n < 0 || heads <= 0 || !bias_ok(bias, hb, heads)) return cudaErrorInvalidValue;
+  if (b == 0 || n == 0) return cudaSuccess;
+  if (dtype == kBF16)
+    return mha_row_stats_dispatch<__nv_bfloat16>(qkv, dout, rowstat, bias, hb, b, n, heads,
+                                                 dim_head, scale, stream);
+  if (dtype == kF16)
+    return mha_row_stats_dispatch<__half>(qkv, dout, rowstat, bias, hb, b, n, heads, dim_head,
+                                          scale, stream);
   return cudaErrorInvalidValue;
 }
 

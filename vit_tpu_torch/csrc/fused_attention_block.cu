@@ -59,12 +59,16 @@
 //        two 144-key blocks at 257-288 keys (the small-dataset ViT's 257).
 //        Its D = rowsum(dO∘O) comes from the stored bf16 O, where the TPU
 //        kernel sums dsum = Σ p·dp in f32 (:196-238): the same quantity in
-//        exact arithmetic, apart by O's rounding;
+//        exact arithmetic, apart by O's rounding.  With dbias, whose sum over
+//        the batch does not cancel that rounding (CrossFormer's position
+//        bias trains on it), mha_row_stats (attention.cu, mha_bwd_dq's first
+//        pass) first writes each row's (lse, dsum = Σ p·dp) in f32, and
+//        short_bwd takes that dsum, as the TPU kernel;
 //      - mha (n > 512): mha_bwd (attention.cu), the FA2 split, with dsum =
 //        Σ dp·p in f32 as the TPU kernel.
 //   2b. only when dbias is asked for: mha_dbias   -> dbias (hb, n, n) f32, in a
-//      fixed order, from the row statistics (lse, dsum) the route's backward
-//      wrote: mha_bwd's, or on the short route short_bwd's (lse, D)
+//      fixed order, from the row statistics (lse, dsum): mha_bwd's, or on
+//      the short route mha_row_stats'
 //   3. the dgrad dqkv·Wqkv with the LayerNorm backward as its epilogue, the
 //      f32 dxn kept on chip (gemm_wgmma.cu's kEpiLnBwd; launch_dgrad_ln,
 //      shared with the MLP): dx = T(dy + T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy
@@ -134,7 +138,7 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
 //   dqkv); `lse` (b, heads, n) f32 from the training forward; `dq_part`
 //   (vit_short_attention_parts(n, dim_head), b, heads, n, dim_head) f32
 //   scratch when that is above 1, else null; `rowstat` (b, heads, n, 2) f32
-//   scratch with dbias, else null.
+//   scratch with dbias (the rows' exact dsum), else null.
 // - mha otherwise: `rowstat` (b, heads, n, 2) f32 scratch.
 extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, const void* qkv,
                                              const void* oattn, const float* lse,
@@ -160,6 +164,11 @@ extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, cons
     const char* base = static_cast<const char*>(qkv);
     char* dbase = static_cast<char*>(dqkv);
     const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+    if (dbias) {  // the rows' exact dsum, which short_bwd and mha_dbias read
+      err = launch_mha_row_stats(qkv, doattn, rowstat, bias, hb, b, n, heads, dim_head, scale,
+                                 dtype, stream);
+      if (err != cudaSuccess) return err;
+    }
     err = launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
                            dbase + third, dbase + 2 * third, dq_part, short_strides, b, heads, n,
                            n, dim_head, scale, dtype, stream, bias, hb, dbias ? rowstat : nullptr);

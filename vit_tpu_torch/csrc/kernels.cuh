@@ -271,9 +271,9 @@ cudaError_t launch_short_fwd(const void* q, const void* k, const void* v, void* 
 // (host memory) holds those of q, k, v, out, dout, dq, dk, dv (24 values);
 // `dq_part` (short_attention_parts(n_k, d), b, heads, n_q, d) f32 scratch when
 // that is above 1, else null.  n_q, n_k <= 512, d ∈ {32, 64, 128}.  `bias` as
-// the forward's; with it, a non-null `rowstat` (b, heads, n_q, 2) f32
-// receives each query row's (lse, D = rowsum(dO∘O)), the row statistics
-// launch_mha_dbias reads.
+// the forward's.  Without `rowstat` each query row's dsum is D = rowsum(dO∘O)
+// from the stored out; with it (b, heads, n_q, 2) f32 (a bias only: the dbias
+// call), filled by launch_mha_row_stats, dsum is its Σ_j p·dp in f32.
 cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dq_part, const long long* strides, int b, int heads, int n_q,
@@ -295,9 +295,17 @@ cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float*
                            const float* bias, int hb, int b, int n, int heads, int dim_head,
                            float scale, int dtype, cudaStream_t stream);
 
+// The row statistics of launch_mha_bwd alone (its dq kernel's first pass):
+// `rowstat` (b, heads, n, 2) f32 receives each query row's log-sum-exp and
+// dsum = Σ_j p·dp, both in f32 (dp = dout·vᵀ), the bias added to the logits.
+// The short route's dbias call takes its dsum from them.
+cudaError_t launch_mha_row_stats(const void* qkv, const void* dout, float* rowstat,
+                                 const float* bias, int hb, int b, int n, int heads,
+                                 int dim_head, float scale, int dtype, cudaStream_t stream);
+
 // The bias gradient dbias (hb, n, n) f32 = Σ over images (and over heads when
-// hb == 1) of p·(dp - dsum), after launch_mha_bwd (dsum = Σ dp·p) or
-// launch_short_bwd (D = rowsum(dO∘O)) has filled `rowstat`, in a fixed order:
+// hb == 1) of p·(dp - dsum), after launch_mha_bwd or launch_mha_row_stats has
+// filled `rowstat` with (lse, dsum = Σ dp·p), in a fixed order:
 // per-part sums into `partial` (mha_dbias_parts(...), hb, n, n) f32 scratch,
 // then the parts added in order.
 cudaError_t launch_mha_dbias(const void* qkv, const void* dout, const float* rowstat,

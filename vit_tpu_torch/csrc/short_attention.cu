@@ -64,7 +64,10 @@
 // order.  K and V come once by TMA, the steps' Q, dO and O tiles through a
 // 2-stage mbarrier ring (one stage when one step covers the rows); D =
 // rowsum(dO∘O) (the flash backward's D, flash_backward.py:135) is taken from
-// the staged O and dO.  Per step: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale
+// the staged O and dO, except in the biased block's dbias call, which passes
+// each row's exact dsum = Σ p·dp (attention.cu's row statistics, the TPU
+// kernel's, fused_attention_block.py:224): D's bf16 error does not cancel in
+// dbias's sum over the batch.  Per step: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale
 // - lse), ds = p·(dp - D)·scale; dv += T(pᵀ)·dO, dk += T(dsᵀ)·q, a few
 // queries at a time (none past the last group that holds a query), so that
 // only dk and dv stay in registers across the step; T(ds) goes to shared
@@ -495,7 +498,7 @@ __device__ __forceinline__ void mma_dq(float (&acc)[DC / 8][4], T (*Ps)[BK + 8],
 // of `stages` stages by TMA; it refills a stage as soon as every thread has
 // passed the step's last read of it, so the next step's tiles arrive while
 // this step's dq is computed.  Per step: D = rowsum(dO∘O) from the staged
-// tiles; sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale - lse), ds = p·(dp - D)·
+// tiles (or dsum from `rowstat`); sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale - lse), ds = p·(dp - D)·
 // scale (keys past n_k and queries past n_q: 0); dv += T(pᵀ)·dO, dk +=
 // T(dsᵀ)·q; T(ds) to shared memory query-major; dq = T(ds)·k over the block's
 // keys, split over the warps.
@@ -569,7 +572,7 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
     hopper::mbar_wait(&full[i % stages], (i / stages) & 1);
     // D = rowsum(dO∘O): TPR neighbouring threads a row (one pass covers the
     // step's rows), 16-byte pieces of O and dO each, then a sum over the TPR
-    // lanes.
+    // lanes; for the dbias call the row's dsum = Σ p·dp from `rowstat` instead.
     if (const int r = dr; r < QT) {
       float acc = 0.f;
 #pragma unroll
@@ -586,10 +589,9 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
       }
 #pragma unroll
       for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if constexpr (BIAS)
+        if (rowstat && i0 + r < n_q) acc = rowstat[row0 + i0 + r].y;
       if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
-      if constexpr (BIAS)  // (lse, D) for dbias, written by the first key block
-        if (rowstat && blockIdx.x == 0 && tid % TPR == 0 && i0 + r < n_q)
-          rowstat[row0 + i0 + r] = make_float2(lse_r, acc);
     }
     __syncthreads();  // st is complete; the previous step's reads of Ps are done
 
@@ -745,7 +747,7 @@ __global__ void __launch_bounds__(512, 1)
       const float lse_r = dr < QT && i0 + dr < n_q ? lse[(size_t)pi * n_q + i0 + dr] : 0.f;
       hopper::mbar_wait(&full[gs % S], (gs / S) & 1);
       if (const int r = dr; r < QT) {  // D = rowsum(dO∘O), TPR threads a row
-        float acc = 0.f;
+        float acc = 0.f;                 // (the dbias call: dsum from rowstat)
 #pragma unroll
         for (int c = 8 * (tid % TPR); c < D; c += 8 * TPR) {
           const uint32_t off = tile_addr<QT, D>(0, r, c);
@@ -760,10 +762,9 @@ __global__ void __launch_bounds__(512, 1)
         }
 #pragma unroll
         for (int o = TPR / 2; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if constexpr (BIAS)
+          if (rowstat && i0 + r < n_q) acc = rowstat[(size_t)pi * n_q + i0 + r].y;
         if (tid % TPR == 0) st[r] = i0 + r < n_q ? make_float2(lse_r, acc) : make_float2(0.f, 0.f);
-        if constexpr (BIAS)  // (lse, D) for dbias
-          if (rowstat && tid % TPR == 0 && i0 + r < n_q)
-            rowstat[(size_t)pi * n_q + i0 + r] = make_float2(lse_r, acc);
       }
       // st is complete; the previous step's reads of T(ds) (and at a pair's
       // first step, every read of the previous pair's K and V) are done.

@@ -3,7 +3,8 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.vit_for_small_dataset.ViT``, ``vit_tpu.models.cvt.CvT``,
 ``vit_tpu.models.scalable_vit.ScalableViT``,
 ``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``,
-``vit_tpu.models.twins_svt.TwinsSVT``, the
+``vit_tpu.models.twins_svt.TwinsSVT``,
+``vit_tpu.models.crossformer.CrossFormer``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -38,7 +39,11 @@ and ``norm`` keep their names.  Twins-SVT's
 map to ``layers.{i}.…`` under each ``s{s}_pre_transformer`` and
 ``s{s}_transformer`` (``s3_transformer/global_attn_4/to_kv`` →
 ``s3_transformer.layers.4.global_attn.to_kv``); ``s{s}_embed/proj``,
-``s{s}_peg/proj`` and ``head`` keep their names.  ``to_out`` maps to ``to_out.0`` (the
+``s{s}_peg/proj`` and ``head`` keep their names.  CrossFormer's modules sit at
+the top and keep their names: ``cel_{s}/conv_{i}``,
+``{short,long}_attn_{s}_{i}/{norm,to_qkv,to_out,dpb}`` (the DPB's
+``fc{0,1,2}``, ``norm{0,1,2}`` and ``out``), ``{short,long}_ff_{s}_{i}/{norm,fc1,fc2}``
+and ``head``.  ``to_out`` maps to ``to_out.0`` (the
 projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.

@@ -1,5 +1,6 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT and Twins-SVT need).
+``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT and
+CrossFormer need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -344,8 +345,9 @@ def windowed_attention_eligible(x: torch.Tensor, attn: nn.Module, mode: str = "a
     """The gate of the windowed fused-attention path
     (``vit_tpu/layers/common.py:369-397``), for a model that folds windows
     of ``x`` into the batch and runs the fused attention block over them
-    (Twins-SVT's local attention): no active dropout (``attn`` has a
-    ``dropout_active`` property), on an activation the kernels take.
+    (Twins-SVT's local attention, CrossFormer's short and long ones): no
+    active dropout (``attn`` has a ``dropout_active`` property), on an
+    activation the kernels take.
     ``vit_tpu``'s ``d >= 64``, ``n <= 512`` and ``groups·n >= 2048`` gates
     were a v5e's lane, VMEM and grid reasons and do not carry over: the
     port's block takes any n (past 512 tokens on its mha route,
@@ -364,22 +366,26 @@ def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP,
     return x + mlp(norm(x))
 
 
-def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm, mlp: nn.Module,
+def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None, mlp: nn.Module,
                             mode: str = "auto") -> torch.Tensor:
     """``x + mlp(norm(x))`` over an NHWC map, where ``mlp`` is a conv-MLP
     (``fc1`` and ``fc2`` 1x1 :class:`Conv` s, a ``dropout_active`` property):
     with :func:`fused_mlp_eligible`'s gate, through the fused MLP kernel on
     the ``(b, H·W, c)`` view, with the :class:`ChannelLayerNorm`'s eps
     (``vit_tpu/layers/common.py:400-452``); else the plain modules.
+    ``norm=None`` is ``vit_tpu``'s form for an MLP that holds its LayerNorm
+    as ``mlp.norm`` (CrossFormer's, ``:413-415``, ``:437-441``): ``x +
+    mlp(x)``, the kernel taking that norm's g, b and eps.
     ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
     sublane reasons and do not carry over: every 16-bit CUDA call goes to the
     kernel."""
     if not fused_mlp_eligible(x, mlp, mode):
-        return x + mlp(norm(x))
+        return x + mlp(x if norm is None else norm(x))
+    ln = mlp.norm if norm is None else norm
     b, h, w, c = x.shape
-    y = fused_mlp(x.reshape(b, h * w, c).contiguous(), norm.g, norm.b, cast_to(mlp.fc1.weight, x).flatten(1),
-                  cast_to(mlp.fc1.bias, x), cast_to(mlp.fc2.weight, x).flatten(1),
-                  cast_to(mlp.fc2.bias, x), norm.eps)
+    y = fused_mlp(x.reshape(b, h * w, c).contiguous(), ln.g, ln.b,
+                  cast_to(mlp.fc1.weight, x).flatten(1), cast_to(mlp.fc1.bias, x),
+                  cast_to(mlp.fc2.weight, x).flatten(1), cast_to(mlp.fc2.bias, x), ln.eps)
     return y.reshape(b, h, w, c)
 
 

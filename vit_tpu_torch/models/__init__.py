@@ -1,5 +1,6 @@
 """Models of the PyTorch port (mirrors vit_tpu.models)."""
 
+from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 
-__all__ = ["TwinsSVT"]
+__all__ = ["CrossFormer", "TwinsSVT"]

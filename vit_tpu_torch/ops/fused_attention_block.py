@@ -22,8 +22,9 @@ both directions (:func:`attention_route`, counted in ``FORWARD_ROUTES`` and
 ``short_bwd`` of ``csrc/short_attention.cu`` over strided views of the packed
 qkv (:func:`short_forward_views`, :func:`short_route_views`), the bias read
 into their score fragments, the training forward keeping the lse the
-backward reads, and dbias from the row statistics (lse, D) ``short_bwd``
-writes (their plain versions
+backward reads; for the dbias call the rows' exact (lse, dsum = Σ p·dp) come
+first (``attention.cu``'s row statistics, the first pass of ``mha_bwd``),
+and ``short_bwd`` and the dbias kernel read them (their plain versions
 :func:`fused_attention_block_short_forward_reference` and
 :func:`fused_attention_block_short_backward_reference`); past 512 tokens,
 ``mha_fwd`` and ``mha_bwd`` of ``csrc/attention.cu``.
@@ -55,14 +56,14 @@ for dq and dk, each rounded; the qkv dgrad ``dxn`` kept in f32; dγ, dβ and dbo
 summed in f32.  The short route takes ``p = exp(s·scale + bias - lse)`` from the
 forward's f32 lse and ``D = rowsum(dO∘O)`` from the stored, rounded attention
 output in place of dsum: the same quantity in exact arithmetic, apart by O's
-rounding in bf16.  The TPU padded odd token counts on the host and masked with
+rounding in bf16; with dbias it takes dsum, as the TPU kernel, since D's
+rounding does not cancel in dbias's sum over the batch.  The TPU padded odd token counts on the host and masked with
 -1e30; the CUDA kernels mask ragged keys themselves with -inf.  The bias,
 ``(hb, n, n)`` f32 with hb 1 (shared by the heads) or ``heads``, is added in
 f32 to the scaled f32 logits before the row max, in the forward and in the
 backward's recomputed softmax; its gradient ``dbias`` is the f32 sum over the
 batch (and over the heads when hb = 1) of ``p·(dp - dsum)``, taken before
-the scale (on the short route with ``D`` for dsum), computed only when asked
-for.
+the scale, computed only when asked for.
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def attention_route(n: int) -> str:
     without a logits bias: ``"short"``
     (``short_fwd``, whole rows, keeping lse in training; ``short_bwd``, one
     recompute of p per key block from that lse; the bias added in both, dbias
-    from ``short_bwd``'s row statistics) for a block of at most 512 tokens
+    from the rows' exact (lse, dsum) taken first) for a block of at most 512 tokens
     (ViT-B/32's 65, ViT-B/16's 197, the small-dataset ViT's 257); ``"mha"``
     (``mha_fwd`` and ``mha_bwd``, any n) past them.  By shape only, so the
     lse and O that ``short_bwd`` reads always come from ``short_fwd``.  With
@@ -328,8 +329,10 @@ def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma
     ``D = rowsum(dO∘O)`` from the stored attention output ``oattn``, where
     the TPU kernel sums ``dsum = Σ dp·p``; each product's output rounded as
     the kernel rounds it.  With a ``bias``, ``dbias`` follows in f32 (``None``
-    unless ``need_dbias``), ``p·(dp - D)`` summed as the kernel's dbias pass
-    sums it.  In f32 the two are one function."""
+    unless ``need_dbias``); the dbias call takes ``dsum = Σ softmax·dp`` in
+    f32 (the row statistics it computes first) in place of D, and sums
+    ``p·(dp - dsum)`` as the kernel's dbias pass sums it.  In f32 the two
+    are one function."""
     if scale is None:
         scale = dim_head ** -0.5
     d = x.shape[-1]

@@ -99,17 +99,24 @@ def short_attention_backward_reference(q, k, v, o, lse, do, scale: float, bias=N
     ``do``; without a bias the flash backward's function and rounding points
     (:func:`flash_backward_reference`).  With an f32 ``(1 | h, n_q, n_k)``
     ``bias`` (the attention block's), ``p = exp(s·scale + bias - lse)``, and
-    with ``need_dbias`` a fourth result, ``dbias`` f32 of the bias's shape:
-    ``p·(dp - D)`` (before the scale, ``D = rowsum(dO∘O)``) summed over the
-    images, and over the heads for a shared bias, as the row statistics the
-    kernel writes (lse, D) give it to the dbias kernel."""
+    ``ds = p·(dp - dsum)`` with ``dsum = D = rowsum(dO∘O)``; with
+    ``need_dbias`` (the dbias call) ``dsum = Σ_j softmax(s·scale + bias)·dp``
+    in f32, the row statistics the block's backward takes first (as the TPU
+    kernel sums it), and a fourth result, ``dbias`` f32 of the bias's shape:
+    ``p·(dp - dsum)`` (before the scale) summed over the images, and over the
+    heads for a shared bias."""
     if bias is None:
         return flash_backward_reference(q, k, v, o, lse, do, scale)
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    dsum = (dof * o.float()).sum(-1, keepdim=True)  # D = rowsum(dO∘O)
-    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale + bias.float() - lse[..., None])
-    ds0 = p * (dof @ vf.transpose(-1, -2) - dsum)  # d(loss)/d(logits), before the scale
+    s = (qf @ kf.transpose(-1, -2)) * scale + bias.float()
+    dp = dof @ vf.transpose(-1, -2)
+    if need_dbias:  # the row statistics' dsum = Σ p·dp
+        dsum = (torch.softmax(s, dim=-1) * dp).sum(-1, keepdim=True)
+    else:  # D = rowsum(dO∘O)
+        dsum = (dof * o.float()).sum(-1, keepdim=True)
+    p = torch.exp(s - lse[..., None])
+    ds0 = p * (dp - dsum)  # d(loss)/d(logits), before the scale
     ds = (ds0 * scale).to(dt).float()
     grads = ((ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt),
              (p.to(dt).float().transpose(-1, -2) @ dof).to(dt))

@@ -7,14 +7,17 @@
   semantics; T2T-ViT's, :class:`vit_tpu_torch.models.t2t.T2TViT`);
 - shifted-patch tokenization: :class:`SPT` (the small-dataset ViT's);
 - space-to-depth patch merging: :class:`PatchEmbedding` (Twins-SVT's,
-  ``(c p1 p2)`` channel order, then a 1x1 convolution).
+  ``(c p1 p2)`` channel order, then a 1x1 convolution);
+- cross-scale embedding: :class:`CrossEmbedLayer` (CrossFormer's,
+  convolutions of several kernel sizes at one stride, merged into one).
 
-``vit_tpu``'s ``CrossEmbedLayer`` (CrossFormer) and ``ConvNxNBN``
-(MobileViT) come with the port of their models.
+``vit_tpu``'s ``ConvNxNBN`` (MobileViT) comes with the port of its model.
 """
 
+from vit_tpu_torch.models.crossformer import CrossEmbedLayer
 from vit_tpu_torch.models.twins_svt import PatchEmbedding
 from vit_tpu_torch.models.vit_for_small_dataset import SPT
 from vit_tpu_torch.ops.patchify import extract_patches, patchify, unpatchify
 
-__all__ = ["patchify", "unpatchify", "extract_patches", "SPT", "PatchEmbedding"]
+__all__ = ["patchify", "unpatchify", "extract_patches", "SPT", "PatchEmbedding",
+           "CrossEmbedLayer"]
