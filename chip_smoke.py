@@ -204,9 +204,23 @@ Phases, one line each (any failure raises and exits non-zero):
    step their backwards as often, dbias at each; the DPB tensors' step-1
    gradients held stacked across the attentions (:func:`stacked_groups`),
    and the same check on a control path with only the MLPs on the kernels.
-23. profile: ``torch.profiler`` over train steps at fifteen training configs
+23. RegionViT (``benchmarks/run_benchmarks.py:79-82``, ``RegionViT(
+   num_classes=1000)``: dims 64/128/256/512, depths 2/2/8/2, window 7, local
+   patch 4, 4 heads of 32) at 224 px, batch 64.  First its kernels
+   (:func:`regionvit_kernel_phase`): the block at its four region
+   self-attentions (64 groups of 64, 16, 4 and 1 tokens) as phases 3 and 4
+   hold it, the one-key block's dq and dk held to 0 exactly; the biased
+   block at its four joint attentions (4096 | 1024 | 256 | 64 windows of 50
+   tokens, a per-head (4, 50, 50) bias asking for dbias) as phase 8 holds
+   it.  Then serving as phase 5 and training as phase 7 (plain path
+   ``"never"``, top-1 by the sign test): a forward launches the block 14
+   times and the biased block 14 (both attentions of each layer; its MLPs
+   plain, as in vit_tpu), a step their backwards as often, dbias at each;
+   the position tables' step-1 errors printed.
+24. profile: ``torch.profiler`` over train steps at sixteen training configs
    (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224 and 384,
-   ScalableViT, the four objectives, T2T-ViT, Twins-SVT, CrossFormer); device time and launches per
+   ScalableViT, the four objectives, T2T-ViT, Twins-SVT, CrossFormer,
+   RegionViT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -216,15 +230,15 @@ Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
-CrossFormer; the blocks past 512 tokens)
+CrossFormer, RegionViT (serving and training); the blocks past 512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
 tokens).  The line before the last is the card as ``nvidia-smi`` names it; before that
-CrossFormer's and Twins-SVT's kernel times at their shapes beside the card's
-name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
+RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
+beside the card's name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound (the kernels rebuilt on wgmma and TMA also name their
 ``design``), after a line that cites the earlier designs' times from PERF.md,
 constants that this run did not measure.  The last line is
@@ -972,6 +986,16 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
         err = check_outputs(torch, name, out, plain(), {0: dy})
         if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
             raise AssertionError(f"{name}: two runs differ")
+        one_key = ""
+        if name == "fused_attention_block_bwd" and n == 1:
+            # One key: the softmax is 1 and ds = p·(dp - Σ p·dp) = 0, so dq
+            # and dk are 0 exactly in the TPU kernel and its plain version.
+            dq, dk = out[1][..., :inner], out[1][..., inner:2 * inner]
+            if torch.count_nonzero(dq) or torch.count_nonzero(dk):
+                raise AssertionError(f"{name} over one key: dq and dk must be 0 exactly, got "
+                                     f"max|dq|={dq.abs().max().item():.6g} "
+                                     f"max|dk|={dk.abs().max().item():.6g}")
+            one_key = "; one key: dq and dk exactly 0"
         # PyTorch's LayerNorm backward timed on the f32 dxn (dh·W1 or
         # dqkv·Wqkv, from its own output).
         rows, device, ln = check_ln_backward(torch, name, kernel, d)
@@ -989,7 +1013,7 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
         log(f"backward {name} [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} h={hidden} "
             f"eps={eps:g}]: fed the forward kernel's residuals{via}; max|kernel-plain| over the "
             f"outputs={err:.6g}, each within one unit plus 2e-2*max|its own part|, the same bits "
-            f"in two runs; ms kernel={ms['kernel']:.4f} "
+            f"in two runs{one_key}; ms kernel={ms['kernel']:.4f} "
             f"plain={ms['plain']:.4f} autograd through the bf16 modules for the same outputs="
             f"{ms['library']:.4f}; with the weight gradients: kernel+dW GEMMs="
             f"{ms['whole']:.4f} autograd={ms['library_whole']:.4f}; bound={limit:.4f} ({by}); "
@@ -2200,6 +2224,54 @@ def crossformer_stem_phase(torch, smi):
     return times
 
 
+
+# RegionViT as benchmarks/run_benchmarks.py:79-82 builds it, RegionViT(
+# num_classes=1000), vit_tpu's defaults: dims 64/128/256/512, depths 2/2/8/2,
+# window 7, local patch 4, 4 heads of 32 (inner 128), LayerNorms at eps 1e-3;
+# at 224 px and the benchmark's batch 64 (run_benchmarks.py:337).
+REGIONVIT = dict(num_classes=1000)
+REGIONVIT_SIZE = 224
+REGIONVIT_BATCH = 64
+REGIONVIT_DEPTH = (2, 2, 8, 2)
+# (tag, groups, n, c): its two attentions a layer, one module between them.
+# The region self-attention on the block (rows 3-4): one group an image of
+# 8², 4², 2² and 1 region tokens.  The joint attention on the biased block
+# (row 5): each region token before its 7 x 7 window of local tokens (50
+# tokens), the windows folded into the batch, a per-head (4, 50, 50)
+# position bias that trains (dbias).
+REGIONVIT_REGION_SHAPES = [
+    ("RegionViT region stage 1", 64, 64, 64),
+    ("RegionViT region stage 2", 64, 16, 128),
+    ("RegionViT region stage 3", 64, 4, 256),
+    ("RegionViT region stage 4", 64, 1, 512),
+]
+REGIONVIT_JOINT_SHAPES = [
+    ("RegionViT joint stage 1", 4096, 50, 64),
+    ("RegionViT joint stage 2", 1024, 50, 128),
+    ("RegionViT joint stage 3", 256, 50, 256),
+    ("RegionViT joint stage 4", 64, 50, 512),
+]
+
+
+def regionvit_kernel_phase(torch, results, smi):
+    """Rows 3-5 at RegionViT's attentions, batch 64, seeded bf16 inputs, 4
+    heads of 32, eps 1e-3: the block at the four region self-attentions
+    (REGIONVIT_REGION_SHAPES; 64, 16, 4 and 1 tokens, each one 64-key tile
+    of the short route), serving and training forwards and backwards as
+    :func:`kernel_phase` and :func:`backward_phase` hold them (the one-key
+    block's dq and dk held to 0 exactly there); then the biased block at the
+    four joint attentions (REGIONVIT_JOINT_SHAPES) with a per-head random f32
+    bias that asks for dbias, as :func:`biased_phase` holds it (dbias within
+    DBIAS_REL_TOL of both plain versions, twice bit for bit), timed beside
+    the unbiased kernel, the plain version and the bf16 modules with SDPA."""
+    for tag, groups, n, c in REGIONVIT_REGION_SHAPES:
+        for phase in (kernel_phase, backward_phase):
+            phase(torch, tag, groups, n, c, 4, 32, 4 * c, results,
+                  kernels=("fused_attention_block",))
+    for tag, groups, n, c in REGIONVIT_JOINT_SHAPES:
+        biased_phase(torch, groups, n, c, 4, 32, 4 * c, results, tag=tag, kinds=("per-head",))
+        torch.cuda.empty_cache()
+
 def packed_phase(torch, results, smi):
     """The channel-packed flash op at PACKED_SHAPES, seeded bf16 (b, n,
     heads·d) inputs: out and lse against the plain version; dq, dk, dv (the
@@ -2918,6 +2990,12 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
                     f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error, worst "
                     f"{ratios[worst]:.3g} ({worst}), median error but out.bias kernels="
                     f"{medians['kernels']:.4g} plain={medians['plain']:.4g}; ")
+    tables = sorted(k for k in grads["f32"] if "local_rel_pos_bias" in k)
+    table_text = ""
+    if tables:  # RegionViT's position tables, each held on its own below
+        table_text = "the position tables' relative L2 errors, kernels / plain: " + ", ".join(
+            f"{k.split('.')[0]} {rel_l2(torch, grads['kernels'][k], grads['f32'][k]):.4g} / "
+            f"{rel_l2(torch, grads['plain'][k], grads['f32'][k]):.4g}" for k in tables) + "; "
     for name in grads:
         held = {k: v for k, v in grads[name].items()
                 if not any(k in keys for keys in stacks.values())}
@@ -2942,7 +3020,8 @@ def step1_gradients(torch, tag, models, images, labels, loss_of=None):
                f"kernels/plain={worst_ratio:.3f} ({worst_name}; <= "
                f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); peak GB allocated in the step-1 forward and "
                f"backward (the three models' weights included) kernels={peak['kernels']:.2f} "
-               f"plain={peak['plain']:.2f} f32={peak['f32']:.2f}; {temperatures}{dpb_text}")
+               f"plain={peak['plain']:.2f} f32={peak['f32']:.2f}; {temperatures}{dpb_text}"
+               f"{table_text}")
     if misses:
         raise AssertionError(f"{tag}: kernel-path gradients beyond "
                              f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error: {misses}; "
@@ -3482,7 +3561,7 @@ def main() -> int:
     log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
         f"{json.dumps(ptxas_report(build_log))}")
 
-    from vit_tpu_torch import CrossFormer, CvT, ScalableViT, TwinsSVT, ViT
+    from vit_tpu_torch import CrossFormer, CvT, RegionViT, ScalableViT, TwinsSVT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
@@ -3533,6 +3612,8 @@ def main() -> int:
         twins_kernel_phase(torch, results, smi)
     with clock("CrossFormer kernels"):
         crossformer_kernel_phase(torch, results, smi)
+    with clock("RegionViT kernels"):
+        regionvit_kernel_phase(torch, results, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -3710,6 +3791,20 @@ def main() -> int:
         gradient_phase(torch, "CrossFormer@224, control: the MLPs on the kernels, the "
                        "attentions plain", crossformer_mlp_kernels, CROSSFORMER,
                        CROSSFORMER_BATCH, 21, smi, size=CROSSFORMER_SIZE)
+    # RegionViT@224: in every layer the block at the region self-attention and
+    # the biased block at the joint attention (per-head bias, dbias at each
+    # in a step); its MLPs plain.
+    rv_layers = sum(REGIONVIT_DEPTH)
+    regionvit_forward = {"short route, forward": 2 * rv_layers,
+                         **each(rv_layers, "fused_attention_block", "fused_attention_block_bias")}
+    rv = dict(plain_kw=dict(fused_attention="never"), size=REGIONVIT_SIZE)
+    path("serving RegionViT", serving_phase, "RegionViT@224 bf16", RegionViT, REGIONVIT,
+         REGIONVIT_BATCH, 3, 22, smi, counters, regionvit_forward, top1_sign_test=True, **rv)
+    path("training RegionViT", training_phase, "RegionViT@224", RegionViT, REGIONVIT,
+         REGIONVIT_BATCH, 23, smi, counters,
+         {**regionvit_forward, "short route": 2 * rv_layers,
+          **each(rv_layers, "fused_attention_block_bwd", "fused_attention_block_bias_bwd")},
+         **rv)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -3765,6 +3860,14 @@ def main() -> int:
                       classifier_step(torch, CrossFormer, CROSSFORMER, CROSSFORMER_BATCH,
                                       CROSSFORMER_SIZE), CROSSFORMER_BATCH, 0, smi,
                       ln_epilogues=3 * sum(wide), ln_passes=4 * sum(narrow), top=12)
+        # RegionViT: the LayerNorm-backward dgrad in both blocks of a layer at
+        # 256 and 512 (stages 3-4), the passes at 64 and 128 (stages 1-2); its
+        # MLPs' LayerNorms run outside the kernels.
+        narrow, wide = REGIONVIT_DEPTH[:2], REGIONVIT_DEPTH[2:]
+        profile_phase(torch, "RegionViT@224",
+                      classifier_step(torch, RegionViT, REGIONVIT, REGIONVIT_BATCH,
+                                      REGIONVIT_SIZE), REGIONVIT_BATCH, 0, smi,
+                      ln_epilogues=2 * sum(wide), ln_passes=2 * sum(narrow), top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -3836,6 +3939,15 @@ def main() -> int:
                    for name in ("fused_attention_block_bias", "fused_attention_block_bias_bwd")}
     log(f"CrossFormer's row 5 at its windows (also under by_bias above), ms, on {smi}: "
         + json.dumps(crossformer))
+    regionvit = {name: {tag.removeprefix("per-head, "): {k: v for k, v in r.items() if k in (
+                     "kernel", "unbiased", "plain", "library", "modules", "device", "dbias_err",
+                     "dbias_vs_tpu_rel", "dbias_plain_gap_rel")}
+                 | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                 for tag, r in results[name].items() if "RegionViT" in tag and "bound" in r}
+                 for name in ("fused_attention_block", "fused_attention_block_bwd",
+                              "fused_attention_block_bias", "fused_attention_block_bias_bwd")}
+    log(f"RegionViT's rows 3-5 at its attentions (also under by_shape and by_bias above), ms, "
+        f"on {smi}: " + json.dumps(regionvit))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1706,3 +1706,127 @@ def test_crossformer_serves_and_trains_through_its_kernels(cuda):
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert model.short_attn_0_0.dpb.fc0.weight.grad.abs().max() > 0
     assert losses[2] < losses[0]
+
+
+# RegionViT's attentions at its four stages, batch 4, 4 heads of 32, eps
+# 1e-3: the region self-attention on the block, one group an image of 64, 16,
+# 4 and 1 tokens (c 64, 128, 256, 512); the joint attention on the biased
+# block, 50 tokens (a region token and its 7 x 7 window) over 4 images'
+# windows, a per-head (4, 50, 50) bias that asks for dbias.
+REGIONVIT_REGIONS = [(4, 64, 64), (4, 16, 128), (4, 4, 256), (4, 1, 512)]
+REGIONVIT_JOINTS = [(256, 64), (64, 128), (16, 256), (4, 512)]
+
+
+@pytest.mark.parametrize("groups,n,c", REGIONVIT_REGIONS)
+def test_regionvit_region_block_kernels_match_plain(cuda, groups, n, c):
+    """The unbiased block at dh 32 over 64, 16, 4 and 1 tokens (one 64-key
+    tile, mostly padding): the serving and the training forward and the
+    backward fed the training forward's residuals against their plain
+    versions (the TPU kernel's rounding points and the short route's own),
+    twice bit for bit; over one key dq and dk are 0 exactly, as the TPU
+    kernel's softmax over one key gives them."""
+    heads, dh, inner = 4, 32, 128
+    args = _attn_args(groups, n, c, heads, dh, torch.bfloat16, cuda, seed=n + c)
+    x, gamma, _, wqkv, wo, _ = args
+    with torch.inference_mode():
+        out = fused_attention_block(*args, heads, dh)
+        _close(out, fused_attention_block_reference(*args, heads, dh), x)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3,
+                                                    training=True)
+    check_outputs(torch, "regionvit region training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh), {0: x})
+    _, _, qkv, oattn, lse = fwd
+    dy = torch.randn(groups, n, c, generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh,
+                                              oattn=oattn, lse=lse)
+
+    got = kernel()
+    check_outputs(torch, "regionvit region backward", got,
+                  fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
+                                                           dh), {0: dy})
+    check_outputs(torch, "regionvit region backward, short route", got,
+                  fused_attention_block_ops.fused_attention_block_short_backward_reference(
+                      dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh), {0: dy})
+    _twice(got, kernel())
+    if n == 1:
+        assert torch.count_nonzero(got[1][..., :2 * inner]) == 0
+
+
+@pytest.mark.parametrize("groups,c", REGIONVIT_JOINTS)
+def test_regionvit_joint_block_kernels_match_plain(cuda, groups, c):
+    """The biased block at dh 32 over 50 tokens with a per-head bias that asks
+    for dbias (hb = heads): the forwards and the backward against their plain
+    versions, dbias within DBIAS_REL_TOL of both, the backward twice bit for
+    bit."""
+    heads, dh, n = 4, 32, 50
+    args = _attn_args(groups, n, c, heads, dh, torch.bfloat16, cuda, seed=c)
+    x, gamma, _, wqkv, wo, _ = args
+    bias = _bias("per-head", heads, n, cuda)
+    with torch.inference_mode():
+        out = fused_attention_block_bias(*args, bias, heads, dh)
+        _close(out, fused_attention_block_reference(*args, heads, dh, bias=bias), x)
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, dh ** -0.5, 1e-3, bias,
+                                                    training=True)
+    check_outputs(torch, "regionvit joint training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, bias=bias), {0: x})
+    _, _, qkv, oattn, lse = fwd
+    dy = torch.randn(groups, n, c, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                   oattn=oattn, lse=lse)
+
+    got = kernel()
+    tpu = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh,
+                                                   bias=bias)
+    own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
+        dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
+    check_outputs(torch, "regionvit joint backward", got[:5], tpu[:5], {0: dy})
+    check_outputs(torch, "regionvit joint backward, short route", got[:5], own[:5], {0: dy})
+    check_dbias(torch, "regionvit joint backward", got[5], own[5])
+    check_dbias(torch, "regionvit joint backward, TPU rounding points", got[5], tpu[5])
+    assert got[5].shape == (heads, n, n)
+    _twice(got, kernel())
+
+
+def test_regionvit_serves_and_trains_through_its_kernels(cuda):
+    """RegionViT at its widths (64/128/256/512, 4 heads of 32), depth 1 a
+    stage, 224 px, batch 2, served first (the position index made under
+    inference mode serves training after it): a forward launches the block
+    at each region self-attention (4) and the biased block at each joint
+    attention (4), a train step their backwards as often, dbias at each; f32
+    gradients, the position tables' of stages 1-3 among them, and a falling
+    loss."""
+    from vit_tpu_torch import RegionViT
+
+    cfg = dict(num_classes=10, depth=(1, 1, 1, 1))
+    g = torch.Generator(device=cuda).manual_seed(13)
+    img = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    counters = (fused_attention_block, fused_attention_block_bias, fused_attention_block_backward,
+                fused_attention_block_bias_backward, fused_mlp, fused_mlp_backward)
+
+    def launches():
+        return [c.launches for c in counters]
+
+    served = cast_params(RegionViT(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(launches(), before)] == [4, 4, 0, 0, 0, 0]
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+    model = RegionViT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    losses = []
+    for _ in range(3):
+        before = launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(launches(), before)] == [4, 4, 4, 4, 0, 0]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert all(getattr(model, f"transformer_{s}").local_rel_pos_bias.weight.grad.abs().max() > 0
+               for s in range(3))
+    assert losses[2] < losses[0]

@@ -24,7 +24,12 @@ with its short (7 x 7) and long (dilated) window attentions through the
 biased block kernels (dim_head 32, its dynamic position bias as the shared
 logits bias and its gradient as the kernel's dbias; windows of fewer than 8
 tokens on the plain modules, as in ``vit_tpu``) and its MLPs, which keep
-their LayerNorm inside, through the fused MLP kernels.  The Efficient ViT
+their LayerNorm inside, through the fused MLP kernels.  ``RegionViT`` does
+both with both attentions of every layer through the block kernels (dim_head
+32): the region self-attention unbiased (64, 16, 4 and 1 tokens an image at
+224 px), the joint attention of each region token and its 7 x 7 window
+biased by its per-head relative position table, whose gradient comes back
+as the kernel's dbias; its MLPs stay plain, as in ``vit_tpu``.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -38,6 +43,7 @@ from vit_tpu_torch.interop.from_flax import state_dict_from_flax
 from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
+from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
@@ -49,7 +55,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CrossFormer", "CvT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CrossFormer", "CvT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

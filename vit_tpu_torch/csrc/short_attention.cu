@@ -501,7 +501,9 @@ __device__ __forceinline__ void mma_dq(float (&acc)[DC / 8][4], T (*Ps)[BK + 8],
 // tiles (or dsum from `rowstat`); sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, p = exp(s·scale - lse), ds = p·(dp - D)·
 // scale (keys past n_k and queries past n_q: 0); dv += T(pᵀ)·dO, dk +=
 // T(dsᵀ)·q; T(ds) to shared memory query-major; dq = T(ds)·k over the block's
-// keys, split over the warps.
+// keys, split over the warps.  Over one key (n_k = 1) p = 1 and ds = 0
+// exactly, the TPU kernel's own softmax and dsum = Σ p·dp (from lse and D
+// they are 1 and dp only to rounding, which left dq and dk as noise).
 template <typename T, int D, int BK, int QT, bool BIAS>
 __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ? 2 : 1)
     short_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -611,14 +613,16 @@ __global__ void __launch_bounds__(2 * BK, D > 64 ? 1 : BK == 64 ? 3 : BK == 80 ?
           const int key = j0 + a0 + g + (e / 2) * 8;
           const float2 rs = st[qi];
           float p;
-          if constexpr (BIAS)
+          if (n_k == 1)  // the row's own softmax over one key: 1, and ds = 0 below
+            p = i0 + qi < n_q && key < n_k ? 1.f : 0.f;
+          else if constexpr (BIAS)
             p = i0 + qi < n_q && key < n_k
                     ? expf(s[j][e] * scale + __ldg(bias_h + (size_t)(i0 + qi) * n_k + key) - rs.x)
                     : 0.f;
           else
             p = i0 + qi < n_q && key < n_k ? expf(s[j][e] * scale - rs.x) : 0.f;  // masked: 0
           s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - rs.y) * scale;  // dsᵀ
+          dp[j][e] = n_k == 1 ? 0.f : p * (dp[j][e] - rs.y) * scale;  // dsᵀ
           Ps[qi][a0 + g + (e / 2) * 8] = Num<T>::from_f(dp[j][e]);
         }
       mma_pv16<T, D, QT>(dv_acc, s, do_at, c0q, lane);  // dv += T(pᵀ)·dO

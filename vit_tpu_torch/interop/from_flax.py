@@ -4,7 +4,8 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.scalable_vit.ScalableViT``,
 ``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``,
 ``vit_tpu.models.twins_svt.TwinsSVT``,
-``vit_tpu.models.crossformer.CrossFormer``, the
+``vit_tpu.models.crossformer.CrossFormer``,
+``vit_tpu.models.regionvit.RegionViT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -43,7 +44,12 @@ map to ``layers.{i}.…`` under each ``s{s}_pre_transformer`` and
 the top and keep their names: ``cel_{s}/conv_{i}``,
 ``{short,long}_attn_{s}_{i}/{norm,to_qkv,to_out,dpb}`` (the DPB's
 ``fc{0,1,2}``, ``norm{0,1,2}`` and ``out``), ``{short,long}_ff_{s}_{i}/{norm,fc1,fc2}``
-and ``head``.  ``to_out`` maps to ``to_out.0`` (the
+and ``head``.  RegionViT's modules keep their names too:
+``local_encoder`` (or ``local_conv{0,1,2}`` and ``local_norm{0,1}``),
+``region_encoder``, ``downsample_{s}``, ``peg_{s}``, ``transformer_{s}``
+with ``attn_{i}/{norm,to_qkv,to_out}``, ``ff_{i}/{norm,fc1,fc2}`` and
+``local_rel_pos_bias/embedding`` (an ``nn.Embed``: ``weight``), then
+``head_norm`` and ``head``.  ``to_out`` maps to ``to_out.0`` (the
 projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.

@@ -1,6 +1,7 @@
 """Models of the PyTorch port (mirrors vit_tpu.models)."""
 
 from vit_tpu_torch.models.crossformer import CrossFormer
+from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 
-__all__ = ["CrossFormer", "TwinsSVT"]
+__all__ = ["CrossFormer", "RegionViT", "TwinsSVT"]

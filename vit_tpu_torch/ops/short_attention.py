@@ -23,7 +23,9 @@ for the backward.  Backward: ``D = rowsum(dO∘O)`` over the stored output,
 ``p = exp(s - lse)``, ``ds = p·(dp - D)·scale``; ``T(p)`` for dv and ``T(ds)``
 for dq and dk, each rounded, as ``attention_nb``'s backward rounds
 (``fused_hybrid.py:369-377``); the gradients accumulated in f32 and rounded
-once.  That is the flash backward's function (:func:`
+once.  Over one key p is 1 and ds 0 exactly, the row's own softmax and
+dsum = Σ p·dp as the TPU kernel takes them (from lse and D they are 1 and
+dp only to rounding, which would leave dq and dk as noise).  That is the flash backward's function (:func:`
 vit_tpu_torch.ops.flash_attention.flash_backward_reference`), which the
 kernel computes in one pass instead of two.  In f32 both directions are exact
 attention and its gradient, ``vit_tpu``'s function.
@@ -104,18 +106,21 @@ def short_attention_backward_reference(q, k, v, o, lse, do, scale: float, bias=N
     in f32, the row statistics the block's backward takes first (as the TPU
     kernel sums it), and a fourth result, ``dbias`` f32 of the bias's shape:
     ``p·(dp - dsum)`` (before the scale) summed over the images, and over the
-    heads for a shared bias."""
+    heads for a shared bias.  Over one key (``n_k = 1``) p is the row's own
+    softmax, 1, and dsum = Σ p·dp, so ds = 0 and dq = dk = 0 exactly, as in
+    the TPU kernel and the kernel here."""
+    one_key = k.shape[-2] == 1
     if bias is None:
-        return flash_backward_reference(q, k, v, o, lse, do, scale)
+        return flash_backward_reference(q, k, v, o, lse, do, scale, exact_dsum=one_key)
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = (qf @ kf.transpose(-1, -2)) * scale + bias.float()
     dp = dof @ vf.transpose(-1, -2)
-    if need_dbias:  # the row statistics' dsum = Σ p·dp
+    if need_dbias or one_key:  # the row statistics' dsum = Σ p·dp
         dsum = (torch.softmax(s, dim=-1) * dp).sum(-1, keepdim=True)
     else:  # D = rowsum(dO∘O)
         dsum = (dof * o.float()).sum(-1, keepdim=True)
-    p = torch.exp(s - lse[..., None])
+    p = torch.softmax(s, dim=-1) if one_key else torch.exp(s - lse[..., None])
     ds0 = p * (dp - dsum)  # d(loss)/d(logits), before the scale
     ds = (ds0 * scale).to(dt).float()
     grads = ((ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt),
