@@ -217,10 +217,19 @@ Phases, one line each (any failure raises and exits non-zero):
    times and the biased block 14 (both attentions of each layer; its MLPs
    plain, as in vit_tpu), a step their backwards as often, dbias at each;
    the position tables' step-1 errors printed.
-24. profile: ``torch.profiler`` over train steps at sixteen training configs
-   (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224 and 384,
-   ScalableViT, the four objectives, T2T-ViT, Twins-SVT, CrossFormer,
-   RegionViT); device time and launches per
+24. NesT (``benchmarks/run_benchmarks.py:59-61``: 224 px, patch 4, dim 96,
+   heads 3, 3 hierarchies, block repeats (2, 2, 8), mlp_mult 4) at batch
+   64.  First its kernels (:func:`nest_kernel_phase`): the fused MLP and the
+   block over the folded 14 x 14 blocks (1024 | 256 | 64 groups of 196
+   tokens, 96 | 192 | 384 channels, heads of 32, eps 1e-5: the unbiased
+   208-key ``short_fwd`` and ``short_bwd_wg`` at dh 32) as phases 3 and 4
+   hold them.  Then serving as phase 5 and training as phase 7 (plain path
+   ``"never"`` for both, top-1 by the sign test): a forward launches the
+   block and the fused MLP 12 times each, a step their backwards as often.
+25. profile: ``torch.profiler`` over train steps at seventeen training
+   configs (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224
+   and 384, ScalableViT, the four objectives, T2T-ViT, Twins-SVT,
+   CrossFormer, RegionViT, NesT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -230,13 +239,15 @@ Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
-CrossFormer, RegionViT (serving and training); the blocks past 512 tokens)
+CrossFormer, RegionViT, NesT (serving and training); the blocks past 512
+tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
 tokens).  The line before the last is the card as ``nvidia-smi`` names it; before that
+NesT's (with ptxas's registers and spills of its two dh-32 instances),
 RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
 beside the card's name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
 error, times and bound (the kernels rebuilt on wgmma and TMA also name their
@@ -2272,6 +2283,39 @@ def regionvit_kernel_phase(torch, results, smi):
         biased_phase(torch, groups, n, c, 4, 32, 4 * c, results, tag=tag, kinds=("per-head",))
         torch.cuda.empty_cache()
 
+
+# NesT as benchmarks/run_benchmarks.py:59-61 builds it: 224 px, patch 4,
+# dim 96, heads 3, 3 hierarchies, block repeats (2, 2, 8), mlp_mult 4; at the
+# benchmark's batch 64 (run_benchmarks.py:337).
+NEST = dict(image_size=224, patch_size=4, num_classes=1000, dim=96, heads=3, num_hierarchies=3,
+            block_repeats=(2, 2, 8))
+NEST_BATCH = 64
+NEST_EPS = 1e-5  # its ChannelLayerNorms'
+# (tag, groups, c): its hierarchies at batch 64, the 14 x 14 blocks (196
+# tokens) folded into the batch, c / 32 heads of 32 (inner = c) on the block
+# (rows 3-4: short_fwd's 208-key tile, short_bwd_wg); its conv-MLPs on the
+# fused MLP over the same groups·196 rows, c / 4c wide (rows 1-2).
+NEST_SHAPES = [
+    ("NesT hierarchy 1", 1024, 96),
+    ("NesT hierarchy 2", 256, 192),
+    ("NesT hierarchy 3", 64, 384),
+]
+
+
+def nest_kernel_phase(torch, results, smi):
+    """Rows 1-4 at NesT's hierarchies (NEST_SHAPES), batch 64, seeded bf16
+    inputs, eps 1e-5: the fused MLP (rows groups·196, c / 4c) and the
+    attention block over the folded blocks (groups × 196 × c, c / 32 heads of
+    32: the unbiased 208-key ``short_fwd`` and ``short_bwd_wg`` at dh 32),
+    serving and training forwards and backwards as :func:`kernel_phase` and
+    :func:`backward_phase` hold them, each LayerNorm backward on
+    layernorm.cu's passes (96, 192 and 384 are not multiples of 256)."""
+    for tag, groups, c in NEST_SHAPES:
+        for phase in (kernel_phase, backward_phase):
+            phase(torch, tag, groups, 196, c, c // 32, 32, 4 * c, results, eps=NEST_EPS)
+        torch.cuda.empty_cache()
+
+
 def packed_phase(torch, results, smi):
     """The channel-packed flash op at PACKED_SHAPES, seeded bf16 (b, n,
     heads·d) inputs: out and lse against the plain version; dq, dk, dv (the
@@ -3302,13 +3346,13 @@ def kernel_group(name: str) -> str:
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
         return ("cuDNN convolutions (SPT; CvT's embeddings and depthwise projections; "
                 "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling; "
-                "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems)")
+                "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems; NesT's aggregates)")
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
         return "cuBLAS GEMM (dW, patch embedding, head; 1x1 convs outside the kernels)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
         return "optimizer (foreach)"
     if re.search(r"layer_norm|LayerNorm", name):
-        return "PyTorch layer_norm (CvT's channel LayerNorms)"
+        return "PyTorch layer_norm (CvT's channel LayerNorms; NesT's aggregate and head norms)"
     if re.search(r"batch_norm|batchnorm", name, re.I):
         return "PyTorch batch_norm (CvT's projections)"
     if "elementwise" in name:
@@ -3558,10 +3602,11 @@ def main() -> int:
                  for line in build_log.splitlines() if "spill stores" in line)
     log(f"build: {build_s:.2f} s, {path.name}, {len(regs)} kernels compiled, "
         f"max {max(regs, default=0)} registers, {spills} with spills")
+    ptxas = ptxas_report(build_log)
     log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
-        f"{json.dumps(ptxas_report(build_log))}")
+        f"{json.dumps(ptxas)}")
 
-    from vit_tpu_torch import CrossFormer, CvT, RegionViT, ScalableViT, TwinsSVT, ViT
+    from vit_tpu_torch import CrossFormer, CvT, NesT, RegionViT, ScalableViT, TwinsSVT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
@@ -3614,6 +3659,8 @@ def main() -> int:
         crossformer_kernel_phase(torch, results, smi)
     with clock("RegionViT kernels"):
         regionvit_kernel_phase(torch, results, smi)
+    with clock("NesT kernels"):
+        nest_kernel_phase(torch, results, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -3805,6 +3852,16 @@ def main() -> int:
          {**regionvit_forward, "short route": 2 * rv_layers,
           **each(rv_layers, "fused_attention_block_bwd", "fused_attention_block_bias_bwd")},
          **rv)
+    # NesT@224: at every transformer layer the block over the folded 14 x 14
+    # blocks (196 tokens: short_fwd's 208-key tile, short_bwd_wg at dh 32) and
+    # the fused MLP over the loose conv pair.
+    nest_layers = sum(NEST["block_repeats"])
+    nest_forward = each(nest_layers, "fused_attention_block", "fused_mlp", "short route, forward")
+    path("serving NesT", serving_phase, "NesT@224 bf16", NesT, NEST, NEST_BATCH, 3, 24, smi,
+         counters, nest_forward, top1_sign_test=True)
+    path("training NesT", training_phase, "NesT@224", NesT, NEST, NEST_BATCH, 25, smi, counters,
+         {**nest_forward,
+          **each(nest_layers, "fused_attention_block_bwd", "fused_mlp_bwd", "short route")})
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -3868,6 +3925,10 @@ def main() -> int:
                       classifier_step(torch, RegionViT, REGIONVIT, REGIONVIT_BATCH,
                                       REGIONVIT_SIZE), REGIONVIT_BATCH, 0, smi,
                       ln_epilogues=2 * sum(wide), ln_passes=2 * sum(narrow), top=12)
+        # NesT: every block and MLP backward on the passes (96, 192 and 384
+        # channels); the aggregate and head norms run outside the kernels.
+        profile_phase(torch, "NesT@224", classifier_step(torch, NesT, NEST, NEST_BATCH),
+                      NEST_BATCH, 0, smi, ln_epilogues=0, ln_passes=2 * nest_layers, top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -3948,6 +4009,16 @@ def main() -> int:
                               "fused_attention_block_bias", "fused_attention_block_bias_bwd")}
     log(f"RegionViT's rows 3-5 at its attentions (also under by_shape and by_bias above), ms, "
         f"on {smi}: " + json.dumps(regionvit))
+    nest = {name: {tag: {k: v for k, v in r.items() if k in (
+                "kernel", "plain", "library", "modules", "device")}
+            | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            for tag, r in results[name].items() if tag.startswith("NesT") and "bound" in r}
+            for name in ("fused_mlp", "fused_mlp_bwd", "fused_attention_block",
+                         "fused_attention_block_bwd")}
+    instances = {name: ptxas.get(name, "not in this run's build log") for name in (
+        "short_fwd_kernel<bf16,32,208>", "short_bwd_wg_kernel<bf16,32>")}
+    log(f"NesT's rows 1-4 at its hierarchies (also under by_shape above), ms, on {smi}; its "
+        f"dh-32 instances {json.dumps(instances)}: " + json.dumps(nest))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1830,3 +1830,134 @@ def test_regionvit_serves_and_trains_through_its_kernels(cuda):
     assert all(getattr(model, f"transformer_{s}").local_rel_pos_bias.weight.grad.abs().max() > 0
                for s in range(3))
     assert losses[2] < losses[0]
+
+
+# NesT's blocks at its three hierarchies: (groups, c, heads), 196 tokens (a
+# 14 x 14 block) a group, heads of 32 (inner = c), the ChannelLayerNorm's
+# eps; at 224 px and batch 64 the folds hold 1024, 256 and 64 groups, cut
+# here to 64, 16 and 4.  Its conv-MLPs over the same rows, c / 4c wide.
+NEST_EPS = 1e-5
+NEST_BLOCKS = [(64, 96, 3), (16, 192, 6), (4, 384, 12)]
+
+
+@pytest.mark.parametrize("groups,c,heads", NEST_BLOCKS)
+def test_nest_block_kernels_match_plain(cuda, groups, c, heads):
+    """The unbiased block at dh 32 over 196 tokens (``short_fwd``'s 208-key
+    tile, ``short_bwd_wg``) at eps 1e-5: the serving and the training forward
+    and the backward fed the training forward's residuals against their plain
+    versions (the TPU kernel's rounding points and the short route's own),
+    twice bit for bit, each on the short route; its LayerNorm backward on
+    layernorm.cu's passes (96, 192 and 384 are not multiples of 256)."""
+    from chip_smoke import counted_launches
+
+    n, dh = 196, 32
+    args = _attn_args(groups, n, c, heads, dh, torch.bfloat16, cuda, seed=c)
+    x, gamma, _, wqkv, wo, _ = args
+    scale = dh ** -0.5
+    with torch.inference_mode():
+        before, routes = fused_attention_block.launches, _forward_routes()
+        out = fused_attention_block(*args, heads, dh, eps=NEST_EPS)
+        routes["short"] += 1
+        assert fused_attention_block.launches == before + 1 and _forward_routes() == routes
+        _close(out, fused_attention_block_reference(*args, heads, dh, eps=NEST_EPS), x)
+        _close(out, fused_attention_block_ops.fused_attention_block_short_forward_reference(
+            *args, heads, dh, eps=NEST_EPS)[0], x)
+        assert torch.equal(out, fused_attention_block(*args, heads, dh, eps=NEST_EPS))
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, NEST_EPS,
+                                                    training=True)
+    check_outputs(torch, "nest block training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, NEST_EPS),
+                  {0: x})
+    _, _, qkv, oattn, lse = fwd
+    dy = torch.randn(groups, n, c, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                                              NEST_EPS, oattn=oattn, lse=lse)
+
+    short = fused_attention_block_ops.BACKWARD_ROUTES["short"]
+    before = short.launches
+    got = kernel()
+    assert short.launches == before + 1
+    check_outputs(torch, "nest block backward", got,
+                  fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
+                                                           dh, scale, NEST_EPS), {0: dy})
+    check_outputs(torch, "nest block backward, short route", got,
+                  fused_attention_block_ops.fused_attention_block_short_backward_reference(
+                      dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, NEST_EPS),
+                  {0: dy})
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == (0, 1)
+
+
+@pytest.mark.parametrize("groups,c,heads", NEST_BLOCKS)
+def test_nest_mlp_kernels_match_plain(cuda, groups, c, heads):
+    """The fused MLP at NesT's widths (96 / 384, 192 / 768, 384 / 1536) over
+    its blocks' rows at eps 1e-5: the serving and the training forward and
+    the backward fed the training forward's h against their plain versions,
+    twice bit for bit; the LayerNorm backward on layernorm.cu's passes."""
+    from chip_smoke import counted_launches
+
+    shape, hidden = (groups, 196, c), 4 * c
+    args = _mlp_args(shape, hidden, torch.bfloat16, cuda, seed=c)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    with torch.inference_mode():
+        out = fused_mlp(*args, NEST_EPS)
+        _close(out, fused_mlp_reference(*args, NEST_EPS), x)
+        assert torch.equal(out, fused_mlp(*args, NEST_EPS))
+    fwd = fused_mlp_ops._launch_forward(*args, NEST_EPS, save_residuals=True)
+    check_outputs(torch, "nest mlp training forward", fwd,
+                  fused_mlp_forward_reference(*args, NEST_EPS), {0: x})
+    h = fwd[2]
+    dy = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(6),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_mlp_backward(dy, x, h, gamma, w1, w2, NEST_EPS)
+
+    got = kernel()
+    check_outputs(torch, "nest mlp backward",
+                  got, fused_mlp_backward_reference(dy, x, h, gamma, w1, w2, NEST_EPS), {0: dy})
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == (0, 1)
+
+
+def test_nest_serves_and_trains_through_its_kernels(cuda):
+    """NesT at its widths (96/192/384, heads 3/6/12 of 32), block repeats
+    (1, 1, 2), 224 px, batch 2: a forward launches the block (every
+    attention on the short route) and the fused MLP once a transformer
+    layer (4 each), a train step their backwards as often; f32 gradients,
+    the three ``pos_emb`` vectors' among them, and a falling loss."""
+    from vit_tpu_torch import NesT
+
+    cfg = dict(image_size=224, patch_size=4, num_classes=10, dim=96, heads=3,
+               num_hierarchies=3, block_repeats=(1, 1, 2))
+    g = torch.Generator(device=cuda).manual_seed(17)
+    img = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    routes = fused_attention_block_ops.FORWARD_ROUTES, fused_attention_block_ops.BACKWARD_ROUTES
+    counters = (fused_attention_block, fused_mlp, fused_attention_block_backward,
+                fused_mlp_backward, routes[0]["short"], routes[1]["short"])
+
+    def launches():
+        return [c.launches for c in counters]
+
+    served = cast_params(NesT(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(launches(), before)] == [4, 4, 0, 0, 4, 0]
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+    model = NesT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    losses = []
+    for _ in range(3):
+        before = launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(launches(), before)] == [4, 4, 4, 4, 4, 4]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    assert all(getattr(model, f"transformer_{i}").pos_emb.grad.abs().max() > 0 for i in range(3))
+    assert losses[2] < losses[0]

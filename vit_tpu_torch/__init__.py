@@ -29,7 +29,11 @@ both with both attentions of every layer through the block kernels (dim_head
 32): the region self-attention unbiased (64, 16, 4 and 1 tokens an image at
 224 px), the joint attention of each region token and its 7 x 7 window
 biased by its per-head relative position table, whose gradient comes back
-as the kernel's dbias; its MLPs stay plain, as in ``vit_tpu``.  The Efficient ViT
+as the kernel's dbias; its MLPs stay plain, as in ``vit_tpu``.  ``NesT`` does
+both with the attention of every transformer layer through the block kernels
+over its blocks folded into the batch (196 tokens a block at 224 px, patch 4,
+dim_head 32, eps 1e-5) and its MLPs, loose pairs of 1x1 convolutions,
+through the fused MLP kernels.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -43,6 +47,7 @@ from vit_tpu_torch.interop.from_flax import state_dict_from_flax
 from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
+from vit_tpu_torch.models.nest import NesT
 from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
@@ -55,7 +60,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CrossFormer", "CvT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CrossFormer", "CvT", "NesT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

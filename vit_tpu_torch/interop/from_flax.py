@@ -5,7 +5,7 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``,
 ``vit_tpu.models.twins_svt.TwinsSVT``,
 ``vit_tpu.models.crossformer.CrossFormer``,
-``vit_tpu.models.regionvit.RegionViT``, the
+``vit_tpu.models.regionvit.RegionViT``, ``vit_tpu.models.nest.NesT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -18,8 +18,9 @@ JAX is imported here.  Leaves:
   ``ChannelLayerNorm``'s ``g`` / ``b`` keep their names as ``(dim,)``
   vectors; BatchNorm's ``batch_stats`` ``mean`` / ``var`` become
   ``running_mean`` / ``running_var``;
-- ``cls_token``, ``pos_embedding``, LSA's scalar ``temperature``, the
-  objectives' ``mask_token`` and ``distillation_token`` keep their shapes;
+- ``cls_token``, ``pos_embedding``, NesT's ``pos_emb`` (one scalar a
+  token), LSA's scalar ``temperature``, the objectives' ``mask_token`` and
+  ``distillation_token`` keep their shapes;
   an ``nn.Embed``'s ``embedding`` (MAE's ``decoder_pos_emb``) becomes the
   ``nn.Embedding``'s ``weight``.
 
@@ -49,8 +50,12 @@ and ``head``.  RegionViT's modules keep their names too:
 ``region_encoder``, ``downsample_{s}``, ``peg_{s}``, ``transformer_{s}``
 with ``attn_{i}/{norm,to_qkv,to_out}``, ``ff_{i}/{norm,fc1,fc2}`` and
 ``local_rel_pos_bias/embedding`` (an ``nn.Embed``: ``weight``), then
-``head_norm`` and ``head``.  ``to_out`` maps to ``to_out.0`` (the
-projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
+``head_norm`` and ``head``.  NesT's keep theirs: ``patch_embedding``,
+``transformer_{idx}`` with ``pos_emb`` and
+``{attn_norm,attn,mlp_norm,mlp_fc1,mlp_fc2}_{i}`` (``transformer_{idx}`` is
+not a stack that ``layers.{i}`` holds), ``aggregate_conv_{idx}``,
+``aggregate_norm_{idx}``, ``head_norm`` and ``head``.  ``to_out`` maps to
+``to_out.0`` (the projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
 
@@ -142,8 +147,8 @@ def state_dict_from_flax(variables) -> dict:
             name = "weight"
         elif name in ("g", "b"):
             arr = arr.reshape(-1)
-        elif name not in ("bias", "cls_token", "pos_embedding", "temperature", "mask_token",
-                          "distillation_token"):
+        elif name not in ("bias", "cls_token", "pos_embedding", "pos_emb", "temperature",
+                          "mask_token", "distillation_token"):
             raise ValueError(f"unknown leaf {'/'.join(path)}")
         key = ".".join(_module_path(tuple(mods)) + [name])
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))

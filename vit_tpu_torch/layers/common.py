@@ -1,6 +1,6 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT and
-CrossFormer need).
+``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT,
+CrossFormer, RegionViT and NesT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -338,7 +338,13 @@ def apply_fused_hybrid_layer(a_norm: LayerNorm, attn: Attention, m_norm: LayerNo
 def fused_mlp_eligible(x: torch.Tensor, mlp: MLP, mode: str) -> bool:
     """``_fused_mlp_eligible``'s gate: no active dropout, on an activation the
     kernels take."""
-    return mode == "auto" and not mlp.dropout_active and kernel_activation(x)
+    return fused_mlp_gate(x, mlp.dropout_active, mode)
+
+
+def fused_mlp_gate(x: torch.Tensor, dropout_active: bool, mode: str) -> bool:
+    """:func:`fused_mlp_eligible` from the dropout state itself, for an MLP
+    that is not one module (NesT's loose ``fc1`` / ``fc2`` pair)."""
+    return mode == "auto" and not dropout_active and kernel_activation(x)
 
 
 def windowed_attention_eligible(x: torch.Tensor, attn: nn.Module, mode: str = "auto") -> bool:
@@ -366,8 +372,10 @@ def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP,
     return x + mlp(norm(x))
 
 
-def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None, mlp: nn.Module,
-                            mode: str = "auto") -> torch.Tensor:
+def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
+                            mlp: nn.Module | None, mode: str = "auto", *,
+                            fc1: Conv | None = None, fc2: Conv | None = None,
+                            dropout: nn.Dropout | None = None) -> torch.Tensor:
     """``x + mlp(norm(x))`` over an NHWC map, where ``mlp`` is a conv-MLP
     (``fc1`` and ``fc2`` 1x1 :class:`Conv` s, a ``dropout_active`` property):
     with :func:`fused_mlp_eligible`'s gate, through the fused MLP kernel on
@@ -376,16 +384,27 @@ def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None, mlp:
     ``norm=None`` is ``vit_tpu``'s form for an MLP that holds its LayerNorm
     as ``mlp.norm`` (CrossFormer's, ``:413-415``, ``:437-441``): ``x +
     mlp(x)``, the kernel taking that norm's g, b and eps.
+    ``mlp=None`` with ``fc1``, ``fc2`` and ``dropout`` is its form for convs
+    that no module holds (NesT's, ``vit_tpu/models/nest.py:122-141``): the
+    plain path ``x + dropout(fc2(dropout(gelu(fc1(norm(x))))))``, the gate
+    on ``dropout``'s state.
     ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
     sublane reasons and do not carry over: every 16-bit CUDA call goes to the
     kernel."""
-    if not fused_mlp_eligible(x, mlp, mode):
-        return x + mlp(x if norm is None else norm(x))
+    if mlp is not None:
+        fc1, fc2, active = mlp.fc1, mlp.fc2, mlp.dropout_active
+    else:
+        active = dropout.training and dropout.p > 0
+    if not fused_mlp_gate(x, active, mode):
+        xn = x if norm is None else norm(x)
+        if mlp is not None:
+            return x + mlp(xn)
+        return x + dropout(fc2(dropout(gelu_exact(fc1(xn)))))
     ln = mlp.norm if norm is None else norm
     b, h, w, c = x.shape
     y = fused_mlp(x.reshape(b, h * w, c).contiguous(), ln.g, ln.b,
-                  cast_to(mlp.fc1.weight, x).flatten(1), cast_to(mlp.fc1.bias, x),
-                  cast_to(mlp.fc2.weight, x).flatten(1), cast_to(mlp.fc2.bias, x), ln.eps)
+                  cast_to(fc1.weight, x).flatten(1), cast_to(fc1.bias, x),
+                  cast_to(fc2.weight, x).flatten(1), cast_to(fc2.bias, x), ln.eps)
     return y.reshape(b, h, w, c)
 
 

@@ -1,7 +1,8 @@
 """Models of the PyTorch port (mirrors vit_tpu.models)."""
 
 from vit_tpu_torch.models.crossformer import CrossFormer
+from vit_tpu_torch.models.nest import NesT
 from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 
-__all__ = ["CrossFormer", "RegionViT", "TwinsSVT"]
+__all__ = ["CrossFormer", "NesT", "RegionViT", "TwinsSVT"]
