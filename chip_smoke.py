@@ -226,10 +226,23 @@ Phases, one line each (any failure raises and exits non-zero):
    hold them.  Then serving as phase 5 and training as phase 7 (plain path
    ``"never"`` for both, top-1 by the sign test): a forward launches the
    block and the fused MLP 12 times each, a step their backwards as often.
-25. profile: ``torch.profiler`` over train steps at seventeen training
+25. PiT (``benchmarks/run_benchmarks.py:57-58``: 224 px, patch 14 at stride
+   7, dim 256, depth (3, 3, 3), 16 heads of 64, mlp 2048) at batch 64.
+   First its kernels (:func:`pit_kernel_phase`): the fused MLP and the block
+   at its three stages (962 tokens at d 256 on the block's mha route, 257 at
+   512 and 65 at 1024 on its short route; eps 1e-3) as phases 3 and 4 hold
+   them, then stage 1's block forward and backward timed beside F.layer_norm
+   + F.linear + SDPA + F.linear (autograd through it) and its bounds
+   (:func:`block_library_phase`), and its cuDNN convolutions (the patch
+   embedding and the pools', :func:`pit_conv_phase`) timed with their
+   backward kernels by name.  Then serving as phase 5 and training as phase
+   7 (plain path ``"never"``): a forward launches the block and the fused
+   MLP 9 times each, 3 of the block's on the mha route, a step their
+   backwards as often.
+26. profile: ``torch.profiler`` over train steps at eighteen training
    configs (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224
    and 384, ScalableViT, the four objectives, T2T-ViT, Twins-SVT,
-   CrossFormer, RegionViT, NesT); device time and launches per
+   CrossFormer, RegionViT, NesT, PiT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -239,14 +252,15 @@ Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
-CrossFormer, RegionViT, NesT (serving and training); the blocks past 512
-tokens)
+CrossFormer, RegionViT, NesT, PiT (serving and training); the blocks past
+512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
-tokens).  The line before the last is the card as ``nvidia-smi`` names it; before that
+tokens: PiT's stage 1).  The line before the last is the card as ``nvidia-smi`` names it; before that
+PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
 NesT's (with ptxas's registers and spills of its two dh-32 instances),
 RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
 beside the card's name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
@@ -438,8 +452,9 @@ def interleaved_medians(torch, fns: dict, rounds: int, calls: int, warmup: int =
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
-def launch_breakdown(torch, fn, calls: int = 5) -> dict | None:
-    """The device kernels one call of ``fn`` launches, by ``kernel_group``:
+def launch_breakdown(torch, fn, calls: int = 5, group=None) -> dict | None:
+    """The device kernels one call of ``fn`` launches, by ``group`` (a
+    function of the kernel's name; :func:`kernel_group` by default):
     ``{group: (device ms a call, launches a call)}``, from torch.profiler
     over ``calls`` calls after one of warm-up, for the times only (the checks
     count launches with :func:`counted_launches` and the wrappers' counters).
@@ -478,11 +493,11 @@ def launch_breakdown(torch, fn, calls: int = 5) -> dict | None:
             break
     else:
         return None
-    rows = {}
+    rows, group = {}, group or kernel_group
     for evt in events:
-        ms, count = rows.get(kernel_group(evt.key), (0.0, 0.0))
-        rows[kernel_group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
-                                       count + evt.count / calls)
+        ms, count = rows.get(group(evt.key), (0.0, 0.0))
+        rows[group(evt.key)] = (ms + evt.self_device_time_total / 1e3 / calls,
+                                count + evt.count / calls)
     return rows
 
 
@@ -2316,6 +2331,166 @@ def nest_kernel_phase(torch, results, smi):
         torch.cuda.empty_cache()
 
 
+# PiT as benchmarks/run_benchmarks.py:57-58 builds it: 224 px, patch 14 (stride
+# 7: 31 x 31 overlapping patches and the cls token), dim 256, depth (3, 3, 3),
+# 16 heads of 64, mlp 2048; at the benchmark's batch 64 (run_benchmarks.py:337).
+PIT = dict(image_size=224, patch_size=14, num_classes=1000, dim=256, depth=(3, 3, 3), heads=16,
+           mlp_dim=2048)
+PIT_BATCH = 64
+# (tag, n, d): its stages at batch 64, 16 heads of 64 (inner 1024) and mlp 2048
+# at every width, eps 1e-3; each pool doubles d.  962 tokens take the block's
+# mha route (mha_fwd, mha_bwd), 257 (two 144-key tiles) and 65 its short one.
+PIT_SHAPES = [("PiT stage 1", 962, 256), ("PiT stage 2", 257, 512), ("PiT stage 3", 65, 1024)]
+
+
+def pit_kernel_phase(torch, results, smi):
+    """Rows 1-4 at PiT's stages (PIT_SHAPES), batch 64, seeded bf16 inputs,
+    eps 1e-3: the fused MLP (rows 64·n, d / 2048) and the attention block (16
+    heads of 64 over d), serving and training forwards and backwards as
+    :func:`kernel_phase` and :func:`backward_phase` hold them (each route
+    counter checked: the mha route at stage 1, the short one at stages 2-3;
+    every LayerNorm backward on the dgrad's epilogue, d 256, 512 and 1024);
+    then stage 1's block beside PyTorch's library composition
+    (:func:`block_library_phase`)."""
+    for tag, n, d in PIT_SHAPES:
+        for phase in (kernel_phase, backward_phase):
+            phase(torch, tag, PIT_BATCH, n, d, 16, 64, 2048, results)
+        torch.cuda.empty_cache()
+    tag, n, d = PIT_SHAPES[0]
+    block_library_phase(torch, tag, PIT_BATCH, n, d, 16, 64, results, smi)
+    torch.cuda.empty_cache()
+
+
+def block_library_phase(torch, tag, b, n, d, heads, dim_head, results, smi, eps=1e-3):
+    """The attention block at one shape beside PyTorch's library composition
+    of the same function in bf16: ``F.layer_norm``, ``F.linear`` (qkv),
+    ``F.scaled_dot_product_attention``, ``F.linear`` (out-projection and its
+    bias) and the residual; its forward under inference mode, its backward by
+    autograd, once for the kernel's own outputs (dx, dγ, dβ, dbo) and once
+    with the weight gradients.  The kernel's y and dx are held against the
+    composition's (one unit plus 2e-2 of their own parts: two bf16 routes of
+    one function).  Times of the serving forward kernel, of the backward
+    kernel fed the training forward's residuals and of it with its two dW
+    GEMMs, beside the composition's, and the bounds (:func:`block_bounds`);
+    stored as ``sdpa`` / ``sdpa_whole`` under ``results[name][tag]``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops._shared import weight_grad
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    inner, scale = heads * dim_head, dim_head ** -0.5
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    args = [rn(b, n, d), 1.0 + rn(d, scale=0.1), rn(d, scale=0.1),
+            rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5),
+            rn(d, scale=0.1)]
+    x, gamma, _, wqkv, wo, _ = args
+    dy = rn(b, n, d, scale=0.1)
+
+    def library(x_, gamma_, beta_, wqkv_, wo_, bo_):
+        xn = F.layer_norm(x_, (d,), gamma_, beta_, eps)
+        q, k, v = F.linear(xn, wqkv_).view(b, n, 3, heads, dim_head).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return x_ + F.linear(o.transpose(1, 2).reshape(b, n, inner), wo_, bo_)
+
+    route = fab.attention_route(n)
+    _, xn, qkv, oattn, lse = fab._launch_forward(*args, heads, dim_head, scale, eps,
+                                                 training=True)
+
+    def kernel():
+        return fab.fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head,
+                                                  scale, eps, oattn, lse)
+
+    def whole():
+        out = kernel()
+        return out, weight_grad(out[1], xn), weight_grad(dy, oattn)
+
+    leaves = [t.detach().requires_grad_() for t in args]
+    y_lib = library(*leaves)
+    own = [leaves[i] for i in (0, 1, 2, 5)]
+    with torch.inference_mode():
+        y = fab.fused_attention_block(*args, heads, dim_head, scale, eps)
+        fwd = interleaved_medians(torch, {
+            "kernel": lambda: fab.fused_attention_block(*args, heads, dim_head, scale, eps),
+            "library": lambda: library(*args)}, rounds=5, calls=5)
+    y_err, excess, tol = block_error(torch, y, y_lib.detach(), x)
+    if not excess <= tol:
+        raise AssertionError(f"{tag}: the block differs from the library composition by "
+                             f"{excess} beyond one output unit > {tol}")
+    dx_lib = torch.autograd.grad(y_lib, leaves[0], dy, retain_graph=True)[0]
+    dx_err = check_outputs(torch, f"{tag} backward against the library composition",
+                           kernel()[:1], [dx_lib], {0: dy})
+    bwd = interleaved_medians(torch, {
+        "kernel": kernel, "whole": whole,
+        "library": lambda: torch.autograd.grad(y_lib, own, dy, retain_graph=True),
+        "library_whole": lambda: torch.autograd.grad(y_lib, leaves, dy, retain_graph=True)},
+        rounds=5, calls=5)
+    bounds = block_bounds(b, n, d, heads, dim_head, 4 * d)
+    fb, bb = bounds["fused_attention_block"], bounds["fused_attention_block_bwd"]
+    log(f"block beside the library [{tag} b={b} n={n} d={d} heads={heads}x{dim_head} "
+        f"eps={eps:g}, attention on the {route} route]: y and dx within one unit plus 2e-2 of "
+        f"their own parts of F.layer_norm + F.linear + SDPA + F.linear (max|diff| "
+        f"{y_err:.6g}, {dx_err:.6g}); forward ms kernel={fwd['kernel']:.4f} "
+        f"library={fwd['library']:.4f} bound={fb[0]:.4f} ({fb[1]}); backward ms "
+        f"kernel={bwd['kernel']:.4f} autograd through the library={bwd['library']:.4f}; with "
+        f"the weight gradients kernel+dW GEMMs={bwd['whole']:.4f} "
+        f"autograd={bwd['library_whole']:.4f}; bound={bb[0]:.4f} ({bb[1]}) on {smi}")
+    results["fused_attention_block"][tag].update(sdpa=fwd["library"])
+    results["fused_attention_block_bwd"][tag].update(sdpa=bwd["library"],
+                                                     sdpa_whole=bwd["library_whole"])
+    del args, leaves, y_lib, xn, qkv, oattn, lse
+
+
+def pit_conv_phase(torch, smi):
+    """PiT's library convolutions at batch 64, outside every kernel here as
+    in ``vit_tpu``: the overlapping patch embedding (14 x 14, stride 7,
+    VALID, 3 -> 256) and each pool's grouped 3 x 3, stride-2 TF-SAME
+    convolution (d -> 2d, groups d: 31 -> 16 at d 256, 16 -> 8 at 512) and
+    its pointwise one, bf16 NHWC through the port's modules (cuDNN on the
+    channels_last view; the pointwise one a GEMM); device ms of the forward
+    and of the backward as a train step takes it (autograd: the weight
+    gradients, and the input's but for the image's), and the device kernels
+    of each backward by name, as the profiler names them."""
+    from vit_tpu_torch.layers.common import Conv, GroupedConv
+    from vit_tpu_torch.models.pit import OverlapPatchEmbed
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(27)
+    kw = dict(device=dev, dtype=dt, generator=g)
+    cases = [("patch embedding 14x14/7", 224, 3, OverlapPatchEmbed(256, 14, 7, **kw))]
+    for side, c in ((31, 256), (16, 512)):
+        cases += [(f"pool {side}->{-(-side // 2)} grouped 3x3/2", side, c,
+                   GroupedConv(c, 3, 2, out_channels=2 * c, **kw)),
+                  (f"pool {side}->{-(-side // 2)} pointwise", -(-side // 2), 2 * c,
+                   Conv(2 * c, 2 * c, 1, **kw))]
+    times = {}
+    for name, side, c, conv in cases:
+        x = torch.randn(PIT_BATCH, side, side, c, generator=g, device=dev).to(dt)
+        image = conv is cases[0][3]
+        x.requires_grad_(not image)
+        y = conv(x)
+        dy = torch.randn_like(y)
+        params = [*([] if image else [x]), *conv.parameters()]
+
+        def backward(y=y, dy=dy, params=params):
+            return torch.autograd.grad(y, params, dy, retain_graph=True)
+
+        with torch.no_grad():
+            fwd = interleaved_medians(torch, {"forward": lambda: conv(x)}, rounds=3,
+                                      calls=3)["forward"]
+        bwd = interleaved_medians(torch, {"backward": backward}, rounds=3, calls=3)["backward"]
+        rows = launch_breakdown(torch, backward, calls=3, group=lambda key: key[:120])
+        times[name] = {"forward": round(fwd, 4), "backward": round(bwd, 4),
+                       "backward kernels": breakdown_text(rows)}
+        del x, y, dy, params
+    torch.cuda.empty_cache()
+    log(f"PiT's library convolutions (bf16 NHWC, batch 64), ms on {smi}: " + json.dumps(times))
+
+
 def packed_phase(torch, results, smi):
     """The channel-packed flash op at PACKED_SHAPES, seeded bf16 (b, n,
     heads·d) inputs: out and lse against the plain version; dq, dk, dv (the
@@ -3333,9 +3508,10 @@ def kernel_group(name: str) -> str:
     m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
-    m = re.search(r"mha_fwd_kernel<[^,]+, \d+, (true|false)>", name)
-    if m:  # <T, dim_head, BIAS>
-        return "mha_fwd_kernel" + (" (bias)" if m[1] == "true" else "")
+    m = re.search(r"(mha_\w+_kernel)<[^,]+, \d+, (true|false)(?:, (true|false))?>", name)
+    if m:  # <T, dim_head, BIAS> (mha_bwd_dq_kernel: <T, dim_head, BIAS, DQ>)
+        label = m[1] if m[3] != "false" else "mha_row_stats (mha_bwd_dq_kernel's first pass)"
+        return label + (" (bias)" if m[2] == "true" else "")
     for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
                 "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
                 "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
@@ -3346,7 +3522,8 @@ def kernel_group(name: str) -> str:
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
         return ("cuDNN convolutions (SPT; CvT's embeddings and depthwise projections; "
                 "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling; "
-                "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems; NesT's aggregates)")
+                "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems; NesT's aggregates; "
+                "PiT's patch embedding and pools)")
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
         return "cuBLAS GEMM (dW, patch embedding, head; 1x1 convs outside the kernels)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
@@ -3606,7 +3783,7 @@ def main() -> int:
     log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
         f"{json.dumps(ptxas)}")
 
-    from vit_tpu_torch import CrossFormer, CvT, NesT, RegionViT, ScalableViT, TwinsSVT, ViT
+    from vit_tpu_torch import CrossFormer, CvT, NesT, PiT, RegionViT, ScalableViT, TwinsSVT, ViT
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
@@ -3661,6 +3838,9 @@ def main() -> int:
         regionvit_kernel_phase(torch, results, smi)
     with clock("NesT kernels"):
         nest_kernel_phase(torch, results, smi)
+    with clock("PiT kernels"):
+        pit_kernel_phase(torch, results, smi)
+        pit_conv_phase(torch, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -3673,8 +3853,8 @@ def main() -> int:
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
                 # the blocks' attention middles by route (fused_attention_block.py
                 # attention_route), each direction: short_fwd / short_bwd up to 512 tokens,
-                # with or without a bias, else mha_fwd / mha_bwd (no main path has more:
-                # every path holds them at 0)
+                # with or without a bias, else mha_fwd / mha_bwd (PiT's stage 1 and the
+                # "mha route" path; the other paths hold them at 0)
                 "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
                 "short route, forward": FORWARD_ROUTES["short"],
                 "mha route, forward": FORWARD_ROUTES["mha"],
@@ -3862,6 +4042,17 @@ def main() -> int:
     path("training NesT", training_phase, "NesT@224", NesT, NEST, NEST_BATCH, 25, smi, counters,
          {**nest_forward,
           **each(nest_layers, "fused_attention_block_bwd", "fused_mlp_bwd", "short route")})
+    # PiT@224: rows 1-4 at every layer of its three stages; stage 1's 962
+    # tokens on the block's mha route (mha_fwd, mha_bwd), stages 2-3's 257 and
+    # 65 on its short route.
+    pit_layers, pit_long = sum(PIT["depth"]), PIT["depth"][0]
+    pit_forward = {**each(pit_layers, "fused_attention_block", "fused_mlp"),
+                   "mha route, forward": pit_long, "short route, forward": pit_layers - pit_long}
+    path("serving PiT", serving_phase, "PiT@224 bf16", PiT, PIT, PIT_BATCH, 3, 26, smi, counters,
+         pit_forward)
+    path("training PiT", training_phase, "PiT@224", PiT, PIT, PIT_BATCH, 27, smi, counters,
+         {**pit_forward, **each(pit_layers, "fused_attention_block_bwd", "fused_mlp_bwd"),
+          "mha route": pit_long, "short route": pit_layers - pit_long})
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -3929,6 +4120,10 @@ def main() -> int:
         # channels); the aggregate and head norms run outside the kernels.
         profile_phase(torch, "NesT@224", classifier_step(torch, NesT, NEST, NEST_BATCH),
                       NEST_BATCH, 0, smi, ln_epilogues=0, ln_passes=2 * nest_layers, top=12)
+        # PiT: every block and MLP backward on the LayerNorm-backward dgrad (256,
+        # 512 and 1024 channels); the head norm runs outside the kernels.
+        profile_phase(torch, "PiT@224", classifier_step(torch, PiT, PIT, PIT_BATCH), PIT_BATCH,
+                      0, smi, ln_epilogues=2 * pit_layers, top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -4019,6 +4214,16 @@ def main() -> int:
         "short_fwd_kernel<bf16,32,208>", "short_bwd_wg_kernel<bf16,32>")}
     log(f"NesT's rows 1-4 at its hierarchies (also under by_shape above), ms, on {smi}; its "
         f"dh-32 instances {json.dumps(instances)}: " + json.dumps(nest))
+    pit = {name: {tag: {k: v for k, v in r.items() if k in (
+               "kernel", "plain", "modules", "library", "sdpa", "whole", "library_whole",
+               "sdpa_whole", "device")}
+           | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+           for tag, r in results[name].items() if tag.startswith("PiT") and "bound" in r}
+           for name in ("fused_mlp", "fused_mlp_bwd", "fused_attention_block",
+                        "fused_attention_block_bwd")}
+    log(f"PiT's rows 1-4 at its stages (also under by_shape above; stage 1's block on the mha "
+        f"route, sdpa: F.layer_norm + F.linear + SDPA + F.linear), ms, on {smi}: "
+        + json.dumps(pit))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,6 +93,22 @@ def test_block_bounds_with_an_inner_width_other_than_the_model(raw):
                                                 + 4 * 3 * 16)
 
 
+def test_block_bounds_at_pit_stage_1(raw):
+    """PiT@224's stage-1 block at batch 64 (961 patches and the cls token,
+    d 256, 16 heads of 64: inner 1024 over d), the mha route's shape:
+    its GEMMs and its two n x n products, about 129 and 243 GFLOP forward."""
+    b, n, d, inner = 64, 962, 256, 1024
+    rows = b * n
+    qkv_gemm, proj_gemm = 2 * rows * d * 3 * inner, 2 * rows * inner * d
+    attn = 2 * b * 16 * n * n * 64
+    got = chip_smoke.block_bounds(b, n, d, 16, 64, 2048)
+    assert got["fused_attention_block"][0] == qkv_gemm + proj_gemm + 2 * attn
+    assert got["fused_attention_block_bwd"][0] == qkv_gemm + proj_gemm + 5 * attn
+    assert qkv_gemm + proj_gemm == 129_117_454_336
+    assert 2 * attn == 242_599_591_936
+    assert got["fused_mlp"][0] == 4 * rows * d * 2048 == 129_117_454_336
+
+
 def test_short_bounds(raw):
     # b 2, 3 heads, 10 queries, 20 keys, d 32: 1200 pairs.
     product = 2 * 1200 * 32
@@ -162,6 +178,15 @@ def test_gemm_bound(raw):
      "mha_fwd_kernel (bias)"),
     ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, true>(const "
      "__nv_bfloat16 *)", "mha_bwd_dq_kernel (bias)"),
+    # the names the profiler gives, DQ's default spelled out: PiT's unbiased dq
+    # pass, and the dbias call's row statistics (DQ false)
+    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, false, true>(__nv_"
+     "bfloat16 const*, __nv_bfloat16 const*, float const*, unsigned long, __nv_bflo",
+     "mha_bwd_dq_kernel"),
+    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 32, true, false>(__nv_"
+     "bfloat16 const*)", "mha_row_stats (mha_bwd_dq_kernel's first pass) (bias)"),
+    ("void vit::(anonymous namespace)::mha_bwd_dkv_kernel<__nv_bfloat16, 64, false>(__nv_"
+     "bfloat16 const*, __nv_bfloat16 const*, float const*)", "mha_bwd_dkv_kernel"),
     # proj_mlp's backward: its three dgrads on gemm_wgmma, W as it lies
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 0, 1>(CUtensorMap)",
      "gemm_wgmma_kernel store (QKV, doattn)"),

@@ -56,13 +56,14 @@ def test_extract_patches_refuses_unknown_padding():
 
 
 def test_tokenizers_facade():
-    from vit_tpu_torch.models import crossformer, twins_svt
+    from vit_tpu_torch.models import crossformer, pit, twins_svt
 
     assert tokenizers.extract_patches is extract_patches
     assert tokenizers.PatchEmbedding is twins_svt.PatchEmbedding
     assert tokenizers.CrossEmbedLayer is crossformer.CrossEmbedLayer
+    assert tokenizers.OverlapPatchEmbed is pit.OverlapPatchEmbed
     assert set(tokenizers.__all__) == {"patchify", "unpatchify", "extract_patches", "SPT",
-                                       "PatchEmbedding", "CrossEmbedLayer"}
+                                       "PatchEmbedding", "CrossEmbedLayer", "OverlapPatchEmbed"}
 
 
 @pytest.mark.parametrize("pool", ["cls", "mean"])

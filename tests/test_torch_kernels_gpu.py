@@ -1961,3 +1961,96 @@ def test_nest_serves_and_trains_through_its_kernels(cuda):
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert all(getattr(model, f"transformer_{i}").pos_emb.grad.abs().max() > 0 for i in range(3))
     assert losses[2] < losses[0]
+
+
+# PiT's blocks at its three stages: (tokens, d), 16 heads of 64 (inner 1024),
+# mlp 2048, eps 1e-3; batch 64 at 224 px, cut here to 4.  962 tokens take the
+# block's mha route, 257 and 65 its short one.
+PIT_BLOCKS = [(962, 256), (257, 512), (65, 1024)]
+
+
+@pytest.mark.parametrize("n,d", PIT_BLOCKS)
+def test_pit_block_kernels_match_plain(cuda, n, d):
+    """The block at PiT's stage shapes: the serving and the training forward
+    and the backward fed the training forward's residuals against their
+    plain versions, twice bit for bit, on the route ``attention_route``
+    gives (``mha_fwd`` / ``mha_bwd`` at 962 tokens: 15 full 64-row tiles and
+    one of 2); its LayerNorm backward on the dgrad's epilogue (d % 256 == 0)."""
+    from chip_smoke import counted_launches
+
+    b, heads, dh = 4, 16, 64
+    route = fused_attention_block_ops.attention_route(n)
+    assert route == ("mha" if n > 512 else "short")
+    args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=n)
+    x, gamma, _, wqkv, wo, _ = args
+    scale = dh ** -0.5
+    with torch.inference_mode():
+        before, routes = fused_attention_block.launches, _forward_routes()
+        out = fused_attention_block(*args, heads, dh)
+        routes[route] += 1
+        assert fused_attention_block.launches == before + 1 and _forward_routes() == routes
+        _close(out, fused_attention_block_reference(*args, heads, dh), x)
+        assert torch.equal(out, fused_attention_block(*args, heads, dh))
+    fwd = fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3, training=True)
+    check_outputs(torch, "pit block training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale), {0: x})
+    _, _, qkv, oattn, lse = fwd
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                                              oattn=oattn, lse=lse)
+
+    counter = fused_attention_block_ops.BACKWARD_ROUTES[route]
+    before = counter.launches
+    got = kernel()
+    assert counter.launches == before + 1
+    check_outputs(torch, "pit block backward", got,
+                  fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
+                                                           dh, scale), {0: dy})
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == (1, 0)
+
+
+def test_pit_serves_and_trains_through_its_kernels(cuda):
+    """PiT at its widths (256/512/1024, 16 heads of 64, mlp 2048), depth (1,
+    1, 1), 224 px, batch 2: a forward launches the block and the fused MLP
+    once a stage (3 each; stage 1's 962 tokens on the mha route, the others
+    on the short one), a train step their backwards as often; f32 gradients,
+    the position embedding's, the cls token's and the pools' among them, and
+    a falling loss."""
+    from vit_tpu_torch import PiT
+
+    cfg = dict(image_size=224, patch_size=14, num_classes=10, dim=256, depth=(1, 1, 1),
+               heads=16, mlp_dim=2048)
+    g = torch.Generator(device=cuda).manual_seed(19)
+    img = torch.randn(2, 224, 224, 3, generator=g, device=cuda)
+    routes = fused_attention_block_ops.FORWARD_ROUTES, fused_attention_block_ops.BACKWARD_ROUTES
+    counters = (fused_attention_block, fused_mlp, fused_attention_block_backward,
+                fused_mlp_backward, routes[0]["mha"], routes[0]["short"], routes[1]["mha"],
+                routes[1]["short"])
+
+    def launches():
+        return [c.launches for c in counters]
+
+    served = cast_params(PiT(**cfg, generator=g), torch.bfloat16).eval()
+    before = launches()
+    with torch.inference_mode():
+        out = served(img)
+    assert [a - b for a, b in zip(launches(), before)] == [3, 3, 0, 0, 1, 2, 0, 0]
+    assert out.shape == (2, 10) and torch.isfinite(out).all()
+    model = PiT(**cfg, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    labels = torch.tensor([1, 2], device=cuda)
+    losses = []
+    for _ in range(3):
+        before = launches()
+        losses.append(float(step(img, labels)["loss"]))
+        assert [a - b for a, b in zip(launches(), before)] == [3, 3, 3, 3, 1, 2, 1, 2]
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+    for p in (model.pos_embedding, model.cls_token, model.pool_0.downsample_grouped.weight,
+              model.pool_1.cls_ff.weight):
+        assert p.grad.abs().max() > 0
+    assert losses[2] < losses[0]

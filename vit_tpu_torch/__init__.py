@@ -33,7 +33,12 @@ as the kernel's dbias; its MLPs stay plain, as in ``vit_tpu``.  ``NesT`` does
 both with the attention of every transformer layer through the block kernels
 over its blocks folded into the batch (196 tokens a block at 224 px, patch 4,
 dim_head 32, eps 1e-5) and its MLPs, loose pairs of 1x1 convolutions,
-through the fused MLP kernels.  The Efficient ViT
+through the fused MLP kernels.  ``PiT`` does both with every layer of its
+three stages on the block kernels, forward and backward: stage 1's 962
+tokens (224 px, patch 14, stride 7) take the attention block's route past
+512 tokens, stages 2 and 3 (257 and 65 tokens, twice and four times as wide
+after each pool) its short route; its overlapping patch embedding and its
+pools' grouped convolutions run on cuDNN.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -48,6 +53,7 @@ from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
 from vit_tpu_torch.models.nest import NesT
+from vit_tpu_torch.models.pit import PiT
 from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
@@ -60,7 +66,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CrossFormer", "CvT", "NesT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CrossFormer", "CvT", "NesT", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

@@ -5,7 +5,8 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.efficient.ViT``, ``vit_tpu.models.t2t.T2TViT``,
 ``vit_tpu.models.twins_svt.TwinsSVT``,
 ``vit_tpu.models.crossformer.CrossFormer``,
-``vit_tpu.models.regionvit.RegionViT``, ``vit_tpu.models.nest.NesT``, the
+``vit_tpu.models.regionvit.RegionViT``, ``vit_tpu.models.nest.NesT``,
+``vit_tpu.models.pit.PiT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -54,7 +55,16 @@ with ``attn_{i}/{norm,to_qkv,to_out}``, ``ff_{i}/{norm,fc1,fc2}`` and
 ``transformer_{idx}`` with ``pos_emb`` and
 ``{attn_norm,attn,mlp_norm,mlp_fc1,mlp_fc2}_{i}`` (``transformer_{idx}`` is
 not a stack that ``layers.{i}`` holds), ``aggregate_conv_{idx}``,
-``aggregate_norm_{idx}``, ``head_norm`` and ``head``.  ``to_out`` maps to
+``aggregate_norm_{idx}``, ``head_norm`` and ``head``.  PiT's keep theirs
+too: ``patch_embedding`` (a Dense-shaped ``kernel (k·k·c, dim)``, so
+``weight (dim, k·k·c)``), ``cls_token``, ``pos_embedding``, ``transformer_{i}``,
+``pool_{i}/{cls_ff,downsample_grouped,downsample_pointwise}``, ``head_norm``
+and ``head``; each stage's ``transformer_{i}`` is a ViT encoder, so its
+``{attn_norm,attn,mlp_norm,mlp}_{j}`` map to ``transformer_{i}.layers.{j}.…``
+(``transformer_1/attn_2/to_qkv`` → ``transformer_1.layers.2.attn.to_qkv``).
+A ``transformer_{i}`` is such a stack when it holds those four kinds of
+module and nothing else; NesT's (``pos_emb``, ``mlp_fc1_{j}``) and
+RegionViT's (``ff_{j}``) do not, and keep their names.  ``to_out`` maps to
 ``to_out.0`` (the projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
@@ -84,6 +94,10 @@ _STAGE = re.compile(r"^stage_\d+$")
 # transformers, Twins-SVT's stacks and MAE's decoder (the small-dataset
 # ViT's sit at the top).
 _STACK = re.compile(r"^(transformer|decoder|\w+_transformer|t2t_transformer_\d+)$")
+# A stage of PiT: transformer_{i} holding only the ViT encoder's per-layer
+# modules (_encoder_stacks).
+_NUMBERED = re.compile(r"^transformer_\d+$")
+_ENCODER_LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp)_\d+$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -97,12 +111,25 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
-def _module_path(path: tuple) -> list:
+def _encoder_stacks(tree, prefix=()):
+    """Paths of the ``transformer_{i}`` modules that are ViT encoders (PiT's
+    stages): each holds per-layer modules ``{attn_norm,attn,mlp_norm,mlp}_{j}``
+    and nothing else."""
+    for key, val in tree.items():
+        if not (isinstance(val, dict) or hasattr(val, "items")):
+            continue
+        path = prefix + (str(key),)
+        if _NUMBERED.match(path[-1]) and val and all(_ENCODER_LAYER.match(str(k)) for k in val):
+            yield path
+        yield from _encoder_stacks(val, path)
+
+
+def _module_path(path: tuple, stacks=frozenset()) -> list:
     out = []
     for i, part in enumerate(path):
         m = _LAYER.match(part)
         staged = _STAGE_LAYER.match(part) if i and _STAGE.match(path[i - 1]) else None
-        if m and (i == 0 or _STACK.match(path[i - 1])):
+        if m and (i == 0 or _STACK.match(path[i - 1]) or path[:i] in stacks):
             out += ["layers", m.group(2), m.group(1)]
         elif staged:
             out += ["layers", staged.group(2), staged.group(1)]
@@ -128,7 +155,7 @@ def state_dict_from_flax(variables) -> dict:
     if "layers" in params.get("transformer", {}):
         raise ValueError("scanned (stacked) transformer tree: convert it to the "
                          "unrolled layout first (vit_tpu.layers.scan)")
-    state = {}
+    state, stacks = {}, frozenset(_encoder_stacks(params))
     leaves = [(path, leaf, False) for path, leaf in _flatten(params)]
     leaves += [(path, leaf, True) for path, leaf in _flatten(stats)]
     for path, leaf, is_stat in leaves:
@@ -150,6 +177,6 @@ def state_dict_from_flax(variables) -> dict:
         elif name not in ("bias", "cls_token", "pos_embedding", "pos_emb", "temperature",
                           "mask_token", "distillation_token"):
             raise ValueError(f"unknown leaf {'/'.join(path)}")
-        key = ".".join(_module_path(tuple(mods)) + [name])
+        key = ".".join(_module_path(tuple(mods), stacks) + [name])
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state

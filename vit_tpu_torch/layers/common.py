@@ -1,6 +1,6 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
 ``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT,
-CrossFormer, RegionViT and NesT need).
+CrossFormer, RegionViT, NesT and PiT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -176,13 +176,18 @@ class Conv(nn.Module):
 
 
 class GroupedConv(Conv):
-    """Depthwise ``Conv`` (one filter per channel), TF-SAME
+    """Depthwise ``Conv`` (one group per input channel), TF-SAME
     (``vit_tpu/layers/common.py:583-617``; its SPMD custom VJP is a TPU
-    workaround the port does not need)."""
+    workaround the port does not need).  ``out_channels`` (``channels`` by
+    default) is Flax's ``features``: a multiple m of ``channels`` gives each
+    input channel m outputs, output o from input o // m in both packages
+    (PiT's pools, m = 2), and Flax's ``(kh, kw, 1, out)`` kernel is the OIHW
+    ``(out, 1, kh, kw)`` weight."""
 
     def __init__(self, channels: int, kernel_size: int, stride: int = 1,
-                 use_bias: bool = True, **kw):
-        super().__init__(channels, channels, kernel_size, stride, use_bias, groups=channels, **kw)
+                 use_bias: bool = True, out_channels: int | None = None, **kw):
+        super().__init__(channels, out_channels or channels, kernel_size, stride, use_bias,
+                         groups=channels, **kw)
 
 
 class BatchNorm(nn.Module):

@@ -2,7 +2,8 @@
 
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.nest import NesT
+from vit_tpu_torch.models.pit import PiT
 from vit_tpu_torch.models.regionvit import RegionViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 
-__all__ = ["CrossFormer", "NesT", "RegionViT", "TwinsSVT"]
+__all__ = ["CrossFormer", "NesT", "PiT", "RegionViT", "TwinsSVT"]

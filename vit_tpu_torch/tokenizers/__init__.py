@@ -9,15 +9,18 @@
 - space-to-depth patch merging: :class:`PatchEmbedding` (Twins-SVT's,
   ``(c p1 p2)`` channel order, then a 1x1 convolution);
 - cross-scale embedding: :class:`CrossEmbedLayer` (CrossFormer's,
-  convolutions of several kernel sizes at one stride, merged into one).
+  convolutions of several kernel sizes at one stride, merged into one);
+- overlapping patches: :class:`OverlapPatchEmbed` (PiT's, the unfold at
+  stride ``patch_size // 2`` and its Dense as one strided convolution).
 
 ``vit_tpu``'s ``ConvNxNBN`` (MobileViT) comes with the port of its model.
 """
 
 from vit_tpu_torch.models.crossformer import CrossEmbedLayer
+from vit_tpu_torch.models.pit import OverlapPatchEmbed
 from vit_tpu_torch.models.twins_svt import PatchEmbedding
 from vit_tpu_torch.models.vit_for_small_dataset import SPT
 from vit_tpu_torch.ops.patchify import extract_patches, patchify, unpatchify
 
 __all__ = ["patchify", "unpatchify", "extract_patches", "SPT", "PatchEmbedding",
-           "CrossEmbedLayer"]
+           "CrossEmbedLayer", "OverlapPatchEmbed"]
