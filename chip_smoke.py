@@ -148,8 +148,9 @@ Phases, one line each (any failure raises and exits non-zero):
    ``ln_gemm``, ``attention_nb`` and ``proj_mlp`` per forward, of their
    backwards per step, none of the block kernels; then the two B/32 tiers'
    step times side by side.
-19. the blocks past 512 tokens, on the mha route (mha_fwd, mha_bwd,
-   mha_dbias): first its path, every counter from 0, the unbiased block at
+19. the blocks past 512 tokens, on the mha route (the flash kernels,
+   biased instances included, and mha_dbias): first its path, every counter
+   from 0, the unbiased block at
    ViT-B/16@384's shape and the biased one at the small-dataset ViT's at 384
    px (577 tokens, batch 16, a learned per-head bias, so dbias too) under
    autograd, forward and backward once; then phases 3, 4 and 8 at those
@@ -258,7 +259,7 @@ runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
-blocks, the small-dataset ViT's biased one too; mha_fwd / mha_bwd past 512
+blocks, the small-dataset ViT's biased one too; the flash kernels past 512
 tokens: PiT's stage 1).  The line before the last is the card as ``nvidia-smi`` names it; before that
 PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
 NesT's (with ptxas's registers and spills of its two dh-32 instances),
@@ -1010,6 +1011,13 @@ def backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results, eps=1e
                 fab.BACKWARD_ROUTES[route].launches != routes + 1:
             raise AssertionError(f"{name}: the {route} route's counter did not move")
         err = check_outputs(torch, name, out, plain(), {0: dy})
+        if name == "fused_attention_block_bwd":  # the route's own plain version: p from the
+            # forward's lse, D = rowsum(dO∘O) from its oattn
+            err = max(err, check_outputs(
+                torch, f"{name}, {route} route", out,
+                fab.fused_attention_block_lse_backward_reference(
+                    dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, scale, eps),
+                {0: dy}))
         if not all(torch.equal(a, b_) for a, b_ in zip(out, kernel())):
             raise AssertionError(f"{name}: two runs differ")
         one_key = ""
@@ -1163,13 +1171,12 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None, eps
             raise AssertionError(f"biased training forward {kind}: two runs differ")
         del again
         _, xn, qkv, oattn, lse = train
-        lse_err = None
-        if short:  # f32 on both sides, from the same bf16 qkv: summation order only
-            lse_err = (lse - fab.attention_lse_reference(qkv, heads, dim_head, scale, bias)
-                       ).abs().max().item()
-            if not lse_err <= LSE_ABS_TOL:
-                raise AssertionError(f"biased training forward {kind}: lse differs from its "
-                                     f"plain version by {lse_err} > {LSE_ABS_TOL}")
+        # f32 on both sides, from the same bf16 qkv: summation order only
+        lse_err = (lse - fab.attention_lse_reference(qkv, heads, dim_head, scale, bias)
+                   ).abs().max().item()
+        if not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"biased training forward {kind}: lse differs from its "
+                                 f"plain version by {lse_err} > {LSE_ABS_TOL}")
         # The unbiased block on the same inputs, timed beside: its own
         # training forward's residuals, for the route its backward takes.
         unbiased = fab._launch_forward(*args, heads, dim_head, scale, eps, training=True)
@@ -1179,8 +1186,8 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None, eps
         log(f"biased forward {shape}, attention on the {route} route: serving "
             f"max|kernel-plain|={err:.6g}, beyond one bf16 unit {excess:.6g} tol={tol:.6g}"
             + (f", against the route's own plain version {own_err:.6g}" if short else "")
-            + f"; training forward (y, xn, qkv, oattn) max {train_err:.6g}, lse {lse_err}; the "
-            f"same bits in two runs; ms "
+            + f"; training forward (y, xn, qkv, oattn) max {train_err:.6g}, lse "
+            f"{lse_err:.6g}; the same bits in two runs; ms "
             f"kernel={fwd_ms['kernel']:.4f} unbiased kernel on the same "
             f"inputs={fwd_ms['unbiased']:.4f} plain={fwd_ms['plain']:.4f} bf16 modules with "
             f"SDPA(attn_mask=bias)={fwd_ms['library']:.4f}; bound={fwd_bound[0]:.4f} "
@@ -1217,15 +1224,15 @@ def biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=None, eps
         if fab.BACKWARD_ROUTES[route].launches != routes + 1:
             raise AssertionError(f"biased backward {kind}: the {route} route's counter did not "
                                  f"move")
-        tpu = want = plain()  # the TPU kernel's rounding points
+        tpu = plain()  # the TPU kernel's rounding points
         bwd_err = check_outputs(torch, f"biased backward {kind}", got[:5], tpu[:5], {0: dy})
-        if short:  # the short route's own plain version: D = rowsum(dO∘O), or with dbias
-            # the row statistics' dsum
-            want = fab.fused_attention_block_short_backward_reference(
-                dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
-                want_dbias)
-            bwd_err = max(bwd_err, check_outputs(torch, f"biased backward {kind}, short route",
-                                                 got[:5], want[:5], {0: dy}))
+        # the route's own plain version (either route): p from the forward's lse, D =
+        # rowsum(dO∘O), or with dbias the row statistics' dsum
+        want = fab.fused_attention_block_lse_backward_reference(
+            dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, scale, eps, bias,
+            want_dbias)
+        bwd_err = max(bwd_err, check_outputs(torch, f"biased backward {kind}, {route} route",
+                                             got[:5], want[:5], {0: dy}))
         again = kernel()
         if not all(torch.equal(a, b_) for a, b_ in zip(got[:5], again[:5])):
             raise AssertionError(f"biased backward {kind}: two runs differ")
@@ -1285,8 +1292,9 @@ THRESHOLD_SHAPE = (64, 197, 1024, 16, 64)
 
 
 def mha_route_phase(torch, results, smi, counters):
-    """The attention blocks past 512 tokens, on the mha route (mha_fwd,
-    mha_bwd, mha_dbias).  First its path: every counter from 0, the unbiased
+    """The attention blocks past 512 tokens, on the mha route (flash_fwd and
+    the flash backward, their biased instances with the bias, mha_row_stats
+    and mha_dbias with dbias).  First its path: every counter from 0, the unbiased
     block at MHA_SHAPES[0] and the biased one at MHA_SHAPES[1] with a learned
     per-head bias (so dbias too) under autograd, forward and backward, once
     each; the counters read right after are the phase's launches, and every
@@ -2339,7 +2347,8 @@ PIT = dict(image_size=224, patch_size=14, num_classes=1000, dim=256, depth=(3, 3
 PIT_BATCH = 64
 # (tag, n, d): its stages at batch 64, 16 heads of 64 (inner 1024) and mlp 2048
 # at every width, eps 1e-3; each pool doubles d.  962 tokens take the block's
-# mha route (mha_fwd, mha_bwd), 257 (two 144-key tiles) and 65 its short one.
+# mha route (flash_fwd, the flash backward), 257 (two 144-key tiles) and 65 its
+# short one.
 PIT_SHAPES = [("PiT stage 1", 962, 256), ("PiT stage 2", 257, 512), ("PiT stage 3", 65, 1024)]
 
 
@@ -2586,14 +2595,15 @@ SHORT_SHAPES = [
 # wgmma), and the times of the designs they replaced (mma.sync with
 # synchronous staging; for proj_mlp, the block forwards' GEMMs and the block
 # backwards' dgrads, linear.cu's cp.async GEMM, and for the unbiased block's
-# attention mha_fwd's online softmax and mha_bwd's FA2 split; for ln_gemm, the
+# attention the mma.sync mha_fwd's online softmax and mha_bwd's FA2 split, since
+# retired; for ln_gemm, the
 # earlier one-tile-a-CTA wgmma GEMM), ms on an H100 80GB HBM3 at 700 W:
 # constants cited from PERF.md's kernel table and its findings on the
 # rebuilds, printed on a line of their own beside the kernels' line, never in
 # it (every number there is this run's).  The flash forward's rebuild also
 # runs the packed op's forward; the short backward's runs attention_nb's.  The
 # biased block's and the cross-attention block's forward's are the parent
-# design's (mha_fwd / mha_bwd; q GEMM + flash forward + output GEMM); the
+# design's (mha_fwd / mha_bwd, retired; q GEMM + flash forward + output GEMM); the
 # cross-attention block's backward's the four steps (linear.cu's dy·Wo, the
 # flash backward, linear.cu's dq·Wq, column sums).  Rows 2, 4, 5 (backward),
 # 12 and 14's backwards: the design before the LayerNorm-backward epilogue
@@ -2616,13 +2626,18 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
            "fused_attention_block_bwd": "dgrads on gemm_wgmma with B MN-major, dqkv·Wqkv with "
                                         "the LayerNorm backward as its epilogue on a cluster "
                                         "(dxn on chip); attention on short_bwd up to 512 "
-                                        "tokens, mha_bwd past them",
+                                        "tokens, past them the flash backward (wgmma+tma: "
+                                        "flash_bwd_dq, flash_bwd_dkv) from the forward's lse "
+                                        "and D = rowsum(dO∘O)",
            "fused_attention_block_bias_bwd": "dgrads on gemm_wgmma with B MN-major, dqkv·Wqkv "
                                              "with the LayerNorm backward as its epilogue on a "
                                              "cluster; attention on short_bwd with the bias "
                                              "(two 144-key blocks at n 257) up to 512 tokens, "
-                                             "dbias from its (lse, D) in a fixed order; mha_bwd "
-                                             "past them",
+                                             "past them the flash backward's biased instances "
+                                             "(flash_bwd_dq_kernel<T, dh, dh, bias>, "
+                                             "flash_bwd_dkv_kernel<T, dh, dh, 3, bias>); with "
+                                             "dbias the rows' exact dsum first (mha_row_stats) "
+                                             "and mha_dbias in a fixed order",
            "ln_gemm_bwd": "dqkv·W on gemm_wgmma (B MN-major) with the LayerNorm backward, no "
                           "residual, as its epilogue on a thread-block cluster: dxn on chip, "
                           "row partials through DSMEM, fixed-order column sums",
@@ -2630,11 +2645,14 @@ DESIGNS = {"flash_attention": "wgmma+tma", "flash_backward": "wgmma+tma",
                         "fused epilogues) from n 256, linear.cu below",
            "fused_attention_block": "QKV and out-projection on gemm_wgmma from n 256; attention "
                                     "on short_fwd (wgmma+tma, keeps lse in training) up to 512 "
-                                    "tokens, mha_fwd past them",
+                                    "tokens, flash_fwd (wgmma+tma, keeps lse in training) past "
+                                    "them",
            "fused_attention_block_bias": "QKV and out-projection on gemm_wgmma from n 256; "
                                          "attention on short_fwd with the bias (two 144-key "
                                          "tiles at n 257, keeps lse in training) up to 512 "
-                                         "tokens, mha_fwd past them",
+                                         "tokens, past them flash_fwd's biased instances "
+                                         "(flash_fwd_kernel<T, dh, dh, bias>, the f32 bias "
+                                         "read into the score fragment)",
            "fused_cross_attention_bwd": "one cross_bwd kernel (wgmma+tma) up to c 128: per "
                                         "head doattn = dy·Wo_h, p from lse, dsum = Σ p·dp, ds "
                                         "and dq on chip, dk/dv over a span of query blocks in "
@@ -2669,10 +2687,10 @@ EARLIER_DESIGN_MS = {
                             "cross-attention, ragged": 0.1301},
     "attention_nb_bwd": {"B/32": 0.4285},
     "fused_mlp_bwd": {"B/16": 0.5082, "B/32": 0.3059},
-    "fused_attention_block_bwd": {"B/16": 0.4540, "B/32": 0.3488},
+    "fused_attention_block_bwd": {"B/16": 0.4540, "B/32": 0.3488, "PiT stage 1": 8.3642},
     "fused_attention_block_bias_bwd": {"lsa": 1.0548, "shared": 1.9904, "per-head": 1.7430},
     "fused_mlp": {"B/16": 0.5743, "B/32": 0.3257},
-    "fused_attention_block": {"B/16": 0.4872, "B/32": 0.4362},
+    "fused_attention_block": {"B/16": 0.4872, "B/32": 0.4362, "PiT stage 1": 3.1139},
     "fused_attention_block_bias": {"lsa": 0.6170, "shared": 0.6236, "per-head": 0.6210},
 }
 
@@ -3492,9 +3510,15 @@ def kernel_group(name: str) -> str:
     m = re.search(r"linear_kernel<[^,]+, (\d+), (\d+)>", name)
     if m:
         return f"linear_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
-    m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)(?:, \d+)?>", name)
-    if m:
-        return f"{m.group(1)} (dk {m.group(2)}, dv {m.group(3)})"
+    m = re.search(r"(flash_\w+_kernel)<[^,]+, (\d+), (\d+)(?:, \d+)?(?:, (true|false))?>",
+                  name)
+    if m:  # <T, dk, dv[, PARTS], BIAS>: the instances the block's mha route runs named so
+        label = f"{m[1]} (dk {m[2]}, dv {m[3]}"
+        if m[4] == "true":
+            return label + ", bias: the biased block's mha route)"
+        if m[2] == m[3] and int(m[2]) in (32, 64, 128):
+            return label + ": the flash op or the block's mha route)"
+        return label + ")"
     m = re.search(r"(short_\w+_kernel)<[^,]+, (\d+)(?:, (\d+))?(?:, \d+)?(, true)?(?:, false)?>",
                   name)
     if m:
@@ -3508,15 +3532,10 @@ def kernel_group(name: str) -> str:
     m = re.search(r"gemm_wgmma_kernel<[^,]+, (\d+)(?:, \d+)?>", name)
     if m:  # before the library's GEMMs: its name holds "gemm"
         return f"gemm_wgmma_kernel {EPILOGUES.get(int(m.group(1)), m.group(1))}"
-    m = re.search(r"(mha_\w+_kernel)<[^,]+, \d+, (true|false)(?:, (true|false))?>", name)
-    if m:  # <T, dim_head, BIAS> (mha_bwd_dq_kernel: <T, dim_head, BIAS, DQ>)
-        label = m[1] if m[3] != "false" else "mha_row_stats (mha_bwd_dq_kernel's first pass)"
-        return label + (" (bias)" if m[2] == "true" else "")
-    for own in ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel",
-                "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel",
-                "layernorm_kernel", "colsum_kernel", "rows_cols_kernel", "flash_bwd_dsum_kernel",
-                "short_dq_sum_kernel", "layernorm_ragged_kernel", "ln_bwd_rows_ragged_kernel",
-                "copy_rows_kernel"):
+    for own in ("mha_row_stats_kernel", "mha_bwd_dbias_kernel", "ln_bwd_rows_kernel",
+                "ln_bwd_cols_kernel", "layernorm_kernel", "colsum_kernel", "rows_cols_kernel",
+                "flash_bwd_dsum_kernel", "short_dq_sum_kernel", "layernorm_ragged_kernel",
+                "ln_bwd_rows_ragged_kernel", "copy_rows_kernel"):
         if own in name:
             return own + (" (bias)" if "true>" in name else "")
     if re.search(r"conv|fprop|dgrad|wgrad", name, re.I):
@@ -3853,7 +3872,7 @@ def main() -> int:
                 "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
                 # the blocks' attention middles by route (fused_attention_block.py
                 # attention_route), each direction: short_fwd / short_bwd up to 512 tokens,
-                # with or without a bias, else mha_fwd / mha_bwd (PiT's stage 1 and the
+                # with or without a bias, else the flash kernels (PiT's stage 1 and the
                 # "mha route" path; the other paths hold them at 0)
                 "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
                 "short route, forward": FORWARD_ROUTES["short"],
@@ -4043,7 +4062,7 @@ def main() -> int:
          {**nest_forward,
           **each(nest_layers, "fused_attention_block_bwd", "fused_mlp_bwd", "short route")})
     # PiT@224: rows 1-4 at every layer of its three stages; stage 1's 962
-    # tokens on the block's mha route (mha_fwd, mha_bwd), stages 2-3's 257 and
+    # tokens on the block's mha route (the flash kernels), stages 2-3's 257 and
     # 65 on its short route.
     pit_layers, pit_long = sum(PIT["depth"]), PIT["depth"][0]
     pit_forward = {**each(pit_layers, "fused_attention_block", "fused_mlp"),
@@ -4224,6 +4243,20 @@ def main() -> int:
     log(f"PiT's rows 1-4 at its stages (also under by_shape above; stage 1's block on the mha "
         f"route, sdpa: F.layer_norm + F.linear + SDPA + F.linear), ms, on {smi}: "
         + json.dumps(pit))
+    mha_instances = {name: ptxas.get(name, "not in this run's build log")
+                     for dh in (32, 64, 128) for bias in ("", ",bias") for name in (
+                         f"flash_fwd_kernel<bf16,{dh},{dh}{bias}>",
+                         f"flash_bwd_dq_kernel<bf16,{dh},{dh}{bias}>",
+                         f"flash_bwd_dkv_kernel<bf16,{dh},{dh},3{bias}>")}
+    row5 = {name: {tag: {k: v for k, v in r.items() if k in (
+                "kernel", "unbiased", "plain", "library", "whole", "library_whole", "device",
+                "dbias_err", "dbias_vs_tpu_rel")}
+            | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+            for tag, r in results[name].items() if "@384" in tag and "bound" in r}
+            for name in ("fused_attention_block_bias", "fused_attention_block_bias_bwd")}
+    log(f"the mha route (past 512 tokens, the flash kernels): row 5 at 577 tokens (also under "
+        f"by_bias above), ms, on {smi}: {json.dumps(row5)}; its instances' registers and "
+        f"spills: {json.dumps(mha_instances)}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

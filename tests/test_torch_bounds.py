@@ -170,23 +170,31 @@ def test_gemm_bound(raw):
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 6, 1>(CUtensorMap, "
      "CUtensorMap, vit::(anonymous namespace)::Operands<__nv_bfloat16>, int, int, int)",
      "gemm_wgmma_kernel LN backward (dxn on chip)"),
-    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, false>(const "
-     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, int, int, float)",
-     "mha_fwd_kernel"),
-    ("void vit::(anonymous namespace)::mha_fwd_kernel<__nv_bfloat16, 64, true>(const "
-     "__nv_bfloat16 *, const float *, unsigned long, __nv_bfloat16 *, int, int, float)",
-     "mha_fwd_kernel (bias)"),
-    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, true>(const "
-     "__nv_bfloat16 *)", "mha_bwd_dq_kernel (bias)"),
-    # the names the profiler gives, DQ's default spelled out: PiT's unbiased dq
-    # pass, and the dbias call's row statistics (DQ false)
-    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 64, false, true>(__nv_"
-     "bfloat16 const*, __nv_bfloat16 const*, float const*, unsigned long, __nv_bflo",
-     "mha_bwd_dq_kernel"),
-    ("void vit::(anonymous namespace)::mha_bwd_dq_kernel<__nv_bfloat16, 32, true, false>(__nv_"
-     "bfloat16 const*)", "mha_row_stats (mha_bwd_dq_kernel's first pass) (bias)"),
-    ("void vit::(anonymous namespace)::mha_bwd_dkv_kernel<__nv_bfloat16, 64, false>(__nv_"
-     "bfloat16 const*, __nv_bfloat16 const*, float const*)", "mha_bwd_dkv_kernel"),
+    # the block's mha route (past 512 tokens) on the flash kernels: PiT's
+    # unbiased stage 1 and the biased block's instances; the dbias call's
+    # row statistics
+    ("void vit::(anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64, 64, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 *, vit::(anonymous namespace)::"
+     "Strides, float *, vit::(anonymous namespace)::Bias, int, int, int, float)",
+     "flash_fwd_kernel (dk 64, dv 64: the flash op or the block's mha route)"),
+    ("void vit::(anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64, 64, true>("
+     "CUtensorMap, CUtensorMap, CUtensorMap)",
+     "flash_fwd_kernel (dk 64, dv 64, bias: the biased block's mha route)"),
+    ("void vit::(anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 32, 32, true>("
+     "CUtensorMap)", "flash_bwd_dq_kernel (dk 32, dv 32, bias: the biased block's mha route)"),
+    # the names the profiler gives: PiT's unbiased dq and dk/dv kernels, and
+    # the dbias call's row statistics
+    ("void vit::(anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, 64, 64, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, int, __nv_"
+     "bflo", "flash_bwd_dq_kernel (dk 64, dv 64: the flash op or the block's mha route)"),
+    ("void vit::(anonymous namespace)::mha_row_stats_kernel<__nv_bfloat16, 32>(__nv_"
+     "bfloat16 const*)", "mha_row_stats_kernel"),
+    ("void vit::(anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 64, 64, 3, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*)",
+     "flash_bwd_dkv_kernel (dk 64, dv 64: the flash op or the block's mha route)"),
+    # flash instances no block runs keep their widths only
+    ("void vit::(anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 192, 192, 2, false>("
+     "CUtensorMap)", "flash_bwd_dkv_kernel (dk 192, dv 192)"),
     # proj_mlp's backward: its three dgrads on gemm_wgmma, W as it lies
     ("void vit::(anonymous namespace)::gemm_wgmma_kernel<__nv_bfloat16, 0, 1>(CUtensorMap)",
      "gemm_wgmma_kernel store (QKV, doattn)"),

@@ -127,6 +127,12 @@ ATTN_FORWARD_SHAPES = [
     (4, 33, 256, 4, 64, torch.bfloat16),    # a ragged n on gemm_wgmma and short_fwd
     (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key tiles of online softmax: the mha route
     (2, 600, 256, 4, 64, torch.bfloat16),   # past 512 tokens: the mha route
+    # the mha route on the flash kernels: PiT's stage 1 (962 = 15·64 + 2), dh
+    # 32 and 128 at 577 (9·64 + 1: a one-key last tile), f16
+    (64, 962, 256, 16, 64, torch.bfloat16),
+    (2, 577, 64, 2, 32, torch.bfloat16),
+    (2, 577, 256, 2, 128, torch.bfloat16),
+    (2, 700, 256, 4, 64, torch.float16),
     (8, 65, 1024, 16, 64, torch.bfloat16),  # the entry's serving batch, 520 rows
     (128, 65, 1024, 16, 64, torch.bfloat16),  # bench.py's B/32 step
     (64, 197, 768, 12, 64, torch.bfloat16),   # B/16
@@ -215,6 +221,11 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     (2, 33, 40, 1, 32, torch.bfloat16),     # d=40: partial tiles in the dgrad GEMMs
     (1, 1000, 64, 2, 64, torch.bfloat16),   # 16 key and query tiles: the mha route
     (2, 600, 256, 4, 64, torch.bfloat16),   # past 512 tokens: the mha route
+    # the mha route on the flash kernels: PiT's stage 1, dh 32 and 128, f16
+    (64, 962, 256, 16, 64, torch.bfloat16),
+    (2, 577, 64, 2, 32, torch.bfloat16),
+    (2, 577, 256, 2, 128, torch.bfloat16),
+    (2, 700, 256, 4, 64, torch.float16),
     (2, 257, 1024, 16, 64, torch.bfloat16), # ViT-L/14 @224's n: three short key blocks
     (2, 300, 512, 8, 64, torch.bfloat16),   # a ragged n between them
     (8, 65, 1024, 16, 64, torch.bfloat16),
@@ -227,10 +238,10 @@ def test_fused_mlp_backward_kernel_matches_plain(cuda, shape, hidden, dtype):
     (64, 64, 512, 8, 64, torch.bfloat16),
 ])
 def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, heads, dh, dtype):
-    """Fed the plain training forward's residuals (oattn and lse for the
-    short route): every output against the plain backward (the TPU kernel's
-    dsum = Σ dp·p), on the short route also against its own plain version (D
-    = rowsum(dO∘O)), and the same bits twice; the route by shape."""
+    """Fed the plain training forward's residuals (oattn and lse): every
+    output against the plain backward (the TPU kernel's dsum = Σ dp·p) and
+    against the card's own plain version on either route (p from lse, D =
+    rowsum(dO∘O)), and the same bits twice; the route by shape."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=1)
     x, gamma, beta, wqkv, wo, bo = args
     _, _, qkv, oattn = fused_attention_block_forward_reference(*args, heads, dh)
@@ -248,10 +259,9 @@ def test_fused_attention_block_backward_kernel_matches_plain(cuda, b, n, d, head
         (before[0] + 1, before[1] + 1)
     ref = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh)
     check_outputs(torch, "fused_attention_block_bwd", out, ref, {0: dy})
-    if route == "short":
-        check_outputs(torch, "fused_attention_block_bwd, short route", out,
-                      fused_attention_block_ops.fused_attention_block_short_backward_reference(
-                          dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh), {0: dy})
+    check_outputs(torch, f"fused_attention_block_bwd, {route} route", out,
+                  fused_attention_block_ops.fused_attention_block_lse_backward_reference(
+                      dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh), {0: dy})
     _twice(out, fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh,
                                                oattn=oattn, lse=lse))
 
@@ -262,6 +272,19 @@ def test_short_route_needs_the_training_forwards_residuals(cuda):
     qkv = fused_attention_block_forward_reference(*args, 3, 32)[2]
     with pytest.raises(ValueError, match="short route"):
         fused_attention_block_backward(x, x, qkv, gamma, wqkv, wo, 3, 32)
+
+
+def test_mha_route_needs_the_training_forwards_residuals(cuda):
+    """Past 512 tokens the flash backward reads the training forward's lse
+    and oattn too: without them it raises, before any launch."""
+    args = _attn_args(2, 577, 96, 3, 32, torch.bfloat16, cuda)
+    x, gamma, beta, wqkv, wo, bo = args
+    _, _, qkv, oattn = fused_attention_block_forward_reference(*args, 3, 32)
+    before = fused_attention_block_backward.launches
+    for kept in ({}, {"oattn": oattn}, {"lse": torch.zeros(2, 3, 577, device=cuda)}):
+        with pytest.raises(ValueError, match="mha route"):
+            fused_attention_block_backward(x, x, qkv, gamma, wqkv, wo, 3, 32, **kept)
+    assert fused_attention_block_backward.launches == before
 
 
 @pytest.mark.parametrize("shape,hidden,dtype", MLP_FORWARD_SHAPES)
@@ -279,15 +302,15 @@ def test_fused_mlp_training_forward_keeps_the_plain_residuals(cuda, shape, hidde
 @pytest.mark.parametrize("b,n,d,heads,dh,dtype,biased", [
     (*shape, False) for shape in ATTN_FORWARD_SHAPES] + [
     (2, 257, 1024, 16, 64, torch.bfloat16, True),  # the small-dataset ViT's LSA
+    (2, 577, 1024, 16, 64, torch.bfloat16, True),  # and at 384 px, on the mha route
 ])
 def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, b, n, d, heads,
                                                                           dh, dtype, biased):
     """The training forward returns y, xn, qkv and oattn as the plain version
     computes them and, on the short route (n <= 512, with or without a
-    bias), also as that route's own plain version does, with lse (kept for
-    short_bwd) within LSE_ABS_TOL of the plain lse of its own qkv; on the mha
-    route (n > 512) no lse.  The same bits twice; the route by shape; serving
-    keeps no lse."""
+    bias), also as that route's own plain version does; on either route lse
+    (kept for the backward) within LSE_ABS_TOL of the plain lse of its own
+    qkv.  The same bits twice; the route by shape; serving keeps no lse."""
     args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=3)
     bias = vit_for_small_dataset.lsa_bias(n, cuda) if biased else None
     scale = 1.0 if biased else dh ** -0.5
@@ -305,11 +328,9 @@ def test_fused_attention_block_training_forward_keeps_the_plain_residuals(cuda, 
             *args, heads, dh, scale, 1e-3, bias)
         check_outputs(torch, "fused_attention_block training forward, short route", out[:4],
                       short[:4], {0: args[0]})
-        lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh, scale, bias)
-        assert out[4].dtype == torch.float32 and tuple(out[4].shape) == (b, heads, n)
-        assert (out[4] - lse).abs().max() <= LSE_ABS_TOL
-    else:
-        assert out[4] is None
+    lse = fused_attention_block_ops.attention_lse_reference(out[2], heads, dh, scale, bias)
+    assert out[4].dtype == torch.float32 and tuple(out[4].shape) == (b, heads, n)
+    assert (out[4] - lse).abs().max() <= LSE_ABS_TOL
     _twice(out, fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3, bias,
                                                           training=True))
     assert fused_attention_block_ops._launch_forward(*args, heads, dh, scale, 1e-3,
@@ -466,15 +487,14 @@ def _bias(kind, heads, n, device, seed=5):
     return torch.randn(1 if kind == "shared" else heads, n, n, generator=g, device=device) * 0.5
 
 
-@pytest.mark.parametrize("n", [65, 197, 257, 600])
+@pytest.mark.parametrize("n", [65, 197, 257, 577, 600])
 @pytest.mark.parametrize("kind", ["shared", "per-head"])
 def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
     """Serving forward, training forward and backward (dbias included; fed the
-    training forward's residuals, oattn and lse for the short route) of the
-    biased block against their plain versions: the TPU kernel's rounding
-    points, and on the short route (n <= 512) that route's own (with dbias,
-    dsum = Σ p·dp from the row statistics it takes first); dbias against
-    both, within DBIAS_REL_TOL."""
+    training forward's residuals, oattn and lse) of the biased block against
+    their plain versions: the TPU kernel's rounding points, and the card's
+    own on either route (with dbias, dsum = Σ p·dp from the row statistics
+    it takes first); dbias against both, within DBIAS_REL_TOL."""
     b, d, heads, dh = 2, 256, 4, 64
     args = _attn_args(b, n, d, heads, dh, torch.bfloat16, cuda, seed=4)
     x, gamma, beta, wqkv, wo, bo = args
@@ -502,11 +522,9 @@ def test_fused_attention_block_bias_kernels_match_plain(cuda, n, kind):
     ref = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh,
                                                    bias=bias)
     check_outputs(torch, "biased backward", got[:5], ref[:5], {0: dy})
-    own = ref  # the mha route (n > 512) rounds as the TPU kernel, dbias included
-    if fused_attention_block_ops.attention_route(n) == "short":
-        own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
-            dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
-        check_outputs(torch, "biased backward, short route", got[:5], own[:5], {0: dy})
+    own = fused_attention_block_ops.fused_attention_block_lse_backward_reference(
+        dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
+    check_outputs(torch, "biased backward, its route", got[:5], own[:5], {0: dy})
     check_dbias(torch, "biased backward", got[5], own[5])
     check_dbias(torch, "biased backward, TPU rounding points", got[5], ref[5])
     _twice(got, fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads,
@@ -529,7 +547,7 @@ def test_dbias_is_the_same_bits_every_run(cuda, hb):
     assert torch.equal(runs[0], runs[1])
 
 
-@pytest.mark.parametrize("n", [65, 257])
+@pytest.mark.parametrize("n", [65, 257, 577])
 def test_lsa_bias_gives_finite_outputs_one_past_a_key_tile(cuda, n):
     """LSA's -f32.max diagonal at n ≡ 1 (mod 64), where the last key tile's
     only key is the last query's own masked one: finite, and as the plain
@@ -599,7 +617,7 @@ def test_biased_block_at_the_small_dataset_shape(cuda, kind):
     check_outputs(torch, "biased backward", got[:5], fused_attention_block_backward_reference(
         dy, x, qkv, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=False)[:5],
         {0: dy})
-    own = ops.fused_attention_block_short_backward_reference(
+    own = ops.fused_attention_block_lse_backward_reference(
         dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=need)
     check_outputs(torch, "biased backward, short route", got[:5], own[:5], {0: dy})
     if need:
@@ -613,6 +631,62 @@ def test_biased_block_at_the_small_dataset_shape(cuda, kind):
             for rt in (ops.FORWARD_ROUTES, ops.BACKWARD_ROUTES)] == [
         {"short": routes[0]["short"] + 4, "mha": routes[0]["mha"]},
         {"short": routes[1]["short"] + 2, "mha": routes[1]["mha"]}]
+
+
+@pytest.mark.parametrize("kind", ["lsa", "shared", "per-head"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_biased_block_past_512_tokens(cuda, kind, dtype):
+    """The small-dataset ViT's block at 384 px (16 images of 577 tokens, d
+    1024, 16 heads of 64: the mha route, the biased flash instances, a
+    one-key last tile) with LSA's mask (scale 1), a shared and a per-head
+    bias: serving and training forwards against the plain version, lse
+    within LSE_ABS_TOL, the backward fed the training forward's residuals
+    against the TPU kernel's rounding points and the route's own, dbias
+    (shared, per-head) against the route's own within DBIAS_REL_TOL; each
+    twice, bit for bit; only the mha route counted."""
+    b, n, d, heads, dh = 16, 577, 1024, 16, 64
+    args = _attn_args(b, n, d, heads, dh, dtype, cuda, seed=15)
+    x, gamma, beta, wqkv, wo, bo = args
+    bias = _bias(kind, heads, n, cuda, seed=16)
+    scale = 1.0 if kind == "lsa" else dh ** -0.5
+    ops = fused_attention_block_ops
+    assert ops.attention_route(n) == "mha"
+    routes = [dict((k, r.launches) for k, r in rt.items())
+              for rt in (ops.FORWARD_ROUTES, ops.BACKWARD_ROUTES)]
+    with torch.inference_mode():
+        out = fused_attention_block_bias(*args, bias, heads, dh, scale)
+        _close(out, fused_attention_block_reference(*args, heads, dh, scale, bias=bias), x)
+        assert torch.equal(out, fused_attention_block_bias(*args, bias, heads, dh, scale))
+    fwd = ops._launch_forward(*args, heads, dh, scale, 1e-3, bias, training=True)
+    check_outputs(torch, "biased training forward", fwd[:4],
+                  fused_attention_block_forward_reference(*args, heads, dh, scale, bias=bias),
+                  {0: x})
+    _twice(fwd, ops._launch_forward(*args, heads, dh, scale, 1e-3, bias, training=True))
+    _, _, qkv, oattn, lse = fwd
+    assert (lse - ops.attention_lse_reference(qkv, heads, dh, scale, bias)).abs().max() <= \
+        LSE_ABS_TOL
+    dy = torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(17),
+                     device=cuda).to(dtype)
+    need = kind != "lsa"
+    got = fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                              scale, need_dbias=need, oattn=oattn, lse=lse)
+    check_outputs(torch, "biased backward", got[:5], fused_attention_block_backward_reference(
+        dy, x, qkv, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=False)[:5],
+        {0: dy})
+    own = ops.fused_attention_block_lse_backward_reference(
+        dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, bias=bias, need_dbias=need)
+    check_outputs(torch, "biased backward, mha route", got[:5], own[:5], {0: dy})
+    if need:
+        check_dbias(torch, "biased backward", got[5], own[5])
+    else:
+        assert got[5] is None
+    _twice(got, fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                    scale, need_dbias=need, oattn=oattn,
+                                                    lse=lse))
+    assert [dict((k, r.launches) for k, r in rt.items())
+            for rt in (ops.FORWARD_ROUTES, ops.BACKWARD_ROUTES)] == [
+        {"short": routes[0]["short"], "mha": routes[0]["mha"] + 4},
+        {"short": routes[1]["short"], "mha": routes[1]["mha"] + 2}]
 
 
 def test_bias_that_the_kernel_does_not_take_raises_on_the_card(cuda):
@@ -1661,7 +1735,7 @@ def test_crossformer_window_block_kernels_match_plain(cuda, groups, n, c):
     tpu = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
                                                    eps, bias)
     check_outputs(torch, "crossformer window backward", got[:5], tpu[:5], {0: dy})
-    own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
+    own = fused_attention_block_ops.fused_attention_block_lse_backward_reference(
         dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, eps, bias)
     check_outputs(torch, "crossformer window backward, short route", got[:5], own[:5], {0: dy})
     check_dbias(torch, "crossformer window backward", got[5], own[5])
@@ -1748,7 +1822,7 @@ def test_regionvit_region_block_kernels_match_plain(cuda, groups, n, c):
                   fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
                                                            dh), {0: dy})
     check_outputs(torch, "regionvit region backward, short route", got,
-                  fused_attention_block_ops.fused_attention_block_short_backward_reference(
+                  fused_attention_block_ops.fused_attention_block_lse_backward_reference(
                       dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh), {0: dy})
     _twice(got, kernel())
     if n == 1:
@@ -1783,7 +1857,7 @@ def test_regionvit_joint_block_kernels_match_plain(cuda, groups, c):
     got = kernel()
     tpu = fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads, dh,
                                                    bias=bias)
-    own = fused_attention_block_ops.fused_attention_block_short_backward_reference(
+    own = fused_attention_block_ops.fused_attention_block_lse_backward_reference(
         dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, bias=bias)
     check_outputs(torch, "regionvit joint backward", got[:5], tpu[:5], {0: dy})
     check_outputs(torch, "regionvit joint backward, short route", got[:5], own[:5], {0: dy})
@@ -1884,7 +1958,7 @@ def test_nest_block_kernels_match_plain(cuda, groups, c, heads):
                   fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
                                                            dh, scale, NEST_EPS), {0: dy})
     check_outputs(torch, "nest block backward, short route", got,
-                  fused_attention_block_ops.fused_attention_block_short_backward_reference(
+                  fused_attention_block_ops.fused_attention_block_lse_backward_reference(
                       dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dh, scale, NEST_EPS),
                   {0: dy})
     _twice(got, kernel())
@@ -1974,8 +2048,8 @@ def test_pit_block_kernels_match_plain(cuda, n, d):
     """The block at PiT's stage shapes: the serving and the training forward
     and the backward fed the training forward's residuals against their
     plain versions, twice bit for bit, on the route ``attention_route``
-    gives (``mha_fwd`` / ``mha_bwd`` at 962 tokens: 15 full 64-row tiles and
-    one of 2); its LayerNorm backward on the dgrad's epilogue (d % 256 == 0)."""
+    gives (the flash kernels at 962 tokens: 15 full 64-key tiles and one of
+    2); its LayerNorm backward on the dgrad's epilogue (d % 256 == 0)."""
     from chip_smoke import counted_launches
 
     b, heads, dh = 4, 16, 64

@@ -200,7 +200,7 @@ def _launch(op, d):
         qkv, oattn, lse = _zeros(b, n, 3 * inner), _zeros(b, n, inner), torch.zeros(b, 2, n)
         fab._launch_backward(_zeros(b, n, d), _zeros(b, n, d), qkv, g, _zeros(3 * inner, d),
                              _zeros(d, inner), 2, 32, 32 ** -0.5, EPS, oattn=oattn, lse=lse)
-        return "vit_fused_attention_block_bwd", (15, 16)
+        return "vit_fused_attention_block_bwd", (17, 18)
     if op == "ln_gemm":
         fh._launch_ln_gemm_backward(_zeros(rows, 3 * inner), _zeros(rows, d), g,
                                     _zeros(3 * inner, d), EPS)

@@ -345,7 +345,7 @@ def test_short_route_backward_over_one_key_gives_zero_dq_dk(dtype):
         rn(d, scale=0.1)
     _, _, qkv, oattn, lse = fab.fused_attention_block_short_forward_reference(
         x, gamma, beta, wqkv, wo, bo, heads, dim_head, eps=1e-3)
-    short = fab.fused_attention_block_short_backward_reference(
+    short = fab.fused_attention_block_lse_backward_reference(
         dy, x, qkv, oattn, lse, gamma, wqkv, wo, heads, dim_head, eps=1e-3)
     tpu = fab.fused_attention_block_backward_reference(dy, x, qkv, gamma, wqkv, wo, heads,
                                                        dim_head, eps=1e-3)

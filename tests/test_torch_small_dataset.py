@@ -39,7 +39,7 @@ from vit_tpu_torch.ops.fused_attention_block import (  # noqa: E402
     attention_lse_reference, attention_route, fused_attention_block,
     fused_attention_block_backward_reference, fused_attention_block_bias,
     fused_attention_block_bias_backward, fused_attention_block_forward_reference,
-    fused_attention_block_short_backward_reference,
+    fused_attention_block_lse_backward_reference,
     fused_attention_block_short_forward_reference,
 )
 from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step  # noqa: E402
@@ -60,10 +60,10 @@ def _rel(got, want):
     return np.max(np.abs(np.asarray(got) - want)) / (np.max(np.abs(want)) + 1e-12)
 
 
-def _block_args(n, hb, b=2, d=64, seed=0):
+def _block_args(n, hb, b=2, d=64, seed=0, dh=DH):
     """Flax-layout block inputs, a (hb, n, n) bias and a cotangent."""
     rng = np.random.default_rng(seed)
-    inner = HEADS * DH
+    inner = HEADS * dh
     args = (_f32(rng, b, n, d), _f32(rng, d, scale=0.1, shift=1.0), _f32(rng, d, scale=0.1),
             _f32(rng, d, 3 * inner, scale=0.05), _f32(rng, inner, d, scale=0.05),
             _f32(rng, d, scale=0.05))
@@ -157,12 +157,69 @@ def test_short_route_biased_plain_versions_match_jax_kernel(n, hb):
     qkv, oattn = t(np.array(fwd[2])), t(np.array(fwd[3]))
     lse = attention_lse_reference(qkv, HEADS, DH, scale, t(bias))
     assert _rel(got[4].numpy(), lse.numpy()) <= TOL
-    got = fused_attention_block_short_backward_reference(
+    got = fused_attention_block_lse_backward_reference(
         t(dy), t(args[0]), qkv, oattn, lse, t(args[1]), t(args[3].T.copy()),
         t(args[4].T.copy()), HEADS, DH, scale, 1e-3, t(bias))
     for name, g, w in zip(["dx", "dqkv", "dgamma", "dbeta", "dbo", "dbias"], got, want):
         assert g.shape == w.shape, name
         assert _rel(g.numpy(), w) <= TOL, f"{name}: {_rel(g.numpy(), w)}"
+
+
+# The mha route (the flash kernels, past 512 tokens): the ViTs' 577 tokens at
+# 384 px (577 = 9·64 + 1: a last key tile of one key) and PiT's stage-1 962, dh
+# 32 and 64, unbiased, with a shared and a per-head bias, and LSA's mask
+# (scale 1.0, -f32.max on the diagonal: query 576's one-key tile holds only
+# its own masked key).
+MHA_CASES = [(577, 32, None), (962, 64, None), (577, 32, "shared"), (962, 64, "shared"),
+             (577, 64, "per-head"), (962, 32, "per-head"), (577, 64, "lsa"), (962, 32, "lsa")]
+
+
+@pytest.mark.parametrize("n,dh,kind", MHA_CASES)
+def test_mha_route_plain_versions_match_jax_kernel(n, dh, kind):
+    """The plain versions the card holds the mha route against: the forward
+    (``fused_attention_block_forward_reference``, y, xn, qkv, oattn) and its
+    lse (``attention_lse_reference``, against the log-sum-exp of JAX's
+    biased f32 logits), and the backward from that lse and D = rowsum(dO∘O)
+    (``fused_attention_block_lse_backward_reference``; with dbias, from the
+    rows' exact dsum), fed JAX's saved projection and output, against
+    ``vit_tpu``'s ``_forward`` and ``_backward`` (in the interpreter, with
+    the bias where there is one): each within 1e-4 of its max|JAX output|."""
+    assert attention_route(n) == "mha"
+    args, bias, dy = _block_args(n, HEADS if kind == "per-head" else 1, seed=5, dh=dh)
+    scale = 1.0 if kind == "lsa" else dh ** -0.5
+    if kind == "lsa":
+        bias = sd.lsa_bias(n, "cpu").numpy()
+    bias = None if kind is None else bias
+    x, gamma, beta, wqkv, wo, bo = map(jnp.asarray, args)
+    jbias, t = {} if bias is None else {"bias": jnp.asarray(bias)}, torch.from_numpy
+    fwd = jax_attn._forward(x, gamma, beta, wqkv, wo, bo, HEADS, dh, scale, 1e-3, True,
+                            save_residuals=True, **jbias)
+    want = jax_attn._backward(jnp.asarray(dy), x, fwd[2], gamma, wqkv, wo, HEADS, dh, scale,
+                              1e-3, True, **jbias)
+    tbias = None if bias is None else t(bias)
+    got = fused_attention_block_forward_reference(*_torch_layout(args), HEADS, dh, scale, 1e-3,
+                                                  tbias)
+    for name, g, w in zip(["y", "xn", "qkv", "oattn"], got, fwd):
+        assert _rel(g.numpy(), w) <= TOL, f"{name}: {_rel(g.numpy(), w)}"
+    qkv, oattn = t(np.array(fwd[2])), t(np.array(fwd[3]))
+    q, k = (np.array(fwd[2])[..., i * HEADS * dh:(i + 1) * HEADS * dh]
+            .reshape(2, n, HEADS, dh).transpose(0, 2, 1, 3) for i in range(2))
+    logits = jnp.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    lse_want = jax.nn.logsumexp(logits if bias is None else logits + jnp.asarray(bias), axis=-1)
+    lse = attention_lse_reference(qkv, HEADS, dh, scale, tbias)
+    assert _rel(lse.numpy(), lse_want) <= TOL
+    names = ["dx", "dqkv", "dgamma", "dbeta", "dbo", "dbias"]
+    for need_dbias in (False, True) if kind in ("shared", "per-head") else (False,):
+        got = fused_attention_block_lse_backward_reference(
+            t(dy), t(args[0]), qkv, oattn, lse, t(args[1]), t(args[3].T.copy()),
+            t(args[4].T.copy()), HEADS, dh, scale, 1e-3, tbias, need_dbias=need_dbias)
+        for name, g, w in zip(names, got, want):
+            if g is None:
+                assert name == "dbias" and not need_dbias
+                continue
+            assert g.shape == w.shape, name
+            assert _rel(g.numpy(), w) <= TOL, f"{name}, need_dbias={need_dbias}: " \
+                                               f"{_rel(g.numpy(), w)}"
 
 
 def test_lsa_bias_at_n_one_past_a_key_tile_matches_jax():

@@ -15,10 +15,11 @@ the block backwards' dgrads on the same GEMM, whose weights are read as they
 lie, ``(k, n)`` with n contiguous (B MN-major); and so do the fused MLP's
 and the attention block's forward GEMMs (fc1, fc2, QKV and the
 out-projection, on the same kernel from n = 256) over the buffers their
-wrappers allocate.  The short route of the attention block (``short_fwd`` and
-``short_bwd`` over the packed qkv, chosen by ``attention_route`` for both
-directions) passes the strides of its column views; the forward keeps the lse
-the backward reads exactly on that route.  The cross-attention block's
+wrappers allocate.  Both routes of the attention block (``short_fwd`` and
+``short_bwd`` up to 512 tokens, the flash kernels past them, over the packed
+qkv, chosen by ``attention_route`` for both directions) pass the strides of
+its column views; the training forward keeps the lse the backward reads on
+either route, and serving keeps none.  The cross-attention block's
 backward (``cross_bwd``) passes its operands as they lie, each a view its maps
 take, and refuses widths and routes it cannot take before any launch;
 proj_mlp's backward passes its three dgrad weights as they lie.
@@ -186,7 +187,7 @@ def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
     inner = heads * dh
     qkv, dqkv = (torch.zeros(b, n, 3 * inner, dtype=BF16) for _ in range(2))
     oattn, doattn = (torch.zeros(b, n, inner, dtype=BF16) for _ in range(2))
-    views = fab.short_route_views(qkv, oattn, doattn, dqkv, heads, dh)
+    views = fab.attention_backward_views(qkv, oattn, doattn, dqkv, heads, dh)
     packed = [n * 3 * inner if b > 1 else 8, dh, 3 * inner]
     assert list(kernel_strides(*views)) == packed * 3 + [n * inner if b > 1 else 8, dh, inner] * 2 \
         + packed * 3
@@ -197,19 +198,48 @@ def test_short_route_passes_the_packed_projections_strides(b, n, heads, dh):
     assert views[3].data_ptr() == oattn.data_ptr() and views[4].data_ptr() == doattn.data_ptr()
 
 
+# The mha route's shapes: ViT-B/16's and the small-dataset ViT's 577 tokens at
+# 384 px (batch 16), PiT@224's stage 1 (962 tokens, 16 heads of 64, batch 64),
+# and dh 32 and 128.
+MHA_SHAPES = [(16, 577, 12, 64), (16, 577, 16, 64), (64, 962, 16, 64), (2, 577, 2, 32),
+              (2, 962, 2, 128)]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", MHA_SHAPES)
+def test_mha_route_passes_the_packed_projections_strides(b, n, heads, dh):
+    """Past 512 tokens the flash kernels read the same views as the short
+    route: q, k and v the column thirds of the packed (b, n, 3·inner) qkv, O
+    and dO the (b, n, inner) oattn and doattn, dq, dk and dv the thirds of
+    dqkv; each a view a tensor map takes (``_tma_problem`` finds nothing), and
+    the strides the wrappers pass, computed once per shape, are theirs."""
+    inner = heads * dh
+    qkv, dqkv = (torch.empty(b, n, 3 * inner, dtype=BF16, device="meta") for _ in range(2))
+    oattn, doattn = (torch.empty(b, n, inner, dtype=BF16, device="meta") for _ in range(2))
+    views = fab.attention_backward_views(qkv, oattn, doattn, dqkv, heads, dh)
+    for v in views:
+        assert _tma_problem(v) is None and tuple(v.shape) == (b, heads, n, dh)
+    packed, o = [n * 3 * inner, dh, 3 * inner], [n * inner, dh, inner]
+    assert list(fab._attention_strides(b, n, heads, dh, backward=True)) == \
+        packed * 3 + o * 2 + packed * 3 == list(kernel_strides(*views))
+    assert list(fab._attention_strides(b, n, heads, dh, backward=False)) == packed * 3 + o
+
+
 ROUTES_BY_SHAPE = [(65, False, "short"), (197, False, "short"), (512, False, "short"),
-                   (513, False, "mha"), (600, False, "mha"), (65, True, "short"),
-                   (257, True, "short"), (512, True, "short"), (513, True, "mha")]
+                   (513, False, "mha"), (577, False, "mha"), (600, False, "mha"),
+                   (962, False, "mha"), (65, True, "short"), (257, True, "short"),
+                   (512, True, "short"), (513, True, "mha"), (577, True, "mha")]
 
 
 @pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
 def test_backward_route_is_chosen_by_shape(n, biased, route):
     """ViT-B/32's 65, ViT-B/16's 197 and the small-dataset ViT's 257 tokens
     (LSA's bias) take short_fwd and short_bwd, with or without a bias; more
-    than 512 tokens keep mha_fwd and mha_bwd.  One function chooses for both
-    directions, by the token count alone: it takes no bias, so a biased case
-    (``biased``, driven through both directions by
-    test_forward_and_backward_take_one_route) routes as its token count."""
+    than 512 tokens (the ViTs' 577 at 384 px, PiT's 962) take the flash
+    kernels, flash_fwd and the flash backward's dq and dk/dv kernels, with or
+    without a bias.  One function chooses for both directions, by the token
+    count alone: it takes no bias, so a biased case (``biased``, driven
+    through both directions by test_forward_and_backward_take_one_route)
+    routes as its token count."""
     assert fab.attention_route(n) == route
 
 
@@ -248,61 +278,69 @@ def recording_lib(monkeypatch):
     return lib
 
 
-@pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
-def test_forward_and_backward_take_one_route(recording_lib, n, biased, route):
-    """The forward and the backward pass one route to C: on the short route
-    the forward passes short_fwd's strides over the packed qkv and oattn and,
-    in training only, an f32 (b, heads, n) lse, and the backward passes
-    short_bwd's strides and that lse; on the mha route neither passes
-    strides, and no lse is kept.  A bias goes with either route, in both
-    directions.  Each direction counts its route."""
-    b, d, heads, dh = 2, 64, 2, 32
+# The C entry points' arguments by position: the forward's lse, strides,
+# route, bias and hb; the backward's lse, strides, route, dq_part, dsum,
+# rowstat, bias, hb and dbias.
+FWD_ARGS = dict(lse=10, strides=11, route=12, bias=13, hb=14)
+BWD_ARGS = dict(lse=4, strides=12, route=13, dq_part=14, dsum=15, rowstat=16, bias=20, hb=21,
+                dbias=22)
+
+
+def _block_operands(b, n, d, heads, dh):
     inner = heads * dh
     x, dy = torch.zeros(b, n, d, dtype=BF16), torch.zeros(b, n, d, dtype=BF16)
     g, bo = torch.ones(d, dtype=BF16), torch.zeros(d, dtype=BF16)
     wqkv, wo = torch.zeros(3 * inner, d, dtype=BF16), torch.zeros(d, inner, dtype=BF16)
+    return x, dy, g, bo, wqkv, wo
+
+
+@pytest.mark.parametrize("n,biased,route", ROUTES_BY_SHAPE)
+def test_forward_and_backward_take_one_route(recording_lib, n, biased, route):
+    """The forward and the backward pass one route to C, by its code, and on
+    either route the strides of the attention's views: the forward's over
+    the packed qkv and oattn, the backward's over them, doattn and dqkv.  The
+    training forward keeps an f32 (b, heads, n) lse and passes it, serving
+    passes none, and the backward passes the training forward's.  A bias
+    goes with either route, in both directions.  Each direction counts its
+    route."""
+    b, d, heads, dh = 2, 64, 2, 32
+    inner = heads * dh
+    x, dy, g, bo, wqkv, wo = _block_operands(b, n, d, heads, dh)
     bias = torch.zeros(1, n, n) if biased else None
     counts = [r[route].launches for r in (fab.FORWARD_ROUTES, fab.BACKWARD_ROUTES)]
     served = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5, 1e-3, bias)
     _, _, qkv, oattn, lse = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5,
                                                 1e-3, bias, training=True)
     assert served[4] is None
-    short = route == "short"
-    packed = [n * 3 * inner, dh, 3 * inner]
-    for (*_, lse_ptr, strides, bias_ptr, hb), keeps in zip(
-            (args[:14] for args in recording_lib.calls["fwd"]), (False, True)):
-        assert (strides is not None) == short and bool(bias_ptr) == biased
-        if short:
-            assert list(strides) == packed * 3 + [n * inner, dh, inner]
-        assert (lse_ptr is not None) == (short and keeps)
-    assert (lse is not None) == short
-    if short:
-        assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, heads, n)
-        assert lse.is_contiguous()
+    packed, o = [n * 3 * inner, dh, 3 * inner], [n * inner, dh, inner]
+    for args, keeps in zip(recording_lib.calls["fwd"], (False, True)):
+        assert args[FWD_ARGS["route"]] == fab.ROUTE_CODES[route]
+        assert bool(args[FWD_ARGS["bias"]]) == biased
+        assert list(args[FWD_ARGS["strides"]]) == packed * 3 + o
+        assert args[FWD_ARGS["lse"]] == (lse.data_ptr() if keeps else None)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, heads, n)
+    assert lse.is_contiguous()
     fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias,
                          oattn=oattn, lse=lse)
     (bwd,) = recording_lib.calls["bwd"]
-    lse_ptr, strides, bias_ptr = bwd[4], bwd[12], bwd[18]
-    assert (strides is not None) == short and bool(bias_ptr) == biased
-    if short:
-        assert lse_ptr == lse.data_ptr() and list(strides)[:12] == packed * 3 + [
-            n * inner, dh, inner]
+    assert bwd[BWD_ARGS["route"]] == fab.ROUTE_CODES[route]
+    assert bool(bwd[BWD_ARGS["bias"]]) == biased and bwd[BWD_ARGS["lse"]] == lse.data_ptr()
+    assert list(bwd[BWD_ARGS["strides"]]) == packed * 3 + o * 2 + packed * 3
     assert [r[route].launches for r in (fab.FORWARD_ROUTES, fab.BACKWARD_ROUTES)] == \
         [counts[0] + 2, counts[1] + 1]
 
 
-@pytest.mark.parametrize("n,need_dbias", [(257, True), (257, False), (65, True), (600, True)])
+@pytest.mark.parametrize("n,need_dbias", [(257, True), (257, False), (65, True), (600, True),
+                                          (600, False), (577, True), (962, False)])
 def test_biased_backward_passes_row_statistics_only_for_dbias(recording_lib, n, need_dbias):
     """The biased backward passes the bias and its head count on either
-    route; an f32 (b, heads, n, 2) rowstat, where the short route's short_bwd
-    writes (lse, D) for the dbias pass, only when dbias is asked for there
-    (mha_bwd always takes it as scratch), with dbias (hb, n, n) f32 and its
-    parts."""
+    route; an f32 (b, heads, n, 2) rowstat, where the row statistics write
+    (lse, dsum = Σ p·dp) for the attention backward and the dbias pass, only
+    when dbias is asked for, with dbias (hb, n, n) f32 and its parts.  The
+    mha route's flash backward otherwise takes an f32 (b, heads, n) dsum
+    scratch for D = rowsum(dO∘O); the short route takes none."""
     b, d, heads, dh = 2, 64, 2, 32
-    inner = heads * dh
-    x = torch.zeros(b, n, d, dtype=BF16)
-    g, bo = torch.ones(d, dtype=BF16), torch.zeros(d, dtype=BF16)
-    wqkv, wo = torch.zeros(3 * inner, d, dtype=BF16), torch.zeros(d, inner, dtype=BF16)
+    x, _, g, bo, wqkv, wo = _block_operands(b, n, d, heads, dh)
     bias = torch.zeros(heads, n, n)
     recording_lib.vit_attention_dbias_parts = lambda *args: 3
     _, _, qkv, oattn, lse = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5,
@@ -310,15 +348,33 @@ def test_biased_backward_passes_row_statistics_only_for_dbias(recording_lib, n, 
     out = fab._launch_backward(x, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, bias,
                                need_dbias, oattn=oattn, lse=lse)
     (bwd,) = recording_lib.calls["bwd"]
-    short = fab.attention_route(n) == "short"
-    strides, rowstat, bias_ptr, hb, dbias_ptr = bwd[12], bwd[14], bwd[18], bwd[19], bwd[20]
-    assert (strides is not None) == short and (bias_ptr, hb) == (bias.data_ptr(), heads)
-    assert (rowstat is not None) == (need_dbias or not short)
-    assert (dbias_ptr is not None) == need_dbias
+    mha = fab.attention_route(n) == "mha"
+    assert bwd[BWD_ARGS["route"]] == fab.ROUTE_CODES["mha" if mha else "short"]
+    assert (bwd[BWD_ARGS["bias"]], bwd[BWD_ARGS["hb"]]) == (bias.data_ptr(), heads)
+    assert (bwd[BWD_ARGS["rowstat"]] is not None) == need_dbias
+    assert (bwd[BWD_ARGS["dsum"]] is not None) == (mha and not need_dbias)
+    assert (bwd[BWD_ARGS["dbias"]] is not None) == need_dbias
     if need_dbias:
         assert tuple(out[5].shape) == (heads, n, n) and out[5].dtype == torch.float32
     else:
         assert out[5] is None
+
+
+@pytest.mark.parametrize("n", [65, 577, 962])
+@pytest.mark.parametrize("missing", ["oattn", "lse", "both"])
+def test_backward_needs_the_training_forwards_residuals(recording_lib, n, missing):
+    """On either route the backward reads the training forward's oattn (O,
+    for D) and lse (for p): without them it raises, before any launch."""
+    b, d, heads, dh = 2, 64, 2, 32
+    x, dy, g, bo, wqkv, wo = _block_operands(b, n, d, heads, dh)
+    _, _, qkv, oattn, lse = fab._launch_forward(x, g, g, wqkv, wo, bo, heads, dh, dh ** -0.5,
+                                                1e-3, training=True)
+    kept = {"oattn": None if missing in ("oattn", "both") else oattn,
+            "lse": None if missing in ("lse", "both") else lse}
+    with pytest.raises(ValueError, match=f"the {fab.attention_route(n)} route, which needs the "
+                                         f"training forward's oattn and lse"):
+        fab._launch_backward(dy, x, qkv, g, wqkv, wo, heads, dh, dh ** -0.5, 1e-3, **kept)
+    assert "bwd" not in recording_lib.calls
 
 
 @pytest.mark.parametrize("b,n,heads,dh", SHORT_SHAPES)
@@ -332,20 +388,20 @@ def test_short_forward_passes_the_packed_projections_strides(b, n, heads, dh):
     _, _, qkv, oattn = fab._forward_buffers(x, heads, dh)
     qkv, oattn = torch.zeros_like(qkv, device="cpu"), torch.zeros_like(oattn, device="cpu")
     inner = heads * dh
-    views = fab.short_forward_views(qkv, oattn, heads, dh)
+    views = fab.attention_forward_views(qkv, oattn, heads, dh)
     packed = [n * 3 * inner if b > 1 else 8, dh, 3 * inner]
-    assert list(fab.short_route_strides("block", views)) == \
+    assert list(fab.attention_strides("block", views)) == \
         packed * 3 + [n * inner if b > 1 else 8, dh, inner]
     assert [t.data_ptr() - qkv.data_ptr() for t in views[:3]] == [0, 2 * inner, 4 * inner]
     assert views[3].data_ptr() == oattn.data_ptr()
     assert all(tuple(v.shape) == (b, heads, n, dh) for v in views)
-    backward = fab.short_route_views(qkv, oattn, oattn, qkv, heads, dh)
+    backward = fab.attention_backward_views(qkv, oattn, oattn, qkv, heads, dh)
     assert all(v.stride() == w.stride() for v, w in zip(views, backward[:4]))
     # What the wrappers pass, computed once per shape.
-    assert list(fab._short_strides(b, n, heads, dh, backward=False)) == \
-        list(fab.short_route_strides("block", views))
-    assert list(fab._short_strides(b, n, heads, dh, backward=True)) == \
-        list(fab.short_route_strides("block", backward))
+    assert list(fab._attention_strides(b, n, heads, dh, backward=False)) == \
+        list(fab.attention_strides("block", views))
+    assert list(fab._attention_strides(b, n, heads, dh, backward=True)) == \
+        list(fab.attention_strides("block", backward))
 
 
 @pytest.mark.parametrize("name,offset,width", [("qkv 8 bytes off", 4, None),
@@ -357,11 +413,11 @@ def test_short_route_refuses_views_no_map_takes_before_any_launch(name, offset, 
     width = width or 3 * heads * dh
     buf = torch.zeros(2 * n * width + offset, dtype=BF16)[offset:].view(2, n, width)
     qkv = buf[..., :3 * heads * dh]
-    views = fab.short_forward_views(qkv, torch.zeros(2, n, heads * dh, dtype=BF16), heads, dh)
+    views = fab.attention_forward_views(qkv, torch.zeros(2, n, heads * dh, dtype=BF16), heads, dh)
     with pytest.raises(ValueError, match="no tensor map takes"):
-        fab.short_route_strides("fused_attention_block", views)
+        fab.attention_strides("fused_attention_block", views)
     with pytest.raises(ValueError, match="no tensor map takes"):  # heads 8 bytes apart
-        fab._short_strides(2, n, heads, 4, backward=False)
+        fab._attention_strides(2, n, heads, 4, backward=False)
 
 
 @pytest.mark.parametrize("rows,d,heads,dh,hidden", [

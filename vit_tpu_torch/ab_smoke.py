@@ -1,7 +1,8 @@
 """Parent against change on one card: the block kernels and the end-to-end
 steps of two checkouts, timed in turns.
 
-    python3 vit_tpu_torch/ab_smoke.py PARENT_DIR   # from the root of a checkout, one GPU
+    python3 vit_tpu_torch/ab_smoke.py PARENT_DIR        # from the root of a checkout, one GPU
+    python3 vit_tpu_torch/ab_smoke.py PARENT_DIR mha    # the attention block past 512 tokens
 
 PARENT_DIR is an unpacked ``git archive`` of the commit to compare with, in a
 directory that ``.gitignore`` lists (for example ``build/parent``).  Four
@@ -28,6 +29,16 @@ builds its own kernels, and runs
   step (host clock around back-to-back steps), the host's enqueue ms per
   step (until the step returns) and the device's busy ms per step
   (``torch.profiler``'s kernel time).
+
+With ``mha`` each process runs instead the attention block's mha route (past
+512 tokens) and what shares its kernels: the block's serving forward and its
+backward (fed the training forward's residuals) at PiT@224's stage 1 (batch
+64, 962 tokens, d 256, 16 heads of 64) beside the F.layer_norm + F.linear +
+SDPA + F.linear composition, and at ViT-B/16@384's block (batch 16, 577
+tokens); the biased block at the small-dataset ViT's at 384 px (577 tokens,
+d 1024, a shared and a per-head bias, dbias included); the flash op at
+CvT-13@224's stage 1 (the unbiased instances, forward and backward); and the
+PiT@224 train step (batch 64).
 
 Prints one line per process, ``AB <label> <card> {json}``, and a last line
 with each time's mean per checkout.
@@ -178,10 +189,44 @@ def backward_device(torch) -> dict:
     return out
 
 
-def child() -> dict:
+def mha_route(torch, cs, smi) -> tuple:
+    """The ``mha`` set's kernels and step (module docstring), through the
+    checkout's own ``chip_smoke`` phases: ``(results, steps)``."""
+    from vit_tpu_torch import PiT
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    results = {}
+    block = ("fused_attention_block",)
+    tag, n, d = cs.PIT_SHAPES[0]
+    for phase in (cs.kernel_phase, cs.backward_phase):
+        phase(torch, tag, cs.PIT_BATCH, n, d, 16, 64, 2048, results, kernels=block)
+    cs.block_library_phase(torch, tag, cs.PIT_BATCH, n, d, 16, 64, results, smi)
+    torch.cuda.empty_cache()
+    tag, b, n, d, heads, dh, hidden = cs.MHA_SHAPES[0]
+    for phase in (cs.kernel_phase, cs.backward_phase):
+        phase(torch, tag, b, n, d, heads, dh, hidden, results, kernels=block)
+    tag, b, n, d, heads, dh, hidden = cs.MHA_SHAPES[1]
+    cs.biased_phase(torch, b, n, d, heads, dh, hidden, results, tag=tag,
+                    kinds=("shared", "per-head"))
+    torch.cuda.empty_cache()
+    cs.FLASH_SHAPES = cs.FLASH_SHAPES[:1]  # CvT-13@224's stage 1
+    cs.flash_phase(torch, results, smi)
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = PiT(**cs.PIT, compute_dtype=torch.bfloat16, generator=g)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    images = torch.randn(cs.PIT_BATCH, 224, 224, 3, generator=g, device=dev)
+    labels = torch.arange(cs.PIT_BATCH, device=dev) % cs.PIT["num_classes"]
+    steps = {"train PiT@224": timed(torch, lambda: step(images, labels))}
+    return results, steps
+
+
+def child(which: str) -> dict:
     """One checkout's run, in the checkout's own directory (the working
     directory): ``{"card": ..., "kernels": {kernel: {shape: {kernel, plain,
-    library or modules, ...} ms}}, "steps": {tag: {wall, busy} ms}}``."""
+    library or modules, ...} ms}}, "steps": {tag: {wall, busy} ms}}``; with
+    ``which`` ``"mha"`` the set of :func:`mha_route`, else the whole one."""
     sys.path[0] = os.getcwd()  # that checkout's chip_smoke and vit_tpu_torch
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -195,6 +240,16 @@ def child() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     _build.load()
+    keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased",
+            "library_ln", "device", "four steps", "split", "sdpa", "sdpa_whole")
+
+    def kept(results):
+        return {name: {tag: {k: v for k, v in r.items() if k in keep}
+                       for tag, r in rows.items()} for name, rows in results.items()}
+
+    if which == "mha":
+        results, steps = mha_route(torch, cs, smi)
+        return {"card": smi, "steps": steps, "device": {}, "kernels": kept(results)}
     results = {}
     cs.kernel_phase(torch, "B/16", 64, 197, 768, 12, 64, 3072, results)
     cs.kernel_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results)
@@ -203,23 +258,19 @@ def child() -> dict:
     cs.biased_phase(torch, 64, 257, 1024, 16, 64, 2048, results)
     cs.cross_attention_phase(torch, results, smi)
     cs.hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
-    keep = ("kernel", "plain", "library", "modules", "whole", "library_whole", "unbiased",
-            "library_ln", "device",
-            "four steps", "split")
     torch.cuda.empty_cache()
     device = backward_device(torch)
     torch.cuda.empty_cache()
-    return {"card": smi, "steps": step_times(torch, cs), "device": device, "kernels": {
-        name: {tag: {k: v for k, v in r.items() if k in keep} for tag, r in rows.items()}
-        for name, rows in results.items()}}
+    return {"card": smi, "steps": step_times(torch, cs), "device": device,
+            "kernels": kept(results)}
 
 
-def main(parent: str) -> int:
+def main(parent: str, which: str = "all") -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     runs = []
     for label, tree in (("parent", parent), ("change", here), ("change", here),
                         ("parent", parent)):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child"],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", which],
                               cwd=os.path.abspath(tree), capture_output=True, text=True,
                               timeout=900)
         found = [line for line in proc.stdout.splitlines() if line.startswith("AB-JSON ")]
@@ -251,7 +302,7 @@ def main(parent: str) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--child"]:
-        print("AB-JSON " + json.dumps(child()), flush=True)
+    if sys.argv[1] == "--child":
+        print("AB-JSON " + json.dumps(child(sys.argv[2])), flush=True)
     else:
-        sys.exit(main(sys.argv[1]))
+        sys.exit(main(*sys.argv[1:3]))

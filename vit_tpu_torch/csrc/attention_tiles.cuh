@@ -1,6 +1,7 @@
 // Tile helpers of the mma.sync attention kernels (attention.cu, the block's
-// multi-head attention over packed qkv; short_attention.cu's backward, which
-// takes the fragment helpers below and reads TMA's swizzled tiles itself).  A
+// row statistics and dbias over packed qkv; short_attention.cu's backward,
+// which takes the fragment helpers below and reads TMA's swizzled tiles
+// itself).  A
 // block is four warps; each warp owns 16 rows of a 64-row tile, and its
 // products run on mma.sync m16n8k16 with f32 accumulation.  Tiles live in
 // shared memory as rows of DH + 8 elements, so that ldmatrix's eight row
@@ -49,29 +50,6 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT / 8][4], T (*As)[DH + 8]
       ldmatrix_x4(bf, &Bs[nj * 16 + (lane % 8) + (lane / 16) * 8][kk * 16 + ((lane / 8) % 2) * 8]);
       Num<T>::mma(acc[2 * nj], af, bf[0], bf[1]);
       Num<T>::mma(acc[2 * nj + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x DH) += T(P) · V with P (16 x NT) given as f32 accumulator tiles
-// (those of n-tiles 2c and 2c+1 are exactly the A fragment of k16 chunk c) and
-// V (NT x DH) in shared memory.
-template <typename T, int DH, int NT>
-__device__ __forceinline__ void mma_pv(float (&acc)[DH / 8][4], const float (&p)[NT / 8][4],
-                                       T (*Vs)[DH + 8], int lane) {
-#pragma unroll
-  for (int c = 0; c < NT / 16; ++c) {
-    uint32_t pf[4];
-    pf[0] = Num<T>::pack2(p[2 * c][0], p[2 * c][1]);
-    pf[1] = Num<T>::pack2(p[2 * c][2], p[2 * c][3]);
-    pf[2] = Num<T>::pack2(p[2 * c + 1][0], p[2 * c + 1][1]);
-    pf[3] = Num<T>::pack2(p[2 * c + 1][2], p[2 * c + 1][3]);
-#pragma unroll
-    for (int dn = 0; dn < DH / 16; ++dn) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, &Vs[c * 16 + (lane % 8) + ((lane / 8) % 2) * 8][dn * 16 + (lane / 16) * 8]);
-      Num<T>::mma(acc[2 * dn], pf, vf[0], vf[1]);
-      Num<T>::mma(acc[2 * dn + 1], pf, vf[2], vf[3]);
     }
   }
 }

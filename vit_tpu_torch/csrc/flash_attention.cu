@@ -113,6 +113,29 @@
 //     more than the split's seven: eight in all).  Their shared memory is 168 KB.
 // ptxas for sm_90a (CUDA 12.8; the smoke's ptxas line): the forward 224
 // registers, the dq kernel 190, the dv pass 153, the dk pass 178, no spills.
+//
+// The attention block's mha route (fused_attention_block.cu, past 512 tokens)
+// runs these kernels over (b, heads, n, dh) views of its packed qkv, oattn,
+// doattn and dqkv, at (32, 32), (64, 64) and (128, 128), in the middles of
+//   vit_tpu/ops/fused_attention_block.py:106  _fwd_kernel (the bias at :137-139)
+//   vit_tpu/ops/fused_attention_block.py:169  _bwd_kernel (the bias at :209-211)
+// With a logits bias (BIAS, those three widths, bf16 and f16) each kernel adds
+// an f32 (1 | heads, n_q, n_k) bias, head stride 0 or n_q·n_k, to the scaled
+// f32 logits: the forward before the row max, read from L2 into the score
+// fragment (as short_attention.cu's biased short_fwd); the dq kernel into its
+// recomputed s, the loads issued while q·kᵀ and dO·vᵀ run; the dk/dv kernel
+// into sᵀ, read transposed per fragment element (a warp's read is four query
+// rows of 8 consecutive keys: whole 32-byte sectors, so no staging tile and no
+// barrier).  Not by TMA: a bias row is n_k·4 bytes, off the 16-byte grid at
+// n 577, where a tensor map faults.  The bias never leaves f32, and the biased
+// backward takes p = exp(s·scale + bias - lse) with expf, not an exp2 fold:
+// LSA's self-mask is -f32.max, which a log2(e) factor turns into -inf.  At n =
+// 577 = 9·64 + 1 the last key tile holds one key, query 576's own masked
+// diagonal: that tile's max is finite (-f32.max plus a logit) and its exp 0.
+// The unbiased instances are the code they were.  The backward's dsum is D =
+// rowsum(dO∘O) from flash_bwd_dsum, or, for the block's dbias call, each row's
+// exact Σ p·dp from attention.cu's row statistics (`rowstat`, read with a
+// stride of two floats in place of D).
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
 
@@ -125,6 +148,22 @@ constexpr int kThreads = kAttnThreads;
 struct Strides {
   long long b, h, r;
 };
+
+// An f32 logits bias (hb, n_q, n_k), hb 1 (shared by the heads: hstride 0)
+// or heads (hstride n_q·n_k); `p` is null in the unbiased instances.
+struct Bias {
+  const float* p;
+  long long hstride;
+};
+
+// The bias rows of query rows g and g + 8 of the thread's warp, from row `row`
+// (a row past n_q reads row n_q - 1's: its results are never stored).
+__device__ __forceinline__ void bias_rows(const float* (&brow)[2], Bias bias, int h, int row,
+                                          int n_q, int n_k) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    brow[r] = bias.p + h * bias.hstride + (long long)min(row + 8 * r, n_q - 1) * n_k;
+}
 
 // The (image b, head h) slice of a strided operand (P: T or const T).
 template <typename P>
@@ -165,12 +204,15 @@ struct Fwd {
 // i - 1's p·v together and takes tile i's softmax while p·v is still on the
 // tensor cores.  expf, as the plain version takes it (PERF.md: a cheaper
 // exponential moved p's rounding enough to flip served top-1s).
-template <typename T, int DK, int DV>
+// With BIAS the logits are s·scale + bias before the max, every tile's keys
+// past n_k -inf.
+template <typename T, int DK, int DV, bool BIAS>
 __global__ void __launch_bounds__(256, Fwd<DK, DV>::kBlocks)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, T* __restrict__ out, Strides os,
-                     float* __restrict__ lse, int heads, int n_q, int n_k, float scale) {
+                     float* __restrict__ lse, Bias bias, int heads, int n_q, int n_k,
+                     float scale) {
   using F = Fwd<DK, DV>;
   constexpr int BK = F::BK;
   using QTile = hopper::Tile<128, F::PK>;
@@ -210,6 +252,9 @@ __global__ void __launch_bounds__(256, Fwd<DK, DV>::kBlocks)
     for (int i = 0; i < S && i < tiles; ++i) load_tile(i);
   }
 
+  const float* brow[2];
+  if constexpr (BIAS) bias_rows(brow, bias, h, q0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4,
+                                n_q, n_k);
   float o[F::PV / 2];
 #pragma unroll
   for (int i = 0; i < F::PV / 2; ++i) o[i] = 0.f;
@@ -234,14 +279,25 @@ __global__ void __launch_bounds__(256, Fwd<DK, DV>::kBlocks)
     hopper::wgmma_commit();
   };
   auto softmax = [&](int i) {  // sc <- p of tile i; m, l and alpha
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) sc[j] *= scale;
-    if ((i + 1) * BK > n_k) {  // the last tile: keys past n_k
+    if constexpr (BIAS) {  // s·scale + bias (a finite bias keeps the max finite)
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (i * BK + 8 * j + 2 * t + (e & 1) >= n_k) sc[4 * j + e] = -INFINITY;
+        for (int e = 0; e < 4; ++e) {
+          const int key = i * BK + 8 * j + 2 * t + (e & 1);
+          sc[4 * j + e] =
+              key < n_k ? sc[4 * j + e] * scale + __ldg(brow[e / 2] + key) : -INFINITY;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) sc[j] *= scale;
+      if ((i + 1) * BK > n_k) {  // the last tile: keys past n_k
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (i * BK + 8 * j + 2 * t + (e & 1) >= n_k) sc[4 * j + e] = -INFINITY;
+      }
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -315,7 +371,7 @@ __global__ void __launch_bounds__(256, Fwd<DK, DV>::kBlocks)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] = quad_sum(l_run[r]);
-    if (t == 0 && row + 8 * r < n_q)
+    if (lse && t == 0 && row + 8 * r < n_q)  // (the block's serving forward keeps none)
       lse[((size_t)b * heads + h) * n_q + row + 8 * r] = m_run[r] + logf(l[r]);
   }
 #pragma unroll
@@ -399,15 +455,17 @@ __device__ __forceinline__ void dkv_load_step(int i, unsigned char* qs, unsigned
 // the step's first products run.  Per step and warpgroup: sᵀ = k·qᵀ and dpᵀ =
 // v·dOᵀ (shared operands; dpᵀ for dk only), p and dsᵀ in registers, dv +=
 // T(pᵀ)·dO and dk += T(dsᵀ)·q (register A operands, q and dO MN-major).
-template <typename T, int DK, int DV, int PARTS>
+// With BIAS, p = exp(sᵀ·scale + biasᵀ - lse) (keys past n_k: 0), the bias
+// read per fragment element, and a row's dsum at dsum[row·dstep].
+template <typename T, int DK, int DV, int PARTS, bool BIAS>
 __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          const __grid_constant__ CUtensorMap do_map,
-                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         const float* __restrict__ lse, const float* __restrict__ dsum, int dstep,
                          T* __restrict__ dk, Strides dks, T* __restrict__ dv, Strides dvs,
-                         int heads, int n_q, int n_k, float scale) {
+                         Bias bias, int heads, int n_q, int n_k, float scale) {
   using B = Bwd<DK, DV>;
   using KTile = hopper::Tile<128, B::PK>;
   using VTile = hopper::Tile<128, B::PV>;
@@ -428,6 +486,13 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128, t = tid % 4;
   const int steps = (n_q + BQ - 1) / BQ;
   const long long run0 = ((long long)b * heads + h) * n_q;  // the (image, head)'s lse and D
+  constexpr float kLse = BIAS ? 1.f : kLog2e;
+  const long long ds_step = BIAS ? dstep : 1;
+  // The bias column of the thread's first key (rows g and g + 8 of its warp's
+  // 16 are keys key0 and key0 + 8), at query 0; which of the two keys exist.
+  const int key0 = j0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
+  const float* bcol = BIAS ? bias.p + h * bias.hstride + key0 : nullptr;
+  const bool key_in[2] = {key0 < n_k, key0 + 8 < n_k};
   if (tid == 0) {
     hopper::mbar_init(kv_bar, 1);
     for (int s = 0; s < S; ++s) {
@@ -463,16 +528,16 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
     const uint32_t phase = (i / S) & 1;
     const unsigned char* q_t = qs + s * QTile::kBytes;
     const unsigned char* o_t = os + s * OTile::kBytes;
-    // lse (in log2 units) and D of the thread's columns, 0 past n_q.
+    // lse (in log2 units; with BIAS as it is) and D of the thread's columns, 0 past n_q.
     float2 lse2[BQ / 8], dd[BQ / 8];
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j) {
       const int qi = i * BQ + 8 * j + 2 * t;
-      lse2[j] = make_float2(qi < n_q ? lse[run0 + qi] * kLog2e : 0.f,
-                            qi + 1 < n_q ? lse[run0 + qi + 1] * kLog2e : 0.f);
+      lse2[j] = make_float2(qi < n_q ? lse[run0 + qi] * kLse : 0.f,
+                            qi + 1 < n_q ? lse[run0 + qi + 1] * kLse : 0.f);
       if (kDk)
-        dd[j] = make_float2(qi < n_q ? dsum[run0 + qi] : 0.f,
-                            qi + 1 < n_q ? dsum[run0 + qi + 1] : 0.f);
+        dd[j] = make_float2(qi < n_q ? dsum[(run0 + qi) * ds_step] : 0.f,
+                            qi + 1 < n_q ? dsum[(run0 + qi + 1) * ds_step] : 0.f);
     }
     hopper::mbar_wait(&full[s], phase);
 
@@ -496,13 +561,22 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
     hopper::fence_regs(st);
     // p = exp(s·scale - lse) for the step's queries (the columns), 0 past n_q,
     // while dpᵀ is still on the tensor cores.
+    // The bias at the step's first query column of the thread (query i·BQ + 2t).
+    const float* bq = BIAS ? bcol + (long long)(i * BQ + 2 * t) * n_k : nullptr;
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = i * BQ + 8 * j + 2 * t + (e & 1);
-        st[4 * j + e] =
-            qi < n_q ? exp2f(st[4 * j + e] * sl2 - ((e & 1) ? lse2[j].y : lse2[j].x)) : 0.f;
+        const float l = (e & 1) ? lse2[j].y : lse2[j].x;
+        if constexpr (BIAS) {
+          st[4 * j + e] = qi < n_q && key_in[e / 2]
+                              ? expf(st[4 * j + e] * scale +
+                                     __ldg(bq + (8 * j + (e & 1)) * n_k + 8 * (e / 2)) - l)
+                              : 0.f;
+        } else {
+          st[4 * j + e] = qi < n_q ? exp2f(st[4 * j + e] * sl2 - l) : 0.f;
+        }
       }
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
     if constexpr (kDv) {
@@ -556,15 +630,17 @@ __global__ void __launch_bounds__(256, Bwd<DK, DV>::kDkvBlocks)
 // warpgroups of 64 queries each: dq over every key step.  Q and dO of the
 // block come once; (k, v) steps stream through the ring.  Per step and
 // warpgroup: s = q·kᵀ and dp = dO·vᵀ, p = exp(s·scale - lse) (0 past n_k) and
-// ds = p·(dp - D)·scale in registers, dq += T(ds)·k (k MN-major).
-template <typename T, int DK, int DV>
+// ds = p·(dp - D)·scale in registers, dq += T(ds)·k (k MN-major).  With
+// BIAS, p = exp(s·scale + bias - lse), the step's bias loaded while its two
+// products run, and a row's dsum at dsum[row·dstep].
+template <typename T, int DK, int DV, bool BIAS>
 __global__ void __launch_bounds__(256, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                        const float* __restrict__ dsum, T* __restrict__ dq, Strides dqs,
-                        int heads, int n_q, int n_k, float scale) {
+                        const float* __restrict__ dsum, int dstep, T* __restrict__ dq,
+                        Strides dqs, Bias bias, int heads, int n_q, int n_k, float scale) {
   using B = Bwd<DK, DV>;
   using QTile = hopper::Tile<128, B::PK>;
   using OTile = hopper::Tile<128, B::PV>;
@@ -607,16 +683,21 @@ __global__ void __launch_bounds__(256, 1)
     for (int i = 0; i < S && i < steps; ++i) load_step(i);
   }
 
-  // lse (in log2 units) and D of the thread's rows g and g + 8 (0 past n_q: not stored).
+  // lse (in log2 units; with BIAS as it is) and D of the thread's rows g and g + 8 (0 past
+  // n_q: not stored).
+  constexpr float kLse = BIAS ? 1.f : kLog2e;
+  const long long ds_step = BIAS ? dstep : 1;
   float lse2[2], dd[2];
   const int row = i0 + 64 * wg + (lt / 32) * 16 + (lt % 32) / 4;
   const long long run0 = ((long long)b * heads + h) * n_q;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool in = row + 8 * r < n_q;
-    lse2[r] = in ? lse[run0 + row + 8 * r] * kLog2e : 0.f;
-    dd[r] = in ? dsum[run0 + row + 8 * r] : 0.f;
+    lse2[r] = in ? lse[run0 + row + 8 * r] * kLse : 0.f;
+    dd[r] = in ? dsum[(run0 + row + 8 * r) * ds_step] : 0.f;
   }
+  const float* brow[2];
+  if constexpr (BIAS) bias_rows(brow, bias, h, row, n_q, n_k);
   float dq_acc[B::PK / 2];
 #pragma unroll
   for (int i = 0; i < B::PK / 2; ++i) dq_acc[i] = 0.f;
@@ -641,6 +722,16 @@ __global__ void __launch_bounds__(256, 1)
       hopper::Wgmma<BK, T>::ss(dp, OTile::kmajor(os, 64 * wg, 16 * kk),
                                VTile::kmajor(v_t, 0, 16 * kk), kk);
     hopper::wgmma_commit();
+    float bv[BIAS ? BK / 2 : 1];  // the step's bias, in flight with the products
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = i * BK + 8 * j + 2 * t + (e & 1);
+          bv[4 * j + e] = key < n_k ? __ldg(brow[e / 2] + key) : 0.f;
+        }
+    }
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sc);
 #pragma unroll
@@ -648,7 +739,11 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = i * BK + 8 * j + 2 * t + (e & 1);
-        sc[4 * j + e] = key < n_k ? exp2f(sc[4 * j + e] * sl2 - lse2[e / 2]) : 0.f;
+        if constexpr (BIAS)
+          sc[4 * j + e] =
+              key < n_k ? expf(sc[4 * j + e] * scale + bv[4 * j + e] - lse2[e / 2]) : 0.f;
+        else
+          sc[4 * j + e] = key < n_k ? exp2f(sc[4 * j + e] * sl2 - lse2[e / 2]) : 0.f;
       }
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dp);
@@ -682,15 +777,15 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int DK, int DV>
-cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse,
+template <typename T, int DK, int DV, bool BIAS>
+cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float* lse, Bias bias,
                   const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
   using F = Fwd<DK, DV>;
   constexpr int dt = hopper::dtype_of<T>();
   constexpr int kc = hopper::Tile<64, F::PK>::kChunk, vc = hopper::Tile<64, F::PV>::kChunk;
   thread_local int ready = -1;
-  cudaError_t err = prepare_kernel(ready, flash_fwd_kernel<T, DK, DV>, F::smem());
+  cudaError_t err = prepare_kernel(ready, flash_fwd_kernel<T, DK, DV, BIAS>, F::smem());
   CUtensorMap q_map, k_map, v_map;
   if (err == cudaSuccess) err = head_map(&q_map, q, dt, DK, n_q, heads, b, st, kc, 64);
   if (err == cudaSuccess) err = head_map(&k_map, k, dt, DK, n_k, heads, b, st + 3, kc, F::BK);
@@ -700,65 +795,83 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, float*
   // of them share an SM; K/V then comes once per 64 queries, from L2.
   const int tiles = (n_k + F::BK - 1) / F::BK;
   const int wgs = n_q > 64 && tiles > 1 ? 2 : 1;
-  flash_fwd_kernel<T, DK, DV><<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b), 128 * wgs,
-                                F::smem(tiles < F::kStages ? tiles : F::kStages), stream>>>(
-      q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, heads, n_q, n_k, scale);
+  flash_fwd_kernel<T, DK, DV, BIAS>
+      <<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b), 128 * wgs,
+         F::smem(tiles < F::kStages ? tiles : F::kStages), stream>>>(
+          q_map, k_map, v_map, static_cast<T*>(out), strides_at(st, 3), lse, bias, heads, n_q,
+          n_k, scale);
   return cudaGetLastError();
 }
 
+// The backward's per-row inputs beside the maps: lse, dsum (D, or the row
+// statistics' Σ p·dp every `dstep` floats) and the bias.
+struct RowInputs {
+  const float* lse;
+  const float* dsum;
+  int dstep;
+  Bias bias;
+};
+
 // One launch of the dk/dv kernel (PARTS as the kernel takes it) over every key block.
-template <typename T, int DK, int DV, int PARTS>
+template <typename T, int DK, int DV, int PARTS, bool BIAS>
 cudaError_t dkv_t(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
-                  const CUtensorMap& do_map, const float* lse, const float* dsum, void* dk,
-                  void* dv, const long long* st, int b, int heads, int n_q, int n_k, float scale,
+                  const CUtensorMap& do_map, RowInputs in, void* dk, void* dv,
+                  const long long* st, int b, int heads, int n_q, int n_k, float scale,
                   cudaStream_t stream) {
   using B = Bwd<DK, DV>;
   thread_local int ready = -1;
   const cudaError_t err =
-      prepare_kernel(ready, flash_bwd_dkv_kernel<T, DK, DV, PARTS>, B::dkv_smem());
+      prepare_kernel(ready, flash_bwd_dkv_kernel<T, DK, DV, PARTS, BIAS>, B::dkv_smem());
   if (err != cudaSuccess) return err;
   const int wgs = n_k > 64 ? 2 : 1;
-  flash_bwd_dkv_kernel<T, DK, DV, PARTS><<<dim3((n_k + 64 * wgs - 1) / (64 * wgs), heads, b),
-                                           128 * wgs, B::dkv_smem(), stream>>>(
-      q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dk), strides_at(st, 6),
-      static_cast<T*>(dv), strides_at(st, 7), heads, n_q, n_k, scale);
+  flash_bwd_dkv_kernel<T, DK, DV, PARTS, BIAS>
+      <<<dim3((n_k + 64 * wgs - 1) / (64 * wgs), heads, b), 128 * wgs, B::dkv_smem(), stream>>>(
+          q_map, k_map, v_map, do_map, in.lse, in.dsum, in.dstep, static_cast<T*>(dk),
+          strides_at(st, 6), static_cast<T*>(dv), strides_at(st, 7), in.bias, heads, n_q, n_k,
+          scale);
   return cudaGetLastError();
 }
 
-template <typename T, int DK, int DV>
+// `rowstat` (with a bias only): the rows' (lse, dsum = Σ p·dp), whose dsum
+// the kernels take in place of D; then flash_bwd_dsum does not run.
+template <typename T, int DK, int DV, bool BIAS>
 cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
                   const float* lse, const void* dout, void* dq, void* dk, void* dv, float* dsum,
-                  const long long* st, int b, int heads, int n_q, int n_k, float scale,
-                  cudaStream_t stream) {
+                  Bias bias, const float* rowstat, const long long* st, int b, int heads,
+                  int n_q, int n_k, float scale, cudaStream_t stream) {
   using B = Bwd<DK, DV>;
   constexpr int dt = hopper::dtype_of<T>();
   constexpr int kc = hopper::Tile<64, B::PK>::kChunk, vc = hopper::Tile<64, B::PV>::kChunk;
   thread_local int dq_ready = -1;
-  cudaError_t err = prepare_kernel(dq_ready, flash_bwd_dq_kernel<T, DK, DV>, B::dq_smem());
+  cudaError_t err = prepare_kernel(dq_ready, flash_bwd_dq_kernel<T, DK, DV, BIAS>, B::dq_smem());
   if (err != cudaSuccess) return err;
   const Strides os = strides_at(st, 3), dos = strides_at(st, 4);
+  const RowInputs in = rowstat ? RowInputs{lse, rowstat + 1, 2, bias}
+                               : RowInputs{lse, dsum, 1, bias};
   // K and V in 64-row boxes: the dq kernel's steps, the dk/dv kernel's warpgroups.
   CUtensorMap k_map, v_map, q_map{}, do_map{};
   err = head_map(&k_map, k, dt, DK, n_k, heads, b, st + 3, kc, 64);
   if (err == cudaSuccess) err = head_map(&v_map, v, dt, DV, n_k, heads, b, st + 6, vc, 64);
   if (err != cudaSuccess) return err;
   if (n_q > 0) {  // without queries, dq is empty and dk, dv are zeros (the maps stay unread)
-    const long long rows = (long long)b * heads * n_q;
-    const int rows_per_cta = kThreads / 32;
-    flash_bwd_dsum_kernel<T><<<(unsigned)((rows + rows_per_cta - 1) / rows_per_cta), kThreads,
-                               0, stream>>>(static_cast<const T*>(out), os,
-                                            static_cast<const T*>(dout), dos, dsum, heads, n_q,
-                                            DV, rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (!rowstat) {
+      const long long rows = (long long)b * heads * n_q;
+      const int rows_per_cta = kThreads / 32;
+      flash_bwd_dsum_kernel<T><<<(unsigned)((rows + rows_per_cta - 1) / rows_per_cta), kThreads,
+                                 0, stream>>>(static_cast<const T*>(out), os,
+                                              static_cast<const T*>(dout), dos, dsum, heads, n_q,
+                                              DV, rows);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
     err = head_map(&q_map, q, dt, DK, n_q, heads, b, st, kc, 64);
     if (err == cudaSuccess) err = head_map(&do_map, dout, dt, DV, n_q, heads, b, st + 12, vc, 64);
     if (err != cudaSuccess) return err;
     const int wgs = n_q > 64 ? 2 : 1;
-    flash_bwd_dq_kernel<T, DK, DV><<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b),
-                                         128 * wgs, B::dq_smem(), stream>>>(
-        q_map, k_map, v_map, do_map, lse, dsum, static_cast<T*>(dq), strides_at(st, 5), heads,
-        n_q, n_k, scale);
+    flash_bwd_dq_kernel<T, DK, DV, BIAS>
+        <<<dim3((n_q + 64 * wgs - 1) / (64 * wgs), heads, b), 128 * wgs, B::dq_smem(),
+           stream>>>(q_map, k_map, v_map, do_map, in.lse, in.dsum, in.dstep,
+                     static_cast<T*>(dq), strides_at(st, 5), in.bias, heads, n_q, n_k, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // The dk/dv kernel's query steps: BQ-row boxes of q and dO.
@@ -768,38 +881,53 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* out,
     if (err != cudaSuccess) return err;
   }
   if constexpr (B::kSplitDkv) {  // dv, then dk: each pass recomputes p
-    err = dkv_t<T, DK, DV, 1>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
-                              n_k, scale, stream);
+    err = dkv_t<T, DK, DV, 1, BIAS>(q_map, k_map, v_map, do_map, in, dk, dv, st, b, heads, n_q,
+                                    n_k, scale, stream);
     if (err != cudaSuccess) return err;
-    return dkv_t<T, DK, DV, 2>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
-                               n_k, scale, stream);
+    return dkv_t<T, DK, DV, 2, BIAS>(q_map, k_map, v_map, do_map, in, dk, dv, st, b, heads, n_q,
+                                     n_k, scale, stream);
   } else {
-    return dkv_t<T, DK, DV, 3>(q_map, k_map, v_map, do_map, lse, dsum, dk, dv, st, b, heads, n_q,
-                               n_k, scale, stream);
+    return dkv_t<T, DK, DV, 3, BIAS>(q_map, k_map, v_map, do_map, in, dk, dv, st, b, heads, n_q,
+                                     n_k, scale, stream);
   }
 }
 
 // The (dk, dv) instances: one head width for q, k and v, ScalableViT's SSA
 // (q/k 40, v 32), and T2T-ViT's first token transformer (147 padded to 192).
 #define VIT_FLASH_WIDTHS(X) X(32, 32) X(40, 32) X(64, 64) X(96, 96) X(128, 128) X(192, 192)
+// The biased instances: the attention block's head widths (its mha route).
+#define VIT_FLASH_BIAS_WIDTHS(X) X(32, 32) X(64, 64) X(128, 128)
 
 // Shapes the kernels take: a grid of (tiles, heads, b) and head widths with an
-// instance.
-bool shape_ok(int b, int heads, int n_q, int n_k, int dk, int dv) {
+// instance; a bias of 1 or `heads` heads at the widths of a biased instance.
+bool shape_ok(int b, int heads, int n_q, int n_k, int dk, int dv, const float* bias, int hb) {
 #define VIT_FLASH_IS(DK, DV) || (dk == DK && dv == DV)
-  const bool widths = false VIT_FLASH_WIDTHS(VIT_FLASH_IS);
+  const bool widths = bias ? false VIT_FLASH_BIAS_WIDTHS(VIT_FLASH_IS)
+                           : false VIT_FLASH_WIDTHS(VIT_FLASH_IS);
 #undef VIT_FLASH_IS
-  return b >= 0 && b <= 65535 && heads >= 1 && heads <= 65535 && n_q >= 0 && n_k >= 1 && widths;
+  return b >= 0 && b <= 65535 && heads >= 1 && heads <= 65535 && n_q >= 0 && n_k >= 1 &&
+         widths && (!bias || hb == 1 || hb == heads);
+}
+
+Bias bias_of(const float* bias, int hb, int n_q, int n_k) {
+  return Bias{bias, bias && hb != 1 ? (long long)n_q * n_k : 0};
 }
 
 template <typename T>
 cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
-                         const long long* st, int b, int heads, int n_q, int n_k, int dk, int dv,
-                         float scale, cudaStream_t stream) {
-#define VIT_FLASH_FWD(DK, DV)                                                              \
-  if (dk == DK && dv == DV)                                                                \
-    return fwd_t<T, DK, DV>(q, k, v, out, lse, st, b, heads, n_q, n_k, scale, stream);
-  VIT_FLASH_WIDTHS(VIT_FLASH_FWD)
+                         Bias bias, const long long* st, int b, int heads, int n_q, int n_k,
+                         int dk, int dv, float scale, cudaStream_t stream) {
+#define VIT_FLASH_FWD(DK, DV)                                                                \
+  if (dk == DK && dv == DV)                                                                  \
+    return fwd_t<T, DK, DV, BIASED>(q, k, v, out, lse, bias, st, b, heads, n_q, n_k, scale,  \
+                                    stream);
+  if (bias.p) {
+    constexpr bool BIASED = true;
+    VIT_FLASH_BIAS_WIDTHS(VIT_FLASH_FWD)
+  } else {
+    constexpr bool BIASED = false;
+    VIT_FLASH_WIDTHS(VIT_FLASH_FWD)
+  }
 #undef VIT_FLASH_FWD
   return cudaErrorInvalidValue;
 }
@@ -807,13 +935,20 @@ cudaError_t fwd_dispatch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void* out,
                          const float* lse, const void* dout, void* dq, void* dk_out, void* dv_out,
-                         float* dsum, const long long* st, int b, int heads, int n_q, int n_k,
-                         int dk, int dv, float scale, cudaStream_t stream) {
-#define VIT_FLASH_BWD(DK, DV)                                                              \
-  if (dk == DK && dv == DV)                                                                \
-    return bwd_t<T, DK, DV>(q, k, v, out, lse, dout, dq, dk_out, dv_out, dsum, st, b, heads, \
-                            n_q, n_k, scale, stream);
-  VIT_FLASH_WIDTHS(VIT_FLASH_BWD)
+                         float* dsum, Bias bias, const float* rowstat, const long long* st, int b,
+                         int heads, int n_q, int n_k, int dk, int dv, float scale,
+                         cudaStream_t stream) {
+#define VIT_FLASH_BWD(DK, DV)                                                                \
+  if (dk == DK && dv == DV)                                                                  \
+    return bwd_t<T, DK, DV, BIASED>(q, k, v, out, lse, dout, dq, dk_out, dv_out, dsum, bias, \
+                                    rowstat, st, b, heads, n_q, n_k, scale, stream);
+  if (bias.p) {
+    constexpr bool BIASED = true;
+    VIT_FLASH_BIAS_WIDTHS(VIT_FLASH_BWD)
+  } else {
+    constexpr bool BIASED = false;
+    VIT_FLASH_WIDTHS(VIT_FLASH_BWD)
+  }
 #undef VIT_FLASH_BWD
   return cudaErrorInvalidValue;
 }
@@ -822,15 +957,17 @@ cudaError_t bwd_dispatch(const void* q, const void* k, const void* v, const void
 
 cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                              const long long* strides, int b, int heads, int n_q, int n_k, int dk,
-                             int dv, float scale, int dtype, cudaStream_t stream) {
-  if (!shape_ok(b, heads, n_q, n_k, dk, dv)) return cudaErrorInvalidValue;
+                             int dv, float scale, int dtype, cudaStream_t stream,
+                             const float* bias, int hb) {
+  if (!shape_ok(b, heads, n_q, n_k, dk, dv, bias, hb)) return cudaErrorInvalidValue;
   if (b == 0 || n_q == 0) return cudaSuccess;
+  const Bias bs = bias_of(bias, hb, n_q, n_k);
   if (dtype == kBF16)
-    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, strides, b, heads, n_q, n_k, dk, dv,
-                                       scale, stream);
+    return fwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, bs, strides, b, heads, n_q, n_k, dk,
+                                       dv, scale, stream);
   if (dtype == kF16)
-    return fwd_dispatch<__half>(q, k, v, out, lse, strides, b, heads, n_q, n_k, dk, dv, scale,
-                                stream);
+    return fwd_dispatch<__half>(q, k, v, out, lse, bs, strides, b, heads, n_q, n_k, dk, dv,
+                                scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -838,15 +975,18 @@ cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v, const 
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dsum, const long long* strides, int b, int heads, int n_q,
                              int n_k, int d_k, int d_v, float scale, int dtype,
-                             cudaStream_t stream) {
-  if (!shape_ok(b, heads, n_q, n_k, d_k, d_v)) return cudaErrorInvalidValue;
+                             cudaStream_t stream, const float* bias, int hb,
+                             const float* rowstat) {
+  if (!shape_ok(b, heads, n_q, n_k, d_k, d_v, bias, hb) || (rowstat && !bias))
+    return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
+  const Bias bs = bias_of(bias, hb, n_q, n_k);
   if (dtype == kBF16)
-    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dsum, strides, b,
-                                       heads, n_q, n_k, d_k, d_v, scale, stream);
+    return bwd_dispatch<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, dsum, bs, rowstat,
+                                       strides, b, heads, n_q, n_k, d_k, d_v, scale, stream);
   if (dtype == kF16)
-    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dsum, strides, b, heads,
-                                n_q, n_k, d_k, d_v, scale, stream);
+    return bwd_dispatch<__half>(q, k, v, out, lse, dout, dq, dk, dv, dsum, bs, rowstat, strides,
+                                b, heads, n_q, n_k, d_k, d_v, scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -12,24 +12,31 @@
 //   2. QKV GEMM, store epilogue                  -> qkv (rows, 3·inner)
 //   3. the attention middle over the packed qkv  -> oattn (rows, inner), by one
 //      of two routes, chosen by shape alone in the open by the caller
-//      (ops/fused_attention_block.py attention_route), the same route as the
-//      backward's:
+//      (ops/fused_attention_block.py attention_route) and passed as `route`,
+//      the same route as the backward's.  Both read (b, heads, n, dh) views
+//      of the packed qkv (batch stride n·3·inner, head stride dh, row stride
+//      3·inner; q, k and v the column thirds) and write oattn through its own
+//      strides, no layout copy; in training both also write lse (b, heads, n)
+//      f32, which the backward reads:
 //      - short (n <= 512: ViT-B/32's 65, ViT-B/16's 197, the small-dataset
 //        ViT's 257 with LSA's mask), with or without the bias:
-//        short_attention.cu's short_fwd (wgmma, TMA ring) over (b, heads, n,
-//        dh) views of the packed qkv (batch stride n·3·inner, head stride dh,
-//        row stride 3·inner; q, k and v the column thirds), writing oattn
-//        through its own strides, no layout copy; in training also lse (b,
-//        heads, n) f32, which the backward's short_bwd reads.  Whole rows in
+//        short_attention.cu's short_fwd (wgmma, TMA ring).  Whole rows in
 //        one key tile or two passes over two to four, the exact softmax from
 //        the row's own max, p = exp(s - m) / l rounded before p·v; with the
 //        bias (added in f32 to the scaled logits before the max, read from L2
 //        into the score fragment) one pass over the tiles with a running max,
 //        the rounded unnormalised p and the divide after p·v, as the TPU
 //        kernel (:146-154), so the f32 bias is read once;
-//      - mha (n > 512): mha_fwd (attention.cu), mma.sync with an online
-//        softmax, + bias, the rounded unnormalised p and the divide after
-//        p·v, as the TPU kernel (:146-154).
+//      - mha (n > 512: PiT's 962, ViT-B/16's and the small-dataset ViT's 577
+//        at 384 px): flash_attention.cu's flash_fwd (128-query CTAs of two
+//        wgmma warpgroups, a TMA ring of 64-key tiles on mbarriers, q·kᵀ of
+//        tile i in flight with p·v of tile i - 1), the online softmax with
+//        the bias added in f32 before the running max, the rounded
+//        unnormalised p as wgmma's register operand and the divide after p·v,
+//        as the TPU kernel (:146-154).  What bounds it is the tensor cores
+//        (4·b·heads·n²·dh: 243 GFLOP at PiT's stage 1, batch 64); the design
+//        keeps the n x n scores in registers and the copies off the critical
+//        path.
 //      In f32 the two are one function; in bf16 they round p at other points.
 //   4. out-projection GEMM, bias + residual epilogue -> y (rows, d)
 // The two GEMMs go through launch_forward_gemm (gemm_wgmma.cu's wgmma GEMM
@@ -48,27 +55,29 @@
 // fifth for dbias:
 //   1. the dgrad dy·Wo                           -> doattn = T(dy·Wo) (rows, inner)
 //   2. the attention backward over qkv and doattn -> dqkv (rows, 3·inner), by
-//      the forward's route (attention_route):
+//      the forward's route (attention_route), each over (b, heads, n, dh)
+//      views of the packed qkv, of oattn and doattn as O and dO, and of dqkv,
+//      written through the same strides as qkv, from the training forward's
+//      lse: p = exp(s·scale + bias - lse), and D = rowsum(dO∘O) from the
+//      stored bf16 O where the TPU kernel sums dsum = Σ p·dp in f32
+//      (:196-238): the same quantity in exact arithmetic, apart by O's
+//      rounding.  With dbias, whose sum over the batch does not cancel that
+//      rounding (CrossFormer's position bias trains on it), mha_row_stats
+//      (attention.cu) first writes each row's (lse, dsum = Σ p·dp) in f32,
+//      and the backward takes that dsum, as the TPU kernel:
 //      - short (n <= 512, with or without the bias): short_attention.cu's
-//        short_bwd over (b, heads, n, dh) views of the packed qkv (batch
-//        stride n·3·inner, head stride dh, row stride 3·inner; q, k and v the
-//        column thirds), of oattn and doattn as O and dO, and of dqkv,
-//        written through the same strides as qkv, from the training forward's
-//        lse (short_fwd writes it).  One recompute of p = exp(s·scale + bias -
-//        lse) per key block, five products; dq summed inside the CTA, or over
-//        two 144-key blocks at 257-288 keys (the small-dataset ViT's 257).
-//        Its D = rowsum(dO∘O) comes from the stored bf16 O, where the TPU
-//        kernel sums dsum = Σ p·dp in f32 (:196-238): the same quantity in
-//        exact arithmetic, apart by O's rounding.  With dbias, whose sum over
-//        the batch does not cancel that rounding (CrossFormer's position
-//        bias trains on it), mha_row_stats (attention.cu, mha_bwd_dq's first
-//        pass) first writes each row's (lse, dsum = Σ p·dp) in f32, and
-//        short_bwd takes that dsum, as the TPU kernel;
-//      - mha (n > 512): mha_bwd (attention.cu), the FA2 split, with dsum =
-//        Σ dp·p in f32 as the TPU kernel.
+//        short_bwd.  One recompute of p per key block, five products; dq
+//        summed inside the CTA, or over two 144-key blocks at 257-288 keys
+//        (the small-dataset ViT's 257);
+//      - mha (n > 512): flash_attention.cu's flash backward, FA2's split:
+//        flash_bwd_dsum (D), then flash_bwd_dq over 128-query blocks and
+//        flash_bwd_dkv over 128-key blocks, wgmma on TMA rings, each output
+//        tile with one owner (no atomics: the bits repeat).  Seven n x n x dh
+//        products where the TPU kernel's one pass has five: p is recomputed
+//        in both halves.  The tensor cores bound it (10·b·heads·n²·dh by the
+//        TPU kernel's count: 606 GFLOP at PiT's stage 1).
 //   2b. only when dbias is asked for: mha_dbias   -> dbias (hb, n, n) f32, in a
-//      fixed order, from the row statistics (lse, dsum): mha_bwd's, or on
-//      the short route mha_row_stats'
+//      fixed order, from mha_row_stats' (lse, dsum)
 //   3. the dgrad dqkv·Wqkv with the LayerNorm backward as its epilogue, the
 //      f32 dxn kept on chip (gemm_wgmma.cu's kEpiLnBwd; launch_dgrad_ln,
 //      shared with the MLP): dx = T(dy + T(dx_ln)); Σ dxn·xhat, Σ dxn, Σ dy
@@ -85,97 +94,101 @@
 // attention) and the backward at 0.183 ms (138.0 + 43.3).
 #include "kernels.cuh"
 
+// The attention middle's routes (ops/fused_attention_block.py attention_route).
+enum AttentionRoute { kRouteShort = 0, kRouteMha = 1 };
+
 // Outputs y (rows, d); xn (rows, d), qkv (rows, 3·inner) and oattn (rows,
 // inner) in the compute dtype.  `bias` (hb, n, n) f32, or null with hb = 0.
-// The attention's route:
-// - short, when `short_strides` (host memory, 12 values) is not null: the
-//   (batch, head, row) strides of q, k, v (the column thirds of qkv) and O =
-//   oattn as short_fwd reads and writes them; `lse` (b, heads, n) f32 in
-//   training, else null.
-// - mha otherwise; no lse.
+// `strides` (host memory, 12 values): the (batch, head, row) strides of q, k,
+// v (the column thirds of qkv) and O = oattn as the attention reads and
+// writes them; `lse` (b, heads, n) f32 in training, else null.  `route`:
+// kRouteShort (short_fwd) or kRouteMha (flash_fwd).
 extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
                                              const void* beta, const void* wqkv,
                                              const void* wo, const void* bo, void* y,
                                              void* xn, void* qkv, void* oattn, float* lse,
-                                             const long long* short_strides,
+                                             const long long* strides, int route,
                                              const float* bias, int hb, int b,
                                              int n, int d, int heads, int dim_head,
                                              float scale, float eps, int dtype,
                                              cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, inner = heads * dim_head;
-  const bool short_route = short_strides != nullptr;
-  if (!short_route && lse) return cudaErrorInvalidValue;
+  if (!strides || (route != kRouteShort && route != kRouteMha)) return cudaErrorInvalidValue;
   cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
   if (err != cudaSuccess) return err;
   err = launch_forward_gemm(xn, wqkv, nullptr, nullptr, qkv, nullptr, rows, 3 * inner, d,
                             kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  if (short_route) {
-    const char* base = static_cast<const char*>(qkv);
-    const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
-    err = launch_short_fwd(base, base + third, base + 2 * third, oattn, lse, short_strides, b,
-                           heads, n, n, dim_head, scale, dtype, stream, bias, hb);
-  } else {
-    err = launch_mha_fwd(qkv, oattn, bias, hb, b, n, heads, dim_head, scale, dtype, stream);
-  }
+  const char* base = static_cast<const char*>(qkv);
+  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+  if (route == kRouteShort)
+    err = launch_short_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads,
+                           n, n, dim_head, scale, dtype, stream, bias, hb);
+  else
+    err = launch_flash_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads,
+                           n, n, dim_head, dim_head, scale, dtype, stream, bias, hb);
   if (err != cudaSuccess) return err;
   return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, rows, d, inner, kEpiBiasResidual,
                              dtype, stream);
 }
 
 // Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and
-// sums_d = [dγ | dβ | dbo] (3·d,) in f32.  Scratch: doattn (rows, inner) in
-// the compute dtype; part_d (vit_ln_bwd_partial_rows(rows), 3·d) in f32;
-// dxn (rows, d) and stats (rows, 2) in f32 where vit_ln_bwd_fused(d) is 0,
-// else null.  `bias` (hb, n, n) f32, or
-// null with hb = 0; `dbias` (hb, n, n) f32 and its scratch `dbias_part`
-// (vit_attention_dbias_parts(b, n, heads, hb), hb, n, n) f32, or both null
-// when dbias is not wanted.  The attention's route:
-// - short, when `short_strides` (host memory, 24 values) is not null: the
-//   (batch, head, row) strides of q, k, v, O = oattn, dO = doattn, dq, dk, dv
-//   as short_bwd reads them (q/k/v and dq/dk/dv the column thirds of qkv and
-//   dqkv); `lse` (b, heads, n) f32 from the training forward; `dq_part`
-//   (vit_short_attention_parts(n, dim_head), b, heads, n, dim_head) f32
-//   scratch when that is above 1, else null; `rowstat` (b, heads, n, 2) f32
-//   scratch with dbias (the rows' exact dsum), else null.
-// - mha otherwise: `rowstat` (b, heads, n, 2) f32 scratch.
+// sums_d = [dγ | dβ | dbo] (3·d,) in f32, from the training forward's qkv,
+// oattn and `lse` (b, heads, n) f32.  Scratch: doattn (rows, inner) in the
+// compute dtype; part_d (vit_ln_bwd_partial_rows(rows), 3·d) in f32; dxn
+// (rows, d) and stats (rows, 2) in f32 where vit_ln_bwd_fused(d) is 0, else
+// null.  `bias` (hb, n, n) f32, or null with hb = 0; `dbias` (hb, n, n) f32
+// and its scratch `dbias_part` (vit_attention_dbias_parts(b, n, heads, hb),
+// hb, n, n) f32, or both null when dbias is not wanted; then `rowstat` (b,
+// heads, n, 2) f32 scratch receives the rows' exact (lse, dsum), else it is
+// null.  `strides` (host memory, 24 values): the (batch, head, row) strides
+// of q, k, v, O = oattn, dO = doattn, dq, dk, dv as the attention backward
+// reads them (q/k/v and dq/dk/dv the column thirds of qkv and dqkv).
+// `route` as the forward's:
+// - kRouteShort (short_bwd): `dq_part` (vit_short_attention_parts(n,
+//   dim_head), b, heads, n, dim_head) f32 scratch when that is above 1, else
+//   null;
+// - kRouteMha (the flash backward): `dsum` (b, heads, n) f32 scratch for D,
+//   unless `rowstat` gives dsum.
 extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, const void* qkv,
                                              const void* oattn, const float* lse,
                                              const void* gamma, const void* wqkv,
                                              const void* wo, void* dx, void* dqkv,
                                              float* sums_d, void* doattn,
-                                             const long long* short_strides, float* dq_part,
-                                             float* rowstat, float* dxn, float* stats,
-                                             float* part_d, const float* bias, int hb,
-                                             float* dbias, float* dbias_part, int b, int n,
-                                             int d, int heads, int dim_head, float scale,
-                                             float eps, int dtype, cudaStream_t stream) {
+                                             const long long* strides, int route,
+                                             float* dq_part, float* dsum, float* rowstat,
+                                             float* dxn, float* stats, float* part_d,
+                                             const float* bias, int hb, float* dbias,
+                                             float* dbias_part, int b, int n, int d, int heads,
+                                             int dim_head, float scale, float eps, int dtype,
+                                             cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, inner = heads * dim_head;
-  const bool short_route = short_strides != nullptr;
-  if (rows <= 0 || (dbias && !bias) || (short_route && (!lse || !oattn)) ||
-      ((dbias || !short_route) && !rowstat))
+  const bool mha = route == kRouteMha;
+  if (rows <= 0 || !strides || !lse || !oattn || (route != kRouteShort && !mha) ||
+      (dbias && (!bias || !rowstat)) || (mha && !dbias && !dsum))
     return cudaErrorInvalidValue;
+  float* stats_rows = dbias ? rowstat : nullptr;  // the rows' exact dsum, with dbias only
   cudaError_t err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, inner, d,
                                  kEpiStore, dtype, stream);
   if (err != cudaSuccess) return err;
-  if (short_route) {
-    const char* base = static_cast<const char*>(qkv);
-    char* dbase = static_cast<char*>(dqkv);
-    const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
-    if (dbias) {  // the rows' exact dsum, which short_bwd and mha_dbias read
-      err = launch_mha_row_stats(qkv, doattn, rowstat, bias, hb, b, n, heads, dim_head, scale,
-                                 dtype, stream);
-      if (err != cudaSuccess) return err;
-    }
-    err = launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
-                           dbase + third, dbase + 2 * third, dq_part, short_strides, b, heads, n,
-                           n, dim_head, scale, dtype, stream, bias, hb, dbias ? rowstat : nullptr);
-  } else {
-    err = launch_mha_bwd(qkv, doattn, dqkv, rowstat, bias, hb, b, n, heads, dim_head, scale,
-                         dtype, stream);
+  if (stats_rows) {  // which the attention backward and mha_dbias read
+    err = launch_mha_row_stats(qkv, doattn, stats_rows, bias, hb, b, n, heads, dim_head, scale,
+                               dtype, stream);
+    if (err != cudaSuccess) return err;
   }
+  const char* base = static_cast<const char*>(qkv);
+  char* dbase = static_cast<char*>(dqkv);
+  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+  if (mha)
+    err = launch_flash_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
+                           dbase + third, dbase + 2 * third, dsum, strides, b, heads, n, n,
+                           dim_head, dim_head, scale, dtype, stream, bias, hb, stats_rows);
+  else
+    err = launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
+                           dbase + third, dbase + 2 * third, dq_part, strides, b, heads, n, n,
+                           dim_head, scale, dtype, stream, bias, hb, stats_rows);
   if (err != cudaSuccess) return err;
   if (dbias) {
     err = launch_mha_dbias(qkv, doattn, rowstat, bias, hb, dbias_part, dbias, b, n, heads,

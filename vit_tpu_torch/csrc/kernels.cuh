@@ -280,32 +280,21 @@ cudaError_t launch_short_bwd(const void* q, const void* k, const void* v, const 
                              int n_k, int d, float scale, int dtype, cudaStream_t stream,
                              const float* bias = nullptr, int hb = 0, float* rowstat = nullptr);
 
-// Multi-head softmax attention over packed qkv (b, n, 3·heads·dim_head) with
-// q|k|v thirds; writes (b, n, heads·dim_head).  `bias`, when not null, is a
-// (hb, n, n) f32 logits bias added after the scale, shared by every head when
-// hb == 1, one per head when hb == heads.  dim_head ∈ {32, 64, 128}; any n.
-cudaError_t launch_mha_fwd(const void* qkv, void* out, const float* bias, int hb, int b, int n,
-                           int heads, int dim_head, float scale, int dtype, cudaStream_t stream);
-
-// Its backward: from qkv and dout = dL/d(attention output) (b, n, heads·dim_head),
-// writes dqkv (b, n, 3·heads·dim_head) in the packed q|k|v layout.  `rowstat`
-// (b, heads, n, 2) f32 scratch receives each query row's log-sum-exp and
-// Σ_j dp·p.  `bias` as for the forward.  dim_head ∈ {32, 64, 128}; any n.
-cudaError_t launch_mha_bwd(const void* qkv, const void* dout, void* dqkv, float* rowstat,
-                           const float* bias, int hb, int b, int n, int heads, int dim_head,
-                           float scale, int dtype, cudaStream_t stream);
-
-// The row statistics of launch_mha_bwd alone (its dq kernel's first pass):
-// `rowstat` (b, heads, n, 2) f32 receives each query row's log-sum-exp and
-// dsum = Σ_j p·dp, both in f32 (dp = dout·vᵀ), the bias added to the logits.
-// The short route's dbias call takes its dsum from them.
+// The row statistics of the biased block's dbias call (attention.cu), over
+// packed qkv (b, n, 3·heads·dim_head) with q|k|v thirds and dout = dL/d(the
+// attention output) (b, n, heads·dim_head): `rowstat` (b, heads, n, 2) f32
+// receives each query row's log-sum-exp and dsum = Σ_j p·dp, both in f32 (dp =
+// dout·vᵀ), the (hb, n, n) f32 bias (hb 1 or heads; not null) added to the
+// scaled logits.  dim_head ∈ {32, 64, 128}; any n.  The attention backward of that
+// call (short_bwd, or the flash backward past 512 tokens) takes its dsum from
+// them.
 cudaError_t launch_mha_row_stats(const void* qkv, const void* dout, float* rowstat,
                                  const float* bias, int hb, int b, int n, int heads,
                                  int dim_head, float scale, int dtype, cudaStream_t stream);
 
 // The bias gradient dbias (hb, n, n) f32 = Σ over images (and over heads when
-// hb == 1) of p·(dp - dsum), after launch_mha_bwd or launch_mha_row_stats has
-// filled `rowstat` with (lse, dsum = Σ dp·p), in a fixed order:
+// hb == 1) of p·(dp - dsum), after launch_mha_row_stats has filled `rowstat`
+// with (lse, dsum = Σ dp·p), in a fixed order:
 // per-part sums into `partial` (mha_dbias_parts(...), hb, n, n) f32 scratch,
 // then the parts added in order.
 cudaError_t launch_mha_dbias(const void* qkv, const void* dout, const float* rowstat,
@@ -320,15 +309,23 @@ int mha_dbias_parts(int b, int n, int heads, int hb);  // the wrappers use vit_a
 // (128, 128), (192, 192)}.  The forward writes out (width dv) and lse (b, heads, n_q) f32
 // through the strides of q, k, v, out (12 values); the backward writes dq, dk,
 // dv from q, k, v, out, lse and dout, with dsum (b, heads, n_q) f32 scratch,
-// through the strides of q, k, v, out, dout, dq, dk, dv (24 values).
+// through the strides of q, k, v, out, dout, dq, dk, dv (24 values).  `bias`,
+// when not null (dk == dv ∈ {32, 64, 128}), is an f32 (hb, n_q, n_k) logits
+// bias, hb 1 (shared by the heads) or heads, added to the scaled logits in
+// both directions.  Without `rowstat` each query row's dsum is D =
+// rowsum(dO∘O) from the stored out (written to `dsum`); with it (b, heads,
+// n_q, 2) f32 (a bias only: the dbias call), filled by launch_mha_row_stats,
+// dsum is its Σ_j p·dp in f32 and `dsum` is not used.
 cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                              const long long* strides, int b, int heads, int n_q, int n_k, int dk,
-                             int dv, float scale, int dtype, cudaStream_t stream);
+                             int dv, float scale, int dtype, cudaStream_t stream,
+                             const float* bias = nullptr, int hb = 0);
 cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
                              float* dsum, const long long* strides, int b, int heads, int n_q,
                              int n_k, int d_k, int d_v, float scale, int dtype,
-                             cudaStream_t stream);
+                             cudaStream_t stream, const float* bias = nullptr, int hb = 0,
+                             const float* rowstat = nullptr);
 
 // out (d,) = Σ over the rows of a (rows, d) matrix in the compute dtype, in
 // f32 and in a fixed order: 64-row partial sums into `partial`

@@ -44,19 +44,19 @@ _LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of 64-bit strides
 SIGNATURES = {
     "vit_fused_attention_block_fwd": (
         # x, gamma, beta, wqkv, wo, bo, y, xn, qkv, oattn, lse (or null),
-        # short_strides (q, k, v, out: batch, head, row; null on the mha
-        # route), bias (or null), hb,
-        [_P] * 11 + [_LL] + [_P, _I]
+        # strides (q, k, v, out: batch, head, row), route (0 short, 1 mha),
+        # bias (or null), hb,
+        [_P] * 11 + [_LL, _I] + [_P, _I]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
     ),
     "vit_fused_attention_block_bwd": (
-        # dy, x, qkv, oattn and lse (or null), gamma, wqkv, wo, dx, dqkv,
-        # sums_d, doattn, short_strides (q, k, v, out, dout, dq, dk, dv: batch,
-        # head, row; null on the mha route), dq_part and rowstat (or null), dxn,
-        # stats, part_d, bias (or null), hb, dbias and dbias_part (or null),
-        [_P] * 12 + [_LL] + [_P] * 5 + [_P, _I, _P, _P]
+        # dy, x, qkv, oattn, lse, gamma, wqkv, wo, dx, dqkv, sums_d, doattn,
+        # strides (q, k, v, out, dout, dq, dk, dv: batch, head, row), route
+        # (0 short, 1 mha), dq_part, dsum and rowstat (or null), dxn, stats,
+        # part_d, bias (or null), hb, dbias and dbias_part (or null),
+        [_P] * 12 + [_LL, _I] + [_P] * 6 + [_P, _I, _P, _P]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,

@@ -18,16 +18,20 @@ unbiased one.
 
 The attention middle takes one of two routes, by shape alone, the same in
 both directions (:func:`attention_route`, counted in ``FORWARD_ROUTES`` and
-``BACKWARD_ROUTES``): at n ≤ 512, with or without a bias, ``short_fwd`` and
-``short_bwd`` of ``csrc/short_attention.cu`` over strided views of the packed
-qkv (:func:`short_forward_views`, :func:`short_route_views`), the bias read
-into their score fragments, the training forward keeping the lse the
-backward reads; for the dbias call the rows' exact (lse, dsum = Σ p·dp) come
-first (``attention.cu``'s row statistics, the first pass of ``mha_bwd``),
-and ``short_bwd`` and the dbias kernel read them (their plain versions
-:func:`fused_attention_block_short_forward_reference` and
-:func:`fused_attention_block_short_backward_reference`); past 512 tokens,
-``mha_fwd`` and ``mha_bwd`` of ``csrc/attention.cu``.
+``BACKWARD_ROUTES``), each over strided views of the packed qkv
+(:func:`attention_forward_views`, :func:`attention_backward_views`), with or
+without a bias, the training forward keeping the lse the backward reads: at
+n ≤ 512 ``short_fwd`` and ``short_bwd`` of ``csrc/short_attention.cu``,
+past 512 tokens the flash kernels of ``csrc/flash_attention.cu``, the bias
+read into their score fragments.  The backward takes ``D = rowsum(dO∘O)``
+from the stored output; for the dbias call the rows' exact (lse, dsum = Σ
+p·dp) come first (``attention.cu``'s row statistics), and the attention
+backward and the dbias kernel read them.  Their plain versions:
+:func:`fused_attention_block_short_forward_reference` (the short route's
+forward), :func:`fused_attention_block_forward_reference` with
+:func:`attention_lse_reference` (the mha route's), and
+:func:`fused_attention_block_lse_backward_reference` (both routes'
+backward).
 
 What bounds it on the H100: at ViT-B/16, batch 64 (12,608 rows, d=768,
 12 heads of 64) the QKV and output GEMMs are about 59.5 GFLOP per block and
@@ -36,7 +40,7 @@ the card's FLOP-per-byte ridge, so the tensor cores bound it.  The design
 runs the GEMMs on ``gemm_wgmma.cu``'s warp-specialised wgmma GEMM (from n =
 256), reads q/k/v strided out of the packed projection (no head-split
 transpose), keeps the n×n probabilities in registers (whole rows in the short
-forward, an online softmax in ``mha_fwd``; recomputed from per-row
+forward, an online softmax in ``flash_fwd``; recomputed from per-row
 log-sum-exp in the backward), fuses bias and residual into the
 out-projection epilogue, and runs the LayerNorm and its backward as small
 memory-bound passes.
@@ -53,11 +57,13 @@ dtype.  In f32 the two routes compute one function.  Backward: ``doattn``
 rounded; p recomputed in f32; ``dsum = Σ dp·p`` from the f32 p and dp (not
 from the rounded output); ``T(p)`` for dv and ``ds = T(p·(dp - dsum)·scale)``
 for dq and dk, each rounded; the qkv dgrad ``dxn`` kept in f32; dγ, dβ and dbo
-summed in f32.  The short route takes ``p = exp(s·scale + bias - lse)`` from the
-forward's f32 lse and ``D = rowsum(dO∘O)`` from the stored, rounded attention
-output in place of dsum: the same quantity in exact arithmetic, apart by O's
-rounding in bf16; with dbias it takes dsum, as the TPU kernel, since D's
-rounding does not cancel in dbias's sum over the batch.  The TPU padded odd token counts on the host and masked with
+summed in f32.  That is the TPU kernel's, and the CPU path's
+(:func:`fused_attention_block_backward_reference`).  On the card both routes
+take ``p = exp(s·scale + bias - lse)`` from the forward's f32 lse and ``D =
+rowsum(dO∘O)`` from the stored, rounded attention output in place of dsum:
+the same quantity in exact arithmetic, apart by O's rounding in bf16; with
+dbias they take dsum, as the TPU kernel, since D's rounding does not cancel
+in dbias's sum over the batch.  The TPU padded odd token counts on the host and masked with
 -1e30; the CUDA kernels mask ragged keys themselves with -inf.  The bias,
 ``(hb, n, n)`` f32 with hb 1 (shared by the heads) or ``heads``, is added in
 f32 to the scaled f32 logits before the row max, in the forward and in the
@@ -86,26 +92,29 @@ from vit_tpu_torch.ops.short_attention import (
 )
 
 SUPPORTED_DIM_HEAD = (32, 64, 128)
-# Images a launch of the short route takes: short_attention.cu puts them on
-# the grid's z axis (shape_ok).
+# Images a launch takes on either route: short_attention.cu and
+# flash_attention.cu put them on the grid's z axis (shape_ok).
 SHORT_MAX_BATCH = 65535
 
 # Launches of the attention middle by route (attention_route), each direction.
 FORWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
 BACKWARD_ROUTES = {"short": SimpleNamespace(launches=0), "mha": SimpleNamespace(launches=0)}
+# The routes as the C entry points take them (fused_attention_block.cu AttentionRoute).
+ROUTE_CODES = {"short": 0, "mha": 1}
 
 
 def attention_route(n: int) -> str:
     """The attention middle at n tokens, forward and backward alike, with or
-    without a logits bias: ``"short"``
-    (``short_fwd``, whole rows, keeping lse in training; ``short_bwd``, one
-    recompute of p per key block from that lse; the bias added in both, dbias
-    from the rows' exact (lse, dsum) taken first) for a block of at most 512 tokens
-    (ViT-B/32's 65, ViT-B/16's 197, the small-dataset ViT's 257); ``"mha"``
-    (``mha_fwd`` and ``mha_bwd``, any n) past them.  By shape only, so the
-    lse and O that ``short_bwd`` reads always come from ``short_fwd``.  With
-    a bias the threshold was timed at n 257 only (the small-dataset ViT's
-    block), not in between."""
+    without a logits bias: ``"short"`` (``short_fwd``, whole rows;
+    ``short_bwd``, one recompute of p per key block) for a block of at most
+    512 tokens (ViT-B/32's 65, ViT-B/16's 197, the small-dataset ViT's 257);
+    ``"mha"`` (the flash kernels: ``flash_fwd``'s online softmax, the
+    backward's dq and dk/dv split) past them (PiT's 962, the ViTs' 577 at
+    384 px).  Either keeps lse in training and recomputes p from it, the bias
+    added in both, dbias from the rows' exact (lse, dsum) taken first.  By
+    shape only, so the lse and O that the backward reads always come from
+    the same route's forward.  With a bias the threshold was timed at n 197
+    (``chip_smoke``'s route threshold), not in between."""
     return "short" if n <= MAX_SEQ else "mha"
 
 
@@ -148,7 +157,7 @@ def fused_attention_block_short_forward_reference(x, gamma, beta, wqkv, wo, bo, 
         scale = dim_head ** -0.5
     xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
     oattn = torch.empty(x.shape[:-1] + (heads * dim_head,), dtype=x.dtype, device=x.device)
-    q, k, v, o = short_forward_views(qkv, oattn, heads, dim_head)
+    q, k, v, o = attention_forward_views(qkv, oattn, heads, dim_head)
     out, lse = short_attention_forward_reference(q, k, v, scale, bias)
     o.copy_(out)
     return _out_projection(x, oattn, wo, bo), xn, qkv, oattn, lse
@@ -199,9 +208,9 @@ def _merge_heads(t):
 
 def attention_lse_reference(qkv, heads: int, dim_head: int, scale: float | None = None,
                             bias=None):
-    """Plain PyTorch version of the lse the training forward keeps for the
-    short route: f32 ``(b, heads, n)``, the log-sum-exp of each query row's
-    scaled f32 logits plus the ``bias``, if any."""
+    """Plain PyTorch version of the lse the training forward keeps on either
+    route: f32 ``(b, heads, n)``, the log-sum-exp of each query row's scaled
+    f32 logits plus the ``bias``, if any."""
     if scale is None:
         scale = dim_head ** -0.5
     q, k, _ = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
@@ -268,41 +277,43 @@ def _heads_of(t, heads, dim_head):
     return t.unflatten(-1, (heads, dim_head)).transpose(1, 2)
 
 
-def short_forward_views(qkv, oattn, heads: int, dim_head: int):
-    """The ``(b, heads, n, dim_head)`` views the short route's ``short_fwd``
-    reads and writes, as they lie: q, k and v (the column thirds of the
-    packed ``(b, n, 3·inner)`` qkv: batch stride n·3·inner, head stride
-    dim_head, row stride 3·inner) and O (oattn, ``(b, n, inner)``)."""
+def attention_forward_views(qkv, oattn, heads: int, dim_head: int):
+    """The ``(b, heads, n, dim_head)`` views the forward's attention reads
+    and writes on either route (``short_fwd``, ``flash_fwd``), as they lie:
+    q, k and v (the column thirds of the packed ``(b, n, 3·inner)`` qkv:
+    batch stride n·3·inner, head stride dim_head, row stride 3·inner) and O
+    (oattn, ``(b, n, inner)``)."""
     return (*(_heads_of(t, heads, dim_head) for t in qkv.chunk(3, dim=-1)),
             _heads_of(oattn, heads, dim_head))
 
 
-def short_route_views(qkv, oattn, doattn, dqkv, heads: int, dim_head: int):
-    """The views the short route's ``short_bwd`` reads and writes, as they
-    lie: those of :func:`short_forward_views`, then dO (doattn, as O) and dq,
-    dk and dv (the thirds of dqkv, qkv's strides)."""
-    return (*short_forward_views(qkv, oattn, heads, dim_head),
+def attention_backward_views(qkv, oattn, doattn, dqkv, heads: int, dim_head: int):
+    """The views the backward's attention reads and writes on either route
+    (``short_bwd``, the flash backward), as they lie: those of
+    :func:`attention_forward_views`, then dO (doattn, as O) and dq, dk and dv
+    (the thirds of dqkv, qkv's strides)."""
+    return (*attention_forward_views(qkv, oattn, heads, dim_head),
             _heads_of(doattn, heads, dim_head),
             *(_heads_of(t, heads, dim_head) for t in dqkv.chunk(3, dim=-1)))
 
 
-def short_route_strides(name, views):
-    """The (batch, head, row) element strides of the short route's views
-    for the C entry points; raises ``ValueError`` on a view no TMA tensor map
+def attention_strides(name, views):
+    """The (batch, head, row) element strides of the attention's views for
+    the C entry points; raises ``ValueError`` on a view no TMA tensor map
     takes (:func:`_tma_problem`), before any launch."""
     for i, v in enumerate(views):
         problem = _tma_problem(v)
         if problem:
-            raise ValueError(f"{name}: short-route view {i} has strides {v.stride()}, which "
+            raise ValueError(f"{name}: attention view {i} has strides {v.stride()}, which "
                              f"no tensor map takes: {problem}")
     return kernel_strides(*views)
 
 
 @functools.lru_cache(maxsize=64)
-def _short_strides(b: int, n: int, heads: int, dim_head: int, backward: bool):
-    """:func:`short_route_strides` of the views of contiguous 16-bit qkv
-    ``(b, n, 3·inner)`` and oattn ``(b, n, inner)`` (:func:`short_forward_views`;
-    with ``backward``, :func:`short_route_views` with doattn and dqkv laid
+def _attention_strides(b: int, n: int, heads: int, dim_head: int, backward: bool):
+    """:func:`attention_strides` of the views of contiguous 16-bit qkv
+    ``(b, n, 3·inner)`` and oattn ``(b, n, inner)`` (:func:`attention_forward_views`;
+    with ``backward``, :func:`attention_backward_views` with doattn and dqkv laid
     out as oattn and qkv), once per shape: the wrappers pass contiguous,
     16-byte aligned tensors (``check_kernel_tensors``), whose strides follow
     from the shape, and building and checking eight views each call cost
@@ -311,34 +322,35 @@ def _short_strides(b: int, n: int, heads: int, dim_head: int, backward: bool):
     inner = heads * dim_head
     qkv = torch.empty((b, n, 3 * inner), dtype=torch.bfloat16, device="meta")
     oattn = torch.empty((b, n, inner), dtype=torch.bfloat16, device="meta")
-    views = short_route_views(qkv, oattn, oattn, qkv, heads, dim_head) if backward \
-        else short_forward_views(qkv, oattn, heads, dim_head)
-    return short_route_strides("fused_attention_block", views)
+    views = attention_backward_views(qkv, oattn, oattn, qkv, heads, dim_head) if backward \
+        else attention_forward_views(qkv, oattn, heads, dim_head)
+    return attention_strides("fused_attention_block", views)
 
 
-def fused_attention_block_short_backward_reference(dy, x, qkv, oattn, lse, gamma, wqkv, wo,
-                                                   heads: int, dim_head: int,
-                                                   scale: float | None = None,
-                                                   eps: float = 1e-3, bias=None,
-                                                   need_dbias: bool = True):
-    """Plain PyTorch version of the backward on the short route
+def fused_attention_block_lse_backward_reference(dy, x, qkv, oattn, lse, gamma, wqkv, wo,
+                                                 heads: int, dim_head: int,
+                                                 scale: float | None = None,
+                                                 eps: float = 1e-3, bias=None,
+                                                 need_dbias: bool = True):
+    """Plain PyTorch version of the backward on the card, either route
     (:func:`attention_route`): ``(dx, dqkv, dgamma, dbeta, dbo)`` as
     :func:`fused_attention_block_backward_reference` returns them, with the
-    attention's backward as ``short_bwd`` takes it: ``p = exp(s·scale + bias
-    - lse)`` from the training forward's ``lse`` (``(b, heads, n)`` f32) and
-    ``D = rowsum(dO∘O)`` from the stored attention output ``oattn``, where
-    the TPU kernel sums ``dsum = Σ dp·p``; each product's output rounded as
-    the kernel rounds it.  With a ``bias``, ``dbias`` follows in f32 (``None``
-    unless ``need_dbias``); the dbias call takes ``dsum = Σ softmax·dp`` in
-    f32 (the row statistics it computes first) in place of D, and sums
-    ``p·(dp - dsum)`` as the kernel's dbias pass sums it.  In f32 the two
-    are one function."""
+    attention's backward as ``short_bwd`` and the flash backward take it:
+    ``p = exp(s·scale + bias - lse)`` from the training forward's ``lse``
+    (``(b, heads, n)`` f32) and ``D = rowsum(dO∘O)`` from the stored
+    attention output ``oattn``, where the TPU kernel sums ``dsum = Σ dp·p``;
+    each product's output rounded as the kernels round it
+    (``short_attention_backward_reference``).  With a ``bias``, ``dbias``
+    follows in f32 (``None`` unless ``need_dbias``); the dbias call takes
+    ``dsum = Σ softmax·dp`` in f32 (the row statistics it computes first) in
+    place of D, and sums ``p·(dp - dsum)`` as the kernel's dbias pass sums
+    it.  In f32 the two are one function."""
     if scale is None:
         scale = dim_head ** -0.5
     d = x.shape[-1]
     doattn = (dy.reshape(-1, d).float() @ wo.float()).to(dy.dtype).reshape(oattn.shape)
     dqkv = torch.empty_like(qkv)
-    q, k, v, o, do, dq, dk, dv = short_route_views(qkv, oattn, doattn, dqkv, heads, dim_head)
+    q, k, v, o, do, dq, dk, dv = attention_backward_views(qkv, oattn, doattn, dqkv, heads, dim_head)
     grads = short_attention_backward_reference(q, k, v, o, lse, do, scale, bias,
                                                need_dbias=bias is not None and need_dbias)
     for dst, src in zip((dq, dk, dv), grads):
@@ -359,9 +371,9 @@ def _check_block(name, x, heads, dim_head, tensors):
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (b, n, d), got {tuple(x.shape)}")
     b, n, d = x.shape
-    if attention_route(n) == "short" and b > SHORT_MAX_BATCH:
-        raise ValueError(f"{name}: the short route takes at most {SHORT_MAX_BATCH} images a "
-                         f"launch, got {b}")
+    if b > SHORT_MAX_BATCH:
+        raise ValueError(f"{name}: the {attention_route(n)} route takes at most "
+                         f"{SHORT_MAX_BATCH} images a launch, got {b}")
     if not fused_attention_block_supported(d, heads, dim_head):
         raise ValueError(
             f"{name} kernel needs d % 8 == 0 and dim_head in "
@@ -392,8 +404,8 @@ def _bias_args(bias):
 def _forward_buffers(x, heads: int, dim_head: int):
     """The forward's outputs and scratch for ``x`` ``(b, n, d)``: ``(y, xn,
     qkv, oattn)``.  xn and oattn are the GEMMs' A operands, read through 2-d
-    TMA maps from n = 256, and qkv and oattn the short route's q|k|v and O
-    (:func:`short_forward_views`): rows of d, 3·inner and inner elements,
+    TMA maps from n = 256, and qkv and oattn the attention's q|k|v and O
+    (:func:`attention_forward_views`): rows of d, 3·inner and inner elements,
     contiguous."""
     b, n, _ = x.shape
     inner = heads * dim_head
@@ -406,13 +418,13 @@ def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, b
                     training=False):
     """The forward kernels on CUDA tensors: ``(y, xn, qkv, oattn, lse)``,
     every tensor but lse in ``x``'s dtype (bf16 or f16).  The attention by
-    :func:`attention_route`, counted in ``FORWARD_ROUTES``.  The training
-    forward keeps xn, qkv and oattn, as the TPU's ``save_residuals=True``,
-    and on the short route also lse (f32 ``(b, heads, n)``, which the
-    backward's ``short_bwd`` reads; None on the mha route and when serving);
-    serving drops them.  ``fused_attention_block.launches`` counts the
-    launches without a bias, ``fused_attention_block_bias.launches`` those
-    with one."""
+    :func:`attention_route`, counted in ``FORWARD_ROUTES``, over the views
+    of :func:`attention_forward_views` on either route.  The training forward
+    keeps xn, qkv and oattn, as the TPU's ``save_residuals=True``, and lse
+    (f32 ``(b, heads, n)``, which the backward reads); serving drops them
+    (lse None).  ``fused_attention_block.launches`` counts the launches
+    without a bias, ``fused_attention_block_bias.launches`` those with
+    one."""
     b, n, d = x.shape
     inner = heads * dim_head
     _check_block("fused_attention_block", x, heads, dim_head, {
@@ -423,18 +435,15 @@ def _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, b
         check_bias(bias, x, heads)
     route = attention_route(n)
     y, xn, qkv, oattn = _forward_buffers(x, heads, dim_head)
-    strides = lse = None
-    if route == "short":
-        strides = _short_strides(b, n, heads, dim_head, backward=False)
-        if training:
-            lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device)
+    strides = _attention_strides(b, n, heads, dim_head, backward=False)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device) if training else None
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.vit_fused_attention_block_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), xn.data_ptr(),
-            qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr() if lse is not None else None,
-            strides, *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
+            qkv.data_ptr(), oattn.data_ptr(), data_ptr(lse), strides, ROUTE_CODES[route],
+            *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
             _build.DTYPE_CODES[x.dtype], launch_stream(x))
     _build.check(err, "vit_fused_attention_block_fwd")
     (fused_attention_block if bias is None else fused_attention_block_bias).launches += 1
@@ -448,11 +457,10 @@ def fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads: int,
     """The backward kernel: what
     :func:`fused_attention_block_backward_reference` returns.  A CPU tensor
     takes the plain version; a CUDA tensor launches
-    ``vit_fused_attention_block_bwd`` or raises.  Any n: at n ≤ 512 the
-    attention goes the short route, which needs the training forward's
-    ``oattn`` and ``lse`` (``_launch_forward(..., training=True)``); past it
-    ``mha_bwd`` tiles both axes.  ``fused_attention_block_backward.launches``
-    counts kernel launches."""
+    ``vit_fused_attention_block_bwd`` or raises.  Any n, on the route of
+    :func:`attention_route`; either needs the training forward's ``oattn``
+    and ``lse`` (``_launch_forward(..., training=True)``).
+    ``fused_attention_block_backward.launches`` counts kernel launches."""
     if scale is None:
         scale = dim_head ** -0.5
     if dy.device.type == "cpu":
@@ -476,8 +484,8 @@ def fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads
     them, ``dbias`` computed (in a fixed order, the same bits every run) only
     when ``need_dbias``, else ``None``.  A CPU tensor takes the plain
     version; a CUDA tensor launches ``vit_fused_attention_block_bwd`` or
-    raises: at n ≤ 512 on the short route, which needs the training
-    forward's ``oattn`` and ``lse``, as :func:`fused_attention_block_backward`.
+    raises, and needs the training forward's ``oattn`` and ``lse``, as
+    :func:`fused_attention_block_backward`.
     ``fused_attention_block_bias_backward.launches`` counts kernel launches."""
     if scale is None:
         scale = dim_head ** -0.5
@@ -498,23 +506,24 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
                      need_dbias=False, oattn=None, lse=None):
     """``vit_fused_attention_block_bwd`` on CUDA tensors: ``(dx, dqkv,
     dgamma, dbeta, dbo, dbias)``, ``dbias`` ``None`` unless asked for; the
-    attention by :func:`attention_route`, counted in ``BACKWARD_ROUTES``."""
+    attention by :func:`attention_route`, counted in ``BACKWARD_ROUTES``,
+    over the views of :func:`attention_backward_views` on either route, from
+    the training forward's ``oattn`` and ``lse``."""
     b, n, d = dy.shape
     inner = heads * dim_head
     route = attention_route(n)
-    short = route == "short"
     tensors = {
         "x": (x, dy.shape), "qkv": (qkv, (b, n, 3 * inner)), "gamma": (gamma, (d,)),
         "wqkv": (wqkv, (3 * inner, d)), "wo": (wo, (d, inner)),
     }
-    if short and oattn is not None:
+    if oattn is not None:
         tensors["oattn"] = (oattn, (b, n, inner))
     _check_block("fused_attention_block backward", dy, heads, dim_head, tensors)
-    if short and (oattn is None or lse is None):
+    if oattn is None or lse is None:
         raise ValueError(f"fused_attention_block backward: at n={n} the attention takes the "
-                         f"short route, which needs the training forward's oattn and lse")
-    if short and (lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, n)
-                  or not lse.is_contiguous() or lse.device != dy.device):
+                         f"{route} route, which needs the training forward's oattn and lse")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, n) \
+            or not lse.is_contiguous() or lse.device != dy.device:
         raise ValueError(f"fused_attention_block backward: lse must be a contiguous f32 "
                          f"({b}, {heads}, {n}) tensor on {dy.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
@@ -526,14 +535,16 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     dxn, stats = ln_bwd_scratch(rows, d, dy.device)
     lib = _build.load()
     part_d = torch.empty((lib.vit_ln_bwd_partial_rows(rows), 3 * d), **f32)
-    strides = dq_part = rowstat = dbias = dbias_part = None
-    if short:
-        strides = _short_strides(b, n, heads, dim_head, backward=True)
+    strides = _attention_strides(b, n, heads, dim_head, backward=True)
+    dq_part = dsum = rowstat = dbias = dbias_part = None
+    if route == "short":
         parts = lib.vit_short_attention_parts(n, dim_head)
         if parts > 1:
             dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
-    if not short or need_dbias:  # mha_bwd's scratch; the (lse, dsum) dbias reads
+    if need_dbias:  # the rows' exact (lse, dsum): the attention backward's dsum, dbias's
         rowstat = torch.empty((b, heads, n, 2), **f32)
+    elif route == "mha":  # the flash backward's D
+        dsum = torch.empty((b, heads, n), **f32)
 
     with torch.cuda.device(dy.device):
         if need_dbias:  # the part count follows the device's SM count
@@ -542,12 +553,13 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
             dbias_part = torch.empty((lib.vit_attention_dbias_parts(b, n, heads, hb), hb, n, n),
                                      **f32)
         err = lib.vit_fused_attention_block_bwd(
-            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), data_ptr(oattn), data_ptr(lse),
+            dy.data_ptr(), x.data_ptr(), qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr(),
             gamma.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
             dx.data_ptr(), dqkv.data_ptr(), sums_d.data_ptr(), doattn.data_ptr(), strides,
-            data_ptr(dq_part), data_ptr(rowstat), data_ptr(dxn), data_ptr(stats),
-            part_d.data_ptr(), *_bias_args(bias), data_ptr(dbias), data_ptr(dbias_part), b, n, d,
-            heads, dim_head, float(scale), eps, _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+            ROUTE_CODES[route], data_ptr(dq_part), data_ptr(dsum), data_ptr(rowstat),
+            data_ptr(dxn), data_ptr(stats), part_d.data_ptr(), *_bias_args(bias),
+            data_ptr(dbias), data_ptr(dbias_part), b, n, d, heads, dim_head, float(scale), eps,
+            _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_attention_block_bwd")
     BACKWARD_ROUTES[route].launches += 1
     dgamma, dbeta, dbo = sums_d.view(3, d).unbind(0)
@@ -557,8 +569,8 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
 class FusedAttentionBlockFunction(torch.autograd.Function):
     """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``, and with a
     ``bias``, ``_vjp_fwd_bias`` / ``_vjp_bwd_bias``): the training forward
-    keeps ``x``, ``xn``, ``qkv``, ``oattn`` and the bias, and on the card's
-    short route (:func:`attention_route`) lse; the backward runs
+    keeps ``x``, ``xn``, ``qkv``, ``oattn`` and the bias, and on the card
+    lse; the backward runs
     the backward kernel, then the weight gradients ``dWqkv = dqkvᵀ·xn`` and
     ``dWo = dyᵀ·oattn`` as plain GEMMs with f32 accumulation, rounded to the
     weights' dtype, as JAX left them to XLA.  ``gamma``/``beta`` may be f32
