@@ -155,7 +155,9 @@ Phases, one line each (any failure raises and exits non-zero):
    px (577 tokens, batch 16, a learned per-head bias, so dbias too) under
    autograd, forward and backward once; then phases 3, 4 and 8 at those
    shapes (LSA's mask, a shared and a per-head bias), each route counter
-   checked; then the biased block at 197 tokens (LSA's mask, batch 64) timed
+   checked, and the unbiased block beside F.layer_norm + F.linear + SDPA +
+   F.linear (:func:`block_library_phase`); then the biased block at 197
+   tokens (LSA's mask, batch 64) timed
    on both routes, forward and backward: the evidence for the 512-token
    threshold with a bias.
 20. the training objectives (``benchmarks/run_benchmarks.py:105-128``, the
@@ -240,10 +242,26 @@ Phases, one line each (any failure raises and exits non-zero):
    7 (plain path ``"never"``): a forward launches the block and the fused
    MLP 9 times each, 3 of the block's on the mha route, a step their
    backwards as often.
-26. profile: ``torch.profiler`` over train steps at eighteen training
+26. LeViT (``benchmarks/run_benchmarks.py:62-64``: 224 px, dims (256, 384,
+   512), depth 4, heads (4, 6, 8), mlp_mult 2, dim_key 32, dim_value 64) and
+   MobileViT (``:68-71``: 256 px, dims (96, 120, 144), channels (16, 32, 48,
+   48, 64, 64, 80, 80, 96, 96, 384), depths (2, 4, 3)), batch 64, which
+   ``vit_tpu`` runs on no Pallas kernel.  First their library convolutions
+   (:func:`plain_conv_phase`: LeViT's stem, MobileViT's depthwise ones)
+   timed with their backward kernels by name.  Then each served
+   (:func:`plain_serving_phase`) and trained (:func:`plain_training_phase`,
+   SGD(1e-3)) with every BatchNorm seeded nonzero (LeViT's ``to_out_bn``
+   starts at γ = 0; seeded in [0.1, 0.3], :func:`seed_batch_norms`) and
+   every kernel counter at 0; there is no plain path apart from the model
+   itself, so the bf16 path is held against the f32 model of the same
+   weights: logits within 0.1·max|f32|, the first loss within 1e-2, each
+   step-1 gradient's error printed beside the f32 model's own sensitivity
+   to inputs moved by 1e-3, falling losses, the running statistics moved;
+   times and peak memory.
+27. profile: ``torch.profiler`` over train steps at twenty training
    configs (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224
    and 384, ScalableViT, the four objectives, T2T-ViT, Twins-SVT,
-   CrossFormer, RegionViT, NesT, PiT); device time and launches per
+   CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -253,14 +271,15 @@ Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
-CrossFormer, RegionViT, NesT, PiT (serving and training); the blocks past
-512 tokens)
+CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT (serving and training);
+the blocks past 512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; the flash kernels past 512
-tokens: PiT's stage 1).  The line before the last is the card as ``nvidia-smi`` names it; before that
+tokens: PiT's stage 1); LeViT's and MobileViT's paths must launch none.
+The line before the last is the card as ``nvidia-smi`` names it; before that
 PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
 NesT's (with ptxas's registers and spills of its two dh-32 instances),
 RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
@@ -1348,6 +1367,7 @@ def mha_route_phase(torch, results, smi, counters):
     tag, b, n, d, heads, dim_head, hidden = MHA_SHAPES[0]
     kernel_phase(torch, tag, b, n, d, heads, dim_head, hidden, results)
     backward_phase(torch, tag, b, n, d, heads, dim_head, hidden, results)
+    block_library_phase(torch, tag, b, n, d, heads, dim_head, results, smi)
     tag, b, n, d, heads, dim_head, hidden = MHA_SHAPES[1]
     biased_phase(torch, b, n, d, heads, dim_head, hidden, results, tag=tag)
     torch.cuda.empty_cache()
@@ -2454,32 +2474,17 @@ def block_library_phase(torch, tag, b, n, d, heads, dim_head, results, smi, eps=
     del args, leaves, y_lib, xn, qkv, oattn, lse
 
 
-def pit_conv_phase(torch, smi):
-    """PiT's library convolutions at batch 64, outside every kernel here as
-    in ``vit_tpu``: the overlapping patch embedding (14 x 14, stride 7,
-    VALID, 3 -> 256) and each pool's grouped 3 x 3, stride-2 TF-SAME
-    convolution (d -> 2d, groups d: 31 -> 16 at d 256, 16 -> 8 at 512) and
-    its pointwise one, bf16 NHWC through the port's modules (cuDNN on the
-    channels_last view; the pointwise one a GEMM); device ms of the forward
-    and of the backward as a train step takes it (autograd: the weight
-    gradients, and the input's but for the image's), and the device kernels
-    of each backward by name, as the profiler names them."""
-    from vit_tpu_torch.layers.common import Conv, GroupedConv
-    from vit_tpu_torch.models.pit import OverlapPatchEmbed
-
-    dev, dt = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(27)
-    kw = dict(device=dev, dtype=dt, generator=g)
-    cases = [("patch embedding 14x14/7", 224, 3, OverlapPatchEmbed(256, 14, 7, **kw))]
-    for side, c in ((31, 256), (16, 512)):
-        cases += [(f"pool {side}->{-(-side // 2)} grouped 3x3/2", side, c,
-                   GroupedConv(c, 3, 2, out_channels=2 * c, **kw)),
-                  (f"pool {side}->{-(-side // 2)} pointwise", -(-side // 2), 2 * c,
-                   Conv(2 * c, 2 * c, 1, **kw))]
+def library_conv_times(torch, cases, batch, g) -> dict:
+    """Device ms of library convolutions, bf16 NHWC through the port's
+    modules (cuDNN on the channels_last view), at ``batch``: ``cases`` are
+    ``(name, side, channels, module, image)``, the input ``side x side x
+    channels``; the forward, the backward as a train step takes it (autograd:
+    the weight gradients, and the input's unless ``image``), and the device
+    kernels of each backward by name, as the profiler names them
+    (:func:`launch_breakdown`)."""
     times = {}
-    for name, side, c, conv in cases:
-        x = torch.randn(PIT_BATCH, side, side, c, generator=g, device=dev).to(dt)
-        image = conv is cases[0][3]
+    for name, side, c, conv, image in cases:
+        x = torch.randn(batch, side, side, c, generator=g, device="cuda").to(torch.bfloat16)
         x.requires_grad_(not image)
         y = conv(x)
         dy = torch.randn_like(y)
@@ -2497,7 +2502,274 @@ def pit_conv_phase(torch, smi):
                        "backward kernels": breakdown_text(rows)}
         del x, y, dy, params
     torch.cuda.empty_cache()
+    return times
+
+
+def pit_conv_phase(torch, smi):
+    """PiT's library convolutions at batch 64, outside every kernel here as
+    in ``vit_tpu`` (:func:`library_conv_times`): the overlapping patch
+    embedding (14 x 14, stride 7, VALID, 3 -> 256) and each pool's grouped
+    3 x 3, stride-2 TF-SAME convolution (d -> 2d, groups d: 31 -> 16 at d
+    256, 16 -> 8 at 512) and its pointwise one (a GEMM)."""
+    from vit_tpu_torch.layers.common import Conv, GroupedConv
+    from vit_tpu_torch.models.pit import OverlapPatchEmbed
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(27)
+    kw = dict(device=dev, dtype=dt, generator=g)
+    cases = [("patch embedding 14x14/7", 224, 3, OverlapPatchEmbed(256, 14, 7, **kw), True)]
+    for side, c in ((31, 256), (16, 512)):
+        cases += [(f"pool {side}->{-(-side // 2)} grouped 3x3/2", side, c,
+                   GroupedConv(c, 3, 2, out_channels=2 * c, **kw), False),
+                  (f"pool {side}->{-(-side // 2)} pointwise", -(-side // 2), 2 * c,
+                   Conv(2 * c, 2 * c, 1, **kw), False)]
+    times = library_conv_times(torch, cases, PIT_BATCH, g)
     log(f"PiT's library convolutions (bf16 NHWC, batch 64), ms on {smi}: " + json.dumps(times))
+
+
+# LeViT as benchmarks/run_benchmarks.py:62-64 builds it: 224 px, 3 stages of
+# widths (256, 384, 512), depth 4, heads (4, 6, 8), mlp_mult 2, dim_key 32 and
+# dim_value 64 (its defaults); batch 64 (run_benchmarks.py:337).  Its maps are
+# 14 x 14, 7 x 7 and 4 x 4: 196 tokens, then 49 queries over 196 keys at the
+# first shrink, 49, then 16 over 49, then 16.
+LEVIT = dict(image_size=224, num_classes=1000, stages=3, dim=(256, 384, 512), depth=4,
+             heads=(4, 6, 8), mlp_mult=2)
+LEVIT_SIZE = 224
+LEVIT_BATCH = 64
+# MobileViT as run_benchmarks.py:68-71 builds it (MobileViT-XS's widths): 256
+# px, dims (96, 120, 144), channels (16, 32, 48, 48, 64, 64, 80, 80, 96, 96,
+# 384), depths (2, 4, 3), patches of 2 x 2; batch 64.  Its transformers run
+# over 4 sequences of 256, 64 and 16 tokens an image.
+MOBILEVIT = dict(image_size=(256, 256), dims=(96, 120, 144),
+                 channels=(16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384), num_classes=1000)
+MOBILEVIT_SIZE = 256
+MOBILEVIT_BATCH = 64
+
+
+def seed_batch_norms(torch, model, g):
+    """Every BatchNorm of ``model`` to seeded nonzero values: γ and the
+    running variance uniform in [0.5, 1.5], β and the running mean 0.1·N(0,
+    1); LeViT's ``to_out_bn`` γ uniform in [0.1, 0.3].  That one starts at
+    γ = 0, with which each attention adds exactly 0 in serving and q, k, v
+    and the position bias get no gradient at step 1: a check would pass
+    having tested nothing.  It scales each attention's residual branch, and
+    LeViT starts it at 0 to keep the stream in hand: at [0.5, 1.5] the
+    fourteen branches make the step-1 gradient chaotic (inputs moved by 1e-3
+    move the f32 model's by a large part of its norm; see
+    :func:`plain_training_phase`'s sensitivity), and no bf16 run can then
+    agree with it."""
+    from vit_tpu_torch.layers.common import BatchNorm
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                low, width = (0.1, 0.2) if name.endswith("to_out_bn") else (0.5, 1.0)
+                m.weight.copy_(low + width * torch.rand(m.weight.shape, generator=g,
+                                                        device=m.weight.device))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g,
+                                                     device=m.running_var.device))
+                for t in (m.bias, m.running_mean):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=g, device=t.device))
+
+
+def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi, counters):
+    """Serve a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
+    MobileViT): ``requests`` batches of ``size`` px through the bf16 model
+    (``cast_params``, eval, inference mode; its BatchNorms seeded,
+    :func:`seed_batch_norms`), every counter from 0 and still 0 after each
+    forward: no hand-written kernel runs on this path, as none runs in
+    ``vit_tpu``.  Its plain path would be the same bf16 model, so the
+    reference is the f32 model of the same weights (TF32 off): logits finite,
+    ``(batch, classes)``, within LOGIT_REL_TOL·max|f32|; top-1 agreement
+    printed; median forward ms of both, and the bf16 forwards' peak memory.
+    Returns each kernel's launches over them (all 0)."""
+    from vit_tpu_torch import cast_params
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = build(**cfg, device=dev, generator=g)
+    seed_batch_norms(torch, model, g)
+    f32 = build(**cfg, device=dev).eval()
+    f32.load_state_dict(model.state_dict())
+    model = cast_params(model, torch.bfloat16).eval()
+    images = [torch.randn(batch, size, size, 3, generator=g, device=dev)
+              for _ in range(requests)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The main path's run: counters from 0, read right after.
+        for c in counters.values():
+            c.launches = 0
+        outs = []
+        for i, img in enumerate(images):
+            outs.append(model(img))
+            check_launches(tag, f"forward {i}", counters, {}, i + 1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {name: c.launches for name, c in counters.items()}
+        logits, truth = torch.cat(outs).float(), torch.cat([f32(img) for img in images])
+        err = (logits - truth).abs().max().item()
+        tol = LOGIT_REL_TOL * truth.abs().max().item()
+        top1 = (logits.argmax(-1) == truth.argmax(-1)).float().mean().item()
+        ms = interleaved_medians(torch, {"bf16": lambda: model(images[0]),
+                                         "f32": lambda: f32(images[0])}, rounds=5, calls=4)
+    log(f"serving {tag}: {requests} requests x {batch} images, logits {tuple(outs[0].shape)}, "
+        f"every BatchNorm seeded nonzero; hand-written kernel launches per forward 0 (vit_tpu "
+        f"runs no Pallas kernel here); against the f32 model of the same weights "
+        f"max|bf16-f32|={err:.6g} tol={tol:.6g} (1e-1*max|f32|), relative L2 "
+        f"{rel_l2(torch, logits, truth):.4g}, top-1 agreement {top1:.4f}; peak GB allocated "
+        f"over the bf16 forwards {peak:.2f}; median forward ms bf16={ms['bf16']:.3f} "
+        f"f32={ms['f32']:.3f} ({batch / ms['bf16'] * 1e3:.1f} vs {batch / ms['f32'] * 1e3:.1f} "
+        f"img/s) on {smi}")
+    if tuple(outs[0].shape) != (batch, cfg["num_classes"]):
+        raise AssertionError(f"{tag}: logits shape {tuple(outs[0].shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: logits differ from the f32 model's by {err} > {tol}")
+    return launches
+
+
+def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counters):
+    """Train a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
+    MobileViT): ``build(..., compute_dtype=bf16)`` with f32 parameters and
+    seeded BatchNorms (:func:`seed_batch_norms`), SGD(1e-3), one fixed batch
+    of ``size`` px.  The reference is the f32 model of the same weights (TF32
+    off): each parameter's step-1 gradient (every one nonzero, and f32) with
+    its relative L2 error against the f32 model's printed, beside the f32
+    model's own sensitivity (its step-1 gradient at inputs moved by 1e-3
+    relative, against the unmoved one), and the first loss within
+    LOSS_REL_TOL of the f32 model's.  Then TRAIN_STEPS steps with
+    every counter from 0 and still 0 after each step (no hand-written
+    kernel), finite and falling losses, the BatchNorm running statistics
+    finite and moved; the bf16 step timed beside the f32 one, and its peak
+    memory.  Returns each kernel's launches over the steps (all 0)."""
+    from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = build(**cfg, compute_dtype=torch.bfloat16, device=dev, generator=g)
+    seed_batch_norms(torch, model, g)
+    f32 = build(**cfg, device=dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    f32.load_state_dict(start)
+    images = torch.randn(batch, size, size, 3, generator=g, device=dev)
+    labels = torch.arange(batch, device=dev) % cfg["num_classes"]
+    grads, first = {}, {}
+    for name, m in (("bf16", model), ("f32", f32)):
+        m.train().zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(m(images), labels)
+        loss.backward()
+        first[name] = loss.item()
+        grads[name] = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                       for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        m.load_state_dict(start)  # the step-1 forward moved the running statistics
+    # The f32 gradient's own sensitivity: the same step 1 at inputs moved by
+    # 1e-3 relative, a floor under which no bf16 run can be expected to agree.
+    f32.train().zero_grad(set_to_none=True)
+    nudge = 1 + 1e-3 * torch.randn(images.shape, generator=g, device=dev)
+    cross_entropy_loss(f32(images * nudge), labels).backward()
+    moved = {k: p.grad.detach().clone() for k, p in f32.named_parameters() if p.grad is not None}
+    f32.zero_grad(set_to_none=True)
+    f32.load_state_dict(start)
+    sensitivity = rel_l2(torch, torch.cat([v.flatten() for v in moved.values()]),
+                         torch.cat([grads["f32"][k].flatten() for k in moved]))
+    zero = [k for k, v in grads["f32"].items() if not bool(v.any())]
+    if zero or any(v.dtype != torch.float32 for v in grads["bf16"].values()):
+        raise AssertionError(f"{tag}: step-1 gradients zero {zero} or not f32")
+    errs = {k: rel_l2(torch, grads["bf16"][k], ref) for k, ref in grads["f32"].items()}
+    overall = rel_l2(torch, torch.cat([v.flatten() for v in grads["bf16"].values()]),
+                     torch.cat([v.flatten() for v in grads["f32"].values()]))
+    # A bias before a BatchNorm in training mode (LeViT's to_out and, before
+    # a shrink, its residual stream) has a gradient of 0 in exact arithmetic:
+    # f32 leaves rounding noise there, against which a relative error means
+    # nothing.  Those are counted apart from the worst.
+    norms = {k: torch.linalg.vector_norm(v).item() for k, v in grads["f32"].items()}
+    floor = 1e-3 * statistics.median(norms.values())
+    tiny = [k for k, v in norms.items() if v < floor]
+    worst = sorted((k for k in errs if k not in tiny), key=errs.get)[-3:]
+    loss_rel = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    log(f"gradients {tag}: step-1 relative L2 error of each parameter's gradient, bf16 "
+        f"compute against the f32 model: " + json.dumps({k: float(f"{v:.4g}")
+                                                         for k, v in errs.items()}))
+
+    def run_of(m):
+        step = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3))
+        return lambda: step(images, labels)
+
+    run = run_of(model)
+    stats = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counters from 0, TRAIN_STEPS steps, read right after.
+    for c in counters.values():
+        c.launches = 0
+    losses = []
+    for i in range(TRAIN_STEPS):
+        losses.append(run()["loss"].item())
+        check_launches(tag, f"step {i}", counters, {}, i + 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: c.launches for name, c in counters.items()}
+    buffers = dict(model.named_buffers())
+    stale = [k for k, before in stats.items() if torch.equal(buffers[k], before)
+             or not bool(torch.isfinite(buffers[k]).all())]
+    ms = interleaved_medians(torch, {"bf16": run, "f32": run_of(f32)}, rounds=3, calls=3)
+    STEP_MS[tag] = ms
+    log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3), every "
+        f"BatchNorm seeded nonzero; step-1 loss bf16={first['bf16']:.6f} "
+        f"f32={first['f32']:.6f} (within {LOSS_REL_TOL} relative: {loss_rel:.3g}); step-1 "
+        f"gradients against the f32 model, relative L2 over all {len(errs)} parameters "
+        f"{overall:.4g} (the f32 model's own at inputs moved by 1e-3 relative: "
+        f"{sensitivity:.4g}), median {statistics.median(errs.values()):.4g}, worst "
+        + ", ".join(f"{k} {errs[k]:.4g}" for k in reversed(worst))
+        + f" ({len(tiny)} gradients below 1e-3 of the median norm, 0 in exact arithmetic, "
+        f"left out of the worst); losses over {TRAIN_STEPS} steps {[round(v, 6) for v in losses]}; hand-written "
+        f"kernel launches per step 0 (vit_tpu runs no Pallas kernel here); "
+        f"{len(stats)} BatchNorm running statistics finite and updated; peak GB allocated "
+        f"over the bf16 steps {peak:.2f} of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; median step ms "
+        f"bf16={ms['bf16']:.3f} f32={ms['f32']:.3f} ({batch / ms['bf16'] * 1e3:.1f} vs "
+        f"{batch / ms['f32'] * 1e3:.1f} img/s) on {smi}")
+    if not loss_rel <= LOSS_REL_TOL:
+        raise AssertionError(f"{tag}: first losses differ by {loss_rel} relative")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} are not finite and falling")
+    if not stats or stale:
+        raise AssertionError(f"{tag}: BatchNorm statistics missing, not finite or not "
+                             f"updated: {stale}")
+    return launches
+
+
+def plain_conv_phase(torch, smi):
+    """The library convolutions of LeViT's stem and of MobileViT's MV2
+    blocks at batch 64 (:func:`library_conv_times`), outside every kernel
+    here as in ``vit_tpu``: the stem's four 3 x 3, stride-2 TF-SAME
+    convolutions with bias (224 → 112 → 56 → 28 → 14 px, 3 → 32 → 64 → 128 →
+    256 channels) and each distinct depthwise 3 x 3 convolution of
+    MobileViT@256 (hidden = 4·dim_in channels; ``stem_3``'s is ``stem_2``'s
+    shape)."""
+    from vit_tpu_torch.layers.common import Conv, GroupedConv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    kw = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    stem, side, c = [], LEVIT_SIZE, 3
+    for i, features in enumerate((32, 64, 128, LEVIT["dim"][0])):
+        stem.append((f"conv_embedding_{i} 3x3/2 {side}->{side // 2} {c}->{features}", side, c,
+                     Conv(c, features, 3, 2, **kw), i == 0))
+        side, c = side // 2, features
+    ch = MOBILEVIT["channels"]
+    depthwise = [(f"{block} depthwise 3x3/{stride} {side}->{-(-side // stride)} x{4 * din}", side,
+                  4 * din, GroupedConv(4 * din, 3, stride, use_bias=False, **kw), False)
+                 for block, side, din, stride in (
+                     ("stem_0", 128, ch[0], 1), ("stem_1", 128, ch[1], 2), ("stem_2", 64, ch[2], 1),
+                     ("trunk_conv_0", 64, ch[3], 2), ("trunk_conv_1", 32, ch[5], 2),
+                     ("trunk_conv_2", 16, ch[7], 2))]
+    log(f"LeViT's stem convolutions (bf16 NHWC, batch {LEVIT_BATCH}), ms on {smi}: "
+        + json.dumps(library_conv_times(torch, stem, LEVIT_BATCH, g)))
+    log(f"MobileViT's depthwise convolutions (bf16 NHWC, batch {MOBILEVIT_BATCH}), ms on "
+        f"{smi}: " + json.dumps(library_conv_times(torch, depthwise, MOBILEVIT_BATCH, g)))
 
 
 def packed_phase(torch, results, smi):
@@ -3542,7 +3814,8 @@ def kernel_group(name: str) -> str:
         return ("cuDNN convolutions (SPT; CvT's embeddings and depthwise projections; "
                 "ScalableViT's stem, k/v reductions, local modules, PEG, downsampling; "
                 "Twins-SVT's k/v reductions and PEGs; CrossFormer's stems; NesT's aggregates; "
-                "PiT's patch embedding and pools)")
+                "PiT's patch embedding and pools; LeViT's stem and stride-2 q; MobileViT's "
+                "3x3 and depthwise convolutions)")
     if re.search(r"gemm|xmma|cutlass|sm90_|nvjet", name, re.I):
         return "cuBLAS GEMM (dW, patch embedding, head; 1x1 convs outside the kernels)"
     if "multi_tensor_apply" in name or "foreach" in name.lower():
@@ -3550,7 +3823,7 @@ def kernel_group(name: str) -> str:
     if re.search(r"layer_norm|LayerNorm", name):
         return "PyTorch layer_norm (CvT's channel LayerNorms; NesT's aggregate and head norms)"
     if re.search(r"batch_norm|batchnorm", name, re.I):
-        return "PyTorch batch_norm (CvT's projections)"
+        return "PyTorch batch_norm (CvT's projections; LeViT's and MobileViT's BatchNorms)"
     if "elementwise" in name:
         return "PyTorch elementwise (casts, adds, GELU, pads)"
     if "reduce" in name.lower():
@@ -3802,7 +4075,9 @@ def main() -> int:
     log(f"ptxas, the wgmma+tma kernels (dynamic shared memory is set at launch): "
         f"{json.dumps(ptxas)}")
 
-    from vit_tpu_torch import CrossFormer, CvT, NesT, PiT, RegionViT, ScalableViT, TwinsSVT, ViT
+    from vit_tpu_torch import (
+        CrossFormer, CvT, LeViT, MobileViT, NesT, PiT, RegionViT, ScalableViT, TwinsSVT, ViT,
+    )
     from vit_tpu_torch.models import vit_for_small_dataset
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
@@ -3860,6 +4135,8 @@ def main() -> int:
     with clock("PiT kernels"):
         pit_kernel_phase(torch, results, smi)
         pit_conv_phase(torch, smi)
+    with clock("LeViT and MobileViT convolutions"):
+        plain_conv_phase(torch, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -4072,6 +4349,15 @@ def main() -> int:
     path("training PiT", training_phase, "PiT@224", PiT, PIT, PIT_BATCH, 27, smi, counters,
          {**pit_forward, **each(pit_layers, "fused_attention_block_bwd", "fused_mlp_bwd"),
           "mha route": pit_long, "short route": pit_layers - pit_long})
+    # LeViT@224 and MobileViT@256: vit_tpu runs no Pallas kernel in either, so
+    # every counter stays at 0; each bf16 path is held against the f32 model.
+    for name, build, cfg, size, batch, seed in (
+            ("LeViT", LeViT, LEVIT, LEVIT_SIZE, LEVIT_BATCH, 28),
+            ("MobileViT", MobileViT, MOBILEVIT, MOBILEVIT_SIZE, MOBILEVIT_BATCH, 30)):
+        path(f"serving {name}", plain_serving_phase, f"{name}@{size} bf16", build, cfg, batch,
+             3, size, seed, smi, counters)
+        path(f"training {name}", plain_training_phase, f"{name}@{size}", build, cfg, batch, size,
+             seed + 1, smi, counters)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -4143,6 +4429,14 @@ def main() -> int:
         # 512 and 1024 channels); the head norm runs outside the kernels.
         profile_phase(torch, "PiT@224", classifier_step(torch, PiT, PIT, PIT_BATCH), PIT_BATCH,
                       0, smi, ln_epilogues=2 * pit_layers, top=12)
+        # LeViT and MobileViT: no kernel of the library at all.
+        profile_phase(torch, "LeViT@224", classifier_step(torch, LeViT, LEVIT, LEVIT_BATCH,
+                                                          LEVIT_SIZE), LEVIT_BATCH, 0, smi,
+                      ln_epilogues=0, top=12)
+        profile_phase(torch, "MobileViT@256",
+                      classifier_step(torch, MobileViT, MOBILEVIT, MOBILEVIT_BATCH,
+                                      MOBILEVIT_SIZE), MOBILEVIT_BATCH, 0, smi, ln_epilogues=0,
+                      top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)

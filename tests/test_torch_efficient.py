@@ -56,14 +56,16 @@ def test_extract_patches_refuses_unknown_padding():
 
 
 def test_tokenizers_facade():
-    from vit_tpu_torch.models import crossformer, pit, twins_svt
+    from vit_tpu_torch.models import crossformer, mobile_vit, pit, twins_svt
 
     assert tokenizers.extract_patches is extract_patches
     assert tokenizers.PatchEmbedding is twins_svt.PatchEmbedding
     assert tokenizers.CrossEmbedLayer is crossformer.CrossEmbedLayer
     assert tokenizers.OverlapPatchEmbed is pit.OverlapPatchEmbed
+    assert tokenizers.ConvNxNBN is mobile_vit.ConvNxNBN
     assert set(tokenizers.__all__) == {"patchify", "unpatchify", "extract_patches", "SPT",
-                                       "PatchEmbedding", "CrossEmbedLayer", "OverlapPatchEmbed"}
+                                       "PatchEmbedding", "CrossEmbedLayer", "OverlapPatchEmbed",
+                                       "ConvNxNBN"}
 
 
 @pytest.mark.parametrize("pool", ["cls", "mean"])

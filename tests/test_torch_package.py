@@ -197,7 +197,7 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
 def test_package_exports():
     assert sorted(vit_tpu_torch.__all__) == [
         "CrossFormer", "CvT", "DistillWrapper", "DistillableEfficientViT", "DistillableT2TViT",
-        "DistillableViT", "MAE", "MPP", "NesT", "PiT", "RegionViT", "ScalableViT", "SimMIM", "T2TViT",
+        "DistillableViT", "LeViT", "MAE", "MPP", "MobileViT", "NesT", "PiT", "RegionViT", "ScalableViT", "SimMIM", "T2TViT",
         "TwinsSVT", "ViT",
         "cast_params", "state_dict_from_flax", "vit_for_small_dataset"]
     assert all(hasattr(vit_tpu_torch, name) for name in vit_tpu_torch.__all__)

@@ -38,7 +38,10 @@ three stages on the block kernels, forward and backward: stage 1's 962
 tokens (224 px, patch 14, stride 7) take the attention block's route past
 512 tokens, stages 2 and 3 (257 and 65 tokens, twice and four times as wide
 after each pool) its short route; its overlapping patch embedding and its
-pools' grouped convolutions run on cuDNN.  The Efficient ViT
+pools' grouped convolutions run on cuDNN.  ``LeViT`` and ``MobileViT`` do
+both on plain modules, as ``vit_tpu`` runs no Pallas kernel in either: their
+BatchNorms are the port's Flax-parity ``BatchNorm``, their convolutions run
+on cuDNN and their attentions keep ``vit_tpu``'s f32 softmax.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -52,6 +55,8 @@ from vit_tpu_torch.interop.from_flax import state_dict_from_flax
 from vit_tpu_torch.models import vit_for_small_dataset
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
+from vit_tpu_torch.models.levit import LeViT
+from vit_tpu_torch.models.mobile_vit import MobileViT
 from vit_tpu_torch.models.nest import NesT
 from vit_tpu_torch.models.pit import PiT
 from vit_tpu_torch.models.regionvit import RegionViT
@@ -66,7 +71,7 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CrossFormer", "CvT", "NesT", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
+__all__ = ["CrossFormer", "CvT", "LeViT", "MobileViT", "NesT", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
            "vit_for_small_dataset",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

@@ -6,7 +6,8 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.twins_svt.TwinsSVT``,
 ``vit_tpu.models.crossformer.CrossFormer``,
 ``vit_tpu.models.regionvit.RegionViT``, ``vit_tpu.models.nest.NesT``,
-``vit_tpu.models.pit.PiT``, the
+``vit_tpu.models.pit.PiT``, ``vit_tpu.models.levit.LeViT``,
+``vit_tpu.models.mobile_vit.MobileViT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -64,8 +65,17 @@ and ``head``; each stage's ``transformer_{i}`` is a ViT encoder, so its
 (``transformer_1/attn_2/to_qkv`` → ``transformer_1.layers.2.attn.to_qkv``).
 A ``transformer_{i}`` is such a stack when it holds those four kinds of
 module and nothing else; NesT's (``pos_emb``, ``mlp_fc1_{j}``) and
-RegionViT's (``ff_{j}``) do not, and keep their names.  ``to_out`` maps to
-``to_out.0`` (the projection before its dropout).  The small-dataset ViT's ``patch_embedding/norm`` and
+RegionViT's (``ff_{j}``) do not, and keep their names.  LeViT's and
+MobileViT's keep theirs, ``params`` and ``batch_stats`` alike: LeViT's
+``conv_embedding_{i}``, ``stage_{i}`` and ``shrink_{i}`` with ``attn_{j}``
+(``to_q``, ``to_q_bn`` … ``pos_bias/embedding`` → ``pos_bias.weight``,
+``(fs², heads)`` as it is) and ``mlp_{j}``, ``mlp_head`` and
+``distill_head``; MobileViT's ``conv1``, ``stem_{i}``, ``trunk_conv_{i}``,
+``trunk_attn_{i}`` (whose ``attn_norm_{j}``, ``attn_{j}``, ``mlp_norm_{j}``,
+``mlp_fc1_{j}`` and ``mlp_fc2_{j}`` sit under a module that is not a stack,
+so no ``layers.{j}``), ``to_logits_conv`` and ``head``.  ``to_out`` maps to
+``to_out.0`` (the projection before its dropout; LeViT's ``to_out`` is a
+one-convolution ``nn.Sequential`` for it).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
 (p1, p2, group, c) order its SPT reads.
 

@@ -1,6 +1,6 @@
 """Shared transformer and conv-hybrid primitives (port of the slice of
 ``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT,
-CrossFormer, RegionViT, NesT and PiT need).
+CrossFormer, RegionViT, NesT, PiT, LeViT and MobileViT need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense

@@ -11,16 +11,19 @@
 - cross-scale embedding: :class:`CrossEmbedLayer` (CrossFormer's,
   convolutions of several kernel sizes at one stride, merged into one);
 - overlapping patches: :class:`OverlapPatchEmbed` (PiT's, the unfold at
-  stride ``patch_size // 2`` and its Dense as one strided convolution).
-
-``vit_tpu``'s ``ConvNxNBN`` (MobileViT) comes with the port of its model.
+  stride ``patch_size // 2`` and its Dense as one strided convolution);
+- conv-BN stem: :class:`ConvNxNBN` (MobileViT's, a TF-SAME convolution
+  without bias, BatchNorm and SiLU); LeViT's stem of four 3x3 stride-2
+  convolutions lives inside :class:`vit_tpu_torch.models.levit.LeViT`
+  (``conv_embedding_{i}``).
 """
 
 from vit_tpu_torch.models.crossformer import CrossEmbedLayer
+from vit_tpu_torch.models.mobile_vit import ConvNxNBN
 from vit_tpu_torch.models.pit import OverlapPatchEmbed
 from vit_tpu_torch.models.twins_svt import PatchEmbedding
 from vit_tpu_torch.models.vit_for_small_dataset import SPT
 from vit_tpu_torch.ops.patchify import extract_patches, patchify, unpatchify
 
 __all__ = ["patchify", "unpatchify", "extract_patches", "SPT", "PatchEmbedding",
-           "CrossEmbedLayer", "OverlapPatchEmbed"]
+           "CrossEmbedLayer", "OverlapPatchEmbed", "ConvNxNBN"]
