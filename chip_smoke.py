@@ -258,10 +258,28 @@ Phases, one line each (any failure raises and exits non-zero):
    step-1 gradient's error printed beside the f32 model's own sensitivity
    to inputs moved by 1e-3, falling losses, the running statistics moved;
    times and peak memory.
-27. profile: ``torch.profiler`` over train steps at twenty training
+27. The dense-token family at ``benchmarks/run_benchmarks.py``'s configs,
+   batch 64 (:337): DeepViT (``:49-51``: 256/32, dim 1024, depth 6, 16
+   heads, mlp 2048), the ViT with a PatchMerger (``:152-155``: 256/16, dim
+   1024, depth 12, 8 heads, merged to 8 tokens after layer 6), CrossViT
+   (``:72-76``: 256 px, branches of 192 (patch 16) and 384 (patch 64), encoder
+   depths 2 and 3, 4 rounds, dropout 0), CaiT (``:52-54``: 256/32, dim 1024,
+   depth 12, cls_depth 2, 16 heads) and Parallel ViT (``:98-101``: 256/32,
+   dim 1024, depth 6, 8 heads, 2 branches).  First rows 1–2 at the new
+   shapes (:func:`dense_kernel_phase`: CrossViT's two encoders, d 192 over
+   64·257 rows and d 384 over 64·17, the merger's 64·8 rows at d 1024, mlp
+   2048), as phases 3–4 hold them.  Then DeepViT, the patch merger's ViT and
+   CrossViT served and trained as phases 5 and 7 (a forward launches the
+   fused MLP 6, 12 and 20 times, a step its backward as often, every other
+   kernel 0; plain path ``fused_mlp="never"``, CrossViT's encoders through
+   :func:`plain_modules`; top-1 by the sign test: both paths share every
+   attention), CaiT and Parallel ViT, which ``vit_tpu`` runs on no Pallas
+   kernel, as phase 26 (no BatchNorm to seed).
+28. profile: ``torch.profiler`` over train steps at twenty-five training
    configs (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224
    and 384, ScalableViT, the four objectives, T2T-ViT, Twins-SVT,
-   CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT); device time and launches per
+   CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
+   merger's ViT, CrossViT, CaiT, Parallel ViT); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -271,16 +289,18 @@ Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
-CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT (serving and training);
-the blocks past 512 tokens)
+CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
+merger's ViT, CrossViT, CaiT, Parallel ViT (serving and training); the blocks
+past 512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; the flash kernels past 512
-tokens: PiT's stage 1); LeViT's and MobileViT's paths must launch none.
+tokens: PiT's stage 1); LeViT's, MobileViT's, CaiT's and Parallel ViT's paths
+must launch none.
 The line before the last is the card as ``nvidia-smi`` names it; before that
-PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
+the dense family's rows 1-2 at its shapes, PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
 NesT's (with ptxas's registers and spills of its two dh-32 instances),
 RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
 beside the card's name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
@@ -2544,6 +2564,47 @@ MOBILEVIT = dict(image_size=(256, 256), dims=(96, 120, 144),
                  channels=(16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384), num_classes=1000)
 MOBILEVIT_SIZE = 256
 MOBILEVIT_BATCH = 64
+# The dense-token family as benchmarks/run_benchmarks.py builds it, at its
+# batch 64 (:337), no depth cut.  DeepViT (:49-51) and CaiT (:52-54) at 256
+# px, patch 32 (65 and 64 + 1 tokens), dim 1024, 16 heads, mlp 2048; the ViT
+# with a PatchMerger (:152-155) at 256/16 (256 tokens), 8 heads, merged to 8
+# tokens after layer 6 of 12; CrossViT (:72-76) at 256 px, a 192-wide branch
+# of patch 16 (257 tokens) and a 384-wide one of patch 64 (17), encoder
+# depths 2 and 3, 4 rounds, dropout 0 (its constructor's 0.1 would take the
+# plain MLPs in training); Parallel ViT (:98-101) at 256/32, 8 heads, two
+# branches.
+DEEPVIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=16,
+               mlp_dim=2048)
+PATCH_MERGER = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=12, heads=8,
+                    patch_merge_layer=6, mlp_dim=2048)
+CROSSVIT = dict(image_size=256, num_classes=1000, sm_dim=192, lg_dim=384, sm_patch_size=16,
+                lg_patch_size=64, sm_enc_depth=2, lg_enc_depth=3, depth=4, dropout=0.0,
+                emb_dropout=0.0)
+CAIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=12, cls_depth=2,
+            heads=16, mlp_dim=2048)
+PARALLEL_VIT = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024, depth=6, heads=8,
+                    mlp_dim=2048, num_parallel_branches=2)
+DENSE_BATCH = 64
+# (tag, n, d): rows 1-2 at the family's shapes not timed elsewhere, batch 64,
+# mlp 2048: CrossViT's two encoders (d 192: fc2 on linear.cu, under
+# launch_forward_gemm's n 256; neither 192 nor 384 is a multiple of 256, so
+# each LayerNorm backward runs on layernorm.cu's passes) and the patch
+# merger's layers after it (8 tokens an image: 512 rows).  DeepViT's 64·65
+# rows at d 1024 are B/32's at batch 64.
+DENSE_MLP_SHAPES = [("CrossViT small branch", 257, 192), ("CrossViT large branch", 17, 384),
+                    ("PatchMerger ViT after the merger", 8, 1024)]
+
+
+def dense_kernel_phase(torch, results, smi):
+    """Rows 1-2 at DENSE_MLP_SHAPES, batch 64, seeded bf16 inputs, eps 1e-3:
+    the fused MLP's serving and training forwards and its backward as
+    :func:`kernel_phase` and :func:`backward_phase` hold them (the block's
+    arguments there, 8 heads of 64, are CrossViT's encoders' and the merger
+    ViT's attention, which runs plain on the main path)."""
+    for tag, n, d in DENSE_MLP_SHAPES:
+        for phase in (kernel_phase, backward_phase):
+            phase(torch, tag, DENSE_BATCH, n, d, 8, 64, 2048, results, kernels=("fused_mlp",))
+        torch.cuda.empty_cache()
 
 
 def seed_batch_norms(torch, model, g):
@@ -2572,11 +2633,22 @@ def seed_batch_norms(torch, model, g):
                     t.copy_(0.1 * torch.randn(t.shape, generator=g, device=t.device))
 
 
+def has_batch_norm(model) -> bool:
+    from vit_tpu_torch.layers.common import BatchNorm
+
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def batch_norm_text(model) -> str:
+    return "every BatchNorm seeded nonzero" if has_batch_norm(model) else "no BatchNorm"
+
+
 def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi, counters):
     """Serve a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
-    MobileViT): ``requests`` batches of ``size`` px through the bf16 model
-    (``cast_params``, eval, inference mode; its BatchNorms seeded,
-    :func:`seed_batch_norms`), every counter from 0 and still 0 after each
+    MobileViT, CaiT, Parallel ViT): ``requests`` batches of ``size`` px
+    through the bf16 model (``cast_params``, eval, inference mode; its
+    BatchNorms, if any, seeded, :func:`seed_batch_norms`), every counter from
+    0 and still 0 after each
     forward: no hand-written kernel runs on this path, as none runs in
     ``vit_tpu``.  Its plain path would be the same bf16 model, so the
     reference is the f32 model of the same weights (TF32 off): logits finite,
@@ -2614,7 +2686,7 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
         ms = interleaved_medians(torch, {"bf16": lambda: model(images[0]),
                                          "f32": lambda: f32(images[0])}, rounds=5, calls=4)
     log(f"serving {tag}: {requests} requests x {batch} images, logits {tuple(outs[0].shape)}, "
-        f"every BatchNorm seeded nonzero; hand-written kernel launches per forward 0 (vit_tpu "
+        f"{batch_norm_text(model)}; hand-written kernel launches per forward 0 (vit_tpu "
         f"runs no Pallas kernel here); against the f32 model of the same weights "
         f"max|bf16-f32|={err:.6g} tol={tol:.6g} (1e-1*max|f32|), relative L2 "
         f"{rel_l2(torch, logits, truth):.4g}, top-1 agreement {top1:.4f}; peak GB allocated "
@@ -2632,8 +2704,9 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
 
 def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counters):
     """Train a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
-    MobileViT): ``build(..., compute_dtype=bf16)`` with f32 parameters and
-    seeded BatchNorms (:func:`seed_batch_norms`), SGD(1e-3), one fixed batch
+    MobileViT, CaiT, Parallel ViT): ``build(..., compute_dtype=bf16)`` with
+    f32 parameters and its BatchNorms, if any, seeded
+    (:func:`seed_batch_norms`), SGD(1e-3), one fixed batch
     of ``size`` px.  The reference is the f32 model of the same weights (TF32
     off): each parameter's step-1 gradient (every one nonzero, and f32) with
     its relative L2 error against the f32 model's printed, beside the f32
@@ -2641,8 +2714,9 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
     relative, against the unmoved one), and the first loss within
     LOSS_REL_TOL of the f32 model's.  Then TRAIN_STEPS steps with
     every counter from 0 and still 0 after each step (no hand-written
-    kernel), finite and falling losses, the BatchNorm running statistics
-    finite and moved; the bf16 step timed beside the f32 one, and its peak
+    kernel), finite and falling losses, the BatchNorm running statistics (in
+    a model that has BatchNorms) finite and moved; the bf16 step timed
+    beside the f32 one, and its peak
     memory.  Returns each kernel's launches over the steps (all 0)."""
     from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
 
@@ -2716,8 +2790,8 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
              or not bool(torch.isfinite(buffers[k]).all())]
     ms = interleaved_medians(torch, {"bf16": run, "f32": run_of(f32)}, rounds=3, calls=3)
     STEP_MS[tag] = ms
-    log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3), every "
-        f"BatchNorm seeded nonzero; step-1 loss bf16={first['bf16']:.6f} "
+    log(f"training {tag}: batch {batch}, f32 params, bf16 compute, SGD(1e-3), "
+        f"{batch_norm_text(model)}; step-1 loss bf16={first['bf16']:.6f} "
         f"f32={first['f32']:.6f} (within {LOSS_REL_TOL} relative: {loss_rel:.3g}); step-1 "
         f"gradients against the f32 model, relative L2 over all {len(errs)} parameters "
         f"{overall:.4g} (the f32 model's own at inputs moved by 1e-3 relative: "
@@ -2735,7 +2809,7 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
         raise AssertionError(f"{tag}: first losses differ by {loss_rel} relative")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses} are not finite and falling")
-    if not stats or stale:
+    if (has_batch_norm(model) and not stats) or stale:
         raise AssertionError(f"{tag}: BatchNorm statistics missing, not finite or not "
                              f"updated: {stale}")
     return launches
@@ -3659,14 +3733,27 @@ def t2t_vit(plain=False, distillable=False, **kw):
 def plain_modules(model):
     """``model`` with each of its ``Transformer`` s on the plain modules
     (``fused_attention`` and ``fused_mlp`` ``"never"``, which also keeps an
-    attention without an output projection off the flash tier): the plain
+    attention without an output projection off the flash tier), and each
+    of CrossViT's ``NormedTransformer`` s (``fused_mlp="never"``): the plain
     path of a model whose constructor takes no such switch."""
     from vit_tpu_torch.layers.common import Transformer
+    from vit_tpu_torch.models.cross_vit import NormedTransformer
 
     for m in model.modules():
         if isinstance(m, Transformer):
             m.fused_attention = m.fused_mlp = "never"
+        elif isinstance(m, NormedTransformer):
+            m.fused_mlp = "never"
     return model
+
+
+def cross_vit(plain=False, **kw):
+    """``CrossViT``; with ``plain``, its plain path (:func:`plain_modules`):
+    its constructor, ``vit_tpu``'s, takes no such switch."""
+    from vit_tpu_torch import CrossViT
+
+    model = CrossViT(**kw)
+    return plain_modules(model) if plain else model
 
 
 class Objective:
@@ -4076,9 +4163,10 @@ def main() -> int:
         f"{json.dumps(ptxas)}")
 
     from vit_tpu_torch import (
-        CrossFormer, CvT, LeViT, MobileViT, NesT, PiT, RegionViT, ScalableViT, TwinsSVT, ViT,
+        CaiT, CrossFormer, CvT, DeepViT, LeViT, MobileViT, NesT, PiT, RegionViT, ScalableViT,
+        TwinsSVT, ViT,
     )
-    from vit_tpu_torch.models import vit_for_small_dataset
+    from vit_tpu_torch.models import parallel_vit, vit_for_small_dataset, vit_with_patch_merger
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from vit_tpu_torch.ops.fused_attention_block import (
@@ -4137,6 +4225,8 @@ def main() -> int:
         pit_conv_phase(torch, smi)
     with clock("LeViT and MobileViT convolutions"):
         plain_conv_phase(torch, smi)
+    with clock("dense family kernels"):
+        dense_kernel_phase(torch, results, smi)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -4358,6 +4448,29 @@ def main() -> int:
              3, size, seed, smi, counters)
         path(f"training {name}", plain_training_phase, f"{name}@{size}", build, cfg, batch, size,
              seed + 1, smi, counters)
+    # The dense-token family.  DeepViT, the patch merger's ViT and CrossViT:
+    # every MLP on rows 1-2 (CrossViT's in each branch's encoder, 2 + 3 a
+    # round), every attention plain, as in vit_tpu, on both paths alike; so
+    # the two paths' top-1s against f32 differ only by the MLPs' rounding,
+    # and are held by the sign test.  CaiT and Parallel ViT: no kernel.
+    crossvit_mlps = CROSSVIT["depth"] * (CROSSVIT["sm_enc_depth"] + CROSSVIT["lg_enc_depth"])
+    for name, build, cfg, mlps, seed, plain_kw in (
+            ("DeepViT", DeepViT, DEEPVIT, DEEPVIT["depth"], 32, dict(fused_mlp="never")),
+            ("PatchMerger ViT", vit_with_patch_merger.ViT, PATCH_MERGER, PATCH_MERGER["depth"], 34,
+             dict(fused_mlp="never")),
+            ("CrossViT", cross_vit, CROSSVIT, crossvit_mlps, 36, dict(plain=True))):
+        tag = f"{name}@{cfg['image_size']}"
+        path(f"serving {name}", serving_phase, f"{tag} bf16", build, cfg, DENSE_BATCH, 3, seed,
+             smi, counters, {"fused_mlp": mlps}, top1_sign_test=True, plain_kw=plain_kw)
+        path(f"training {name}", training_phase, tag, build, cfg, DENSE_BATCH, seed + 1, smi,
+             counters, {"fused_mlp": mlps, "fused_mlp_bwd": mlps}, plain_kw=plain_kw)
+    for name, build, cfg, seed in (("CaiT", CaiT, CAIT, 38),
+                                   ("Parallel ViT", parallel_vit.ViT, PARALLEL_VIT, 40)):
+        size = cfg["image_size"]
+        path(f"serving {name}", plain_serving_phase, f"{name}@{size} bf16", build, cfg,
+             DENSE_BATCH, 3, size, seed, smi, counters)
+        path(f"training {name}", plain_training_phase, f"{name}@{size}", build, cfg, DENSE_BATCH,
+             size, seed + 1, smi, counters)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -4437,6 +4550,19 @@ def main() -> int:
                       classifier_step(torch, MobileViT, MOBILEVIT, MOBILEVIT_BATCH,
                                       MOBILEVIT_SIZE), MOBILEVIT_BATCH, 0, smi, ln_epilogues=0,
                       top=12)
+        # The dense family: DeepViT's and the patch merger's MLP backwards (d
+        # 1024) on the LayerNorm-backward dgrad, CrossViT's (192 and 384) on
+        # the passes; their attentions' LayerNorms run outside the kernels;
+        # CaiT and Parallel ViT launch none of the library's kernels.
+        for name, build, cfg, epilogues, passes in (
+                ("DeepViT@256", DeepViT, DEEPVIT, DEEPVIT["depth"], False),
+                ("PatchMerger ViT@256", vit_with_patch_merger.ViT, PATCH_MERGER,
+                 PATCH_MERGER["depth"], False),
+                ("CrossViT@256", cross_vit, CROSSVIT, 0, crossvit_mlps),
+                ("CaiT@256", CaiT, CAIT, 0, False),
+                ("Parallel ViT@256", parallel_vit.ViT, PARALLEL_VIT, 0, False)):
+            profile_phase(torch, name, classifier_step(torch, build, cfg, DENSE_BATCH),
+                          DENSE_BATCH, 0, smi, ln_epilogues=epilogues, ln_passes=passes, top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -4534,6 +4660,14 @@ def main() -> int:
            for tag, r in results[name].items() if tag.startswith("PiT") and "bound" in r}
            for name in ("fused_mlp", "fused_mlp_bwd", "fused_attention_block",
                         "fused_attention_block_bwd")}
+    dense = {name: {tag: {k: v for k, v in r.items() if k in (
+                 "kernel", "plain", "modules", "library", "whole", "library_whole", "device")}
+                 | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                 for tag, r in results[name].items()
+                 if tag in [t for t, _, _ in DENSE_MLP_SHAPES] and "bound" in r}
+             for name in ("fused_mlp", "fused_mlp_bwd")}
+    log(f"the dense family's rows 1-2 at CrossViT's encoders and after the patch merger (also "
+        f"under by_shape above), ms, on {smi}: " + json.dumps(dense))
     log(f"PiT's rows 1-4 at its stages (also under by_shape above; stage 1's block on the mha "
         f"route, sdpa: F.layer_norm + F.linear + SDPA + F.linear), ms, on {smi}: "
         + json.dumps(pit))

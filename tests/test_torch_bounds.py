@@ -231,6 +231,22 @@ def test_mlp_bounds_at_t2t_widths(raw):
         chip_smoke.mlp_bounds(20, 16, 32)
 
 
+@pytest.mark.parametrize("tag,n,d", chip_smoke.DENSE_MLP_SHAPES)
+def test_mlp_bounds_at_the_dense_family_shapes(raw, tag, n, d):
+    """Rows 1-2 at CrossViT's encoders and after the patch merger (batch
+    64, hidden 2048), as :func:`chip_smoke.dense_kernel_phase` times them:
+    the two GEMMs' 4·rows·d·2048 FLOPs; x and y, the weights and the
+    vectors forward; dy, x, dx and h, dh, gact (rows x 2048) backward."""
+    rows, hidden = 64 * n, 2048
+    act, w = 2 * rows * d, 2 * 2 * d * hidden
+    got = chip_smoke.mlp_bounds(rows, d, hidden)
+    assert got["fused_mlp"] == (4 * rows * d * hidden, 2 * act + w + 2 * (3 * d + hidden))
+    assert got["fused_mlp_bwd"] == (4 * rows * d * hidden, 3 * act + 3 * 2 * rows * hidden + w
+                                    + 2 * d + 4 * (3 * d + hidden))
+    assert {"CrossViT small branch": 25_870_467_072, "CrossViT large branch": 3_422_552_064,
+            "PatchMerger ViT after the merger": 4_294_967_296}[tag] == got["fused_mlp"][0]
+
+
 def test_flash_bounds_at_t2t_true_width():
     """T2T's first token transformer, (64, 1, 3136, 3136) at its true head
     width 147 (the kernels compute at 192; the function's work is the same):

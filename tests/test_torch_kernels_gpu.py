@@ -1966,6 +1966,47 @@ def test_nest_block_kernels_match_plain(cuda, groups, c, heads):
     assert (counts["ln_epilogue"], counts["ln_passes"]) == (0, 1)
 
 
+# (n, d): rows 1-2 at the dense family's new shapes, batch 64, hidden 2048:
+# CrossViT's two encoders (fc2 on linear.cu at d 192; the LayerNorm backward
+# on layernorm.cu's passes at 192 and 384) and the patch merger's layers after
+# the merger (512 rows at d 1024, the LN-backward dgrad).
+DENSE_MLP_SHAPES = [(257, 192), (17, 384), (8, 1024)]
+
+
+@pytest.mark.parametrize("n,d", DENSE_MLP_SHAPES)
+def test_dense_family_mlp_kernels_match_plain(cuda, n, d):
+    """The fused MLP at CrossViT's and the patch merger's shapes: the
+    serving and the training forward and the backward fed the training
+    forward's h against their plain versions, twice bit for bit; the
+    LayerNorm backward on the dgrad's epilogue at d 1024, on the passes at
+    192 and 384."""
+    from chip_smoke import counted_launches
+
+    shape, hidden, eps = (64, n, d), 2048, 1e-3
+    args = _mlp_args(shape, hidden, torch.bfloat16, cuda, seed=d)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    with torch.inference_mode():
+        out = fused_mlp(*args, eps)
+        _close(out, fused_mlp_reference(*args, eps), x)
+        assert torch.equal(out, fused_mlp(*args, eps))
+    fwd = fused_mlp_ops._launch_forward(*args, eps, save_residuals=True)
+    check_outputs(torch, "dense mlp training forward", fwd,
+                  fused_mlp_forward_reference(*args, eps), {0: x})
+    h = fwd[2]
+    dy = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(7),
+                     device=cuda).to(torch.bfloat16)
+
+    def kernel():
+        return fused_mlp_backward(dy, x, h, gamma, w1, w2, eps)
+
+    got = kernel()
+    check_outputs(torch, "dense mlp backward",
+                  got, fused_mlp_backward_reference(dy, x, h, gamma, w1, w2, eps), {0: dy})
+    _twice(got, kernel())
+    counts = counted_launches(torch, kernel)
+    assert (counts["ln_epilogue"], counts["ln_passes"]) == ((1, 0) if d == 1024 else (0, 1))
+
+
 @pytest.mark.parametrize("groups,c,heads", NEST_BLOCKS)
 def test_nest_mlp_kernels_match_plain(cuda, groups, c, heads):
     """The fused MLP at NesT's widths (96 / 384, 192 / 768, 384 / 1536) over

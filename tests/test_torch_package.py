@@ -196,12 +196,26 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
 
 def test_package_exports():
     assert sorted(vit_tpu_torch.__all__) == [
-        "CrossFormer", "CvT", "DistillWrapper", "DistillableEfficientViT", "DistillableT2TViT",
-        "DistillableViT", "LeViT", "MAE", "MPP", "MobileViT", "NesT", "PiT", "RegionViT", "ScalableViT", "SimMIM", "T2TViT",
+        "CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "DistillWrapper",
+        "DistillableEfficientViT", "DistillableT2TViT", "DistillableViT", "LeViT", "MAE", "MPP",
+        "MobileViT", "NesT", "PatchMerger", "PiT", "RegionViT", "ScalableViT", "SimMIM", "T2TViT",
         "TwinsSVT", "ViT",
-        "cast_params", "state_dict_from_flax", "vit_for_small_dataset"]
+        "cast_params", "parallel_vit", "state_dict_from_flax", "vit_for_small_dataset",
+        "vit_with_patch_merger"]
     assert all(hasattr(vit_tpu_torch, name) for name in vit_tpu_torch.__all__)
     assert cast_tuple(3, 4) == (3, 3, 3, 3) and cast_tuple((1, 2), 4) == (1, 2)
+
+
+def test_models_package_mirrors_vit_tpu_models():
+    """``vit_tpu_torch.models`` exports the dense family as
+    ``vit_tpu.models`` does: the classes, and the modules whose model class
+    is named ``ViT``."""
+    from vit_tpu_torch import models
+
+    for name in ("CaiT", "CrossViT", "DeepViT", "PatchMerger", "parallel_vit",
+                 "vit_with_patch_merger"):
+        assert name in models.__all__ and getattr(models, name) is getattr(vit_tpu_torch, name)
+    assert models.parallel_vit.ViT is not ViT and models.vit_with_patch_merger.ViT is not ViT
 
 
 def test_scalable_vit_builds_on_the_card_unless_asked_otherwise():

@@ -41,7 +41,14 @@ after each pool) its short route; its overlapping patch embedding and its
 pools' grouped convolutions run on cuDNN.  ``LeViT`` and ``MobileViT`` do
 both on plain modules, as ``vit_tpu`` runs no Pallas kernel in either: their
 BatchNorms are the port's Flax-parity ``BatchNorm``, their convolutions run
-on cuDNN and their attentions keep ``vit_tpu``'s f32 softmax.  The Efficient ViT
+on cuDNN and their attentions keep ``vit_tpu``'s f32 softmax.  ``DeepViT``,
+``vit_with_patch_merger.ViT`` and ``CrossViT`` do both with every MLP (each
+of CrossViT's encoders' MLPs) through the fused MLP kernels, forward and
+backward, and their attentions plain, as in ``vit_tpu``: DeepViT's
+re-attention over its f32 matrix, the patch merger's ViT's plain attention
+and its f32 merger softmax, CrossViT's cross attention below the flash tier.
+``CaiT`` and ``parallel_vit.ViT`` do both on plain modules, as ``vit_tpu``
+runs no Pallas kernel in either.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -52,9 +59,12 @@ ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 
 from vit_tpu_torch.core.helpers import cast_params
 from vit_tpu_torch.interop.from_flax import state_dict_from_flax
-from vit_tpu_torch.models import vit_for_small_dataset
+from vit_tpu_torch.models import parallel_vit, vit_for_small_dataset, vit_with_patch_merger
+from vit_tpu_torch.models.cait import CaiT
+from vit_tpu_torch.models.cross_vit import CrossViT
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
+from vit_tpu_torch.models.deepvit import DeepViT
 from vit_tpu_torch.models.levit import LeViT
 from vit_tpu_torch.models.mobile_vit import MobileViT
 from vit_tpu_torch.models.nest import NesT
@@ -64,6 +74,7 @@ from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
+from vit_tpu_torch.models.vit_with_patch_merger import PatchMerger
 from vit_tpu_torch.objectives.distill import (
     DistillableEfficientViT, DistillableT2TViT, DistillableViT, DistillWrapper,
 )
@@ -71,7 +82,9 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CrossFormer", "CvT", "LeViT", "MobileViT", "NesT", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT", "cast_params", "state_dict_from_flax",
-           "vit_for_small_dataset",
+__all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "LeViT", "MobileViT", "NesT",
+           "PatchMerger", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT",
+           "cast_params", "state_dict_from_flax",
+           "parallel_vit", "vit_for_small_dataset", "vit_with_patch_merger",
            "MAE", "SimMIM", "MPP", "DistillWrapper",
            "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]

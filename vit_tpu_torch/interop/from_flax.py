@@ -7,7 +7,10 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.crossformer.CrossFormer``,
 ``vit_tpu.models.regionvit.RegionViT``, ``vit_tpu.models.nest.NesT``,
 ``vit_tpu.models.pit.PiT``, ``vit_tpu.models.levit.LeViT``,
-``vit_tpu.models.mobile_vit.MobileViT``, the
+``vit_tpu.models.mobile_vit.MobileViT``, ``vit_tpu.models.deepvit.DeepViT``,
+``vit_tpu.models.vit_with_patch_merger.ViT`` (and ``PatchMerger``),
+``vit_tpu.models.cross_vit.CrossViT``, ``vit_tpu.models.cait.CaiT``,
+``vit_tpu.models.parallel_vit.ViT``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -22,7 +25,9 @@ JAX is imported here.  Leaves:
   ``running_mean`` / ``running_var``;
 - ``cls_token``, ``pos_embedding``, NesT's ``pos_emb`` (one scalar a
   token), LSA's scalar ``temperature``, the objectives' ``mask_token`` and
-  ``distillation_token`` keep their shapes;
+  ``distillation_token``, DeepViT's ``reattn_weights``, the patch merger's
+  ``queries``, CaiT's ``mix_heads_{pre,post}_attn`` and
+  ``layerscale_{attn,mlp}_{i}`` keep their names and shapes;
   an ``nn.Embed``'s ``embedding`` (MAE's ``decoder_pos_emb``) becomes the
   ``nn.Embedding``'s ``weight``.
 
@@ -73,7 +78,16 @@ MobileViT's keep theirs, ``params`` and ``batch_stats`` alike: LeViT's
 ``distill_head``; MobileViT's ``conv1``, ``stem_{i}``, ``trunk_conv_{i}``,
 ``trunk_attn_{i}`` (whose ``attn_norm_{j}``, ``attn_{j}``, ``mlp_norm_{j}``,
 ``mlp_fc1_{j}`` and ``mlp_fc2_{j}`` sit under a module that is not a stack,
-so no ``layers.{j}``), ``to_logits_conv`` and ``head``.  ``to_out`` maps to
+so no ``layers.{j}``), ``to_logits_conv`` and ``head``.  DeepViT's and the patch
+merger's ViT's per-layer modules sit at the top, as the small-dataset ViT's
+(``attn_0`` → ``layers.0.attn``; the merger's ``patch_merger`` as it is);
+CaiT's ``patch_transformer`` and ``cls_transformer`` are stacks
+(``patch_transformer/attn_0/to_q`` → ``patch_transformer.layers.0.attn.to_q``;
+their ``layerscale_{attn,mlp}_{i}`` stay leaves of the transformer).
+CrossViT's modules keep their names: ``{sm,lg}_image_embedder``,
+``{sm,lg}_enc_{r}`` (with ``{attn_norm,attn,mlp_norm,mlp}_{i}`` and ``norm``:
+not a stack, so no ``layers.{i}``), ``cross_attend_{r}``, the heads; Parallel
+ViT's too: ``{attn_norm,attn,mlp_norm,mlp}_{i}_{j}`` at the top.  ``to_out`` maps to
 ``to_out.0`` (the projection before its dropout; LeViT's ``to_out`` is a
 one-convolution ``nn.Sequential`` for it).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
@@ -108,6 +122,13 @@ _STACK = re.compile(r"^(transformer|decoder|\w+_transformer|t2t_transformer_\d+)
 # modules (_encoder_stacks).
 _NUMBERED = re.compile(r"^transformer_\d+$")
 _ENCODER_LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp)_\d+$")
+# Leaves that keep their names and shapes: the biases, the tokens and
+# embeddings, LSA's temperature, DeepViT's (heads, heads) reattn_weights, the
+# patch merger's queries, CaiT's talking-heads mixes and its LayerScales
+# (parameters of the transformer itself, named by layer).
+_KEPT = re.compile(r"^(bias|cls_token|pos_embedding|pos_emb|temperature|mask_token"
+                   r"|distillation_token|reattn_weights|queries|mix_heads_(pre|post)_attn"
+                   r"|layerscale_(attn|mlp)_\d+)$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -184,8 +205,7 @@ def state_dict_from_flax(variables) -> dict:
             name = "weight"
         elif name in ("g", "b"):
             arr = arr.reshape(-1)
-        elif name not in ("bias", "cls_token", "pos_embedding", "pos_emb", "temperature",
-                          "mask_token", "distillation_token"):
+        elif not _KEPT.match(name):
             raise ValueError(f"unknown leaf {'/'.join(path)}")
         key = ".".join(_module_path(tuple(mods), stacks) + [name])
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -100,6 +100,14 @@ def _linear(d_in, d_out, bias, device, dtype, generator):
                           generator)
 
 
+def output_projection(inner: int, dim: int, dropout: float, generator=None, *, device=None,
+                      dtype=None) -> nn.Sequential:
+    """An attention's ``to_out``: the Dense back to ``dim`` and its dropout
+    (``to_out.0`` / ``to_out.1``; the converter maps Flax's ``to_out`` to
+    ``to_out.0``)."""
+    return nn.Sequential(_linear(inner, dim, True, device, dtype, generator), nn.Dropout(dropout))
+
+
 def cast_to(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     """A parameter in ``x``'s dtype, cast inside autograd (a no-op when it
     already is), so that its gradient reaches the parameter's own dtype."""
@@ -109,6 +117,11 @@ def cast_to(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
 def linear(module: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``module(x)`` computed in ``x``'s dtype (the compute dtype)."""
     return F.linear(x, cast_to(module.weight, x), cast_to(module.bias, x))
+
+
+def apply_output(to_out: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """An :func:`output_projection` applied in ``x``'s dtype."""
+    return to_out[1](linear(to_out[0], x))
 
 
 class LayerNorm(nn.Module):
@@ -266,8 +279,8 @@ class Attention(nn.Module):
         self.project_out = not (heads == 1 and dim_head == dim)
         self.to_qkv = _linear(dim, inner * 3, False, device, dtype, generator)
         if self.project_out:
-            self.to_out = nn.Sequential(
-                _linear(inner, dim, True, device, dtype, generator), nn.Dropout(dropout))
+            self.to_out = output_projection(inner, dim, dropout, generator, device=device,
+                                            dtype=dtype)
         else:
             self.to_out = nn.Identity()
 
@@ -283,9 +296,7 @@ class Attention(nn.Module):
         out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
                                            use_flash=use_flash)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        if not self.project_out:
-            return out
-        return self.to_out[1](linear(self.to_out[0], out))
+        return apply_output(self.to_out, out) if self.project_out else out
 
 
 def kernel_activation(x: torch.Tensor) -> bool:

@@ -41,7 +41,7 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    Attention, BatchNorm, Conv, GroupedConv, LayerNorm, glorot_linear_, linear,
+    Attention, BatchNorm, Conv, GroupedConv, LayerNorm, apply_output, glorot_linear_, linear,
 )
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 
@@ -114,7 +114,7 @@ class MobileViTAttention(Attention):
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
         out = apply_attention(attention_weights(q, k, scale=self.dim_head ** -0.5), v)
         out = out.transpose(1, 2).reshape(b, p, n, self.heads * self.dim_head)
-        return self.to_out[1](linear(self.to_out[0], out))
+        return apply_output(self.to_out, out)
 
 
 def unfold_patches(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:

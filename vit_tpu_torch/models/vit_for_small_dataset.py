@@ -30,8 +30,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, LayerNorm, cast_to, check_fused_mode, fused_mlp_residual, glorot_linear_,
-    kernel_activation, linear,
+    MLP, LayerNorm, apply_output, cast_to, check_fused_mode, fused_mlp_residual, glorot_linear_,
+    kernel_activation, linear, output_projection,
 )
 from vit_tpu_torch.ops.attention import apply_attention, mask_value
 from vit_tpu_torch.ops.fused_attention_block import fused_attention_block_bias
@@ -186,9 +186,8 @@ class LSA(nn.Module):
         self.temperature = nn.Parameter(temperature.to(device=device, dtype=dtype))
         self.to_qkv = glorot_linear_(
             nn.Linear(dim, inner * 3, bias=False, device=device, dtype=dtype), generator)
-        self.to_out = nn.Sequential(
-            glorot_linear_(nn.Linear(inner, dim, device=device, dtype=dtype), generator),
-            nn.Dropout(dropout))
+        self.to_out = output_projection(inner, dim, dropout, generator, device=device,
+                                        dtype=dtype)
 
     @property
     def dropout_active(self) -> bool:
@@ -202,7 +201,7 @@ class LSA(nn.Module):
         eye = torch.eye(n, dtype=torch.bool, device=x.device)
         attn = torch.softmax(dots.masked_fill(eye, mask_value(torch.float32)), dim=-1)
         out = apply_attention(attn, v).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return self.to_out[1](linear(self.to_out[0], out))
+        return apply_output(self.to_out, out)
 
 
 def fused_lsa_eligible(x: torch.Tensor, attn: LSA, mode: str) -> bool:
