@@ -275,11 +275,26 @@ Phases, one line each (any failure raises and exits non-zero):
    :func:`plain_modules`; top-1 by the sign test: both paths share every
    attention), CaiT and Parallel ViT, which ``vit_tpu`` runs on no Pallas
    kernel, as phase 26 (no BatchNorm to seed).
-28. profile: ``torch.profiler`` over train steps at twenty-five training
+28. ATS-ViT (``benchmarks/run_benchmarks.py:145-148``: 256/16, dim 1024,
+   depth 6, tokens (256, 128, 64, 32, 16, 8), 16 heads of 64, mlp 2048) and
+   CCT-14 (``:136-139``: 224 px, embedding 384, 2 conv layers of 7 x 7 at
+   stride 2, 14 layers, 6 heads, mlp_ratio 3, learned positions, attention
+   dropout and stochastic depth 0.1), batch 64.  First rows 1–2 at two of
+   ATS-ViT's token counts (:func:`dense_kernel_phase` over ATS_MLP_SHAPES:
+   64·129 and 64·9 rows at d 1024), as phases 3–4 hold them.  Then ATS-ViT
+   served and trained as phases 5 and 7 with ``fused_mlp="auto"`` (a forward
+   launches the fused MLP 6 times, at 257, 129, 65, 33, 17 and 9 tokens, a
+   step its backward as often) against ``vit_tpu``'s default
+   ``fused_mlp="never"`` (every counter 0), every model on the same Gumbel
+   draws, with the share of sampled ids on which the kernel path, the plain
+   path and the f32 model agree at each sampling layer
+   (:func:`ats_agreement`); CCT-14 as phase 26, every counter 0, the bf16
+   and the f32 model on the same dropout and stochastic-depth masks.
+29. profile: ``torch.profiler`` over train steps at twenty-seven training
    configs (B/32 on both tiers, B/16, the small-dataset ViT, CvT-13 at 224
    and 384, ScalableViT, the four objectives, T2T-ViT, Twins-SVT,
    CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
-   merger's ViT, CrossViT, CaiT, Parallel ViT); device time and launches per
+   merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14); device time and launches per
    step by kernel group (the LayerNorm-backward dgrad's launches counted by
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
@@ -290,17 +305,20 @@ hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
 B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
 CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
-merger's ViT, CrossViT, CaiT, Parallel ViT (serving and training); the blocks
-past 512 tokens)
+merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
+training); the blocks past 512 tokens)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
 block's routes are counted each way (short_fwd / short_bwd on the ViTs'
 blocks, the small-dataset ViT's biased one too; the flash kernels past 512
-tokens: PiT's stage 1); LeViT's, MobileViT's, CaiT's and Parallel ViT's paths
-must launch none.
+tokens: PiT's stage 1); LeViT's, MobileViT's, CaiT's, Parallel ViT's and
+CCT-14's paths must launch none, and so must ATS-ViT's plain path.  A model
+whose forward takes a generator (ATS-ViT, CCT, CaiT) gets one reseeded to
+the phase's seed at every call (:func:`draws`), the kernel path, the plain
+path and the f32 model alike: one fixed draw of noise and masks.
 The line before the last is the card as ``nvidia-smi`` names it; before that
-the dense family's rows 1-2 at its shapes, PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
+the dense family's and ATS-ViT's rows 1-2 at their shapes, PiT's rows 1-4 at its stages (stage 1's block beside the library composition),
 NesT's (with ptxas's registers and spills of its two dh-32 instances),
 RegionViT's, CrossFormer's and Twins-SVT's kernel times at their shapes
 beside the card's name and power limit; before that a JSON line with each kernel's launches (over the main paths, and per path),
@@ -314,6 +332,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -2593,18 +2612,110 @@ DENSE_BATCH = 64
 # rows at d 1024 are B/32's at batch 64.
 DENSE_MLP_SHAPES = [("CrossViT small branch", 257, 192), ("CrossViT large branch", 17, 384),
                     ("PatchMerger ViT after the merger", 8, 1024)]
+# ATS-ViT as run_benchmarks.py:145-148 builds it (256/16, 257 tokens sampled
+# down to 129, 65, 33, 17 and 9 slots by layers 2-6) and CCT-14 as
+# run_benchmarks.py:136-139 builds it (224 px, two 7 x 7 stride-2 convolutions
+# and pools: 196 tokens; CCT's default attention dropout and stochastic depth
+# 0.1, dropout 0), at the benchmark's batch 64 (:337), no depth cut.
+ATS = dict(image_size=256, patch_size=16, num_classes=1000, dim=1024, depth=6,
+           max_tokens_per_depth=(256, 128, 64, 32, 16, 8), heads=16, mlp_dim=2048)
+CCT14 = dict(img_size=224, embedding_dim=384, n_conv_layers=2, kernel_size=7, stride=2,
+             num_layers=14, num_heads=6, mlp_ratio=3.0, num_classes=1000,
+             positional_embedding="learnable")
+CCT_SIZE = 224
+# (tag, n, d): rows 1-2 at two of ATS-ViT's six token counts, batch 64, mlp
+# 2048: layer 2's 129 slots and layer 6's 9 (576 rows).  Layer 1's 257 is
+# the small-dataset ViT's shape at d 1024.
+ATS_MLP_SHAPES = [("ATS-ViT layer 2", 129, 1024), ("ATS-ViT layer 6", 9, 1024)]
 
 
-def dense_kernel_phase(torch, results, smi):
-    """Rows 1-2 at DENSE_MLP_SHAPES, batch 64, seeded bf16 inputs, eps 1e-3:
-    the fused MLP's serving and training forwards and its backward as
-    :func:`kernel_phase` and :func:`backward_phase` hold them (the block's
-    arguments there, 8 heads of 64, are CrossViT's encoders' and the merger
-    ViT's attention, which runs plain on the main path)."""
-    for tag, n, d in DENSE_MLP_SHAPES:
+def dense_kernel_phase(torch, results, smi, shapes=DENSE_MLP_SHAPES):
+    """Rows 1-2 at ``shapes`` (DENSE_MLP_SHAPES, ATS_MLP_SHAPES), batch 64,
+    seeded bf16 inputs, eps 1e-3: the fused MLP's serving and training
+    forwards and its backward as :func:`kernel_phase` and
+    :func:`backward_phase` hold them (the block's arguments there, 8 heads of
+    64, are unused: only the fused MLP runs)."""
+    for tag, n, d in shapes:
         for phase in (kernel_phase, backward_phase):
             phase(torch, tag, DENSE_BATCH, n, d, 8, 64, 2048, results, kernels=("fused_mlp",))
         torch.cuda.empty_cache()
+
+
+def draws(torch, model, seed):
+    """``kw()``: the keyword arguments of one fixed draw for ``model``'s
+    forward or train step, ``{"generator": g}`` with ``g`` a generator
+    reseeded to ``seed`` at every call, where the forward takes a generator
+    (ATS-ViT's Gumbel noise, CCT's dropout and stochastic depth, CaiT's layer
+    dropout), else ``{}``; ``g`` on the model's device (the card).  The models compared on one path draw from one
+    seed, so the bf16 and the f32 models see the same noise and masks (the
+    draws are f32 whatever the model's dtype)."""
+    if "generator" not in inspect.signature(model.forward).parameters:
+        return lambda: {}
+    g = torch.Generator(device=next(model.parameters()).device)
+    return lambda: {"generator": g.manual_seed(seed)}
+
+
+def ats_sampled_ids(torch, model, images, kw) -> list:
+    """The token ids each sampling layer of ATS-ViT ``model`` keeps on
+    ``images`` (one forward under ``no_grad`` with the draw ``kw()``, in the
+    model's mode), ``{layer (from 1): (b, k + 1) ids}``: 0 at the cls slot
+    and at padding, patch p at p + 1.  Read by forward hooks on the
+    attentions, which return the ids they sampled (None where a layer keeps
+    its tokens)."""
+    from vit_tpu_torch.models.ats_vit import ATSAttention
+
+    sampled = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: sampled.append(out[2]))
+             for m in model.modules() if isinstance(m, ATSAttention)]
+    try:
+        with torch.no_grad():
+            model(images, **kw())
+    finally:
+        for hook in hooks:
+            hook.remove()
+    tokens = torch.arange(model.pos_embedding.shape[1], device=images.device)
+    tokens, kept = tokens.expand(images.shape[0], -1), {}
+    for layer, ids in enumerate(sampled, 1):
+        if ids is not None:
+            tokens = kept[layer] = tokens.gather(1, ids)
+    return kept
+
+
+def ats_agreement(torch, models: dict, batches: list, seed):
+    """At each sampling layer of ATS-ViT, over the images of ``batches`` (one
+    forward a batch, from the draw each path's own forwards take): the share
+    of the f32 model's sampled tokens that the kernel path and the plain path
+    (``models``: ``kernels``, ``plain``, ``f32``) sampled too, and the share
+    of images whose sampled sets the three (and the two bf16 paths) agree on
+    exactly.  Each model draws the same Gumbel noise (:func:`draws`); bf16
+    rounding of the pseudo-logits can still flip a near tie of the
+    Gumbel-max, and a flipped token changes what the later layers see, so
+    the three compute the same network only on the images whose sets agree
+    at every layer.  Returns a text for the log and those images (a bool
+    vector)."""
+    sets = {}
+    for name, m in models.items():
+        kw, parts = draws(torch, m, seed), {}
+        for images in batches:
+            for layer, ids in ats_sampled_ids(torch, m, images, kw).items():
+                parts.setdefault(layer, []).append(ids)
+        sets[name] = {layer: torch.cat(ids) for layer, ids in parts.items()}
+    n, dev = models["f32"].pos_embedding.shape[1], batches[0].device
+    rows, alike = [], torch.ones(sum(b.shape[0] for b in batches), dtype=torch.bool, device=dev)
+    for layer in sets["f32"]:
+        hot = [torch.zeros(sets[k][layer].shape[0], n, dtype=torch.bool, device=dev)
+               .scatter_(1, sets[k][layer], True)[:, 1:] for k in ("kernels", "plain", "f32")]
+        share = ((hot[0] & hot[1] & hot[2]).sum() / hot[2].sum()).item()
+        here = (hot[0] == hot[2]).all(1) & (hot[1] == hot[2]).all(1)
+        alike &= here
+        same = here.float().mean().item()
+        bf16 = (hot[0] == hot[1]).all(1).float().mean().item()
+        rows.append(f"layer {layer} ({int(hot[2].sum(1).float().mean().item())} tokens an "
+                    f"image on f32): {share:.4f} of f32's tokens on all three, images alike "
+                    f"on all three {same:.4f}, on the two bf16 paths {bf16:.4f}")
+    return ("sampled ids, one Gumbel draw for all three models: " + "; ".join(rows)
+            + f"; images alike on all three at every layer {int(alike.sum())} of "
+            f"{alike.numel()}; "), alike
 
 
 def seed_batch_norms(torch, model, g):
@@ -2645,7 +2756,7 @@ def batch_norm_text(model) -> str:
 
 def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi, counters):
     """Serve a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
-    MobileViT, CaiT, Parallel ViT): ``requests`` batches of ``size`` px
+    MobileViT, CaiT, Parallel ViT, CCT): ``requests`` batches of ``size`` px
     through the bf16 model (``cast_params``, eval, inference mode; its
     BatchNorms, if any, seeded, :func:`seed_batch_norms`), every counter from
     0 and still 0 after each
@@ -2654,7 +2765,8 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
     reference is the f32 model of the same weights (TF32 off): logits finite,
     ``(batch, classes)``, within LOGIT_REL_TOL·max|f32|; top-1 agreement
     printed; median forward ms of both, and the bf16 forwards' peak memory.
-    Returns each kernel's launches over them (all 0)."""
+    Both models draw from one seed (:func:`draws`; nothing draws in eval
+    mode).  Returns each kernel's launches over them (all 0)."""
     from vit_tpu_torch import cast_params
 
     dev = torch.device("cuda")
@@ -2664,6 +2776,7 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
     f32 = build(**cfg, device=dev).eval()
     f32.load_state_dict(model.state_dict())
     model = cast_params(model, torch.bfloat16).eval()
+    kw, kw32 = draws(torch, model, seed), draws(torch, f32, seed)
     images = [torch.randn(batch, size, size, 3, generator=g, device=dev)
               for _ in range(requests)]
     with torch.inference_mode():
@@ -2674,17 +2787,19 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
             c.launches = 0
         outs = []
         for i, img in enumerate(images):
-            outs.append(model(img))
+            outs.append(model(img, **kw()))
             check_launches(tag, f"forward {i}", counters, {}, i + 1)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 1e9
         launches = {name: c.launches for name, c in counters.items()}
-        logits, truth = torch.cat(outs).float(), torch.cat([f32(img) for img in images])
+        logits = torch.cat(outs).float()
+        truth = torch.cat([f32(img, **kw32()) for img in images])
         err = (logits - truth).abs().max().item()
         tol = LOGIT_REL_TOL * truth.abs().max().item()
         top1 = (logits.argmax(-1) == truth.argmax(-1)).float().mean().item()
-        ms = interleaved_medians(torch, {"bf16": lambda: model(images[0]),
-                                         "f32": lambda: f32(images[0])}, rounds=5, calls=4)
+        ms = interleaved_medians(torch, {"bf16": lambda: model(images[0], **kw()),
+                                         "f32": lambda: f32(images[0], **kw32())},
+                                 rounds=5, calls=4)
     log(f"serving {tag}: {requests} requests x {batch} images, logits {tuple(outs[0].shape)}, "
         f"{batch_norm_text(model)}; hand-written kernel launches per forward 0 (vit_tpu "
         f"runs no Pallas kernel here); against the f32 model of the same weights "
@@ -2704,7 +2819,7 @@ def plain_serving_phase(torch, tag, build, cfg, batch, requests, size, seed, smi
 
 def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counters):
     """Train a model that ``vit_tpu`` runs on no Pallas kernel (LeViT,
-    MobileViT, CaiT, Parallel ViT): ``build(..., compute_dtype=bf16)`` with
+    MobileViT, CaiT, Parallel ViT, CCT): ``build(..., compute_dtype=bf16)`` with
     f32 parameters and its BatchNorms, if any, seeded
     (:func:`seed_batch_norms`), SGD(1e-3), one fixed batch
     of ``size`` px.  The reference is the f32 model of the same weights (TF32
@@ -2717,7 +2832,11 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
     kernel), finite and falling losses, the BatchNorm running statistics (in
     a model that has BatchNorms) finite and moved; the bf16 step timed
     beside the f32 one, and its peak
-    memory.  Returns each kernel's launches over the steps (all 0)."""
+    memory.  A model that draws in training (CCT's dropout and stochastic
+    depth) gets one fixed draw at every forward and step, the bf16 and the
+    f32 model alike (:func:`draws`), so that the gradients compared are
+    those of one network.  Returns each kernel's launches over the steps
+    (all 0)."""
     from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
 
     dev = torch.device("cuda")
@@ -2729,10 +2848,11 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
     f32.load_state_dict(start)
     images = torch.randn(batch, size, size, 3, generator=g, device=dev)
     labels = torch.arange(batch, device=dev) % cfg["num_classes"]
+    kw = {"bf16": draws(torch, model, seed), "f32": draws(torch, f32, seed)}
     grads, first = {}, {}
     for name, m in (("bf16", model), ("f32", f32)):
         m.train().zero_grad(set_to_none=True)
-        loss = cross_entropy_loss(m(images), labels)
+        loss = cross_entropy_loss(m(images, **kw[name]()), labels)
         loss.backward()
         first[name] = loss.item()
         grads[name] = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
@@ -2743,7 +2863,7 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
     # 1e-3 relative, a floor under which no bf16 run can be expected to agree.
     f32.train().zero_grad(set_to_none=True)
     nudge = 1 + 1e-3 * torch.randn(images.shape, generator=g, device=dev)
-    cross_entropy_loss(f32(images * nudge), labels).backward()
+    cross_entropy_loss(f32(images * nudge, **kw["f32"]()), labels).backward()
     moved = {k: p.grad.detach().clone() for k, p in f32.named_parameters() if p.grad is not None}
     f32.zero_grad(set_to_none=True)
     f32.load_state_dict(start)
@@ -2769,8 +2889,9 @@ def plain_training_phase(torch, tag, build, cfg, batch, size, seed, smi, counter
                                                          for k, v in errs.items()}))
 
     def run_of(m):
-        step = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3))
-        return lambda: step(images, labels)
+        step, draw = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3)), \
+            draws(torch, m, seed)
+        return lambda: step(images, labels, **draw())
 
     run = run_of(model)
     stats = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
@@ -3363,7 +3484,7 @@ def hybrid_vit(fused_attention="hybrid", **kw):
 
 
 def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, per_forward,
-                  top1_sign_test=False, size=None, plain_kw=PLAIN_KW):
+                  top1_sign_test=False, size=None, plain_kw=PLAIN_KW, inspect_models=None):
     """Serve ``requests`` batches of ``size`` px (``cfg["image_size"]`` by
     default) through the model class ``vit``; the plain path is ``vit`` with
     ``plain_kw``.  Each forward must launch each kernel ``per_forward[name]``
@@ -3371,7 +3492,14 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
     least as often as the plain bf16 path does; with ``top1_sign_test``, for
     a model whose plain path keeps more precision than the kernel route
     (the small-dataset ViT's exact f32 LSA softmax), less often only by
-    chance (SIGN_TEST_Z).  Returns each kernel's launches over them."""
+    chance (SIGN_TEST_Z).  Every model draws from one seed (:func:`draws`:
+    ATS-ViT's Gumbel noise).  ``inspect_models(torch, {"kernels", "plain",
+    "f32"}, requests, seed)``, where given, returns a text for the log and the
+    images on which the three models compute one network
+    (:func:`ats_agreement`: ATS-ViT's sampled sets alike at every layer):
+    the logit and top-1 checks are held over those, at least one, and the
+    largest errors over the others are printed.  Returns each kernel's
+    launches over them."""
     from vit_tpu_torch import cast_params
 
     dev = torch.device("cuda")
@@ -3379,6 +3507,7 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
     model = cast_params(vit(**cfg, device=dev, generator=g), torch.bfloat16).eval()
     plain = vit(**cfg, **plain_kw, device=dev, dtype=torch.bfloat16).eval()
     plain.load_state_dict(model.state_dict())
+    kw, kw_plain = draws(torch, model, seed), draws(torch, plain, seed)
     size = size or cfg["image_size"]
     images = [torch.randn(batch, size, size, 3, generator=g, device=dev)
               for _ in range(requests)]
@@ -3389,14 +3518,17 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
             c.launches = 0
         outs = []
         for i, img in enumerate(images):
-            outs.append(model(img))
+            outs.append(model(img, **kw()))
             check_launches(tag, f"forward {i}", counters, per_forward, i + 1)
         torch.cuda.synchronize()
         launches = {name: c.launches for name, c in counters.items()}
-        refs = [plain(img) for img in images]
+        refs = [plain(img, **kw_plain()) for img in images]
         f32 = vit(**cfg, **plain_kw, device=dev, dtype=torch.float32).eval()
         f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
-        truths = [f32(img) for img in images]
+        kw32 = draws(torch, f32, seed)
+        truths = [f32(img, **kw32()) for img in images]
+        inspected, held = inspect_models(torch, {"kernels": model, "plain": plain, "f32": f32},
+                                         images, seed) if inspect_models else ("", None)
         del f32
         torch.cuda.synchronize()
 
@@ -3406,6 +3538,17 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
             raise AssertionError(f"{tag}: logits shape {tuple(outs[0].shape)}")
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{tag}: non-finite logits")
+        if held is not None:
+            if not bool(held.any()):
+                raise AssertionError(f"{tag}: no image on which the models compute one network")
+            apart = ~held
+            errs = [(a - b)[apart].abs().max().item() if apart.any() else 0.0
+                    for a, b in ((logits, ref), (logits, truth), (ref, truth))]
+            inspected += (f"the logit and top-1 checks that follow held over those "
+                          f"{int(held.sum())} images; over the other {int(apart.sum())}, where "
+                          f"each path computes another network, max|kernel-plain|={errs[0]:.6g} "
+                          f"max|kernel-f32|={errs[1]:.6g} max|plain-f32|={errs[2]:.6g}; ")
+            logits, ref, truth = logits[held], ref[held], truth[held]
         err = (logits - ref).abs().max().item()
         tol = LOGIT_REL_TOL * ref.abs().max().item()
         err_k, err_p = ((t - truth).abs().max().item() for t in (logits, ref))
@@ -3425,11 +3568,11 @@ def serving_phase(torch, tag, vit, cfg, batch, requests, seed, smi, counters, pe
         confident = margins > 2 * err_p
         n_confident = int(confident.sum().item())
         top1_conf = top1(logits[confident], ref[confident]) if n_confident else 0.0
-        ms = interleaved_medians(torch, {"kernels": lambda: model(images[0]),
-                                         "plain": lambda: plain(images[0])},
+        ms = interleaved_medians(torch, {"kernels": lambda: model(images[0], **kw()),
+                                         "plain": lambda: plain(images[0], **kw_plain())},
                                  rounds=5, calls=4)
     log(f"serving {tag}: {requests} requests x {batch} images, logits "
-        f"{tuple(outs[0].shape)} finite; kernel launches per forward {per_forward}; "
+        f"{tuple(outs[0].shape)} finite; kernel launches per forward {per_forward}; {inspected}"
         f"max|kernel-plain|={err:.6g} tol={tol:.6g} (1e-1*max|ref|); "
         f"vs f32 reference max|kernel-f32|={err_k:.6g} max|plain-f32|={err_p:.6g} "
         f"(kernel <= {MAX_ERR_VS_PLAIN_BF16}x plain), relative L2 kernels={l2_k:.4g} "
@@ -3638,7 +3781,7 @@ def gradient_phase(torch, tag, vit, cfg, batch, seed, smi, size=None):
 
 
 def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, size=None,
-                   plain_kw=PLAIN_KW, timing=None):
+                   plain_kw=PLAIN_KW, timing=None, inspect_models=None):
     """Train ``vit(..., compute_dtype=bf16)`` (f32 parameters) with SGD on one
     fixed batch; hold its step-1 gradients (:func:`step1_gradients`) and its
     loss against the plain bf16 path (``plain_kw``) and an f32 model of the
@@ -3646,21 +3789,35 @@ def training_phase(torch, tag, vit, cfg, batch, seed, smi, counters, per_step, s
     ``per_step[name]`` times (0 if not named), and that BatchNorm's running
     statistics, where the model has them, stay finite and move; time a step
     on both paths (:func:`interleaved_medians` with ``timing``, 3 rounds of
-    3 steps by default)."""
-    from vit_tpu_torch.parallel.train import make_train_step
+    3 steps by default).  Every model draws from one seed at every forward
+    and step (:func:`draws`: ATS-ViT's Gumbel noise); ``inspect_models``, as
+    :func:`serving_phase` takes it, on the three models in training mode
+    and the training batch, its text printed (the step-1 gradients are the
+    whole batch's, held as they are)."""
+    from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
 
     model, plain, f32, images, labels = training_models(torch, vit, cfg, batch, seed, size,
                                                         plain_kw)
-    first, summary = step1_gradients(torch, tag, (model, plain, f32), images, labels)
+    inspected = ""
+    if inspect_models:
+        for m in (model, plain, f32):
+            m.train()
+        inspected, _ = inspect_models(torch, {"kernels": model, "plain": plain, "f32": f32},
+                                      [images], seed)
+    kw = {id(m): draws(torch, m, seed) for m in (model, plain, f32)}
+    first, summary = step1_gradients(
+        torch, tag, (model, plain, f32), images, labels,
+        loss_of=lambda m: cross_entropy_loss(m(images, **kw[id(m)]()), labels))
     del f32
     torch.cuda.empty_cache()
 
     def run_of(m):
-        step = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3))
-        return lambda: step(images, labels)
+        step, draw = make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-3)), \
+            draws(torch, m, seed)
+        return lambda: step(images, labels, **draw())
 
-    return train_path(torch, tag, batch, model, plain, first, summary, run_of, "SGD(1e-3)", smi,
-                      counters, per_step, timing)
+    return train_path(torch, tag, batch, model, plain, first, inspected + summary, run_of,
+                      "SGD(1e-3)", smi, counters, per_step, timing)
 
 
 def train_path(torch, tag, batch, model, plain, first, summary, run_of, optimizer, smi, counters,
@@ -3717,6 +3874,15 @@ def crossformer_mlp_kernels(**kw):
     from vit_tpu_torch import CrossFormer
 
     return CrossFormer(**{"fused_attention": "never", **kw})
+
+
+def ats_kernels(fused_mlp="auto", **kw):
+    """ATS-ViT with its MLPs on the kernels (``vit_tpu``'s default is
+    ``"never"``; a caller's ``fused_mlp`` overrides it: the plain path passes
+    ``"never"``)."""
+    from vit_tpu_torch.models import ats_vit
+
+    return ats_vit.ViT(fused_mlp=fused_mlp, **kw)
 
 
 def t2t_vit(plain=False, distillable=False, **kw):
@@ -3920,7 +4086,8 @@ def kernel_group(name: str) -> str:
 
 def classifier_step(torch, vit, cfg, batch, size=None):
     """A :func:`profile_phase` builder: ``vit``'s classification train step
-    (SGD at 1e-3) on a seeded batch, labels ``arange(batch) % classes``."""
+    (SGD at 1e-3) on a seeded batch, labels ``arange(batch) % classes``, one
+    fixed draw where the model draws (:func:`draws`)."""
     from vit_tpu_torch.parallel.train import make_train_step
 
     def build(g):
@@ -3929,7 +4096,8 @@ def classifier_step(torch, vit, cfg, batch, size=None):
         side = size or cfg["image_size"]
         images = torch.randn(batch, side, side, 3, generator=g, device="cuda")
         labels = torch.arange(batch, device="cuda") % cfg["num_classes"]
-        return (lambda: step(images, labels)), "SGD(1e-3)"
+        draw = draws(torch, model, 0)
+        return (lambda: step(images, labels, **draw())), "SGD(1e-3)"
     return build
 
 
@@ -4166,7 +4334,9 @@ def main() -> int:
         CaiT, CrossFormer, CvT, DeepViT, LeViT, MobileViT, NesT, PiT, RegionViT, ScalableViT,
         TwinsSVT, ViT,
     )
-    from vit_tpu_torch.models import parallel_vit, vit_for_small_dataset, vit_with_patch_merger
+    from vit_tpu_torch.models import (
+        ats_vit, cct, parallel_vit, vit_for_small_dataset, vit_with_patch_merger,
+    )
     from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
     from vit_tpu_torch.ops.fused_attention_block import (
@@ -4227,6 +4397,8 @@ def main() -> int:
         plain_conv_phase(torch, smi)
     with clock("dense family kernels"):
         dense_kernel_phase(torch, results, smi)
+    with clock("ATS-ViT kernels"):
+        dense_kernel_phase(torch, results, smi, ATS_MLP_SHAPES)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
 
@@ -4471,6 +4643,24 @@ def main() -> int:
              DENSE_BATCH, 3, size, seed, smi, counters)
         path(f"training {name}", plain_training_phase, f"{name}@{size}", build, cfg, DENSE_BATCH,
              size, seed + 1, smi, counters)
+    # ATS-ViT@256: on the kernel path (fused_mlp="auto") every MLP on rows
+    # 1-2, at 257, 129, 65, 33, 17 and 9 tokens, its attention plain; the
+    # plain path is vit_tpu's default, fused_mlp="never", and launches
+    # nothing.  Top-1 by the sign test: both paths share every attention.
+    # CCT-14@224: no kernel, as in vit_tpu.
+    ats_kw = dict(plain_kw=dict(fused_mlp="never"), inspect_models=ats_agreement)
+    ats_mlps = ATS["depth"]
+    path("serving ATS-ViT", serving_phase, "ATS-ViT@256 bf16", ats_kernels, ATS, DENSE_BATCH,
+         3, 42, smi, counters, {"fused_mlp": ats_mlps}, top1_sign_test=True, **ats_kw)
+    path("training ATS-ViT", training_phase, "ATS-ViT@256", ats_kernels, ATS, DENSE_BATCH, 43,
+         smi, counters, {"fused_mlp": ats_mlps, "fused_mlp_bwd": ats_mlps}, **ats_kw)
+    path("serving ATS-ViT plain", serving_phase, "ATS-ViT@256 bf16, vit_tpu's default",
+         ats_vit.ViT, ATS, DENSE_BATCH, 1, 42, smi, counters, {}, top1_sign_test=True,
+         plain_kw={}, inspect_models=ats_agreement)
+    path("serving CCT", plain_serving_phase, "CCT-14@224 bf16", cct.CCT, CCT14, DENSE_BATCH, 3,
+         CCT_SIZE, 44, smi, counters)
+    path("training CCT", plain_training_phase, "CCT-14@224", cct.CCT, CCT14, DENSE_BATCH,
+         CCT_SIZE, 45, smi, counters)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
     torch.cuda.empty_cache()
@@ -4560,9 +4750,15 @@ def main() -> int:
                  PATCH_MERGER["depth"], False),
                 ("CrossViT@256", cross_vit, CROSSVIT, 0, crossvit_mlps),
                 ("CaiT@256", CaiT, CAIT, 0, False),
-                ("Parallel ViT@256", parallel_vit.ViT, PARALLEL_VIT, 0, False)):
+                ("Parallel ViT@256", parallel_vit.ViT, PARALLEL_VIT, 0, False),
+                ("ATS-ViT@256", ats_kernels, ATS, ats_mlps, False)):
             profile_phase(torch, name, classifier_step(torch, build, cfg, DENSE_BATCH),
                           DENSE_BATCH, 0, smi, ln_epilogues=epilogues, ln_passes=passes, top=12)
+        # ATS-ViT's MLP backwards (d 1024) on the LayerNorm-backward dgrad, its
+        # attentions' LayerNorms outside the kernels; CCT launches none.
+        profile_phase(torch, "CCT-14@224", classifier_step(torch, cct.CCT, CCT14, DENSE_BATCH,
+                                                           CCT_SIZE), DENSE_BATCH, 0, smi,
+                      ln_epilogues=0, top=12)
     log(f"wall seconds by phase (build {build_s:.2f} before them): {json.dumps(WALL)}")
 
     # name: (source, the TPU kernel it replaces, the shape of its times)
@@ -4668,6 +4864,14 @@ def main() -> int:
              for name in ("fused_mlp", "fused_mlp_bwd")}
     log(f"the dense family's rows 1-2 at CrossViT's encoders and after the patch merger (also "
         f"under by_shape above), ms, on {smi}: " + json.dumps(dense))
+    ats = {name: {tag: {k: v for k, v in r.items() if k in (
+               "kernel", "plain", "modules", "library", "whole", "library_whole", "device")}
+               | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+               for tag, r in results[name].items()
+               if tag in [t for t, _, _ in ATS_MLP_SHAPES] and "bound" in r}
+           for name in ("fused_mlp", "fused_mlp_bwd")}
+    log(f"ATS-ViT's rows 1-2 at layer 2's 129 tokens and layer 6's 9 (also under by_shape "
+        f"above), ms, on {smi}: " + json.dumps(ats))
     log(f"PiT's rows 1-4 at its stages (also under by_shape above; stage 1's block on the mha "
         f"route, sdpa: F.layer_norm + F.linear + SDPA + F.linear), ms, on {smi}: "
         + json.dumps(pit))

@@ -10,7 +10,8 @@ route.  Eval logits and one SGD step of ``make_train_step`` against
 mixes' included) and the updated parameters, within 1e-4.  Then the
 layer-dropout rule (one draw injected into both packages: all layers
 dropped but the forced one, and some dropped; eval mode and a rate of 0
-drop none; a training forward without a generator raises),
+drop none; a training forward without a generator raises; the train step
+passes its generator on),
 ``layer_scale_init`` at its boundaries, ``TalkingHeadsAttention`` with a
 context, the converter leaf for leaf (the LayerScales as leaves of each
 transformer), the constructor's checks and the device rule.
@@ -30,6 +31,7 @@ from torch_parity import (  # noqa: E402
 from vit_tpu.models import cait as jax_cait  # noqa: E402
 from vit_tpu_torch import CaiT, state_dict_from_flax  # noqa: E402
 from vit_tpu_torch.models import cait  # noqa: E402
+from vit_tpu_torch.parallel.train import make_train_step  # noqa: E402
 
 SMALL = dict(image_size=32, patch_size=8, num_classes=5, dim=32, depth=3, cls_depth=2, heads=4,
              dim_head=8, mlp_dim=64)
@@ -123,6 +125,43 @@ def test_layer_dropout_draws_only_in_training_and_needs_a_generator():
     drop, forced = cait.layer_drop(torch.Generator().manual_seed(6), 1000, 0.25)
     assert drop.shape == (1000,) and drop.dtype == torch.bool and 0 <= int(forced) < 1000
     assert 0.2 < drop.float().mean().item() < 0.3
+
+
+def test_train_step_passes_its_generator_to_layer_dropout():
+    """``make_train_step``'s ``step(images, labels, generator=g)`` gives the
+    forward its generator: with ``layer_dropout=0.5`` a step from one seed
+    on one set of weights is the same twice, and one without a generator
+    raises; with ``accum_steps=2`` the microbatches draw from it in turn (one
+    draw each, as many as two single-batch steps make)."""
+    g = torch.Generator().manual_seed(11)
+    images = torch.randn(4, 32, 32, 3, generator=g)
+    labels = torch.tensor([0, 1, 2, 3])
+    cfg = dict(SMALL, layer_dropout=0.5)
+    start = CaiT(**cfg, device="cpu", generator=g).state_dict()
+
+    def stepped(seed, accum_steps=1, draws=None):
+        model = CaiT(**cfg, device="cpu")
+        model.load_state_dict(start)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                               accum_steps=accum_steps)
+        gen = torch.Generator().manual_seed(seed)
+        loss = step(images, labels, generator=gen)["loss"]
+        if draws is not None:
+            draws.append(torch.rand(1, generator=gen))
+        return loss, model.state_dict()
+
+    (a, wa), (b, wb) = stepped(12), stepped(12)
+    assert torch.equal(a, b) and all(torch.equal(wa[k], wb[k]) for k in wa)
+    model = CaiT(**cfg, device="cpu")
+    with pytest.raises(ValueError, match="explicit generator"):
+        make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.1))(images, labels)
+    after = []
+    stepped(13, accum_steps=2, draws=after)
+    gen = torch.Generator().manual_seed(13)
+    for _ in range(2):  # two forwards' draws: each transformer's layer_drop
+        for depth in (SMALL["depth"], SMALL["cls_depth"]):
+            cait.layer_drop(gen, depth, 0.5)
+    assert torch.equal(after[0], torch.rand(1, generator=gen))
 
 
 @pytest.mark.parametrize("depth", [1, 18, 19, 24, 25, 36])

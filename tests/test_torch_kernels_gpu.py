@@ -1973,6 +1973,11 @@ def test_nest_block_kernels_match_plain(cuda, groups, c, heads):
 DENSE_MLP_SHAPES = [(257, 192), (17, 384), (8, 1024)]
 
 
+# (n, d): rows 1-2 at two of ATS-ViT@256's token counts, batch 64, hidden
+# 2048: layer 2's 129 slots and layer 6's 9 (576 rows), d 1024.
+ATS_MLP_SHAPES = [(129, 1024), (9, 1024)]
+
+
 @pytest.mark.parametrize("n,d", DENSE_MLP_SHAPES)
 def test_dense_family_mlp_kernels_match_plain(cuda, n, d):
     """The fused MLP at CrossViT's and the patch merger's shapes: the
@@ -1980,6 +1985,18 @@ def test_dense_family_mlp_kernels_match_plain(cuda, n, d):
     forward's h against their plain versions, twice bit for bit; the
     LayerNorm backward on the dgrad's epilogue at d 1024, on the passes at
     192 and 384."""
+    _check_mlp_at(cuda, n, d)
+
+
+@pytest.mark.parametrize("n,d", ATS_MLP_SHAPES)
+def test_ats_vit_mlp_kernels_match_plain(cuda, n, d):
+    """The fused MLP at ATS-ViT's 64·129 and 64·9 rows (d 1024), as
+    :func:`test_dense_family_mlp_kernels_match_plain` holds it: the
+    LayerNorm backward on the dgrad's epilogue."""
+    _check_mlp_at(cuda, n, d)
+
+
+def _check_mlp_at(cuda, n, d):
     from chip_smoke import counted_launches
 
     shape, hidden, eps = (64, n, d), 2048, 1e-3

@@ -2,6 +2,7 @@
 refused, the kernel wrappers taking their plain versions for CPU tensors, and
 the build module importable without nvcc.  No JAX is needed here."""
 
+import ast
 import ctypes
 import os
 import re
@@ -194,28 +195,53 @@ def test_build_module_needs_no_nvcc(tmp_path, monkeypatch):
             _build.find_nvcc()
 
 
+def vit_tpu_all(module: str) -> list:
+    """``__all__`` of a ``vit_tpu`` module, read from its source (a literal
+    list) without importing JAX."""
+    tree = ast.parse((REPO / module.replace(".", "/") / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and [t.id for t in node.targets] == ["__all__"]:
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{module} has no __all__")
+
+
+JAX_ONLY = {"bind", "BoundModel", "enable_compile_cache"}  # Flax binding, XLA compile cache
+
+
 def test_package_exports():
-    assert sorted(vit_tpu_torch.__all__) == [
-        "CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "DistillWrapper",
-        "DistillableEfficientViT", "DistillableT2TViT", "DistillableViT", "LeViT", "MAE", "MPP",
-        "MobileViT", "NesT", "PatchMerger", "PiT", "RegionViT", "ScalableViT", "SimMIM", "T2TViT",
-        "TwinsSVT", "ViT",
-        "cast_params", "parallel_vit", "state_dict_from_flax", "vit_for_small_dataset",
-        "vit_with_patch_merger"]
+    """Every name of ``vit_tpu.__all__`` but the three JAX-only ones, then
+    the port's own: the converter and the modules whose model class is
+    named ``ViT``."""
+    names = set(vit_tpu_all("vit_tpu"))
+    assert JAX_ONLY <= names
+    assert sorted(vit_tpu_torch.__all__) == sorted(
+        (names - JAX_ONLY) | {"state_dict_from_flax", "ats_vit", "parallel_vit",
+                              "vit_for_small_dataset", "vit_with_patch_merger"})
+    assert len(vit_tpu_torch.__all__) == len(set(vit_tpu_torch.__all__))
     assert all(hasattr(vit_tpu_torch, name) for name in vit_tpu_torch.__all__)
     assert cast_tuple(3, 4) == (3, 3, 3, 3) and cast_tuple((1, 2), 4) == (1, 2)
 
 
 def test_models_package_mirrors_vit_tpu_models():
-    """``vit_tpu_torch.models`` exports the dense family as
-    ``vit_tpu.models`` does: the classes, and the modules whose model class
-    is named ``ViT``."""
+    """``vit_tpu_torch.models`` exports every name of
+    ``vit_tpu.models.__all__``: the 20 modules, the classes and the CCT
+    factories; the top-level names are the same objects."""
     from vit_tpu_torch import models
 
+    names = vit_tpu_all("vit_tpu.models")
+    assert sorted(models.__all__) == sorted(names) and len(names) == len(set(names))
+    for name in names:
+        obj = getattr(models, name)
+        if isinstance(obj, type(models)):
+            assert obj.__name__ == f"vit_tpu_torch.models.{name}"
+        elif name in vit_tpu_torch.__all__:
+            assert obj is getattr(vit_tpu_torch, name)
+    assert sum(isinstance(getattr(models, n), type(models)) for n in names) == 20
     for name in ("CaiT", "CrossViT", "DeepViT", "PatchMerger", "parallel_vit",
-                 "vit_with_patch_merger"):
+                 "vit_with_patch_merger", "ats_vit", "CCT", "cct_14", "SPT", "LSA"):
         assert name in models.__all__ and getattr(models, name) is getattr(vit_tpu_torch, name)
     assert models.parallel_vit.ViT is not ViT and models.vit_with_patch_merger.ViT is not ViT
+    assert models.ats_vit.ViT is not ViT and models.ViT is ViT
 
 
 def test_scalable_vit_builds_on_the_card_unless_asked_otherwise():

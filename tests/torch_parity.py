@@ -1,7 +1,8 @@
 """Helpers shared by the dense-token family's parity tests
 (``test_torch_deepvit.py``, ``test_torch_patch_merger.py``,
 ``test_torch_cross_vit.py``, ``test_torch_cait.py``,
-``test_torch_parallel_vit.py``): Flax variables drawn from a seed, one SGD
+``test_torch_parallel_vit.py``, ``test_torch_ats_vit.py``,
+``test_torch_cct.py``, ``test_torch_layers_extra.py``): Flax variables drawn from a seed, one SGD
 step in each package, the comparisons, and the CPU kernel route.
 
 The port is held to ``vit_tpu`` within ``TOL`` (1e-4) in f32: logits and
@@ -80,12 +81,14 @@ def jax_sgd_step(apply, variables, img, labels):
                 updated=state_dict_from_flax(jax.tree.map(np.asarray, new_state.params)))
 
 
-def check_sgd_step(model, img, labels, want, nonzero=()):
+def check_sgd_step(model, img, labels, want, nonzero=(), generator=None):
     """One SGD step of the port's ``make_train_step`` against
     :func:`jax_sgd_step`'s ``want``: the loss, every gradient (those named in
-    ``nonzero`` checked to be nonzero) and the updated parameters."""
+    ``nonzero`` checked to be nonzero) and the updated parameters; the step
+    given ``generator``, where one is."""
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
-    loss = float(step(torch.from_numpy(img), torch.from_numpy(labels).long())["loss"])
+    loss = float(step(torch.from_numpy(img), torch.from_numpy(labels).long(),
+                      generator=generator)["loss"])
     assert abs(loss - want["loss"]) <= TOL
     grads = {k: p.grad for k, p in model.named_parameters()}
     assert set(grads) == set(want["grads"])

@@ -48,7 +48,16 @@ backward, and their attentions plain, as in ``vit_tpu``: DeepViT's
 re-attention over its f32 matrix, the patch merger's ViT's plain attention
 and its f32 merger softmax, CrossViT's cross attention below the flash tier.
 ``CaiT`` and ``parallel_vit.ViT`` do both on plain modules, as ``vit_tpu``
-runs no Pallas kernel in either.  The Efficient ViT
+runs no Pallas kernel in either.  ``ats_vit.ViT`` (ATS-ViT) does both with
+its token sampling on the card at static shapes (the Gumbel draws from the
+forward's generator) and its attention plain, as in ``vit_tpu``; its MLPs
+run plain by default (``fused_mlp="never"``, ``vit_tpu``'s default) and
+through the fused MLP kernels, forward and backward, with
+``fused_mlp="auto"``.  ``CCT`` (and ``cct_2`` … ``cct_16``) does both on
+plain modules, as ``vit_tpu`` runs no Pallas kernel in it: its convolutional
+tokenizer on cuDNN, its dropout and stochastic depth drawn from the
+forward's generator.  A model that draws in training takes its generator
+from ``make_train_step``'s ``step(images, labels, generator=g)``.  The Efficient ViT
 (``vit_tpu_torch.models.efficient.ViT``) takes any encoder; the port's
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
@@ -59,8 +68,11 @@ ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 
 from vit_tpu_torch.core.helpers import cast_params
 from vit_tpu_torch.interop.from_flax import state_dict_from_flax
-from vit_tpu_torch.models import parallel_vit, vit_for_small_dataset, vit_with_patch_merger
+from vit_tpu_torch.models import (
+    ats_vit, parallel_vit, vit_for_small_dataset, vit_with_patch_merger,
+)
 from vit_tpu_torch.models.cait import CaiT
+from vit_tpu_torch.models.cct import CCT, cct_2, cct_4, cct_6, cct_7, cct_8, cct_14, cct_16
 from vit_tpu_torch.models.cross_vit import CrossViT
 from vit_tpu_torch.models.crossformer import CrossFormer
 from vit_tpu_torch.models.cvt import CvT
@@ -74,6 +86,7 @@ from vit_tpu_torch.models.scalable_vit import ScalableViT
 from vit_tpu_torch.models.t2t import T2TViT
 from vit_tpu_torch.models.twins_svt import TwinsSVT
 from vit_tpu_torch.models.vit import ViT
+from vit_tpu_torch.models.vit_for_small_dataset import LSA, SPT
 from vit_tpu_torch.models.vit_with_patch_merger import PatchMerger
 from vit_tpu_torch.objectives.distill import (
     DistillableEfficientViT, DistillableT2TViT, DistillableViT, DistillWrapper,
@@ -82,9 +95,16 @@ from vit_tpu_torch.objectives.mae import MAE
 from vit_tpu_torch.objectives.mpp import MPP
 from vit_tpu_torch.objectives.simmim import SimMIM
 
-__all__ = ["CaiT", "CrossFormer", "CrossViT", "CvT", "DeepViT", "LeViT", "MobileViT", "NesT",
-           "PatchMerger", "PiT", "RegionViT", "ScalableViT", "T2TViT", "TwinsSVT", "ViT",
-           "cast_params", "state_dict_from_flax",
-           "parallel_vit", "vit_for_small_dataset", "vit_with_patch_merger",
-           "MAE", "SimMIM", "MPP", "DistillWrapper",
-           "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT"]
+# vit_tpu's names but its JAX-only bind, BoundModel and enable_compile_cache,
+# then the port's own.
+__all__ = [
+    "cast_params",
+    "ViT", "DeepViT", "CaiT", "CrossViT", "SPT", "LSA", "PatchMerger",
+    "T2TViT", "PiT", "CCT", "LeViT", "CvT", "TwinsSVT", "CrossFormer",
+    "RegionViT", "ScalableViT", "NesT", "MobileViT",
+    "cct_2", "cct_4", "cct_6", "cct_7", "cct_8", "cct_14", "cct_16",
+    "MAE", "SimMIM", "MPP", "DistillWrapper",
+    "DistillableViT", "DistillableT2TViT", "DistillableEfficientViT",
+    "state_dict_from_flax", "ats_vit", "parallel_vit", "vit_for_small_dataset",
+    "vit_with_patch_merger",
+]

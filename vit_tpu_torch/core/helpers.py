@@ -24,6 +24,27 @@ def default(val, d):
     return val if exists(val) else d
 
 
+def group_dict_by_key(cond, d: dict):
+    """``(matching, rest)``: the items of ``d`` whose key ``cond`` holds for,
+    and the others."""
+    return_val = [dict(), dict()]
+    for key in d.keys():
+        return_val[int(not bool(cond(key)))][key] = d[key]
+    return (*return_val,)
+
+
+def group_by_key_prefix(prefix: str, d: dict):
+    return group_dict_by_key(lambda x: x.startswith(prefix), d)
+
+
+def group_by_key_prefix_and_remove_prefix(prefix: str, d: dict):
+    """The ``prefix``-prefixed kwargs of ``d`` with the prefix stripped, and
+    the others (reference cvt.py:10-21: CvT's and Twins-SVT's per-stage
+    kwargs)."""
+    kwargs_with_prefix, kwargs = group_by_key_prefix(prefix, d)
+    return {k[len(prefix):]: v for k, v in kwargs_with_prefix.items()}, kwargs
+
+
 def divisible_by(numer: int, denom: int) -> bool:
     return (numer % denom) == 0
 

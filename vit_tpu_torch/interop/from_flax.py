@@ -10,7 +10,8 @@ direction of ``vit_tpu/interop/tf_weights.py``), for ``vit_tpu.ViT``,
 ``vit_tpu.models.mobile_vit.MobileViT``, ``vit_tpu.models.deepvit.DeepViT``,
 ``vit_tpu.models.vit_with_patch_merger.ViT`` (and ``PatchMerger``),
 ``vit_tpu.models.cross_vit.CrossViT``, ``vit_tpu.models.cait.CaiT``,
-``vit_tpu.models.parallel_vit.ViT``, the
+``vit_tpu.models.parallel_vit.ViT``, ``vit_tpu.models.ats_vit.ViT``,
+``vit_tpu.models.cct.CCT``, the layers of ``vit_tpu.layers.common``, the
 objectives (``MAE``, ``SimMIM``, ``MPP``, ``DistillWrapper``) and the
 ``Distillable*`` students (``DistillableT2TViT`` included).
 
@@ -27,7 +28,8 @@ JAX is imported here.  Leaves:
   token), LSA's scalar ``temperature``, the objectives' ``mask_token`` and
   ``distillation_token``, DeepViT's ``reattn_weights``, the patch merger's
   ``queries``, CaiT's ``mix_heads_{pre,post}_attn`` and
-  ``layerscale_{attn,mlp}_{i}`` keep their names and shapes;
+  ``layerscale_{attn,mlp}_{i}``, CCT's ``positional_emb`` and ``class_emb``
+  keep their names and shapes;
   an ``nn.Embed``'s ``embedding`` (MAE's ``decoder_pos_emb``) becomes the
   ``nn.Embedding``'s ``weight``.
 
@@ -87,7 +89,11 @@ their ``layerscale_{attn,mlp}_{i}`` stay leaves of the transformer).
 CrossViT's modules keep their names: ``{sm,lg}_image_embedder``,
 ``{sm,lg}_enc_{r}`` (with ``{attn_norm,attn,mlp_norm,mlp}_{i}`` and ``norm``:
 not a stack, so no ``layers.{i}``), ``cross_attend_{r}``, the heads; Parallel
-ViT's too: ``{attn_norm,attn,mlp_norm,mlp}_{i}_{j}`` at the top.  ``to_out`` maps to
+ViT's too: ``{attn_norm,attn,mlp_norm,mlp}_{i}_{j}`` at the top.  ATS-ViT's
+``transformer`` is a stack, as the ViT's; CCT's modules keep their names:
+``conv_{i}``, ``block_{i}`` (``pre_norm``, ``self_attn/{to_qkv,proj}``,
+``norm1``, ``linear1``, ``linear2``), ``norm``, ``attention_pool``, ``fc``.
+``to_out`` maps to
 ``to_out.0`` (the projection before its dropout; LeViT's ``to_out`` is a
 one-convolution ``nn.Sequential`` for it).  The small-dataset ViT's ``patch_embedding/norm`` and
 ``patch_embedding/proj`` keep their names; the proj kernel's rows stay in the
@@ -125,10 +131,11 @@ _ENCODER_LAYER = re.compile(r"^(attn_norm|attn|mlp_norm|mlp)_\d+$")
 # Leaves that keep their names and shapes: the biases, the tokens and
 # embeddings, LSA's temperature, DeepViT's (heads, heads) reattn_weights, the
 # patch merger's queries, CaiT's talking-heads mixes and its LayerScales
-# (parameters of the transformer itself, named by layer).
+# (parameters of the transformer itself, named by layer), CCT's learned
+# positions and cls token.
 _KEPT = re.compile(r"^(bias|cls_token|pos_embedding|pos_emb|temperature|mask_token"
                    r"|distillation_token|reattn_weights|queries|mix_heads_(pre|post)_attn"
-                   r"|layerscale_(attn|mlp)_\d+)$")
+                   r"|layerscale_(attn|mlp)_\d+|positional_emb|class_emb)$")
 # Batch statistics and where they go.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 

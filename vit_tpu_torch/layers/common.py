@@ -1,6 +1,6 @@
-"""Shared transformer and conv-hybrid primitives (port of the slice of
-``vit_tpu/layers/common.py`` that ViT, CvT, ScalableViT, Twins-SVT,
-CrossFormer, RegionViT, NesT, PiT, LeViT and MobileViT need).
+"""Shared transformer and conv-hybrid primitives (port of
+``vit_tpu/layers/common.py``, ``Transformer``'s scan and the SPMD-safe
+``GroupedConv`` backward aside: TPU workarounds the port does not need).
 
 Numerics follow ``vit_tpu`` (and through it the TF reference): exact-erf GELU,
 LayerNorm with eps 1e-3 and biased two-pass variance, glorot-uniform Dense
@@ -30,6 +30,15 @@ and an attention without an output projection (``heads == 1`` and
 transformer).  ``"never"`` always runs the plain modules, the attention's
 plain path included.
 
+Random draws in training (dropout, stochastic depth) come from an explicit
+``torch.Generator`` where a model passes one: :func:`dropout_mask` draws
+every mask, in f32 on the generator's device, so a bf16 and an f32 model on
+one seed draw the same masks (:func:`dropout`, :class:`DropPath`; the
+``MLP``'s dropout when its forward is given a generator).  Without a
+generator an active rate raises, as Flax does without a ``'dropout'`` rng;
+only the ``MLP``'s own ``nn.Dropout`` draws from PyTorch's global RNG, for
+the models that pass it no generator.
+
 ``Transformer(fused_attention="hybrid")`` opts into ``vit_tpu``'s
 short-sequence tier (``vit_tpu/layers/common.py:304-314``, ``:507-548``):
 where ``vit_tpu``'s gate holds — the activation one the kernels take, an
@@ -55,7 +64,7 @@ from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.fused_attention_block import fused_attention_block
 from vit_tpu_torch.ops.fused_hybrid import _attn_pack, attention_nb, ln_gemm, proj_mlp
 from vit_tpu_torch.ops.fused_mlp import fused_mlp
-from vit_tpu_torch.ops.patchify import conv2d_same
+from vit_tpu_torch.ops.patchify import conv2d_same, same_pads
 
 FUSED_MODES = ("auto", "never")
 HYBRID_MODES = FUSED_MODES + ("hybrid",)  # the ViT Transformer's fused_attention
@@ -84,6 +93,71 @@ def check_fused_mode(name: str, mode: str, modes: tuple = FUSED_MODES) -> str:
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """0.5·x·(1+erf(x/√2)) — reference vit.py:34."""
     return F.gelu(x, approximate="none")
+
+
+def dropout_mask(generator: torch.Generator, shape, keep: float) -> torch.Tensor:
+    """A boolean mask of ``shape``, each element True with probability
+    ``keep``: uniform f32 draws from ``generator`` on its device below
+    ``keep``, as ``jax.random.bernoulli`` draws.  Every dropout and
+    stochastic-depth mask of the port's models is drawn here, so that a bf16
+    and an f32 model on one seed get the same masks and tests can inject one
+    draw into both packages."""
+    return torch.rand(shape, generator=generator, device=generator.device) < keep
+
+
+def _drop(x: torch.Tensor, shape, keep: float, generator: torch.Generator | None,
+          what: str) -> torch.Tensor:
+    """``x / keep`` where a :func:`dropout_mask` of ``shape`` (broadcast over
+    ``x``) keeps it, 0 elsewhere, in ``x``'s dtype; raises without a
+    generator."""
+    if generator is None:
+        raise ValueError(f"{what} in training draws from an explicit generator: pass "
+                         f"generator= to the forward")
+    mask = dropout_mask(generator, shape, keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout(rate)(x, deterministic=not training)``: in
+    training at a rate above 0, each element kept with probability ``1 -
+    rate`` (:func:`dropout_mask`) and scaled by its inverse, in ``x``'s
+    dtype; the identity otherwise.  Raises without a generator where it
+    draws."""
+    if rate == 0.0 or not training:
+        return x
+    if rate == 1.0:  # Flax's edge case
+        return torch.zeros_like(x)
+    return _drop(x, x.shape, 1.0 - rate, generator, "dropout")
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (``vit_tpu/layers/common.py:565-580``):
+    in training at a rate above 0, each sample's branch kept with probability
+    ``1 - rate`` (a ``(b, 1, …)`` :func:`dropout_mask`) and scaled by its
+    inverse, in ``x``'s dtype; the identity in eval mode or at rate 0.  The
+    draw comes from the forward's ``generator``, without which it raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return _drop(x, shape, 1.0 - self.rate, generator, "stochastic depth")
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
+    """Flax's ``nn.max_pool(x, (k, k), strides=(s, s), padding="SAME")`` on an
+    NHWC map: TF-SAME pads (:func:`~vit_tpu_torch.ops.patchify.same_pads`, the
+    odd one after: (0, 1) from 56 to 28) of −inf, then a pool without
+    padding.  ``F.max_pool2d(padding=1)`` would pad (1, 1): the same size,
+    shifted windows."""
+    (top, bottom), (left, right) = (same_pads(x.shape[1 + i], kernel, stride) for i in range(2))
+    x = F.pad(x, (0, 0, left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride).permute(0, 2, 3, 1)
 
 
 def glorot_linear_(linear: nn.Linear, generator: torch.Generator | None = None) -> nn.Linear:
@@ -259,9 +333,15 @@ class MLP(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.dropout.p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dropout(gelu_exact(linear(self.fc1, x)))
-        return self.dropout(linear(self.fc2, x))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout's draws (:func:`dropout`); without it an
+        active dropout draws from ``nn.Dropout``'s global RNG."""
+        if generator is None:
+            x = self.dropout(gelu_exact(linear(self.fc1, x)))
+            return self.dropout(linear(self.fc2, x))
+        rate, training = self.dropout.p, self.training
+        x = dropout(gelu_exact(linear(self.fc1, x)), rate, training, generator)
+        return dropout(linear(self.fc2, x), rate, training, generator)
 
 
 class Attention(nn.Module):
@@ -378,14 +458,14 @@ def windowed_attention_eligible(x: torch.Tensor, attn: nn.Module, mode: str = "a
     return mode == "auto" and not attn.dropout_active and kernel_activation(x)
 
 
-def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP,
-                       mode: str = "auto") -> torch.Tensor:
+def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP, mode: str = "auto",
+                       generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + mlp(norm(x))`` with the Transformer's fused-MLP dispatch, for
     encoders whose attention differs but whose MLP half is the standard
-    pre-norm block."""
+    pre-norm block; ``generator`` goes to the plain ``MLP``'s dropout."""
     if fused_mlp_eligible(x, mlp, mode):
         return apply_fused_mlp_block(norm, mlp, x)
-    return x + mlp(norm(x))
+    return x + mlp(norm(x), generator=generator)
 
 
 def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
@@ -485,3 +565,81 @@ class Transformer(nn.Module):
                                       if self.fused_attention == "never" else "auto")
             x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp)
         return x
+
+
+class PEG(nn.Module):
+    """Positional Encoding Generator (``vit_tpu/layers/common.py:620-638``):
+    ``x + proj(x)`` over an NHWC map, ``proj`` a depthwise TF-SAME
+    :class:`GroupedConv` with bias."""
+
+    def __init__(self, dim: int, kernel_size: int = 3, **kw):
+        super().__init__()
+        self.proj = GroupedConv(dim, kernel_size, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x) + x
+
+
+class DepthWiseConv2d(nn.Module):
+    """Depthwise conv → optional BatchNorm → pointwise 1x1 conv
+    (``vit_tpu/layers/common.py:641-679``): ``depthwise`` a TF-SAME
+    :class:`GroupedConv` of ``stride``, ``bn`` (with ``use_bn``) Keras'
+    BatchNorm (:func:`batchnorm`), ``pointwise`` a :class:`Conv`.  Flax
+    infers ``dim_in``; the port takes it, as its conv layers do."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int = 1,
+                 use_bias: bool = True, use_bn: bool = False, **kw):
+        super().__init__()
+        gen = kw.pop("generator", None)
+        self.depthwise = GroupedConv(dim_in, kernel_size, stride, use_bias, generator=gen, **kw)
+        self.bn = batchnorm(dim_in, **kw) if use_bn else None
+        self.pointwise = Conv(dim_in, dim_out, 1, use_bias=use_bias, generator=gen, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.depthwise(x)
+        return self.pointwise(x if self.bn is None else self.bn(x))
+
+
+class Downsample(nn.Module):
+    """A 3x3, stride-2 TF-SAME :class:`Conv` with bias, ``conv``
+    (``vit_tpu/layers/common.py:682-698``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, **kw):
+        super().__init__()
+        self.conv = Conv(dim_in, dim_out, 3, 2, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def batchnorm(dim: int, **kw) -> BatchNorm:
+    """Keras' BatchNorm (``tf.keras.layers.BatchNormalization``'s momentum
+    0.99 and epsilon 1e-3; ``vit_tpu/layers/common.py:701-712``) as the
+    port's :class:`BatchNorm`: PyTorch's momentum 1 - 0.99.  Training mode is
+    the module's own."""
+    return BatchNorm(dim, momentum=0.01, eps=1e-3, **kw)
+
+
+class PreNorm(nn.Module):
+    """``fn(norm(x), **kwargs)``, ``norm`` the token :class:`LayerNorm`
+    (eps 1e-3; ``vit_tpu/layers/common.py:715-725``), for users composing
+    their own encoders."""
+
+    def __init__(self, dim: int, fn: nn.Module, *, device=None, dtype=None):
+        super().__init__()
+        self.norm = LayerNorm(dim, device=device, dtype=dtype)
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.fn(self.norm(x), **kwargs)
+
+
+class Residual(nn.Module):
+    """``fn(x, **kwargs) + x`` (``vit_tpu/layers/common.py:728-735``)."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.fn(x, **kwargs) + x

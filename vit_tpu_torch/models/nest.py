@@ -42,18 +42,17 @@ with ``pos_emb``, ``attn_norm_{i}``, ``attn_{i}`` (``to_qkv``,
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.core.helpers import cast_tuple, resolve_device
 from vit_tpu_torch.layers.common import (
     ChannelLayerNorm, Conv, cast_to, check_fused_mode, fused_conv_mlp_residual, glorot_linear_,
-    linear, windowed_attention_eligible,
+    linear, max_pool_same, windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import _unwindows, _windows
 from vit_tpu_torch.models.twins_svt import _attention
 from vit_tpu_torch.ops.fused_attention_block import SHORT_MAX_BATCH, fused_attention_block
-from vit_tpu_torch.ops.patchify import patchify, same_pads
+from vit_tpu_torch.ops.patchify import patchify
 
 # Blocks one launch of the fused attention block takes (the short route's
 # grid.z); a larger fold is cut into launches of at most this many.
@@ -143,17 +142,6 @@ class NesTTransformer(nn.Module):
                                         fc1=getattr(self, f"mlp_fc1_{i}"),
                                         fc2=getattr(self, f"mlp_fc2_{i}"), dropout=self.dropout)
         return x
-
-
-def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
-    """Flax's ``nn.max_pool(x, (k, k), strides=(s, s), padding="SAME")`` on an
-    NHWC map: TF-SAME pads (:func:`~vit_tpu_torch.ops.patchify.same_pads`, the
-    odd one after: (0, 1) from 56 to 28) of −inf, then a pool without
-    padding.  ``F.max_pool2d(padding=1)`` would pad (1, 1): the same size,
-    shifted windows."""
-    (top, bottom), (left, right) = (same_pads(x.shape[1 + i], kernel, stride) for i in range(2))
-    x = F.pad(x, (0, 0, left, right, top, bottom), value=float("-inf"))
-    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride).permute(0, 2, 3, 1)
 
 
 class NesT(nn.Module):

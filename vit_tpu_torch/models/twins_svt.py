@@ -52,7 +52,7 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    ChannelLayerNorm, Conv, GroupedConv, cast_to, check_fused_mode, fused_conv_mlp_residual,
+    PEG, ChannelLayerNorm, Conv, cast_to, check_fused_mode, fused_conv_mlp_residual,
     glorot_linear_, kernel_activation, linear, windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import ConvMLP, _unwindows, _windows
@@ -90,18 +90,6 @@ class PatchEmbedding(nn.Module):
             raise ValueError(f"feature map {h}x{w} is not divisible by the patch size {p}")
         fmap = fmap.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 5, 2, 4)
         return self.proj(fmap.reshape(b, h // p, w // p, c * p * p))
-
-
-class PEG(nn.Module):
-    """``x + proj(x)``, ``proj`` a depthwise TF-SAME convolution
-    (``vit_tpu/models/twins_svt.py:143-155``)."""
-
-    def __init__(self, dim: int, kernel_size: int = 3, **kw):
-        super().__init__()
-        self.proj = GroupedConv(dim, kernel_size, **kw)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x) + x
 
 
 class _Attention(nn.Module):

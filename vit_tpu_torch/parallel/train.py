@@ -15,6 +15,12 @@ through the hand-written forward and backward kernels.
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3))
     metrics = step(images, labels)                           # {"loss", "step"}
 
+A model that draws in training (dropout and stochastic depth in ``CCT``,
+layer dropout in ``CaiT``, ATS-ViT's Gumbel noise) takes its draws from the
+``generator`` given to the step, ``vit_tpu``'s ``rng``:
+
+    metrics = step(images, labels, generator=torch.Generator("cuda").manual_seed(0))
+
 :func:`make_loss_train_step` is the step of a module whose forward is the
 loss (the objectives of :mod:`vit_tpu_torch.objectives`):
 
@@ -26,6 +32,7 @@ loss (the objectives of :mod:`vit_tpu_torch.objectives`):
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable
 
@@ -125,24 +132,32 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable | None = None, accum_steps: int = 1):
     """Build a classification train step for ``model`` and ``optimizer``.
 
-    Returns ``step(images, labels) -> {"loss": tensor, "step": int}``, which
-    puts the model in training mode, computes the mean loss and gradient over
-    the batch (over ``accum_steps`` microbatches when above 1), and applies
-    one optimizer update.  ``step.state`` is the :class:`TrainState`.
+    Returns ``step(images, labels, generator=None) -> {"loss": tensor,
+    "step": int}``, which puts the model in training mode, computes the mean
+    loss and gradient over the batch (over ``accum_steps`` microbatches when
+    above 1), and applies one optimizer update.  ``generator``, where given,
+    goes to the forward as its ``generator=`` (the draws of dropout,
+    stochastic depth, layer dropout or token sampling; ``vit_tpu``'s step
+    takes an ``rng``), the microbatches drawing from it in turn, as in
+    :func:`make_loss_train_step`; a model whose forward takes no generator
+    is called without one.  ``step.state`` is the :class:`TrainState`.
     ``accum_steps > 1`` on a model with BatchNorm running statistics raises
     ``ValueError``: they would be updated once per microbatch, and
     ``vit_tpu``'s BatchNorm step offers no accumulation.
     """
     loss_fn = loss_fn or cross_entropy_loss
+    draws = "generator" in inspect.signature(model.forward).parameters
 
-    def loss_of(batch):
+    def loss_of(batch, **kw):
         images, labels = batch
-        return loss_fn(model(images), labels)
+        return loss_fn(model(images, **kw), labels)
 
     inner = _make_step(model, optimizer, loss_of, accum_steps)
 
-    def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        return inner((images, labels))
+    def step(images: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator | None = None) -> dict:
+        kw = {"generator": generator} if generator is not None and draws else {}
+        return inner((images, labels), **kw)
 
     step.state = inner.state
     return step
