@@ -299,6 +299,35 @@ Phases, one line each (any failure raises and exits non-zero):
    the library where it launches them, ``vit_take_launch_count``),
    idle share, the host's enqueue time per step and the synchronising calls
    in a step.
+30. data-parallel (:func:`data_parallel_phase`): ViT-B/32@256 (bench.py),
+   bf16 compute, f32 parameters, batch 128, SGD(1e-3, momentum 0.9), on a
+   one-rank NCCL group (``initialize_distributed`` from a launcher's
+   environment on a free localhost port, ``make_mesh()``): 3 steps of
+   ``make_train_step(..., mesh=mesh)`` fed by ``prefetch(ThreadedLoader,
+   device_put=shard_batch)`` from host numpy against the bare step's 3 fed by
+   synchronous copies, from the same weights: parameters and losses bit for
+   bit, rows 1-4 six times each a step.  Then checkpoint and resume
+   (``CheckpointManager.save(wait=False)``, one more step, ``wait()``, a
+   fresh model and optimizer restored take that step too: bit for bit; save,
+   write and restore seconds, bytes on disk); step ms with and without the
+   mesh; the prefetched feed against synchronous copies (wall ms a step and
+   the profile's idle share); ``op_breakdown`` of the data-parallel step's
+   trace beside ``launch_breakdown`` of the bare step.  The group is
+   destroyed at the end.
+31. export (:func:`export_phase`): ``export_forward`` / ``load_forward`` of
+   the entry ViT-B/32@256 at batch 8 (rows 1 and 3; both layouts), the
+   hybrid ViT at batch 128 (rows 12-14: the tier's gate needs b >= 64), the
+   small-dataset ViT (row 5), CvT-13@224 (row 7) and ScalableViT@256 (rows
+   6 and 10) at batch 8, baked, and one-op modules of ``short_attention`` at
+   (64, 12, 197, 197, 64) (row 11) and of the flash op at its streamed shape
+   (4, 16, 8192, 8192, 64) (row 9): the loaded output bit for bit eager's,
+   each op in the graph as often as the eager forward launches it, the
+   loaded forward moving every counter as the eager one; export and load
+   seconds, the loaded forward's ms beside eager's.
+32. the example trainer (:func:`example_phase`):
+   ``examples/train_classifier_torch.py --model vit --steps 20 --batch 64
+   --bf16`` as a subprocess with a checkpoint directory and an artifact:
+   exit 0, finite losses, a checkpoint at step 20, an artifact that serves.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
@@ -306,7 +335,8 @@ B/32, B/32 hybrid, B/16, small-dataset, CvT-13 @224 and @384, ScalableViT,
 MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
 CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
 merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
-training); the blocks past 512 tokens)
+training); the blocks past 512 tokens; the data-parallel B/32 step; the
+exported programs' forwards, each from 0)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
@@ -333,10 +363,12 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4292,6 +4324,392 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
+# ---- the infrastructure: data-parallel step, checkpoints, export, the example trainer --------
+
+INFRA_BATCH = 128   # bench.py's batch: the data-parallel step at ViT-B/32@256
+INFRA_STEPS = 3     # steps of the bare and the data-parallel step from the same weights
+FEED_STEPS = 8      # steps timed per way of feeding the batches (after 2 of warm-up)
+EXPORT_BATCH = 8    # __graft_entry__.entry()'s batch: every export but the hybrid tier's
+# The serving ops as the exported graphs name them, and the counter each counts on.
+EXPORT_OPS = ("fused_mlp", "fused_attention_block", "fused_attention_block_bias",
+              "fused_cross_attention", "flash_attention", "flash_attention_packed",
+              "short_attention", "ln_gemm", "attention_nb", "proj_mlp")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def host_batches(count, batch, size, classes, seed):
+    """``count`` batches of host memory as a loader hands them over: numpy
+    f32 images ``(batch, size, size, 3)`` and int64 labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.standard_normal((batch, size, size, 3), dtype=np.float32),
+             "label": (np.arange(batch) + i) % classes} for i in range(count)]
+
+
+def max_param_diff(torch, a, b) -> float:
+    """max |a - b| over two modules' state_dicts (0.0 when bit for bit equal)."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(float((sa[k].float() - sb[k].float()).abs().max()) for k in sa)
+
+
+def idle_share(trace_dir) -> tuple:
+    """``(idle share, kernels' busy ms, window ms)`` of the newest Chrome trace
+    under ``trace_dir``: the share of the window from the first to the last
+    device event (kernels and copies) in which no kernel ran."""
+    import glob
+
+    path = max(glob.glob(os.path.join(trace_dir, "*.json")), key=os.path.getmtime)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        return None, 0.0, 0.0
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, reach = 0.0, start
+    for e in sorted((e for e in events if e["cat"] == "kernel"), key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], reach), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    return 1.0 - busy / (end - start), busy / 1e3, (end - start) / 1e3
+
+
+def data_parallel_phase(torch, smi, counters, workdir):
+    """ViT-B/32@256 (bench.py), bf16 compute, f32 parameters, batch 128,
+    SGD(1e-3, momentum 0.9: a state for the checkpoint to carry) on a
+    single-process NCCL group (``initialize_distributed`` from a launcher's
+    environment on a free localhost port, ``make_mesh()``): INFRA_STEPS steps
+    of ``make_train_step(..., mesh=mesh)`` fed by ``prefetch(ThreadedLoader,
+    device_put=shard_batch)`` from host numpy against the bare step's fed by
+    synchronous copies, from the same weights: the parameters bit for bit
+    (one rank: the all-reduce is an identity), rows 1-4 six times each a step
+    (its main path, counters from 0).  Then checkpoint and resume
+    (:func:`checkpoint_phase`), step ms with and without the mesh, the
+    prefetched against the synchronous feed (step ms and the profile's idle
+    share) and ``op_breakdown`` of the data-parallel step's trace beside
+    ``launch_breakdown`` of the bare step.  The group is destroyed at the
+    end."""
+    from functools import partial
+
+    from vit_tpu_torch import ViT
+    from vit_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from vit_tpu_torch.parallel.train import make_train_step
+    from vit_tpu_torch.utils.data import ThreadedLoader, prefetch, shard_batch
+    from vit_tpu_torch.utils.profiling import op_breakdown, trace
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        group = initialize_distributed(timeout_s=300)
+        backend = torch.distributed.get_backend()
+        if group != (0, 1) or backend != "nccl":
+            raise AssertionError(f"data-parallel: group {group} on {backend}, expected (0, 1) "
+                                 f"on nccl")
+        mesh = make_mesh()
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(46)
+        bare_model = ViT(**ENTRY, compute_dtype=torch.bfloat16, generator=g)
+        dp_model = ViT(**ENTRY, compute_dtype=torch.bfloat16)
+        dp_model.load_state_dict(bare_model.state_dict())
+
+        def sgd(m):
+            return torch.optim.SGD(m.parameters(), lr=1e-3, momentum=0.9)
+
+        bare = make_train_step(bare_model, sgd(bare_model))
+        dp = make_train_step(dp_model, sgd(dp_model), mesh=mesh)
+        host = host_batches(INFRA_STEPS + 1, INFRA_BATCH, ENTRY["image_size"],
+                            ENTRY["num_classes"], 47)
+
+        def synchronous(batch):
+            return (torch.from_numpy(batch["image"]).to(dev),
+                    torch.from_numpy(batch["label"]).to(dev))
+
+        bare_losses = [bare(*synchronous(host[i]))["loss"].item() for i in range(INFRA_STEPS)]
+        loader = ThreadedLoader(lambda i: host[i], INFRA_STEPS)
+        batches = prefetch(iter(loader), device_put=partial(shard_batch, mesh=mesh))
+        for c in counters.values():
+            c.launches = 0
+        dp_losses = [dp(b["image"], b["label"])["loss"].item() for b in batches]
+        launches = {name: c.launches for name, c in counters.items()}
+        per_step = per_layer(ENTRY, "fused_attention_block", "fused_mlp",
+                                    "fused_attention_block_bwd", "fused_mlp_bwd",
+                                    "short route", "short route, forward")
+        check_launches("data-parallel B/32", f"{INFRA_STEPS} steps", counters, per_step,
+                       INFRA_STEPS)
+        diff = max_param_diff(torch, bare_model, dp_model)
+        log(f"data-parallel ViT-B/32@256: batch {INFRA_BATCH}, bf16 compute, f32 params, "
+            f"SGD(1e-3, momentum 0.9), NCCL group of 1 on {mesh}; losses over {INFRA_STEPS} "
+            f"steps: mesh {dp_losses}, bare {bare_losses}; max|params mesh - bare| = {diff} "
+            f"(one rank: the all-reduce of the flat f32 gradients is an identity, and "
+            f"prefetch's side-stream copies give the synchronous copies' bits); launches "
+            f"per step {per_step}")
+        if diff != 0.0 or dp_losses != bare_losses:
+            raise AssertionError(f"data-parallel: the mesh step differs from the bare one "
+                                 f"by {diff} (losses {dp_losses} against {bare_losses})")
+
+        checkpoint_phase(torch, smi, mesh, dp, dp_model, synchronous(host[INFRA_STEPS]),
+                         sgd, workdir)
+
+        images, labels = synchronous(host[0])
+        ms = interleaved_medians(torch, {"bare": lambda: bare(images, labels),
+                                         "mesh": lambda: dp(images, labels)}, rounds=3,
+                                 calls=3)
+        feed = {}
+        for way in ("synchronous", "prefetch"):
+            def run(steps, way=way):
+                if way == "synchronous":
+                    for i in range(steps):
+                        dp(*synchronous(host[i % 2]))
+                else:
+                    loader = ThreadedLoader(lambda i: host[i % 2], steps)
+                    for b in prefetch(iter(loader), device_put=partial(shard_batch, mesh=mesh)):
+                        dp(b["image"], b["label"])
+                torch.cuda.synchronize()
+
+            run(2)
+            t0 = time.perf_counter()
+            run(FEED_STEPS)
+            wall = (time.perf_counter() - t0) / FEED_STEPS * 1e3
+            trace_dir = os.path.join(workdir, f"trace_{way}")
+            with trace(trace_dir):
+                run(4)
+            feed[way] = (wall, *idle_share(trace_dir))
+        rows = op_breakdown(os.path.join(workdir, "trace_prefetch"), top=8)
+        bare_rows = launch_breakdown(torch, lambda: bare(images, labels))
+        log(f"data-parallel step ms (median of 3 rounds of 3, one fixed device batch): mesh "
+            f"{ms['mesh']:.3f}, bare {ms['bare']:.3f} ({ms['mesh'] / ms['bare']:.3f}x); fed "
+            f"from host numpy, wall ms a step over {FEED_STEPS} steps and the profile's idle "
+            f"share (busy / window ms over 4 steps): synchronous copies "
+            f"{feed['synchronous'][0]:.3f}, idle {feed['synchronous'][1]:.3f} "
+            f"({feed['synchronous'][2]:.3f} / {feed['synchronous'][3]:.3f}); prefetch on a "
+            f"side stream {feed['prefetch'][0]:.3f}, idle {feed['prefetch'][1]:.3f} "
+            f"({feed['prefetch'][2]:.3f} / {feed['prefetch'][3]:.3f}) on {smi}")
+        log("data-parallel step's trace, op_breakdown over 4 prefetched steps (ms, share): "
+            + "; ".join(f"{r['name'][:60]} x{r['occurrences']} {r['total_ms']:.3f} "
+                        f"({r['pct']:.1f}%)" for r in rows)
+            + f" | the bare step, launch_breakdown a step: {breakdown_text(bare_rows)}")
+        return launches
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def per_layer(cfg, *names):
+    """``{name: cfg["depth"]}``: one launch of each named kernel a layer."""
+    return {name: cfg["depth"] for name in names}
+
+
+def checkpoint_phase(torch, smi, mesh, step, model, batch, optimizer_of, workdir):
+    """``CheckpointManager.save(step, state, wait=False)`` of the data-parallel
+    step's state, one more step, ``wait()``; a fresh model and optimizer
+    restored from it take that step too, and must end bit for bit where the
+    original did.  Save (the host snapshot), write and restore seconds, bytes
+    on disk."""
+    import shutil
+
+    from vit_tpu_torch import ViT
+    from vit_tpu_torch.interop.checkpoint import CheckpointManager
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    directory = os.path.join(workdir, "checkpoints")
+    manager = CheckpointManager(directory, max_to_keep=2)
+    saved_at = step.state.step
+    t0 = time.perf_counter()
+    manager.save(saved_at, step.state, wait=False)
+    save_s = time.perf_counter() - t0
+    step(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.wait()
+    wait_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(directory, f)) for f in os.listdir(directory))
+    fresh = ViT(**ENTRY, compute_dtype=torch.bfloat16)
+    resumed = make_train_step(fresh, optimizer_of(fresh), mesh=mesh)
+    t0 = time.perf_counter()
+    manager.restore(target=resumed.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_step = resumed.state.step
+    resumed(*batch)
+    diff = max_param_diff(torch, model, fresh)
+    momentum = max(float((a["momentum_buffer"] - b["momentum_buffer"]).abs().max())
+                   for a, b in zip(step.state.optimizer.state.values(),
+                                   resumed.state.optimizer.state.values()))
+    log(f"checkpoint and resume (ViT-B/32@256, the data-parallel step's state at step "
+        f"{saved_at}): save returned in {save_s:.3f} s (host snapshot), the write done "
+        f"{wait_s:.3f} s after one more step, {nbytes} bytes on disk; restore "
+        f"{restore_s:.3f} s into a fresh model and optimizer (step {restored_step}); after one "
+        f"more step each, max|params resumed - original| = {diff}, max|momentum diff| = "
+        f"{momentum}, step {resumed.state.step} and {step.state.step}, on {smi}")
+    shutil.rmtree(directory)
+    if diff != 0.0 or momentum != 0.0 or restored_step != saved_at \
+            or resumed.state.step != step.state.step:
+        raise AssertionError("checkpoint: the resumed run does not continue bit for bit")
+
+
+def one_op(torch, fn):
+    """``fn`` as a module, ``forward(*args) = fn(*args)``, for export."""
+    class Module(torch.nn.Module):
+        def forward(self, *args):
+            return fn(*args)
+
+    return Module()
+
+
+def export_phase(torch, smi, counters):
+    """Each serving model exported with ``export_forward`` (rows 1 and 3 at
+    the entry ViT-B/32 in both layouts, rows 12-14 at the hybrid tier, row 5
+    at the small-dataset ViT, row 7 at CvT-13@224, rows 6 and 10 at
+    ScalableViT@256; baked but the first), and one-op modules of
+    ``short_attention`` (row 11) and of the flash op at its streamed shape
+    (row 9), loaded back with ``load_forward``: the loaded output equals the
+    eager model's bit for bit, the graph holds each op as often as the eager
+    forward launches it, and a loaded forward moves every counter (the
+    routes' too) as the eager one does.  Export and load seconds, and the
+    loaded forward's ms beside the eager one.  Returns the launches of the
+    loaded forwards (its main path: counters from 0 before each)."""
+    from vit_tpu_torch import CvT, ScalableViT, ViT
+    from vit_tpu_torch.interop.export import export_forward, load_forward, model_params
+    from vit_tpu_torch.models import vit_for_small_dataset
+    from vit_tpu_torch.ops.flash_attention import flash_attention
+    from vit_tpu_torch.ops.short_attention import short_attention
+
+    dev = torch.device("cuda")
+
+    def model_case(build, cfg, batch, size, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        model = build(**cfg, compute_dtype=torch.bfloat16, generator=g).eval()
+        img = torch.randn(batch, size, size, 3, generator=g, device=dev)
+        return model, (img,)
+
+    def attention_case(fn, b, h, n_q, n_k, d, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(torch.bfloat16)
+                   for n in (n_q, n_k, n_k))
+        return one_op(torch, fn), (q, k, v)
+
+    short = SHORT_SHAPES[0][1:]
+    streamed = next(s for s in FLASH_SHAPES if s[0].startswith("n=8192"))[1:]
+    # (tag, module, inputs, bake_params; None for a one-op module, exported as it is)
+    entry = model_case(ViT, ENTRY, EXPORT_BATCH, 256, 50)
+    cases = [
+        ("ViT-B/32@256 (entry), params an input", *entry, False),
+        ("ViT-B/32@256 (entry), baked", *entry, True),
+        # The hybrid tier's gate (b >= 64, b·n >= 2048) holds at bench.py's batch, not at 8.
+        ("ViT-B/32@256 hybrid, batch 128", *model_case(hybrid_vit, ENTRY, 128, 256, 51), True),
+        ("small-dataset ViT 256/16", *model_case(vit_for_small_dataset.ViT, SMALL_DATASET,
+                                                 EXPORT_BATCH, 256, 52), True),
+        ("CvT-13@224", *model_case(CvT, CVT13, EXPORT_BATCH, 224, 53), True),
+        ("ScalableViT@256", *model_case(ScalableViT, SCALABLE, EXPORT_BATCH, SCALABLE_SIZE, 54),
+         True),
+        (f"short_attention {short}", *attention_case(short_attention, *short, 55), None),
+        (f"flash_attention {streamed}", *attention_case(flash_attention, *streamed, 56), None),
+    ]
+    total = {name: 0 for name in counters}
+    for tag, model, args, bake in cases:
+        def count(fn):
+            for c in counters.values():
+                c.launches = 0
+            with torch.no_grad():
+                out = fn()
+            torch.cuda.synchronize()
+            return out, {name: c.launches for name, c in counters.items()}
+
+        eager, eager_counts = count(lambda: model(*args))
+        t0 = time.perf_counter()
+        if bake is None:
+            with torch.no_grad():
+                program = torch.export.export(model, args)
+            buffer = io.BytesIO()
+            torch.export.save(program, buffer)
+            data = buffer.getvalue()
+        else:
+            data = export_forward(model, args[0].shape, bake_params=bake)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_forward(data)
+        load_s = time.perf_counter() - t0
+        call_args = (model_params(model), *args) if bake is False else args
+        served, served_counts = count(lambda: loaded(*call_args))
+        nodes = {}
+        for node in loaded.graph.nodes:
+            name = str(node.target).split(".")
+            if name[0] == "vit_tpu_torch":
+                nodes[name[1]] = nodes.get(name[1], 0) + 1
+        want_nodes = {name: eager_counts[name] for name in EXPORT_OPS if eager_counts[name]}
+        with torch.no_grad():
+            ms = interleaved_medians(torch, {"eager": lambda: model(*args),
+                                             "loaded": lambda: loaded(*call_args)},
+                                     rounds=3, calls=3, warmup=2)
+        equal = torch.equal(served, eager)
+        log(f"export {tag}: {len(data)} bytes, export {export_s:.2f} s, load {load_s:.2f} s; "
+            f"ops in the graph {nodes}, eager launches "
+            f"{ {k: v for k, v in eager_counts.items() if v} }; loaded output "
+            f"{'equals' if equal else 'DIFFERS from'} eager bit for bit "
+            f"(max|diff| {float((served.float() - eager.float()).abs().max())}); forward ms "
+            f"loaded {ms['loaded']:.3f}, eager {ms['eager']:.3f} on {smi}")
+        if not equal or nodes != want_nodes or served_counts != eager_counts or not nodes:
+            raise AssertionError(f"export {tag}: output equal {equal}, graph {nodes} against "
+                                 f"eager launches {want_nodes}, loaded launches "
+                                 f"{served_counts} against {eager_counts}")
+        for name, n in served_counts.items():
+            total[name] += n
+        del loaded
+    return total
+
+
+def example_phase(torch, smi, workdir):
+    """``examples/train_classifier_torch.py --model vit --steps 20 --batch 64
+    --bf16`` as a subprocess (one process, no group), with a checkpoint
+    directory and a serving artifact: exit 0, a JSON line with a finite loss
+    for each of the 20 steps (its logger flushes every 10), a checkpoint at
+    step 20, an artifact that loads and serves."""
+    from vit_tpu_torch.interop.export import load_forward_file
+
+    ckpt, artifact = os.path.join(workdir, "example_ckpt"), os.path.join(workdir, "vit.pt2")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "examples/train_classifier_torch.py", "--model", "vit", "--steps",
+         "20", "--batch", "64", "--bf16", "--ckpt-dir", ckpt, "--export", artifact],
+        capture_output=True, text=True, timeout=600, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    losses = [line["loss"] for line in lines]
+    files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    served = None
+    if proc.returncode == 0 and os.path.exists(artifact):
+        with torch.no_grad():
+            # The example exports for its compute dtype's images, as vit_tpu's does.
+            served = load_forward_file(artifact)(
+                torch.randn(64, 224, 224, 3, device="cuda").to(torch.bfloat16))
+    log(f"example trainer (vit, 20 steps, batch 64, bf16): exit {proc.returncode} in "
+        f"{wall:.1f} s; losses {losses}; checkpoints {files}; artifact "
+        f"{os.path.getsize(artifact) if os.path.exists(artifact) else 0} bytes, served "
+        f"{None if served is None else tuple(served.shape)} on {smi}")
+    steps = [line["step"] for line in lines]
+    if proc.returncode != 0 or steps != list(range(1, 21)) \
+            or not all(math.isfinite(v) for v in losses) \
+            or files != ["checkpoint_20.pt"] or served is None \
+            or not bool(torch.isfinite(served).all()):
+        raise AssertionError(f"example trainer failed: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+
+
 def main() -> int:
     # ScalableViT's plain training path peaks at 72 GB of the card's 80 (its
     # stage-1 IWSA keeps (64, 2, 4096, 4096) score maps for the backward);
@@ -4431,9 +4849,6 @@ def main() -> int:
                 "ln_gemm": ln_gemm, "ln_gemm_bwd": ln_gemm_backward,
                 "attention_nb": attention_nb, "attention_nb_bwd": attention_nb_backward,
                 "proj_mlp": proj_mlp, "proj_mlp_bwd": proj_mlp_backward}
-
-    def per_layer(cfg, *names):
-        return {name: cfg["depth"] for name in names}
 
     def path(name, phase, *args, **kwargs):
         torch.cuda.empty_cache()
@@ -4663,6 +5078,15 @@ def main() -> int:
          CCT_SIZE, 45, smi, counters)
     # The blocks past 512 tokens: the mha route's path, then its kernels' checks.
     path("mha route", mha_route_phase, results, smi, counters)
+    # The infrastructure: the data-parallel step (then checkpoint and resume),
+    # the serving exports, the example trainer; scratch files under build/.
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
+    os.makedirs(workdir, exist_ok=True)
+    path("data-parallel B/32", data_parallel_phase, smi, counters, workdir)
+    path("export", export_phase, smi, counters)
+    with clock("example trainer"):
+        example_phase(torch, smi, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     with clock("profiles"):
         # The LayerNorm-backward dgrad: rows 2 and 4 (or 5) of every ViT

@@ -2186,3 +2186,47 @@ def test_pit_serves_and_trains_through_its_kernels(cuda):
               model.pool_1.cls_ff.weight):
         assert p.grad.abs().max() > 0
     assert losses[2] < losses[0]
+
+
+# ---- the serving kernel ops as registered ops (torch.export) ---------------------------------
+
+from torch_op_cases import NAMES as OP_NAMES, case as op_case, fake_output  # noqa: E402
+from vit_tpu_torch.interop.export import export_forward, load_forward, model_params  # noqa: E402
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_serving_op_is_the_direct_launch(cuda, name):
+    """Each registered op gives exactly its launcher's output on the card,
+    and its fake implementation the kernel output's shape, dtype, strides
+    and device (what an exported program's graph records)."""
+    c = op_case(name, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = c.entry(*c.args, **c.kwargs)
+        want = c.direct(*c.args, **c.kwargs)
+    assert torch.equal(got, want)
+    fake = fake_output(c.op, c.op_args)
+    assert (fake.shape, fake.dtype, fake.stride(), fake.device) == \
+        (got.shape, got.dtype, got.stride(), got.device)
+
+
+@pytest.mark.parametrize("bake", [False, True])
+def test_export_round_trip_on_the_card(cuda, bake):
+    """A bf16 ViT's artifact holds the block ops, gives the eager model's
+    output bit for bit, and launches the kernels as often (2 layers: rows 1
+    and 3 twice each)."""
+    torch.manual_seed(0)
+    model = ViT(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2, heads=2,
+                mlp_dim=128, dim_head=32, compute_dtype=torch.bfloat16)
+    img = torch.randn(4, 32, 32, 3, device=cuda)
+    served = load_forward(export_forward(model, img.shape, bake_params=bake))
+    counters = (fused_attention_block, fused_mlp)
+    with torch.no_grad():
+        for c in counters:
+            c.launches = 0
+        want = model.eval()(img)
+        eager = [c.launches for c in counters]
+        for c in counters:
+            c.launches = 0
+        got = served(img) if bake else served(model_params(model), img)
+    assert eager == [2, 2] and [c.launches for c in counters] == eager
+    assert torch.equal(got, want)

@@ -300,3 +300,61 @@ def test_scalable_vit_ops_take_the_plain_version_on_cpu(dtype):
     assert torch.equal(y, fused_cross_attention_reference(*cross, 2, 40, 32))
     assert torch.equal(out, flash_attention_packed_forward_reference(q, k, v, 2)[0])
     assert y.dtype == out.dtype == dtype and out.shape == (2, 16, 64)
+
+
+def vit_tpu_public_names(module: str) -> set:
+    """The public names a ``vit_tpu`` module defines (functions, classes and
+    assignments at its top level, no imports), read from its source."""
+    tree = ast.parse((REPO / (module.replace(".", "/") + ".py")).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+# vit_tpu's public names without a counterpart in the port, each with its reason.
+NO_COUNTERPART = {
+    "vit_tpu.parallel.train": {
+        # Tensor parallelism (the mesh's model axis): ROADMAP's next slice.
+        "state_shardings", "bn_state_shardings",
+        # The BatchNorm step: the port's make_train_step updates the running
+        # statistics in place (and, under a mesh, synchronises them).
+        "TrainStateWithModelState", "create_bn_train_state", "make_bn_train_step",
+    },
+}
+
+
+@pytest.mark.parametrize("module", [
+    "vit_tpu.interop.checkpoint", "vit_tpu.interop.export", "vit_tpu.parallel.mesh",
+    "vit_tpu.parallel.train", "vit_tpu.utils.data", "vit_tpu.utils.debug",
+    "vit_tpu.utils.metrics", "vit_tpu.utils.profiling",
+])
+def test_infrastructure_modules_have_counterparts(module):
+    """Every public name of ``vit_tpu``'s training, checkpoint, export and
+    utility modules has a counterpart in the port's module of the same path,
+    but those listed in ``NO_COUNTERPART``, which the port does not have."""
+    import importlib
+
+    port = importlib.import_module(module.replace("vit_tpu", "vit_tpu_torch", 1))
+    names = vit_tpu_public_names(module)
+    skipped = NO_COUNTERPART.get(module, set())
+    assert skipped <= names
+    missing = sorted(n for n in names - skipped if not hasattr(port, n))
+    assert not missing, f"{port.__name__} lacks {missing}"
+    assert not any(hasattr(port, n) for n in skipped)
+
+
+@pytest.mark.parametrize("path", ["vit_tpu_torch", "chip_smoke.py",
+                                  "examples/train_classifier_torch.py"])
+def test_port_imports_neither_jax_nor_vit_tpu_nor_their_formats(path):
+    """No JAX, Flax, ``vit_tpu``, safetensors or orbax import in the port's
+    package, its smoke or its example trainer."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|vit_tpu|safetensors|orbax)(\.|\s|$)",
+                         re.M)
+    root = REPO / path
+    files = sorted(root.rglob("*.py")) if root.is_dir() else [root]
+    assert files
+    assert not [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]

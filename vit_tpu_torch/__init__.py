@@ -62,7 +62,12 @@ from ``make_train_step``'s ``step(images, labels, generator=g)``.  The Efficient
 ``Transformer`` runs the same block kernels there.  The training objectives (``MAE``, ``SimMIM``, ``MPP``,
 ``DistillWrapper`` over the ``Distillable*`` students, ``DistillableT2TViT``
 among them) train with
-``vit_tpu_torch.parallel.train.make_loss_train_step``.  On the CPU the same
+``vit_tpu_torch.parallel.train.make_loss_train_step``.  Both steps train
+data-parallel over ``parallel.mesh.make_mesh()``'s ``data`` axis, one
+process per card; ``interop.checkpoint`` saves and resumes, ``interop.export``
+exports a serving forward with ``torch.export`` (the kernel entries are
+registered ops), and ``utils`` holds the input pipeline and the debug,
+metrics and profiling tools (``docs/TORCH.md``).  On the CPU the same
 ops run their plain PyTorch versions.  Imports ``torch``, never JAX.
 """
 

@@ -54,6 +54,8 @@ refused, as is ``"hybrid"`` anywhere but the ViT's ``fused_attention``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -293,7 +295,18 @@ class BatchNorm(nn.Module):
     (and their gradient) are its own, and the running ones are updated
     beside it.  (Flax takes the variance as ``E[x²] - E[x]²``; the two
     agree to f32 rounding.)
+
+    Inside :func:`synced_batch_norm` with a process group (a data-parallel
+    train step over more than one rank), training takes the statistics of
+    the global batch, as ``vit_tpu``'s BatchNorm under a mesh: one
+    differentiable all-reduce of the f32 per-channel sums of x and x² and
+    the row count, then the mean and the biased variance ``E[x²] - E[x]²``,
+    with which it normalises and updates the running statistics, so every
+    rank holds the same buffers.  Without a group the forward is the one
+    above.
     """
+
+    sync_group = None  # set by synced_batch_norm for the step's forward
 
     def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5, *,
                  device=None, dtype=None):
@@ -307,6 +320,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.float().reshape(-1, x.shape[-1])
+        if self.training and self.sync_group is not None:
+            return self._synced(rows).reshape(x.shape).to(x.dtype)
         if self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(rows, 0, correction=0)
@@ -316,6 +331,37 @@ class BatchNorm(nn.Module):
                          None if self.training else self.running_var, self.weight.float(),
                          self.bias.float(), self.training, 0.0, self.eps)
         return y.reshape(x.shape).to(x.dtype)
+
+    def _synced(self, rows: torch.Tensor) -> torch.Tensor:
+        """Training over the global batch of ``sync_group``'s ranks."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = rows.shape[1]
+        count = torch.full((1,), float(rows.shape[0]), device=rows.device)
+        sums = all_reduce(torch.cat([rows.sum(0), rows.square().sum(0), count]),
+                          group=self.sync_group)
+        mean = sums[:c] / sums[-1]
+        var = sums[c:2 * c] / sums[-1] - mean.square()
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return (rows - mean) * torch.rsqrt(var + self.eps) * self.weight.float() \
+            + self.bias.float()
+
+
+@contextlib.contextmanager
+def synced_batch_norm(model: nn.Module, group):
+    """Every :class:`BatchNorm` of ``model`` takes its training statistics
+    over ``group``'s ranks for the block (nothing changes with ``group``
+    None)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)] if group is not None else []
+    for m in norms:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sync_group = None
 
 
 class MLP(nn.Module):

@@ -46,7 +46,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from vit_tpu_torch.ops import _build
-from vit_tpu_torch.ops._checks import KERNEL_DTYPES, launch_stream
+from vit_tpu_torch.ops._checks import KERNEL_DTYPES, launch_stream, needs_grad
 
 # (dk, dv) pairs with a kernel instance (csrc/flash_attention.cu); (192, 192)
 # takes T2T-ViT's first token transformer, one head of 147 padded to 192 by
@@ -293,11 +293,33 @@ def flash_attention(q, k, v, scale: float | None = None):
     dv)`` ∈ ``SUPPORTED_WIDTHS`` and the strides of
     :func:`check_flash_tensors`, and raises on anything else; on the CPU it
     runs the plain versions.  ``flash_attention.launches`` counts forward
-    kernel launches."""
-    return FlashAttentionFunction.apply(q, k, v, _scale(q, scale), flash_attention)
+    kernel launches.  Without autograd it is :func:`flash_attention_op`."""
+    scale = _scale(q, scale)
+    if needs_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, scale, flash_attention)
+    return flash_attention_op(q, k, v, float(scale))
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::flash_attention", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The serving forward as a registered op, which ``torch.export`` keeps
+    as one node: the out of :func:`flash_attention_forward` (on CUDA the
+    kernel, counted on ``flash_attention.launches``, its output token-major;
+    on the CPU the plain version, contiguous)."""
+    return flash_attention_forward(q, k, v, scale)[0]
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, scale):
+    b, h, n_q = q.shape[:3]
+    if q.device.type == "cpu":
+        return q.new_empty((b, h, n_q, v.shape[-1]))
+    return _token_major(b, h, n_q, v.shape[-1], q)
 
 # vit_tpu's K/V-streaming tier (n_k > 4096) is the same kernel here: the
 # forward streams K/V tiles at any n_k.  One op, one launch counter.

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from vit_tpu_torch.ops._checks import needs_grad
 from vit_tpu_torch.ops.flash_attention import (
     FlashAttentionFunction, flash_attention_forward, flash_attention_forward_reference,
     flash_backward_reference,
@@ -94,9 +95,27 @@ def flash_attention_packed(q, k, v, heads: int, scale: float | None = None):
     if q.shape[-1] % heads or v.shape[-1] % heads:
         raise ValueError(f"flash_attention_packed: widths {q.shape[-1]} and {v.shape[-1]} do "
                          f"not split into {heads} heads")
+    scale = _scale(q, heads, scale)
+    if not needs_grad(q, k, v):
+        return flash_attention_packed_op(q, k, v, heads, float(scale))
     return merge_heads(FlashAttentionFunction.apply(
-        split_heads(q, heads), split_heads(k, heads), split_heads(v, heads),
-        _scale(q, heads, scale), flash_attention_packed))
+        split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale,
+        flash_attention_packed))
 
 
 flash_attention_packed.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::flash_attention_packed", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def flash_attention_packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                              scale: float) -> torch.Tensor:
+    """The serving forward as a registered op, which ``torch.export`` keeps
+    as one node: the out of :func:`flash_attention_packed_forward` (on CUDA
+    the kernel, counted), contiguous ``(b, n_q, heads·dv)``."""
+    return flash_attention_packed_forward(q, k, v, heads, scale)[0]
+
+
+@flash_attention_packed_op.register_fake
+def _(q, k, v, heads, scale):
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])

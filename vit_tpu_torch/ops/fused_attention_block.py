@@ -661,8 +661,51 @@ def _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps):
         return FusedAttentionBlockFunction.apply(x, gamma, beta, wqkv, wo, bo, bias, heads,
                                                  dim_head, scale, eps)
     gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
-    if x.device.type == "cpu":
-        return fused_attention_block_reference(x, gamma, beta, wqkv, wo, bo,
-                                               heads, dim_head, scale, eps, bias)
-    return _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps,
-                           bias)[0]
+    if bias is None:
+        return fused_attention_block_op(x, gamma, beta, wqkv, wo, bo, heads, dim_head,
+                                        float(scale), eps)
+    return fused_attention_block_bias_op(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head,
+                                         float(scale), eps)
+
+
+# The serving forwards as registered ops, which torch.export keeps as one node
+# each: on CUDA the kernels (_launch_forward, counted), on the CPU the plain
+# version; gamma and beta in x's dtype.
+
+@torch.library.custom_op("vit_tpu_torch::fused_attention_block", mutates_args=(),
+                         device_types="cuda")
+def fused_attention_block_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                             wqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor, heads: int,
+                             dim_head: int, scale: float, eps: float) -> torch.Tensor:
+    return _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps)[0]
+
+
+@torch.library.custom_op("vit_tpu_torch::fused_attention_block_bias", mutates_args=(),
+                         device_types="cuda")
+def fused_attention_block_bias_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                                  wqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                                  bias: torch.Tensor, heads: int, dim_head: int, scale: float,
+                                  eps: float) -> torch.Tensor:
+    return _launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, bias)[0]
+
+
+@fused_attention_block_op.register_kernel("cpu")
+def _(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps):
+    return fused_attention_block_reference(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale,
+                                           eps)
+
+
+@fused_attention_block_bias_op.register_kernel("cpu")
+def _(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps):
+    return fused_attention_block_reference(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale,
+                                           eps, bias)
+
+
+@fused_attention_block_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)
+
+
+@fused_attention_block_bias_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)

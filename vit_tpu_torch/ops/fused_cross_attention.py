@@ -306,9 +306,27 @@ def fused_cross_attention(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: 
     if needs_grad(x, xn, wq, k, v, wo, bo):
         return FusedCrossAttentionFunction.apply(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v,
                                                  scale)
-    if x.device.type == "cpu":
-        return fused_cross_attention_reference(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
-    return _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)[0]
+    return fused_cross_attention_op(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, float(scale))
 
 
 fused_cross_attention.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::fused_cross_attention", mutates_args=(),
+                         device_types="cuda")
+def fused_cross_attention_op(x: torch.Tensor, xn: torch.Tensor, wq: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor, wo: torch.Tensor,
+                             bo: torch.Tensor, heads: int, dh_k: int, dh_v: int,
+                             scale: float) -> torch.Tensor:
+    """The serving forward as a registered op, which ``torch.export`` keeps
+    as one node: on CUDA the kernels (:func:`_launch_forward`, counted), on
+    the CPU :func:`fused_cross_attention_reference`."""
+    return _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)[0]
+
+
+fused_cross_attention_op.register_kernel("cpu")(fused_cross_attention_reference)
+
+
+@fused_cross_attention_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)

@@ -421,11 +421,26 @@ def ln_gemm(x, gamma, beta, w, eps: float = 1e-3, nsplit: int = 1):
         raise ValueError(f"ln_gemm: {w.shape[0]} output columns do not split {nsplit} ways")
     if needs_grad(x, gamma, beta, w):
         return LnGemmFunction.apply(x, gamma, beta, w, eps, nsplit)
-    out = _ln_gemm_rows(x, gamma.to(x.dtype), beta.to(x.dtype), w, eps)[0]
+    out = ln_gemm_op(x, gamma.to(x.dtype), beta.to(x.dtype), w, eps)
     return out.chunk(nsplit, -1) if nsplit > 1 else out
 
 
 ln_gemm.launches = 0
+
+
+# The serving forwards as registered ops, which torch.export keeps as one node
+# each: on CUDA the kernels (counted), on the CPU the plain versions.
+
+@torch.library.custom_op("vit_tpu_torch::ln_gemm", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def ln_gemm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    return _ln_gemm_rows(x, gamma, beta, w, eps)[0]
+
+
+@ln_gemm_op.register_fake
+def _(x, gamma, beta, w, eps):
+    return x.new_empty(x.shape[:-1] + w.shape[:1])
 
 
 # ---- attention_nb: attention over (n, b, heads·dh) rows -------------------------------------
@@ -494,13 +509,25 @@ def attention_nb(q, k, v, heads: int, dim_head: int, scale=None):
     raises on anything else.  ``attention_nb.launches`` counts forward
     launches."""
     if not needs_grad(q, k, v):
-        return attention_nb_forward(q, k, v, heads, dim_head, scale, need_lse=False)[0]
+        return attention_nb_op(q, k, v, heads, dim_head, float(_nb_scale(dim_head, scale)))
     _check_heads(q, heads, dim_head)
     return ShortAttentionFunction.apply(q, k, v, _nb_scale(dim_head, scale), heads,
                                         (attention_nb, attention_nb_backward))
 
 
 attention_nb.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::attention_nb", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def attention_nb_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                    dim_head: int, scale: float) -> torch.Tensor:
+    return attention_nb_forward(q, k, v, heads, dim_head, scale, need_lse=False)[0]
+
+
+@attention_nb_op.register_fake
+def _(q, k, v, heads, dim_head, scale):
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])
 
 
 # ---- proj_mlp: y = x + o·Woᵀ + bo;  z = y + fc2(gelu(fc1(LN(y)))) --------------------------
@@ -656,8 +683,21 @@ def proj_mlp(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps: float = 1e-3):
     counts forward launches."""
     if needs_grad(x, o, wo, bo, gamma, beta, w1, b1, w2, b2):
         return ProjMLPFunction.apply(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps)
-    return _proj_mlp_rows(x, o, wo, bo, gamma.to(x.dtype), beta.to(x.dtype), w1, b1, w2, b2,
-                          eps, save_residuals=False)[0]
+    return proj_mlp_op(x, o, wo, bo, gamma.to(x.dtype), beta.to(x.dtype), w1, b1, w2, b2, eps)
 
 
 proj_mlp.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::proj_mlp", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def proj_mlp_op(x: torch.Tensor, o: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                gamma: torch.Tensor, beta: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor, eps: float) -> torch.Tensor:
+    return _proj_mlp_rows(x, o, wo, bo, gamma, beta, w1, b1, w2, b2, eps,
+                          save_residuals=False)[0]
+
+
+@proj_mlp_op.register_fake
+def _(x, *args):
+    return x.new_empty(x.shape)

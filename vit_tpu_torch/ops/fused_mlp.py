@@ -363,10 +363,24 @@ def fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-3):
     """
     if needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return FusedMLPFunction.apply(x, gamma, beta, w1, b1, w2, b2, eps)
-    gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps)
-    return _launch_forward(x, gamma, beta, w1, b1, w2, b2, eps, save_residuals=False)[0]
+    return fused_mlp_op(x, gamma.to(x.dtype), beta.to(x.dtype), w1, b1, w2, b2, eps)
 
 
 fused_mlp.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::fused_mlp", mutates_args=(), device_types="cuda")
+def fused_mlp_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, eps: float) -> torch.Tensor:
+    """The serving forward as a registered op, which ``torch.export`` keeps
+    as one node: on CUDA the kernel (:func:`_launch_forward`, counted), on
+    the CPU :func:`fused_mlp_reference`; ``gamma``/``beta`` in x's dtype."""
+    return _launch_forward(x, gamma, beta, w1, b1, w2, b2, eps, save_residuals=False)[0]
+
+
+fused_mlp_op.register_kernel("cpu")(fused_mlp_reference)
+
+
+@fused_mlp_op.register_fake
+def _(x, gamma, beta, w1, b1, w2, b2, eps):
+    return torch.empty_like(x)

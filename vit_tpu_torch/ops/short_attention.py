@@ -309,7 +309,22 @@ def short_attention(q, k, v, scale: float | None = None):
     if needs_grad(q, k, v):
         return ShortAttentionFunction.apply(q, k, v, scale, None,
                                             (short_attention, short_attention_backward))
-    return short_attention_forward(q, k, v, scale, need_lse=False)[0]
+    return short_attention_op(q, k, v, float(scale))
 
 
 short_attention.launches = 0
+
+
+@torch.library.custom_op("vit_tpu_torch::short_attention", mutates_args=(),
+                         device_types=("cuda", "cpu"))
+def short_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The serving forward as a registered op, which ``torch.export`` keeps
+    as one node: :func:`short_attention_forward` without lse (on CUDA the
+    kernel, counted; on the CPU the plain version)."""
+    return short_attention_forward(q, k, v, scale, need_lse=False)[0]
+
+
+@short_attention_op.register_fake
+def _(q, k, v, scale):
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])

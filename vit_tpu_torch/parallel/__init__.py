@@ -1,1 +1,2 @@
-"""Training steps (port of ``vit_tpu/parallel``; one device so far)."""
+"""Process group, device mesh and train steps (port of ``vit_tpu/parallel``;
+data parallelism, tensor parallelism not yet)."""
