@@ -328,6 +328,22 @@ Phases, one line each (any failure raises and exits non-zero):
    ``examples/train_classifier_torch.py --model vit --steps 20 --batch 64
    --bf16`` as a subprocess with a checkpoint directory and an artifact:
    exit 0, finite losses, a checkpoint at step 20, an artifact that serves.
+33. tensor-parallel kernels (:func:`tp_kernel_phase`, after the hybrid
+   kernels): rows 1-4's split forms at one rank's slice of bench.py's B/32
+   over TP = 2 ranks (8 heads of 64, 1024 hidden units): the f32-partial
+   forward GEMM on both GEMM kernels, the bias-residual pass, both blocks'
+   partial forwards and backwards and the LayerNorm-backward entry, each
+   against its plain version and twice bit for bit; the two ranks' partials
+   summed and ended by the pass or the LayerNorm backward against the
+   unsplit kernels' y, dx and sums; times beside the plain versions, the
+   composition at 8 heads, the bounds and the unsplit kernels.
+34. tensor-parallel B/32 (:func:`tp_path_phase`, after phase 30): ViT-B/32
+   split over a (1, 2) mesh, two processes on the one card over gloo, from
+   the bare step's weights: serving 3 x 128 images and 3 training steps,
+   rows 1-4 on their split forms 6 times each way a step on each rank; the
+   logits held by the serving check, the gathered step-1 gradients against
+   the plain bf16 path's error, the losses; the step and its collectives
+   timed (two processes time-sharing one card: not a TP speed).
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
@@ -336,7 +352,8 @@ MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
 CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
 merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
 training); the blocks past 512 tokens; the data-parallel B/32 step; the
-exported programs' forwards, each from 0)
+exported programs' forwards; the tensor-parallel B/32 path, its ranks'
+serving and training runs, each from 0)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
@@ -4710,6 +4727,655 @@ def example_phase(torch, smi, workdir):
                              f"{proc.stderr[-4000:]}")
 
 
+# ---- tensor parallelism (the mesh's model axis) -------------------------------
+
+TP = 2                    # the model axis of the tensor-parallel phases
+# bench.py's ViT-B/32 block: b, n, d, heads, dim_head, hidden; per rank at tp 2:
+# 8 heads (local qkv width 1536, out-projection K 512) and 1024 hidden units.
+TP_SHAPE = (128, 65, 1024, 16, 64, 2048)
+TP_STEPS = 3
+TP_SEED = 71
+TP_LABEL = "two processes time-sharing one card over gloo: not a TP speed"
+TP_JOIN_S = 600
+# The split forms' JSON names, each with its source and the TPU kernels
+# whose split form it is (vit_tpu has none of its own: GSPMD gathers a
+# Pallas call's operands).
+TP_SOURCES = {
+    "fused_attention_block_split": ("vit_tpu_torch/csrc/fused_attention_block.cu",
+                                    "vit_tpu/ops/fused_attention_block.py:106"),
+    "fused_attention_block_split_bwd": ("vit_tpu_torch/csrc/fused_attention_block.cu",
+                                        "vit_tpu/ops/fused_attention_block.py:169"),
+    "fused_mlp_split": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147"),
+    "fused_mlp_split_bwd": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:177"),
+    "forward_gemm_f32": ("vit_tpu_torch/csrc/gemm_wgmma.cu",
+                         "vit_tpu/ops/fused_attention_block.py:106, vit_tpu/ops/fused_mlp.py:147"),
+    "bias_residual": ("vit_tpu_torch/csrc/bias_residual.cu",
+                      "vit_tpu/ops/fused_attention_block.py:106, vit_tpu/ops/fused_mlp.py:147"),
+    "ln_bwd": ("vit_tpu_torch/csrc/layernorm.cu",
+               "vit_tpu/ops/fused_attention_block.py:169, vit_tpu/ops/fused_mlp.py:177"),
+}
+COUNTED_F32 = 4  # csrc/kernels.cuh kCountForwardF32: launch_forward_gemm's f32 partial sums
+
+
+def counter_objects():
+    """Every kernel's launch counter by name, as the main paths read them
+    (each wrapper's ``.launches``; the blocks' attention middles and the
+    cross-attention backward also by route)."""
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
+    from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
+    from vit_tpu_torch.ops.fused_attention_block import (
+        BACKWARD_ROUTES, FORWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
+        fused_attention_block_bias, fused_attention_block_bias_backward,
+        fused_attention_block_partial_backward, fused_attention_block_partial_forward,
+    )
+    from vit_tpu_torch.ops.fused_cross_attention import (
+        BACKWARD_ROUTES as CROSS_BACKWARD_ROUTES, fused_cross_attention,
+        fused_cross_attention_backward,
+    )
+    from vit_tpu_torch.ops.fused_hybrid import (
+        attention_nb, attention_nb_backward, ln_gemm, ln_gemm_backward, proj_mlp,
+        proj_mlp_backward,
+    )
+    from vit_tpu_torch.ops.fused_mlp import (
+        fused_mlp, fused_mlp_backward, fused_mlp_partial_backward, fused_mlp_partial_forward,
+    )
+    from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
+
+    return {"fused_attention_block": fused_attention_block, "fused_mlp": fused_mlp,
+            "fused_attention_block_bwd": fused_attention_block_backward,
+            "fused_mlp_bwd": fused_mlp_backward,
+            "fused_attention_block_bias": fused_attention_block_bias,
+            "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
+            # the blocks' attention middles by route (fused_attention_block.py
+            # attention_route), each direction: short_fwd / short_bwd up to 512 tokens,
+            # with or without a bias, else the flash kernels (PiT's stage 1 and the
+            # "mha route" path; the other paths hold them at 0)
+            "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
+            "short route, forward": FORWARD_ROUTES["short"],
+            "mha route, forward": FORWARD_ROUTES["mha"],
+            "flash_attention": flash_attention, "flash_backward": flash_backward,
+            "fused_cross_attention": fused_cross_attention,
+            "fused_cross_attention_bwd": fused_cross_attention_backward,
+            # its backward by route (fused_cross_attention.py backward_route): one
+            # cross_bwd kernel up to 128 channels, cross_bwd between gemm_wgmma's
+            # dgrads from 129 (the four steps past 128 keys run on no main path:
+            # the cross-attention phase holds them at 384 px)
+            "cross backward, one kernel": CROSS_BACKWARD_ROUTES[1],
+            "cross backward, split": CROSS_BACKWARD_ROUTES[2],
+            "flash_attention_packed": flash_attention_packed,
+            "short_attention": short_attention,
+            "short_attention_bwd": short_attention_backward,
+            "ln_gemm": ln_gemm, "ln_gemm_bwd": ln_gemm_backward,
+            "attention_nb": attention_nb, "attention_nb_bwd": attention_nb_backward,
+            "proj_mlp": proj_mlp, "proj_mlp_bwd": proj_mlp_backward,
+            # rows 1-4's split forms (tensor parallelism; the tensor-parallel path
+            # alone, in its two processes) and the passes that end them
+            "fused_attention_block_split": fused_attention_block_partial_forward,
+            "fused_attention_block_split_bwd": fused_attention_block_partial_backward,
+            "fused_mlp_split": fused_mlp_partial_forward,
+            "fused_mlp_split_bwd": fused_mlp_partial_backward,
+            "bias_residual": tp.bias_residual, "ln_bwd": tp.ln_backward}
+
+
+def tp_bounds(b, n, d, heads, dim_head, hidden):
+    """Bounds of the split forms at one rank's shape (``heads`` and
+    ``hidden`` the local counts; bf16 activations and weights, f32 partial
+    sums), each input read once and each output written once."""
+    rows, inner = b * n, heads * dim_head
+    attn = 2 * b * heads * n * n * dim_head
+    act, acc = rows * d * 2, rows * d * 4  # one (rows, d) bf16 tensor; its f32 sum
+    return {
+        # x, γ, β, Wqkv_r, Wo_r -> s
+        "fused_attention_block_split": bound(8 * rows * d * inner + 2 * attn,
+                                             act + 4 * d + 8 * d * inner + acc),
+        # dy, qkv, oattn, lse, Wqkv_r, Wo_r -> dqkv, doattn, dxn
+        "fused_attention_block_split_bwd": bound(
+            8 * rows * d * inner + 5 * attn,
+            act + 2 * (rows * 4 * inner * 2) + 4 * b * heads * n + 8 * d * inner + acc),
+        # x, γ, β, W1_r, b1_r, W2_r -> s
+        "fused_mlp_split": bound(4 * rows * d * hidden, act + 4 * d + 4 * d * hidden
+                                 + 2 * hidden + acc),
+        # dy, h, W1_r, W2_r -> dh, gact, db1, dxn
+        "fused_mlp_split_bwd": bound(4 * rows * d * hidden,
+                                     act + 3 * rows * hidden * 2 + 4 * d * hidden
+                                     + 4 * hidden + acc),
+        # oattn_r (rows, inner) · Wo_rᵀ -> f32; g_r (rows, hidden) · W2_rᵀ -> f32
+        "forward_gemm_f32": bound(2 * rows * d * inner, rows * inner * 2 + d * inner * 2 + acc),
+        "forward_gemm_f32 (fc2)": bound(2 * rows * d * hidden,
+                                        rows * hidden * 2 + d * hidden * 2 + acc),
+        # s, b, x -> y
+        "bias_residual": bound(2 * rows * d, acc + 2 * act + 2 * d),
+        # x, dxn, γ, dy -> dx and f32 [dγ | dβ | Σ dy]
+        "ln_bwd": bound(10 * rows * d, 3 * act + acc + 2 * d + 12 * d),
+    }
+
+
+def tp_kernel_phase(torch, results, smi):
+    """The split forms of rows 1-4 at one rank's shapes of bench.py's
+    ViT-B/32 split over TP = 2 ranks (b 128, n 65, d 1024, 8 heads of 64,
+    1024 hidden units), seeded bf16 inputs and one full set of weights cut
+    into the ranks' slices (``parallel/sharding.py``'s ``shard_tensor``):
+    each against its plain version, twice bit for bit (the f32-partial
+    forward GEMM on both GEMM kernels at the out-projection's K 512 and fc2's
+    K 1024; the bias-residual pass; both blocks' partial forwards and, fed
+    their own residuals, backwards; the LayerNorm-backward entry).  Then the
+    two ranks emulated in one process, their partials summed (the all-reduce
+    of two ranks adds the same two terms) and the block ended by the pass or
+    the LayerNorm backward, against the unsplit kernels' y, dx and sums at
+    the full shape.  Times of each split form (rank 0's slice), its plain
+    version, PyTorch's composition of the same function at 8 heads
+    (F.layer_norm + F.linear + SDPA + F.linear; autograd through it for the
+    backwards) and the bound, beside the unsplit kernel at the full shape;
+    stored under ``results["tensor-parallel"]``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops import fused_hybrid as fh
+    from vit_tpu_torch.ops import fused_mlp as fm
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.parallel.sharding import COLUMN, QKV, ROW, shard_tensor
+
+    b, n, d, heads, dh, hidden = TP_SHAPE
+    hl, hid = heads // TP, hidden // TP
+    rows, inner, scale, eps = b * n, heads * dh, dh ** -0.5, 1e-3
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    x, gamma, beta = rn(b, n, d), 1.0 + rn(d, scale=0.1), rn(d, scale=0.1)
+    wqkv, wo, bo = rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5), \
+        rn(d, scale=0.1)
+    w1, b1 = rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1)
+    w2, b2 = rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1)
+    dy = rn(b, n, d, scale=0.1)
+    ranks = [dict(wqkv=shard_tensor(wqkv, QKV, r, TP), wo=shard_tensor(wo, ROW, r, TP),
+                  w1=shard_tensor(w1, COLUMN, r, TP), b1=shard_tensor(b1, COLUMN, r, TP),
+                  w2=shard_tensor(w2, ROW, r, TP)) for r in range(TP)]
+    w = ranks[0]
+    bounds = tp_bounds(b, n, d, hl, dh, hid)
+    out = {}
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if p is not None and not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    def hold(name, got, ref, residuals, f32_sums=()):
+        err = check_outputs(torch, name, [t for i, t in enumerate(got) if i not in f32_sums],
+                            [t for i, t in enumerate(ref) if i not in f32_sums], residuals)
+        for i in f32_sums:
+            err = max(err, check_dbias(torch, name, got[i], ref[i], f"sum {i}"))
+        return err
+
+    # The f32-partial forward GEMM (kEpiStoreF32 over kWeightNK) on both kernels.
+    gemm = {}
+    for label, k in (("out-projection", hl * dh), ("fc2", hid)):
+        a, wt = rn(rows, k), (w["wo"] if k == hl * dh else w["w2"])
+        ref = fh.gemm_reference(a, wt, "f32")[:1]
+        for kernel in ("wgmma", "mma_sync"):
+            got = twice(f"forward GEMM f32 {label} {kernel}",
+                        lambda: fh.gemm_wgmma(a, wt, "f32", kernel=kernel)[:1])
+            gemm[f"{label} {kernel}"] = hold(f"forward GEMM f32 {label} {kernel}", got, ref, {})
+        ms = interleaved_medians(torch, {
+            "kernel": lambda: fh.gemm_wgmma(a, wt, "f32"),
+            "mma_sync": lambda: fh.gemm_wgmma(a, wt, "f32", kernel="mma_sync"),
+            "plain": lambda: fh.gemm_reference(a, wt, "f32"),
+            "library": lambda: F.linear(a, wt)}, rounds=3, calls=5)
+        key = "forward_gemm_f32" if label == "out-projection" else "forward_gemm_f32 (fc2)"
+        out[key] = dict(err=max(gemm.values()), kernel=ms["kernel"], mma_sync=ms["mma_sync"],
+                        plain=ms["plain"], library=ms["library"], bound=bounds[key])
+
+    # The bias-residual pass.
+    s = torch.randn(b, n, d, generator=g, device=dev)
+    got = twice("bias_residual", lambda: [tp.bias_residual(s, bo, x)])
+    err = hold("bias_residual", got, [tp.bias_residual_reference(s, bo, x)], {0: x})
+    ms = interleaved_medians(torch, {"kernel": lambda: tp.bias_residual(s, bo, x),
+                                     "plain": lambda: tp.bias_residual_reference(s, bo, x)},
+                             rounds=3, calls=10)
+    out["bias_residual"] = dict(err=err, kernel=ms["kernel"], plain=ms["plain"], library=None,
+                                bound=bounds["bias_residual"])
+
+    # The attention block's split form, forward (serving and training) and backward.
+    def attn_fwd(training=False, r=w):
+        return fab.fused_attention_block_partial_forward(x, gamma, beta, r["wqkv"], r["wo"], hl,
+                                                         dh, scale, eps, training)
+
+    got = twice("fused_attention_block split", lambda: attn_fwd(True))
+    ref = fab.fused_attention_block_partial_forward_reference(x, gamma, beta, w["wqkv"], w["wo"],
+                                                              hl, dh, scale, eps)
+    err = hold("fused_attention_block split", got[:4], ref[:4], {})
+    # lse on the kernel's own qkv: a flipped rounding of qkv moves it past 1e-3
+    lse_err = (got[4] - fab.attention_lse_reference(got[2], hl, dh, scale)).abs().max().item()
+    if not lse_err <= LSE_ABS_TOL:
+        raise AssertionError(f"fused_attention_block split: lse differs by {lse_err}")
+    _, _, qkv_r, oattn_r, lse_r = got
+
+    def attn_bwd():
+        return fab.fused_attention_block_partial_backward(dy, qkv_r, oattn_r, lse_r, w["wqkv"],
+                                                          w["wo"], hl, dh, scale)
+
+    got_b = twice("fused_attention_block split backward", attn_bwd)
+    ref_b = fab.fused_attention_block_partial_backward_reference(dy, qkv_r, oattn_r, lse_r,
+                                                                 w["wqkv"], w["wo"], hl, dh, scale)
+    err_b = hold("fused_attention_block split backward", got_b, ref_b, {})
+
+    xn_leaf = F.layer_norm(x, (d,), gamma, beta, eps).detach().requires_grad_()
+
+    def attn_library(xn_):
+        q, k, v = F.linear(xn_, w["wqkv"]).view(b, n, 3, hl, dh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(b, n, hl * dh), w["wo"])
+
+    lib_y = attn_library(xn_leaf)
+    with torch.inference_mode():
+        fwd = interleaved_medians(torch, {
+            "kernel": attn_fwd,
+            "plain": lambda: fab.fused_attention_block_partial_forward_reference(
+                x, gamma, beta, w["wqkv"], w["wo"], hl, dh, scale, eps),
+            "library": lambda: attn_library(F.layer_norm(x, (d,), gamma, beta, eps)),
+            "with the pass": lambda: tp.bias_residual(attn_fwd()[0], bo, x),
+            "unsplit": lambda: fab.fused_attention_block(x, gamma, beta, wqkv, wo, bo, heads,
+                                                         dh, scale, eps)}, rounds=3, calls=5)
+    bwd = interleaved_medians(torch, {
+        "kernel": attn_bwd,
+        "plain": lambda: fab.fused_attention_block_partial_backward_reference(
+            dy, qkv_r, oattn_r, lse_r, w["wqkv"], w["wo"], hl, dh, scale),
+        "library": lambda: torch.autograd.grad(lib_y, xn_leaf, dy, retain_graph=True)},
+        rounds=3, calls=5)
+    out["fused_attention_block_split"] = dict(
+        err=err, kernel=fwd["kernel"], plain=fwd["plain"], library=fwd["library"],
+        with_pass=fwd["with the pass"], unsplit=fwd["unsplit"],
+        bound=bounds["fused_attention_block_split"])
+    out["fused_attention_block_split_bwd"] = dict(
+        err=err_b, kernel=bwd["kernel"], plain=bwd["plain"], library=bwd["library"],
+        bound=bounds["fused_attention_block_split_bwd"])
+    del lib_y, xn_leaf
+
+    # The fused MLP's split form.
+    def mlp_fwd(training=False, r=w):
+        return fm.fused_mlp_partial_forward(x, gamma, beta, r["w1"], r["b1"], r["w2"], eps,
+                                            training)
+
+    got = twice("fused_mlp split", lambda: mlp_fwd(True))
+    ref = fm.fused_mlp_partial_forward_reference(x, gamma, beta, w["w1"], w["b1"], w["w2"], eps)
+    err = hold("fused_mlp split", got, ref, {})
+    h_r = got[2]
+
+    def mlp_bwd():
+        return fm.fused_mlp_partial_backward(dy, h_r, w["w1"], w["w2"])
+
+    got_b = twice("fused_mlp split backward", mlp_bwd)
+    ref_b = fm.fused_mlp_partial_backward_reference(dy, h_r, w["w1"], w["w2"])
+    err_b = hold("fused_mlp split backward", got_b, ref_b, {}, f32_sums=(3,))
+    xn_leaf = F.layer_norm(x, (d,), gamma, beta, eps).detach().requires_grad_()
+
+    def mlp_library(xn_):
+        return F.linear(F.gelu(F.linear(xn_, w["w1"], w["b1"])), w["w2"])
+
+    lib_y = mlp_library(xn_leaf)
+    with torch.inference_mode():
+        fwd = interleaved_medians(torch, {
+            "kernel": mlp_fwd,
+            "plain": lambda: fm.fused_mlp_partial_forward_reference(x, gamma, beta, w["w1"],
+                                                                    w["b1"], w["w2"], eps),
+            "library": lambda: mlp_library(F.layer_norm(x, (d,), gamma, beta, eps)),
+            "with the pass": lambda: tp.bias_residual(mlp_fwd()[0], b2, x),
+            "unsplit": lambda: fm.fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps)},
+            rounds=3, calls=5)
+    bwd = interleaved_medians(torch, {
+        "kernel": mlp_bwd,
+        "plain": lambda: fm.fused_mlp_partial_backward_reference(dy, h_r, w["w1"], w["w2"]),
+        "library": lambda: torch.autograd.grad(lib_y, xn_leaf, dy, retain_graph=True)},
+        rounds=3, calls=5)
+    out["fused_mlp_split"] = dict(err=err, kernel=fwd["kernel"], plain=fwd["plain"],
+                                  library=fwd["library"], with_pass=fwd["with the pass"],
+                                  unsplit=fwd["unsplit"], bound=bounds["fused_mlp_split"])
+    out["fused_mlp_split_bwd"] = dict(err=err_b, kernel=bwd["kernel"], plain=bwd["plain"],
+                                      library=bwd["library"], bound=bounds["fused_mlp_split_bwd"])
+    del lib_y, xn_leaf
+
+    # The LayerNorm-backward entry, from an f32 dxn.
+    dxn = torch.randn(rows, d, generator=g, device=dev) * 0.1
+    got = twice("ln_bwd", lambda: tp.ln_backward(x, dxn, gamma, dy, eps))
+    ref = tp.ln_backward_residual_reference(x, dxn, gamma, dy, eps)
+    err = hold("ln_bwd", got, ref, {0: dy}, f32_sums=(1, 2, 3))
+    ms = interleaved_medians(torch, {
+        "kernel": lambda: tp.ln_backward(x, dxn, gamma, dy, eps),
+        "plain": lambda: tp.ln_backward_residual_reference(x, dxn, gamma, dy, eps)},
+        rounds=3, calls=10)
+    out["ln_bwd"] = dict(err=err, kernel=ms["kernel"], plain=ms["plain"], library=None,
+                         bound=bounds["ln_bwd"])
+
+    # Two ranks emulated: their partials summed, then the pass or the LayerNorm
+    # backward, against the unsplit kernels at the full shape.
+    emulated = {}
+    y, xn, qkv, oattn, lse = fab._launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale,
+                                                 eps, training=True)
+    split = [attn_fwd(True, r) for r in ranks]
+    y_split = tp.bias_residual(sum(p[0] for p in split), bo, x)
+    emulated["attention y"] = hold("two ranks' attention block", [y_split], [y], {0: x})
+    full_b = fab.fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale, eps,
+                                                oattn=oattn, lse=lse)
+    dxn_sum = sum(fab.fused_attention_block_partial_backward(dy, p[2], p[3], p[4], r["wqkv"],
+                                                             r["wo"], hl, dh, scale)[0]
+                  for p, r in zip(split, ranks))
+    got = tp.ln_backward(x, dxn_sum, gamma, dy, eps)
+    emulated["attention dx"] = hold("two ranks' attention block backward", got,
+                                    [full_b[0], *full_b[2:5]], {0: dy}, f32_sums=(1, 2, 3))
+    y, xn, h = fm._launch_forward(x, gamma, beta, w1, b1, w2, b2, eps, save_residuals=True)
+    split = [mlp_fwd(True, r) for r in ranks]
+    y_split = tp.bias_residual(sum(p[0] for p in split), b2, x)
+    emulated["mlp y"] = hold("two ranks' fused MLP", [y_split], [y], {0: x})
+    full_b = fm.fused_mlp_backward(dy, x, h, gamma, w1, w2, eps)
+    dxn_sum = sum(fm.fused_mlp_partial_backward(dy, p[2], r["w1"], r["w2"])[0]
+                  for p, r in zip(split, ranks))
+    got = tp.ln_backward(x, dxn_sum, gamma, dy, eps)
+    emulated["mlp dx"] = hold("two ranks' fused MLP backward", got,
+                              [full_b[0], full_b[3], full_b[4], full_b[6]], {0: dy},
+                              f32_sums=(1, 2, 3))
+    torch.cuda.synchronize()
+    results["tensor-parallel"] = out
+
+    def text(name):
+        r = out[name]
+        extra = "".join(f" {k}={r[k]:.4f}" for k in ("mma_sync", "with_pass", "unsplit")
+                        if k in r)
+        lib = "null" if r["library"] is None else f"{r['library']:.4f}"
+        return (f"{name} kernel={r['kernel']:.4f} plain={r['plain']:.4f} library={lib}{extra} "
+                f"bound={r['bound'][0]:.4f} ({r['bound'][1]}) max|err|={r['err']:.4g}")
+
+    log(f"tensor-parallel kernels [rank 0 of {TP} at B/32: b={b} n={n} d={d} {hl} heads of "
+        f"{dh}, {hid} hidden units]: each split form against its plain version within one "
+        f"unit plus {KERNEL_REL_TOL} and twice bit for bit; two ranks emulated (partials "
+        f"summed, then the pass or the LayerNorm backward) against the unsplit kernels, max|err| "
+        f"{json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: the "
+        f"composition at {hl} heads, F.layer_norm + F.linear + SDPA + F.linear, autograd for "
+        f"the backwards; with_pass: the partial and the pass; unsplit: the unsplit kernel at "
+        f"the full shape): " + "; ".join(text(k) for k in out) + f" on {smi}")
+    del x, dy, s, dxn, split
+
+
+def tp_rank(rank, port, workdir):
+    """One rank of :func:`tp_path_phase` (a spawned process on the one card):
+    joins a gloo group of TP processes, lays a (1, TP) mesh, and on
+    ViT-B/32@256 from TP_SEED's weights serves three requests of
+    INFRA_BATCH images (``cast_params`` bf16, eval, inference mode) and
+    trains (bf16 compute, f32 parameters, SGD(1e-3)): the step-1 gradients,
+    gathered to their whole shapes; TP_STEPS steps of ``make_train_step``
+    over the mesh, each counter from 0; the step timed.  Writes what it saw
+    to ``tp_rank<r>.pt`` in ``workdir``."""
+    import torch
+
+    from vit_tpu_torch import ViT, cast_params
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.parallel.mesh import (
+        data_group, initialize_distributed, make_mesh, model_group,
+    )
+    from vit_tpu_torch.parallel.sharding import gather_tensor, shard_params
+    from vit_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
+
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        initialize_distributed(f"127.0.0.1:{port}", TP, rank, backend="gloo", timeout_s=300)
+        mesh = make_mesh((1, TP))
+        lib, counters = _build.load(), counter_objects()
+        dev, size = torch.device("cuda"), ENTRY["image_size"]
+        f32_gemms = [0]  # the library's count since zero(): each take resets it there
+
+        def zero():
+            for c in counters.values():
+                c.launches = 0
+            lib.vit_take_launch_count(COUNTED_F32)
+            f32_gemms[0] = 0
+
+        def counts():
+            f32_gemms[0] += lib.vit_take_launch_count(COUNTED_F32)
+            return {**{k: c.launches for k, c in counters.items()},
+                    "forward_gemm_f32": f32_gemms[0]}
+
+        # Serving, as serving_phase draws its weights and requests.
+        g = torch.Generator(device=dev).manual_seed(TP_SEED)
+        served = shard_params(mesh, cast_params(ViT(**ENTRY, device=dev, generator=g),
+                                                torch.bfloat16).eval())
+        requests = [torch.randn(INFRA_BATCH, size, size, 3, generator=g, device=dev)
+                    for _ in range(3)]
+        zero()
+        logits, per_forward = [], []
+        with torch.inference_mode():
+            for img in requests:
+                logits.append(served(img).float())
+                per_forward.append(counts())
+        out.update(logits=[t.cpu() for t in logits], serving_counts=per_forward)
+        del served, requests, logits
+
+        # Training, as training_models draws its weights and batch.
+        g = torch.Generator(device=dev).manual_seed(TP_SEED)
+        model = shard_params(mesh, ViT(**ENTRY, compute_dtype=torch.bfloat16, generator=g))
+        images = torch.randn(INFRA_BATCH, size, size, 3, generator=g, device=dev)
+        labels = torch.arange(INFRA_BATCH, device=dev) % ENTRY["num_classes"]
+        plan = model.tensor_parallel
+        model.train()
+        loss = cross_entropy_loss(model(images), labels)
+        loss.backward()
+        grads = {k: gather_tensor(p.grad, plan.kinds[k], plan.shard) if k in plan.kinds
+                 else p.grad for k, p in model.named_parameters()}
+        out.update(first=loss.item(), grads={k: v.cpu() for k, v in grads.items()} if rank == 0
+                   else {})
+        model.zero_grad(set_to_none=True)
+        del grads, loss
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3), mesh=mesh)
+        zero()
+        losses, per_step = [], []
+        for _ in range(TP_STEPS):
+            losses.append(step(images, labels)["loss"].item())
+            per_step.append(counts())
+        out.update(losses=losses, train_counts=per_step)
+        torch.distributed.barrier()
+        ms = interleaved_medians(torch, {"step": lambda: step(images, labels)}, rounds=3,
+                                 calls=3, warmup=1)
+        out["step_ms"] = ms["step"]
+        # Where the step's time goes here: a block's f32 partial summed over the
+        # model group (two a block a step, each way), and the gradients' one sum
+        # over the data axis of 1; wall ms, the host staging gloo's copies.
+        tokens = (size // ENTRY["patch_size"]) ** 2 + 1
+        block = torch.zeros(INFRA_BATCH * tokens, ENTRY["dim"], device=dev)
+        flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=dev)
+        for name, t, group in (("model all-reduce", block, model_group(mesh)),
+                               ("data all-reduce", flat, data_group(mesh))):
+            walls = []
+            for _ in range(4):
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.distributed.all_reduce(t, group=group)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[name] = (statistics.median(walls[1:]), t.numel() * 4)
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(workdir, f"tp_rank{rank}.pt"))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def hold_logits(torch, tag, logits, refs, truths):
+    """The serving check of :func:`serving_phase` on logits already taken:
+    within LOGIT_REL_TOL of the plain bf16 path's, at most
+    MAX_ERR_VS_PLAIN_BF16 times as far from the f32 model's as the plain
+    path, top-1 against f32 at least the plain path's, and the plain path's
+    top-1 on TOP1_CONFIDENT of the images its noise cannot flip.  Returns a
+    summary; raises on a miss."""
+    err = (logits - refs).abs().max().item()
+    tol = LOGIT_REL_TOL * refs.abs().max().item()
+    err_k, err_p = ((t - truths).abs().max().item() for t in (logits, refs))
+
+    def top1(a, c):
+        return (a.argmax(-1) == c.argmax(-1)).float().mean().item()
+
+    top2 = truths.topk(2, dim=-1).values
+    confident = (top2[:, 0] - top2[:, 1]) > 2 * err_p
+    top1_conf = top1(logits[confident], refs[confident]) if bool(confident.any()) else 0.0
+    summary = (f"max|split-plain|={err:.6g} tol={tol:.6g}; vs f32 max|split-f32|={err_k:.6g} "
+               f"max|plain-f32|={err_p:.6g}; top-1 split/f32={top1(logits, truths):.4f} "
+               f"plain/f32={top1(refs, truths):.4f}, split/plain over the "
+               f"{int(confident.sum())} confident images {top1_conf:.4f}")
+    if not (err <= tol and err_k <= MAX_ERR_VS_PLAIN_BF16 * err_p
+            and top1(logits, truths) >= top1(refs, truths) and top1_conf >= TOP1_CONFIDENT):
+        raise AssertionError(f"{tag}: {summary}")
+    return summary
+
+
+def tp_path_phase(torch, smi, workdir):
+    """ViT-B/32@256 (bench.py) split over a ``model`` axis of TP: TP
+    processes on the one card (:func:`tp_rank`), a gloo group between them
+    (NCCL takes no two ranks on one device), so that the collectives stage
+    the card's tensors through the host.  Held here against the one-process
+    models of the same weights: the served logits by :func:`hold_logits`
+    against the plain bf16 path and the f32 model; the step-1 gradients,
+    gathered, each within MAX_GRAD_ERR_VS_PLAIN_BF16 times the plain bf16
+    path's error against the f32 model (TF32 off); the first loss within
+    LOSS_REL_TOL of the plain path's, falling losses; on every rank rows 1-4
+    on their split forms depth times each way a forward and a step (the
+    unsplit kernels never), the pass and the LayerNorm backward twice that.
+    Times: each rank's step, labelled TP_LABEL.  Returns rank 0's launches
+    over the serving and training runs."""
+    import torch.multiprocessing as mp
+
+    from vit_tpu_torch import ViT, cast_params
+    from vit_tpu_torch.parallel.train import cross_entropy_loss
+
+    port = free_port()
+    ctx = mp.start_processes(tp_rank, args=(port, workdir), nprocs=TP, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tensor-parallel: the ranks did not finish in "
+                                     f"{TP_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(workdir, f"tp_rank{r}.pt"), weights_only=False)
+             for r in range(TP)]
+    depth = ENTRY["depth"]
+    forward = {"fused_attention_block_split": depth, "fused_mlp_split": depth,
+               "short route, forward": depth, "bias_residual": 2 * depth,
+               "forward_gemm_f32": 2 * depth}
+    step_each = {**forward, "fused_attention_block_split_bwd": depth,
+                 "fused_mlp_split_bwd": depth, "short route": depth, "ln_bwd": 2 * depth}
+    for r, rank in enumerate(ranks):
+        for way, runs, each in (("serving", rank["serving_counts"], forward),
+                                ("training", rank["train_counts"], step_each)):
+            for i, got in enumerate(runs):
+                want = {k: (i + 1) * each.get(k, 0) for k in got}
+                if got != want:
+                    raise AssertionError(f"tensor-parallel rank {r} {way}: after call {i + 1} "
+                                         f"the kernels were launched {got}, expected {want}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(TP_SEED)
+    served = cast_params(ViT(**ENTRY, device=dev, generator=g), torch.bfloat16).eval()
+    size = ENTRY["image_size"]
+    requests = [torch.randn(INFRA_BATCH, size, size, 3, generator=g, device=dev)
+                for _ in range(3)]
+    plain = ViT(**ENTRY, **PLAIN_KW, device=dev, dtype=torch.bfloat16).eval()
+    plain.load_state_dict(served.state_dict())
+    f32 = ViT(**ENTRY, **PLAIN_KW, device=dev, dtype=torch.float32).eval()
+    f32.load_state_dict({k: v.float() for k, v in served.state_dict().items()})
+    with torch.inference_mode():
+        refs = torch.cat([plain(img).float() for img in requests])
+        truths = torch.cat([f32(img).float() for img in requests])
+    logits = [torch.cat(rank["logits"]).to(dev) for rank in ranks]
+    if not torch.equal(logits[0], logits[1]) or tuple(logits[0].shape) != (
+            3 * INFRA_BATCH, ENTRY["num_classes"]) or not bool(torch.isfinite(logits[0]).all()):
+        raise AssertionError("tensor-parallel serving: the ranks' logits differ, or are not "
+                             "finite (384, 1000)")
+    serving = hold_logits(torch, "tensor-parallel serving", logits[0], refs, truths)
+    del served, plain, f32, requests
+
+    _, plain, f32, images, labels = training_models(torch, ViT, ENTRY, INFRA_BATCH, TP_SEED)
+    grads, first = {}, {}
+    for name, m in (("plain", plain), ("f32", f32)):
+        m.train()
+        loss = cross_entropy_loss(m(images), labels)
+        loss.backward()
+        first[name] = loss.item()
+        grads[name] = {k: p.grad.detach() for k, p in m.named_parameters()}
+    split = {k: v.to(dev) for k, v in ranks[0]["grads"].items()}
+    misses, worst, worst_name = [], 0.0, ""
+    for k, ref in grads["f32"].items():
+        err_s, err_p = rel_l2(torch, split[k], ref), rel_l2(torch, grads["plain"][k], ref)
+        if err_s / max(err_p, 1e-30) > worst:
+            worst, worst_name = err_s / max(err_p, 1e-30), k
+        if not err_s <= MAX_GRAD_ERR_VS_PLAIN_BF16 * err_p:
+            misses.append(f"{k}: {err_s:.4g} vs plain {err_p:.4g}")
+    cat = {n: torch.cat([v.flatten() for v in grads[n].values()]) for n in grads}
+    all_s = rel_l2(torch, torch.cat([split[k].flatten() for k in grads["f32"]]), cat["f32"])
+    all_p = rel_l2(torch, cat["plain"], cat["f32"])
+    losses = ranks[0]["losses"]
+    loss_rel = abs(ranks[0]["first"] - first["plain"]) / abs(first["plain"])
+    log(f"tensor-parallel ViT-B/32@256 over a (1, {TP}) mesh, {TP} processes on one card over "
+        f"gloo, batch {INFRA_BATCH}, bf16 compute, f32 parameters, SGD(1e-3): serving 3 x "
+        f"{INFRA_BATCH} images, the ranks' logits bit for bit: {serving}; step-1 loss split="
+        f"{ranks[0]['first']:.6f} plain={first['plain']:.6f} f32={first['f32']:.6f} "
+        f"(|split-plain|/plain={loss_rel:.3g} <= {LOSS_REL_TOL}); step-1 gradients gathered, "
+        f"relative L2 against f32 over all parameters split={all_s:.4g} plain={all_p:.4g}, "
+        f"worst per-tensor ratio split/plain={worst:.3f} ({worst_name}; <= "
+        f"{MAX_GRAD_ERR_VS_PLAIN_BF16}); losses over {TP_STEPS} steps rank 0 {losses}, rank 1 "
+        f"{ranks[1]['losses']}; launches per forward {forward} and per step {step_each} on "
+        f"each rank; step ms rank 0 {ranks[0]['step_ms']:.3f}, rank 1 "
+        f"{ranks[1]['step_ms']:.3f} ({TP_LABEL}; the one-process B/32 step "
+        f"{STEP_MS.get('ViT-B/32@256 (bench.py)', {}).get('kernels', float('nan')):.3f}); "
+        f"rank 0's wall ms of one all-reduce over gloo: a block's f32 partial over the model "
+        f"group {ranks[0]['model all-reduce'][0]:.3f} ({ranks[0]['model all-reduce'][1]} "
+        f"bytes; {4 * depth} a step), the gradients over the data axis of 1 "
+        f"{ranks[0]['data all-reduce'][0]:.3f} ({ranks[0]['data all-reduce'][1]} bytes; one "
+        f"a step) on {smi}")
+    if misses:
+        raise AssertionError(f"tensor-parallel: gradients beyond {MAX_GRAD_ERR_VS_PLAIN_BF16}x "
+                             f"the plain path's error: {misses}")
+    if not loss_rel <= LOSS_REL_TOL or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] or losses != ranks[1]["losses"]:
+        raise AssertionError(f"tensor-parallel: losses {losses} and {ranks[1]['losses']}, "
+                             f"first {ranks[0]['first']} against the plain path's "
+                             f"{first['plain']}")
+    return {k: ranks[0]["serving_counts"][-1][k] + ranks[0]["train_counts"][-1][k]
+            for k in ranks[0]["train_counts"][-1]}
+
+
+def tp_entries(results, tp_launches):
+    """The split forms' lines of the kernels' JSON: launches on the
+    tensor-parallel path (rank 0's), the largest error of their checks,
+    their times at rank 0's B/32 slice and bounds."""
+    lines = []
+    for name, (src, tpu) in TP_SOURCES.items():
+        r = results["tensor-parallel"][name]
+        line = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+                "launches": tp_launches[name], "max_abs_err": r["err"], "ms": r["kernel"],
+                "plain_ms": r["plain"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library"], "shape": f"B/32 rank 0 of {TP}"}
+        line.update({k: r[k] for k in ("mma_sync", "with_pass", "unsplit") if k in r})
+        if name == "forward_gemm_f32":
+            line["fc2"] = {k: (v if k != "bound" else v[0])
+                           for k, v in results["tensor-parallel"]["forward_gemm_f32 (fc2)"].items()}
+        lines.append(line)
+    return lines
+
+
 def main() -> int:
     # ScalableViT's plain training path peaks at 72 GB of the card's 80 (its
     # stage-1 IWSA keeps (64, 2, 4096, 4096) score maps for the backward);
@@ -4755,22 +5421,6 @@ def main() -> int:
     from vit_tpu_torch.models import (
         ats_vit, cct, parallel_vit, vit_for_small_dataset, vit_with_patch_merger,
     )
-    from vit_tpu_torch.ops.flash_attention import flash_attention, flash_backward
-    from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed
-    from vit_tpu_torch.ops.fused_attention_block import (
-        BACKWARD_ROUTES, FORWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
-        fused_attention_block_bias, fused_attention_block_bias_backward,
-    )
-    from vit_tpu_torch.ops.fused_cross_attention import (
-        BACKWARD_ROUTES as CROSS_BACKWARD_ROUTES, fused_cross_attention,
-        fused_cross_attention_backward,
-    )
-    from vit_tpu_torch.ops.fused_hybrid import (
-        attention_nb, attention_nb_backward, ln_gemm, ln_gemm_backward, proj_mlp,
-        proj_mlp_backward,
-    )
-    from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_backward
-    from vit_tpu_torch.ops.short_attention import short_attention, short_attention_backward
 
     results = {}
     with clock("forward GEMMs"):
@@ -4819,36 +5469,12 @@ def main() -> int:
         dense_kernel_phase(torch, results, smi, ATS_MLP_SHAPES)
     with clock("hybrid kernels"):
         hybrid_phase(torch, "B/32", 128, 65, 1024, 16, 64, 2048, results, smi)
+    with clock("tensor-parallel kernels"):
+        tp_kernel_phase(torch, results, smi)
 
     # The main paths, each with the counters from 0 just before it and read
     # just after.
-    counters = {"fused_attention_block": fused_attention_block, "fused_mlp": fused_mlp,
-                "fused_attention_block_bwd": fused_attention_block_backward,
-                "fused_mlp_bwd": fused_mlp_backward,
-                "fused_attention_block_bias": fused_attention_block_bias,
-                "fused_attention_block_bias_bwd": fused_attention_block_bias_backward,
-                # the blocks' attention middles by route (fused_attention_block.py
-                # attention_route), each direction: short_fwd / short_bwd up to 512 tokens,
-                # with or without a bias, else the flash kernels (PiT's stage 1 and the
-                # "mha route" path; the other paths hold them at 0)
-                "short route": BACKWARD_ROUTES["short"], "mha route": BACKWARD_ROUTES["mha"],
-                "short route, forward": FORWARD_ROUTES["short"],
-                "mha route, forward": FORWARD_ROUTES["mha"],
-                "flash_attention": flash_attention, "flash_backward": flash_backward,
-                "fused_cross_attention": fused_cross_attention,
-                "fused_cross_attention_bwd": fused_cross_attention_backward,
-                # its backward by route (fused_cross_attention.py backward_route): one
-                # cross_bwd kernel up to 128 channels, cross_bwd between gemm_wgmma's
-                # dgrads from 129 (the four steps past 128 keys run on no main path:
-                # the cross-attention phase holds them at 384 px)
-                "cross backward, one kernel": CROSS_BACKWARD_ROUTES[1],
-                "cross backward, split": CROSS_BACKWARD_ROUTES[2],
-                "flash_attention_packed": flash_attention_packed,
-                "short_attention": short_attention,
-                "short_attention_bwd": short_attention_backward,
-                "ln_gemm": ln_gemm, "ln_gemm_bwd": ln_gemm_backward,
-                "attention_nb": attention_nb, "attention_nb_bwd": attention_nb_backward,
-                "proj_mlp": proj_mlp, "proj_mlp_bwd": proj_mlp_backward}
+    counters = counter_objects()
 
     def path(name, phase, *args, **kwargs):
         torch.cuda.empty_cache()
@@ -5083,6 +5709,7 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     path("data-parallel B/32", data_parallel_phase, smi, counters, workdir)
+    path("tensor-parallel B/32", tp_path_phase, smi, workdir)
     path("export", export_phase, smi, counters)
     with clock("example trainer"):
         example_phase(torch, smi, workdir)
@@ -5236,7 +5863,8 @@ def main() -> int:
     log("earlier designs' kernel ms, constants cited from PERF.md (not measured in this run): "
         + json.dumps(EARLIER_DESIGN_MS))
     log(json.dumps({"kernels": [kernel_entry(results, by_path, name, *where)
-                                for name, where in sources.items()]}))
+                                for name, where in sources.items()]
+                    + tp_entries(results, by_path["tensor-parallel B/32"])}))
     twins = {name: {tag: {k: v for k, v in r.items() if k in (
                  "kernel", "plain", "library", "modules", "device", "route")}
                  | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}

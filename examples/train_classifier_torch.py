@@ -7,12 +7,20 @@ artifact, on synthetic data.
 
 One process per card: under ``torchrun`` every rank trains data-parallel
 over the mesh's ``data`` axis, each on its ``batch / world`` slice of the
-global batch; a plain ``python`` run is one process on one card.  The models
-and their configurations are ``examples/train_classifier.py``'s; its
-``--tp`` (tensor parallelism) is not ported yet.  Each rank draws its dropout
-(and CaiT's layer dropout) from its card's generators, seeded from ``(42,
-rank)``: the JAX example's replicated key gives masks that these per-rank
-draws do not reproduce.  ``--cpu`` runs the same on the CPU (gloo ranks).
+global batch; a plain ``python`` run is one process on one card.  ``--tp N``
+lays a ``model`` axis of N under the data axis, as
+``examples/train_classifier.py``'s: ``make_mesh((world // N, N))``, the
+model split over each group of N consecutive ranks (``shard_params``, before
+the optimizer), which feed one ``batch / (world / N)`` slice (the ViT only:
+the others have no split form).  The models and their configurations are
+``examples/train_classifier.py``'s.  Each data rank draws its dropout (and
+CaiT's layer dropout) from a generator seeded from ``(42, data rank)``,
+which the ranks of its model group share; the JAX example's replicated key
+gives masks that these per-rank draws do not reproduce.  A split model
+exports through an unsplit copy of its gathered weights.  ``--cpu`` runs the
+same on the CPU (gloo ranks).
+
+    torchrun --nproc_per_node=4 examples/train_classifier_torch.py --model vit --bf16 --tp 2
 """
 
 from __future__ import annotations
@@ -69,6 +77,8 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 compute with f32 parameters")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis size (tensor parallel)")
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--export", default=None,
@@ -78,8 +88,9 @@ def main():
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (gloo ranks)")
     args = ap.parse_args()
 
-    from vit_tpu_torch.interop.checkpoint import CheckpointManager
+    from vit_tpu_torch.interop.checkpoint import CheckpointManager, full_state_dict
     from vit_tpu_torch.parallel import mesh as mesh_lib
+    from vit_tpu_torch.parallel.sharding import shard_params
     from vit_tpu_torch.parallel.train import make_train_step
     from vit_tpu_torch.utils.data import (
         ThreadedLoader, prefetch, process_local_batch_size, shard_batch,
@@ -88,11 +99,16 @@ def main():
 
     rank, world = mesh_lib.initialize_distributed(backend="gloo" if args.cpu else None)
     device = torch.device("cpu") if args.cpu else torch.device("cuda", torch.cuda.current_device())
-    mesh = mesh_lib.make_mesh(device_type=device.type)
+    if world % args.tp:
+        raise SystemExit(f"--tp {args.tp} does not divide {world} processes")
+    dp = world // args.tp
+    mesh = mesh_lib.make_mesh((dp, args.tp), device_type=device.type)
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    local_batch = process_local_batch_size(args.batch)
+    # The ranks of one model group feed the same slice of the global batch.
+    data_rank = rank // args.tp
+    local_batch = process_local_batch_size(args.batch) * args.tp
     if rank == 0:
-        print(f"processes={world} mesh=dp{world} device={device.type} "
+        print(f"processes={world} mesh=dp{dp}xtp{args.tp} device={device.type} "
               f"compute={'bfloat16' if args.bf16 else 'float32'}", flush=True)
 
     # Every rank builds the same initial weights; the step broadcasts rank 0's.
@@ -101,6 +117,7 @@ def main():
     if rank == 0:
         n_params = sum(p.numel() for p in model.parameters())
         print(f"model={args.model} params={n_params / 1e6:.1f}M", flush=True)
+    shard_params(mesh, model)  # in place, before the optimizer: a no-op at --tp 1
 
     optimizer = torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=1e-4)
     step_fn = make_train_step(model, optimizer, accum_steps=args.accum, mesh=mesh)
@@ -108,13 +125,14 @@ def main():
 
     # Per-rank draws: the device's default generator (the modules' dropout)
     # and one passed to the step (the models that take a generator).
-    seed = 42 * 1_000_003 + rank
+    seed = 42 * 1_000_003 + data_rank
     torch.manual_seed(seed)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     def local_slice(i):
         batch = next(host)
-        return {k: v[rank * local_batch:(rank + 1) * local_batch] for k, v in batch.items()}
+        return {k: v[data_rank * local_batch:(data_rank + 1) * local_batch]
+                for k, v in batch.items()}
 
     host = synthetic_batches(args.batch, args.image_size, args.num_classes, args.steps)
     logger = MetricLogger(every=args.log_every, stream=sys.stdout)
@@ -133,10 +151,18 @@ def main():
         ckpt_mgr.wait()
     if rank == 0:
         logger.flush()
+    serving = model
+    if args.export and args.tp > 1:  # a split model exports through an unsplit copy
+        weights = full_state_dict(model)
+        if rank == 0:
+            torch.manual_seed(0)
+            serving = build_model(args.model, args.image_size, args.num_classes, compute_dtype,
+                                  device)
+            serving.load_state_dict(weights)
     if args.export and rank == 0:
         from vit_tpu_torch.interop.export import save_forward
 
-        save_forward(args.export, model,
+        save_forward(args.export, serving,
                      (local_batch, args.image_size, args.image_size, 3),
                      dtype=compute_dtype or torch.float32, bake_params=True)
         print(f"serving artifact: {args.export}", flush=True)

@@ -257,3 +257,35 @@ def test_flash_bounds_at_t2t_true_width():
     assert got["flash_attention"][0] == pytest.approx(2 * pairs * 294 / 989e12 * 1e3)
     assert got["flash_attention"] == (pytest.approx(0.3742, abs=1e-4), "operations")
     assert got["flash_backward"] == (pytest.approx(0.9355, abs=1e-4), "operations")
+
+
+def test_tp_bounds(raw):
+    # One rank's slice: b 1, n 4, d 16, 2 local heads of 8 (inner 16), 32
+    # local hidden units: 4 rows, one 4 x 4 x 8 product a head.
+    rows, d, inner, hidden = 4, 16, 16, 32
+    attn = 2 * 1 * 2 * 4 * 4 * 8                           # 512 FLOPs
+    act, acc = 2 * rows * d, 4 * rows * d                  # bf16 (rows, d); its f32 sum
+    qkv, out = 2 * rows * d * 3 * inner, 2 * rows * inner * d
+    got = chip_smoke.tp_bounds(1, 4, 16, 2, 8, 32)
+    # x, γ, β, Wqkv_r, Wo_r in; the f32 partial s out.
+    assert got["fused_attention_block_split"] == (qkv + out + 2 * attn,
+                                                  act + 4 * d + 2 * 4 * inner * d + acc)
+    # dy·Wo_r, five products, dqkv·Wqkv_r; dy, qkv, oattn, lse, weights in; dqkv,
+    # doattn and the f32 dxn out.
+    assert got["fused_attention_block_split_bwd"] == (
+        out + 5 * attn + qkv,
+        act + 2 * (2 * rows * 3 * inner + 2 * rows * inner) + 4 * 2 * 4 + 2 * 4 * inner * d
+        + acc)
+    # fc1 and fc2: x, γ, β, W1_r, b1_r, W2_r in; s out.
+    assert got["fused_mlp_split"] == (2 * 2 * rows * d * hidden,
+                                      act + 4 * d + 2 * 2 * d * hidden + 2 * hidden + acc)
+    # dy·W2_r and dh·W1_r: dy, h, W1_r, W2_r in; dh, gact, f32 db1 and dxn out.
+    assert got["fused_mlp_split_bwd"] == (2 * 2 * rows * d * hidden,
+                                          act + 3 * 2 * rows * hidden + 2 * 2 * d * hidden
+                                          + 4 * hidden + acc)
+    assert got["forward_gemm_f32"] == (out, 2 * rows * inner + 2 * d * inner + acc)
+    assert got["forward_gemm_f32 (fc2)"] == (2 * rows * d * hidden,
+                                             2 * rows * hidden + 2 * d * hidden + acc)
+    assert got["bias_residual"] == (2 * rows * d, acc + 2 * act + 2 * d)
+    # x, dy, f32 dxn, γ in; dx and the f32 [dγ | dβ | Σ dy] out.
+    assert got["ln_bwd"][1] == 3 * act + acc + 2 * d + 4 * 3 * d

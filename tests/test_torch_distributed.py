@@ -16,7 +16,8 @@ results to them:
   single-process step, and equal on both ranks;
 - MAE training under the mesh with its encoder's head unused;
 - ``CheckpointManager`` under the group: rank 0 writes, both restore its state;
-- ``make_mesh``'s refusals.
+- ``make_mesh`` under the group (a ``model`` axis over both ranks) and its
+  refusals.
 
 The group has a 60 s timeout and the ranks a join deadline, so a failed rank
 fails the test instead of hanging it.
@@ -184,7 +185,7 @@ def test_checkpoint_manager_writes_on_rank_zero(runs):
 def test_make_mesh_under_the_group(runs):
     for rank in runs["ranks"]:
         assert rank["mesh_shape"] == (WORLD, 1)
-        assert rank["mesh (1, 2)"] == "NotImplementedError"
+        assert rank["mesh (1, 2)"] == (1, 2)
         assert rank["mesh (3, 1)"] == "ValueError"
 
 
@@ -195,7 +196,7 @@ def test_one_process_needs_no_group(monkeypatch):
     assert port_mesh.initialize_distributed() == (0, 1)
     assert not torch.distributed.is_initialized()
     assert port_mesh.make_mesh() is None
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    with pytest.raises(ValueError, match="does not cover 1 process"):
         port_mesh.make_mesh((1, 2))
     with pytest.raises(ValueError, match="does not cover"):
         port_mesh.make_mesh((2, 1))

@@ -1360,8 +1360,8 @@ def test_ln_bwd_fused_is_the_c_predicate(cuda):
 def test_library_counts_its_launches_where_it_makes_them(cuda):
     """``vit_take_launch_count`` (csrc/kernels.cuh Counted: gemm_wgmma.cu's
     kernel, its LayerNorm-backward instance, layernorm.cu's backward passes,
-    linear.cu's GEMM) moves by one for each launch of its kind and no other,
-    and a take sets it back to 0."""
+    linear.cu's GEMM, launch_forward_gemm's f32 partial sums) moves by one for
+    each launch of its kind and no other, and a take sets it back to 0."""
     from vit_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -1392,7 +1392,12 @@ def test_library_counts_its_launches_where_it_makes_them(cuda):
     fused_mlp_ops.fused_mlp_backward(dy, xm, hm, xm[0], w1, w2)
     counts = take()
     assert counts[1] == 0 and counts[2] == 1
-    assert take() == [0, 0, 0, 0] and lib.vit_take_launch_count(4) == -1
+    # The split MLP's forward: fc1 on gemm_wgmma (n 256), fc2's f32 partial on
+    # linear.cu (n 64), counted as the f32 partial sum too.
+    fused_mlp_ops.fused_mlp_partial_forward(xm, xm[0], xm[0], w1, hm[0], w2)
+    assert take() == [1, 0, 0, 1] and lib.vit_take_launch_count(4) == 1
+    assert take() == [0, 0, 0, 0] and lib.vit_take_launch_count(4) == 0
+    assert lib.vit_take_launch_count(5) == -1
 
 
 @pytest.mark.parametrize("b,n,heads,dh", [(128, 65, 16, 64), (64, 33, 3, 32), (8, 80, 4, 64),
@@ -2230,3 +2235,110 @@ def test_export_round_trip_on_the_card(cuda, bake):
         got = served(img) if bake else served(model_params(model), img)
     assert eager == [2, 2] and [c.launches for c in counters] == eager
     assert torch.equal(got, want)
+
+
+# ---- tensor parallelism: rows 1-4's split forms --------------------------------
+
+# (b, n, d, heads, dim_head, hidden) of the whole block, split over two ranks:
+# the short route with every GEMM on gemm_wgmma (n >= 256), the mha route past
+# 512 tokens with the out-projection's and fc2's f32 partials on linear.cu (d 64).
+SPLIT_SHAPES = [(4, 65, 256, 8, 32, 512), (2, 577, 64, 2, 32, 128)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_blocks_match_plain_and_unsplit(cuda, shape):
+    """Each rank's split forward and backward of both blocks against their
+    plain versions, twice bit for bit; the two ranks' partials summed, then
+    the pass (forward) or the LayerNorm backward (backward), against the
+    unsplit kernels' y, dx and sums."""
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.parallel.sharding import COLUMN, QKV, ROW, shard_tensor
+
+    b, n, d, heads, dh, hidden = shape
+    t, dt, scale = 2, torch.bfloat16, dh ** -0.5
+    x, gamma, beta, wqkv, wo, bo = _attn_args(b, n, d, heads, dh, dt, cuda, seed=7)
+    _, _, _, w1, b1, w2, b2 = _mlp_args((b, n, d), hidden, dt, cuda, seed=8)
+    dy = (torch.randn(b, n, d, generator=torch.Generator(device=cuda).manual_seed(9),
+                      device=cuda) * 0.1).to(dt)
+    fab, fm = fused_attention_block_ops, fused_mlp_ops
+    attn_parts, mlp_parts = [], []
+    for r in range(t):
+        wq, wp = shard_tensor(wqkv, QKV, r, t), shard_tensor(wo, ROW, r, t)
+        fwd = fab.fused_attention_block_partial_forward(x, gamma, beta, wq, wp, heads // t, dh,
+                                                        scale, training=True)
+        _twice(fwd, fab.fused_attention_block_partial_forward(x, gamma, beta, wq, wp, heads // t,
+                                                              dh, scale, training=True))
+        ref = fab.fused_attention_block_partial_forward_reference(x, gamma, beta, wq, wp,
+                                                                  heads // t, dh, scale)
+        check_outputs(torch, "split attention forward", fwd[:4], ref[:4], {})
+        lse = fused_attention_block_ops.attention_lse_reference(fwd[2], heads // t, dh, scale)
+        assert (fwd[4] - lse).abs().max().item() <= LSE_ABS_TOL  # on the kernel's own qkv
+        bwd = fab.fused_attention_block_partial_backward(dy, *fwd[2:], wq, wp, heads // t, dh,
+                                                         scale)
+        _twice(bwd, fab.fused_attention_block_partial_backward(dy, *fwd[2:], wq, wp, heads // t,
+                                                               dh, scale))
+        check_outputs(torch, "split attention backward", bwd,
+                      fab.fused_attention_block_partial_backward_reference(
+                          dy, *fwd[2:], wq, wp, heads // t, dh, scale), {})
+        attn_parts.append((fwd[0], bwd[0]))
+
+        m1, c1, m2 = (shard_tensor(w1, COLUMN, r, t), shard_tensor(b1, COLUMN, r, t),
+                      shard_tensor(w2, ROW, r, t))
+        fwd = fm.fused_mlp_partial_forward(x, gamma, beta, m1, c1, m2, training=True)
+        _twice(fwd, fm.fused_mlp_partial_forward(x, gamma, beta, m1, c1, m2, training=True))
+        check_outputs(torch, "split MLP forward", fwd,
+                      fm.fused_mlp_partial_forward_reference(x, gamma, beta, m1, c1, m2), {})
+        bwd = fm.fused_mlp_partial_backward(dy, fwd[2], m1, m2)
+        _twice(bwd, fm.fused_mlp_partial_backward(dy, fwd[2], m1, m2))
+        ref = fm.fused_mlp_partial_backward_reference(dy, fwd[2], m1, m2)
+        check_outputs(torch, "split MLP backward", bwd[:3], ref[:3], {})
+        check_dbias(torch, "split MLP backward", bwd[3], ref[3], "db1")
+        mlp_parts.append((fwd[0], bwd[0]))
+
+    y, _, qkv, oattn, lse = fab._launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale,
+                                                1e-3, training=True)
+    check_outputs(torch, "two ranks' attention block",
+                  [tp.bias_residual(attn_parts[0][0] + attn_parts[1][0], bo, x)], [y], {0: x})
+    full = fab.fused_attention_block_backward(dy, x, qkv, gamma, wqkv, wo, heads, dh, scale,
+                                              oattn=oattn, lse=lse)
+    got = tp.ln_backward(x, attn_parts[0][1] + attn_parts[1][1], gamma, dy)
+    check_outputs(torch, "two ranks' attention backward", got[:1], full[:1], {0: dy})
+    for i, j in ((1, 2), (2, 3), (3, 4)):
+        check_dbias(torch, "two ranks' attention backward", got[i], full[j], f"sum {i}")
+    y, _, h = fm._launch_forward(x, gamma, beta, w1, b1, w2, b2, 1e-3, save_residuals=True)
+    check_outputs(torch, "two ranks' MLP",
+                  [tp.bias_residual(mlp_parts[0][0] + mlp_parts[1][0], b2, x)], [y], {0: x})
+    full = fm.fused_mlp_backward(dy, x, h, gamma, w1, w2)
+    got = tp.ln_backward(x, mlp_parts[0][1] + mlp_parts[1][1], gamma, dy)
+    check_outputs(torch, "two ranks' MLP backward", got[:1], full[:1], {0: dy})
+    for i, j in ((1, 3), (2, 4), (3, 6)):
+        check_dbias(torch, "two ranks' MLP backward", got[i], full[j], f"sum {i}")
+
+
+@pytest.mark.parametrize("rows, d", [(8320, 1024), (1000, 72)])
+def test_bias_residual_and_ln_backward_match_plain(cuda, rows, d):
+    """The pass that ends a split forward and the LayerNorm backward that
+    ends a split backward, against their plain versions, twice bit for
+    bit, counted."""
+    from vit_tpu_torch.ops import tensor_parallel as tp
+
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=cuda) * scale
+
+    x, dy = rn(rows, d).to(torch.bfloat16), (rn(rows, d) * 0.1).to(torch.bfloat16)
+    s, bias, gamma, dxn = rn(rows, d), rn(d).to(torch.bfloat16), \
+        (1.0 + rn(d, scale=0.1)).to(torch.bfloat16), rn(rows, d, scale=0.1)
+    before = (tp.bias_residual.launches, tp.ln_backward.launches)
+    y = tp.bias_residual(s, bias, x)
+    _twice([y], [tp.bias_residual(s, bias, x)])
+    check_outputs(torch, "bias_residual", [y], [tp.bias_residual_reference(s, bias, x)], {0: x})
+    got = tp.ln_backward(x, dxn, gamma, dy)
+    _twice(got, tp.ln_backward(x, dxn, gamma, dy))
+    ref = tp.ln_backward_residual_reference(x, dxn, gamma, dy)
+    check_outputs(torch, "ln_backward", got[:1], ref[:1], {0: dy})
+    for i in (1, 2, 3):
+        check_dbias(torch, "ln_backward", got[i], ref[i], f"sum {i}")
+    assert (tp.bias_residual.launches, tp.ln_backward.launches) == (before[0] + 2,
+                                                                    before[1] + 2)

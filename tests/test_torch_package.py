@@ -318,8 +318,6 @@ def vit_tpu_public_names(module: str) -> set:
 # vit_tpu's public names without a counterpart in the port, each with its reason.
 NO_COUNTERPART = {
     "vit_tpu.parallel.train": {
-        # Tensor parallelism (the mesh's model axis): ROADMAP's next slice.
-        "state_shardings", "bn_state_shardings",
         # The BatchNorm step: the port's make_train_step updates the running
         # statistics in place (and, under a mesh, synchronises them).
         "TrainStateWithModelState", "create_bn_train_state", "make_bn_train_step",
@@ -329,7 +327,8 @@ NO_COUNTERPART = {
 
 @pytest.mark.parametrize("module", [
     "vit_tpu.interop.checkpoint", "vit_tpu.interop.export", "vit_tpu.parallel.mesh",
-    "vit_tpu.parallel.train", "vit_tpu.utils.data", "vit_tpu.utils.debug",
+    "vit_tpu.parallel.sharding", "vit_tpu.parallel.train", "vit_tpu.utils.data",
+    "vit_tpu.utils.debug",
     "vit_tpu.utils.metrics", "vit_tpu.utils.profiling",
 ])
 def test_infrastructure_modules_have_counterparts(module):

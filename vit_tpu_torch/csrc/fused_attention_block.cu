@@ -92,10 +92,77 @@
 // small-dataset ViT (b=64, n=257, d=1024, 16 heads of 64) the TPU kernel's own
 // FLOPs bound the forward at 0.157 ms (138.0 GFLOP of GEMMs, 17.3 of
 // attention) and the backward at 0.183 ms (138.0 + 43.3).
+//
+// Split forms (tensor parallelism, rank r of t over the model axis, heads / t
+// heads a rank, unbiased): vit_fused_attention_block_fwd_partial and
+// vit_fused_attention_block_bwd_partial stop at the reductions, each at an f32
+// partial sum that the ranks add up outside (torch.distributed), the forward
+// after the out-projection (then bias_residual.cu adds bo and x once), the
+// backward after the qkv dgrad (then layernorm.cu's vit_ln_bwd).  vit_tpu has
+// no such kernel: GSPMD gathers a Pallas call's operands and keeps the
+// unsharded numbers.
 #include "kernels.cuh"
 
 // The attention middle's routes (ops/fused_attention_block.py attention_route).
 enum AttentionRoute { kRouteShort = 0, kRouteMha = 1 };
+
+namespace {
+
+// Steps 1-3 of the forward, shared by the block and its split form: xn, qkv
+// and oattn (and lse in training) from x.
+cudaError_t attention_front(const void* x, const void* gamma, const void* beta, const void* wqkv,
+                            void* xn, void* qkv, void* oattn, float* lse,
+                            const long long* strides, int route, const float* bias, int hb,
+                            int b, int n, int d, int heads, int dim_head, float scale, float eps,
+                            int dtype, cudaStream_t stream) {
+  using namespace vit;
+  const int rows = b * n, inner = heads * dim_head;
+  if (!strides || (route != kRouteShort && route != kRouteMha)) return cudaErrorInvalidValue;
+  cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_forward_gemm(xn, wqkv, nullptr, nullptr, qkv, nullptr, rows, 3 * inner, d,
+                            kEpiStore, dtype, stream);
+  if (err != cudaSuccess) return err;
+  const char* base = static_cast<const char*>(qkv);
+  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+  if (route == kRouteShort)
+    return launch_short_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads,
+                            n, n, dim_head, scale, dtype, stream, bias, hb);
+  return launch_flash_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads, n,
+                          n, dim_head, dim_head, scale, dtype, stream, bias, hb);
+}
+
+// Steps 1-2 of the backward, shared by the block and its split form: doattn
+// = T(dy·Wo) and dqkv by the attention backward (with `rowstat`, the dbias
+// call's exact row statistics first).
+cudaError_t attention_back(const void* dy, const void* qkv, const void* oattn, const float* lse,
+                           const void* wo, void* dqkv, void* doattn, const long long* strides,
+                           int route, float* dq_part, float* dsum, float* rowstat,
+                           const float* bias, int hb, int b, int n, int d, int heads,
+                           int dim_head, float scale, int dtype, cudaStream_t stream) {
+  using namespace vit;
+  const int rows = b * n, inner = heads * dim_head;
+  cudaError_t err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, inner, d,
+                                 kEpiStore, dtype, stream);
+  if (err != cudaSuccess) return err;
+  if (rowstat) {  // which the attention backward and mha_dbias read
+    err = launch_mha_row_stats(qkv, doattn, rowstat, bias, hb, b, n, heads, dim_head, scale,
+                               dtype, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const char* base = static_cast<const char*>(qkv);
+  char* dbase = static_cast<char*>(dqkv);
+  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
+  if (route == kRouteMha)
+    return launch_flash_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
+                            dbase + third, dbase + 2 * third, dsum, strides, b, heads, n, n,
+                            dim_head, dim_head, scale, dtype, stream, bias, hb, rowstat);
+  return launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
+                          dbase + third, dbase + 2 * third, dq_part, strides, b, heads, n, n,
+                          dim_head, scale, dtype, stream, bias, hb, rowstat);
+}
+
+}  // namespace
 
 // Outputs y (rows, d); xn (rows, d), qkv (rows, 3·inner) and oattn (rows,
 // inner) in the compute dtype.  `bias` (hb, n, n) f32, or null with hb = 0.
@@ -113,24 +180,37 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
                                              float scale, float eps, int dtype,
                                              cudaStream_t stream) {
   using namespace vit;
-  const int rows = b * n, inner = heads * dim_head;
-  if (!strides || (route != kRouteShort && route != kRouteMha)) return cudaErrorInvalidValue;
-  cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
+  cudaError_t err = attention_front(x, gamma, beta, wqkv, xn, qkv, oattn, lse, strides, route,
+                                    bias, hb, b, n, d, heads, dim_head, scale, eps, dtype, stream);
   if (err != cudaSuccess) return err;
-  err = launch_forward_gemm(xn, wqkv, nullptr, nullptr, qkv, nullptr, rows, 3 * inner, d,
-                            kEpiStore, dtype, stream);
+  return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, b * n, d, heads * dim_head,
+                             kEpiBiasResidual, dtype, stream);
+}
+
+// The split form (tensor parallelism over the model ranks), unbiased: rank
+// r's heads alone, `heads` the local count, wqkv (3·inner, d) the rows of its
+// heads in each of q, k and v, wo (d, inner) the columns of its heads, inner =
+// heads·dim_head.  Steps 1-3 as the block's, then the out-projection stops at
+// its f32 partial s = oattn·Woᵀ (rows, d), with no bias and no residual
+// (kEpiStoreF32 over kWeightNK): the caller sums s over the ranks in f32 and
+// ends the block with vit_bias_residual, T(x + T(Σ s + bo)), the block's own
+// rounding points.  kEpiBiasResidual cannot end a split block: it would add
+// bo and x once per rank.  Other arguments as vit_fused_attention_block_fwd's.
+extern "C" int vit_fused_attention_block_fwd_partial(const void* x, const void* gamma,
+                                                     const void* beta, const void* wqkv,
+                                                     const void* wo, float* s, void* xn,
+                                                     void* qkv, void* oattn, float* lse,
+                                                     const long long* strides, int route, int b,
+                                                     int n, int d, int heads, int dim_head,
+                                                     float scale, float eps, int dtype,
+                                                     cudaStream_t stream) {
+  using namespace vit;
+  cudaError_t err = attention_front(x, gamma, beta, wqkv, xn, qkv, oattn, lse, strides, route,
+                                    nullptr, 0, b, n, d, heads, dim_head, scale, eps, dtype,
+                                    stream);
   if (err != cudaSuccess) return err;
-  const char* base = static_cast<const char*>(qkv);
-  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
-  if (route == kRouteShort)
-    err = launch_short_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads,
-                           n, n, dim_head, scale, dtype, stream, bias, hb);
-  else
-    err = launch_flash_fwd(base, base + third, base + 2 * third, oattn, lse, strides, b, heads,
-                           n, n, dim_head, dim_head, scale, dtype, stream, bias, hb);
-  if (err != cudaSuccess) return err;
-  return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, rows, d, inner, kEpiBiasResidual,
-                             dtype, stream);
+  return launch_forward_gemm(oattn, wo, nullptr, nullptr, s, nullptr, b * n, d, heads * dim_head,
+                             kEpiStoreF32, dtype, stream);
 }
 
 // Outputs dx (rows, d) and dqkv (rows, 3·inner) in the compute dtype and
@@ -169,26 +249,9 @@ extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, cons
   if (rows <= 0 || !strides || !lse || !oattn || (route != kRouteShort && !mha) ||
       (dbias && (!bias || !rowstat)) || (mha && !dbias && !dsum))
     return cudaErrorInvalidValue;
-  float* stats_rows = dbias ? rowstat : nullptr;  // the rows' exact dsum, with dbias only
-  cudaError_t err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, inner, d,
-                                 kEpiStore, dtype, stream);
-  if (err != cudaSuccess) return err;
-  if (stats_rows) {  // which the attention backward and mha_dbias read
-    err = launch_mha_row_stats(qkv, doattn, stats_rows, bias, hb, b, n, heads, dim_head, scale,
-                               dtype, stream);
-    if (err != cudaSuccess) return err;
-  }
-  const char* base = static_cast<const char*>(qkv);
-  char* dbase = static_cast<char*>(dqkv);
-  const size_t third = 2 * (size_t)inner;  // bytes to k's and v's columns (bf16, f16)
-  if (mha)
-    err = launch_flash_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
-                           dbase + third, dbase + 2 * third, dsum, strides, b, heads, n, n,
-                           dim_head, dim_head, scale, dtype, stream, bias, hb, stats_rows);
-  else
-    err = launch_short_bwd(base, base + third, base + 2 * third, oattn, lse, doattn, dbase,
-                           dbase + third, dbase + 2 * third, dq_part, strides, b, heads, n, n,
-                           dim_head, scale, dtype, stream, bias, hb, stats_rows);
+  cudaError_t err = attention_back(dy, qkv, oattn, lse, wo, dqkv, doattn, strides, route, dq_part,
+                                   dsum, dbias ? rowstat : nullptr, bias, hb, b, n, d, heads,
+                                   dim_head, scale, dtype, stream);
   if (err != cudaSuccess) return err;
   if (dbias) {
     err = launch_mha_dbias(qkv, doattn, rowstat, bias, hb, dbias_part, dbias, b, n, heads,
@@ -197,6 +260,35 @@ extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, cons
   }
   return launch_dgrad_ln(dqkv, wqkv, x, gamma, dy, dx, dxn, stats, part_d, sums_d, rows, d,
                          3 * inner, eps, dtype, stream);
+}
+
+// The split form's backward (its forward: vit_fused_attention_block_fwd_partial),
+// unbiased: steps 1 and 2 over rank r's heads, then the dgrad dqkv·Wqkv stops
+// at the f32 partial dxn (rows, d) (kEpiStoreF32, as launch_dgrad_ln's passes
+// route takes it).  kEpiLnBwd cannot end it: the LayerNorm backward needs the
+// whole dxn, the sum over the ranks, which the caller takes in f32 before
+// vit_ln_bwd gives dx and [dγ | dβ | dbo].  Outputs dqkv (rows, 3·inner) and
+// doattn (rows, inner) in the compute dtype, dxn in f32; `dq_part` and `dsum`
+// as vit_fused_attention_block_bwd takes them without a bias.
+extern "C" int vit_fused_attention_block_bwd_partial(const void* dy, const void* qkv,
+                                                     const void* oattn, const float* lse,
+                                                     const void* wqkv, const void* wo,
+                                                     void* dqkv, void* doattn, float* dxn,
+                                                     const long long* strides, int route,
+                                                     float* dq_part, float* dsum, int b, int n,
+                                                     int d, int heads, int dim_head, float scale,
+                                                     int dtype, cudaStream_t stream) {
+  using namespace vit;
+  const int rows = b * n, inner = heads * dim_head;
+  if (rows <= 0 || !strides || !lse || !oattn || !dxn ||
+      (route != kRouteShort && route != kRouteMha) || (route == kRouteMha && !dsum))
+    return cudaErrorInvalidValue;
+  cudaError_t err = attention_back(dy, qkv, oattn, lse, wo, dqkv, doattn, strides, route, dq_part,
+                                   dsum, nullptr, nullptr, 0, b, n, d, heads, dim_head, scale,
+                                   dtype, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dgrad(dqkv, wqkv, nullptr, dxn, nullptr, nullptr, rows, d, 3 * inner,
+                      kEpiStoreF32, dtype, stream);
 }
 
 extern "C" int vit_attention_dbias_parts(int b, int n, int heads, int hb) {

@@ -82,6 +82,50 @@ extern "C" int vit_fused_mlp_bwd(const void* dy, const void* x, const void* h,
                          eps, dtype, stream);
 }
 
+// The split form (tensor parallelism, rank r of t over the model axis): fc1
+// split by columns, w1 (hidden, d) and b1 (hidden,) rank r's hidden units,
+// fc2 by rows, w2 (d, hidden), `hidden` the local count.  The LayerNorm and
+// fc1 as vit_fused_mlp_fwd's; fc2 stops at its f32 partial s (rows, d) with no
+// bias and no residual (kEpiStoreF32 over kWeightNK): the caller sums s over
+// the ranks in f32 and ends the block with vit_bias_residual, T(x + T(Σ s +
+// b2)), kEpiBiasResidual's rounding points, which inside each rank's fc2 would
+// add b2 and x once per rank.  h (rows, hidden) in training, else null.
+extern "C" int vit_fused_mlp_fwd_partial(const void* x, const void* gamma, const void* beta,
+                                         const void* w1, const void* b1, const void* w2,
+                                         float* s, void* xn, void* g, void* h, int rows, int d,
+                                         int hidden, float eps, int dtype, cudaStream_t stream) {
+  using namespace vit;
+  cudaError_t err = launch_layernorm(x, gamma, beta, xn, rows, d, eps, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_forward_gemm(xn, w1, b1, nullptr, g, h, rows, hidden, d,
+                            h ? kEpiBiasGeluSave : kEpiBiasGelu, dtype, stream);
+  if (err != cudaSuccess) return err;
+  return launch_forward_gemm(g, w2, nullptr, nullptr, s, nullptr, rows, d, hidden, kEpiStoreF32,
+                             dtype, stream);
+}
+
+// Its backward: the dGELU dgrad over the local hidden units as
+// vit_fused_mlp_bwd's (dh, gact and sums_h = db1 (hidden,) of rank r's
+// units), then the dgrad dh·W1 stops at the f32 partial dxn (rows, d).
+// kEpiLnBwd cannot end it: the LayerNorm backward needs the whole dxn, the
+// sum over the ranks, which the caller takes in f32 before vit_ln_bwd gives dx
+// and [dγ | dβ | db2].  part_h (vit_linear_partial_rows(rows), hidden) f32
+// scratch.
+extern "C" int vit_fused_mlp_bwd_partial(const void* dy, const void* h, const void* w1,
+                                         const void* w2, void* dh, void* gact, float* sums_h,
+                                         float* dxn, float* part_h, int rows, int d, int hidden,
+                                         int dtype, cudaStream_t stream) {
+  using namespace vit;
+  if (rows <= 0 || !dxn) return cudaErrorInvalidValue;
+  cudaError_t err = launch_dgrad(dy, w2, h, dh, gact, part_h, rows, hidden, d, kEpiDGelu, dtype,
+                                 stream);
+  if (err != cudaSuccess) return err;
+  err = launch_colsum(part_h, linear_partial_rows(rows), hidden, sums_h, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dgrad(dh, w1, nullptr, dxn, nullptr, nullptr, rows, d, hidden, kEpiStoreF32,
+                      dtype, stream);
+}
+
 // The ragged route: the same block at a width d that is not a multiple of 8
 // (T2T-ViT's token transformers, d = hidden = 147 at 3136 tokens and 1323 at
 // 784), which no 16-byte row of the GEMMs' TMA maps and mma.sync tiles takes.

@@ -20,7 +20,9 @@
 //   kEpiBiasGeluSave  out = T(gelu(acc + b)), aux = h = T(acc + b), the GELU of
 //                     the unrounded sum             (fc1, training)
 //   kEpiStoreF32      out = acc in f32              (dxn, where the LayerNorm
-//                     backward is launch_ln_bwd's passes: d outside ln_bwd_fused)
+//                     backward is launch_ln_bwd's passes: d outside ln_bwd_fused;
+//                     over kWeightNK, a tensor-parallel block's partial
+//                     out-projection or fc2, summed over the ranks outside)
 //   kEpiDGelu         out = dh = T(acc·gelu'(h)), aux = gact = T(gelu(h)) from
 //                     the saved h (aux_in), exact erf; per 64-row f32 column
 //                     sums of the unrounded acc·gelu'(h) into `partial`, as
@@ -863,8 +865,9 @@ cudaError_t run(const void* a, const void* w, const Operands<T>& op, int rows, i
   }
 }
 
-// The instances that exist: the forward epilogues over (n, k) weights, the
-// dgrad ones over (k, n) weights.
+// The instances that exist: the forward epilogues over (n, k) weights (and
+// the f32 store, a split block's partial sum), the dgrad ones over (k, n)
+// weights.
 template <typename T>
 cudaError_t dispatch(const void* a, const void* w, int layout, const Operands<T>& op, int rows,
                      int n, int k, int epilogue, cudaStream_t stream) {
@@ -875,6 +878,7 @@ cudaError_t dispatch(const void* a, const void* w, int layout, const Operands<T>
       case kEpiBiasGelu: VIT_GEMM(kEpiBiasGelu, kWeightNK);
       case kEpiBiasResidual: VIT_GEMM(kEpiBiasResidual, kWeightNK);
       case kEpiBiasGeluSave: VIT_GEMM(kEpiBiasGeluSave, kWeightNK);
+      case kEpiStoreF32: VIT_GEMM(kEpiStoreF32, kWeightNK);
     }
   } else if (layout == kWeightKN) {
     switch (epilogue) {
@@ -955,11 +959,14 @@ cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const vo
 cudaError_t launch_forward_gemm(const void* a, const void* w, const void* bias, const void* res,
                                 void* out, void* aux, int rows, int n, int k, int epilogue,
                                 int dtype, cudaStream_t stream) {
-  if (n < kForwardMinN)
-    return launch_linear(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
-                         epilogue, dtype, stream);
-  return launch_gemm_wgmma(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
-                           epilogue, dtype, stream);
+  const cudaError_t err =
+      n < kForwardMinN
+          ? launch_linear(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
+                          epilogue, dtype, stream)
+          : launch_gemm_wgmma(a, w, kWeightNK, bias, res, nullptr, out, aux, nullptr, rows, n, k,
+                              epilogue, dtype, stream);
+  if (err == cudaSuccess && epilogue == kEpiStoreF32) count_launch(kCountForwardF32);
+  return err;
 }
 
 cudaError_t launch_dgrad(const void* a, const void* w, const void* aux_in, void* out, void* aux,

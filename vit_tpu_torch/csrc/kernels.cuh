@@ -24,7 +24,9 @@ enum WeightLayout : int { kWeightNK = 0, kWeightKN = 1 };
 
 // Epilogues of the row-major GEMMs  out = epi(A · B)  (linear.cu and
 // gemm_wgmma.cu alike, kEpiLnBwd gemm_wgmma.cu's alone).  kWeightNK takes the
-// first four, kWeightKN kEpiStore, kEpiDGelu, kEpiStoreF32 and kEpiLnBwd.
+// first four and kEpiStoreF32 (the tensor-parallel blocks' f32 partial sums of
+// the out-projection and fc2), kWeightKN kEpiStore, kEpiDGelu, kEpiStoreF32 and
+// kEpiLnBwd.
 enum Epilogue : int {
   kEpiStore = 0,         // out = T(acc)                          (QKV; doattn = dy·Wo)
   kEpiBiasGelu = 1,      // out = T(gelu_erf(acc + b))            (fc1, serving)
@@ -34,7 +36,8 @@ enum Epilogue : int {
   kEpiDGelu = 4,         // out = T(acc·gelu'(h)), aux = T(gelu(h)), column sums of
                          //   acc·gelu'(h) in f32, h read from aux_in   (MLP backward)
   kEpiStoreF32 = 5,      // out = acc in f32                      (dxn where the LayerNorm
-                         //   backward is a pass of its own: launch_ln_bwd)
+                         //   backward is a pass of its own: launch_ln_bwd; over kWeightNK
+                         //   a split block's partial out-projection or fc2)
   kEpiLnBwd = 6,         // acc = dxn kept on chip; out = dx, the LayerNorm backward of
                          //   launch_ln_bwd, and its column sums   (dqkv·Wqkv, dh·W1:
                          //   launch_dgrad_ln_bwd)
@@ -44,13 +47,16 @@ enum Epilogue : int {
 // checks that a backward launches a kernel, or none, that many times
 // (vit_take_launch_count; torch.profiler can drop a session's first records):
 // gemm_wgmma.cu's kernel at every epilogue, its LayerNorm-backward instance
-// alone, launch_ln_bwd's passes (one count a call) and linear.cu's GEMM.
+// alone, launch_ln_bwd's passes (one count a call), linear.cu's GEMM and
+// launch_forward_gemm's f32 partial sums (kEpiStoreF32 over kWeightNK, on
+// either GEMM kernel: the tensor-parallel blocks' out-projection and fc2).
 enum Counted : int {
   kCountGemmWgmma = 0,
   kCountLnEpilogue = 1,
   kCountLnPasses = 2,
   kCountLinear = 3,
-  kCounted = 4
+  kCountForwardF32 = 4,
+  kCounted = 5
 };
 void count_launch(int which);
 
@@ -203,9 +209,9 @@ int linear_partial_rows(int rows);  // the wrappers size `partial` by vit_linear
 
 // out (rows, n) = epi(A · B) on wgmma fed by TMA (gemm_wgmma.cu), A (rows, k)
 // k-contiguous and B as launch_linear takes it: kWeightNK with the epilogues
-// kEpiStore, kEpiBiasGelu, kEpiBiasResidual and kEpiBiasGeluSave, kWeightKN
-// with kEpiStore, kEpiStoreF32 and kEpiDGelu (linear.cu's rounding points and
-// partial-sum layout).  `bias` (n,), `res`, `aux_in` and `aux` (rows, n) and
+// kEpiStore, kEpiBiasGelu, kEpiBiasResidual, kEpiBiasGeluSave and
+// kEpiStoreF32, kWeightKN with kEpiStore, kEpiStoreF32 and kEpiDGelu
+// (linear.cu's rounding points and partial-sum layout).  `bias` (n,), `res`, `aux_in` and `aux` (rows, n) and
 // `partial` (linear_partial_rows(rows), n) as the epilogue needs them, null
 // otherwise.  k % 8 == 0, n % 8 == 0, every matrix 16-byte aligned.
 cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const void* bias,
@@ -214,9 +220,10 @@ cudaError_t launch_gemm_wgmma(const void* a, const void* w, int layout, const vo
                               cudaStream_t stream);
 
 // The blocks' forward GEMMs, out (rows, n) = epi(A · Wᵀ) for an nn.Linear
-// weight W (n, k) (kWeightNK; kEpiStore, kEpiBiasGelu, kEpiBiasResidual or
-// kEpiBiasGeluSave, `aux` = h for the last, arguments as launch_linear's):
-// on gemm_wgmma from n = 256, on linear.cu below it (gemm_wgmma.cu says why).
+// weight W (n, k) (kWeightNK; kEpiStore, kEpiBiasGelu, kEpiBiasResidual,
+// kEpiBiasGeluSave, `aux` = h for it, or kEpiStoreF32, out in f32: a split
+// block's partial sum; arguments as launch_linear's): on gemm_wgmma from n =
+// 256, on linear.cu below it (gemm_wgmma.cu says why).
 cudaError_t launch_forward_gemm(const void* a, const void* w, const void* bias, const void* res,
                                 void* out, void* aux, int rows, int n, int k, int epilogue,
                                 int dtype, cudaStream_t stream);
@@ -326,6 +333,13 @@ cudaError_t launch_flash_bwd(const void* q, const void* k, const void* v, const 
                              int n_k, int d_k, int d_v, float scale, int dtype,
                              cudaStream_t stream, const float* bias = nullptr, int hb = 0,
                              const float* rowstat = nullptr);
+
+// y (rows, d) = T(x + T(s + b)) from the f32 sum s (rows, d) of a split
+// block's partial out-projections or fc2s, its bias b (d,) and the residual x
+// (rows, d), x, b and y in the compute dtype: the rounding points of
+// kEpiBiasResidual (bias_residual.cu).  d % 8 == 0.
+cudaError_t launch_bias_residual(const float* s, const void* b, const void* x, void* y, int rows,
+                                 int d, int dtype, cudaStream_t stream);
 
 // out (d,) = Σ over the rows of a (rows, d) matrix in the compute dtype, in
 // f32 and in a fixed order: 64-row partial sums into `partial`

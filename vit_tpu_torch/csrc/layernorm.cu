@@ -450,3 +450,19 @@ cudaError_t launch_colsum(const float* partial, int parts, int m, float* out,
 }  // namespace vit
 
 extern "C" int vit_ln_bwd_partial_rows(int rows) { return vit::ln_bwd_partial_rows(rows); }
+
+// The LayerNorm backward with its residual (launch_ln_bwd) from an f32 dxn
+// (rows, d) in device memory: a tensor-parallel block's backward, whose dxn is
+// the sum over the model ranks of their partial dgrads (the split forms'
+// vit_fused_attention_block_bwd_partial and vit_fused_mlp_bwd_partial), so
+// that no dgrad's epilogue holds the whole dxn that kEpiLnBwd needs.  dx
+// (rows, d) and sums = [Σ dxn·xhat | Σ dxn | Σ dy] (3·d,) f32 from x, gamma
+// (d,) and dy (rows, d) in the compute dtype; `stats` (rows, 2) and `partial`
+// (vit_ln_bwd_partial_rows(rows), 3·d) f32 scratch.  dy must not be null.
+extern "C" int vit_ln_bwd(const void* x, const float* dxn, const void* gamma, const void* dy,
+                          void* dx, float* stats, float* partial, float* sums, int rows, int d,
+                          float eps, int dtype, cudaStream_t stream) {
+  if (!dy) return cudaErrorInvalidValue;
+  return vit::launch_ln_bwd(x, dxn, gamma, dy, dx, stats, partial, sums, rows, d, eps, dtype,
+                            stream);
+}

@@ -235,8 +235,9 @@ cudaError_t run(const Args<T>& args, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The instances that exist: the forward epilogues over (n, k) weights, the
-// backward ones over (k, n) weights.
+// The instances that exist: the forward epilogues over (n, k) weights (and
+// the f32 store, a split block's partial sum), the backward ones over (k, n)
+// weights.
 template <typename T>
 cudaError_t dispatch(const Args<T>& args, int layout, int epi, cudaStream_t stream) {
   if (layout == kWeightNK) {
@@ -245,6 +246,7 @@ cudaError_t dispatch(const Args<T>& args, int layout, int epi, cudaStream_t stre
       case kEpiBiasGelu: return run<T, kEpiBiasGelu, kWeightNK>(args, stream);
       case kEpiBiasResidual: return run<T, kEpiBiasResidual, kWeightNK>(args, stream);
       case kEpiBiasGeluSave: return run<T, kEpiBiasGeluSave, kWeightNK>(args, stream);
+      case kEpiStoreF32: return run<T, kEpiStoreF32, kWeightNK>(args, stream);
     }
   } else if (layout == kWeightKN) {
     switch (epi) {

@@ -18,6 +18,15 @@ optimizer built over the same model in the same order.  Under a process
 group rank 0 writes, and :meth:`CheckpointManager.wait` and
 :meth:`CheckpointManager.restore` meet every rank at a barrier, so that all
 of them read the same file.
+
+A model split over a ``model`` axis
+(:func:`vit_tpu_torch.parallel.sharding.shard_params`) is written whole, as
+``vit_tpu`` writes its global arrays: saving gathers every split parameter
+and the optimizer state that follows it over the model group, on every rank
+(so every rank calls ``save``), to the unsharded keys and shapes (q, k and v
+put back in place), and rank 0 writes; restoring into a split target hands
+each rank its slice.  A checkpoint of a split model restores into a
+one-process model, and one of a one-process model into a split one.
 """
 
 from __future__ import annotations
@@ -31,11 +40,79 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from vit_tpu_torch.parallel.sharding import gather_tensor, shard_tensor, tensor_parallel_plan
 from vit_tpu_torch.parallel.train import TrainState
+
+
+def _model_of(state):
+    return state.model if isinstance(state, TrainState) else \
+        state if isinstance(state, nn.Module) else None
+
+
+def _split(state) -> bool:
+    """Whether ``state`` holds a model split over a ``model`` axis above 1."""
+    model = _model_of(state)
+    plan = tensor_parallel_plan(model) if model is not None else None
+    return plan is not None and plan.shard.size > 1
+
+
+def _optimizer_tree(tree: dict, optimizer, model, kinds: dict, each) -> dict:
+    """``tree`` (an optimizer ``state_dict``) with ``each(t, kind)`` applied
+    to every state tensor of a split parameter (not to a scalar, as Adam's
+    step), the rest as it is; ``kinds`` the split's ``{name: kind}``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [p for group in optimizer.param_groups for p in group["params"]]
+    by_index = {i: kinds[names[id(p)]] for i, p in enumerate(order) if names.get(id(p)) in kinds}
+    state = {}
+    for i, entry in tree["state"].items():
+        kind = by_index.get(int(i))
+        state[i] = {k: each(v, kind) if kind and isinstance(v, torch.Tensor) and v.dim() else v
+                    for k, v in entry.items()}
+    return {**tree, "state": state}
+
+
+def _gathered(state) -> dict:
+    """The whole state of a split ``state`` (every rank takes part)."""
+    model = _model_of(state)
+    plan = tensor_parallel_plan(model)
+
+    def gather(t, kind):
+        return gather_tensor(t.detach(), kind, plan.shard)
+
+    weights = {k: gather(v, plan.kinds[k]) if k in plan.kinds else v
+               for k, v in model.state_dict().items()}
+    if not isinstance(state, TrainState):
+        return weights
+    return {"model": weights,
+            "optimizer": _optimizer_tree(state.optimizer.state_dict(), state.optimizer, model,
+                                         plan.kinds, gather),
+            "step": int(state.step)}
+
+
+def _sliced(data: dict, model, optimizer=None) -> dict:
+    """``data`` (a whole model ``state_dict``, or with ``optimizer`` its
+    ``state_dict``) cut to this rank's slices of ``model``'s split."""
+    plan = tensor_parallel_plan(model)
+
+    def cut(t, kind):
+        return shard_tensor(t, kind, plan.shard.rank, plan.shard.size)
+
+    if optimizer is not None:
+        return _optimizer_tree(data, optimizer, model, plan.kinds, cut)
+    return {k: cut(v, plan.kinds[k]) if k in plan.kinds else v for k, v in data.items()}
+
+
+def full_state_dict(model: nn.Module) -> dict:
+    """``model``'s ``state_dict`` whole: a split model's gathered over its
+    model group (every rank calls it and gets it), to the unsharded keys and
+    shapes that a one-process model loads; another model's as it is."""
+    return _tree(model)
 
 
 def _tree(state) -> Any:
     """What is written of ``state``."""
+    if _split(state):
+        return _gathered(state)
     if isinstance(state, TrainState):
         return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                 "step": int(state.step)}
@@ -64,8 +141,11 @@ def _write(path: str, snapshot) -> None:
 
 def save_checkpoint(path: str, state: Any) -> None:
     """Write ``state`` (a ``TrainState``, a module or a nested dict of
-    tensors) to the file ``path``, atomically."""
-    _write(os.path.abspath(path), _to_host(_tree(state)))
+    tensors) to the file ``path``, atomically.  A split model's state is
+    gathered on every rank (each calls it) and written by rank 0."""
+    tree = _tree(state)
+    if not _split(state) or _rank() == 0:
+        _write(os.path.abspath(path), _to_host(tree))
 
 
 def _load_into(target, data):
@@ -90,13 +170,16 @@ def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
     data = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     if target is None:
         return data
+    split = _split(target)
     if isinstance(target, TrainState):
-        target.model.load_state_dict(data["model"])
-        target.optimizer.load_state_dict(data["optimizer"])
+        model = target.model
+        model.load_state_dict(_sliced(data["model"], model) if split else data["model"])
+        target.optimizer.load_state_dict(
+            _sliced(data["optimizer"], model, target.optimizer) if split else data["optimizer"])
         target.step = data["step"]
         return target
     if isinstance(target, nn.Module):
-        target.load_state_dict(data)
+        target.load_state_dict(_sliced(data, target) if split else data)
         return target
     return _load_into(target, data)
 
@@ -141,10 +224,13 @@ class CheckpointManager:
         is taken before it returns; with ``wait=False`` the file is written
         on a background thread, which overlaps the next train steps
         (:meth:`wait`, or the next ``save`` or ``restore``, blocks until it
-        is on disk).  Under a process group only rank 0 writes."""
+        is on disk).  Under a process group only rank 0 writes; a split
+        model's state is gathered on every rank first, so every rank calls
+        it."""
         self._join()
+        tree = _tree(state) if _split(state) else None
         if _rank() == 0:
-            snapshot = _to_host(_tree(state))
+            snapshot = _to_host(tree if tree is not None else _tree(state))
             if wait:
                 self._write_and_prune(step, snapshot)
             else:

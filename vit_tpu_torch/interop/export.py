@@ -27,6 +27,12 @@ Two layouts:
   them first with :func:`vit_tpu_torch.cast_params` for the serving dtype).
 
 The loaded program takes only the shapes it was exported at, as ``jax.export``'s.
+
+A model split over a ``model`` axis above 1
+(:func:`vit_tpu_torch.parallel.sharding.shard_params`) does not export: its
+blocks sum partials over a process group, which a program cannot hold.
+Restore its checkpoint (written whole) into an unsharded model and export
+that.
 """
 
 from __future__ import annotations
@@ -88,7 +94,15 @@ def export_forward(model: nn.Module, image_shape: Sequence[int], *,
     kernel entries are the registered ops, on its own device; its training
     mode is restored afterwards.  A tuple output is cut to its first
     element.  Returns the bytes of ``torch.export.save``; load them with
-    :func:`load_forward`."""
+    :func:`load_forward`.  A model split over a ``model`` axis above 1
+    raises ``ValueError``."""
+    from vit_tpu_torch.parallel.sharding import tensor_parallel_plan
+
+    plan = tensor_parallel_plan(model)
+    if plan is not None and plan.shard.size > 1:
+        raise ValueError(f"export_forward: the model is split over a 'model' axis of "
+                         f"{plan.shard.size}; export from an unsharded model (restore its "
+                         f"checkpoint, which holds it whole, into one)")
     image = torch.zeros(tuple(image_shape), dtype=dtype, device=_device(model))
     was_training = model.training
     model.eval()

@@ -50,11 +50,29 @@ transpose before the stack and one after it.  Elsewhere ``"hybrid"`` does
 what ``"auto"`` does.  It stays opt-in, as in ``vit_tpu``.  The TPU package's
 ``"interpret"`` and ``"bmajor"`` modes were TPU dispatch tiers and are
 refused, as is ``"hybrid"`` anywhere but the ViT's ``fused_attention``.
+
+Tensor parallelism: :func:`vit_tpu_torch.parallel.sharding.shard_params`
+splits each ``Transformer`` layer's ``Attention`` and ``MLP`` over the mesh's
+``model`` axis and gives each a :class:`ModelShard` (``.shard``): the
+attention keeps its rank's heads (``heads`` the local count; q, k and v each
+cut by heads, the out-projection's columns), the MLP its rank's hidden units
+(fc1's rows and bias, fc2's columns); the LayerNorms and the output biases
+stay whole.  The kernel route runs the blocks' split forms (the autograd
+Functions given the model group); the plain modules sum each row-split
+projection's f32 partial over the group (:func:`~vit_tpu_torch.ops.
+tensor_parallel.reduce_from_model_parallel`) and the gradient at each
+column-split projection's input (:func:`~vit_tpu_torch.ops.tensor_parallel.
+copy_to_model_parallel`), then add the bias once.  Dropout under the model
+axis draws from the forward's generator, which every rank of a model group
+holds on one seed: the full-width masks, each rank taking its hidden units'
+slice of the MLP's, so that a split step equals the one-process step with
+that generator; an active dropout without a generator raises there.
 """
 
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +85,7 @@ from vit_tpu_torch.ops.fused_attention_block import fused_attention_block
 from vit_tpu_torch.ops.fused_hybrid import _attn_pack, attention_nb, ln_gemm, proj_mlp
 from vit_tpu_torch.ops.fused_mlp import fused_mlp
 from vit_tpu_torch.ops.patchify import conv2d_same, same_pads
+from vit_tpu_torch.ops.tensor_parallel import copy_to_model_parallel, reduce_from_model_parallel
 
 FUSED_MODES = ("auto", "never")
 HYBRID_MODES = FUSED_MODES + ("hybrid",)  # the ViT Transformer's fused_attention
@@ -131,6 +150,44 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if rate == 1.0:  # Flax's edge case
         return torch.zeros_like(x)
     return _drop(x, x.shape, 1.0 - rate, generator, "dropout")
+
+
+def dropout_shard(x: torch.Tensor, rate: float, training: bool,
+                  generator: torch.Generator | None, shard: "ModelShard") -> torch.Tensor:
+    """:func:`dropout` of this rank's slice of a column-split activation
+    (``x``'s last axis: ``shard.rank``'s part of ``shard.size``): the
+    full-width mask drawn from ``generator``, as one process draws it, and
+    this rank's columns of it."""
+    if rate == 0.0 or not training:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training draws from an explicit generator: pass "
+                         "generator= to the forward")
+    width, keep = x.shape[-1], 1.0 - rate
+    full = dropout_mask(generator, x.shape[:-1] + (width * shard.size,), keep)
+    mask = full[..., shard.rank * width:(shard.rank + 1) * width].to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """Where a split module sits on the mesh's ``model`` axis: the axis'
+    process group, this rank's place on it and its size."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def row_parallel_output(proj: nn.Linear, x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    """A row-split projection's output in ``x``'s dtype: this rank's f32
+    partial ``x·Wᵀ`` summed over the model group, then the (whole) bias
+    added once, ``T(Σ + b)``."""
+    s = F.linear(x.float(), cast_to(proj.weight, x).float())
+    s = reduce_from_model_parallel(s, shard.group)
+    return (s + cast_to(proj.bias, x).float()).to(x.dtype)
 
 
 class DropPath(nn.Module):
@@ -365,7 +422,11 @@ def synced_batch_norm(model: nn.Module, group):
 
 
 class MLP(nn.Module):
-    """Dense→GELU→Dropout→Dense→Dropout (reference vit.py:24-47)."""
+    """Dense→GELU→Dropout→Dense→Dropout (reference vit.py:24-47).  ``shard``
+    (a :class:`ModelShard`, set by ``shard_params``) splits it over the
+    model axis: see the module docstring."""
+
+    shard = None
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *,
                  device=None, dtype=None, generator=None):
@@ -381,11 +442,17 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator``: the dropout's draws (:func:`dropout`); without it an
-        active dropout draws from ``nn.Dropout``'s global RNG."""
+        active dropout draws from ``nn.Dropout``'s global RNG (and raises
+        when split)."""
+        rate, training = self.dropout.p, self.training
+        if self.shard is not None:
+            group = self.shard.group
+            x = gelu_exact(linear(self.fc1, copy_to_model_parallel(x, group)))
+            x = dropout_shard(x, rate, training, generator, self.shard)
+            return dropout(row_parallel_output(self.fc2, x, self.shard), rate, training, generator)
         if generator is None:
             x = self.dropout(gelu_exact(linear(self.fc1, x)))
             return self.dropout(linear(self.fc2, x))
-        rate, training = self.dropout.p, self.training
         x = dropout(gelu_exact(linear(self.fc1, x)), rate, training, generator)
         return dropout(linear(self.fc2, x), rate, training, generator)
 
@@ -393,7 +460,11 @@ class MLP(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention (reference vit.py:49-85): fused qkv
     projection without bias, output projection + dropout unless single-head
-    with ``dim_head == dim``."""
+    with ``dim_head == dim``.  ``shard`` (a :class:`ModelShard`, set by
+    ``shard_params``) splits it over the model axis by heads: see the module
+    docstring."""
+
+    shard = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  dropout: float = 0.0, *, device=None, dtype=None, generator=None):
@@ -414,15 +485,27 @@ class Attention(nn.Module):
     def dropout_active(self) -> bool:
         return self.project_out and self.training and self.to_out[1].p > 0
 
-    def forward(self, x: torch.Tensor, use_flash: str = "auto") -> torch.Tensor:
-        """``use_flash`` as :func:`scaled_dot_product_attention` takes it."""
+    def forward(self, x: torch.Tensor, use_flash: str = "auto",
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``use_flash`` as :func:`scaled_dot_product_attention` takes it;
+        ``generator``: the output dropout's draws (:func:`dropout`), without
+        which an active dropout draws from ``nn.Dropout``'s global RNG (and
+        raises when split)."""
         b, n, _ = x.shape
+        if self.shard is not None:
+            x = copy_to_model_parallel(x, self.shard.group)
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
         out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
                                            use_flash=use_flash)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return apply_output(self.to_out, out) if self.project_out else out
+        if not self.project_out:
+            return out
+        if self.shard is None and generator is None:
+            return apply_output(self.to_out, out)
+        y = linear(self.to_out[0], out) if self.shard is None \
+            else row_parallel_output(self.to_out[0], out, self.shard)
+        return dropout(y, self.to_out[1].p, self.training, generator)
 
 
 def kernel_activation(x: torch.Tensor) -> bool:
@@ -435,10 +518,16 @@ def kernel_activation(x: torch.Tensor) -> bool:
 def apply_fused_mlp_block(norm: LayerNorm, mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     """``x + mlp(norm(x))`` through the fused MLP kernel, from the parameters
     of the ``LayerNorm`` / ``MLP`` pair in the compute dtype (``x``'s); the
-    LayerNorm's γ/β go as they are, and the op rounds them."""
+    LayerNorm's γ/β go as they are, and the op rounds them; a split MLP
+    runs the op's split form over its model group."""
     return fused_mlp(x, norm.weight, norm.bias, cast_to(mlp.fc1.weight, x),
                      cast_to(mlp.fc1.bias, x), cast_to(mlp.fc2.weight, x),
-                     cast_to(mlp.fc2.bias, x), norm.eps)
+                     cast_to(mlp.fc2.bias, x), norm.eps, group=_group(mlp))
+
+
+def _group(module) -> object:
+    """A split module's model group, or None."""
+    return None if module.shard is None else module.shard.group
 
 
 def apply_fused_attention_block(norm: LayerNorm, attn: Attention,
@@ -449,7 +538,8 @@ def apply_fused_attention_block(norm: LayerNorm, attn: Attention,
     out = attn.to_out[0]
     return fused_attention_block(x, norm.weight, norm.bias, cast_to(attn.to_qkv.weight, x),
                                  cast_to(out.weight, x), cast_to(out.bias, x), attn.heads,
-                                 attn.dim_head, attn.dim_head ** -0.5, norm.eps)
+                                 attn.dim_head, attn.dim_head ** -0.5, norm.eps,
+                                 group=_group(attn))
 
 
 def fused_attention_eligible(x: torch.Tensor, attn: Attention, mode: str) -> bool:
@@ -593,7 +683,9 @@ class Transformer(nn.Module):
                 and n < 128 and b >= 64 and b * n >= 2048
                 and _attn_pack(attn.heads, attn.dim_head) is not None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of an active dropout on the plain
+        modules (:func:`dropout`)."""
         param = next(self.parameters(), None)
         dtype = self.compute_dtype or (param.dtype if param is not None else x.dtype)
         x = x.to(dtype)
@@ -608,8 +700,9 @@ class Transformer(nn.Module):
                 x = apply_fused_attention_block(layer["attn_norm"], layer["attn"], x)
             else:
                 x = x + layer["attn"](layer["attn_norm"](x), use_flash="never"
-                                      if self.fused_attention == "never" else "auto")
-            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp)
+                                      if self.fused_attention == "never" else "auto",
+                                      generator=generator)
+            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp, generator)
         return x
 
 

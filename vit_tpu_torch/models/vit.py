@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
-from vit_tpu_torch.layers.common import LayerNorm, Transformer, glorot_linear_, linear
+from vit_tpu_torch.layers.common import LayerNorm, Transformer, dropout, glorot_linear_, linear
 from vit_tpu_torch.ops.patchify import patchify
 
 
@@ -94,11 +94,19 @@ class ViT(nn.Module):
         x = torch.cat([cls_tokens, x], dim=1)
         return x + self.pos_embedding[:, : n + 1].to(x.dtype)
 
-    def embed(self, img: torch.Tensor) -> torch.Tensor:
-        """patchify → :meth:`tokens` → dropout."""
-        return self.emb_dropout(self.tokens(self.to_patch(img)))
+    def embed(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """patchify → :meth:`tokens` → dropout (from ``generator`` where
+        given, :func:`~vit_tpu_torch.layers.common.dropout`, which a model
+        split over a ``model`` axis needs: its ranks draw one mask)."""
+        x = self.tokens(self.to_patch(img))
+        if generator is None and getattr(self, "tensor_parallel", None) is None:
+            return self.emb_dropout(x)
+        return dropout(x, self.emb_dropout.p, self.training, generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        x = self.transformer(self.embed(img))
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of every active dropout (``vit_tpu``'s
+        ``'dropout'`` rng); without it they draw from ``nn.Dropout``'s global
+        RNG.  Under tensor parallelism an active dropout needs it."""
+        x = self.transformer(self.embed(img, generator), generator=generator)
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         return linear(self.head, self.head_norm(x))

@@ -76,6 +76,45 @@ SIGNATURES = {
         + [_I, _I, _I, _F, _I, _P],
         ctypes.c_int,
     ),
+    # The split forms (tensor parallelism): each stops at an f32 partial sum
+    # that the model ranks add up before the pass that ends the block.
+    "vit_fused_attention_block_fwd_partial": (
+        # x, gamma, beta, wqkv, wo, s (f32), xn, qkv, oattn, lse (or null),
+        # strides (q, k, v, out: batch, head, row), route (0 short, 1 mha),
+        [_P] * 10 + [_LL, _I]
+        # b, n, d, heads, dim_head, scale, eps, dtype, stream
+        + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_attention_block_bwd_partial": (
+        # dy, qkv, oattn, lse, wqkv, wo, dqkv, doattn, dxn (f32), strides (q,
+        # k, v, out, dout, dq, dk, dv: batch, head, row), route, dq_part and
+        # dsum (or null),
+        [_P] * 9 + [_LL, _I] + [_P] * 2
+        # b, n, d, heads, dim_head, scale, dtype, stream
+        + [_I, _I, _I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_mlp_fwd_partial": (
+        # x, gamma, beta, w1, b1, w2, s (f32), xn, g, h (null when serving),
+        [_P] * 10
+        # rows, d, hidden, eps, dtype, stream
+        + [_I, _I, _I, _F, _I, _P],
+        ctypes.c_int,
+    ),
+    "vit_fused_mlp_bwd_partial": (
+        # dy, h, w1, w2, dh, gact, sums_h, dxn (f32), part_h,
+        [_P] * 9
+        # rows, d, hidden, dtype, stream
+        + [_I, _I, _I, _I, _P],
+        ctypes.c_int,
+    ),
+    # y = T(x + T(s + b)) over a split block's summed f32 partials: s, b, x, y,
+    # rows, d, dtype, stream.
+    "vit_bias_residual": ([_P] * 4 + [_I, _I, _I, _P], ctypes.c_int),
+    # The LayerNorm backward with its residual from an f32 dxn: x, dxn, gamma,
+    # dy, dx, stats, partial, sums, rows, d, eps, dtype, stream.
+    "vit_ln_bwd": ([_P] * 8 + [_I, _I, _F, _I, _P], ctypes.c_int),
     "vit_fused_mlp_fwd_ragged": (
         # x, gamma_p, beta_p, w1_p, b1_p, w2_p, b2_p, y, xn, xp, g, h (null when
         # serving), yp,

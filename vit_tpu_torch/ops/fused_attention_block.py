@@ -70,6 +70,22 @@ f32 to the scaled f32 logits before the row max, in the forward and in the
 backward's recomputed softmax; its gradient ``dbias`` is the f32 sum over the
 batch (and over the heads when hb = 1) of ``p·(dp - dsum)``, taken before
 the scale, computed only when asked for.
+
+Tensor parallelism (``group=``, the mesh's model group; unbiased): each rank
+holds its heads, ``wqkv`` the rows of its heads in each of q, k and v and
+``wo`` their columns, ``heads`` the local count.  The split form
+(:func:`fused_attention_block_partial_forward`,
+:func:`fused_attention_block_partial_backward`; C's
+``vit_fused_attention_block_{fwd,bwd}_partial``) stops at the reductions: the
+forward at the f32 partial ``s = oattn·Woᵀ``, which the ranks sum before
+:func:`~vit_tpu_torch.ops.tensor_parallel.bias_residual` gives ``T(x + T(Σ s +
+bo))``; the backward at the f32 partial ``dxn = dqkv·Wqkv``, which the ranks
+sum before :func:`~vit_tpu_torch.ops.tensor_parallel.ln_backward` gives dx and
+``[dγ | dβ | dbo]``, the same on every rank.  The LayerNorm backward cannot be
+the dgrad's epilogue there (``kEpiLnBwd`` needs the whole dxn on chip).  A
+split block is the unsplit one up to the f32 summation order.  Plain
+versions: :func:`fused_attention_block_partial_forward_reference`,
+:func:`fused_attention_block_partial_backward_reference`.
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ from vit_tpu_torch.ops.flash_attention import _tma_problem, kernel_strides
 from vit_tpu_torch.ops.short_attention import (
     MAX_SEQ, short_attention_backward_reference, short_attention_forward_reference,
 )
+from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum, bias_residual, ln_backward
 
 SUPPORTED_DIM_HEAD = (32, 64, 128)
 # Images a launch takes on either route: short_attention.cu and
@@ -566,6 +583,155 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
     return dx, dqkv, dgamma, dbeta, dbo, dbias
 
 
+def fused_attention_block_partial_forward_reference(x, gamma, beta, wqkv, wo, heads: int,
+                                                    dim_head: int, scale: float | None = None,
+                                                    eps: float = 1e-3):
+    """Plain PyTorch version of the split form's forward: ``(s, xn, qkv,
+    oattn, lse)``, ``s = oattn·Woᵀ`` in f32 (no bias, no residual) over this
+    rank's ``heads`` (``wqkv`` ``(3·heads·dim_head, d)``, ``wo`` ``(d,
+    heads·dim_head)``), the attention on :func:`attention_route`'s route as
+    the kernels take it (the short route's rounded p, the mha route's late
+    divide), lse f32 ``(b, heads, n)``.  In f32 the sum of the ranks' s plus
+    bo and x is :func:`fused_attention_block_forward_reference`'s y."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
+    if attention_route(x.shape[1]) == "short":
+        oattn = torch.empty(x.shape[:-1] + (heads * dim_head,), dtype=x.dtype, device=x.device)
+        q, k, v, o = attention_forward_views(qkv, oattn, heads, dim_head)
+        out, lse = short_attention_forward_reference(q, k, v, scale)
+        o.copy_(out)
+    else:
+        q, k, v = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
+        logits = _logits(q, k, scale, None)
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        oattn = _merge_heads(((e.to(x.dtype).float() @ v) / e.sum(-1, keepdim=True)).to(x.dtype))
+        lse = torch.logsumexp(logits, dim=-1)
+    return F.linear(oattn.float(), wo.float()), xn, qkv, oattn, lse
+
+
+def fused_attention_block_partial_backward_reference(dy, qkv, oattn, lse, wqkv, wo, heads: int,
+                                                     dim_head: int,
+                                                     scale: float | None = None):
+    """Plain PyTorch version of the split form's backward: ``(dxn, dqkv,
+    doattn)``, ``dxn = dqkv·Wqkv`` in f32 over this rank's heads, from the
+    forward's qkv, oattn and lse, the attention backward as both routes take
+    it on the card (:func:`fused_attention_block_lse_backward_reference`)."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    d = dy.shape[-1]
+    doattn = (dy.reshape(-1, d).float() @ wo.float()).to(dy.dtype).reshape(oattn.shape)
+    dqkv = torch.empty_like(qkv)
+    q, k, v, o, do, dq, dk, dv = attention_backward_views(qkv, oattn, doattn, dqkv, heads, dim_head)
+    for dst, src in zip((dq, dk, dv), short_attention_backward_reference(q, k, v, o, lse, do,
+                                                                          scale)):
+        dst.copy_(src)
+    dxn = dqkv.reshape(-1, dqkv.shape[-1]).float() @ wqkv.float()
+    return dxn, dqkv, doattn
+
+
+def fused_attention_block_partial_forward(x, gamma, beta, wqkv, wo, heads: int, dim_head: int,
+                                          scale: float | None = None, eps: float = 1e-3,
+                                          training: bool = False):
+    """The split form's forward: what
+    :func:`fused_attention_block_partial_forward_reference` returns (lse
+    None unless ``training``).  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``vit_fused_attention_block_fwd_partial`` or raises.
+    ``fused_attention_block_partial_forward.launches`` counts kernel
+    launches (and ``FORWARD_ROUTES`` its attention's route)."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    if x.device.type == "cpu":
+        s, xn, qkv, oattn, lse = fused_attention_block_partial_forward_reference(
+            x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps)
+        return s, xn, qkv, oattn, lse if training else None
+    b, n, d = x.shape
+    inner = heads * dim_head
+    _check_block("fused_attention_block (split)", x, heads, dim_head, {
+        "gamma": (gamma, (d,)), "beta": (beta, (d,)), "wqkv": (wqkv, (3 * inner, d)),
+        "wo": (wo, (d, inner)),
+    })
+    route = attention_route(n)
+    _, xn, qkv, oattn = _forward_buffers(x, heads, dim_head)
+    s = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=x.device) if training else None
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.vit_fused_attention_block_fwd_partial(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
+            s.data_ptr(), xn.data_ptr(), qkv.data_ptr(), oattn.data_ptr(), data_ptr(lse),
+            _attention_strides(b, n, heads, dim_head, backward=False), ROUTE_CODES[route], b, n,
+            d, heads, dim_head, float(scale), eps, _build.DTYPE_CODES[x.dtype], launch_stream(x))
+    _build.check(err, "vit_fused_attention_block_fwd_partial")
+    fused_attention_block_partial_forward.launches += 1
+    FORWARD_ROUTES[route].launches += 1
+    return s, xn, qkv, oattn, lse
+
+
+fused_attention_block_partial_forward.launches = 0
+
+
+def fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo, heads: int,
+                                           dim_head: int, scale: float | None = None):
+    """The split form's backward: what
+    :func:`fused_attention_block_partial_backward_reference` returns, from
+    the split training forward's qkv, oattn and lse.  A CPU tensor takes the
+    plain version; a CUDA tensor launches
+    ``vit_fused_attention_block_bwd_partial`` or raises.
+    ``fused_attention_block_partial_backward.launches`` counts kernel
+    launches (and ``BACKWARD_ROUTES`` its attention's route)."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    if dy.device.type == "cpu":
+        return fused_attention_block_partial_backward_reference(dy, qkv, oattn, lse, wqkv, wo,
+                                                                heads, dim_head, scale)
+    b, n, d = dy.shape
+    inner = heads * dim_head
+    _check_block("fused_attention_block backward (split)", dy, heads, dim_head, {
+        "qkv": (qkv, (b, n, 3 * inner)), "oattn": (oattn, (b, n, inner)),
+        "wqkv": (wqkv, (3 * inner, d)), "wo": (wo, (d, inner)),
+    })
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, n) \
+            or not lse.is_contiguous() or lse.device != dy.device:
+        raise ValueError("fused_attention_block backward (split): lse must be the split "
+                         f"training forward's contiguous f32 ({b}, {heads}, {n}) tensor")
+    route = attention_route(n)
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    dqkv = torch.empty_like(qkv)
+    doattn = torch.empty_like(oattn)
+    dxn = torch.empty((b * n, d), **f32)
+    lib = _build.load()
+    dq_part = dsum = None
+    if route == "short":
+        parts = lib.vit_short_attention_parts(n, dim_head)
+        if parts > 1:
+            dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
+    else:  # the flash backward's D
+        dsum = torch.empty((b, heads, n), **f32)
+    with torch.cuda.device(dy.device):
+        err = lib.vit_fused_attention_block_bwd_partial(
+            dy.data_ptr(), qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr(), wqkv.data_ptr(),
+            wo.data_ptr(), dqkv.data_ptr(), doattn.data_ptr(), dxn.data_ptr(),
+            _attention_strides(b, n, heads, dim_head, backward=True), ROUTE_CODES[route],
+            data_ptr(dq_part), data_ptr(dsum), b, n, d, heads, dim_head, float(scale),
+            _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+    _build.check(err, "vit_fused_attention_block_bwd_partial")
+    fused_attention_block_partial_backward.launches += 1
+    BACKWARD_ROUTES[route].launches += 1
+    return dxn, dqkv, doattn
+
+
+fused_attention_block_partial_backward.launches = 0
+
+
+def _split_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, group, training):
+    """A split block's forward: the partial, its sum over ``group``, the
+    pass; ``(y, xn, qkv, oattn, lse)``."""
+    s, xn, qkv, oattn, lse = fused_attention_block_partial_forward(
+        x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps, training)
+    return bias_residual(all_reduce_sum(s, group), bo, x), xn, qkv, oattn, lse
+
+
 class FusedAttentionBlockFunction(torch.autograd.Function):
     """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``, and with a
     ``bias``, ``_vjp_fwd_bias`` / ``_vjp_bwd_bias``): the training forward
@@ -577,13 +743,21 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
     master parameters: they are rounded to the compute dtype for the kernel,
     and their gradients come back in their own dtype from the f32 sums.
     ``dbias`` is computed only when autograd asks for it (a bias that does
-    not require grad, as LSA's constant mask, never does)."""
+    not require grad, as LSA's constant mask, never does).  With ``group``
+    (the model group of a split block, unbiased) the forward is the split
+    form, its partial summed over the group, then the pass; the backward the
+    split backward, its f32 dxn summed over the group, then the LayerNorm
+    backward; the weight gradients stay this rank's."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps):
+    def forward(ctx, x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps,
+                group=None):
         gc, bc = gamma.to(x.dtype), beta.to(x.dtype)
         lse = None
-        if x.device.type == "cpu":
+        if group is not None:
+            y, xn, qkv, oattn, lse = _split_forward(x, gc, bc, wqkv, wo, bo, heads, dim_head,
+                                                    scale, eps, group, training=True)
+        elif x.device.type == "cpu":
             y, xn, qkv, oattn = fused_attention_block_forward_reference(
                 x, gc, bc, wqkv, wo, bo, heads, dim_head, scale, eps, bias)
         else:
@@ -591,6 +765,7 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
                                                      scale, eps, bias, training=True)
         ctx.save_for_backward(x, xn, qkv, oattn, lse, gc, wqkv, wo, bias)
         ctx.config = (heads, dim_head, scale, eps)
+        ctx.group = group
         ctx.param_dtypes = (gamma.dtype, beta.dtype, bo.dtype)
         return y
 
@@ -600,7 +775,12 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
         x, xn, qkv, oattn, lse, gc, wqkv, wo, bias = ctx.saved_tensors
         dy = dy.contiguous()
         dbias = None
-        if bias is None:
+        if ctx.group is not None:
+            heads, dim_head, scale, eps = ctx.config
+            dxn, dqkv, _ = fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo,
+                                                                  heads, dim_head, scale)
+            dx, dgamma, dbeta, dbo = ln_backward(x, all_reduce_sum(dxn, ctx.group), gc, dy, eps)
+        elif bias is None:
             dx, dqkv, dgamma, dbeta, dbo = fused_attention_block_backward(
                 dy, x, qkv, gc, wqkv, wo, *ctx.config, oattn=oattn, lse=lse)
         else:
@@ -609,12 +789,12 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
                 need_dbias=ctx.needs_input_grad[6], oattn=oattn, lse=lse)
         gamma_dt, beta_dt, bo_dt = ctx.param_dtypes
         return (dx, dgamma.to(gamma_dt), dbeta.to(beta_dt), weight_grad(dqkv, xn),
-                weight_grad(dy, oattn), dbo.to(bo_dt), dbias, None, None, None, None)
+                weight_grad(dy, oattn), dbo.to(bo_dt), dbias, None, None, None, None, None)
 
 
 def fused_attention_block(x, gamma, beta, wqkv, wo, bo, heads: int,
                           dim_head: int, scale: float | None = None,
-                          eps: float = 1e-3):
+                          eps: float = 1e-3, group=None):
     """``x + (softmax(q·kᵀ·scale)·v)·Woᵀ + bo`` with ``q,k,v = LN(x)·Wqkvᵀ``.
 
     ``x`` is ``(b, n, d)``; weights as in
@@ -626,8 +806,13 @@ def fused_attention_block(x, gamma, beta, wqkv, wo, bo, heads: int,
     plain version and a CUDA tensor launches the serving kernels, which keep
     no residuals.  On CUDA it launches or raises.
     ``fused_attention_block.launches`` counts forward kernel launches.
+
+    ``group``: the model group of a split block (tensor parallelism), whose
+    ``wqkv``, ``wo`` and ``heads`` are this rank's (module docstring); the
+    call runs the split form on either device, its launches counted on
+    ``fused_attention_block_partial_forward.launches``.
     """
-    return _block(x, gamma, beta, wqkv, wo, bo, None, heads, dim_head, scale, eps)
+    return _block(x, gamma, beta, wqkv, wo, bo, None, heads, dim_head, scale, eps, group)
 
 
 fused_attention_block.launches = 0
@@ -654,13 +839,16 @@ def fused_attention_block_bias(x, gamma, beta, wqkv, wo, bo, bias, heads: int,
 fused_attention_block_bias.launches = 0
 
 
-def _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps):
+def _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps, group=None):
     if scale is None:
         scale = dim_head ** -0.5
     if needs_grad(x, gamma, beta, wqkv, wo, bo, bias):
         return FusedAttentionBlockFunction.apply(x, gamma, beta, wqkv, wo, bo, bias, heads,
-                                                 dim_head, scale, eps)
+                                                 dim_head, scale, eps, group)
     gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+    if group is not None:
+        return _split_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, group,
+                              training=False)[0]
     if bias is None:
         return fused_attention_block_op(x, gamma, beta, wqkv, wo, bo, heads, dim_head,
                                         float(scale), eps)

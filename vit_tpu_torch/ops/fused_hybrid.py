@@ -81,7 +81,8 @@ def _f32(shape, like):
 # csrc/kernels.cuh's Epilogue codes that csrc/gemm_wgmma.cu takes over an
 # nn.Linear weight (n, k) (the forward GEMMs, ``layout="nk"``) and over one
 # used as it lies, (k, n) (the blocks' dgrads, ``layout="kn"``).
-GEMM_EPILOGUES = {"store": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_save": 3}
+GEMM_EPILOGUES = {"store": 0, "bias_gelu": 1, "bias_residual": 2, "bias_gelu_save": 3,
+                  "f32": 5}
 DGRAD_EPILOGUES = {"store": 0, "dgelu": 4, "f32": 5, "ln_bwd": 6}
 _LAYOUTS = {"nk": (0, GEMM_EPILOGUES), "kn": (1, DGRAD_EPILOGUES)}
 # Rows of one column-sum partial of the LayerNorm backward (layernorm.cu's
@@ -159,7 +160,8 @@ def gemm_reference(a, w, epilogue: str, bias=None, res=None, h=None, layout: str
     ``layout="nk"`` (the hybrid layer's forward GEMMs), ``w`` ``(n, k)``,
     ``acc = a·wᵀ``: ``(out, h)``, out ``T(acc)``; ``T(gelu(acc + b))``;
     ``T(res + T(acc + b))``; and for ``"bias_gelu_save"`` also ``h = T(acc +
-    b)``, the GELU taken of the unrounded sum (``h`` None for the others).
+    b)``, the GELU taken of the unrounded sum (``h`` None for the others);
+    ``"f32"`` gives ``(acc, None)``, a split block's f32 partial sum.
 
     ``layout="kn"`` (the blocks' dgrads), ``w`` ``(k, n)`` as it lies, ``acc
     = a·w``: ``"store"`` gives ``(T(acc), None)``, ``"f32"`` ``(acc, None)``,

@@ -47,6 +47,20 @@ is that route's plain version, equal to the unpadded one in f32.  The op
 keeps its signature, the module's ``(b, n, d)`` tensors in and out;
 ``_launch_forward`` returns xn and h at the padded widths, as the backward
 takes them.
+
+Tensor parallelism (``group=``, the mesh's model group): each rank holds its
+hidden units, fc1 split by columns (``w1`` ``(hidden, d)``, ``b1``) and fc2
+by rows (``w2`` ``(d, hidden)``), ``b2`` whole.  The split form
+(:func:`fused_mlp_partial_forward`, :func:`fused_mlp_partial_backward`; C's
+``vit_fused_mlp_{fwd,bwd}_partial``) stops at the reductions: fc2 at its f32
+partial, which the ranks sum before
+:func:`~vit_tpu_torch.ops.tensor_parallel.bias_residual` gives ``T(x + T(Σ s
++ b2))``; the backward's dGELU dgrad stays local and the dh·W1 dgrad stops at
+the f32 partial dxn, which the ranks sum before
+:func:`~vit_tpu_torch.ops.tensor_parallel.ln_backward` gives dx and ``[dγ |
+dβ | db2]``.  It takes d % 8 == 0 and hidden % 8 == 0 (no padded route).
+Plain versions: :func:`fused_mlp_partial_forward_reference`,
+:func:`fused_mlp_partial_backward_reference`.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from vit_tpu_torch.ops._checks import check_kernel_tensors, launch_stream, needs
 from vit_tpu_torch.ops._shared import (
     data_ptr, ln_backward_reference, ln_bwd_scratch, ln_stats, weight_grad,
 )
+from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum, bias_residual, ln_backward
 
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -313,6 +328,111 @@ def _crop(t, rows: int, cols: int):
     return t if tuple(t.shape) == (rows, cols) else t[:rows, :cols].contiguous()
 
 
+def fused_mlp_partial_forward_reference(x, gamma, beta, w1, b1, w2, eps: float = 1e-3):
+    """Plain PyTorch version of the split form's forward: ``(s, xn, h)``, s
+    the f32 partial ``gelu(h)·W2ᵀ`` over this rank's hidden units (no bias,
+    no residual), xn and ``h = T(xn·W1ᵀ + b1)`` as
+    :func:`fused_mlp_forward_reference` keeps them.  In f32 the sum of the
+    ranks' s plus b2 and x is that function's y."""
+    dt = x.dtype
+    x32 = x.float()
+    mu, rstd = ln_stats(x32, eps)
+    xn = ((x32 - mu) * rstd * gamma.float() + beta.float()).to(dt)
+    h32 = F.linear(xn.float(), w1.float(), b1.float())
+    return F.linear(F.gelu(h32).to(dt).float(), w2.float()), xn, h32.to(dt)
+
+
+def fused_mlp_partial_backward_reference(dy, h, w1, w2):
+    """Plain PyTorch version of the split form's backward: ``(dxn, dh, gact,
+    db1)``, the f32 partial ``dxn = dh·W1`` over this rank's hidden units,
+    dh, gact and db1 as :func:`fused_mlp_backward_reference` gives them."""
+    dt = dy.dtype
+    d, hidden = dy.shape[-1], h.shape[-1]
+    h32 = h.reshape(-1, hidden).float()
+    dh32 = (dy.reshape(-1, d).float() @ w2.float()) * _dgelu(h32)
+    dh = dh32.to(dt)
+    dxn = dh.float() @ w1.float()
+    return dxn, dh.reshape(h.shape), F.gelu(h32).to(dt).reshape(h.shape), dh32.sum(0)
+
+
+def _check_split_widths(d: int, hidden: int) -> None:
+    if d % 8 or hidden % 8:
+        raise ValueError(f"fused_mlp (split): the split form takes d and the local hidden width "
+                         f"in multiples of 8, got d={d}, hidden={hidden}")
+
+
+def fused_mlp_partial_forward(x, gamma, beta, w1, b1, w2, eps: float = 1e-3,
+                              training: bool = False):
+    """The split form's forward: what :func:`fused_mlp_partial_forward_reference`
+    returns (xn and h None unless ``training``).  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``vit_fused_mlp_fwd_partial`` or
+    raises.  ``fused_mlp_partial_forward.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        s, xn, h = fused_mlp_partial_forward_reference(x, gamma, beta, w1, b1, w2, eps)
+        return (s, xn, h) if training else (s, None, None)
+    hidden, d = w1.shape
+    _check_split_widths(d, hidden)
+    check_kernel_tensors("fused_mlp (split)", x, {
+        "gamma": (gamma, (d,)), "beta": (beta, (d,)), "w1": (w1, (hidden, d)),
+        "b1": (b1, (hidden,)), "w2": (w2, (d, hidden)),
+    })
+    rows = x.numel() // d
+    _, xn, g, h = _forward_buffers(x, hidden, training)
+    s = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.vit_fused_mlp_fwd_partial(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), s.data_ptr(), xn.data_ptr(), g.data_ptr(), data_ptr(h), rows, d,
+            hidden, eps, _build.DTYPE_CODES[x.dtype], launch_stream(x))
+    _build.check(err, "vit_fused_mlp_fwd_partial")
+    fused_mlp_partial_forward.launches += 1
+    return (s, xn, h) if training else (s, None, None)
+
+
+fused_mlp_partial_forward.launches = 0
+
+
+def fused_mlp_partial_backward(dy, h, w1, w2):
+    """The split form's backward: what
+    :func:`fused_mlp_partial_backward_reference` returns, from the split
+    training forward's h.  A CPU tensor takes the plain version; a CUDA
+    tensor launches ``vit_fused_mlp_bwd_partial`` or raises.
+    ``fused_mlp_partial_backward.launches`` counts kernel launches."""
+    if dy.device.type == "cpu":
+        return fused_mlp_partial_backward_reference(dy, h, w1, w2)
+    hidden, d = w1.shape
+    _check_split_widths(d, hidden)
+    check_kernel_tensors("fused_mlp backward (split)", dy, {
+        "h": (h, dy.shape[:-1] + (hidden,)), "w1": (w1, (hidden, d)), "w2": (w2, (d, hidden)),
+    })
+    rows = dy.numel() // d
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    dh, gact = torch.empty_like(h), torch.empty_like(h)
+    db1 = torch.empty(hidden, **f32)
+    dxn = torch.empty((rows, d), **f32)
+    lib = _build.load()
+    part_h = torch.empty((lib.vit_linear_partial_rows(rows), hidden), **f32)
+    with torch.cuda.device(dy.device):
+        err = lib.vit_fused_mlp_bwd_partial(
+            dy.data_ptr(), h.data_ptr(), w1.data_ptr(), w2.data_ptr(), dh.data_ptr(),
+            gact.data_ptr(), db1.data_ptr(), dxn.data_ptr(), part_h.data_ptr(), rows, d, hidden,
+            _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
+    _build.check(err, "vit_fused_mlp_bwd_partial")
+    fused_mlp_partial_backward.launches += 1
+    return dxn, dh, gact, db1
+
+
+fused_mlp_partial_backward.launches = 0
+
+
+def _split_forward(x, gamma, beta, w1, b1, w2, b2, eps, group, training):
+    """A split MLP's forward: the partial, its sum over ``group``, the pass;
+    ``(y, xn, h)``."""
+    s, xn, h = fused_mlp_partial_forward(x, gamma, beta, w1, b1, w2, eps, training)
+    return bias_residual(all_reduce_sum(s, group), b2, x), xn, h
+
+
 class FusedMLPFunction(torch.autograd.Function):
     """The op under autograd (``_vjp_fwd`` / ``_vjp_bwd``): the training
     forward keeps ``x``, ``xn`` and ``h``; the backward runs the backward
@@ -320,13 +440,20 @@ class FusedMLPFunction(torch.autograd.Function):
     as plain GEMMs with f32 accumulation, rounded to the weights' dtype, as
     JAX left them to XLA.  ``gamma``/``beta`` may be f32 master parameters:
     they are rounded to the compute dtype for the kernel, and their gradients
-    come back in their own dtype from the f32 sums."""
+    come back in their own dtype from the f32 sums.  With ``group`` (the
+    model group of a split MLP) the forward is the split form, its partial
+    summed over the group, then the pass; the backward the split backward,
+    its f32 dxn summed over the group, then the LayerNorm backward; the
+    weight gradients stay this rank's."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, group=None):
         gc, bc = gamma.to(x.dtype), beta.to(x.dtype)
         ctx.hidden_width = w1.shape[0]
-        if x.device.type == "cpu":
+        ctx.group = group
+        if group is not None:
+            y, xn, h = _split_forward(x, gc, bc, w1, b1, w2, b2, eps, group, training=True)
+        elif x.device.type == "cpu":
             y, xn, h = fused_mlp_forward_reference(x, gc, bc, w1, b1, w2, b2, eps)
         else:  # the padded copies at widths off 8, kept for the backward
             gc, bc, w1, b1, w2, b2 = kernel_operands(gc, bc, w1, b1, w2, b2)
@@ -340,16 +467,22 @@ class FusedMLPFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         x, xn, h, gc, w1, w2 = ctx.saved_tensors
-        dx, dh, gact, dgamma, dbeta, db1, db2 = fused_mlp_backward(
-            dy.contiguous(), x, h, gc, w1, w2, ctx.eps)
+        dy = dy.contiguous()
+        if ctx.group is not None:
+            dxn, dh, gact, db1 = fused_mlp_partial_backward(dy, h, w1, w2)
+            dx, dgamma, dbeta, db2 = ln_backward(x, all_reduce_sum(dxn, ctx.group), gc, dy,
+                                                 ctx.eps)
+        else:
+            dx, dh, gact, dgamma, dbeta, db1, db2 = fused_mlp_backward(dy, x, h, gc, w1, w2,
+                                                                       ctx.eps)
         gamma_dt, beta_dt, b1_dt, b2_dt = ctx.param_dtypes
         d, hidden = dx.shape[-1], ctx.hidden_width
         return (dx, dgamma.to(gamma_dt), dbeta.to(beta_dt), _crop(weight_grad(dh, xn), hidden, d),
                 db1[:hidden].to(b1_dt), _crop(weight_grad(dy, gact), d, hidden),
-                db2.to(b2_dt), None)
+                db2.to(b2_dt), None, None)
 
 
-def fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-3):
+def fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-3, group=None):
     """``x + fc2(gelu(fc1(LN(x))))`` over ``(t, d)`` or ``(b, n, d)`` rows.
 
     Weights in ``nn.Linear`` layout and, on CUDA, in ``x``'s dtype (bf16 or
@@ -360,9 +493,17 @@ def fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-3):
     :func:`fused_mlp_reference` and a CUDA tensor launches the serving
     kernel, which keeps no residuals.  On CUDA it launches or raises.
     ``fused_mlp.launches`` counts forward kernel launches.
+
+    ``group``: the model group of a split MLP (tensor parallelism), whose
+    ``w1``, ``b1`` and ``w2`` are this rank's (module docstring); the call
+    runs the split form on either device, its launches counted on
+    ``fused_mlp_partial_forward.launches``.
     """
     if needs_grad(x, gamma, beta, w1, b1, w2, b2):
-        return FusedMLPFunction.apply(x, gamma, beta, w1, b1, w2, b2, eps)
+        return FusedMLPFunction.apply(x, gamma, beta, w1, b1, w2, b2, eps, group)
+    if group is not None:
+        return _split_forward(x, gamma.to(x.dtype), beta.to(x.dtype), w1, b1, w2, b2, eps, group,
+                              training=False)[0]
     return fused_mlp_op(x, gamma.to(x.dtype), beta.to(x.dtype), w1, b1, w2, b2, eps)
 
 

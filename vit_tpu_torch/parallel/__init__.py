@@ -1,2 +1,3 @@
-"""Process group, device mesh and train steps (port of ``vit_tpu/parallel``;
-data parallelism, tensor parallelism not yet)."""
+"""Process group, device mesh, the tensor-parallel rule table and train
+steps (port of ``vit_tpu/parallel``): data parallelism over the mesh's
+``data`` axis, tensor parallelism over its ``model`` axis."""

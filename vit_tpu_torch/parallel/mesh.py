@@ -7,12 +7,18 @@ drives one card: :func:`initialize_distributed` joins the process group
 :func:`make_mesh` lays a ``DeviceMesh`` with the same axis names over the
 group's world.  Data parallelism rides the ``data`` axis: the train steps of
 :mod:`vit_tpu_torch.parallel.train` take ``mesh=`` and average the gradients
-over it.  The ``model`` axis (tensor parallelism) is not ported yet: a mesh
-whose ``model`` axis is above 1 raises ``NotImplementedError``.
+over it.  Tensor parallelism rides the ``model`` axis: the ranks of one model
+group (consecutive ranks, ``(data, model)`` in row-major order, as
+``vit_tpu``'s mesh lays its devices) each hold a slice of every transformer
+block (:func:`vit_tpu_torch.parallel.sharding.shard_params`).
 
     rank, world = initialize_distributed()          # under torchrun
     mesh = make_mesh()                               # every rank on "data"
     step = make_train_step(model, optimizer, mesh=mesh)
+
+    mesh = make_mesh((world // 2, 2))                # tensor parallel over pairs
+    shard_params(mesh, model)                        # before the optimizer
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), 1e-3), mesh=mesh)
 """
 
 from __future__ import annotations
@@ -98,20 +104,17 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
     group (one process, one card).
 
     Default: every rank on the ``data`` axis, the others of size 1 (pure
-    data parallelism).  A shape that does not cover the world raises
-    ``ValueError``; a ``model`` axis above 1 raises ``NotImplementedError``
-    (tensor parallelism is ROADMAP's next slice).  ``device_type`` is
-    ``"cuda"`` unless the caller asks for ``"cpu"`` (gloo ranks)."""
+    data parallelism); ``(dp, tp)`` lays a ``data`` axis of dp over a
+    ``model`` axis of tp (tensor parallelism, ``shard_params``).  A shape
+    that does not cover the world raises ``ValueError``, outside a group any
+    shape but all ones.  ``device_type`` is ``"cuda"`` unless the caller asks
+    for ``"cpu"`` (gloo ranks)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if mesh_shape is None:
         mesh_shape = (world,) + (1,) * (len(axis_names) - 1)
     mesh_shape, axis_names = tuple(mesh_shape), tuple(axis_names)
     if len(mesh_shape) != len(axis_names):
         raise ValueError(f"mesh shape {mesh_shape} does not match the axes {axis_names}")
-    if MODEL_AXIS in axis_names and mesh_shape[axis_names.index(MODEL_AXIS)] > 1:
-        raise NotImplementedError(
-            f"mesh shape {mesh_shape}: a '{MODEL_AXIS}' axis above 1 is tensor parallelism, "
-            "which is not ported yet (ROADMAP.md, the tensor-parallel slice)")
     if math.prod(mesh_shape) != world:
         raise ValueError(f"mesh shape {mesh_shape} does not cover {world} processes")
     if not dist.is_initialized():
@@ -129,6 +132,26 @@ def data_group(mesh):
 def data_size(mesh) -> int:
     """The size of ``mesh``'s ``data`` axis (1 without a mesh)."""
     return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))
+
+
+def _has_model_axis(mesh) -> bool:
+    return mesh is not None and MODEL_AXIS in mesh.mesh_dim_names
+
+
+def model_group(mesh):
+    """The process group of ``mesh``'s ``model`` axis: this rank and the
+    others holding the other slices of its blocks; None without one."""
+    return mesh.get_group(MODEL_AXIS) if _has_model_axis(mesh) else None
+
+
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s ``model`` axis (1 without one)."""
+    return mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)) if _has_model_axis(mesh) else 1
+
+
+def model_rank(mesh) -> int:
+    """This rank's place on ``mesh``'s ``model`` axis (0 without one)."""
+    return mesh.get_local_rank(MODEL_AXIS) if _has_model_axis(mesh) else 0
 
 
 def batch_sharding(mesh):

@@ -9,8 +9,15 @@ gradients are averaged over the ranks once a step, after every microbatch,
 in one all-reduce (:func:`all_reduce_gradients`), and the BatchNorms
 normalise with the global batch statistics
 (:func:`vit_tpu_torch.layers.common.synced_batch_norm`), as GSPMD gives them
-under ``vit_tpu``'s mesh.  Tensor parallelism (the mesh's ``model`` axis,
-``parallel/sharding.py``) is not ported yet.  A model with BatchNorm (CvT)
+under ``vit_tpu``'s mesh.  Over a ``data`` × ``model`` mesh the model is
+split first (:func:`vit_tpu_torch.parallel.sharding.shard_params`): each
+rank holds its slice of every transformer block, the blocks sum their
+partials over the model group inside the forward and the backward, and the
+step averages the gradients over the data group only (a slice is a
+parameter of its own, and the replicated parameters' gradients are equal on
+the ranks of a model group already); the broadcast at build goes over the
+data group too, so each model rank's slices agree across the data axis.  A
+model with BatchNorm (CvT)
 needs no step of its own: in training mode its forward updates the running
 statistics in place, which is what ``vit_tpu``'s ``make_bn_train_step``
 returns as ``new_model_state``.  As there, such a model takes no gradient
@@ -28,6 +35,12 @@ Data-parallel, one process per card (``torchrun --nproc_per_node=N``):
     initialize_distributed()
     step = make_train_step(model, optimizer, mesh=make_mesh())
     metrics = step(local_images, local_labels)     # the loss is the global mean
+
+Tensor-parallel over pairs of ranks (each pair feeds one slice of the batch):
+
+    mesh = make_mesh((world // 2, 2))
+    shard_params(mesh, model)                      # before the optimizer
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3), mesh=mesh)
 
 A model that draws in training (dropout and stochastic depth in ``CCT``,
 layer dropout in ``CaiT``, ATS-ViT's Gumbel noise) takes its draws from the
@@ -56,7 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.layers.common import synced_batch_norm
-from vit_tpu_torch.parallel.mesh import data_group, data_size
+from vit_tpu_torch.parallel.mesh import data_group, data_size, model_size, replicated
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -77,6 +90,50 @@ class TrainState:
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> TrainState:
     return TrainState(model, optimizer)
+
+
+def state_shardings(mesh, state: TrainState) -> dict:
+    """The placements of a :class:`TrainState` over ``mesh``'s axes
+    (``vit_tpu``'s ``state_shardings``): ``{"step", "params", "opt_state"}``,
+    the parameters by the rule table
+    (:func:`~vit_tpu_torch.parallel.sharding.param_shardings`), each
+    optimizer state tensor as its parameter (``{index: {key: placements}}``
+    in the optimizer's parameter order; a scalar, as Adam's ``step``,
+    replicated), the step replicated."""
+    from vit_tpu_torch.parallel.sharding import param_shardings
+
+    rep = replicated(mesh) * (len(mesh.mesh_dim_names) if mesh is not None else 1)
+    params = param_shardings(mesh, state.model)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    opt_state = {}
+    for i, p in enumerate(_optimizer_params(state.optimizer)):
+        placed = params[names[id(p)]]
+        opt_state[i] = {k: placed if isinstance(v, torch.Tensor) and v.shape == p.shape else rep
+                        for k, v in state.optimizer.state.get(p, {}).items()}
+    return {"step": rep, "params": params, "opt_state": opt_state}
+
+
+def bn_state_shardings(mesh, state: TrainState) -> dict:
+    """:func:`state_shardings` with ``model_state``: every buffer (BatchNorm's
+    running statistics) replicated (``vit_tpu``'s ``bn_state_shardings``)."""
+    rep = replicated(mesh) * (len(mesh.mesh_dim_names) if mesh is not None else 1)
+    return {**state_shardings(mesh, state),
+            "model_state": {name: rep for name, _ in state.model.named_buffers()}}
+
+
+def _check_split(model: nn.Module, mesh) -> None:
+    """A mesh with a ``model`` axis above 1 trains only the model that
+    ``shard_params`` split over it, and a split model only on its mesh."""
+    from vit_tpu_torch.parallel.sharding import tensor_parallel_plan
+
+    plan = tensor_parallel_plan(model)
+    split = plan is not None and plan.shard.size > 1
+    if (model_size(mesh) > 1 or split) and (plan is None or plan.mesh is not mesh):
+        raise ValueError(
+            "make_train_step: a mesh with a 'model' axis of "
+            f"{model_size(mesh)} trains the model that shard_params(mesh, model) split over "
+            "that mesh before the optimizer was built"
+            + ("; this model was split over another mesh" if plan is not None else ""))
 
 
 def _accum_value_and_grad(loss_of: Callable, params, batch: tuple,
@@ -173,6 +230,7 @@ def _make_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_of: Call
     above 1), averaged over ``mesh``'s data axis where given, one optimizer
     update.  ``step.state`` is the :class:`TrainState`."""
     _check_accumulation(model, accum_steps)
+    _check_split(model, mesh)
     state = create_train_state(model, optimizer)
     params = _optimizer_params(optimizer)
     group = data_group(mesh)
@@ -227,8 +285,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     1 included: each rank passes its own slice of the global batch, the
     gradients are averaged once a step after all microbatches, and the
     returned loss is the ranks' mean.  Building the step broadcasts the
-    parameters and buffers from the axis' first rank.  ``vit_tpu``'s
-    ``donate`` has no counterpart: the update is in place already.
+    parameters and buffers from the axis' first rank.  Where ``mesh`` has a
+    ``model`` axis above 1, ``model`` must be the one
+    :func:`~vit_tpu_torch.parallel.sharding.shard_params` split over it
+    (``ValueError`` otherwise): the ranks of a model group pass the same
+    slice of the batch, and the gradients are averaged over the data axis
+    alone.  ``vit_tpu``'s ``donate`` has no counterpart: the update is in
+    place already.
     """
     loss_fn = loss_fn or cross_entropy_loss
     draws = "generator" in inspect.signature(model.forward).parameters
