@@ -336,14 +336,28 @@ Phases, one line each (any failure raises and exits non-zero):
    against its plain version and twice bit for bit; the two ranks' partials
    summed and ended by the pass or the LayerNorm backward against the
    unsplit kernels' y, dx and sums; times beside the plain versions, the
-   composition at 8 heads, the bounds and the unsplit kernels.
-34. tensor-parallel B/32 (:func:`tp_path_phase`, after phase 30): ViT-B/32
+   composition at 8 heads, the bounds and the unsplit kernels.  Then
+   (:func:`tp_twins_kernel_phase`) row 6's split form at rank 0's slice of
+   Twins-SVT@224's global attentions at stages 1 and 3 (4 of 8 heads of 64),
+   forward and backward against the plain versions, twice bit for bit, the
+   two ranks emulated against the unsplit kernels, timed beside F.linear +
+   SDPA + F.linear at 4 heads and :func:`tp_cross_bounds`; and rows 1-4's
+   split forms at Twins-SVT's stage-1 local attention and conv-MLP.
+34. tensor-parallel (:func:`tp_path_phase`, after phase 30): ViT-B/32
    split over a (1, 2) mesh, two processes on the one card over gloo, from
    the bare step's weights: serving 3 x 128 images and 3 training steps,
    rows 1-4 on their split forms 6 times each way a step on each rank; the
    logits held by the serving check, the gathered step-1 gradients against
    the plain bf16 path's error, the losses; the step and its collectives
-   timed (two processes time-sharing one card: not a TP speed).
+   timed (two processes time-sharing one card: not a TP speed).  Then
+   (:func:`tp_hybrid_phase`, one more spawn of two processes) Twins-SVT@224
+   on the kernel route (row 6's split form 15 times a forward a rank, rows
+   3-4's 10, rows 1-2's 25, the unsplit ones never) and CvT-13@224,
+   LeViT@224 and MobileViT@256 on the plain modules: each serves 64 images
+   and trains 2 steps (batch 64 for Twins-SVT, 16 for the others), the
+   ranks' logits and losses bit for bit, the logits by the serving check,
+   the first loss against the one-process path's, the gathered step-1
+   gradients against the plain bf16 path's error.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
@@ -352,8 +366,9 @@ MAE, SimMIM, MPP, distillation, T2T-ViT, T2T distillation, Twins-SVT,
 CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
 merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
 training); the blocks past 512 tokens; the data-parallel B/32 step; the
-exported programs' forwards; the tensor-parallel B/32 path, its ranks'
-serving and training runs, each from 0)
+exported programs' forwards; the tensor-parallel path, its ranks'
+serving and training runs of B/32, Twins-SVT, CvT-13, LeViT and MobileViT,
+each from 0)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
@@ -4747,6 +4762,10 @@ TP_SOURCES = {
                                         "vit_tpu/ops/fused_attention_block.py:169"),
     "fused_mlp_split": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147"),
     "fused_mlp_split_bwd": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:177"),
+    "fused_cross_attention_split": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
+                                    "vit_tpu/ops/fused_cross_attention.py:212"),
+    "fused_cross_attention_split_bwd": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
+                                        "vit_tpu/ops/fused_cross_attention.py:256"),
     "forward_gemm_f32": ("vit_tpu_torch/csrc/gemm_wgmma.cu",
                          "vit_tpu/ops/fused_attention_block.py:106, vit_tpu/ops/fused_mlp.py:147"),
     "bias_residual": ("vit_tpu_torch/csrc/bias_residual.cu",
@@ -4771,7 +4790,8 @@ def counter_objects():
     )
     from vit_tpu_torch.ops.fused_cross_attention import (
         BACKWARD_ROUTES as CROSS_BACKWARD_ROUTES, fused_cross_attention,
-        fused_cross_attention_backward,
+        fused_cross_attention_backward, fused_cross_attention_partial_backward,
+        fused_cross_attention_partial_forward,
     )
     from vit_tpu_torch.ops.fused_hybrid import (
         attention_nb, attention_nb_backward, ln_gemm, ln_gemm_backward, proj_mlp,
@@ -4815,6 +4835,10 @@ def counter_objects():
             "fused_attention_block_split_bwd": fused_attention_block_partial_backward,
             "fused_mlp_split": fused_mlp_partial_forward,
             "fused_mlp_split_bwd": fused_mlp_partial_backward,
+            # row 6's split form (Twins-SVT's global attentions; its backward
+            # also counts on "cross backward, split", the route it takes)
+            "fused_cross_attention_split": fused_cross_attention_partial_forward,
+            "fused_cross_attention_split_bwd": fused_cross_attention_partial_backward,
             "bias_residual": tp.bias_residual, "ln_bwd": tp.ln_backward}
 
 
@@ -5099,6 +5123,267 @@ def tp_kernel_phase(torch, results, smi):
         f"the backwards; with_pass: the partial and the pass; unsplit: the unsplit kernel at "
         f"the full shape): " + "; ".join(text(k) for k in out) + f" on {smi}")
     del x, dy, s, dxn, split
+    torch.cuda.empty_cache()
+    tp_twins_kernel_phase(torch, results, smi)
+
+
+def tp_cross_bounds(b, n, c, heads, n_k, dh):
+    """Bounds of row 6's split form at one rank's shape (``heads`` the local
+    count, dh_k = dh_v = dh; bf16 tensors, f32 partials and lse), each input
+    read once and each output written once: forward xn, Wq_r, k_r, v_r,
+    Wo_r in, the f32 s out (the serving call the phase times: oattn is the
+    two-launch design's intermediate, not the function's output, as
+    :func:`tp_bounds` counts the block's); backward dy, q, k_r, v_r, oattn,
+    lse, Wq_r, Wo_r in, the f32 dxn, dq, dk, dv and the f32 dbo out."""
+    rows, hk = b * n, heads * dh
+    pairs = b * heads * n * n_k
+    act, acc, w, kv = 2 * rows * c, 4 * rows * c, 4 * c * hk, 4 * b * n_k * hk
+    gemms = 4 * rows * c * hk
+    return {
+        "fused_cross_attention_split": bound(gemms + 4 * pairs * dh, act + w + kv + acc),
+        "fused_cross_attention_split_bwd": bound(
+            gemms + 10 * pairs * dh,
+            act + 2 * rows * hk + kv + 2 * rows * hk + 4 * b * heads * n + w + acc
+            + 2 * rows * hk + kv + 4 * c),
+    }
+
+
+# Row 6's split form at rank 0's slice of Twins-SVT@224's global attentions
+# (b, n, c, heads, n_k, dh: 4 of 8 heads of 64 a rank at TP = 2), stages 1
+# and 3; and rows 1-4's split forms at its stage-1 local attention and
+# conv-MLP (4096 windows of 49 tokens, c 64, 4 of 8 heads, 128 of 256 hidden
+# units a rank).
+TP_TWINS_CROSS = [("Twins-SVT stage 1", 64, 3136, 64, 8, 64, 64),
+                  ("Twins-SVT stage 3", 64, 196, 256, 8, 4, 64)]
+TP_TWINS_BLOCK = ("Twins-SVT stage 1", 4096, 49, 64, 8, 64, 256)
+
+
+def tp_twins_kernel_phase(torch, results, smi):
+    """Row 6's split form at TP_TWINS_CROSS, seeded bf16 inputs and one full
+    set of weights cut into the ranks' heads (Wq's rows, the packed k's and
+    v's columns, Wo's columns): rank 0's partial forward (training) and, fed
+    its residuals, its partial backward against their plain versions within
+    one unit plus KERNEL_REL_TOL, twice bit for bit, lse on the kernel's own
+    q; the two ranks emulated (partials summed, then the pass; the f32 dxn
+    summed, then rounded) against the unsplit ``fused_cross_attention``'s y
+    and dxn.  Times of rank 0's partial forward and backward beside their
+    plain versions, PyTorch's composition at the local heads (F.linear + SDPA
+    + F.linear; autograd for dxn, dk and dv), the partial with the pass, the
+    unsplit kernel at the full shape, and :func:`tp_cross_bounds`.  Then rows
+    1-4's split forms at TP_TWINS_BLOCK (eps 1e-5), each against its plain
+    version and timed.  Stored under ``results["tensor-parallel"]``: row 6's
+    entries with stage 1 as their shape and stage 3 under ``by_shape``, rows
+    1-4's Twins-SVT times under their entries' ``by_shape``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops import fused_cross_attention as fca
+    from vit_tpu_torch.ops import fused_mlp as fm
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed_forward_reference
+    from vit_tpu_torch.parallel.sharding import COLUMN, QKV, ROW, shard_tensor
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    out = results["tensor-parallel"]
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if p is not None and not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    def heads_of(t, r):
+        width = t.shape[-1] // TP
+        return t[..., r * width:(r + 1) * width].contiguous()
+
+    cross, emulated = {}, {}
+    for tag, b, n, c, heads, n_k, dh in TP_TWINS_CROSS:
+        hl, hk, scale = heads // TP, heads * dh, dh ** -0.5
+        x, xn, dy = rn(b, n, c), rn(b, n, c), rn(b, n, c, scale=0.1)
+        wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hk, scale=hk ** -0.5), rn(c, scale=0.1)
+        k, v = rn(b, n_k, hk), rn(b, n_k, hk)
+        ranks = [(shard_tensor(wq, COLUMN, r, TP), heads_of(k, r), heads_of(v, r),
+                  shard_tensor(wo, ROW, r, TP)) for r in range(TP)]
+        w = ranks[0]
+
+        def fwd(training=False, r=w):
+            return fca.fused_cross_attention_partial_forward(xn, *r, hl, dh, dh, scale, training)
+
+        got = twice(f"fused_cross_attention split {tag}", lambda: fwd(True))
+        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, hl, dh, dh, scale)
+        err = check_outputs(torch, f"fused_cross_attention split {tag}", got[:3], ref[:3], {})
+        lse = flash_attention_packed_forward_reference(got[1], w[1], w[2], hl, scale)[1]
+        lse_err = (got[3] - lse).abs().max().item()
+        if not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"fused_cross_attention split {tag}: lse differs by {lse_err}")
+        _, q_r, oattn_r, lse_r = got
+
+        def bwd():
+            return fca.fused_cross_attention_partial_backward(dy, q_r, w[1], w[2], oattn_r,
+                                                              lse_r, w[0], w[3], hl, dh, dh,
+                                                              scale)
+
+        got_b = twice(f"fused_cross_attention split backward {tag}", bwd)
+        ref_b = fca.fused_cross_attention_partial_backward_reference(
+            dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, dh, dh, scale)
+        err_b = check_outputs(torch, f"fused_cross_attention split backward {tag}", got_b[:4],
+                              ref_b[:4], {})
+        err_b = max(err_b, check_dbias(torch, f"fused_cross_attention split backward {tag}",
+                                       got_b[4], ref_b[4], "dbo"))
+        route = fca.partial_backward_route(b, n, n_k, c, hl, dh, dh)
+
+        # Two ranks emulated against the unsplit kernels at the full shape.
+        y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh, dh, scale,
+                                               training=True)
+        split = [fwd(True, r) for r in ranks]
+        y_split = tp.bias_residual(sum(p[0] for p in split), bo, x)
+        emulated[f"{tag} y"] = check_outputs(torch, f"two ranks' cross-attention {tag}",
+                                             [y_split], [y], {0: x})
+        full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh,
+                                                  dh, scale)
+        dxn = sum(fca.fused_cross_attention_partial_backward(dy, p[1], r[1], r[2], p[2], p[3],
+                                                             r[0], r[3], hl, dh, dh, scale)[0]
+                  for p, r in zip(split, ranks)).to(dt)
+        emulated[f"{tag} dxn"] = check_outputs(
+            torch, f"two ranks' cross-attention backward {tag}", [dxn], [full[0]], {})
+        del y, q, oattn, lse, split, full, dxn
+
+        xn_leaf, k_leaf, v_leaf = (t.detach().requires_grad_() for t in (xn, w[1], w[2]))
+
+        def library(xn_, k_, v_):
+            qh = F.linear(xn_, w[0]).view(b, n, hl, dh).transpose(1, 2)
+            kh, vh = (t.view(b, n_k, hl, dh).transpose(1, 2) for t in (k_, v_))
+            o = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            return F.linear(o.transpose(1, 2).reshape(b, n, hl * dh), w[3])
+
+        lib_y = library(xn_leaf, k_leaf, v_leaf)
+        with torch.inference_mode():
+            f_ms = interleaved_medians(torch, {
+                "kernel": fwd,
+                "plain": lambda: fca.fused_cross_attention_partial_forward_reference(
+                    xn, *w, hl, dh, dh, scale),
+                "library": lambda: library(xn, w[1], w[2]),
+                "with the pass": lambda: tp.bias_residual(fwd()[0], bo, x),
+                "unsplit": lambda: fca.fused_cross_attention(x, xn, wq, k, v, wo, bo, heads, dh,
+                                                             dh, scale)}, rounds=3, calls=5)
+        b_ms = interleaved_medians(torch, {
+            "kernel": bwd,
+            "plain": lambda: fca.fused_cross_attention_partial_backward_reference(
+                dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, dh, dh, scale),
+            "library": lambda: torch.autograd.grad(lib_y, (xn_leaf, k_leaf, v_leaf), dy,
+                                                   retain_graph=True)}, rounds=3, calls=5)
+        bounds = tp_cross_bounds(b, n, c, hl, n_k, dh)
+        shape = f"{tag} rank 0 of {TP}: b={b} n={n} c={c} {hl} of {heads} heads of {dh}, " \
+                f"{n_k} keys"
+        cross[tag] = {
+            "fused_cross_attention_split": dict(
+                err=err, kernel=f_ms["kernel"], plain=f_ms["plain"], library=f_ms["library"],
+                with_pass=f_ms["with the pass"], unsplit=f_ms["unsplit"],
+                bound=bounds["fused_cross_attention_split"], shape=shape),
+            "fused_cross_attention_split_bwd": dict(
+                err=err_b, kernel=b_ms["kernel"], plain=b_ms["plain"], library=b_ms["library"],
+                bound=bounds["fused_cross_attention_split_bwd"], shape=shape,
+                backward_route=route)}
+        del lib_y, xn_leaf, k_leaf, v_leaf, x, xn, dy, k, v, ranks, got, got_b
+        torch.cuda.empty_cache()
+    first, *rest = (t for t, *_ in TP_TWINS_CROSS)
+    for name in ("fused_cross_attention_split", "fused_cross_attention_split_bwd"):
+        out[name] = dict(cross[first][name],
+                         by_shape={t: {k: v for k, v in cross[t][name].items() if k != "shape"}
+                                   for t in rest})
+
+    # Rows 1-4's split forms at Twins-SVT's stage-1 local attention and conv-MLP.
+    tag, groups, n, c, heads, dh, hidden = TP_TWINS_BLOCK
+    hl, hid, scale, eps = heads // TP, hidden // TP, dh ** -0.5, TWINS_EPS
+    x, dy = rn(groups, n, c), rn(groups, n, c, scale=0.1)
+    gamma, beta = 1.0 + rn(c, scale=0.1), rn(c, scale=0.1)
+    wqkv = shard_tensor(rn(3 * heads * dh, c, scale=c ** -0.5), QKV, 0, TP)
+    wo = shard_tensor(rn(c, heads * dh, scale=(heads * dh) ** -0.5), ROW, 0, TP)
+    w1 = shard_tensor(rn(hidden, c, scale=c ** -0.5), COLUMN, 0, TP)
+    b1 = shard_tensor(rn(hidden, scale=0.1), COLUMN, 0, TP)
+    w2 = shard_tensor(rn(c, hidden, scale=hidden ** -0.5), ROW, 0, TP)
+    bounds = tp_bounds(groups, n, c, hl, dh, hid)
+    blocks = {}
+    a_got = twice(f"fused_attention_block split {tag}",
+                  lambda: fab.fused_attention_block_partial_forward(x, gamma, beta, wqkv, wo, hl,
+                                                                    dh, scale, eps, True))
+    a_err = check_outputs(torch, f"fused_attention_block split {tag}", a_got[:4],
+                          fab.fused_attention_block_partial_forward_reference(
+                              x, gamma, beta, wqkv, wo, hl, dh, scale, eps)[:4], {})
+    _, _, qkv_r, oattn_r, lse_r = a_got
+    a_bwd = twice(f"fused_attention_block split backward {tag}",
+                  lambda: fab.fused_attention_block_partial_backward(
+                      dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale))
+    a_err_b = check_outputs(torch, f"fused_attention_block split backward {tag}", a_bwd,
+                            fab.fused_attention_block_partial_backward_reference(
+                                dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale), {})
+    m_got = twice(f"fused_mlp split {tag}",
+                  lambda: fm.fused_mlp_partial_forward(x, gamma, beta, w1, b1, w2, eps, True))
+    m_err = check_outputs(torch, f"fused_mlp split {tag}", m_got,
+                          fm.fused_mlp_partial_forward_reference(x, gamma, beta, w1, b1, w2,
+                                                                 eps), {})
+    h_r = m_got[2]
+    m_bwd = twice(f"fused_mlp split backward {tag}",
+                  lambda: fm.fused_mlp_partial_backward(dy, h_r, w1, w2))
+    m_ref = fm.fused_mlp_partial_backward_reference(dy, h_r, w1, w2)
+    m_err_b = max(check_outputs(torch, f"fused_mlp split backward {tag}", m_bwd[:3], m_ref[:3],
+                                {}),
+                  check_dbias(torch, f"fused_mlp split backward {tag}", m_bwd[3], m_ref[3],
+                              "db1"))
+    with torch.inference_mode():
+        f_ms = interleaved_medians(torch, {
+            "attention": lambda: fab.fused_attention_block_partial_forward(
+                x, gamma, beta, wqkv, wo, hl, dh, scale, eps),
+            "attention plain": lambda: fab.fused_attention_block_partial_forward_reference(
+                x, gamma, beta, wqkv, wo, hl, dh, scale, eps),
+            "mlp": lambda: fm.fused_mlp_partial_forward(x, gamma, beta, w1, b1, w2, eps),
+            "mlp plain": lambda: fm.fused_mlp_partial_forward_reference(x, gamma, beta, w1, b1,
+                                                                        w2, eps)},
+            rounds=3, calls=5)
+    b_ms = interleaved_medians(torch, {
+        "attention": lambda: fab.fused_attention_block_partial_backward(
+            dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale),
+        "attention plain": lambda: fab.fused_attention_block_partial_backward_reference(
+            dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale),
+        "mlp": lambda: fm.fused_mlp_partial_backward(dy, h_r, w1, w2),
+        "mlp plain": lambda: fm.fused_mlp_partial_backward_reference(dy, h_r, w1, w2)},
+        rounds=3, calls=5)
+    for name, key, ms, e in (("fused_attention_block_split", "attention", f_ms, a_err),
+                             ("fused_attention_block_split_bwd", "attention", b_ms, a_err_b),
+                             ("fused_mlp_split", "mlp", f_ms, m_err),
+                             ("fused_mlp_split_bwd", "mlp", b_ms, m_err_b)):
+        blocks[name] = dict(err=e, kernel=ms[key], plain=ms[f"{key} plain"], bound=bounds[name])
+        out[name].setdefault("by_shape", {})[tag] = blocks[name]
+    torch.cuda.synchronize()
+    del x, dy, a_got, a_bwd, m_got, m_bwd, h_r
+    torch.cuda.empty_cache()
+
+    def text(r):
+        extra = "".join(f" {k}={r[k]:.4f}" for k in ("library", "with_pass", "unsplit")
+                        if r.get(k) is not None)
+        return (f"kernel={r['kernel']:.4f} plain={r['plain']:.4f}{extra} "
+                f"bound={r['bound'][0]:.4f} ({r['bound'][1]}) max|err|={r['err']:.4g}")
+
+    log(f"tensor-parallel Twins-SVT kernels [rank 0 of {TP}]: row 6's split form (4 of 8 "
+        f"heads of 64; the forward on cross_fwd writing oattn and the f32-partial GEMM, the "
+        f"backward on route 2) and rows 1-4's at {tag}'s local attention and conv-MLP "
+        f"({groups} windows of {n}, c {c}, {hl} heads, {hid} hidden units), each against its "
+        f"plain version within one unit plus {KERNEL_REL_TOL} and twice bit for bit; two ranks "
+        f"emulated against the unsplit cross-attention kernels, max|err| "
+        f"{json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: "
+        f"F.linear + SDPA + F.linear at {TP_TWINS_CROSS[0][4] // TP} heads, autograd for dxn, "
+        f"dk and dv; with_pass: the partial and the pass; unsplit: the unsplit kernel at 8 "
+        f"heads): " + "; ".join(f"{name} [{t}, backward route "
+                                f"{cross[t]['fused_cross_attention_split_bwd']['backward_route']}] "
+                                f"{text(cross[t][name])}" for t in cross for name in cross[t])
+        + "; " + "; ".join(f"{name} [{tag}] {text(r)}" for name, r in blocks.items())
+        + f" on {smi}")
 
 
 def tp_rank(rank, port, workdir):
@@ -5181,7 +5466,7 @@ def tp_rank(rank, port, workdir):
         out.update(losses=losses, train_counts=per_step)
         torch.distributed.barrier()
         ms = interleaved_medians(torch, {"step": lambda: step(images, labels)}, rounds=3,
-                                 calls=3, warmup=1)
+                                 calls=1, warmup=0)
         out["step_ms"] = ms["step"]
         # Where the step's time goes here: a block's f32 partial summed over the
         # model group (two a block a step, each way), and the gradients' one sum
@@ -5211,7 +5496,7 @@ def tp_rank(rank, port, workdir):
             torch.distributed.destroy_process_group()
 
 
-def hold_logits(torch, tag, logits, refs, truths):
+def hold_logits(torch, tag, logits, refs, truths, sign_test=False, confident_images=True):
     """The serving check of :func:`serving_phase` on logits already taken:
     within LOGIT_REL_TOL of the plain bf16 path's, at most
     MAX_ERR_VS_PLAIN_BF16 times as far from the f32 model's as the plain
@@ -5232,8 +5517,16 @@ def hold_logits(torch, tag, logits, refs, truths):
                f"max|plain-f32|={err_p:.6g}; top-1 split/f32={top1(logits, truths):.4f} "
                f"plain/f32={top1(refs, truths):.4f}, split/plain over the "
                f"{int(confident.sum())} confident images {top1_conf:.4f}")
-    if not (err <= tol and err_k <= MAX_ERR_VS_PLAIN_BF16 * err_p
-            and top1(logits, truths) >= top1(refs, truths) and top1_conf >= TOP1_CONFIDENT):
+    if sign_test:  # serving_phase's top1_sign_test, for a plain path as precise as the split
+        hit_s, hit_p = (a.argmax(-1) == truths.argmax(-1) for a in (logits, refs))
+        split_only, plain_only = int((hit_s & ~hit_p).sum()), int((hit_p & ~hit_s).sum())
+        top1_ok = plain_only - split_only <= SIGN_TEST_Z * math.sqrt(plain_only + split_only)
+        summary += f"; images only split / only plain agree with f32 on {split_only} / " \
+                   f"{plain_only} (sign test)"
+    else:
+        top1_ok = top1(logits, truths) >= top1(refs, truths)
+    if not (err <= tol and err_k <= MAX_ERR_VS_PLAIN_BF16 * err_p and top1_ok
+            and (top1_conf >= TOP1_CONFIDENT or not confident_images)):
         raise AssertionError(f"{tag}: {summary}")
     return summary
 
@@ -5353,22 +5646,330 @@ def tp_path_phase(torch, smi, workdir):
         raise AssertionError(f"tensor-parallel: losses {losses} and {ranks[1]['losses']}, "
                              f"first {ranks[0]['first']} against the plain path's "
                              f"{first['plain']}")
-    return {k: ranks[0]["serving_counts"][-1][k] + ranks[0]["train_counts"][-1][k]
-            for k in ranks[0]["train_counts"][-1]}
+    launches = {k: ranks[0]["serving_counts"][-1][k] + ranks[0]["train_counts"][-1][k]
+                for k in ranks[0]["train_counts"][-1]}
+    hybrids = tp_hybrid_phase(torch, smi, workdir)
+    return {k: v + hybrids.get(k, 0) for k, v in launches.items()}
+
+
+# The conv hybrids split over TP ranks, as run_benchmarks.py builds them:
+# (tag, class, configuration, side, serving batch, training batch, seed, the
+# plain path's keywords).  Twins-SVT@224 (:65) at its batch 64 on the kernel
+# route, the slice's main path; CvT-13@224 (:91), LeViT@224 (:62-64) and
+# MobileViT@256 (:68-71) on the plain modules (CvT-13's flash stage whole),
+# serving 64 images and training at a batch cut to 16 to keep the phase in
+# time.
+TP_HYBRIDS = [
+    ("Twins-SVT@224", "TwinsSVT", TWINS, TWINS_SIZE, TWINS_BATCH, TWINS_BATCH, TP_SEED + 2,
+     PLAIN_KW),
+    ("CvT-13@224", "CvT", CVT13, 224, 64, 16, TP_SEED + 3, dict(use_flash="never")),
+    ("LeViT@224", "LeViT", LEVIT, LEVIT_SIZE, LEVIT_BATCH, 16, TP_SEED + 4, {}),
+    ("MobileViT@256", "MobileViT", MOBILEVIT, MOBILEVIT_SIZE, MOBILEVIT_BATCH, 16, TP_SEED + 5,
+     {}),
+]
+TP_HYBRID_STEPS = 2
+TP_LOSS_REL_TOL = 1e-3  # the split path's first loss against the one-process path's
+
+
+def tp_hybrid_counts():
+    """Each TP_HYBRIDS model's launches a forward and a step on every rank:
+    Twins-SVT's residuals all on the split forms (rows 3-4's block at its 10
+    local attentions, row 6's at its 15 global ones, rows 1-2's at its 25
+    conv-MLPs; each partial ended by the pass after one f32-partial GEMM; the
+    backwards as often, the cross-attention's on route 2, the blocks' and
+    MLPs' LayerNorm backwards on ``ln_bwd``), the unsplit rows 1-4 and 6
+    never; CvT-13's stage-1 flash attention whole; nothing on LeViT and
+    MobileViT."""
+    local, every = sum(TWINS_BLOCKS[:3]), sum(TWINS_BLOCKS)
+    twins = {"fused_attention_block_split": local, "short route, forward": local,
+             "fused_cross_attention_split": every, "fused_mlp_split": local + every,
+             "bias_residual": 2 * local + 2 * every, "forward_gemm_f32": 2 * local + 2 * every}
+    twins_step = {**twins, "fused_attention_block_split_bwd": local, "short route": local,
+                  "fused_cross_attention_split_bwd": every, "cross backward, split": every,
+                  "fused_mlp_split_bwd": local + every, "ln_bwd": 2 * local + every}
+    cvt = {"flash_attention": 1}
+    return {"Twins-SVT@224": (twins, twins_step), "CvT-13@224": (cvt, {**cvt, "flash_backward": 1}),
+            "LeViT@224": ({}, {}), "MobileViT@256": ({}, {})}
+
+
+def tp_hybrid_model(torch, name, cfg, size, batch, seed, **kw):
+    """A TP_HYBRIDS model from ``seed`` (its BatchNorms seeded,
+    :func:`seed_batch_norms`) and one seeded batch: what each rank builds and
+    what the one-process references load."""
+    import vit_tpu_torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = getattr(vit_tpu_torch, name)(**cfg, device=dev, generator=g, **kw)
+    seed_batch_norms(torch, model, g)
+    images = torch.randn(batch, size, size, 3, generator=g, device=dev)
+    return model, images, torch.arange(batch, device=dev) % cfg["num_classes"]
+
+
+def tp_hybrid_rank(rank, port, workdir):
+    """One rank of :func:`tp_hybrid_phase` (a spawned process on the one
+    card): joins a gloo group of TP processes, lays a (1, TP) mesh, and for
+    each TP_HYBRIDS model serves one batch (``cast_params`` bf16, eval,
+    inference mode) and trains (bf16 compute, f32 parameters, SGD(1e-3))
+    TP_HYBRID_STEPS steps of ``make_train_step`` over the mesh, each counter
+    from 0 before the serving forward and before the steps, read after each;
+    step 1's loss and gradients, gathered whole; each step's wall ms and the
+    model's seconds.  Writes what it saw to ``tp_hybrid_rank<r>.pt`` in
+    ``workdir``."""
+    import torch
+
+    from vit_tpu_torch import cast_params
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from vit_tpu_torch.parallel.sharding import gather_tensor, shard_params
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        initialize_distributed(f"127.0.0.1:{port}", TP, rank, backend="gloo", timeout_s=300)
+        mesh = make_mesh((1, TP))
+        lib, counters = _build.load(), counter_objects()
+        f32_gemms = [0]
+
+        def zero():
+            for c in counters.values():
+                c.launches = 0
+            lib.vit_take_launch_count(COUNTED_F32)
+            f32_gemms[0] = 0
+
+        def counts():
+            f32_gemms[0] += lib.vit_take_launch_count(COUNTED_F32)
+            return {**{k: c.launches for k, c in counters.items()},
+                    "forward_gemm_f32": f32_gemms[0]}
+
+        for tag, name, cfg, size, serve_batch, batch, seed, _ in TP_HYBRIDS:
+            started = time.perf_counter()
+            model, images, _ = tp_hybrid_model(torch, name, cfg, size, serve_batch, seed)
+            served = shard_params(mesh, cast_params(model, torch.bfloat16).eval())
+            zero()
+            with torch.inference_mode():
+                logits = served(images).float()
+                serving = counts()
+            whole = list(served.tensor_parallel.whole)
+            del served, model, images
+
+            model, images, labels = tp_hybrid_model(torch, name, cfg, size, batch, seed,
+                                                    compute_dtype=torch.bfloat16)
+            shard_params(mesh, model)
+            plan = model.tensor_parallel
+            step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3),
+                                   mesh=mesh)
+            torch.distributed.barrier()
+            zero()
+            losses, per_step, walls, grads = [], [], [], {}
+            for i in range(TP_HYBRID_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(images, labels)["loss"].item())
+                walls.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(counts())
+                if i == 0:  # step 1's gradients, left in .grad until step 2 zeroes them
+                    grads = {k: gather_tensor(p.grad, plan.kinds[k], plan.shard)
+                             if k in plan.kinds else p.grad for k, p in model.named_parameters()}
+                    grads = {k: v.cpu() for k, v in grads.items()} if rank == 0 else {}
+            out[tag] = dict(logits=logits.cpu(), serving_counts=serving, first=losses[0],
+                            grads=grads, losses=losses, train_counts=per_step, step_ms=walls,
+                            whole=whole, split=len(plan.kinds),
+                            seconds=time.perf_counter() - started)
+            del model, step, images, labels
+            torch.cuda.empty_cache()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(workdir, f"tp_hybrid_rank{rank}.pt"))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def tp_spawn(torch, fn, workdir, prefix):
+    """Run ``fn(rank, port, workdir)`` in TP processes on the one card and
+    load what each wrote to ``<prefix><r>.pt``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(free_port(), workdir), nprocs=TP, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tensor-parallel: the ranks did not finish in "
+                                     f"{TP_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(os.path.join(workdir, f"{prefix}{r}.pt"), weights_only=False)
+            for r in range(TP)]
+
+
+def tp_gradient_check(torch, tag, split, grads):
+    """Each gathered step-1 gradient of the split path within
+    MAX_GRAD_ERR_VS_PLAIN_BF16 times the unsplit plain bf16 path's relative
+    L2 error against the f32 model's, but those below 1e-3 of the median
+    norm (0 in exact arithmetic: LeViT's biases before a BatchNorm in
+    training, as :func:`plain_training_phase` leaves them out); a summary."""
+    dev = torch.device("cuda")
+    norms = {k: torch.linalg.vector_norm(v).item() for k, v in grads["f32"].items()}
+    floor = 1e-3 * statistics.median(norms.values())
+    misses, worst, worst_name = [], 0.0, ""
+    for k, ref in grads["f32"].items():
+        if norms[k] < floor:
+            continue
+        err_s, err_p = rel_l2(torch, split[k].to(dev), ref), rel_l2(torch, grads["plain"][k], ref)
+        if err_s / max(err_p, 1e-30) > worst:
+            worst, worst_name = err_s / max(err_p, 1e-30), k
+        if not err_s <= MAX_GRAD_ERR_VS_PLAIN_BF16 * err_p:
+            misses.append(f"{k}: {err_s:.4g} vs plain {err_p:.4g}")
+    keys = list(grads["f32"])
+    all_s = rel_l2(torch, torch.cat([split[k].to(dev).flatten() for k in keys]),
+                   torch.cat([grads["f32"][k].flatten() for k in keys]))
+    all_p = rel_l2(torch, torch.cat([grads["plain"][k].flatten() for k in keys]),
+                   torch.cat([grads["f32"][k].flatten() for k in keys]))
+    if misses:
+        raise AssertionError(f"tensor-parallel {tag}: gradients beyond "
+                             f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error: {misses}")
+    return (f"step-1 gradients gathered, relative L2 against f32 over all parameters "
+            f"split={all_s:.4g} plain={all_p:.4g}, worst per-tensor ratio split/plain="
+            f"{worst:.3f} ({worst_name}; <= {MAX_GRAD_ERR_VS_PLAIN_BF16}; "
+            f"{sum(v < floor for v in norms.values())} below 1e-3 of the median norm left out)")
+
+
+def tp_hybrid_phase(torch, smi, workdir):
+    """The conv hybrids split over a ``model`` axis of TP (TP_HYBRIDS), TP
+    processes on the one card over gloo (:func:`tp_hybrid_rank`), held here
+    against one-process models of the same weights: both ranks' logits and
+    losses bit for bit equal; the served logits by :func:`hold_logits`
+    against the unsplit plain bf16 path and the f32 model (top-1 by the sign
+    test: the plain paths keep f32 logits and softmax where the kernels do);
+    the first loss within TP_LOSS_REL_TOL of the one-process path's on the
+    same route; the step-1 gradients, gathered, by
+    :func:`tp_gradient_check` (TF32 off); falling losses; the launches of
+    :func:`tp_hybrid_counts` on every rank, after each forward and step.
+    Step times labelled TP_LABEL.  Returns rank 0's launches over its
+    serving and training runs, summed over the models."""
+    import vit_tpu_torch
+    from vit_tpu_torch import cast_params
+    from vit_tpu_torch.parallel.train import cross_entropy_loss
+
+    ranks = tp_spawn(torch, tp_hybrid_rank, workdir, "tp_hybrid_rank")
+    for r, rank in enumerate(ranks):
+        if "error" in rank:
+            raise AssertionError(f"tensor-parallel rank {r}: {rank['error']}")
+    expected = tp_hybrid_counts()
+    dev = torch.device("cuda")
+    launches = {}
+    for tag, name, cfg, size, serve_batch, batch, seed, plain_kw in TP_HYBRIDS:
+        started = time.perf_counter()
+        cls = getattr(vit_tpu_torch, name)
+        forward, step_each = expected[tag]
+        for r, rank in enumerate(ranks):
+            got = rank[tag]["serving_counts"]
+            want = {k: forward.get(k, 0) for k in got}
+            if got != want:
+                raise AssertionError(f"tensor-parallel {tag} rank {r} serving: launched {got}, "
+                                     f"expected {want}")
+            for i, got in enumerate(rank[tag]["train_counts"]):
+                want = {k: (i + 1) * step_each.get(k, 0) for k in got}
+                if got != want:
+                    raise AssertionError(f"tensor-parallel {tag} rank {r} training: after step "
+                                         f"{i + 1} launched {got}, expected {want}")
+        a, b = (rank[tag] for rank in ranks)
+        if not torch.equal(a["logits"], b["logits"]) or a["losses"] != b["losses"] \
+                or a["first"] != b["first"]:
+            raise AssertionError(f"tensor-parallel {tag}: the ranks' logits or losses differ")
+        for k, v in a["serving_counts"].items():
+            launches[k] = launches.get(k, 0) + v + a["train_counts"][-1][k]
+
+        model, images, _ = tp_hybrid_model(torch, name, cfg, size, serve_batch, seed)
+        norms = batch_norm_text(model)
+        state = cast_params(model, torch.bfloat16).state_dict()
+        plain = cls(**cfg, **plain_kw, device=dev, dtype=torch.bfloat16).eval()
+        plain.load_state_dict(state)
+        f32 = cls(**cfg, **plain_kw, device=dev).eval()
+        f32.load_state_dict({k: v.float() if v.is_floating_point() else v
+                             for k, v in state.items()})
+        with torch.inference_mode():
+            refs, truths = plain(images).float(), f32(images).float()
+        logits = a["logits"].to(dev)
+        if tuple(logits.shape) != (serve_batch, cfg["num_classes"]) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"tensor-parallel {tag}: logits {tuple(logits.shape)}")
+        # A path that runs no kernel (LeViT, MobileViT) is held as
+        # plain_serving_phase holds it, without the confident images: at
+        # these random weights its top-2 margins lie under the bf16 noise.
+        serving = hold_logits(torch, f"tensor-parallel {tag} serving", logits, refs, truths,
+                              sign_test=True, confident_images=bool(forward))
+        del model, plain, f32, images, refs, truths
+
+        model, images, labels = tp_hybrid_model(torch, name, cfg, size, batch, seed,
+                                                compute_dtype=torch.bfloat16)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        plain = cls(**cfg, **plain_kw, device=dev, compute_dtype=torch.bfloat16)
+        f32 = cls(**cfg, **plain_kw, device=dev)
+        grads, first = {}, {}
+        for path, m in (("one-process", model), ("plain", plain), ("f32", f32)):
+            m.load_state_dict(start)
+            m.train()
+            loss = cross_entropy_loss(m(images), labels)
+            loss.backward()
+            first[path] = loss.item()
+            grads[path] = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach()
+                           for k, p in m.named_parameters()}
+        gradients = tp_gradient_check(torch, tag, a["grads"], grads)
+        del model, plain, f32, grads, images, labels
+        torch.cuda.empty_cache()
+        loss_rel = abs(a["first"] - first["one-process"]) / abs(first["one-process"])
+        losses = a["losses"]
+        log(f"tensor-parallel {tag} over a (1, {TP}) mesh, {TP} processes on one card over gloo "
+            f"({'the kernel route' if tag.startswith('Twins') else 'plain modules'}; "
+            f"{a['split']} tensors split, whole: {a['whole'] or 'none'}), bf16 compute, f32 "
+            f"parameters, SGD(1e-3), {norms}: serving "
+            f"{serve_batch} images, the ranks' logits bit for bit: {serving}; step-1 loss at "
+            f"batch {batch} split={a['first']:.6f} one-process={first['one-process']:.6f} "
+            f"plain={first['plain']:.6f} f32={first['f32']:.6f} (|split-one-process|/"
+            f"one-process={loss_rel:.3g} <= {TP_LOSS_REL_TOL}); {gradients}; losses over "
+            f"{TP_HYBRID_STEPS} steps {losses} on both ranks; launches per forward "
+            f"{expected[tag][0]} and per step {expected[tag][1]} on each rank; step wall ms "
+            f"rank 0 {[round(v, 3) for v in a['step_ms']]}, rank 1 "
+            f"{[round(v, 3) for v in b['step_ms']]} ({TP_LABEL}); rank 0 {a['seconds']:.1f} s "
+            f"for the model, the references here {time.perf_counter() - started:.1f} s on "
+            f"{smi}")
+        if not loss_rel <= TP_LOSS_REL_TOL or not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"tensor-parallel {tag}: losses {losses}, first "
+                                 f"{a['first']} against the one-process path's "
+                                 f"{first['one-process']}")
+    return launches
 
 
 def tp_entries(results, tp_launches):
     """The split forms' lines of the kernels' JSON: launches on the
-    tensor-parallel path (rank 0's), the largest error of their checks,
-    their times at rank 0's B/32 slice and bounds."""
+    tensor-parallel path (rank 0's, B/32 and the conv hybrids), the largest
+    error of their checks, their times and bounds at rank 0's slice of B/32
+    (row 6's at Twins-SVT's stage 1), other shapes under ``by_shape``."""
     lines = []
     for name, (src, tpu) in TP_SOURCES.items():
         r = results["tensor-parallel"][name]
         line = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                 "launches": tp_launches[name], "max_abs_err": r["err"], "ms": r["kernel"],
                 "plain_ms": r["plain"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": r["library"], "shape": f"B/32 rank 0 of {TP}"}
-        line.update({k: r[k] for k in ("mma_sync", "with_pass", "unsplit") if k in r})
+                "library_ms": r["library"], "shape": r.get("shape", f"B/32 rank 0 of {TP}")}
+        line.update({k: r[k] for k in ("mma_sync", "with_pass", "unsplit", "backward_route")
+                     if k in r})
+        if "by_shape" in r:
+            line["by_shape"] = {tag: {k: (v[0] if k == "bound" else v) for k, v in entry.items()}
+                                for tag, entry in r["by_shape"].items()}
         if name == "forward_gemm_f32":
             line["fc2"] = {k: (v if k != "bound" else v[0])
                            for k, v in results["tensor-parallel"]["forward_gemm_f32 (fc2)"].items()}
@@ -5709,7 +6310,7 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
     os.makedirs(workdir, exist_ok=True)
     path("data-parallel B/32", data_parallel_phase, smi, counters, workdir)
-    path("tensor-parallel B/32", tp_path_phase, smi, workdir)
+    path("tensor-parallel", tp_path_phase, smi, workdir)
     path("export", export_phase, smi, counters)
     with clock("example trainer"):
         example_phase(torch, smi, workdir)
@@ -5864,7 +6465,7 @@ def main() -> int:
         + json.dumps(EARLIER_DESIGN_MS))
     log(json.dumps({"kernels": [kernel_entry(results, by_path, name, *where)
                                 for name, where in sources.items()]
-                    + tp_entries(results, by_path["tensor-parallel B/32"])}))
+                    + tp_entries(results, by_path["tensor-parallel"])}))
     twins = {name: {tag: {k: v for k, v in r.items() if k in (
                  "kernel", "plain", "library", "modules", "device", "route")}
                  | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]}

@@ -289,3 +289,23 @@ def test_tp_bounds(raw):
     assert got["bias_residual"] == (2 * rows * d, acc + 2 * act + 2 * d)
     # x, dy, f32 dxn, γ in; dx and the f32 [dγ | dβ | Σ dy] out.
     assert got["ln_bwd"][1] == 3 * act + acc + 2 * d + 4 * 3 * d
+
+
+def test_tp_cross_bounds(raw):
+    # One rank's slice: b 1, 8 queries of c 16, 2 local heads of 8 (hk 16), 4
+    # keys: 8 rows, 64 (query, key) pairs over the heads.
+    rows, c, hk, pairs, dh = 8, 16, 16, 64, 8
+    q_gemm = out_gemm = 2 * rows * c * hk                  # xn·Wq_rᵀ, oattn·Wo_rᵀ
+    qk_product = pv_product = 2 * pairs * dh
+    act, acc, w, kv = 2 * rows * c, 4 * rows * c, 2 * 2 * c * hk, 2 * 2 * 4 * hk
+    q = oattn = 2 * rows * hk
+    got = chip_smoke.tp_cross_bounds(1, 8, 16, 2, 4, 8)
+    # xn, Wq_r, k_r, v_r, Wo_r in; the f32 partial s out (serving keeps no oattn).
+    assert got["fused_cross_attention_split"] == (q_gemm + out_gemm + qk_product + pv_product,
+                                                  act + w + kv + acc)
+    # dy·Wo_r, the five attention products, dq·Wq_r; dy, q, k_r, v_r, oattn, lse,
+    # Wq_r, Wo_r in; the f32 dxn, dq, dk, dv and the f32 dbo out.
+    lse = 4 * 2 * 8
+    assert got["fused_cross_attention_split_bwd"] == (
+        out_gemm + q_gemm + 3 * qk_product + 2 * pv_product,
+        act + q + kv + oattn + lse + w + acc + q + kv + 4 * c)

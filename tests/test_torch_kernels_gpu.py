@@ -2342,3 +2342,75 @@ def test_bias_residual_and_ln_backward_match_plain(cuda, rows, d):
         check_dbias(torch, "ln_backward", got[i], ref[i], f"sum {i}")
     assert (tp.bias_residual.launches, tp.ln_backward.launches) == (before[0] + 2,
                                                                     before[1] + 2)
+
+
+# ---- tensor parallelism: row 6's split form -------------------------------------
+
+# (b, n, n_k, c, heads, dh) of the whole block, split over two ranks: Twins-SVT's
+# c 64 at a ragged 197 tokens over 16 keys (cross_fwd writing oattn, the
+# f32-partial GEMM on linear.cu; the backward on route 2), and 144 keys at c 256
+# (the three launches forward, the four steps backward, the GEMM on gemm_wgmma).
+SPLIT_CROSS_SHAPES = [(4, 197, 16, 64, 8, 64), (2, 196, 144, 256, 4, 64)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_CROSS_SHAPES)
+def test_split_cross_attention_matches_plain_and_unsplit(cuda, shape):
+    """Each rank's split forward and backward of row 6 against their plain
+    versions, twice bit for bit, counted; the two ranks' partials summed,
+    then the pass (forward) or one rounding (dxn), against the unsplit
+    kernels' y, dxn and dbo."""
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed_forward_reference
+    from vit_tpu_torch.parallel.sharding import COLUMN, ROW, shard_tensor
+
+    b, n, n_k, c, heads, dh = shape
+    t, dt, scale, hk = 2, torch.bfloat16, dh ** -0.5, heads * dh
+    g = torch.Generator(device=cuda).manual_seed(n_k + c)
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=cuda) * scale).to(dt)
+
+    x, xn, dy = rn(b, n, c), rn(b, n, c), rn(b, n, c, scale=0.1)
+    wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hk, scale=hk ** -0.5), rn(c, scale=0.1)
+    k, v = rn(b, n_k, hk), rn(b, n_k, hk)
+    stored_d = fca.partial_backward_route(b, n, n_k, c, heads // t, dh, dh) == 0
+    counts = (fca.fused_cross_attention_partial_forward.launches,
+              fca.fused_cross_attention_partial_backward.launches)
+    parts = []
+    for r in range(t):
+        cols = slice(r * hk // t, (r + 1) * hk // t)
+        w = (shard_tensor(wq, COLUMN, r, t), k[..., cols].contiguous(),
+             v[..., cols].contiguous(), shard_tensor(wo, ROW, r, t))
+        fwd = fca.fused_cross_attention_partial_forward(xn, *w, heads // t, dh, dh, scale,
+                                                        training=True)
+        _twice(fwd, fca.fused_cross_attention_partial_forward(xn, *w, heads // t, dh, dh, scale,
+                                                              training=True))
+        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, heads // t, dh, dh,
+                                                                  scale)
+        check_outputs(torch, "split cross-attention forward", fwd[:3], ref[:3], {})
+        lse = flash_attention_packed_forward_reference(fwd[1], w[1], w[2], heads // t, scale)[1]
+        assert (fwd[3] - lse).abs().max().item() <= LSE_ABS_TOL  # on the kernel's own q
+        bwd = fca.fused_cross_attention_partial_backward(dy, fwd[1], w[1], w[2], fwd[2], fwd[3],
+                                                         w[0], w[3], heads // t, dh, dh, scale)
+        _twice(bwd, fca.fused_cross_attention_partial_backward(
+            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, dh, dh, scale))
+        ref = fca.fused_cross_attention_partial_backward_reference(
+            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, dh, dh, scale,
+            stored_output_d=stored_d)
+        assert bwd[0].dtype == torch.float32
+        check_outputs(torch, "split cross-attention backward", bwd[:4], ref[:4], {})
+        check_dbias(torch, "split cross-attention backward", bwd[4], ref[4], "dbo")
+        parts.append((fwd[0], bwd[0], bwd[4]))
+    assert (fca.fused_cross_attention_partial_forward.launches,
+            fca.fused_cross_attention_partial_backward.launches) == (counts[0] + 2 * t,
+                                                                     counts[1] + 2 * t)
+    y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh, dh, scale,
+                                           training=True)
+    check_outputs(torch, "two ranks' cross-attention",
+                  [tp.bias_residual(parts[0][0] + parts[1][0], bo, x)], [y], {0: x})
+    full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh, dh,
+                                              scale)
+    check_outputs(torch, "two ranks' cross-attention backward",
+                  [(parts[0][1] + parts[1][1]).to(dt)], [full[0]], {})
+    assert torch.equal(parts[0][2], parts[1][2])
+    check_dbias(torch, "two ranks' cross-attention backward", parts[0][2], full[4], "dbo")

@@ -459,7 +459,7 @@ def test_shard_params_refusals(runs):
             "3 heads" in refusals["heads"]
         assert refusals["hidden"].startswith("NotImplementedError") and \
             "hidden width 24" in refusals["hidden"]
-        assert refusals["cvt"].startswith("NotImplementedError: shard_params: s1_")
+        assert refusals["scalable"].startswith("NotImplementedError: shard_params: stage_0.")
         assert refusals["unsplit step"].startswith("ValueError: make_train_step")
 
 

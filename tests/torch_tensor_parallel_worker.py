@@ -18,8 +18,9 @@ SMALL_VIT = dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2, h
 DROPOUT_VIT = dict(SMALL_VIT, dropout=0.1, emb_dropout=0.1)
 MAE_ENCODER = dict(image_size=64, patch_size=16, num_classes=10, dim=64, depth=2, heads=2,
                    mlp_dim=128, dim_head=32)
-CVT = dict(num_classes=5, s1_emb_dim=32, s1_heads=1, s1_depth=1, s2_emb_dim=48, s2_heads=2,
-           s2_depth=1, s3_emb_dim=64, s3_heads=2, s3_depth=1)
+# A model shard_params still refuses (its attentions have no split form).
+SCALABLE = dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2), reduction_factor=(4, 2),
+                window_size=(8, None), ssa_dim_key=(40, 40), ssa_dim_value=(32, 32))
 MESH = (2, 2)
 LR, STEPS = 1e-2, 2
 DROPOUT_SEED, MAE_SEED = 100, 200
@@ -69,7 +70,7 @@ def kernel_route(calls):
 def run(rank: int, world: int, port: int, workdir: str) -> None:
     import torch.distributed as dist
 
-    from vit_tpu_torch import MAE, CvT, ViT
+    from vit_tpu_torch import MAE, ScalableViT, ViT
     from vit_tpu_torch.interop.checkpoint import (
         CheckpointManager, full_state_dict, restore_checkpoint,
     )
@@ -140,7 +141,8 @@ def run(rank: int, world: int, port: int, workdir: str) -> None:
                                                              device="cpu"))),
             "hidden": _refusal(lambda: shard_params(mesh, ViT(**dict(SMALL_VIT, mlp_dim=24),
                                                               device="cpu"))),
-            "cvt": _refusal(lambda: shard_params(mesh, CvT(**CVT, device="cpu"))),
+            "scalable": _refusal(lambda: shard_params(mesh, ScalableViT(**SCALABLE,
+                                                                        device="cpu"))),
             "unsplit step": _refusal(lambda: make_train_step(
                 ViT(**SMALL_VIT, device="cpu"), torch.optim.SGD([torch.zeros(1)], lr=LR),
                 mesh=mesh)),

@@ -99,6 +99,19 @@
 // about 230 MB (dy a second time for the second head, dq back for dxn), its loop waits
 // on wgmma and on TMA in turn with one warpgroup a CTA, and dxn's pass reads
 // in a window of its own after the heads (PERF.md has the card's times).
+// Tensor parallelism (the split form: a rank's heads, the model ranks
+// summing f32 partials outside, vit_fused_cross_attention_{fwd,bwd}_partial):
+// the forward is route 2 at every c, cross_fwd writing oattn for the rank's
+// heads and launch_forward_gemm stopping at the f32 s = oattn·Wo_rᵀ (no bias,
+// no residual); the caller sums s over the ranks and ends the block with
+// bias_residual.cu's pass.  The backward is route 2 (or 0 past 128 keys):
+// launch_dgrad's dy·Wo_r, cross_bwd over the rank's heads, and the dgrad
+// dq·Wq_r stopping at the f32 partial dxn, which the caller sums with the k/v
+// convolution's share and over the ranks before one rounding; dbo from the
+// whole dy.  Route 1 cannot end a split backward: it rounds dxn on chip.
+// At Twins-SVT@224's global attentions split over two ranks (4 of 8 heads of
+// 64) this is the unsplit kernel's own work on half the heads, plus an f32
+// (rows, c) store each way.
 // ptxas (sm_90a, bf16; f16 the same; chip_smoke.py's ptxas line): (40, 32)
 // and 64 keys 211 registers, no spill; (32, 32) 185; (64, 64) 241; the
 // 128-key instances (no ScalableViT shape at 256 px) 255 with 152-1044
@@ -399,32 +412,36 @@ constexpr int kSplitC = 256;
 // Warpgroups of a cross_fwd CTA at these widths: two (128 rows) where the
 // image has more than 64 rows and two CTAs of them still share an SM, else
 // one; 0 where one 64-row CTA's shared memory does not fit (the shape goes to
-// the three-launch forward).
+// the three-launch forward).  `split`: the kernel writes oattn and leaves y
+// to a GEMM (c >= kSplitC, or a tensor-parallel rank's partial at any c).
 template <int DK, int DV, int NK>
-int cross_wgs(int n, int c, int hv) {
+int cross_wgs(int n, int c, int hv, bool split) {
   using C = Cross<DK, DV, NK>;
-  const int cw = round64(c), hvp = c < kSplitC ? round64(hv) : 0;
+  const int cw = round64(c), hvp = split ? 0 : round64(hv);
   if (n > 64 && 2 * C::smem(128, cw, hvp) <= kMaxSmem) return 2;
   return C::smem(64, cw, hvp) <= kMaxSmem ? 1 : 0;
 }
 
 // Heads a cross_fwd CTA takes: all of them with the y GEMM; in the split, at
 // most four (halving while even), so a row block's heads spread over CTAs.
-int cross_heads_per_cta(int c, int heads) {
+int cross_heads_per_cta(bool split, int heads) {
   int hh = heads;
-  while (c >= kSplitC && hh > 4 && hh % 2 == 0) hh /= 2;
+  while (split && hh > 4 && hh % 2 == 0) hh /= 2;
   return hh;
 }
 
+// `s` non-null: a tensor-parallel rank's partial (its heads alone): cross_fwd
+// writes oattn at any c and launch_forward_gemm stops at the f32 s =
+// oattn·Woᵀ (kEpiStoreF32, no bias and no residual); y, x and bo unread.
 template <typename T, int DK, int DV, int NK>
 cudaError_t cross_fwd_t(const void* x, const void* xn, const void* wq, const void* k,
-                        const void* v, const void* wo, const void* bo, void* y, void* q,
-                        void* oattn, float* lse, int b, int n, int n_k, int c, int heads,
-                        float scale, cudaStream_t stream) {
+                        const void* v, const void* wo, const void* bo, void* y, float* s,
+                        void* q, void* oattn, float* lse, int b, int n, int n_k, int c,
+                        int heads, float scale, cudaStream_t stream) {
   using C = Cross<DK, DV, NK>;
   constexpr int dt = hopper::dtype_of<T>();
-  const int hv = heads * DV, wgs = cross_wgs<DK, DV, NK>(n, c, hv);
-  const bool split = c >= kSplitC;
+  const bool split = s || c >= kSplitC;
+  const int hv = heads * DV, wgs = cross_wgs<DK, DV, NK>(n, c, hv, split);
   if (wgs == 0 || (split && !oattn)) return cudaErrorInvalidValue;
   const int bytes = C::smem(64 * wgs, round64(c), split ? 0 : round64(hv));
   thread_local int ready = -1;
@@ -443,15 +460,18 @@ cudaError_t cross_fwd_t(const void* x, const void* xn, const void* wq, const voi
     err = head_map(&v_map, v, dt, DV, n_k, heads, b, kv_st + 3, C::VTile::kChunk, NK);
   if (err == cudaSuccess) err = matrix_map(&wo_map, wo, dt, hv, c, hv, 64, 64);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + 64 * wgs - 1) / (64 * wgs), b, heads / cross_heads_per_cta(c, heads));
+  dim3 grid((n + 64 * wgs - 1) / (64 * wgs), b, heads / cross_heads_per_cta(split, heads));
   cross_fwd_kernel<T, DK, DV, NK><<<grid, 128 * wgs, bytes, stream>>>(
       xn_map, wq_map, k_map, v_map, wo_map, static_cast<const T*>(x), static_cast<const T*>(bo),
       split ? nullptr : static_cast<T*>(y), static_cast<T*>(q), static_cast<T*>(oattn), lse, n,
       n_k, c, heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, b * n, c, hv, kEpiBiasResidual,
-                             hopper::dtype_of<T>(), stream);
+  if (s)
+    return launch_forward_gemm(oattn, wo, nullptr, nullptr, s, nullptr, b * n, c, hv,
+                               kEpiStoreF32, dt, stream);
+  return launch_forward_gemm(oattn, wo, bo, x, y, nullptr, b * n, c, hv, kEpiBiasResidual, dt,
+                             stream);
 }
 
 // The (dh_k, dh_v) instances of cross_fwd, at NK 64 or 128 keys: X(DK, DV).
@@ -459,15 +479,19 @@ cudaError_t cross_fwd_t(const void* x, const void* xn, const void* wq, const voi
 
 // The forward's route at a shape (the split at the top of the file): 1, the
 // one cross_fwd kernel; 2, cross_fwd writing oattn and launch_forward_gemm
-// taking y (c >= 256); 0, the three launches.
-int cross_mode(int b, int n, int n_k, int c, int heads, int dh_k, int dh_v) {
+// taking y (c >= 256, or at any c a tensor-parallel rank's `partial`, whose
+// GEMM stops at the f32 s); 0, the three launches.
+int cross_mode(int b, int n, int n_k, int c, int heads, int dh_k, int dh_v,
+               bool partial = false) {
   if (b < 1 || b > 65535 || n < 1 || n_k < 1 || n_k > 128 || c % 8 || c < 8 || heads < 1)
     return 0;
-  const int hv = heads * dh_v, fused = c < kSplitC ? 1 : 2;
-#define VIT_CROSS_TAKES(DK, DV)                                                                 \
-  if (dh_k == DK && dh_v == DV)                                                                 \
-    return (n_k <= 64 ? cross_wgs<DK, DV, 64>(n, c, hv) : cross_wgs<DK, DV, 128>(n, c, hv)) > 0 \
-               ? fused                                                                          \
+  const bool split = partial || c >= kSplitC;
+  const int hv = heads * dh_v, fused = split ? 2 : 1;
+#define VIT_CROSS_TAKES(DK, DV)                                                        \
+  if (dh_k == DK && dh_v == DV)                                                        \
+    return (n_k <= 64 ? cross_wgs<DK, DV, 64>(n, c, hv, split)                         \
+                      : cross_wgs<DK, DV, 128>(n, c, hv, split)) > 0                   \
+               ? fused                                                                 \
                : 0;
   VIT_CROSS_WIDTHS(VIT_CROSS_TAKES)
 #undef VIT_CROSS_TAKES
@@ -476,15 +500,15 @@ int cross_mode(int b, int n, int n_k, int c, int heads, int dh_k, int dh_v) {
 
 template <typename T>
 cudaError_t cross_fwd_dispatch(const void* x, const void* xn, const void* wq, const void* k,
-                               const void* v, const void* wo, const void* bo, void* y, void* q,
-                               void* oattn, float* lse, int b, int n, int n_k, int c, int heads,
-                               int dh_k, int dh_v, float scale, cudaStream_t stream) {
-#define VIT_CROSS_FWD(DK, DV)                                                                  \
-  if (dh_k == DK && dh_v == DV)                                                                \
-    return n_k <= 64 ? cross_fwd_t<T, DK, DV, 64>(x, xn, wq, k, v, wo, bo, y, q, oattn, lse, b, \
-                                                  n, n_k, c, heads, scale, stream)             \
-                     : cross_fwd_t<T, DK, DV, 128>(x, xn, wq, k, v, wo, bo, y, q, oattn, lse,  \
-                                                   b, n, n_k, c, heads, scale, stream);
+                               const void* v, const void* wo, const void* bo, void* y, float* s,
+                               void* q, void* oattn, float* lse, int b, int n, int n_k, int c,
+                               int heads, int dh_k, int dh_v, float scale, cudaStream_t stream) {
+#define VIT_CROSS_FWD(DK, DV)                                                                 \
+  if (dh_k == DK && dh_v == DV)                                                               \
+    return n_k <= 64 ? cross_fwd_t<T, DK, DV, 64>(x, xn, wq, k, v, wo, bo, y, s, q, oattn,    \
+                                                  lse, b, n, n_k, c, heads, scale, stream)    \
+                     : cross_fwd_t<T, DK, DV, 128>(x, xn, wq, k, v, wo, bo, y, s, q, oattn,   \
+                                                   lse, b, n, n_k, c, heads, scale, stream);
   VIT_CROSS_WIDTHS(VIT_CROSS_FWD)
 #undef VIT_CROSS_FWD
   return cudaErrorInvalidValue;
@@ -1119,6 +1143,99 @@ cudaError_t cross_bwd_dispatch(const BwdPlan& plan, const void* dy, const void* 
   return cudaErrorInvalidValue;
 }
 
+// The forward on `mode` (cross_mode): cross_fwd (1, 2) or the three launches
+// (0); `s` non-null stops the output GEMM at the f32 partial (the split form).
+cudaError_t cross_forward(const void* x, const void* xn, const void* wq, const void* k,
+                          const void* v, const void* wo, const void* bo, void* y, float* s,
+                          void* q, void* oattn, float* lse, int mode, int b, int n, int n_k,
+                          int c, int heads, int dh_k, int dh_v, float scale, int dtype,
+                          cudaStream_t stream) {
+  if (mode) {
+    if (dtype == kBF16)
+      return cross_fwd_dispatch<__nv_bfloat16>(x, xn, wq, k, v, wo, bo, y, s, q, oattn, lse, b,
+                                               n, n_k, c, heads, dh_k, dh_v, scale, stream);
+    if (dtype == kF16)
+      return cross_fwd_dispatch<__half>(x, xn, wq, k, v, wo, bo, y, s, q, oattn, lse, b, n, n_k,
+                                        c, heads, dh_k, dh_v, scale, stream);
+    return cudaErrorInvalidValue;
+  }
+  const int rows = b * n, hk = heads * dh_k, hv = heads * dh_v;
+  long long st[12];
+  packed_strides(st, n, heads, dh_k);        // q
+  packed_strides(st + 3, n_k, heads, dh_k);  // k
+  packed_strides(st + 6, n_k, heads, dh_v);  // v
+  packed_strides(st + 9, n, heads, dh_v);    // oattn
+  cudaError_t err = launch_linear(xn, wq, kWeightNK, nullptr, nullptr, nullptr, q, nullptr,
+                                  nullptr, rows, hk, c, kEpiStore, dtype, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_flash_fwd(q, k, v, oattn, lse, st, b, heads, n, n_k, dh_k, dh_v, scale, dtype,
+                         stream);
+  if (err != cudaSuccess) return err;
+  if (s)
+    return launch_forward_gemm(oattn, wo, nullptr, nullptr, s, nullptr, rows, c, hv,
+                               kEpiStoreF32, dtype, stream);
+  return launch_linear(oattn, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, c, hv,
+                       kEpiBiasResidual, dtype, stream);
+}
+
+// The backward on the plan `force` gives; `partial` (the split form): dxn is
+// the f32 partial dq·Wq (kEpiStoreF32), on route 2 or 0 only (route 1 rounds
+// dxn inside cross_bwd; the caller picks the route).
+int cross_backward(const void* dy, const void* q, const void* k, const void* v,
+                   const void* oattn, const float* lse, const void* wq, const void* wo,
+                   void* dxn, bool partial, void* dq, void* dk, void* dv, float* dbo,
+                   void* scratch, int b, int n, int n_k, int c, int heads, int dh_k, int dh_v,
+                   float scale, int force, int dtype, cudaStream_t stream) {
+  const int rows = b * n, hk = heads * dh_k, hv = heads * dh_v;
+  if (rows <= 0 || (dtype != kBF16 && dtype != kF16)) return cudaErrorInvalidValue;
+  const BwdPlan plan = cross_bwd_plan(b, n, n_k, c, heads, dh_k, dh_v, force);
+  if (plan.route < 0 || (partial && plan.route == 1)) return cudaErrorInvalidValue;
+  const int dxn_epi = partial ? kEpiStoreF32 : kEpiStore;
+  const BwdScratch sc = cross_bwd_scratch(plan, b, n, n_k, c, heads, dh_k, dh_v);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  void* doattn = base;  // at 0
+  float* dsum = reinterpret_cast<float*>(base + sc.dsum);
+  float* colsum = reinterpret_cast<float*>(base + sc.colsum);
+  float* part = reinterpret_cast<float*>(base + sc.partials);
+  cudaError_t err = cudaSuccess;
+  if (plan.route == 0) {
+    long long st[24];
+    packed_strides(st, n, heads, dh_k);         // q
+    packed_strides(st + 3, n_k, heads, dh_k);   // k
+    packed_strides(st + 6, n_k, heads, dh_v);   // v
+    packed_strides(st + 9, n, heads, dh_v);     // oattn
+    packed_strides(st + 12, n, heads, dh_v);    // doattn
+    packed_strides(st + 15, n, heads, dh_k);    // dq
+    packed_strides(st + 18, n_k, heads, dh_k);  // dk
+    packed_strides(st + 21, n_k, heads, dh_v);  // dv
+    err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr, nullptr,
+                        rows, hv, c, kEpiStore, dtype, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_flash_bwd(q, k, v, oattn, lse, doattn, dq, dk, dv, dsum, st, b, heads, n, n_k,
+                           dh_k, dh_v, scale, dtype, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_linear(dq, wq, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows,
+                        c, hk, dxn_epi, dtype, stream);
+    if (err != cudaSuccess) return err;
+    return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
+  }
+  if (plan.route == 2) {
+    err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, hv, c, kEpiStore, dtype,
+                       stream);
+    if (err != cudaSuccess) return err;
+  }
+  err = dtype == kBF16
+            ? cross_bwd_dispatch<__nv_bfloat16>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk,
+                                                dv, dbo, part, b, n, n_k, c, heads, dh_k, dh_v,
+                                                scale, stream)
+            : cross_bwd_dispatch<__half>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk, dv, dbo,
+                                         part, b, n, n_k, c, heads, dh_k, dh_v, scale, stream);
+  if (err != cudaSuccess || plan.route == 1) return err;
+  err = launch_dgrad(dq, wq, nullptr, dxn, nullptr, nullptr, rows, c, hk, dxn_epi, dtype, stream);
+  if (err != cudaSuccess) return err;
+  return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
+}
+
 }  // namespace
 }  // namespace vit
 
@@ -1129,6 +1246,14 @@ cudaError_t cross_bwd_dispatch(const BwdPlan& plan, const void* dy, const void* 
 extern "C" int vit_fused_cross_attention_fused(int b, int n, int n_k, int c, int heads, int dh_k,
                                                int dh_v) {
   return vit::cross_mode(b, n, n_k, c, heads, dh_k, dh_v);
+}
+
+// The split form's forward route (vit_fused_cross_attention_fwd_partial): 2
+// where cross_fwd takes the shape (q and lse optional), 0 for the three
+// launches (q and lse required).
+extern "C" int vit_fused_cross_attention_partial_route(int b, int n, int n_k, int c, int heads,
+                                                       int dh_k, int dh_v) {
+  return vit::cross_mode(b, n, n_k, c, heads, dh_k, dh_v, true);
 }
 
 // Outputs y (rows, c); residuals q (rows, hk), oattn (rows, hv) in the
@@ -1147,29 +1272,34 @@ extern "C" int vit_fused_cross_attention_fwd(const void* x, const void* xn, cons
   const int mode = cross_mode(b, n, n_k, c, heads, dh_k, dh_v);
   if (!q != !lse || (q && !oattn) || (mode != 1 && !oattn) || (mode == 0 && !q))
     return cudaErrorInvalidValue;
-  if (mode) {
-    if (dtype == kBF16)
-      return cross_fwd_dispatch<__nv_bfloat16>(x, xn, wq, k, v, wo, bo, y, q, oattn, lse, b, n,
-                                               n_k, c, heads, dh_k, dh_v, scale, stream);
-    if (dtype == kF16)
-      return cross_fwd_dispatch<__half>(x, xn, wq, k, v, wo, bo, y, q, oattn, lse, b, n, n_k, c,
-                                        heads, dh_k, dh_v, scale, stream);
-    return cudaErrorInvalidValue;
-  }
-  const int rows = b * n, hk = heads * dh_k, hv = heads * dh_v;
-  long long st[12];
-  packed_strides(st, n, heads, dh_k);        // q
-  packed_strides(st + 3, n_k, heads, dh_k);  // k
-  packed_strides(st + 6, n_k, heads, dh_v);  // v
-  packed_strides(st + 9, n, heads, dh_v);    // oattn
-  cudaError_t err = launch_linear(xn, wq, kWeightNK, nullptr, nullptr, nullptr, q, nullptr,
-                                  nullptr, rows, hk, c, kEpiStore, dtype, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_flash_fwd(q, k, v, oattn, lse, st, b, heads, n, n_k, dh_k, dh_v, scale, dtype,
-                         stream);
-  if (err != cudaSuccess) return err;
-  return launch_linear(oattn, wo, kWeightNK, bo, x, nullptr, y, nullptr, nullptr, rows, c, hv,
-                       kEpiBiasResidual, dtype, stream);
+  return cross_forward(x, xn, wq, k, v, wo, bo, y, nullptr, q, oattn, lse, mode, b, n, n_k, c,
+                       heads, dh_k, dh_v, scale, dtype, stream);
+}
+
+// The split form (tensor parallelism over the model ranks): rank r's heads
+// alone, `heads` the local count, wq (hk, c) the rows of its heads, wo (c,
+// hv) the columns of its heads, k and v its heads' columns of the packed
+// keys and values.  cross_fwd writes oattn at every c (route 2 of
+// vit_fused_cross_attention_fused, without the y GEMM in the kernel; the
+// three launches where cross_fwd does not take the shape), then the output
+// GEMM stops at its f32 partial s = oattn·Woᵀ (rows, c), no bias and no
+// residual (kEpiStoreF32 over kWeightNK, counted as kCountForwardF32): the
+// caller sums s over the ranks in f32 and ends the block with
+// vit_bias_residual, T(x + T(Σ s + bo)), the whole block's rounding points.
+// Outputs s f32 and oattn in the compute dtype; q and lse in training, else
+// both null.  Other arguments as vit_fused_cross_attention_fwd's.
+extern "C" int vit_fused_cross_attention_fwd_partial(const void* xn, const void* wq,
+                                                     const void* k, const void* v,
+                                                     const void* wo, float* s, void* q,
+                                                     void* oattn, float* lse, int b, int n,
+                                                     int n_k, int c, int heads, int dh_k,
+                                                     int dh_v, float scale, int dtype,
+                                                     cudaStream_t stream) {
+  using namespace vit;
+  const int mode = cross_mode(b, n, n_k, c, heads, dh_k, dh_v, true);
+  if (!s || !oattn || !q != !lse || (mode == 0 && !q)) return cudaErrorInvalidValue;
+  return cross_forward(nullptr, xn, wq, k, v, wo, nullptr, nullptr, s, q, oattn, lse, mode, b,
+                       n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream);
 }
 
 // The backward's route at this shape (cross_bwd_plan): 1, cross_bwd with the
@@ -1204,52 +1334,27 @@ extern "C" int vit_fused_cross_attention_bwd(const void* dy, const void* q, cons
                                              int n, int n_k, int c, int heads, int dh_k, int dh_v,
                                              float scale, int force, int dtype,
                                              cudaStream_t stream) {
-  using namespace vit;
-  const int rows = b * n, hk = heads * dh_k, hv = heads * dh_v;
-  if (rows <= 0 || (dtype != kBF16 && dtype != kF16)) return cudaErrorInvalidValue;
-  const BwdPlan plan = cross_bwd_plan(b, n, n_k, c, heads, dh_k, dh_v, force);
-  if (plan.route < 0) return cudaErrorInvalidValue;
-  const BwdScratch sc = cross_bwd_scratch(plan, b, n, n_k, c, heads, dh_k, dh_v);
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  void* doattn = base;  // at 0
-  float* dsum = reinterpret_cast<float*>(base + sc.dsum);
-  float* colsum = reinterpret_cast<float*>(base + sc.colsum);
-  float* part = reinterpret_cast<float*>(base + sc.partials);
-  cudaError_t err = cudaSuccess;
-  if (plan.route == 0) {
-    long long st[24];
-    packed_strides(st, n, heads, dh_k);         // q
-    packed_strides(st + 3, n_k, heads, dh_k);   // k
-    packed_strides(st + 6, n_k, heads, dh_v);   // v
-    packed_strides(st + 9, n, heads, dh_v);     // oattn
-    packed_strides(st + 12, n, heads, dh_v);    // doattn
-    packed_strides(st + 15, n, heads, dh_k);    // dq
-    packed_strides(st + 18, n_k, heads, dh_k);  // dk
-    packed_strides(st + 21, n_k, heads, dh_v);  // dv
-    err = launch_linear(dy, wo, kWeightKN, nullptr, nullptr, nullptr, doattn, nullptr, nullptr,
-                        rows, hv, c, kEpiStore, dtype, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_flash_bwd(q, k, v, oattn, lse, doattn, dq, dk, dv, dsum, st, b, heads, n, n_k,
-                           dh_k, dh_v, scale, dtype, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_linear(dq, wq, kWeightKN, nullptr, nullptr, nullptr, dxn, nullptr, nullptr, rows,
-                        c, hk, kEpiStore, dtype, stream);
-    if (err != cudaSuccess) return err;
-    return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
-  }
-  if (plan.route == 2) {
-    err = launch_dgrad(dy, wo, nullptr, doattn, nullptr, nullptr, rows, hv, c, kEpiStore, dtype,
-                       stream);
-    if (err != cudaSuccess) return err;
-  }
-  err = dtype == kBF16
-            ? cross_bwd_dispatch<__nv_bfloat16>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk,
-                                                dv, dbo, part, b, n, n_k, c, heads, dh_k, dh_v,
-                                                scale, stream)
-            : cross_bwd_dispatch<__half>(plan, dy, q, doattn, k, v, wq, wo, dxn, dq, dk, dv, dbo,
-                                         part, b, n, n_k, c, heads, dh_k, dh_v, scale, stream);
-  if (err != cudaSuccess || plan.route == 1) return err;
-  err = launch_dgrad(dq, wq, nullptr, dxn, nullptr, nullptr, rows, c, hk, kEpiStore, dtype, stream);
-  if (err != cudaSuccess) return err;
-  return launch_column_sums(dy, colsum, dbo, rows, c, dtype, stream);
+  return vit::cross_backward(dy, q, k, v, oattn, lse, wq, wo, dxn, false, dq, dk, dv, dbo,
+                             scratch, b, n, n_k, c, heads, dh_k, dh_v, scale, force, dtype,
+                             stream);
+}
+
+// The split form's backward (its forward: vit_fused_cross_attention_fwd_partial),
+// over rank r's heads: the doattn GEMM dy·Wo_r, cross_bwd's dq, dk and dv of
+// its heads, then the dgrad dq·Wq_r stops at the f32 partial dxn (rows, c)
+// (kEpiStoreF32), which the caller sums with the k/v convolution's share and
+// over the ranks before one rounding; dbo from the whole dy, as the unsplit
+// backward takes it.  `force` names the route: 2 (cross_bwd between the two
+// dgrads) where the shape takes cross_bwd, else 0 (the four steps), as
+// ops/fused_cross_attention.py's partial_backward_route picks it; route 1
+// keeps dxn inside cross_bwd and rounds it, so a plan of route 1 (asked for,
+// or the shape's own under -1) is refused.  Arguments as
+// vit_fused_cross_attention_bwd's, dxn f32.
+extern "C" int vit_fused_cross_attention_bwd_partial(
+    const void* dy, const void* q, const void* k, const void* v, const void* oattn,
+    const float* lse, const void* wq, const void* wo, float* dxn, void* dq, void* dk, void* dv,
+    float* dbo, void* scratch, int b, int n, int n_k, int c, int heads, int dh_k, int dh_v,
+    float scale, int force, int dtype, cudaStream_t stream) {
+  return vit::cross_backward(dy, q, k, v, oattn, lse, wq, wo, dxn, true, dq, dk, dv, dbo, scratch,
+                             b, n, n_k, c, heads, dh_k, dh_v, scale, force, dtype, stream);
 }

@@ -22,10 +22,11 @@ of them read the same file.
 A model split over a ``model`` axis
 (:func:`vit_tpu_torch.parallel.sharding.shard_params`) is written whole, as
 ``vit_tpu`` writes its global arrays: saving gathers every split parameter
-and the optimizer state that follows it over the model group, on every rank
-(so every rank calls ``save``), to the unsharded keys and shapes (q, k and v
-put back in place), and rank 0 writes; restoring into a split target hands
-each rank its slice.  A checkpoint of a split model restores into a
+and buffer (LeViT's BatchNorm statistics split with their heads) and the
+optimizer state that follows each parameter over the model group, on every
+rank (so every rank calls ``save``), to the unsharded keys and shapes (q, k
+and v, or k and v, put back in place), and rank 0 writes; restoring into a
+split target hands each rank its slice.  A checkpoint of a split model restores into a
 one-process model, and one of a one-process model into a split one.
 """
 

@@ -66,7 +66,16 @@ copy_to_model_parallel`), then add the bias once.  Dropout under the model
 axis draws from the forward's generator, which every rank of a model group
 holds on one seed: the full-width masks, each rank taking its hidden units'
 slice of the MLP's, so that a split step equals the one-process step with
-that generator; an active dropout without a generator raises there.
+that generator; an active dropout without a generator raises there.  The
+conv hybrids' split modules (Twins-SVT, CvT, LeViT, MobileViT) do the same
+with :func:`split_input` (``f``, right before each column-split projection,
+after any replicated prefix), :func:`row_parallel_conv` /
+:func:`row_parallel_output` (``g`` and the bias once) and
+:func:`split_dropout`, each the plain op on a module that is not split, and
+declare what ``shard_params`` cuts as ``tp_cuts`` (``{name: COLUMN | ROW |
+QKV | KV}``).  An attention of theirs whose heads the axis does not divide
+runs whole on every rank with the shard :data:`WHOLE`: no collective, and
+its dropout draws from the generator as the split modules' does.
 """
 
 from __future__ import annotations
@@ -181,13 +190,79 @@ class ModelShard:
     size: int
 
 
-def row_parallel_output(proj: nn.Linear, x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+# How shard_params cuts a parameter or buffer (and a checkpoint gathers it):
+# by rows (dim 0), by columns (dim 1), or by rows in each third of a packed
+# q|k|v or each half of a packed k|v.
+COLUMN, ROW, QKV, KV = "column", "row", "qkv", "kv"
+
+WHOLE = ModelShard(None, 0, 1)
+"""The shard of a conv hybrid's attention that runs whole inside a split
+model (its heads do not divide over the axis): no collective, and its
+dropout draws from the forward's generator, so that the ranks draw one
+mask."""
+
+
+def _splits(shard: ModelShard | None) -> bool:
+    return shard is not None and shard.size > 1
+
+
+def is_split(module: nn.Module) -> bool:
+    """Whether ``module`` is split over a model axis of more than one rank."""
+    return _splits(getattr(module, "shard", None))
+
+
+def row_parallel_output(proj: nn.Linear, x: torch.Tensor,
+                        shard: ModelShard | None) -> torch.Tensor:
     """A row-split projection's output in ``x``'s dtype: this rank's f32
     partial ``x·Wᵀ`` summed over the model group, then the (whole) bias
-    added once, ``T(Σ + b)``."""
-    s = F.linear(x.float(), cast_to(proj.weight, x).float())
-    s = reduce_from_model_parallel(s, shard.group)
-    return (s + cast_to(proj.bias, x).float()).to(x.dtype)
+    added once, ``T(Σ + b)``; :func:`linear` where ``shard`` splits
+    nothing."""
+    if not _splits(shard):
+        return linear(proj, x)
+    return _row_parallel(cast_to(proj.weight, x), cast_to(proj.bias, x), x, shard)
+
+
+def row_parallel_conv(conv: "Conv", x: torch.Tensor, shard: ModelShard | None) -> torch.Tensor:
+    """:func:`row_parallel_output` of a row-split 1x1, stride-1 :class:`Conv`
+    over a channels-last map (the GEMM over its channels): the bias, if
+    any, added once after the sum; ``conv(x)`` where ``shard`` splits
+    nothing."""
+    if not _splits(shard):
+        return conv(x)
+    if conv.weight.shape[2:] != (1, 1) or conv.stride != 1 or conv.groups != 1:
+        raise ValueError("row_parallel_conv: a row split takes a 1x1, stride-1 convolution")
+    return _row_parallel(cast_to(conv.weight, x).flatten(1), cast_to(conv.bias, x), x, shard)
+
+
+def _row_parallel(w: torch.Tensor, b: torch.Tensor | None, x: torch.Tensor,
+                  shard: ModelShard) -> torch.Tensor:
+    s = reduce_from_model_parallel(F.linear(x.float(), w.float()), shard.group)
+    return (s if b is None else s + b.float()).to(x.dtype)
+
+
+def split_input(x: torch.Tensor, shard: ModelShard | None) -> torch.Tensor:
+    """Megatron's ``f`` before a split module's column-split projections
+    (:func:`~vit_tpu_torch.ops.tensor_parallel.copy_to_model_parallel`), the
+    identity where ``shard`` splits nothing."""
+    return copy_to_model_parallel(x, shard.group) if _splits(shard) else x
+
+
+def split_dropout(x: torch.Tensor, drop: nn.Dropout, shard: ModelShard | None,
+                  generator: torch.Generator | None = None, *,
+                  hidden: bool = False) -> torch.Tensor:
+    """``drop``'s dropout of ``x`` in a conv hybrid's module: ``drop(x)``
+    (PyTorch's global RNG) where the model is not split and no generator is
+    given; else :func:`dropout` of its rate drawn from ``generator`` (on a
+    split module's column-split activation, ``hidden``, this rank's slice of
+    the full-width mask, :func:`dropout_shard`), so that a split model's
+    ranks draw one mask and equal the one-process forward given the same
+    generator.  Raises there without a generator where the dropout is
+    active."""
+    if shard is None and generator is None:
+        return drop(x)
+    if hidden and _splits(shard):
+        return dropout_shard(x, drop.p, drop.training, generator, shard)
+    return dropout(x, drop.p, drop.training, generator)
 
 
 class DropPath(nn.Module):
@@ -527,7 +602,14 @@ def apply_fused_mlp_block(norm: LayerNorm, mlp: MLP, x: torch.Tensor) -> torch.T
 
 def _group(module) -> object:
     """A split module's model group, or None."""
-    return None if module.shard is None else module.shard.group
+    return module.shard.group if is_split(module) else None
+
+
+def group_kw(module) -> dict:
+    """``{"group": ...}`` for a split module's op call, ``{}`` for a whole
+    one (whose call stays the unsplit op's)."""
+    group = _group(module)
+    return {} if group is None else {"group": group}
 
 
 def apply_fused_attention_block(norm: LayerNorm, attn: Attention,
@@ -607,19 +689,23 @@ def fused_mlp_residual(x: torch.Tensor, norm: LayerNorm, mlp: MLP, mode: str = "
 def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
                             mlp: nn.Module | None, mode: str = "auto", *,
                             fc1: Conv | None = None, fc2: Conv | None = None,
-                            dropout: nn.Dropout | None = None) -> torch.Tensor:
+                            dropout: nn.Dropout | None = None,
+                            generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + mlp(norm(x))`` over an NHWC map, where ``mlp`` is a conv-MLP
     (``fc1`` and ``fc2`` 1x1 :class:`Conv` s, a ``dropout_active`` property):
     with :func:`fused_mlp_eligible`'s gate, through the fused MLP kernel on
     the ``(b, H·W, c)`` view, with the :class:`ChannelLayerNorm`'s eps
-    (``vit_tpu/layers/common.py:400-452``); else the plain modules.
+    (``vit_tpu/layers/common.py:400-452``); else the plain modules.  A
+    split ``mlp`` (its ``shard`` set) runs the kernel's split form over its
+    model group.
     ``norm=None`` is ``vit_tpu``'s form for an MLP that holds its LayerNorm
     as ``mlp.norm`` (CrossFormer's, ``:413-415``, ``:437-441``): ``x +
     mlp(x)``, the kernel taking that norm's g, b and eps.
     ``mlp=None`` with ``fc1``, ``fc2`` and ``dropout`` is its form for convs
     that no module holds (NesT's, ``vit_tpu/models/nest.py:122-141``): the
     plain path ``x + dropout(fc2(dropout(gelu(fc1(norm(x))))))``, the gate
-    on ``dropout``'s state.
+    on ``dropout``'s state.  ``generator``, where given, goes to the plain
+    ``mlp``'s forward (its dropout's draws).
     ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
     sublane reasons and do not carry over: every 16-bit CUDA call goes to the
     kernel."""
@@ -630,13 +716,14 @@ def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
     if not fused_mlp_gate(x, active, mode):
         xn = x if norm is None else norm(x)
         if mlp is not None:
-            return x + mlp(xn)
+            return x + (mlp(xn) if generator is None else mlp(xn, generator=generator))
         return x + dropout(fc2(dropout(gelu_exact(fc1(xn)))))
     ln = mlp.norm if norm is None else norm
     b, h, w, c = x.shape
     y = fused_mlp(x.reshape(b, h * w, c).contiguous(), ln.g, ln.b,
                   cast_to(fc1.weight, x).flatten(1), cast_to(fc1.bias, x),
-                  cast_to(fc2.weight, x).flatten(1), cast_to(fc2.bias, x), ln.eps)
+                  cast_to(fc2.weight, x).flatten(1), cast_to(fc2.bias, x), ln.eps,
+                  **group_kw(mlp))
     return y.reshape(b, h, w, c)
 
 

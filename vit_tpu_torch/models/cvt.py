@@ -17,6 +17,11 @@ Constructor: ``vit_tpu``'s (``num_classes`` and the ``s{1,2,3}_*`` fields,
 ``"never"`` | ``"force"``), the attention op's own argument in ``vit_tpu``.
 Flax's ``training`` argument is the module's training mode: BatchNorm uses
 batch statistics and updates its running ones there.  Images are NHWC.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each attention whose heads the axis divides splits by heads, the flash
+dispatch taking the local head count; the others (CvT-13's stages 1-2 at
+tp 2) run whole on every rank.  The MLPs split by hidden units.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    BatchNorm, ChannelLayerNorm, Conv, GroupedConv, gelu_exact, glorot_linear_, linear,
+    COLUMN, KV, ROW, BatchNorm, ChannelLayerNorm, Conv, GroupedConv, gelu_exact,
+    glorot_linear_, linear, row_parallel_conv, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import USE_FLASH_MODES, scaled_dot_product_attention
 
@@ -36,7 +42,10 @@ STAGE_FIELDS = ("emb_dim", "emb_kernel", "emb_stride", "proj_kernel", "kv_proj_s
 
 class CvTDepthWiseConv2d(nn.Module):
     """Depthwise conv → BatchNorm(momentum 0.9 in Flax, eps 1e-5) →
-    pointwise 1x1 conv (``vit_tpu/models/cvt.py:26-46``)."""
+    pointwise 1x1 conv (``vit_tpu/models/cvt.py:26-46``).  Given its split
+    attention's ``shard``, the pointwise half holds the rank's rows; the
+    depthwise convolution and its BatchNorm run whole, and ``f`` sits
+    between that BatchNorm and the pointwise half."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int, stride: int,
                  use_bias: bool = True, **kw):
@@ -46,8 +55,8 @@ class CvTDepthWiseConv2d(nn.Module):
         self.bn = BatchNorm(dim_in, **kw)
         self.pointwise = Conv(dim_in, dim_out, 1, use_bias=use_bias, generator=gen, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise(self.bn(self.depthwise(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return self.pointwise(split_input(self.bn(self.depthwise(x)), shard))
 
 
 def _fold_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -61,7 +70,14 @@ class CvTAttention(nn.Module):
     the two halves of one strided ``to_kv`` projection; heads folded as
     ``b x y (h d) -> b h (x y) d``, views of the channels-last maps that the
     flash kernel reads through their strides; ``to_out`` a 1x1 conv and its
-    dropout."""
+    dropout.  ``shard`` (set by ``shard_params``) splits it by heads
+    (``tp_cuts``: the pointwise halves of ``to_q`` by rows and ``to_kv`` by
+    rows of each half, ``to_out`` by columns), ``to_out``'s bias added once
+    after the sum.  ``generator``, where given, draws the dropout."""
+
+    shard = None
+    tp_cuts = {"to_q.pointwise.weight": COLUMN, "to_kv.pointwise.weight": KV,
+               "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, proj_kernel: int, kv_proj_stride: int, heads: int = 8,
                  dim_head: int = 64, dropout: float = 0.0, use_flash: str = "auto", **kw):
@@ -73,20 +89,27 @@ class CvTAttention(nn.Module):
                                         use_bias=False, **kw)
         self.to_out = nn.Sequential(Conv(inner, dim, 1, **kw), nn.Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, xs, ys, _ = x.shape
-        k, v = self.to_kv(x).chunk(2, dim=-1)
-        q, k, v = (_fold_heads(t, self.heads) for t in (self.to_q(x), k, v))
+        k, v = self.to_kv(x, self.shard).chunk(2, dim=-1)
+        q, k, v = (_fold_heads(t, self.heads) for t in (self.to_q(x, self.shard), k, v))
         out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
                                            use_flash=self.use_flash)
         out = out.permute(0, 2, 1, 3).reshape(b, xs, ys, self.heads * self.dim_head)
-        return self.to_out(out)
+        return split_dropout(row_parallel_conv(self.to_out[0], out, self.shard), self.to_out[1],
+                             self.shard, generator)
 
 
 class CvTTransformer(nn.Module):
     """Pre-norm encoder over an NHWC map (``vit_tpu/models/cvt.py:91-122``).
     ``layers[i]`` holds ``attn_norm``, ``attn``, ``mlp_norm``, ``mlp_fc1``
-    and ``mlp_fc2`` (``attn_norm_{i}`` … in the Flax tree)."""
+    and ``mlp_fc2`` (``attn_norm_{i}`` … in the Flax tree).  ``shard`` (set
+    by ``shard_params``) splits the MLPs by hidden units (``tp_cuts``:
+    ``mlp_fc1``'s rows and bias, ``mlp_fc2``'s columns), ``mlp_fc2``'s bias
+    added once after the sum.  ``generator``, where given, draws every
+    dropout."""
+
+    shard = None
 
     def __init__(self, dim: int, proj_kernel: int, kv_proj_stride: int, depth: int, heads: int,
                  dim_head: int = 64, mlp_mult: int = 4, dropout: float = 0.0,
@@ -105,11 +128,19 @@ class CvTTransformer(nn.Module):
             })
             for _ in range(depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def tp_cuts(self) -> dict:
+        return {f"layers.{i}.mlp_{name}": kind for i in range(len(self.layers))
+                for name, kind in (("fc1.weight", COLUMN), ("fc1.bias", COLUMN),
+                                   ("fc2.weight", ROW))}
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for layer in self.layers:
-            x = x + layer["attn"](layer["attn_norm"](x))
-            h = self.dropout(gelu_exact(layer["mlp_fc1"](layer["mlp_norm"](x))))
-            x = x + self.dropout(layer["mlp_fc2"](h))
+            x = x + layer["attn"](layer["attn_norm"](x), generator)
+            h = gelu_exact(layer["mlp_fc1"](split_input(layer["mlp_norm"](x), self.shard)))
+            h = split_dropout(h, self.dropout, self.shard, generator, hidden=True)
+            x = x + split_dropout(row_parallel_conv(layer["mlp_fc2"], h, self.shard),
+                                  self.dropout, self.shard, generator)
         return x
 
 
@@ -152,10 +183,13 @@ class CvT(nn.Module):
             dim_in = dim
         self.head = glorot_linear_(nn.Linear(dim_in, num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``, where given, draws every dropout (a split model's
+        active dropout needs one: the ranks draw one mask)."""
         x = img.to(self.compute_dtype or self.head.weight.dtype)
         for prefix in ("s1", "s2", "s3"):
             x = getattr(self, f"{prefix}_emb")(x)
             x = getattr(self, f"{prefix}_norm")(x)
-            x = getattr(self, f"{prefix}_transformer")(x)
+            x = getattr(self, f"{prefix}_transformer")(x, generator)
         return linear(self.head, x.mean(dim=(1, 2)))

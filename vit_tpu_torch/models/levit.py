@@ -35,6 +35,12 @@ Images are NHWC.  The modules carry the Flax names: ``conv_embedding_{i}``,
 ``distill_head``.  ``to_out`` is a one-convolution ``nn.Sequential``, so
 that the converter's ``to_out`` → ``to_out.0`` rule holds here as for every
 other attention.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+an attention whose heads the axis divides (the shrink attentions included,
+stride-2 q and ``dim_out ≠ dim``) splits by heads, its exact GELU on the
+local heads; the others run whole on every rank.  The MLPs split by hidden
+units.
 """
 
 from __future__ import annotations
@@ -47,7 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.core.helpers import default, exists, resolve_device
-from vit_tpu_torch.layers.common import BatchNorm, Conv, gelu_exact, glorot_linear_, linear
+from vit_tpu_torch.layers.common import (
+    COLUMN, ROW, BatchNorm, Conv, gelu_exact, glorot_linear_, linear, row_parallel_conv,
+    split_dropout, split_input,
+)
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 
 
@@ -86,7 +95,18 @@ def _bn(dim: int, zero_gamma: bool = False, **kw) -> BatchNorm:
 
 
 class LeViTAttention(nn.Module):
-    """``vit_tpu/models/levit.py:52-117`` (see the module docstring)."""
+    """``vit_tpu/models/levit.py:52-117`` (see the module docstring).
+    ``shard`` (set by ``shard_params``) splits it by heads (``tp_cuts``:
+    ``to_q``, ``to_k`` and ``to_v`` by rows with their BatchNorms' channels
+    and running statistics, ``pos_bias`` by columns, ``to_out`` by columns),
+    ``to_out``'s bias added once after the sum, ``to_out_bn`` whole.
+    ``generator``, where given, draws the dropout."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_k.weight": COLUMN, "to_v.weight": COLUMN,
+               **{f"to_{t}_bn.{leaf}": COLUMN for t in "qkv"
+                  for leaf in ("weight", "bias", "running_mean", "running_var")},
+               "pos_bias.weight": ROW, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, fmap_size: int, heads: int = 8, dim_key: int = 32,
                  dim_value: int = 64, dropout: float = 0.0, dim_out: int | None = None,
@@ -117,7 +137,8 @@ class LeViTAttention(nn.Module):
         b, x, y, c = t.shape
         return t.reshape(b, x * y, self.heads, c // self.heads).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = split_input(x, self.shard)
         q = self.to_q_bn(self.to_q(x))
         k = self.to_k_bn(self.to_k(x))
         v = self.to_v_bn(self.to_v(x))
@@ -125,14 +146,19 @@ class LeViTAttention(nn.Module):
         bias = self.pos_bias.weight.float()[self.pos_indices].permute(2, 0, 1) / self.scale
         attn = attention_weights(self._heads(q), self._heads(k), scale=self.scale, bias=bias)
         out = apply_attention(attn, self._heads(v))
-        out = out.transpose(1, 2).reshape(b, qx, qy, -1)
-        out = self.to_out_bn(self.to_out(gelu_exact(out)))
-        return self.dropout(out)
+        out = gelu_exact(out.transpose(1, 2).reshape(b, qx, qy, -1))
+        out = self.to_out_bn(row_parallel_conv(self.to_out[0], out, self.shard))
+        return split_dropout(out, self.dropout, self.shard, generator)
 
 
 class LeViTMLP(nn.Module):
     """1 x 1 conv → hard swish → dropout → 1 x 1 conv → dropout
-    (``vit_tpu/models/levit.py:120-135``)."""
+    (``vit_tpu/models/levit.py:120-135``).  ``shard`` (set by
+    ``shard_params``) splits it by hidden units (``tp_cuts``).
+    ``generator``, where given, draws the dropout."""
+
+    shard = None
+    tp_cuts = {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}
 
     def __init__(self, dim: int, mult: int, dropout: float = 0.0, *, device=None, dtype=None,
                  generator=None):
@@ -142,9 +168,11 @@ class LeViTMLP(nn.Module):
         self.fc2 = Conv(dim * mult, dim, 1, **kw)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dropout(hard_swish(self.fc1(x)))
-        return self.dropout(self.fc2(x))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = hard_swish(self.fc1(split_input(x, self.shard)))
+        x = split_dropout(x, self.dropout, self.shard, generator, hidden=True)
+        return split_dropout(row_parallel_conv(self.fc2, x, self.shard), self.dropout, self.shard,
+                             generator)
 
 
 class LeViTTransformer(nn.Module):
@@ -164,11 +192,11 @@ class LeViTTransformer(nn.Module):
                 dim, fmap_size, heads, dim_key, dim_value, dropout, dim_out, downsample, **kw))
             self.add_module(f"mlp_{i}", LeViTMLP(dim_out, mlp_mult, dropout, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.depth):
-            out = getattr(self, f"attn_{i}")(x)
+            out = getattr(self, f"attn_{i}")(x, generator)
             x = out + x if self.attn_residual else out
-            x = getattr(self, f"mlp_{i}")(x) + x
+            x = getattr(self, f"mlp_{i}")(x, generator) + x
         return x
 
 
@@ -207,14 +235,16 @@ class LeViT(nn.Module):
                                             generator)
                              if exists(num_distill_classes) else None)
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None):
+        """``generator``, where given, draws every dropout (a split model's
+        active dropout needs one: the ranks draw one mask)."""
         x = img.to(self.compute_dtype or self.mlp_head.weight.dtype)
         for i in range(4):
             x = getattr(self, f"conv_embedding_{i}")(x)
         for ind in range(self.stages):
-            x = getattr(self, f"stage_{ind}")(x)
+            x = getattr(self, f"stage_{ind}")(x, generator)
             if ind < self.stages - 1:
-                x = getattr(self, f"shrink_{ind}")(x)
+                x = getattr(self, f"shrink_{ind}")(x, generator)
         x = x.mean(dim=(1, 2))
         out = linear(self.mlp_head, x)
         if self.distill_head is not None:

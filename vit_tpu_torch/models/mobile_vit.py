@@ -31,6 +31,10 @@ The modules carry the Flax names: ``conv1``, ``stem_{i}``,
 ``mlp_norm_{j}``, ``mlp_fc1_{j}``, ``mlp_fc2_{j}``), ``to_logits_conv`` and
 ``head``; a ``ConvNxNBN`` holds ``conv`` and ``bn``, an ``MV2Block`` ``pw``,
 ``pw_bn``, ``dw``, ``dw_bn``, ``pw_linear`` and ``pw_linear_bn``.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+the attentions split by heads (4, so up to 4 ranks), the MLPs by hidden
+units; the convolutions and BatchNorms run whole.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    Attention, BatchNorm, Conv, GroupedConv, LayerNorm, apply_output, glorot_linear_, linear,
+    COLUMN, QKV, ROW, Attention, BatchNorm, Conv, GroupedConv, LayerNorm, glorot_linear_,
+    linear, row_parallel_output, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 
@@ -106,15 +111,22 @@ class MobileViTAttention(Attention):
     """Attention over the ``(b, p, n, d)`` token layout
     (``vit_tpu/models/mobile_vit.py:83-111``): ``to_qkv`` without bias,
     ``to_out`` with bias and its dropout, the ``b·p`` sequences as one batch;
-    f32 logits and softmax, P·V in v's dtype with an f32 sum."""
+    f32 logits and softmax, P·V in v's dtype with an f32 sum.  ``shard``
+    (set by ``shard_params``) splits it by heads as ``Attention`` (``tp_cuts``:
+    ``to_qkv`` by heads in each of q, k and v, ``to_out`` by columns).
+    ``generator``, where given, draws the dropout."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, p, n, _ = x.shape
+        x = split_input(x, self.shard)
         q, k, v = (t.reshape(b * p, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
         out = apply_attention(attention_weights(q, k, scale=self.dim_head ** -0.5), v)
         out = out.transpose(1, 2).reshape(b, p, n, self.heads * self.dim_head)
-        return apply_output(self.to_out, out)
+        return split_dropout(row_parallel_output(self.to_out[0], out, self.shard), self.to_out[1],
+                             self.shard, generator)
 
 
 def unfold_patches(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -134,7 +146,13 @@ def fold_patches(x: torch.Tensor, h: int, w: int, ph: int, pw: int) -> torch.Ten
 class MobileViTBlock(nn.Module):
     """``vit_tpu/models/mobile_vit.py:114-161`` (see the module docstring).
     ``in_channels`` is the input's width (``channel`` by default), which
-    Flax infers."""
+    Flax infers.  ``shard`` (set by ``shard_params``) splits the MLPs by
+    hidden units (``tp_cuts``: ``mlp_fc1_{i}``'s rows and bias,
+    ``mlp_fc2_{i}``'s columns), ``mlp_fc2_{i}``'s bias added once after the
+    sum.  ``generator``, where given, draws every dropout (``MobileViT``
+    builds its blocks at rate 0, as ``vit_tpu``'s does)."""
+
+    shard = None
 
     def __init__(self, dim: int, depth: int, channel: int, kernel_size: int, patch_size,
                  mlp_dim: int, dropout: float = 0.0, *, in_channels: int | None = None,
@@ -158,17 +176,26 @@ class MobileViTBlock(nn.Module):
         self.conv3 = ConvNxNBN(channel, 1, in_channels=dim, **gen)
         self.conv4 = ConvNxNBN(channel, kernel_size, in_channels=channel + in_channels, **gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def tp_cuts(self) -> dict:
+        return {f"mlp_{name}_{i}.{leaf}": kind for i in range(self.depth)
+                for name, leaf, kind in (("fc1", "weight", COLUMN), ("fc1", "bias", COLUMN),
+                                         ("fc2", "weight", ROW))}
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         ph, pw = self.patch_size
         y = x
         x = self.conv2(self.conv1(x))
         _, h, w, _ = x.shape
         x = unfold_patches(x, ph, pw)
         for i in range(self.depth):
-            x = x + getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(x))
-            hdn = getattr(self, f"mlp_norm_{i}")(x)
-            hdn = self.dropout(swish(linear(getattr(self, f"mlp_fc1_{i}"), hdn)))
-            x = x + self.dropout(linear(getattr(self, f"mlp_fc2_{i}"), hdn))
+            x = x + getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(x), generator)
+            hdn = split_input(getattr(self, f"mlp_norm_{i}")(x), self.shard)
+            hdn = swish(linear(getattr(self, f"mlp_fc1_{i}"), hdn))
+            hdn = split_dropout(hdn, self.dropout, self.shard, generator, hidden=True)
+            x = x + split_dropout(row_parallel_output(getattr(self, f"mlp_fc2_{i}"), hdn,
+                                                      self.shard), self.dropout, self.shard,
+                                  generator)
         x = self.conv3(fold_patches(x, h, w, ph, pw))
         return self.conv4(torch.cat([x, y], dim=-1))
 

@@ -37,8 +37,9 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import cast_tuple, default, resolve_device
 from vit_tpu_torch.layers.common import (
-    ChannelLayerNorm, Conv, GroupedConv, LayerNorm, cast_to, check_fused_mode,
+    COLUMN, ROW, ChannelLayerNorm, Conv, GroupedConv, LayerNorm, cast_to, check_fused_mode,
     fused_conv_mlp_residual, gelu_exact, glorot_linear_, kernel_activation, linear,
+    row_parallel_conv, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import packed_window_attention, scaled_dot_product_attention
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
@@ -47,7 +48,15 @@ from vit_tpu_torch.ops.fused_cross_attention import fused_cross_attention
 
 class ConvMLP(nn.Module):
     """1x1 conv → GELU → dropout → 1x1 conv → dropout
-    (``vit_tpu/models/scalable_vit.py:33-49``)."""
+    (``vit_tpu/models/scalable_vit.py:33-49``).  ``shard`` (set by
+    ``shard_params`` in Twins-SVT's stacks) splits it by hidden units
+    (``tp_cuts``; a rank's width a multiple of 8, as the fused MLP takes it),
+    ``fc2``'s bias added once after the sum over the model group.
+    ``generator``, where given, draws the dropout (``split_dropout``)."""
+
+    shard = None
+    tp_cuts = {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}
+    tp_multiple = 8
 
     def __init__(self, dim: int, expansion_factor: int = 4, dropout: float = 0.0, **kw):
         super().__init__()
@@ -60,8 +69,11 @@ class ConvMLP(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.dropout.p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(self.fc2(self.dropout(gelu_exact(self.fc1(x)))))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        h = gelu_exact(self.fc1(split_input(x, self.shard)))
+        h = split_dropout(h, self.dropout, self.shard, generator, hidden=True)
+        return split_dropout(row_parallel_conv(self.fc2, h, self.shard), self.dropout, self.shard,
+                             generator)
 
 
 class ScalableSelfAttention(nn.Module):

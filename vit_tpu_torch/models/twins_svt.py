@@ -37,6 +37,13 @@ modules on the card.  The plain attention is ``vit_tpu``'s einsum form:
 f32 logits and softmax, the probabilities rounded to the compute dtype for
 P·V, an f32 sum rounded once.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+both attentions split by heads (``to_q`` by rows, ``to_kv`` by rows of each
+half, ``to_out`` by columns) and the conv-MLPs by hidden units; on the card
+the residuals run the split forms of the fused attention block, the fused
+cross-attention block and the fused MLP, the plain modules sum each
+row-split convolution's partial over the model group.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=`` (the parameter
 dtype), ``compute_dtype=`` (``vit_tpu``'s ``dtype``, the activations'),
 ``generator=`` and ``channels=`` (the image's, which Flax infers at init),
@@ -52,8 +59,9 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    PEG, ChannelLayerNorm, Conv, cast_to, check_fused_mode, fused_conv_mlp_residual,
-    glorot_linear_, kernel_activation, linear, windowed_attention_eligible,
+    COLUMN, KV, PEG, ROW, ChannelLayerNorm, Conv, cast_to, check_fused_mode,
+    fused_conv_mlp_residual, glorot_linear_, group_kw, is_split, kernel_activation, linear,
+    row_parallel_conv, split_dropout, split_input, windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import ConvMLP, _unwindows, _windows
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
@@ -95,7 +103,14 @@ class PatchEmbedding(nn.Module):
 class _Attention(nn.Module):
     """What the two attentions share: ``to_q`` (1x1) and ``to_kv`` (``kv_size``
     square, stride ``kv_size``) convolutions without bias, ``to_out`` a 1x1
-    convolution and its dropout."""
+    convolution and its dropout.  ``shard`` (a ``ModelShard``, set by
+    ``shard_params``) splits it by heads (``tp_cuts``: ``to_q``'s rows, each
+    half of ``to_kv``'s, ``to_out``'s columns); the map enters through ``f``
+    and ``to_out`` sums its partials over the model group.  ``generator``,
+    where given, draws the dropout (``split_dropout``)."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_kv.weight": KV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int, dim_head: int, dropout: float, kv_size: int, **kw):
         super().__init__()
@@ -116,6 +131,12 @@ class _Attention(nn.Module):
         k, v = kv.chunk(2, dim=-1)
         return _attention(q, k, v, self.heads, self.dim_head ** -0.5)
 
+    def project_out(self, out: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """``to_out`` over the attention's ``(b, h, w, inner)`` output; row
+        split where the attention is."""
+        return split_dropout(row_parallel_conv(self.to_out[0], out, self.shard), self.to_out[1],
+                             self.shard, generator)
+
 
 def _check_windows(h: int, w: int, p: int) -> None:
     if h % p or w % p:
@@ -131,12 +152,14 @@ class LocalAttention(_Attention):
         super().__init__(dim, heads, dim_head, dropout, 1, **kw)
         self.patch_size = patch_size
 
-    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, fmap: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = fmap.shape
         p = self.patch_size
         _check_windows(h, w, p)
+        fmap = split_input(fmap, self.shard)
         out = self.attend(*(_windows(t, p, p) for t in (self.to_q(fmap), self.to_kv(fmap))))
-        return self.to_out(_unwindows(out, b, h, w, p, p))
+        return self.project_out(_unwindows(out, b, h, w, p, p), generator)
 
 
 class GlobalAttention(_Attention):
@@ -148,54 +171,71 @@ class GlobalAttention(_Attention):
         super().__init__(dim, heads, dim_head, dropout, k, **kw)
         self.k = k
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = x.shape
+        x = split_input(x, self.shard)
         out = self.attend(self.to_q(x).flatten(1, 2), self.to_kv(x).flatten(1, 2))
-        return self.to_out(out.reshape(b, h, w, -1))
+        return self.project_out(out.reshape(b, h, w, -1), generator)
 
 
 def local_attention_residual(x: torch.Tensor, norm: ChannelLayerNorm, attn: LocalAttention,
-                             mode: str = "auto") -> torch.Tensor:
+                             mode: str = "auto",
+                             generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + attn(norm(x))``: with :func:`windowed_attention_eligible`'s gate,
     through the fused attention block over the windows folded into the batch,
     ``(b x y) (p1 p2) c``, in launches of at most :data:`MAX_WINDOW_GROUPS`
     groups (``vit_tpu``'s ``_fused_local_attention_residual``,
     ``twins_svt.py:69-106``); else the plain modules.  A map the window size
-    does not divide raises either way."""
+    does not divide raises either way.  A split ``attn`` takes the block's
+    split form: ``to_q``'s rows and ``to_kv``'s rows of each half make the
+    rank's packed q|k|v rows.  ``generator`` goes to the plain path's
+    dropout."""
     b, h, w, c = x.shape
     p = attn.patch_size
     _check_windows(h, w, p)
     if not windowed_attention_eligible(x, attn, mode):
-        return x + attn(norm(x))
+        return x + attn(norm(x), generator)
     out = attn.to_out[0]
     wqkv = torch.cat([cast_to(attn.to_q.weight, x).flatten(1),
                       cast_to(attn.to_kv.weight, x).flatten(1)])
     weights = (wqkv, cast_to(out.weight, x).flatten(1), cast_to(out.bias, x))
     y = torch.cat([fused_attention_block(xw, norm.g, norm.b, *weights, attn.heads,
-                                         attn.dim_head, attn.dim_head ** -0.5, norm.eps)
+                                         attn.dim_head, attn.dim_head ** -0.5, norm.eps,
+                                         **group_kw(attn))
                    for xw in _windows(x, p, p).split(MAX_WINDOW_GROUPS)])
     return _unwindows(y, b, h, w, p, p)
 
 
 def global_attention_residual(x: torch.Tensor, norm: ChannelLayerNorm, attn: GlobalAttention,
-                              mode: str = "auto") -> torch.Tensor:
+                              mode: str = "auto",
+                              generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + attn(norm(x))``: through the fused cross-attention kernels when
     ``mode`` is ``"auto"``, x is a 16-bit CUDA map, its height and width are
     multiples of k and dropout is inactive (``vit_tpu``'s
     ``_fused_global_attention_residual``, ``twins_svt.py:25-66``); else the
     plain modules.  xn is computed once; the strided k/v convolution runs on
-    it outside the kernel."""
+    it outside the kernel.  A split ``attn`` takes the block's split form
+    over its heads: ``f`` takes xn in f32 before both ``to_q`` (inside the
+    kernel) and ``to_kv``, so that the kernel's f32 partial dxn and the
+    convolution's share are summed, and summed over the model group, before
+    the one rounding to xn's dtype.  ``generator`` goes to the plain path's
+    dropout."""
     b, h, w, c = x.shape
     k = attn.k
     if mode != "auto" or not kernel_activation(x) or h % k or w % k or attn.dropout_active:
-        return x + attn(norm(x))
+        return x + attn(norm(x), generator)
     xn = norm(x)
+    xq = xn
+    if is_split(attn):
+        xq = split_input(xn.float(), attn.shard)  # f32: dxn's shares meet unrounded
+        xn = xq.to(x.dtype)
     keys, values = (t.contiguous() for t in attn.to_kv(xn).flatten(1, 2).chunk(2, dim=-1))
     out = attn.to_out[0]
     y = fused_cross_attention(
-        x.reshape(b, h * w, c).contiguous(), xn.reshape(b, h * w, c).contiguous(),
+        x.reshape(b, h * w, c).contiguous(), xq.reshape(b, h * w, c).contiguous(),
         cast_to(attn.to_q.weight, x).flatten(1), keys, values, cast_to(out.weight, x).flatten(1),
-        cast_to(out.bias, x), attn.heads, attn.dim_head, attn.dim_head, attn.dim_head ** -0.5)
+        cast_to(out.bias, x), attn.heads, attn.dim_head, attn.dim_head, attn.dim_head ** -0.5,
+        **group_kw(attn))
     return y.reshape(b, h, w, c)
 
 
@@ -234,15 +274,17 @@ class TwinsTransformer(nn.Module):
 
         self.layers = nn.ModuleList(block() for _ in range(depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for layer in self.layers:
             if self.has_local:
                 x = local_attention_residual(x, layer["local_norm"], layer["local_attn"],
-                                             self.fused_attention)
-                x = fused_conv_mlp_residual(x, layer["ff1_norm"], layer["ff1"], self.fused_mlp)
+                                             self.fused_attention, generator)
+                x = fused_conv_mlp_residual(x, layer["ff1_norm"], layer["ff1"], self.fused_mlp,
+                                            generator=generator)
             x = global_attention_residual(x, layer["global_norm"], layer["global_attn"],
-                                          self.fused_attention)
-            x = fused_conv_mlp_residual(x, layer["ff2_norm"], layer["ff2"], self.fused_mlp)
+                                          self.fused_attention, generator)
+            x = fused_conv_mlp_residual(x, layer["ff2_norm"], layer["ff2"], self.fused_mlp,
+                                        generator=generator)
         return x
 
 
@@ -285,9 +327,14 @@ class TwinsSVT(nn.Module):
         self.head = glorot_linear_(nn.Linear(dim, num_classes, device=kw["device"], dtype=dtype),
                                    generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``, where given, draws every dropout (a split model's
+        active dropout needs one: the ranks draw one mask)."""
         x = img.to(self.compute_dtype or self.head.weight.dtype)
         for prefix in STAGES:
-            for part in ("embed", "pre_transformer", "peg", "transformer"):
-                x = getattr(self, f"{prefix}_{part}")(x)
+            x = getattr(self, f"{prefix}_embed")(x)
+            x = getattr(self, f"{prefix}_pre_transformer")(x, generator)
+            x = getattr(self, f"{prefix}_peg")(x)
+            x = getattr(self, f"{prefix}_transformer")(x, generator)
         return linear(self.head, x.mean(dim=(1, 2)))

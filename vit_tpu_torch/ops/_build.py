@@ -161,6 +161,20 @@ SIGNATURES = {
         + [_I] * 7 + [_F, _I, _I, _P],
         ctypes.c_int,
     ),
+    # The cross-attention block's split form: xn, wq, k, v, wo, s (f32), q,
+    # oattn, lse (q and lse null when serving a shape of route 2),
+    "vit_fused_cross_attention_fwd_partial": (
+        [_P] * 9
+        # b, n, n_k, c, heads, dh_k, dh_v, scale, dtype, stream
+        + [_I] * 7 + [_F, _I, _P],
+        ctypes.c_int,
+    ),
+    # dy, q, k, v, oattn, lse, wq, wo, dxn (f32), dq, dk, dv, dbo, scratch;
+    # b, n, n_k, c, heads, dh_k, dh_v, scale, route asked for, dtype, stream.
+    "vit_fused_cross_attention_bwd_partial": (
+        [_P] * 14 + [_I] * 7 + [_F, _I, _I, _P],
+        ctypes.c_int,
+    ),
     "vit_short_attention_fwd": (
         # q, k, v, out, lse (or null), strides (q, k, v, out: batch, head, row),
         [_P] * 5 + [_LL]
@@ -222,6 +236,7 @@ SIGNATURES = {
     # The cross-attention forward's route at (b, n, n_k, c, heads, dh_k, dh_v):
     # 1 the one cross_fwd kernel, 2 cross_fwd and a GEMM for y, 0 three launches.
     "vit_fused_cross_attention_fused": ([_I] * 7, ctypes.c_int),
+    "vit_fused_cross_attention_partial_route": ([_I] * 7, ctypes.c_int),
     # The cross-attention backward's route at (b, n, n_k, c, heads, dh_k, dh_v)
     # given the route asked for (-1: the shape's own): 1 one cross_bwd kernel
     # and its reduction, 2 cross_bwd between two GEMMs, 0 four steps, -1 not

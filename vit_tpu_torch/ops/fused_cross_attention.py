@@ -52,6 +52,23 @@ f32 the plain versions are exact attention and its gradient.
 Layouts: x, xn ``(b, n, c)``; k ``(b, n_k, heads·dh_k)``; v ``(b, n_k,
 heads·dh_v)``; ``wq`` ``(heads·dh_k, c)`` and ``wo`` ``(c, heads·dh_v)`` in
 ``nn.Linear`` layout (``vit_tpu`` takes their transposes); ``bo`` ``(c,)``.
+
+Tensor parallelism (``group=``, the mesh's model group): each rank holds
+its heads' rows of Wq, columns of Wo and columns of the packed k and v
+(``heads`` the local count), and the split form
+(:func:`fused_cross_attention_partial_forward`,
+:func:`fused_cross_attention_partial_backward`; C's
+``vit_fused_cross_attention_{fwd,bwd}_partial``) stops at the reductions:
+the forward at the f32 partial ``s = oattn·Woᵀ``, which the ranks sum before
+:func:`~vit_tpu_torch.ops.tensor_parallel.bias_residual` ends the block
+(``T(x + T(Σ s + bo))``); the backward at the f32 partial ``dxn = dq·Wq``,
+which leaves the Function unrounded when xn is given in f32, so that the
+caller sums it with the k/v convolution's share and over the ranks before
+one rounding.  dk and dv are the rank's heads'; ``dbo`` comes from the
+whole dy.  ``vit_tpu`` has no counterpart: there GSPMD gathers the Pallas
+call's operands and keeps the unsharded numbers.  Plain versions:
+:func:`fused_cross_attention_partial_forward_reference`,
+:func:`fused_cross_attention_partial_backward_reference`.
 """
 
 from __future__ import annotations
@@ -69,6 +86,7 @@ from vit_tpu_torch.ops.flash_attention import SUPPORTED_WIDTHS
 from vit_tpu_torch.ops.flash_attention_packed import (
     flash_attention_packed_backward_reference, flash_attention_packed_forward_reference,
 )
+from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum, bias_residual
 
 
 def _scale(dh_k, scale):
@@ -213,11 +231,13 @@ def fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads: int, 
     return _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route)
 
 
-def _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route=None):
+def _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route=None,
+                     dxn=None):
     """``vit_fused_cross_attention_bwd`` on CUDA tensors, each passed as it
     lies (the kernels read q, k, v, oattn and dy channel-packed through
     their strides, Wq and Wo in nn.Linear layout), with the one scratch
-    buffer the library sizes for the route."""
+    buffer the library sizes for the route; given an f32 ``dxn``, the split
+    form's ``vit_fused_cross_attention_bwd_partial`` into it."""
     b, n, c = dy.shape
     n_k = k.shape[1]
     hk, hv = heads * dh_k, heads * dh_v
@@ -229,7 +249,10 @@ def _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, 
         raise ValueError(f"fused_cross_attention backward: lse must be a contiguous f32 "
                          f"({b}, {heads}, {n}) tensor on {dy.device}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    dxn, dq, dk, dv = (torch.empty_like(t) for t in (dy, q, k, v))
+    partial = dxn is not None
+    if not partial:
+        dxn = torch.empty_like(dy)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dbo = torch.empty(c, dtype=torch.float32, device=dy.device)
     lib = _build.load()
     shape = (b, n, n_k, c, heads, dh_k, dh_v, -1 if route is None else route)
@@ -244,18 +267,139 @@ def _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, 
             raise ValueError(f"fused_cross_attention backward: route {route} does not take "
                              f"{shape[:-1]}")
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dy.device)
-        err = lib.vit_fused_cross_attention_bwd(
+        entry = "vit_fused_cross_attention_bwd" + ("_partial" if partial else "")
+        err = getattr(lib, entry)(
             dy.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), oattn.data_ptr(),
             lse.data_ptr(), wq.data_ptr(), wo.data_ptr(), dxn.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dbo.data_ptr(), scratch.data_ptr(), *shape[:-1],
             float(scale), shape[-1], _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
-    _build.check(err, "vit_fused_cross_attention_bwd")
-    fused_cross_attention_backward.launches += 1
+    _build.check(err, entry)
+    if not partial:
+        fused_cross_attention_backward.launches += 1
     BACKWARD_ROUTES[taken].launches += 1
     return dxn, dq, dk, dv, dbo
 
 
 fused_cross_attention_backward.launches = 0
+
+
+def fused_cross_attention_partial_forward_reference(xn, wq, k, v, wo, heads: int, dh_k: int,
+                                                    dh_v: int, scale: float | None = None):
+    """Plain PyTorch version of the split form's forward: ``(s, q, oattn,
+    lse)``, ``s = oattn·Woᵀ`` in f32 (no bias, no residual) over this rank's
+    ``heads`` (``wq`` ``(heads·dh_k, c)``, ``wo`` ``(c, heads·dh_v)``, k and v
+    the rank's heads' columns), q, oattn and lse as
+    :func:`fused_cross_attention_forward_reference` gives them.  In f32 the
+    sum of the ranks' s plus bo and x is that function's y."""
+    q = F.linear(xn.float(), wq.float()).to(xn.dtype)
+    oattn, lse = flash_attention_packed_forward_reference(q, k, v, heads, _scale(dh_k, scale))
+    return F.linear(oattn.float(), wo.float()), q, oattn, lse
+
+
+def fused_cross_attention_partial_backward_reference(dy, q, k, v, oattn, lse, wq, wo,
+                                                     heads: int, dh_k: int, dh_v: int,
+                                                     scale: float | None = None,
+                                                     stored_output_d: bool = False):
+    """Plain PyTorch version of the split form's backward: ``(dxn, dq, dk,
+    dv, dbo)`` as :func:`fused_cross_attention_backward_reference` gives
+    them over this rank's heads, but ``dxn = dq·Wq`` in f32, unrounded (the
+    rank's partial); ``dbo`` the f32 sum of the whole dy."""
+    dt = dy.dtype
+    c = dy.shape[-1]
+    dy32 = dy.reshape(-1, c).float()
+    doattn = (dy32 @ wo.float()).to(dt).reshape(oattn.shape)
+    dq, dk, dv = flash_attention_packed_backward_reference(q, k, v, oattn, lse, doattn, heads,
+                                                           _scale(dh_k, scale),
+                                                           exact_dsum=not stored_output_d)
+    dxn = (dq.reshape(-1, q.shape[-1]).float() @ wq.float()).reshape(dy.shape)
+    return dxn, dq, dk, dv, dy32.sum(0)
+
+
+def fused_cross_attention_partial_forward(xn, wq, k, v, wo, heads: int, dh_k: int, dh_v: int,
+                                          scale: float | None = None, training: bool = False):
+    """The split form's forward: what
+    :func:`fused_cross_attention_partial_forward_reference` returns (q and
+    lse None when serving a shape ``cross_fwd`` takes).  A CPU tensor takes
+    the plain version; a CUDA tensor launches
+    ``vit_fused_cross_attention_fwd_partial`` or raises.
+    ``fused_cross_attention_partial_forward.launches`` counts kernel
+    launches."""
+    scale = _scale(dh_k, scale)
+    if xn.device.type == "cpu":
+        return fused_cross_attention_partial_forward_reference(xn, wq, k, v, wo, heads, dh_k,
+                                                               dh_v, scale)
+    b, n, c = xn.shape
+    n_k = k.shape[1]
+    hk, hv = heads * dh_k, heads * dh_v
+    _check("fused_cross_attention (split)", xn, n_k, heads, dh_k, dh_v, {
+        "wq": (wq, (hk, c)), "k": (k, (b, n_k, hk)), "v": (v, (b, n_k, hv)),
+        "wo": (wo, (c, hv))})
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=xn.device)
+    s = torch.empty((b, n, c), **f32)
+    oattn = torch.empty((b, n, hv), dtype=xn.dtype, device=xn.device)
+    q = lse = None
+    if training or lib.vit_fused_cross_attention_partial_route(b, n, n_k, c, heads, dh_k,
+                                                               dh_v) == 0:
+        q = torch.empty((b, n, hk), dtype=xn.dtype, device=xn.device)
+        lse = torch.empty((b, heads, n), **f32)
+    with torch.cuda.device(xn.device):
+        err = lib.vit_fused_cross_attention_fwd_partial(
+            xn.data_ptr(), wq.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),
+            s.data_ptr(), None if q is None else q.data_ptr(), oattn.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, n, n_k, c, heads, dh_k, dh_v,
+            float(scale), _build.DTYPE_CODES[xn.dtype], launch_stream(xn))
+    _build.check(err, "vit_fused_cross_attention_fwd_partial")
+    fused_cross_attention_partial_forward.launches += 1
+    return s, q, oattn, lse
+
+
+fused_cross_attention_partial_forward.launches = 0
+
+
+def partial_backward_route(b: int, n: int, n_k: int, c: int, heads: int, dh_k: int,
+                           dh_v: int) -> int:
+    """The split backward's route at a shape: 2 (``cross_bwd`` between the
+    doattn and dxn GEMMs) wherever :func:`backward_route` gives 1 or 2, else
+    0 (the four steps): route 1 rounds dxn inside its kernel.  The one place
+    this is decided: the C entry takes the route it is given and refuses
+    route 1."""
+    route = backward_route(b, n, n_k, c, heads, dh_k, dh_v)
+    return 2 if route == 1 else route
+
+
+def fused_cross_attention_partial_backward(dy, q, k, v, oattn, lse, wq, wo, heads: int,
+                                           dh_k: int, dh_v: int, scale: float | None = None):
+    """The split form's backward: what
+    :func:`fused_cross_attention_partial_backward_reference` returns (with
+    ``stored_output_d`` on route 0).  A CPU tensor takes the plain version;
+    a CUDA tensor launches ``vit_fused_cross_attention_bwd_partial`` on
+    :func:`partial_backward_route`'s route or raises.
+    ``fused_cross_attention_partial_backward.launches`` counts kernel
+    launches and ``BACKWARD_ROUTES[r]`` those on route r."""
+    scale = _scale(dh_k, scale)
+    if dy.device.type == "cpu":
+        return fused_cross_attention_partial_backward_reference(dy, q, k, v, oattn, lse, wq, wo,
+                                                                heads, dh_k, dh_v, scale)
+    b, n, c = dy.shape
+    n_k = k.shape[1]
+    route = partial_backward_route(b, n, n_k, c, heads, dh_k, dh_v)
+    dxn = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
+    outs = _launch_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh_k, dh_v, scale, route,
+                            dxn=dxn)
+    fused_cross_attention_partial_backward.launches += 1
+    return outs
+
+
+fused_cross_attention_partial_backward.launches = 0
+
+
+def _split_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale, group, training):
+    """A split block's forward: the partial, its sum over ``group``, the
+    pass; ``(y, q, oattn, lse)``."""
+    s, q, oattn, lse = fused_cross_attention_partial_forward(xn, wq, k, v, wo, heads, dh_k, dh_v,
+                                                             scale, training)
+    return bias_residual(all_reduce_sum(s, group), bo, x), q, oattn, lse
 
 
 class FusedCrossAttentionFunction(torch.autograd.Function):
@@ -264,19 +408,29 @@ class FusedCrossAttentionFunction(torch.autograd.Function):
     kernels, then the weight gradients ``dWq = dqᵀ·xn`` and ``dWo =
     dyᵀ·oattn`` as plain GEMMs with f32 accumulation, rounded to the
     weights' dtype, as JAX left them to XLA.  ``dx`` is ``dy`` (the
-    residual); dk and dv flow back to whatever made k and v."""
+    residual); dk and dv flow back to whatever made k and v.  With
+    ``group`` (the model group of a split block) the forward is the split
+    form, its partial summed over the group, then the pass; the backward the
+    split backward, its dxn the rank's f32 partial (in xn's dtype: f32 where
+    xn is given in f32, which the kernels read rounded to x's dtype); the
+    weight gradients stay this rank's."""
 
     @staticmethod
-    def forward(ctx, x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale):
-        if x.device.type == "cpu":
+    def forward(ctx, x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale, group=None):
+        xc = xn.to(x.dtype)
+        if group is not None:
+            y, q, oattn, lse = _split_forward(x, xc, wq, k, v, wo, bo, heads, dh_k, dh_v, scale,
+                                              group, training=True)
+        elif x.device.type == "cpu":
             y, q, oattn, lse = fused_cross_attention_forward_reference(
-                x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
+                x, xc, wq, k, v, wo, bo, heads, dh_k, dh_v, scale)
         else:
-            y, q, oattn, lse = _launch_forward(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, scale,
+            y, q, oattn, lse = _launch_forward(x, xc, wq, k, v, wo, bo, heads, dh_k, dh_v, scale,
                                                training=True)
-        ctx.save_for_backward(xn, q, k, v, oattn, lse, wq, wo)
+        ctx.save_for_backward(xc, q, k, v, oattn, lse, wq, wo)
         ctx.config = (heads, dh_k, dh_v, scale)
-        ctx.bo_dtype = bo.dtype
+        ctx.group = group
+        ctx.dtypes = (xn.dtype, bo.dtype)
         return y
 
     @staticmethod
@@ -284,14 +438,16 @@ class FusedCrossAttentionFunction(torch.autograd.Function):
     def backward(ctx, dy):
         xn, q, k, v, oattn, lse, wq, wo = ctx.saved_tensors
         dy = dy.contiguous()
-        dxn, dq, dk, dv, dbo = fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo,
-                                                              *ctx.config)
-        return (dy, dxn, weight_grad(dq, xn), dk, dv, weight_grad(dy, oattn),
-                dbo.to(ctx.bo_dtype), None, None, None, None)
+        backward = fused_cross_attention_backward if ctx.group is None \
+            else fused_cross_attention_partial_backward
+        dxn, dq, dk, dv, dbo = backward(dy, q, k, v, oattn, lse, wq, wo, *ctx.config)
+        xn_dtype, bo_dtype = ctx.dtypes
+        return (dy, dxn.to(xn_dtype), weight_grad(dq, xn), dk, dv, weight_grad(dy, oattn),
+                dbo.to(bo_dtype), None, None, None, None, None)
 
 
 def fused_cross_attention(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: int,
-                          scale: float | None = None):
+                          scale: float | None = None, group=None):
     """``x + (softmax((xn·Wqᵀ)·kᵀ·scale)·v)·Woᵀ + bo`` per head, with
     precomputed k and v; ``scale`` defaults to ``dh_k ** -0.5``.
 
@@ -301,11 +457,20 @@ def fused_cross_attention(x, xn, wq, k, v, wo, bo, heads: int, dh_k: int, dh_v: 
     takes the plain version and a CUDA tensor launches the serving forward,
     which returns y alone.  On CUDA it launches or raises.
     ``fused_cross_attention.launches`` counts forward kernel launches.
+
+    ``group``: the model group of a split block (tensor parallelism), whose
+    ``wq``, ``wo``, k, v and ``heads`` are this rank's (module docstring);
+    the call runs the split form on either device, its launches counted on
+    ``fused_cross_attention_partial_forward.launches``.  There xn may be
+    given in f32: its gradient is then the rank's f32 partial, unrounded.
     """
     scale = _scale(dh_k, scale)
     if needs_grad(x, xn, wq, k, v, wo, bo):
         return FusedCrossAttentionFunction.apply(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v,
-                                                 scale)
+                                                 scale, group)
+    if group is not None:
+        return _split_forward(x, xn.to(x.dtype), wq, k, v, wo, bo, heads, dh_k, dh_v, scale,
+                              group, training=False)[0]
     return fused_cross_attention_op(x, xn, wq, k, v, wo, bo, heads, dh_k, dh_v, float(scale))
 
 

@@ -1,6 +1,6 @@
 """Parameter placements for tensor parallelism (port of
-``vit_tpu/parallel/sharding.py``) and the split of the port's transformer
-layers over the mesh's ``model`` axis.
+``vit_tpu/parallel/sharding.py``) and the split of the port's attentions
+and MLPs over the mesh's ``model`` axis.
 
 The rule table is ``vit_tpu``'s, on the port's parameter names: the
 attention's inner projections and the MLP's hidden width shard over the
@@ -20,15 +20,51 @@ replicates (its grouped kernel has no contraction to split).
 
 In ``vit_tpu`` tensor parallelism is a placement: GSPMD keeps the unsharded
 program's numbers and gathers the operands around each Pallas call.  Here
-:func:`shard_params` splits the model in place, one slice a rank:
-``layers/common.py``'s ``Attention`` and ``MLP`` inside a ``Transformer``
-keep their rank's heads and hidden units (:class:`~vit_tpu_torch.layers.
-common.ModelShard`), and their blocks run split forms whose partial sums the
-ranks add up (``vit_tpu_torch/ops/tensor_parallel.py``).  The packed
-``to_qkv``'s ``Shard(0)`` is taken by heads in each of q, k and v, not over
-the packed width.  Whatever else the rule table would shard raises
-``NotImplementedError`` naming the module; nothing falls through to
-replication.
+:func:`shard_params` splits the model in place, one slice a rank, each
+split module keeping its rank's heads or hidden units and a
+:class:`~vit_tpu_torch.layers.common.ModelShard` (``.shard``), its forward
+summing partials over the model group (``vit_tpu_torch/ops/
+tensor_parallel.py``; the kernels' split forms on the card).  What it
+splits:
+
+- ``layers/common.py``'s ``Attention`` and ``MLP`` inside a ``Transformer``
+  (the ViT family): ``to_qkv`` cut by heads in each of q, k and v
+  (:data:`QKV`), ``to_out``'s columns, ``fc1``'s rows and bias, ``fc2``'s
+  columns;
+- Twins-SVT's ``LocalAttention`` and ``GlobalAttention`` (``to_q`` by rows,
+  ``to_kv`` by rows of each half, :data:`KV`; ``to_out``'s columns) and its
+  conv-MLPs;
+- CvT's ``CvTAttention`` (the ``pointwise`` halves of ``to_q`` and ``to_kv``,
+  ``to_out``'s columns; the depthwise convolutions and their BatchNorms run
+  whole) and its ``mlp_fc1`` / ``mlp_fc2``;
+- LeViT's ``LeViTAttention`` (``to_q``, ``to_k``, ``to_v`` by rows with
+  their BatchNorms' channels, ``pos_bias`` by heads, ``to_out``'s columns;
+  ``to_out_bn`` whole) and ``LeViTMLP``;
+- MobileViT's ``MobileViTAttention`` (as ``Attention``) and its blocks'
+  ``mlp_fc1_{i}`` / ``mlp_fc2_{i}``.
+
+The conv hybrids' modules declare their cuts themselves (``tp_cuts``, beside
+``shard``); a ``Transformer``'s layers take :data:`_TRANSFORMER_CUTS`.
+Their dropout, split or whole, draws from the model forward's
+``generator``, one seed on every rank of a model group, where the model is
+split: an active dropout without one raises.
+
+LeViT's ``pos_bias`` columns and its q, k and v BatchNorms' channels
+(scale, bias and running statistics) are split with their heads, beyond
+the rule table, which replicates them in ``vit_tpu``: each head reads only
+its own, so the numbers are the same.  An attention of these four models
+whose heads the axis does not divide (CvT-13's stages 1-2 at tp 2, a
+three-head LeViT stage) runs whole on every rank: its parameters stay
+unsplit, it needs no collective (its ``shard`` is ``layers.common.WHOLE``),
+and the plan lists it under ``whole``.
+``vit_tpu`` splits such a layer inside a head and GSPMD sums the partial
+logits: the same numbers.  The plan's ``kinds`` name every split parameter
+and buffer with its cut (:data:`COLUMN`, :data:`ROW`, :data:`QKV`,
+:data:`KV`), so a checkpoint gathers them whole.  A ``Transformer``'s
+attention whose heads do not divide still raises, as does whatever else the
+rule table would shard (ScalableViT, CrossFormer, RegionViT, NesT, PiT's
+pools, the small-dataset ViT, the hybrid tier): ``NotImplementedError``
+naming the module; nothing falls through to replication.
 
     mesh = make_mesh((dp, tp))
     shard_params(mesh, model)           # in place, before the optimizer is built
@@ -38,22 +74,21 @@ replication.
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
 
-from vit_tpu_torch.layers.common import ModelShard, Transformer
+from vit_tpu_torch.layers.common import (
+    COLUMN, KV, QKV, ROW, WHOLE, Attention, ModelShard, Transformer,
+)
 from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum
 from vit_tpu_torch.parallel.mesh import MODEL_AXIS, model_group, model_rank, model_size
 
 _COLUMN = ("to_qkv", "to_q", "to_kv", "to_v", "fc1")
 _ROW = ("to_out", "fc2")
 _INDEX_SUFFIX = re.compile(r"(_\d+)+$")
-
-# How shard_params splits a parameter (and a checkpoint gathers it): by rows
-# (dim 0), by columns (dim 1), or by rows in each third of a packed q|k|v.
-COLUMN, ROW, QKV = "column", "row", "qkv"
+_PACKED = {QKV: 3, KV: 2}
 
 
 def _normalize(name: str) -> str:
@@ -101,11 +136,22 @@ def param_shardings(mesh, model: nn.Module) -> dict:
     """``{name: placements}``: each parameter's placement on every axis of
     ``mesh`` in order (``Replicate()`` on all but the ``model`` axis), as
     ``DTensor`` takes them; ``(Replicate(),)`` each without a mesh."""
+    return _over_axes(mesh, param_specs(model))
+
+
+def plan_shardings(mesh, model: nn.Module) -> dict:
+    """:func:`param_shardings` of :func:`plan_specs`: every parameter's and
+    buffer's placements over ``mesh``'s axes as ``model`` lies (a split
+    model's by its plan, the BatchNorm buffers it splits included)."""
+    return _over_axes(mesh, plan_specs(model))
+
+
+def _over_axes(mesh, specs: dict) -> dict:
     from torch.distributed.tensor import Replicate
 
     names = mesh.mesh_dim_names if mesh is not None else ("",)
     return {name: tuple(spec if axis == MODEL_AXIS else Replicate() for axis in names)
-            for name, spec in param_specs(model).items()}
+            for name, spec in specs.items()}
 
 
 def _views(full: torch.Tensor, kind: str, rank: int, size: int) -> tuple[list, int]:
@@ -117,14 +163,16 @@ def _views(full: torch.Tensor, kind: str, rank: int, size: int) -> tuple[list, i
     if kind == COLUMN:
         width = full.shape[0] // size
         return [full[rank * width:(rank + 1) * width]], 0
-    third = full.shape[0] // 3
-    width = third // size
-    return [full[j * third + rank * width:j * third + (rank + 1) * width] for j in range(3)], 0
+    part = full.shape[0] // _PACKED[kind]
+    width = part // size
+    return [full[j * part + rank * width:j * part + (rank + 1) * width]
+            for j in range(_PACKED[kind])], 0
 
 
 def shard_tensor(full: torch.Tensor, kind: str, rank: int, size: int) -> torch.Tensor:
     """Rank ``rank``'s slice of the whole tensor ``full`` (a copy):
-    :data:`COLUMN` rows, :data:`ROW` columns, :data:`QKV` rows of each third."""
+    :data:`COLUMN` rows, :data:`ROW` columns, :data:`QKV` / :data:`KV` rows
+    of each third / half."""
     views, dim = _views(full, kind, rank, size)
     return torch.cat(views, dim)
 
@@ -146,12 +194,15 @@ def gather_tensor(local: torch.Tensor, kind: str, shard: ModelShard) -> torch.Te
 @dataclass
 class TensorParallelPlan:
     """What :func:`shard_params` did to a model: the mesh, this rank's
-    :class:`~vit_tpu_torch.layers.common.ModelShard` and how each split
-    parameter was cut (``{name: COLUMN | ROW | QKV}``)."""
+    :class:`~vit_tpu_torch.layers.common.ModelShard`, how each split
+    parameter and buffer was cut (``{name: COLUMN | ROW | QKV | KV}``) and
+    the attentions that run whole on every rank (their heads do not divide
+    over the axis)."""
 
     mesh: object
     shard: ModelShard
     kinds: dict
+    whole: list = field(default_factory=list)
 
 
 def tensor_parallel_plan(model: nn.Module) -> TensorParallelPlan | None:
@@ -159,109 +210,174 @@ def tensor_parallel_plan(model: nn.Module) -> TensorParallelPlan | None:
     return getattr(model, "tensor_parallel", None)
 
 
-def _split_layers(model: nn.Module):
-    """``(transformers, attentions, mlps)``: the ``Transformer`` stacks of
-    ``model`` by name, and each of their layers' ``Attention`` and ``MLP`` by
-    the prefix of its parameters."""
-    transformers, attentions, mlps = {}, {}, {}
-    for tname, t in model.named_modules():
-        if isinstance(t, Transformer):
-            transformers[tname] = t
-            for i, layer in enumerate(t.layers):
-                prefix = ".".join(filter(None, (tname, "layers", str(i))))
-                attentions[f"{prefix}.attn"] = layer["attn"]
-                mlps[f"{prefix}.mlp"] = layer["mlp"]
-    return transformers, attentions, mlps
+def plan_specs(model: nn.Module) -> dict:
+    """``{name: placement}`` on the ``model`` axis for every parameter and
+    buffer of ``model`` as it lies: a split model's by its plan (``Shard(0)``
+    for rows, :data:`QKV` and :data:`KV` cuts, ``Shard(1)`` for columns,
+    ``Replicate()`` for the rest, the whole attentions included); an unsplit
+    model's parameters by the rule table and its buffers replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    plan = tensor_parallel_plan(model)
+    if plan is None or plan.shard.size == 1:
+        specs = param_specs(model)
+        return {**{name: Replicate() for name, _ in model.named_buffers()}, **specs}
+    return {name: Shard(1) if plan.kinds.get(name) == ROW else
+            Shard(0) if name in plan.kinds else Replicate()
+            for name, _ in [*model.named_parameters(), *model.named_buffers()]}
 
 
-def _refuse(model, size, transformers, attentions, mlps) -> None:
+@dataclass
+class _Unit:
+    """One module the model axis splits: its path, the module, its cuts
+    (``{local name: kind}``, parameters and buffers), an attention's heads
+    (None for an MLP), whether it sits in a ``Transformer`` stack, and the
+    multiple a rank's hidden width must be (8 where the fused MLP runs it)."""
+
+    path: str
+    module: nn.Module
+    cuts: dict
+    heads: int | None = None
+    in_stack: bool = False
+    multiple: int = 1
+
+
+_TRANSFORMER_CUTS = {"attn": {"to_qkv.weight": QKV, "to_out.0.weight": ROW},
+                     "mlp": {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}}
+
+
+def _join(*parts) -> str:
+    return ".".join(p for p in parts if p)
+
+
+def _units(model: nn.Module) -> tuple[list, dict]:
+    """``(units, transformers)``: every module :func:`shard_params` splits,
+    in order, and the ``Transformer`` stacks by name.  A ``Transformer``'s
+    layers split by :data:`_TRANSFORMER_CUTS`; any other module that
+    declares ``tp_cuts`` (``{local name: kind}``) by those, by heads where
+    it has ``heads``, its hidden width a multiple of its ``tp_multiple``."""
+    units, transformers = [], {}
+    for path, m in model.named_modules():
+        if isinstance(m, Transformer):
+            transformers[path] = m
+            for i, layer in enumerate(m.layers):
+                prefix = _join(path, "layers", str(i))
+                units.append(_Unit(f"{prefix}.attn", layer["attn"], _TRANSFORMER_CUTS["attn"],
+                                   layer["attn"].heads, in_stack=True))
+                units.append(_Unit(f"{prefix}.mlp", layer["mlp"], _TRANSFORMER_CUTS["mlp"],
+                                   multiple=8))
+        elif getattr(m, "tp_cuts", None):
+            units.append(_Unit(path, m, m.tp_cuts, getattr(m, "heads", None),
+                               multiple=getattr(m, "tp_multiple", 1)))
+    return units, transformers
+
+
+def _refuse(model, size, units, transformers) -> None:
     """``NotImplementedError`` naming the first module the rule table would
     shard that this port cannot run split over ``size`` ranks."""
     from torch.distributed.tensor import Shard
 
-    split = tuple(f"{p}." for p in (*attentions, *mlps))
+    covered = tuple(f"{u.path}." for u in units)
     for name, spec in param_specs(model).items():
-        if isinstance(spec, Shard) and not name.startswith(split):
+        if isinstance(spec, Shard) and not name.startswith(covered):
             owner = name.rsplit(".", 1)[0]
             raise NotImplementedError(
                 f"shard_params: {owner} ({type(model.get_submodule(owner)).__name__}) is split "
                 f"over the '{MODEL_AXIS}' axis by the rule table, and the port runs split only "
-                f"layers/common.py's Attention and MLP inside a Transformer")
+                f"layers/common.py's Attention and MLP inside a Transformer and the attentions "
+                f"and MLPs of Twins-SVT, CvT, LeViT and MobileViT")
     for tname, t in transformers.items():
         if t.fused_attention == "hybrid":
             raise NotImplementedError(
                 f"shard_params: {tname or 'the Transformer'} takes the short-sequence tier "
                 f"(fused_attention='hybrid': ln_gemm, attention_nb, proj_mlp), which has no "
                 f"split form yet")
-    for path, attn in attentions.items():
-        if not attn.project_out:
-            raise NotImplementedError(f"shard_params: {path} has no output projection to "
+    for u in units:
+        if isinstance(u.module, Attention) and not u.module.project_out:
+            raise NotImplementedError(f"shard_params: {u.path} has no output projection to "
                                       f"split by rows (heads 1, dim_head == dim)")
-        if attn.heads % size:
-            raise NotImplementedError(f"shard_params: {path} has {attn.heads} heads, which "
+        if u.in_stack and u.heads % size:
+            raise NotImplementedError(f"shard_params: {u.path} has {u.heads} heads, which "
                                       f"{size} ranks do not divide")
-    for path, mlp in mlps.items():
-        hidden = mlp.fc1.out_features
-        if hidden % size or hidden // size % 8:
-            raise NotImplementedError(f"shard_params: {path}'s hidden width {hidden} does not "
-                                      f"split over {size} ranks into multiples of 8")
+        if u.heads is not None:
+            continue
+        for name, kind in u.cuts.items():
+            if kind == COLUMN and name.endswith("weight"):
+                hidden = u.module.get_parameter(name).shape[0]
+                if hidden % size or hidden // size % u.multiple:
+                    raise NotImplementedError(
+                        f"shard_params: {_join(u.path, name.rsplit('.', 1)[0])}'s hidden width "
+                        f"{hidden} does not split over {size} ranks"
+                        + (f" into multiples of {u.multiple}" if u.multiple > 1 else ""))
 
 
 def _replace(module: nn.Module, name: str, kind: str, shard: ModelShard) -> None:
-    old = getattr(module, name)
-    setattr(module, name, nn.Parameter(shard_tensor(old.detach(), kind, shard.rank, shard.size),
-                                       requires_grad=old.requires_grad))
+    """Swap the parameter or buffer ``name`` of ``module`` for this rank's
+    slice of it."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name) if owner_name else module
+    old = getattr(owner, leaf)
+    local = shard_tensor(old.detach(), kind, shard.rank, shard.size)
+    if isinstance(old, nn.Parameter):
+        setattr(owner, leaf, nn.Parameter(local, requires_grad=old.requires_grad))
+    else:
+        owner.register_buffer(leaf, local)
+
+
+def _split(u: _Unit, shard: ModelShard) -> None:
+    """Cut ``u``'s parameters and buffers and record the shard on the
+    module, whose forward reads it."""
+    for name, kind in u.cuts.items():
+        _replace(u.module, name, kind, shard)
+    u.module.shard = shard
+    if u.heads is not None:
+        u.module.heads //= shard.size
+    for m in u.module.modules():  # the nn.Linear widths the repr shows
+        if isinstance(m, nn.Linear):
+            m.out_features, m.in_features = m.weight.shape
 
 
 def shard_params(mesh, model: nn.Module) -> nn.Module:
     """Split ``model`` over ``mesh``'s ``model`` axis in place and return it:
-    every ``Transformer`` layer's ``Attention`` keeps this rank's heads (the
-    rows of each of q, k and v in ``to_qkv``, the columns of ``to_out``;
-    ``heads`` becomes the local count), its ``MLP`` this rank's hidden units
-    (``fc1``'s rows and bias, ``fc2``'s columns); both record the
+    each attention keeps this rank's heads (``heads`` becomes the local
+    count) and each MLP its hidden units, as the module docstring lists
+    them; each records the
     :class:`~vit_tpu_torch.layers.common.ModelShard`, and ``model`` the
-    :class:`TensorParallelPlan` (``model.tensor_parallel``).  First the
-    model group's first rank's parameters and buffers are broadcast, so the
-    ranks split one model.  Call it before the optimizer is built: the split
-    parameters are new tensors.
+    :class:`TensorParallelPlan` (``model.tensor_parallel``).  An attention
+    of Twins-SVT, CvT, LeViT or MobileViT whose heads the axis does not
+    divide stays whole (``plan.whole``).  First the model group's first
+    rank's parameters and buffers are broadcast, so the ranks split one
+    model.  Call it before the optimizer is built: the split parameters are
+    new tensors.
 
     Raises ``NotImplementedError``, naming the module, where the rule table
-    would shard a parameter outside those layers (another attention or MLP,
-    a convolution), on the hybrid tier (``fused_attention="hybrid"``), on an
-    attention without an output projection, where the heads or the hidden
-    width (in multiples of 8) do not divide over the axis.  Without a mesh
-    it returns ``model`` as it is; over a ``model`` axis of 1 it splits
-    nothing and records the plan."""
+    would shard a parameter outside those modules (another attention or
+    MLP, a convolution), on the hybrid tier (``fused_attention="hybrid"``),
+    on a ``Transformer``'s attention without an output projection or whose
+    heads do not divide over the axis, or where a hidden width does not (in
+    multiples of 8 where the fused MLP may run).  Without a mesh it returns
+    ``model`` as it is; over a ``model`` axis of 1 it splits nothing and
+    records the plan."""
     if mesh is None:
         return model
     if tensor_parallel_plan(model) is not None:
         raise ValueError("shard_params: the model is split already")
     size = model_size(mesh)
     shard = ModelShard(model_group(mesh), model_rank(mesh), size)
-    kinds = {}
+    kinds, whole = {}, []
     if size > 1:
         from vit_tpu_torch.parallel.train import broadcast_state
 
-        transformers, attentions, mlps = _split_layers(model)
-        _refuse(model, size, transformers, attentions, mlps)
+        units, transformers = _units(model)
+        _refuse(model, size, units, transformers)
         broadcast_state(model, shard.group)
         with torch.no_grad():
-            for path, attn in attentions.items():
-                _replace(attn.to_qkv, "weight", QKV, shard)
-                _replace(attn.to_out[0], "weight", ROW, shard)
-                kinds.update({f"{path}.to_qkv.weight": QKV, f"{path}.to_out.0.weight": ROW})
-                attn.heads //= size
-                attn.to_qkv.out_features //= size
-                attn.to_out[0].in_features //= size
-                attn.shard = shard
-            for path, mlp in mlps.items():
-                for name, kind in (("fc1.weight", COLUMN), ("fc1.bias", COLUMN),
-                                   ("fc2.weight", ROW)):
-                    layer, leaf = name.split(".")
-                    _replace(getattr(mlp, layer), leaf, kind, shard)
-                    kinds[f"{path}.{name}"] = kind
-                mlp.fc1.out_features //= size
-                mlp.fc2.in_features //= size
-                mlp.shard = shard
-    model.tensor_parallel = TensorParallelPlan(mesh, shard, kinds)
+            for u in units:
+                if u.heads is not None and u.heads % size:
+                    u.module.shard = WHOLE  # its dropout draws from the generator
+                    whole.append(u.path)
+                    continue
+                _split(u, shard)
+                kinds.update({_join(u.path, name): kind for name, kind in u.cuts.items()})
+    model.tensor_parallel = TensorParallelPlan(mesh, shard, kinds, whole)
     return model

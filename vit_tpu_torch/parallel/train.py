@@ -95,15 +95,18 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Tr
 def state_shardings(mesh, state: TrainState) -> dict:
     """The placements of a :class:`TrainState` over ``mesh``'s axes
     (``vit_tpu``'s ``state_shardings``): ``{"step", "params", "opt_state"}``,
-    the parameters by the rule table
-    (:func:`~vit_tpu_torch.parallel.sharding.param_shardings`), each
-    optimizer state tensor as its parameter (``{index: {key: placements}}``
-    in the optimizer's parameter order; a scalar, as Adam's ``step``,
-    replicated), the step replicated."""
-    from vit_tpu_torch.parallel.sharding import param_shardings
+    the parameters as the model lies
+    (:func:`~vit_tpu_torch.parallel.sharding.plan_shardings`: a split
+    model's by its plan, which follows the rule table and also splits what
+    the heads own; an unsplit one's by the rule table), each optimizer state
+    tensor as its parameter (``{index: {key: placements}}`` in the
+    optimizer's parameter order; a scalar, as Adam's ``step``, replicated),
+    the step replicated."""
+    from vit_tpu_torch.parallel.sharding import plan_shardings
 
     rep = replicated(mesh) * (len(mesh.mesh_dim_names) if mesh is not None else 1)
-    params = param_shardings(mesh, state.model)
+    placed = plan_shardings(mesh, state.model)
+    params = {name: placed[name] for name, _ in state.model.named_parameters()}
     names = {id(p): n for n, p in state.model.named_parameters()}
     opt_state = {}
     for i, p in enumerate(_optimizer_params(state.optimizer)):
@@ -115,10 +118,14 @@ def state_shardings(mesh, state: TrainState) -> dict:
 
 def bn_state_shardings(mesh, state: TrainState) -> dict:
     """:func:`state_shardings` with ``model_state``: every buffer (BatchNorm's
-    running statistics) replicated (``vit_tpu``'s ``bn_state_shardings``)."""
-    rep = replicated(mesh) * (len(mesh.mesh_dim_names) if mesh is not None else 1)
+    running statistics) replicated, as ``vit_tpu``'s ``bn_state_shardings``
+    places them, but for those a split model's plan splits with their heads
+    (LeViT's q, k and v BatchNorms)."""
+    from vit_tpu_torch.parallel.sharding import plan_shardings
+
+    placed = plan_shardings(mesh, state.model)
     return {**state_shardings(mesh, state),
-            "model_state": {name: rep for name, _ in state.model.named_buffers()}}
+            "model_state": {name: placed[name] for name, _ in state.model.named_buffers()}}
 
 
 def _check_split(model: nn.Module, mesh) -> None:
