@@ -342,7 +342,15 @@ Phases, one line each (any failure raises and exits non-zero):
    forward and backward against the plain versions, twice bit for bit, the
    two ranks emulated against the unsplit kernels, timed beside F.linear +
    SDPA + F.linear at 4 heads and :func:`tp_cross_bounds`; and rows 1-4's
-   split forms at Twins-SVT's stage-1 local attention and conv-MLP.
+   split forms at Twins-SVT's stage-1 local attention and conv-MLP.  Then
+   (:func:`tp_biased_kernel_phase`) row 5's split form at rank 0's slice of
+   the small-dataset ViT@256's block (LSA's mask), CrossFormer@224's
+   stage-1 short windows (the shared table, dbias) and RegionViT@224's
+   stage-1 joint rows (the per-head table, dbias): forward and backward
+   against the plain versions, twice bit for bit, the two ranks emulated
+   against the unsplit row 5 (y, dxn, dx, sums, dbias), timed beside
+   F.layer_norm + F.linear + SDPA(attn_mask) + F.linear at the local heads,
+   the unsplit kernel and :func:`tp_bounds`.
 34. tensor-parallel (:func:`tp_path_phase`, after phase 30): ViT-B/32
    split over a (1, 2) mesh, two processes on the one card over gloo, from
    the bare step's weights: serving 3 x 128 images and 3 training steps,
@@ -357,7 +365,13 @@ Phases, one line each (any failure raises and exits non-zero):
    and trains 2 steps (batch 64 for Twins-SVT, 16 for the others), the
    ranks' logits and losses bit for bit, the logits by the serving check,
    the first loss against the one-process path's, the gathered step-1
-   gradients against the plain bf16 path's error.
+   gradients against the plain bf16 path's error.  Then (the same phase over
+   TP_BIASED, one more spawn) the small-dataset ViT@256, CrossFormer@224,
+   RegionViT@224 and NesT@224 on the kernel route (row 5's split form at
+   their biased blocks, rows 3-4's and 1-2's at the others, NesT's
+   three-head hierarchy whole, the unsplit row 5 never), each serving 64
+   images and training 2 steps at batch 16, held as above, LSA's
+   temperatures by their terms.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
@@ -367,8 +381,8 @@ CrossFormer, RegionViT, NesT, PiT, LeViT, MobileViT, DeepViT, the patch
 merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
 training); the blocks past 512 tokens; the data-parallel B/32 step; the
 exported programs' forwards; the tensor-parallel path, its ranks'
-serving and training runs of B/32, Twins-SVT, CvT-13, LeViT and MobileViT,
-each from 0)
+serving and training runs of B/32, Twins-SVT, CvT-13, LeViT, MobileViT,
+the small-dataset ViT, CrossFormer, RegionViT and NesT, each from 0)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
@@ -4762,6 +4776,10 @@ TP_SOURCES = {
                                         "vit_tpu/ops/fused_attention_block.py:169"),
     "fused_mlp_split": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:147"),
     "fused_mlp_split_bwd": ("vit_tpu_torch/csrc/fused_mlp.cu", "vit_tpu/ops/fused_mlp.py:177"),
+    "fused_attention_block_bias_split": ("vit_tpu_torch/csrc/fused_attention_block.cu",
+                                         "vit_tpu/ops/fused_attention_block.py:515"),
+    "fused_attention_block_bias_split_bwd": ("vit_tpu_torch/csrc/fused_attention_block.cu",
+                                             "vit_tpu/ops/fused_attention_block.py:545"),
     "fused_cross_attention_split": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
                                     "vit_tpu/ops/fused_cross_attention.py:212"),
     "fused_cross_attention_split_bwd": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
@@ -4786,6 +4804,7 @@ def counter_objects():
     from vit_tpu_torch.ops.fused_attention_block import (
         BACKWARD_ROUTES, FORWARD_ROUTES, fused_attention_block, fused_attention_block_backward,
         fused_attention_block_bias, fused_attention_block_bias_backward,
+        fused_attention_block_bias_partial_backward, fused_attention_block_bias_partial_forward,
         fused_attention_block_partial_backward, fused_attention_block_partial_forward,
     )
     from vit_tpu_torch.ops.fused_cross_attention import (
@@ -4835,6 +4854,10 @@ def counter_objects():
             "fused_attention_block_split_bwd": fused_attention_block_partial_backward,
             "fused_mlp_split": fused_mlp_partial_forward,
             "fused_mlp_split_bwd": fused_mlp_partial_backward,
+            # row 5's split form (the small-dataset ViT's, CrossFormer's and
+            # RegionViT's biased blocks; the tensor-parallel path alone)
+            "fused_attention_block_bias_split": fused_attention_block_bias_partial_forward,
+            "fused_attention_block_bias_split_bwd": fused_attention_block_bias_partial_backward,
             # row 6's split form (Twins-SVT's global attentions; its backward
             # also counts on "cross backward, split", the route it takes)
             "fused_cross_attention_split": fused_cross_attention_partial_forward,
@@ -4842,21 +4865,30 @@ def counter_objects():
             "bias_residual": tp.bias_residual, "ln_bwd": tp.ln_backward}
 
 
-def tp_bounds(b, n, d, heads, dim_head, hidden):
+def tp_bounds(b, n, d, heads, dim_head, hidden, hb=0, dbias=False):
     """Bounds of the split forms at one rank's shape (``heads`` and
     ``hidden`` the local counts; bf16 activations and weights, f32 partial
-    sums), each input read once and each output written once."""
+    sums), each input read once and each output written once.  Row 5's
+    split form reads an f32 ``(hb, n, n)`` logits bias besides (hb 1 for a
+    shared table, read once; the local heads for a per-head one), and its
+    backward writes dbias of that shape when ``dbias``; the bias adds and
+    dbias's sums are not tensor-core work."""
     rows, inner = b * n, heads * dim_head
     attn = 2 * b * heads * n * n * dim_head
     act, acc = rows * d * 2, rows * d * 4  # one (rows, d) bf16 tensor; its f32 sum
+    bias = 4 * hb * n * n
+    fwd = (8 * rows * d * inner + 2 * attn, act + 4 * d + 8 * d * inner + acc)
+    bwd = (8 * rows * d * inner + 5 * attn,
+           act + 2 * (rows * 4 * inner * 2) + 4 * b * heads * n + 8 * d * inner + acc)
     return {
         # x, γ, β, Wqkv_r, Wo_r -> s
-        "fused_attention_block_split": bound(8 * rows * d * inner + 2 * attn,
-                                             act + 4 * d + 8 * d * inner + acc),
+        "fused_attention_block_split": bound(*fwd),
         # dy, qkv, oattn, lse, Wqkv_r, Wo_r -> dqkv, doattn, dxn
-        "fused_attention_block_split_bwd": bound(
-            8 * rows * d * inner + 5 * attn,
-            act + 2 * (rows * 4 * inner * 2) + 4 * b * heads * n + 8 * d * inner + acc),
+        "fused_attention_block_split_bwd": bound(*bwd),
+        # ... and the bias in; ... and the bias in, dbias out
+        "fused_attention_block_bias_split": bound(fwd[0], fwd[1] + bias),
+        "fused_attention_block_bias_split_bwd": bound(bwd[0],
+                                                      bwd[1] + bias * (2 if dbias else 1)),
         # x, γ, β, W1_r, b1_r, W2_r -> s
         "fused_mlp_split": bound(4 * rows * d * hidden, act + 4 * d + 4 * d * hidden
                                  + 2 * hidden + acc),
@@ -5125,6 +5157,7 @@ def tp_kernel_phase(torch, results, smi):
     del x, dy, s, dxn, split
     torch.cuda.empty_cache()
     tp_twins_kernel_phase(torch, results, smi)
+    tp_biased_kernel_phase(torch, results, smi)
 
 
 def tp_cross_bounds(b, n, c, heads, n_k, dh):
@@ -5384,6 +5417,196 @@ def tp_twins_kernel_phase(torch, results, smi):
                                 f"{text(cross[t][name])}" for t in cross for name in cross[t])
         + "; " + "; ".join(f"{name} [{tag}] {text(r)}" for name, r in blocks.items())
         + f" on {smi}")
+
+
+# Row 5's split form at rank 0's slice over TP ranks of the three biased
+# models' blocks: (tag, b, n, d, heads, dim_head, bias kind, eps).  The
+# small-dataset ViT@256 (64 images of 257 tokens, 8 of 16 heads of 64, LSA's
+# mask at scale 1, no dbias), CrossFormer@224's stage-1 short windows (4096 of
+# 49 tokens, 1 of 2 heads of 32, the shared DPB table and its dbias, eps
+# 1e-5) and RegionViT@224's stage-1 joint rows (4096 of 50 tokens, 2 of 4
+# heads of 32, their per-head table and its dbias).
+TP_BIASED_SHAPES = [("small-dataset ViT@256", 64, 257, 1024, 16, 64, "lsa", 1e-3),
+                    ("CrossFormer@224 stage 1", 4096, 49, 64, 2, 32, "shared", CROSSFORMER_EPS),
+                    ("RegionViT@224 stage 1", 4096, 50, 64, 4, 32, "per-head", 1e-3)]
+
+
+def tp_biased_kernel_phase(torch, results, smi):
+    """Row 5's split form at TP_BIASED_SHAPES, seeded bf16 inputs, one full
+    set of weights and one f32 bias (per head: cut with the heads) made into
+    the ranks' slices: rank 0's partial forward (training) and, fed its
+    residuals, its partial backward against their plain versions within one
+    unit plus KERNEL_REL_TOL, dbias within DBIAS_REL_TOL, twice bit for bit,
+    lse on the kernel's own qkv; the two ranks emulated (partials summed,
+    then the pass; the f32 dxn summed, then the LayerNorm backward; dbias
+    summed for a shared bias, joined for a per-head one) against the
+    unsplit row 5's y, dxn, dx, sums and dbias.  Times of rank 0's partial
+    forward and backward beside their plain versions, PyTorch's composition
+    at the local heads (F.layer_norm + F.linear + SDPA(attn_mask) + F.linear;
+    autograd for dxn and, with dbias, the mask's gradient), the partial with
+    the pass, the unsplit kernels at the full shape, and :func:`tp_bounds`.
+    Stored under ``results["tensor-parallel"]``: the small-dataset ViT's as
+    the entries' shape, the others under ``by_shape``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.models.vit_for_small_dataset import lsa_bias
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.parallel.sharding import QKV, ROW, shard_tensor
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 10)
+    out = results["tensor-parallel"]
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if p is not None and not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    entries, emulated = {}, {}
+    for tag, b, n, d, heads, dh, kind, eps in TP_BIASED_SHAPES:
+        hl, inner = heads // TP, heads * dh
+        need_dbias = kind != "lsa"
+        x, dy = rn(b, n, d), rn(b, n, d, scale=0.1)
+        gamma, beta = (1.0 + rn(d, scale=0.1).float()).to(dt), rn(d, scale=0.1)
+        wqkv, wo, bo = rn(3 * inner, d, scale=d ** -0.5), rn(d, inner, scale=inner ** -0.5), \
+            rn(d, scale=0.1)
+        if kind == "lsa":
+            bias, scale = lsa_bias(n, dev), 1.0
+        else:
+            bias = torch.randn(heads if kind == "per-head" else 1, n, n, generator=g,
+                               device=dev) * 0.5
+            scale = dh ** -0.5
+        ranks = [(shard_tensor(wqkv, QKV, r, TP), shard_tensor(wo, ROW, r, TP),
+                  bias[r * hl:(r + 1) * hl].contiguous() if kind == "per-head" else bias)
+                 for r in range(TP)]
+        w = ranks[0]
+        name = f"row 5 split {tag}"
+
+        def fwd(training=False, r=w):
+            return fab.fused_attention_block_bias_partial_forward(x, gamma, beta, r[0], r[1],
+                                                                  r[2], hl, dh, scale, eps,
+                                                                  training)
+
+        got = twice(name, lambda: fwd(True))
+        ref = fab.fused_attention_block_partial_forward_reference(x, gamma, beta, *w[:2], hl, dh,
+                                                                  scale, eps, w[2])
+        err = check_outputs(torch, name, got[:4], ref[:4], {})
+        lse_err = (got[4] - fab.attention_lse_reference(got[2], hl, dh, scale, w[2])
+                   ).abs().max().item()
+        if not lse_err <= LSE_ABS_TOL:
+            raise AssertionError(f"{name}: lse differs by {lse_err}")
+        _, _, qkv_r, oattn_r, lse_r = got
+
+        def bwd(parts=got, r=w):
+            return fab.fused_attention_block_bias_partial_backward(
+                dy, *parts[2:], r[0], r[1], r[2], hl, dh, scale, need_dbias)
+
+        got_b = twice(f"{name} backward", bwd)
+        ref_b = fab.fused_attention_block_partial_backward_reference(
+            dy, qkv_r, oattn_r, lse_r, *w[:2], hl, dh, scale, w[2], need_dbias)
+        err_b = check_outputs(torch, f"{name} backward", got_b[:3], ref_b[:3], {})
+        if need_dbias:
+            err_b = max(err_b, check_dbias(torch, f"{name} backward", got_b[3], ref_b[3]))
+        elif got_b[3] is not None:
+            raise AssertionError(f"{name} backward: dbias computed unasked")
+
+        # Two ranks emulated against the unsplit row 5 at the full shape.
+        y, _, qkv, oattn, lse = fab._launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dh,
+                                                    scale, eps, bias, training=True)
+        split = [got] + [fwd(True, r) for r in ranks[1:]]
+        y_split = tp.bias_residual(sum(p[0] for p in split), bo, x)
+        emulated[f"{tag} y"] = check_outputs(torch, f"two ranks' {name}", [y_split], [y], {0: x})
+        full = fab.fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads,
+                                                       dh, scale, eps, need_dbias=need_dbias,
+                                                       oattn=oattn, lse=lse)
+        backs = [got_b] + [bwd(p, r) for p, r in zip(split[1:], ranks[1:])]
+        dxn = sum(bk[0] for bk in backs)
+        dxn_full = full[1].reshape(-1, 3 * inner).float() @ wqkv.float()
+        emulated[f"{tag} dxn"] = check_outputs(torch, f"two ranks' {name} dxn", [dxn],
+                                               [dxn_full], {})
+        ln = tp.ln_backward(x, dxn, gamma, dy, eps)
+        emulated[f"{tag} dx"] = check_outputs(torch, f"two ranks' {name} backward", ln[:1],
+                                              full[:1], {0: dy})
+        emulated[f"{tag} sums"] = max(check_dbias(torch, f"two ranks' {name} backward", got_s,
+                                                  want_s, what)
+                                      for got_s, want_s, what in zip(ln[1:], full[2:5],
+                                                                     ("dγ", "dβ", "dbo")))
+        if need_dbias:
+            parts = [bk[3] for bk in backs]
+            joined = torch.cat(parts) if kind == "per-head" else sum(parts)
+            emulated[f"{tag} dbias"] = check_dbias(torch, f"two ranks' {name}", joined, full[5])
+        del y, qkv, oattn, lse, split, full, backs, dxn, dxn_full, ln
+
+        xn_leaf = F.layer_norm(x, (d,), gamma, beta, eps).detach().requires_grad_()
+        mask = w[2].to(dt)
+        mask_leaf = mask.detach().requires_grad_(need_dbias)
+
+        def library(xn_, mask_):
+            q, k, v = F.linear(xn_, w[0]).view(b, n, 3, hl, dh).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask_, scale=scale)
+            return F.linear(o.transpose(1, 2).reshape(b, n, hl * dh), w[1])
+
+        lib_y = library(xn_leaf, mask_leaf)
+        lib_inputs = (xn_leaf, mask_leaf) if need_dbias else (xn_leaf,)
+        with torch.inference_mode():
+            f_ms = interleaved_medians(torch, {
+                "kernel": fwd,
+                "plain": lambda: fab.fused_attention_block_partial_forward_reference(
+                    x, gamma, beta, *w[:2], hl, dh, scale, eps, w[2]),
+                "library": lambda: library(F.layer_norm(x, (d,), gamma, beta, eps), mask),
+                "with the pass": lambda: tp.bias_residual(fwd()[0], bo, x),
+                "unsplit": lambda: fab.fused_attention_block_bias(x, gamma, beta, wqkv, wo, bo,
+                                                                  bias, heads, dh, scale, eps)},
+                rounds=3, calls=5)
+        b_ms = interleaved_medians(torch, {
+            "kernel": bwd,
+            "plain": lambda: fab.fused_attention_block_partial_backward_reference(
+                dy, qkv_r, oattn_r, lse_r, *w[:2], hl, dh, scale, w[2], need_dbias),
+            "library": lambda: torch.autograd.grad(lib_y, lib_inputs, dy, retain_graph=True)},
+            rounds=3, calls=5)
+        bounds = tp_bounds(b, n, d, hl, dh, 4 * d, w[2].shape[0], need_dbias)
+        shape = (f"{tag} rank 0 of {TP}: b={b} n={n} d={d} {hl} of {heads} heads of {dh}, "
+                 f"{kind} bias {tuple(w[2].shape)}" + (", dbias" if need_dbias else ""))
+        entries[tag] = {
+            "fused_attention_block_bias_split": dict(
+                err=err, kernel=f_ms["kernel"], plain=f_ms["plain"], library=f_ms["library"],
+                with_pass=f_ms["with the pass"], unsplit=f_ms["unsplit"],
+                bound=bounds["fused_attention_block_bias_split"], shape=shape),
+            "fused_attention_block_bias_split_bwd": dict(
+                err=err_b, kernel=b_ms["kernel"], plain=b_ms["plain"], library=b_ms["library"],
+                bound=bounds["fused_attention_block_bias_split_bwd"], shape=shape)}
+        del lib_y, xn_leaf, mask_leaf, mask, x, dy, got, got_b, ranks, w, bias
+        torch.cuda.empty_cache()
+    first, *rest = (t for t, *_ in TP_BIASED_SHAPES)
+    for name in ("fused_attention_block_bias_split", "fused_attention_block_bias_split_bwd"):
+        out[name] = dict(entries[first][name],
+                         by_shape={t: {k: v for k, v in entries[t][name].items() if k != "shape"}
+                                   for t in rest})
+
+    def text(r):
+        extra = "".join(f" {k}={r[k]:.4f}" for k in ("library", "with_pass", "unsplit")
+                        if r.get(k) is not None)
+        return (f"kernel={r['kernel']:.4f} plain={r['plain']:.4f}{extra} "
+                f"bound={r['bound'][0]:.4f} ({r['bound'][1]}) max|err|={r['err']:.4g}")
+
+    log(f"tensor-parallel row 5 [rank 0 of {TP}]: the biased block's split form at the small-"
+        f"dataset ViT's, CrossFormer's and RegionViT's blocks, each against its plain version "
+        f"within one unit plus {KERNEL_REL_TOL} (dbias within {DBIAS_REL_TOL}*max|ref|) and "
+        f"twice bit for bit; two ranks emulated (partials summed, then the pass; dxn summed, "
+        f"then the LayerNorm backward; dbias summed or joined) against the unsplit row 5, "
+        f"max|err| {json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: "
+        f"F.layer_norm + F.linear + SDPA(attn_mask) + F.linear at the local heads, autograd for "
+        f"dxn and the mask's gradient where dbias is asked; with_pass: the partial and the "
+        f"pass; unsplit: the unsplit kernel at every head): "
+        + "; ".join(f"{name} [{entries[t][name]['shape']}] {text(entries[t][name])}"
+                    for t in entries for name in entries[t]) + f" on {smi}")
 
 
 def tp_rank(rank, port, workdir):
@@ -5648,8 +5871,10 @@ def tp_path_phase(torch, smi, workdir):
                              f"{first['plain']}")
     launches = {k: ranks[0]["serving_counts"][-1][k] + ranks[0]["train_counts"][-1][k]
                 for k in ranks[0]["train_counts"][-1]}
-    hybrids = tp_hybrid_phase(torch, smi, workdir)
-    return {k: v + hybrids.get(k, 0) for k, v in launches.items()}
+    for table in TP_TABLES:
+        models = tp_hybrid_phase(torch, smi, workdir, table)
+        launches = {k: v + models.get(k, 0) for k, v in launches.items()}
+    return launches
 
 
 # The conv hybrids split over TP ranks, as run_benchmarks.py builds them:
@@ -5667,6 +5892,20 @@ TP_HYBRIDS = [
     ("MobileViT@256", "MobileViT", MOBILEVIT, MOBILEVIT_SIZE, MOBILEVIT_BATCH, 16, TP_SEED + 5,
      {}),
 ]
+# The biased and windowed models split over TP ranks, as run_benchmarks.py
+# builds them (the smoke's SMALL_DATASET, CROSSFORMER, REGIONVIT and NEST), on
+# the kernel route, serving 64 images (enough for the confident-image check)
+# and training at a batch cut to 16: this path measures no TP speed.
+TP_BIASED = [
+    ("small-dataset ViT@256", "vit_for_small_dataset.ViT", SMALL_DATASET, 256, 64, 16,
+     TP_SEED + 6, PLAIN_KW),
+    ("CrossFormer@224", "CrossFormer", CROSSFORMER, CROSSFORMER_SIZE, 64, 16, TP_SEED + 7,
+     PLAIN_KW),
+    ("RegionViT@224", "RegionViT", REGIONVIT, REGIONVIT_SIZE, 64, 16, TP_SEED + 8,
+     dict(fused_attention="never")),
+    ("NesT@224", "NesT", NEST, NEST["image_size"], 64, 16, TP_SEED + 9, PLAIN_KW),
+]
+TP_TABLES = {"hybrids": TP_HYBRIDS, "biased": TP_BIASED}
 TP_HYBRID_STEPS = 2
 TP_LOSS_REL_TOL = 1e-3  # the split path's first loss against the one-process path's
 
@@ -5689,32 +5928,70 @@ def tp_hybrid_counts():
                   "fused_mlp_split_bwd": local + every, "ln_bwd": 2 * local + every}
     cvt = {"flash_attention": 1}
     return {"Twins-SVT@224": (twins, twins_step), "CvT-13@224": (cvt, {**cvt, "flash_backward": 1}),
-            "LeViT@224": ({}, {}), "MobileViT@256": ({}, {})}
+            "LeViT@224": ({}, {}), "MobileViT@256": ({}, {}), **tp_biased_counts()}
+
+
+def tp_biased_counts():
+    """Each TP_BIASED model's launches a forward and a step on every rank, all
+    on the split forms, each partial ended by the pass after one f32-partial
+    GEMM, the backwards as often, every LayerNorm backward on ``ln_bwd``; the
+    unsplit row 5 never.  The small-dataset ViT: row 5 and rows 1-2 at its 6
+    layers.  CrossFormer: row 5 at its 14 short windows and stages 1-2's 4
+    long ones (stages 3-4's 2 x 2 and 1 x 1 plain), rows 1-2 at its 28 MLPs.
+    RegionViT: rows 3-4 at its 14 region self-attentions and row 5 at its 14
+    joint rows (its MLPs plain).  NesT: hierarchy 1's 2 three-head
+    attentions whole on the unsplit rows 3-4, the other 10 split, rows 1-2 at
+    its 12 MLPs."""
+    def counts(bias=0, block=0, whole=0, mlp=0):
+        split = bias + block
+        forward = {"fused_attention_block_bias_split": bias, "fused_attention_block_split": block,
+                   "fused_attention_block": whole, "short route, forward": split + whole,
+                   "fused_mlp_split": mlp, "bias_residual": split + mlp,
+                   "forward_gemm_f32": split + mlp}
+        step = {**forward, "fused_attention_block_bias_split_bwd": bias,
+                "fused_attention_block_split_bwd": block, "fused_attention_block_bwd": whole,
+                "short route": split + whole, "fused_mlp_split_bwd": mlp, "ln_bwd": split + mlp}
+        return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
+
+    depth = SMALL_DATASET["depth"]
+    return {"small-dataset ViT@256": counts(bias=depth, mlp=depth),
+            "CrossFormer@224": counts(bias=sum(CROSSFORMER_DEPTH) + sum(CROSSFORMER_DEPTH[:2]),
+                                      mlp=2 * sum(CROSSFORMER_DEPTH)),
+            "RegionViT@224": counts(bias=sum(REGIONVIT_DEPTH), block=sum(REGIONVIT_DEPTH)),
+            "NesT@224": counts(block=sum(NEST["block_repeats"][1:]),
+                               whole=NEST["block_repeats"][0], mlp=sum(NEST["block_repeats"]))}
+
+
+def tp_model_class(name):
+    """A TP_TABLES class by its name in ``vit_tpu_torch`` (``module.Class``
+    for the models named ``ViT``)."""
+    import vit_tpu_torch
+
+    module, _, cls = name.rpartition(".")
+    return getattr(getattr(vit_tpu_torch, module) if module else vit_tpu_torch, cls)
 
 
 def tp_hybrid_model(torch, name, cfg, size, batch, seed, **kw):
-    """A TP_HYBRIDS model from ``seed`` (its BatchNorms seeded,
+    """A TP_TABLES model from ``seed`` (its BatchNorms seeded,
     :func:`seed_batch_norms`) and one seeded batch: what each rank builds and
     what the one-process references load."""
-    import vit_tpu_torch
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    model = getattr(vit_tpu_torch, name)(**cfg, device=dev, generator=g, **kw)
+    model = tp_model_class(name)(**cfg, device=dev, generator=g, **kw)
     seed_batch_norms(torch, model, g)
     images = torch.randn(batch, size, size, 3, generator=g, device=dev)
     return model, images, torch.arange(batch, device=dev) % cfg["num_classes"]
 
 
-def tp_hybrid_rank(rank, port, workdir):
+def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
     """One rank of :func:`tp_hybrid_phase` (a spawned process on the one
     card): joins a gloo group of TP processes, lays a (1, TP) mesh, and for
-    each TP_HYBRIDS model serves one batch (``cast_params`` bf16, eval,
+    each model of TP_TABLES[table] serves one batch (``cast_params`` bf16, eval,
     inference mode) and trains (bf16 compute, f32 parameters, SGD(1e-3))
     TP_HYBRID_STEPS steps of ``make_train_step`` over the mesh, each counter
     from 0 before the serving forward and before the steps, read after each;
     step 1's loss and gradients, gathered whole; each step's wall ms and the
-    model's seconds.  Writes what it saw to ``tp_hybrid_rank<r>.pt`` in
+    model's seconds.  Writes what it saw to ``tp_<table>_rank<r>.pt`` in
     ``workdir``."""
     import torch
 
@@ -5745,7 +6022,7 @@ def tp_hybrid_rank(rank, port, workdir):
             return {**{k: c.launches for k, c in counters.items()},
                     "forward_gemm_f32": f32_gemms[0]}
 
-        for tag, name, cfg, size, serve_batch, batch, seed, _ in TP_HYBRIDS:
+        for tag, name, cfg, size, serve_batch, batch, seed, _ in TP_TABLES[table]:
             started = time.perf_counter()
             model, images, _ = tp_hybrid_model(torch, name, cfg, size, serve_batch, seed)
             served = shard_params(mesh, cast_params(model, torch.bfloat16).eval())
@@ -5787,17 +6064,17 @@ def tp_hybrid_rank(rank, port, workdir):
         out["error"] = traceback.format_exc()
         raise
     finally:
-        torch.save(out, os.path.join(workdir, f"tp_hybrid_rank{rank}.pt"))
+        torch.save(out, os.path.join(workdir, f"tp_{table}_rank{rank}.pt"))
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
 
-def tp_spawn(torch, fn, workdir, prefix):
-    """Run ``fn(rank, port, workdir)`` in TP processes on the one card and
-    load what each wrote to ``<prefix><r>.pt``."""
+def tp_spawn(torch, fn, workdir, prefix, *args):
+    """Run ``fn(rank, port, workdir, *args)`` in TP processes on the one card
+    and load what each wrote to ``<prefix><r>.pt``."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(fn, args=(free_port(), workdir), nprocs=TP, join=False,
+    ctx = mp.start_processes(fn, args=(free_port(), workdir, *args), nprocs=TP, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + TP_JOIN_S
     try:
@@ -5813,41 +6090,54 @@ def tp_spawn(torch, fn, workdir, prefix):
             for r in range(TP)]
 
 
-def tp_gradient_check(torch, tag, split, grads):
+def tp_gradient_check(torch, tag, split, grads, weights):
     """Each gathered step-1 gradient of the split path within
     MAX_GRAD_ERR_VS_PLAIN_BF16 times the unsplit plain bf16 path's relative
-    L2 error against the f32 model's, but those below 1e-3 of the median
-    norm (0 in exact arithmetic: LeViT's biases before a BatchNorm in
-    training, as :func:`plain_training_phase` leaves them out); a summary."""
+    L2 error against the f32 model's, the 0-d ones (LSA's temperatures) and
+    each tensor of CrossFormer's position-bias MLPs as one stack across the
+    layers (:func:`stacked_groups`, as :func:`step1_gradients` holds them)
+    and each temperature by :func:`check_temperatures` (``weights``: the f32
+    model's parameters), but those below 1e-3 of the median norm (0 in exact
+    arithmetic: LeViT's biases before a BatchNorm in training, as
+    :func:`plain_training_phase` leaves them out); a summary."""
     dev = torch.device("cuda")
+    grads = {"kernels": {k: v.to(dev) for k, v in split.items()}, **grads}
+    temperatures = check_temperatures(torch, f"tensor-parallel {tag}", grads, weights)
+    stacks = stacked_groups(grads["f32"])
+    for path in ("kernels", "plain", "f32"):
+        held = {k: v for k, v in grads[path].items()
+                if not any(k in keys for keys in stacks.values())}
+        for label, keys in stacks.items():
+            held[label] = torch.cat([grads[path][k].flatten() for k in keys])
+        grads[path] = held
     norms = {k: torch.linalg.vector_norm(v).item() for k, v in grads["f32"].items()}
     floor = 1e-3 * statistics.median(norms.values())
     misses, worst, worst_name = [], 0.0, ""
     for k, ref in grads["f32"].items():
         if norms[k] < floor:
             continue
-        err_s, err_p = rel_l2(torch, split[k].to(dev), ref), rel_l2(torch, grads["plain"][k], ref)
+        err_s, err_p = rel_l2(torch, grads["kernels"][k], ref), rel_l2(torch, grads["plain"][k],
+                                                                       ref)
         if err_s / max(err_p, 1e-30) > worst:
             worst, worst_name = err_s / max(err_p, 1e-30), k
         if not err_s <= MAX_GRAD_ERR_VS_PLAIN_BF16 * err_p:
             misses.append(f"{k}: {err_s:.4g} vs plain {err_p:.4g}")
-    keys = list(grads["f32"])
-    all_s = rel_l2(torch, torch.cat([split[k].to(dev).flatten() for k in keys]),
-                   torch.cat([grads["f32"][k].flatten() for k in keys]))
-    all_p = rel_l2(torch, torch.cat([grads["plain"][k].flatten() for k in keys]),
-                   torch.cat([grads["f32"][k].flatten() for k in keys]))
+    cat = {n: torch.cat([v.flatten() for v in grads[n].values()]) for n in grads}
+    all_s, all_p = (rel_l2(torch, cat[n], cat["f32"]) for n in ("kernels", "plain"))
     if misses:
         raise AssertionError(f"tensor-parallel {tag}: gradients beyond "
                              f"{MAX_GRAD_ERR_VS_PLAIN_BF16}x the plain path's error: {misses}")
     return (f"step-1 gradients gathered, relative L2 against f32 over all parameters "
             f"split={all_s:.4g} plain={all_p:.4g}, worst per-tensor ratio split/plain="
             f"{worst:.3f} ({worst_name}; <= {MAX_GRAD_ERR_VS_PLAIN_BF16}; "
-            f"{sum(v < floor for v in norms.values())} below 1e-3 of the median norm left out)")
+            f"{sum(v < floor for v in norms.values())} below 1e-3 of the median norm left out"
+            f"{'; ' + ', '.join(stacks) if stacks else ''}); {temperatures}")
 
 
-def tp_hybrid_phase(torch, smi, workdir):
-    """The conv hybrids split over a ``model`` axis of TP (TP_HYBRIDS), TP
-    processes on the one card over gloo (:func:`tp_hybrid_rank`), held here
+def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
+    """The models of TP_TABLES[table] (the conv hybrids, or the biased and
+    windowed models) split over a ``model`` axis of TP, TP processes on the
+    one card over gloo (:func:`tp_hybrid_rank`), held here
     against one-process models of the same weights: both ranks' logits and
     losses bit for bit equal; the served logits by :func:`hold_logits`
     against the unsplit plain bf16 path and the f32 model (top-1 by the sign
@@ -5858,20 +6148,19 @@ def tp_hybrid_phase(torch, smi, workdir):
     :func:`tp_hybrid_counts` on every rank, after each forward and step.
     Step times labelled TP_LABEL.  Returns rank 0's launches over its
     serving and training runs, summed over the models."""
-    import vit_tpu_torch
     from vit_tpu_torch import cast_params
     from vit_tpu_torch.parallel.train import cross_entropy_loss
 
-    ranks = tp_spawn(torch, tp_hybrid_rank, workdir, "tp_hybrid_rank")
+    ranks = tp_spawn(torch, tp_hybrid_rank, workdir, f"tp_{table}_rank", table)
     for r, rank in enumerate(ranks):
         if "error" in rank:
             raise AssertionError(f"tensor-parallel rank {r}: {rank['error']}")
     expected = tp_hybrid_counts()
     dev = torch.device("cuda")
     launches = {}
-    for tag, name, cfg, size, serve_batch, batch, seed, plain_kw in TP_HYBRIDS:
+    for tag, name, cfg, size, serve_batch, batch, seed, plain_kw in TP_TABLES[table]:
         started = time.perf_counter()
-        cls = getattr(vit_tpu_torch, name)
+        cls = tp_model_class(name)
         forward, step_each = expected[tag]
         for r, rank in enumerate(ranks):
             got = rank[tag]["serving_counts"]
@@ -5926,13 +6215,14 @@ def tp_hybrid_phase(torch, smi, workdir):
             first[path] = loss.item()
             grads[path] = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach()
                            for k, p in m.named_parameters()}
-        gradients = tp_gradient_check(torch, tag, a["grads"], grads)
+        gradients = tp_gradient_check(torch, tag, a["grads"], grads,
+                                      dict(f32.named_parameters()))
         del model, plain, f32, grads, images, labels
         torch.cuda.empty_cache()
         loss_rel = abs(a["first"] - first["one-process"]) / abs(first["one-process"])
         losses = a["losses"]
         log(f"tensor-parallel {tag} over a (1, {TP}) mesh, {TP} processes on one card over gloo "
-            f"({'the kernel route' if tag.startswith('Twins') else 'plain modules'}; "
+            f"({'the kernel route' if forward else 'plain modules'}; "
             f"{a['split']} tensors split, whole: {a['whole'] or 'none'}), bf16 compute, f32 "
             f"parameters, SGD(1e-3), {norms}: serving "
             f"{serve_batch} images, the ranks' logits bit for bit: {serving}; step-1 loss at "

@@ -309,3 +309,30 @@ def test_tp_cross_bounds(raw):
     assert got["fused_cross_attention_split_bwd"] == (
         out_gemm + q_gemm + 3 * qk_product + 2 * pv_product,
         act + q + kv + oattn + lse + w + acc + q + kv + 4 * c)
+
+
+@pytest.mark.parametrize("hb, dbias", [(1, True), (2, True), (1, False)],
+                         ids=["shared", "per-head", "lsa"])
+def test_tp_bias_bounds(raw, hb, dbias):
+    # Row 5's split form at one rank's slice: b 1, n 4, d 16, 2 local heads of
+    # 8 (inner 16), as test_tp_bounds; an f32 (hb, 4, 4) bias: the shared table
+    # once (hb 1) or the local heads' (hb 2), read by both directions, dbias
+    # written by the backward when asked.
+    rows, d, inner = 4, 16, 16
+    attn = 2 * 1 * 2 * 4 * 4 * 8
+    act, acc = 2 * rows * d, 4 * rows * d
+    qkv, out = 2 * rows * d * 3 * inner, 2 * rows * inner * d
+    bias = 4 * hb * 4 * 4
+    got = chip_smoke.tp_bounds(1, 4, 16, 2, 8, 32, hb, dbias)
+    # x, γ, β, Wqkv_r, Wo_r, the bias in; the f32 partial s out.
+    assert got["fused_attention_block_bias_split"] == (
+        qkv + out + 2 * attn, act + 4 * d + 2 * 4 * inner * d + acc + bias)
+    # dy, qkv, oattn, lse, weights, the bias in; dqkv, doattn, the f32 dxn and
+    # (with dbias) the f32 dbias out.
+    assert got["fused_attention_block_bias_split_bwd"] == (
+        out + 5 * attn + qkv,
+        act + 2 * (2 * rows * 3 * inner + 2 * rows * inner) + 4 * 2 * 4 + 2 * 4 * inner * d
+        + acc + bias + (bias if dbias else 0))
+    # The unbiased split forms are unchanged by a bias argument.
+    assert got["fused_attention_block_split"] == chip_smoke.tp_bounds(1, 4, 16, 2, 8, 32)[
+        "fused_attention_block_split"]

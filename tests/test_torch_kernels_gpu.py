@@ -2315,6 +2315,79 @@ def test_split_blocks_match_plain_and_unsplit(cuda, shape):
         check_dbias(torch, "two ranks' MLP backward", got[i], full[j], f"sum {i}")
 
 
+# Row 5's split form: (b, n, d, heads, dim_head, bias kind), the short route
+# (CrossFormer's 49-token windows with the shared table, RegionViT's 50-token
+# joint rows with the per-head one, LSA's mask at 65) and the mha route at 577.
+SPLIT_BIASED = [(4, 49, 64, 2, 32, "shared"), (4, 50, 64, 4, 32, "per-head"),
+                (2, 65, 256, 8, 32, "lsa"), (2, 577, 64, 2, 32, "per-head")]
+
+
+@pytest.mark.parametrize("shape", SPLIT_BIASED)
+def test_split_biased_block_matches_plain_and_unsplit(cuda, shape):
+    """Each rank's split biased forward and backward against their plain
+    versions, twice bit for bit, dbias within check_dbias; the two ranks'
+    partials summed, then the pass or the LayerNorm backward, against the
+    unsplit biased kernels' y, dx, sums and dbias (summed for a shared
+    bias, joined for a per-head one)."""
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.parallel.sharding import QKV, ROW, shard_tensor
+
+    b, n, d, heads, dh, kind = shape
+    t, dt, hl = 2, torch.bfloat16, heads // 2
+    scale = 1.0 if kind == "lsa" else dh ** -0.5
+    need = kind != "lsa"
+    x, gamma, beta, wqkv, wo, bo = _attn_args(b, n, d, heads, dh, dt, cuda, seed=n)
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    dy = (torch.randn(b, n, d, generator=g, device=cuda) * 0.1).to(dt)
+    bias = vit_for_small_dataset.lsa_bias(n, cuda) if kind == "lsa" else \
+        torch.randn(heads if kind == "per-head" else 1, n, n, generator=g, device=cuda) * 0.5
+    fab = fused_attention_block_ops
+    parts = []
+    for r in range(t):
+        wq, wp = shard_tensor(wqkv, QKV, r, t), shard_tensor(wo, ROW, r, t)
+        br = bias[r * hl:(r + 1) * hl].contiguous() if kind == "per-head" else bias
+        before = fab.fused_attention_block_bias_partial_forward.launches
+        fwd = fab.fused_attention_block_bias_partial_forward(x, gamma, beta, wq, wp, br, hl, dh,
+                                                             scale, training=True)
+        assert fab.fused_attention_block_bias_partial_forward.launches == before + 1
+        _twice(fwd, fab.fused_attention_block_bias_partial_forward(x, gamma, beta, wq, wp, br,
+                                                                   hl, dh, scale, training=True))
+        check_outputs(torch, "split biased forward", fwd[:4],
+                      fab.fused_attention_block_partial_forward_reference(
+                          x, gamma, beta, wq, wp, hl, dh, scale, bias=br)[:4], {})
+        lse = fab.attention_lse_reference(fwd[2], hl, dh, scale, br)
+        assert (fwd[4] - lse).abs().max().item() <= LSE_ABS_TOL  # on the kernel's own qkv
+        bwd = fab.fused_attention_block_bias_partial_backward(dy, *fwd[2:], wq, wp, br, hl, dh,
+                                                              scale, need)
+        again = fab.fused_attention_block_bias_partial_backward(dy, *fwd[2:], wq, wp, br, hl,
+                                                                dh, scale, need)
+        _twice(bwd[:3], again[:3])
+        ref = fab.fused_attention_block_partial_backward_reference(dy, *fwd[2:], wq, wp, hl, dh,
+                                                                   scale, br, need)
+        check_outputs(torch, "split biased backward", bwd[:3], ref[:3], {})
+        if need:
+            assert torch.equal(bwd[3], again[3])
+            check_dbias(torch, "split biased backward", bwd[3], ref[3])
+        else:
+            assert bwd[3] is None
+        parts.append((fwd[0], bwd[0], bwd[3]))
+
+    y, _, qkv, oattn, lse = fab._launch_forward(x, gamma, beta, wqkv, wo, bo, heads, dh, scale,
+                                                1e-3, bias, training=True)
+    check_outputs(torch, "two ranks' biased block",
+                  [tp.bias_residual(parts[0][0] + parts[1][0], bo, x)], [y], {0: x})
+    full = fab.fused_attention_block_bias_backward(dy, x, qkv, gamma, wqkv, wo, bias, heads, dh,
+                                                   scale, need_dbias=need, oattn=oattn, lse=lse)
+    got = tp.ln_backward(x, parts[0][1] + parts[1][1], gamma, dy)
+    check_outputs(torch, "two ranks' biased backward", got[:1], full[:1], {0: dy})
+    for i, j in ((1, 2), (2, 3), (3, 4)):
+        check_dbias(torch, "two ranks' biased backward", got[i], full[j], f"sum {i}")
+    if need:
+        pieces = [p[2] for p in parts]
+        dbias = torch.cat(pieces) if kind == "per-head" else pieces[0] + pieces[1]
+        check_dbias(torch, "two ranks' biased backward", dbias, full[5])
+
+
 @pytest.mark.parametrize("rows, d", [(8320, 1024), (1000, 72)])
 def test_bias_residual_and_ln_backward_match_plain(cuda, rows, d):
     """The pass that ends a split forward and the LayerNorm backward that

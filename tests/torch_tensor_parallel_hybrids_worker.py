@@ -49,21 +49,37 @@ DROPOUT_RATE, DROPOUT_SEED = 0.1, 7
 # CvT-13's heads (1, 3, 6) at narrow widths: stages 1-2 run whole at tp 2.
 CVT13_HEADS = dict(num_classes=5, s1_emb_dim=16, s2_emb_dim=24, s3_emb_dim=48, s2_depth=1,
                    s3_depth=1)
-# What shard_params still refuses (the configurations of each model's own tests).
+# What shard_params still refuses, each at its own test's configuration:
+# (class, or module.class, in vit_tpu_torch; constructor arguments).
 REFUSED = {
-    "ScalableViT": dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2),
-                        reduction_factor=(4, 2), window_size=(8, None), ssa_dim_key=(40, 40),
-                        ssa_dim_value=(32, 32)),
-    "CrossFormer": dict(dim=(32, 64, 96, 128), depth=(1, 1, 1, 1),
-                        global_window_size=(4, 2, 2, 1), local_window_size=4,
-                        cross_embed_kernel_sizes=((2, 4),) * 4,
-                        cross_embed_strides=(4, 2, 2, 2), num_classes=6),
-    "RegionViT": dict(dim=(32, 48, 64, 96), depth=(1, 1, 1, 1), window_size=4,
-                      local_patch_size=4, num_classes=8),
-    "NesT": dict(image_size=64, patch_size=4, num_classes=8, dim=64, heads=2, num_hierarchies=3,
-                 block_repeats=(1, 1, 2)),
-    "small-dataset ViT": dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2,
-                              heads=2, dim_head=32, mlp_dim=128),
+    "hybrid tier": ("ViT", dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2,
+                                heads=2, mlp_dim=128, dim_head=32, fused_attention="hybrid")),
+    "ScalableViT": ("ScalableViT", dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2),
+                                        reduction_factor=(4, 2), window_size=(8, None),
+                                        ssa_dim_key=(40, 40), ssa_dim_value=(32, 32))),
+    "CaiT": ("CaiT", dict(image_size=32, patch_size=8, num_classes=5, dim=32, depth=3,
+                          cls_depth=2, heads=4, dim_head=8, mlp_dim=64)),
+    "DeepViT": ("DeepViT", dict(image_size=32, patch_size=8, num_classes=5, dim=32, depth=2,
+                                heads=4, dim_head=8, mlp_dim=64)),
+    "CrossViT": ("CrossViT", dict(image_size=32, num_classes=5, sm_dim=16, lg_dim=24,
+                                  sm_patch_size=4, lg_patch_size=16, sm_enc_depth=1,
+                                  sm_enc_heads=2, sm_enc_mlp_dim=32, sm_enc_dim_head=8,
+                                  lg_enc_depth=2, lg_enc_heads=2, lg_enc_mlp_dim=32,
+                                  lg_enc_dim_head=8, cross_attn_depth=1, cross_attn_heads=2,
+                                  cross_attn_dim_head=8, depth=2)),
+    "patch-merger ViT": ("vit_with_patch_merger.ViT", dict(
+        image_size=32, patch_size=4, num_classes=5, dim=32, depth=4, heads=2, dim_head=16,
+        mlp_dim=64, patch_merge_layer=2, patch_merge_num_tokens=3)),
+    "Parallel ViT": ("parallel_vit.ViT", dict(image_size=32, patch_size=8, num_classes=5,
+                                              dim=32, depth=2, heads=4, dim_head=8, mlp_dim=64)),
+    "ATS-ViT": ("ats_vit.ViT", dict(image_size=64, patch_size=8, num_classes=13, dim=64,
+                                    depth=3, max_tokens_per_depth=(32, 16, 8), heads=2,
+                                    mlp_dim=128, dim_head=32)),
+    "CCT": ("CCT", dict(img_size=32, embedding_dim=32, n_conv_layers=2, kernel_size=3,
+                        stride=1, in_planes=8, num_layers=2, num_heads=2, mlp_ratio=2.0,
+                        num_classes=5)),
+    "T2T-ViT": ("T2TViT", dict(image_size=32, num_classes=10, dim=64, depth=2, heads=2,
+                               mlp_dim=128, dim_head=32)),
 }
 
 
@@ -112,11 +128,11 @@ def one_process_dropout(name, data):
 def refused(name):
     """A CPU model of ``REFUSED[name]``."""
     import vit_tpu_torch
-    from vit_tpu_torch.models import vit_for_small_dataset
 
-    cls = vit_for_small_dataset.ViT if name == "small-dataset ViT" else \
-        getattr(vit_tpu_torch, name)
-    return cls(**REFUSED[name], device="cpu")
+    path, cfg = REFUSED[name]
+    module, _, cls = path.rpartition(".")
+    owner = getattr(vit_tpu_torch, module) if module else vit_tpu_torch
+    return getattr(owner, cls)(**cfg, device="cpu")
 
 
 def _refusal(fn) -> str:

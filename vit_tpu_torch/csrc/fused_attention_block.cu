@@ -94,13 +94,16 @@
 // attention) and the backward at 0.183 ms (138.0 + 43.3).
 //
 // Split forms (tensor parallelism, rank r of t over the model axis, heads / t
-// heads a rank, unbiased): vit_fused_attention_block_fwd_partial and
-// vit_fused_attention_block_bwd_partial stop at the reductions, each at an f32
-// partial sum that the ranks add up outside (torch.distributed), the forward
-// after the out-projection (then bias_residual.cu adds bo and x once), the
-// backward after the qkv dgrad (then layernorm.cu's vit_ln_bwd).  vit_tpu has
-// no such kernel: GSPMD gathers a Pallas call's operands and keeps the
-// unsharded numbers.
+// heads a rank, with or without the bias): vit_fused_attention_block_fwd_partial
+// and vit_fused_attention_block_bwd_partial stop at the reductions, each at an
+// f32 partial sum that the ranks add up outside (torch.distributed), the
+// forward after the out-projection (then bias_residual.cu adds bo and x once),
+// the backward after the qkv dgrad (then layernorm.cu's vit_ln_bwd).  A bias
+// comes as the block's takes it: a per-head (heads, n, n) one holds this
+// rank's heads, in the order of its q, k and v rows; a shared (1, n, n) one is
+// read whole, and its dbias is this rank's sum over its own heads, which the
+// caller sums over the ranks in f32.  vit_tpu has no such kernel: GSPMD
+// gathers a Pallas call's operands and keeps the unsharded numbers.
 #include "kernels.cuh"
 
 // The attention middle's routes (ops/fused_attention_block.py attention_route).
@@ -187,26 +190,29 @@ extern "C" int vit_fused_attention_block_fwd(const void* x, const void* gamma,
                              kEpiBiasResidual, dtype, stream);
 }
 
-// The split form (tensor parallelism over the model ranks), unbiased: rank
-// r's heads alone, `heads` the local count, wqkv (3·inner, d) the rows of its
-// heads in each of q, k and v, wo (d, inner) the columns of its heads, inner =
-// heads·dim_head.  Steps 1-3 as the block's, then the out-projection stops at
-// its f32 partial s = oattn·Woᵀ (rows, d), with no bias and no residual
-// (kEpiStoreF32 over kWeightNK): the caller sums s over the ranks in f32 and
-// ends the block with vit_bias_residual, T(x + T(Σ s + bo)), the block's own
-// rounding points.  kEpiBiasResidual cannot end a split block: it would add
-// bo and x once per rank.  Other arguments as vit_fused_attention_block_fwd's.
+// The split form (tensor parallelism over the model ranks): rank r's heads
+// alone, `heads` the local count, wqkv (3·inner, d) the rows of its heads in
+// each of q, k and v, wo (d, inner) the columns of its heads, inner =
+// heads·dim_head; `bias` (hb, n, n) f32 with hb 1 (shared, read whole) or
+// `heads` (this rank's heads), or null with hb = 0.  Steps 1-3 as the block's,
+// then the out-projection stops at its f32 partial s = oattn·Woᵀ (rows, d),
+// with no bias and no residual (kEpiStoreF32 over kWeightNK): the caller sums
+// s over the ranks in f32 and ends the block with vit_bias_residual, T(x + T(Σ
+// s + bo)), the block's own rounding points.  kEpiBiasResidual cannot end a
+// split block: it would add bo and x once per rank.  Other arguments as
+// vit_fused_attention_block_fwd's.
 extern "C" int vit_fused_attention_block_fwd_partial(const void* x, const void* gamma,
                                                      const void* beta, const void* wqkv,
                                                      const void* wo, float* s, void* xn,
                                                      void* qkv, void* oattn, float* lse,
-                                                     const long long* strides, int route, int b,
-                                                     int n, int d, int heads, int dim_head,
-                                                     float scale, float eps, int dtype,
-                                                     cudaStream_t stream) {
+                                                     const long long* strides, int route,
+                                                     const float* bias, int hb, int b, int n,
+                                                     int d, int heads, int dim_head, float scale,
+                                                     float eps, int dtype, cudaStream_t stream) {
   using namespace vit;
+  if (bias ? (hb != 1 && hb != heads) : hb != 0) return cudaErrorInvalidValue;
   cudaError_t err = attention_front(x, gamma, beta, wqkv, xn, qkv, oattn, lse, strides, route,
-                                    nullptr, 0, b, n, d, heads, dim_head, scale, eps, dtype,
+                                    bias, hb, b, n, d, heads, dim_head, scale, eps, dtype,
                                     stream);
   if (err != cudaSuccess) return err;
   return launch_forward_gemm(oattn, wo, nullptr, nullptr, s, nullptr, b * n, d, heads * dim_head,
@@ -262,31 +268,42 @@ extern "C" int vit_fused_attention_block_bwd(const void* dy, const void* x, cons
                          3 * inner, eps, dtype, stream);
 }
 
-// The split form's backward (its forward: vit_fused_attention_block_fwd_partial),
-// unbiased: steps 1 and 2 over rank r's heads, then the dgrad dqkv·Wqkv stops
-// at the f32 partial dxn (rows, d) (kEpiStoreF32, as launch_dgrad_ln's passes
-// route takes it).  kEpiLnBwd cannot end it: the LayerNorm backward needs the
-// whole dxn, the sum over the ranks, which the caller takes in f32 before
-// vit_ln_bwd gives dx and [dγ | dβ | dbo].  Outputs dqkv (rows, 3·inner) and
-// doattn (rows, inner) in the compute dtype, dxn in f32; `dq_part` and `dsum`
-// as vit_fused_attention_block_bwd takes them without a bias.
+// The split form's backward (its forward: vit_fused_attention_block_fwd_partial):
+// steps 1 and 2 over rank r's heads (with dbias, 2b after them), then the
+// dgrad dqkv·Wqkv stops at the f32 partial dxn (rows, d) (kEpiStoreF32, as
+// launch_dgrad_ln's passes route takes it).  kEpiLnBwd cannot end it: the
+// LayerNorm backward needs the whole dxn, the sum over the ranks, which the
+// caller takes in f32 before vit_ln_bwd gives dx and [dγ | dβ | dbo].  Outputs
+// dqkv (rows, 3·inner) and doattn (rows, inner) in the compute dtype, dxn in
+// f32; `bias`, `hb`, `rowstat`, `dbias` and `dbias_part` as
+// vit_fused_attention_block_bwd takes them over this rank's heads (dbias of a
+// shared bias this rank's partial sum); `dq_part` and `dsum` as it takes them.
 extern "C" int vit_fused_attention_block_bwd_partial(const void* dy, const void* qkv,
                                                      const void* oattn, const float* lse,
                                                      const void* wqkv, const void* wo,
                                                      void* dqkv, void* doattn, float* dxn,
                                                      const long long* strides, int route,
-                                                     float* dq_part, float* dsum, int b, int n,
-                                                     int d, int heads, int dim_head, float scale,
+                                                     float* dq_part, float* dsum, float* rowstat,
+                                                     const float* bias, int hb, float* dbias,
+                                                     float* dbias_part, int b, int n, int d,
+                                                     int heads, int dim_head, float scale,
                                                      int dtype, cudaStream_t stream) {
   using namespace vit;
   const int rows = b * n, inner = heads * dim_head;
-  if (rows <= 0 || !strides || !lse || !oattn || !dxn ||
-      (route != kRouteShort && route != kRouteMha) || (route == kRouteMha && !dsum))
+  const bool mha = route == kRouteMha;
+  if (rows <= 0 || !strides || !lse || !oattn || !dxn || (route != kRouteShort && !mha) ||
+      (bias ? (hb != 1 && hb != heads) : hb != 0) ||
+      (dbias && (!bias || !rowstat || !dbias_part)) || (mha && !dbias && !dsum))
     return cudaErrorInvalidValue;
   cudaError_t err = attention_back(dy, qkv, oattn, lse, wo, dqkv, doattn, strides, route, dq_part,
-                                   dsum, nullptr, nullptr, 0, b, n, d, heads, dim_head, scale,
-                                   dtype, stream);
+                                   dsum, dbias ? rowstat : nullptr, bias, hb, b, n, d, heads,
+                                   dim_head, scale, dtype, stream);
   if (err != cudaSuccess) return err;
+  if (dbias) {
+    err = launch_mha_dbias(qkv, doattn, rowstat, bias, hb, dbias_part, dbias, b, n, heads,
+                           dim_head, scale, dtype, stream);
+    if (err != cudaSuccess) return err;
+  }
   return launch_dgrad(dqkv, wqkv, nullptr, dxn, nullptr, nullptr, rows, d, 3 * inner,
                       kEpiStoreF32, dtype, stream);
 }

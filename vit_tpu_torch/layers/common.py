@@ -195,6 +195,10 @@ class ModelShard:
 # q|k|v or each half of a packed k|v.
 COLUMN, ROW, QKV, KV = "column", "row", "qkv", "kv"
 
+# What shard_params cuts of an MLP (layers/common.py's, or any fc1 / fc2
+# pair): fc1's rows and bias, fc2's columns.
+MLP_CUTS = {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}
+
 WHOLE = ModelShard(None, 0, 1)
 """The shard of a conv hybrid's attention that runs whole inside a split
 model (its heads do not divide over the axis): no collective, and its
@@ -690,7 +694,8 @@ def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
                             mlp: nn.Module | None, mode: str = "auto", *,
                             fc1: Conv | None = None, fc2: Conv | None = None,
                             dropout: nn.Dropout | None = None,
-                            generator: torch.Generator | None = None) -> torch.Tensor:
+                            generator: torch.Generator | None = None,
+                            shard: ModelShard | None = None) -> torch.Tensor:
     """``x + mlp(norm(x))`` over an NHWC map, where ``mlp`` is a conv-MLP
     (``fc1`` and ``fc2`` 1x1 :class:`Conv` s, a ``dropout_active`` property):
     with :func:`fused_mlp_eligible`'s gate, through the fused MLP kernel on
@@ -704,26 +709,32 @@ def fused_conv_mlp_residual(x: torch.Tensor, norm: ChannelLayerNorm | None,
     ``mlp=None`` with ``fc1``, ``fc2`` and ``dropout`` is its form for convs
     that no module holds (NesT's, ``vit_tpu/models/nest.py:122-141``): the
     plain path ``x + dropout(fc2(dropout(gelu(fc1(norm(x))))))``, the gate
-    on ``dropout``'s state.  ``generator``, where given, goes to the plain
-    ``mlp``'s forward (its dropout's draws).
+    on ``dropout``'s state; ``shard`` (its owner's, set by
+    ``shard_params``) splits that pair as a split ``mlp`` is split, the
+    plain path with :func:`split_input`, :func:`row_parallel_conv` and
+    :func:`split_dropout`.  ``generator``, where given, goes to the plain
+    ``mlp``'s forward (its dropout's draws) or the loose pair's dropout.
     ``vit_tpu``'s ``c >= 64`` and ``n >= 128`` gates were a TPU's lane and
     sublane reasons and do not carry over: every 16-bit CUDA call goes to the
     kernel."""
     if mlp is not None:
         fc1, fc2, active = mlp.fc1, mlp.fc2, mlp.dropout_active
+        shard = getattr(mlp, "shard", None)
     else:
         active = dropout.training and dropout.p > 0
     if not fused_mlp_gate(x, active, mode):
         xn = x if norm is None else norm(x)
         if mlp is not None:
             return x + (mlp(xn) if generator is None else mlp(xn, generator=generator))
-        return x + dropout(fc2(dropout(gelu_exact(fc1(xn)))))
+        hdn = gelu_exact(fc1(split_input(xn, shard)))
+        hdn = split_dropout(hdn, dropout, shard, generator, hidden=True)
+        return x + split_dropout(row_parallel_conv(fc2, hdn, shard), dropout, shard, generator)
     ln = mlp.norm if norm is None else norm
     b, h, w, c = x.shape
     y = fused_mlp(x.reshape(b, h * w, c).contiguous(), ln.g, ln.b,
                   cast_to(fc1.weight, x).flatten(1), cast_to(fc1.bias, x),
                   cast_to(fc2.weight, x).flatten(1), cast_to(fc2.bias, x), ln.eps,
-                  **group_kw(mlp))
+                  **({"group": shard.group} if _splits(shard) else {}))
     return y.reshape(b, h, w, c)
 
 

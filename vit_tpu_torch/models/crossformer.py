@@ -46,6 +46,20 @@ and ``fused_mlp`` take ``"auto"`` or ``"never"``.  Images are NHWC.  The
 modules carry the Flax names: ``cel_{s}/conv_{i}``,
 ``{short,long}_attn_{s}_{i}`` (``norm``, ``to_qkv``, ``to_out.0``, ``dpb``),
 ``{short,long}_ff_{s}_{i}`` (``norm``, ``fc1``, ``fc2``) and ``head``.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each attention splits by heads (``to_qkv`` by heads in each of q, k and v,
+``to_out``'s columns), each MLP by hidden units, the kernel route on rows
+1–2's and row 5's split forms, the plain one (windows under
+:data:`MIN_FUSED_TOKENS`, f32, the CPU) with Megatron's two functions.  The
+:class:`DynamicPositionBias` stays whole on every rank, a departure from
+``vit_tpu``'s rule table (which matches its ``fc1`` and ``fc2`` by name and
+has GSPMD shard them around the LayerNorm between, no Megatron pair) with the
+same numbers: its table, shared by the heads, reaches the attention through
+``copy_to_model_parallel``, which sums the ranks' shares of its dbias in f32,
+so the DPB's gradients are whole and equal on every rank.  The plan lists its
+parameters under ``replicated``.  A split model's MLP dropout draws from the
+forward's ``generator``.
 """
 
 from __future__ import annotations
@@ -56,8 +70,9 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import cast_tuple, resolve_device
 from vit_tpu_torch.layers.common import (
-    ChannelLayerNorm, Conv, LayerNorm, cast_to, check_fused_mode, fused_conv_mlp_residual,
-    gelu_exact, glorot_linear_, linear, windowed_attention_eligible,
+    MLP_CUTS, QKV, ROW, ChannelLayerNorm, Conv, LayerNorm, cast_to, check_fused_mode,
+    fused_conv_mlp_residual, gelu_exact, glorot_linear_, group_kw, linear, row_parallel_conv,
+    split_dropout, split_input, windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import _unwindows, _windows
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
@@ -234,7 +249,12 @@ class CrossFormerAttention(nn.Module):
     dim_head`` heads, a :class:`DynamicPositionBias` ``dpb`` over
     ``dim // 4`` features, ``to_out`` a 1x1 convolution (``to_out.0``, as the
     converter lays it).  ``dropout`` only gates the kernel route, as in
-    ``vit_tpu``, whose attention applies none."""
+    ``vit_tpu``, whose attention applies none.  ``shard`` (set by
+    ``shard_params``) splits it by heads (``tp_cuts``); ``dpb`` stays whole
+    (the module docstring)."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, attn_type: str, window_size: int, dim_head: int = 32,
                  dropout: float = 0.0, *, device=None, dtype=None, generator=None):
@@ -263,6 +283,12 @@ class CrossFormerAttention(nn.Module):
         in ``dtype``, gathered by the query-key index."""
         return self.dpb(self.rel_coords.to(dtype))[self.rel_index]
 
+    def split_bias(self, dtype: torch.dtype) -> torch.Tensor:
+        """:meth:`position_bias` in f32, through ``copy_to_model_parallel``
+        where the attention is split: the heads of every rank read the one
+        table, and the ranks' shares of its gradient are summed in f32."""
+        return split_input(self.position_bias(dtype).float(), self.shard)
+
     def check_windows(self, h: int, w: int) -> None:
         p = self.window_size
         if h % p or w % p:
@@ -272,13 +298,14 @@ class CrossFormerAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         self.check_windows(h, w)
-        xw = _fold(self.norm(x), self.attn_type, self.window_size)
+        xw = split_input(_fold(self.norm(x), self.attn_type, self.window_size), self.shard)
         q, k, v = (split_heads(t, self.heads) for t in self.to_qkv(xw).chunk(3, dim=-1))
         q = q * self.dim_head ** -0.5
-        sim = q.float() @ k.float().transpose(-1, -2) + self.position_bias(x.dtype).float()
+        sim = q.float() @ k.float().transpose(-1, -2) + self.split_bias(x.dtype)
         attn = torch.softmax(sim, dim=-1)
         out = merge_heads((attn.to(v.dtype).float() @ v.float()).to(v.dtype))
-        return _unfold(self.to_out(out), self.attn_type, b, h, w, self.window_size)
+        return _unfold(row_parallel_conv(self.to_out[0], out, self.shard), self.attn_type, b, h,
+                       w, self.window_size)
 
 
 def crossformer_attention_residual(x: torch.Tensor, attn: CrossFormerAttention,
@@ -290,19 +317,21 @@ def crossformer_attention_residual(x: torch.Tensor, attn: CrossFormerAttention,
     and shared by the launches and the heads (``vit_tpu``'s
     ``_fused_crossformer_attention_residual``, ``crossformer.py:32-87``);
     else the plain modules.  A map the window size does not divide raises
-    either way."""
+    either way.  A split ``attn`` runs row 5's split form over its model
+    group, the shared table whole (:meth:`CrossFormerAttention.split_bias`)."""
     b, h, w, _ = x.shape
     attn.check_windows(h, w)
     p = attn.window_size
     if p * p < MIN_FUSED_TOKENS or not windowed_attention_eligible(x, attn, mode):
         return x + attn(x)
-    bias = attn.position_bias(x.dtype).float()[None].contiguous()
+    bias = attn.split_bias(x.dtype)[None].contiguous()
     out = attn.to_out[0]
     weights = (cast_to(attn.to_qkv.weight, x).flatten(1), cast_to(out.weight, x).flatten(1),
                cast_to(out.bias, x))
     y = torch.cat([fused_attention_block_bias(xw, attn.norm.g, attn.norm.b, *weights, bias,
                                               attn.heads, attn.dim_head,
-                                              attn.dim_head ** -0.5, attn.norm.eps)
+                                              attn.dim_head ** -0.5, attn.norm.eps,
+                                              **group_kw(attn))
                    for xw in _fold(x, attn.attn_type, p).split(MAX_WINDOW_GROUPS)])
     return _unfold(y, attn.attn_type, b, h, w, p)
 
@@ -310,7 +339,12 @@ def crossformer_attention_residual(x: torch.Tensor, attn: CrossFormerAttention,
 class CrossFormerMLP(nn.Module):
     """The MLP with its LayerNorm inside (``vit_tpu/models/crossformer.py:
     267-282``): ``norm`` (a ``ChannelLayerNorm``), 1x1 ``fc1`` → exact GELU →
-    dropout → 1x1 ``fc2``."""
+    dropout → 1x1 ``fc2``.  ``shard`` (set by ``shard_params``) splits it
+    by hidden units (``tp_cuts``), ``fc2``'s bias added once after the sum;
+    ``generator``, where given, draws the dropout."""
+
+    shard = None
+    tp_cuts, tp_multiple = MLP_CUTS, 8
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, *, device=None,
                  dtype=None, generator=None):
@@ -325,8 +359,10 @@ class CrossFormerMLP(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.dropout.p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.dropout(gelu_exact(self.fc1(self.norm(x)))))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        hdn = gelu_exact(self.fc1(split_input(self.norm(x), self.shard)))
+        hdn = split_dropout(hdn, self.dropout, self.shard, generator, hidden=True)
+        return row_parallel_conv(self.fc2, hdn, self.shard)
 
 
 class CrossFormer(nn.Module):
@@ -368,7 +404,9 @@ class CrossFormer(nn.Module):
         self.head = glorot_linear_(nn.Linear(dim_in, num_classes, device=kw["device"],
                                              dtype=dtype), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of the MLPs' active dropout, where given
+        (a split model's raises without one)."""
         x = img.to(self.compute_dtype or self.head.weight.dtype)
         for s, layers in enumerate(self.depth):
             x = getattr(self, f"cel_{s}")(x)
@@ -377,5 +415,5 @@ class CrossFormer(nn.Module):
                     x = crossformer_attention_residual(x, getattr(self, f"{kind}_attn_{s}_{i}"),
                                                        self.fused_attention)
                     x = fused_conv_mlp_residual(x, None, getattr(self, f"{kind}_ff_{s}_{i}"),
-                                                self.fused_mlp)
+                                                self.fused_mlp, generator=generator)
         return linear(self.head, x.mean(dim=(1, 2)))

@@ -37,6 +37,15 @@ with ``pos_emb``, ``attn_norm_{i}``, ``attn_{i}`` (``to_qkv``,
 ``to_out.0``), ``mlp_norm_{i}``, ``mlp_fc1_{i}`` and ``mlp_fc2_{i}``, then
 ``aggregate_conv_{idx}``, ``aggregate_norm_{idx}``, ``head_norm`` and
 ``head``.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each :class:`NesTAttention` splits by heads (``to_qkv`` by heads in each of
+q, k and v, ``to_out``'s columns), on rows 3–4's split form over the folded
+blocks; one whose heads the axis does not divide (NesT@224's hierarchy 1, 3
+heads, at tp 2) runs whole on every rank and the plan lists it.  Each
+:class:`NesTTransformer`'s loose ``mlp_fc1_{i}`` / ``mlp_fc2_{i}`` pairs
+split by hidden units, as MobileViT's blocks, on rows 1–2's split form.  The
+dropouts of a split model draw from the forward's ``generator``.
 """
 
 from __future__ import annotations
@@ -46,8 +55,9 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import cast_tuple, resolve_device
 from vit_tpu_torch.layers.common import (
-    ChannelLayerNorm, Conv, cast_to, check_fused_mode, fused_conv_mlp_residual, glorot_linear_,
-    linear, max_pool_same, windowed_attention_eligible,
+    COLUMN, QKV, ROW, ChannelLayerNorm, Conv, cast_to, check_fused_mode, fused_conv_mlp_residual,
+    glorot_linear_, group_kw, linear, max_pool_same, row_parallel_conv, split_dropout,
+    split_input, windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import _unwindows, _windows
 from vit_tpu_torch.models.twins_svt import _attention
@@ -62,7 +72,12 @@ MAX_WINDOW_GROUPS = SHORT_MAX_BATCH
 class NesTAttention(nn.Module):
     """``vit_tpu/models/nest.py:57-88``: dim_head = dim // heads, ``to_qkv``
     a 1x1 convolution without a bias (q|k|v thirds), ``to_out`` a 1x1
-    convolution and its dropout."""
+    convolution and its dropout.  ``shard`` (set by ``shard_params``)
+    splits it by heads (``tp_cuts``), ``to_out``'s bias added once after the
+    sum; ``generator``, where given, draws the dropout."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dropout: float = 0.0, **kw):
         super().__init__()
@@ -76,29 +91,32 @@ class NesTAttention(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.to_out[1].p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = x.shape
-        q, k, v = self.to_qkv(x).flatten(1, 2).chunk(3, dim=-1)
+        q, k, v = self.to_qkv(split_input(x, self.shard)).flatten(1, 2).chunk(3, dim=-1)
         out = _attention(q, k, v, self.heads, self.dim_head ** -0.5)
-        return self.to_out(out.reshape(b, h, w, -1))
+        return split_dropout(row_parallel_conv(self.to_out[0], out.reshape(b, h, w, -1),
+                                               self.shard), self.to_out[1], self.shard, generator)
 
 
 def nest_attention_residual(x: torch.Tensor, norm: ChannelLayerNorm, attn: NesTAttention,
-                            mode: str = "auto") -> torch.Tensor:
+                            mode: str = "auto",
+                            generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + attn(norm(x))`` over a ``(blocks, h, w, c)`` map: with
     :func:`windowed_attention_eligible`'s gate, through the fused attention
     block over ``(blocks, h·w, c)`` in launches of at most
     :data:`MAX_WINDOW_GROUPS` blocks (``vit_tpu``'s
     ``_fused_nest_attention_residual``, ``nest.py:26-54``); else the plain
-    modules."""
+    modules (``generator`` their dropout's draws, where given).  A split
+    ``attn`` runs rows 3–4's split form over its model group."""
     if not windowed_attention_eligible(x, attn, mode):
-        return x + attn(norm(x))
+        return x + attn(norm(x), generator)
     b, h, w, c = x.shape
     out = attn.to_out[0]
     weights = (cast_to(attn.to_qkv.weight, x).flatten(1), cast_to(out.weight, x).flatten(1),
                cast_to(out.bias, x))
     ys = [fused_attention_block(xg, norm.g, norm.b, *weights, attn.heads, attn.dim_head,
-                                attn.dim_head ** -0.5, norm.eps)
+                                attn.dim_head ** -0.5, norm.eps, **group_kw(attn))
           for xg in x.reshape(b, h * w, c).contiguous().split(MAX_WINDOW_GROUPS)]
     return (ys[0] if len(ys) == 1 else torch.cat(ys)).reshape(b, h, w, c)
 
@@ -107,7 +125,13 @@ class NesTTransformer(nn.Module):
     """``vit_tpu/models/nest.py:91-142``: ``pos_emb``, one scalar a token
     (``seq_len`` of them, drawn normal(1.0)) added over the channels, then
     ``depth`` layers of ``attn_norm_{i}``, ``attn_{i}``, ``mlp_norm_{i}``,
-    ``mlp_fc1_{i}`` (c → mlp_mult·c) and ``mlp_fc2_{i}``."""
+    ``mlp_fc1_{i}`` (c → mlp_mult·c) and ``mlp_fc2_{i}``.  ``shard`` (set by
+    ``shard_params``) splits the MLPs by hidden units (``tp_cuts``:
+    ``mlp_fc1_{i}``'s rows and bias, ``mlp_fc2_{i}``'s columns), as
+    MobileViT's blocks; ``generator``, where given, draws every dropout."""
+
+    shard = None
+    tp_multiple = 8
 
     def __init__(self, dim: int, seq_len: int, depth: int, heads: int, mlp_mult: int,
                  dropout: float = 0.0, fused_attention: str = "auto", fused_mlp: str = "auto",
@@ -132,15 +156,23 @@ class NesTTransformer(nn.Module):
             self.add_module(f"mlp_fc2_{i}", Conv(dim * mlp_mult, dim, 1, generator=generator,
                                                  **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def tp_cuts(self) -> dict:
+        return {f"mlp_{name}_{i}.{leaf}": kind for i in range(self.depth)
+                for name, leaf, kind in (("fc1", "weight", COLUMN), ("fc1", "bias", COLUMN),
+                                         ("fc2", "weight", ROW))}
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         _, h, w, _ = x.shape
         x = x + self.pos_emb[:h * w].reshape(1, h, w, 1).to(x.dtype)
         for i in range(self.depth):
             x = nest_attention_residual(x, getattr(self, f"attn_norm_{i}"),
-                                        getattr(self, f"attn_{i}"), self.fused_attention)
+                                        getattr(self, f"attn_{i}"), self.fused_attention,
+                                        generator)
             x = fused_conv_mlp_residual(x, getattr(self, f"mlp_norm_{i}"), None, self.fused_mlp,
                                         fc1=getattr(self, f"mlp_fc1_{i}"),
-                                        fc2=getattr(self, f"mlp_fc2_{i}"), dropout=self.dropout)
+                                        fc2=getattr(self, f"mlp_fc2_{i}"), dropout=self.dropout,
+                                        generator=generator, shard=self.shard)
         return x
 
 
@@ -176,7 +208,9 @@ class NesT(nn.Module):
         self.head_norm = ChannelLayerNorm(layer_dims[-1], **kw)
         self.head = glorot_linear_(nn.Linear(layer_dims[-1], num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of every active dropout, where given (a
+        split model's raises without one)."""
         x = img.to(self.compute_dtype or self.head.weight.dtype)
         b, hh, ww, _ = x.shape
         p = self.patch_size
@@ -188,7 +222,7 @@ class NesT(nn.Module):
             h, w = hh // blocks, ww // blocks
             # b (b1 h) (b2 w) c -> (b b1 b2) h w c, and back
             x = _windows(x, h, w).reshape(-1, h, w, c)
-            x = getattr(self, f"transformer_{idx}")(x)
+            x = getattr(self, f"transformer_{idx}")(x, generator)
             x = _unwindows(x.reshape(-1, h * w, c), b, hh, ww, h, w)
             if idx < self.num_hierarchies - 1:
                 x = getattr(self, f"aggregate_conv_{idx}")(x)

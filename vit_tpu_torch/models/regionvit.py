@@ -51,6 +51,17 @@ and ``local_norm{0,1}``), ``region_encoder``, ``downsample_{s}``,
 ``peg_{s}``, ``transformer_{s}`` with ``attn_{i}`` (``norm``, ``to_qkv``,
 ``to_out.0``), ``ff_{i}`` (``norm``, ``fc1``, ``fc2``) and
 ``local_rel_pos_bias``, then ``head_norm`` and ``head``.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each :class:`RegionAttention` splits by heads (``to_qkv`` by heads in each of
+q, k and v, ``to_out``'s columns) on both of its calls, the region
+self-attention on rows 3–4's split form and the joint rows on row 5's with
+this rank's heads of the bias; each stage's ``local_rel_pos_bias`` table is
+cut by heads with them (its columns, as LeViT's position bias), so the bias
+and its gradient stay this rank's.  :class:`RegionMLP`, plain in
+``vit_tpu``, splits as a Megatron pair (``fc1``'s rows and bias, ``fc2``'s
+columns).  A split model's MLP dropout draws from the forward's
+``generator``.
 """
 
 from __future__ import annotations
@@ -63,7 +74,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import cast_tuple, divisible_by, resolve_device
 from vit_tpu_torch.layers.common import (
-    Conv, GroupedConv, LayerNorm, cast_to, check_fused_mode, gelu_exact, glorot_linear_, linear,
+    MLP_CUTS, QKV, ROW, Conv, GroupedConv, LayerNorm, cast_to, check_fused_mode, gelu_exact,
+    glorot_linear_, group_kw, linear, row_parallel_output, split_dropout, split_input,
     windowed_attention_eligible,
 )
 from vit_tpu_torch.models.scalable_vit import _unwindows, _windows
@@ -82,7 +94,11 @@ class RegionAttention(nn.Module):
     (``vit_tpu/models/regionvit.py:71-99``): ``norm`` (eps 1e-3), ``to_qkv``
     without a bias (q|k|v thirds), ``to_out`` (``to_out.0``, as the converter
     lays it).  ``dropout`` only gates the kernel route, as in ``vit_tpu``,
-    whose attention applies none."""
+    whose attention applies none.  ``shard`` (set by ``shard_params``)
+    splits it by heads (``tp_cuts``)."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, dropout: float = 0.0, *,
                  device=None, dtype=None, generator=None):
@@ -99,22 +115,28 @@ class RegionAttention(nn.Module):
         return self.training and self.dropout > 0
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-        """``x`` ``(b, n, dim)``; ``bias`` None or ``(heads, n, n)``."""
-        q, k, v = (split_heads(t, self.heads)
-                   for t in linear(self.to_qkv, self.norm(x)).chunk(3, dim=-1))
+        """``x`` ``(b, n, dim)``; ``bias`` None or ``(heads, n, n)`` (this
+        rank's heads where split)."""
+        xn = split_input(self.norm(x), self.shard)
+        q, k, v = (split_heads(t, self.heads) for t in linear(self.to_qkv, xn).chunk(3, dim=-1))
         q = q * self.dim_head ** -0.5
         sim = q.float() @ k.float().transpose(-1, -2)
         if bias is not None:
             sim = sim + bias.float()
         attn = torch.softmax(sim, dim=-1)
         out = merge_heads((attn.to(v.dtype).float() @ v.float()).to(v.dtype))
-        return linear(self.to_out[0], out)
+        return row_parallel_output(self.to_out[0], out, self.shard)
 
 
 class RegionMLP(nn.Module):
     """The MLP with its LayerNorm inside (``vit_tpu/models/regionvit.py:
     102-117``): ``norm`` (eps 1e-3) → ``fc1`` → exact GELU → dropout →
-    ``fc2``."""
+    ``fc2``.  ``shard`` (set by ``shard_params``) splits it by hidden units
+    (``tp_cuts``), ``fc2``'s bias added once after the sum; ``generator``,
+    where given, draws the dropout."""
+
+    shard = None
+    tp_cuts = MLP_CUTS
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0, *, device=None,
                  dtype=None, generator=None):
@@ -125,8 +147,10 @@ class RegionMLP(nn.Module):
         self.fc2 = glorot_linear_(nn.Linear(dim * mult, dim, **kw), generator)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(self.fc2, self.dropout(gelu_exact(linear(self.fc1, self.norm(x)))))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        hdn = gelu_exact(linear(self.fc1, split_input(self.norm(x), self.shard)))
+        hdn = split_dropout(hdn, self.dropout, self.shard, generator, hidden=True)
+        return row_parallel_output(self.fc2, hdn, self.shard)
 
 
 def region_attention_residual(x: torch.Tensor, attn: RegionAttention, mode: str = "auto",
@@ -138,7 +162,8 @@ def region_attention_residual(x: torch.Tensor, attn: RegionAttention, mode: str 
     (``vit_tpu``'s ``_fused_region_attention_residual``,
     ``regionvit.py:28-68``); else the plain modules.  ``vit_tpu``'s ``G <
     128`` decline is dropped: it kept a TPU compiler's module small (the
-    module docstring), which no launch here needs."""
+    module docstring), which no launch here needs.  A split ``attn`` runs
+    the split forms over its model group, ``bias`` this rank's heads."""
     if not windowed_attention_eligible(x, attn, mode):
         return x + attn(x, bias)
     out = attn.to_out[0]
@@ -146,8 +171,9 @@ def region_attention_residual(x: torch.Tensor, attn: RegionAttention, mode: str 
     args = (norm.weight, norm.bias, cast_to(attn.to_qkv.weight, x), cast_to(out.weight, x),
             cast_to(out.bias, x))
     shape = (attn.heads, attn.dim_head, attn.dim_head ** -0.5, norm.eps)
-    ys = [fused_attention_block(xg, *args, *shape) if bias is None
-          else fused_attention_block_bias(xg, *args, bias, *shape)
+    kw = group_kw(attn)
+    ys = [fused_attention_block(xg, *args, *shape, **kw) if bias is None
+          else fused_attention_block_bias(xg, *args, bias, *shape, **kw)
           for xg in x.contiguous().split(MAX_WINDOW_GROUPS)]
     return ys[0] if len(ys) == 1 else torch.cat(ys)
 
@@ -174,7 +200,12 @@ class R2LTransformer(nn.Module):
     """Regional-to-local attention layers over a stage
     (``vit_tpu/models/regionvit.py:120-198``): ``attn_{i}`` and ``ff_{i}`` a
     layer, one ``local_rel_pos_bias`` table ((2w − 1)² x heads) for the
-    stage."""
+    stage.  ``shard`` (set by ``shard_params``) cuts the table by heads
+    (``tp_cuts``: its columns) with its attentions; ``heads`` becomes the
+    local count."""
+
+    shard = None
+    tp_cuts = {"local_rel_pos_bias.weight": ROW}
 
     def __init__(self, dim: int, window_size: int, depth: int = 4, heads: int = 4,
                  dim_head: int = 32, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
@@ -183,7 +214,7 @@ class R2LTransformer(nn.Module):
         device = resolve_device(device)
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.fused_attention = check_fused_mode("fused_attention", fused_attention)
-        self.window_size, self.depth = window_size, depth
+        self.window_size, self.depth, self.heads = window_size, depth, heads
         self.local_rel_pos_bias = nn.Embedding((2 * window_size - 1) ** 2, heads, device=device,
                                                dtype=dtype)
         with torch.no_grad():  # Flax's Embed: normal over variance 1 / features
@@ -203,10 +234,12 @@ class R2LTransformer(nn.Module):
         bias = self.local_rel_pos_bias(index).permute(2, 0, 1)
         return F.pad(bias.float(), (1, 0, 1, 0)).contiguous()
 
-    def forward(self, local_tokens: torch.Tensor, region_tokens: torch.Tensor) -> tuple:
+    def forward(self, local_tokens: torch.Tensor, region_tokens: torch.Tensor,
+                generator: torch.Generator | None = None) -> tuple:
         """``local_tokens`` ``(b, lh, lw, c)`` and ``region_tokens`` ``(b, rh,
         rw, c)`` → both, updated.  Each window of ``(lh / rh) x (lw / rw)``
-        local tokens belongs to one region token."""
+        local tokens belongs to one region token.  ``generator``: the MLPs'
+        dropout draws, where given."""
         b, lh, lw, c = local_tokens.shape
         rh, rw = region_tokens.shape[1:3]
         wh, ww = lh // rh, lw // rw
@@ -221,7 +254,7 @@ class R2LTransformer(nn.Module):
                                                self.fused_attention)
             joint = torch.cat([region.reshape(b * regions, 1, c), joint[:, 1:]], dim=1)
             joint = region_attention_residual(joint, attn, self.fused_attention, bias)
-            joint = ff(joint) + joint
+            joint = ff(joint, generator) + joint
         return (_unwindows(joint[:, 1:], b, lh, lw, wh, ww),
                 joint[:, 0].reshape(b, rh, rw, c))
 
@@ -276,7 +309,9 @@ class RegionViT(nn.Module):
         x = gelu_exact(self.local_norm1(self.local_conv1(x)))
         return self.local_conv2(x)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of the MLPs' active dropout, where given
+        (a split model's raises without one)."""
         x = img.to(self.compute_dtype or self.head.weight.dtype)
         b, h, w, c = x.shape
         p = self.local_patch_size * self.window_size
@@ -294,5 +329,5 @@ class RegionViT(nn.Module):
                 local, region = down(local), down(region)
                 if self.use_peg:
                     local = getattr(self, f"peg_{s}")(local) + local
-            local, region = getattr(self, f"transformer_{s}")(local, region)
+            local, region = getattr(self, f"transformer_{s}")(local, region, generator)
         return linear(self.head, self.head_norm(region.mean(dim=(1, 2))))

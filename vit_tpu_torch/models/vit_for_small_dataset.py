@@ -20,6 +20,17 @@ through ``fused_mlp_residual``.  ``vit_tpu``'s window for its TPU kernels
 (128 ≤ n ≤ 1024 and d ≥ 128, ``vit_tpu/layers/common.py:282-303``) was
 measured on a TPU for its VMEM and layouts, and does not carry over.
 ``"never"`` runs the plain LSA.
+
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each LSA splits by heads (``to_qkv`` by heads in each of q, k and v,
+``to_out``'s columns), each MLP by hidden units (``layers/common.py``'s
+``MLP`` split, rows 1–2's split form on the card); the kernel route runs row
+5's split form with the mask whole on every rank.  The temperature is one
+replicated scalar that scales this rank's heads alone, so it reaches them
+through ``copy_to_model_parallel`` (its gradient summed over the model
+group), on the kernel route and the plain one.  SPT, the embeddings and the
+head replicate.  The dropouts of a split model draw from the forward's
+``generator``.
 """
 
 from __future__ import annotations
@@ -30,8 +41,9 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, LayerNorm, apply_output, cast_to, check_fused_mode, fused_mlp_residual, glorot_linear_,
-    kernel_activation, linear, output_projection,
+    MLP, MLP_CUTS, QKV, ROW, LayerNorm, cast_to, check_fused_mode, dropout, fused_mlp_residual,
+    glorot_linear_, group_kw, kernel_activation, linear, output_projection, row_parallel_output,
+    split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention, mask_value
 from vit_tpu_torch.ops.fused_attention_block import fused_attention_block_bias
@@ -58,16 +70,20 @@ def apply_fused_lsa_block(norm: LayerNorm, attn: "LSA", x: torch.Tensor,
     autograd, and the kernel runs with ``scale=1.0``; the temperature's
     gradient then reaches it through the kernel's ``dWqkv``.  The diagonal
     self-mask is the additive ``bias``, a constant, so no ``dbias`` is
-    computed.
+    computed.  A split ``attn`` (its ``shard`` set) runs row 5's split form
+    over its model group: its q rows are its heads', and the temperature
+    reaches them through ``copy_to_model_parallel``, which sums the heads'
+    shares of its gradient over the group.
     """
     inner = attn.heads * attn.dim_head
     w = attn.to_qkv.weight
-    wq = (w[:inner].float() * attn.temperature.float().exp()).to(x.dtype)
+    temperature = split_input(attn.temperature, attn.shard)
+    wq = (w[:inner].float() * temperature.float().exp()).to(x.dtype)
     wqkv = torch.cat([wq, w[inner:].to(x.dtype)])
     out = attn.to_out[0]
     return fused_attention_block_bias(x, norm.weight, norm.bias, wqkv, cast_to(out.weight, x),
                                       cast_to(out.bias, x), bias, attn.heads, attn.dim_head,
-                                      1.0, norm.eps)
+                                      1.0, norm.eps, **group_kw(attn))
 
 
 def shift_4(x: torch.Tensor) -> list[torch.Tensor]:
@@ -173,7 +189,13 @@ class LSA(nn.Module):
     ``log(dim_head ** -0.5)``) scales the f32 logits, the diagonal is replaced
     by ``mask_value(f32)``, the softmax runs in exact f32 and its rounded
     probabilities multiply v (``apply_attention``), as ``vit_tpu``'s eager
-    LSA.  Always projects out."""
+    LSA.  Always projects out.  ``shard`` (set by ``shard_params``) splits
+    it by heads (``tp_cuts``), the temperature through
+    ``copy_to_model_parallel``; ``generator``, where given, draws the
+    dropout."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0, *,
                  device=None, dtype=None, generator=None):
@@ -193,15 +215,17 @@ class LSA(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.to_out[1].p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, n, _ = x.shape
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
-                   for t in linear(self.to_qkv, x).chunk(3, dim=-1))
-        dots = (q.float() @ k.float().transpose(-1, -2)) * self.temperature.float().exp()
+                   for t in linear(self.to_qkv, split_input(x, self.shard)).chunk(3, dim=-1))
+        temperature = split_input(self.temperature, self.shard)
+        dots = (q.float() @ k.float().transpose(-1, -2)) * temperature.float().exp()
         eye = torch.eye(n, dtype=torch.bool, device=x.device)
         attn = torch.softmax(dots.masked_fill(eye, mask_value(torch.float32)), dim=-1)
         out = apply_attention(attn, v).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return apply_output(self.to_out, out)
+        return split_dropout(row_parallel_output(self.to_out[0], out, self.shard), self.to_out[1],
+                             self.shard, generator)
 
 
 def fused_lsa_eligible(x: torch.Tensor, attn: LSA, mode: str) -> bool:
@@ -217,8 +241,10 @@ class ViT(nn.Module):
     """Constructor parity: reference vit_for_small_dataset.py:160-172.
 
     ``layers[i]`` holds ``attn_norm``, ``attn`` (:class:`LSA`), ``mlp_norm``
-    and ``mlp`` (``attn_norm_{i}`` … at the top of the Flax tree).  See the
-    module docstring for the dtypes, the device and the dispatch.
+    and ``mlp`` (``attn_norm_{i}`` … at the top of the Flax tree), each
+    ``mlp`` declaring its cuts (``tp_cuts``, ``layers/common.py``'s
+    ``MLP_CUTS``) for ``shard_params``.  See the module docstring for the
+    dtypes, the device, the dispatch and the split.
     """
 
     def __init__(self, image_size, patch_size, num_classes: int, dim: int, depth: int,
@@ -256,14 +282,22 @@ class ViT(nn.Module):
                 "mlp": MLP(dim, mlp_dim, dropout, generator=generator, **kw),
             })
             for _ in range(depth))
+        for layer in self.layers:  # split by shard_params as a Transformer's MLP
+            layer["mlp"].tp_cuts, layer["mlp"].tp_multiple = MLP_CUTS, 8
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of every active dropout (``vit_tpu``'s
+        ``rng``); a split model's dropout raises without one."""
         x = self.patch_embedding(img.to(self.compute_dtype or self.cls_token.dtype))
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
-        x = self.emb_dropout(x + self.pos_embedding[:, : n + 1].to(x.dtype))
+        x = x + self.pos_embedding[:, : n + 1].to(x.dtype)
+        if generator is None and getattr(self, "tensor_parallel", None) is None:
+            x = self.emb_dropout(x)
+        else:
+            x = dropout(x, self.emb_dropout.p, self.training, generator)
 
         bias = None  # LSA's mask, built once for every layer that takes the kernel
         for layer in self.layers:
@@ -272,8 +306,8 @@ class ViT(nn.Module):
                     bias = lsa_bias(x.shape[1], x.device)
                 x = apply_fused_lsa_block(layer["attn_norm"], layer["attn"], x, bias)
             else:
-                x = x + layer["attn"](layer["attn_norm"](x))
-            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp)
+                x = x + layer["attn"](layer["attn_norm"](x), generator)
+            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp, generator)
 
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         return linear(self.head, self.head_norm(x))

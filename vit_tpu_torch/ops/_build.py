@@ -81,16 +81,18 @@ SIGNATURES = {
     "vit_fused_attention_block_fwd_partial": (
         # x, gamma, beta, wqkv, wo, s (f32), xn, qkv, oattn, lse (or null),
         # strides (q, k, v, out: batch, head, row), route (0 short, 1 mha),
-        [_P] * 10 + [_LL, _I]
+        # bias (or null), hb,
+        [_P] * 10 + [_LL, _I] + [_P, _I]
         # b, n, d, heads, dim_head, scale, eps, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _F, _I, _P],
         ctypes.c_int,
     ),
     "vit_fused_attention_block_bwd_partial": (
         # dy, qkv, oattn, lse, wqkv, wo, dqkv, doattn, dxn (f32), strides (q,
-        # k, v, out, dout, dq, dk, dv: batch, head, row), route, dq_part and
-        # dsum (or null),
-        [_P] * 9 + [_LL, _I] + [_P] * 2
+        # k, v, out, dout, dq, dk, dv: batch, head, row), route, dq_part, dsum
+        # and rowstat (or null), bias (or null), hb, dbias and dbias_part (or
+        # null),
+        [_P] * 9 + [_LL, _I] + [_P] * 3 + [_P, _I, _P, _P]
         # b, n, d, heads, dim_head, scale, dtype, stream
         + [_I, _I, _I, _I, _I, _F, _I, _P],
         ctypes.c_int,

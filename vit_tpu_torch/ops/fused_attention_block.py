@@ -71,11 +71,13 @@ backward's recomputed softmax; its gradient ``dbias`` is the f32 sum over the
 batch (and over the heads when hb = 1) of ``p·(dp - dsum)``, taken before
 the scale, computed only when asked for.
 
-Tensor parallelism (``group=``, the mesh's model group; unbiased): each rank
-holds its heads, ``wqkv`` the rows of its heads in each of q, k and v and
-``wo`` their columns, ``heads`` the local count.  The split form
+Tensor parallelism (``group=``, the mesh's model group): each rank holds
+its heads, ``wqkv`` the rows of its heads in each of q, k and v and ``wo``
+their columns, ``heads`` the local count.  The split form
 (:func:`fused_attention_block_partial_forward`,
-:func:`fused_attention_block_partial_backward`; C's
+:func:`fused_attention_block_partial_backward`, with a bias
+:func:`fused_attention_block_bias_partial_forward`,
+:func:`fused_attention_block_bias_partial_backward`; C's
 ``vit_fused_attention_block_{fwd,bwd}_partial``) stops at the reductions: the
 forward at the f32 partial ``s = oattn·Woᵀ``, which the ranks sum before
 :func:`~vit_tpu_torch.ops.tensor_parallel.bias_residual` gives ``T(x + T(Σ s +
@@ -83,8 +85,16 @@ bo))``; the backward at the f32 partial ``dxn = dqkv·Wqkv``, which the ranks
 sum before :func:`~vit_tpu_torch.ops.tensor_parallel.ln_backward` gives dx and
 ``[dγ | dβ | dbo]``, the same on every rank.  The LayerNorm backward cannot be
 the dgrad's epilogue there (``kEpiLnBwd`` needs the whole dxn on chip).  A
-split block is the unsplit one up to the f32 summation order.  Plain
-versions: :func:`fused_attention_block_partial_forward_reference`,
+bias is given as the rank reads it: a per-head one ``(heads, n, n)`` holds
+this rank's heads (in the order of its q, k and v rows, the cut of
+``parallel/sharding.py``'s ``QKV``), and its dbias is this rank's own; a
+shared one ``(1, n, n)`` is whole on every rank, and its dbias is this rank's
+partial sum over its heads, which the caller sums over the group in f32
+(:func:`~vit_tpu_torch.ops.tensor_parallel.copy_to_model_parallel` on the
+bias before the call) before it reaches the bias's producer.  The dbias call
+keeps the rows' exact ``dsum = Σ p·dp`` on both routes.  A split block is
+the unsplit one up to the f32 summation order.  Plain versions:
+:func:`fused_attention_block_partial_forward_reference`,
 :func:`fused_attention_block_partial_backward_reference`.
 """
 
@@ -585,25 +595,27 @@ def _launch_backward(dy, x, qkv, gamma, wqkv, wo, heads, dim_head, scale, eps, b
 
 def fused_attention_block_partial_forward_reference(x, gamma, beta, wqkv, wo, heads: int,
                                                     dim_head: int, scale: float | None = None,
-                                                    eps: float = 1e-3):
+                                                    eps: float = 1e-3, bias=None):
     """Plain PyTorch version of the split form's forward: ``(s, xn, qkv,
     oattn, lse)``, ``s = oattn·Woᵀ`` in f32 (no bias, no residual) over this
     rank's ``heads`` (``wqkv`` ``(3·heads·dim_head, d)``, ``wo`` ``(d,
     heads·dim_head)``), the attention on :func:`attention_route`'s route as
-    the kernels take it (the short route's rounded p, the mha route's late
-    divide), lse f32 ``(b, heads, n)``.  In f32 the sum of the ranks' s plus
-    bo and x is :func:`fused_attention_block_forward_reference`'s y."""
+    the kernels take it (the short route's rounded p without a bias, the
+    late divide with one or on the mha route), lse f32 ``(b, heads, n)``.
+    ``bias``: None, or an f32 logits bias ``(1, n, n)`` (shared, whole) or
+    ``(heads, n, n)`` (this rank's heads).  In f32 the sum of the ranks' s
+    plus bo and x is :func:`fused_attention_block_forward_reference`'s y."""
     if scale is None:
         scale = dim_head ** -0.5
     xn, qkv = _ln_qkv(x, gamma, beta, wqkv, eps)
     if attention_route(x.shape[1]) == "short":
         oattn = torch.empty(x.shape[:-1] + (heads * dim_head,), dtype=x.dtype, device=x.device)
         q, k, v, o = attention_forward_views(qkv, oattn, heads, dim_head)
-        out, lse = short_attention_forward_reference(q, k, v, scale)
+        out, lse = short_attention_forward_reference(q, k, v, scale, bias)
         o.copy_(out)
     else:
         q, k, v = (_split_heads(t, heads, dim_head) for t in qkv.chunk(3, dim=-1))
-        logits = _logits(q, k, scale, None)
+        logits = _logits(q, k, scale, bias)
         e = torch.exp(logits - logits.amax(-1, keepdim=True))
         oattn = _merge_heads(((e.to(x.dtype).float() @ v) / e.sum(-1, keepdim=True)).to(x.dtype))
         lse = torch.logsumexp(logits, dim=-1)
@@ -612,22 +624,30 @@ def fused_attention_block_partial_forward_reference(x, gamma, beta, wqkv, wo, he
 
 def fused_attention_block_partial_backward_reference(dy, qkv, oattn, lse, wqkv, wo, heads: int,
                                                      dim_head: int,
-                                                     scale: float | None = None):
+                                                     scale: float | None = None, bias=None,
+                                                     need_dbias: bool = True):
     """Plain PyTorch version of the split form's backward: ``(dxn, dqkv,
     doattn)``, ``dxn = dqkv·Wqkv`` in f32 over this rank's heads, from the
     forward's qkv, oattn and lse, the attention backward as both routes take
-    it on the card (:func:`fused_attention_block_lse_backward_reference`)."""
+    it on the card (:func:`fused_attention_block_lse_backward_reference`).
+    With a ``bias`` (as the forward's), ``dbias`` follows in f32 (``None``
+    unless ``need_dbias``): this rank's heads' own for a per-head bias, this
+    rank's partial sum over its heads for a shared one; the dbias call takes
+    each row's exact ``dsum = Σ softmax·dp``."""
     if scale is None:
         scale = dim_head ** -0.5
     d = dy.shape[-1]
     doattn = (dy.reshape(-1, d).float() @ wo.float()).to(dy.dtype).reshape(oattn.shape)
     dqkv = torch.empty_like(qkv)
     q, k, v, o, do, dq, dk, dv = attention_backward_views(qkv, oattn, doattn, dqkv, heads, dim_head)
-    for dst, src in zip((dq, dk, dv), short_attention_backward_reference(q, k, v, o, lse, do,
-                                                                          scale)):
+    grads = short_attention_backward_reference(q, k, v, o, lse, do, scale, bias,
+                                               need_dbias=bias is not None and need_dbias)
+    for dst, src in zip((dq, dk, dv), grads):
         dst.copy_(src)
     dxn = dqkv.reshape(-1, dqkv.shape[-1]).float() @ wqkv.float()
-    return dxn, dqkv, doattn
+    if bias is None:
+        return dxn, dqkv, doattn
+    return dxn, dqkv, doattn, grads[3] if need_dbias else None
 
 
 def fused_attention_block_partial_forward(x, gamma, beta, wqkv, wo, heads: int, dim_head: int,
@@ -639,11 +659,39 @@ def fused_attention_block_partial_forward(x, gamma, beta, wqkv, wo, heads: int, 
     tensor launches ``vit_fused_attention_block_fwd_partial`` or raises.
     ``fused_attention_block_partial_forward.launches`` counts kernel
     launches (and ``FORWARD_ROUTES`` its attention's route)."""
+    out = _partial_forward(x, gamma, beta, wqkv, wo, None, heads, dim_head, scale, eps, training)
+    if x.device.type != "cpu":
+        fused_attention_block_partial_forward.launches += 1
+    return out
+
+
+fused_attention_block_partial_forward.launches = 0
+
+
+def fused_attention_block_bias_partial_forward(x, gamma, beta, wqkv, wo, bias, heads: int,
+                                               dim_head: int, scale: float | None = None,
+                                               eps: float = 1e-3, training: bool = False):
+    """:func:`fused_attention_block_partial_forward` with a logits ``bias``,
+    contiguous f32 ``(1, n, n)`` (shared, whole) or ``(heads, n, n)`` (this
+    rank's heads); anything else raises ``ValueError``.  Launches the same
+    entry, counted on ``fused_attention_block_bias_partial_forward.launches``
+    apart from the unbiased form's."""
+    check_bias(bias, x, heads)
+    out = _partial_forward(x, gamma, beta, wqkv, wo, bias, heads, dim_head, scale, eps, training)
+    if x.device.type != "cpu":
+        fused_attention_block_bias_partial_forward.launches += 1
+    return out
+
+
+fused_attention_block_bias_partial_forward.launches = 0
+
+
+def _partial_forward(x, gamma, beta, wqkv, wo, bias, heads, dim_head, scale, eps, training):
     if scale is None:
         scale = dim_head ** -0.5
     if x.device.type == "cpu":
         s, xn, qkv, oattn, lse = fused_attention_block_partial_forward_reference(
-            x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps)
+            x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps, bias)
         return s, xn, qkv, oattn, lse if training else None
     b, n, d = x.shape
     inner = heads * dim_head
@@ -660,15 +708,12 @@ def fused_attention_block_partial_forward(x, gamma, beta, wqkv, wo, heads: int, 
         err = lib.vit_fused_attention_block_fwd_partial(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(), wo.data_ptr(),
             s.data_ptr(), xn.data_ptr(), qkv.data_ptr(), oattn.data_ptr(), data_ptr(lse),
-            _attention_strides(b, n, heads, dim_head, backward=False), ROUTE_CODES[route], b, n,
-            d, heads, dim_head, float(scale), eps, _build.DTYPE_CODES[x.dtype], launch_stream(x))
+            _attention_strides(b, n, heads, dim_head, backward=False), ROUTE_CODES[route],
+            *_bias_args(bias), b, n, d, heads, dim_head, float(scale), eps,
+            _build.DTYPE_CODES[x.dtype], launch_stream(x))
     _build.check(err, "vit_fused_attention_block_fwd_partial")
-    fused_attention_block_partial_forward.launches += 1
     FORWARD_ROUTES[route].launches += 1
     return s, xn, qkv, oattn, lse
-
-
-fused_attention_block_partial_forward.launches = 0
 
 
 def fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo, heads: int,
@@ -680,11 +725,41 @@ def fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo, heads:
     ``vit_fused_attention_block_bwd_partial`` or raises.
     ``fused_attention_block_partial_backward.launches`` counts kernel
     launches (and ``BACKWARD_ROUTES`` its attention's route)."""
+    out = _partial_backward(dy, qkv, oattn, lse, wqkv, wo, None, heads, dim_head, scale, False)
+    if dy.device.type != "cpu":
+        fused_attention_block_partial_backward.launches += 1
+    return out
+
+
+fused_attention_block_partial_backward.launches = 0
+
+
+def fused_attention_block_bias_partial_backward(dy, qkv, oattn, lse, wqkv, wo, bias, heads: int,
+                                                dim_head: int, scale: float | None = None,
+                                                need_dbias: bool = True):
+    """The split form's backward with a logits ``bias`` (as its forward's):
+    ``(dxn, dqkv, doattn, dbias)``, what
+    :func:`fused_attention_block_partial_backward_reference` returns, dbias
+    (in a fixed order, the same bits every run) only when ``need_dbias``,
+    else ``None``.  Launches ``vit_fused_attention_block_bwd_partial``,
+    counted on ``fused_attention_block_bias_partial_backward.launches``."""
+    check_bias(bias, dy, heads)
+    out = _partial_backward(dy, qkv, oattn, lse, wqkv, wo, bias, heads, dim_head, scale,
+                            need_dbias)
+    if dy.device.type != "cpu":
+        fused_attention_block_bias_partial_backward.launches += 1
+    return out
+
+
+fused_attention_block_bias_partial_backward.launches = 0
+
+
+def _partial_backward(dy, qkv, oattn, lse, wqkv, wo, bias, heads, dim_head, scale, need_dbias):
     if scale is None:
         scale = dim_head ** -0.5
     if dy.device.type == "cpu":
-        return fused_attention_block_partial_backward_reference(dy, qkv, oattn, lse, wqkv, wo,
-                                                                heads, dim_head, scale)
+        return fused_attention_block_partial_backward_reference(
+            dy, qkv, oattn, lse, wqkv, wo, heads, dim_head, scale, bias, need_dbias)
     b, n, d = dy.shape
     inner = heads * dim_head
     _check_block("fused_attention_block backward (split)", dy, heads, dim_head, {
@@ -696,39 +771,49 @@ def fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo, heads:
         raise ValueError("fused_attention_block backward (split): lse must be the split "
                          f"training forward's contiguous f32 ({b}, {heads}, {n}) tensor")
     route = attention_route(n)
+    need_dbias = bias is not None and need_dbias
     f32 = dict(dtype=torch.float32, device=dy.device)
     dqkv = torch.empty_like(qkv)
     doattn = torch.empty_like(oattn)
     dxn = torch.empty((b * n, d), **f32)
     lib = _build.load()
-    dq_part = dsum = None
+    dq_part = dsum = rowstat = dbias = dbias_part = None
     if route == "short":
         parts = lib.vit_short_attention_parts(n, dim_head)
         if parts > 1:
             dq_part = torch.empty((parts, b, heads, n, dim_head), **f32)
-    else:  # the flash backward's D
+    if need_dbias:  # the rows' exact (lse, dsum): the attention backward's dsum, dbias's
+        rowstat = torch.empty((b, heads, n, 2), **f32)
+    elif route == "mha":  # the flash backward's D
         dsum = torch.empty((b, heads, n), **f32)
     with torch.cuda.device(dy.device):
+        if need_dbias:  # the part count follows the device's SM count
+            hb = bias.shape[0]
+            dbias = torch.empty((hb, n, n), **f32)
+            dbias_part = torch.empty((lib.vit_attention_dbias_parts(b, n, heads, hb), hb, n, n),
+                                     **f32)
         err = lib.vit_fused_attention_block_bwd_partial(
             dy.data_ptr(), qkv.data_ptr(), oattn.data_ptr(), lse.data_ptr(), wqkv.data_ptr(),
             wo.data_ptr(), dqkv.data_ptr(), doattn.data_ptr(), dxn.data_ptr(),
             _attention_strides(b, n, heads, dim_head, backward=True), ROUTE_CODES[route],
-            data_ptr(dq_part), data_ptr(dsum), b, n, d, heads, dim_head, float(scale),
+            data_ptr(dq_part), data_ptr(dsum), data_ptr(rowstat), *_bias_args(bias),
+            data_ptr(dbias), data_ptr(dbias_part), b, n, d, heads, dim_head, float(scale),
             _build.DTYPE_CODES[dy.dtype], launch_stream(dy))
     _build.check(err, "vit_fused_attention_block_bwd_partial")
-    fused_attention_block_partial_backward.launches += 1
     BACKWARD_ROUTES[route].launches += 1
-    return dxn, dqkv, doattn
+    return (dxn, dqkv, doattn) if bias is None else (dxn, dqkv, doattn, dbias)
 
 
-fused_attention_block_partial_backward.launches = 0
-
-
-def _split_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, group, training):
-    """A split block's forward: the partial, its sum over ``group``, the
-    pass; ``(y, xn, qkv, oattn, lse)``."""
-    s, xn, qkv, oattn, lse = fused_attention_block_partial_forward(
-        x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps, training)
+def _split_forward(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps, group,
+                   training):
+    """A split block's forward: the partial (biased where ``bias`` is given),
+    its sum over ``group``, the pass; ``(y, xn, qkv, oattn, lse)``."""
+    if bias is None:
+        s, xn, qkv, oattn, lse = fused_attention_block_partial_forward(
+            x, gamma, beta, wqkv, wo, heads, dim_head, scale, eps, training)
+    else:
+        s, xn, qkv, oattn, lse = fused_attention_block_bias_partial_forward(
+            x, gamma, beta, wqkv, wo, bias, heads, dim_head, scale, eps, training)
     return bias_residual(all_reduce_sum(s, group), bo, x), xn, qkv, oattn, lse
 
 
@@ -744,10 +829,12 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
     and their gradients come back in their own dtype from the f32 sums.
     ``dbias`` is computed only when autograd asks for it (a bias that does
     not require grad, as LSA's constant mask, never does).  With ``group``
-    (the model group of a split block, unbiased) the forward is the split
-    form, its partial summed over the group, then the pass; the backward the
-    split backward, its f32 dxn summed over the group, then the LayerNorm
-    backward; the weight gradients stay this rank's."""
+    (the model group of a split block) the forward is the split form, its
+    partial summed over the group, then the pass; the backward the split
+    backward, its f32 dxn summed over the group, then the LayerNorm
+    backward; the weight gradients and dbias stay this rank's (a shared
+    bias's dbias a partial sum, which the caller's
+    ``copy_to_model_parallel`` sums)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps,
@@ -755,8 +842,8 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
         gc, bc = gamma.to(x.dtype), beta.to(x.dtype)
         lse = None
         if group is not None:
-            y, xn, qkv, oattn, lse = _split_forward(x, gc, bc, wqkv, wo, bo, heads, dim_head,
-                                                    scale, eps, group, training=True)
+            y, xn, qkv, oattn, lse = _split_forward(x, gc, bc, wqkv, wo, bo, bias, heads,
+                                                    dim_head, scale, eps, group, training=True)
         elif x.device.type == "cpu":
             y, xn, qkv, oattn = fused_attention_block_forward_reference(
                 x, gc, bc, wqkv, wo, bo, heads, dim_head, scale, eps, bias)
@@ -777,8 +864,13 @@ class FusedAttentionBlockFunction(torch.autograd.Function):
         dbias = None
         if ctx.group is not None:
             heads, dim_head, scale, eps = ctx.config
-            dxn, dqkv, _ = fused_attention_block_partial_backward(dy, qkv, oattn, lse, wqkv, wo,
-                                                                  heads, dim_head, scale)
+            if bias is None:
+                dxn, dqkv, _ = fused_attention_block_partial_backward(
+                    dy, qkv, oattn, lse, wqkv, wo, heads, dim_head, scale)
+            else:
+                dxn, dqkv, _, dbias = fused_attention_block_bias_partial_backward(
+                    dy, qkv, oattn, lse, wqkv, wo, bias, heads, dim_head, scale,
+                    need_dbias=ctx.needs_input_grad[6])
             dx, dgamma, dbeta, dbo = ln_backward(x, all_reduce_sum(dxn, ctx.group), gc, dy, eps)
         elif bias is None:
             dx, dqkv, dgamma, dbeta, dbo = fused_attention_block_backward(
@@ -820,7 +912,7 @@ fused_attention_block.launches = 0
 
 def fused_attention_block_bias(x, gamma, beta, wqkv, wo, bo, bias, heads: int,
                                dim_head: int, scale: float | None = None,
-                               eps: float = 1e-3):
+                               eps: float = 1e-3, group=None):
     """:func:`fused_attention_block` plus an additive logits bias:
     ``x + (softmax(q·kᵀ·scale + bias)·v)·Woᵀ + bo``.
 
@@ -831,9 +923,15 @@ def fused_attention_block_bias(x, gamma, beta, wqkv, wo, bo, bias, heads: int,
     is computed only then.  Dispatch as :func:`fused_attention_block`.
     ``fused_attention_block_bias.launches`` counts forward kernel launches,
     apart from the unbiased op's.
+
+    ``group``: the model group of a split block, as
+    :func:`fused_attention_block` takes it; ``heads`` the local count, a
+    per-head ``bias`` this rank's heads, a shared one whole (its dbias this
+    rank's partial sum: pass it through ``copy_to_model_parallel``).  Its
+    launches count on ``fused_attention_block_bias_partial_forward.launches``.
     """
     check_bias(bias, x, heads)
-    return _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps)
+    return _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps, group)
 
 
 fused_attention_block_bias.launches = 0
@@ -847,8 +945,8 @@ def _block(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps, grou
                                                  dim_head, scale, eps, group)
     gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
     if group is not None:
-        return _split_forward(x, gamma, beta, wqkv, wo, bo, heads, dim_head, scale, eps, group,
-                              training=False)[0]
+        return _split_forward(x, gamma, beta, wqkv, wo, bo, bias, heads, dim_head, scale, eps,
+                              group, training=False)[0]
     if bias is None:
         return fused_attention_block_op(x, gamma, beta, wqkv, wo, bo, heads, dim_head,
                                         float(scale), eps)

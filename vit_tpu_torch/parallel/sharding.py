@@ -41,30 +41,45 @@ splits:
   their BatchNorms' channels, ``pos_bias`` by heads, ``to_out``'s columns;
   ``to_out_bn`` whole) and ``LeViTMLP``;
 - MobileViT's ``MobileViTAttention`` (as ``Attention``) and its blocks'
+  ``mlp_fc1_{i}`` / ``mlp_fc2_{i}``;
+- the small-dataset ViT's ``LSA`` (as ``Attention``, its temperature
+  replicated and summed over the model group) and its layers' ``MLP``;
+- CrossFormer's ``CrossFormerAttention`` (as ``Attention``; its
+  ``DynamicPositionBias`` whole) and ``CrossFormerMLP``;
+- RegionViT's ``RegionAttention`` (as ``Attention``), each stage's
+  ``local_rel_pos_bias`` table by heads (its columns) and ``RegionMLP``;
+- NesT's ``NesTAttention`` (as ``Attention``) and its transformers'
   ``mlp_fc1_{i}`` / ``mlp_fc2_{i}``.
 
-The conv hybrids' modules declare their cuts themselves (``tp_cuts``, beside
+These modules declare their cuts themselves (``tp_cuts``, beside
 ``shard``); a ``Transformer``'s layers take :data:`_TRANSFORMER_CUTS`.
 Their dropout, split or whole, draws from the model forward's
 ``generator``, one seed on every rank of a model group, where the model is
 split: an active dropout without one raises.
 
 LeViT's ``pos_bias`` columns and its q, k and v BatchNorms' channels
-(scale, bias and running statistics) are split with their heads, beyond
-the rule table, which replicates them in ``vit_tpu``: each head reads only
-its own, so the numbers are the same.  An attention of these four models
-whose heads the axis does not divide (CvT-13's stages 1-2 at tp 2, a
-three-head LeViT stage) runs whole on every rank: its parameters stay
-unsplit, it needs no collective (its ``shard`` is ``layers.common.WHOLE``),
-and the plan lists it under ``whole``.
-``vit_tpu`` splits such a layer inside a head and GSPMD sums the partial
-logits: the same numbers.  The plan's ``kinds`` name every split parameter
-and buffer with its cut (:data:`COLUMN`, :data:`ROW`, :data:`QKV`,
-:data:`KV`), so a checkpoint gathers them whole.  A ``Transformer``'s
-attention whose heads do not divide still raises, as does whatever else the
-rule table would shard (ScalableViT, CrossFormer, RegionViT, NesT, PiT's
-pools, the small-dataset ViT, the hybrid tier): ``NotImplementedError``
-naming the module; nothing falls through to replication.
+(scale, bias and running statistics), and RegionViT's ``local_rel_pos_bias``
+columns, are split with their heads, beyond the rule table, which
+replicates them in ``vit_tpu``: each head reads only its own, so the
+numbers are the same.  The other way, CrossFormer's ``DynamicPositionBias``
+stays whole where the rule table matches its ``fc1`` and ``fc2`` by name:
+GSPMD shards them around a LayerNorm over the split width, no Megatron pair;
+whole, its table reaches every rank's heads through
+``copy_to_model_parallel``, with the same numbers.  The plan lists such
+parameters under ``replicated``.  An attention of these models whose heads
+the axis does not divide (CvT-13's stages 1-2 at tp 2, a three-head LeViT
+stage, NesT@224's hierarchy 1) runs whole on every rank: its parameters
+stay unsplit, it needs no collective (its ``shard`` is
+``layers.common.WHOLE``), and the plan lists it under ``whole``.  ``vit_tpu``
+splits such a layer inside a head and GSPMD sums the partial logits: the
+same numbers.  The plan's ``kinds`` name every split parameter and buffer
+with its cut (:data:`COLUMN`, :data:`ROW`, :data:`QKV`, :data:`KV`), so a
+checkpoint gathers them whole.  A ``Transformer``'s attention whose heads do
+not divide still raises, as does whatever else the rule table would shard:
+the hybrid tier, ScalableViT, CaiT, DeepViT, CrossViT, the patch merger's
+ViT, Parallel ViT, ATS-ViT, CCT and T2T-ViT's single-head token
+transformers, ``NotImplementedError`` naming the module; nothing falls
+through to replication.
 
     mesh = make_mesh((dp, tp))
     shard_params(mesh, model)           # in place, before the optimizer is built
@@ -80,7 +95,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.layers.common import (
-    COLUMN, KV, QKV, ROW, WHOLE, Attention, ModelShard, Transformer,
+    COLUMN, KV, MLP_CUTS, QKV, ROW, WHOLE, Attention, ModelShard, Transformer,
 )
 from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum
 from vit_tpu_torch.parallel.mesh import MODEL_AXIS, model_group, model_rank, model_size
@@ -195,14 +210,16 @@ def gather_tensor(local: torch.Tensor, kind: str, shard: ModelShard) -> torch.Te
 class TensorParallelPlan:
     """What :func:`shard_params` did to a model: the mesh, this rank's
     :class:`~vit_tpu_torch.layers.common.ModelShard`, how each split
-    parameter and buffer was cut (``{name: COLUMN | ROW | QKV | KV}``) and
-    the attentions that run whole on every rank (their heads do not divide
-    over the axis)."""
+    parameter and buffer was cut (``{name: COLUMN | ROW | QKV | KV}``), the
+    attentions that run whole on every rank (their heads do not divide over
+    the axis) and, outside those, the parameters the rule table shards that
+    stay whole on every rank (CrossFormer's ``DynamicPositionBias``)."""
 
     mesh: object
     shard: ModelShard
     kinds: dict
     whole: list = field(default_factory=list)
+    replicated: list = field(default_factory=list)
 
 
 def tensor_parallel_plan(model: nn.Module) -> TensorParallelPlan | None:
@@ -242,8 +259,7 @@ class _Unit:
     multiple: int = 1
 
 
-_TRANSFORMER_CUTS = {"attn": {"to_qkv.weight": QKV, "to_out.0.weight": ROW},
-                     "mlp": {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}}
+_TRANSFORMER_CUTS = {"attn": {"to_qkv.weight": QKV, "to_out.0.weight": ROW}, "mlp": MLP_CUTS}
 
 
 def _join(*parts) -> str:
@@ -285,7 +301,8 @@ def _refuse(model, size, units, transformers) -> None:
                 f"shard_params: {owner} ({type(model.get_submodule(owner)).__name__}) is split "
                 f"over the '{MODEL_AXIS}' axis by the rule table, and the port runs split only "
                 f"layers/common.py's Attention and MLP inside a Transformer and the attentions "
-                f"and MLPs of Twins-SVT, CvT, LeViT and MobileViT")
+                f"and MLPs of Twins-SVT, CvT, LeViT, MobileViT, the small-dataset ViT, "
+                f"CrossFormer, RegionViT and NesT")
     for tname, t in transformers.items():
         if t.fused_attention == "hybrid":
             raise NotImplementedError(
@@ -344,8 +361,9 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
     them; each records the
     :class:`~vit_tpu_torch.layers.common.ModelShard`, and ``model`` the
     :class:`TensorParallelPlan` (``model.tensor_parallel``).  An attention
-    of Twins-SVT, CvT, LeViT or MobileViT whose heads the axis does not
-    divide stays whole (``plan.whole``).  First the model group's first
+    outside a ``Transformer`` whose heads the axis does not divide stays
+    whole (``plan.whole``); CrossFormer's position-bias MLPs stay whole
+    (``plan.replicated``).  First the model group's first
     rank's parameters and buffers are broadcast, so the ranks split one
     model.  Call it before the optimizer is built: the split parameters are
     new tensors.
@@ -355,7 +373,9 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
     MLP, a convolution), on the hybrid tier (``fused_attention="hybrid"``),
     on a ``Transformer``'s attention without an output projection or whose
     heads do not divide over the axis, or where a hidden width does not (in
-    multiples of 8 where the fused MLP may run).  Without a mesh it returns
+    multiples of 8 where the fused MLP may run): today the hybrid tier,
+    ScalableViT, CaiT, DeepViT, CrossViT, the patch merger's ViT, Parallel
+    ViT, ATS-ViT, CCT and T2T-ViT.  Without a mesh it returns
     ``model`` as it is; over a ``model`` axis of 1 it splits nothing and
     records the plan."""
     if mesh is None:
@@ -364,7 +384,7 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
         raise ValueError("shard_params: the model is split already")
     size = model_size(mesh)
     shard = ModelShard(model_group(mesh), model_rank(mesh), size)
-    kinds, whole = {}, []
+    kinds, whole, replicated = {}, [], []
     if size > 1:
         from vit_tpu_torch.parallel.train import broadcast_state
 
@@ -379,5 +399,16 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
                     continue
                 _split(u, shard)
                 kinds.update({_join(u.path, name): kind for name, kind in u.cuts.items()})
-    model.tensor_parallel = TensorParallelPlan(mesh, shard, kinds, whole)
+        replicated = _replicated(model, kinds, whole)
+    model.tensor_parallel = TensorParallelPlan(mesh, shard, kinds, whole, replicated)
     return model
+
+
+def _replicated(model: nn.Module, kinds: dict, whole: list) -> list:
+    """The parameters the rule table shards that the plan keeps whole,
+    outside the attentions that run whole."""
+    from torch.distributed.tensor import Shard
+
+    skip = tuple(f"{path}." for path in whole)
+    return [name for name, spec in param_specs(model).items()
+            if isinstance(spec, Shard) and name not in kinds and not name.startswith(skip)]
