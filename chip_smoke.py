@@ -5103,10 +5103,10 @@ def tp_kernel_phase(torch, results, smi):
     err = hold("ln_bwd", got, ref, {0: dy}, f32_sums=(1, 2, 3))
     ms = interleaved_medians(torch, {
         "kernel": lambda: tp.ln_backward(x, dxn, gamma, dy, eps),
-        "plain": lambda: tp.ln_backward_residual_reference(x, dxn, gamma, dy, eps)},
-        rounds=3, calls=10)
-    out["ln_bwd"] = dict(err=err, kernel=ms["kernel"], plain=ms["plain"], library=None,
-                         bound=bounds["ln_bwd"])
+        "plain": lambda: tp.ln_backward_residual_reference(x, dxn, gamma, dy, eps),
+        "library": ln_library(torch, dxn, x, gamma, eps)}, rounds=3, calls=10)
+    out["ln_bwd"] = dict(err=err, kernel=ms["kernel"], plain=ms["plain"],
+                         library=ms["library"], bound=bounds["ln_bwd"])
 
     # Two ranks emulated: their partials summed, then the pass or the LayerNorm
     # backward, against the unsplit kernels at the full shape.
@@ -5158,6 +5158,7 @@ def tp_kernel_phase(torch, results, smi):
     torch.cuda.empty_cache()
     tp_twins_kernel_phase(torch, results, smi)
     tp_biased_kernel_phase(torch, results, smi)
+    tp_dense_kernel_phase(torch, results, smi)
 
 
 def tp_cross_bounds(b, n, c, heads, n_k, dh):
@@ -5204,7 +5205,8 @@ def tp_twins_kernel_phase(torch, results, smi):
     + F.linear; autograd for dxn, dk and dv), the partial with the pass, the
     unsplit kernel at the full shape, and :func:`tp_cross_bounds`.  Then rows
     1-4's split forms at TP_TWINS_BLOCK (eps 1e-5), each against its plain
-    version and timed.  Stored under ``results["tensor-parallel"]``: row 6's
+    version and timed beside its plain version and PyTorch's composition at
+    the local heads or hidden units.  Stored under ``results["tensor-parallel"]``: row 6's
     entries with stage 1 as their shape and stage 3 under ``by_shape``, rows
     1-4's Twins-SVT times under their entries' ``by_shape``."""
     import torch.nn.functional as F
@@ -5369,32 +5371,49 @@ def tp_twins_kernel_phase(torch, results, smi):
                                 {}),
                   check_dbias(torch, f"fused_mlp split backward {tag}", m_bwd[3], m_ref[3],
                               "db1"))
+    xn_leaf = F.layer_norm(x, (c,), gamma, beta, eps).detach().requires_grad_()
+
+    def attn_library(xn_):
+        q, k, v = F.linear(xn_, wqkv).view(groups, n, 3, hl, dh).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return F.linear(o.transpose(1, 2).reshape(groups, n, hl * dh), wo)
+
+    def mlp_library(xn_):
+        return F.linear(F.gelu(F.linear(xn_, w1, b1)), w2)
+
+    attn_y, mlp_y = attn_library(xn_leaf), mlp_library(xn_leaf)
     with torch.inference_mode():
         f_ms = interleaved_medians(torch, {
             "attention": lambda: fab.fused_attention_block_partial_forward(
                 x, gamma, beta, wqkv, wo, hl, dh, scale, eps),
             "attention plain": lambda: fab.fused_attention_block_partial_forward_reference(
                 x, gamma, beta, wqkv, wo, hl, dh, scale, eps),
+            "attention library": lambda: attn_library(F.layer_norm(x, (c,), gamma, beta, eps)),
             "mlp": lambda: fm.fused_mlp_partial_forward(x, gamma, beta, w1, b1, w2, eps),
             "mlp plain": lambda: fm.fused_mlp_partial_forward_reference(x, gamma, beta, w1, b1,
-                                                                        w2, eps)},
+                                                                        w2, eps),
+            "mlp library": lambda: mlp_library(F.layer_norm(x, (c,), gamma, beta, eps))},
             rounds=3, calls=5)
     b_ms = interleaved_medians(torch, {
         "attention": lambda: fab.fused_attention_block_partial_backward(
             dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale),
         "attention plain": lambda: fab.fused_attention_block_partial_backward_reference(
             dy, qkv_r, oattn_r, lse_r, wqkv, wo, hl, dh, scale),
+        "attention library": lambda: torch.autograd.grad(attn_y, xn_leaf, dy,
+                                                         retain_graph=True),
         "mlp": lambda: fm.fused_mlp_partial_backward(dy, h_r, w1, w2),
-        "mlp plain": lambda: fm.fused_mlp_partial_backward_reference(dy, h_r, w1, w2)},
+        "mlp plain": lambda: fm.fused_mlp_partial_backward_reference(dy, h_r, w1, w2),
+        "mlp library": lambda: torch.autograd.grad(mlp_y, xn_leaf, dy, retain_graph=True)},
         rounds=3, calls=5)
     for name, key, ms, e in (("fused_attention_block_split", "attention", f_ms, a_err),
                              ("fused_attention_block_split_bwd", "attention", b_ms, a_err_b),
                              ("fused_mlp_split", "mlp", f_ms, m_err),
                              ("fused_mlp_split_bwd", "mlp", b_ms, m_err_b)):
-        blocks[name] = dict(err=e, kernel=ms[key], plain=ms[f"{key} plain"], bound=bounds[name])
+        blocks[name] = dict(err=e, kernel=ms[key], plain=ms[f"{key} plain"],
+                            library=ms[f"{key} library"], bound=bounds[name])
         out[name].setdefault("by_shape", {})[tag] = blocks[name]
     torch.cuda.synchronize()
-    del x, dy, a_got, a_bwd, m_got, m_bwd, h_r
+    del x, dy, a_got, a_bwd, m_got, m_bwd, h_r, xn_leaf, attn_y, mlp_y
     torch.cuda.empty_cache()
 
     def text(r):
@@ -5411,10 +5430,12 @@ def tp_twins_kernel_phase(torch, results, smi):
         f"emulated against the unsplit cross-attention kernels, max|err| "
         f"{json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: "
         f"F.linear + SDPA + F.linear at {TP_TWINS_CROSS[0][4] // TP} heads, autograd for dxn, "
-        f"dk and dv; with_pass: the partial and the pass; unsplit: the unsplit kernel at 8 "
-        f"heads): " + "; ".join(f"{name} [{t}, backward route "
-                                f"{cross[t]['fused_cross_attention_split_bwd']['backward_route']}] "
-                                f"{text(cross[t][name])}" for t in cross for name in cross[t])
+        f"dk and dv; rows 1-4's, F.layer_norm + F.linear + SDPA + F.linear and F.layer_norm + "
+        f"F.linear + GELU + F.linear at the local heads and hidden units, autograd for dxn; "
+        f"with_pass: the partial and the pass; unsplit: the unsplit kernel at 8 heads): "
+        + "; ".join(f"{name} [{t}, backward route "
+                    f"{cross[t]['fused_cross_attention_split_bwd']['backward_route']}] "
+                    f"{text(cross[t][name])}" for t in cross for name in cross[t])
         + "; " + "; ".join(f"{name} [{tag}] {text(r)}" for name, r in blocks.items())
         + f" on {smi}")
 
@@ -5605,6 +5626,147 @@ def tp_biased_kernel_phase(torch, results, smi):
         f"F.layer_norm + F.linear + SDPA(attn_mask) + F.linear at the local heads, autograd for "
         f"dxn and the mask's gradient where dbias is asked; with_pass: the partial and the "
         f"pass; unsplit: the unsplit kernel at every head): "
+        + "; ".join(f"{name} [{entries[t][name]['shape']}] {text(entries[t][name])}"
+                    for t in entries for name in entries[t]) + f" on {smi}")
+
+
+def tp_dense_kernel_phase(torch, results, smi):
+    """Rows 1-2's split form at rank 0's slice over TP ranks of the dense
+    family's MLPs (DENSE_MLP_SHAPES: CrossViT's small and large branches and
+    the patch merger's ViT after the merger, batch DENSE_BATCH, 1024 of 2048
+    hidden units), seeded bf16 inputs and one full set of weights cut into
+    the ranks' slices: rank 0's partial forward (training) and, fed its h,
+    its partial backward against their plain versions within one unit plus
+    KERNEL_REL_TOL, db1 within DBIAS_REL_TOL, twice bit for bit; the two
+    ranks emulated (partials summed, then the pass; the f32 dxn summed, then
+    the LayerNorm backward) against the unsplit rows 1-2's y, dxn, dx and
+    sums.  Times of rank 0's partial forward and backward beside their plain
+    versions, PyTorch's composition at the local hidden units (F.layer_norm
+    + F.linear + GELU + F.linear; autograd for dxn), the forward with the
+    pass, the backward with the LayerNorm-backward entry, the unsplit
+    kernels at the full shape, and :func:`tp_bounds`.  Stored under the
+    split entries' ``by_shape``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_mlp as fm
+    from vit_tpu_torch.ops import tensor_parallel as tp
+    from vit_tpu_torch.parallel.sharding import COLUMN, ROW, shard_tensor
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 11)
+    out, hidden, eps, b = results["tensor-parallel"], 2048, 1e-3, DENSE_BATCH
+    hid = hidden // TP
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if p is not None and not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    entries, emulated = {}, {}
+    for tag, n, d in DENSE_MLP_SHAPES:
+        x, dy = rn(b, n, d), rn(b, n, d, scale=0.1)
+        gamma, beta = 1.0 + rn(d, scale=0.1), rn(d, scale=0.1)
+        w1, b1 = rn(hidden, d, scale=d ** -0.5), rn(hidden, scale=0.1)
+        w2, b2 = rn(d, hidden, scale=hidden ** -0.5), rn(d, scale=0.1)
+        ranks = [(shard_tensor(w1, COLUMN, r, TP), shard_tensor(b1, COLUMN, r, TP),
+                  shard_tensor(w2, ROW, r, TP)) for r in range(TP)]
+        w = ranks[0]
+        name = f"fused_mlp split {tag}"
+
+        def fwd(training=False, r=w):
+            return fm.fused_mlp_partial_forward(x, gamma, beta, *r, eps, training)
+
+        got = twice(name, lambda: fwd(True))
+        err = check_outputs(torch, name, got,
+                            fm.fused_mlp_partial_forward_reference(x, gamma, beta, *w, eps), {})
+        h_r = got[2]
+
+        def bwd(h=h_r, r=w):
+            return fm.fused_mlp_partial_backward(dy, h, r[0], r[2])
+
+        got_b = twice(f"{name} backward", bwd)
+        ref_b = fm.fused_mlp_partial_backward_reference(dy, h_r, w[0], w[2])
+        err_b = max(check_outputs(torch, f"{name} backward", got_b[:3], ref_b[:3], {}),
+                    check_dbias(torch, f"{name} backward", got_b[3], ref_b[3], "db1"))
+
+        # Two ranks emulated against the unsplit rows 1-2 at the full shape.
+        y, _, h = fm._launch_forward(x, gamma, beta, w1, b1, w2, b2, eps, save_residuals=True)
+        split = [got] + [fwd(True, r) for r in ranks[1:]]
+        y_split = tp.bias_residual(sum(p[0] for p in split), b2, x)
+        emulated[f"{tag} y"] = check_outputs(torch, f"two ranks' {name}", [y_split], [y], {0: x})
+        full = fm.fused_mlp_backward(dy, x, h, gamma, w1, w2, eps)
+        dxn = sum(bwd(p[2], r)[0] for p, r in zip(split, ranks))
+        dxn_full = full[1].reshape(-1, hidden).float() @ w1.float()
+        emulated[f"{tag} dxn"] = check_outputs(torch, f"two ranks' {name} dxn", [dxn],
+                                               [dxn_full], {})
+        ln = tp.ln_backward(x, dxn, gamma, dy, eps)
+        emulated[f"{tag} dx"] = check_outputs(torch, f"two ranks' {name} backward", ln[:1],
+                                              full[:1], {0: dy})
+        emulated[f"{tag} sums"] = max(
+            check_dbias(torch, f"two ranks' {name} backward", got_s, want_s, what)
+            for got_s, want_s, what in zip(ln[1:], (full[3], full[4], full[6]),
+                                           ("dγ", "dβ", "db2")))
+        del y, split, full, dxn, dxn_full, ln
+
+        xn_leaf = F.layer_norm(x, (d,), gamma, beta, eps).detach().requires_grad_()
+
+        def library(xn_):
+            return F.linear(F.gelu(F.linear(xn_, w[0], w[1])), w[2])
+
+        lib_y = library(xn_leaf)
+        with torch.inference_mode():
+            f_ms = interleaved_medians(torch, {
+                "kernel": fwd,
+                "plain": lambda: fm.fused_mlp_partial_forward_reference(x, gamma, beta, *w, eps),
+                "library": lambda: library(F.layer_norm(x, (d,), gamma, beta, eps)),
+                "with the pass": lambda: tp.bias_residual(fwd()[0], b2, x),
+                "unsplit": lambda: fm.fused_mlp(x, gamma, beta, w1, b1, w2, b2, eps)},
+                rounds=3, calls=5)
+        b_ms = interleaved_medians(torch, {
+            "kernel": bwd,
+            "plain": lambda: fm.fused_mlp_partial_backward_reference(dy, h_r, w[0], w[2]),
+            "library": lambda: torch.autograd.grad(lib_y, xn_leaf, dy, retain_graph=True),
+            "with the LN entry": lambda: tp.ln_backward(x, bwd()[0], gamma, dy, eps),
+            "unsplit": lambda: fm.fused_mlp_backward(dy, x, h, gamma, w1, w2, eps)},
+            rounds=3, calls=5)
+        bounds = tp_bounds(b, n, d, 8, 64, hid)
+        shape = f"{tag} rank 0 of {TP}: {b}x{n} rows, d={d}, {hid} of {hidden} hidden units"
+        entries[tag] = {
+            "fused_mlp_split": dict(
+                err=err, kernel=f_ms["kernel"], plain=f_ms["plain"], library=f_ms["library"],
+                with_pass=f_ms["with the pass"], unsplit=f_ms["unsplit"],
+                bound=bounds["fused_mlp_split"], shape=shape),
+            "fused_mlp_split_bwd": dict(
+                err=err_b, kernel=b_ms["kernel"], plain=b_ms["plain"], library=b_ms["library"],
+                with_ln=b_ms["with the LN entry"], unsplit=b_ms["unsplit"],
+                bound=bounds["fused_mlp_split_bwd"], shape=shape)}
+        for key, entry in entries[tag].items():
+            out[key].setdefault("by_shape", {})[tag] = {k: v for k, v in entry.items()
+                                                      if k != "shape"}
+        del lib_y, xn_leaf, x, dy, got, got_b, h, h_r, ranks, w
+        torch.cuda.empty_cache()
+
+    def text(r):
+        extra = "".join(f" {k}={r[k]:.4f}" for k in ("library", "with_pass", "with_ln",
+                                                     "unsplit") if r.get(k) is not None)
+        return (f"kernel={r['kernel']:.4f} plain={r['plain']:.4f}{extra} "
+                f"bound={r['bound'][0]:.4f} ({r['bound'][1]}) max|err|={r['err']:.4g}")
+
+    log(f"tensor-parallel rows 1-2 at the dense family's MLPs [rank 0 of {TP}]: the fused MLP's "
+        f"split form, each against its plain version within one unit plus {KERNEL_REL_TOL} "
+        f"(db1 within {DBIAS_REL_TOL}*max|ref|) and twice bit for bit; two ranks emulated "
+        f"(partials summed, then the pass; dxn summed, then the LayerNorm backward) against "
+        f"the unsplit rows 1-2, max|err| "
+        f"{json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: "
+        f"F.layer_norm + F.linear + GELU + F.linear at the local hidden units, autograd for "
+        f"dxn; with_pass: the partial and the pass; with_ln: the partial backward and the "
+        f"LayerNorm-backward entry; unsplit: the unsplit kernel at every hidden unit): "
         + "; ".join(f"{name} [{entries[t][name]['shape']}] {text(entries[t][name])}"
                     for t in entries for name in entries[t]) + f" on {smi}")
 
@@ -5905,7 +6067,20 @@ TP_BIASED = [
      dict(fused_attention="never")),
     ("NesT@224", "NesT", NEST, NEST["image_size"], 64, 16, TP_SEED + 9, PLAIN_KW),
 ]
-TP_TABLES = {"hybrids": TP_HYBRIDS, "biased": TP_BIASED}
+# The dense five split over TP ranks, at the smoke's configurations
+# (run_benchmarks.py's: DEEPVIT, PATCH_MERGER, CROSSVIT, CAIT, PARALLEL_VIT),
+# serving 64 images and training at a batch cut to 16: DeepViT, the merger's
+# ViT and CrossViT on the kernel route (their MLPs on rows 1-2's split form),
+# CaiT and Parallel ViT on plain modules (vit_tpu runs no kernel there).
+TP_DENSE = [
+    ("DeepViT@256", "DeepViT", DEEPVIT, 256, 64, 16, TP_SEED + 12, dict(fused_mlp="never")),
+    ("PatchMerger ViT@256", "vit_with_patch_merger.ViT", PATCH_MERGER, 256, 64, 16,
+     TP_SEED + 13, dict(fused_mlp="never")),
+    ("CrossViT@256", cross_vit, CROSSVIT, 256, 64, 16, TP_SEED + 14, dict(plain=True)),
+    ("CaiT@256", "CaiT", CAIT, 256, 64, 16, TP_SEED + 15, {}),
+    ("Parallel ViT@256", "parallel_vit.ViT", PARALLEL_VIT, 256, 64, 16, TP_SEED + 16, {}),
+]
+TP_TABLES = {"hybrids": TP_HYBRIDS, "biased": TP_BIASED, "dense": TP_DENSE}
 TP_HYBRID_STEPS = 2
 TP_LOSS_REL_TOL = 1e-3  # the split path's first loss against the one-process path's
 
@@ -5928,31 +6103,37 @@ def tp_hybrid_counts():
                   "fused_mlp_split_bwd": local + every, "ln_bwd": 2 * local + every}
     cvt = {"flash_attention": 1}
     return {"Twins-SVT@224": (twins, twins_step), "CvT-13@224": (cvt, {**cvt, "flash_backward": 1}),
-            "LeViT@224": ({}, {}), "MobileViT@256": ({}, {}), **tp_biased_counts()}
+            "LeViT@224": ({}, {}), "MobileViT@256": ({}, {}), **tp_biased_counts(),
+            **tp_dense_counts()}
+
+
+def tp_split_counts(bias=0, block=0, whole=0, mlp=0):
+    """The launches a forward and a step on every rank of a model whose
+    ``bias`` biased and ``block`` unbiased attention blocks and ``mlp`` MLPs
+    run split on the kernel route and ``whole`` attention blocks whole: each
+    partial ended by the pass after one f32-partial GEMM, the backwards as
+    often, every split LayerNorm backward on ``ln_bwd``."""
+    split = bias + block
+    forward = {"fused_attention_block_bias_split": bias, "fused_attention_block_split": block,
+               "fused_attention_block": whole, "short route, forward": split + whole,
+               "fused_mlp_split": mlp, "bias_residual": split + mlp,
+               "forward_gemm_f32": split + mlp}
+    step = {**forward, "fused_attention_block_bias_split_bwd": bias,
+            "fused_attention_block_split_bwd": block, "fused_attention_block_bwd": whole,
+            "short route": split + whole, "fused_mlp_split_bwd": mlp, "ln_bwd": split + mlp}
+    return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
 
 
 def tp_biased_counts():
-    """Each TP_BIASED model's launches a forward and a step on every rank, all
-    on the split forms, each partial ended by the pass after one f32-partial
-    GEMM, the backwards as often, every LayerNorm backward on ``ln_bwd``; the
-    unsplit row 5 never.  The small-dataset ViT: row 5 and rows 1-2 at its 6
-    layers.  CrossFormer: row 5 at its 14 short windows and stages 1-2's 4
-    long ones (stages 3-4's 2 x 2 and 1 x 1 plain), rows 1-2 at its 28 MLPs.
-    RegionViT: rows 3-4 at its 14 region self-attentions and row 5 at its 14
-    joint rows (its MLPs plain).  NesT: hierarchy 1's 2 three-head
-    attentions whole on the unsplit rows 3-4, the other 10 split, rows 1-2 at
-    its 12 MLPs."""
-    def counts(bias=0, block=0, whole=0, mlp=0):
-        split = bias + block
-        forward = {"fused_attention_block_bias_split": bias, "fused_attention_block_split": block,
-                   "fused_attention_block": whole, "short route, forward": split + whole,
-                   "fused_mlp_split": mlp, "bias_residual": split + mlp,
-                   "forward_gemm_f32": split + mlp}
-        step = {**forward, "fused_attention_block_bias_split_bwd": bias,
-                "fused_attention_block_split_bwd": block, "fused_attention_block_bwd": whole,
-                "short route": split + whole, "fused_mlp_split_bwd": mlp, "ln_bwd": split + mlp}
-        return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
-
+    """Each TP_BIASED model's launches a forward and a step on every rank
+    (:func:`tp_split_counts`), the unsplit row 5 never.  The small-dataset
+    ViT: row 5 and rows 1-2 at its 6 layers.  CrossFormer: row 5 at its 14
+    short windows and stages 1-2's 4 long ones (stages 3-4's 2 x 2 and 1 x 1
+    plain), rows 1-2 at its 28 MLPs.  RegionViT: rows 3-4 at its 14 region
+    self-attentions and row 5 at its 14 joint rows (its MLPs plain).  NesT:
+    hierarchy 1's 2 three-head attentions whole on the unsplit rows 3-4, the
+    other 10 split, rows 1-2 at its 12 MLPs."""
+    counts = tp_split_counts
     depth = SMALL_DATASET["depth"]
     return {"small-dataset ViT@256": counts(bias=depth, mlp=depth),
             "CrossFormer@224": counts(bias=sum(CROSSFORMER_DEPTH) + sum(CROSSFORMER_DEPTH[:2]),
@@ -5962,10 +6143,26 @@ def tp_biased_counts():
                                whole=NEST["block_repeats"][0], mlp=sum(NEST["block_repeats"]))}
 
 
+def tp_dense_counts():
+    """Each TP_DENSE model's launches a forward and a step on every rank
+    (:func:`tp_split_counts`): rows 1-2's split form at DeepViT's 6 MLPs, the
+    merger's ViT's 12 and CrossViT's 4 x (2 + 3); none on CaiT and Parallel
+    ViT; the unsplit rows 1-2 never (the attentions plain)."""
+    return {"DeepViT@256": tp_split_counts(mlp=DEEPVIT["depth"]),
+            "PatchMerger ViT@256": tp_split_counts(mlp=PATCH_MERGER["depth"]),
+            "CrossViT@256": tp_split_counts(mlp=CROSSVIT["depth"] * (
+                CROSSVIT["sm_enc_depth"] + CROSSVIT["lg_enc_depth"])),
+            "CaiT@256": ({}, {}), "Parallel ViT@256": ({}, {})}
+
+
 def tp_model_class(name):
     """A TP_TABLES class by its name in ``vit_tpu_torch`` (``module.Class``
-    for the models named ``ViT``)."""
+    for the models named ``ViT``), or the function given in its place
+    (CrossViT's, whose plain path is no constructor argument)."""
     import vit_tpu_torch
+
+    if callable(name):
+        return name
 
     module, _, cls = name.rpartition(".")
     return getattr(getattr(vit_tpu_torch, module) if module else vit_tpu_torch, cls)
@@ -6135,8 +6332,8 @@ def tp_gradient_check(torch, tag, split, grads, weights):
 
 
 def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
-    """The models of TP_TABLES[table] (the conv hybrids, or the biased and
-    windowed models) split over a ``model`` axis of TP, TP processes on the
+    """The models of TP_TABLES[table] (the conv hybrids, the biased and
+    windowed models, or the dense five) split over a ``model`` axis of TP, TP processes on the
     one card over gloo (:func:`tp_hybrid_rank`), held here
     against one-process models of the same weights: both ranks' logits and
     losses bit for bit equal; the served logits by :func:`hold_logits`

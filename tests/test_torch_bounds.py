@@ -336,3 +336,19 @@ def test_tp_bias_bounds(raw, hb, dbias):
     # The unbiased split forms are unchanged by a bias argument.
     assert got["fused_attention_block_split"] == chip_smoke.tp_bounds(1, 4, 16, 2, 8, 32)[
         "fused_attention_block_split"]
+
+
+@pytest.mark.parametrize("tag,n,d", chip_smoke.DENSE_MLP_SHAPES)
+def test_tp_mlp_bounds_at_the_dense_family_shapes(raw, tag, n, d):
+    """Rows 1-2's split form at rank 0's slice of the dense family's MLPs
+    (batch 64, 1024 of 2048 hidden units), as
+    :func:`chip_smoke.tp_dense_kernel_phase` times it: half the unsplit
+    GEMMs' FLOPs; x, γ, β, the local weights and b1 in, the f32 partial out;
+    dy, h, the local weights in, dh, gact, the f32 db1 and dxn out."""
+    rows, hidden = 64 * n, 1024
+    act, acc, w = 2 * rows * d, 4 * rows * d, 2 * 2 * d * hidden
+    got = chip_smoke.tp_bounds(64, n, d, 8, 64, hidden)
+    assert got["fused_mlp_split"] == (4 * rows * d * hidden, act + 4 * d + w + 2 * hidden + acc)
+    assert got["fused_mlp_split_bwd"] == (4 * rows * d * hidden,
+                                          act + 3 * 2 * rows * hidden + w + 4 * hidden + acc)
+    assert 2 * got["fused_mlp_split"][0] == chip_smoke.mlp_bounds(rows, d, 2048)["fused_mlp"][0]

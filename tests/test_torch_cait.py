@@ -237,3 +237,42 @@ def test_constructor_checks_and_device_rule():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CaiT(**SMALL)
     assert all(p.device.type == "cpu" for p in CaiT(**SMALL, device="cpu").parameters())
+
+
+def test_bf16_gradient_stays_near_vit_tpus(jax_runs):
+    """The step-1 gradient in bf16 compute (f32 parameters) against the f32
+    one, relative L2 over every parameter: the port's at most twice
+    ``vit_tpu``'s, on the same weights and images (the rounding points of
+    the talking heads and the LayerScales as ``vit_tpu`` places them;
+    ``vit_tpu``'s gradient jitted, as its train step runs)."""
+    import optax
+    import torch.nn.functional as F
+
+    img, labels, variables = jax_runs["img"], jax_runs["labels"], jax_runs["variables"]
+    names = [k for k, _ in CaiT(**SMALL, device="cpu").named_parameters()]
+
+    def port(dtype):
+        model = loaded(CaiT(**SMALL, device="cpu", compute_dtype=dtype), variables).train()
+        F.cross_entropy(model(torch.from_numpy(img)).float(),
+                        torch.from_numpy(labels).long()).backward()
+        grads = dict(model.named_parameters())
+        return torch.cat([grads[k].grad.flatten() for k in names]).double()
+
+    def vit_tpu(dtype):
+        model = jax_cait.CaiT(**SMALL, dtype=dtype)
+
+        def loss(params):
+            logits = model.apply({"params": params}, jnp.asarray(img)).astype(jnp.float32)
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, jnp.asarray(labels)).mean()
+
+        grads = state_dict_from_flax(jax.tree.map(np.asarray,
+                                                  jax.jit(jax.grad(loss))(variables["params"])))
+        return torch.cat([torch.as_tensor(np.asarray(grads[k])).flatten() for k in names]).double()
+
+    def rel_l2(a, ref):
+        return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref))
+
+    ours = rel_l2(port(torch.bfloat16), port(torch.float32))
+    theirs = rel_l2(vit_tpu(jnp.bfloat16), vit_tpu(jnp.float32))
+    assert 0 < theirs and ours <= 2 * theirs, (ours, theirs)

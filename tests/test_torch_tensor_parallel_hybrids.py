@@ -22,7 +22,7 @@ shard (Twins-SVT, CvT, LeViT, MobileViT), on the CPU.
   whole; checkpoints of the split Twins-SVT and LeViT written whole and
   restored into unsplit models; the placements of LeViT's split BatchNorm
   buffers; what ``shard_params`` still refuses (the hybrid tier, ScalableViT,
-  the dense family, ATS-ViT, CCT and T2T-ViT, each naming its module).  Twins-SVT, CvT and LeViT
+  ATS-ViT, CCT and T2T-ViT, each naming its module).  Twins-SVT, CvT and LeViT
   also train at dropout 0.1 with one generator seed on every rank, on data
   rank 0's slice, against the one-process step on that slice with the same
   generator (1e-5), and raise without a generator.

@@ -57,21 +57,6 @@ REFUSED = {
     "ScalableViT": ("ScalableViT", dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2),
                                         reduction_factor=(4, 2), window_size=(8, None),
                                         ssa_dim_key=(40, 40), ssa_dim_value=(32, 32))),
-    "CaiT": ("CaiT", dict(image_size=32, patch_size=8, num_classes=5, dim=32, depth=3,
-                          cls_depth=2, heads=4, dim_head=8, mlp_dim=64)),
-    "DeepViT": ("DeepViT", dict(image_size=32, patch_size=8, num_classes=5, dim=32, depth=2,
-                                heads=4, dim_head=8, mlp_dim=64)),
-    "CrossViT": ("CrossViT", dict(image_size=32, num_classes=5, sm_dim=16, lg_dim=24,
-                                  sm_patch_size=4, lg_patch_size=16, sm_enc_depth=1,
-                                  sm_enc_heads=2, sm_enc_mlp_dim=32, sm_enc_dim_head=8,
-                                  lg_enc_depth=2, lg_enc_heads=2, lg_enc_mlp_dim=32,
-                                  lg_enc_dim_head=8, cross_attn_depth=1, cross_attn_heads=2,
-                                  cross_attn_dim_head=8, depth=2)),
-    "patch-merger ViT": ("vit_with_patch_merger.ViT", dict(
-        image_size=32, patch_size=4, num_classes=5, dim=32, depth=4, heads=2, dim_head=16,
-        mlp_dim=64, patch_merge_layer=2, patch_merge_num_tokens=3)),
-    "Parallel ViT": ("parallel_vit.ViT", dict(image_size=32, patch_size=8, num_classes=5,
-                                              dim=32, depth=2, heads=4, dim_head=8, mlp_dim=64)),
     "ATS-ViT": ("ats_vit.ViT", dict(image_size=64, patch_size=8, num_classes=13, dim=64,
                                     depth=3, max_tokens_per_depth=(32, 16, 8), heads=2,
                                     mlp_dim=128, dim_head=32)),

@@ -73,9 +73,15 @@ after any replicated prefix), :func:`row_parallel_conv` /
 :func:`row_parallel_output` (``g`` and the bias once) and
 :func:`split_dropout`, each the plain op on a module that is not split, and
 declare what ``shard_params`` cuts as ``tp_cuts`` (``{name: COLUMN | ROW |
-QKV | KV}``).  An attention of theirs whose heads the axis does not divide
-runs whole on every rank with the shard :data:`WHOLE`: no collective, and
-its dropout draws from the generator as the split modules' does.
+QKV | KV}``).  An ``Attention`` or ``MLP`` outside a ``Transformer`` (Parallel
+ViT's branches, DeepViT's, the patch merger's, CaiT's and CrossViT's layers)
+is split as a ``Transformer``'s is; CaiT's talking heads and DeepViT's
+re-attention mix all heads with one ``(heads, heads)`` matrix, which
+:func:`~vit_tpu_torch.ops.tensor_parallel.mix_across_heads` splits by heads.
+An attention outside a ``Transformer`` whose heads the axis does not divide
+runs whole on every rank with the shard :data:`WHOLE`: no collective (every
+helper here takes :data:`WHOLE` for a module that is not split), and its
+dropout draws from the generator as the split modules' does.
 """
 
 from __future__ import annotations
@@ -200,9 +206,9 @@ COLUMN, ROW, QKV, KV = "column", "row", "qkv", "kv"
 MLP_CUTS = {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}
 
 WHOLE = ModelShard(None, 0, 1)
-"""The shard of a conv hybrid's attention that runs whole inside a split
-model (its heads do not divide over the axis): no collective, and its
-dropout draws from the forward's generator, so that the ranks draw one
+"""The shard of an attention outside a ``Transformer`` that runs whole inside
+a split model (its heads do not divide over the axis): no collective, and
+its dropout draws from the forward's generator, so that the ranks draw one
 mask."""
 
 
@@ -213,6 +219,14 @@ def _splits(shard: ModelShard | None) -> bool:
 def is_split(module: nn.Module) -> bool:
     """Whether ``module`` is split over a model axis of more than one rank."""
     return _splits(getattr(module, "shard", None))
+
+
+def model_shard(model: nn.Module) -> ModelShard | None:
+    """The :class:`ModelShard` of a model ``shard_params`` has split, or None:
+    what a model-level dropout (``emb_dropout``) passes :func:`split_dropout`,
+    so that it draws from the forward's generator once the model is split."""
+    plan = getattr(model, "tensor_parallel", None)
+    return None if plan is None else plan.shard
 
 
 def row_parallel_output(proj: nn.Linear, x: torch.Tensor,
@@ -331,9 +345,12 @@ def linear(module: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, cast_to(module.weight, x), cast_to(module.bias, x))
 
 
-def apply_output(to_out: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """An :func:`output_projection` applied in ``x``'s dtype."""
-    return to_out[1](linear(to_out[0], x))
+def apply_output(to_out: nn.Sequential, x: torch.Tensor, shard: ModelShard | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """An :func:`output_projection` applied in ``x``'s dtype: a row-split
+    one's partial summed over ``shard``'s group (:func:`row_parallel_output`),
+    its dropout as :func:`split_dropout` draws it."""
+    return split_dropout(row_parallel_output(to_out[0], x, shard), to_out[1], shard, generator)
 
 
 class LayerNorm(nn.Module):
@@ -523,17 +540,10 @@ class MLP(nn.Module):
         """``generator``: the dropout's draws (:func:`dropout`); without it an
         active dropout draws from ``nn.Dropout``'s global RNG (and raises
         when split)."""
-        rate, training = self.dropout.p, self.training
-        if self.shard is not None:
-            group = self.shard.group
-            x = gelu_exact(linear(self.fc1, copy_to_model_parallel(x, group)))
-            x = dropout_shard(x, rate, training, generator, self.shard)
-            return dropout(row_parallel_output(self.fc2, x, self.shard), rate, training, generator)
-        if generator is None:
-            x = self.dropout(gelu_exact(linear(self.fc1, x)))
-            return self.dropout(linear(self.fc2, x))
-        x = dropout(gelu_exact(linear(self.fc1, x)), rate, training, generator)
-        return dropout(linear(self.fc2, x), rate, training, generator)
+        x = gelu_exact(linear(self.fc1, split_input(x, self.shard)))
+        x = split_dropout(x, self.dropout, self.shard, generator, hidden=True)
+        return split_dropout(row_parallel_output(self.fc2, x, self.shard), self.dropout,
+                             self.shard, generator)
 
 
 class Attention(nn.Module):
@@ -571,8 +581,7 @@ class Attention(nn.Module):
         which an active dropout draws from ``nn.Dropout``'s global RNG (and
         raises when split)."""
         b, n, _ = x.shape
-        if self.shard is not None:
-            x = copy_to_model_parallel(x, self.shard.group)
+        x = split_input(x, self.shard)
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
         out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5,
@@ -580,11 +589,7 @@ class Attention(nn.Module):
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
         if not self.project_out:
             return out
-        if self.shard is None and generator is None:
-            return apply_output(self.to_out, out)
-        y = linear(self.to_out[0], out) if self.shard is None \
-            else row_parallel_output(self.to_out[0], out, self.shard)
-        return dropout(y, self.to_out[1].p, self.training, generator)
+        return apply_output(self.to_out, out, self.shard, generator)
 
 
 def kernel_activation(x: torch.Tensor) -> bool:

@@ -11,6 +11,18 @@ in f32: logits, scale, pre-mix, softmax, post-mix).  ``vit_tpu`` runs no
 Pallas kernel in CaiT (its LayerScale residual is not rows 1–2's function),
 so neither does the port: plain modules.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each :class:`TalkingHeadsAttention` of both stacks splits by heads
+(``tp_cuts``: ``to_q``'s rows, ``to_kv``'s rows in each half, ``to_out``'s
+columns, ``mix_heads_pre_attn``'s rows and ``mix_heads_post_attn``'s
+columns, the heads a rank mixes from and into); the pre-mix is summed over
+the model group and the softmax runs on every rank over every head
+(:func:`~vit_tpu_torch.ops.tensor_parallel.mix_across_heads`).  Each MLP
+splits by hidden units (``layers/common.py``'s ``MLP``).  The LayerScale
+parameters, the embeddings and the head stay whole.  A split model's
+dropouts draw from the forward's ``generator``, every rank of a model group
+one mask.
+
 Layer dropout drops whole layers in training only, as ``vit_tpu`` does, with
 its rule that at least one layer of a transformer survives; ``keep[i]``
 scales both residual branches of layer i.  Its draws come from the
@@ -35,11 +47,13 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, LayerNorm, apply_output, cast_to, glorot_linear_, linear, output_projection,
+    COLUMN, KV, MLP, ROW, LayerNorm, apply_output, cast_to, glorot_linear_, group_kw, linear,
+    model_shard, output_projection, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
 from vit_tpu_torch.ops.patchify import patchify
+from vit_tpu_torch.ops.tensor_parallel import mix_across_heads
 
 
 def layer_scale_init(depth: int) -> float:
@@ -64,7 +78,13 @@ def layer_drop(generator: torch.Generator, depth: int, p: float):
 
 class TalkingHeadsAttention(nn.Module):
     """``vit_tpu/models/cait.py:40-81``: with a ``context``, the keys and
-    values come from ``[x, context]``."""
+    values come from ``[x, context]``.  ``shard`` (set by ``shard_params``)
+    splits it by heads (``tp_cuts``; see the module docstring);
+    ``generator``, where given, draws the output dropout."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_kv.weight": KV, "to_out.0.weight": ROW,
+               "mix_heads_pre_attn": COLUMN, "mix_heads_post_attn": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0, *,
                  device=None, dtype=None, generator=None):
@@ -81,15 +101,18 @@ class TalkingHeadsAttention(nn.Module):
             nn.init.normal_(self.mix_heads_post_attn, generator=generator)
         self.to_out = output_projection(inner, dim, dropout, generator, **kw)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
-        ctx = x if context is None else torch.cat([x, context], dim=1)
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = split_input(x, self.shard)
+        ctx = x if context is None else torch.cat([x, split_input(context, self.shard)], dim=1)
         q = split_heads(linear(self.to_q, x), self.heads)
         k, v = (split_heads(t, self.heads) for t in linear(self.to_kv, ctx).chunk(2, dim=-1))
         dots = (q.float() @ k.float().transpose(-1, -2)) * self.dim_head ** -0.5
-        dots = torch.einsum("bhij,hg->bgij", dots, cast_to(self.mix_heads_pre_attn, dots))
-        attn = torch.softmax(dots, dim=-1)
+        attn = mix_across_heads(dots, cast_to(self.mix_heads_pre_attn, dots),
+                                lambda t: torch.softmax(t, dim=-1), **group_kw(self))
         attn = torch.einsum("bhij,hg->bgij", attn, cast_to(self.mix_heads_post_attn, attn))
-        return apply_output(self.to_out, merge_heads(apply_attention(attn, v)))
+        out = merge_heads(apply_attention(attn, v))
+        return apply_output(self.to_out, out, self.shard, generator)
 
 
 class CaiTTransformer(nn.Module):
@@ -138,8 +161,9 @@ class CaiTTransformer(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         keep = self.keep(x, generator)
         for i, layer in enumerate(self.layers):
-            x = x + self.branch(layer["attn"](layer["attn_norm"](x), context), "attn", i, keep)
-            x = x + self.branch(layer["mlp"](layer["mlp_norm"](x)), "mlp", i, keep)
+            h = layer["attn"](layer["attn_norm"](x), context, generator)
+            x = x + self.branch(h, "attn", i, keep)
+            x = x + self.branch(layer["mlp"](layer["mlp_norm"](x), generator), "mlp", i, keep)
         return x
 
 
@@ -174,13 +198,15 @@ class CaiT(nn.Module):
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
     def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator``: the layer-dropout draws' (needed only in training
-        with ``layer_dropout > 0``)."""
+        """``generator``: the layer-dropout draws' (needed in training with
+        ``layer_dropout > 0``) and, where given, every dropout's; a split
+        model's active dropout raises without one."""
         p = self.patch_size
         x = linear(self.patch_embedding,
                    patchify(img.to(self.compute_dtype or self.head.weight.dtype), p, p))
         b, n, _ = x.shape
-        x = self.emb_dropout(x + self.pos_embedding[:, :n].to(x.dtype))
+        x = split_dropout(x + self.pos_embedding[:, :n].to(x.dtype), self.emb_dropout,
+                          model_shard(self), generator)
         x = self.patch_transformer(x, generator=generator)
         cls_tokens = self.cls_token.to(x.dtype).expand(b, -1, -1)
         cls_out = self.cls_transformer(cls_tokens, context=x, generator=generator)

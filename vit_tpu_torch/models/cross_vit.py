@@ -17,6 +17,14 @@ activations and no active dropout, the fused MLP kernels (rows 1–2), forward
 and backward.  The constructor's dropouts default to 0.1, as ``vit_tpu``'s;
 in training an active dropout runs the plain MLP modules.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each :class:`CrossAttention`, in the encoders and in the cls tokens' cross
+attention, splits by heads (``tp_cuts``: ``to_q``'s rows, ``to_kv``'s rows
+in each half, ``to_out``'s columns), each encoder MLP by hidden units (rows
+1–2's split form on the card); the projections between the branches'
+widths, the embedders, the norms and the heads stay whole.  A split model's
+dropouts, the embedders' included, draw from the forward's ``generator``.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=``, ``compute_dtype=``,
 ``generator=`` and ``channels=``.  ``vit_tpu``'s ``CrossViT`` takes no
 ``fused_mlp``; its ``NormedTransformer`` does, and so does the port's
@@ -37,8 +45,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, LayerNorm, apply_output, check_fused_mode, fused_mlp_residual, glorot_linear_, linear,
-    output_projection,
+    COLUMN, KV, MLP, ROW, LayerNorm, apply_output, check_fused_mode, fused_mlp_residual,
+    glorot_linear_, linear, model_shard, output_projection, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import scaled_dot_product_attention
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
@@ -48,7 +56,12 @@ from vit_tpu_torch.ops.patchify import patchify
 class CrossAttention(nn.Module):
     """``vit_tpu/models/cross_vit.py:26-56``: q from x, k and v from the
     context (x itself by default; ``[x, context]`` with
-    ``kv_include_self``)."""
+    ``kv_include_self``).  ``shard`` (set by ``shard_params``) splits it by
+    heads (``tp_cuts``); ``generator``, where given, draws the output
+    dropout."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_kv.weight": KV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0, *,
                  device=None, dtype=None, generator=None):
@@ -61,14 +74,16 @@ class CrossAttention(nn.Module):
         self.to_out = output_projection(inner, dim, dropout, generator, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
-                kv_include_self: bool = False) -> torch.Tensor:
-        ctx = x if context is None else context
+                kv_include_self: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = split_input(x, self.shard)
+        ctx = x if context is None else split_input(context, self.shard)
         if kv_include_self:
             ctx = torch.cat([x, ctx], dim=1)
         q = split_heads(linear(self.to_q, x), self.heads)
         k, v = (split_heads(t, self.heads) for t in linear(self.to_kv, ctx).chunk(2, dim=-1))
-        out = scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5)
-        return apply_output(self.to_out, merge_heads(out))
+        out = merge_heads(scaled_dot_product_attention(q, k, v, scale=self.dim_head ** -0.5))
+        return apply_output(self.to_out, out, self.shard, generator)
 
 
 class NormedTransformer(nn.Module):
@@ -90,11 +105,12 @@ class NormedTransformer(nn.Module):
             self.add_module(f"mlp_{i}", MLP(dim, mlp_dim, dropout, generator=generator, **kw))
         self.norm = LayerNorm(dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = x + getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(x))
+            x = x + getattr(self, f"attn_{i}")(getattr(self, f"attn_norm_{i}")(x),
+                                               generator=generator)
             x = fused_mlp_residual(x, getattr(self, f"mlp_norm_{i}"), getattr(self, f"mlp_{i}"),
-                                   self.fused_mlp)
+                                   self.fused_mlp, generator)
         return self.norm(x)
 
 
@@ -121,7 +137,8 @@ class CrossTransformer(nn.Module):
                     self.add_module(f"{me}_project_out_{i}", glorot_linear_(
                         nn.Linear(d_other, d_me, **kw), generator))
 
-    def forward(self, sm_tokens: torch.Tensor, lg_tokens: torch.Tensor):
+    def forward(self, sm_tokens: torch.Tensor, lg_tokens: torch.Tensor,
+                generator: torch.Generator | None = None):
         cls = {"sm": sm_tokens[:, :1], "lg": lg_tokens[:, :1]}
         patches = {"sm": sm_tokens[:, 1:], "lg": lg_tokens[:, 1:]}
         for i in range(self.depth):
@@ -131,7 +148,8 @@ class CrossTransformer(nn.Module):
                     h = linear(getattr(self, f"{me}_project_in_{i}"), h)
                 h = getattr(self, f"{me}_attend_{other}_norm_{i}")(h)
                 h = getattr(self, f"{me}_attend_{other}_{i}")(h, context=patches[other],
-                                                              kv_include_self=True)
+                                                              kv_include_self=True,
+                                                              generator=generator)
                 if self.need_proj:
                     h = linear(getattr(self, f"{me}_project_out_{i}"), h)
                 cls[me] = h + cls[me]
@@ -160,11 +178,15 @@ class ImageEmbedder(nn.Module):
             nn.init.normal_(self.pos_embedding, generator=generator)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None,
+                shard=None) -> torch.Tensor:
+        """``generator`` and ``shard`` (the split model's) as
+        :func:`~vit_tpu_torch.layers.common.split_dropout` takes them."""
         x = linear(self.patch_embedding, patchify(img, self.patch_size, self.patch_size))
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
-        return self.dropout(x + self.pos_embedding[:, :n + 1].to(x.dtype))
+        return split_dropout(x + self.pos_embedding[:, :n + 1].to(x.dtype), self.dropout, shard,
+                             generator)
 
 
 class CrossViT(nn.Module):
@@ -202,12 +224,17 @@ class CrossViT(nn.Module):
         self.lg_head_norm = LayerNorm(lg_dim, **kw)
         self.lg_head = glorot_linear_(nn.Linear(lg_dim, num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: every dropout's draws, where given; a split model's
+        active dropout raises without one."""
         img = img.to(self.compute_dtype or self.sm_head.weight.dtype)
-        sm_tokens, lg_tokens = self.sm_image_embedder(img), self.lg_image_embedder(img)
+        shard = model_shard(self)
+        sm_tokens = self.sm_image_embedder(img, generator, shard)
+        lg_tokens = self.lg_image_embedder(img, generator, shard)
         for r in range(self.depth):
-            sm_tokens = getattr(self, f"sm_enc_{r}")(sm_tokens)
-            lg_tokens = getattr(self, f"lg_enc_{r}")(lg_tokens)
-            sm_tokens, lg_tokens = getattr(self, f"cross_attend_{r}")(sm_tokens, lg_tokens)
+            sm_tokens = getattr(self, f"sm_enc_{r}")(sm_tokens, generator)
+            lg_tokens = getattr(self, f"lg_enc_{r}")(lg_tokens, generator)
+            sm_tokens, lg_tokens = getattr(self, f"cross_attend_{r}")(sm_tokens, lg_tokens,
+                                                                      generator)
         return (linear(self.sm_head, self.sm_head_norm(sm_tokens[:, 0]))
                 + linear(self.lg_head, self.lg_head_norm(lg_tokens[:, 0])))

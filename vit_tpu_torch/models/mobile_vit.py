@@ -45,8 +45,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
 from vit_tpu_torch.layers.common import (
-    COLUMN, QKV, ROW, Attention, BatchNorm, Conv, GroupedConv, LayerNorm, glorot_linear_,
-    linear, row_parallel_output, split_dropout, split_input,
+    COLUMN, QKV, ROW, Attention, BatchNorm, Conv, GroupedConv, LayerNorm, apply_output,
+    glorot_linear_, linear, row_parallel_output, split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 
@@ -125,8 +125,7 @@ class MobileViTAttention(Attention):
                    for t in linear(self.to_qkv, x).chunk(3, dim=-1))
         out = apply_attention(attention_weights(q, k, scale=self.dim_head ** -0.5), v)
         out = out.transpose(1, 2).reshape(b, p, n, self.heads * self.dim_head)
-        return split_dropout(row_parallel_output(self.to_out[0], out, self.shard), self.to_out[1],
-                             self.shard, generator)
+        return apply_output(self.to_out, out, self.shard, generator)
 
 
 def unfold_patches(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:

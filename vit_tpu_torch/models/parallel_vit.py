@@ -7,6 +7,13 @@ the kernels compute), so the port runs plain modules: the
 :class:`~vit_tpu_torch.layers.common.Attention` (plain below 1024 tokens)
 and :class:`~vit_tpu_torch.layers.common.MLP`.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+every branch's attention splits by heads and every branch's MLP by hidden
+units, as a ``Transformer``'s do; each branch's row-split output is summed
+over the model group and rounded on its own before the branches' sum, the
+unsplit model's rounding points.  A split model's dropouts draw from the
+forward's ``generator``.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=``, ``compute_dtype=``,
 ``generator=`` and ``channels=``.  Images are NHWC.  The modules carry the
 Flax names at the top: ``patch_embedding``, ``cls_token``, ``pos_embedding``,
@@ -20,7 +27,9 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
-from vit_tpu_torch.layers.common import MLP, Attention, LayerNorm, glorot_linear_, linear
+from vit_tpu_torch.layers.common import (
+    MLP, Attention, LayerNorm, glorot_linear_, linear, model_shard, split_dropout,
+)
 from vit_tpu_torch.ops.patchify import patchify
 
 
@@ -64,20 +73,25 @@ class ViT(nn.Module):
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
-    def parallel(self, x: torch.Tensor, kind: str, i: int) -> torch.Tensor:
+    def parallel(self, x: torch.Tensor, kind: str, i: int,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         """The sum of depth i's ``kind`` branches (``attn`` or ``mlp``), in
         branch order, plus the residual."""
-        total = sum(getattr(self, f"{kind}_{i}_{j}")(getattr(self, f"{kind}_norm_{i}_{j}")(x))
+        total = sum(getattr(self, f"{kind}_{i}_{j}")(getattr(self, f"{kind}_norm_{i}_{j}")(x),
+                                                     generator=generator)
                     for j in range(self.branches))
         return total + x
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: every dropout's draws, where given; a split model's
+        active dropout raises without one."""
         x = patchify(img.to(self.compute_dtype or self.head.weight.dtype), *self.patch_size)
         x = linear(self.patch_embedding, x)
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
-        x = self.emb_dropout(x + self.pos_embedding[:, :n + 1].to(x.dtype))
+        x = split_dropout(x + self.pos_embedding[:, :n + 1].to(x.dtype), self.emb_dropout,
+                          model_shard(self), generator)
         for i in range(self.depth):
-            x = self.parallel(self.parallel(x, "attn", i), "mlp", i)
+            x = self.parallel(self.parallel(x, "attn", i, generator), "mlp", i, generator)
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         return linear(self.head, self.head_norm(x))

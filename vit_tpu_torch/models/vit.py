@@ -29,7 +29,9 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
-from vit_tpu_torch.layers.common import LayerNorm, Transformer, dropout, glorot_linear_, linear
+from vit_tpu_torch.layers.common import (
+    LayerNorm, Transformer, glorot_linear_, linear, model_shard, split_dropout,
+)
 from vit_tpu_torch.ops.patchify import patchify
 
 
@@ -98,10 +100,8 @@ class ViT(nn.Module):
         """patchify → :meth:`tokens` → dropout (from ``generator`` where
         given, :func:`~vit_tpu_torch.layers.common.dropout`, which a model
         split over a ``model`` axis needs: its ranks draw one mask)."""
-        x = self.tokens(self.to_patch(img))
-        if generator is None and getattr(self, "tensor_parallel", None) is None:
-            return self.emb_dropout(x)
-        return dropout(x, self.emb_dropout.p, self.training, generator)
+        return split_dropout(self.tokens(self.to_patch(img)), self.emb_dropout, model_shard(self),
+                             generator)
 
     def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator``: the draws of every active dropout (``vit_tpu``'s

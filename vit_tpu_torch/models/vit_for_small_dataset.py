@@ -41,8 +41,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, MLP_CUTS, QKV, ROW, LayerNorm, cast_to, check_fused_mode, dropout, fused_mlp_residual,
-    glorot_linear_, group_kw, kernel_activation, linear, output_projection, row_parallel_output,
+    MLP, QKV, ROW, LayerNorm, apply_output, cast_to, check_fused_mode, fused_mlp_residual,
+    glorot_linear_, group_kw, kernel_activation, linear, model_shard, output_projection,
     split_dropout, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention, mask_value
@@ -224,8 +224,7 @@ class LSA(nn.Module):
         eye = torch.eye(n, dtype=torch.bool, device=x.device)
         attn = torch.softmax(dots.masked_fill(eye, mask_value(torch.float32)), dim=-1)
         out = apply_attention(attn, v).transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return split_dropout(row_parallel_output(self.to_out[0], out, self.shard), self.to_out[1],
-                             self.shard, generator)
+        return apply_output(self.to_out, out, self.shard, generator)
 
 
 def fused_lsa_eligible(x: torch.Tensor, attn: LSA, mode: str) -> bool:
@@ -242,9 +241,9 @@ class ViT(nn.Module):
 
     ``layers[i]`` holds ``attn_norm``, ``attn`` (:class:`LSA`), ``mlp_norm``
     and ``mlp`` (``attn_norm_{i}`` … at the top of the Flax tree), each
-    ``mlp`` declaring its cuts (``tp_cuts``, ``layers/common.py``'s
-    ``MLP_CUTS``) for ``shard_params``.  See the module docstring for the
-    dtypes, the device, the dispatch and the split.
+    ``mlp`` a ``layers/common.py`` ``MLP``, which ``shard_params`` splits
+    wherever it sits.  See the module docstring for the dtypes, the device,
+    the dispatch and the split.
     """
 
     def __init__(self, image_size, patch_size, num_classes: int, dim: int, depth: int,
@@ -282,8 +281,6 @@ class ViT(nn.Module):
                 "mlp": MLP(dim, mlp_dim, dropout, generator=generator, **kw),
             })
             for _ in range(depth))
-        for layer in self.layers:  # split by shard_params as a Transformer's MLP
-            layer["mlp"].tp_cuts, layer["mlp"].tp_multiple = MLP_CUTS, 8
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
@@ -293,11 +290,8 @@ class ViT(nn.Module):
         x = self.patch_embedding(img.to(self.compute_dtype or self.cls_token.dtype))
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embedding[:, : n + 1].to(x.dtype)
-        if generator is None and getattr(self, "tensor_parallel", None) is None:
-            x = self.emb_dropout(x)
-        else:
-            x = dropout(x, self.emb_dropout.p, self.training, generator)
+        x = split_dropout(x + self.pos_embedding[:, : n + 1].to(x.dtype), self.emb_dropout,
+                          model_shard(self), generator)
 
         bias = None  # LSA's mask, built once for every layer that takes the kernel
         for layer in self.layers:

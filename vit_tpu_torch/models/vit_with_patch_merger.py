@@ -14,6 +14,12 @@ half of each layer goes through
 CUDA activations and no active dropout: 256 tokens an image before the
 merger and 8 after it at 256 px, patch 16).
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each layer's attention splits by heads and its MLP by hidden units, as a
+``Transformer``'s do (rows 1–2's split form on the card); the
+``PatchMerger``, on replicated tokens, stays whole.  A split model's
+dropouts draw from the forward's ``generator``.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=``, ``compute_dtype=``,
 ``generator=`` and ``channels=``; ``fused_mlp`` takes ``"auto"`` or
 ``"never"``.  Images are NHWC.  The modules carry the Flax names:
@@ -31,7 +37,7 @@ from torch import nn
 from vit_tpu_torch.core.helpers import default, pair, resolve_device
 from vit_tpu_torch.layers.common import (
     MLP, Attention, LayerNorm, cast_to, check_fused_mode, fused_mlp_residual, glorot_linear_,
-    linear,
+    linear, model_shard, split_dropout,
 )
 from vit_tpu_torch.ops.patchify import patchify
 
@@ -94,13 +100,16 @@ class ViT(nn.Module):
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: every dropout's draws, where given; a split model's
+        active dropout raises without one."""
         x = patchify(img.to(self.compute_dtype or self.head.weight.dtype), *self.patch_size)
         x = linear(self.patch_embedding, x)
-        x = self.emb_dropout(x + self.pos_embedding[:, :x.shape[1]].to(x.dtype))
+        x = split_dropout(x + self.pos_embedding[:, :x.shape[1]].to(x.dtype), self.emb_dropout,
+                          model_shard(self), generator)
         for i, layer in enumerate(self.layers):
-            x = x + layer["attn"](layer["attn_norm"](x))
-            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp)
+            x = x + layer["attn"](layer["attn_norm"](x), generator=generator)
+            x = fused_mlp_residual(x, layer["mlp_norm"], layer["mlp"], self.fused_mlp, generator)
             if i == self.merge_index:
                 x = self.patch_merger(x)
         return linear(self.head, self.head_norm(x.mean(dim=1)))

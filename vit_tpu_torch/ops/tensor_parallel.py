@@ -27,6 +27,13 @@ a Pallas call's operands and keeps the unsharded numbers.
   before a column-split projection and :func:`reduce_from_model_parallel`
   (all-reduce forward, identity backward) after a row-split one: the plain
   modules' split, on the CPU, in f32 and under an active dropout.
+- :func:`mix_across_heads`: an attention matrix mixed across all heads by a
+  learned ``(heads, heads)`` matrix (CaiT's talking heads, DeepViT's
+  re-attention) split by heads.  ``vit_tpu`` runs no Pallas kernel there, so
+  this is plain PyTorch: a rank's heads' share of the mix, one all-reduce of
+  the f32 mixed matrix forward (``g``), the step that needs every head
+  (softmax, LayerNorm over heads) on every rank, then ``f``, whose backward
+  sums each rank's share of that step's output gradient.
 
 Each wrapper on a CUDA tensor launches its kernel or raises; on a CPU tensor
 it takes the plain version.
@@ -83,6 +90,23 @@ def copy_to_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_model_parallel(s: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromModelParallel.apply(s, group)
+
+
+def mix_across_heads(t: torch.Tensor, rows: torch.Tensor, middle, group=None) -> torch.Tensor:
+    """``middle(Σ_h t[:, h] · rows[h, :])``, the ``(b, heads, n, m)`` matrix
+    ``t`` mixed across heads by ``rows`` (``einsum("bhij,hg->bgij")``) and
+    then ``middle`` over every head (a softmax, a LayerNorm over the head
+    axis).  Split (``group`` given), ``t`` holds this rank's heads and
+    ``rows`` their rows of the whole ``(heads, heads)`` matrix: each rank's
+    share of the mix is summed over the group (``g``), ``middle`` runs on
+    every rank on the whole sum, and ``f`` follows it, so that its backward
+    sums the ranks' gradients at ``middle``'s output, each of which covers
+    only the heads that rank reads next.  In f32 the split sum differs from
+    the whole one in its order alone."""
+    mixed = torch.einsum("bhij,hg->bgij", t, rows)
+    if group is None:
+        return middle(mixed)
+    return copy_to_model_parallel(middle(reduce_from_model_parallel(mixed, group)), group)
 
 
 def bias_residual_reference(s: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -27,10 +27,18 @@ summing partials over the model group (``vit_tpu_torch/ops/
 tensor_parallel.py``; the kernels' split forms on the card).  What it
 splits:
 
-- ``layers/common.py``'s ``Attention`` and ``MLP`` inside a ``Transformer``
-  (the ViT family): ``to_qkv`` cut by heads in each of q, k and v
-  (:data:`QKV`), ``to_out``'s columns, ``fc1``'s rows and bias, ``fc2``'s
-  columns;
+- ``layers/common.py``'s ``Attention`` and ``MLP``, inside a ``Transformer``
+  (the ViT family) or not (Parallel ViT's branches, the layers of DeepViT,
+  the patch merger's ViT, CaiT and CrossViT): ``to_qkv`` cut by heads in
+  each of q, k and v (:data:`QKV`), ``to_out``'s columns, ``fc1``'s rows
+  and bias, ``fc2``'s columns;
+- CaiT's ``TalkingHeadsAttention`` (``to_q`` by rows, ``to_kv`` by rows of
+  each half, :data:`KV`; ``to_out``'s columns; ``mix_heads_pre_attn``'s
+  rows and ``mix_heads_post_attn``'s columns) and DeepViT's ``ReAttention``
+  (``to_qkv`` as ``Attention``'s, ``reattn_weights``' rows, ``to_out``'s
+  columns; ``reattn_norm`` whole), their head mixes summed over the model
+  group (``ops/tensor_parallel.py``'s ``mix_across_heads``);
+- CrossViT's ``CrossAttention`` (as CaiT's, without the mixes);
 - Twins-SVT's ``LocalAttention`` and ``GlobalAttention`` (``to_q`` by rows,
   ``to_kv`` by rows of each half, :data:`KV`; ``to_out``'s columns) and its
   conv-MLPs;
@@ -58,17 +66,19 @@ Their dropout, split or whole, draws from the model forward's
 split: an active dropout without one raises.
 
 LeViT's ``pos_bias`` columns and its q, k and v BatchNorms' channels
-(scale, bias and running statistics), and RegionViT's ``local_rel_pos_bias``
-columns, are split with their heads, beyond the rule table, which
-replicates them in ``vit_tpu``: each head reads only its own, so the
-numbers are the same.  The other way, CrossFormer's ``DynamicPositionBias``
+(scale, bias and running statistics), RegionViT's ``local_rel_pos_bias``
+columns, CaiT's two head mixes and DeepViT's ``reattn_weights`` are split
+with their heads, beyond the rule table, which
+replicates them in ``vit_tpu``: each head reads only its own rows or
+columns, so the numbers are the same.  The other way, CrossFormer's ``DynamicPositionBias``
 stays whole where the rule table matches its ``fc1`` and ``fc2`` by name:
 GSPMD shards them around a LayerNorm over the split width, no Megatron pair;
 whole, its table reaches every rank's heads through
 ``copy_to_model_parallel``, with the same numbers.  The plan lists such
-parameters under ``replicated``.  An attention of these models whose heads
-the axis does not divide (CvT-13's stages 1-2 at tp 2, a three-head LeViT
-stage, NesT@224's hierarchy 1) runs whole on every rank: its parameters
+parameters under ``replicated``.  An attention outside a ``Transformer``
+whose heads the axis does not divide (CvT-13's stages 1-2 at tp 2, a
+three-head LeViT stage, NesT@224's hierarchy 1, a two-head one at tp 4)
+runs whole on every rank: its parameters
 stay unsplit, it needs no collective (its ``shard`` is
 ``layers.common.WHOLE``), and the plan lists it under ``whole``.  ``vit_tpu``
 splits such a layer inside a head and GSPMD sums the partial logits: the
@@ -76,8 +86,7 @@ same numbers.  The plan's ``kinds`` name every split parameter and buffer
 with its cut (:data:`COLUMN`, :data:`ROW`, :data:`QKV`, :data:`KV`), so a
 checkpoint gathers them whole.  A ``Transformer``'s attention whose heads do
 not divide still raises, as does whatever else the rule table would shard:
-the hybrid tier, ScalableViT, CaiT, DeepViT, CrossViT, the patch merger's
-ViT, Parallel ViT, ATS-ViT, CCT and T2T-ViT's single-head token
+the hybrid tier, ScalableViT, ATS-ViT, CCT and T2T-ViT's single-head token
 transformers, ``NotImplementedError`` naming the module; nothing falls
 through to replication.
 
@@ -95,7 +104,7 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.layers.common import (
-    COLUMN, KV, MLP_CUTS, QKV, ROW, WHOLE, Attention, ModelShard, Transformer,
+    COLUMN, KV, MLP, MLP_CUTS, QKV, ROW, WHOLE, Attention, ModelShard, Transformer,
 )
 from vit_tpu_torch.ops.tensor_parallel import all_reduce_sum
 from vit_tpu_torch.parallel.mesh import MODEL_AXIS, model_group, model_rank, model_size
@@ -269,13 +278,18 @@ def _join(*parts) -> str:
 def _units(model: nn.Module) -> tuple[list, dict]:
     """``(units, transformers)``: every module :func:`shard_params` splits,
     in order, and the ``Transformer`` stacks by name.  A ``Transformer``'s
-    layers split by :data:`_TRANSFORMER_CUTS`; any other module that
-    declares ``tp_cuts`` (``{local name: kind}``) by those, by heads where
-    it has ``heads``, its hidden width a multiple of its ``tp_multiple``."""
-    units, transformers = [], {}
+    layers split by :data:`_TRANSFORMER_CUTS`, and so does an ``Attention``
+    or ``MLP`` outside one; any other module that declares ``tp_cuts``
+    (``{local name: kind}``) by those, by heads where it has ``heads``, its
+    hidden width a multiple of its ``tp_multiple``.  An MLP's hidden width
+    is a multiple of 8 a rank, where the fused MLP may run."""
+    units, transformers, stacks = [], {}, ()
     for path, m in model.named_modules():
+        if path.startswith(stacks):
+            continue
         if isinstance(m, Transformer):
             transformers[path] = m
+            stacks += (f"{path}." if path else "",)
             for i, layer in enumerate(m.layers):
                 prefix = _join(path, "layers", str(i))
                 units.append(_Unit(f"{prefix}.attn", layer["attn"], _TRANSFORMER_CUTS["attn"],
@@ -285,6 +299,10 @@ def _units(model: nn.Module) -> tuple[list, dict]:
         elif getattr(m, "tp_cuts", None):
             units.append(_Unit(path, m, m.tp_cuts, getattr(m, "heads", None),
                                multiple=getattr(m, "tp_multiple", 1)))
+        elif isinstance(m, Attention):
+            units.append(_Unit(path, m, _TRANSFORMER_CUTS["attn"], m.heads))
+        elif isinstance(m, MLP):
+            units.append(_Unit(path, m, _TRANSFORMER_CUTS["mlp"], multiple=8))
     return units, transformers
 
 
@@ -300,9 +318,9 @@ def _refuse(model, size, units, transformers) -> None:
             raise NotImplementedError(
                 f"shard_params: {owner} ({type(model.get_submodule(owner)).__name__}) is split "
                 f"over the '{MODEL_AXIS}' axis by the rule table, and the port runs split only "
-                f"layers/common.py's Attention and MLP inside a Transformer and the attentions "
-                f"and MLPs of Twins-SVT, CvT, LeViT, MobileViT, the small-dataset ViT, "
-                f"CrossFormer, RegionViT and NesT")
+                f"layers/common.py's Attention and MLP and the attentions and MLPs of "
+                f"Twins-SVT, CvT, LeViT, MobileViT, the small-dataset ViT, CrossFormer, "
+                f"RegionViT, NesT, CaiT, DeepViT and CrossViT")
     for tname, t in transformers.items():
         if t.fused_attention == "hybrid":
             raise NotImplementedError(
@@ -374,8 +392,7 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
     on a ``Transformer``'s attention without an output projection or whose
     heads do not divide over the axis, or where a hidden width does not (in
     multiples of 8 where the fused MLP may run): today the hybrid tier,
-    ScalableViT, CaiT, DeepViT, CrossViT, the patch merger's ViT, Parallel
-    ViT, ATS-ViT, CCT and T2T-ViT.  Without a mesh it returns
+    ScalableViT, ATS-ViT, CCT and T2T-ViT.  Without a mesh it returns
     ``model`` as it is; over a ``model`` axis of 1 it splits nothing and
     records the plan."""
     if mesh is None:
