@@ -350,7 +350,15 @@ Phases, one line each (any failure raises and exits non-zero):
    against the plain versions, twice bit for bit, the two ranks emulated
    against the unsplit row 5 (y, dxn, dx, sums, dbias), timed beside
    F.layer_norm + F.linear + SDPA(attn_mask) + F.linear at the local heads,
-   the unsplit kernel and :func:`tp_bounds`.
+   the unsplit kernel and :func:`tp_bounds`.  Then
+   (:func:`tp_dense_kernel_phase`) rows 1-2's split form at the dense
+   family's MLPs, and (:func:`tp_scalable_kernel_phase`) row 10, the packed
+   flash op, over rank 0's heads at ScalableViT's IWSA stages 1-2 (one of 2
+   heads over 4096 tokens, 2 of 4 over 1024) and row 6's split form at its
+   SSA stages 1 and 3 ((40, 32), 64 keys): each against its plain version,
+   twice bit for bit, the two ranks' heads concatenated or summed against
+   the unsplit kernels, timed beside SDPA (or F.linear + SDPA + F.linear)
+   at the local heads, the unsplit kernels and the bounds.
 34. tensor-parallel (:func:`tp_path_phase`, after phase 30): ViT-B/32
    split over a (1, 2) mesh, two processes on the one card over gloo, from
    the bare step's weights: serving 3 x 128 images and 3 training steps,
@@ -358,20 +366,29 @@ Phases, one line each (any failure raises and exits non-zero):
    logits held by the serving check, the gathered step-1 gradients against
    the plain bf16 path's error, the losses; the step and its collectives
    timed (two processes time-sharing one card: not a TP speed).  Then
-   (:func:`tp_hybrid_phase`, one more spawn of two processes) Twins-SVT@224
+   (:func:`tp_hybrid_phase`, one more spawn of two processes for all of
+   TP_TABLES) Twins-SVT@224
    on the kernel route (row 6's split form 15 times a forward a rank, rows
    3-4's 10, rows 1-2's 25, the unsplit ones never) and CvT-13@224,
    LeViT@224 and MobileViT@256 on the plain modules: each serves 64 images
    and trains 2 steps (batch 64 for Twins-SVT, 16 for the others), the
    ranks' logits and losses bit for bit, the logits by the serving check,
    the first loss against the one-process path's, the gathered step-1
-   gradients against the plain bf16 path's error.  Then (the same phase over
-   TP_BIASED, one more spawn) the small-dataset ViT@256, CrossFormer@224,
+   gradients against the plain bf16 path's error.  Then (TP_BIASED) the
+   small-dataset ViT@256, CrossFormer@224,
    RegionViT@224 and NesT@224 on the kernel route (row 5's split form at
    their biased blocks, rows 3-4's and 1-2's at the others, NesT's
    three-head hierarchy whole, the unsplit row 5 never), each serving 64
    images and training 2 steps at batch 16, held as above, LSA's
-   temperatures by their terms.
+   temperatures by their terms.  Then over TP_DENSE (DeepViT, the patch
+   merger's ViT and CrossViT on rows 1-2's split form, CaiT and Parallel ViT
+   plain) and TP_REST: ATS-ViT@256 (rows 1-2's split form, its first loss
+   held over the images whose sampled sets agree on both paths), CCT-14@224
+   (plain, one fixed dropout draw), ScalableViT@256 (row 6's split form at
+   its 14 SSAs, row 10 over the local heads at its 4 IWSAs, rows 1-2's at its
+   28 conv-MLPs) and T2T-ViT@224 (its token transformers whole on the
+   unsplit flash kernels and rows 1-2, its encoder on rows 1-4's split
+   forms), held as above.
 
 Each main path (short attention; serving B/16, B/32, small-dataset, B/32
 hybrid, CvT-13 @224 and @384, ScalableViT, T2T-ViT, Twins-SVT; training
@@ -382,7 +399,9 @@ merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14 (serving and
 training); the blocks past 512 tokens; the data-parallel B/32 step; the
 exported programs' forwards; the tensor-parallel path, its ranks'
 serving and training runs of B/32, Twins-SVT, CvT-13, LeViT, MobileViT,
-the small-dataset ViT, CrossFormer, RegionViT and NesT, each from 0)
+the small-dataset ViT, CrossFormer, RegionViT, NesT, DeepViT, the patch
+merger's ViT, CrossViT, CaiT, Parallel ViT, ATS-ViT, CCT-14, ScalableViT
+and T2T-ViT, each from 0)
 runs with every kernel's launch
 counter set to 0 just before it and
 read just after, and each counter must move on one of them; the attention
@@ -4784,6 +4803,11 @@ TP_SOURCES = {
                                     "vit_tpu/ops/fused_cross_attention.py:212"),
     "fused_cross_attention_split_bwd": ("vit_tpu_torch/csrc/fused_cross_attention.cu",
                                         "vit_tpu/ops/fused_cross_attention.py:256"),
+    "flash_attention_packed_split": ("vit_tpu_torch/csrc/flash_attention.cu",
+                                     "vit_tpu/ops/flash_attention_packed.py:114"),
+    "flash_attention_packed_split_bwd": ("vit_tpu_torch/csrc/flash_attention.cu",
+                                         "vit_tpu/ops/flash_attention_packed.py:190, "
+                                         "vit_tpu/ops/flash_backward.py:41, :72"),
     "forward_gemm_f32": ("vit_tpu_torch/csrc/gemm_wgmma.cu",
                          "vit_tpu/ops/fused_attention_block.py:106, vit_tpu/ops/fused_mlp.py:147"),
     "bias_residual": ("vit_tpu_torch/csrc/bias_residual.cu",
@@ -5159,25 +5183,30 @@ def tp_kernel_phase(torch, results, smi):
     tp_twins_kernel_phase(torch, results, smi)
     tp_biased_kernel_phase(torch, results, smi)
     tp_dense_kernel_phase(torch, results, smi)
+    tp_scalable_kernel_phase(torch, results, smi)
 
 
-def tp_cross_bounds(b, n, c, heads, n_k, dh):
+def tp_cross_bounds(b, n, c, heads, n_k, dh_k, dh_v=None):
     """Bounds of row 6's split form at one rank's shape (``heads`` the local
-    count, dh_k = dh_v = dh; bf16 tensors, f32 partials and lse), each input
-    read once and each output written once: forward xn, Wq_r, k_r, v_r,
-    Wo_r in, the f32 s out (the serving call the phase times: oattn is the
-    two-launch design's intermediate, not the function's output, as
-    :func:`tp_bounds` counts the block's); backward dy, q, k_r, v_r, oattn,
-    lse, Wq_r, Wo_r in, the f32 dxn, dq, dk, dv and the f32 dbo out."""
-    rows, hk = b * n, heads * dh
+    count, head widths dh_k for q and k and dh_v for v, dh_k by default;
+    bf16 tensors, f32 partials and lse), each input read once and each
+    output written once: forward xn, Wq_r, k_r, v_r, Wo_r in, the f32 s out
+    (the serving call the phase times: oattn is the two-launch design's
+    intermediate, not the function's output, as :func:`tp_bounds` counts the
+    block's); backward dy, q, k_r, v_r, oattn, lse, Wq_r, Wo_r in, the f32
+    dxn, dq, dk, dv and the f32 dbo out."""
+    dh_v = dh_k if dh_v is None else dh_v
+    rows, hk, hv = b * n, heads * dh_k, heads * dh_v
     pairs = b * heads * n * n_k
-    act, acc, w, kv = 2 * rows * c, 4 * rows * c, 4 * c * hk, 4 * b * n_k * hk
-    gemms = 4 * rows * c * hk
+    act, acc = 2 * rows * c, 4 * rows * c
+    w, kv = 2 * c * (hk + hv), 2 * b * n_k * (hk + hv)
+    gemms = 2 * rows * c * (hk + hv)
     return {
-        "fused_cross_attention_split": bound(gemms + 4 * pairs * dh, act + w + kv + acc),
+        "fused_cross_attention_split": bound(gemms + 2 * pairs * (dh_k + dh_v),
+                                             act + w + kv + acc),
         "fused_cross_attention_split_bwd": bound(
-            gemms + 10 * pairs * dh,
-            act + 2 * rows * hk + kv + 2 * rows * hk + 4 * b * heads * n + w + acc
+            gemms + 2 * pairs * (3 * dh_k + 2 * dh_v),
+            act + 2 * rows * hk + kv + 2 * rows * hv + 4 * b * heads * n + w + acc
             + 2 * rows * hk + kv + 4 * c),
     }
 
@@ -5192,35 +5221,29 @@ TP_TWINS_CROSS = [("Twins-SVT stage 1", 64, 3136, 64, 8, 64, 64),
 TP_TWINS_BLOCK = ("Twins-SVT stage 1", 4096, 49, 64, 8, 64, 256)
 
 
-def tp_twins_kernel_phase(torch, results, smi):
-    """Row 6's split form at TP_TWINS_CROSS, seeded bf16 inputs and one full
-    set of weights cut into the ranks' heads (Wq's rows, the packed k's and
-    v's columns, Wo's columns): rank 0's partial forward (training) and, fed
-    its residuals, its partial backward against their plain versions within
-    one unit plus KERNEL_REL_TOL, twice bit for bit, lse on the kernel's own
-    q; the two ranks emulated (partials summed, then the pass; the f32 dxn
-    summed, then rounded) against the unsplit ``fused_cross_attention``'s y
-    and dxn.  Times of rank 0's partial forward and backward beside their
-    plain versions, PyTorch's composition at the local heads (F.linear + SDPA
-    + F.linear; autograd for dxn, dk and dv), the partial with the pass, the
-    unsplit kernel at the full shape, and :func:`tp_cross_bounds`.  Then rows
-    1-4's split forms at TP_TWINS_BLOCK (eps 1e-5), each against its plain
-    version and timed beside its plain version and PyTorch's composition at
-    the local heads or hidden units.  Stored under ``results["tensor-parallel"]``: row 6's
-    entries with stage 1 as their shape and stage 3 under ``by_shape``, rows
-    1-4's Twins-SVT times under their entries' ``by_shape``."""
+def tp_cross_split(torch, g, shapes):
+    """Row 6's split form at ``shapes`` ((tag, b, n, c, heads, n_k, dh_k,
+    dh_v)), inputs drawn in bf16 from ``g`` and one full set of weights cut
+    into the ranks' heads (Wq's rows, the packed k's and v's columns, Wo's
+    columns): rank 0's partial forward (training) and, fed its residuals, its
+    partial backward against their plain versions within one unit plus
+    KERNEL_REL_TOL, twice bit for bit, lse on the kernel's own q; the two
+    ranks emulated (partials summed, then the pass; the f32 dxn summed, then
+    rounded) against the unsplit ``fused_cross_attention``'s y and dxn.
+    Times of rank 0's partial forward and backward beside their plain
+    versions, PyTorch's composition at the local heads (F.linear + SDPA +
+    F.linear; autograd for dxn, dk and dv), the partial with the pass, the
+    unsplit kernel at the full shape, and :func:`tp_cross_bounds`.  Returns
+    ``({tag: {name: entry}}, {check: max|err|})`` for the two ranks'
+    checks."""
     import torch.nn.functional as F
 
-    from vit_tpu_torch.ops import fused_attention_block as fab
     from vit_tpu_torch.ops import fused_cross_attention as fca
-    from vit_tpu_torch.ops import fused_mlp as fm
     from vit_tpu_torch.ops import tensor_parallel as tp
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed_forward_reference
-    from vit_tpu_torch.parallel.sharding import COLUMN, QKV, ROW, shard_tensor
+    from vit_tpu_torch.parallel.sharding import COLUMN, ROW, shard_tensor
 
     dev, dt = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
-    out = results["tensor-parallel"]
 
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
@@ -5238,20 +5261,21 @@ def tp_twins_kernel_phase(torch, results, smi):
         return t[..., r * width:(r + 1) * width].contiguous()
 
     cross, emulated = {}, {}
-    for tag, b, n, c, heads, n_k, dh in TP_TWINS_CROSS:
-        hl, hk, scale = heads // TP, heads * dh, dh ** -0.5
+    for tag, b, n, c, heads, n_k, dh_k, dh_v in shapes:
+        hl, hk, hv, scale = heads // TP, heads * dh_k, heads * dh_v, dh_k ** -0.5
+        widths = (dh_k, dh_v, scale)
         x, xn, dy = rn(b, n, c), rn(b, n, c), rn(b, n, c, scale=0.1)
-        wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hk, scale=hk ** -0.5), rn(c, scale=0.1)
-        k, v = rn(b, n_k, hk), rn(b, n_k, hk)
+        wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hv, scale=hv ** -0.5), rn(c, scale=0.1)
+        k, v = rn(b, n_k, hk), rn(b, n_k, hv)
         ranks = [(shard_tensor(wq, COLUMN, r, TP), heads_of(k, r), heads_of(v, r),
                   shard_tensor(wo, ROW, r, TP)) for r in range(TP)]
         w = ranks[0]
 
         def fwd(training=False, r=w):
-            return fca.fused_cross_attention_partial_forward(xn, *r, hl, dh, dh, scale, training)
+            return fca.fused_cross_attention_partial_forward(xn, *r, hl, *widths, training)
 
         got = twice(f"fused_cross_attention split {tag}", lambda: fwd(True))
-        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, hl, dh, dh, scale)
+        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, hl, *widths)
         err = check_outputs(torch, f"fused_cross_attention split {tag}", got[:3], ref[:3], {})
         lse = flash_attention_packed_forward_reference(got[1], w[1], w[2], hl, scale)[1]
         lse_err = (got[3] - lse).abs().max().item()
@@ -5261,29 +5285,28 @@ def tp_twins_kernel_phase(torch, results, smi):
 
         def bwd():
             return fca.fused_cross_attention_partial_backward(dy, q_r, w[1], w[2], oattn_r,
-                                                              lse_r, w[0], w[3], hl, dh, dh,
-                                                              scale)
+                                                              lse_r, w[0], w[3], hl, *widths)
 
         got_b = twice(f"fused_cross_attention split backward {tag}", bwd)
         ref_b = fca.fused_cross_attention_partial_backward_reference(
-            dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, dh, dh, scale)
+            dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, *widths)
         err_b = check_outputs(torch, f"fused_cross_attention split backward {tag}", got_b[:4],
                               ref_b[:4], {})
         err_b = max(err_b, check_dbias(torch, f"fused_cross_attention split backward {tag}",
                                        got_b[4], ref_b[4], "dbo"))
-        route = fca.partial_backward_route(b, n, n_k, c, hl, dh, dh)
+        route = fca.partial_backward_route(b, n, n_k, c, hl, dh_k, dh_v)
 
         # Two ranks emulated against the unsplit kernels at the full shape.
-        y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh, dh, scale,
+        y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, *widths,
                                                training=True)
         split = [fwd(True, r) for r in ranks]
         y_split = tp.bias_residual(sum(p[0] for p in split), bo, x)
         emulated[f"{tag} y"] = check_outputs(torch, f"two ranks' cross-attention {tag}",
                                              [y_split], [y], {0: x})
-        full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh,
-                                                  dh, scale)
+        full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads,
+                                                  *widths)
         dxn = sum(fca.fused_cross_attention_partial_backward(dy, p[1], r[1], r[2], p[2], p[3],
-                                                             r[0], r[3], hl, dh, dh, scale)[0]
+                                                             r[0], r[3], hl, *widths)[0]
                   for p, r in zip(split, ranks)).to(dt)
         emulated[f"{tag} dxn"] = check_outputs(
             torch, f"two ranks' cross-attention backward {tag}", [dxn], [full[0]], {})
@@ -5292,30 +5315,31 @@ def tp_twins_kernel_phase(torch, results, smi):
         xn_leaf, k_leaf, v_leaf = (t.detach().requires_grad_() for t in (xn, w[1], w[2]))
 
         def library(xn_, k_, v_):
-            qh = F.linear(xn_, w[0]).view(b, n, hl, dh).transpose(1, 2)
-            kh, vh = (t.view(b, n_k, hl, dh).transpose(1, 2) for t in (k_, v_))
+            qh = F.linear(xn_, w[0]).view(b, n, hl, dh_k).transpose(1, 2)
+            kh = k_.view(b, n_k, hl, dh_k).transpose(1, 2)
+            vh = v_.view(b, n_k, hl, dh_v).transpose(1, 2)
             o = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-            return F.linear(o.transpose(1, 2).reshape(b, n, hl * dh), w[3])
+            return F.linear(o.transpose(1, 2).reshape(b, n, hl * dh_v), w[3])
 
         lib_y = library(xn_leaf, k_leaf, v_leaf)
         with torch.inference_mode():
             f_ms = interleaved_medians(torch, {
                 "kernel": fwd,
                 "plain": lambda: fca.fused_cross_attention_partial_forward_reference(
-                    xn, *w, hl, dh, dh, scale),
+                    xn, *w, hl, *widths),
                 "library": lambda: library(xn, w[1], w[2]),
                 "with the pass": lambda: tp.bias_residual(fwd()[0], bo, x),
-                "unsplit": lambda: fca.fused_cross_attention(x, xn, wq, k, v, wo, bo, heads, dh,
-                                                             dh, scale)}, rounds=3, calls=5)
+                "unsplit": lambda: fca.fused_cross_attention(x, xn, wq, k, v, wo, bo, heads,
+                                                             *widths)}, rounds=3, calls=5)
         b_ms = interleaved_medians(torch, {
             "kernel": bwd,
             "plain": lambda: fca.fused_cross_attention_partial_backward_reference(
-                dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, dh, dh, scale),
+                dy, q_r, w[1], w[2], oattn_r, lse_r, w[0], w[3], hl, *widths),
             "library": lambda: torch.autograd.grad(lib_y, (xn_leaf, k_leaf, v_leaf), dy,
                                                    retain_graph=True)}, rounds=3, calls=5)
-        bounds = tp_cross_bounds(b, n, c, hl, n_k, dh)
-        shape = f"{tag} rank 0 of {TP}: b={b} n={n} c={c} {hl} of {heads} heads of {dh}, " \
-                f"{n_k} keys"
+        bounds = tp_cross_bounds(b, n, c, hl, n_k, dh_k, dh_v)
+        shape = f"{tag} rank 0 of {TP}: b={b} n={n} c={c} {hl} of {heads} heads of " \
+                f"({dh_k}, {dh_v}), {n_k} keys"
         cross[tag] = {
             "fused_cross_attention_split": dict(
                 err=err, kernel=f_ms["kernel"], plain=f_ms["plain"], library=f_ms["library"],
@@ -5327,6 +5351,39 @@ def tp_twins_kernel_phase(torch, results, smi):
                 backward_route=route)}
         del lib_y, xn_leaf, k_leaf, v_leaf, x, xn, dy, k, v, ranks, got, got_b
         torch.cuda.empty_cache()
+    return cross, emulated
+
+
+def tp_twins_kernel_phase(torch, results, smi):
+    """Row 6's split form at TP_TWINS_CROSS (:func:`tp_cross_split`).  Then
+    rows 1-4's split forms at TP_TWINS_BLOCK (eps 1e-5), each against its
+    plain version and timed beside its plain version and PyTorch's
+    composition at the local heads or hidden units.  Stored under
+    ``results["tensor-parallel"]``: row 6's entries with stage 1 as their
+    shape and stage 3 under ``by_shape``, rows 1-4's Twins-SVT times under
+    their entries' ``by_shape``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import fused_attention_block as fab
+    from vit_tpu_torch.ops import fused_mlp as fm
+    from vit_tpu_torch.parallel.sharding import COLUMN, QKV, ROW, shard_tensor
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    out = results["tensor-parallel"]
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if p is not None and not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    cross, emulated = tp_cross_split(torch, g, [(*shape, shape[-1]) for shape in TP_TWINS_CROSS])
     first, *rest = (t for t, *_ in TP_TWINS_CROSS)
     for name in ("fused_cross_attention_split", "fused_cross_attention_split_bwd"):
         out[name] = dict(cross[first][name],
@@ -5771,6 +5828,155 @@ def tp_dense_kernel_phase(torch, results, smi):
                     for t in entries for name in entries[t]) + f" on {smi}")
 
 
+# Row 10 over rank 0's heads at ScalableViT@256's IWSA stages 1-2 (tag, b, n,
+# heads, d: batch 64, one window of 4096 and of 1024 tokens an image, 2 and
+# 4 heads of 32 over TP ranks), and row 6's split form at its SSA stages 1
+# and 3 (tag, b, n, c, heads, n_k, dh_k, dh_v: 64 keys, q and k 40 wide, v
+# 32), the widths Twins-SVT's (64, 64) did not reach.
+TP_PACKED_SHAPES = [("ScalableViT IWSA stage 1", 64, 4096, 2, 32),
+                    ("ScalableViT IWSA stage 2", 64, 1024, 4, 32)]
+TP_SSA_CROSS = [("ScalableViT stage 1", 64, 4096, 64, 2, 64, 40, 32),
+                ("ScalableViT stage 3", 64, 256, 256, 8, 64, 40, 32)]
+
+
+def tp_scalable_kernel_phase(torch, results, smi):
+    """Row 10, the packed flash op, over rank 0's heads of TP at
+    TP_PACKED_SHAPES, seeded bf16 channel-packed q, k, v and dout cut into
+    the ranks' heads (contiguous columns, as IWSA's column-split q and k and
+    its slice of the whole v): the forward (out, lse) and the backward on
+    the packed strides (dq, dk, dv, fed the kernel's own out and lse)
+    against their plain versions within one unit plus KERNEL_REL_TOL, twice
+    bit for bit; the two ranks' outputs, lse and gradients concatenated
+    against the unsplit op at every head.  Times beside the plain versions,
+    SDPA on the packed head views at the local heads (autograd through it for
+    the backward), the unsplit op and :func:`flash_bounds` at the local
+    heads.  Then row 6's split form at TP_SSA_CROSS (:func:`tp_cross_split`).
+    Stored under ``results["tensor-parallel"]``: row 10's split entries with
+    stage 1 as their shape and stage 2 under ``by_shape``, row 6's SSA
+    shapes under its split entries' ``by_shape``."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+    from vit_tpu_torch.ops import flash_attention_packed as fap
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 17)
+    out = results["tensor-parallel"]
+
+    def twice(name, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for i, (p, q) in enumerate(zip(first, again)):
+            if not torch.equal(p, q):
+                raise AssertionError(f"{name} output {i}: two runs differ")
+        return first
+
+    packed, emulated = {}, {}
+    for tag, b, n, heads, d in TP_PACKED_SHAPES:
+        hl, scale = heads // TP, d ** -0.5
+        q, k, v, do = ((torch.randn(b, n, heads * d, generator=g, device=dev)).to(dt)
+                       for _ in range(4))
+        ranks = [[t[..., r * hl * d:(r + 1) * hl * d].contiguous() for t in (q, k, v, do)]
+                 for r in range(TP)]
+        name = f"packed flash split {tag}"
+
+        def fwd(r=ranks[0], h=hl):
+            return fap.flash_attention_packed_forward(*r[:3], h, scale)
+
+        def bwd(r, o, lse, h=hl):
+            views = (fap.split_heads(t, h) for t in (*r[:3], o))
+            return [fap.merge_heads(t) for t in fa.flash_backward(
+                *views, lse, fap.split_heads(r[3], h), scale)]
+
+        got = twice(name, fwd)
+        ref = fap.flash_attention_packed_forward_reference(*ranks[0][:3], hl, scale)
+        err = check_outputs(torch, name, got[:1], ref[:1], {})
+        lse_err = (got[1] - ref[1]).abs().max().item()
+        if not (got[1].dtype == torch.float32 and lse_err <= LSE_ABS_TOL):
+            raise AssertionError(f"{name}: lse differs by {lse_err}")
+        out_r, lse_r = got
+        del ref
+        got_b = twice(f"{name} backward", lambda: bwd(ranks[0], out_r, lse_r))
+        err_b = check_outputs(torch, f"{name} backward", got_b,
+                              fap.flash_attention_packed_backward_reference(
+                                  *ranks[0][:3], out_r, lse_r, ranks[0][3], hl, scale), {})
+        del got_b
+
+        # The two ranks' heads concatenated against the unsplit op.
+        full_out, full_lse = fap.flash_attention_packed_forward(q, k, v, heads, scale)
+        split = [fwd(r) for r in ranks]
+        emulated[f"{tag} out"] = check_outputs(torch, f"two ranks' {name}",
+                                               [torch.cat([s[0] for s in split], -1)],
+                                               [full_out], {})
+        emulated[f"{tag} lse"] = (torch.cat([s[1] for s in split], 1) - full_lse).abs().max().item()
+        if not emulated[f"{tag} lse"] <= LSE_ABS_TOL:
+            raise AssertionError(f"two ranks' {name}: lse differs by {emulated[f'{tag} lse']}")
+        full = bwd([q, k, v, do], full_out, full_lse, heads)
+        grads = [bwd(r, *s) for r, s in zip(ranks, split)]
+        emulated[f"{tag} dq, dk, dv"] = check_outputs(
+            torch, f"two ranks' {name} backward",
+            [torch.cat([gr[i] for gr in grads], -1) for i in range(3)], full, {})
+        del full_out, full_lse, split, full, grads
+
+        views = [fap.split_heads(t, hl) for t in ranks[0]]
+        with torch.inference_mode():
+            f_ms = interleaved_medians(torch, {
+                "kernel": fwd,
+                "plain": lambda: fap.flash_attention_packed_forward_reference(
+                    *ranks[0][:3], hl, scale),
+                "library": lambda: F.scaled_dot_product_attention(*views[:3], scale=scale),
+                "unsplit": lambda: fap.flash_attention_packed_forward(q, k, v, heads, scale)},
+                rounds=3, calls=3)
+        b_ms = interleaved_medians(torch, {
+            "kernel": lambda: bwd(ranks[0], out_r, lse_r),
+            "plain": lambda: fap.flash_attention_packed_backward_reference(
+                *ranks[0][:3], out_r, lse_r, ranks[0][3], hl, scale),
+            "library": sdpa_backward(torch, F, *views, scale)}, rounds=3, calls=3)
+        bounds = flash_bounds(b, hl, n, n, d)
+        shape = f"{tag} rank 0 of {TP}: b={b} n={n} {hl} of {heads} heads of {d}, channel-packed"
+        packed[tag] = {
+            "flash_attention_packed_split": dict(
+                err=err, kernel=f_ms["kernel"], plain=f_ms["plain"], library=f_ms["library"],
+                unsplit=f_ms["unsplit"], bound=bounds["flash_attention"], shape=shape),
+            "flash_attention_packed_split_bwd": dict(
+                err=err_b, kernel=b_ms["kernel"], plain=b_ms["plain"], library=b_ms["library"],
+                bound=bounds["flash_backward"], shape=shape)}
+        del q, k, v, do, ranks, views, out_r, lse_r
+        torch.cuda.empty_cache()
+    first, *rest = (t for t, *_ in TP_PACKED_SHAPES)
+    for name in ("flash_attention_packed_split", "flash_attention_packed_split_bwd"):
+        out[name] = dict(packed[first][name],
+                         by_shape={t: {k: v for k, v in packed[t][name].items() if k != "shape"}
+                                   for t in rest})
+
+    cross, cross_emulated = tp_cross_split(torch, g, TP_SSA_CROSS)
+    emulated.update(cross_emulated)
+    for tag, entries in cross.items():
+        for name, entry in entries.items():
+            out[name].setdefault("by_shape", {})[tag] = {k: v for k, v in entry.items()
+                                                         if k != "shape"}
+
+    def text(r):
+        extra = "".join(f" {k}={r[k]:.4f}" for k in ("library", "with_pass", "unsplit")
+                        if r.get(k) is not None)
+        route = f" backward_route={r['backward_route']}" if "backward_route" in r else ""
+        return (f"kernel={r['kernel']:.4f} plain={r['plain']:.4f}{extra} "
+                f"bound={r['bound'][0]:.4f} ({r['bound'][1]}){route} max|err|={r['err']:.4g}")
+
+    log(f"tensor-parallel ScalableViT kernels [rank 0 of {TP}]: row 10 (the packed flash op) "
+        f"over the local heads at IWSA stages 1-2 and row 6's split form at SSA stages 1 and 3 "
+        f"((40, 32), 64 keys), each against its plain version within one unit plus "
+        f"{KERNEL_REL_TOL} and twice bit for bit; the two ranks' heads concatenated (row 10) or "
+        f"summed (row 6) against the unsplit kernels, max|err| "
+        f"{json.dumps({k: round(v, 6) for k, v in emulated.items()})}; ms (library: SDPA on "
+        f"the packed head views at the local heads, autograd through it for the backward; row "
+        f"6's F.linear + SDPA + F.linear at the local heads, autograd for dxn, dk and dv; "
+        f"with_pass: the partial and the pass; unsplit: the unsplit kernel at every head): "
+        + "; ".join(f"{name} [{entries[name]['shape']}] {text(entries[name])}"
+                    for entries in (*packed.values(), *cross.values()) for name in entries)
+        + f" on {smi}")
+
+
 def tp_rank(rank, port, workdir):
     """One rank of :func:`tp_path_phase` (a spawned process on the one card):
     joins a gloo group of TP processes, lays a (1, TP) mesh, and on
@@ -6033,19 +6239,18 @@ def tp_path_phase(torch, smi, workdir):
                              f"{first['plain']}")
     launches = {k: ranks[0]["serving_counts"][-1][k] + ranks[0]["train_counts"][-1][k]
                 for k in ranks[0]["train_counts"][-1]}
-    for table in TP_TABLES:
-        models = tp_hybrid_phase(torch, smi, workdir, table)
-        launches = {k: v + models.get(k, 0) for k, v in launches.items()}
-    return launches
+    models = tp_hybrid_phase(torch, smi, workdir)
+    return {k: launches.get(k, 0) + models.get(k, 0) for k in {**launches, **models}}
 
 
 # The conv hybrids split over TP ranks, as run_benchmarks.py builds them:
 # (tag, class, configuration, side, serving batch, training batch, seed, the
 # plain path's keywords).  Twins-SVT@224 (:65) at its batch 64 on the kernel
-# route, the slice's main path; CvT-13@224 (:91), LeViT@224 (:62-64) and
-# MobileViT@256 (:68-71) on the plain modules (CvT-13's flash stage whole),
-# serving 64 images and training at a batch cut to 16 to keep the phase in
-# time.
+# route (at 16 its first loss lies 1.04e-3 from the one-process path's, past
+# TP_LOSS_REL_TOL: bf16 noise over fewer images); CvT-13@224 (:91), LeViT@224
+# (:62-64) and MobileViT@256 (:68-71) on the plain modules (CvT-13's flash
+# stage whole), serving 64 images and training at a batch cut to 16 to keep
+# the phase in time.
 TP_HYBRIDS = [
     ("Twins-SVT@224", "TwinsSVT", TWINS, TWINS_SIZE, TWINS_BATCH, TWINS_BATCH, TP_SEED + 2,
      PLAIN_KW),
@@ -6080,7 +6285,24 @@ TP_DENSE = [
     ("CaiT@256", "CaiT", CAIT, 256, 64, 16, TP_SEED + 15, {}),
     ("Parallel ViT@256", "parallel_vit.ViT", PARALLEL_VIT, 256, 64, 16, TP_SEED + 16, {}),
 ]
-TP_TABLES = {"hybrids": TP_HYBRIDS, "biased": TP_BIASED, "dense": TP_DENSE}
+# The rest of the zoo split over TP ranks, at the smoke's configurations
+# (run_benchmarks.py's ATS, CCT14, SCALABLE and T2T), serving 64 images and
+# training at a batch cut to 16: ATS-ViT with its MLPs on rows 1-2's split
+# form, CCT-14 on plain modules (vit_tpu runs no kernel there; its attention
+# dropout and stochastic depth on one fixed draw), ScalableViT on row 6's and
+# row 10's split forms and rows 1-2's, T2T-ViT's token transformers whole on
+# the unsplit rows 7-8 and 1-2 and its encoder on rows 1-4's split forms.
+TP_REST = [
+    ("ATS-ViT@256", ats_kernels, ATS, 256, 64, 16, TP_SEED + 18, dict(fused_mlp="never")),
+    ("CCT-14@224", "CCT", CCT14, CCT_SIZE, 64, 16, TP_SEED + 19, {}),
+    ("ScalableViT@256", "ScalableViT", SCALABLE, SCALABLE_SIZE, 64, 16, TP_SEED + 20,
+     PLAIN_KW),
+    ("T2T-ViT@224", t2t_vit, T2T, 224, 64, 16, TP_SEED + 21, dict(plain=True)),
+]
+TP_TABLES = {"hybrids": TP_HYBRIDS, "biased": TP_BIASED, "dense": TP_DENSE, "rest": TP_REST}
+# The models whose first loss is held over the images whose sampled token
+# sets agree on the split and the one-process path (:func:`tp_sampled`).
+TP_SAMPLED = ("ATS-ViT@256",)
 TP_HYBRID_STEPS = 2
 TP_LOSS_REL_TOL = 1e-3  # the split path's first loss against the one-process path's
 
@@ -6104,7 +6326,7 @@ def tp_hybrid_counts():
     cvt = {"flash_attention": 1}
     return {"Twins-SVT@224": (twins, twins_step), "CvT-13@224": (cvt, {**cvt, "flash_backward": 1}),
             "LeViT@224": ({}, {}), "MobileViT@256": ({}, {}), **tp_biased_counts(),
-            **tp_dense_counts()}
+            **tp_dense_counts(), **tp_rest_counts()}
 
 
 def tp_split_counts(bias=0, block=0, whole=0, mlp=0):
@@ -6155,6 +6377,63 @@ def tp_dense_counts():
             "CaiT@256": ({}, {}), "Parallel ViT@256": ({}, {})}
 
 
+def tp_rest_counts():
+    """Each TP_REST model's launches a forward and a step on every rank
+    (:func:`tp_split_counts`).  ATS-ViT: rows 1-2's split form at its 6
+    MLPs.  CCT-14: none.  ScalableViT: row 6's split form at its 14 SSAs
+    (the backward on route 2), rows 1-2's at its 28 conv-MLPs, row 10 over
+    the local heads at its 4 IWSAs of stages 1-2 (a window of 1024 tokens or
+    more; the backward on the flash backward), the unsplit rows 1-2 and 6
+    never.  T2T-ViT: its token transformers whole, token transformer 0's
+    attention on the unsplit flash kernels (3136 tokens) and both token MLPs
+    on the unsplit rows 1-2; rows 1-4's split forms at its encoder's 5
+    layers."""
+    blocks = sum(SCALABLE["depth"])
+    windows = [SCALABLE_SIZE // 4 // 2 ** i if w is None else w
+               for i, w in enumerate(SCALABLE["window_size"])]
+    packed = sum(d for d, w in zip(SCALABLE["depth"], windows) if w * w >= 1024)
+    forward, step = tp_split_counts(mlp=2 * blocks)
+    split = {"fused_cross_attention_split": blocks, "bias_residual": blocks,
+             "forward_gemm_f32": blocks, "flash_attention_packed": packed}
+    forward = {k: forward.get(k, 0) + split.get(k, 0) for k in {**forward, **split}}
+    step = {k: step.get(k, 0) + split.get(k, 0) for k in {**step, **split}}
+    step.update({"fused_cross_attention_split_bwd": blocks, "cross backward, split": blocks,
+                 "flash_backward": packed})
+    depth = T2T["depth"]
+    t2t, t2t_step = tp_split_counts(block=depth, mlp=depth)
+    token = {"flash_attention": 1, "fused_mlp": 2}
+    return {"ATS-ViT@256": tp_split_counts(mlp=ATS["depth"]), "CCT-14@224": ({}, {}),
+            "ScalableViT@256": (forward, step),
+            "T2T-ViT@224": ({**t2t, **token},
+                            {**t2t_step, **token, "flash_backward": 1, "fused_mlp_bwd": 2})}
+
+
+def ids_alike(sets):
+    """The images on which every one of ``sets`` of ATS-ViT's sampled ids
+    (``{layer: (b, k + 1) ids}``, :func:`ats_sampled_ids`) agrees at every
+    layer: a bool vector on the host."""
+    first, *rest = sets
+    alike = None
+    for layer, ids in first.items():
+        for other in rest:
+            same = (other[layer].cpu() == ids.cpu()).all(1)
+            alike = same if alike is None else alike & same
+    return alike
+
+
+def tp_sampled(torch, model, images, labels, draw):
+    """ATS-ViT ``model``'s sampled ids at each sampling layer and each
+    image's loss, one forward each under ``no_grad`` in training mode on the
+    draw ``draw()`` (:func:`ats_sampled_ids`), on the host."""
+    import torch.nn.functional as F
+
+    model.train()
+    ids = ats_sampled_ids(torch, model, images, draw)
+    with torch.no_grad():
+        per_image = F.cross_entropy(model(images, **draw()).float(), labels, reduction="none")
+    return {"ids": {layer: v.cpu() for layer, v in ids.items()}, "per_image": per_image.cpu()}
+
+
 def tp_model_class(name):
     """A TP_TABLES class by its name in ``vit_tpu_torch`` (``module.Class``
     for the models named ``ViT``), or the function given in its place
@@ -6180,15 +6459,21 @@ def tp_hybrid_model(torch, name, cfg, size, batch, seed, **kw):
     return model, images, torch.arange(batch, device=dev) % cfg["num_classes"]
 
 
-def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
+def tp_models(tables=None):
+    """The models of TP_TABLES' ``tables`` (every table by default), in
+    order: what one spawn of :func:`tp_hybrid_rank` runs."""
+    return [model for table in (tables or TP_TABLES) for model in TP_TABLES[table]]
+
+
+def tp_hybrid_rank(rank, port, workdir, tables=None):
     """One rank of :func:`tp_hybrid_phase` (a spawned process on the one
     card): joins a gloo group of TP processes, lays a (1, TP) mesh, and for
-    each model of TP_TABLES[table] serves one batch (``cast_params`` bf16, eval,
+    each model of :func:`tp_models` serves one batch (``cast_params`` bf16, eval,
     inference mode) and trains (bf16 compute, f32 parameters, SGD(1e-3))
     TP_HYBRID_STEPS steps of ``make_train_step`` over the mesh, each counter
     from 0 before the serving forward and before the steps, read after each;
     step 1's loss and gradients, gathered whole; each step's wall ms and the
-    model's seconds.  Writes what it saw to ``tp_<table>_rank<r>.pt`` in
+    model's seconds.  Writes what it saw to ``tp_models_rank<r>.pt`` in
     ``workdir``."""
     import torch
 
@@ -6219,14 +6504,17 @@ def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
             return {**{k: c.launches for k, c in counters.items()},
                     "forward_gemm_f32": f32_gemms[0]}
 
-        for tag, name, cfg, size, serve_batch, batch, seed, _ in TP_TABLES[table]:
+        for tag, name, cfg, size, serve_batch, batch, seed, _ in tp_models(tables):
             started = time.perf_counter()
             model, images, _ = tp_hybrid_model(torch, name, cfg, size, serve_batch, seed)
             served = shard_params(mesh, cast_params(model, torch.bfloat16).eval())
+            draw = draws(torch, served, seed)
             zero()
             with torch.inference_mode():
-                logits = served(images).float()
+                logits = served(images, **draw()).float()
                 serving = counts()
+                served_ids = {k: v.cpu() for k, v in ats_sampled_ids(
+                    torch, served, images, draw).items()} if tag in TP_SAMPLED else None
             whole = list(served.tensor_parallel.whole)
             del served, model, images
 
@@ -6234,6 +6522,9 @@ def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
                                                     compute_dtype=torch.bfloat16)
             shard_params(mesh, model)
             plan = model.tensor_parallel
+            draw = draws(torch, model, seed)
+            sampled = tp_sampled(torch, model, images, labels, draw) if tag in TP_SAMPLED \
+                else None
             step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-3),
                                    mesh=mesh)
             torch.distributed.barrier()
@@ -6242,7 +6533,7 @@ def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
             for i in range(TP_HYBRID_STEPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                losses.append(step(images, labels)["loss"].item())
+                losses.append(step(images, labels, **draw())["loss"].item())
                 walls.append((time.perf_counter() - t0) * 1e3)
                 per_step.append(counts())
                 if i == 0:  # step 1's gradients, left in .grad until step 2 zeroes them
@@ -6251,7 +6542,8 @@ def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
                     grads = {k: v.cpu() for k, v in grads.items()} if rank == 0 else {}
             out[tag] = dict(logits=logits.cpu(), serving_counts=serving, first=losses[0],
                             grads=grads, losses=losses, train_counts=per_step, step_ms=walls,
-                            whole=whole, split=len(plan.kinds),
+                            whole=whole, split=len(plan.kinds), sampled=sampled,
+                            served_ids=served_ids,
                             seconds=time.perf_counter() - started)
             del model, step, images, labels
             torch.cuda.empty_cache()
@@ -6261,7 +6553,7 @@ def tp_hybrid_rank(rank, port, workdir, table="hybrids"):
         out["error"] = traceback.format_exc()
         raise
     finally:
-        torch.save(out, os.path.join(workdir, f"tp_{table}_rank{rank}.pt"))
+        torch.save(out, os.path.join(workdir, f"tp_models_rank{rank}.pt"))
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
@@ -6331,10 +6623,11 @@ def tp_gradient_check(torch, tag, split, grads, weights):
             f"{'; ' + ', '.join(stacks) if stacks else ''}); {temperatures}")
 
 
-def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
-    """The models of TP_TABLES[table] (the conv hybrids, the biased and
-    windowed models, or the dense five) split over a ``model`` axis of TP, TP processes on the
-    one card over gloo (:func:`tp_hybrid_rank`), held here
+def tp_hybrid_phase(torch, smi, workdir, tables=None):
+    """The models of :func:`tp_models` (the conv hybrids, the biased and
+    windowed models, the dense five and the rest: every table by default)
+    split over a ``model`` axis of TP, TP processes on the one card over
+    gloo, one spawn for them all (:func:`tp_hybrid_rank`), held here
     against one-process models of the same weights: both ranks' logits and
     losses bit for bit equal; the served logits by :func:`hold_logits`
     against the unsplit plain bf16 path and the f32 model (top-1 by the sign
@@ -6348,14 +6641,14 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
     from vit_tpu_torch import cast_params
     from vit_tpu_torch.parallel.train import cross_entropy_loss
 
-    ranks = tp_spawn(torch, tp_hybrid_rank, workdir, f"tp_{table}_rank", table)
+    ranks = tp_spawn(torch, tp_hybrid_rank, workdir, "tp_models_rank", tables)
     for r, rank in enumerate(ranks):
         if "error" in rank:
             raise AssertionError(f"tensor-parallel rank {r}: {rank['error']}")
     expected = tp_hybrid_counts()
     dev = torch.device("cuda")
     launches = {}
-    for tag, name, cfg, size, serve_batch, batch, seed, plain_kw in TP_TABLES[table]:
+    for tag, name, cfg, size, serve_batch, batch, seed, plain_kw in tp_models(tables):
         started = time.perf_counter()
         cls = tp_model_class(name)
         forward, step_each = expected[tag]
@@ -6376,6 +6669,13 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
             raise AssertionError(f"tensor-parallel {tag}: the ranks' logits or losses differ")
         for k, v in a["serving_counts"].items():
             launches[k] = launches.get(k, 0) + v + a["train_counts"][-1][k]
+        packed = a["serving_counts"]["flash_attention_packed"]
+        if packed:  # row 10 over the local heads: IWSA's, every flash backward its own
+            step = a["train_counts"][-1]
+            for key, count in (("flash_attention_packed_split",
+                                packed + step["flash_attention_packed"]),
+                               ("flash_attention_packed_split_bwd", step["flash_backward"])):
+                launches[key] = launches.get(key, 0) + count
 
         model, images, _ = tp_hybrid_model(torch, name, cfg, size, serve_batch, seed)
         norms = batch_norm_text(model)
@@ -6386,16 +6686,26 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
         f32.load_state_dict({k: v.float() if v.is_floating_point() else v
                              for k, v in state.items()})
         with torch.inference_mode():
-            refs, truths = plain(images).float(), f32(images).float()
+            refs, truths = (m(images, **draws(torch, m, seed)()).float() for m in (plain, f32))
         logits = a["logits"].to(dev)
         if tuple(logits.shape) != (serve_batch, cfg["num_classes"]) \
                 or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"tensor-parallel {tag}: logits {tuple(logits.shape)}")
+        over = ""
+        if tag in TP_SAMPLED:  # over the images on which the three compute one network
+            alike = ids_alike([a["served_ids"], *(ats_sampled_ids(
+                torch, m, images, draws(torch, m, seed)) for m in (plain, f32))]).to(dev)
+            if not bool(alike.any()):
+                raise AssertionError(f"tensor-parallel {tag}: no image on which the split, "
+                                     f"plain and f32 models sample one token set")
+            over = (f"held over the {int(alike.sum())} of {serve_batch} images whose sampled "
+                    f"sets agree on the split, plain and f32 models at every layer: ")
+            logits, refs, truths = logits[alike], refs[alike], truths[alike]
         # A path that runs no kernel (LeViT, MobileViT) is held as
         # plain_serving_phase holds it, without the confident images: at
         # these random weights its top-2 margins lie under the bf16 noise.
-        serving = hold_logits(torch, f"tensor-parallel {tag} serving", logits, refs, truths,
-                              sign_test=True, confident_images=bool(forward))
+        serving = over + hold_logits(torch, f"tensor-parallel {tag} serving", logits, refs,
+                                     truths, sign_test=True, confident_images=bool(forward))
         del model, plain, f32, images, refs, truths
 
         model, images, labels = tp_hybrid_model(torch, name, cfg, size, batch, seed,
@@ -6407,7 +6717,10 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
         for path, m in (("one-process", model), ("plain", plain), ("f32", f32)):
             m.load_state_dict(start)
             m.train()
-            loss = cross_entropy_loss(m(images), labels)
+            draw = draws(torch, m, seed)
+            if path == "one-process" and tag in TP_SAMPLED:
+                sampled = tp_sampled(torch, m, images, labels, draw)
+            loss = cross_entropy_loss(m(images, **draw()), labels)
             loss.backward()
             first[path] = loss.item()
             grads[path] = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach()
@@ -6417,6 +6730,15 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
         del model, plain, f32, grads, images, labels
         torch.cuda.empty_cache()
         loss_rel = abs(a["first"] - first["one-process"]) / abs(first["one-process"])
+        held = ""
+        if tag in TP_SAMPLED:  # over the images whose sampled sets agree at every layer
+            alike = ids_alike([a["sampled"]["ids"], sampled["ids"]])
+            split_loss, one_loss = (p["per_image"][alike].mean().item()
+                                    for p in (a["sampled"], sampled))
+            loss_rel = abs(split_loss - one_loss) / abs(one_loss)
+            held = (f"sampled sets alike on both paths at every layer on {int(alike.sum())} of "
+                    f"{batch} images ({batch - int(alike.sum())} differ), their mean loss "
+                    f"split={split_loss:.6f} one-process={one_loss:.6f}; ")
         losses = a["losses"]
         log(f"tensor-parallel {tag} over a (1, {TP}) mesh, {TP} processes on one card over gloo "
             f"({'the kernel route' if forward else 'plain modules'}; "
@@ -6424,7 +6746,7 @@ def tp_hybrid_phase(torch, smi, workdir, table="hybrids"):
             f"parameters, SGD(1e-3), {norms}: serving "
             f"{serve_batch} images, the ranks' logits bit for bit: {serving}; step-1 loss at "
             f"batch {batch} split={a['first']:.6f} one-process={first['one-process']:.6f} "
-            f"plain={first['plain']:.6f} f32={first['f32']:.6f} (|split-one-process|/"
+            f"plain={first['plain']:.6f} f32={first['f32']:.6f} ({held}|split-one-process|/"
             f"one-process={loss_rel:.3g} <= {TP_LOSS_REL_TOL}); {gradients}; losses over "
             f"{TP_HYBRID_STEPS} steps {losses} on both ranks; launches per forward "
             f"{expected[tag][0]} and per step {expected[tag][1]} on each rank; step wall ms "

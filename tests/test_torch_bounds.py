@@ -311,6 +311,26 @@ def test_tp_cross_bounds(raw):
         act + q + kv + oattn + lse + w + acc + q + kv + 4 * c)
 
 
+def test_tp_cross_bounds_at_two_head_widths(raw):
+    # ScalableViT's SSA widths at one rank's slice: b 1, 8 queries of c 16,
+    # 1 local head with q and k 40 wide and v 32 (hk 40, hv 32), 4 keys: 32
+    # (query, key) pairs.
+    rows, c, hk, hv, pairs = 8, 16, 40, 32, 32
+    q_gemm, out_gemm = 2 * rows * c * hk, 2 * rows * c * hv   # xn·Wq_rᵀ, oattn·Wo_rᵀ
+    qk_product, pv_product = 2 * pairs * 40, 2 * pairs * 32
+    act, acc, w = 2 * rows * c, 4 * rows * c, 2 * c * hk + 2 * c * hv
+    k_r, v_r = 2 * 4 * hk, 2 * 4 * hv
+    q, oattn, lse = 2 * rows * hk, 2 * rows * hv, 4 * 1 * 8
+    got = chip_smoke.tp_cross_bounds(1, 8, 16, 1, 4, 40, 32)
+    assert got["fused_cross_attention_split"] == (q_gemm + out_gemm + qk_product + pv_product,
+                                                  act + w + k_r + v_r + acc)
+    # dy·Wo_r, three products at dk (q·kᵀ, dq, dk) and two at dv (dO·vᵀ, dv),
+    # dq·Wq_r; dq written at q's width, dk and dv at k's and v's.
+    assert got["fused_cross_attention_split_bwd"] == (
+        out_gemm + q_gemm + 3 * qk_product + 2 * pv_product,
+        act + q + k_r + v_r + oattn + lse + w + acc + q + k_r + v_r + 4 * c)
+
+
 @pytest.mark.parametrize("hb, dbias", [(1, True), (2, True), (1, False)],
                          ids=["shared", "per-head", "lsa"])
 def test_tp_bias_bounds(raw, hb, dbias):
@@ -352,3 +372,14 @@ def test_tp_mlp_bounds_at_the_dense_family_shapes(raw, tag, n, d):
     assert got["fused_mlp_split_bwd"] == (4 * rows * d * hidden,
                                           act + 3 * 2 * rows * hidden + w + 4 * hidden + acc)
     assert 2 * got["fused_mlp_split"][0] == chip_smoke.mlp_bounds(rows, d, 2048)["fused_mlp"][0]
+
+
+@pytest.mark.parametrize("tag,b,n,heads,d", chip_smoke.TP_PACKED_SHAPES)
+def test_flash_bounds_over_a_ranks_heads(raw, tag, b, n, heads, d):
+    """Row 10 over one rank's heads, as :func:`chip_smoke.tp_scalable_kernel_phase`
+    bounds it: every product and every tensor is per head, so a rank's
+    share of TP holds 1/TP of the unsplit op's FLOPs and bytes, each way."""
+    local = chip_smoke.flash_bounds(b, heads // chip_smoke.TP, n, n, d)
+    whole = chip_smoke.flash_bounds(b, heads, n, n, d)
+    for name in ("flash_attention", "flash_backward"):
+        assert tuple(chip_smoke.TP * v for v in local[name]) == whole[name]

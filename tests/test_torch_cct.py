@@ -258,3 +258,49 @@ def test_device_rule():
             cct.CCT(**SMALL)
     model = cct.CCT(**SMALL, device="cpu")
     assert all(t.device.type == "cpu" for t in [*model.parameters(), *model.buffers()])
+
+
+def test_bf16_gradient_stays_near_vit_tpus():
+    """The step-1 gradient in bf16 compute (f32 parameters) against the f32
+    one, relative L2 over every parameter and over ``attention_pool.weight``
+    (the sequence pooling's softmax over near-equal token weights makes its
+    gradient a cancelling sum): the port's at most twice ``vit_tpu``'s, on
+    the same weights and images (``vit_tpu``'s gradient jitted, as its train
+    step runs)."""
+    import optax
+    import torch.nn.functional as F
+
+    cfg = dict(SMALL, **NO_DRAWS, positional_embedding="learnable")
+    img = _images(32, batch=4)
+    labels = np.arange(4, dtype=np.int32) % cfg["num_classes"]
+    v = _variables(cfg, img)
+    names = [k for k, _ in cct.CCT(**cfg, device="cpu").named_parameters()]
+
+    def port(dtype):
+        model = loaded(cct.CCT(**cfg, device="cpu", compute_dtype=dtype), v).train()
+        F.cross_entropy(model(torch.from_numpy(img)).float(),
+                        torch.from_numpy(labels).long()).backward()
+        return {k: p.grad.double() for k, p in model.named_parameters()}
+
+    def vit_tpu(dtype):
+        model = jax_cct.CCT(**cfg, dtype=dtype)
+
+        def loss(params):
+            logits = model.apply({"params": params}, jnp.asarray(img)).astype(jnp.float32)
+            return optax.softmax_cross_entropy_with_integer_labels(
+                logits, jnp.asarray(labels)).mean()
+
+        grads = state_dict_from_flax(jax.tree.map(np.asarray,
+                                                  jax.jit(jax.grad(loss))(v["params"])))
+        return {k: torch.as_tensor(np.asarray(grads[k])).double() for k in names}
+
+    def gaps(grads, ref):
+        def rel_l2(keys):
+            a, b = (torch.cat([g[k].flatten() for k in keys]) for g in (grads, ref))
+            return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+        return rel_l2(names), rel_l2(["attention_pool.weight"])
+
+    ours = gaps(port(torch.bfloat16), port(torch.float32))
+    theirs = gaps(vit_tpu(jnp.bfloat16), vit_tpu(jnp.float32))
+    for mine, jax_gap in zip(ours, theirs):
+        assert 0 < jax_gap and mine <= 2 * jax_gap, (ours, theirs)

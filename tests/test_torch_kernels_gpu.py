@@ -2419,11 +2419,14 @@ def test_bias_residual_and_ln_backward_match_plain(cuda, rows, d):
 
 # ---- tensor parallelism: row 6's split form -------------------------------------
 
-# (b, n, n_k, c, heads, dh) of the whole block, split over two ranks: Twins-SVT's
-# c 64 at a ragged 197 tokens over 16 keys (cross_fwd writing oattn, the
-# f32-partial GEMM on linear.cu; the backward on route 2), and 144 keys at c 256
-# (the three launches forward, the four steps backward, the GEMM on gemm_wgmma).
-SPLIT_CROSS_SHAPES = [(4, 197, 16, 64, 8, 64), (2, 196, 144, 256, 4, 64)]
+# (b, n, n_k, c, heads, dh_k, dh_v) of the whole block, split over two ranks:
+# Twins-SVT's c 64 at a ragged 197 tokens over 16 keys (cross_fwd writing oattn,
+# the f32-partial GEMM on linear.cu; the backward on route 2), and 144 keys at c
+# 256 (the three launches forward, the four steps backward, the GEMM on
+# gemm_wgmma); ScalableViT's SSA widths (40, 32) over 64 keys at stage 1's c 64
+# (one head a rank) and stage 3's c 256 (four a rank).
+SPLIT_CROSS_SHAPES = [(4, 197, 16, 64, 8, 64, 64), (2, 196, 144, 256, 4, 64, 64),
+                      (4, 1024, 64, 64, 2, 40, 32), (2, 256, 64, 256, 8, 40, 32)]
 
 
 @pytest.mark.parametrize("shape", SPLIT_CROSS_SHAPES)
@@ -2436,39 +2439,39 @@ def test_split_cross_attention_matches_plain_and_unsplit(cuda, shape):
     from vit_tpu_torch.ops.flash_attention_packed import flash_attention_packed_forward_reference
     from vit_tpu_torch.parallel.sharding import COLUMN, ROW, shard_tensor
 
-    b, n, n_k, c, heads, dh = shape
-    t, dt, scale, hk = 2, torch.bfloat16, dh ** -0.5, heads * dh
+    b, n, n_k, c, heads, dh_k, dh_v = shape
+    t, dt, scale, hk, hv = 2, torch.bfloat16, dh_k ** -0.5, heads * dh_k, heads * dh_v
+    widths = (dh_k, dh_v, scale)
     g = torch.Generator(device=cuda).manual_seed(n_k + c)
 
     def rn(*s, scale=1.0):
         return (torch.randn(*s, generator=g, device=cuda) * scale).to(dt)
 
     x, xn, dy = rn(b, n, c), rn(b, n, c), rn(b, n, c, scale=0.1)
-    wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hk, scale=hk ** -0.5), rn(c, scale=0.1)
-    k, v = rn(b, n_k, hk), rn(b, n_k, hk)
-    stored_d = fca.partial_backward_route(b, n, n_k, c, heads // t, dh, dh) == 0
+    wq, wo, bo = rn(hk, c, scale=c ** -0.5), rn(c, hv, scale=hv ** -0.5), rn(c, scale=0.1)
+    k, v = rn(b, n_k, hk), rn(b, n_k, hv)
+    stored_d = fca.partial_backward_route(b, n, n_k, c, heads // t, dh_k, dh_v) == 0
     counts = (fca.fused_cross_attention_partial_forward.launches,
               fca.fused_cross_attention_partial_backward.launches)
     parts = []
     for r in range(t):
-        cols = slice(r * hk // t, (r + 1) * hk // t)
-        w = (shard_tensor(wq, COLUMN, r, t), k[..., cols].contiguous(),
-             v[..., cols].contiguous(), shard_tensor(wo, ROW, r, t))
-        fwd = fca.fused_cross_attention_partial_forward(xn, *w, heads // t, dh, dh, scale,
+        kc, vc = slice(r * hk // t, (r + 1) * hk // t), slice(r * hv // t, (r + 1) * hv // t)
+        w = (shard_tensor(wq, COLUMN, r, t), k[..., kc].contiguous(),
+             v[..., vc].contiguous(), shard_tensor(wo, ROW, r, t))
+        fwd = fca.fused_cross_attention_partial_forward(xn, *w, heads // t, *widths,
                                                         training=True)
-        _twice(fwd, fca.fused_cross_attention_partial_forward(xn, *w, heads // t, dh, dh, scale,
+        _twice(fwd, fca.fused_cross_attention_partial_forward(xn, *w, heads // t, *widths,
                                                               training=True))
-        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, heads // t, dh, dh,
-                                                                  scale)
+        ref = fca.fused_cross_attention_partial_forward_reference(xn, *w, heads // t, *widths)
         check_outputs(torch, "split cross-attention forward", fwd[:3], ref[:3], {})
         lse = flash_attention_packed_forward_reference(fwd[1], w[1], w[2], heads // t, scale)[1]
         assert (fwd[3] - lse).abs().max().item() <= LSE_ABS_TOL  # on the kernel's own q
         bwd = fca.fused_cross_attention_partial_backward(dy, fwd[1], w[1], w[2], fwd[2], fwd[3],
-                                                         w[0], w[3], heads // t, dh, dh, scale)
+                                                         w[0], w[3], heads // t, *widths)
         _twice(bwd, fca.fused_cross_attention_partial_backward(
-            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, dh, dh, scale))
+            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, *widths))
         ref = fca.fused_cross_attention_partial_backward_reference(
-            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, dh, dh, scale,
+            dy, fwd[1], w[1], w[2], fwd[2], fwd[3], w[0], w[3], heads // t, *widths,
             stored_output_d=stored_d)
         assert bwd[0].dtype == torch.float32
         check_outputs(torch, "split cross-attention backward", bwd[:4], ref[:4], {})
@@ -2477,13 +2480,60 @@ def test_split_cross_attention_matches_plain_and_unsplit(cuda, shape):
     assert (fca.fused_cross_attention_partial_forward.launches,
             fca.fused_cross_attention_partial_backward.launches) == (counts[0] + 2 * t,
                                                                      counts[1] + 2 * t)
-    y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, dh, dh, scale,
+    y, q, oattn, lse = fca._launch_forward(x, xn, wq, k, v, wo, bo, heads, *widths,
                                            training=True)
     check_outputs(torch, "two ranks' cross-attention",
                   [tp.bias_residual(parts[0][0] + parts[1][0], bo, x)], [y], {0: x})
-    full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads, dh, dh,
-                                              scale)
+    full = fca.fused_cross_attention_backward(dy, q, k, v, oattn, lse, wq, wo, heads, *widths)
     check_outputs(torch, "two ranks' cross-attention backward",
                   [(parts[0][1] + parts[1][1]).to(dt)], [full[0]], {})
     assert torch.equal(parts[0][2], parts[1][2])
     check_dbias(torch, "two ranks' cross-attention backward", parts[0][2], full[4], "dbo")
+
+
+# ---- tensor parallelism: row 10 over a rank's heads -------------------------------
+
+# (b, n, heads) of ScalableViT's IWSA windows at (32, 32), split over two ranks:
+# stage 1's 4096 tokens (one head a rank) and stage 2's 1024 (two a rank).
+SPLIT_PACKED_SHAPES = [(4, 4096, 2), (4, 1024, 4)]
+
+
+@pytest.mark.parametrize("b,n,heads", SPLIT_PACKED_SHAPES)
+def test_packed_flash_over_local_heads_matches_plain_and_unsplit(cuda, b, n, heads):
+    """The packed op under autograd on each rank's contiguous columns (its
+    heads of q, k, v and the cotangent, as IWSA's split convolutions give
+    them) against its plain version, twice bit for bit, one launch each way;
+    the two ranks' outputs and gradients concatenated against the unsplit op
+    at every head."""
+    t, d = 2, 32
+    hl = heads // t
+    q, k, v, do = _packed_inputs(cuda, b, n, n, heads, d, d, seed=n + heads)
+
+    def run(tensors, h):
+        leaves = [x.detach().requires_grad_() for x in tensors[:3]]
+        out = fap.flash_attention_packed(*leaves, h)
+        return out.detach(), torch.autograd.grad(out, leaves, tensors[3])
+
+    outs, grads = [], []
+    for r in range(t):
+        part = [x[..., r * hl * d:(r + 1) * hl * d].contiguous() for x in (q, k, v, do)]
+        before = (fap.flash_attention_packed.launches, flash_backward.launches)
+        out, g = run(part, hl)
+        torch.cuda.synchronize()
+        assert (fap.flash_attention_packed.launches, flash_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        again = run(part, hl)
+        assert torch.equal(out, again[0]) and all(torch.equal(a, b_) for a, b_ in zip(g, again[1]))
+        ref_out, ref_lse = fap.flash_attention_packed_forward_reference(*part[:3], hl)
+        check_outputs(torch, "split packed forward", (out,), (ref_out,), {})
+        _, lse = fap.flash_attention_packed_forward(*part[:3], hl)
+        assert (lse - ref_lse).abs().max().item() <= LSE_ABS_TOL
+        check_outputs(torch, "split packed backward", g,
+                      fap.flash_attention_packed_backward_reference(*part[:3], out, lse, part[3],
+                                                                    hl), {})
+        outs.append(out)
+        grads.append(g)
+    full_out, full_grads = run((q, k, v, do), heads)
+    check_outputs(torch, "two ranks' packed forward", (torch.cat(outs, -1),), (full_out,), {})
+    check_outputs(torch, "two ranks' packed backward",
+                  [torch.cat([g[i] for g in grads], -1) for i in range(3)], full_grads, {})

@@ -22,7 +22,9 @@
   (2, 2) mesh of the virtual CPU devices, from the same Flax weights;
   dropout 0.1 with a generator per data rank against the one-process steps
   on the same slices and generators; MAE through ``make_loss_train_step``;
-  ``shard_params``' refusals; a one-process checkpoint restored into the
+  ``shard_params``' refusal of the hybrid tier and the units it runs whole
+  (three heads, a 24-wide MLP), ScalableViT split, each step against the
+  one-process step; a one-process checkpoint restored into the
   split model and saved from it; the state's placements; the example
   trainer with ``--tp 2``.
 
@@ -451,16 +453,24 @@ def test_mae_trains_split(runs):
 
 
 def test_shard_params_refusals(runs):
+    """The hybrid tier still raises; three heads and a 24-wide MLP over two
+    ranks run whole (the plan lists them), ScalableViT splits with IWSA's
+    ``to_v`` whole (``plan.replicated``), and each step equals the
+    one-process step."""
+    layers = range(worker.SMALL_VIT["depth"])
     for rank in runs["ranks"]:
         refusals = rank["refusals"]
         assert refusals["hybrid"].startswith("NotImplementedError") and \
             "fused_attention='hybrid'" in refusals["hybrid"]
-        assert refusals["heads"].startswith("NotImplementedError") and \
-            "3 heads" in refusals["heads"]
-        assert refusals["hidden"].startswith("NotImplementedError") and \
-            "hidden width 24" in refusals["hidden"]
-        assert refusals["scalable"].startswith("NotImplementedError: shard_params: stage_0.")
         assert refusals["unsplit step"].startswith("ValueError: make_train_step")
+        rule = rank["whole rule"]
+        assert rule["heads"]["whole"] == [f"transformer.layers.{i}.attn" for i in layers]
+        assert rule["hidden"]["whole"] == [f"transformer.layers.{i}.mlp" for i in layers]
+        assert rule["scalable"]["whole"] == []
+        assert rule["scalable"]["replicated"] == [f"stage_{i}.layers.0.iwsa.to_v.weight"
+                                                  for i in range(2)]
+        for name, run in rule.items():
+            assert _run_diff(run, run["one process"]) <= TOL, name
 
 
 def test_checkpoint_of_a_split_model_is_whole(runs):

@@ -215,7 +215,7 @@ def test_units_cover_the_rule_table(name):
 
     model = worker.build(name)
     units, transformers = sharding._units(model)
-    sharding._refuse(model, 2, units, transformers)
+    sharding._refuse(model, units, transformers)
     covered = {f"{u.path}.{k}" for u in units for k in u.cuts}
     sharded = {k for k, spec in sharding.param_specs(model).items() if isinstance(spec, Shard)}
     left = sorted(sharded - covered)

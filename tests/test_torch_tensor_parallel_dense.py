@@ -37,7 +37,6 @@ it.
 
 import copy
 import socket
-import threading
 import time
 
 import numpy as np
@@ -51,6 +50,8 @@ import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
 import torch_tensor_parallel_dense_worker as worker  # noqa: E402
+from torch_tp_emulation import diff as _diff  # noqa: E402
+from torch_tp_emulation import split_grads  # noqa: E402
 from torch_parity import random_variables  # noqa: E402
 from vit_tpu.models import cait as jax_cait  # noqa: E402
 from vit_tpu.models import deepvit as jax_deepvit  # noqa: E402
@@ -69,58 +70,7 @@ JOIN_TIMEOUT_S = 240
 TOL, JAX_TOL = 1e-5, 1e-4
 
 
-def _diff(got, want) -> float:
-    """max|got - want| over max(1, max|want|)."""
-    got, want = (np.asarray(t.detach() if isinstance(t, torch.Tensor) else t, np.float64)
-                 for t in (got, want))
-    assert got.shape == want.shape, (got.shape, want.shape)
-    return float(np.max(np.abs(got - want)) / max(1.0, np.max(np.abs(want))))
-
-
-def _join(pieces, kind):
-    """The whole tensor from the ranks' slices (the inverse of
-    ``sharding.shard_tensor``)."""
-    shape = list(pieces[0].shape)
-    shape[1 if kind == sharding.ROW else 0] *= len(pieces)
-    full = torch.zeros(shape)
-    for r, piece in enumerate(pieces):
-        views, dim = sharding._views(full, kind, r, len(pieces))
-        for view, part in zip(views, piece.split(views[0].shape[dim], dim)):
-            view.copy_(part)
-    return full
-
-
 # --- the head-mixing split, emulated in one process -------------------------
-
-class _Ranks:
-    """t ranks as threads: an all-reduce (a sum in rank order, the same bits
-    on every rank) behind a barrier, and a count of the calls."""
-
-    def __init__(self, t):
-        self.barrier = threading.Barrier(t, timeout=60)
-        self.slots, self.calls = [None] * t, 0
-
-    def all_reduce(self, rank, x):
-        self.slots[rank] = x.clone()
-        self.barrier.wait()
-        total = self.slots[0].clone()
-        for s in self.slots[1:]:
-            total += s
-        self.barrier.wait()
-        if rank == 0:
-            self.calls += 1
-        return x.copy_(total)
-
-
-class _Group:
-    """One rank's model group: what ``ModelShard.group`` holds."""
-
-    def __init__(self, ranks, rank):
-        self.ranks, self.rank = ranks, rank
-
-    def all_reduce(self, x):
-        return self.ranks.all_reduce(self.rank, x)
-
 
 # (module, dim, heads, dim_head, tokens, context tokens or None)
 MIXING = {"talking heads": ("cait", 16, 4, 8, 9, None),
@@ -161,44 +111,9 @@ def _grads(module, inputs, dy):
 
 
 def _split_grads(module, t, inputs, dy):
-    """:func:`_grads` of ``module`` split over t emulated ranks: the output
-    and input gradients of every rank, each parameter's gradient gathered
-    (a cut one joined, a whole one rank 0's), the whole ones on which the
-    ranks differ, and the all-reduces run."""
-    ranks, kinds, modules = _Ranks(t), {}, []
-    for r in range(t):
-        m = copy.deepcopy(module)
-        units, _ = sharding._units(m)
-        for u in units:
-            sharding._split(u, common.ModelShard(_Group(ranks, r), r, t))
-            kinds.update({sharding._join(u.path, k): kind for k, kind in u.cuts.items()})
-        modules.append(m)
-    out, errors = [None] * t, []
-
-    def work(r):
-        try:
-            out[r] = _grads(modules[r], inputs, dy)
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-            ranks.barrier.abort()
-
-    threads = [threading.Thread(target=work, args=(r,)) for r in range(t)]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    if errors:
-        raise errors[0]
-    params, differ = {}, []
-    for name in out[0][2]:
-        pieces = [o[2][name] for o in out]
-        if name in kinds:
-            params[name] = _join(pieces, kinds[name])
-        else:
-            params[name] = pieces[0]
-            if not all(torch.equal(p, pieces[0]) for p in pieces):
-                differ.append(name)
-    return [o[0] for o in out], [o[1] for o in out], params, differ, ranks.calls
+    """:func:`_grads` of ``module`` split over t emulated ranks
+    (``torch_tp_emulation.split_grads``)."""
+    return split_grads(module, t, lambda m: _grads(m, inputs, dy))
 
 
 @pytest.fixture
@@ -321,7 +236,7 @@ def test_units_cover_the_rule_table(name):
     model = worker.build(name)
     units, transformers = sharding._units(model)
     assert transformers == {}
-    sharding._refuse(model, 2, units, transformers)
+    sharding._refuse(model, units, transformers)
     covered = {f"{u.path}.{k}" for u in units for k in u.cuts}
     sharded = {k for k, spec in sharding.param_specs(model).items() if isinstance(spec, Shard)}
     assert sharded <= covered, sorted(sharded - covered)

@@ -21,8 +21,8 @@ shard (Twins-SVT, CvT, LeViT, MobileViT), on the CPU.
   The ranks' gathered states bit for bit equal; the attentions that run
   whole; checkpoints of the split Twins-SVT and LeViT written whole and
   restored into unsplit models; the placements of LeViT's split BatchNorm
-  buffers; what ``shard_params`` still refuses (the hybrid tier, ScalableViT,
-  ATS-ViT, CCT and T2T-ViT, each naming its module).  Twins-SVT, CvT and LeViT
+  buffers; what ``shard_params`` still refuses (the hybrid tier, naming its
+  module; a hidden width that does not split runs whole).  Twins-SVT, CvT and LeViT
   also train at dropout 0.1 with one generator seed on every rank, on data
   rank 0's slice, against the one-process step on that slice with the same
   generator (1e-5), and raise without a generator.
@@ -200,7 +200,7 @@ def test_units_cover_the_rule_table(name):
 
     model = worker.build(name)
     units, transformers = sharding._units(model)
-    sharding._refuse(model, 2, units, transformers)
+    sharding._refuse(model, units, transformers)
     covered = {f"{u.path}.{k}" for u in units for k in u.cuts}
     sharded = {k for k, spec in sharding.param_specs(model).items() if isinstance(spec, Shard)}
     assert sharded <= covered, sharded - covered
@@ -210,11 +210,14 @@ def test_units_cover_the_rule_table(name):
 
 
 def test_shard_params_refuses_a_hidden_width_that_does_not_divide():
+    """A hidden width that does not split over the ranks is no refusal: the
+    MLP runs whole (``sharding._runs_whole``), its neighbours split."""
     model = worker.build("levit")
     model.stage_0.mlp_0.fc1.weight.data = torch.zeros(63, 32, 1, 1)
     units, transformers = sharding._units(model)
-    with pytest.raises(NotImplementedError, match=r"stage_0\.mlp_0\.fc1's hidden width 63"):
-        sharding._refuse(model, 2, units, transformers)
+    sharding._refuse(model, units, transformers)
+    whole = {u.path for u in units if sharding._runs_whole(u, 2)}
+    assert whole == {"stage_0.mlp_0"}
 
 
 # --- four gloo ranks over a (2, 2) mesh -------------------------------------
@@ -478,16 +481,14 @@ def test_state_placements_follow_the_plan(runs):
         assert placed["stage_1.mlp_0.fc1.weight"] == ["R", "S(0)"]
 
 
-# Why each model of worker.REFUSED is refused: its modules have no split form
-# (the rule table shards them), the hybrid tier's kernels none, T2T-ViT's
-# single-head token transformers no output projection.
-REFUSAL_REASONS = {"hybrid tier": "fused_attention='hybrid'",
-                   "T2T-ViT": "t2t_transformer_0.layers.0.attn has no output projection"}
+# Why each model of worker.REFUSED is refused: the hybrid tier's kernels have
+# no split form.
+REFUSAL_REASONS = {"hybrid tier": "fused_attention='hybrid'"}
 
 
 @pytest.mark.parametrize("name", list(worker.REFUSED))
 def test_shard_params_still_refuses_the_other_models(runs, name):
-    reason = REFUSAL_REASONS.get(name, "is split over the 'model' axis by the rule table")
+    reason = REFUSAL_REASONS[name]
     for rank in runs["ranks"]:
         refusal = rank["refusals"][name]
         assert refusal.startswith("NotImplementedError: shard_params: ") and \

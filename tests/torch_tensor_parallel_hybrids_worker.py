@@ -49,22 +49,11 @@ DROPOUT_RATE, DROPOUT_SEED = 0.1, 7
 # CvT-13's heads (1, 3, 6) at narrow widths: stages 1-2 run whole at tp 2.
 CVT13_HEADS = dict(num_classes=5, s1_emb_dim=16, s2_emb_dim=24, s3_emb_dim=48, s2_depth=1,
                    s3_depth=1)
-# What shard_params still refuses, each at its own test's configuration:
-# (class, or module.class, in vit_tpu_torch; constructor arguments).
+# What shard_params still refuses, at its own test's configuration: (class,
+# or module.class, in vit_tpu_torch; constructor arguments).
 REFUSED = {
     "hybrid tier": ("ViT", dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2,
                                 heads=2, mlp_dim=128, dim_head=32, fused_attention="hybrid")),
-    "ScalableViT": ("ScalableViT", dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2),
-                                        reduction_factor=(4, 2), window_size=(8, None),
-                                        ssa_dim_key=(40, 40), ssa_dim_value=(32, 32))),
-    "ATS-ViT": ("ats_vit.ViT", dict(image_size=64, patch_size=8, num_classes=13, dim=64,
-                                    depth=3, max_tokens_per_depth=(32, 16, 8), heads=2,
-                                    mlp_dim=128, dim_head=32)),
-    "CCT": ("CCT", dict(img_size=32, embedding_dim=32, n_conv_layers=2, kernel_size=3,
-                        stride=1, in_planes=8, num_layers=2, num_heads=2, mlp_ratio=2.0,
-                        num_classes=5)),
-    "T2T-ViT": ("T2TViT", dict(image_size=32, num_classes=10, dim=64, depth=2, heads=2,
-                               mlp_dim=128, dim_head=32)),
 }
 
 

@@ -18,9 +18,15 @@ SMALL_VIT = dict(image_size=32, patch_size=8, num_classes=10, dim=64, depth=2, h
 DROPOUT_VIT = dict(SMALL_VIT, dropout=0.1, emb_dropout=0.1)
 MAE_ENCODER = dict(image_size=64, patch_size=16, num_classes=10, dim=64, depth=2, heads=2,
                    mlp_dim=128, dim_head=32)
-# A model shard_params still refuses (its attentions have no split form).
 SCALABLE = dict(num_classes=10, dim=32, depth=(1, 1), heads=(2, 2), reduction_factor=(4, 2),
                 window_size=(8, None), ssa_dim_key=(40, 40), ssa_dim_value=(32, 32))
+# What shard_params once refused, now split or run whole: three heads and a
+# 24-wide MLP over two ranks (those units whole), ScalableViT (split, IWSA's
+# to_v whole); each from one seed, against the one-process steps.
+WHOLE_RULE = {"heads": ("ViT", dict(SMALL_VIT, heads=3)),
+              "hidden": ("ViT", dict(SMALL_VIT, mlp_dim=24)),
+              "scalable": ("ScalableViT", SCALABLE)}
+WHOLE_SEED = 300
 MESH = (2, 2)
 LR, STEPS = 1e-2, 2
 DROPOUT_SEED, MAE_SEED = 100, 200
@@ -67,10 +73,37 @@ def kernel_route(calls):
         common.kernel_activation, common.fused_attention_block, common.fused_mlp = saved
 
 
+def whole_rule_run(name, mesh, images, labels, inputs):
+    """:data:`WHOLE_RULE`'s ``name`` from :data:`WHOLE_SEED`, split over
+    ``mesh`` on this rank's slice, and on one process on the whole batch:
+    STEPS SGD steps each, the losses, the gathered state and the plan's
+    whole units and replicated parameters."""
+    import vit_tpu_torch
+    from vit_tpu_torch.interop.checkpoint import full_state_dict
+    from vit_tpu_torch.parallel.sharding import shard_params
+    from vit_tpu_torch.parallel.train import make_train_step
+
+    cls, cfg = WHOLE_RULE[name]
+
+    def trained(mesh, images, labels):
+        model = getattr(vit_tpu_torch, cls)(**cfg, device="cpu",
+                                            generator=torch.Generator().manual_seed(WHOLE_SEED))
+        shard_params(mesh, model)
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR), mesh=mesh)
+        return model, [float(step(images, labels)["loss"]) for _ in range(STEPS)]
+
+    model, losses = trained(mesh, images, labels)
+    one, one_losses = trained(None, inputs["images"], inputs["labels"])
+    plan = model.tensor_parallel
+    return {"losses": losses, "state": full_state_dict(model), "whole": list(plan.whole),
+            "replicated": list(plan.replicated),
+            "one process": {"losses": one_losses, "state": one.state_dict()}}
+
+
 def run(rank: int, world: int, port: int, workdir: str) -> None:
     import torch.distributed as dist
 
-    from vit_tpu_torch import MAE, ScalableViT, ViT
+    from vit_tpu_torch import MAE, ViT
     from vit_tpu_torch.interop.checkpoint import (
         CheckpointManager, full_state_dict, restore_checkpoint,
     )
@@ -137,16 +170,12 @@ def run(rank: int, world: int, port: int, workdir: str) -> None:
         results["refusals"] = {
             "hybrid": _refusal(lambda: shard_params(mesh, ViT(**SMALL_VIT, device="cpu",
                                                               fused_attention="hybrid"))),
-            "heads": _refusal(lambda: shard_params(mesh, ViT(**dict(SMALL_VIT, heads=3),
-                                                             device="cpu"))),
-            "hidden": _refusal(lambda: shard_params(mesh, ViT(**dict(SMALL_VIT, mlp_dim=24),
-                                                              device="cpu"))),
-            "scalable": _refusal(lambda: shard_params(mesh, ScalableViT(**SCALABLE,
-                                                                        device="cpu"))),
             "unsplit step": _refusal(lambda: make_train_step(
                 ViT(**SMALL_VIT, device="cpu"), torch.optim.SGD([torch.zeros(1)], lr=LR),
                 mesh=mesh)),
         }
+        results["whole rule"] = {name: whole_rule_run(name, mesh, images, labels, inputs)
+                                 for name in WHOLE_RULE}
 
         # A one-process checkpoint restored into the split model, then saved
         # from it: every rank gathers, rank 0 writes.

@@ -78,8 +78,9 @@ ViT's branches, DeepViT's, the patch merger's, CaiT's and CrossViT's layers)
 is split as a ``Transformer``'s is; CaiT's talking heads and DeepViT's
 re-attention mix all heads with one ``(heads, heads)`` matrix, which
 :func:`~vit_tpu_torch.ops.tensor_parallel.mix_across_heads` splits by heads.
-An attention outside a ``Transformer`` whose heads the axis does not divide
-runs whole on every rank with the shard :data:`WHOLE`: no collective (every
+A unit that cannot split (heads the axis does not divide, an attention
+without an output projection, a hidden width that does not split) runs
+whole on every rank with the shard :data:`WHOLE`: no collective (every
 helper here takes :data:`WHOLE` for a module that is not split), and its
 dropout draws from the generator as the split modules' does.
 """
@@ -168,11 +169,13 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 def dropout_shard(x: torch.Tensor, rate: float, training: bool,
-                  generator: torch.Generator | None, shard: "ModelShard") -> torch.Tensor:
-    """:func:`dropout` of this rank's slice of a column-split activation
-    (``x``'s last axis: ``shard.rank``'s part of ``shard.size``): the
-    full-width mask drawn from ``generator``, as one process draws it, and
-    this rank's columns of it."""
+                  generator: torch.Generator | None, shard: "ModelShard",
+                  dim: int = -1) -> torch.Tensor:
+    """:func:`dropout` of this rank's slice of a split activation (``x``'s
+    axis ``dim``, the last by default: ``shard.rank``'s part of
+    ``shard.size``; CCT's attention matrix passes its head axis): the full
+    mask drawn from ``generator``, as one process draws it, and this rank's
+    slice of it."""
     if rate == 0.0 or not training:
         return x
     if rate == 1.0:
@@ -180,9 +183,11 @@ def dropout_shard(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError("dropout in training draws from an explicit generator: pass "
                          "generator= to the forward")
-    width, keep = x.shape[-1], 1.0 - rate
-    full = dropout_mask(generator, x.shape[:-1] + (width * shard.size,), keep)
-    mask = full[..., shard.rank * width:(shard.rank + 1) * width].to(x.device)
+    dim, keep = dim % x.dim(), 1.0 - rate
+    width = x.shape[dim]
+    full = dropout_mask(generator, x.shape[:dim] + (width * shard.size,) + x.shape[dim + 1:],
+                        keep)
+    mask = full.narrow(dim, shard.rank * width, width).to(x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -206,10 +211,9 @@ COLUMN, ROW, QKV, KV = "column", "row", "qkv", "kv"
 MLP_CUTS = {"fc1.weight": COLUMN, "fc1.bias": COLUMN, "fc2.weight": ROW}
 
 WHOLE = ModelShard(None, 0, 1)
-"""The shard of an attention outside a ``Transformer`` that runs whole inside
-a split model (its heads do not divide over the axis): no collective, and
-its dropout draws from the forward's generator, so that the ranks draw one
-mask."""
+"""The shard of a unit that runs whole inside a split model (it cannot split
+over the axis): no collective, and its dropout draws from the forward's
+generator, so that the ranks draw one mask."""
 
 
 def _splits(shard: ModelShard | None) -> bool:

@@ -27,6 +27,13 @@ sampling draws from a generator seeded 0 on the input's device, so that a
 forward stays deterministic (``vit_tpu``'s ``PRNGKey(0)`` rule: the same
 contract, not the same values), and an active dropout raises.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+the attentions split by heads (:class:`ATSAttention`), the MLPs by hidden
+units (rows 1-2's split form on the card with ``fused_mlp="auto"``).  The
+ranks of a model group keep one token set: the sampling's score sum runs
+over the group, and every rank draws the same noise from its copy of the
+generator.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=`` (the parameter
 dtype), ``compute_dtype=`` (``vit_tpu``'s ``dtype``, the activations'),
 ``generator=`` (the initialisation's) and ``channels=``; ``fused_mlp`` takes
@@ -43,8 +50,10 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
 from vit_tpu_torch.layers.common import (
-    MLP, LayerNorm, check_fused_mode, dropout, fused_mlp_residual, glorot_linear_, linear,
+    MLP, QKV, ROW, LayerNorm, check_fused_mode, dropout, fused_mlp_residual, glorot_linear_,
+    is_split, linear, row_parallel_output, split_input,
 )
+from vit_tpu_torch.ops import tensor_parallel
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
 from vit_tpu_torch.ops.patchify import patchify
@@ -66,12 +75,19 @@ def sample_gumbel(generator: torch.Generator, shape, eps: float = 1e-6) -> torch
 
 def adaptive_token_sampling(attn: torch.Tensor, value: torch.Tensor, mask: torch.Tensor,
                             output_num_tokens: int, generator: torch.Generator,
-                            eps: float = 1e-6):
+                            eps: float = 1e-6, group=None):
     """Static-shape ATS (``vit_tpu/models/ats_vit.py:47-86``) over the f32
     attention ``attn`` ``(b, h, n, n)``, the values ``(b, h, n, d)`` and the
     token mask ``(b, n)``.  Returns the attention rows of the sampled queries
     ``(b, h, k + 1, n)``, their mask ``(b, k + 1)`` and their ids ``(b, k +
-    1)``: slot 0 is the cls row, padding slots have id 0 and mask False."""
+    1)``: slot 0 is the cls row, padding slots have id 0 and mask False.
+
+    ``group`` (a split attention's model group, ``attn`` and ``value``
+    holding this rank's heads): the value-weighted cls row, summed over the
+    local heads in f32, is summed over the group before the normalisation,
+    so every rank holds the same pseudo-logits, makes the same draw from its
+    copy of the generator and keeps the same tokens.  Only the argmax reads
+    the sum, so it takes no gradient."""
     b, h, n, _ = attn.shape
     cls_attn = attn[..., 0, 1:]  # (b, h, n - 1)
     # The value norms in v's dtype (the compute dtype: bf16 on the card), a
@@ -79,6 +95,8 @@ def adaptive_token_sampling(attn: torch.Tensor, value: torch.Tensor, mask: torch
     # weighting then runs in f32.
     value_norms = torch.linalg.vector_norm(value[..., 1:, :], dim=-1)
     cls_attn = torch.einsum("bhn,bhn->bn", cls_attn, value_norms.to(cls_attn.dtype))
+    if group is not None:
+        cls_attn = tensor_parallel.all_reduce_sum(cls_attn.detach().clone(), group)
     normed = cls_attn / (cls_attn.sum(-1, keepdim=True) + eps)
 
     pseudo_logits = torch.where(mask[:, 1:], log(normed), HALF_MASK_VALUE)
@@ -103,7 +121,18 @@ def adaptive_token_sampling(attn: torch.Tensor, value: torch.Tensor, mask: torch
 
 class ATSAttention(nn.Module):
     """``vit_tpu/models/ats_vit.py:89-136``: returns the output, the mask and
-    the sampled ids (None where the layer keeps its tokens)."""
+    the sampled ids (None where the layer keeps its tokens).
+
+    ``shard`` (a ``ModelShard``, set by ``shard_params``) splits it by heads
+    as ``Attention`` is split (``tp_cuts``: ``to_qkv`` by heads in each
+    third, ``to_out``'s columns; ``heads`` the local count): the input
+    enters through ``f``, the sampling's score sum runs over the model group
+    (:func:`adaptive_token_sampling`'s ``group``), the gather of the
+    attention rows stays local, and ``to_out``'s f32 partial is summed over
+    the group, its bias added once."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
                  output_num_tokens: int | None = None, *, device=None, dtype=None,
@@ -119,7 +148,8 @@ class ATSAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
         num_tokens = x.shape[1]
-        q, k, v = (split_heads(t, self.heads) for t in linear(self.to_qkv, x).chunk(3, dim=-1))
+        q, k, v = (split_heads(t, self.heads)
+                   for t in linear(self.to_qkv, split_input(x, self.shard)).chunk(3, dim=-1))
         dots_mask = None if mask is None else mask[:, None, :, None] & mask[:, None, None, :]
         attn = attention_weights(q, k, scale=self.dim_head ** -0.5, mask=dots_mask)  # f32
 
@@ -128,9 +158,11 @@ class ATSAttention(nn.Module):
             gen = generator if generator is not None else \
                 torch.Generator(device=x.device).manual_seed(0)
             attn, mask, sampled_token_ids = adaptive_token_sampling(
-                attn, v, mask, self.output_num_tokens, gen)
+                attn, v, mask, self.output_num_tokens, gen,
+                group=self.shard.group if is_split(self) else None)
 
-        out = linear(self.to_out[0], merge_heads(apply_attention(attn, v)))
+        out = row_parallel_output(self.to_out[0], merge_heads(apply_attention(attn, v)),
+                                  self.shard)
         return dropout(out, self.dropout, self.training, generator), mask, sampled_token_ids
 
 

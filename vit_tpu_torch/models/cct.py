@@ -22,6 +22,12 @@ forward at a rate above 0 without one raises, as Flax does without a
 ``'dropout'`` rng.  CCT's defaults draw in training: attention dropout 0.1
 and stochastic depth 0.1.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+each layer's attention splits by heads (:class:`CCTAttention`); its
+feed-forward stays whole, as the rule table leaves ``linear1`` and
+``linear2``; an attention whose heads the axis does not divide (CCT-14's six
+at tp 4) runs whole.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=`` (the parameter
 dtype), ``compute_dtype=`` (``vit_tpu``'s ``dtype``, the activations') and
 ``generator=`` (the initialisation's); ``n_input_channels`` is the image's.
@@ -44,7 +50,8 @@ from torch import nn
 
 from vit_tpu_torch.core.helpers import pair, resolve_device
 from vit_tpu_torch.layers.common import (
-    Conv, DropPath, LayerNorm, dropout, gelu_exact, glorot_linear_, linear, max_pool_same,
+    QKV, ROW, Conv, DropPath, LayerNorm, dropout, dropout_shard, gelu_exact, glorot_linear_,
+    is_split, linear, max_pool_same, row_parallel_output, split_input,
 )
 from vit_tpu_torch.ops.attention import apply_attention, attention_weights
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
@@ -69,23 +76,41 @@ def _ceil_div(a: int, b: int) -> int:
 
 class CCTAttention(nn.Module):
     """``vit_tpu/models/cct.py:57-85``: ``head_dim = dim // num_heads``,
-    dropout on the f32 attention matrix and on the output projection."""
+    dropout on the f32 attention matrix and on the output projection.
+
+    ``shard`` (a ``ModelShard``, set by ``shard_params``) splits it by heads
+    (``tp_cuts``: ``to_qkv`` by heads in each third, ``proj``'s columns;
+    ``heads`` the local count): the input enters through ``f``, ``proj``'s
+    f32 partial is summed over the model group and its bias added once.
+    ``proj`` is cut beyond the rule table, which replicates it in
+    ``vit_tpu``: each head reads only its own columns, so the numbers are
+    the same.  The attention matrix's dropout draws the full ``(b, heads,
+    n, n)`` mask and takes this rank's heads, the projection's the full
+    mask, in that order, so that a split forward equals the one-process
+    forward on one generator."""
+
+    shard = None
+    tp_cuts = {"to_qkv.weight": QKV, "proj.weight": ROW}
 
     def __init__(self, dim: int, num_heads: int = 8, attention_dropout: float = 0.1,
                  projection_dropout: float = 0.1, *, device=None, dtype=None, generator=None):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
-        self.num_heads, self.head_dim = num_heads, dim // num_heads
+        self.heads, self.head_dim = num_heads, dim // num_heads
         self.attention_dropout, self.projection_dropout = attention_dropout, projection_dropout
         self.to_qkv = glorot_linear_(nn.Linear(dim, dim * 3, bias=False, **kw), generator)
         self.proj = glorot_linear_(nn.Linear(dim, dim, **kw), generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        q, k, v = (split_heads(t, self.num_heads)
-                   for t in linear(self.to_qkv, x).chunk(3, dim=-1))
+        q, k, v = (split_heads(t, self.heads)
+                   for t in linear(self.to_qkv, split_input(x, self.shard)).chunk(3, dim=-1))
         attn = attention_weights(q, k, scale=self.head_dim ** -0.5)  # f32
-        attn = dropout(attn, self.attention_dropout, self.training, generator)
-        out = linear(self.proj, merge_heads(apply_attention(attn, v)))
+        if is_split(self):
+            attn = dropout_shard(attn, self.attention_dropout, self.training, generator,
+                                 self.shard, dim=1)
+        else:
+            attn = dropout(attn, self.attention_dropout, self.training, generator)
+        out = row_parallel_output(self.proj, merge_heads(apply_attention(attn, v)), self.shard)
         return dropout(out, self.projection_dropout, self.training, generator)
 
 

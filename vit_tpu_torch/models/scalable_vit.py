@@ -23,6 +23,15 @@ SSA → FF → (PEG, after the first block) → IWSA → FF, as ``vit_tpu`` runs
   exact-erf GELU) run by :func:`vit_tpu_torch.layers.common.
   fused_conv_mlp_residual`: the fused MLP kernels on a 16-bit CUDA map.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+SSA and IWSA split by heads, the conv-MLPs by hidden units; on the card
+:func:`ssa_residual` runs row 6's split form, IWSA the packed flash op
+(row 10) over the rank's heads, the conv-MLPs rows 1-2's split form.
+IWSA's ``to_v`` stays whole (its local module reads all of v).  The PEGs,
+the downsample convolutions and the norms run whole.  ``forward``'s
+``generator`` draws every dropout, which a split model's active dropout
+needs.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=`` (the parameter
 dtype), ``compute_dtype=`` (``vit_tpu``'s ``dtype``, the activations') and
 ``generator=``, as :class:`vit_tpu_torch.models.cvt.CvT`.
@@ -38,9 +47,10 @@ from torch import nn
 from vit_tpu_torch.core.helpers import cast_tuple, default, resolve_device
 from vit_tpu_torch.layers.common import (
     COLUMN, ROW, ChannelLayerNorm, Conv, GroupedConv, LayerNorm, cast_to, check_fused_mode,
-    fused_conv_mlp_residual, gelu_exact, glorot_linear_, kernel_activation, linear,
-    row_parallel_conv, split_dropout, split_input,
+    fused_conv_mlp_residual, gelu_exact, glorot_linear_, group_kw, is_split, kernel_activation,
+    linear, row_parallel_conv, split_dropout, split_input,
 )
+from vit_tpu_torch.ops import tensor_parallel
 from vit_tpu_torch.ops.attention import packed_window_attention, scaled_dot_product_attention
 from vit_tpu_torch.ops.flash_attention_packed import merge_heads, split_heads
 from vit_tpu_torch.ops.fused_cross_attention import fused_cross_attention
@@ -79,7 +89,18 @@ class ConvMLP(nn.Module):
 class ScalableSelfAttention(nn.Module):
     """``vit_tpu/models/scalable_vit.py:52-88``: q from a 1x1 convolution, k
     and v from kernel = stride = ``reduction_factor`` convolutions, none with
-    a bias; ``to_out`` a 1x1 convolution and its dropout."""
+    a bias; ``to_out`` a 1x1 convolution and its dropout.  ``shard`` (a
+    ``ModelShard``, set by ``shard_params``) splits it by heads
+    (``tp_cuts``: ``to_q``'s, ``to_k``'s and ``to_v``'s rows, ``to_out``'s
+    columns; ``heads`` the local count): the map enters through ``f`` and
+    ``to_out`` sums its partials over the model group.  ``to_k`` is cut
+    beyond the rule table, which replicates it in ``vit_tpu``: each head's
+    keys are its own rows of it, so the numbers are the same.
+    ``generator``, where given, draws the dropout (``split_dropout``)."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_k.weight": COLUMN, "to_v.weight": COLUMN,
+               "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, heads: int = 8, dim_key: int = 32, dim_value: int = 32,
                  dropout: float = 0.0, reduction_factor: int = 1, **kw):
@@ -97,12 +118,14 @@ class ScalableSelfAttention(nn.Module):
     def dropout_active(self) -> bool:
         return self.training and self.to_out[1].p > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = x.shape
+        x = split_input(x, self.shard)
         q, k, v = (split_heads(t.flatten(1, 2), self.heads)
                    for t in (self.to_q(x), self.to_k(x), self.to_v(x)))
         out = scaled_dot_product_attention(q, k, v, scale=self.dim_key ** -0.5)
-        return self.to_out(merge_heads(out).reshape(b, h, w, -1))
+        out = row_parallel_conv(self.to_out[0], merge_heads(out).reshape(b, h, w, -1), self.shard)
+        return split_dropout(out, self.to_out[1], self.shard, generator)
 
 
 def _windows(t: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
@@ -123,7 +146,29 @@ class InteractiveWindowedSelfAttention(nn.Module):
     without bias, the 3x3 SAME ``local_interactive_module`` over v, attention
     within ``window_size`` windows (the whole map when ``None``) through
     :func:`packed_window_attention` (``fused``: its ``mode``), the local term
-    added, ``to_out`` and its dropout."""
+    added, ``to_out`` and its dropout.
+
+    ``shard`` (a ``ModelShard``, set by ``shard_params``) splits it by heads
+    (``tp_cuts``; ``heads`` the local count): ``to_q``'s and ``to_k``'s rows,
+    ``to_out``'s columns, and the ``local_interactive_module``'s output
+    channels (its weight's rows and its bias) with their heads.  The local
+    module is a dense 3x3 convolution over the whole v, so ``to_v`` stays
+    whole on every rank (the plan lists it under ``replicated``): it reads
+    the map before ``f``, and ``f`` follows it on v, so that v's gradient
+    (each rank's local-module share and its heads' attention share) is
+    summed over the model group once; the attention takes this rank's heads
+    of v, contiguous, and the packed flash op (row 10) runs over the local
+    heads.  Each output channel of the local module reads all of v, so the
+    cut keeps the numbers.  ``vit_tpu``'s rule table instead splits
+    ``to_v`` and replicates the local module (GSPMD gathers v); an
+    all-gather here would cost two all-reduces of a zero-padded v a layer
+    over gloo, which has no CUDA all-gather.  ``generator``, where given,
+    draws the dropout (``split_dropout``)."""
+
+    shard = None
+    tp_cuts = {"to_q.weight": COLUMN, "to_k.weight": COLUMN,
+               "local_interactive_module.weight": COLUMN,
+               "local_interactive_module.bias": COLUMN, "to_out.0.weight": ROW}
 
     def __init__(self, dim: int, window_size: int | None, heads: int = 8, dim_key: int = 32,
                  dim_value: int = 32, dropout: float = 0.0, fused: str = "auto", **kw):
@@ -138,39 +183,58 @@ class InteractiveWindowedSelfAttention(nn.Module):
         self.to_out = nn.Sequential(Conv(dim_value * heads, dim, 1, generator=gen, **kw),
                                     nn.Dropout(dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, _ = x.shape
         wh, ww = default(self.window_size, h), default(self.window_size, w)
         if h % wh or w % ww:
             raise ValueError(f"height ({h}) or width ({w}) of feature map is not divisible by "
                              f"the window size ({wh}, {ww})")
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        v = self.to_v(x)
+        if is_split(self):
+            v = tensor_parallel.copy_to_model_parallel(v, self.shard.group)
+        x = split_input(x, self.shard)
+        q, k = self.to_q(x), self.to_k(x)
         local = self.local_interactive_module(v)
+        if is_split(self):
+            width = v.shape[-1] // self.shard.size
+            v = v[..., self.shard.rank * width:(self.shard.rank + 1) * width].contiguous()
         out = packed_window_attention(*(_windows(t, wh, ww) for t in (q, k, v)), self.heads,
                                       scale=self.dim_key ** -0.5, mode=self.fused)
-        return self.to_out(_unwindows(out, b, h, w, wh, ww) + local)
+        out = row_parallel_conv(self.to_out[0], _unwindows(out, b, h, w, wh, ww) + local,
+                                self.shard)
+        return split_dropout(out, self.to_out[1], self.shard, generator)
 
 
 def ssa_residual(x: torch.Tensor, norm: ChannelLayerNorm, attn: ScalableSelfAttention,
-                 mode: str = "auto") -> torch.Tensor:
+                 mode: str = "auto", generator: torch.Generator | None = None) -> torch.Tensor:
     """``x + attn(norm(x))``: through the fused cross-attention kernels when
     ``mode`` is ``"auto"``, x is a 16-bit CUDA map, its height and width are
     multiples of the reduction factor and dropout is inactive
     (``vit_tpu``'s ``_fused_ssa_residual``, ``scalable_vit.py:149-186``);
-    else the plain modules.  The LayerNorm and the strided k/v convolutions
-    stay outside the kernel, as there."""
+    else the plain modules (``generator`` to their dropout).  The LayerNorm
+    and the strided k/v convolutions stay outside the kernel, as there.  A
+    split ``attn`` takes the block's split form (row 6's) over its heads, as
+    Twins-SVT's global attention does: ``f`` takes xn in f32 before ``to_q``
+    (inside the kernel), ``to_k`` and ``to_v``, so that the kernel's f32
+    partial dxn and the convolutions' shares meet, and are summed over the
+    model group, before the one rounding to xn's dtype."""
     b, h, w, c = x.shape
     r = attn.reduction_factor
     if mode != "auto" or not kernel_activation(x) or h % r or w % r or attn.dropout_active:
-        return x + attn(norm(x))
+        return x + attn(norm(x), generator)
     xn = norm(x)
+    xq = xn
+    if is_split(attn):
+        xq = split_input(xn.float(), attn.shard)  # f32: dxn's shares meet unrounded
+        xn = xq.to(x.dtype)
     k, v = attn.to_k(xn), attn.to_v(xn)
     out = attn.to_out[0]
     y = fused_cross_attention(
-        x.reshape(b, h * w, c).contiguous(), xn.reshape(b, h * w, c).contiguous(),
+        x.reshape(b, h * w, c).contiguous(), xq.reshape(b, h * w, c).contiguous(),
         cast_to(attn.to_q.weight, x).flatten(1), k.reshape(b, -1, k.shape[-1]).contiguous(),
         v.reshape(b, -1, v.shape[-1]).contiguous(), cast_to(out.weight, x).flatten(1),
-        cast_to(out.bias, x), attn.heads, attn.dim_key, attn.dim_value, attn.dim_key ** -0.5)
+        cast_to(out.bias, x), attn.heads, attn.dim_key, attn.dim_value, attn.dim_key ** -0.5,
+        **group_kw(attn))
     return y.reshape(b, h, w, c)
 
 
@@ -208,14 +272,17 @@ class ScalableTransformer(nn.Module):
         self.peg = GroupedConv(dim, 3, generator=gen, **kw)
         self.norm = ChannelLayerNorm(dim, **kw) if norm_output else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``, where given, draws every dropout."""
         for i, layer in enumerate(self.layers):
-            x = ssa_residual(x, layer["ssa_norm"], layer["ssa"], self.fused_attention)
-            x = fused_conv_mlp_residual(x, layer["ff1_norm"], layer["ff1"], self.fused_mlp)
+            x = ssa_residual(x, layer["ssa_norm"], layer["ssa"], self.fused_attention, generator)
+            x = fused_conv_mlp_residual(x, layer["ff1_norm"], layer["ff1"], self.fused_mlp,
+                                        generator=generator)
             if i == 0:
                 x = self.peg(x) + x
-            x = x + layer["iwsa"](layer["iwsa_norm"](x))
-            x = fused_conv_mlp_residual(x, layer["ff2_norm"], layer["ff2"], self.fused_mlp)
+            x = x + layer["iwsa"](layer["iwsa_norm"](x), generator)
+            x = fused_conv_mlp_residual(x, layer["ff2_norm"], layer["ff2"], self.fused_mlp,
+                                        generator=generator)
         return x if self.norm is None else self.norm(x)
 
 
@@ -259,10 +326,13 @@ class ScalableViT(nn.Module):
         self.head_norm = LayerNorm(dims[-1], **kw)
         self.head = glorot_linear_(nn.Linear(dims[-1], num_classes, **kw), generator)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``, where given, draws every dropout (a split model's
+        active dropout needs one: the ranks draw one mask)."""
         x = self.to_patches(img.to(self.compute_dtype or self.head.weight.dtype))
         for i in range(self.stages):
-            x = getattr(self, f"stage_{i}")(x)
+            x = getattr(self, f"stage_{i}")(x, generator)
             if i < self.stages - 1:
                 x = getattr(self, f"downsample_{i}")(x)
         return linear(self.head, self.head_norm(x.mean(dim=(1, 2))))

@@ -21,6 +21,13 @@ The encoder is the port's :class:`~vit_tpu_torch.layers.common.Transformer`
 (rows 1-4 at dim 512, 8 heads of 64 at the benchmark's config), or
 ``transformer=``, any module that maps tokens to tokens.
 
+Tensor parallelism (:func:`vit_tpu_torch.parallel.sharding.shard_params`):
+the encoder splits as a ``Transformer`` does (rows 1-4's split forms on the
+card); the token transformers cannot split (one head without an output
+projection, MLPs 147 and 1323 wide) and run whole on every rank, on the
+unsplit kernels.  ``forward``'s ``generator`` draws every dropout, which a
+split model's active dropout needs.
+
 Constructor: ``vit_tpu``'s, plus ``device=``, ``dtype=`` (the parameter
 dtype), ``compute_dtype=`` and ``generator=``, as
 :class:`vit_tpu_torch.models.vit.ViT`; the image is cast to the compute
@@ -35,7 +42,9 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.core.helpers import resolve_device
-from vit_tpu_torch.layers.common import LayerNorm, Transformer, glorot_linear_, linear
+from vit_tpu_torch.layers.common import (
+    LayerNorm, Transformer, glorot_linear_, linear, model_shard, split_dropout,
+)
 from vit_tpu_torch.ops.patchify import extract_patches
 
 
@@ -87,10 +96,11 @@ class T2TViT(nn.Module):
         self.head_norm = LayerNorm(dim, **kw)
         self.head = glorot_linear_(nn.Linear(dim, num_classes, **kw), generator)
 
-    def tokens(self, img: torch.Tensor) -> torch.Tensor:
+    def tokens(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """Image → the T2T stages → patch embedding → +CLS → +pos, in the
-        compute dtype (no dropout: the distillable student appends its token
-        before the dropout)."""
+        compute dtype (no embedding dropout: the distillable student appends
+        its token before it); ``generator`` draws the token transformers'
+        dropout."""
         x = img.to(self.compute_dtype or self.patch_embedding.weight.dtype)
         last = len(self.t2t_layers) - 1
         for i, (kernel_size, stride) in enumerate(self.t2t_layers):
@@ -100,7 +110,7 @@ class T2TViT(nn.Module):
             x = extract_patches(x, kernel_size, stride, padding="SAME")
             x = x.reshape(x.shape[0], -1, x.shape[-1])
             if i < last:
-                x = getattr(self, f"t2t_transformer_{i}")(x)
+                x = getattr(self, f"t2t_transformer_{i}")(x, generator)
         x = linear(self.patch_embedding, x)
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
@@ -110,5 +120,9 @@ class T2TViT(nn.Module):
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         return linear(self.head, self.head_norm(x))
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        return self.pool_head(self.transformer(self.emb_dropout(self.tokens(img))))
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the draws of every active dropout (a split model's
+        need one: the ranks draw one mask)."""
+        x = split_dropout(self.tokens(img, generator), self.emb_dropout, model_shard(self),
+                          generator)
+        return self.pool_head(self.transformer(x, generator=generator))

@@ -57,7 +57,16 @@ splits:
 - RegionViT's ``RegionAttention`` (as ``Attention``), each stage's
   ``local_rel_pos_bias`` table by heads (its columns) and ``RegionMLP``;
 - NesT's ``NesTAttention`` (as ``Attention``) and its transformers'
-  ``mlp_fc1_{i}`` / ``mlp_fc2_{i}``.
+  ``mlp_fc1_{i}`` / ``mlp_fc2_{i}``;
+- ATS-ViT's ``ATSAttention`` (as ``Attention``; the token sampling's score
+  sum over the model group, so every rank keeps one token set) and CCT's
+  ``CCTAttention`` (``to_qkv`` as ``Attention``'s, ``proj``'s columns; its
+  ``linear1`` / ``linear2`` whole, as the rule table leaves them);
+- ScalableViT's ``ScalableSelfAttention`` (``to_q``, ``to_k``, ``to_v`` by
+  rows, ``to_out``'s columns), its ``InteractiveWindowedSelfAttention``
+  (``to_q`` and ``to_k`` by rows, the ``local_interactive_module`` by output
+  channels, ``to_out``'s columns; ``to_v`` whole) and its ``ConvMLP`` s;
+  T2T-ViT's encoder as a ``Transformer``'s.
 
 These modules declare their cuts themselves (``tp_cuts``, beside
 ``shard``); a ``Transformer``'s layers take :data:`_TRANSFORMER_CUTS`.
@@ -67,28 +76,33 @@ split: an active dropout without one raises.
 
 LeViT's ``pos_bias`` columns and its q, k and v BatchNorms' channels
 (scale, bias and running statistics), RegionViT's ``local_rel_pos_bias``
-columns, CaiT's two head mixes and DeepViT's ``reattn_weights`` are split
-with their heads, beyond the rule table, which
-replicates them in ``vit_tpu``: each head reads only its own rows or
-columns, so the numbers are the same.  The other way, CrossFormer's ``DynamicPositionBias``
-stays whole where the rule table matches its ``fc1`` and ``fc2`` by name:
-GSPMD shards them around a LayerNorm over the split width, no Megatron pair;
-whole, its table reaches every rank's heads through
-``copy_to_model_parallel``, with the same numbers.  The plan lists such
-parameters under ``replicated``.  An attention outside a ``Transformer``
-whose heads the axis does not divide (CvT-13's stages 1-2 at tp 2, a
-three-head LeViT stage, NesT@224's hierarchy 1, a two-head one at tp 4)
-runs whole on every rank: its parameters
-stay unsplit, it needs no collective (its ``shard`` is
-``layers.common.WHOLE``), and the plan lists it under ``whole``.  ``vit_tpu``
-splits such a layer inside a head and GSPMD sums the partial logits: the
-same numbers.  The plan's ``kinds`` name every split parameter and buffer
-with its cut (:data:`COLUMN`, :data:`ROW`, :data:`QKV`, :data:`KV`), so a
-checkpoint gathers them whole.  A ``Transformer``'s attention whose heads do
-not divide still raises, as does whatever else the rule table would shard:
-the hybrid tier, ScalableViT, ATS-ViT, CCT and T2T-ViT's single-head token
-transformers, ``NotImplementedError`` naming the module; nothing falls
-through to replication.
+columns, CaiT's two head mixes, DeepViT's ``reattn_weights``, CCT's
+``proj``, ScalableViT's ``to_k`` and IWSA's ``local_interactive_module`` are
+split with their heads, beyond the rule table, which replicates them in
+``vit_tpu``: each head reads only its own rows or columns, and each output
+channel of the local module all of v, so the numbers are the same.  The
+other way, CrossFormer's ``DynamicPositionBias`` stays whole where the rule
+table matches its ``fc1`` and ``fc2`` by name (GSPMD shards them around a
+LayerNorm over the split width, no Megatron pair), and so does IWSA's
+``to_v``, whose output the dense 3x3 local module reads whole: whole, each
+reaches every rank's heads through ``copy_to_model_parallel``, with the same
+numbers.  The plan lists such parameters under ``replicated``.
+
+A unit that cannot split runs whole on every rank: an attention whose heads
+the axis does not divide (CvT-13's stages 1-2 at tp 2, a three-head LeViT
+stage, NesT@224's hierarchy 1, a two-head one at tp 4, CCT-14's six heads at
+tp 4), an ``Attention`` without an output projection (one head, ``dim_head
+== dim``: T2T-ViT's token transformers) and an MLP whose hidden width does
+not split (in multiples of 8 where the fused MLP may run: T2T-ViT's 147 and
+1323).  Its parameters stay unsplit, it needs no collective (its ``shard``
+is ``layers.common.WHOLE``), and the plan lists it under ``whole``.
+``vit_tpu`` splits such a layer inside a head (or places it whole where a
+width does not divide) and GSPMD sums the partials: the same numbers.  The
+plan's ``kinds`` name every split parameter and buffer with its cut
+(:data:`COLUMN`, :data:`ROW`, :data:`QKV`, :data:`KV`), so a checkpoint
+gathers them whole.  What still raises, ``NotImplementedError`` naming the
+module, is the hybrid tier and any parameter the rule table would shard
+that no module of the port holds: nothing falls through to replication.
 
     mesh = make_mesh((dp, tp))
     shard_params(mesh, model)           # in place, before the optimizer is built
@@ -220,9 +234,9 @@ class TensorParallelPlan:
     """What :func:`shard_params` did to a model: the mesh, this rank's
     :class:`~vit_tpu_torch.layers.common.ModelShard`, how each split
     parameter and buffer was cut (``{name: COLUMN | ROW | QKV | KV}``), the
-    attentions that run whole on every rank (their heads do not divide over
-    the axis) and, outside those, the parameters the rule table shards that
-    stay whole on every rank (CrossFormer's ``DynamicPositionBias``)."""
+    units that run whole on every rank (they cannot split over the axis)
+    and, outside those, the parameters the rule table shards that stay whole
+    on every rank (CrossFormer's ``DynamicPositionBias``, IWSA's ``to_v``)."""
 
     mesh: object
     shard: ModelShard
@@ -306,9 +320,10 @@ def _units(model: nn.Module) -> tuple[list, dict]:
     return units, transformers
 
 
-def _refuse(model, size, units, transformers) -> None:
+def _refuse(model, units, transformers) -> None:
     """``NotImplementedError`` naming the first module the rule table would
-    shard that this port cannot run split over ``size`` ranks."""
+    shard that no unit covers, or the first stack on the hybrid tier: what
+    this port cannot run split."""
     from torch.distributed.tensor import Shard
 
     covered = tuple(f"{u.path}." for u in units)
@@ -317,33 +332,31 @@ def _refuse(model, size, units, transformers) -> None:
             owner = name.rsplit(".", 1)[0]
             raise NotImplementedError(
                 f"shard_params: {owner} ({type(model.get_submodule(owner)).__name__}) is split "
-                f"over the '{MODEL_AXIS}' axis by the rule table, and the port runs split only "
-                f"layers/common.py's Attention and MLP and the attentions and MLPs of "
-                f"Twins-SVT, CvT, LeViT, MobileViT, the small-dataset ViT, CrossFormer, "
-                f"RegionViT, NesT, CaiT, DeepViT and CrossViT")
+                f"over the '{MODEL_AXIS}' axis by the rule table, and no module of the port "
+                f"that runs split or whole over it holds it")
     for tname, t in transformers.items():
         if t.fused_attention == "hybrid":
             raise NotImplementedError(
                 f"shard_params: {tname or 'the Transformer'} takes the short-sequence tier "
                 f"(fused_attention='hybrid': ln_gemm, attention_nb, proj_mlp), which has no "
                 f"split form yet")
-    for u in units:
-        if isinstance(u.module, Attention) and not u.module.project_out:
-            raise NotImplementedError(f"shard_params: {u.path} has no output projection to "
-                                      f"split by rows (heads 1, dim_head == dim)")
-        if u.in_stack and u.heads % size:
-            raise NotImplementedError(f"shard_params: {u.path} has {u.heads} heads, which "
-                                      f"{size} ranks do not divide")
-        if u.heads is not None:
-            continue
-        for name, kind in u.cuts.items():
-            if kind == COLUMN and name.endswith("weight"):
-                hidden = u.module.get_parameter(name).shape[0]
-                if hidden % size or hidden // size % u.multiple:
-                    raise NotImplementedError(
-                        f"shard_params: {_join(u.path, name.rsplit('.', 1)[0])}'s hidden width "
-                        f"{hidden} does not split over {size} ranks"
-                        + (f" into multiples of {u.multiple}" if u.multiple > 1 else ""))
+
+
+def _runs_whole(u: _Unit, size: int) -> bool:
+    """Whether ``u`` cannot split over ``size`` ranks and runs whole: an
+    ``Attention`` without an output projection (one head, ``dim_head ==
+    dim``), an attention whose heads ``size`` does not divide, or a hidden
+    width that does not split (into multiples of ``u.multiple``)."""
+    if isinstance(u.module, Attention) and not u.module.project_out:
+        return True
+    if u.heads is not None:
+        return u.heads % size != 0
+    for name, kind in u.cuts.items():
+        if kind == COLUMN and name.endswith("weight"):
+            hidden = u.module.get_parameter(name).shape[0]
+            if hidden % size or hidden // size % u.multiple:
+                return True
+    return False
 
 
 def _replace(module: nn.Module, name: str, kind: str, shard: ModelShard) -> None:
@@ -378,21 +391,18 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
     count) and each MLP its hidden units, as the module docstring lists
     them; each records the
     :class:`~vit_tpu_torch.layers.common.ModelShard`, and ``model`` the
-    :class:`TensorParallelPlan` (``model.tensor_parallel``).  An attention
-    outside a ``Transformer`` whose heads the axis does not divide stays
-    whole (``plan.whole``); CrossFormer's position-bias MLPs stay whole
+    :class:`TensorParallelPlan` (``model.tensor_parallel``).  A unit that
+    cannot split (heads the axis does not divide, no output projection, a
+    hidden width that does not split) stays whole (``plan.whole``);
+    CrossFormer's position-bias MLPs and IWSA's ``to_v`` stay whole
     (``plan.replicated``).  First the model group's first
     rank's parameters and buffers are broadcast, so the ranks split one
     model.  Call it before the optimizer is built: the split parameters are
     new tensors.
 
-    Raises ``NotImplementedError``, naming the module, where the rule table
-    would shard a parameter outside those modules (another attention or
-    MLP, a convolution), on the hybrid tier (``fused_attention="hybrid"``),
-    on a ``Transformer``'s attention without an output projection or whose
-    heads do not divide over the axis, or where a hidden width does not (in
-    multiples of 8 where the fused MLP may run): today the hybrid tier,
-    ScalableViT, ATS-ViT, CCT and T2T-ViT.  Without a mesh it returns
+    Raises ``NotImplementedError``, naming the module, on the hybrid tier
+    (``fused_attention="hybrid"``) and where the rule table would shard a
+    parameter that no module of the port holds.  Without a mesh it returns
     ``model`` as it is; over a ``model`` axis of 1 it splits nothing and
     records the plan."""
     if mesh is None:
@@ -406,11 +416,11 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
         from vit_tpu_torch.parallel.train import broadcast_state
 
         units, transformers = _units(model)
-        _refuse(model, size, units, transformers)
+        _refuse(model, units, transformers)
         broadcast_state(model, shard.group)
         with torch.no_grad():
             for u in units:
-                if u.heads is not None and u.heads % size:
+                if _runs_whole(u, size):
                     u.module.shard = WHOLE  # its dropout draws from the generator
                     whole.append(u.path)
                     continue
@@ -423,7 +433,7 @@ def shard_params(mesh, model: nn.Module) -> nn.Module:
 
 def _replicated(model: nn.Module, kinds: dict, whole: list) -> list:
     """The parameters the rule table shards that the plan keeps whole,
-    outside the attentions that run whole."""
+    outside the units that run whole."""
     from torch.distributed.tensor import Shard
 
     skip = tuple(f"{path}." for path in whole)
